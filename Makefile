@@ -1,7 +1,7 @@
 # Convenience targets (the package is pure Python + an optional on-demand
 # C++ component; there is no build step — ref parity: Makefile builds bin/simon).
 
-.PHONY: test test-fast test-tpu test-torch bench bench-scale bench-scale-smoke resume-smoke profile-smoke serve-smoke sweep-smoke svc-smoke serve-latency-smoke tune-smoke policy-smoke pallas-hbm-smoke chaos-smoke mesh-chaos-smoke fleet-chaos-smoke fleet-wan-smoke fleet-ha-smoke fleet-trace-smoke slo-smoke bench-gate sweep native clean
+.PHONY: test test-fast test-tpu test-torch test-cuda bench bench-scale bench-scale-smoke resume-smoke profile-smoke serve-smoke sweep-smoke svc-smoke serve-latency-smoke tune-smoke policy-smoke pallas-hbm-smoke chaos-smoke mesh-chaos-smoke fleet-chaos-smoke fleet-wan-smoke fleet-ha-smoke fleet-trace-smoke slo-smoke bench-gate sweep native clean
 
 # full suite, INCLUDING @pytest.mark.slow tests (pallas interpreter
 # sweeps, openb kill/resume, the full Bellman replay)
@@ -20,6 +20,12 @@ test-tpu:
 # the card's own check is `python3 chip_smoke.py`
 test-torch:
 	JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py -q
+
+# the port's card-only tests: each CUDA kernel against its plain version
+# under every policy configuration (needs a GPU; tests/conftest.py imports
+# JAX, which the card's machine does not have, hence --noconftest)
+test-cuda:
+	python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 bench:
 	python bench.py

@@ -9,15 +9,20 @@ result line:
            required.
 2. build   the port's CUDA kernels, compiled from tpusim_torch/kernels/*.cu.
 3. check   each kernel against its plain PyTorch version on the same inputs
-           on the card, tolerance zero (exact equality): fgd_init_tables on
-           the full openb tables, fgd_replay on seeded random clusters and
-           on the full openb FGD trace. Each kernel is timed beside its plain
-           version and its bound.
-4. main    Simulator.run() on the card with the paper's configuration (openb
-           gpu_node list, default trace, FGDScore 1000, gpu_sel FGDScore,
-           tune 1.3, tuning seed 42, seed 42): every kernel must have been
-           launched, and the placements and device masks must match the
-           digests of the JAX package's run of the same trace.
+           on the card, tolerance zero (exact equality), for every policy
+           configuration the kernels cover: init_tables on the full openb
+           tables of each, replay on seeded random clusters (256 nodes,
+           ~1k events for the method rows, ~300 for the other DotProduct
+           pairs and FGD/worst) and on the full openb FGD trace. Each
+           kernel is timed per method row at openb, and for FGD/worst (the
+           one-FGD configuration through the general kernel), beside its
+           plain version and its bound.
+4. main    Simulator.run() on the card for every row of the paper's method
+           list but 01-Random (openb gpu_node list, default trace, tune 1.3,
+           tuning seed 42, seed 42): the launch counts are set to 0 before
+           each row and read after it, every kernel must have been launched,
+           and the placements and device masks must match the digests of
+           the JAX package's run of the same row.
 
 It then prints one JSON line describing the kernels, the card's line, and
 as the last line {"ok": true, "device": {...}}.
@@ -47,14 +52,59 @@ OPENB_DEV_MASK_SHA256 = (
 )
 OPENB_EVENTS = 10811
 
+# The paper's method list (experiments/generate_run_scripts.py METHODS, the
+# reference's AllMethodList) but 01-Random, with the digests of the JAX
+# package's Simulator.run() of each on openb (tune 1.3, tuning seed 42,
+# seed 42, shuffled): (id, [(policy, weight)], gpu_sel, dim_ext, norm,
+# placed_node sha256, dev_mask sha256). tests/test_torch_driver.py pins
+# them against tpusim.
+METHODS = [
+    ("02-DotProd", [("DotProductScore", 1000)], "best", "merge", "max",
+     "cd3d3c92ae70688eb44a0885579d52f78abbf35023052660654587b748698607",
+     "5d8d9ab31be34e43b941b69ebb27f90ad23008b18f4e59608212245b9ad06cb0"),
+    ("03-GpuClustering", [("GpuClusteringScore", 1000)], "best", "share",
+     "max",
+     "2c3ff677fb68aea0aba8853501aa9fced09972a22c66a5f2614124ab8f4419f9",
+     "0e48c0b272b2b1b3377c2db212c019d2edb69e9173dc2c053938d684ba0d051f"),
+    ("04-GpuPacking", [("GpuPackingScore", 1000)], "best", "share", "max",
+     "74be55bd5b76db02acd1781a8f69af0b9eda4810435a265dd773966da0049a5b",
+     "e972b013cc96ee6973e610fea7452c10e56c962221e9a2be9698789cd634dad9"),
+    ("05-BestFit", [("BestFitScore", 1000)], "best", "share", "max",
+     "fd5cc9ca10d9b335f1bbd51776a2f1a4ed534a748c62d73d8a5741875f561f94",
+     "98e69aab86a550b961e704280b1c29bc4b45d36104de1df54d64e6b1d0f28b29"),
+    ("06-FGD", [("FGDScore", 1000)], "FGDScore", "share", "max",
+     OPENB_PLACED_SHA256, OPENB_DEV_MASK_SHA256),
+    ("07-PWR", [("PWRScore", 1000)], "PWRScore", "share", "max",
+     "f0453b26bac83573e63248a8b95b8c9bfc06bd0c51ad6687832ed63f72498f99",
+     "9ab248a0d5c742ad0faa1db91b6ab4279ca41d2bd28e39bdb9dd45e6e86c5572"),
+    ("08-PWR_500_FGD_500", [("FGDScore", 500), ("PWRScore", 500)],
+     "FGDScore", "share", "max",
+     "b068adbcf082c8427ab0160a66d02a31db04d9f2f2eeac207acd792fd4f2e0e4",
+     "c970edad98dcb61c2ecb588b9478f6e75ccca1b29b577d8a176217ee48655a21"),
+    ("11-PWR_100_FGD_900", [("FGDScore", 900), ("PWRScore", 100)],
+     "FGDScore", "share", "max",
+     "c1f3f7fec3661e7fcaeea69135679a75d0aec4cb377b1dbd894517b369c66f15",
+     "64b5801c48674ac3ff2de3e922021ee0a5bf682d8fbfaa8a12eb8ffb53678de6"),
+    ("12-PWR_50_FGD_950", [("FGDScore", 950), ("PWRScore", 50)],
+     "FGDScore", "share", "max",
+     "17175fbaa7e0c6120116cf22b7034c0e86c233783075439fe712aaf850bcdf7b",
+     "e77ee1c175eef12bcdfe2affac4075a653b06ac66e18476caa9fdec712100576"),
+]
+
 # NVIDIA H100 SXM peaks (data sheet): HBM3 bandwidth and float32 outside
 # the tensor cores, the type of FGD's arithmetic
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
 REPLACES = "tpusim/sim/pallas_engine.py:780"
+# rows whose replay is checked on ~1k-event random clusters; the other
+# configurations get ~300 events
+RANDOM_ROWS = ("02-DotProd", "03-GpuClustering", "04-GpuPacking",
+               "05-BestFit", "07-PWR", "08-PWR_500_FGD_500")
+DIM_EXT = ("merge", "share", "divide", "extend")
+NORM = ("node", "pod", "max")
 SOURCE = "tpusim_torch/kernels/replay.cu"
-WARM_RUNS = 5
+WARM_RUNS = 5  # the paper's FGD row; the other rows take 3
 
 
 class SmokeFailure(Exception):
@@ -128,36 +178,62 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def column_flops(ks: int, kw: int, t: int) -> int:
-    """Float32 operations of one FGD column (all K types on one node): the
-    node's current-frag sum over the T typical pods (multiply, add), once;
-    per share type, 8 per-device hypothetical sums (16 per typical pod) and
-    8 sigmoid scores of 6 operations; per whole type, one hypothetical sum
-    (2 per typical pod) and one sigmoid score."""
-    return 2 * t + ks * (16 * t + 48) + kw * (2 * t + 6)
+def column_ops(name: str, ks: int, kw: int, t: int, norm: str) -> int:
+    """Operations of one policy's column, all K = ks + kw types on one
+    node, counted from its code in replay.cu (float32 operations, and for
+    the integer columns their int32 operations):
+    FGD        the node's current-frag sum over the T typical pods (2T),
+               once; per share type 8 per-device hypothetical sums (16T)
+               and 8 sigmoid scores of 6; per whole type one hypothetical
+               sum (2T) and one sigmoid score (as counted before);
+    BestFit    16 per type;
+    GpuPacking ~420 per type (Sub's pick: 64 order compares, 64 ahead
+               counts, then the tiers);
+    GpuClustering ~30 per type;
+    PWR        per share type ~60 (two CPU watt figures, 8 devices x 4),
+               per whole type ~250 (with Sub's pick);
+    DotProduct 9 slots x 14 per type (1 slot under merge), and 15 more
+               per slot for tanh under norm=pod."""
+    k = ks + kw
+    if name == "FGDScore":
+        return 2 * t + ks * (16 * t + 48) + kw * (2 * t + 6)
+    if name == "DotProductScore":
+        return k * (9 * 14 + (9 * 15 if norm == "pod" else 0))
+    per_type = {"BestFitScore": 16, "GpuPackingScore": 420,
+                "GpuClusteringScore": 30}
+    if name == "PWRScore":
+        return 60 * ks + 250 * kw
+    return per_type[name] * k
 
 
-def bound_ms(bytes_moved: int, flops: int):
-    """(least milliseconds, what bounds it) from bytes and float32 ops."""
+def config_ops(cfg, ks: int, kw: int, t: int) -> int:
+    """Operations of one column under a ReplayConfig: every policy's."""
+    return sum(column_ops(p.name, ks, kw, t, cfg.norm) for p in cfg.policies)
+
+
+def bound_ms(bytes_moved: int, ops: int):
+    """(least milliseconds, what bounds it) from bytes and operations."""
     by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FP32_PER_S * 1e3
+    by_ops = ops / PEAK_FP32_PER_S * 1e3
     return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
 
 
 def chain_ms(step_ms: float, kinds: np.ndarray, n: int, k: int,
-             refreshes: int) -> float:
+             refreshes: int, n_pol: int = 1) -> float:
     """Least time of the replay's serial event chain. Every event waits on
     the one before it, so each costs at least one step of the block's event
     loop, `step_ms` (this run's all-skip replay per event: the event's read
     and the two block barriers that stand for the block-wide agreement
     every event needs), plus its own bytes at the memory rate: on a create
-    the type's feas and score rows and the ranks (12 N bytes), on a refresh
-    the dirty column (3 K table entries) and its node, and on every event
-    the event, the pod's fields, its outputs and one node's state."""
+    the type's feas row, each policy's score row and the ranks
+    ((n_pol + 2) x 4 N bytes), on a refresh the dirty column ((n_pol + 2)
+    K table entries) and its node, and on every event the event, the pod's
+    fields, its outputs and one node's state."""
     creates = int((kinds == 0).sum())
-    node_bytes = (1 + 1 + 8 + 9) * 4
+    node_bytes = (1 + 1 + 1 + 1 + 8 + 9) * 4
     per_event = 2 * 4 + 7 * 4 + 5 * 4 + 2 * node_bytes
-    bytes_moved = (creates * 12 * n + refreshes * (12 * k + node_bytes)
+    bytes_moved = (creates * 4 * (n_pol + 2) * n
+                   + refreshes * (4 * (n_pol + 2) * k + node_bytes)
                    + kinds.size * per_event)
     return kinds.size * step_ms + bytes_moved / PEAK_BYTES_PER_S * 1e3
 
@@ -217,34 +293,72 @@ def random_case(seed: int, num_nodes: int, num_pods: int, device):
             rank)
 
 
-def check_kernels(device, card: str):
-    """Phase 3: each kernel against its plain version on the card."""
+def check_configs():
+    """(label, ReplayConfig, pods of its random case) of every policy
+    configuration the kernels cover and this script checks: the method
+    rows, the eleven other DotProduct (dim_ext, norm) pairs, and FGD with
+    gpu_sel worst. FGD under gpu_sel FGDScore and best is checked on three
+    seeds of its own."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    out = []
+    for mid, policies, gpu_sel, dim_ext, norm, *_ in METHODS:
+        if mid != "06-FGD":
+            out.append((mid, fe.make_config(policies, gpu_sel, dim_ext, norm),
+                        800 if mid in RANDOM_ROWS else 230))
+    for dim_ext in DIM_EXT:
+        for norm in NORM:
+            if (dim_ext, norm) != ("merge", "max"):
+                out.append((f"DotProd-{dim_ext}-{norm}", fe.make_config(
+                    [("DotProductScore", 1000)], "DotProductScore", dim_ext,
+                    norm), 230))
+    out.append(("FGD-worst", fe.make_config([("FGDScore", 1000)], "worst"),
+                230))
+    return out
+
+
+def check_random(device):
+    """Both kernels against their plain versions on seeded random
+    clusters of 256 nodes, for every checked configuration. Returns the
+    largest error of each kernel."""
+    import torch
+
+    from tpusim_torch.sim import fused_engine as fe
+
+    worst = {"init_tables": 0, "replay": 0}
+    fgd = [(f"06-FGD seed={seed}", fe.make_config(
+        [("FGDScore", 1000)], "FGDScore" if seed != 3 else "best"), 800)
+        for seed in (1, 2, 3)]
+    for i, (label, cfg, num_pods) in enumerate(fgd + check_configs()):
+        state, pods, types, evk, evp, tp, rank = random_case(
+            i + 1, 256, num_pods, device)
+        tables = fe.init_tables(state, types, tp, cfg)
+        plain_tables = fe.plain_init_tables(state, types, tp, cfg)
+        err_t = max_abs_err(tables, plain_tables)
+        args = (state, pods, types, evk, evp, tp, rank, plain_tables, cfg)
+        err_r = max_abs_err(fe.replay(*args), fe.plain_replay(*args))
+        torch.cuda.synchronize()
+        print(f"check random {label} nodes=256 events={evk.shape[0]}: "
+              f"init_tables max_abs_err={err_t} replay max_abs_err={err_r} "
+              f"(tolerance 0)")
+        if err_t or err_r:
+            raise SmokeFailure(f"a kernel disagrees with its plain version "
+                               f"on the random case of {label}")
+        worst["init_tables"] = max(worst["init_tables"], err_t)
+        worst["replay"] = max(worst["replay"], err_r)
+    return worst
+
+
+def openb_inputs(device):
+    """The paper's prepared openb trace as the port's tensors."""
     import torch
 
     from tpusim_torch.__main__ import paper_config
     from tpusim_torch.io.trace import (
         build_events, load_node_csv, load_pod_csv, pods_to_specs,
     )
-    from tpusim_torch.sim import fused_engine as fe
     from tpusim_torch.sim.driver import Simulator
     from tpusim_torch.sim.table_engine import build_pod_types
-
-    for seed in (1, 2, 3):
-        state, pods, types, evk, evp, tp, rank = random_case(
-            seed, 256, 800, device)
-        tables = fe.fgd_init_tables(state, types, tp)
-        plain_tables = fe.plain_init_tables(state, types, tp)
-        err_t = max_abs_err(tables, plain_tables)
-        args = (state, pods, types, evk, evp, tp, rank, plain_tables, 1000,
-                seed != 3)  # seed 3 runs gpu_sel best
-        err_r = max_abs_err(fe.fgd_replay(*args), fe.plain_replay(*args))
-        torch.cuda.synchronize()
-        print(f"check random seed={seed} nodes=256 pods=800 "
-              f"events={evk.shape[0]}: tables max_abs_err={err_t} "
-              f"replay max_abs_err={err_r} (tolerance 0)")
-        if err_t or err_r:
-            raise SmokeFailure(f"kernel disagrees with its plain version "
-                               f"on random seed {seed}")
 
     data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "data", "csv")
@@ -255,105 +369,146 @@ def check_kernels(device, card: str):
     sim.set_typical_pods()
     trace = sim.prepare_pods()
     specs = pods_to_specs(trace, sim.node_index, device)
-    types = build_pod_types(specs)
     evk, evp = (torch.as_tensor(a, device=device)
                 for a in build_events(trace))
-    state, tp, rank = sim.init_state, sim.typical, sim.rank
+    return (sim.init_state, specs, build_pod_types(specs), evk, evp,
+            sim.typical, sim.rank)
+
+
+def check_kernels(device, card: str):
+    """Phase 3: each kernel against its plain version on the card, and
+    each method row's kernel times at openb beside their bounds."""
+    import torch
+
+    from tpusim_torch.sim import fused_engine as fe
+
+    worst = check_random(device)
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
     n, k, t = state.num_nodes, types.num_types, tp.size
-    ks = types.num_share
+    ks, kw = types.num_share, types.num_types - types.num_share
     e, p = evk.shape[0], specs.cpu.shape[0]
 
-    ready = fe.prepare_init_tables(state, types, tp)
-    init_ms = kernel_ms(ready, 20)
-    tables = ready.finish()
-    plain_init_ms, plain_tables = wall_ms(
-        lambda: fe.plain_init_tables(state, types, tp))
-    err_init = max_abs_err(tables, plain_tables)
-    print(f"check openb fgd_init_tables [K={k}, N={n}] T={t}: "
-          f"max_abs_err={err_init} (tolerance 0)")
-    if err_init:
-        raise SmokeFailure("fgd_init_tables disagrees with plain_init_tables")
+    # the init tables of every configuration at openb size
+    rows = [(row[0], fe.make_config(*row[1:5])) for row in METHODS]
+    plain_init = {}
+    for label, cfg in rows + [(c[0], c[1]) for c in check_configs()
+                              if c[0] not in dict(rows)]:
+        ready = fe.prepare_init_tables(state, types, tp, cfg)
+        init_ms = kernel_ms(ready, 20)
+        plain_ms, plain_tables = wall_ms(
+            lambda: fe.plain_init_tables(state, types, tp, cfg))
+        err = max_abs_err(ready.finish(), plain_tables)
+        plain_init[label] = (init_ms, plain_ms, plain_tables)
+        print(f"check openb init_tables {label} [{len(cfg.policies)}x{k}, "
+              f"{n}]: max_abs_err={err} (tolerance 0); {init_ms:.4f} ms "
+              f"(plain {plain_ms:.1f} ms)")
+        if err:
+            raise SmokeFailure(f"init_tables disagrees with plain_init_tables"
+                               f" on openb under {label}")
+        worst["init_tables"] = max(worst["init_tables"], err)
 
-    args = (state, specs, types, evk, evp, tp, rank, tables, 1000, True)
-    ready = fe.prepare_replay(*args)
-    live = ready.tensors
+    def prepared(cfg, tables, kinds=evk):
+        ready = fe.prepare_replay(state, specs, types, kinds, evp, tp, rank,
+                                  tables, cfg)
+        live = ready.tensors
 
-    def reset():
-        for name, src in (("cpu_left", state.cpu_left),
-                          ("mem_left", state.mem_left),
-                          ("gpu_left", state.gpu_left),
-                          ("aff_cnt", state.aff_cnt), ("score", tables[0]),
-                          ("sdev", tables[1]), ("feas", tables[2])):
-            live[name].copy_(src)
-        live["placed"].fill_(-1)
-        live["maskb"].zero_()
-        live["failed"].zero_()
-
-    replay_ms = kernel_ms(ready, 3, reset)
-    got = ready.finish()
-    plain_replay_ms, want = wall_ms(lambda: fe.plain_replay(*args))
-    err_replay = max_abs_err(got, want)
-    print(f"check openb fgd_replay E={e} P={p}: max_abs_err={err_replay} "
-          f"(tolerance 0)")
-    if err_replay:
-        bad = (got.event_node != want.event_node).nonzero()
-        raise SmokeFailure(
-            "fgd_replay disagrees with plain_replay; first differing event "
-            f"{int(bad[0]) if bad.numel() else 'none (state/masks)'}")
-    print(f"time openb fgd_init_tables {init_ms:.4f} ms (plain "
-          f"{plain_init_ms:.1f} ms), fgd_replay {replay_ms:.3f} ms (plain "
-          f"{plain_replay_ms:.1f} ms), kernel launches alone, on {card}")
+        def reset():
+            for name, src in (("cpu_left", state.cpu_left),
+                              ("mem_left", state.mem_left),
+                              ("gpu_left", state.gpu_left),
+                              ("aff_cnt", state.aff_cnt), ("score", tables[0]),
+                              ("sdev", tables[1]), ("feas", tables[2])):
+                live[name].copy_(src)
+            live["placed"].fill_(-1)
+            live["maskb"].zero_()
+            live["failed"].zero_()
+        return ready, reset
 
     # the event chain without work: the same number of events, all skips,
-    # so no column refresh, no select and no commit runs
-    skip_ms = kernel_ms(fe.prepare_replay(
-        state, specs, types, torch.full_like(evk, 2), evp, tp, rank, tables,
-        1000, True), 3)
-    print(f"time openb fgd_replay split: {e} events {replay_ms / e * 1e3:.3f}"
-          f" us each; {e} skip events {skip_ms:.3f} ms, "
-          f"{skip_ms / e * 1e3:.3f} us each, on {card}")
+    # through the FGD-specialised and the general kernel
+    skip_ms = {}
+    for label in ("06-FGD", "08-PWR_500_FGD_500"):
+        cfg = dict(rows)[label]
+        ready, _ = prepared(cfg, plain_init[label][2],
+                            torch.full_like(evk, 2))
+        skip_ms[label] = kernel_ms(ready, 3)
+        print(f"time openb replay all-skip ({label} kernel): {e} events "
+              f"{skip_ms[label]:.3f} ms, {skip_ms[label] / e * 1e3:.3f} us "
+              f"each, on {card}")
 
-    # bounds from this run's inputs: every input read once, every output
-    # written once; the replay refreshes one column per event after the
-    # first create or delete, and is a serial chain of events besides
-    tp_bytes = 5 * t * 4
-    type_bytes = 5 * k * 4
-    state_bytes = n * (1 + 1 + 8 + 9 + 1 + 1) * 4
-    table_bytes = 3 * k * n * 4
-    init_bound = bound_ms(state_bytes + type_bytes + tp_bytes + table_bytes,
-                          n * column_flops(ks, k - ks, t))
     kinds = evk.cpu().numpy()
     started = np.flatnonzero(kinds != 2)
     refreshes = int(e - started[0] - 1) if started.size else 0
-    replay_bytes = (2 * state_bytes + 2 * table_bytes + type_bytes + tp_bytes
-                    + p * 6 * 4 + n * 4 + e * 2 * 4 + p * 3 * 4 + e * 2 * 4)
-    throughput = bound_ms(replay_bytes,
-                          refreshes * column_flops(ks, k - ks, t))
-    chain = chain_ms(skip_ms / e, kinds, n, k, refreshes)
-    print(f"bound openb fgd_init_tables {init_bound[0]:.6f} ms by "
-          f"{init_bound[1]}; fgd_replay throughput {throughput[0]:.6f} ms by "
-          f"{throughput[1]}, serial chain {chain:.4f} ms")
-    replay_bound = dict(bound_ms=chain, bound_by="operations",
-                        bound_note="serial event chain: E x (one all-skip "
-                        "step of the block + the event's bytes at the "
-                        "memory rate)")
-    if throughput[0] > chain:
-        replay_bound = dict(bound_ms=throughput[0], bound_by=throughput[1])
-    return {
-        "fgd_init_tables": dict(max_abs_err=err_init, ms=init_ms,
-                                plain_ms=plain_init_ms,
+    tp_bytes = 5 * t * 4
+    type_bytes = 5 * k * 4
+    state_bytes = n * (1 + 1 + 1 + 1 + 8 + 9 + 1 + 1) * 4
+    measured = {}
+    # FGD/worst runs the one-FGD configuration through the general kernel:
+    # what the runtime policy switch costs beside 06-FGD's specialised one
+    timed = rows + [("FGD-worst", fe.make_config([("FGDScore", 1000)],
+                                                 "worst"))]
+    for label, cfg in timed:
+        init_ms, plain_init_ms, tables = plain_init[label]
+        ready, reset = prepared(cfg, tables)
+        replay_ms = kernel_ms(ready, 3, reset)
+        plain_replay_ms = None
+        if label == "06-FGD":  # the paper's row replays in full beside plain
+            got = ready.finish()
+            plain_replay_ms, want = wall_ms(lambda: fe.plain_replay(
+                state, specs, types, evk, evp, tp, rank, tables, cfg))
+            err = max_abs_err(got, want)
+            print(f"check openb replay 06-FGD E={e} P={p}: max_abs_err={err}"
+                  f" (tolerance 0); plain {plain_replay_ms:.1f} ms")
+            if err:
+                bad = (got.event_node != want.event_node).nonzero()
+                raise SmokeFailure(
+                    "replay disagrees with plain_replay; first differing "
+                    f"event {int(bad[0]) if bad.numel() else 'none'}")
+            worst["replay"] = max(worst["replay"], err)
+        # bounds from this run's inputs: every input read once, every output
+        # written once; the replay refreshes one column per event after the
+        # first create or delete, and is a serial chain of events besides
+        n_pol = len(cfg.policies)
+        table_bytes = (n_pol + 2) * k * n * 4
+        ops = config_ops(cfg, ks, kw, t)
+        init_bound = bound_ms(state_bytes + type_bytes + tp_bytes
+                              + table_bytes, n * ops)
+        replay_bytes = (2 * state_bytes + 2 * table_bytes + type_bytes
+                        + tp_bytes + p * 6 * 4 + n * 4 + e * 2 * 4
+                        + p * 3 * 4 + e * 2 * 4)
+        throughput = bound_ms(replay_bytes, refreshes * ops)
+        step = skip_ms["06-FGD" if label == "06-FGD"
+                       else "08-PWR_500_FGD_500"] / e  # the kernel it runs
+        chain = chain_ms(step, kinds, n, k, refreshes, n_pol)
+        replay_bound = dict(bound_ms=chain, bound_by="operations",
+                            bound_note="serial event chain: E x (one "
+                            "all-skip step of the block + the event's bytes "
+                            "at the memory rate)")
+        if throughput[0] > chain:
+            replay_bound = dict(bound_ms=throughput[0],
+                                bound_by=throughput[1])
+        print(f"time openb {label}: init_tables {init_ms:.4f} ms (bound "
+              f"{init_bound[0]:.6f} by {init_bound[1]}), replay "
+              f"{replay_ms:.3f} ms = {replay_ms / e * 1e3:.3f} us an event "
+              f"(chain bound {chain:.4f} ms, throughput bound "
+              f"{throughput[0]:.6f} ms by {throughput[1]}), kernel launches "
+              f"alone, on {card}")
+        measured[label] = {
+            "init_tables": dict(ms=init_ms, plain_ms=plain_init_ms,
                                 bound_ms=init_bound[0],
                                 bound_by=init_bound[1]),
-        "fgd_replay": dict(max_abs_err=err_replay, ms=replay_ms,
-                           plain_ms=plain_replay_ms, **replay_bound),
-    }
+            "replay": dict(ms=replay_ms, plain_ms=plain_replay_ms,
+                           **replay_bound),
+        }
+    return measured, worst
 
 
 def main_path(device, card: str):
-    """Phase 4: the paper's run through Simulator.run() on the card."""
+    """Phase 4: every method row through Simulator.run() on the card, the
+    launch counts set to 0 before each row and read after it."""
     import torch
 
-    from tpusim_torch.__main__ import paper_config
+    from tpusim_torch.__main__ import method_config
     from tpusim_torch.io.trace import (
         build_events, load_node_csv, load_pod_csv, pods_to_specs,
     )
@@ -365,52 +520,56 @@ def main_path(device, card: str):
     nodes = load_node_csv(os.path.join(data, "openb_node_list_gpu_node.csv"))
     pods = load_pod_csv(os.path.join(data, "openb_pod_list_default.csv"))
 
-    fe.reset_launch_counts()
-    t0 = time.perf_counter()
-    sim = Simulator(nodes, paper_config(), device=device)
-    sim.set_workload_pods(pods)
-    res = sim.run()
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in fe.KERNEL_WRAPPERS}
-    print(f"main path launches: {launches}")
-    missing = [name for name, count in launches.items() if count == 0]
-    if missing:
-        raise SmokeFailure(f"the main path never launched {missing}")
+    launches = {}
+    for mid, policies, gpu_sel, dim_ext, norm, placed_sha, mask_sha in METHODS:
+        fe.reset_launch_counts()
+        t0 = time.perf_counter()
+        sim = Simulator(nodes, method_config(policies, gpu_sel, dim_ext, norm),
+                        device=device)
+        sim.set_workload_pods(pods)
+        res = sim.run()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in fe.KERNEL_WRAPPERS}
+        missing = [name for name, count in counts.items() if count == 0]
+        if missing:
+            raise SmokeFailure(f"{mid}: the main path never launched "
+                               f"{missing}")
+        launches[mid] = counts
+        if mid == "06-FGD":
+            print("\n".join(sim.log.lines[-19:]))
 
-    print("\n".join(sim.log.lines[-19:]))
-    failed = len(res.unscheduled_pods)
-    placements = len(res.pods) - failed
-    s = res.state
-    slot = (torch.arange(8)[None, :] < s.gpu_cnt[:, None])
-    used = int(torch.where(slot, 1000 - s.gpu_left, 0).sum())
-    alloc = 100.0 * used / (int(s.gpu_cnt.sum()) * 1000)
-    print(f"main path events={res.events} placements={placements} "
-          f"failed={failed} gpu_alloc={alloc:.2f}%")
+        failed = len(res.unscheduled_pods)
+        placements = len(res.pods) - failed
+        s = res.state
+        slot = (torch.arange(8)[None, :] < s.gpu_cnt[:, None])
+        used = int(torch.where(slot, 1000 - s.gpu_left, 0).sum())
+        alloc = 100.0 * used / (int(s.gpu_cnt.sum()) * 1000)
+        got_placed = digest(res.placed_node, np.int32)
+        got_mask = digest(res.dev_mask, np.uint8)
+        if res.events != OPENB_EVENTS or got_placed != placed_sha \
+                or got_mask != mask_sha:
+            raise SmokeFailure(
+                f"{mid}: main path differs from the JAX reference: events "
+                f"{res.events} placed sha256 {got_placed} dev_mask sha256 "
+                f"{got_mask}")
 
-    placed_sha = digest(res.placed_node, np.int32)
-    mask_sha = digest(res.dev_mask, np.uint8)
-    if res.events != OPENB_EVENTS or placed_sha != OPENB_PLACED_SHA256 \
-            or mask_sha != OPENB_DEV_MASK_SHA256:
-        raise SmokeFailure(
-            f"main path differs from the JAX reference: events {res.events}"
-            f" placed sha256 {placed_sha} dev_mask sha256 {mask_sha}")
-    print("main path placements and device masks match the JAX reference "
-          "digests")
-
-    trace = sim.prepare_pods()
-    specs = pods_to_specs(trace, sim.node_index, device)
-    evk, evp = build_events(trace)
-    walls = []
-    for _ in range(WARM_RUNS):
-        ms, _ = wall_ms(lambda: sim.run_events(sim.init_state, specs, evk,
-                                               evp))
-        walls.append(ms / 1e3)
-    warm = min(walls)
-    print(f"main path cold run() {cold_s:.3f} s, warm replay min "
-          f"{warm * 1e3:.2f} ms of {WARM_RUNS} "
-          f"({', '.join(f'{w * 1e3:.2f}' for w in walls)} ms), "
-          f"{placements / warm:.1f} placements/s on {card}")
+        trace = sim.prepare_pods()
+        specs = pods_to_specs(trace, sim.node_index, device)
+        evk, evp = build_events(trace)
+        walls = []
+        for _ in range(WARM_RUNS if mid == "06-FGD" else 3):
+            ms, _ = wall_ms(lambda: sim.run_events(sim.init_state, specs, evk,
+                                                   evp))
+            walls.append(ms / 1e3)
+        warm = min(walls)
+        print(f"main path {mid}: launches {counts}, events={res.events} "
+              f"placements={placements} failed={failed} "
+              f"gpu_alloc={alloc:.2f}%, digests match the JAX reference; "
+              f"cold run() {cold_s:.3f} s, warm replay min "
+              f"{warm * 1e3:.2f} ms of {len(walls)} "
+              f"({', '.join(f'{w * 1e3:.2f}' for w in walls)} ms), "
+              f"{placements / warm:.1f} placements/s on {card}")
     return launches
 
 
@@ -439,28 +598,34 @@ def main() -> int:
         info = kernels.build()
         print(f"build: {info.seconds:.1f} s -> {info.path}")
         for line in info.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function" in line:
                 print(f"ptxas: {line.strip()}")
         print(f"kernels: {', '.join(kernels.KERNELS)} "
               f"(route cuda, {SOURCE})")
         kernels.library()
 
-        measured = check_kernels(device, card)
+        measured, errors = check_kernels(device, card)
         launches = main_path(device, card)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
-    rows = [
-        dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES,
-             launches=launches[name], library_ms=None, **measured[name])
-        for name in kernels.KERNELS
-    ]
+    rows = []
+    for name in kernels.KERNELS:
+        paper = measured["06-FGD"][name]
+        rows.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=REPLACES,
+            launches=sum(c[name] for c in launches.values()),
+            max_abs_err=errors[name], library_ms=None, **paper,
+            configs={mid: dict(launches=launches.get(mid, {}).get(name, 0),
+                               **m[name])
+                     for mid, m in measured.items()},
+        ))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_case
+from chip_smoke import DIM_EXT, METHODS, NORM, random_case
 from tpusim_torch.io.trace import load_node_csv, load_pod_csv
 from tpusim_torch.sim import fused_engine as fe
 from tpusim_torch.sim.driver import Simulator
@@ -39,15 +39,45 @@ def _assert_equal(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,self_select", [(31, True), (32, False)])
 def test_kernels_match_plain_on_card(cuda_device, seed, self_select):
-    """fgd_init_tables and fgd_replay against plain_init_tables and
-    plain_replay on the same seeded cluster, pods and events."""
+    """init_tables and replay against plain_init_tables and plain_replay on
+    the same seeded cluster, pods and events, under the paper's FGD
+    configuration."""
+    cfg = fe.make_config([("FGDScore", 1000)],
+                         "FGDScore" if self_select else "best")
     state, pods, types, evk, evp, tp, rank = random_case(
         seed, 64, 200, cuda_device)
-    tables = fe.fgd_init_tables(state, types, tp)
-    _assert_equal(tables, fe.plain_init_tables(state, types, tp))
-    args = (state, pods, types, evk, evp, tp, rank, tables, 1000,
-            self_select)
-    got = fe.fgd_replay(*args)
+    tables = fe.init_tables(state, types, tp, cfg)
+    _assert_equal(tables, fe.plain_init_tables(state, types, tp, cfg))
+    args = (state, pods, types, evk, evp, tp, rank, tables, cfg)
+    got = fe.replay(*args)
+    torch.cuda.synchronize()
+    _assert_equal(got, fe.plain_replay(*args))
+
+
+# every method row's configuration, FGD with gpu_sel worst, and the
+# DotProduct (dim_ext, norm) pairs
+CONFIGS = (
+    [tuple(row[1:5]) for row in METHODS]
+    + [([("FGDScore", 1000)], "worst", "share", "max")]
+    + [([("DotProductScore", 1000)], "DotProductScore", d, n)
+       for d in DIM_EXT for n in NORM]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policies,gpu_sel,dim_ext,norm", CONFIGS,
+                         ids=lambda v: str(v))
+def test_config_kernels_match_plain_on_card(cuda_device, policies, gpu_sel,
+                                            dim_ext, norm):
+    """init_tables and replay against their plain versions under every
+    configuration the kernels cover, on a seeded random cluster."""
+    cfg = fe.make_config(policies, gpu_sel, dim_ext, norm)
+    state, pods, types, evk, evp, tp, rank = random_case(
+        33, 64, 200, cuda_device)
+    tables = fe.init_tables(state, types, tp, cfg)
+    _assert_equal(tables, fe.plain_init_tables(state, types, tp, cfg))
+    args = (state, pods, types, evk, evp, tp, rank, tables, cfg)
+    got = fe.replay(*args)
     torch.cuda.synchronize()
     _assert_equal(got, fe.plain_replay(*args))
 
@@ -67,7 +97,7 @@ def test_simulator_on_card_matches_cpu(cuda_device):
         sim.set_workload_pods(pods)
         runs.append((sim.run(), [line for line in sim.log.lines
                                  if "[Engine]" not in line]))
-    assert fe.fgd_replay.launches == 1
+    assert fe.replay.launches == 1
     (gpu, gpu_log), (cpu, cpu_log) = runs
     assert gpu_log == cpu_log
     assert np.array_equal(gpu.placed_node, cpu.placed_node)

@@ -35,6 +35,9 @@ from tpusim_torch.sim import fused_engine as fe
 from tpusim_torch.types import NodeState, PodSpec
 
 
+FGD = fe.make_config([("FGDScore", 1000)], "FGDScore")
+
+
 def _jax_tables(jstate, jtypes, jtp):
     """JAX (score, sdev, feas) [K, N] tables through the table builders."""
     _, init = make_table_builders([(make_policy("FGDScore"), 1000)], 0)
@@ -58,7 +61,7 @@ def test_columns_match_jax_random(seed):
     jpods = random_pods(rng, num_pods=80)
     jtypes = build_pod_types(jpods)
     tables = fe.plain_init_tables(port_state(jstate), port_types(jtypes),
-                                  port_typical(jtp))
+                                  port_typical(jtp), FGD)
     _assert_tables(tables, _jax_tables(jstate, jtypes, jtp))
 
 
@@ -67,7 +70,8 @@ def test_columns_match_jax_openb_tables():
     jsim, jtr, _, _ = openb_prepared()
     jtypes = build_pod_types(pods_to_specs(jtr))
     tables = fe.plain_init_tables(port_state(jsim.init_state),
-                                  port_types(jtypes), port_typical(jsim.typical))
+                                  port_types(jtypes), port_typical(jsim.typical),
+                                  FGD)
     assert tables[0].shape == (151, 1213)
     _assert_tables(tables, _jax_tables(jsim.init_state, jtypes, jsim.typical))
 
@@ -80,11 +84,11 @@ def test_single_node_column_matches_batch():
     state, types, tp = (port_state(jstate), port_types(jtypes),
                         port_typical(jtp))
     specs, ks = types.stacked(), types.num_share
-    score, sdev = fe.fgd_column(state, specs, ks, tp)
+    score, sdev = pfgd.fgd_column(state, specs, ks, tp)
     feas = fe.feas_column(state, specs)
     for d in (0, 7, 19):
         one = NodeState(*(a[d:d + 1] for a in state))
-        s1, d1 = fe.fgd_column(one, specs, ks, tp)
+        s1, d1 = pfgd.fgd_column(one, specs, ks, tp)
         assert torch.equal(s1[:, 0], score[:, d])
         assert torch.equal(d1[:, 0], sdev[:, d])
         assert torch.equal(fe.feas_column(one, specs)[:, 0], feas[:, d])
@@ -107,7 +111,7 @@ def test_policy_fgd_score_matches_jax(seed):
     state, tp, pods = port_state(jstate), port_typical(jtp), port_specs(jpods)
     jtypes = build_pod_types(jpods)
     types = port_types(jtypes)
-    col_s, col_d = fe.fgd_column(state, types.stacked(), types.num_share, tp)
+    col_s, col_d = pfgd.fgd_column(state, types.stacked(), types.num_share, tp)
     fgd = make_policy("FGDScore")
     score_one = jax.jit(lambda pod: fgd(jstate, pod, ctx))
     for i in range(30):

@@ -1,5 +1,5 @@
 """The port's fused replay against the JAX package, with zero tolerance:
-plain_replay (the CPU side of the fgd_replay wrapper) must equal
+plain_replay (the CPU side of the replay wrapper) must equal
 make_pallas_replay(interpret=True) on randomized create/delete mixes and
 make_table_replay on a prefix of the openb FGD trace, in placements, device
 masks, failure flags, per-event telemetry and final state."""
@@ -101,34 +101,48 @@ def test_wrappers_take_plain_path_on_cpu():
     jstate, jtp, jpods, ev_kind, ev_pod, rank = _random_case(21, 16, 24)
     state, tp = port_state(jstate), port_typical(jtp)
     types = port_types(build_pod_types(jpods))
+    cfg = fe.make_config([("FGDScore", 1000)], "FGDScore")
     fe.reset_launch_counts()
-    tables = fe.fgd_init_tables(state, types, tp)
-    for got, want in zip(tables, fe.plain_init_tables(state, types, tp)):
+    tables = fe.init_tables(state, types, tp, cfg)
+    for got, want in zip(tables, fe.plain_init_tables(state, types, tp, cfg)):
         assert torch.equal(got, want)
     args = (state, port_specs(jpods), types,
             torch.as_tensor(np.array(ev_kind)),
             torch.as_tensor(np.array(ev_pod)), tp,
-            torch.as_tensor(np.array(rank)), tables, 1000, True)
-    got, want = fe.fgd_replay(*args), fe.plain_replay(*args)
+            torch.as_tensor(np.array(rank)), tables, cfg)
+    got, want = fe.replay(*args), fe.plain_replay(*args)
     for a, b in zip(got, want):
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b)
-    assert fe.fgd_init_tables.launches == 0 and fe.fgd_replay.launches == 0
+    assert fe.init_tables.launches == 0 and fe.replay.launches == 0
     # the replay leaves its inputs unchanged
     assert torch.equal(state.gpu_left, port_state(jstate).gpu_left)
 
 
 @pytest.mark.parametrize(
     "policies,gpu_sel",
-    [([("BestFitScore", 1000)], "best"),
-     ([("PWRScore", 500), ("FGDScore", 500)], "FGDScore"),
+    [([("RandomScore", 1000)], "best"),
+     ([("Simon", 1000)], "best"),
      ([("FGDScore", 1000)], "random"),
-     ([("FGDScore", 1000)], "worst")],
+     ([("RandomScore", 500), ("FGDScore", 500)], "FGDScore")],
 )
 def test_uncovered_configs_raise(policies, gpu_sel):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fe.make_fused_replay(policies, gpu_sel, "cpu")
 
+
+@pytest.mark.parametrize(
+    "policies,gpu_sel,match",
+    [([("BestFitScore", 1000)], "PWRScore", "gpu_sel"),
+     ([("FGDScore", 1000)], "Best", "gpu_sel"),
+     ([("FGDScore", 2**31)], "FGDScore", "int32")],
+)
+def test_unknown_gpu_sel_is_a_value_error(policies, gpu_sel, match):
+    """A self-select gpu_sel naming no enabled policy, or no method at all,
+    is refused as make_pallas_replay refuses it; so is a weight the
+    kernel's int32 descriptor cannot hold."""
+    with pytest.raises(ValueError, match=match):
+        fe.make_fused_replay(policies, gpu_sel, "cpu")
 
 
 def test_replay_rejects_out_of_range_indices():

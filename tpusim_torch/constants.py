@@ -7,10 +7,15 @@ is integer-typed: gpu_type -1 means "no GPU", unknown CPU models map to 0.
 
 from __future__ import annotations
 
+import numpy as np
+
 MILLI = 1000  # 1 GPU == 1000 milli-GPU
 MAX_GPUS_PER_NODE = 8
 MAX_NODE_SCORE = 100  # k8s framework.MaxNodeScore
 NUM_AFF_CLASSES = 1 + MAX_GPUS_PER_NODE  # share + 1..8 whole-GPU pods
+MAX_SPEC_CPU = 128_000  # milli vCPU (ref: utils/const.go:16)
+MAX_SPEC_GPU = 8_000  # milli GPU (ref: utils/const.go:18)
+
 
 # Fragmentation classes (ref: pkg/utils/frag.go:17-35). Order == index.
 Q1_LACK_BOTH = 0
@@ -53,6 +58,38 @@ CPU_MODELS = (
     "Intel-Xeon-8369B",
 )
 CPU_MODEL_IDS = {name: i for i, name in enumerate(CPU_MODELS)}
+
+# CPU energy (idle W, full W, physical cores) per CPU model (ref:
+# utils/const.go:48-55); index 0, the unknown model, uses 2682's numbers
+_CPU_ENERGY = {
+    "": (15.0, 120.0, 16.0),
+    "Intel-Xeon-8269CY": (20.0, 205.0, 26.0),
+    "Intel-Xeon-8163": (20.0, 165.0, 24.0),
+    "Intel-Xeon-ES-2682-V4": (15.0, 120.0, 16.0),
+    "Intel-Xeon-6326": (20.0, 185.0, 16.0),
+    "Intel-Xeon-8369B": (20.0, 270.0, 32.0),
+}
+CPU_IDLE_W = np.array([_CPU_ENERGY[m][0] for m in CPU_MODELS], np.float32)
+CPU_FULL_W = np.array([_CPU_ENERGY[m][1] for m in CPU_MODELS], np.float32)
+CPU_NCORES = np.array([_CPU_ENERGY[m][2] for m in CPU_MODELS], np.float32)
+
+# GPU energy (idle W, full W) per model id (ref: utils/const.go:62-121);
+# models the reference has no entry for draw 0 W. The tables are
+# MAX_GPU_MODELS wide, so models registered later index in range.
+_GPU_ENERGY = {
+    "T4": (10.0, 70.0),
+    "A10": (30.0, 150.0),
+    "P100": (25.0, 250.0),
+    "V100M16": (30.0, 300.0),
+    "V100M32": (30.0, 300.0),
+    "A100": (50.0, 400.0),
+    "G2": (30.0, 150.0),
+    "G3": (50.0, 400.0),
+}
+GPU_IDLE_W = np.zeros(MAX_GPU_MODELS, np.float32)
+GPU_FULL_W = np.zeros(MAX_GPU_MODELS, np.float32)
+for _i, _m in enumerate(GPU_MODELS):
+    GPU_IDLE_W[_i], GPU_FULL_W[_i] = _GPU_ENERGY.get(_m, (0.0, 0.0))
 
 # typical-pod extraction defaults (ref: pkg/type/resource.go:46-49)
 DEFAULT_TYPICAL_POD_POPULARITY = 60

@@ -7,7 +7,7 @@ checkout, named by a digest of the sources and flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. Nothing here runs when
 the module is imported.
 
-Each launcher takes a pointer to an `FgdArgs` and the CUDA stream, and
+Each launcher takes a pointer to a `ReplayArgs` and the CUDA stream, and
 returns the launch's CUDA error code.
 """
 
@@ -26,30 +26,42 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
                          ".tpusim_torch_build")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # the FGD sums must not contract a*b+c into one rounding
+    # no multiply-add is contracted but the explicit __fmaf_rn ones: the
+    # columns round where the JAX package's compiled code rounds
     "--fmad=false",
     "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 # the CUDA kernels the port has, by the name chip_smoke.py reports
-KERNELS = ("fgd_init_tables", "fgd_replay")
+KERNELS = ("init_tables", "replay")
+# the most policies one configuration may combine (replay.cu kMaxPolicies)
+MAX_POLICIES = 6
+
+POINTER_FIELDS = (
+    "cpu_left", "mem_left", "gpu_left", "aff_cnt", "cpu_cap", "cpu_type",
+    "gpu_cnt", "gpu_type", "rank",
+    "t_cpu", "t_mem", "t_milli", "t_num", "t_mask",
+    "tp_cpu", "tp_milli", "tp_num", "tp_mask", "tp_freq",
+    "gpu_idle_w", "gpu_full_w", "cpu_idle_w", "cpu_full_w", "cpu_ncores",
+    "score", "sdev", "feas",
+    "p_cpu", "p_mem", "p_milli", "p_num", "p_pinned", "p_type",
+    "ev_kind", "ev_pod",
+    "placed", "maskb", "failed", "ev_node", "ev_devb",
+)
 
 
-class FgdArgs(ctypes.Structure):
-    """Mirror of `struct FgdArgs` in replay.cu: device pointers, then the
-    int32 sizes and flags."""
+class ReplayArgs(ctypes.Structure):
+    """Mirror of `struct ReplayArgs` in replay.cu: device pointers, the
+    int32 sizes, then the policy descriptor."""
 
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "cpu_left", "mem_left", "gpu_left", "aff_cnt",
-        "gpu_cnt", "gpu_type", "rank",
-        "t_cpu", "t_mem", "t_milli", "t_num", "t_mask",
-        "tp_cpu", "tp_milli", "tp_num", "tp_mask", "tp_freq",
-        "score", "sdev", "feas",
-        "p_cpu", "p_mem", "p_milli", "p_num", "p_pinned", "p_type",
-        "ev_kind", "ev_pod",
-        "placed", "maskb", "failed", "ev_node", "ev_devb",
-    )] + [(name, ctypes.c_int32) for name in (
-        "n", "k", "ks", "t", "p", "e", "weight", "self_select",
-    )]
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in POINTER_FIELDS]
+        + [(name, ctypes.c_int32) for name in ("n", "k", "ks", "t", "p", "e",
+                                               "n_pol")]
+        + [(name, ctypes.c_int32 * MAX_POLICIES)
+           for name in ("pol_column", "pol_norm", "pol_weight")]
+        + [(name, ctypes.c_int32) for name in ("sel", "gpu_sel", "dim_ext",
+                                               "norm")]
+    )
 
 
 class BuildInfo:
@@ -118,18 +130,18 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build().path)
         for name in KERNELS:
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(FgdArgs), ctypes.c_void_p]
+            fn.argtypes = [ctypes.POINTER(ReplayArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.fgd_error_string.argtypes = [ctypes.c_int]
-        lib.fgd_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def launch(name: str, args: FgdArgs, stream: int) -> None:
+def launch(name: str, args: ReplayArgs, stream: int) -> None:
     """Launch kernel `name` on `stream`; raises if the launch is refused."""
     lib = library()
     code = getattr(lib, name)(ctypes.byref(args), ctypes.c_void_p(stream))
     if code != 0:
-        msg = lib.fgd_error_string(code).decode()
+        msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")

@@ -1,43 +1,55 @@
-// Fused FGD trace replay for NVIDIA Hopper (sm_90a).
+// Fused trace replay for NVIDIA Hopper (sm_90a).
 //
 // Replaces the fused whole-replay Pallas kernel of the JAX package
 // (tpusim/sim/pallas_engine.py: _make_kernel :780, launched at :1260 by
-// make_pallas_replay :1122) for the FGD configuration, with its column
-// functions _fgd_column :360 and _feas_column :739.
+// make_pallas_replay :1122) for every configuration it covers: any list of
+// the policies FGDScore, BestFitScore, GpuPackingScore, GpuClusteringScore,
+// PWRScore and DotProductScore with integer weights, and gpu_sel best,
+// worst or an enabled self-select policy. Its column functions are
+// _fgd_column :360, _bestfit_column :451, _packing_column :464,
+// _clustering_column :494, _pwr_column :521, _make_dotprod_column :578 and
+// _feas_column :739.
 //
-// Two kernels share the __device__ column functions:
-//   fgd_init_tables_kernel  one thread per (type, node) pair fills the
-//                           [K, N] score / share-device / Filter tables of
-//                           the initial state (the Pallas kernel's event-0
-//                           fori_loop, :906-910).
-//   fgd_replay_kernel       one persistent block walks every event in order:
-//                           refresh the column of the node the previous
-//                           event touched (threads over K), select the host
-//                           over the event type's table row (threads over N,
-//                           then a block reduction), and one thread runs
-//                           Reserve and Bind, or the unbind of a delete.
+// Two kernels share the __device__ column functions (one per policy,
+// `*_pair`, scoring one pod type on one node):
+//   init_tables_kernel  one thread per (type, node) pair fills the
+//                       [n_pol*K, N] score, [K, N] share-device and [K, N]
+//                       Filter tables of the initial state (the Pallas
+//                       kernel's event-0 fori_loop, :906-910).
+//   replay_kernel       one persistent block walks every event in order:
+//                       refresh the column of the node the previous event
+//                       touched (threads over K), then on a create the
+//                       min/max of each normalised policy's row over the
+//                       feasible nodes, the i32 weighted sum and selectHost
+//                       (threads over N, then block reductions), and one
+//                       thread runs Reserve and Bind, or the unbind of a
+//                       delete (:955-1103).
+// replay_kernel is a template on the configuration's shape: <false> is
+// specialised to the paper's FGD configuration (one FGDScore policy, gpu_sel
+// FGDScore or best) and skips the descriptor, the normalisation pass and the
+// policy loop; <true> reads the policy descriptor.
 //
 // What bounds it on this card: the replay is a serial chain of events, so
-// its time is latency, not bytes or operations. An event touches one table
-// row (3 x N int32) and one column (3 x K int32); the tables (3 x K x N x 4
-// bytes, ~2.2 MB at openb) stay in global memory, resident in the 50 MB L2.
-// The design keeps the whole chain in one launch (no launch per event) and
-// indexes the tables directly; shared-memory row staging and a multi-block
-// select are later work.
+// its time is latency, not bytes or operations. An event touches one row
+// per policy (N int32 each, plus the Filter row) and one column (n_pol + 2
+// values per type); the tables stay in global memory, resident in L2.
 //
-// Exactness: every term of the FGD frag sum is an integer held exactly in
-// float32, so only the products freq_t x term_t round. Both those products
-// and the sums over the typical-pod axis use explicit round-to-nearest
-// intrinsics in index order (no FMA contraction), the division by 1000 is
-// the multiplication by 0.001f that XLA compiles the reference's `/ 1000.0`
-// to, and the sigmoid is 1 / (1 + expf(-x)) with IEEE division. The plain
-// PyTorch version (tpusim_torch/sim/fused_engine.py) performs the same
-// operations in the same order.
+// Exactness: every column performs the float32 operations of the JAX
+// package's compiled CPU code in its order, with explicit round-to-nearest
+// intrinsics and --fmad=false: XLA's divisions by a constant become
+// multiplications by a float32 reciprocal (or, where it folds two of them,
+// by their product), and where the compiled code contracts a multiply into
+// an add the kernel calls __fmaf_rn. tanh is XLA's rational approximation.
+// Float-to-int conversions truncate toward zero and saturate, as XLA's.
+// Integer arithmetic that XLA wraps modulo 2^32 runs on uint32 here. The
+// plain PyTorch versions (tpusim_torch/policies/, sim/fused_engine.py)
+// perform the same operations.
 //
 // Interface: plain C, bound with ctypes. The launchers return the CUDA error
 // code of the launch (0 = success); they never synchronise.
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -47,23 +59,61 @@ namespace {
 constexpr int kDevs = 8;       // MAX_GPUS_PER_NODE
 constexpr int kAffClasses = 9; // share + 1..8 whole-GPU pods
 constexpr int kMilli = 1000;
+constexpr int kMaxNodeScore = 100;
+constexpr int kMaxSpecGpu = 8000;
 constexpr int kCreate = 0;
 constexpr int kDelete = 1;
 constexpr int kInitThreads = 256;
 constexpr int kReplayThreads = 512;
+constexpr int kMaxPolicies = 6;
+
+// column ids (tpusim_torch.policies.COLUMN_IDS)
+constexpr int kFgd = 0;
+constexpr int kBestFit = 1;
+constexpr int kPacking = 2;
+constexpr int kClustering = 3;
+constexpr int kPwr = 4;
+constexpr int kDotProd = 5;
+// normalize modes (NORMALIZE_IDS)
+constexpr int kNormNone = 0;
+constexpr int kNormMinMax = 1;
+// gpu_sel modes
+constexpr int kSelBest = 0;
+constexpr int kSelWorst = 1;
+constexpr int kSelSelf = 2;
+// DotProduct dim_ext and norm (DIM_EXT_METHODS, NORM_METHODS order)
+constexpr int kMerge = 0;
+constexpr int kDivide = 2;
+constexpr int kExtend = 3;
+constexpr int kNormNode = 0;
+constexpr int kNormPod = 1;
+constexpr int kNormMax = 2;
+
+// float32 constants of the compiled JAX code: float32(1/c) x 0.5, and the
+// products r x r that XLA folds DotProduct's norm=max divisions into
+constexpr float kRcpuHalf = 0x1.0624dep-18f;    // 1/128000 / 2
+constexpr float kRgpuHalf = 0x1.0624dep-14f;    // 1/8000 / 2
+constexpr float kRmilliHalf = 0x1.0624dep-11f;  // 1/1000 / 2
+constexpr float kRRcpu = 0x1.0c6f7cp-34f;       // (1/128000)^2
+constexpr float kRRgpu = 0x1.0c6f7cp-26f;       // (1/8000)^2
+constexpr float kRten = 0x1.99999ap-4f;         // 1/10
+constexpr int kPwrNeg = -2147483647;            // PWR's "no fitting device"
 
 }  // namespace
 
 extern "C" {
 
-// Every device pointer and size the two kernels read. Tables are [k, n]
-// row-major (type-major); gpu_left is [n, 8]; aff_cnt is [n, 9]. Types hold
-// the ks share-GPU types first.
-struct FgdArgs {
+// Every device pointer, size and configuration value the two kernels read.
+// Tables are row-major: score [n_pol*k, n] (policy-major, then type), sdev
+// and feas [k, n]; gpu_left is [n, 8]; aff_cnt is [n, 9]. Types hold the ks
+// share-GPU types first.
+struct ReplayArgs {
   int32_t* cpu_left;
   int32_t* mem_left;
   int32_t* gpu_left;
   int32_t* aff_cnt;
+  const int32_t* cpu_cap;
+  const int32_t* cpu_type;
   const int32_t* gpu_cnt;
   const int32_t* gpu_type;
   const int32_t* rank;
@@ -77,6 +127,11 @@ struct FgdArgs {
   const int32_t* tp_num;
   const int32_t* tp_mask;
   const float* tp_freq;
+  const float* gpu_idle_w;
+  const float* gpu_full_w;
+  const float* cpu_idle_w;
+  const float* cpu_full_w;
+  const float* cpu_ncores;
   int32_t* score;
   int32_t* sdev;
   int32_t* feas;
@@ -99,8 +154,17 @@ struct FgdArgs {
   int32_t t;
   int32_t p;
   int32_t e;
-  int32_t weight;
-  int32_t self_select;
+  // the policy descriptor: per policy its column id, normalize mode and
+  // weight; the selector policy's index (-1 = none), the gpu_sel mode and
+  // DotProduct's dim_ext and norm
+  int32_t n_pol;
+  int32_t pol_column[kMaxPolicies];
+  int32_t pol_norm[kMaxPolicies];
+  int32_t pol_weight[kMaxPolicies];
+  int32_t sel;
+  int32_t gpu_sel;
+  int32_t dim_ext;
+  int32_t norm;
 };
 
 }  // extern "C"
@@ -110,21 +174,79 @@ namespace {
 struct NodeView {
   int cpu;
   int mem;
+  int cap;
   int gcnt;
+  int gtyp;
+  int ctyp;
   int bit;  // GPU-model bit, 0 for CPU-only nodes
   int g[kDevs];
+  int aff[kAffClasses];
 };
 
-__device__ __forceinline__ NodeView load_node(const FgdArgs& a, int n) {
+__device__ __forceinline__ NodeView load_node(const ReplayArgs& a, int n) {
   NodeView v;
   v.cpu = a.cpu_left[n];
   v.mem = a.mem_left[n];
+  v.cap = a.cpu_cap[n];
   v.gcnt = a.gpu_cnt[n];
-  const int gt = a.gpu_type[n];
-  v.bit = gt >= 0 ? (1 << gt) : 0;
+  v.gtyp = a.gpu_type[n];
+  v.ctyp = a.cpu_type[n];
+  v.bit = v.gtyp >= 0 ? (1 << v.gtyp) : 0;
 #pragma unroll
   for (int d = 0; d < kDevs; ++d) v.g[d] = a.gpu_left[n * kDevs + d];
+#pragma unroll
+  for (int c = 0; c < kAffClasses; ++c) v.aff[c] = a.aff_cnt[n * kAffClasses + c];
   return v;
+}
+
+__device__ __forceinline__ int gpu_sum(const NodeView& v) {
+  int s = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) s += v.g[d];
+  return s;
+}
+
+__device__ __forceinline__ int idle_count(const NodeView& v) {
+  int c = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) c += v.g[d] == kMilli ? 1 : 0;
+  return c;
+}
+
+// float -> int32 truncating toward zero, saturating, NaN -> 0 (XLA convert)
+__device__ __forceinline__ int to_i32(float x) { return __float2int_rz(x); }
+
+// floor division for a divisor >= 1 (XLA's int32 `//`)
+__device__ __forceinline__ int floor_div(int num, int den) {
+  const int q = num / den;
+  return (num % den != 0 && num < 0) ? q - 1 : q;
+}
+
+// Sub's device choice (resource.go:454-480): fitting devices, least free
+// first, ties by index, until wn are taken. Returns whether wn were found.
+__device__ __forceinline__ bool packed_take(const NodeView& v, int wm, int wn,
+                                            bool take[kDevs]) {
+  int pos[kDevs];
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) {
+    int c = 0;
+#pragma unroll
+    for (int e = 0; e < kDevs; ++e)
+      c += (v.g[e] < v.g[d] || (v.g[e] == v.g[d] && e < d)) ? 1 : 0;
+    pos[d] = c;
+  }
+  int taken = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) {
+    const bool fit = wm > 0 && v.g[d] >= wm;
+    int ahead = 0;
+#pragma unroll
+    for (int e = 0; e < kDevs; ++e)
+      ahead += (wm > 0 && v.g[e] >= wm && pos[e] < pos[d]) ? 1 : 0;
+    take[d] = fit && ahead < wn;
+    taken += take[d] ? 1 : 0;
+  }
+  return taken >= wn;
 }
 
 // trunc(sigmoid((cur - new) / 1000) * 100), fgd_score.go:124
@@ -136,11 +258,9 @@ __device__ __forceinline__ int sigmoid_score(float cur, float nw) {
 
 // FGD raw score and FGD's share-device pick of type k on one node
 // (_fgd_column :360 for one row; policies/fgd.py).
-__device__ void fgd_pair(const FgdArgs& a, const NodeView& v, int k,
+__device__ void fgd_pair(const ReplayArgs& a, const NodeView& v, int k,
                          int* score, int* sdev) {
-  int gsum = 0;
-#pragma unroll
-  for (int d = 0; d < kDevs; ++d) gsum += v.g[d];
+  const int gsum = gpu_sum(v);
   const float total = static_cast<float>(gsum);
   float cur = 0.0f;
 
@@ -201,31 +321,17 @@ __device__ void fgd_pair(const FgdArgs& a, const NodeView& v, int k,
     return;
   }
 
-  // whole-GPU / CPU-only branch: the Sub hypothetical (fgd_score.go:137-148),
-  // devices taken least-free first, ties by index (resource.go:454-480)
+  // whole-GPU / CPU-only branch: the Sub hypothetical (fgd_score.go:137-148)
   const int wm = a.t_milli[k];
   const int wn = a.t_num[k];
   const int cpu_w = v.cpu - a.t_cpu[k];
-  int pos[kDevs];
-#pragma unroll
-  for (int d = 0; d < kDevs; ++d) {
-    int c = 0;
-#pragma unroll
-    for (int e = 0; e < kDevs; ++e)
-      c += (v.g[e] < v.g[d] || (v.g[e] == v.g[d] && e < d)) ? 1 : 0;
-    pos[d] = c;
-  }
+  bool take[kDevs];
+  packed_take(v, wm, wn, take);
   int g2[kDevs];
   int g2sum = 0;
 #pragma unroll
   for (int d = 0; d < kDevs; ++d) {
-    const bool fit = wm > 0 && v.g[d] >= wm;
-    int ahead = 0;
-#pragma unroll
-    for (int e = 0; e < kDevs; ++e)
-      ahead += (wm > 0 && v.g[e] >= wm && pos[e] < pos[d]) ? 1 : 0;
-    const bool take = fit && ahead < wn;
-    g2[d] = (wn > 0 && take) ? v.g[d] - wm : v.g[d];
+    g2[d] = (wn > 0 && take[d]) ? v.g[d] - wm : v.g[d];
     g2sum += g2[d];
   }
   const float total2 = static_cast<float>(g2sum);
@@ -264,10 +370,256 @@ __device__ void fgd_pair(const FgdArgs& a, const NodeView& v, int k,
   *sdev = -1;
 }
 
+// BestFit (_bestfit_column :451; policies/bestfit.py): the CPU term's
+// multiply is fused into the sum, as in the compiled JAX code
+__device__ __forceinline__ int bestfit_pair(const ReplayArgs& a,
+                                            const NodeView& v, int k) {
+  const float free_cpu = static_cast<float>(v.cpu);
+  const float free_gpu = static_cast<float>(gpu_sum(v));
+  const float req_cpu = static_cast<float>(a.t_cpu[k]);
+  const float req_gpu = static_cast<float>(a.t_milli[k] * a.t_num[k]);
+  const float s = __fmaf_rn(__fsub_rn(free_cpu, req_cpu), kRcpuHalf,
+                            __fmul_rn(__fsub_rn(free_gpu, req_gpu), kRgpuHalf));
+  return to_i32(floorf(__fmul_rn(__fsub_rn(1.0f, s), 100.0f)));
+}
+
+// GpuPacking (_packing_column :464; policies/packing.py), in integers
+__device__ __forceinline__ int packing_pair(const ReplayArgs& a,
+                                            const NodeView& v, int k) {
+  const int milli = a.t_milli[k];
+  const int num = a.t_num[k];
+  if (milli * num <= 0) return 0;
+  constexpr int t3 = kMaxNodeScore / 3;
+  constexpr int t2 = kMaxNodeScore / 2;
+  const int fully_free = idle_count(v);
+  if (fully_free == v.gcnt) return max(t3 - fully_free, fully_free);
+  bool take[kDevs];
+  if (!packed_take(v, milli, num, take)) return 0;
+  int free_used = 0;
+  int ratio = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) {
+    if (take[d]) {
+      free_used += v.g[d] == kMilli ? 1 : 0;
+      ratio += v.g[d] * 100 / kMilli;
+    }
+  }
+  return free_used > 0 ? max(t2 - free_used, t3)
+                       : max(kMaxNodeScore - ratio / 10, t2);
+}
+
+__device__ __forceinline__ int affinity_class(int milli, int num) {
+  if (num == 0) return -1;
+  return (num == 1 && milli < kMilli) ? 0 : num;
+}
+
+// GpuClustering (_clustering_column :494; policies/clustering.py)
+__device__ __forceinline__ int clustering_pair(const ReplayArgs& a,
+                                               const NodeView& v, int k) {
+  constexpr int q = kMaxNodeScore / 4;
+  const int cls = affinity_class(a.t_milli[k], a.t_num[k]);
+  if (cls < 0) return 0;
+  int n_classes = 0;
+#pragma unroll
+  for (int c = 0; c < kAffClasses; ++c) n_classes += v.aff[c] > 0 ? 1 : 0;
+  const bool has_cls = cls < kAffClasses && v.aff[cls] > 0;
+  const int pack = floor_div(q * (kMaxSpecGpu - gpu_sum(v)), kMaxSpecGpu);
+  const int base = has_cls ? (n_classes == 1 ? 3 * q : 2 * q)
+                           : (n_classes == 0 ? q : 0);
+  return base + pack;
+}
+
+// CPU watts of a node with `cpu_left` free (ops/energy.py cpu_power_watts)
+__device__ __forceinline__ float cpu_watts(const ReplayArgs& a,
+                                           const NodeView& v, int cpu_left) {
+  const float ncores = a.cpu_ncores[v.ctyp];
+  const float real = ceilf(__fmul_rn(static_cast<float>(v.cap), kRmilliHalf));
+  const float idle = floorf(__fmul_rn(static_cast<float>(cpu_left), kRmilliHalf));
+  const float num_cpus = ceilf(__fdiv_rn(real, ncores));
+  const float active = ceilf(__fdiv_rn(__fsub_rn(real, idle), ncores));
+  return __fadd_rn(__fmul_rn(a.cpu_idle_w[v.ctyp], __fsub_rn(num_cpus, active)),
+                   __fmul_rn(a.cpu_full_w[v.ctyp], active));
+}
+
+// PWR (_pwr_column :521; policies/pwr.py). Every watt figure is an
+// integer held exactly in float32, so only the floor/ceil inputs round.
+// The branch follows the type: one GPU under 1000 milli is a share pod.
+__device__ void pwr_pair(const ReplayArgs& a, const NodeView& v, int k,
+                         int* score, int* sdev) {
+  const float gidle = v.gtyp >= 0 ? a.gpu_idle_w[v.gtyp] : 0.0f;
+  const float gfull = v.gtyp >= 0 ? a.gpu_full_w[v.gtyp] : 0.0f;
+  const float busy = v.gtyp >= 0 ? __fsub_rn(gfull, gidle) : 0.0f;
+  const float n_idle = static_cast<float>(idle_count(v));
+  const float gpu_old = __fadd_rn(
+      __fmul_rn(gidle, n_idle),
+      __fmul_rn(gfull, __fsub_rn(static_cast<float>(v.gcnt), n_idle)));
+  const float old = __fadd_rn(cpu_watts(a, v, v.cpu), gpu_old);
+  const float base = __fadd_rn(cpu_watts(a, v, v.cpu - a.t_cpu[k]), gpu_old);
+  const int milli = a.t_milli[k];
+  const int num = a.t_num[k];
+  if (num == 1 && milli < kMilli) {
+    // share: device d flips iff it was fully idle and the pod takes milli
+    int best = kPwrNeg;
+    int best_dev = -1;
+#pragma unroll
+    for (int d = 0; d < kDevs; ++d) {
+      if (v.g[d] >= milli) {
+        const bool flip = v.g[d] == kMilli && milli > 0;
+        const int s = to_i32(__fsub_rn(old, __fadd_rn(base, flip ? busy : 0.0f)));
+        if (best_dev < 0 || s > best) {  // first device on ties
+          best = s;
+          best_dev = d;
+        }
+      }
+    }
+    *score = best;
+    *sdev = best_dev;
+    return;
+  }
+  // whole GPUs / CPU only: Sub's taken devices flip iff they were idle
+  bool take[kDevs];
+  packed_take(v, milli, num, take);
+  int flips = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d)
+    flips += (num > 0 && take[d] && v.g[d] == kMilli) ? 1 : 0;
+  *score = to_i32(__fsub_rn(
+      old, __fadd_rn(base, __fmul_rn(static_cast<float>(flips), busy))));
+  *sdev = -1;
+}
+
+// XLA's float32 tanh: clamp, x * P(x^2) / Q(x^2) with each Horner step one
+// fused multiply-add, and x itself where |x| < 0.0004
+__device__ __forceinline__ float xla_tanh(float x) {
+  const float xc = fminf(fmaxf(x, -7.99881172180175781f), 7.99881172180175781f);
+  const float x2 = __fmul_rn(xc, xc);
+  float p = -2.76076847742355e-16f;
+  p = __fmaf_rn(x2, p, 2.00018790482477e-13f);
+  p = __fmaf_rn(x2, p, -8.60467152213735e-11f);
+  p = __fmaf_rn(x2, p, 5.12229709037114e-08f);
+  p = __fmaf_rn(x2, p, 1.48572235717979e-05f);
+  p = __fmaf_rn(x2, p, 6.37261928875436e-04f);
+  p = __fmaf_rn(x2, p, 4.89352455891786e-03f);
+  float q = 1.19825839466702e-06f;
+  q = __fmaf_rn(x2, q, 1.18534705686654e-04f);
+  q = __fmaf_rn(x2, q, 2.26843463243900e-03f);
+  q = __fmaf_rn(x2, q, 4.89352518554385e-03f);
+  const float r = __fdiv_rn(__fmul_rn(xc, p), q);
+  return fabsf(x) < 0.0004f ? x : r;
+}
+
+// NormalizeVector: v / n, 0 where n <= 0
+__device__ __forceinline__ float safe_div(float v, float n) {
+  return n > 0.0f ? __fdiv_rn(v, n) : 0.0f;
+}
+
+// slot_cpu x tcpu + slot_gpu x treq, normalised, with the roundings of the
+// compiled JAX table build (policies/dotprod.py _dot)
+__device__ __forceinline__ float dot_terms(const ReplayArgs& a,
+                                           const NodeView& v, float slot_cpu,
+                                           float slot_gpu, float tcpu,
+                                           float treq) {
+  if (a.norm == kNormMax) {
+    if (a.dim_ext == kMerge)
+      return __fmaf_rn(__fdiv_rn(slot_gpu, 8000.0f), __fdiv_rn(treq, 8000.0f),
+                       __fmul_rn(__fdiv_rn(slot_cpu, 128000.0f),
+                                 __fdiv_rn(tcpu, 128000.0f)));
+    const float kc = __fmul_rn(tcpu, kRRcpu);
+    const float kg = __fmul_rn(treq, kRRgpu);
+    if (a.dim_ext == kDivide)
+      return __fmaf_rn(slot_cpu, kc, __fmul_rn(slot_gpu, kg));
+    return __fmaf_rn(slot_gpu, kg, __fmul_rn(slot_cpu, kc));
+  }
+  const float div_cpu = a.norm == kNormNode ? static_cast<float>(v.cap) : tcpu;
+  const float div_gpu =
+      a.norm == kNormNode ? static_cast<float>(v.gcnt * kMilli) : treq;
+  const float ca = safe_div(slot_cpu, div_cpu);
+  const float cb = safe_div(tcpu, div_cpu);
+  const float ga = safe_div(slot_gpu, div_gpu);
+  const float gb = safe_div(treq, div_gpu);
+  if (a.dim_ext == kMerge || a.dim_ext == kExtend)
+    return __fmaf_rn(ga, gb, __fmul_rn(ca, cb));
+  return __fmaf_rn(ca, cb, __fmul_rn(ga, gb));
+}
+
+// DotProduct (_make_dotprod_column :578; policies/dotprod.py): the best of
+// up to 9 slots (8 devices + the idle pool; one under merge), first on ties
+__device__ void dotprod_pair(const ReplayArgs& a, const NodeView& v, int k,
+                             int* score, int* sdev) {
+  const int tcpu_i = a.t_cpu[k];
+  const int treq_i = a.t_milli[k] * a.t_num[k];
+  const float tcpu = static_cast<float>(tcpu_i);
+  const float treq = static_cast<float>(treq_i);
+  const float cpu_f = static_cast<float>(v.cpu);
+  const int gsum = gpu_sum(v);
+  const int idle_cnt = idle_count(v);
+  const bool cpu_fits = v.cpu >= tcpu_i;
+  const int slots = a.dim_ext == kMerge ? 1 : kDevs + 1;
+  float n_groups = 0.0f;
+  if (a.dim_ext == kExtend) {
+#pragma unroll
+    for (int d = 0; d < kDevs; ++d)
+      n_groups += (d < v.gcnt && v.g[d] > 0 && v.g[d] < kMilli) ? 1.0f : 0.0f;
+    n_groups += idle_cnt > 0 ? 1.0f : 0.0f;
+  }
+  float best = -INFINITY;
+  int best_slot = -1;
+  for (int s = 0; s < slots; ++s) {
+    float slot_gpu;
+    bool active;
+    if (a.dim_ext == kMerge) {
+      slot_gpu = static_cast<float>(gsum);
+      active = true;
+    } else if (s < kDevs) {
+      slot_gpu = static_cast<float>(v.g[s]);
+      active = a.dim_ext == kExtend
+                   ? (s < v.gcnt && v.g[s] > 0 && v.g[s] < kMilli &&
+                      slot_gpu >= treq)
+                   : (treq_i < kMilli && s < v.gcnt && v.g[s] < kMilli &&
+                      v.g[s] >= treq_i);
+    } else {
+      slot_gpu = static_cast<float>(idle_cnt * kMilli);
+      active = a.dim_ext == kExtend ? (idle_cnt > 0 && slot_gpu >= treq)
+                                    : treq_i <= idle_cnt * kMilli;
+    }
+    if (!(cpu_fits && active)) continue;
+    const float slot_cpu =
+        a.dim_ext == kDivide
+            ? safe_div(__fmul_rn(cpu_f, slot_gpu), static_cast<float>(gsum))
+            : cpu_f;
+    float dot = dot_terms(a, v, slot_cpu, slot_gpu, tcpu, treq);
+    dot = a.dim_ext == kExtend
+              ? __fdiv_rn(dot, fmaxf(__fadd_rn(1.0f, n_groups), 1.0f))
+              : __fmul_rn(dot, 0.5f);
+    if (a.norm == kNormPod) dot = xla_tanh(__fmul_rn(dot, kRten));
+    const float val = __fsub_rn(1.0f, dot);
+    if (best_slot < 0 || val > best) {
+      best = val;
+      best_slot = s;
+    }
+  }
+  if (best_slot < 0) {
+    *score = 0;
+    *sdev = -1;
+    return;
+  }
+  *score = to_i32(__fmul_rn(static_cast<float>(kMaxNodeScore), best));
+  if (a.dim_ext == kMerge) {
+    *sdev = -1;
+  } else if (best_slot < kDevs) {
+    *sdev = best_slot;
+  } else {  // the pool: the first idle device
+    int first = -1;
+    for (int d = kDevs - 1; d >= 0; --d)
+      if (v.g[d] == kMilli) first = d;
+    *sdev = first;
+  }
+}
+
 // Filter-phase feasibility of type k on one node (_feas_column :739;
 // step.filter_nodes without the per-event pin mask)
-__device__ __forceinline__ int feas_pair(const FgdArgs& a, const NodeView& v,
-                                         int k) {
+__device__ __forceinline__ int feas_pair(const ReplayArgs& a,
+                                         const NodeView& v, int k) {
   const int m = a.t_milli[k];
   const int num = a.t_num[k];
   const int mask = a.t_mask[k];
@@ -283,25 +635,66 @@ __device__ __forceinline__ int feas_pair(const FgdArgs& a, const NodeView& v,
   return (fit && (!needs_gpu || gpu_ok)) ? 1 : 0;
 }
 
-__device__ __forceinline__ void write_column(const FgdArgs& a,
+// raw score and device pick of policy `pi` for type k on one node
+__device__ void policy_pair(const ReplayArgs& a, const NodeView& v, int pi,
+                            int k, int* score, int* sdev) {
+  *sdev = -1;
+  switch (a.pol_column[pi]) {
+    case kFgd:
+      fgd_pair(a, v, k, score, sdev);
+      break;
+    case kBestFit:
+      *score = bestfit_pair(a, v, k);
+      break;
+    case kPacking:
+      *score = packing_pair(a, v, k);
+      break;
+    case kClustering:
+      *score = clustering_pair(a, v, k);
+      break;
+    case kPwr:
+      pwr_pair(a, v, k, score, sdev);
+      break;
+    case kDotProd:
+    default:
+      dotprod_pair(a, v, k, score, sdev);
+      break;
+  }
+}
+
+// every table entry of type k on `node`
+template <bool kGeneral>
+__device__ __forceinline__ void write_column(const ReplayArgs& a,
                                              const NodeView& v, int k,
                                              int node) {
-  int s;
-  int d;
-  fgd_pair(a, v, k, &s, &d);
   const size_t i = static_cast<size_t>(k) * a.n + node;
-  a.score[i] = s;
-  a.sdev[i] = d;
+  if (!kGeneral) {  // one FGDScore policy, its own picks
+    int s;
+    int d;
+    fgd_pair(a, v, k, &s, &d);
+    a.score[i] = s;
+    a.sdev[i] = a.sel == 0 ? d : -1;
+  } else {
+    int sel_dev = -1;
+    for (int pi = 0; pi < a.n_pol; ++pi) {
+      int s;
+      int d;
+      policy_pair(a, v, pi, k, &s, &d);
+      a.score[(static_cast<size_t>(pi) * a.k + k) * a.n + node] = s;
+      if (pi == a.sel) sel_dev = d;
+    }
+    a.sdev[i] = sel_dev;
+  }
   a.feas[i] = feas_pair(a, v, k);
 }
 
-__global__ void fgd_init_tables_kernel(FgdArgs a) {
+__global__ void init_tables_kernel(ReplayArgs a) {
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<long long>(a.k) * a.n) return;
   const int k = static_cast<int>(i / a.n);
   const int node = static_cast<int>(i % a.n);
-  write_column(a, load_node(a, node), k, node);
+  write_column<true>(a, load_node(a, node), k, node);
 }
 
 // selectHost candidate: max total, then min tie-break rank, then min node id
@@ -330,15 +723,10 @@ __device__ __forceinline__ Best warp_best(Best b) {
   return b;
 }
 
-__device__ __forceinline__ int affinity_class(int milli, int num) {
-  if (num == 0) return -1;
-  return (num == 1 && milli < kMilli) ? 0 : num;
-}
-
 // Reserve + Bind of create event i on `node` (-1 = no feasible node);
 // step.choose_devices / select_and_bind, pallas_engine.py:982-1064
-__device__ void commit_create(const FgdArgs& a, int i, int pod, int type,
-                              int node, int* dirty) {
+__device__ void commit_create(const ReplayArgs& a, int i, int pod, int type,
+                              int node, int gpu_sel, int* dirty) {
   const bool ok = node >= 0;
   const int pm = a.p_milli[pod];
   const int pn = a.p_num[pod];
@@ -346,16 +734,19 @@ __device__ void commit_create(const FgdArgs& a, int i, int pod, int type,
   if (ok && pm * pn > 0) {
     const int* g = a.gpu_left + node * kDevs;
     if (pn == 1 && pm < kMilli) {
-      // share-GPU pod: FGD's own pick, else the tightest fit (first index)
+      // share-GPU pod: tightest fit (or loosest for worst), first index;
+      // a self-select policy's own pick wins where it has one
       int dev = -1;
-      int key = INT_MAX;
+      int key = 0;
       for (int d = 0; d < kDevs; ++d) {
-        if (g[d] >= pm && g[d] < key) {
+        if (g[d] < pm) continue;
+        const bool better = gpu_sel == kSelWorst ? g[d] > key : g[d] < key;
+        if (dev < 0 || better) {
           key = g[d];
           dev = d;
         }
       }
-      if (a.self_select) {
+      if (gpu_sel == kSelSelf) {
         const int s = a.sdev[static_cast<size_t>(type) * a.n + node];
         if (s >= 0) dev = s;
       }
@@ -389,7 +780,7 @@ __device__ void commit_create(const FgdArgs& a, int i, int pod, int type,
 
 // Delete event i: return the pod's resources to the devices it held
 // (step.unschedule, pallas_engine.py:1068-1103)
-__device__ void commit_delete(const FgdArgs& a, int i, int pod, int* dirty) {
+__device__ void commit_delete(const ReplayArgs& a, int i, int pod, int* dirty) {
   const int node = a.placed[pod];
   const int bits = a.maskb[pod];
   if (node >= 0) {
@@ -408,13 +799,33 @@ __device__ void commit_delete(const FgdArgs& a, int i, int pod, int* dirty) {
   *dirty = node >= 0 ? node : 0;
 }
 
-__global__ void __launch_bounds__(kReplayThreads) fgd_replay_kernel(FgdArgs a) {
-  __shared__ Best warp_res[kReplayThreads / 32];
+// minmax/pwr NormalizeScore of one feasible raw score against the row's
+// feasible extrema, in XLA's wrapping int32 (policies/base.py)
+__device__ __forceinline__ int normalize(int raw, int lo, int hi, int mode) {
+  const int rng = static_cast<int>(static_cast<uint32_t>(hi) -
+                                   static_cast<uint32_t>(lo));
+  if (rng == 0) return mode == kNormMinMax ? 0 : kMaxNodeScore;
+  const int num = static_cast<int>(
+      (static_cast<uint32_t>(raw) - static_cast<uint32_t>(lo)) *
+      static_cast<uint32_t>(kMaxNodeScore));
+  return floor_div(num, max(rng, 1));
+}
+
+template <bool kGeneral>
+__global__ void __launch_bounds__(kReplayThreads) replay_kernel(ReplayArgs a) {
+  constexpr int kWarps = kReplayThreads / 32;
+  __shared__ Best warp_res[kWarps];
+  __shared__ int warp_lo[kWarps][kMaxPolicies];
+  __shared__ int warp_hi[kWarps][kMaxPolicies];
   __shared__ int s_dirty;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
+  const int gpu_sel = kGeneral ? a.gpu_sel : (a.sel >= 0 ? kSelSelf : kSelBest);
+  bool any_norm = false;
+  if (kGeneral)
+    for (int pi = 0; pi < a.n_pol; ++pi) any_norm |= a.pol_norm[pi] != kNormNone;
   if (tid == 0) s_dirty = -1;  // the tables already hold the initial state
   __syncthreads();
 
@@ -423,7 +834,8 @@ __global__ void __launch_bounds__(kReplayThreads) fgd_replay_kernel(FgdArgs a) {
     const int dirty = s_dirty;
     if (dirty >= 0 && tid < a.k) {
       const NodeView v = load_node(a, dirty);
-      for (int k = tid; k < a.k; k += blockDim.x) write_column(a, v, k, dirty);
+      for (int k = tid; k < a.k; k += blockDim.x)
+        write_column<kGeneral>(a, v, k, dirty);
     }
     __syncthreads();
 
@@ -433,11 +845,59 @@ __global__ void __launch_bounds__(kReplayThreads) fgd_replay_kernel(FgdArgs a) {
       const int type = a.p_type[pod];
       const int pin = a.p_pinned[pod];
       const int* frow = a.feas + static_cast<size_t>(type) * a.n;
-      const int* srow = a.score + static_cast<size_t>(type) * a.n;
+      int lo[kMaxPolicies];
+      int hi[kMaxPolicies];
+      if (kGeneral && any_norm) {
+        // the feasible extrema of each normalised policy's row
+        for (int pi = 0; pi < a.n_pol; ++pi) {
+          lo[pi] = INT_MAX;
+          hi[pi] = -INT_MAX;
+        }
+        for (int node = tid; node < a.n; node += blockDim.x) {
+          if (!frow[node] || (pin >= 0 && node != pin)) continue;
+          for (int pi = 0; pi < a.n_pol; ++pi) {
+            if (a.pol_norm[pi] == kNormNone) continue;
+            const int r =
+                a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
+            lo[pi] = min(lo[pi], r);
+            hi[pi] = max(hi[pi], r);
+          }
+        }
+        for (int pi = 0; pi < a.n_pol; ++pi) {
+          lo[pi] = __reduce_min_sync(0xffffffffu, lo[pi]);
+          hi[pi] = __reduce_max_sync(0xffffffffu, hi[pi]);
+          if (lane == 0) {
+            warp_lo[warp][pi] = lo[pi];
+            warp_hi[warp][pi] = hi[pi];
+          }
+        }
+        __syncthreads();
+        for (int pi = 0; pi < a.n_pol; ++pi) {
+          for (int w = 0; w < nwarps; ++w) {
+            lo[pi] = min(lo[pi], warp_lo[w][pi]);
+            hi[pi] = max(hi[pi], warp_hi[w][pi]);
+          }
+        }
+      }
       Best b = no_candidate();
       for (int node = tid; node < a.n; node += blockDim.x) {
         if (!frow[node] || (pin >= 0 && node != pin)) continue;
-        const Best c = {a.weight * srow[node], a.rank[node], node};
+        int total;
+        if (!kGeneral) {
+          total = static_cast<int>(
+              static_cast<uint32_t>(a.pol_weight[0]) *
+              static_cast<uint32_t>(a.score[static_cast<size_t>(type) * a.n + node]));
+        } else {
+          uint32_t sum = 0;
+          for (int pi = 0; pi < a.n_pol; ++pi) {
+            int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
+            if (a.pol_norm[pi] != kNormNone)
+              r = normalize(r, lo[pi], hi[pi], a.pol_norm[pi]);
+            sum += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(r);
+          }
+          total = static_cast<int>(sum);
+        }
+        const Best c = {total, a.rank[node], node};
         if (beats(c, b)) b = c;
       }
       b = warp_best(b);
@@ -448,7 +908,7 @@ __global__ void __launch_bounds__(kReplayThreads) fgd_replay_kernel(FgdArgs a) {
         b = warp_best(b);
         if (lane == 0)
           commit_create(a, i, pod, type, b.node == INT_MAX ? -1 : b.node,
-                        &s_dirty);
+                        gpu_sel, &s_dirty);
       }
     } else if (tid == 0) {
       if (kind == kDelete) {
@@ -462,27 +922,41 @@ __global__ void __launch_bounds__(kReplayThreads) fgd_replay_kernel(FgdArgs a) {
   }
 }
 
+// the paper's shape: one FGDScore policy without normalisation, gpu_sel
+// FGDScore (sel 0) or best
+bool fgd_only(const ReplayArgs* a) {
+  return a->n_pol == 1 && a->pol_column[0] == kFgd &&
+         a->pol_norm[0] == kNormNone &&
+         (a->gpu_sel == kSelBest || (a->gpu_sel == kSelSelf && a->sel == 0));
+}
+
 }  // namespace
 
 extern "C" {
 
-int fgd_init_tables(const FgdArgs* a, void* stream) {
+int init_tables(const ReplayArgs* a, void* stream) {
   const long long pairs = static_cast<long long>(a->k) * a->n;
   if (pairs == 0) return 0;
   const int blocks = static_cast<int>((pairs + kInitThreads - 1) / kInitThreads);
-  fgd_init_tables_kernel<<<blocks, kInitThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(*a);
+  init_tables_kernel<<<blocks, kInitThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int fgd_replay(const FgdArgs* a, void* stream) {
+int replay(const ReplayArgs* a, void* stream) {
   if (a->e == 0) return 0;
-  fgd_replay_kernel<<<1, kReplayThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(*a);
+  if (a->n_pol < 1 || a->n_pol > kMaxPolicies)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fgd_only(a)) {
+    replay_kernel<false><<<1, kReplayThreads, 0, s>>>(*a);
+  } else {
+    replay_kernel<true><<<1, kReplayThreads, 0, s>>>(*a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* fgd_error_string(int code) {
+const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -98,3 +98,17 @@ def add_pod(cpu_left, mem_left, gpu_left, pod, dev_mask):
         mem_left + pod.mem,
         gpu_left + dev_mask.to(gpu_left.dtype) * pod.gpu_milli[..., None],
     )
+
+
+def allocate_share_worst(gpu_left, pod_gpu_milli):
+    """Loosest-fit device for a share-GPU pod (open_gpu_share.go:306-325):
+    most free milli among fitting devices, first index on ties; -1 if none
+    fits."""
+    milli = torch.as_tensor(pod_gpu_milli, device=gpu_left.device)
+    fits = gpu_left >= milli[..., None]
+    key = torch.where(fits, gpu_left, torch.iinfo(torch.int32).min)
+    lane = torch.arange(MAX_GPUS_PER_NODE, device=gpu_left.device,
+                        dtype=torch.int32)
+    first = torch.where(key == key.max(-1, keepdim=True).values, lane,
+                        MAX_GPUS_PER_NODE).min(-1).values
+    return torch.where(fits.any(-1), first, -1)

@@ -12,9 +12,9 @@ NodeResource.Sub (fgd_score.go:137-148). The frag score decomposes as
 
 so a per-device hypothetical perturbs only that device's fit terms.
 
-This is the plain scorer for one pod over all nodes. The replay's column
-form (tpusim_torch.sim.fused_engine.fgd_column) scores one node against all
-pod types and is held against this one.
+`fgd_score` is the plain scorer for one pod over all nodes. The replay's
+column form `fgd_column` scores a batch of nodes against all pod types and
+is held against it.
 
 Float order: every term inside the sum is an integer held exactly in
 float32, so only the products freq_t x term_t round; the sum over t is
@@ -28,7 +28,11 @@ from __future__ import annotations
 import torch
 
 from tpusim_torch.constants import MAX_GPUS_PER_NODE, MAX_NODE_SCORE
-from tpusim_torch.ops.resource import is_accessible, sub_pod
+from tpusim_torch.ops.resource import (
+    is_accessible,
+    select_devices_packed,
+    sub_pod,
+)
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 
@@ -117,3 +121,62 @@ def fgd_score(state: NodeState, pod: PodSpec, tp: TypicalPods):
     if bool(pod.is_gpu_share()):
         return _fgd_share(state, pod, tp)
     return _fgd_whole(state, pod, tp)
+
+
+def fgd_column(nodes: NodeState, types: PodSpec, ks: int,
+               tp: TypicalPods) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FGD raw score and FGD's share-device pick, i32[K, B] each, for a
+    batch of B nodes against all K types (share types first, `ks` of them).
+    The counterpart of pallas_engine._fgd_column, held against
+    fgd_score."""
+    g = nodes.gpu_left  # [B, 8]
+    gf = g.to(torch.float32)
+    cpu = nodes.cpu_left
+    fit, fitcnt, fitsum, total, acc = frag_terms(cpu, g, nodes.gpu_type, tp)
+    m, num = tp.gpu_milli, tp.gpu_num
+    gpu_pod = m > 0
+    isq3 = gpu_pod & acc & (fitcnt >= num) & (cpu[:, None] >= tp.cpu)
+    cur = tsum(tp.freq * torch.where(isq3, total[:, None] - fitsum,
+                                     total[:, None]))  # [B]
+    k = types.cpu.shape[0]
+    score = torch.empty((k, g.shape[0]), dtype=torch.int32, device=g.device)
+    sdev = torch.full_like(score, -1)
+
+    if ks:  # share branch: best per-device hypothetical
+        p = types.gpu_milli[:ks, None, None]  # [Ks, 1, 1]
+        fitp = ((g - p)[..., None] >= m) & gpu_pod  # [Ks, B, 8, T]
+        fitcnt_h = (fitcnt[:, None, :] - fit.to(torch.int32)
+                    + fitp.to(torch.int32))
+        fitsum_h = (fitsum[:, None, :] - torch.where(fit, gf[..., None], 0.0)
+                    + torch.where(fitp, (gf - p)[..., None], 0.0))
+        cpu_ok = (cpu - types.cpu[:ks, None])[..., None] >= tp.cpu  # [Ks,B,T]
+        isq3_h = (gpu_pod & acc[:, None, :] & (fitcnt_h >= num)
+                  & cpu_ok[:, :, None, :])
+        total_h = (total - types.gpu_milli[:ks, None])[:, :, None, None]
+        new = tsum(tp.freq * torch.where(isq3_h, total_h - fitsum_h, total_h))
+        dev_scores = torch.where(g >= p, sigmoid_score(cur[:, None], new), -1)
+        best = dev_scores.max(-1).values  # [Ks, B]
+        lane = torch.arange(MAX_GPUS_PER_NODE, device=g.device,
+                            dtype=torch.int32)
+        best_dev = torch.where(dev_scores == best[..., None], lane,
+                               MAX_GPUS_PER_NODE).min(-1).values
+        ok = best >= 0
+        score[:ks] = torch.where(ok, best, 0)
+        sdev[:ks] = torch.where(ok, best_dev, -1)
+
+    if k - ks:  # whole-GPU / CPU-only branch: Sub hypothetical
+        wm = types.gpu_milli[ks:, None]
+        wn = types.gpu_num[ks:, None]
+        take, _ = select_devices_packed(g[None], wm, wn)  # [Kw, B, 8]
+        g2 = torch.where(wn[..., None] > 0,
+                         g - take.to(torch.int32) * wm[..., None], g)
+        g2f = g2.to(torch.float32)
+        fit2 = (g2[..., None] >= m) & gpu_pod  # [Kw, B, 8, T]
+        fitcnt2 = fit2.sum(-2, dtype=torch.int32)
+        fitsum2 = torch.where(fit2, g2f[..., None], 0.0).sum(-2)
+        total2 = g2f.sum(-1)[..., None]  # [Kw, B, 1]
+        cpu_ok2 = (cpu - types.cpu[ks:, None])[..., None] >= tp.cpu
+        isq3_2 = gpu_pod & acc & (fitcnt2 >= num) & cpu_ok2
+        new_w = tsum(tp.freq * torch.where(isq3_2, total2 - fitsum2, total2))
+        score[ks:] = sigmoid_score(cur, new_w)
+    return score, sdev

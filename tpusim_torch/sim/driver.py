@@ -52,7 +52,9 @@ class SimulatorConfig:
     selection)."""
 
     policies: Sequence[Tuple[str, int]] = (("FGDScore", 1000),)
-    gpu_sel_method: str = "best"  # best | FGDScore
+    gpu_sel_method: str = "best"  # best | worst | <self-select policy>
+    dim_ext_method: str = "share"  # DotProductScore's dim-ext method
+    norm_method: str = "max"  # DotProductScore's norm method
     shuffle_pod: bool = False
     tuning_ratio: float = 0.0
     tuning_seed: int = 233
@@ -96,7 +98,8 @@ class Simulator:
             )
         # raises NotImplementedError for configs the kernel does not cover
         self._replay = make_fused_replay(
-            self.cfg.policies, self.cfg.gpu_sel_method, self.device
+            self.cfg.policies, self.cfg.gpu_sel_method, self.device,
+            self.cfg.dim_ext_method, self.cfg.norm_method,
         )
         self.engine = ("fused cuda kernel" if self.device.type == "cuda"
                        else "plain pytorch (cpu)")

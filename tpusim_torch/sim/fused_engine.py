@@ -1,24 +1,27 @@
-"""Fused whole-replay engine for the FGD configuration (counterpart of
-tpusim/sim/pallas_engine.py).
+"""Fused whole-replay engine (counterpart of tpusim/sim/pallas_engine.py's
+VMEM-resident kernel, `make_pallas_replay(residency="vmem")`).
 
-The replay keeps three [K, N] int32 tables over the K distinct pod types
-and the N nodes: FGD's raw score, FGD's own share-device pick, and the
-Filter bit. One event mutates one node, so each event first refreshes the
-column of the node the previous event touched, then runs
+The replay keeps int32 tables over the K distinct pod types and the N
+nodes: each policy's raw score ([n_pol * K, N], policy-major), the
+selector policy's share-device pick and the Filter bit ([K, N] each). One
+event mutates one node, so each event first refreshes the column of the
+node the previous event touched, then runs
 
-    Filter (table row & pin mask) -> Score (weight x row, int32)
+    Filter (table row & pin mask)
+    -> Score (per policy: its row, min-max or PWR normalised over the
+       feasible nodes where the policy asks for it; the i32 weighted sum)
     -> selectHost (max total, then min tie-break rank, then min node id)
-    -> Reserve (FGD's device pick, else best fit; two-pointer for whole
-       GPUs) -> Bind
+    -> Reserve (share-GPU pods: best fit, worst fit, or the selector
+       policy's own pick; two-pointer for whole GPUs) -> Bind
 
 or, on a delete, returns the pod's resources to the devices it held.
 
 Two implementations of the same function live here. On CUDA tensors the
-wrappers `fgd_init_tables` and `fgd_replay` launch the hand-written kernels
-of tpusim_torch/kernels/replay.cu; on CPU tensors they run the plain
-PyTorch versions `plain_init_tables` and `plain_replay`, which the tests
-hold against the JAX package. The plain versions use `fgd_column` and
-`feas_column`, the counterparts of `_fgd_column` and `_feas_column`.
+wrappers `init_tables` and `replay` launch the hand-written kernels of
+tpusim_torch/kernels/replay.cu; on CPU tensors they run the plain PyTorch
+versions `plain_init_tables` and `plain_replay`, which the tests hold
+against the JAX package. The plain versions use the policies' column
+functions (tpusim_torch.policies) and `feas_column`.
 """
 
 from __future__ import annotations
@@ -28,27 +31,45 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpusim_torch.constants import MAX_GPUS_PER_NODE, MILLI, NUM_AFF_CLASSES
+from tpusim_torch.constants import (
+    CPU_FULL_W,
+    CPU_IDLE_W,
+    CPU_NCORES,
+    GPU_FULL_W,
+    GPU_IDLE_W,
+    MAX_GPUS_PER_NODE,
+    MILLI,
+    NUM_AFF_CLASSES,
+)
+from tpusim_torch.kernels import MAX_POLICIES
 from tpusim_torch.ops.resource import (
     allocate_share_best,
+    allocate_share_worst,
     allocate_two_pointer,
     is_accessible,
     request_units,
-    select_devices_packed,
 )
-from tpusim_torch.policies.fgd import frag_terms, sigmoid_score, tsum
+from tpusim_torch.policies import (
+    DIM_EXT_METHODS,
+    NORM_METHODS,
+    NORMALIZE_IDS,
+    SELF_SELECT_POLICIES,
+    Policy,
+    make_policy,
+)
+from tpusim_torch.policies.base import normalize, wrap_i32
 from tpusim_torch.sim.engine import EV_CREATE, EV_DELETE, EV_SKIP, ReplayResult
 from tpusim_torch.sim.table_engine import PodTypes
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
-# gpuSelMethod values the kernel covers: FGD's own device pick, or best fit
-SUPPORTED_GPU_SEL = ("FGDScore", "best")
-# the ROADMAP item that brings the remaining policies to the port
-_ROADMAP_COLUMNS = (
-    "ROADMAP.md queue 2 item 2 (the other score columns: BestFit, "
-    "GpuPacking, GpuClustering, PWR, DotProduct)"
+# the kernel's gpu_sel modes (replay.cu kSel*)
+GPU_SEL_IDS = {"best": 0, "worst": 1, "self": 2}
+# where the configurations the kernel does not cover are planned
+_ROADMAP_RANDOM = (
+    "ROADMAP.md queue 3 (JAX PRNG) and queue 1 item 3: randomized "
+    "configurations draw from JAX's PRNG"
 )
 
 # nodes per chunk when the plain table build sweeps the cluster: bounds the
@@ -56,67 +77,60 @@ _ROADMAP_COLUMNS = (
 _INIT_CHUNK = 64
 
 
+class ReplayConfig(NamedTuple):
+    """A policy configuration the fused replay covers: the policies, their
+    integer weights, the gpuSelMethod, and the index of the policy whose
+    device picks Reserve takes (-1 for best and worst)."""
+
+    policies: Tuple[Policy, ...]
+    weights: Tuple[int, ...]
+    gpu_sel: str
+    sel_idx: int
+    dim_ext: str = "share"  # DotProductScore's, where enabled
+    norm: str = "max"
+
+    @property
+    def gpu_sel_mode(self) -> str:
+        return "self" if self.sel_idx >= 0 else self.gpu_sel
+
+
+def make_config(policies: Sequence[Tuple[str, int]], gpu_sel: str,
+                dim_ext: str = "share", norm: str = "max") -> ReplayConfig:
+    """The ReplayConfig of [(policy name, weight)] and a gpuSelMethod,
+    accepting what pallas_engine.supports() accepts. RandomScore, Simon and
+    gpu_sel "random" raise NotImplementedError naming the ROADMAP item; a
+    self-select gpu_sel that names no enabled policy, or an unknown one,
+    raises ValueError, as make_pallas_replay does."""
+    if not policies:
+        raise ValueError("the fused replay needs at least one policy")
+    if len(policies) > MAX_POLICIES:
+        raise ValueError(f"at most {MAX_POLICIES} policies, got {len(policies)}")
+    if dim_ext not in DIM_EXT_METHODS or norm not in NORM_METHODS:
+        raise ValueError(f"dim_ext {dim_ext!r} / norm {norm!r} not in "
+                         f"{DIM_EXT_METHODS} / {NORM_METHODS}")
+    names = [name for name, _ in policies]
+    if any(not -2**31 <= int(w) < 2**31 for _, w in policies):
+        raise ValueError(f"weights must be int32: {list(policies)}")
+    if "RandomScore" in names or gpu_sel == "random":
+        raise NotImplementedError(
+            f"{names} / gpu_sel={gpu_sel!r}: see {_ROADMAP_RANDOM}")
+    pols = tuple(make_policy(name, dim_ext, norm) for name in names)
+    selectors = [p.name for p in pols if p.self_select]
+    if gpu_sel in selectors:
+        sel_idx = names.index(gpu_sel)
+    elif gpu_sel in ("best", "worst"):
+        sel_idx = -1
+    else:
+        raise ValueError(
+            f"gpu_sel must be best, worst or an enabled policy of "
+            f"{sorted(SELF_SELECT_POLICIES)}; got {gpu_sel!r} with {names}")
+    return ReplayConfig(pols, tuple(int(w) for _, w in policies), gpu_sel,
+                        sel_idx, dim_ext, norm)
+
+
 # ---------------------------------------------------------------------------
 # Plain column functions: one batch of nodes against every pod type
 # ---------------------------------------------------------------------------
-
-
-def fgd_column(nodes: NodeState, types: PodSpec, ks: int,
-               tp: TypicalPods) -> Tuple[torch.Tensor, torch.Tensor]:
-    """FGD raw score and FGD's share-device pick, i32[K, B] each, for a
-    batch of B nodes against all K types (share types first, `ks` of them).
-    The counterpart of pallas_engine._fgd_column."""
-    g = nodes.gpu_left  # [B, 8]
-    gf = g.to(torch.float32)
-    cpu = nodes.cpu_left
-    fit, fitcnt, fitsum, total, acc = frag_terms(cpu, g, nodes.gpu_type, tp)
-    m, num = tp.gpu_milli, tp.gpu_num
-    gpu_pod = m > 0
-    isq3 = gpu_pod & acc & (fitcnt >= num) & (cpu[:, None] >= tp.cpu)
-    cur = tsum(tp.freq * torch.where(isq3, total[:, None] - fitsum,
-                                     total[:, None]))  # [B]
-    k = types.cpu.shape[0]
-    score = torch.empty((k, g.shape[0]), dtype=torch.int32, device=g.device)
-    sdev = torch.full_like(score, -1)
-
-    if ks:  # share branch: best per-device hypothetical
-        p = types.gpu_milli[:ks, None, None]  # [Ks, 1, 1]
-        fitp = ((g - p)[..., None] >= m) & gpu_pod  # [Ks, B, 8, T]
-        fitcnt_h = (fitcnt[:, None, :] - fit.to(torch.int32)
-                    + fitp.to(torch.int32))
-        fitsum_h = (fitsum[:, None, :] - torch.where(fit, gf[..., None], 0.0)
-                    + torch.where(fitp, (gf - p)[..., None], 0.0))
-        cpu_ok = (cpu - types.cpu[:ks, None])[..., None] >= tp.cpu  # [Ks,B,T]
-        isq3_h = (gpu_pod & acc[:, None, :] & (fitcnt_h >= num)
-                  & cpu_ok[:, :, None, :])
-        total_h = (total - types.gpu_milli[:ks, None])[:, :, None, None]
-        new = tsum(tp.freq * torch.where(isq3_h, total_h - fitsum_h, total_h))
-        dev_scores = torch.where(g >= p, sigmoid_score(cur[:, None], new), -1)
-        best = dev_scores.max(-1).values  # [Ks, B]
-        lane = torch.arange(MAX_GPUS_PER_NODE, device=g.device,
-                            dtype=torch.int32)
-        best_dev = torch.where(dev_scores == best[..., None], lane,
-                               MAX_GPUS_PER_NODE).min(-1).values
-        ok = best >= 0
-        score[:ks] = torch.where(ok, best, 0)
-        sdev[:ks] = torch.where(ok, best_dev, -1)
-
-    if k - ks:  # whole-GPU / CPU-only branch: Sub hypothetical
-        wm = types.gpu_milli[ks:, None]
-        wn = types.gpu_num[ks:, None]
-        take, _ = select_devices_packed(g[None], wm, wn)  # [Kw, B, 8]
-        g2 = torch.where(wn[..., None] > 0,
-                         g - take.to(torch.int32) * wm[..., None], g)
-        g2f = g2.to(torch.float32)
-        fit2 = (g2[..., None] >= m) & gpu_pod  # [Kw, B, 8, T]
-        fitcnt2 = fit2.sum(-2, dtype=torch.int32)
-        fitsum2 = torch.where(fit2, g2f[..., None], 0.0).sum(-2)
-        total2 = g2f.sum(-1)[..., None]  # [Kw, B, 1]
-        cpu_ok2 = (cpu - types.cpu[ks:, None])[..., None] >= tp.cpu
-        isq3_2 = gpu_pod & acc & (fitcnt2 >= num) & cpu_ok2
-        new_w = tsum(tp.freq * torch.where(isq3_2, total2 - fitsum2, total2))
-        score[ks:] = sigmoid_score(cur, new_w)
-    return score, sdev
 
 
 def feas_column(nodes: NodeState, types: PodSpec) -> torch.Tensor:
@@ -137,15 +151,30 @@ def _node_slice(state: NodeState, lo: int, hi: int) -> NodeState:
     return NodeState(*(a[lo:hi] for a in state))
 
 
-def plain_init_tables(state: NodeState, types: PodTypes, tp: TypicalPods):
-    """(score, sdev, feas) i32[K, N] tables for the initial state: the plain
-    version of the `fgd_init_tables` kernel."""
+def config_columns(nodes: NodeState, specs: PodSpec, ks: int,
+                   tp: TypicalPods, cfg: ReplayConfig):
+    """(score i32[n_pol * K, B], sdev i32[K, B], feas i32[K, B]) of a batch
+    of nodes: every policy's column, the selector's device picks (-1
+    without a selector) and the Filter bits."""
+    scores, sdev = [], None
+    for i, pol in enumerate(cfg.policies):
+        raw, dev = pol.column(nodes, specs, ks, tp)
+        scores.append(raw)
+        if i == cfg.sel_idx:
+            sdev = dev
+    if sdev is None:
+        sdev = torch.full_like(scores[0], -1)
+    return torch.cat(scores), sdev, feas_column(nodes, specs)
+
+
+def plain_init_tables(state: NodeState, types: PodTypes, tp: TypicalPods,
+                      cfg: ReplayConfig):
+    """(score, sdev, feas) tables of the initial state: the plain version
+    of the `init_tables` kernel."""
     specs, ks = types.stacked(), types.num_share
-    cols = []
-    for lo in range(0, state.num_nodes, _INIT_CHUNK):
-        nodes = _node_slice(state, lo, lo + _INIT_CHUNK)
-        cols.append((*fgd_column(nodes, specs, ks, tp),
-                     feas_column(nodes, specs)))
+    cols = [config_columns(_node_slice(state, lo, lo + _INIT_CHUNK), specs,
+                           ks, tp, cfg)
+            for lo in range(0, state.num_nodes, _INIT_CHUNK)]
     return tuple(torch.cat(parts, dim=1).contiguous() for parts in zip(*cols))
 
 
@@ -165,10 +194,10 @@ def _bits_to_mask(bits: torch.Tensor) -> torch.Tensor:
 def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                  ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                  tp: TypicalPods, rank: torch.Tensor, tables,
-                 weight: int, self_select: bool) -> ReplayResult:
-    """The plain version of the `fgd_replay` kernel: an event loop over
-    tensor ops. `tables` are the (score, sdev, feas) tables of the initial
-    state; the loop updates copies of them and of the state."""
+                 cfg: ReplayConfig) -> ReplayResult:
+    """The plain version of the `replay` kernel: an event loop over tensor
+    ops. `tables` are the (score, sdev, feas) tables of the initial state;
+    the loop updates copies of them and of the state."""
     score, sdev, feas = (t.clone() for t in tables)
     live = state._replace(
         cpu_left=state.cpu_left.clone(), mem_left=state.mem_left.clone(),
@@ -176,7 +205,7 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
     )
     cpu_left, mem_left = live.cpu_left, live.mem_left
     gpu_left, aff = live.gpu_left, live.aff_cnt
-    specs, ks = types.stacked(), types.num_share
+    specs, ks, k = types.stacked(), types.num_share, types.num_types
     dev = cpu_left.device
     n, p, e = state.num_nodes, pods.cpu.shape[0], ev_kind.shape[0]
     node_ids = torch.arange(n, device=dev, dtype=torch.int32)
@@ -189,11 +218,10 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
     dirty = -1
     for i in range(e):
         if dirty >= 0:
-            node = _node_slice(live, dirty, dirty + 1)
-            col_s, col_d = fgd_column(node, specs, ks, tp)
-            score[:, dirty] = col_s[:, 0]
-            sdev[:, dirty] = col_d[:, 0]
-            feas[:, dirty] = feas_column(node, specs)[:, 0]
+            col = config_columns(_node_slice(live, dirty, dirty + 1), specs,
+                                 ks, tp, cfg)
+            for table, c in zip((score, sdev, feas), col):
+                table[:, dirty] = c[:, 0]
         kind, idx = kinds[i], ev_pods[i]
         pcpu, pmem = host["cpu"][idx], host["mem"][idx]
         pmilli, pnum = host["gpu_milli"][idx], host["gpu_num"][idx]
@@ -203,7 +231,11 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
             feasible = feas[tid] != 0
             if pin >= 0:
                 feasible = feasible & (node_ids == pin)
-            total = weight * score[tid]
+            # the i32 weighted sum, wrapping as XLA's int32 does
+            total = wrap_i32(sum(
+                w * normalize(pol.normalize, score[j * k + tid],
+                              feasible).to(torch.int64)
+                for j, (pol, w) in enumerate(zip(cfg.policies, cfg.weights))))
             best = torch.where(feasible, total, -_INT_MAX).max()
             key = torch.where(feasible & (total == best), -rank, -_INT_MAX)
             m = key.max()
@@ -213,8 +245,10 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
             if ok and pmilli * pnum > 0:
                 g8 = gpu_left[node]
                 if pnum == 1 and pmilli < MILLI:  # share-GPU pod
-                    d = int(allocate_share_best(g8, pmilli))
-                    if self_select and int(sdev[tid, node]) >= 0:
+                    pick = (allocate_share_worst if cfg.gpu_sel == "worst"
+                            else allocate_share_best)
+                    d = int(pick(g8, pmilli))
+                    if cfg.sel_idx >= 0 and int(sdev[tid, node]) >= 0:
                         d = int(sdev[tid, node])
                     bits = (1 << d) if d >= 0 else 0
                 else:
@@ -267,15 +301,16 @@ def _i32(x: torch.Tensor, name: str) -> torch.Tensor:
     return x.contiguous()
 
 
-def _args(state, types_k, ks, tp, tables, **extra):
-    """FgdArgs over CUDA tensors; returns (args, tensors kept alive)."""
-    from tpusim_torch.kernels import FgdArgs
+def _args(state, types_k, ks, tp, tables, cfg: ReplayConfig, **extra):
+    """ReplayArgs over CUDA tensors; returns (args, tensors kept alive)."""
+    from tpusim_torch.kernels import ReplayArgs
 
     if tp.freq.dtype != torch.float32:
         raise TypeError(f"typical freq: expected float32, got {tp.freq.dtype}")
     named = {
         "cpu_left": state.cpu_left, "mem_left": state.mem_left,
         "gpu_left": state.gpu_left, "aff_cnt": state.aff_cnt,
+        "cpu_cap": state.cpu_cap, "cpu_type": state.cpu_type,
         "gpu_cnt": state.gpu_cnt, "gpu_type": state.gpu_type,
         "t_cpu": types_k.cpu, "t_mem": types_k.mem,
         "t_milli": types_k.gpu_milli, "t_num": types_k.gpu_num,
@@ -292,14 +327,30 @@ def _args(state, types_k, ks, tp, tables, **extra):
             raise ValueError(f"{name} is on {x.device}, the state on {dev}")
         keep[name] = _i32(x, name)
     keep["tp_freq"] = tp.freq.contiguous()
+    for name, values in (("gpu_idle_w", GPU_IDLE_W), ("gpu_full_w", GPU_FULL_W),
+                         ("cpu_idle_w", CPU_IDLE_W), ("cpu_full_w", CPU_FULL_W),
+                         ("cpu_ncores", CPU_NCORES)):
+        keep[name] = torch.as_tensor(values, device=dev)
     n, k = state.num_nodes, types_k.cpu.shape[0]
+    n_pol = len(cfg.policies)
     if state.gpu_left.shape != (n, MAX_GPUS_PER_NODE) or \
             state.aff_cnt.shape != (n, NUM_AFF_CLASSES):
         raise ValueError("gpu_left must be [N, 8] and aff_cnt [N, 9]")
-    if any(t.shape != (k, n) for t in tables):
-        raise ValueError(f"tables must be [K, N] = [{k}, {n}]")
-    args = FgdArgs(**{name: x.data_ptr() for name, x in keep.items()})
+    if tables[0].shape != (n_pol * k, n) or \
+            any(t.shape != (k, n) for t in tables[1:]):
+        raise ValueError(f"tables must be [n_pol*K, N] = [{n_pol * k}, {n}] "
+                         f"and [K, N] = [{k}, {n}]")
+    args = ReplayArgs(**{name: x.data_ptr() for name, x in keep.items()})
     args.n, args.k, args.ks, args.t = n, k, ks, tp.size
+    args.n_pol = n_pol
+    for i, (pol, w) in enumerate(zip(cfg.policies, cfg.weights)):
+        args.pol_column[i] = pol.column_id
+        args.pol_norm[i] = NORMALIZE_IDS[pol.normalize]
+        args.pol_weight[i] = w
+    args.sel = cfg.sel_idx
+    args.gpu_sel = GPU_SEL_IDS[cfg.gpu_sel_mode]
+    args.dim_ext = DIM_EXT_METHODS.index(cfg.dim_ext)
+    args.norm = NORM_METHODS.index(cfg.norm)
     for name, v in extra.items():
         if not isinstance(v, torch.Tensor):
             setattr(args, name, int(v))
@@ -307,9 +358,9 @@ def _args(state, types_k, ks, tp, tables, **extra):
 
 
 class Launch(NamedTuple):
-    """One kernel launch made ready: the kernel's name, its FgdArgs, the
-    tensors the args point into by FgdArgs field name (kept alive with
-    them), and `finish()`, which returns the launch's result once queued."""
+    """One kernel launch made ready: the kernel's name, its ReplayArgs, the
+    tensors the args point into by field name (kept alive with them), and
+    `finish()`, which returns the launch's result once queued."""
 
     name: str
     args: object
@@ -331,28 +382,30 @@ def _cuda_only(dev: torch.device, name: str) -> None:
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
 
 
-def prepare_init_tables(state: NodeState, types: PodTypes,
-                        tp: TypicalPods) -> Launch:
-    """The `fgd_init_tables` launch over CUDA tensors: its outputs are new
-    (score, sdev, feas) i32[K, N] tables."""
+def prepare_init_tables(state: NodeState, types: PodTypes, tp: TypicalPods,
+                        cfg: ReplayConfig) -> Launch:
+    """The `init_tables` launch over CUDA tensors: its outputs are new
+    (score [n_pol * K, N], sdev [K, N], feas [K, N]) tables."""
     dev = state.cpu_left.device
-    _cuda_only(dev, "fgd_init_tables")
+    _cuda_only(dev, "init_tables")
     specs = types.stacked()
-    tables = tuple(torch.empty((specs.cpu.shape[0], state.num_nodes),
-                               dtype=torch.int32, device=dev)
-                   for _ in range(3))
-    args, keep = _args(state, specs, types.num_share, tp, tables)
-    return Launch("fgd_init_tables", args, keep, lambda: tables)
+    k = specs.cpu.shape[0]
+    tables = tuple(torch.empty((rows, state.num_nodes), dtype=torch.int32,
+                               device=dev)
+                   for rows in (len(cfg.policies) * k, k, k))
+    args, keep = _args(state, specs, types.num_share, tp, tables, cfg)
+    return Launch("init_tables", args, keep, lambda: tables)
 
 
-def fgd_init_tables(state: NodeState, types: PodTypes, tp: TypicalPods):
-    """(score, sdev, feas) i32[K, N] tables of `state`: the `fgd_init_tables`
+def init_tables(state: NodeState, types: PodTypes, tp: TypicalPods,
+                cfg: ReplayConfig):
+    """(score, sdev, feas) tables of `state` under `cfg`: the `init_tables`
     CUDA kernel on CUDA tensors, plain_init_tables on CPU tensors."""
     if state.cpu_left.device.type == "cpu":
-        return plain_init_tables(state, types, tp)
-    ready = prepare_init_tables(state, types, tp)
+        return plain_init_tables(state, types, tp, cfg)
+    ready = prepare_init_tables(state, types, tp, cfg)
     launch(ready)
-    fgd_init_tables.launches += 1
+    init_tables.launches += 1
     return ready.finish()
 
 
@@ -380,14 +433,14 @@ def validate_events(ev_kind, ev_pod, num_pods: int) -> None:
 
 def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                    ev_kind: torch.Tensor, ev_pod: torch.Tensor,
-                   tp: TypicalPods, rank: torch.Tensor, tables, weight: int,
-                   self_select: bool) -> Launch:
-    """The `fgd_replay` launch over CUDA tensors. It mutates copies of the
+                   tp: TypicalPods, rank: torch.Tensor, tables,
+                   cfg: ReplayConfig) -> Launch:
+    """The `replay` launch over CUDA tensors. It mutates copies of the
     state (tensors "cpu_left", "mem_left", "gpu_left", "aff_cnt") and of
     the tables ("score", "sdev", "feas"), and writes "placed" (initially
     -1), "maskb" and "failed" (initially 0) and the per-event outputs."""
     dev = state.cpu_left.device
-    _cuda_only(dev, "fgd_replay")
+    _cuda_only(dev, "replay")
     live = state._replace(
         cpu_left=state.cpu_left.clone(), mem_left=state.mem_left.clone(),
         gpu_left=state.gpu_left.clone(), aff_cnt=state.aff_cnt.clone(),
@@ -406,41 +459,39 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                              out(p).zero_())
     ev_node, ev_devb = out(e), out(e)
     args, keep = _args(
-        live, types.stacked(), types.num_share, tp, tables,
+        live, types.stacked(), types.num_share, tp, tables, cfg,
         rank=rank, p_cpu=pods.cpu, p_mem=pods.mem, p_milli=pods.gpu_milli,
         p_num=pods.gpu_num, p_pinned=pods.pinned, p_type=types.type_id,
         ev_kind=ev_kind, ev_pod=ev_pod, placed=placed, maskb=maskb,
-        failed=failed, ev_node=ev_node, ev_devb=ev_devb,
-        p=p, e=e, weight=weight, self_select=int(bool(self_select)),
+        failed=failed, ev_node=ev_node, ev_devb=ev_devb, p=p, e=e,
     )
-    return Launch("fgd_replay", args, keep, lambda: ReplayResult(
+    return Launch("replay", args, keep, lambda: ReplayResult(
         live, placed, _bits_to_mask(maskb), failed != 0, None, ev_node,
         _bits_to_mask(ev_devb)))
 
 
-def fgd_replay(state: NodeState, pods: PodSpec, types: PodTypes,
-               ev_kind: torch.Tensor, ev_pod: torch.Tensor, tp: TypicalPods,
-               rank: torch.Tensor, tables, weight: int,
-               self_select: bool) -> ReplayResult:
+def replay(state: NodeState, pods: PodSpec, types: PodTypes,
+           ev_kind: torch.Tensor, ev_pod: torch.Tensor, tp: TypicalPods,
+           rank: torch.Tensor, tables, cfg: ReplayConfig) -> ReplayResult:
     """Replay every event from `state` with the (score, sdev, feas) tables
-    of `state`: the `fgd_replay` CUDA kernel on CUDA tensors, plain_replay
-    on CPU tensors. Inputs are left unchanged. The kernel trusts the event
-    kinds, the pod indices and `types.type_id`: the replayer of
-    make_fused_replay checks the events on the host first, and
+    of `state` under `cfg`: the `replay` CUDA kernel on CUDA tensors,
+    plain_replay on CPU tensors. Inputs are left unchanged. The kernel
+    trusts the event kinds, the pod indices and `types.type_id`: the
+    replayer of make_fused_replay checks the events on the host first, and
     build_pod_types makes type ids in range."""
     if state.cpu_left.device.type == "cpu":
         return plain_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
-                            tables, weight, self_select)
+                            tables, cfg)
     ready = prepare_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
-                           tables, weight, self_select)
+                           tables, cfg)
     launch(ready)
-    fgd_replay.launches += 1
+    replay.launches += 1
     return ready.finish()
 
 
-fgd_init_tables.launches = 0
-fgd_replay.launches = 0
-KERNEL_WRAPPERS = (fgd_init_tables, fgd_replay)
+init_tables.launches = 0
+replay.launches = 0
+KERNEL_WRAPPERS = (init_tables, replay)
 
 
 def reset_launch_counts() -> None:
@@ -449,32 +500,21 @@ def reset_launch_counts() -> None:
 
 
 def make_fused_replay(policies: Sequence[Tuple[str, int]], gpu_sel: str,
-                      device="cuda"):
+                      device="cuda", dim_ext: str = "share",
+                      norm: str = "max"):
     """The fused replayer for a policy config, the counterpart of
-    pallas_engine.make_pallas_replay. `policies` is [(name, weight)]; the
-    kernel covers exactly one FGDScore policy with gpu_sel FGDScore or
-    best. The replayer has make_pallas_replay's call signature
-    (state, pods, types, ev_kind, ev_pod, tp, key, tiebreak_rank) and runs
-    the CUDA kernels on a CUDA device, the plain versions on the CPU. It
-    checks the event stream on the host before moving it to the device.
-    `key` is accepted and unused: the covered configs draw no randomness."""
-    names = [name for name, _ in policies]
-    if names != ["FGDScore"]:
-        raise NotImplementedError(
-            f"the fused replay covers the FGDScore policy alone, got {names}: "
-            f"see {_ROADMAP_COLUMNS}"
-        )
-    if gpu_sel not in SUPPORTED_GPU_SEL:
-        raise NotImplementedError(
-            f"gpu_sel {gpu_sel!r} is not covered by the fused replay "
-            f"(covered: {SUPPORTED_GPU_SEL}): see {_ROADMAP_COLUMNS}"
-        )
-    weight = int(policies[0][1])
-    self_select = gpu_sel == "FGDScore"
+    pallas_engine.make_pallas_replay: `policies` is [(name, weight)], and
+    make_config says what is covered. The replayer has make_pallas_replay's
+    call signature (state, pods, types, ev_kind, ev_pod, tp, key,
+    tiebreak_rank) and runs the CUDA kernels on a CUDA device, the plain
+    versions on the CPU. It checks the event stream on the host before
+    moving it to the device. `key` is accepted and unused: the covered
+    configs draw no randomness."""
+    cfg = make_config(policies, gpu_sel, dim_ext, norm)
     device = torch.device(device)
 
-    def replay(state, pods, types, ev_kind, ev_pod, tp, key=None,
-               tiebreak_rank=None) -> ReplayResult:
+    def run(state, pods, types, ev_kind, ev_pod, tp, key=None,
+            tiebreak_rank=None) -> ReplayResult:
         def to(x):
             return x.to(device)
 
@@ -489,8 +529,9 @@ def make_fused_replay(policies: Sequence[Tuple[str, int]], gpu_sel: str,
         ev_pod = torch.as_tensor(ev_pod, dtype=torch.int32).cpu()
         validate_events(ev_kind.numpy(), ev_pod.numpy(), pods.cpu.shape[0])
         ev_kind, ev_pod = to(ev_kind), to(ev_pod)
-        tables = fgd_init_tables(state, types, tp)
-        return fgd_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
-                          tables, weight, self_select)
+        tables = init_tables(state, types, tp, cfg)
+        return replay(state, pods, types, ev_kind, ev_pod, tp, rank, tables,
+                      cfg)
 
-    return replay
+    run.config = cfg
+    return run
