@@ -8,21 +8,39 @@ result line:
 1. card    the card's name and power limit (nvidia-smi); a CUDA device is
            required.
 2. build   the port's CUDA kernels, compiled from tpusim_torch/kernels/*.cu.
-3. check   each kernel against its plain PyTorch version on the same inputs
-           on the card, tolerance zero (exact equality), for every policy
-           configuration the kernels cover: init_tables on the full openb
-           tables of each, replay on seeded random clusters (256 nodes,
-           ~1k events for the method rows, ~300 for the other DotProduct
-           pairs and FGD/worst) and on the full openb FGD trace. Each
-           kernel is timed per method row at openb, and for FGD/worst (the
-           one-FGD configuration through the general kernel), beside its
-           plain version and its bound.
+3. check   each kernel against its plain PyTorch version on the same inputs,
+           tolerance zero (exact equality), for every policy configuration
+           the kernels cover: init_tables on the full openb tables of each,
+           replay on seeded random clusters (256 nodes, ~1k events for the
+           method rows, ~300 for the other DotProduct pairs and FGD/worst)
+           and on the full openb FGD trace, replay_blocked (outputs and
+           stats) on seeded random clusters of five 128-node blocks for
+           every method row's configuration and FGD/worst, of 17 and 513
+           blocks for BestFit and PWR+FGD, and on the full openb FGD
+           trace, its plain version on CPU copies of the inputs.
+           Both replay kernels are timed per method row at openb, and
+           replay for FGD/worst (the one-FGD configuration through the
+           general kernel), beside the plain version and the bound.
 4. main    Simulator.run() on the card for every row of the paper's method
            list but 01-Random (openb gpu_node list, default trace, tune 1.3,
-           tuning seed 42, seed 42): the launch counts are set to 0 before
-           each row and read after it, every kernel must have been launched,
-           and the placements and device masks must match the digests of
-           the JAX package's run of the same row.
+           tuning seed 42, seed 42), once with table_residency "auto" (the
+           flat replay at this size) and once with "hbm" (replay_blocked):
+           the launch counts are set to 0 before each run and read after
+           it, the kernels of that run's residency must have been launched
+           and the other replay kernel not, and the placements and device
+           masks must match the digests of the JAX package's run of the row.
+5. scale   tpusim_torch.bench_scale's path: 100,000 synthetic nodes, the
+           1M-pod stream in 200k-event chunks, residency "auto", with the
+           launch counts set to 0 before and read after: auto must have
+           chosen replay_blocked, the first chunk's placements and masks
+           must match the JAX package's digests, and the flat replay over
+           the same chunks must give identical outputs. Both kernels are
+           timed. At the scale width init_tables and both replay kernels
+           are held to their plain versions (CPU copies) over 2,000
+           events from the state after the first chunk, for FGD, BestFit
+           and PWR+FGD, tolerance 0 with stats; then both replay kernels
+           are timed on 20,000 events at 10k, 30k and 100k nodes for
+           06-FGD, 05-BestFit and 08, beside the tier auto picks there.
 
 It then prints one JSON line describing the kernels, the card's line, and
 as the last line {"ok": true, "device": {...}}.
@@ -91,18 +109,51 @@ METHODS = [
      "e77ee1c175eef12bcdfe2affac4075a653b06ac66e18476caa9fdec712100576"),
 ]
 
+# The scale configuration of tpusim_torch/bench_scale.py (BASELINE.json
+# config 5): nodes, pods, events replayed, chunk and seed, and the digests
+# of the JAX package's replay of the first chunk (Simulator(engine="table")
+# on the CPU: sha256 of placed_node as int32, of dev_mask as uint8).
+# tests/test_torch_hbm_engine.py pins them against tpusim (slow-marked).
+SCALE_NODES = 100_000
+SCALE_PODS = 1_000_000
+SCALE_EVENTS = 1_000_000
+SCALE_CHUNK = 200_000
+SCALE_SEED = 42
+# the plain checks at the scale width: this many events of the stream from
+# the state after the first chunk
+SCALE_PREFIX = 2_000
+# where auto's choice is measured: both replay kernels alone on the first
+# CROSSOVER_EVENTS events of the stream at each width, for these rows
+CROSSOVER_NODES = (10_000, 30_000, 100_000)
+CROSSOVER_EVENTS = 20_000
+CROSSOVER_ROWS = ("06-FGD", "05-BestFit", "08-PWR_500_FGD_500")
+SCALE_PLACED_SHA256 = (
+    "1f0be96bf52f89078eccb6314aef76dba3397c69cfdf5eda315de5669c22954d"
+)
+SCALE_DEV_MASK_SHA256 = (
+    "27a746dd4d802700411c36654ad06fd0c716d87e07a948834fa732ab2f591c65"
+)
+
 # NVIDIA H100 SXM peaks (data sheet): HBM3 bandwidth and float32 outside
 # the tensor cores, the type of FGD's arithmetic
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 
-REPLACES = "tpusim/sim/pallas_engine.py:780"
+REPLACES = {"init_tables": "tpusim/sim/pallas_engine.py:780",
+            "replay": "tpusim/sim/pallas_engine.py:780",
+            "replay_blocked": "tpusim/sim/pallas_engine.py:1346"}
+# the kernels each residency's replay launches
+RESIDENCY_KERNELS = {"vmem": ("init_tables", "replay"),
+                     "hbm": ("init_tables", "replay_blocked")}
 # rows whose replay is checked on ~1k-event random clusters; the other
 # configurations get ~300 events
 RANDOM_ROWS = ("02-DotProd", "03-GpuClustering", "04-GpuPacking",
                "05-BestFit", "07-PWR", "08-PWR_500_FGD_500")
 DIM_EXT = ("merge", "share", "divide", "extend")
 NORM = ("node", "pod", "max")
+# node counts of the wide random blocked cases: 17 blocks (more than the
+# block's 16 warps) and 513 (more than its 512 threads)
+WIDE_BLOCKED = (2100, 65_600)
 SOURCE = "tpusim_torch/kernels/replay.cu"
 WARM_RUNS = 5  # the paper's FGD row; the other rows take 3
 
@@ -126,18 +177,21 @@ def digest(a: np.ndarray, dtype) -> str:
     return hashlib.sha256(np.ascontiguousarray(a, dtype).tobytes()).hexdigest()
 
 
-def kernel_ms(ready, repeats: int, reset=lambda: None) -> float:
+def kernel_ms(ready, repeats: int, reset=lambda: None,
+              warmup: bool = True) -> float:
     """Median device milliseconds of one launch of a prepared kernel, with
     CUDA events around each launch alone: the launch's arguments are built
     once, and `reset`, queued before each start event, restores what the
-    kernel mutates. One untimed launch first loads the module. These
-    launches go past the wrappers, so they add to no launch count."""
+    kernel mutates. With `warmup`, one untimed launch first loads the
+    module. These launches go past the wrappers, so they add to no launch
+    count."""
     import torch
 
     from tpusim_torch.sim.fused_engine import launch
 
-    reset()
-    launch(ready)
+    if warmup:
+        reset()
+        launch(ready)
     pairs = []
     for _ in range(repeats):
         reset()
@@ -160,6 +214,18 @@ def wall_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
+
+
+def to_cpu(x):
+    """A result (tensors, possibly in named tuples) as CPU tensors."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple):
+        parts = [to_cpu(v) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
 
 
 def max_abs_err(got, want) -> int:
@@ -235,6 +301,50 @@ def chain_ms(step_ms: float, kinds: np.ndarray, n: int, k: int,
     bytes_moved = (creates * 4 * (n_pol + 2) * n
                    + refreshes * (4 * (n_pol + 2) * k + node_bytes)
                    + kinds.size * per_event)
+    return kinds.size * step_ms + bytes_moved / PEAK_BYTES_PER_S * 1e3
+
+
+def throughput_bound(n: int, k: int, t: int, p: int, e: int, n_pol: int,
+                     refreshes: int, ops: int, extra_bytes: int = 0):
+    """(ms, what bounds it) of a replay as if its events were independent:
+    every input read once and every output written once (the node state
+    and the tables both ways, the types, typical pods, pods, ranks and
+    events in, the pod and event outputs out, and `extra_bytes`), and the
+    operations of one column refresh per event after the first create or
+    delete."""
+    state_bytes = n * (1 + 1 + 1 + 1 + 8 + 9 + 1 + 1) * 4
+    table_bytes = (n_pol + 2) * k * n * 4
+    replay_bytes = (2 * state_bytes + 2 * table_bytes + 5 * k * 4 + 5 * t * 4
+                    + p * 6 * 4 + n * 4 + e * 2 * 4 + p * 3 * 4 + e * 2 * 4
+                    + extra_bytes)
+    return bound_ms(replay_bytes, refreshes * ops)
+
+
+def chain_blocked_ms(step_ms: float, kinds: np.ndarray, unpinned: int,
+                     n: int, k: int, refreshes: int, n_pol: int, nn: int,
+                     rebuilds: int) -> float:
+    """Least time of replay_blocked's serial event chain: E x `step_ms`
+    (this run's all-skip replay_blocked per event) plus each event's own
+    bytes at the memory rate. Beside chain_ms's event, pod, output and node
+    bytes, a refresh reads the dirty column ((n_pol + 2) K entries) and the
+    block's K x 128 entries of every score row, the Filter row and the 128
+    ranks, and writes the block's K summaries (3 values, plus 2 extrema per
+    normalised policy); with nn normalised policies every event reads the
+    type's 2 nn N/128 block extrema; each rebuild reads the type's n_pol + 1
+    rows and the N ranks and writes its 3 N/128 summaries; an unpinned
+    create reads its type's 2 N/128 summaries; the init reads every table
+    entry and rank (twice with normalised policies) and writes every
+    summary."""
+    nblk = n // 128
+    node_bytes = (1 + 1 + 1 + 1 + 8 + 9) * 4
+    per_event = 2 * 4 + 7 * 4 + 5 * 4 + 2 * node_bytes + 2 * nn * nblk * 4
+    refresh = (4 * (n_pol + 2) * k + node_bytes
+               + 4 * ((n_pol + 1) * k + 1) * 128 + 4 * k * (3 + 2 * nn))
+    rebuild = 4 * (n_pol + 2) * n + 4 * 3 * nblk
+    init = ((2 if nn else 1) * 4 * ((n_pol + 1) * k * n + n)
+            + 4 * k * nblk * (3 + 2 * nn))
+    bytes_moved = (kinds.size * per_event + refreshes * refresh
+                   + rebuilds * rebuild + unpinned * 2 * 4 * nblk + init)
     return kinds.size * step_ms + bytes_moved / PEAK_BYTES_PER_S * 1e3
 
 
@@ -346,6 +456,59 @@ def check_random(device):
                                f"on the random case of {label}")
         worst["init_tables"] = max(worst["init_tables"], err_t)
         worst["replay"] = max(worst["replay"], err_r)
+    return worst
+
+
+def blocked_configs():
+    """(label, ReplayConfig) of every method row and FGD/worst."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    return ([(row[0], fe.make_config(*row[1:5])) for row in METHODS]
+            + [("FGD-worst", fe.make_config([("FGDScore", 1000)], "worst"))])
+
+
+def check_random_blocked(device) -> int:
+    """replay_blocked against plain_replay_blocked, which runs on CPU
+    copies of the same inputs, on seeded random clusters: of 600 nodes
+    (five 128-node blocks once padded) for every method row's configuration
+    and FGD/worst, and for the normalised BestFit and PWR+FGD rows also of
+    WIDE_BLOCKED nodes, where a warp rebuilds several blocks of a summary
+    row and the select and drift loops stride over more blocks than the
+    block has threads. Outputs and stats, tolerance 0. Returns the largest
+    error."""
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    configs = dict(blocked_configs())
+    cases = [(label, 600) for label in configs]
+    cases += [(label, nodes) for nodes in WIDE_BLOCKED
+              for label in ("05-BestFit", "08-PWR_500_FGD_500")]
+    worst = 0
+    for i, (label, nodes) in enumerate(cases):
+        cfg = configs[label]
+        state, pods, types, evk, evp, tp, rank = random_case(
+            100 + i, nodes, 300, device)
+        state, rank = pad_nodes(state, rank, 128)
+        tables = fe.init_tables(state, types, tp, cfg)
+        ready = he.prepare_replay_blocked(state, pods, types, evk, evp, tp,
+                                          rank, tables, cfg)
+        fe.launch(ready)  # a comparison: past the wrapper, not counted
+        got = to_cpu(ready.finish())
+        want = he.plain_replay_blocked(*to_cpu(
+            (state, pods, types, evk, evp, tp, rank, tables)), cfg)
+        err = max_abs_err(got, want)
+        print(f"check random blocked {label} nodes={nodes} "
+              f"({state.num_nodes // 128} blocks) events={evk.shape[0]}: "
+              f"replay_blocked max_abs_err={err} (tolerance 0, stats "
+              f"{got[1].tolist()} against {want[1].tolist()})")
+        if err:
+            raise SmokeFailure(f"replay_blocked disagrees with "
+                               f"plain_replay_blocked on {label} at "
+                               f"{nodes} nodes")
+        worst = max(worst, err)
     return worst
 
 
@@ -473,10 +636,7 @@ def check_kernels(device, card: str):
         ops = config_ops(cfg, ks, kw, t)
         init_bound = bound_ms(state_bytes + type_bytes + tp_bytes
                               + table_bytes, n * ops)
-        replay_bytes = (2 * state_bytes + 2 * table_bytes + type_bytes
-                        + tp_bytes + p * 6 * 4 + n * 4 + e * 2 * 4
-                        + p * 3 * 4 + e * 2 * 4)
-        throughput = bound_ms(replay_bytes, refreshes * ops)
+        throughput = throughput_bound(n, k, t, p, e, n_pol, refreshes, ops)
         step = skip_ms["06-FGD" if label == "06-FGD"
                        else "08-PWR_500_FGD_500"] / e  # the kernel it runs
         chain = chain_ms(step, kinds, n, k, refreshes, n_pol)
@@ -503,9 +663,120 @@ def check_kernels(device, card: str):
     return measured, worst
 
 
+def check_blocked(device, card: str):
+    """Phase 3 for replay_blocked: against its plain version on random
+    clusters and on the full openb FGD trace, and each method row's kernel
+    time at openb (node axis padded to 1280, tables from init_tables)
+    beside its bound."""
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.residency import num_normalized
+
+    worst = check_random_blocked(device)
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    state, rank = pad_nodes(state, rank, 128)
+    n, k, t = state.num_nodes, types.num_types, tp.size
+    ks, kw = types.num_share, types.num_types - types.num_share
+    e, p = evk.shape[0], specs.cpu.shape[0]
+    kinds = evk.cpu().numpy()
+    started = np.flatnonzero(kinds != 2)
+    refreshes = int(e - started[0] - 1) if started.size else 0
+    pinned = specs.pinned.cpu().numpy()[evp.cpu().numpy()]
+    unpinned = int(((kinds == 0) & (pinned < 0)).sum())
+
+    def prepared(cfg, tables, kinds=evk):
+        ready = he.prepare_replay_blocked(state, specs, types, kinds, evp, tp,
+                                          rank, tables, cfg)
+        live = ready.tensors
+
+        def reset():
+            for name, src in (("cpu_left", state.cpu_left),
+                              ("mem_left", state.mem_left),
+                              ("gpu_left", state.gpu_left),
+                              ("aff_cnt", state.aff_cnt), ("score", tables[0]),
+                              ("sdev", tables[1]), ("feas", tables[2])):
+                live[name].copy_(src)
+            live["placed"].fill_(-1)
+            live["maskb"].zero_()
+            live["failed"].zero_()
+        return ready, reset
+
+    measured = {}
+    for row in METHODS:
+        label, cfg = row[0], fe.make_config(*row[1:5])
+        n_pol, nn = len(cfg.policies), num_normalized(cfg.policies)
+        tables = fe.init_tables(state, types, tp, cfg)
+        ready, _ = prepared(cfg, tables, torch.full_like(evk, 2))
+        step = kernel_ms(ready, 3) / e
+        ready, reset = prepared(cfg, tables)
+        blocked_ms = kernel_ms(ready, 3, reset)
+        got = ready.finish()  # the last timed launch ran from the reset state
+        rebuilds = int(got[1][2])
+        plain_ms = None
+        if label == "06-FGD":  # the paper's row replays in full beside plain
+            plain_ms, want = wall_ms(lambda: he.plain_replay_blocked(
+                *to_cpu((state, specs, types, evk, evp, tp, rank, tables)),
+                cfg))
+            err = max_abs_err(to_cpu(got), want)
+            print(f"check openb replay_blocked 06-FGD E={e} P={p} N={n}: "
+                  f"max_abs_err={err} (tolerance 0, stats "
+                  f"{got[1].tolist()}); plain {plain_ms:.1f} ms on the CPU")
+            if err:
+                raise SmokeFailure("replay_blocked disagrees with "
+                                   "plain_replay_blocked on openb")
+            worst = max(worst, err)
+        chain = chain_blocked_ms(step, kinds, unpinned, n, k, refreshes,
+                                 n_pol, nn, rebuilds)
+        throughput = throughput_bound(
+            n, k, t, p, e, n_pol, refreshes, config_ops(cfg, ks, kw, t),
+            4 * k * (n // 128) * (3 + 2 * nn))
+        bound = dict(bound_ms=chain, bound_by="operations",
+                     bound_note="serial event chain: E x (one all-skip step "
+                     "of replay_blocked + the event's bytes at the memory "
+                     "rate)")
+        if throughput[0] > chain:
+            bound = dict(bound_ms=throughput[0], bound_by=throughput[1])
+        print(f"time openb {label}: replay_blocked {blocked_ms:.3f} ms = "
+              f"{blocked_ms / e * 1e3:.3f} us an event, {rebuilds} rebuilds, "
+              f"all-skip {step * 1e3:.3f} us an event (chain bound "
+              f"{chain:.4f} ms, throughput bound {throughput[0]:.6f} ms by "
+              f"{throughput[1]}), kernel launches alone, on {card}")
+        measured[label] = dict(ms=blocked_ms, plain_ms=plain_ms,
+                               rebuilds=rebuilds, **bound)
+        if plain_ms is not None:
+            measured[label]["plain_note"] = ("plain_replay_blocked on CPU "
+                                             "copies of the inputs")
+    return measured, worst
+
+
+def run_counts() -> dict:
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine  # noqa: F401 (its wrapper)
+
+    return {fn.__name__: fn.launches for fn in fe.KERNEL_WRAPPERS}
+
+
+def check_launches(label: str, counts: dict, tier: str, sim) -> None:
+    """The run launched every kernel of its residency and not the other
+    replay kernel."""
+    want = RESIDENCY_KERNELS[tier]
+    missing = [name for name in want if counts[name] == 0]
+    stray = [name for name, c in counts.items() if c and name not in want]
+    if sim.last_residency != tier or missing or stray:
+        raise SmokeFailure(f"{label}: residency {sim.last_residency} (want "
+                           f"{tier}), launches {counts}: never launched "
+                           f"{missing}, launched {stray}")
+
+
 def main_path(device, card: str):
-    """Phase 4: every method row through Simulator.run() on the card, the
-    launch counts set to 0 before each row and read after it."""
+    """Phase 4: every method row through Simulator.run() on the card, with
+    table_residency "auto" and then "hbm", the launch counts set to 0
+    before each run and read after it. Returns {run label: counts}."""
+    import dataclasses
+
     import torch
 
     from tpusim_torch.__main__ import method_config
@@ -522,55 +793,312 @@ def main_path(device, card: str):
 
     launches = {}
     for mid, policies, gpu_sel, dim_ext, norm, placed_sha, mask_sha in METHODS:
-        fe.reset_launch_counts()
-        t0 = time.perf_counter()
-        sim = Simulator(nodes, method_config(policies, gpu_sel, dim_ext, norm),
-                        device=device)
-        sim.set_workload_pods(pods)
-        res = sim.run()
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in fe.KERNEL_WRAPPERS}
-        missing = [name for name, count in counts.items() if count == 0]
-        if missing:
-            raise SmokeFailure(f"{mid}: the main path never launched "
-                               f"{missing}")
-        launches[mid] = counts
-        if mid == "06-FGD":
-            print("\n".join(sim.log.lines[-19:]))
+        for setting, tier in (("auto", "vmem"), ("hbm", "hbm")):
+            label = mid if setting == "auto" else f"{mid}/hbm"
+            cfg = dataclasses.replace(
+                method_config(policies, gpu_sel, dim_ext, norm),
+                table_residency=setting)
+            fe.reset_launch_counts()
+            t0 = time.perf_counter()
+            sim = Simulator(nodes, cfg, device=device)
+            sim.set_workload_pods(pods)
+            res = sim.run()
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            counts = run_counts()
+            check_launches(label, counts, tier, sim)
+            launches[label] = counts
+            if label == "06-FGD":
+                print("\n".join(sim.log.lines[-19:]))
 
-        failed = len(res.unscheduled_pods)
-        placements = len(res.pods) - failed
-        s = res.state
-        slot = (torch.arange(8)[None, :] < s.gpu_cnt[:, None])
-        used = int(torch.where(slot, 1000 - s.gpu_left, 0).sum())
-        alloc = 100.0 * used / (int(s.gpu_cnt.sum()) * 1000)
-        got_placed = digest(res.placed_node, np.int32)
-        got_mask = digest(res.dev_mask, np.uint8)
-        if res.events != OPENB_EVENTS or got_placed != placed_sha \
-                or got_mask != mask_sha:
-            raise SmokeFailure(
-                f"{mid}: main path differs from the JAX reference: events "
-                f"{res.events} placed sha256 {got_placed} dev_mask sha256 "
-                f"{got_mask}")
+            failed = len(res.unscheduled_pods)
+            placements = len(res.pods) - failed
+            s = res.state
+            slot = (torch.arange(8)[None, :] < s.gpu_cnt[:, None])
+            used = int(torch.where(slot, 1000 - s.gpu_left, 0).sum())
+            alloc = 100.0 * used / (int(s.gpu_cnt.sum()) * 1000)
+            got_placed = digest(res.placed_node, np.int32)
+            got_mask = digest(res.dev_mask, np.uint8)
+            if res.events != OPENB_EVENTS or got_placed != placed_sha \
+                    or got_mask != mask_sha:
+                raise SmokeFailure(
+                    f"{label}: main path differs from the JAX reference: "
+                    f"events {res.events} placed sha256 {got_placed} "
+                    f"dev_mask sha256 {got_mask}")
 
-        trace = sim.prepare_pods()
-        specs = pods_to_specs(trace, sim.node_index, device)
-        evk, evp = build_events(trace)
-        walls = []
-        for _ in range(WARM_RUNS if mid == "06-FGD" else 3):
-            ms, _ = wall_ms(lambda: sim.run_events(sim.init_state, specs, evk,
-                                                   evp))
-            walls.append(ms / 1e3)
-        warm = min(walls)
-        print(f"main path {mid}: launches {counts}, events={res.events} "
-              f"placements={placements} failed={failed} "
-              f"gpu_alloc={alloc:.2f}%, digests match the JAX reference; "
-              f"cold run() {cold_s:.3f} s, warm replay min "
-              f"{warm * 1e3:.2f} ms of {len(walls)} "
-              f"({', '.join(f'{w * 1e3:.2f}' for w in walls)} ms), "
-              f"{placements / warm:.1f} placements/s on {card}")
+            trace = sim.prepare_pods()
+            specs = pods_to_specs(trace, sim.node_index, device)
+            evk, evp = build_events(trace)
+            walls = []
+            for _ in range(WARM_RUNS if label == "06-FGD" else 3):
+                ms, _ = wall_ms(lambda: sim.run_events(
+                    sim.init_state, specs, evk, evp))
+                walls.append(ms / 1e3)
+            warm = min(walls)
+            stats = (f", stats {sim.last_kernel_stats}"
+                     if sim.last_kernel_stats is not None else "")
+            print(f"main path {label}: {sim.last_engine} ({tier}), launches "
+                  f"{counts}{stats}, events={res.events} "
+                  f"placements={placements} failed={failed} "
+                  f"gpu_alloc={alloc:.2f}%, digests match the JAX reference;"
+                  f" cold run() {cold_s:.3f} s, warm replay min "
+                  f"{warm * 1e3:.2f} ms of {len(walls)} "
+                  f"({', '.join(f'{w * 1e3:.2f}' for w in walls)} ms), "
+                  f"{placements / warm:.1f} placements/s on {card}")
     return launches
+
+
+def scale_path(device, card: str):
+    """Phase 5: tpusim_torch.bench_scale's path at 100k nodes, residency
+    "auto", the launch counts set to 0 before it and read after it; then
+    the flat replay over the same chunks, each kernel alone on the first
+    chunk, the plain checks at this width and the crossover timings.
+    Returns (counts, {kernel: its numbers at this scale, "errors": the
+    plain checks' largest error of each kernel})."""
+    import torch
+
+    from tpusim_torch import bench_scale as bs
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    t0 = time.perf_counter()
+    nodes = bs.synth_cluster(SCALE_NODES, SCALE_SEED)
+    pods = bs.synth_pods(SCALE_PODS, SCALE_SEED + 1)
+    auto = bs.ScaleRun(nodes, pods, bs.scale_config(SCALE_SEED, "auto"),
+                       device)
+    sim, types = auto.sim, auto.types
+    k, n = types.num_types, SCALE_NODES
+    print(f"scale setup: {n} nodes, {SCALE_PODS} pods, K={k}, T="
+          f"{sim.typical.size}, {time.perf_counter() - t0:.1f} s on the host")
+
+    fe.reset_launch_counts()
+    wall, (state, results, failed, rebuilds) = wall_ms(
+        lambda: auto.replay(SCALE_CHUNK, SCALE_EVENTS))
+    counts = run_counts()
+    check_launches("scale", counts, "hbm", sim)
+    if counts["replay_blocked"] != len(results):
+        raise SmokeFailure(f"scale: {len(results)} chunks but launches "
+                           f"{counts}")
+    got = (digest(results[0].placed_node.cpu().numpy(), np.int32),
+           digest(results[0].dev_mask.cpu().numpy(), np.uint8))
+    if got != (SCALE_PLACED_SHA256, SCALE_DEV_MASK_SHA256):
+        raise SmokeFailure(f"scale: the first chunk differs from the JAX "
+                           f"reference: placed sha256 {got[0]} dev_mask "
+                           f"sha256 {got[1]}")
+    placed = SCALE_EVENTS - failed
+    print(f"scale path: {sim.last_engine} ({sim.last_residency}), launches "
+          f"{counts}, {SCALE_EVENTS} events in {len(results)} chunks, "
+          f"placed={placed} gpu_alloc={bs.gpu_alloc(state):.2f}% "
+          f"rebuilds={rebuilds}, first chunk's digests match the JAX "
+          f"reference; wall {wall / 1e3:.3f} s, "
+          f"{wall * 1e3 / SCALE_EVENTS:.3f} us an event, "
+          f"{placed / (wall / 1e3):.1f} placements/s on {card}")
+
+    # the flat replay over the same chunks (a comparison: not counted)
+    flat = bs.ScaleRun(nodes, pods, bs.scale_config(SCALE_SEED, "vmem"),
+                       device)
+    wall_f, (_, results_f, _, _) = wall_ms(
+        lambda: flat.replay(SCALE_CHUNK, SCALE_EVENTS))
+    err = max(max_abs_err(a, b) for a, b in zip(results, results_f))
+    print(f"check scale: {flat.sim.last_engine} against replay_blocked over "
+          f"{len(results_f)} chunks: max_abs_err={err} (tolerance 0); wall "
+          f"{wall_f / 1e3:.3f} s, {wall_f * 1e3 / SCALE_EVENTS:.3f} us an "
+          f"event")
+    if err or flat.sim.last_engine != "replay":
+        raise SmokeFailure("scale: the flat replay and replay_blocked differ")
+
+    # each kernel alone on the first chunk, one timed launch, beside the
+    # all-skip step of the same length and the chain bounds
+    cfg = fe.make_config(list(sim.cfg.policies), sim.cfg.gpu_sel_method)
+    evk = torch.as_tensor(auto.ev_kind[:SCALE_CHUNK], device=device)
+    evp = torch.as_tensor(auto.ev_pod[:SCALE_CHUNK], device=device)
+    kinds = auto.ev_kind[:SCALE_CHUNK]
+    started = np.flatnonzero(kinds != 2)
+    refreshes = int(kinds.size - started[0] - 1) if started.size else 0
+    pinned = auto.specs.pinned.cpu().numpy()[auto.ev_pod[:SCALE_CHUNK]]
+    unpinned = int(((kinds == 0) & (pinned < 0)).sum())
+    skips = torch.full_like(evk, 2)
+    tp, p, e = sim.typical, SCALE_PODS, SCALE_CHUNK
+    ops = config_ops(cfg, types.num_share, k - types.num_share, tp.size)
+    out = {}
+    for name, (st, rank) in (("replay", (sim.init_state, sim.rank)),
+                             ("replay_blocked", pad_nodes(
+                                 sim.init_state, sim.rank, 128))):
+        init = fe.prepare_init_tables(st, types, tp, cfg)
+        init_ms = kernel_ms(init, 3)
+        tables = init.finish()
+        prep = (fe.prepare_replay if name == "replay"
+                else he.prepare_replay_blocked)
+        step = kernel_ms(prep(st, auto.specs, types, skips, evp, tp, rank,
+                              tables, cfg), 3) / e
+        ms = kernel_ms(prep(st, auto.specs, types, evk, evp, tp, rank,
+                            tables, cfg), 1, warmup=False)
+        width = st.num_nodes
+        # every node's state, the types and typical pods read once, the
+        # three tables written once; one column per node
+        init_bound = bound_ms(
+            width * (1 + 1 + 1 + 1 + 8 + 9 + 1 + 1) * 4 + 5 * k * 4
+            + 5 * tp.size * 4 + 3 * k * width * 4, width * ops)
+        if name == "replay":
+            chain = chain_ms(step, kinds, width, k, refreshes)
+            extra = 0
+        else:
+            chain = chain_blocked_ms(step, kinds, unpinned, width, k,
+                                     refreshes, 1, 0, 0)
+            extra = 4 * k * (width // 128) * 3
+        throughput = throughput_bound(width, k, tp.size, p, e, 1,
+                                      refreshes, ops, extra)
+        bound = dict(bound_ms=chain, bound_by="operations",
+                     bound_note="serial event chain")
+        if throughput[0] > chain:
+            bound = dict(bound_ms=throughput[0], bound_by=throughput[1])
+        print(f"time scale first chunk ({e} events, {n} nodes, N={width}): "
+              f"{name} {ms:.3f} ms = {ms / e * 1e3:.3f} us an event "
+              f"(all-skip {step * 1e3:.3f} us an event, chain bound "
+              f"{chain:.3f} ms, throughput bound {throughput[0]:.6f} ms by "
+              f"{throughput[1]}); init_tables {init_ms:.4f} ms (bound "
+              f"{init_bound[0]:.6f} by {init_bound[1]}); kernel launches "
+              f"alone, on {card}")
+        out[name] = dict(ms=ms, plain_ms=None, events=e,
+                         wall_s=(wall if name == "replay_blocked"
+                                 else wall_f) / 1e3, **bound)
+        out[f"init_tables/{name}"] = dict(ms=init_ms, plain_ms=None,
+                                          bound_ms=init_bound[0],
+                                          bound_by=init_bound[1])
+    out["errors"] = scale_plain_checks(auto, results[0].state, device)
+    crossover(auto, results[0].state, device, card)
+    return counts, out
+
+
+def scale_plain_checks(auto, state, device) -> dict:
+    """init_tables and both replay kernels against their plain versions at
+    the scale width, from `state` (the node state after the first chunk,
+    on the card) over the next SCALE_PREFIX events of the stream: the
+    scale configuration (init_tables and replay_blocked at N = 100,096,
+    replay at 100,000) and the normalised 05-BestFit and 08 rows
+    (replay_blocked; init_tables for BestFit, whose plain table build is
+    cheap). The plain versions run on CPU copies of the same inputs; the
+    kernels launch past their wrappers. Tables, outputs and stats,
+    tolerance 0. Returns the largest error of each kernel."""
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    sim, types, tp, specs = auto.sim, auto.types, auto.sim.typical, auto.specs
+    lo, hi = SCALE_CHUNK, SCALE_CHUNK + SCALE_PREFIX
+    evk = torch.as_tensor(auto.ev_kind[lo:hi], device=device)
+    evp = torch.as_tensor(auto.ev_pod[lo:hi], device=device)
+    padded, rank_p = pad_nodes(state, sim.rank, 128)
+    rows = {row[0]: row for row in METHODS}
+    worst = dict(init_tables=0, replay=0, replay_blocked=0)
+    for label, kernels, check_init in (
+            ("06-FGD", ("replay", "replay_blocked"), True),
+            ("05-BestFit", ("replay_blocked",), True),
+            ("08-PWR_500_FGD_500", ("replay_blocked",), False)):
+        cfg = fe.make_config(*rows[label][1:5])
+        tables = {}
+        for st in (state, padded):
+            init = fe.prepare_init_tables(st, types, tp, cfg)
+            fe.launch(init)
+            tables[st.num_nodes] = init.finish()
+        if check_init:
+            t0 = time.perf_counter()
+            want = fe.plain_init_tables(*to_cpu((padded, types, tp)), cfg)
+            plain_s = time.perf_counter() - t0
+            err = max_abs_err(to_cpu(tables[padded.num_nodes]), want)
+            print(f"check scale init_tables {label} [{len(cfg.policies)}x"
+                  f"{types.num_types}, {padded.num_nodes}] from the state "
+                  f"after the first chunk: max_abs_err={err} (tolerance 0);"
+                  f" plain {plain_s:.1f} s on the CPU")
+            worst["init_tables"] = max(worst["init_tables"], err)
+        for name in kernels:
+            st, rank = ((state, sim.rank) if name == "replay"
+                        else (padded, rank_p))
+            prep, plain = ((fe.prepare_replay, fe.plain_replay)
+                           if name == "replay" else
+                           (he.prepare_replay_blocked,
+                            he.plain_replay_blocked))
+            args = (st, specs, types, evk, evp, tp, rank,
+                    tables[st.num_nodes])
+            ready = prep(*args, cfg)
+            fe.launch(ready)
+            got = to_cpu(ready.finish())
+            t0 = time.perf_counter()
+            want = plain(*to_cpu(args), cfg)
+            plain_s = time.perf_counter() - t0
+            err = max_abs_err(got, want)
+            stats = (f", stats {got[1].tolist()} against "
+                     f"{want[1].tolist()}" if name != "replay" else "")
+            print(f"check scale {name} {label} N={st.num_nodes} events "
+                  f"{lo}..{hi} from the state after the first chunk: "
+                  f"max_abs_err={err} (tolerance 0{stats}); plain "
+                  f"{plain_s:.1f} s on the CPU")
+            worst[name] = max(worst[name], err)
+    if any(worst.values()):
+        raise SmokeFailure(f"scale: a kernel disagrees with its plain version "
+                           f"at the scale width: {worst}")
+    return worst
+
+
+def crossover(auto, after, device, card) -> None:
+    """Where auto's choice pays: both replay kernels alone, one launch
+    each, on CROSSOVER_EVENTS events of the scale stream under the
+    CROSSOVER_ROWS configurations, at each of CROSSOVER_NODES synthetic
+    nodes from the cluster's initial state, and at the scale width also
+    from `after`, the state after the first chunk (events from
+    SCALE_CHUNK on). Prints each pair beside the tier auto picks there."""
+    import torch
+
+    from tpusim_torch import bench_scale as bs
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.driver import Simulator
+    from tpusim_torch.sim.residency import select_residency
+
+    types, tp, specs = auto.types, auto.sim.typical, auto.specs
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    rows = {row[0]: row for row in METHODS}
+    windows = []
+    for nodes in CROSSOVER_NODES:
+        sim = auto.sim if nodes == SCALE_NODES else Simulator(
+            bs.synth_cluster(nodes, SCALE_SEED), bs.scale_config(SCALE_SEED),
+            device)
+        windows.append((nodes, "initial state", sim.init_state, sim.rank, 0))
+    windows.append((SCALE_NODES, "state after the first chunk", after,
+                    auto.sim.rank, SCALE_CHUNK))
+    for nodes, where, state, rank, lo in windows:
+        hi = lo + CROSSOVER_EVENTS
+        evk = torch.as_tensor(auto.ev_kind[lo:hi], device=device)
+        evp = torch.as_tensor(auto.ev_pod[lo:hi], device=device)
+        padded, rank_p = pad_nodes(state, rank, 128)
+        for label in CROSSOVER_ROWS:
+            cfg = fe.make_config(*rows[label][1:5])
+            ms, rebuilds = {}, 0
+            for name, st, rk, prep in (
+                    ("replay", state, rank, fe.prepare_replay),
+                    ("replay_blocked", padded, rank_p,
+                     he.prepare_replay_blocked)):
+                init = fe.prepare_init_tables(st, types, tp, cfg)
+                fe.launch(init)
+                ready = prep(st, specs, types, evk, evp, tp, rk,
+                             init.finish(), cfg)
+                ms[name] = kernel_ms(ready, 1, warmup=False)
+                if name == "replay_blocked":
+                    rebuilds = int(ready.finish()[1][2])
+            tier = select_residency(nodes, types.num_types,
+                                    len(cfg.policies), l2)
+            print(f"time crossover {label} nodes={nodes} ({where}, events "
+                  f"{lo}..{hi}): replay {ms['replay']:.3f} ms = "
+                  f"{ms['replay'] / CROSSOVER_EVENTS * 1e3:.3f} us an event, "
+                  f"replay_blocked {ms['replay_blocked']:.3f} ms = "
+                  f"{ms['replay_blocked'] / CROSSOVER_EVENTS * 1e3:.3f} us an "
+                  f"event, {rebuilds} rebuilds, blocked/flat "
+                  f"{ms['replay_blocked'] / ms['replay']:.3f}; auto picks "
+                  f"{tier}; kernel launches alone, on {card}")
 
 
 def main() -> int:
@@ -595,6 +1123,7 @@ def main() -> int:
         print(f"python {sys.version.split()[0]} torch {torch.__version__} "
               f"cuda {torch.version.cuda}")
 
+        t0 = time.perf_counter()
         info = kernels.build()
         print(f"build: {info.seconds:.1f} s -> {info.path}")
         for line in info.log.splitlines():
@@ -605,27 +1134,43 @@ def main() -> int:
         kernels.library()
 
         measured, errors = check_kernels(device, card)
+        blocked, errors["replay_blocked"] = check_blocked(device, card)
+        print(f"phase check done at {time.perf_counter() - t0:.1f} s")
         launches = main_path(device, card)
+        print(f"phase main done at {time.perf_counter() - t0:.1f} s")
+        launches["scale"], scale = scale_path(device, card)
+        for name, err in scale.pop("errors").items():
+            errors[name] = max(errors[name], err)
+        print(f"phase scale done at {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
+    for label, m in blocked.items():
+        measured.setdefault(label, {})["replay_blocked"] = m
     rows = []
     for name in kernels.KERNELS:
-        paper = measured["06-FGD"][name]
+        configs = {}
+        for label, m in measured.items():
+            if name in m:
+                runs = (label, f"{label}/hbm")
+                configs[label] = dict(launches=sum(
+                    launches.get(r, {}).get(name, 0) for r in runs),
+                    **m[name])
+        configs["scale"] = dict(launches=launches["scale"][name],
+                                **scale[name if name != "init_tables"
+                                        else "init_tables/replay_blocked"])
         rows.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES,
+            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=sum(c[name] for c in launches.values()),
-            max_abs_err=errors[name], library_ms=None, **paper,
-            configs={mid: dict(launches=launches.get(mid, {}).get(name, 0),
-                               **m[name])
-                     for mid, m in measured.items()},
+            max_abs_err=errors[name], library_ms=None,
+            **measured["06-FGD"][name], configs=configs,
         ))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

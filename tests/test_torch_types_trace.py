@@ -26,6 +26,12 @@ from tpusim_torch.sim.driver import Simulator as PSimulator
 from tpusim_torch.sim.driver import SimulatorConfig as PConfig
 from tpusim_torch.sim.typical import TypicalPodsConfig as PTypicalCfg
 
+# The port's CPU replays run small tensor ops in a Python event loop, where
+# torch's intra-op threads gain nothing; in a parallel test run they only
+# spin against the other processes' threads. Every tests/test_torch_*.py
+# file that runs on the CPU imports this module.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NODE_CSV = os.path.join(REPO, "data/csv/openb_node_list_gpu_node.csv")
 POD_CSV = os.path.join(REPO, "data/csv/openb_pod_list_default.csv")

@@ -1,0 +1,170 @@
+"""Synthetic scale run of the port: a 100k-node cluster and a 1M-pod
+creation stream under FGD (the JAX package's bench_scale.py, BASELINE.json
+config 5, "Synthetic 100k-node / 1M-pod stress").
+
+The openb GPU node list is tiled out to --nodes nodes (the same SKU mix)
+and --pods creation events are sampled from the openb default pods, with
+the same rows as bench_scale.py's for the same seeds. The stream replays
+under FGDScore 1000 with gpu_sel FGDScore and typical pods at popularity
+95, taken from the whole stream, in --chunk-event pieces that carry the
+node state. At 100k nodes the tables outgrow the card's L2 cache, so
+--residency auto runs the blocked replay kernel (`replay_blocked`); vmem
+forces the flat `replay`.
+
+    python -m tpusim_torch.bench_scale                    # 100k / 1M, card
+    python -m tpusim_torch.bench_scale --residency vmem   # the flat kernel
+    python -m tpusim_torch.bench_scale --nodes 300 --pods 2000 --chunk 500 \\
+        --device cpu                                      # plain, small
+
+It replays the stream twice, the first time cold (the kernels' build and
+first launch included), and prints a `[scale]` line for the second.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from tpusim_torch.constants import MILLI
+from tpusim_torch.io.trace import (
+    NodeRow,
+    PodRow,
+    build_events,
+    load_node_csv,
+    load_pod_csv,
+    pods_to_specs,
+)
+from tpusim_torch.sim.driver import Simulator, SimulatorConfig
+from tpusim_torch.sim.residency import table_bytes
+from tpusim_torch.sim.table_engine import build_pod_types
+from tpusim_torch.sim.typical import TypicalPodsConfig
+
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "data", "csv")
+
+
+def synth_cluster(num_nodes: int, seed: int = 0):
+    """`num_nodes` rows drawn with replacement from the openb GPU node
+    list, named synth-000000 on."""
+    base = load_node_csv(os.path.join(_DATA, "openb_node_list_gpu_node.csv"))
+    idx = np.random.default_rng(seed).integers(0, len(base), num_nodes)
+    return [NodeRow(f"synth-{i:06d}", b.cpu_milli, b.memory_mib, b.gpu,
+                    b.model, b.cpu_model)
+            for i, b in enumerate(base[int(j)] for j in idx)]
+
+
+def synth_pods(num_pods: int, seed: int = 1):
+    """`num_pods` rows drawn with replacement from the openb default pod
+    list, named sp-0000000 on (resources only)."""
+    base = load_pod_csv(os.path.join(_DATA, "openb_pod_list_default.csv"))
+    idx = np.random.default_rng(seed).integers(0, len(base), num_pods)
+    return [PodRow(f"sp-{i:07d}", b.cpu_milli, b.memory_mib, b.num_gpu,
+                   b.gpu_milli, b.gpu_spec)
+            for i, b in enumerate(base[int(j)] for j in idx)]
+
+
+def scale_config(seed: int = 42, residency: str = "auto") -> SimulatorConfig:
+    """FGDScore 1000, gpu_sel FGDScore, typical pods at popularity 95."""
+    return SimulatorConfig(
+        policies=(("FGDScore", 1000),), gpu_sel_method="FGDScore", seed=seed,
+        table_residency=residency,
+        typical_pods=TypicalPodsConfig(pod_popularity_threshold=95),
+    )
+
+
+class ScaleRun:
+    """A Simulator over the synthetic cluster with the stream's typical
+    pods, and the stream as specs, pod types and events."""
+
+    def __init__(self, nodes, pods, cfg: SimulatorConfig, device):
+        self.sim = Simulator(nodes, cfg, device=device)
+        self.sim.set_workload_pods(pods)
+        self.sim.set_typical_pods()
+        self.specs = pods_to_specs(pods, None, device)
+        self.types = build_pod_types(self.specs)  # the same for every chunk
+        self.ev_kind, self.ev_pod = build_events(pods)
+
+    def replay(self, chunk: int, events: int = None):
+        """Replay the first `events` events (all by default) in pieces of
+        `chunk`, carrying the node state. Returns (final state, each
+        chunk's ReplayResult, failed creates, rebuilds of the blocked
+        replay)."""
+        events = len(self.ev_kind) if events is None else events
+        state, results, failed, rebuilds = self.sim.init_state, [], 0, 0
+        for lo in range(0, events, chunk):
+            hi = min(lo + chunk, events)
+            res = self.sim.run_events(state, self.specs, self.ev_kind[lo:hi],
+                                      self.ev_pod[lo:hi], self.types)
+            state = res.state
+            results.append(res)
+            failed += int(res.ever_failed.sum())
+            if self.sim.last_kernel_stats is not None:
+                rebuilds += self.sim.last_kernel_stats[2]
+        return state, results, failed, rebuilds
+
+
+def gpu_alloc(state) -> float:
+    """Allocated share of the cluster's GPU milli, in percent."""
+    gpu_left, gpu_cnt = state.gpu_left.cpu(), state.gpu_cnt.cpu()
+    slot = torch.arange(gpu_left.shape[1])[None, :] < gpu_cnt[:, None]
+    used = int(torch.where(slot, MILLI - gpu_left, 0).sum())
+    return 100.0 * used / (int(gpu_cnt.sum()) * MILLI)
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m tpusim_torch.bench_scale",
+                                 description=__doc__.splitlines()[0])
+    ap.add_argument("--nodes", type=int, default=100_000)
+    ap.add_argument("--pods", type=int, default=1_000_000)
+    ap.add_argument("--seed", type=int, default=42,
+                    help="cluster and tie-break seed; the pods use seed + 1")
+    ap.add_argument("--chunk", type=int, default=200_000,
+                    help="events per replay call; the state carries over")
+    ap.add_argument("--residency", default="auto",
+                    help="auto | vmem | hbm (SimulatorConfig.table_residency)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.chunk <= 0:
+        ap.error("--chunk must be positive")
+    device = torch.device(args.device)
+
+    run = ScaleRun(synth_cluster(args.nodes, args.seed),
+                   synth_pods(args.pods, args.seed + 1),
+                   scale_config(args.seed, args.residency), device)
+    walls = []
+    for _ in range(2):  # cold, then warm
+        _synchronize(device)
+        t0 = time.perf_counter()
+        state, _, failed, rebuilds = run.replay(args.chunk)
+        _synchronize(device)
+        walls.append(time.perf_counter() - t0)
+    sim, k = run.sim, run.types.num_types
+    placed = args.pods - failed
+    card = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    wall = walls[1]
+    print(
+        f"[scale] nodes={args.nodes} pods={args.pods} "
+        f"kernel={sim.last_engine} residency={sim.last_residency} K={k} "
+        f"table_mb={table_bytes(args.nodes, k, 1) / 1e6:.1f} "
+        f"wall={wall:.3f}s (cold {walls[0]:.3f}s) placed={placed} "
+        f"throughput={placed / wall:.0f} placements/s "
+        f"us_per_event={1e6 * wall / args.pods:.2f} "
+        f"gpu_alloc={gpu_alloc(state):.2f}% rebuilds={rebuilds} "
+        f"device={card}"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

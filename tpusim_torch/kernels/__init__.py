@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 # the CUDA kernels the port has, by the name chip_smoke.py reports
-KERNELS = ("init_tables", "replay")
+KERNELS = ("init_tables", "replay", "replay_blocked")
 # the most policies one configuration may combine (replay.cu kMaxPolicies)
 MAX_POLICIES = 6
 
@@ -46,6 +46,7 @@ POINTER_FIELDS = (
     "p_cpu", "p_mem", "p_milli", "p_num", "p_pinned", "p_type",
     "ev_kind", "ev_pod",
     "placed", "maskb", "failed", "ev_node", "ev_devb",
+    "bt", "br", "bn", "brmin", "brmax", "slo", "shi", "stats",
 )
 
 

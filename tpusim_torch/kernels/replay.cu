@@ -10,7 +10,7 @@
 // _clustering_column :494, _pwr_column :521, _make_dotprod_column :578 and
 // _feas_column :739.
 //
-// Two kernels share the __device__ column functions (one per policy,
+// Three kernels share the __device__ column functions (one per policy,
 // `*_pair`, scoring one pod type on one node):
 //   init_tables_kernel  one thread per (type, node) pair fills the
 //                       [n_pol*K, N] score, [K, N] share-device and [K, N]
@@ -24,15 +24,32 @@
 //                       (threads over N, then block reductions), and one
 //                       thread runs Reserve and Bind, or the unbind of a
 //                       delete (:955-1103).
-// replay_kernel is a template on the configuration's shape: <false> is
+//   replay_blocked_kernel
+//                       the same event loop for clusters whose tables
+//                       outgrow L2; it replaces the HBM-residency Pallas
+//                       kernel (_make_hbm_kernel :1346, launched at :2160 by
+//                       _make_hbm_replay :2017). It keeps 128-node block
+//                       summaries ([K, N/128], one warp per (type, block)):
+//                       per event it refreshes the dirty column, then that
+//                       block's summaries for all K types, checks the event
+//                       type's normalisation extrema for drift (rebuilding
+//                       its summary row over N only when one moved), and
+//                       selects over N/128 summaries instead of N nodes.
+//                       The Pallas kernel's double-buffered DMA has no
+//                       counterpart: tables and summaries stay in global
+//                       memory, and its waits/starts counters stay 0.
+// Both replay kernels are templates on the configuration's shape: <false> is
 // specialised to the paper's FGD configuration (one FGDScore policy, gpu_sel
 // FGDScore or best) and skips the descriptor, the normalisation pass and the
 // policy loop; <true> reads the policy descriptor.
 //
-// What bounds it on this card: the replay is a serial chain of events, so
-// its time is latency, not bytes or operations. An event touches one row
-// per policy (N int32 each, plus the Filter row) and one column (n_pol + 2
-// values per type); the tables stay in global memory, resident in L2.
+// What bounds them on this card: the replay is a serial chain of events, so
+// its time is latency, not bytes or operations. An event of `replay` touches
+// one row per policy (N int32 each, plus the Filter row) and one column
+// (n_pol + 2 values per type); the tables stay in global memory, resident in
+// L2 while they fit (50 MB). `replay_blocked` reads K x 128 entries per
+// policy for the block refresh and N/128 summaries for the select, so its
+// event stays O(K x 128 + N/128) when the tables sit in device memory.
 //
 // Exactness: every column performs the float32 operations of the JAX
 // package's compiled CPU code in its order, with explicit round-to-nearest
@@ -42,8 +59,8 @@
 // an add the kernel calls __fmaf_rn. tanh is XLA's rational approximation.
 // Float-to-int conversions truncate toward zero and saturate, as XLA's.
 // Integer arithmetic that XLA wraps modulo 2^32 runs on uint32 here. The
-// plain PyTorch versions (tpusim_torch/policies/, sim/fused_engine.py)
-// perform the same operations.
+// plain PyTorch versions (tpusim_torch/policies/, sim/fused_engine.py,
+// sim/hbm_engine.py) perform the same operations.
 //
 // Interface: plain C, bound with ctypes. The launchers return the CUDA error
 // code of the launch (0 = success); they never synchronise.
@@ -66,6 +83,7 @@ constexpr int kDelete = 1;
 constexpr int kInitThreads = 256;
 constexpr int kReplayThreads = 512;
 constexpr int kMaxPolicies = 6;
+constexpr int kBlock = 128;  // nodes per block summary of replay_blocked
 
 // column ids (tpusim_torch.policies.COLUMN_IDS)
 constexpr int kFgd = 0;
@@ -148,6 +166,17 @@ struct ReplayArgs {
   int32_t* failed;
   int32_t* ev_node;
   int32_t* ev_devb;
+  // replay_blocked's block summaries (bt/br/bn [k, n/128], brmin/brmax
+  // [nn, k, n/128], slo/shi [nn, k]) and its counters (waits, starts,
+  // rebuilds); null for the other kernels
+  int32_t* bt;
+  int32_t* br;
+  int32_t* bn;
+  int32_t* brmin;
+  int32_t* brmax;
+  int32_t* slo;
+  int32_t* shi;
+  int32_t* stats;
   int32_t n;
   int32_t k;
   int32_t ks;
@@ -922,6 +951,246 @@ __global__ void __launch_bounds__(kReplayThreads) replay_kernel(ReplayArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// replay_blocked: replay_kernel's event loop with a two-level selectHost over
+// 128-node block summaries (pallas_engine.py _make_hbm_kernel :1346, whose
+// algorithm is the blocked table engine's: table_engine.py make_blocked_body
+// :684, init :1294-1320, _totals :664; step.py block_reduce :218).
+// ---------------------------------------------------------------------------
+
+// One warp summarises block c of type t: the best (total, rank, node) of its
+// 128 nodes, where a node's total is the i32 weighted sum with each
+// normalised policy s scaled against lo[s * ld], hi[s * ld], and -INT_MAX
+// where the type is infeasible; with `extrema`, also each normalised
+// policy's feasible raw min and max over the block. Lane 0 writes them.
+template <bool kGeneral>
+__device__ void summarize_block(const ReplayArgs& a, int t, int c,
+                                const int* lo, const int* hi, int ld,
+                                bool extrema, int lane) {
+  const int nblk = a.n / kBlock;
+  int mn[kMaxPolicies];
+  int mx[kMaxPolicies];
+  for (int s = 0; s < kMaxPolicies; ++s) {
+    mn[s] = INT_MAX;
+    mx[s] = -INT_MAX;
+  }
+  Best b = no_candidate();
+  for (int j = lane; j < kBlock; j += 32) {
+    const int node = c * kBlock + j;
+    const size_t i = static_cast<size_t>(t) * a.n + node;
+    const bool f = a.feas[i] != 0;
+    uint32_t sum = 0;
+    if (!kGeneral) {
+      sum = static_cast<uint32_t>(a.pol_weight[0]) *
+            static_cast<uint32_t>(a.score[i]);
+    } else {
+      int s = 0;
+      for (int pi = 0; pi < a.n_pol; ++pi) {
+        int r = a.score[(static_cast<size_t>(pi) * a.k + t) * a.n + node];
+        if (a.pol_norm[pi] != kNormNone) {
+          if (f) {
+            mn[s] = min(mn[s], r);
+            mx[s] = max(mx[s], r);
+          }
+          r = normalize(r, lo[s * ld], hi[s * ld], a.pol_norm[pi]);
+          ++s;
+        }
+        sum += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(r);
+      }
+    }
+    const Best cand = {f ? static_cast<int>(sum) : -INT_MAX, a.rank[node], node};
+    if (beats(cand, b)) b = cand;
+  }
+  b = warp_best(b);
+  if (kGeneral && extrema) {
+    int s = 0;
+    for (int pi = 0; pi < a.n_pol; ++pi) {
+      if (a.pol_norm[pi] == kNormNone) continue;
+      const int blo = __reduce_min_sync(0xffffffffu, mn[s]);
+      const int bhi = __reduce_max_sync(0xffffffffu, mx[s]);
+      if (lane == 0) {
+        const size_t e = (static_cast<size_t>(s) * a.k + t) * nblk + c;
+        a.brmin[e] = blo;
+        a.brmax[e] = bhi;
+      }
+      ++s;
+    }
+  }
+  if (lane == 0) {
+    const size_t at = static_cast<size_t>(t) * nblk + c;
+    a.bt[at] = b.total;
+    a.br[at] = b.rank;
+    a.bn[at] = b.node;
+  }
+}
+
+template <bool kGeneral>
+__global__ void __launch_bounds__(kReplayThreads)
+    replay_blocked_kernel(ReplayArgs a) {
+  constexpr int kWarps = kReplayThreads / 32;
+  __shared__ Best warp_res[kWarps];
+  __shared__ int warp_lo[kWarps][kMaxPolicies];
+  __shared__ int warp_hi[kWarps][kMaxPolicies];
+  __shared__ int s_dirty;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int nblk = a.n / kBlock;
+  const int gpu_sel = kGeneral ? a.gpu_sel : (a.sel >= 0 ? kSelSelf : kSelBest);
+  int nn = 0;  // normalised policies: the rows of brmin/brmax and slo/shi
+  if (kGeneral)
+    for (int pi = 0; pi < a.n_pol; ++pi) nn += a.pol_norm[pi] != kNormNone ? 1 : 0;
+
+  // the summaries of the initial tables: every block's extrema, the stored
+  // extrema as their min/max over blocks, then every block's summary under
+  // the stored extrema (one warp per (type, block))
+  if (nn > 0) {
+    for (int w = warp; w < a.k * nblk; w += nwarps)
+      summarize_block<kGeneral>(a, w / nblk, w % nblk, a.slo, a.shi, 0, true,
+                                lane);
+    __syncthreads();
+    for (int w = warp; w < nn * a.k; w += nwarps) {
+      const size_t row = static_cast<size_t>(w) * nblk;
+      int lo = INT_MAX;
+      int hi = -INT_MAX;
+      for (int c = lane; c < nblk; c += 32) {
+        lo = min(lo, a.brmin[row + c]);
+        hi = max(hi, a.brmax[row + c]);
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      if (lane == 0) {
+        a.slo[w] = lo;
+        a.shi[w] = hi;
+      }
+    }
+    __syncthreads();
+  }
+  for (int w = warp; w < a.k * nblk; w += nwarps) {
+    const int t = w / nblk;
+    summarize_block<kGeneral>(a, t, w % nblk, a.slo + t, a.shi + t, a.k, false,
+                              lane);
+  }
+  if (tid == 0) {
+    s_dirty = -1;  // the tables and summaries hold the initial state
+    a.stats[0] = 0;  // waits and starts: the kernel issues no async copies
+    a.stats[1] = 0;
+    a.stats[2] = 0;  // summary-row rebuilds
+  }
+  __syncthreads();
+
+  for (int i = 0; i < a.e; ++i) {
+    // refresh the column of the node the previous event touched, then that
+    // node's block summaries of every type under the stored extrema
+    const int dirty = s_dirty;
+    if (dirty >= 0) {
+      if (tid < a.k) {
+        const NodeView v = load_node(a, dirty);
+        for (int k = tid; k < a.k; k += blockDim.x)
+          write_column<kGeneral>(a, v, k, dirty);
+      }
+      __syncthreads();
+      const int c = dirty / kBlock;
+      for (int t = warp; t < a.k; t += nwarps)
+        summarize_block<kGeneral>(a, t, c, a.slo + t, a.shi + t, a.k, nn > 0,
+                                  lane);
+      __syncthreads();
+    }
+
+    const int kind = a.ev_kind[i];
+    const int pod = a.ev_pod[i];
+    const int type = a.p_type[pod];
+    if (kGeneral && nn > 0) {
+      // drift check, every event: the event type's current extrema (the
+      // min/max of its block extrema) against the stored ones; if one moved,
+      // rebuild the type's summary row over all N under the current extrema
+      int lo[kMaxPolicies];
+      int hi[kMaxPolicies];
+      for (int s = 0; s < nn; ++s) {
+        const size_t row = (static_cast<size_t>(s) * a.k + type) * nblk;
+        int l = INT_MAX;
+        int h = -INT_MAX;
+        for (int c = tid; c < nblk; c += blockDim.x) {
+          l = min(l, a.brmin[row + c]);
+          h = max(h, a.brmax[row + c]);
+        }
+        l = __reduce_min_sync(0xffffffffu, l);
+        h = __reduce_max_sync(0xffffffffu, h);
+        if (lane == 0) {
+          warp_lo[warp][s] = l;
+          warp_hi[warp][s] = h;
+        }
+      }
+      __syncthreads();
+      bool changed = false;
+      for (int s = 0; s < nn; ++s) {
+        lo[s] = INT_MAX;
+        hi[s] = -INT_MAX;
+        for (int w = 0; w < nwarps; ++w) {
+          lo[s] = min(lo[s], warp_lo[w][s]);
+          hi[s] = max(hi[s], warp_hi[w][s]);
+        }
+        changed |= lo[s] != a.slo[s * a.k + type] || hi[s] != a.shi[s * a.k + type];
+      }
+      if (changed) {  // the same in every thread
+        for (int c = warp; c < nblk; c += nwarps)
+          summarize_block<kGeneral>(a, type, c, lo, hi, 1, false, lane);
+        __syncthreads();  // every thread has read the stored extrema
+        if (tid == 0) {
+          for (int s = 0; s < nn; ++s) {
+            a.slo[s * a.k + type] = lo[s];
+            a.shi[s * a.k + type] = hi[s];
+          }
+          a.stats[2] += 1;
+        }
+      }
+    }
+
+    if (kind == kCreate) {
+      const int pin = a.p_pinned[pod];
+      if (pin >= 0) {
+        // a pinned pod has one candidate: its Filter bit decides
+        if (tid == 0) {
+          const bool ok =
+              pin < a.n && a.feas[static_cast<size_t>(type) * a.n + pin] != 0;
+          commit_create(a, i, pod, type, ok ? pin : -1, gpu_sel, &s_dirty);
+        }
+      } else {
+        // selectHost over the type's block summaries: valid blocks (a total
+        // other than -INT_MAX), max total, then min rank, then min block
+        const size_t row = static_cast<size_t>(type) * nblk;
+        Best b = no_candidate();
+        for (int c = tid; c < nblk; c += blockDim.x) {
+          const int total = a.bt[row + c];
+          if (total == -INT_MAX) continue;
+          const Best cand = {total, a.br[row + c], c};
+          if (beats(cand, b)) b = cand;
+        }
+        b = warp_best(b);
+        if (lane == 0) warp_res[warp] = b;
+        __syncthreads();
+        if (warp == 0) {
+          b = lane < nwarps ? warp_res[lane] : no_candidate();
+          b = warp_best(b);
+          if (lane == 0)
+            commit_create(a, i, pod, type,
+                          b.node == INT_MAX ? -1 : a.bn[row + b.node], gpu_sel,
+                          &s_dirty);
+        }
+      }
+    } else if (tid == 0) {
+      if (kind == kDelete) {
+        commit_delete(a, i, pod, &s_dirty);
+      } else {  // EV_SKIP: nothing changes
+        a.ev_node[i] = -1;
+        a.ev_devb[i] = 0;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // the paper's shape: one FGDScore policy without normalisation, gpu_sel
 // FGDScore (sel 0) or best
 bool fgd_only(const ReplayArgs* a) {
@@ -952,6 +1221,19 @@ int replay(const ReplayArgs* a, void* stream) {
     replay_kernel<false><<<1, kReplayThreads, 0, s>>>(*a);
   } else {
     replay_kernel<true><<<1, kReplayThreads, 0, s>>>(*a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int replay_blocked(const ReplayArgs* a, void* stream) {
+  if (a->e == 0) return 0;
+  if (a->n_pol < 1 || a->n_pol > kMaxPolicies || a->n % kBlock != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fgd_only(a)) {
+    replay_blocked_kernel<false><<<1, kReplayThreads, 0, s>>>(*a);
+  } else {
+    replay_blocked_kernel<true><<<1, kReplayThreads, 0, s>>>(*a);
   }
   return static_cast<int>(cudaGetLastError());
 }

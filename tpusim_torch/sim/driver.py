@@ -4,9 +4,14 @@ pkg/simulator/core.go:86-268).
 
 The driver owns what happens once per experiment: trace preparation,
 typical pods, tuning, the Cluster Analysis report. The event loop runs in
-the fused replay (tpusim_torch.sim.fused_engine): the hand-written CUDA
-kernels on a CUDA device, the plain PyTorch version when the caller asks
-for device="cpu". There is no fallback from one to the other.
+the flat fused replay (tpusim_torch.sim.fused_engine) or, for clusters
+whose tables outgrow the card's L2 cache, the blocked one
+(tpusim_torch.sim.hbm_engine), as `table_residency` and
+tpusim_torch.sim.residency decide: the hand-written CUDA kernels on a CUDA
+device, the plain PyTorch versions when the caller asks for device="cpu".
+There is no fallback from one to the other, and none to the other kernel:
+a shape the card cannot hold fails its allocation (torch's
+OutOfMemoryError) before launch, a failed launch raises.
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ from tpusim_torch.io.trace import (
     tiebreak_rank,
 )
 from tpusim_torch.ops.frag import cluster_frag_report
+from tpusim_torch.sim import residency
 from tpusim_torch.sim.engine import ReplayResult
 from tpusim_torch.sim.fused_engine import make_fused_replay
+from tpusim_torch.sim.hbm_engine import make_blocked_replay
 from tpusim_torch.sim.reports import (
     LogSink,
     cluster_analysis_block,
@@ -60,6 +67,10 @@ class SimulatorConfig:
     tuning_seed: int = 233
     typical_pods: TypicalPodsConfig = field(default_factory=TypicalPodsConfig)
     seed: int = 42  # node tie-break permutation
+    # where the replay's tables live: "vmem" = the flat `replay` kernel,
+    # "hbm" = `replay_blocked`, "auto" = "vmem" while the tables fit the
+    # card's L2 cache (always on the CPU); tpusim_torch.sim.residency
+    table_residency: str = "auto"
 
 
 @dataclass
@@ -85,11 +96,21 @@ class Simulator:
 
     device: "cuda" (the default) runs the CUDA kernels and raises if no GPU
     is visible; "cpu" runs the plain PyTorch replay.
+
+    After each replay, `last_engine` names the kernel that ran ("replay" or
+    "replay_blocked", prefixed "plain_" on the CPU), `last_residency` its
+    tier ("vmem" or "hbm") and `last_kernel_stats` the blocked replay's
+    [waits, starts, rebuilds] (None after the flat one).
     """
 
     def __init__(self, nodes: Sequence[NodeRow], cfg: SimulatorConfig = None,
                  device="cuda"):
         self.cfg = cfg or SimulatorConfig()
+        if self.cfg.table_residency not in residency.RESIDENCIES:
+            raise ValueError(
+                f"unknown table_residency {self.cfg.table_residency!r}: "
+                f"expected {' | '.join(residency.RESIDENCIES)}"
+            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -101,8 +122,12 @@ class Simulator:
             self.cfg.policies, self.cfg.gpu_sel_method, self.device,
             self.cfg.dim_ext_method, self.cfg.norm_method,
         )
+        self._blocked = None  # the blocked replayer, built on first use
         self.engine = ("fused cuda kernel" if self.device.type == "cuda"
                        else "plain pytorch (cpu)")
+        self.last_engine = None
+        self.last_residency = None
+        self.last_kernel_stats = None
         self.nodes = list(nodes)
         self.node_names = [n.name for n in self.nodes]
         self.node_index = {n.name: i for i, n in enumerate(self.nodes)}
@@ -144,18 +169,49 @@ class Simulator:
 
     # ---- the run (core.go:148 RunCluster -> SchedulePods) ----
 
+    def _residency(self, num_nodes: int, num_types: int) -> str:
+        """The tier a replay of this shape runs in: the configured one, or
+        under "auto" "vmem" while the tables fit the card's L2 cache ("vmem"
+        on the CPU)."""
+        if self.cfg.table_residency != "auto":
+            return self.cfg.table_residency
+        if self.device.type != "cuda":
+            return "vmem"
+        l2 = torch.cuda.get_device_properties(self.device).L2_cache_size
+        return residency.select_residency(num_nodes, num_types,
+                                          len(self.cfg.policies), l2)
+
     def run_events(self, state: NodeState, specs: PodSpec, ev_kind,
-                   ev_pod) -> ReplayResult:
+                   ev_pod, types=None) -> ReplayResult:
         """Replay an event stream from `state`: the CUDA kernels on a CUDA
-        device, the plain replay on the CPU."""
+        device, the plain replay on the CPU. Callers replaying the same pod
+        specs repeatedly (a chunked stream) may pass their
+        `build_pod_types(specs)` as `types`."""
         ev_kind = np.asarray(ev_kind, np.int32)
         ev_pod = np.asarray(ev_pod, np.int32)
-        out = self._replay(
-            state, specs, build_pod_types(specs), torch.as_tensor(ev_kind),
-            torch.as_tensor(ev_pod), self.typical, None, self.rank,
-        )
+        if types is None:
+            types = build_pod_types(specs)
+        n, k = state.num_nodes, types.num_types
+        tier = self._residency(n, k)
+        args = (state, specs, types, torch.as_tensor(ev_kind),
+                torch.as_tensor(ev_pod), self.typical, None, self.rank)
+        if tier == "hbm":
+            if self._blocked is None:
+                self._blocked = make_blocked_replay(
+                    self.cfg.policies, self.cfg.gpu_sel_method, self.device,
+                    self.cfg.dim_ext_method, self.cfg.norm_method,
+                )
+            out, stats = self._blocked(*args)
+            kernel, self.last_kernel_stats = "replay_blocked", stats.tolist()
+        else:
+            out = self._replay(*args)
+            kernel, self.last_kernel_stats = "replay", None
+        if self.device.type != "cuda":
+            kernel = f"plain_{kernel}"
+        self.last_engine, self.last_residency = kernel, tier
         self.log.info(
             f"[Engine] replay of {len(ev_kind)} events ran on: {self.engine}"
+            f", {kernel} ({tier} residency)"
         )
         return out
 

@@ -191,24 +191,27 @@ def _bits_to_mask(bits: torch.Tensor) -> torch.Tensor:
     return ((bits[:, None] >> lane) & 1) != 0
 
 
-def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
-                 ev_kind: torch.Tensor, ev_pod: torch.Tensor,
-                 tp: TypicalPods, rank: torch.Tensor, tables,
-                 cfg: ReplayConfig) -> ReplayResult:
-    """The plain version of the `replay` kernel: an event loop over tensor
-    ops. `tables` are the (score, sdev, feas) tables of the initial state;
-    the loop updates copies of them and of the state."""
-    score, sdev, feas = (t.clone() for t in tables)
+def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
+                     ev_kind: torch.Tensor, ev_pod: torch.Tensor,
+                     tp: TypicalPods, tables, cfg: ReplayConfig,
+                     select) -> ReplayResult:
+    """The event loop of the plain replays. Before each event the column of
+    the node the previous event touched is refreshed in copies of the
+    (score, sdev, feas) `tables`; then `select(tables, dirty, kind, type,
+    pin)` runs, for every event, and on a create returns the chosen node
+    (-1 = none), which Reserve and Bind take. A delete returns the pod's
+    resources to the devices it held. Inputs are left unchanged."""
+    tables = tuple(t.clone() for t in tables)
+    score, sdev, feas = tables
     live = state._replace(
         cpu_left=state.cpu_left.clone(), mem_left=state.mem_left.clone(),
         gpu_left=state.gpu_left.clone(), aff_cnt=state.aff_cnt.clone(),
     )
     cpu_left, mem_left = live.cpu_left, live.mem_left
     gpu_left, aff = live.gpu_left, live.aff_cnt
-    specs, ks, k = types.stacked(), types.num_share, types.num_types
+    specs, ks = types.stacked(), types.num_share
     dev = cpu_left.device
-    n, p, e = state.num_nodes, pods.cpu.shape[0], ev_kind.shape[0]
-    node_ids = torch.arange(n, device=dev, dtype=torch.int32)
+    p, e = pods.cpu.shape[0], ev_kind.shape[0]
 
     host = {f: pods._asdict()[f].tolist() for f in PodSpec._fields}
     type_id = types.type_id.tolist()
@@ -220,27 +223,16 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
         if dirty >= 0:
             col = config_columns(_node_slice(live, dirty, dirty + 1), specs,
                                  ks, tp, cfg)
-            for table, c in zip((score, sdev, feas), col):
+            for table, c in zip(tables, col):
                 table[:, dirty] = c[:, 0]
         kind, idx = kinds[i], ev_pods[i]
+        tid, pin = type_id[idx], host["pinned"][idx]
+        node = select(tables, dirty, kind, tid, pin)
         pcpu, pmem = host["cpu"][idx], host["mem"][idx]
         pmilli, pnum = host["gpu_milli"][idx], host["gpu_num"][idx]
         cls = _affinity_class(pmilli, pnum)
         if kind == EV_CREATE:
-            tid, pin = type_id[idx], host["pinned"][idx]
-            feasible = feas[tid] != 0
-            if pin >= 0:
-                feasible = feasible & (node_ids == pin)
-            # the i32 weighted sum, wrapping as XLA's int32 does
-            total = wrap_i32(sum(
-                w * normalize(pol.normalize, score[j * k + tid],
-                              feasible).to(torch.int64)
-                for j, (pol, w) in enumerate(zip(cfg.policies, cfg.weights))))
-            best = torch.where(feasible, total, -_INT_MAX).max()
-            key = torch.where(feasible & (total == best), -rank, -_INT_MAX)
-            m = key.max()
-            ok = bool(m != -_INT_MAX)
-            node = int(torch.where(key == m, node_ids, n).min()) if ok else 0
+            ok = node >= 0
             bits = 0
             if ok and pmilli * pnum > 0:
                 g8 = gpu_left[node]
@@ -263,11 +255,11 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                         gpu_left[node, d] -= pmilli
                 if 0 <= cls < NUM_AFF_CLASSES:
                     aff[node, cls] += 1
-            placed[idx] = node if ok else -1
+            placed[idx] = node
             maskb[idx] = bits
             failed[idx] = 0 if ok else 1
-            evnode[i], evdevb[i] = (node if ok else -1), bits
-            dirty = node
+            evnode[i], evdevb[i] = node, bits
+            dirty = max(node, 0)
         elif kind == EV_DELETE:
             node, bits = placed[idx], maskb[idx]
             if node >= 0:
@@ -288,6 +280,39 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
     return ReplayResult(live, t(placed), _bits_to_mask(t(maskb)),
                         t(failed) != 0, None, t(evnode),
                         _bits_to_mask(t(evdevb)))
+
+
+def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
+                 ev_kind: torch.Tensor, ev_pod: torch.Tensor,
+                 tp: TypicalPods, rank: torch.Tensor, tables,
+                 cfg: ReplayConfig) -> ReplayResult:
+    """The plain version of the `replay` kernel: an event loop over tensor
+    ops. `tables` are the (score, sdev, feas) tables of the initial state.
+    selectHost scans the event type's row over all N nodes."""
+    k, n = types.num_types, state.num_nodes
+    node_ids = torch.arange(n, device=rank.device, dtype=torch.int32)
+
+    def select(tables, dirty, kind, tid, pin) -> int:
+        if kind != EV_CREATE:
+            return -1
+        score, _, feas = tables
+        feasible = feas[tid] != 0
+        if pin >= 0:
+            feasible = feasible & (node_ids == pin)
+        # the i32 weighted sum, wrapping as XLA's int32 does
+        total = wrap_i32(sum(
+            w * normalize(pol.normalize, score[j * k + tid],
+                          feasible).to(torch.int64)
+            for j, (pol, w) in enumerate(zip(cfg.policies, cfg.weights))))
+        best = torch.where(feasible, total, -_INT_MAX).max()
+        key = torch.where(feasible & (total == best), -rank, -_INT_MAX)
+        m = key.max()
+        if bool(m == -_INT_MAX):
+            return -1
+        return int(torch.where(key == m, node_ids, n).min())
+
+    return plain_event_loop(state, pods, types, ev_kind, ev_pod, tp, tables,
+                            cfg, select)
 
 
 # ---------------------------------------------------------------------------
@@ -434,13 +459,16 @@ def validate_events(ev_kind, ev_pod, num_pods: int) -> None:
 def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                    ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                    tp: TypicalPods, rank: torch.Tensor, tables,
-                   cfg: ReplayConfig) -> Launch:
-    """The `replay` launch over CUDA tensors. It mutates copies of the
-    state (tensors "cpu_left", "mem_left", "gpu_left", "aff_cnt") and of
-    the tables ("score", "sdev", "feas"), and writes "placed" (initially
-    -1), "maskb" and "failed" (initially 0) and the per-event outputs."""
+                   cfg: ReplayConfig, name: str = "replay",
+                   **extra) -> Launch:
+    """The `replay` launch over CUDA tensors (or that of kernel `name`,
+    which takes the same arguments and the `extra` tensors). It mutates
+    copies of the state (tensors "cpu_left", "mem_left", "gpu_left",
+    "aff_cnt") and of the tables ("score", "sdev", "feas"), and writes
+    "placed" (initially -1), "maskb" and "failed" (initially 0) and the
+    per-event outputs."""
     dev = state.cpu_left.device
-    _cuda_only(dev, "replay")
+    _cuda_only(dev, name)
     live = state._replace(
         cpu_left=state.cpu_left.clone(), mem_left=state.mem_left.clone(),
         gpu_left=state.gpu_left.clone(), aff_cnt=state.aff_cnt.clone(),
@@ -463,9 +491,9 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
         rank=rank, p_cpu=pods.cpu, p_mem=pods.mem, p_milli=pods.gpu_milli,
         p_num=pods.gpu_num, p_pinned=pods.pinned, p_type=types.type_id,
         ev_kind=ev_kind, ev_pod=ev_pod, placed=placed, maskb=maskb,
-        failed=failed, ev_node=ev_node, ev_devb=ev_devb, p=p, e=e,
+        failed=failed, ev_node=ev_node, ev_devb=ev_devb, p=p, e=e, **extra,
     )
-    return Launch("replay", args, keep, lambda: ReplayResult(
+    return Launch(name, args, keep, lambda: ReplayResult(
         live, placed, _bits_to_mask(maskb), failed != 0, None, ev_node,
         _bits_to_mask(ev_devb)))
 
@@ -491,12 +519,35 @@ def replay(state: NodeState, pods: PodSpec, types: PodTypes,
 
 init_tables.launches = 0
 replay.launches = 0
-KERNEL_WRAPPERS = (init_tables, replay)
+# every kernel wrapper of the port; tpusim_torch.sim.hbm_engine adds
+# replay_blocked
+KERNEL_WRAPPERS = [init_tables, replay]
 
 
 def reset_launch_counts() -> None:
+    """Set every wrapper's launch count to 0."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+
+
+def device_inputs(device, state, pods, types, ev_kind, ev_pod, tp,
+                  tiebreak_rank=None):
+    """A replayer's inputs on `device`, the event stream checked on the
+    host first; the tie-break rank defaults to the node index."""
+    def to(x):
+        return x.to(device)
+
+    state, pods = NodeState(*map(to, state)), PodSpec(*map(to, pods))
+    types = PodTypes(PodSpec(*map(to, types.share)),
+                     PodSpec(*map(to, types.whole)), to(types.type_id))
+    tp = TypicalPods(*map(to, tp))
+    if tiebreak_rank is None:
+        tiebreak_rank = torch.arange(state.num_nodes, dtype=torch.int32)
+    rank = to(torch.as_tensor(tiebreak_rank, dtype=torch.int32))
+    ev_kind = torch.as_tensor(ev_kind, dtype=torch.int32).cpu()
+    ev_pod = torch.as_tensor(ev_pod, dtype=torch.int32).cpu()
+    validate_events(ev_kind.numpy(), ev_pod.numpy(), pods.cpu.shape[0])
+    return state, pods, types, to(ev_kind), to(ev_pod), tp, rank
 
 
 def make_fused_replay(policies: Sequence[Tuple[str, int]], gpu_sel: str,
@@ -515,20 +566,8 @@ def make_fused_replay(policies: Sequence[Tuple[str, int]], gpu_sel: str,
 
     def run(state, pods, types, ev_kind, ev_pod, tp, key=None,
             tiebreak_rank=None) -> ReplayResult:
-        def to(x):
-            return x.to(device)
-
-        state, pods = NodeState(*map(to, state)), PodSpec(*map(to, pods))
-        types = PodTypes(PodSpec(*map(to, types.share)),
-                         PodSpec(*map(to, types.whole)), to(types.type_id))
-        tp = TypicalPods(*map(to, tp))
-        if tiebreak_rank is None:
-            tiebreak_rank = torch.arange(state.num_nodes, dtype=torch.int32)
-        rank = to(torch.as_tensor(tiebreak_rank, dtype=torch.int32))
-        ev_kind = torch.as_tensor(ev_kind, dtype=torch.int32).cpu()
-        ev_pod = torch.as_tensor(ev_pod, dtype=torch.int32).cpu()
-        validate_events(ev_kind.numpy(), ev_pod.numpy(), pods.cpu.shape[0])
-        ev_kind, ev_pod = to(ev_kind), to(ev_pod)
+        state, pods, types, ev_kind, ev_pod, tp, rank = device_inputs(
+            device, state, pods, types, ev_kind, ev_pod, tp, tiebreak_rank)
         tables = init_tables(state, types, tp, cfg)
         return replay(state, pods, types, ev_kind, ev_pod, tp, rank, tables,
                       cfg)

@@ -1,0 +1,62 @@
+"""Where the replay's tables live, and so which replay kernel runs
+(counterpart of the residency probes of tpusim/sim/pallas_engine.py:
+vmem_resident_bytes, vmem_resident_bytes_hbm, select_residency,
+num_normalized).
+
+The JAX package picks between its VMEM-resident kernel and its
+HBM-residency kernel by what fits the TPU core's fast memory. On the card
+both replay kernels read the tables from device memory through the L2
+cache; what differs is the select. The flat `replay` scans the event
+type's row over all N nodes each event, which is cheap while the tables
+stay in L2. `replay_blocked` keeps 128-node block summaries and selects
+over N/128 of them, which pays off once the tables outgrow L2 and every
+row scan goes to device memory. The tier names are the JAX package's, so a
+`table_residency` setting means the same choice in both packages:
+
+    "vmem"  the tables fit the card's L2 cache: the flat `replay`
+    "hbm"   they do not: `replay_blocked`
+
+On an H100 (50 MiB L2, chip_smoke.py's scale phase) this rule picked the
+faster kernel, or one within 0.3%, for FGD, BestFit and PWR+FGD at 10k,
+30k and 100k nodes, though BestFit rebuilds a summary row on most events.
+
+There is no third tier: a shape the card's memory cannot hold fails its
+allocation before anything is launched.
+"""
+
+from __future__ import annotations
+
+RESIDENCIES = ("auto", "vmem", "hbm")
+BLOCK = 128  # nodes per block summary
+
+
+def ceil_block(n: int) -> int:
+    """The node count padded to whole 128-node blocks."""
+    return -(-n // BLOCK) * BLOCK
+
+
+def table_bytes(n: int, k: int, num_pol: int) -> int:
+    """Bytes of the int32 tables: one score table per policy plus the
+    share-device and Filter tables, [K, N] each, N padded to 128."""
+    return (num_pol + 2) * k * ceil_block(n) * 4
+
+
+def blocked_extra_bytes(n: int, k: int, num_norm: int) -> int:
+    """Bytes `replay_blocked` adds beside the tables: the block summaries
+    bt/br/bn [K, N/128], the block extrema brmin/brmax [nn, K, N/128] and
+    the stored extrema slo/shi [nn, K] (nn = max(num_norm, 1)), and the
+    padded tie-break rank [N]."""
+    nblk = ceil_block(n) // BLOCK
+    nn = max(num_norm, 1)
+    return ((3 + 2 * nn) * k * nblk + 2 * nn * k + ceil_block(n)) * 4
+
+
+def select_residency(n: int, k: int, num_pol: int, l2_bytes: int) -> str:
+    """"vmem" when the tables fit in `l2_bytes` of L2 cache, else "hbm"."""
+    return "vmem" if table_bytes(n, k, num_pol) <= l2_bytes else "hbm"
+
+
+def num_normalized(policies) -> int:
+    """How many of a configuration's policies are min-max or PWR
+    normalised: the rows of the blocked extrema."""
+    return sum(1 for pol in policies if pol.normalize != "none")
