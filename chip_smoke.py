@@ -1,27 +1,44 @@
 """Smoke run of the PyTorch/CUDA port (tpusim_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --only clocks    # phases by name, repeatable
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
 
 1. card    the card's name and power limit (nvidia-smi); a CUDA device is
            required.
-2. build   the port's CUDA kernels, compiled from tpusim_torch/kernels/*.cu.
+2. build   the port's CUDA kernels, compiled from tpusim_torch/kernels/*.cu:
+           the main library and the variants of kernels.VARIANTS (the
+           clocked build), one nvcc each, all in parallel.
 3. check   each kernel against its plain PyTorch version on the same inputs,
            tolerance zero (exact equality), for every policy configuration
            the kernels cover: init_tables on the full openb tables of each,
            replay on seeded random clusters (256 nodes, ~1k events for the
            method rows, ~300 for the other DotProduct pairs and FGD/worst)
-           and on the full openb FGD trace, replay_blocked (outputs and
-           stats) on seeded random clusters of five 128-node blocks for
-           every method row's configuration and FGD/worst, of 17 and 513
-           blocks for BestFit and PWR+FGD, and on the full openb FGD
-           trace, its plain version on CPU copies of the inputs.
-           Both replay kernels are timed per method row at openb, and
-           replay for FGD/worst (the one-FGD configuration through the
-           general kernel), beside the plain version and the bound.
-4. main    Simulator.run() on the card for every row of the paper's method
+           and on the full openb trace under FGD and FGD/worst, and
+           replay_blocked on seeded random
+           clusters of five 128-node blocks for every method row's
+           configuration and FGD/worst, of 17 and 513 blocks for BestFit
+           and PWR+FGD, and on the full openb FGD trace, its plain version
+           on CPU copies of the inputs; both replay kernels on the type
+           shapes of SHAPE_CASES (share items past a round of the block's
+           threads, no share type, only share types, one typical pod, the
+           most types and typical pods staged), and the wrappers' refusal
+           past those. Each replay check holds outputs, stats, the final
+           tables and block summaries, and the tables against init_tables
+           over the final state. Both replay kernels are timed per method
+           row at openb, and replay for FGD/worst (the one-FGD
+           configuration through the general kernel), beside the plain
+           version and the bound; each timed run's placements and masks
+           must match the row's JAX digests, and the bounds count refreshes
+           from those placements (from the plain run's for FGD/worst).
+4. clocks  the phase split of both replay kernels through the clocked
+           build (each run's outputs held to the main build's) for 06-FGD,
+           05-BestFit and 08 at openb and, in the scale phase, on the first
+           2,000 events at 100k nodes; written to
+           chiprun_out/phase_clocks.json.
+5. main    Simulator.run() on the card for every row of the paper's method
            list but 01-Random (openb gpu_node list, default trace, tune 1.3,
            tuning seed 42, seed 42), once with table_residency "auto" (the
            flat replay at this size) and once with "hbm" (replay_blocked):
@@ -29,7 +46,7 @@ result line:
            it, the kernels of that run's residency must have been launched
            and the other replay kernel not, and the placements and device
            masks must match the digests of the JAX package's run of the row.
-5. scale   tpusim_torch.bench_scale's path: 100,000 synthetic nodes, the
+6. scale   tpusim_torch.bench_scale's path: 100,000 synthetic nodes, the
            1M-pod stream in 200k-event chunks, residency "auto", with the
            launch counts set to 0 before and read after: auto must have
            chosen replay_blocked, the first chunk's placements and masks
@@ -38,12 +55,29 @@ result line:
            timed. At the scale width init_tables and both replay kernels
            are held to their plain versions (CPU copies) over 2,000
            events from the state after the first chunk, for FGD, BestFit
-           and PWR+FGD, tolerance 0 with stats; then both replay kernels
-           are timed on 20,000 events at 10k, 30k and 100k nodes for
-           06-FGD, 05-BestFit and 08, beside the tier auto picks there.
+           and PWR+FGD, tolerance 0 with stats and final tables; then both
+           replay kernels are timed on 20,000 events at 10k, 30k and 100k
+           nodes for 06-FGD, 05-BestFit and 08, beside the tier auto picks
+           there.
 
-It then prints one JSON line describing the kernels, the card's line, and
-as the last line {"ok": true, "device": {...}}.
+Run with every phase, it then prints one JSON line describing the
+kernels, the card's line, and as the last line {"ok": true, "device":
+{...}}; with --only, the last two.
+
+    python3 chip_smoke.py --ab PARENT CHANGE CHANGE PARENT
+
+times the replay kernels of several checkouts of this repository in turns
+instead (each a directory, for example a `git archive` unpacked under
+chiprun_ab/). Each turn runs in a process of its own that imports that
+checkout's tpusim_torch, builds its kernels and times each kernel launch
+alone with CUDA events: on the openb trace under every method row,
+`init_tables` (median of 20), `replay` and `replay_blocked` (median of 3,
+state restored before each); then, on the first chunk of the 100k-node
+scale stream, `init_tables` (median of 3) and `replay_blocked` (one
+launch). Every replay's placements, device masks and per-event nodes are
+digested, and all turns must agree on them. It prints one line per turn
+and row and a table of the turns side by side, and writes the results to
+chiprun_out/kernel_ab.json.
 
 This script imports nothing of JAX or of the JAX package.
 """
@@ -205,6 +239,24 @@ def kernel_ms(ready, repeats: int, reset=lambda: None,
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
+def reset_of(ready, state, tables):
+    """A function that restores what a prepared replay mutates: the node
+    state and tables it starts from, and its per-pod outputs."""
+    live = ready.tensors
+
+    def reset():
+        for name, src in (("cpu_left", state.cpu_left),
+                          ("mem_left", state.mem_left),
+                          ("gpu_left", state.gpu_left),
+                          ("aff_cnt", state.aff_cnt), ("score", tables[0]),
+                          ("sdev", tables[1]), ("feas", tables[2])):
+            live[name].copy_(src)
+        live["placed"].fill_(-1)
+        live["maskb"].zero_()
+        live["failed"].zero_()
+    return reset
+
+
 def wall_ms(fn):
     """Host milliseconds of one fn() call ending in a synchronize."""
     import torch
@@ -284,13 +336,42 @@ def bound_ms(bytes_moved: int, ops: int):
     return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
 
 
+def refreshes_of(event_node) -> int:
+    """The column refreshes a replay needs: one after each event that
+    changed a node (a create that placed its pod, the delete of a placed
+    pod), but the last."""
+    return int((event_node[:-1] >= 0).sum())
+
+
+def placed_refreshes(kinds: np.ndarray, pods: np.ndarray, placed) -> int:
+    """refreshes_of for a stream of creates and skips alone, counted from
+    its final placements (checked against the JAX digests) instead of the
+    kernel's per-event telemetry: with no delete a pod keeps the node its
+    create chose, so an event changed a node iff it created a pod that
+    ended placed."""
+    if (kinds == 1).any():
+        raise SmokeFailure("placed_refreshes needs a stream without deletes")
+    placed = placed.cpu().numpy()
+    return int(((kinds == 0) & (placed[pods] >= 0))[:-1].sum())
+
+
+def check_digests(where: str, result, placed_sha: str, mask_sha: str):
+    """A timed replay's placements and device masks against the JAX
+    package's digests of the same run."""
+    got = (digest(result.placed_node.cpu().numpy(), np.int32),
+           digest(result.dev_mask.cpu().numpy(), np.uint8))
+    if got != (placed_sha, mask_sha):
+        raise SmokeFailure(f"{where}: differs from the JAX reference: "
+                           f"placed sha256 {got[0]} dev_mask sha256 {got[1]}")
+
+
 def chain_ms(step_ms: float, kinds: np.ndarray, n: int, k: int,
              refreshes: int, n_pol: int = 1) -> float:
     """Least time of the replay's serial event chain. Every event waits on
     the one before it, so each costs at least one step of the block's event
     loop, `step_ms` (this run's all-skip replay per event: the event's read
-    and the two block barriers that stand for the block-wide agreement
-    every event needs), plus its own bytes at the memory rate: on a create
+    and the block barrier that stands for the block-wide agreement every
+    event needs), plus its own bytes at the memory rate: on a create
     the type's feas row, each policy's score row and the ranks
     ((n_pol + 2) x 4 N bytes), on a refresh the dirty column ((n_pol + 2)
     K table entries) and its node, and on every event the event, the pod's
@@ -327,9 +408,9 @@ def chain_blocked_ms(step_ms: float, kinds: np.ndarray, unpinned: int,
     (this run's all-skip replay_blocked per event) plus each event's own
     bytes at the memory rate. Beside chain_ms's event, pod, output and node
     bytes, a refresh reads the dirty column ((n_pol + 2) K entries) and the
-    block's K x 128 entries of every score row, the Filter row and the 128
-    ranks, and writes the block's K summaries (3 values, plus 2 extrema per
-    normalised policy); with nn normalised policies every event reads the
+    block's 128 ranks, and reads and writes the block's K summaries (3
+    values, plus 2 extrema per normalised policy); with nn normalised
+    policies every event reads the
     type's 2 nn N/128 block extrema; each rebuild reads the type's n_pol + 1
     rows and the N ranks and writes its 3 N/128 summaries; an unpinned
     create reads its type's 2 N/128 summaries; the init reads every table
@@ -338,8 +419,8 @@ def chain_blocked_ms(step_ms: float, kinds: np.ndarray, unpinned: int,
     nblk = n // 128
     node_bytes = (1 + 1 + 1 + 1 + 8 + 9) * 4
     per_event = 2 * 4 + 7 * 4 + 5 * 4 + 2 * node_bytes + 2 * nn * nblk * 4
-    refresh = (4 * (n_pol + 2) * k + node_bytes
-               + 4 * ((n_pol + 1) * k + 1) * 128 + 4 * k * (3 + 2 * nn))
+    refresh = (4 * (n_pol + 2) * k + node_bytes + 4 * 128
+               + 2 * 4 * k * (3 + 2 * nn))
     rebuild = 4 * (n_pol + 2) * n + 4 * 3 * nblk
     init = ((2 if nn else 1) * 4 * ((n_pol + 1) * k * n + n)
             + 4 * k * nblk * (3 + 2 * nn))
@@ -403,6 +484,198 @@ def random_case(seed: int, num_nodes: int, num_pods: int, device):
             rank)
 
 
+def typed_case(seed: int, num_nodes: int, ks: int, kw: int, t: int,
+               num_pods: int, device, num_events: int):
+    """A seeded random cluster whose pods fall in exactly ks share-GPU and
+    kw other pod types (each type requested once in the first ks + kw
+    pods, the rest drawn from them), with t typical pods and the first
+    `num_events` create/delete events; the rest as random_case."""
+    from tpusim_torch.sim.table_engine import build_pod_types
+    from tpusim_torch.types import PodSpec, make_typical_pods
+    import torch
+
+    state, _, _, _, _, _, rank = random_case(seed, num_nodes, 1, device)
+    rng = np.random.default_rng(seed + 1000)
+    k = ks + kw
+    j = np.arange(k)
+    # distinct (cpu, mem) per type; share types first
+    cpu = 500 + (j % 64) * 250
+    mem = 1024 * (1 + j // 64)
+    share = j < ks
+    whole_num = rng.choice([0, 1, 2, 4, 8], k)
+    milli = np.where(share, rng.choice([100, 250, 500, 750], k),
+                     np.where(whole_num > 0, 1000, 0))
+    num = np.where(share, 1, whole_num)
+    mask = np.where((num > 0) & (rng.random(k) < 0.25),
+                    1 << rng.integers(0, 4, k), 0)
+    which = np.concatenate([j, rng.integers(0, k, max(num_pods - k, 0))])
+    pinned = np.where(rng.random(which.size) < 0.02,
+                      rng.integers(0, num_nodes, which.size), -1)
+
+    def col(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    pods = PodSpec(col(cpu[which]), col(mem[which]), col(milli[which]),
+                   col(num[which]), col(mask[which]), col(pinned))
+    kinds, idx, alive = [], [], []
+    for i in range(which.size):
+        kinds.append(0)
+        idx.append(i)
+        alive.append(i)
+        if rng.random() < 0.34 and len(alive) > 1:
+            kinds.append(1)
+            idx.append(alive.pop(int(rng.integers(0, len(alive)))))
+    kinds, idx = kinds[:num_events], idx[:num_events]
+    freq = rng.random(t).astype(np.float32) + 0.01
+    tp = make_typical_pods(zip(
+        rng.choice([1000, 4000, 8000, 16000], t),
+        rng.choice([0, 100, 250, 500, 1000], t), rng.choice([1, 2], t),
+        rng.choice([0, 1, 6], t), freq / freq.sum()), device)
+    types = build_pod_types(pods)
+    if (types.num_share, types.num_types) != (ks, k):
+        raise SmokeFailure(f"typed_case made {types.num_share} share of "
+                           f"{types.num_types} types, not {ks} of {k}")
+    return state, pods, types, col(kinds), col(idx), tp, rank
+
+
+# (label, ks, kw, typical pods, nodes, pods, events) of the type-shape
+# cases: share items past one round of the block's threads, no share type,
+# only share types, one typical pod, and the most types and typical pods
+# the replay kernels stage
+SHAPE_CASES = (
+    ("ks=200", 200, 40, 24, 300, 400, 540),
+    ("ks=0", 0, 60, 24, 300, 300, 400),
+    ("ks=K", 60, 0, 24, 300, 300, 400),
+    ("T=1", 30, 30, 1, 300, 300, 400),
+    ("K,T max", 1024, 1024, 1024, 130, 2100, 150),
+)
+SHAPE_ROWS = ("06-FGD", "08-PWR_500_FGD_500")
+
+
+def final_errors(ready, got, keep, types, tp, cfg) -> int:
+    """Largest difference between what a launched replay kernel left in
+    its tables (and, for replay_blocked, its block summaries) and what its
+    plain version left in `keep`, and between those tables and
+    init_tables over the final node state outside the column of the last
+    event's node (which is refreshed only at the next event)."""
+    import torch
+
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.residency import num_normalized
+
+    t = ready.tensors
+    tables = tuple(t[name] for name in ("score", "sdev", "feas"))
+    err = max_abs_err(to_cpu(tables), to_cpu(keep["tables"]))
+    result = got[0] if ready.name == "replay_blocked" else got
+    if ready.name == "replay_blocked":
+        names = ("bt", "br", "bn") + (("brmin", "brmax", "slo", "shi")
+                                      if num_normalized(cfg.policies) else ())
+        err = max(err, max_abs_err(
+            to_cpu(tuple(t[name] for name in names)),
+            to_cpu(tuple(getattr(keep["summaries"], name)
+                         for name in names))))
+    init = fe.prepare_init_tables(result.state, types, tp, cfg)
+    fe.launch(init)  # a comparison: past the wrapper, not counted
+    fresh = init.finish()
+    last = int(result.event_node[-1])
+    if last >= 0:
+        fresh = tuple(x.clone() for x in fresh)
+        tables = tuple(x.clone() for x in tables)
+        for a, b in zip(fresh, tables):
+            a[:, last] = b[:, last]
+    torch.cuda.synchronize()
+    return max(err, max_abs_err(to_cpu(tables), to_cpu(fresh)))
+
+
+def against_plain(name: str, args, cfg, plain_on_cpu: bool = False) -> int:
+    """Launch `replay` or `replay_blocked` on `args` = (state, pods, types,
+    ev_kind, ev_pod, typical pods, rank, tables), past its wrapper (a
+    comparison: not counted), and run its plain version on the same inputs
+    (CPU copies with `plain_on_cpu`). Returns the largest error over the
+    outputs, stats, final tables and summaries."""
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    prep, plain = ((fe.prepare_replay, fe.plain_replay) if name == "replay"
+                   else (he.prepare_replay_blocked, he.plain_replay_blocked))
+    ready = prep(*args, cfg)
+    fe.launch(ready)
+    got, keep = ready.finish(), {}
+    want = plain(*(to_cpu(args) if plain_on_cpu else args), cfg, keep=keep)
+    return max(max_abs_err(to_cpu(got), to_cpu(want)),
+               final_errors(ready, got, keep, args[2], args[5], cfg))
+
+
+def shape_errors(label: str, row: str, device) -> dict:
+    """Each replay kernel's largest error against its plain version on the
+    SHAPE_CASES case `label` under the method row `row`."""
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+
+    i = [c[0] for c in SHAPE_CASES].index(label)
+    _, ks, kw, t, nodes, num_pods, events = SHAPE_CASES[i]
+    state, pods, types, evk, evp, tp, rank = typed_case(
+        200 + i, nodes, ks, kw, t, num_pods, device, events)
+    cfg = fe.make_config(*[r for r in METHODS if r[0] == row][0][1:5])
+    errs = {}
+    for name, (st, rk) in (("replay", (state, rank)),
+                           ("replay_blocked", pad_nodes(state, rank, 128))):
+        tables = fe.init_tables(st, types, tp, cfg)
+        errs[name] = against_plain(
+            name, (st, pods, types, evk, evp, tp, rk, tables), cfg)
+    print(f"check shape {label} {row}: K={types.num_types} "
+          f"(ks={types.num_share}) T={tp.size} nodes={nodes} "
+          f"events={evk.shape[0]}: max_abs_err replay={errs['replay']} "
+          f"replay_blocked={errs['replay_blocked']} with final tables and "
+          f"summaries (tolerance 0)")
+    return errs
+
+
+def over_staged_limit(which: str, device):
+    """The arguments of a replay one pod type ("types") or one typical pod
+    ("typical") past what the kernels stage, and its config."""
+    from tpusim_torch import kernels
+    from tpusim_torch.sim import fused_engine as fe
+
+    ks, kw, t = ((100, kernels.MAX_TYPES - 99, 1) if which == "types"
+                 else (1, 1, kernels.MAX_TYPICAL + 1))
+    state, pods, types, evk, evp, tp, rank = typed_case(
+        300, 130, ks, kw, t, ks + kw, device, 50)
+    cfg = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    return (state, pods, types, evk, evp, tp, rank,
+            fe.init_tables(state, types, tp, cfg)), cfg
+
+
+def check_shapes(device):
+    """Both replay kernels against their plain versions (outputs, stats,
+    final tables and summaries, tolerance 0) on the SHAPE_CASES under the
+    SHAPE_ROWS configurations, and the wrappers' refusal of one type or
+    typical pod past what the kernels stage. Returns the largest error of
+    each kernel."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    worst = dict(replay=0, replay_blocked=0)
+    for label, *_ in SHAPE_CASES:
+        for row in SHAPE_ROWS:
+            errs = shape_errors(label, row, device)
+            for name, err in errs.items():
+                worst[name] = max(worst[name], err)
+            if any(errs.values()):
+                raise SmokeFailure(f"a replay kernel disagrees with its plain "
+                                   f"version on the shape case {label}, {row}")
+    for which in ("types", "typical"):
+        args, cfg = over_staged_limit(which, device)
+        try:
+            fe.prepare_replay(*args, cfg)
+        except ValueError as err:
+            print(f"check shape refusal, one {which} past the limit: {err}")
+        else:
+            raise SmokeFailure(f"prepare_replay took K={args[2].num_types} "
+                               f"T={args[5].size}, past what the kernels "
+                               f"stage")
+    return worst
+
+
 def check_configs():
     """(label, ReplayConfig, pods of its random case) of every policy
     configuration the kernels cover and this script checks: the method
@@ -431,8 +704,6 @@ def check_random(device):
     """Both kernels against their plain versions on seeded random
     clusters of 256 nodes, for every checked configuration. Returns the
     largest error of each kernel."""
-    import torch
-
     from tpusim_torch.sim import fused_engine as fe
 
     worst = {"init_tables": 0, "replay": 0}
@@ -445,12 +716,11 @@ def check_random(device):
         tables = fe.init_tables(state, types, tp, cfg)
         plain_tables = fe.plain_init_tables(state, types, tp, cfg)
         err_t = max_abs_err(tables, plain_tables)
-        args = (state, pods, types, evk, evp, tp, rank, plain_tables, cfg)
-        err_r = max_abs_err(fe.replay(*args), fe.plain_replay(*args))
-        torch.cuda.synchronize()
+        err_r = against_plain("replay", (state, pods, types, evk, evp, tp,
+                                         rank, plain_tables), cfg)
         print(f"check random {label} nodes=256 events={evk.shape[0]}: "
               f"init_tables max_abs_err={err_t} replay max_abs_err={err_r} "
-              f"(tolerance 0)")
+              f"with final tables (tolerance 0)")
         if err_t or err_r:
             raise SmokeFailure(f"a kernel disagrees with its plain version "
                                f"on the random case of {label}")
@@ -474,13 +744,10 @@ def check_random_blocked(device) -> int:
     and FGD/worst, and for the normalised BestFit and PWR+FGD rows also of
     WIDE_BLOCKED nodes, where a warp rebuilds several blocks of a summary
     row and the select and drift loops stride over more blocks than the
-    block has threads. Outputs and stats, tolerance 0. Returns the largest
-    error."""
-    import torch
-
+    block has threads. Outputs, stats, final tables and summaries,
+    tolerance 0. Returns the largest error."""
     from tpusim_torch.parallel.sharding import pad_nodes
     from tpusim_torch.sim import fused_engine as fe
-    from tpusim_torch.sim import hbm_engine as he
 
     configs = dict(blocked_configs())
     cases = [(label, 600) for label in configs]
@@ -493,17 +760,13 @@ def check_random_blocked(device) -> int:
             100 + i, nodes, 300, device)
         state, rank = pad_nodes(state, rank, 128)
         tables = fe.init_tables(state, types, tp, cfg)
-        ready = he.prepare_replay_blocked(state, pods, types, evk, evp, tp,
-                                          rank, tables, cfg)
-        fe.launch(ready)  # a comparison: past the wrapper, not counted
-        got = to_cpu(ready.finish())
-        want = he.plain_replay_blocked(*to_cpu(
-            (state, pods, types, evk, evp, tp, rank, tables)), cfg)
-        err = max_abs_err(got, want)
+        err = against_plain("replay_blocked", (state, pods, types, evk, evp,
+                                               tp, rank, tables), cfg,
+                            plain_on_cpu=True)
         print(f"check random blocked {label} nodes={nodes} "
               f"({state.num_nodes // 128} blocks) events={evk.shape[0]}: "
-              f"replay_blocked max_abs_err={err} (tolerance 0, stats "
-              f"{got[1].tolist()} against {want[1].tolist()})")
+              f"replay_blocked max_abs_err={err} with stats, final tables "
+              f"and summaries (tolerance 0)")
         if err:
             raise SmokeFailure(f"replay_blocked disagrees with "
                                f"plain_replay_blocked on {label} at "
@@ -546,6 +809,8 @@ def check_kernels(device, card: str):
     from tpusim_torch.sim import fused_engine as fe
 
     worst = check_random(device)
+    for name, err in check_shapes(device).items():
+        worst[name] = max(worst.get(name, 0), err)
     state, specs, types, evk, evp, tp, rank = openb_inputs(device)
     n, k, t = state.num_nodes, types.num_types, tp.size
     ks, kw = types.num_share, types.num_types - types.num_share
@@ -573,19 +838,7 @@ def check_kernels(device, card: str):
     def prepared(cfg, tables, kinds=evk):
         ready = fe.prepare_replay(state, specs, types, kinds, evp, tp, rank,
                                   tables, cfg)
-        live = ready.tensors
-
-        def reset():
-            for name, src in (("cpu_left", state.cpu_left),
-                              ("mem_left", state.mem_left),
-                              ("gpu_left", state.gpu_left),
-                              ("aff_cnt", state.aff_cnt), ("score", tables[0]),
-                              ("sdev", tables[1]), ("feas", tables[2])):
-                live[name].copy_(src)
-            live["placed"].fill_(-1)
-            live["maskb"].zero_()
-            live["failed"].zero_()
-        return ready, reset
+        return ready, reset_of(ready, state, tables)
 
     # the event chain without work: the same number of events, all skips,
     # through the FGD-specialised and the general kernel
@@ -599,9 +852,8 @@ def check_kernels(device, card: str):
               f"{skip_ms[label]:.3f} ms, {skip_ms[label] / e * 1e3:.3f} us "
               f"each, on {card}")
 
-    kinds = evk.cpu().numpy()
-    started = np.flatnonzero(kinds != 2)
-    refreshes = int(e - started[0] - 1) if started.size else 0
+    kinds, pods = evk.cpu().numpy(), evp.cpu().numpy()
+    methods = {row[0]: row for row in METHODS}
     tp_bytes = 5 * t * 4
     type_bytes = 5 * k * 4
     state_bytes = n * (1 + 1 + 1 + 1 + 8 + 9 + 1 + 1) * 4
@@ -614,23 +866,33 @@ def check_kernels(device, card: str):
         init_ms, plain_init_ms, tables = plain_init[label]
         ready, reset = prepared(cfg, tables)
         replay_ms = kernel_ms(ready, 3, reset)
+        got = ready.finish()  # the last timed launch ran from the reset state
         plain_replay_ms = None
-        if label == "06-FGD":  # the paper's row replays in full beside plain
-            got = ready.finish()
+        if label in methods:
+            check_digests(f"replay {label}", got, *methods[label][5:7])
+            refreshes = placed_refreshes(kinds, pods, got.placed_node)
+        if label in ("06-FGD", "FGD-worst"):  # replayed in full beside plain
+            keep = {}
             plain_replay_ms, want = wall_ms(lambda: fe.plain_replay(
-                state, specs, types, evk, evp, tp, rank, tables, cfg))
-            err = max_abs_err(got, want)
-            print(f"check openb replay 06-FGD E={e} P={p}: max_abs_err={err}"
-                  f" (tolerance 0); plain {plain_replay_ms:.1f} ms")
+                state, specs, types, evk, evp, tp, rank, tables, cfg,
+                keep=keep))
+            err = max(max_abs_err(got, want),
+                      final_errors(ready, got, keep, types, tp, cfg))
+            print(f"check openb replay {label} E={e} P={p}: max_abs_err="
+                  f"{err} with final tables (tolerance 0); plain "
+                  f"{plain_replay_ms:.1f} ms")
             if err:
                 bad = (got.event_node != want.event_node).nonzero()
                 raise SmokeFailure(
-                    "replay disagrees with plain_replay; first differing "
-                    f"event {int(bad[0]) if bad.numel() else 'none'}")
+                    f"replay disagrees with plain_replay under {label}; "
+                    "first differing event "
+                    f"{int(bad[0]) if bad.numel() else 'none'}")
             worst["replay"] = max(worst["replay"], err)
+            if label not in methods:  # no JAX digest: the plain's count
+                refreshes = refreshes_of(want.event_node)
         # bounds from this run's inputs: every input read once, every output
-        # written once; the replay refreshes one column per event after the
-        # first create or delete, and is a serial chain of events besides
+        # written once; the replay refreshes one column after each event
+        # that changed a node, and is a serial chain of events besides
         n_pol = len(cfg.policies)
         table_bytes = (n_pol + 2) * k * n * 4
         ops = config_ops(cfg, ks, kw, t)
@@ -681,28 +943,14 @@ def check_blocked(device, card: str):
     n, k, t = state.num_nodes, types.num_types, tp.size
     ks, kw = types.num_share, types.num_types - types.num_share
     e, p = evk.shape[0], specs.cpu.shape[0]
-    kinds = evk.cpu().numpy()
-    started = np.flatnonzero(kinds != 2)
-    refreshes = int(e - started[0] - 1) if started.size else 0
-    pinned = specs.pinned.cpu().numpy()[evp.cpu().numpy()]
+    kinds, pods = evk.cpu().numpy(), evp.cpu().numpy()
+    pinned = specs.pinned.cpu().numpy()[pods]
     unpinned = int(((kinds == 0) & (pinned < 0)).sum())
 
     def prepared(cfg, tables, kinds=evk):
         ready = he.prepare_replay_blocked(state, specs, types, kinds, evp, tp,
                                           rank, tables, cfg)
-        live = ready.tensors
-
-        def reset():
-            for name, src in (("cpu_left", state.cpu_left),
-                              ("mem_left", state.mem_left),
-                              ("gpu_left", state.gpu_left),
-                              ("aff_cnt", state.aff_cnt), ("score", tables[0]),
-                              ("sdev", tables[1]), ("feas", tables[2])):
-                live[name].copy_(src)
-            live["placed"].fill_(-1)
-            live["maskb"].zero_()
-            live["failed"].zero_()
-        return ready, reset
+        return ready, reset_of(ready, state, tables)
 
     measured = {}
     for row in METHODS:
@@ -715,15 +963,20 @@ def check_blocked(device, card: str):
         blocked_ms = kernel_ms(ready, 3, reset)
         got = ready.finish()  # the last timed launch ran from the reset state
         rebuilds = int(got[1][2])
+        check_digests(f"replay_blocked {label}", got[0], *row[5:7])
+        refreshes = placed_refreshes(kinds, pods, got[0].placed_node)
         plain_ms = None
         if label == "06-FGD":  # the paper's row replays in full beside plain
+            keep = {}
             plain_ms, want = wall_ms(lambda: he.plain_replay_blocked(
                 *to_cpu((state, specs, types, evk, evp, tp, rank, tables)),
-                cfg))
-            err = max_abs_err(to_cpu(got), want)
+                cfg, keep=keep))
+            err = max(max_abs_err(to_cpu(got), want),
+                      final_errors(ready, got, keep, types, tp, cfg))
             print(f"check openb replay_blocked 06-FGD E={e} P={p} N={n}: "
-                  f"max_abs_err={err} (tolerance 0, stats "
-                  f"{got[1].tolist()}); plain {plain_ms:.1f} ms on the CPU")
+                  f"max_abs_err={err} with final tables and summaries "
+                  f"(tolerance 0, stats {got[1].tolist()}); plain "
+                  f"{plain_ms:.1f} ms on the CPU")
             if err:
                 raise SmokeFailure("replay_blocked disagrees with "
                                    "plain_replay_blocked on openb")
@@ -750,6 +1003,100 @@ def check_blocked(device, card: str):
             measured[label]["plain_note"] = ("plain_replay_blocked on CPU "
                                              "copies of the inputs")
     return measured, worst
+
+
+CLOCK_ROWS = ("06-FGD", "05-BestFit", "08-PWR_500_FGD_500")
+# the clocked library variants
+CLOCK_VARIANTS = ("clocked",)
+
+
+def clocked_run(ready, variant: str, device):
+    """Launch a prepared replay through a clocked library variant, one
+    launch timed alone with CUDA events (the kernel's module loaded by an
+    earlier launch). Returns (ms, clocks as a dict of ints). Not counted."""
+    import torch
+
+    from tpusim_torch import kernels
+
+    clocks = torch.zeros(kernels.NUM_CLOCKS, dtype=torch.int64,
+                         device=device)
+    ready.args.clocks = clocks.data_ptr()
+    ready.tensors["clocks"] = clocks
+    stream = torch.cuda.current_stream(device).cuda_stream
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    kernels.launch(ready.name, ready.args, stream, variant)
+    end.record()
+    torch.cuda.synchronize()
+    vals = clocks.tolist()
+    return start.elapsed_time(end), dict(zip(kernels.CLOCK_SLOTS, vals))
+
+
+def clock_line(where: str, name: str, label: str, variant: str, e: int,
+               ms: float, clk: dict) -> dict:
+    """Print one run's phase split as us an event (cycles converted at the
+    run's own rate: the loop's and the init's cycles over its ms) and
+    return it."""
+    rate = (clk["loop"] + clk["init"]) / (ms * 1e3)  # cycles a microsecond
+    split = {ph: clk[ph] / rate / e for ph in
+             ("refresh", "work", "setup", "sum", "block", "drift", "extrema",
+              "select", "commit", "wait")}
+    out = dict(where=where, kernel=name, row=label, variant=variant, events=e,
+               ms=ms, mhz=rate, us_per_event=split,
+               init_us=clk["init"] / rate, refreshes=clk["refreshes"],
+               items=clk["items"] / max(clk["refreshes"], 1),
+               rescans=clk["rescans"])
+    print(f"clocks {where} {name} {label} [{variant}]: {ms:.3f} ms, "
+          f"{ms / e * 1e3:.3f} us an event at {rate:.0f} MHz; us an event: "
+          + ", ".join(f"{ph} {v:.3f}" for ph, v in split.items())
+          + f" (wait is inside the others); init {out['init_us']:.1f} us; "
+          f"{clk['refreshes']} refreshes ({out['items']:.0f} lanes each), "
+          f"{clk['rescans']} rescans")
+    return out
+
+
+def phase_clocks(device, card: str, inputs, where: str, rows, kernels_run,
+                 variants=CLOCK_VARIANTS):
+    """The phase split of both replay kernels through the clocked
+    variants, on `inputs` = (state, specs, types, evk, evp, tp, rank), for
+    each row label of `rows`. Each clocked run's outputs must equal the
+    main build's on the same inputs. Returns the split of every run."""
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    state, specs, types, evk, evp, tp, rank = inputs
+    padded, rank_p = pad_nodes(state, rank, 128)
+    methods = {row[0]: row for row in METHODS}
+    e = evk.shape[0]
+    out = []
+    for label in rows:
+        cfg = fe.make_config(*methods[label][1:5])
+        for name, st, rk, prep in (
+                ("replay", state, rank, fe.prepare_replay),
+                ("replay_blocked", padded, rank_p, he.prepare_replay_blocked)):
+            if name not in kernels_run:
+                continue
+            init = fe.prepare_init_tables(st, types, tp, cfg)
+            fe.launch(init)
+            tables = init.finish()
+            args = (st, specs, types, evk, evp, tp, rk, tables, cfg)
+            base = prep(*args)
+            fe.launch(base)  # the main build, past the wrapper: not counted
+            want = to_cpu(base.finish())
+            for variant in variants:
+                clocked_run(prep(*args), variant, device)  # loads the module
+                ready = prep(*args)
+                ms, clk = clocked_run(ready, variant, device)
+                err = max_abs_err(to_cpu(ready.finish()), want)
+                if err:
+                    raise SmokeFailure(f"the {variant} build of {name} "
+                                       f"differs from the main build on "
+                                       f"{label} ({where})")
+                out.append(clock_line(where, name, label, variant, e, ms,
+                                      clk))
+    return out
 
 
 def run_counts() -> dict:
@@ -848,7 +1195,7 @@ def main_path(device, card: str):
     return launches
 
 
-def scale_path(device, card: str):
+def scale_path(device, card: str, nodes, pods, auto):
     """Phase 5: tpusim_torch.bench_scale's path at 100k nodes, residency
     "auto", the launch counts set to 0 before it and read after it; then
     the flat replay over the same chunks, each kernel alone on the first
@@ -862,15 +1209,8 @@ def scale_path(device, card: str):
     from tpusim_torch.sim import fused_engine as fe
     from tpusim_torch.sim import hbm_engine as he
 
-    t0 = time.perf_counter()
-    nodes = bs.synth_cluster(SCALE_NODES, SCALE_SEED)
-    pods = bs.synth_pods(SCALE_PODS, SCALE_SEED + 1)
-    auto = bs.ScaleRun(nodes, pods, bs.scale_config(SCALE_SEED, "auto"),
-                       device)
     sim, types = auto.sim, auto.types
     k, n = types.num_types, SCALE_NODES
-    print(f"scale setup: {n} nodes, {SCALE_PODS} pods, K={k}, T="
-          f"{sim.typical.size}, {time.perf_counter() - t0:.1f} s on the host")
 
     fe.reset_launch_counts()
     wall, (state, results, failed, rebuilds) = wall_ms(
@@ -914,8 +1254,8 @@ def scale_path(device, card: str):
     evk = torch.as_tensor(auto.ev_kind[:SCALE_CHUNK], device=device)
     evp = torch.as_tensor(auto.ev_pod[:SCALE_CHUNK], device=device)
     kinds = auto.ev_kind[:SCALE_CHUNK]
-    started = np.flatnonzero(kinds != 2)
-    refreshes = int(kinds.size - started[0] - 1) if started.size else 0
+    refreshes = placed_refreshes(kinds, auto.ev_pod[:SCALE_CHUNK],
+                                 results[0].placed_node)
     pinned = auto.specs.pinned.cpu().numpy()[auto.ev_pod[:SCALE_CHUNK]]
     unpinned = int(((kinds == 0) & (pinned < 0)).sum())
     skips = torch.full_like(evk, 2)
@@ -1025,16 +1365,18 @@ def scale_plain_checks(auto, state, device) -> dict:
                     tables[st.num_nodes])
             ready = prep(*args, cfg)
             fe.launch(ready)
-            got = to_cpu(ready.finish())
+            got, keep = ready.finish(), {}
             t0 = time.perf_counter()
-            want = plain(*to_cpu(args), cfg)
+            want = plain(*to_cpu(args), cfg, keep=keep)
             plain_s = time.perf_counter() - t0
-            err = max_abs_err(got, want)
+            err = max(max_abs_err(to_cpu(got), want),
+                      final_errors(ready, got, keep, types, tp, cfg))
             stats = (f", stats {got[1].tolist()} against "
                      f"{want[1].tolist()}" if name != "replay" else "")
             print(f"check scale {name} {label} N={st.num_nodes} events "
                   f"{lo}..{hi} from the state after the first chunk: "
-                  f"max_abs_err={err} (tolerance 0{stats}); plain "
+                  f"max_abs_err={err} with final tables (tolerance 0{stats});"
+                  f" plain "
                   f"{plain_s:.1f} s on the CPU")
             worst[name] = max(worst[name], err)
     if any(worst.values()):
@@ -1101,7 +1443,184 @@ def crossover(auto, after, device, card) -> None:
                   f"{tier}; kernel launches alone, on {card}")
 
 
-def main() -> int:
+PHASES = ("check", "clocks", "main", "scale")
+
+
+def scale_inputs(device):
+    """The scale run's set-up (tpusim_torch.bench_scale at SCALE_NODES
+    nodes, residency auto)."""
+    from tpusim_torch import bench_scale as bs
+
+    t0 = time.perf_counter()
+    nodes = bs.synth_cluster(SCALE_NODES, SCALE_SEED)
+    pods = bs.synth_pods(SCALE_PODS, SCALE_SEED + 1)
+    auto = bs.ScaleRun(nodes, pods, bs.scale_config(SCALE_SEED, "auto"),
+                       device)
+    print(f"scale setup: {SCALE_NODES} nodes, {SCALE_PODS} pods, "
+          f"K={auto.types.num_types}, T={auto.sim.typical.size}, "
+          f"{time.perf_counter() - t0:.1f} s on the host")
+    return nodes, pods, auto
+
+
+def scale_clocks(auto, device, card: str):
+    """The phase split of both replay kernels on the first SCALE_PREFIX
+    events of the scale stream, from the cluster's initial state."""
+    import torch
+
+    evk = torch.as_tensor(auto.ev_kind[:SCALE_PREFIX], device=device)
+    evp = torch.as_tensor(auto.ev_pod[:SCALE_PREFIX], device=device)
+    return phase_clocks(device, card, (
+        auto.sim.init_state, auto.specs, auto.types, evk, evp,
+        auto.sim.typical, auto.sim.rank), f"scale-{SCALE_NODES}",
+        ("06-FGD",), ("replay", "replay_blocked"))
+
+
+AB_OUT = os.path.join("chiprun_out", "kernel_ab.json")
+
+
+def replay_digest(result) -> str:
+    """sha256 of a replay's placements, device masks and per-event nodes."""
+    h = hashlib.sha256()
+    for x in (result.placed_node, result.dev_mask, result.event_node):
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def ab_timed(ready, state, tables, repeats, warmup=True):
+    """Median ms of `repeats` launches of a prepared replay, each from the
+    initial state and tables; returns (ms, digest of the last launch)."""
+    ms = kernel_ms(ready, repeats, reset_of(ready, state, tables),
+                   warmup=warmup)
+    result = ready.finish()
+    if isinstance(result, tuple) and not hasattr(result, "_fields"):
+        result = result[0]  # replay_blocked's (result, stats)
+    return ms, replay_digest(result)
+
+
+def ab_turn(tree: str) -> dict:
+    """One turn of --ab: every measurement of the checkout at `tree`, whose
+    tpusim_torch this process imports (its sys.path leads with `tree`)."""
+    import torch
+
+    from tpusim_torch import bench_scale as bs
+    from tpusim_torch import kernels
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    if not os.path.abspath(kernels.__file__).startswith(
+            os.path.abspath(tree) + os.sep):
+        raise SmokeFailure(f"--ab: imported {kernels.__file__}, not {tree}'s")
+    device = torch.device("cuda")
+    kernels.build()
+    out = dict(tree=tree, card=card_line(), rows={}, scale={})
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    padded, rank_p = pad_nodes(state, rank, 128)
+    for row in METHODS:
+        label, cfg = row[0], fe.make_config(*row[1:5])
+        rec = {}
+        for name, st, rk, prep in (
+                ("replay", state, rank, fe.prepare_replay),
+                ("replay_blocked", padded, rank_p,
+                 he.prepare_replay_blocked)):
+            init = fe.prepare_init_tables(st, types, tp, cfg)
+            if name == "replay":
+                rec["init_tables"] = kernel_ms(init, 20)
+            else:
+                fe.launch(init)
+            tables = init.finish()
+            rec[name], rec[f"{name}_digest"] = ab_timed(
+                prep(st, specs, types, evk, evp, tp, rk, tables, cfg), st,
+                tables, 3)
+        out["rows"][label] = rec
+        print(f"[{tree}] openb {label}: init_tables "
+              f"{rec['init_tables']:.4f} ms, replay {rec['replay']:.3f} ms, "
+              f"replay_blocked {rec['replay_blocked']:.3f} ms", flush=True)
+
+    auto = bs.ScaleRun(bs.synth_cluster(SCALE_NODES, SCALE_SEED),
+                       bs.synth_pods(SCALE_PODS, SCALE_SEED + 1),
+                       bs.scale_config(SCALE_SEED, "auto"), device)
+    cfg = fe.make_config(list(auto.sim.cfg.policies),
+                         auto.sim.cfg.gpu_sel_method)
+    st, rk = pad_nodes(auto.sim.init_state, auto.sim.rank, 128)
+    evk = torch.as_tensor(auto.ev_kind[:SCALE_CHUNK], device=device)
+    evp = torch.as_tensor(auto.ev_pod[:SCALE_CHUNK], device=device)
+    init = fe.prepare_init_tables(st, auto.types, auto.sim.typical, cfg)
+    init_ms = kernel_ms(init, 3)
+    tables = init.finish()
+    ms, dig = ab_timed(he.prepare_replay_blocked(
+        st, auto.specs, auto.types, evk, evp, auto.sim.typical, rk, tables,
+        cfg), st, tables, 1, warmup=False)
+    out["scale"] = dict(init_tables=init_ms, replay_blocked=ms,
+                        replay_blocked_digest=dig, events=SCALE_CHUNK)
+    print(f"[{tree}] scale first chunk ({SCALE_CHUNK} events, "
+          f"{SCALE_NODES} nodes): init_tables {init_ms:.4f} ms, "
+          f"replay_blocked {ms:.3f} ms", flush=True)
+    return out
+
+
+def ab_main(trees) -> int:
+    """--ab: one ab_turn process per tree, in the order given; the turns'
+    table, and whether their outputs agree."""
+    turns = []
+    for tree in trees:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--ab-turn", tree], capture_output=True,
+                              text=True)
+        lines = proc.stdout.strip().splitlines()
+        sys.stdout.write("".join(f"{line}\n" for line in lines[:-1]))
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-4000:])
+            print(f"chip_smoke --ab: the turn of {tree} failed",
+                  file=sys.stderr)
+            return 1
+        turns.append(json.loads(lines[-1]))
+
+    bad = []
+    rows = list(turns[0]["rows"])
+    for label in rows + ["scale"]:
+        for name in ("replay", "replay_blocked"):
+            key = f"{name}_digest"
+            recs = [t["scale"] if label == "scale" else t["rows"][label]
+                    for t in turns]
+            if key in recs[0] and len({r[key] for r in recs}) != 1:
+                bad.append(f"{label} {name}")
+    names = [os.path.basename(os.path.normpath(t["tree"])) for t in turns]
+    print(f"card: {turns[0]['card']}; turns: {', '.join(names)}")
+    for label in rows:
+        for name in ("init_tables", "replay", "replay_blocked"):
+            vals = " ".join(f"{t['rows'][label][name]:10.4f}" for t in turns)
+            print(f"{label:20s} {name:15s} {vals} ms")
+    for name in ("init_tables", "replay_blocked"):
+        vals = " ".join(f"{t['scale'][name]:10.3f}" for t in turns)
+        print(f"{'scale chunk':20s} {name:15s} {vals} ms")
+    os.makedirs(os.path.dirname(AB_OUT), exist_ok=True)
+    with open(AB_OUT, "w") as f:
+        json.dump(dict(turns=turns, differing=bad), f, indent=1)
+    if bad:
+        print(f"chip_smoke --ab: the turns' outputs differ: {bad}",
+              file=sys.stderr)
+        return 1
+    print("chip_smoke --ab: every turn's outputs agree")
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", action="append", choices=PHASES,
+                    help="run only these phases (repeatable); without it "
+                    "every phase runs and the kernels line is printed")
+    ap.add_argument("--ab", nargs="+", metavar="TREE",
+                    help="time the kernels of these checkouts in turns, in "
+                    "this order, instead of the phases")
+    ap.add_argument("--ab-turn", metavar="TREE", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    phases = set(args.only or PHASES)
+    if args.ab_turn:
+        # this process imports the checkout's tpusim_torch, not its own
+        sys.path.insert(0, os.path.abspath(args.ab_turn))
     try:
         import torch
     except ImportError as err:
@@ -1116,6 +1635,15 @@ def main() -> int:
         print(f"chip_smoke: the tpusim_torch package is missing: {err}",
               file=sys.stderr)
         return 1
+    if args.ab:
+        return ab_main(args.ab)
+    if args.ab_turn:
+        try:
+            print(json.dumps(ab_turn(args.ab_turn)))
+        except SmokeFailure as err:
+            print(f"chip_smoke --ab: FAILED: {err}", file=sys.stderr)
+            return 1
+        return 0
     device = torch.device("cuda")
     try:
         card = card_line()
@@ -1124,32 +1652,70 @@ def main() -> int:
               f"cuda {torch.version.cuda}")
 
         t0 = time.perf_counter()
-        info = kernels.build()
-        print(f"build: {info.seconds:.1f} s -> {info.path}")
-        for line in info.log.splitlines():
-            if "registers" in line or "spill" in line or "Function" in line:
-                print(f"ptxas: {line.strip()}")
+        infos = kernels.build_all(tuple(kernels.VARIANTS))
+        print(f"build: {len(infos)} variants, one nvcc each, in parallel: "
+              f"{time.perf_counter() - t0:.1f} s")
+        for variant, info in infos.items():
+            print(f"build [{variant or 'main'}]: {info.seconds:.1f} s -> "
+                  f"{info.path}")
+            for line in info.log.splitlines():
+                if "registers" in line or "spill" in line or \
+                        "Function" in line:
+                    print(f"ptxas [{variant or 'main'}]: {line.strip()}")
         print(f"kernels: {', '.join(kernels.KERNELS)} "
               f"(route cuda, {SOURCE})")
         kernels.library()
 
-        measured, errors = check_kernels(device, card)
-        blocked, errors["replay_blocked"] = check_blocked(device, card)
-        print(f"phase check done at {time.perf_counter() - t0:.1f} s")
-        launches = main_path(device, card)
-        print(f"phase main done at {time.perf_counter() - t0:.1f} s")
-        launches["scale"], scale = scale_path(device, card)
-        for name, err in scale.pop("errors").items():
-            errors[name] = max(errors[name], err)
-        print(f"phase scale done at {time.perf_counter() - t0:.1f} s")
+        launches, clocks = {}, []
+        errors = dict.fromkeys(kernels.KERNELS, 0)
+        if "check" in phases:
+            measured, worst = check_kernels(device, card)
+            blocked, err = check_blocked(device, card)
+            worst["replay_blocked"] = max(worst["replay_blocked"], err)
+            errors.update(worst)
+            print(f"phase check done at {time.perf_counter() - t0:.1f} s")
+        if "clocks" in phases:
+            clocks += phase_clocks(device, card, openb_inputs(device),
+                                   "openb", CLOCK_ROWS,
+                                   ("replay", "replay_blocked"))
+            print(f"phase clocks done at {time.perf_counter() - t0:.1f} s")
+        if "main" in phases:
+            launches = main_path(device, card)
+            print(f"phase main done at {time.perf_counter() - t0:.1f} s")
+        if "scale" in phases or "clocks" in phases:
+            setup = scale_inputs(device)
+            if "scale" in phases:
+                launches["scale"], scale = scale_path(device, card, *setup)
+                for name, err in scale.pop("errors").items():
+                    errors[name] = max(errors[name], err)
+            if "clocks" in phases:
+                clocks += scale_clocks(setup[2], device, card)
+            print(f"phase scale done at {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
+    if clocks:
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "phase_clocks.json"), "w") as f:
+            json.dump(dict(card=card, runs=clocks), f, indent=1)
+    if phases == set(PHASES):
+        print(json.dumps({"kernels": kernel_rows(
+            kernels.KERNELS, measured, blocked, launches, scale, errors)}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_rows(names, measured, blocked, launches, scale, errors):
+    """The kernels line's rows: 06-FGD's numbers at openb, with every
+    measured configuration and the scale run under "configs"."""
     for label, m in blocked.items():
         measured.setdefault(label, {})["replay_blocked"] = m
     rows = []
-    for name in kernels.KERNELS:
+    for name in names:
         configs = {}
         for label, m in measured.items():
             if name in m:
@@ -1166,12 +1732,7 @@ def main() -> int:
             max_abs_err=errors[name], library_ms=None,
             **measured["06-FGD"][name], configs=configs,
         ))
-    print(json.dumps({"kernels": rows}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from chip_smoke import (
-    DIM_EXT, METHODS, NORM, WIDE_BLOCKED, random_case, to_cpu,
+    DIM_EXT, METHODS, NORM, SHAPE_CASES, SHAPE_ROWS, WIDE_BLOCKED,
+    against_plain, over_staged_limit, random_case, shape_errors,
 )
 from tpusim_torch.io.trace import load_node_csv, load_pod_csv
 from tpusim_torch.parallel.sharding import pad_nodes
@@ -45,26 +46,29 @@ def _assert_equal(got, want):
 def test_kernels_match_plain_on_card(cuda_device, seed, self_select):
     """init_tables and replay against plain_init_tables and plain_replay on
     the same seeded cluster, pods and events, under the paper's FGD
-    configuration."""
+    configuration: outputs and the final tables."""
     cfg = fe.make_config([("FGDScore", 1000)],
                          "FGDScore" if self_select else "best")
     state, pods, types, evk, evp, tp, rank = random_case(
         seed, 64, 200, cuda_device)
     tables = fe.init_tables(state, types, tp, cfg)
     _assert_equal(tables, fe.plain_init_tables(state, types, tp, cfg))
-    args = (state, pods, types, evk, evp, tp, rank, tables, cfg)
-    got = fe.replay(*args)
-    torch.cuda.synchronize()
-    _assert_equal(got, fe.plain_replay(*args))
+    assert against_plain("replay", (state, pods, types, evk, evp, tp, rank,
+                                    tables), cfg) == 0
 
 
 # every method row's configuration, FGD with gpu_sel worst, and the
 # DotProduct (dim_ext, norm) pairs
+# FGD as the second policy: its refresh items and device picks follow
+# another policy's segment
+FGD_SECOND = ([("PWRScore", 500), ("FGDScore", 500)], "FGDScore", "share",
+              "max")
 CONFIGS = (
     [tuple(row[1:5]) for row in METHODS]
     + [([("FGDScore", 1000)], "worst", "share", "max")]
     + [([("DotProductScore", 1000)], "DotProductScore", d, n)
        for d in DIM_EXT for n in NORM]
+    + [FGD_SECOND]
 )
 
 
@@ -74,16 +78,15 @@ CONFIGS = (
 def test_config_kernels_match_plain_on_card(cuda_device, policies, gpu_sel,
                                             dim_ext, norm):
     """init_tables and replay against their plain versions under every
-    configuration the kernels cover, on a seeded random cluster."""
+    configuration the kernels cover, on a seeded random cluster: outputs
+    and the final tables."""
     cfg = fe.make_config(policies, gpu_sel, dim_ext, norm)
     state, pods, types, evk, evp, tp, rank = random_case(
         33, 64, 200, cuda_device)
     tables = fe.init_tables(state, types, tp, cfg)
     _assert_equal(tables, fe.plain_init_tables(state, types, tp, cfg))
-    args = (state, pods, types, evk, evp, tp, rank, tables, cfg)
-    got = fe.replay(*args)
-    torch.cuda.synchronize()
-    _assert_equal(got, fe.plain_replay(*args))
+    assert against_plain("replay", (state, pods, types, evk, evp, tp, rank,
+                                    tables), cfg) == 0
 
 
 @pytest.mark.cuda
@@ -110,25 +113,23 @@ def test_simulator_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("policies,gpu_sel,dim_ext,norm",
-                         CONFIGS[:10],
+                         CONFIGS[:10] + [FGD_SECOND],
                          ids=lambda v: str(v))
 def test_blocked_kernel_matches_plain_on_card(cuda_device, policies, gpu_sel,
                                               dim_ext, norm):
     """replay_blocked against plain_replay_blocked (on CPU copies of the
-    same inputs), outputs and stats, on a seeded random cluster of 300
-    nodes padded to three 128-node blocks, under every method row's
-    configuration and FGD with gpu_sel worst."""
+    same inputs), outputs, stats, final tables and summaries, on a seeded
+    random cluster of 300 nodes padded to three 128-node blocks, under
+    every method row's configuration, FGD with gpu_sel worst and FGD as
+    the second policy."""
     cfg = fe.make_config(policies, gpu_sel, dim_ext, norm)
     state, pods, types, evk, evp, tp, rank = random_case(
         34, 300, 200, cuda_device)
     state, rank = pad_nodes(state, rank, 128)
     tables = fe.init_tables(state, types, tp, cfg)
-    got = he.replay_blocked(state, pods, types, evk, evp, tp, rank, tables,
-                            cfg)
-    torch.cuda.synchronize()
-    want = he.plain_replay_blocked(
-        *to_cpu((state, pods, types, evk, evp, tp, rank, tables)), cfg)
-    _assert_equal(to_cpu(got), want)
+    assert against_plain("replay_blocked", (state, pods, types, evk, evp, tp,
+                                            rank, tables), cfg,
+                         plain_on_cpu=True) == 0
 
 
 @pytest.mark.cuda
@@ -136,11 +137,11 @@ def test_blocked_kernel_matches_plain_on_card(cuda_device, policies, gpu_sel,
 @pytest.mark.parametrize("row", ["05-BestFit", "08-PWR_500_FGD_500"])
 def test_blocked_kernel_matches_plain_on_wide_clusters(cuda_device, row,
                                                        nodes):
-    """replay_blocked against plain_replay_blocked (on CPU copies), outputs
-    and stats, under the normalised BestFit and PWR+FGD rows on seeded
-    random clusters of 17 blocks (a warp rebuilds several blocks of a
-    summary row) and 513 blocks (the select and drift loops stride past
-    the block's 512 threads)."""
+    """replay_blocked against plain_replay_blocked (on CPU copies),
+    outputs, stats, final tables and summaries, under the normalised
+    BestFit and PWR+FGD rows on seeded random clusters of 17 blocks (a
+    warp rebuilds several blocks of a summary row) and 513 blocks (the
+    select and drift loops stride past the block's threads)."""
     _, policies, gpu_sel, dim_ext, norm = [r for r in METHODS
                                            if r[0] == row][0][:5]
     cfg = fe.make_config(policies, gpu_sel, dim_ext, norm)
@@ -148,12 +149,9 @@ def test_blocked_kernel_matches_plain_on_wide_clusters(cuda_device, row,
         35, nodes, 300, cuda_device)
     state, rank = pad_nodes(state, rank, 128)
     tables = fe.init_tables(state, types, tp, cfg)
-    got = he.replay_blocked(state, pods, types, evk, evp, tp, rank, tables,
-                            cfg)
-    torch.cuda.synchronize()
-    want = he.plain_replay_blocked(
-        *to_cpu((state, pods, types, evk, evp, tp, rank, tables)), cfg)
-    _assert_equal(to_cpu(got), want)
+    assert against_plain("replay_blocked", (state, pods, types, evk, evp, tp,
+                                            rank, tables), cfg,
+                         plain_on_cpu=True) == 0
 
 
 @pytest.mark.cuda
@@ -184,3 +182,33 @@ def test_simulator_hbm_residency_on_card(cuda_device, row):
     assert blocked_log == flat_log
     assert np.array_equal(blocked.placed_node, flat.placed_node)
     assert np.array_equal(blocked.dev_mask, flat.dev_mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", SHAPE_ROWS)
+@pytest.mark.parametrize("label", [case[0] for case in SHAPE_CASES])
+def test_type_shapes_match_plain_on_card(cuda_device, label, row):
+    """Both replay kernels against their plain versions, outputs, stats,
+    final tables and summaries, where the share items outrun one round of
+    the block's threads (ks=200), without share types, with only share
+    types, with one typical pod, and at the most pod types and typical
+    pods the kernels stage."""
+    assert shape_errors(label, row, cuda_device) == dict(replay=0,
+                                                         replay_blocked=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["types", "typical"])
+def test_wrappers_refuse_past_staged_limits(cuda_device, which):
+    """One pod type or typical pod past what the kernels stage: both
+    replay wrappers raise before launching."""
+    args, cfg = over_staged_limit(which, cuda_device)
+    state, pods, types, evk, evp, tp, rank, tables = args
+    fe.reset_launch_counts()
+    with pytest.raises(ValueError, match="stage at most"):
+        fe.replay(*args, cfg)
+    padded, rank = pad_nodes(state, rank, 128)
+    with pytest.raises(ValueError, match="stage at most"):
+        he.replay_blocked(padded, pods, types, evk, evp, tp, rank,
+                          fe.init_tables(padded, types, tp, cfg), cfg)
+    assert fe.replay.launches == 0 and he.replay_blocked.launches == 0

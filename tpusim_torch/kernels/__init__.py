@@ -9,6 +9,11 @@ the module is imported.
 
 Each launcher takes a pointer to a `ReplayArgs` and the CUDA stream, and
 returns the launch's CUDA error code.
+
+A variant of the library is built from the same sources with extra
+preprocessor definitions (`VARIANTS`): "clocked" adds the phase clocks
+that chip_smoke.py reads. The main path loads the plain build, "" (no
+definitions).
 """
 
 from __future__ import annotations
@@ -35,6 +40,22 @@ NVCC_FLAGS = (
 KERNELS = ("init_tables", "replay", "replay_blocked")
 # the most policies one configuration may combine (replay.cu kMaxPolicies)
 MAX_POLICIES = 6
+# the most pod types and typical pods the replay kernels stage in shared
+# memory (replay.cu kMaxTypes, kMaxTypical)
+MAX_TYPES = 2048
+MAX_TYPICAL = 1024
+# the library variants by name: their extra nvcc definitions
+VARIANTS = {
+    "": (),
+    "clocked": ("-DTPUSIM_PHASE_CLOCKS",),
+}
+# int64 slots of ReplayArgs.clocks in the clocked variant (replay.cu
+# ClockSlot): cycles per phase, thread 0's barrier wait, the event loop's
+# cycles, the summaries' init, then counts
+CLOCK_SLOTS = ("refresh", "block", "drift", "extrema", "select", "commit",
+               "wait", "loop", "init", "refreshes", "rescans", "work",
+               "setup", "sum", "items")
+NUM_CLOCKS = 16
 
 POINTER_FIELDS = (
     "cpu_left", "mem_left", "gpu_left", "aff_cnt", "cpu_cap", "cpu_type",
@@ -46,7 +67,7 @@ POINTER_FIELDS = (
     "p_cpu", "p_mem", "p_milli", "p_num", "p_pinned", "p_type",
     "ev_kind", "ev_pod",
     "placed", "maskb", "failed", "ev_node", "ev_devb",
-    "bt", "br", "bn", "brmin", "brmax", "slo", "shi", "stats",
+    "bt", "br", "bn", "brmin", "brmax", "slo", "shi", "stats", "clocks",
 )
 
 
@@ -75,8 +96,8 @@ class BuildInfo:
         self.log = log
 
 
-_lib = None
-_build_info = None
+_libs = {}
+_build_info = {}
 
 
 def _nvcc() -> str:
@@ -93,55 +114,70 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> BuildInfo:
-    """Compile the kernels unless a library for these sources and flags is
-    already built. Raises with the compiler's output if nvcc fails."""
-    global _build_info
-    if _build_info is not None:
-        return _build_info
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _target(variant: str):
+    """(library path, full nvcc flags) of a variant."""
+    flags = NVCC_FLAGS + VARIANTS[variant]
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in SOURCES:
         with open(src, "rb") as f:
             h.update(f.read())
+    name = f"libtpusim_torch{'_' + variant if variant else ''}"
+    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so"), flags
+
+
+def build_all(variants=("",)) -> dict:
+    """Compile every variant in `variants` whose library for these sources
+    and flags is not built yet, one nvcc process each, all started
+    together. Returns {variant: BuildInfo}; raises with the compiler's
+    output if an nvcc fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, f"libtpusim_torch_{h.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        _build_info = BuildInfo(lib, 0.0, "")
-        return _build_info
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    _build_info = BuildInfo(lib, time.perf_counter() - t0,
-                            proc.stdout + proc.stderr)
-    return _build_info
+    procs = {}
+    for variant in variants:
+        if variant in _build_info:
+            continue
+        lib, flags = _target(variant)
+        if os.path.exists(lib):
+            _build_info[variant] = BuildInfo(lib, 0.0, "")
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        procs[variant] = (lib, tmp, time.perf_counter(), subprocess.Popen(
+            [_nvcc(), *flags, "-o", tmp, *SOURCES], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    for variant, (lib, tmp, t0, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) for variant {variant!r}:\n"
+                f"{out}")
+        os.replace(tmp, lib)
+        _build_info[variant] = BuildInfo(lib, time.perf_counter() - t0, out)
+    return {v: _build_info[v] for v in variants}
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if need be."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build().path)
+def build(variant: str = "") -> BuildInfo:
+    """Compile one variant unless its library is already built."""
+    return build_all((variant,))[variant]
+
+
+def library(variant: str = "") -> ctypes.CDLL:
+    """The loaded kernel library of a variant, built first if need be."""
+    if variant not in _libs:
+        lib = ctypes.CDLL(build(variant).path)
         for name in KERNELS:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(ReplayArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[variant] = lib
+    return _libs[variant]
 
 
-def launch(name: str, args: ReplayArgs, stream: int) -> None:
-    """Launch kernel `name` on `stream`; raises if the launch is refused."""
-    lib = library()
+def launch(name: str, args: ReplayArgs, stream: int,
+           variant: str = "") -> None:
+    """Launch kernel `name` of a library variant on `stream`; raises if the
+    launch is refused."""
+    lib = library(variant)
     code = getattr(lib, name)(ctypes.byref(args), ctypes.c_void_p(stream))
     if code != 0:
         msg = lib.kernel_error_string(code).decode()

@@ -18,22 +18,24 @@
 //                       kernel's event-0 fori_loop, :906-910).
 //   replay_kernel       one persistent block walks every event in order:
 //                       refresh the column of the node the previous event
-//                       touched (threads over K), then on a create the
-//                       min/max of each normalised policy's row over the
-//                       feasible nodes, the i32 weighted sum and selectHost
-//                       (threads over N, then block reductions), and one
-//                       thread runs Reserve and Bind, or the unbind of a
-//                       delete (:955-1103).
+//                       changed, then on a create the min/max of each
+//                       normalised policy's row over the feasible nodes,
+//                       the i32 weighted sum and selectHost (threads over
+//                       N, then block reductions), and one warp runs
+//                       Reserve and Bind, or the unbind of a delete
+//                       (:955-1103).
 //   replay_blocked_kernel
 //                       the same event loop for clusters whose tables
 //                       outgrow L2; it replaces the HBM-residency Pallas
 //                       kernel (_make_hbm_kernel :1346, launched at :2160 by
 //                       _make_hbm_replay :2017). It keeps 128-node block
-//                       summaries ([K, N/128], one warp per (type, block)):
-//                       per event it refreshes the dirty column, then that
-//                       block's summaries for all K types, checks the event
-//                       type's normalisation extrema for drift (rebuilding
-//                       its summary row over N only when one moved), and
+//                       summaries ([K, N/128]): per event it refreshes the
+//                       dirty column, updates that block's summaries from
+//                       the node's old and new values (update_summaries;
+//                       a warp rescans the block only for the types where
+//                       those cannot decide), checks the event type's
+//                       normalisation extrema for drift (rebuilding its
+//                       summary row over N only when one moved), and
 //                       selects over N/128 summaries instead of N nodes.
 //                       The Pallas kernel's double-buffered DMA has no
 //                       counterpart: tables and summaries stay in global
@@ -44,12 +46,21 @@
 // policy loop; <true> reads the policy descriptor.
 //
 // What bounds them on this card: the replay is a serial chain of events, so
-// its time is latency, not bytes or operations. An event of `replay` touches
-// one row per policy (N int32 each, plus the Filter row) and one column
-// (n_pol + 2 values per type); the tables stay in global memory, resident in
-// L2 while they fit (50 MB). `replay_blocked` reads K x 128 entries per
-// policy for the block refresh and N/128 summaries for the select, so its
-// event stays O(K x 128 + N/128) when the tables sit in device memory.
+// its time is latency, not bytes or operations, and the design is about one
+// SM. The column refresh is spread over the whole block: FGD's node-only
+// work (per typical pod its fit count and sum over the node's devices, and
+// the node's current frag) is done once per event by one warp, then one
+// thread per (share type, device) and one per whole type sums its
+// hypothetical frag over the typical pods, which sit in shared memory with
+// the type fields (staged once per launch); a share type's best device is
+// picked with shuffles over its 8 lanes. Every other policy is one thread
+// per type. A refresh follows only an event that changed a node. Each
+// event's pod fields are staged 32 events at a time by one warp. An event
+// of `replay` reads one row per policy (N int32 each, plus the Filter row);
+// the tables stay in global memory, resident in L2 while they fit (50 MB).
+// `replay_blocked` reads the dirty block's K summaries, 128 x K entries per
+// rescan, and N/128 summaries for the select, so its event stays
+// O(K + N/128) plus its rescans when the tables sit in device memory.
 //
 // Exactness: every column performs the float32 operations of the JAX
 // package's compiled CPU code in its order, with explicit round-to-nearest
@@ -84,6 +95,12 @@ constexpr int kInitThreads = 256;
 constexpr int kReplayThreads = 512;
 constexpr int kMaxPolicies = 6;
 constexpr int kBlock = 128;  // nodes per block summary of replay_blocked
+// the most pod types and typical pods the replay kernels stage in shared
+// memory (tpusim_torch.kernels MAX_TYPES, MAX_TYPICAL)
+constexpr int kMaxTypes = 2048;
+constexpr int kMaxTypical = 1024;
+constexpr int kEvBatch = 32;  // events staged at a time, one a lane
+constexpr int kRound = 8;  // typical-pod terms an FGD item computes at once
 
 // column ids (tpusim_torch.policies.COLUMN_IDS)
 constexpr int kFgd = 0;
@@ -116,6 +133,26 @@ constexpr float kRRcpu = 0x1.0c6f7cp-34f;       // (1/128000)^2
 constexpr float kRRgpu = 0x1.0c6f7cp-26f;       // (1/8000)^2
 constexpr float kRten = 0x1.99999ap-4f;         // 1/10
 constexpr int kPwrNeg = -2147483647;            // PWR's "no fitting device"
+
+// The clocked build (-DTPUSIM_PHASE_CLOCKS, a library of its own that only
+// chip_smoke.py loads) has thread 0 add clock64() deltas per phase of the
+// event loop into ReplayArgs::clocks; the main build reads no clock.
+#ifdef TPUSIM_PHASE_CLOCKS
+constexpr bool kClocked = true;
+#else
+constexpr bool kClocked = false;
+#endif
+// clocks[] slots: cycles per phase, each from the end of the previous
+// phase to the exit of the phase's closing barrier; kClkWait is the part of
+// all of them thread 0 spent inside barriers; cycles of the whole event loop
+// and of the summaries' init; counts of refreshes and rescans; inside the
+// refresh, from its start to the last warp's end of its items (kClkWork),
+// of their set-up and of their FGD sums; and the refresh's lanes in all
+enum ClockSlot {
+  kClkRefresh, kClkBlock, kClkDrift, kClkExtrema, kClkSelect, kClkCommit,
+  kClkWait, kClkLoop, kClkInit, kClkRefreshes, kClkRescans, kClkWork,
+  kClkSetup, kClkSum, kClkItems, kNumClocks = 16,
+};
 
 }  // namespace
 
@@ -177,6 +214,9 @@ struct ReplayArgs {
   int32_t* slo;
   int32_t* shi;
   int32_t* stats;
+  // the clocked build's phase clocks (int64 [16], ClockSlot); null and
+  // unread in the main build
+  long long* clocks;
   int32_t n;
   int32_t k;
   int32_t ks;
@@ -645,14 +685,12 @@ __device__ void dotprod_pair(const ReplayArgs& a, const NodeView& v, int k,
   }
 }
 
-// Filter-phase feasibility of type k on one node (_feas_column :739;
-// step.filter_nodes without the per-event pin mask)
-__device__ __forceinline__ int feas_pair(const ReplayArgs& a,
-                                         const NodeView& v, int k) {
-  const int m = a.t_milli[k];
-  const int num = a.t_num[k];
-  const int mask = a.t_mask[k];
-  const bool fit = v.cpu >= a.t_cpu[k] && v.mem >= a.t_mem[k];
+// Filter-phase feasibility of a pod type (cpu, mem, m milli on num GPUs,
+// model mask) on one node (_feas_column :739; step.filter_nodes without the
+// per-event pin mask)
+__device__ __forceinline__ int feas_of(const NodeView& v, int cpu, int mem,
+                                       int m, int num, int mask) {
+  const bool fit = v.cpu >= cpu && v.mem >= mem;
   int units = 0;
   if (m > 0) {
 #pragma unroll
@@ -662,6 +700,12 @@ __device__ __forceinline__ int feas_pair(const ReplayArgs& a,
   const bool gpu_ok = v.gcnt > 0 && acc && units >= num;
   const bool needs_gpu = m * num > 0;
   return (fit && (!needs_gpu || gpu_ok)) ? 1 : 0;
+}
+
+__device__ __forceinline__ int feas_pair(const ReplayArgs& a,
+                                         const NodeView& v, int k) {
+  return feas_of(v, a.t_cpu[k], a.t_mem[k], a.t_milli[k], a.t_num[k],
+                 a.t_mask[k]);
 }
 
 // raw score and device pick of policy `pi` for type k on one node
@@ -692,28 +736,19 @@ __device__ void policy_pair(const ReplayArgs& a, const NodeView& v, int pi,
 }
 
 // every table entry of type k on `node`
-template <bool kGeneral>
 __device__ __forceinline__ void write_column(const ReplayArgs& a,
                                              const NodeView& v, int k,
                                              int node) {
-  const size_t i = static_cast<size_t>(k) * a.n + node;
-  if (!kGeneral) {  // one FGDScore policy, its own picks
+  int sel_dev = -1;
+  for (int pi = 0; pi < a.n_pol; ++pi) {
     int s;
     int d;
-    fgd_pair(a, v, k, &s, &d);
-    a.score[i] = s;
-    a.sdev[i] = a.sel == 0 ? d : -1;
-  } else {
-    int sel_dev = -1;
-    for (int pi = 0; pi < a.n_pol; ++pi) {
-      int s;
-      int d;
-      policy_pair(a, v, pi, k, &s, &d);
-      a.score[(static_cast<size_t>(pi) * a.k + k) * a.n + node] = s;
-      if (pi == a.sel) sel_dev = d;
-    }
-    a.sdev[i] = sel_dev;
+    policy_pair(a, v, pi, k, &s, &d);
+    a.score[(static_cast<size_t>(pi) * a.k + k) * a.n + node] = s;
+    if (pi == a.sel) sel_dev = d;
   }
+  const size_t i = static_cast<size_t>(k) * a.n + node;
+  a.sdev[i] = sel_dev;
   a.feas[i] = feas_pair(a, v, k);
 }
 
@@ -723,7 +758,7 @@ __global__ void init_tables_kernel(ReplayArgs a) {
   if (i >= static_cast<long long>(a.k) * a.n) return;
   const int k = static_cast<int>(i / a.n);
   const int node = static_cast<int>(i % a.n);
-  write_column<true>(a, load_node(a, node), k, node);
+  write_column(a, load_node(a, node), k, node);
 }
 
 // selectHost candidate: max total, then min tie-break rank, then min node id
@@ -752,80 +787,91 @@ __device__ __forceinline__ Best warp_best(Best b) {
   return b;
 }
 
-// Reserve + Bind of create event i on `node` (-1 = no feasible node);
-// step.choose_devices / select_and_bind, pallas_engine.py:982-1064
-__device__ void commit_create(const ReplayArgs& a, int i, int pod, int type,
-                              int node, int gpu_sel, int* dirty) {
-  const bool ok = node >= 0;
-  const int pm = a.p_milli[pod];
-  const int pn = a.p_num[pod];
-  int bits = 0;
-  if (ok && pm * pn > 0) {
-    const int* g = a.gpu_left + node * kDevs;
-    if (pn == 1 && pm < kMilli) {
-      // share-GPU pod: tightest fit (or loosest for worst), first index;
-      // a self-select policy's own pick wins where it has one
-      int dev = -1;
-      int key = 0;
-      for (int d = 0; d < kDevs; ++d) {
-        if (g[d] < pm) continue;
-        const bool better = gpu_sel == kSelWorst ? g[d] > key : g[d] < key;
-        if (dev < 0 || better) {
-          key = g[d];
-          dev = d;
-        }
+// Thread 0's phase clocks in the clocked build; no-ops in the main build.
+// `acc` is a kNumClocks array in shared memory.
+struct PhaseClock {
+  long long* acc;
+  long long last;
+
+  __device__ void start(long long* s) {
+    if constexpr (kClocked) {
+      acc = s;
+      if (threadIdx.x == 0) {
+        for (int c = 0; c < kNumClocks; ++c) acc[c] = 0;
+        last = clock64();
       }
-      if (gpu_sel == kSelSelf) {
-        const int s = a.sdev[static_cast<size_t>(type) * a.n + node];
-        if (s >= 0) dev = s;
-      }
-      bits = dev >= 0 ? (1 << dev) : 0;
-    } else {
-      // two-pointer pack in device-index order (gpunodeinfo.go:182-201)
-      int prev = 0;
-      for (int d = 0; d < kDevs; ++d) {
-        const int units = g[d] / pm;
-        const int take = min(max(pn - prev, 0), units);
-        if (take > 0) bits |= 1 << d;
-        prev += units;
+      __syncthreads();
+    }
+  }
+  // charge the cycles since the last mark to `slot`
+  __device__ void mark(int slot) {
+    if constexpr (kClocked) {
+      if (threadIdx.x == 0) {
+        const long long now = clock64();
+        acc[slot] += now - last;
+        last = now;
       }
     }
   }
-  if (ok) {
-    a.cpu_left[node] -= a.p_cpu[pod];
-    a.mem_left[node] -= a.p_mem[pod];
-    for (int d = 0; d < kDevs; ++d)
-      if ((bits >> d) & 1) a.gpu_left[node * kDevs + d] -= pm;
-    const int cls = affinity_class(pm, pn);
-    if (cls >= 0 && cls < kAffClasses) a.aff_cnt[node * kAffClasses + cls] += 1;
+  // add n to a count slot (any thread)
+  __device__ void count(int slot, int n) {
+    if constexpr (kClocked)
+      atomicAdd(reinterpret_cast<unsigned long long*>(acc + slot),
+                static_cast<unsigned long long>(n));
   }
-  a.placed[pod] = ok ? node : -1;
-  a.maskb[pod] = bits;
-  a.failed[pod] = ok ? 0 : 1;
-  a.ev_node[i] = ok ? node : -1;
-  a.ev_devb[i] = bits;
-  *dirty = ok ? node : 0;
+  // the refresh's work: from `start` (this thread's clock before it) to
+  // the last warp's end, noted in `end` by each warp's lane 0; call
+  // finish_work after the refresh's barrier
+  __device__ void end_work(long long* end) {
+    if constexpr (kClocked)
+      if ((threadIdx.x & 31) == 0)
+        atomicMax(reinterpret_cast<unsigned long long*>(end),
+                  static_cast<unsigned long long>(clock64()));
+  }
+  __device__ void finish_work(long long* end, long long start) {
+    if constexpr (kClocked) {
+      if (threadIdx.x == 0) {
+        acc[kClkWork] += end[0] - start;
+        if (end[1] != 0) {  // an FGD item noted them
+          acc[kClkSetup] += end[1] - start;
+          acc[kClkSum] += end[2] - start;
+        }
+        end[0] = end[1] = end[2] = 0;
+      }
+    }
+  }
+  // a block barrier; thread 0's wait inside it is charged to kClkWait
+  __device__ void sync() {
+    if constexpr (kClocked) {
+      const long long t = clock64();
+      __syncthreads();
+      if (threadIdx.x == 0) acc[kClkWait] += clock64() - t;
+    } else {
+      __syncthreads();
+    }
+  }
+  // the loop's total cycles since `t0`, then every slot out to `out`
+  __device__ void finish(long long* out, long long t0) {
+    if constexpr (kClocked) {
+      if (threadIdx.x == 0 && out != nullptr) {
+        acc[kClkLoop] = clock64() - t0;
+        for (int c = 0; c < kNumClocks; ++c) out[c] = acc[c];
+      }
+    }
+  }
+};
+
+// the clocked build's checkpoint: this warp's clock, if later than `mark`
+__device__ __forceinline__ void note(long long* mark) {
+  if constexpr (kClocked)
+    if ((threadIdx.x & 31) == 0)
+      atomicMax(reinterpret_cast<unsigned long long*>(mark),
+                static_cast<unsigned long long>(clock64()));
 }
 
-// Delete event i: return the pod's resources to the devices it held
-// (step.unschedule, pallas_engine.py:1068-1103)
-__device__ void commit_delete(const ReplayArgs& a, int i, int pod, int* dirty) {
-  const int node = a.placed[pod];
-  const int bits = a.maskb[pod];
-  if (node >= 0) {
-    const int pm = a.p_milli[pod];
-    a.cpu_left[node] += a.p_cpu[pod];
-    a.mem_left[node] += a.p_mem[pod];
-    for (int d = 0; d < kDevs; ++d)
-      if ((bits >> d) & 1) a.gpu_left[node * kDevs + d] += pm;
-    const int cls = affinity_class(pm, a.p_num[pod]);
-    if (cls >= 0 && cls < kAffClasses) a.aff_cnt[node * kAffClasses + cls] -= 1;
-  }
-  a.placed[pod] = -1;
-  a.maskb[pod] = 0;
-  a.ev_node[i] = node;
-  a.ev_devb[i] = bits;
-  *dirty = node >= 0 ? node : 0;
+__device__ __forceinline__ long long clock_now() {
+  if constexpr (kClocked) return clock64();
+  return 0;
 }
 
 // minmax/pwr NormalizeScore of one feasible raw score against the row's
@@ -840,13 +886,657 @@ __device__ __forceinline__ int normalize(int raw, int lo, int hi, int mode) {
   return floor_div(num, max(rng, 1));
 }
 
+// ---------------------------------------------------------------------------
+// What the replay kernels keep in shared memory
+// ---------------------------------------------------------------------------
+
+// one event's fields, staged kEvBatch events at a time
+struct EventFields {
+  int kind;
+  int pod;
+  int type;
+  int pin;
+  int cpu;
+  int mem;
+  int milli;
+  int num;
+};
+
+// The dynamic shared memory of the replay kernels (carve() lays it out).
+// Staged once per launch: the typical pods (tq's m and c, ts's freq,
+// tp_num, tp_mask) and the type fields t_*. Rewritten per event, for the
+// dirty node: tq's num (kNever where typical pod t cannot be Q3 on the
+// node: no GPU request, or a model mask it fails) and fit count, ts's fit
+// sum, and term[t] = freq x t's current frag term. replay_blocked only:
+// the dirty column's old and new raw scores ([n_pol, K]) and Filter bits
+// ([K]), and the types whose block summary must be rescanned.
+struct Smem {
+  int4* tq;  // m, num, c, fitcnt
+  int2* ts;  // fitsum, freq (bits)
+  float* term;
+  int* tp_num;
+  int* tp_mask;
+  int* t_cpu;
+  int* t_mem;
+  int* t_milli;
+  int* t_num;
+  int* t_mask;
+  int* old_raw;
+  int* new_raw;
+  int* old_feas;
+  int* new_feas;
+  int* rescan;
+};
+
+constexpr int kNever = 1 << 30;  // a fit count no node reaches
+
+struct Carver {
+  unsigned char* base;
+  size_t off;
+  template <typename T>
+  __host__ __device__ T* take(long long count) {
+    T* p = base != nullptr ? reinterpret_cast<T*>(base + off) : nullptr;
+    off += (static_cast<size_t>(count) * sizeof(T) + 15) / 16 * 16;
+    return p;
+  }
+};
+
+// Lays the arrays out from `base` (nullptr: sizes only); returns the bytes.
+__host__ __device__ inline size_t carve(unsigned char* base, int k, int t,
+                                        int n_pol, bool blocked, Smem* m) {
+  Carver c{base, 0};
+  Smem s;
+  s.tq = c.take<int4>(t);
+  s.ts = c.take<int2>(t);
+  s.term = c.take<float>(t);
+  s.tp_num = c.take<int>(t);
+  s.tp_mask = c.take<int>(t);
+  s.t_cpu = c.take<int>(k);
+  s.t_mem = c.take<int>(k);
+  s.t_milli = c.take<int>(k);
+  s.t_num = c.take<int>(k);
+  s.t_mask = c.take<int>(k);
+  const int kb = blocked ? k : 0;
+  s.old_raw = c.take<int>(static_cast<long long>(n_pol) * kb);
+  s.new_raw = c.take<int>(static_cast<long long>(n_pol) * kb);
+  s.old_feas = c.take<int>(kb);
+  s.new_feas = c.take<int>(kb);
+  s.rescan = c.take<int>(kb);
+  if (m != nullptr) *m = s;
+  return c.off;
+}
+
+// Stages the type fields, and the typical pods whose frequency is not 0, in
+// order (their count to *t_count): a pod of frequency 0 adds a zero to each
+// frag sum, which leaves the sum (>= 0) as it is.
+__device__ void stage(const ReplayArgs& a, const Smem& m, int* t_count) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int kept = 0;
+    for (int base = 0; base < a.t; base += 32) {
+      const int t = base + lane;
+      const bool keep = t < a.t && a.tp_freq[t] != 0.0f;
+      const unsigned mask = __ballot_sync(0xffffffffu, keep);
+      if (keep) {
+        const int at = kept + __popc(mask & ((1u << lane) - 1));
+        m.tq[at] = make_int4(a.tp_milli[t], kNever, a.tp_cpu[t], 0);
+        m.ts[at] = make_int2(0, __float_as_int(a.tp_freq[t]));
+        m.tp_num[at] = a.tp_num[t];
+        m.tp_mask[at] = a.tp_mask[t];
+      }
+      kept += __popc(mask);
+    }
+    if (lane == 0) *t_count = kept;
+  }
+  for (int k = threadIdx.x; k < a.k; k += blockDim.x) {
+    m.t_cpu[k] = a.t_cpu[k];
+    m.t_mem[k] = a.t_mem[k];
+    m.t_milli[k] = a.t_milli[k];
+    m.t_num[k] = a.t_num[k];
+    m.t_mask[k] = a.t_mask[k];
+  }
+}
+
+// events first .. first + 31 into `out`, one lane each (one warp)
+__device__ void load_events(const ReplayArgs& a, int first, EventFields* out,
+                            int lane) {
+  const int i = first + lane;
+  if (i >= a.e) return;
+  EventFields f;
+  f.kind = a.ev_kind[i];
+  f.pod = a.ev_pod[i];
+  f.type = a.p_type[f.pod];
+  f.pin = a.p_pinned[f.pod];
+  f.cpu = a.p_cpu[f.pod];
+  f.mem = a.p_mem[f.pod];
+  f.milli = a.p_milli[f.pod];
+  f.num = a.p_num[f.pod];
+  out[lane] = f;
+}
+
+// Lanes of FGD's share items: one per (share type, distinct device value)
+// (`group` values, see EventState), in whole warps.
+__device__ __forceinline__ int share_lanes(int group, int ks) {
+  return (group * ks + 31) / 32 * 32;
+}
+
+// The column-refresh work items, one lane each, per policy a segment
+// starting at a whole warp: FGD's share items (share_lanes) then one per
+// whole type, every other policy's one per type. seg[pi] is policy pi's
+// first item and seg[n_pol] their end.
+__device__ void layout_items(const ReplayArgs& a, int n_pol, int group,
+                             int* seg) {
+  int off = 0;
+  for (int pi = 0; pi < n_pol; ++pi) {
+    seg[pi] = off;
+    const int len = a.pol_column[pi] == kFgd
+                        ? share_lanes(group, a.ks) + (a.k - a.ks)
+                        : a.k;
+    off += (len + 31) / 32 * 32;
+  }
+  seg[n_pol] = off;
+}
+
+// ---------------------------------------------------------------------------
+// The column refresh, spread over the block
+// ---------------------------------------------------------------------------
+
+// What the replay kernels keep per event in static shared memory: the
+// event batches, the node the previous event changed (by event parity, so
+// that event i reads its slot while event i's commit writes the next), that
+// node's state, FGD's node-only results (node_terms), and the refresh's
+// item layout.
+struct EventState {
+  EventFields ev[2][kEvBatch];
+  int dirty[2];
+  NodeView node;
+  float cur;   // the node's current frag
+  int gsum;    // its free GPU milli
+  // the distinct free milli of its devices that some share type fits, in
+  // device order, each with the first device that has it
+  int uval[kDevs];
+  int ufirst[kDevs];
+  int nv;
+  // its devices least free first, ties by index: Sub's order (packed_take)
+  int order[kDevs];
+  int group;   // lanes per share type: nv rounded up to a power of 2
+  int min_p;   // the least milli a share type requests
+  int t_count;  // the staged typical pods
+  int seg[kMaxPolicies + 1];
+};
+
+// FGD's node-only work on the dirty node es.node, by one warp: per typical
+// pod its fit count and sum over the node's devices and whether it can be
+// Q3 there (into tq/ts), the node's current frag `cur`, summed in index
+// order as fgd_pair sums it, and its distinct device values (a share
+// type's hypothetical frag depends on the device only through its free
+// milli, so devices with equal values score equal, and the first of them
+// is fgd_pair's pick on a tie), its devices in Sub's order, then the item
+// layout for them. The type-dependent rest is share_term and whole_term.
+__device__ void node_terms(const ReplayArgs& a, const Smem& m, EventState& es,
+                           int n_pol, int lane) {
+  const NodeView& v = es.node;
+  const int gsum = gpu_sum(v);
+  const float total = static_cast<float>(gsum);
+  for (int t = lane; t < es.t_count; t += 32) {
+    int4 q = m.tq[t];
+    const bool gpu_pod = q.x > 0;
+    const int mask = m.tp_mask[t];
+    const bool acc = mask == 0 || (mask & v.bit) != 0;
+    int fitcnt = 0;
+    int fitsum = 0;
+#pragma unroll
+    for (int d = 0; d < kDevs; ++d) {
+      if (gpu_pod && v.g[d] >= q.x) {
+        ++fitcnt;
+        fitsum += v.g[d];
+      }
+    }
+    const int num = m.tp_num[t];
+    const bool qa = gpu_pod && acc;
+    q.y = qa ? num : kNever;
+    q.w = fitcnt;
+    m.tq[t] = q;
+    const int2 sf = m.ts[t];
+    m.ts[t] = make_int2(fitsum, sf.y);
+    const bool q3 = qa && fitcnt >= num && v.cpu >= q.z;
+    m.term[t] = __fmul_rn(__int_as_float(sf.y),
+                          q3 ? static_cast<float>(gsum - fitsum) : total);
+  }
+  // lane d < 8 keeps device d where it is the first with its value and
+  // some share type fits it
+  constexpr unsigned kLanes = (1u << kDevs) - 1;
+  if (lane < kDevs) {
+    const int gd = v.g[lane];
+    int rank = 0;
+#pragma unroll
+    for (int e = 0; e < kDevs; ++e)
+      rank += (v.g[e] < gd || (v.g[e] == gd && e < lane)) ? 1 : 0;
+    es.order[rank] = lane;
+    const unsigned same = __match_any_sync(kLanes, gd);
+    const bool keep = (__ffs(same) - 1 == lane) && gd >= es.min_p;
+    const unsigned kept = __ballot_sync(kLanes, keep);
+    const int nv = __popc(kept);
+    if (keep) {
+      const int at = __popc(kept & ((1u << lane) - 1));
+      es.uval[at] = gd;
+      es.ufirst[at] = lane;
+    }
+    if (lane == 1) {
+      int group = 1;
+      while (group < nv) group <<= 1;
+      es.nv = nv;
+      es.group = group;
+      layout_items(a, n_pol, group, es.seg);
+    }
+  }
+  __syncwarp();
+  if (lane == 0) {
+    float c = 0.0f;
+#pragma unroll 8
+    for (int t = 0; t < es.t_count; ++t) c = __fadd_rn(c, m.term[t]);
+    es.cur = c;
+    es.gsum = gsum;
+  }
+}
+
+// An FGD item's hypothetical frag, sum_t freq_t x term_t, added in index
+// order as fgd_pair adds it. `term(t)` is freq_t x term_t. The terms are
+// computed kRound at a time in straight-line code (each at a valid index)
+// before any is added, so that the compiler overlaps them; those past
+// t_count are not added.
+template <typename Term>
+__device__ __forceinline__ float frag_sum(int t_count, Term term) {
+  float acc = 0.0f;
+  for (int base = 0; base < t_count; base += kRound) {
+    float v[kRound];
+#pragma unroll
+    for (int j = 0; j < kRound; ++j) v[j] = term(min(base + j, t_count - 1));
+#pragma unroll
+    for (int j = 0; j < kRound; ++j)
+      if (base + j < t_count) acc = __fadd_rn(acc, v[j]);
+  }
+  return acc;
+}
+
+// fgd_pair's term of typical pod t for a share type of p milli placed on a
+// device with gd free, on the node of the staged terms (gsum its free GPU
+// milli, cpu_h its cpu left after the pod)
+__device__ __forceinline__ float share_term(const Smem& m, int t, int gd,
+                                            int p, int gsum, int cpu_h) {
+  const int4 q = m.tq[t];
+  const int2 sf = m.ts[t];
+  const int gdp = gd - p;
+  const bool fit = gd >= q.x;
+  const bool fitp = gdp >= q.x;
+  const int cnt = q.w - (fit ? 1 : 0) + (fitp ? 1 : 0);
+  const int sum = sf.x - (fit ? gd : 0) + (fitp ? gdp : 0);
+  const bool q3 = cnt >= q.y && cpu_h >= q.z;
+  return __fmul_rn(__int_as_float(sf.y),
+                   static_cast<float>(q3 ? gsum - p - sum : gsum - p));
+}
+
+// a node's free GPU milli per device
+struct Devs {
+  int g[kDevs];
+};
+
+// fgd_pair's term of typical pod t for a whole-GPU or CPU-only type whose
+// Sub takes ntk devices that all had v free, leaving them at v2 (g2sum in
+// all on the node) and the node's cpu at cpu_w: the node's fit count and sum
+// of t (staged) change only on the taken devices
+__device__ __forceinline__ float whole_term_same(const Smem& m, int t, int ntk,
+                                                 int v, int v2, int g2sum,
+                                                 int cpu_w) {
+  const int4 q = m.tq[t];
+  const int2 sf = m.ts[t];
+  const int cnt = q.w + ntk * ((v2 >= q.x ? 1 : 0) - (v >= q.x ? 1 : 0));
+  const int sum = sf.x + ntk * ((v2 >= q.x ? v2 : 0) - (v >= q.x ? v : 0));
+  const bool q3 = cnt >= q.y && cpu_w >= q.z;
+  return __fmul_rn(__int_as_float(sf.y),
+                   static_cast<float>(q3 ? g2sum - sum : g2sum));
+}
+
+// the same where the taken devices had different free milli: Sub leaves
+// the node's devices at g2
+__device__ __forceinline__ float whole_term(const Smem& m, int t, Devs g2,
+                                            int g2sum, int cpu_w) {
+  const int4 q = m.tq[t];
+  const int2 sf = m.ts[t];
+  int cnt = 0;
+  int sum = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) {
+    if (g2.g[d] >= q.x) {
+      ++cnt;
+      sum += g2.g[d];
+    }
+  }
+  const bool q3 = cnt >= q.y && cpu_w >= q.z;
+  return __fmul_rn(__int_as_float(sf.y),
+                   static_cast<float>(q3 ? g2sum - sum : g2sum));
+}
+
+// Refresh `node`'s column of every table with the whole block: each thread
+// takes work items (layout_items) in rounds of blockDim. FGD's share items
+// each sum one distinct device value's hypothetical frag (frag_sum), and
+// the best of a type's group of lanes is picked with shuffles (the first
+// device on ties); a whole type's item sums its Sub's. Every other policy's
+// item scores one type. The type's first item of each policy writes the raw
+// score, the selector's device pick, and for policy 0 the Filter bit; with
+// kBlocked it also records the old and new values for update_summaries. es
+// holds the dirty node and node_terms' results; `marks` are the clocked
+// build's checkpoints.
+template <bool kGeneral, bool kBlocked>
+__device__ void refresh_column(const ReplayArgs& a, const Smem& m,
+                               const EventState& es, int node,
+                               long long* marks) {
+  const int k_count = a.k;
+  const int ks = a.ks;
+  const int n_pol = kGeneral ? a.n_pol : 1;
+  const int* seg = es.seg;
+  const int items = seg[n_pol];
+  const NodeView& sv = es.node;
+  const int group = es.group;
+  const int lg = __ffs(group) - 1;
+  for (int base = 0; base < items; base += blockDim.x) {
+    const int w = base + threadIdx.x;
+    int pi = 0;
+    if (kGeneral)
+      while (pi + 1 < n_pol && w >= seg[pi + 1]) ++pi;
+    const int j = w - seg[pi];
+    const bool fgd = !kGeneral || a.pol_column[pi] == kFgd;  // warp-uniform
+    const int share_end = share_lanes(group, ks);
+    const bool share = fgd && j < share_end;  // warp-uniform
+    const int u = j & (group - 1);
+    const int k = !fgd ? j : (share ? j >> lg : ks + j - share_end);
+    const bool active = share ? j < group * ks : k < k_count;
+    const bool primary = active && (!share || u == 0);
+    const size_t col = (static_cast<size_t>(pi) * k_count + k) * a.n + node;
+    const size_t at = static_cast<size_t>(k) * a.n + node;
+    int old_raw = 0;
+    int old_feas = 0;
+    if (kBlocked && primary) {  // loaded first, used last
+      old_raw = a.score[col];
+      if (pi == 0) old_feas = a.feas[at];
+    }
+    int score = 0;
+    int dev = -1;
+    if (fgd) {
+      const int kk = active ? k : 0;
+      const int p = m.t_milli[kk];
+      const int cpu_h = sv.cpu - m.t_cpu[kk];
+      int key = 0;
+      if (share) {  // a lane per distinct device value
+        const bool real = active && u < es.nv;
+        const int gd = real ? es.uval[u] : 0;
+        const int gsum = es.gsum;
+        note(marks + 1);
+        const float nw = frag_sum(es.t_count, [=](int t) {
+          return share_term(m, t, gd, p, gsum, cpu_h);
+        });
+        note(marks + 2);
+        if (real) {
+          const int s = gd >= p ? sigmoid_score(es.cur, nw) : -1;
+          key = ((s + 1) << 3) | (kDevs - 1 - es.ufirst[u]);
+        }
+      } else {  // the node's devices after Sub's pick (packed_take)
+        const int wn = active ? m.t_num[kk] : 0;
+        unsigned taken = 0;
+        int ntk = 0;
+        int lo = INT_MAX;
+        int hi = INT_MIN;
+#pragma unroll
+        for (int r = 0; r < kDevs; ++r) {
+          const int d = es.order[r];
+          const int gd = sv.g[d];
+          const bool take = p > 0 && gd >= p && ntk < wn;
+          taken |= take ? 1u << d : 0u;
+          ntk += take ? 1 : 0;
+          lo = take ? min(lo, gd) : lo;
+          hi = take ? max(hi, gd) : hi;
+        }
+        Devs g2;
+        int g2sum = 0;
+#pragma unroll
+        for (int d = 0; d < kDevs; ++d) {
+          g2.g[d] = sv.g[d] - ((taken >> d) & 1 ? p : 0);
+          g2sum += g2.g[d];
+        }
+        // whole GPUs are taken only where idle, so the taken devices mostly
+        // had one value; the warp takes the shorter term where all its
+        // lanes can (a branch the whole warp follows)
+        const int vt = ntk == 0 ? 0 : lo;
+        note(marks + 1);
+        float nw;
+        if (__all_sync(0xffffffffu, ntk == 0 || lo == hi)) {
+          nw = frag_sum(es.t_count, [=](int t) {
+            return whole_term_same(m, t, ntk, vt, vt - p, g2sum, cpu_h);
+          });
+        } else {
+          nw = frag_sum(es.t_count, [=](int t) {
+            return whole_term(m, t, g2, g2sum, cpu_h);
+          });
+        }
+        note(marks + 2);
+        score = sigmoid_score(es.cur, nw);
+      }
+      // max over the type's lanes: the best score, then the lowest device
+      // (a type without a fitting device keeps key < 8)
+      for (int off = 1; off < group; off <<= 1)
+        key = max(key, __shfl_xor_sync(0xffffffffu, key, off));
+      if (share) {
+        const int best = (key >> 3) - 1;
+        score = best >= 0 ? best : 0;
+        dev = best >= 0 ? kDevs - 1 - (key & (kDevs - 1)) : -1;
+      }
+    } else if (active) {
+      const NodeView v = sv;
+      policy_pair(a, v, pi, k, &score, &dev);
+    }
+    if (!primary) continue;
+    a.score[col] = score;
+    if (pi == a.sel) {
+      a.sdev[at] = dev;
+    } else if (pi == 0 && a.sel < 0) {
+      a.sdev[at] = -1;
+    }
+    if (pi == 0) {
+      const int f = feas_of(sv, m.t_cpu[k], m.t_mem[k], m.t_milli[k],
+                            m.t_num[k], m.t_mask[k]);
+      a.feas[at] = f;
+      if (kBlocked) {
+        m.old_feas[k] = old_feas;
+        m.new_feas[k] = f;
+      }
+    }
+    if (kBlocked) {
+      m.old_raw[pi * k_count + k] = old_raw;
+      m.new_raw[pi * k_count + k] = score;
+    }
+  }
+}
+
+// Reserve + Bind of create event i on `node` (-1 = no feasible node);
+// step.choose_devices / select_and_bind, pallas_engine.py:982-1064. The
+// node's new state also goes to `sn`, and *dirty to the node it changed
+// (-1 if none).
+__device__ void commit_create(const ReplayArgs& a, int i,
+                              const EventFields& ev, int node, int gpu_sel,
+                              int* dirty, NodeView* sn) {
+  const bool ok = node >= 0;
+  const int pm = ev.milli;
+  const int pn = ev.num;
+  int bits = 0;
+  NodeView v;
+  if (ok) v = load_node(a, node);
+  if (ok && pm * pn > 0) {
+    if (pn == 1 && pm < kMilli) {
+      // share-GPU pod: tightest fit (or loosest for worst), first index;
+      // a self-select policy's own pick wins where it has one
+      int dev = -1;
+      int key = 0;
+      for (int d = 0; d < kDevs; ++d) {
+        if (v.g[d] < pm) continue;
+        const bool better = gpu_sel == kSelWorst ? v.g[d] > key : v.g[d] < key;
+        if (dev < 0 || better) {
+          key = v.g[d];
+          dev = d;
+        }
+      }
+      if (gpu_sel == kSelSelf) {
+        const int s = a.sdev[static_cast<size_t>(ev.type) * a.n + node];
+        if (s >= 0) dev = s;
+      }
+      bits = dev >= 0 ? (1 << dev) : 0;
+    } else {
+      // two-pointer pack in device-index order (gpunodeinfo.go:182-201)
+      int prev = 0;
+      for (int d = 0; d < kDevs; ++d) {
+        const int units = v.g[d] / pm;
+        const int take = min(max(pn - prev, 0), units);
+        if (take > 0) bits |= 1 << d;
+        prev += units;
+      }
+    }
+  }
+  if (ok) {
+    v.cpu -= ev.cpu;
+    v.mem -= ev.mem;
+    a.cpu_left[node] = v.cpu;
+    a.mem_left[node] = v.mem;
+    for (int d = 0; d < kDevs; ++d) {
+      if ((bits >> d) & 1) {
+        v.g[d] -= pm;
+        a.gpu_left[node * kDevs + d] = v.g[d];
+      }
+    }
+    const int cls = affinity_class(pm, pn);
+#pragma unroll
+    for (int c = 0; c < kAffClasses; ++c) {  // constant indices: registers
+      if (c == cls) {
+        v.aff[c] += 1;
+        a.aff_cnt[node * kAffClasses + c] = v.aff[c];
+      }
+    }
+    *sn = v;
+  }
+  a.placed[ev.pod] = ok ? node : -1;
+  a.maskb[ev.pod] = bits;
+  a.failed[ev.pod] = ok ? 0 : 1;
+  a.ev_node[i] = ok ? node : -1;
+  a.ev_devb[i] = bits;
+  *dirty = ok ? node : -1;
+}
+
+// Delete event i: return the pod's resources to the devices it held
+// (step.unschedule, pallas_engine.py:1068-1103); `sn` and *dirty as above
+__device__ void commit_delete(const ReplayArgs& a, int i,
+                              const EventFields& ev, int* dirty,
+                              NodeView* sn) {
+  const int node = a.placed[ev.pod];
+  const int bits = a.maskb[ev.pod];
+  if (node >= 0) {
+    NodeView v = load_node(a, node);
+    v.cpu += ev.cpu;
+    v.mem += ev.mem;
+    a.cpu_left[node] = v.cpu;
+    a.mem_left[node] = v.mem;
+    for (int d = 0; d < kDevs; ++d) {
+      if ((bits >> d) & 1) {
+        v.g[d] += ev.milli;
+        a.gpu_left[node * kDevs + d] = v.g[d];
+      }
+    }
+    const int cls = affinity_class(ev.milli, ev.num);
+#pragma unroll
+    for (int c = 0; c < kAffClasses; ++c) {  // constant indices: registers
+      if (c == cls) {
+        v.aff[c] -= 1;
+        a.aff_cnt[node * kAffClasses + c] = v.aff[c];
+      }
+    }
+    *sn = v;
+  }
+  a.placed[ev.pod] = -1;
+  a.maskb[ev.pod] = 0;
+  a.ev_node[i] = node;
+  a.ev_devb[i] = bits;
+  *dirty = node >= 0 ? node : -1;
+}
+
+// One warp ends event i: lane 0 commits it (create with `node`, delete, or
+// skip), then, where it changed a node and a policy is FGD, the warp
+// computes that node's terms for the next event's refresh.
+__device__ void end_event(const ReplayArgs& a, const Smem& m, EventState& es,
+                          int i, const EventFields& ev, int node, int gpu_sel,
+                          bool fgd_terms, int n_pol, int lane) {
+  int* next = &es.dirty[(i + 1) & 1];
+  if (lane == 0) {
+    if (ev.kind == kCreate) {
+      commit_create(a, i, ev, node, gpu_sel, next, &es.node);
+    } else if (ev.kind == kDelete) {
+      commit_delete(a, i, ev, next, &es.node);
+    } else {  // EV_SKIP: nothing changes
+      a.ev_node[i] = -1;
+      a.ev_devb[i] = 0;
+      *next = -1;
+    }
+  }
+  __syncwarp();
+  if (fgd_terms && *next >= 0) node_terms(a, m, es, n_pol, lane);
+}
+
+// Set-up shared by both replay kernels: stage the launch's constants, the
+// first event batch and the item layout. Returns whether a policy is FGD.
 template <bool kGeneral>
-__global__ void __launch_bounds__(kReplayThreads) replay_kernel(ReplayArgs a) {
+__device__ bool begin_replay(const ReplayArgs& a, const Smem& m,
+                             EventState& es) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  stage(a, m, &es.t_count);
+  if (warp == static_cast<int>(blockDim.x >> 5) - 1)
+    load_events(a, 0, es.ev[0], lane);
+  const int n_pol = kGeneral ? a.n_pol : 1;
+  if (warp == 0) {
+    int min_p = INT_MAX;
+    for (int k = lane; k < a.ks; k += 32) min_p = min(min_p, a.t_milli[k]);
+    min_p = __reduce_min_sync(0xffffffffu, min_p);
+    if (lane == 0) {
+      es.dirty[0] = -1;  // the tables already hold the initial state
+      es.min_p = min_p;
+      es.group = 1;  // node_terms lays FGD's items out per node
+      layout_items(a, n_pol, 1, es.seg);
+    }
+  }
+  bool fgd = false;
+  for (int pi = 0; pi < n_pol; ++pi) fgd |= a.pol_column[pi] == kFgd;
+  return fgd;
+}
+
+// the next batch of events, by the last warp, while event i (the first of
+// its batch) runs
+__device__ __forceinline__ void prefetch_events(const ReplayArgs& a,
+                                                EventState& es, int i) {
+  if (i % kEvBatch == 0 && i + kEvBatch < a.e &&
+      (threadIdx.x >> 5) == (blockDim.x >> 5) - 1)
+    load_events(a, i + kEvBatch, es.ev[(i / kEvBatch + 1) & 1],
+                threadIdx.x & 31);
+}
+
+template <bool kGeneral>
+__global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a) {
   constexpr int kWarps = kReplayThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Best warp_res[kWarps];
   __shared__ int warp_lo[kWarps][kMaxPolicies];
   __shared__ int warp_hi[kWarps][kMaxPolicies];
-  __shared__ int s_dirty;
+  __shared__ EventState es;
+  __shared__ long long s_clk[kNumClocks];
+  __shared__ long long s_work[3];
+  PhaseClock pc;
+  pc.start(s_clk);
+  if (kClocked && threadIdx.x == 0) s_work[0] = s_work[1] = s_work[2] = 0;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -855,24 +1545,34 @@ __global__ void __launch_bounds__(kReplayThreads) replay_kernel(ReplayArgs a) {
   bool any_norm = false;
   if (kGeneral)
     for (int pi = 0; pi < a.n_pol; ++pi) any_norm |= a.pol_norm[pi] != kNormNone;
-  if (tid == 0) s_dirty = -1;  // the tables already hold the initial state
+  const int n_pol = kGeneral ? a.n_pol : 1;
+  Smem m;
+  carve(smem, a.k, a.t, n_pol, false, &m);
+  const bool fgd_terms = begin_replay<kGeneral>(a, m, es);
   __syncthreads();
+  const long long t0 = clock_now();
 
   for (int i = 0; i < a.e; ++i) {
-    // refresh the column of the node the previous event touched
-    const int dirty = s_dirty;
-    if (dirty >= 0 && tid < a.k) {
-      const NodeView v = load_node(a, dirty);
-      for (int k = tid; k < a.k; k += blockDim.x)
-        write_column<kGeneral>(a, v, k, dirty);
+    prefetch_events(a, es, i);
+    // refresh the column of the node the previous event changed
+    const int dirty = es.dirty[i & 1];
+    if (dirty >= 0) {
+      const long long t_ref = clock_now();
+      refresh_column<kGeneral, false>(a, m, es, dirty, s_work);
+      pc.end_work(s_work);
+      if (tid == 0) {
+        pc.count(kClkRefreshes, 1);
+        pc.count(kClkItems, es.seg[n_pol]);
+      }
+      pc.sync();
+      pc.finish_work(s_work, t_ref);
+      pc.mark(kClkRefresh);
     }
-    __syncthreads();
 
-    const int kind = a.ev_kind[i];
-    const int pod = a.ev_pod[i];
-    if (kind == kCreate) {
-      const int type = a.p_type[pod];
-      const int pin = a.p_pinned[pod];
+    const EventFields ev = es.ev[(i / kEvBatch) & 1][i % kEvBatch];
+    if (ev.kind == kCreate) {
+      const int type = ev.type;
+      const int pin = ev.pin;
       const int* frow = a.feas + static_cast<size_t>(type) * a.n;
       int lo[kMaxPolicies];
       int hi[kMaxPolicies];
@@ -882,14 +1582,17 @@ __global__ void __launch_bounds__(kReplayThreads) replay_kernel(ReplayArgs a) {
           lo[pi] = INT_MAX;
           hi[pi] = -INT_MAX;
         }
+        // loads issued before the feasibility test, so that unrolled
+        // iterations overlap
+#pragma unroll 4
         for (int node = tid; node < a.n; node += blockDim.x) {
-          if (!frow[node] || (pin >= 0 && node != pin)) continue;
+          const bool f = frow[node] != 0 && (pin < 0 || node == pin);
           for (int pi = 0; pi < a.n_pol; ++pi) {
             if (a.pol_norm[pi] == kNormNone) continue;
             const int r =
                 a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
-            lo[pi] = min(lo[pi], r);
-            hi[pi] = max(hi[pi], r);
+            lo[pi] = f ? min(lo[pi], r) : lo[pi];
+            hi[pi] = f ? max(hi[pi], r) : hi[pi];
           }
         }
         for (int pi = 0; pi < a.n_pol; ++pi) {
@@ -900,17 +1603,44 @@ __global__ void __launch_bounds__(kReplayThreads) replay_kernel(ReplayArgs a) {
             warp_hi[warp][pi] = hi[pi];
           }
         }
-        __syncthreads();
-        for (int pi = 0; pi < a.n_pol; ++pi) {
-          for (int w = 0; w < nwarps; ++w) {
-            lo[pi] = min(lo[pi], warp_lo[w][pi]);
-            hi[pi] = max(hi[pi], warp_hi[w][pi]);
-          }
+        pc.sync();
+        for (int pi = 0; pi < a.n_pol; ++pi) {  // lane w reads warp w's
+          lo[pi] = __reduce_min_sync(
+              0xffffffffu, lane < nwarps ? warp_lo[lane][pi] : INT_MAX);
+          hi[pi] = __reduce_max_sync(
+              0xffffffffu, lane < nwarps ? warp_hi[lane][pi] : -INT_MAX);
         }
+        pc.mark(kClkExtrema);
       }
       Best b = no_candidate();
-      for (int node = tid; node < a.n; node += blockDim.x) {
-        if (!frow[node] || (pin >= 0 && node != pin)) continue;
+      int from = 0;  // nodes below it are taken by the 16-byte loop
+      if (!kGeneral && (a.n & 3) == 0) {
+        // rows of whole int4s: four nodes a load (the FGD shape at scale)
+        const int4* f4 = reinterpret_cast<const int4*>(frow);
+        const int4* s4 = reinterpret_cast<const int4*>(
+            a.score + static_cast<size_t>(type) * a.n);
+        const int4* r4 = reinterpret_cast<const int4*>(a.rank);
+        const uint32_t w = static_cast<uint32_t>(a.pol_weight[0]);
+        for (int q = tid; q < a.n / 4; q += blockDim.x) {
+          const int4 f = f4[q];
+          const int4 sc = s4[q];
+          const int4 rk = r4[q];
+          const int fs[4] = {f.x, f.y, f.z, f.w};
+          const int ss[4] = {sc.x, sc.y, sc.z, sc.w};
+          const int rs[4] = {rk.x, rk.y, rk.z, rk.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int node = 4 * q + e;
+            const Best c = {static_cast<int>(w * static_cast<uint32_t>(ss[e])),
+                            rs[e], node};
+            if (fs[e] != 0 && (pin < 0 || node == pin) && beats(c, b)) b = c;
+          }
+        }
+        from = a.n;
+      }
+#pragma unroll 4
+      for (int node = from + tid; node < a.n; node += blockDim.x) {
+        const bool f = frow[node] != 0 && (pin < 0 || node == pin);
         int total;
         if (!kGeneral) {
           total = static_cast<int>(
@@ -927,28 +1657,25 @@ __global__ void __launch_bounds__(kReplayThreads) replay_kernel(ReplayArgs a) {
           total = static_cast<int>(sum);
         }
         const Best c = {total, a.rank[node], node};
-        if (beats(c, b)) b = c;
+        if (f && beats(c, b)) b = c;
       }
       b = warp_best(b);
       if (lane == 0) warp_res[warp] = b;
-      __syncthreads();
+      pc.sync();
+      pc.mark(kClkSelect);
       if (warp == 0) {
-        b = lane < nwarps ? warp_res[lane] : no_candidate();
-        b = warp_best(b);
-        if (lane == 0)
-          commit_create(a, i, pod, type, b.node == INT_MAX ? -1 : b.node,
-                        gpu_sel, &s_dirty);
+        b = warp_best(lane < nwarps ? warp_res[lane] : no_candidate());
+        const int node = __shfl_sync(0xffffffffu, b.node, 0);
+        end_event(a, m, es, i, ev, node == INT_MAX ? -1 : node, gpu_sel,
+                  fgd_terms, n_pol, lane);
       }
-    } else if (tid == 0) {
-      if (kind == kDelete) {
-        commit_delete(a, i, pod, &s_dirty);
-      } else {  // EV_SKIP: nothing changes
-        a.ev_node[i] = -1;
-        a.ev_devb[i] = 0;
-      }
+    } else if (warp == 0) {
+      end_event(a, m, es, i, ev, -1, gpu_sel, fgd_terms, n_pol, lane);
     }
-    __syncthreads();
+    pc.sync();
+    pc.mark(kClkCommit);
   }
+  pc.finish(a.clocks, t0);
 }
 
 // ---------------------------------------------------------------------------
@@ -959,14 +1686,15 @@ __global__ void __launch_bounds__(kReplayThreads) replay_kernel(ReplayArgs a) {
 // ---------------------------------------------------------------------------
 
 // One warp summarises block c of type t: the best (total, rank, node) of its
-// 128 nodes, where a node's total is the i32 weighted sum with each
-// normalised policy s scaled against lo[s * ld], hi[s * ld], and -INT_MAX
-// where the type is infeasible; with `extrema`, also each normalised
-// policy's feasible raw min and max over the block. Lane 0 writes them.
+// 128 nodes (their ranks in brank), where a node's total is the i32
+// weighted sum with each normalised policy s scaled against lo[s * ld],
+// hi[s * ld], and -INT_MAX where the type is infeasible; with `extrema`,
+// also each normalised policy's feasible raw min and max over the block.
+// Lane 0 writes them.
 template <bool kGeneral>
 __device__ void summarize_block(const ReplayArgs& a, int t, int c,
                                 const int* lo, const int* hi, int ld,
-                                bool extrema, int lane) {
+                                bool extrema, int lane, const int* brank) {
   const int nblk = a.n / kBlock;
   int mn[kMaxPolicies];
   int mx[kMaxPolicies];
@@ -998,7 +1726,7 @@ __device__ void summarize_block(const ReplayArgs& a, int t, int c,
         sum += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(r);
       }
     }
-    const Best cand = {f ? static_cast<int>(sum) : -INT_MAX, a.rank[node], node};
+    const Best cand = {f ? static_cast<int>(sum) : -INT_MAX, brank[j], node};
     if (beats(cand, b)) b = cand;
   }
   b = warp_best(b);
@@ -1024,14 +1752,96 @@ __device__ void summarize_block(const ReplayArgs& a, int t, int c,
   }
 }
 
+// The dirty block's summaries after one node changed, one thread per type,
+// from the refresh's old and new raw scores and Filter bits (the plain
+// version is hbm_engine.update_block_summaries). Nothing else in the block
+// changed and the stored extrema are fixed, so the node's new candidate
+// (total, rank, node) decides: against a winner that is another node the
+// better of the two wins; a winner that is this node stays if its new
+// candidate does not lose to its old one. A normalised policy's block
+// extrema widen to the new raw value; where the old value was the block's
+// min (max) and moved inward, or the node became infeasible, they are
+// unknown. Those types, and those whose winner lost, are listed in
+// m.rescan for a warp's summarize_block. `rank_d` is the node's rank.
 template <bool kGeneral>
-__global__ void __launch_bounds__(kReplayThreads)
+__device__ void update_summaries(const ReplayArgs& a, const Smem& m, int node,
+                                 int rank_d, int* n_rescan) {
+  const int k_count = a.k;
+  const int nblk = a.n / kBlock;
+  const int c = node / kBlock;
+  for (int t = threadIdx.x; t < k_count; t += blockDim.x) {
+    const bool of = m.old_feas[t] != 0;
+    const bool nf = m.new_feas[t] != 0;
+    bool rescan = false;
+    uint32_t so = 0;
+    uint32_t sn = 0;
+    if (!kGeneral) {
+      so = static_cast<uint32_t>(a.pol_weight[0]) *
+           static_cast<uint32_t>(m.old_raw[t]);
+      sn = static_cast<uint32_t>(a.pol_weight[0]) *
+           static_cast<uint32_t>(m.new_raw[t]);
+    } else {
+      int s = 0;
+      for (int pi = 0; pi < a.n_pol; ++pi) {
+        int ro = m.old_raw[pi * k_count + t];
+        int rn = m.new_raw[pi * k_count + t];
+        if (a.pol_norm[pi] != kNormNone) {
+          const size_t e = (static_cast<size_t>(s) * k_count + t) * nblk + c;
+          const int mn = a.brmin[e];
+          const int mx = a.brmax[e];
+          rescan |= of && ro == mn && (!nf || rn > ro);
+          rescan |= of && ro == mx && (!nf || rn < ro);
+          if (nf && rn < mn) a.brmin[e] = rn;  // a rescan rewrites both
+          if (nf && rn > mx) a.brmax[e] = rn;
+          const int lo = a.slo[s * k_count + t];
+          const int hi = a.shi[s * k_count + t];
+          ro = normalize(ro, lo, hi, a.pol_norm[pi]);
+          rn = normalize(rn, lo, hi, a.pol_norm[pi]);
+          ++s;
+        }
+        so += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(ro);
+        sn += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(rn);
+      }
+    }
+    const int old_total = of ? static_cast<int>(so) : -INT_MAX;
+    const int new_total = nf ? static_cast<int>(sn) : -INT_MAX;
+    const size_t at = static_cast<size_t>(t) * nblk + c;
+    const Best held = {a.bt[at], a.br[at], a.bn[at]};
+    const Best cand = {new_total, rank_d, node};
+    Best b = held;
+    if (held.node != node) {
+      if (beats(cand, held)) b = cand;
+    } else if (new_total >= old_total) {
+      b.total = new_total;
+    } else {
+      rescan = true;
+    }
+    if (rescan) {
+      m.rescan[atomicAdd(n_rescan, 1)] = t;
+    } else if (b.total != held.total || b.node != held.node) {
+      a.bt[at] = b.total;
+      a.br[at] = b.rank;
+      a.bn[at] = b.node;
+    }
+  }
+}
+
+template <bool kGeneral>
+__global__ void __launch_bounds__(kReplayThreads, 1)
     replay_blocked_kernel(ReplayArgs a) {
   constexpr int kWarps = kReplayThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Best warp_res[kWarps];
   __shared__ int warp_lo[kWarps][kMaxPolicies];
   __shared__ int warp_hi[kWarps][kMaxPolicies];
-  __shared__ int s_dirty;
+  __shared__ EventState es;
+  __shared__ int s_rank[kBlock];  // the dirty block's tie-break ranks
+  __shared__ int s_rescans;
+  __shared__ long long s_clk[kNumClocks];
+  __shared__ long long s_work[3];
+  PhaseClock pc;
+  pc.start(s_clk);
+  if (kClocked && threadIdx.x == 0) s_work[0] = s_work[1] = s_work[2] = 0;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -1041,6 +1851,10 @@ __global__ void __launch_bounds__(kReplayThreads)
   int nn = 0;  // normalised policies: the rows of brmin/brmax and slo/shi
   if (kGeneral)
     for (int pi = 0; pi < a.n_pol; ++pi) nn += a.pol_norm[pi] != kNormNone ? 1 : 0;
+  const int n_pol = kGeneral ? a.n_pol : 1;
+  Smem m;
+  carve(smem, a.k, a.t, n_pol, true, &m);
+  const bool fgd_terms = begin_replay<kGeneral>(a, m, es);
 
   // the summaries of the initial tables: every block's extrema, the stored
   // extrema as their min/max over blocks, then every block's summary under
@@ -1048,7 +1862,7 @@ __global__ void __launch_bounds__(kReplayThreads)
   if (nn > 0) {
     for (int w = warp; w < a.k * nblk; w += nwarps)
       summarize_block<kGeneral>(a, w / nblk, w % nblk, a.slo, a.shi, 0, true,
-                                lane);
+                                lane, a.rank + (w % nblk) * kBlock);
     __syncthreads();
     for (int w = warp; w < nn * a.k; w += nwarps) {
       const size_t row = static_cast<size_t>(w) * nblk;
@@ -1069,38 +1883,56 @@ __global__ void __launch_bounds__(kReplayThreads)
   }
   for (int w = warp; w < a.k * nblk; w += nwarps) {
     const int t = w / nblk;
-    summarize_block<kGeneral>(a, t, w % nblk, a.slo + t, a.shi + t, a.k, false,
-                              lane);
+    const int c = w % nblk;
+    summarize_block<kGeneral>(a, t, c, a.slo + t, a.shi + t, a.k, false,
+                              lane, a.rank + c * kBlock);
   }
   if (tid == 0) {
-    s_dirty = -1;  // the tables and summaries hold the initial state
     a.stats[0] = 0;  // waits and starts: the kernel issues no async copies
     a.stats[1] = 0;
     a.stats[2] = 0;  // summary-row rebuilds
   }
   __syncthreads();
+  pc.mark(kClkInit);
+  const long long t0 = clock_now();
 
   for (int i = 0; i < a.e; ++i) {
-    // refresh the column of the node the previous event touched, then that
+    prefetch_events(a, es, i);
+    // refresh the column of the node the previous event changed, then that
     // node's block summaries of every type under the stored extrema
-    const int dirty = s_dirty;
+    const int dirty = es.dirty[i & 1];
     if (dirty >= 0) {
-      if (tid < a.k) {
-        const NodeView v = load_node(a, dirty);
-        for (int k = tid; k < a.k; k += blockDim.x)
-          write_column<kGeneral>(a, v, k, dirty);
-      }
-      __syncthreads();
       const int c = dirty / kBlock;
-      for (int t = warp; t < a.k; t += nwarps)
-        summarize_block<kGeneral>(a, t, c, a.slo + t, a.shi + t, a.k, nn > 0,
-                                  lane);
-      __syncthreads();
+      if (tid < kBlock) s_rank[tid] = a.rank[c * kBlock + tid];
+      if (tid == 0) {
+        s_rescans = 0;
+        pc.count(kClkRefreshes, 1);
+      }
+      const long long t_ref = clock_now();
+      refresh_column<kGeneral, true>(a, m, es, dirty, s_work);
+      pc.end_work(s_work);
+      if (tid == 0) pc.count(kClkItems, es.seg[n_pol]);
+      pc.sync();
+      pc.finish_work(s_work, t_ref);
+      pc.mark(kClkRefresh);
+      update_summaries<kGeneral>(a, m, dirty, s_rank[dirty % kBlock],
+                                 &s_rescans);
+      pc.sync();
+      const int rescans = s_rescans;
+      if (rescans > 0) {
+        for (int r = warp; r < rescans; r += nwarps) {
+          const int t = m.rescan[r];
+          summarize_block<kGeneral>(a, t, c, a.slo + t, a.shi + t, a.k,
+                                    nn > 0, lane, s_rank);
+        }
+        if (tid == 0) pc.count(kClkRescans, rescans);
+        pc.sync();
+      }
+      pc.mark(kClkBlock);
     }
 
-    const int kind = a.ev_kind[i];
-    const int pod = a.ev_pod[i];
-    const int type = a.p_type[pod];
+    const EventFields ev = es.ev[(i / kEvBatch) & 1][i % kEvBatch];
+    const int type = ev.type;
     if (kGeneral && nn > 0) {
       // drift check, every event: the event type's current extrema (the
       // min/max of its block extrema) against the stored ones; if one moved,
@@ -1122,21 +1954,20 @@ __global__ void __launch_bounds__(kReplayThreads)
           warp_hi[warp][s] = h;
         }
       }
-      __syncthreads();
+      pc.sync();
       bool changed = false;
-      for (int s = 0; s < nn; ++s) {
-        lo[s] = INT_MAX;
-        hi[s] = -INT_MAX;
-        for (int w = 0; w < nwarps; ++w) {
-          lo[s] = min(lo[s], warp_lo[w][s]);
-          hi[s] = max(hi[s], warp_hi[w][s]);
-        }
+      for (int s = 0; s < nn; ++s) {  // lane w reads warp w's
+        lo[s] = __reduce_min_sync(
+            0xffffffffu, lane < nwarps ? warp_lo[lane][s] : INT_MAX);
+        hi[s] = __reduce_max_sync(
+            0xffffffffu, lane < nwarps ? warp_hi[lane][s] : -INT_MAX);
         changed |= lo[s] != a.slo[s * a.k + type] || hi[s] != a.shi[s * a.k + type];
       }
       if (changed) {  // the same in every thread
         for (int c = warp; c < nblk; c += nwarps)
-          summarize_block<kGeneral>(a, type, c, lo, hi, 1, false, lane);
-        __syncthreads();  // every thread has read the stored extrema
+          summarize_block<kGeneral>(a, type, c, lo, hi, 1, false, lane,
+                                    a.rank + c * kBlock);
+        pc.sync();  // every thread has read the stored extrema
         if (tid == 0) {
           for (int s = 0; s < nn; ++s) {
             a.slo[s * a.k + type] = lo[s];
@@ -1145,50 +1976,41 @@ __global__ void __launch_bounds__(kReplayThreads)
           a.stats[2] += 1;
         }
       }
+      pc.mark(kClkDrift);
     }
 
-    if (kind == kCreate) {
-      const int pin = a.p_pinned[pod];
-      if (pin >= 0) {
-        // a pinned pod has one candidate: its Filter bit decides
-        if (tid == 0) {
-          const bool ok =
-              pin < a.n && a.feas[static_cast<size_t>(type) * a.n + pin] != 0;
-          commit_create(a, i, pod, type, ok ? pin : -1, gpu_sel, &s_dirty);
-        }
-      } else {
-        // selectHost over the type's block summaries: valid blocks (a total
-        // other than -INT_MAX), max total, then min rank, then min block
-        const size_t row = static_cast<size_t>(type) * nblk;
-        Best b = no_candidate();
-        for (int c = tid; c < nblk; c += blockDim.x) {
-          const int total = a.bt[row + c];
-          if (total == -INT_MAX) continue;
-          const Best cand = {total, a.br[row + c], c};
-          if (beats(cand, b)) b = cand;
-        }
-        b = warp_best(b);
-        if (lane == 0) warp_res[warp] = b;
-        __syncthreads();
-        if (warp == 0) {
-          b = lane < nwarps ? warp_res[lane] : no_candidate();
-          b = warp_best(b);
-          if (lane == 0)
-            commit_create(a, i, pod, type,
-                          b.node == INT_MAX ? -1 : a.bn[row + b.node], gpu_sel,
-                          &s_dirty);
-        }
+    if (ev.kind == kCreate && ev.pin < 0) {
+      // selectHost over the type's block summaries: valid blocks (a total
+      // other than -INT_MAX), max total, then min rank, then min block
+      const size_t row = static_cast<size_t>(type) * nblk;
+      Best b = no_candidate();
+      for (int c = tid; c < nblk; c += blockDim.x) {
+        const int total = a.bt[row + c];
+        if (total == -INT_MAX) continue;
+        const Best cand = {total, a.br[row + c], c};
+        if (beats(cand, b)) b = cand;
       }
-    } else if (tid == 0) {
-      if (kind == kDelete) {
-        commit_delete(a, i, pod, &s_dirty);
-      } else {  // EV_SKIP: nothing changes
-        a.ev_node[i] = -1;
-        a.ev_devb[i] = 0;
+      b = warp_best(b);
+      if (lane == 0) warp_res[warp] = b;
+      pc.sync();
+      pc.mark(kClkSelect);
+      if (warp == 0) {
+        b = warp_best(lane < nwarps ? warp_res[lane] : no_candidate());
+        const int blk = __shfl_sync(0xffffffffu, b.node, 0);
+        end_event(a, m, es, i, ev, blk == INT_MAX ? -1 : a.bn[row + blk],
+                  gpu_sel, fgd_terms, n_pol, lane);
       }
+    } else if (warp == 0) {
+      // a pinned pod has one candidate: its Filter bit decides
+      const bool ok = ev.kind == kCreate && ev.pin < a.n &&
+                      a.feas[static_cast<size_t>(type) * a.n + ev.pin] != 0;
+      end_event(a, m, es, i, ev, ok ? ev.pin : -1, gpu_sel, fgd_terms, n_pol,
+                lane);
     }
-    __syncthreads();
+    pc.sync();
+    pc.mark(kClkCommit);
   }
+  pc.finish(a.clocks, t0);
 }
 
 // the paper's shape: one FGDScore policy without normalisation, gpu_sel
@@ -1197,6 +2019,24 @@ bool fgd_only(const ReplayArgs* a) {
   return a->n_pol == 1 && a->pol_column[0] == kFgd &&
          a->pol_norm[0] == kNormNone &&
          (a->gpu_sel == kSelBest || (a->gpu_sel == kSelSelf && a->sel == 0));
+}
+
+// Launches a replay kernel with the dynamic shared memory its shape needs;
+// refuses a shape beyond what it stages.
+template <typename Kernel>
+int launch_replay(Kernel kernel, const ReplayArgs* a, bool general,
+                  bool blocked, cudaStream_t s) {
+  if (a->k < 1 || a->k > kMaxTypes || a->t < 0 || a->t > kMaxTypical ||
+      a->ks < 0 || a->ks > a->k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes =
+      carve(nullptr, a->k, a->t, general ? a->n_pol : 1, blocked, nullptr);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<1, kReplayThreads, bytes, s>>>(*a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1217,12 +2057,8 @@ int replay(const ReplayArgs* a, void* stream) {
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fgd_only(a)) {
-    replay_kernel<false><<<1, kReplayThreads, 0, s>>>(*a);
-  } else {
-    replay_kernel<true><<<1, kReplayThreads, 0, s>>>(*a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (fgd_only(a)) return launch_replay(replay_kernel<false>, a, false, false, s);
+  return launch_replay(replay_kernel<true>, a, true, false, s);
 }
 
 int replay_blocked(const ReplayArgs* a, void* stream) {
@@ -1230,12 +2066,9 @@ int replay_blocked(const ReplayArgs* a, void* stream) {
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies || a->n % kBlock != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fgd_only(a)) {
-    replay_blocked_kernel<false><<<1, kReplayThreads, 0, s>>>(*a);
-  } else {
-    replay_blocked_kernel<true><<<1, kReplayThreads, 0, s>>>(*a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (fgd_only(a))
+    return launch_replay(replay_blocked_kernel<false>, a, false, true, s);
+  return launch_replay(replay_blocked_kernel<true>, a, true, true, s);
 }
 
 const char* kernel_error_string(int code) {

@@ -41,7 +41,7 @@ from tpusim_torch.constants import (
     MILLI,
     NUM_AFF_CLASSES,
 )
-from tpusim_torch.kernels import MAX_POLICIES
+from tpusim_torch.kernels import MAX_POLICIES, MAX_TYPES, MAX_TYPICAL
 from tpusim_torch.ops.resource import (
     allocate_share_best,
     allocate_share_worst,
@@ -194,14 +194,17 @@ def _bits_to_mask(bits: torch.Tensor) -> torch.Tensor:
 def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
                      ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                      tp: TypicalPods, tables, cfg: ReplayConfig,
-                     select) -> ReplayResult:
+                     select, keep: dict = None) -> ReplayResult:
     """The event loop of the plain replays. Before each event the column of
     the node the previous event touched is refreshed in copies of the
     (score, sdev, feas) `tables`; then `select(tables, dirty, kind, type,
     pin)` runs, for every event, and on a create returns the chosen node
     (-1 = none), which Reserve and Bind take. A delete returns the pod's
-    resources to the devices it held. Inputs are left unchanged."""
+    resources to the devices it held. Inputs are left unchanged; with
+    `keep`, the final tables are stored in keep["tables"]."""
     tables = tuple(t.clone() for t in tables)
+    if keep is not None:
+        keep["tables"] = tables
     score, sdev, feas = tables
     live = state._replace(
         cpu_left=state.cpu_left.clone(), mem_left=state.mem_left.clone(),
@@ -285,10 +288,11 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
 def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                  ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                  tp: TypicalPods, rank: torch.Tensor, tables,
-                 cfg: ReplayConfig) -> ReplayResult:
+                 cfg: ReplayConfig, keep: dict = None) -> ReplayResult:
     """The plain version of the `replay` kernel: an event loop over tensor
     ops. `tables` are the (score, sdev, feas) tables of the initial state.
-    selectHost scans the event type's row over all N nodes."""
+    selectHost scans the event type's row over all N nodes. With `keep`,
+    the final tables are stored in keep["tables"]."""
     k, n = types.num_types, state.num_nodes
     node_ids = torch.arange(n, device=rank.device, dtype=torch.int32)
 
@@ -312,7 +316,7 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
         return int(torch.where(key == m, node_ids, n).min())
 
     return plain_event_loop(state, pods, types, ev_kind, ev_pod, tp, tables,
-                            cfg, select)
+                            cfg, select, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -456,6 +460,15 @@ def validate_events(ev_kind, ev_pod, num_pods: int) -> None:
         )
 
 
+def check_staged_sizes(num_types: int, num_typical: int) -> None:
+    """The replay kernels stage every pod type and typical pod in shared
+    memory: refuse more than they hold."""
+    if num_types > MAX_TYPES or num_typical > MAX_TYPICAL:
+        raise ValueError(
+            f"{num_types} pod types and {num_typical} typical pods: the "
+            f"replay kernels stage at most {MAX_TYPES} and {MAX_TYPICAL}")
+
+
 def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                    ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                    tp: TypicalPods, rank: torch.Tensor, tables,
@@ -469,6 +482,7 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
     per-event outputs."""
     dev = state.cpu_left.device
     _cuda_only(dev, name)
+    check_staged_sizes(types.num_types, tp.size)
     live = state._replace(
         cpu_left=state.cpu_left.clone(), mem_left=state.mem_left.clone(),
         gpu_left=state.gpu_left.clone(), aff_cnt=state.aff_cnt.clone(),

@@ -18,7 +18,11 @@ replay keeps per (type, block) summaries beside the tables:
     slo/shi       [nn, K]         the extrema the summaries were built with
 
 Each event refreshes the dirty node's column, then that node's block
-summaries for all K types under the stored extrema. A drift check compares
+summaries for all K types under the stored extrema. The plain version
+recomputes the dirty block for every type; the kernel updates each type's
+summary from the node's old and new values and rescans the block only
+where that cannot decide (`update_block_summaries` is the plain version
+of that rule, held to the full refresh by the tests). A drift check compares
 the event type's current extrema (the min/max of its block extrema) with
 the stored ones; when one moved, the type's summary row is rebuilt over
 all N and a rebuild is counted. A create then selects over the N/128
@@ -133,25 +137,106 @@ def plain_init_summaries(tables, rank, cfg: fe.ReplayConfig) -> Summaries:
     return Summaries(bt, br, offs + lane, brmin, brmax, slo, shi)
 
 
+def refresh_block(summ: Summaries, tables, rank, c: int, rows,
+                  cfg: fe.ReplayConfig) -> None:
+    """Recompute block c's summaries (and block extrema) of the types
+    `rows` (an index or a slice) from the tables, under the stored
+    extrema, in place."""
+    score, _, feas = tables
+    k, n = feas.shape
+    cols = slice(c * BLOCK, (c + 1) * BLOCK)
+    raw_blk = score.view(len(cfg.policies), k, n)[:, rows, cols]
+    feas_blk = feas[rows, cols] != 0
+    index = _norm_index(cfg)
+    if index:
+        summ.brmin[:, rows, c], summ.brmax[:, rows, c] = _block_extrema(
+            raw_blk, feas_blk, index)
+    total = _totals(raw_blk, feas_blk, summ.slo[:, rows], summ.shi[:, rows],
+                    cfg)
+    summ.bt[rows, c], summ.br[rows, c], lane = block_reduce(
+        total, rank[cols])
+    summ.bn[rows, c] = c * BLOCK + lane
+
+
+def update_block_summaries(summ: Summaries, old, new, node: int, tables,
+                           rank, cfg: fe.ReplayConfig) -> torch.Tensor:
+    """Block summaries after one node's column changed, from its old and
+    new values alone where they decide, in place: the plain version of
+    `replay_blocked`'s summary update. `old` and `new` are the column's
+    (raw scores i32[n_pol, K], Filter bits bool[K]) before and after the
+    refresh; `tables` are the refreshed tables. Only `node` changed in its
+    block and the stored extrema are fixed, so per type:
+
+    - the winner is another node: the better of it and the node's new
+      candidate (total, rank, node);
+    - the winner is the node: it stays if its new total is not below its
+      old one;
+    - a normalised policy's block extrema widen to the node's new raw
+      value where it is feasible;
+
+    and the block is rescanned (`refresh_block`) where the winner was the
+    node and lost, or where the node held a block extremum and moved
+    inward or became infeasible. Returns the rescanned types, bool[K]."""
+    c = node // BLOCK
+    (old_raw, old_f), (new_raw, new_f) = old, new
+    rescan = torch.zeros_like(old_f)
+    index = _norm_index(cfg)
+    if index:
+        ro, rn = old_raw[index], new_raw[index]
+        mn, mx = summ.brmin[:, :, c], summ.brmax[:, :, c]
+        rescan |= (old_f & (ro == mn) & (~new_f | (rn > ro))).any(0)
+        rescan |= (old_f & (ro == mx) & (~new_f | (rn < ro))).any(0)
+        summ.brmin[:, :, c] = torch.where(new_f, torch.minimum(mn, rn), mn)
+        summ.brmax[:, :, c] = torch.where(new_f, torch.maximum(mx, rn), mx)
+    old_total, new_total = (
+        _totals(raw[:, :, None], f[:, None], summ.slo, summ.shi, cfg)[:, 0]
+        for raw, f in ((old_raw, old_f), (new_raw, new_f)))
+    held_t, held_r, held_n = summ.bt[:, c], summ.br[:, c], summ.bn[:, c]
+    rank_d = rank[node]
+    other = held_n != node
+    wins = other & ((new_total > held_t) | ((new_total == held_t) & (
+        (rank_d < held_r) | ((rank_d == held_r) & (node < held_n)))))
+    stays = ~other & (new_total >= old_total)
+    rescan |= ~other & ~stays
+    summ.bt[:, c] = torch.where(wins | stays, new_total, held_t)
+    summ.br[:, c] = torch.where(wins, rank_d, held_r)
+    summ.bn[:, c] = torch.where(wins, node, held_n)
+    rows = rescan.nonzero()[:, 0]
+    if rows.numel():
+        refresh_block(summ, tables, rank, c, rows, cfg)
+    return rescan
+
+
 def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                          ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                          tp: TypicalPods, rank: torch.Tensor, tables,
-                         cfg: fe.ReplayConfig):
+                         cfg: fe.ReplayConfig, keep: dict = None,
+                         on_refresh=None):
     """The plain version of the `replay_blocked` kernel: an event loop over
     tensor ops, returning (ReplayResult, stats i32[3]). The node axis of
     `state`, `rank` and the (score, sdev, feas) `tables` of the initial
-    state is a whole number of 128-node blocks."""
+    state is a whole number of 128-node blocks. With `keep`, the final
+    tables and Summaries are stored in it ("tables", "summaries").
+    `on_refresh(dirty, old, new, tables, before, after)`, where given, is
+    called after each dirty-block refresh with the dirty column's (raws,
+    Filter bits) before and after the column refresh, the refreshed
+    tables, and copies of the summaries before and after the block
+    refresh."""
     n, k = state.num_nodes, types.num_types
     if n % BLOCK:
         raise ValueError(f"{n} nodes: the blocked replay takes whole "
                          f"{BLOCK}-node blocks (pad_nodes)")
     nblk, n_pol = n // BLOCK, len(cfg.policies)
     index = _norm_index(cfg)
-    bt, br, bn, brmin, brmax, slo, shi = plain_init_summaries(tables, rank,
-                                                              cfg)
+    summ = plain_init_summaries(tables, rank, cfg)
+    bt, br, bn, brmin, brmax, slo, shi = summ
     rank_blk = rank.view(nblk, BLOCK)
     offs = torch.arange(nblk, dtype=torch.int32, device=rank.device) * BLOCK
     rebuilds = 0
+    shadow = [t.clone() for t in tables] if on_refresh else None
+
+    def column(score, feas, node):
+        return score.view(n_pol, k, n)[:, :, node].clone(), feas[:, node] != 0
 
     def select(tables, dirty, kind, tid, pin) -> int:
         nonlocal rebuilds
@@ -159,15 +244,16 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
         raws = score.view(n_pol, k, n)
         if dirty >= 0:
             # the dirty block's summaries for all K types
-            c = dirty // BLOCK
-            cols = slice(c * BLOCK, (c + 1) * BLOCK)
-            raw_blk, feas_blk = raws[:, :, cols], feas[:, cols] != 0
-            if index:
-                brmin[:, :, c], brmax[:, :, c] = _block_extrema(
-                    raw_blk, feas_blk, index)
-            total = _totals(raw_blk, feas_blk, slo, shi, cfg)
-            bt[:, c], br[:, c], lane = block_reduce(total, rank_blk[c])
-            bn[:, c] = c * BLOCK + lane
+            before = Summaries(*(x.clone() for x in summ)) if shadow else None
+            refresh_block(summ, tables, rank, dirty // BLOCK, slice(None),
+                          cfg)
+            if shadow:
+                old, new = (column(shadow[0], shadow[2], dirty),
+                            column(score, feas, dirty))
+                shadow[0][:, dirty], shadow[2][:, dirty] = (score[:, dirty],
+                                                            feas[:, dirty])
+                on_refresh(dirty, old, new, tables, before,
+                           Summaries(*(x.clone() for x in summ)))
         if index:
             # extrema drift: when the event type's current extrema left the
             # stored ones, rebuild its summary row under the current ones
@@ -191,7 +277,9 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
         return int(bn[tid, c]) if int(key[c]) != -_INT_MAX else -1
 
     result = fe.plain_event_loop(state, pods, types, ev_kind, ev_pod, tp,
-                                 tables, cfg, select)
+                                 tables, cfg, select, keep)
+    if keep is not None:
+        keep["summaries"] = summ
     stats = torch.tensor([0, 0, rebuilds], dtype=torch.int32,
                          device=rank.device)
     return result, stats
