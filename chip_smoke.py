@@ -13,7 +13,12 @@ result line:
            clocked build), one nvcc each, all in parallel.
 3. check   each kernel against its plain PyTorch version on the same inputs,
            tolerance zero (exact equality), for every policy configuration
-           the kernels cover: init_tables on the full openb tables of each,
+           the kernels cover: init_tables on the full openb tables of each
+           (flat and padded), on seeded random and type-shape cases, and on
+           partly used clusters of INIT_NODES nodes under INIT_ROWS (1, 2,
+           3 and 8 distinct device values a node, CPU-only nodes, share
+           types that fit no device, Sub picks over unequal values,
+           typical pods of frequency 0), beside an empty launch's time;
            replay on seeded random clusters (256 nodes, ~1k events for the
            method rows, ~300 for the other DotProduct pairs and FGD/worst)
            and on the full openb trace under FGD and FGD/worst, and
@@ -24,8 +29,8 @@ result line:
            on CPU copies of the inputs; both replay kernels on the type
            shapes of SHAPE_CASES (share items past a round of the block's
            threads, no share type, only share types, one typical pod, the
-           most types and typical pods staged), and the wrappers' refusal
-           past those. Each replay check holds outputs, stats, the final
+           most types and typical pods staged), with init_tables, and
+           every wrapper's refusal past those. Each replay check holds outputs, stats, the final
            tables and block summaries, and the tables against init_tables
            over the final state. Both replay kernels are timed per method
            row at openb, and replay for FGD/worst (the one-FGD
@@ -74,10 +79,11 @@ alone with CUDA events: on the openb trace under every method row,
 `init_tables` (median of 20), `replay` and `replay_blocked` (median of 3,
 state restored before each); then, on the first chunk of the 100k-node
 scale stream, `init_tables` (median of 3) and `replay_blocked` (one
-launch). Every replay's placements, device masks and per-event nodes are
-digested, and all turns must agree on them. It prints one line per turn
-and row and a table of the turns side by side, and writes the results to
-chiprun_out/kernel_ab.json.
+launch). Every replay's placements, device masks and per-event nodes, and
+every init_tables launch's tables, are digested, and all turns must agree
+on them. It prints one line per turn and row, a table of the turns side by
+side and each fresh build's ptxas register report, and writes the results
+to chiprun_out/kernel_ab.json.
 
 This script imports nothing of JAX or of the JAX package.
 """
@@ -239,6 +245,28 @@ def kernel_ms(ready, repeats: int, reset=lambda: None,
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
+def empty_launch_ms(repeats: int) -> float:
+    """Median device milliseconds of an empty kernel's launch through the
+    port's library, timed as kernel_ms times a kernel: the floor under
+    every launch's time."""
+    import torch
+
+    from tpusim_torch import kernels
+
+    stream = torch.cuda.current_stream().cuda_stream
+    kernels.launch_empty(stream)
+    pairs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        kernels.launch_empty(stream)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
 def reset_of(ready, state, tables):
     """A function that restores what a prepared replay mutates: the node
     state and tables it starts from, and its per-pod outputs."""
@@ -296,37 +324,57 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def column_ops(name: str, ks: int, kw: int, t: int, norm: str) -> int:
-    """Operations of one policy's column, all K = ks + kw types on one
-    node, counted from its code in replay.cu (float32 operations, and for
-    the integer columns their int32 operations):
-    FGD        the node's current-frag sum over the T typical pods (2T),
-               once; per share type 8 per-device hypothetical sums (16T)
-               and 8 sigmoid scores of 6; per whole type one hypothetical
-               sum (2T) and one sigmoid score (as counted before);
-    BestFit    16 per type;
-    GpuPacking ~420 per type (Sub's pick: 64 order compares, 64 ahead
-               counts, then the tiers);
-    GpuClustering ~30 per type;
-    PWR        per share type ~60 (two CPU watt figures, 8 devices x 4),
-               per whole type ~250 (with Sub's pick);
-    DotProduct 9 slots x 14 per type (1 slot under merge), and 15 more
-               per slot for tanh under norm=pod."""
-    k = ks + kw
-    if name == "FGDScore":
-        return 2 * t + ks * (16 * t + 48) + kw * (2 * t + 6)
-    if name == "DotProductScore":
-        return k * (9 * 14 + (9 * 15 if norm == "pod" else 0))
-    per_type = {"BestFitScore": 16, "GpuPackingScore": 420,
-                "GpuClusteringScore": 30}
-    if name == "PWRScore":
-        return 60 * ks + 250 * kw
-    return per_type[name] * k
-
-
-def config_ops(cfg, ks: int, kw: int, t: int) -> int:
-    """Operations of one column under a ReplayConfig: every policy's."""
-    return sum(column_ops(p.name, ks, kw, t, cfg.norm) for p in cfg.policies)
+def node_ops(cfg, state, types, tp) -> np.ndarray:
+    """Operations of one column of every policy of `cfg` on each node, all
+    K types, counted on this run's inputs (float32 operations, and for the
+    integer columns their int32 operations). Work that depends on the node
+    alone counts once a node, work that depends on a type once a (type,
+    node) pair, and FGD's hypothetical sums once per distinct free device
+    value that can take the type:
+    FGD        the current frag, a sum over the T' typical pods with a
+               frequency (2T'); per share type one hypothetical sum (2T')
+               and sigmoid score (6) for each distinct free value of the
+               node's devices that holds the type's milli; per whole type
+               one of each;
+    BestFit    8 a node (free GPU milli), 10 a type;
+    GpuPacking 136 a node (idle devices; Sub's device order: 64 compares,
+               64 counts), 70 a type (the take along that order, the tiers);
+    GpuClustering 20 a node (the classes present, the pack term), 8 a type;
+    PWR        153 a node (its watts now, Sub's device order); a share type
+               ~55 (its CPU watts after the pod, 8 devices x 5), a whole
+               type ~65 (its CPU watts, the take, the idle flips);
+    DotProduct 32 a node (free milli, idle devices, groups); 9 slots x 14 a
+               type (1 slot under merge), and 15 more a slot for tanh under
+               norm=pod.
+    int64 [N]."""
+    g = np.sort(state.gpu_left.cpu().numpy(), axis=1)
+    first = np.ones(g.shape, bool)
+    first[:, 1:] = g[:, 1:] != g[:, :-1]
+    n = g.shape[0]
+    ks, k = types.num_share, types.num_types
+    kw = k - ks
+    t = int((tp.freq.cpu().numpy() != 0).sum())
+    # per node, the (share type, distinct value that holds it) pairs
+    values = np.zeros(n, np.int64)
+    milli, count = np.unique(types.share.gpu_milli.cpu().numpy(),
+                             return_counts=True)
+    for m, c in zip(milli.tolist(), count.tolist()):
+        values += c * (first & (g >= m)).sum(1)
+    ops = np.zeros(n, np.int64)
+    for p in cfg.policies:
+        if p.name == "FGDScore":
+            ops += 2 * t + (values + kw) * (2 * t + 6)
+        elif p.name == "DotProductScore":
+            slots = 1 if cfg.dim_ext == "merge" else 9
+            ops += 32 + k * slots * (14 + (15 if cfg.norm == "pod" else 0))
+        elif p.name == "PWRScore":
+            ops += 153 + 55 * ks + 65 * kw
+        else:
+            node, per_type = {"BestFitScore": (8, 10),
+                              "GpuPackingScore": (136, 70),
+                              "GpuClusteringScore": (20, 8)}[p.name]
+            ops += node + per_type * k
+    return ops
 
 
 def bound_ms(bytes_moved: int, ops: int):
@@ -386,13 +434,14 @@ def chain_ms(step_ms: float, kinds: np.ndarray, n: int, k: int,
 
 
 def throughput_bound(n: int, k: int, t: int, p: int, e: int, n_pol: int,
-                     refreshes: int, ops: int, extra_bytes: int = 0):
+                     refreshes: int, ops: float, extra_bytes: int = 0):
     """(ms, what bounds it) of a replay as if its events were independent:
     every input read once and every output written once (the node state
     and the tables both ways, the types, typical pods, pods, ranks and
     events in, the pod and event outputs out, and `extra_bytes`), and the
-    operations of one column refresh per event after the first create or
-    delete."""
+    operations of one column refresh (`ops`, node_ops' mean over the
+    initial state: the refreshed nodes' states are not recorded) per event
+    after the first create or delete."""
     state_bytes = n * (1 + 1 + 1 + 1 + 8 + 9 + 1 + 1) * 4
     table_bytes = (n_pol + 2) * k * n * 4
     replay_bytes = (2 * state_bytes + 2 * table_bytes + 5 * k * 4 + 5 * t * 4
@@ -538,6 +587,125 @@ def typed_case(seed: int, num_nodes: int, ks: int, kw: int, t: int,
     return state, pods, types, col(kinds), col(idx), tp, rank
 
 
+# node counts of the init_tables cases: one node, either side of the
+# kernel's 32-node tile, and several tiles
+INIT_NODES = (1, 31, 33, 97, 640)
+# the configurations they run under: FGD alone, PWR+FGD, GpuPacking, and a
+# DotProduct pair
+INIT_ROWS = ("06-FGD", "08-PWR_500_FGD_500", "04-GpuPacking",
+             "DotProd-extend-pod")
+# free milli a used device may hold: nine values, so a node can show eight
+DEVICE_VALUES = (0, 100, 250, 400, 500, 600, 750, 900, 1000)
+
+
+def init_config(row: str):
+    """The ReplayConfig of an INIT_ROWS label."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    if row == "DotProd-extend-pod":
+        return fe.make_config([("DotProductScore", 1000)], "DotProductScore",
+                              "extend", "pod")
+    return fe.make_config(*[r for r in METHODS if r[0] == row][0][1:5])
+
+
+def init_case_fields(seed: int, num_nodes: int):
+    """Numpy fields (node state, pods, typical pods, under the JAX
+    package's field names) of a seeded, partly used cluster for the
+    init_tables checks: GPU nodes whose devices hold 1, 2, 3 or 8 distinct
+    free values (8 on 8 devices), CPU-only nodes, CPU, memory and affinity
+    counts in use; pods whose types include share requests that fit no
+    device of most nodes (950, 990 milli), fractional requests on 2 or 4
+    devices (Sub takes devices of different free values), whole GPUs and
+    CPU only; typical pods, about a third of frequency 0."""
+    rng = np.random.default_rng(seed)
+    n = num_nodes
+    distinct = rng.choice([0, 1, 2, 3, 8], n, p=[0.15, 0.25, 0.25, 0.2, 0.15])
+    gpu_cnt = np.select([distinct == 0, distinct <= 2, distinct == 3],
+                        [0, rng.choice([2, 4, 8], n), rng.choice([4, 8], n)],
+                        8)
+    gpu_left = np.zeros((n, 8), np.int32)
+    for i in range(n):
+        c, d = gpu_cnt[i], distinct[i]
+        if c == 0:
+            continue
+        values = rng.choice(DEVICE_VALUES, d, replace=False)
+        devs = np.concatenate([values, rng.choice(values, c - d)])
+        gpu_left[i, :c] = rng.permutation(devs)
+    cpu_cap = rng.choice([32000, 64000, 96000, 128000], n)
+    mem_cap = rng.choice([131072, 262144, 393216], n)
+    node = dict(
+        cpu_left=cpu_cap - np.minimum(
+            rng.choice([0, 1000, 7000, 33000], n), cpu_cap),
+        cpu_cap=cpu_cap, mem_left=mem_cap - rng.choice([0, 4096, 65536], n),
+        mem_cap=mem_cap, gpu_left=gpu_left, gpu_cnt=gpu_cnt,
+        gpu_type=np.where(gpu_cnt > 0, rng.integers(0, 4, n), -1),
+        cpu_type=rng.integers(0, 3, n),
+        aff_cnt=rng.choice([0, 0, 1, 2], (n, 9)) * (gpu_cnt > 0)[:, None],
+    )
+    p = 160
+    kind = rng.integers(0, 4, p)  # cpu-only, share, whole, fractional multi
+    milli = np.select(
+        [kind == 1, kind == 2, kind == 3],
+        [rng.choice([100, 250, 500, 750, 950, 990], p), np.full(p, 1000),
+         rng.choice([300, 500], p)], 0)
+    num = np.select([kind == 1, kind == 2, kind == 3],
+                    [np.ones(p, int), rng.choice([1, 2, 4, 8], p),
+                     rng.choice([2, 4], p)], 0)
+    pods = dict(
+        cpu=rng.choice([1000, 2000, 4000, 8000, 16000, 40000], p),
+        mem=rng.choice([1024, 4096, 16384], p), gpu_milli=milli,
+        gpu_num=num,
+        gpu_mask=np.where((kind > 0) & (rng.random(p) < 0.25),
+                          (1 << rng.integers(0, 4, p))
+                          | (1 << rng.integers(0, 4, p)), 0),
+        pinned=np.full(p, -1),
+    )
+    t = 24
+    freq = rng.random(t).astype(np.float32) * (rng.random(t) > 0.35)
+    typical = dict(
+        cpu=rng.choice([1000, 4000, 8000, 16000], t),
+        gpu_milli=rng.choice([0, 100, 250, 500, 1000], t),
+        gpu_num=rng.choice([1, 2], t), gpu_mask=rng.choice([0, 1, 6], t),
+        freq=(freq / freq.sum()).astype(np.float32),
+    )
+    return node, pods, typical
+
+
+def init_case(seed: int, num_nodes: int, device):
+    """init_case_fields as the port's (state, pod types, typical pods)."""
+    from tpusim_torch import types as tt
+    from tpusim_torch.sim.table_engine import build_pod_types
+
+    node, pods, typical = init_case_fields(seed, num_nodes)
+    return (tt.node_state_from_numpy(node, device),
+            build_pod_types(tt.pod_spec_from_numpy(pods, device)),
+            tt.typical_pods_from_numpy(typical, device))
+
+
+def check_init_cases(device) -> int:
+    """init_tables against plain_init_tables, tolerance 0, on the
+    init_case states of every INIT_NODES size under every INIT_ROWS
+    configuration. Returns the largest error."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    worst = 0
+    for i, nodes in enumerate(INIT_NODES):
+        state, types, tp = init_case(400 + i, nodes, device)
+        for row in INIT_ROWS:
+            cfg = init_config(row)
+            err = max_abs_err(fe.init_tables(state, types, tp, cfg),
+                              fe.plain_init_tables(state, types, tp, cfg))
+            print(f"check init_tables used cluster {row} N={nodes} "
+                  f"K={types.num_types} (ks={types.num_share}) T={tp.size}: "
+                  f"max_abs_err={err} (tolerance 0)")
+            if err:
+                raise SmokeFailure(f"init_tables disagrees with "
+                                   f"plain_init_tables on the used cluster "
+                                   f"of {nodes} nodes under {row}")
+            worst = max(worst, err)
+    return worst
+
+
 # (label, ks, kw, typical pods, nodes, pods, events) of the type-shape
 # cases: share items past one round of the block's threads, no share type,
 # only share types, one typical pod, and the most types and typical pods
@@ -607,8 +775,9 @@ def against_plain(name: str, args, cfg, plain_on_cpu: bool = False) -> int:
 
 
 def shape_errors(label: str, row: str, device) -> dict:
-    """Each replay kernel's largest error against its plain version on the
-    SHAPE_CASES case `label` under the method row `row`."""
+    """Each kernel's largest error against its plain version on the
+    SHAPE_CASES case `label` under the method row `row` (init_tables on
+    the case's nodes and on them padded to 128)."""
     from tpusim_torch.parallel.sharding import pad_nodes
     from tpusim_torch.sim import fused_engine as fe
 
@@ -617,23 +786,29 @@ def shape_errors(label: str, row: str, device) -> dict:
     state, pods, types, evk, evp, tp, rank = typed_case(
         200 + i, nodes, ks, kw, t, num_pods, device, events)
     cfg = fe.make_config(*[r for r in METHODS if r[0] == row][0][1:5])
-    errs = {}
+    errs = {"init_tables": 0}
     for name, (st, rk) in (("replay", (state, rank)),
                            ("replay_blocked", pad_nodes(state, rank, 128))):
         tables = fe.init_tables(st, types, tp, cfg)
+        errs["init_tables"] = max(errs["init_tables"], max_abs_err(
+            tables, fe.plain_init_tables(st, types, tp, cfg)))
         errs[name] = against_plain(
             name, (st, pods, types, evk, evp, tp, rk, tables), cfg)
     print(f"check shape {label} {row}: K={types.num_types} "
           f"(ks={types.num_share}) T={tp.size} nodes={nodes} "
-          f"events={evk.shape[0]}: max_abs_err replay={errs['replay']} "
-          f"replay_blocked={errs['replay_blocked']} with final tables and "
-          f"summaries (tolerance 0)")
+          f"events={evk.shape[0]}: max_abs_err init_tables="
+          f"{errs['init_tables']} (nodes {nodes} and padded) replay="
+          f"{errs['replay']} replay_blocked={errs['replay_blocked']} with "
+          f"final tables and summaries (tolerance 0)")
     return errs
 
 
 def over_staged_limit(which: str, device):
     """The arguments of a replay one pod type ("types") or one typical pod
-    ("typical") past what the kernels stage, and its config."""
+    ("typical") past what the kernels stage, and its config. The tables
+    are zeros of the right shape: every kernel refuses these sizes."""
+    import torch
+
     from tpusim_torch import kernels
     from tpusim_torch.sim import fused_engine as fe
 
@@ -642,37 +817,43 @@ def over_staged_limit(which: str, device):
     state, pods, types, evk, evp, tp, rank = typed_case(
         300, 130, ks, kw, t, ks + kw, device, 50)
     cfg = fe.make_config([("FGDScore", 1000)], "FGDScore")
-    return (state, pods, types, evk, evp, tp, rank,
-            fe.init_tables(state, types, tp, cfg)), cfg
+    k, n = types.num_types, state.num_nodes
+    tables = tuple(torch.zeros((rows, n), dtype=torch.int32, device=device)
+                   for rows in (k, k, k))
+    return (state, pods, types, evk, evp, tp, rank, tables), cfg
 
 
 def check_shapes(device):
-    """Both replay kernels against their plain versions (outputs, stats,
-    final tables and summaries, tolerance 0) on the SHAPE_CASES under the
-    SHAPE_ROWS configurations, and the wrappers' refusal of one type or
-    typical pod past what the kernels stage. Returns the largest error of
-    each kernel."""
+    """init_tables and both replay kernels against their plain versions
+    (tables; outputs, stats, final tables and summaries; tolerance 0) on
+    the SHAPE_CASES under the SHAPE_ROWS configurations, and every
+    wrapper's refusal of one type or typical pod past what the kernels
+    stage. Returns the largest error of each kernel."""
     from tpusim_torch.sim import fused_engine as fe
 
-    worst = dict(replay=0, replay_blocked=0)
+    worst = dict(init_tables=0, replay=0, replay_blocked=0)
     for label, *_ in SHAPE_CASES:
         for row in SHAPE_ROWS:
             errs = shape_errors(label, row, device)
             for name, err in errs.items():
                 worst[name] = max(worst[name], err)
             if any(errs.values()):
-                raise SmokeFailure(f"a replay kernel disagrees with its plain "
+                raise SmokeFailure(f"a kernel disagrees with its plain "
                                    f"version on the shape case {label}, {row}")
     for which in ("types", "typical"):
         args, cfg = over_staged_limit(which, device)
-        try:
-            fe.prepare_replay(*args, cfg)
-        except ValueError as err:
-            print(f"check shape refusal, one {which} past the limit: {err}")
-        else:
-            raise SmokeFailure(f"prepare_replay took K={args[2].num_types} "
-                               f"T={args[5].size}, past what the kernels "
-                               f"stage")
+        for prep, prep_args in (
+                (fe.prepare_replay, args),
+                (fe.prepare_init_tables, (args[0], args[2], args[5]))):
+            try:
+                prep(*prep_args, cfg)
+            except ValueError as err:
+                print(f"check shape refusal, one {which} past the limit: "
+                      f"{prep.__name__}: {err}")
+            else:
+                raise SmokeFailure(f"{prep.__name__} took K="
+                                   f"{args[2].num_types} T={args[5].size}, "
+                                   f"past what the kernels stage")
     return worst
 
 
@@ -811,9 +992,9 @@ def check_kernels(device, card: str):
     worst = check_random(device)
     for name, err in check_shapes(device).items():
         worst[name] = max(worst.get(name, 0), err)
+    worst["init_tables"] = max(worst["init_tables"], check_init_cases(device))
     state, specs, types, evk, evp, tp, rank = openb_inputs(device)
     n, k, t = state.num_nodes, types.num_types, tp.size
-    ks, kw = types.num_share, types.num_types - types.num_share
     e, p = evk.shape[0], specs.cpu.shape[0]
 
     # the init tables of every configuration at openb size
@@ -834,6 +1015,10 @@ def check_kernels(device, card: str):
             raise SmokeFailure(f"init_tables disagrees with plain_init_tables"
                                f" on openb under {label}")
         worst["init_tables"] = max(worst["init_tables"], err)
+
+    empty_ms = empty_launch_ms(20)
+    print(f"time empty launch: {empty_ms:.4f} ms (an empty kernel through "
+          f"the same library and ctypes call, median of 20), on {card}")
 
     def prepared(cfg, tables, kinds=evk):
         ready = fe.prepare_replay(state, specs, types, kinds, evp, tp, rank,
@@ -895,10 +1080,11 @@ def check_kernels(device, card: str):
         # that changed a node, and is a serial chain of events besides
         n_pol = len(cfg.policies)
         table_bytes = (n_pol + 2) * k * n * 4
-        ops = config_ops(cfg, ks, kw, t)
+        ops = node_ops(cfg, state, types, tp)
         init_bound = bound_ms(state_bytes + type_bytes + tp_bytes
-                              + table_bytes, n * ops)
-        throughput = throughput_bound(n, k, t, p, e, n_pol, refreshes, ops)
+                              + table_bytes, int(ops.sum()))
+        throughput = throughput_bound(n, k, t, p, e, n_pol, refreshes,
+                                      ops.mean())
         step = skip_ms["06-FGD" if label == "06-FGD"
                        else "08-PWR_500_FGD_500"] / e  # the kernel it runs
         chain = chain_ms(step, kinds, n, k, refreshes, n_pol)
@@ -918,7 +1104,8 @@ def check_kernels(device, card: str):
         measured[label] = {
             "init_tables": dict(ms=init_ms, plain_ms=plain_init_ms,
                                 bound_ms=init_bound[0],
-                                bound_by=init_bound[1]),
+                                bound_by=init_bound[1],
+                                empty_launch_ms=empty_ms),
             "replay": dict(ms=replay_ms, plain_ms=plain_replay_ms,
                            **replay_bound),
         }
@@ -941,7 +1128,6 @@ def check_blocked(device, card: str):
     state, specs, types, evk, evp, tp, rank = openb_inputs(device)
     state, rank = pad_nodes(state, rank, 128)
     n, k, t = state.num_nodes, types.num_types, tp.size
-    ks, kw = types.num_share, types.num_types - types.num_share
     e, p = evk.shape[0], specs.cpu.shape[0]
     kinds, pods = evk.cpu().numpy(), evp.cpu().numpy()
     pinned = specs.pinned.cpu().numpy()[pods]
@@ -984,7 +1170,8 @@ def check_blocked(device, card: str):
         chain = chain_blocked_ms(step, kinds, unpinned, n, k, refreshes,
                                  n_pol, nn, rebuilds)
         throughput = throughput_bound(
-            n, k, t, p, e, n_pol, refreshes, config_ops(cfg, ks, kw, t),
+            n, k, t, p, e, n_pol, refreshes,
+            node_ops(cfg, state, types, tp).mean(),
             4 * k * (n // 128) * (3 + 2 * nn))
         bound = dict(bound_ms=chain, bound_by="operations",
                      bound_note="serial event chain: E x (one all-skip step "
@@ -1260,7 +1447,6 @@ def scale_path(device, card: str, nodes, pods, auto):
     unpinned = int(((kinds == 0) & (pinned < 0)).sum())
     skips = torch.full_like(evk, 2)
     tp, p, e = sim.typical, SCALE_PODS, SCALE_CHUNK
-    ops = config_ops(cfg, types.num_share, k - types.num_share, tp.size)
     out = {}
     for name, (st, rank) in (("replay", (sim.init_state, sim.rank)),
                              ("replay_blocked", pad_nodes(
@@ -1277,9 +1463,10 @@ def scale_path(device, card: str, nodes, pods, auto):
         width = st.num_nodes
         # every node's state, the types and typical pods read once, the
         # three tables written once; one column per node
+        ops = node_ops(cfg, st, types, tp)
         init_bound = bound_ms(
             width * (1 + 1 + 1 + 1 + 8 + 9 + 1 + 1) * 4 + 5 * k * 4
-            + 5 * tp.size * 4 + 3 * k * width * 4, width * ops)
+            + 5 * tp.size * 4 + 3 * k * width * 4, int(ops.sum()))
         if name == "replay":
             chain = chain_ms(step, kinds, width, k, refreshes)
             extra = 0
@@ -1288,7 +1475,7 @@ def scale_path(device, card: str, nodes, pods, auto):
                                      refreshes, 1, 0, 0)
             extra = 4 * k * (width // 128) * 3
         throughput = throughput_bound(width, k, tp.size, p, e, 1,
-                                      refreshes, ops, extra)
+                                      refreshes, ops.mean(), extra)
         bound = dict(bound_ms=chain, bound_by="operations",
                      bound_note="serial event chain")
         if throughput[0] > chain:
@@ -1486,6 +1673,14 @@ def replay_digest(result) -> str:
     return h.hexdigest()[:16]
 
 
+def tables_digest(tables) -> str:
+    """sha256 of the (score, sdev, feas) tables."""
+    h = hashlib.sha256()
+    for x in tables:
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def ab_timed(ready, state, tables, repeats, warmup=True):
     """Median ms of `repeats` launches of a prepared replay, each from the
     initial state and tables; returns (ms, digest of the last launch)."""
@@ -1512,8 +1707,11 @@ def ab_turn(tree: str) -> dict:
             os.path.abspath(tree) + os.sep):
         raise SmokeFailure(f"--ab: imported {kernels.__file__}, not {tree}'s")
     device = torch.device("cuda")
-    kernels.build()
-    out = dict(tree=tree, card=card_line(), rows={}, scale={})
+    log = kernels.build().log
+    ptxas = [line.strip() for line in log.splitlines()
+             if "entry function" in line or "registers" in line
+             or "stack frame" in line]
+    out = dict(tree=tree, card=card_line(), ptxas=ptxas, rows={}, scale={})
     state, specs, types, evk, evp, tp, rank = openb_inputs(device)
     padded, rank_p = pad_nodes(state, rank, 128)
     for row in METHODS:
@@ -1529,6 +1727,8 @@ def ab_turn(tree: str) -> dict:
             else:
                 fe.launch(init)
             tables = init.finish()
+            rec["init_tables_digest" if name == "replay"
+                else "init_tables_hbm_digest"] = tables_digest(tables)
             rec[name], rec[f"{name}_digest"] = ab_timed(
                 prep(st, specs, types, evk, evp, tp, rk, tables, cfg), st,
                 tables, 3)
@@ -1552,6 +1752,7 @@ def ab_turn(tree: str) -> dict:
         st, auto.specs, auto.types, evk, evp, auto.sim.typical, rk, tables,
         cfg), st, tables, 1, warmup=False)
     out["scale"] = dict(init_tables=init_ms, replay_blocked=ms,
+                        init_tables_digest=tables_digest(tables),
                         replay_blocked_digest=dig, events=SCALE_CHUNK)
     print(f"[{tree}] scale first chunk ({SCALE_CHUNK} events, "
           f"{SCALE_NODES} nodes): init_tables {init_ms:.4f} ms, "
@@ -1579,7 +1780,8 @@ def ab_main(trees) -> int:
     bad = []
     rows = list(turns[0]["rows"])
     for label in rows + ["scale"]:
-        for name in ("replay", "replay_blocked"):
+        for name in ("init_tables", "init_tables_hbm", "replay",
+                     "replay_blocked"):
             key = f"{name}_digest"
             recs = [t["scale"] if label == "scale" else t["rows"][label]
                     for t in turns]
@@ -1594,6 +1796,9 @@ def ab_main(trees) -> int:
     for name in ("init_tables", "replay_blocked"):
         vals = " ".join(f"{t['scale'][name]:10.3f}" for t in turns)
         print(f"{'scale chunk':20s} {name:15s} {vals} ms")
+    for name, t in zip(names, turns):
+        for line in t["ptxas"]:  # a turn that reused a build has none
+            print(f"ptxas [{name}]: {line}")
     os.makedirs(os.path.dirname(AB_OUT), exist_ok=True)
     with open(AB_OUT, "w") as f:
         json.dump(dict(turns=turns, differing=bad), f, indent=1)

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from chip_smoke import (
-    DIM_EXT, METHODS, NORM, SHAPE_CASES, SHAPE_ROWS, WIDE_BLOCKED,
-    against_plain, over_staged_limit, random_case, shape_errors,
+    DIM_EXT, INIT_NODES, INIT_ROWS, METHODS, NORM, SHAPE_CASES, SHAPE_ROWS,
+    WIDE_BLOCKED, against_plain, init_case, init_config, over_staged_limit,
+    random_case, shape_errors,
 )
 from tpusim_torch.io.trace import load_node_csv, load_pod_csv
 from tpusim_torch.parallel.sharding import pad_nodes
@@ -87,6 +88,21 @@ def test_config_kernels_match_plain_on_card(cuda_device, policies, gpu_sel,
     _assert_equal(tables, fe.plain_init_tables(state, types, tp, cfg))
     assert against_plain("replay", (state, pods, types, evk, evp, tp, rank,
                                     tables), cfg) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nodes", INIT_NODES)
+@pytest.mark.parametrize("row", INIT_ROWS)
+def test_init_tables_match_plain_on_used_clusters(cuda_device, row, nodes):
+    """init_tables against plain_init_tables on partly used clusters: nodes
+    with 1, 2, 3 and 8 distinct free device values, CPU-only nodes, share
+    types that fit no device, Sub picks over unequal values, typical pods of
+    frequency 0, and node counts about the kernel's 32-node tile."""
+    state, types, tp = init_case(400 + INIT_NODES.index(nodes), nodes,
+                                 cuda_device)
+    cfg = init_config(row)
+    _assert_equal(fe.init_tables(state, types, tp, cfg),
+                  fe.plain_init_tables(state, types, tp, cfg))
 
 
 @pytest.mark.cuda
@@ -188,27 +204,31 @@ def test_simulator_hbm_residency_on_card(cuda_device, row):
 @pytest.mark.parametrize("row", SHAPE_ROWS)
 @pytest.mark.parametrize("label", [case[0] for case in SHAPE_CASES])
 def test_type_shapes_match_plain_on_card(cuda_device, label, row):
-    """Both replay kernels against their plain versions, outputs, stats,
-    final tables and summaries, where the share items outrun one round of
-    the block's threads (ks=200), without share types, with only share
-    types, with one typical pod, and at the most pod types and typical
-    pods the kernels stage."""
-    assert shape_errors(label, row, cuda_device) == dict(replay=0,
-                                                         replay_blocked=0)
+    """init_tables and both replay kernels against their plain versions
+    (the tables; outputs, stats, final tables and summaries) where the
+    share items outrun one round of the block's threads (ks=200), without
+    share types, with only share types, with one typical pod, and at the
+    most pod types and typical pods the kernels stage."""
+    assert shape_errors(label, row, cuda_device) == dict(
+        init_tables=0, replay=0, replay_blocked=0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["types", "typical"])
 def test_wrappers_refuse_past_staged_limits(cuda_device, which):
-    """One pod type or typical pod past what the kernels stage: both
-    replay wrappers raise before launching."""
+    """One pod type or typical pod past what the kernels stage: every
+    wrapper raises before launching."""
     args, cfg = over_staged_limit(which, cuda_device)
     state, pods, types, evk, evp, tp, rank, tables = args
     fe.reset_launch_counts()
+    with pytest.raises(ValueError, match="stage at most"):
+        fe.init_tables(state, types, tp, cfg)
     with pytest.raises(ValueError, match="stage at most"):
         fe.replay(*args, cfg)
     padded, rank = pad_nodes(state, rank, 128)
     with pytest.raises(ValueError, match="stage at most"):
         he.replay_blocked(padded, pods, types, evk, evp, tp, rank,
-                          fe.init_tables(padded, types, tp, cfg), cfg)
-    assert fe.replay.launches == 0 and he.replay_blocked.launches == 0
+                          tuple(t.new_zeros((t.shape[0], padded.num_nodes))
+                                for t in tables), cfg)
+    assert fe.init_tables.launches == 0 and fe.replay.launches == 0
+    assert he.replay_blocked.launches == 0

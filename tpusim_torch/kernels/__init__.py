@@ -40,8 +40,8 @@ NVCC_FLAGS = (
 KERNELS = ("init_tables", "replay", "replay_blocked")
 # the most policies one configuration may combine (replay.cu kMaxPolicies)
 MAX_POLICIES = 6
-# the most pod types and typical pods the replay kernels stage in shared
-# memory (replay.cu kMaxTypes, kMaxTypical)
+# the most pod types and typical pods the kernels stage in shared memory
+# (replay.cu kMaxTypes, kMaxTypical)
 MAX_TYPES = 2048
 MAX_TYPICAL = 1024
 # the library variants by name: their extra nvcc definitions
@@ -68,6 +68,7 @@ POINTER_FIELDS = (
     "ev_kind", "ev_pod",
     "placed", "maskb", "failed", "ev_node", "ev_devb",
     "bt", "br", "bn", "brmin", "brmax", "slo", "shi", "stats", "clocks",
+    "t_order",
 )
 
 
@@ -167,6 +168,8 @@ def library(variant: str = "") -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(ReplayArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.empty_launch.argtypes = [ctypes.c_void_p]
+        lib.empty_launch.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _libs[variant] = lib
@@ -182,3 +185,14 @@ def launch(name: str, args: ReplayArgs, stream: int,
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def launch_empty(stream: int, variant: str = "") -> None:
+    """Launch an empty kernel through the same library and ctypes call as
+    the port's kernels: what a launch costs without work (chip_smoke.py
+    times it beside init_tables)."""
+    lib = library(variant)
+    code = lib.empty_launch(ctypes.c_void_p(stream))
+    if code != 0:
+        msg = lib.kernel_error_string(code).decode()
+        raise RuntimeError(f"empty launch failed: CUDA error {code} ({msg})")

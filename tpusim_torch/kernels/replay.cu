@@ -12,10 +12,14 @@
 //
 // Three kernels share the __device__ column functions (one per policy,
 // `*_pair`, scoring one pod type on one node):
-//   init_tables_kernel  one thread per (type, node) pair fills the
-//                       [n_pol*K, N] score, [K, N] share-device and [K, N]
-//                       Filter tables of the initial state (the Pallas
-//                       kernel's event-0 fori_loop, :906-910).
+//   init_tables_kernel  fills the [n_pol*K, N] score, [K, N] share-device
+//                       and [K, N] Filter tables of the initial state (the
+//                       Pallas kernel's event-0 table build, :903-910, and
+//                       pass 1 of the HBM kernel, :1669-1701): a block per
+//                       tile of 32 nodes (and slice of the types), FGD's
+//                       node-only terms once per node, then a warp per
+//                       (tile, batch of types) with a lane per node (see its
+//                       section).
 //   replay_kernel       one persistent block walks every event in order:
 //                       refresh the column of the node the previous event
 //                       changed, then on a create the min/max of each
@@ -40,16 +44,17 @@
 //                       The Pallas kernel's double-buffered DMA has no
 //                       counterpart: tables and summaries stay in global
 //                       memory, and its waits/starts counters stay 0.
-// Both replay kernels are templates on the configuration's shape: <false> is
+// All three kernels are templates on the configuration's shape: <false> is
 // specialised to the paper's FGD configuration (one FGDScore policy, gpu_sel
 // FGDScore or best) and skips the descriptor, the normalisation pass and the
 // policy loop; <true> reads the policy descriptor.
 //
-// What bounds them on this card: the replay is a serial chain of events, so
-// its time is latency, not bytes or operations, and the design is about one
-// SM. The column refresh is spread over the whole block: FGD's node-only
-// work (per typical pod its fit count and sum over the node's devices, and
-// the node's current frag) is done once per event by one warp, then one
+// What bounds the replay kernels on this card: the replay is a serial chain
+// of events, so its time is latency, not bytes or operations, and the design
+// is about one SM (init_tables, bound by operations, says its own). The
+// column refresh is spread over the whole block: FGD's node-only work (per
+// typical pod its fit count and sum over the node's devices, and the node's
+// current frag) is done once per event by one warp, then one
 // thread per (share type, device) and one per whole type sums its
 // hypothetical frag over the typical pods, which sit in shared memory with
 // the type fields (staged once per launch); a share type's best device is
@@ -76,6 +81,7 @@
 // Interface: plain C, bound with ctypes. The launchers return the CUDA error
 // code of the launch (0 = success); they never synchronise.
 
+#include <algorithm>
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -91,7 +97,9 @@ constexpr int kMaxNodeScore = 100;
 constexpr int kMaxSpecGpu = 8000;
 constexpr int kCreate = 0;
 constexpr int kDelete = 1;
-constexpr int kInitThreads = 256;
+constexpr int kInitThreads = 128;  // init_tables: 4 warps
+constexpr int kTile = 32;  // init_tables: the nodes of a tile, one a lane
+constexpr int kBatch = 8;  // init_tables: the most types FGD sums at once
 constexpr int kReplayThreads = 512;
 constexpr int kMaxPolicies = 6;
 constexpr int kBlock = 128;  // nodes per block summary of replay_blocked
@@ -217,6 +225,10 @@ struct ReplayArgs {
   // the clocked build's phase clocks (int64 [16], ClockSlot); null and
   // unread in the main build
   long long* clocks;
+  // init_tables' type order (fused_engine.type_order): the types by FGD's
+  // key, share or whole, milli and GPU count, ties by index; null for the
+  // others
+  const int32_t* t_order;
   int32_t n;
   int32_t k;
   int32_t ks;
@@ -452,18 +464,11 @@ __device__ __forceinline__ int bestfit_pair(const ReplayArgs& a,
   return to_i32(floorf(__fmul_rn(__fsub_rn(1.0f, s), 100.0f)));
 }
 
-// GpuPacking (_packing_column :464; policies/packing.py), in integers
-__device__ __forceinline__ int packing_pair(const ReplayArgs& a,
-                                            const NodeView& v, int k) {
-  const int milli = a.t_milli[k];
-  const int num = a.t_num[k];
-  if (milli * num <= 0) return 0;
+// GpuPacking's tiers once Sub has taken the devices `take`
+__device__ __forceinline__ int packing_tiers(const NodeView& v,
+                                             const bool take[kDevs]) {
   constexpr int t3 = kMaxNodeScore / 3;
   constexpr int t2 = kMaxNodeScore / 2;
-  const int fully_free = idle_count(v);
-  if (fully_free == v.gcnt) return max(t3 - fully_free, fully_free);
-  bool take[kDevs];
-  if (!packed_take(v, milli, num, take)) return 0;
   int free_used = 0;
   int ratio = 0;
 #pragma unroll
@@ -475,6 +480,20 @@ __device__ __forceinline__ int packing_pair(const ReplayArgs& a,
   }
   return free_used > 0 ? max(t2 - free_used, t3)
                        : max(kMaxNodeScore - ratio / 10, t2);
+}
+
+// GpuPacking (_packing_column :464; policies/packing.py), in integers
+__device__ __forceinline__ int packing_pair(const ReplayArgs& a,
+                                            const NodeView& v, int k) {
+  const int milli = a.t_milli[k];
+  const int num = a.t_num[k];
+  if (milli * num <= 0) return 0;
+  constexpr int t3 = kMaxNodeScore / 3;
+  const int fully_free = idle_count(v);
+  if (fully_free == v.gcnt) return max(t3 - fully_free, fully_free);
+  bool take[kDevs];
+  if (!packed_take(v, milli, num, take)) return 0;
+  return packing_tiers(v, take);
 }
 
 __device__ __forceinline__ int affinity_class(int milli, int num) {
@@ -510,11 +529,16 @@ __device__ __forceinline__ float cpu_watts(const ReplayArgs& a,
                    __fmul_rn(a.cpu_full_w[v.ctyp], active));
 }
 
-// PWR (_pwr_column :521; policies/pwr.py). Every watt figure is an
-// integer held exactly in float32, so only the floor/ceil inputs round.
-// The branch follows the type: one GPU under 1000 milli is a share pod.
-__device__ void pwr_pair(const ReplayArgs& a, const NodeView& v, int k,
-                         int* score, int* sdev) {
+// PWR's node-only figures: the node's watts now (old), its GPUs' watts
+// (gpu_old) and one GPU's busy-over-idle delta
+struct PwrNode {
+  float old;
+  float gpu_old;
+  float busy;
+};
+
+__device__ __forceinline__ PwrNode pwr_node(const ReplayArgs& a,
+                                            const NodeView& v) {
   const float gidle = v.gtyp >= 0 ? a.gpu_idle_w[v.gtyp] : 0.0f;
   const float gfull = v.gtyp >= 0 ? a.gpu_full_w[v.gtyp] : 0.0f;
   const float busy = v.gtyp >= 0 ? __fsub_rn(gfull, gidle) : 0.0f;
@@ -522,38 +546,59 @@ __device__ void pwr_pair(const ReplayArgs& a, const NodeView& v, int k,
   const float gpu_old = __fadd_rn(
       __fmul_rn(gidle, n_idle),
       __fmul_rn(gfull, __fsub_rn(static_cast<float>(v.gcnt), n_idle)));
-  const float old = __fadd_rn(cpu_watts(a, v, v.cpu), gpu_old);
-  const float base = __fadd_rn(cpu_watts(a, v, v.cpu - a.t_cpu[k]), gpu_old);
-  const int milli = a.t_milli[k];
-  const int num = a.t_num[k];
-  if (num == 1 && milli < kMilli) {
-    // share: device d flips iff it was fully idle and the pod takes milli
-    int best = kPwrNeg;
-    int best_dev = -1;
+  return {__fadd_rn(cpu_watts(a, v, v.cpu), gpu_old), gpu_old, busy};
+}
+
+// PWR of a share pod of `milli`: device d flips iff it was fully idle and
+// the pod takes milli; `base` is the node's watts after the pod's CPU
+__device__ __forceinline__ void pwr_share(const NodeView& v, const PwrNode& w,
+                                          float base, int milli, int* score,
+                                          int* sdev) {
+  int best = kPwrNeg;
+  int best_dev = -1;
 #pragma unroll
-    for (int d = 0; d < kDevs; ++d) {
-      if (v.g[d] >= milli) {
-        const bool flip = v.g[d] == kMilli && milli > 0;
-        const int s = to_i32(__fsub_rn(old, __fadd_rn(base, flip ? busy : 0.0f)));
-        if (best_dev < 0 || s > best) {  // first device on ties
-          best = s;
-          best_dev = d;
-        }
+  for (int d = 0; d < kDevs; ++d) {
+    if (v.g[d] >= milli) {
+      const bool flip = v.g[d] == kMilli && milli > 0;
+      const int s = to_i32(__fsub_rn(w.old, __fadd_rn(base, flip ? w.busy : 0.0f)));
+      if (best_dev < 0 || s > best) {  // first device on ties
+        best = s;
+        best_dev = d;
       }
     }
-    *score = best;
-    *sdev = best_dev;
-    return;
   }
-  // whole GPUs / CPU only: Sub's taken devices flip iff they were idle
-  bool take[kDevs];
-  packed_take(v, milli, num, take);
+  *score = best;
+  *sdev = best_dev;
+}
+
+// PWR of whole GPUs / CPU only: Sub's taken devices flip iff they were idle
+__device__ __forceinline__ int pwr_whole(const NodeView& v, const PwrNode& w,
+                                         float base, int num,
+                                         const bool take[kDevs]) {
   int flips = 0;
 #pragma unroll
   for (int d = 0; d < kDevs; ++d)
     flips += (num > 0 && take[d] && v.g[d] == kMilli) ? 1 : 0;
-  *score = to_i32(__fsub_rn(
-      old, __fadd_rn(base, __fmul_rn(static_cast<float>(flips), busy))));
+  return to_i32(__fsub_rn(
+      w.old, __fadd_rn(base, __fmul_rn(static_cast<float>(flips), w.busy))));
+}
+
+// PWR (_pwr_column :521; policies/pwr.py). Every watt figure is an
+// integer held exactly in float32, so only the floor/ceil inputs round.
+// The branch follows the type: one GPU under 1000 milli is a share pod.
+__device__ void pwr_pair(const ReplayArgs& a, const NodeView& v, int k,
+                         int* score, int* sdev) {
+  const PwrNode w = pwr_node(a, v);
+  const float base = __fadd_rn(cpu_watts(a, v, v.cpu - a.t_cpu[k]), w.gpu_old);
+  const int milli = a.t_milli[k];
+  const int num = a.t_num[k];
+  if (num == 1 && milli < kMilli) {
+    pwr_share(v, w, base, milli, score, sdev);
+    return;
+  }
+  bool take[kDevs];
+  packed_take(v, milli, num, take);
+  *score = pwr_whole(v, w, base, num, take);
   *sdev = -1;
 }
 
@@ -611,26 +656,43 @@ __device__ __forceinline__ float dot_terms(const ReplayArgs& a,
   return __fmaf_rn(ca, cb, __fmul_rn(ga, gb));
 }
 
+// DotProduct's node-only figures: free GPU milli, idle devices and, under
+// extend, the device groups
+struct DotNode {
+  int gsum;
+  int idle;
+  float n_groups;
+};
+
+__device__ __forceinline__ DotNode dot_node(const ReplayArgs& a,
+                                            const NodeView& v) {
+  DotNode n{gpu_sum(v), idle_count(v), 0.0f};
+  if (a.dim_ext == kExtend) {
+#pragma unroll
+    for (int d = 0; d < kDevs; ++d)
+      n.n_groups += (d < v.gcnt && v.g[d] > 0 && v.g[d] < kMilli) ? 1.0f : 0.0f;
+    n.n_groups += n.idle > 0 ? 1.0f : 0.0f;
+  }
+  return n;
+}
+
 // DotProduct (_make_dotprod_column :578; policies/dotprod.py): the best of
-// up to 9 slots (8 devices + the idle pool; one under merge), first on ties
-__device__ void dotprod_pair(const ReplayArgs& a, const NodeView& v, int k,
-                             int* score, int* sdev) {
+// up to 9 slots (8 devices + the idle pool; one under merge), first on
+// ties, from the node's figures `dn`
+__device__ __forceinline__ void dotprod_score(const ReplayArgs& a,
+                                              const NodeView& v,
+                                              const DotNode& dn, int k,
+                                              int* score, int* sdev) {
   const int tcpu_i = a.t_cpu[k];
   const int treq_i = a.t_milli[k] * a.t_num[k];
   const float tcpu = static_cast<float>(tcpu_i);
   const float treq = static_cast<float>(treq_i);
   const float cpu_f = static_cast<float>(v.cpu);
-  const int gsum = gpu_sum(v);
-  const int idle_cnt = idle_count(v);
+  const int gsum = dn.gsum;
+  const int idle_cnt = dn.idle;
+  const float n_groups = dn.n_groups;
   const bool cpu_fits = v.cpu >= tcpu_i;
   const int slots = a.dim_ext == kMerge ? 1 : kDevs + 1;
-  float n_groups = 0.0f;
-  if (a.dim_ext == kExtend) {
-#pragma unroll
-    for (int d = 0; d < kDevs; ++d)
-      n_groups += (d < v.gcnt && v.g[d] > 0 && v.g[d] < kMilli) ? 1.0f : 0.0f;
-    n_groups += idle_cnt > 0 ? 1.0f : 0.0f;
-  }
   float best = -INFINITY;
   int best_slot = -1;
   for (int s = 0; s < slots; ++s) {
@@ -685,6 +747,11 @@ __device__ void dotprod_pair(const ReplayArgs& a, const NodeView& v, int k,
   }
 }
 
+__device__ void dotprod_pair(const ReplayArgs& a, const NodeView& v, int k,
+                             int* score, int* sdev) {
+  dotprod_score(a, v, dot_node(a, v), k, score, sdev);
+}
+
 // Filter-phase feasibility of a pod type (cpu, mem, m milli on num GPUs,
 // model mask) on one node (_feas_column :739; step.filter_nodes without the
 // per-event pin mask)
@@ -733,32 +800,6 @@ __device__ void policy_pair(const ReplayArgs& a, const NodeView& v, int pi,
       dotprod_pair(a, v, k, score, sdev);
       break;
   }
-}
-
-// every table entry of type k on `node`
-__device__ __forceinline__ void write_column(const ReplayArgs& a,
-                                             const NodeView& v, int k,
-                                             int node) {
-  int sel_dev = -1;
-  for (int pi = 0; pi < a.n_pol; ++pi) {
-    int s;
-    int d;
-    policy_pair(a, v, pi, k, &s, &d);
-    a.score[(static_cast<size_t>(pi) * a.k + k) * a.n + node] = s;
-    if (pi == a.sel) sel_dev = d;
-  }
-  const size_t i = static_cast<size_t>(k) * a.n + node;
-  a.sdev[i] = sel_dev;
-  a.feas[i] = feas_pair(a, v, k);
-}
-
-__global__ void init_tables_kernel(ReplayArgs a) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(a.k) * a.n) return;
-  const int k = static_cast<int>(i / a.n);
-  const int node = static_cast<int>(i % a.n);
-  write_column(a, load_node(a, node), k, node);
 }
 
 // selectHost candidate: max total, then min tie-break rank, then min node id
@@ -2013,6 +2054,639 @@ __global__ void __launch_bounds__(kReplayThreads, 1)
   pc.finish(a.clocks, t0);
 }
 
+// ---------------------------------------------------------------------------
+// init_tables: the tables of the initial state, laid out for throughput
+// (pallas_engine.py's event-0 table build :903-910 and pass 1 of
+// _make_hbm_kernel :1669-1701, which build them through the column
+// functions of the refresh)
+//
+// What bounds it: instruction issue. At the scale run's shape the function
+// is about 13k float32 and int32 operations a node (node_ops in
+// chip_smoke.py, one distinct device value a node) against 1.8 kB of tables
+// written, so on paper the bytes bound it; but each of those operations
+// takes the kernel several instructions (the fit tests, each type's CPU
+// test and select, the Filter's integer divisions), and FGD's sums over the
+// typical pods are most of them. So the design does each piece of work once
+// where it belongs. A block takes a tile of 32 nodes and, where the tiles
+// are too few to fill the card (openb's 1213 nodes are 38), a slice of the
+// type batches. It stages the type fields and the typical pods of nonzero
+// frequency in shared memory. Per tile, FGD's node-only half (per typical
+// pod the fit count and sum over the node's devices and whether the pod
+// can be Q3 there, the node's current frag summed in index order, its distinct device
+// values, Sub's device order) is computed once per node into [field][node]
+// arrays, not once per (type, node) pair. Then each warp takes the tile's
+// 32 nodes, one a lane, under one batch of types at a time: the types'
+// fields are uniform across the warp, the per-node terms are read without
+// bank conflicts, and each table row is written in 128-byte segments. FGD's
+// hypothetical frag depends on a type only through its share or whole
+// branch, its milli, its GPU count and, per typical pod, whether the pod's
+// CPU fits the node after the type's; so the types are batched by the
+// first three (up to kBatch of one key) and each pod's term is computed
+// once for the batch, each type then taking it or the term without Q3 by
+// its own CPU test, in its own sum in index order. A share batch sums one
+// hypothetical per distinct device value of the node (share_term's
+// algebra), a whole batch its Sub's pick, updating the node's fit counts
+// and sums where the taken devices had one value (whole_term_same's). PWR's
+// and DotProduct's node figures are computed once per node, and Sub's pick
+// comes from the staged order.
+// ---------------------------------------------------------------------------
+
+// a tile's node fields in shared memory, [field][node]
+enum NodeField {
+  kNfCpu, kNfMem, kNfCap, kNfGcnt, kNfGtyp, kNfCtyp, kNfG,
+  kNfAff = kNfG + kDevs, kNodeFields = kNfAff + kAffClasses,
+};
+
+// Added to a node's staged fit count where typical pod t can be Q3 on it
+// (a GPU request whose model mask the node passes), and to the staged t_num:
+// where it cannot, the count stays below every t_num.
+constexpr int kQa = 16;
+
+// The dynamic shared memory of init_tables (carve_init lays it out).
+// Staged once per block: the typical pods of nonzero frequency (tq: milli,
+// num + kQa, cpu, frequency bits; tmask) and the type fields t_*. Per tile,
+// each [.][kTile]: the node fields; per typical pod t the node's fit word
+// fit[t], fit sum << 8 | (kQa + fit count where t can be Q3 there, else 0);
+// the node's current frag, free GPU milli and number of distinct device
+// values that some share type fits (uval, the first device of each in
+// ufirst, in device order); and its devices in Sub's order, least free
+// first, ties by index, each as 8 x free milli + device. Per block: the
+// types in batches (torder from fused_engine.type_order, bstart); per
+// warp its batch's FGD scores and device picks, [type][node].
+struct InitSmem {
+  int4* tq;
+  int* tmask;
+  int* t_cpu;
+  int* t_mem;
+  int* t_milli;
+  int* t_num;
+  int* t_mask;
+  int* node;
+  int* fit;
+  float* cur;
+  int* gsum;
+  int* nv;
+  int* uval;
+  int* ufirst;
+  int* sorted;
+  int* torder;
+  int* bstart;
+  int* fscore;
+  int* fdev;
+};
+
+// Lays the arrays out from `base` (nullptr: sizes only); returns the bytes.
+__host__ __device__ inline size_t carve_init(unsigned char* base, int k, int t,
+                                             InitSmem* m) {
+  Carver c{base, 0};
+  InitSmem s;
+  s.tq = c.take<int4>(t);
+  s.tmask = c.take<int>(t);
+  s.t_cpu = c.take<int>(k);
+  s.t_mem = c.take<int>(k);
+  s.t_milli = c.take<int>(k);
+  s.t_num = c.take<int>(k);
+  s.t_mask = c.take<int>(k);
+  s.node = c.take<int>(kNodeFields * kTile);
+  s.fit = c.take<int>(static_cast<long long>(t) * kTile);
+  s.cur = c.take<float>(kTile);
+  s.gsum = c.take<int>(kTile);
+  s.nv = c.take<int>(kTile);
+  s.uval = c.take<int>(kDevs * kTile);
+  s.ufirst = c.take<int>(kDevs * kTile);
+  s.sorted = c.take<int>(kDevs * kTile);
+  s.torder = c.take<int>(k);
+  s.bstart = c.take<int>(k);
+  s.fscore = c.take<int>(kInitThreads / 32 * kBatch * kTile);
+  s.fdev = c.take<int>(kInitThreads / 32 * kBatch * kTile);
+  if (m != nullptr) *m = s;
+  return c.off;
+}
+
+// Stages the type fields and order, the typical pods whose frequency is
+// not 0 in order (their count to *t_count; stage() says why that is exact),
+// and the least milli a share type requests (*min_p).
+__device__ void stage_init(const ReplayArgs& a, const InitSmem& m,
+                           int* t_count, int* min_p) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (warp == 0) {
+    int kept = 0;
+    for (int base = 0; base < a.t; base += 32) {
+      const int t = base + lane;
+      const bool keep = t < a.t && a.tp_freq[t] != 0.0f;
+      const unsigned mask = __ballot_sync(0xffffffffu, keep);
+      if (keep) {
+        const int at = kept + __popc(mask & ((1u << lane) - 1));
+        m.tq[at] = make_int4(a.tp_milli[t], a.tp_num[t] + kQa, a.tp_cpu[t],
+                             __float_as_int(a.tp_freq[t]));
+        m.tmask[at] = a.tp_mask[t];
+      }
+      kept += __popc(mask);
+    }
+    if (lane == 0) *t_count = kept;
+  } else if (warp == 1) {
+    int mp = INT_MAX;
+    for (int k = lane; k < a.ks; k += 32) mp = min(mp, a.t_milli[k]);
+    mp = __reduce_min_sync(0xffffffffu, mp);
+    if (lane == 0) *min_p = mp;
+  }
+  for (int k = threadIdx.x; k < a.k; k += blockDim.x) {
+    m.t_cpu[k] = a.t_cpu[k];
+    m.t_mem[k] = a.t_mem[k];
+    m.t_milli[k] = a.t_milli[k];
+    m.t_num[k] = a.t_num[k];
+    m.t_mask[k] = a.t_mask[k];
+    m.torder[k] = a.t_order[k];
+  }
+}
+
+// The fields of nodes first .. first + count - 1 into m.node; the rest of
+// the tile holds nodes without resources or GPUs, which nothing writes out.
+__device__ void load_tile(const ReplayArgs& a, const InitSmem& m, int first,
+                          int count) {
+  for (int i = threadIdx.x; i < kNfG * kTile; i += blockDim.x) {
+    const int f = i / kTile;
+    const int j = i % kTile;
+    int x = f == kNfGtyp ? -1 : 0;
+    if (j < count) {
+      const int* src = f == kNfCpu    ? a.cpu_left
+                       : f == kNfMem  ? a.mem_left
+                       : f == kNfCap  ? a.cpu_cap
+                       : f == kNfGcnt ? a.gpu_cnt
+                       : f == kNfGtyp ? a.gpu_type
+                                      : a.cpu_type;
+      x = src[first + j];
+    }
+    m.node[i] = x;
+  }
+  // in gpu_left's and aff_cnt's own order, so that the loads coalesce
+  const size_t base = static_cast<size_t>(first);
+  for (int i = threadIdx.x; i < kDevs * kTile; i += blockDim.x) {
+    const int j = i / kDevs;
+    m.node[(kNfG + i % kDevs) * kTile + j] =
+        j < count ? a.gpu_left[base * kDevs + i] : 0;
+  }
+  for (int i = threadIdx.x; i < kAffClasses * kTile; i += blockDim.x) {
+    const int j = i / kAffClasses;
+    m.node[(kNfAff + i % kAffClasses) * kTile + j] =
+        j < count ? a.aff_cnt[base * kAffClasses + i] : 0;
+  }
+}
+
+__device__ __forceinline__ NodeView tile_node(const InitSmem& m, int j) {
+  NodeView v;
+  v.cpu = m.node[kNfCpu * kTile + j];
+  v.mem = m.node[kNfMem * kTile + j];
+  v.cap = m.node[kNfCap * kTile + j];
+  v.gcnt = m.node[kNfGcnt * kTile + j];
+  v.gtyp = m.node[kNfGtyp * kTile + j];
+  v.ctyp = m.node[kNfCtyp * kTile + j];
+  v.bit = v.gtyp >= 0 ? (1 << v.gtyp) : 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) v.g[d] = m.node[(kNfG + d) * kTile + j];
+#pragma unroll
+  for (int c = 0; c < kAffClasses; ++c)
+    v.aff[c] = m.node[(kNfAff + c) * kTile + j];
+  return v;
+}
+
+// The tile's node-only terms: with `fgd`, each node's fit word per typical
+// pod (a thread per (pod, node)); every node's free GPU milli, distinct
+// device values and Sub's order (a lane per (node, device), 4 nodes a warp).
+__device__ void tile_terms(const InitSmem& m, int t_count, int min_p,
+                           bool fgd) {
+  const unsigned lane = threadIdx.x & 31;
+  if (fgd) {
+    // blockDim is a multiple of kTile, so this thread's node is fixed
+    const int j = threadIdx.x % kTile;
+    int g[kDevs];
+#pragma unroll
+    for (int d = 0; d < kDevs; ++d) g[d] = m.node[(kNfG + d) * kTile + j];
+    const int gtyp = m.node[kNfGtyp * kTile + j];
+    const int bit = gtyp >= 0 ? (1 << gtyp) : 0;
+    for (int i = threadIdx.x; i < t_count * kTile; i += blockDim.x) {
+      const int t = i / kTile;
+      const int milli = m.tq[t].x;
+      const int mask = m.tmask[t];
+      int fitcnt = 0;
+      int fitsum = 0;
+#pragma unroll
+      for (int d = 0; d < kDevs; ++d) {
+        if (milli > 0 && g[d] >= milli) {
+          ++fitcnt;
+          fitsum += g[d];
+        }
+      }
+      const bool qa = milli > 0 && (mask == 0 || (mask & bit) != 0);
+      m.fit[i] = (fitsum << 8) | (qa ? fitcnt + kQa : 0);
+    }
+  }
+  static_assert(kTile * kDevs % kInitThreads == 0, "whole warps per round");
+  for (int i = threadIdx.x; i < kTile * kDevs; i += blockDim.x) {
+    const int j = i / kDevs;
+    const int d = i % kDevs;
+    const int gd = m.node[(kNfG + d) * kTile + j];
+    int rank = 0;
+    int gsum = 0;
+#pragma unroll
+    for (int e = 0; e < kDevs; ++e) {
+      const int ge = m.node[(kNfG + e) * kTile + j];
+      rank += (ge < gd || (ge == gd && e < d)) ? 1 : 0;
+      gsum += ge;
+    }
+    m.sorted[rank * kTile + j] = gd * kDevs + d;
+    // the first device of each value that some share type fits
+    const unsigned same = __match_any_sync(
+        0xffffffffu, (static_cast<unsigned long long>(j) << 32) |
+                         static_cast<unsigned>(gd));
+    const bool keep = __ffs(same) - 1 == static_cast<int>(lane) && gd >= min_p;
+    const unsigned kept =
+        __ballot_sync(0xffffffffu, keep) & (0xffu << (lane & ~7u));
+    if (keep) {
+      const int at = __popc(kept & ((1u << lane) - 1));
+      m.uval[at * kTile + j] = gd;
+      m.ufirst[at * kTile + j] = d;
+    }
+    if (d == 0) {
+      m.nv[j] = __popc(kept);
+      m.gsum[j] = gsum;
+    }
+  }
+}
+
+// node j's current frag from its fit words, summed in index order as
+// fgd_pair sums it
+__device__ float current_frag(const InitSmem& m, int t_count, int j) {
+  const int gsum = m.gsum[j];
+  const int cpu = m.node[kNfCpu * kTile + j];
+  const float total = static_cast<float>(gsum);
+  float c = 0.0f;
+  for (int t = 0; t < t_count; ++t) {
+    const int4 q = m.tq[t];
+    const int w = m.fit[t * kTile + j];
+    const bool q3 = (w & 0xff) >= q.y && cpu >= q.z;
+    c = __fadd_rn(c, __fmul_rn(__int_as_float(q.w),
+                               q3 ? static_cast<float>(gsum - (w >> 8))
+                                  : total));
+  }
+  return c;
+}
+
+// Typical pod t's term for a share type of p milli placed on a device with
+// gd free, on the tile's node of fit word w, where the pod's CPU fits the
+// node after the type's (share_term with its CPU test true); where it does
+// not, the term is freq x (gsum - p)
+__device__ __forceinline__ float share_fit_term(int4 q, int w, int gd, int p,
+                                                int gsum) {
+  const int gdp = gd - p;
+  const bool fit = gd >= q.x;
+  const bool fitp = gdp >= q.x;
+  const int cnt = (w & 0xff) - (fit ? 1 : 0) + (fitp ? 1 : 0);
+  const int sum = (w >> 8) - (fit ? gd : 0) + (fitp ? gdp : 0);
+  return __fmul_rn(__int_as_float(q.w),
+                   static_cast<float>(cnt >= q.y ? gsum - p - sum : gsum - p));
+}
+
+// whole_term_same's term where the pod's CPU fits; else freq x g2sum
+__device__ __forceinline__ float whole_fit_term_same(int4 q, int w, int ntk,
+                                                     int v, int v2,
+                                                     int g2sum) {
+  const int cnt = (w & 0xff) + ntk * ((v2 >= q.x ? 1 : 0) - (v >= q.x ? 1 : 0));
+  const int sum = (w >> 8) + ntk * ((v2 >= q.x ? v2 : 0) - (v >= q.x ? v : 0));
+  return __fmul_rn(__int_as_float(q.w),
+                   static_cast<float>(cnt >= q.y ? g2sum - sum : g2sum));
+}
+
+// whole_term's term where the pod's CPU fits (the fit word's kQa bit says
+// whether t can be Q3 on the node); else freq x g2sum
+__device__ __forceinline__ float whole_fit_term(int4 q, int w, Devs g2,
+                                                int g2sum) {
+  int cnt = w & kQa;
+  int sum = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) {
+    if (g2.g[d] >= q.x) {
+      ++cnt;
+      sum += g2.g[d];
+    }
+  }
+  return __fmul_rn(__int_as_float(q.w),
+                   static_cast<float>(cnt >= q.y ? g2sum - sum : g2sum));
+}
+
+// The hypothetical frags of a batch of types that differ only in their CPU
+// request, on the tile's node j: acc[i] = sum_t freq_t x term_t in index
+// order, fgd_pair's sum for type i. `fit_term(q, w)` is term_t where the
+// pod's CPU fits the node after the type's (cpu_x[i] >= the pod's cpu),
+// `rest` the frag left where it does not. Each pod's term is computed once
+// for the batch, kRound4 pods at a time before any is added.
+constexpr int kRound4 = 4;
+
+template <typename FitTerm>
+__device__ __forceinline__ void batch_sums(const InitSmem& m, int t_count,
+                                           int j, const int cpu_x[kBatch],
+                                           float rest, float acc[kBatch],
+                                           FitTerm fit_term) {
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i) acc[i] = 0.0f;
+  for (int base = 0; base < t_count; base += kRound4) {
+    float fits[kRound4];
+    float rests[kRound4];
+    int cpus[kRound4];
+#pragma unroll
+    for (int r = 0; r < kRound4; ++r) {
+      const int t = min(base + r, t_count - 1);
+      const int4 q = m.tq[t];
+      fits[r] = fit_term(q, m.fit[t * kTile + j]);
+      rests[r] = __fmul_rn(__int_as_float(q.w), rest);
+      cpus[r] = q.z;
+    }
+#pragma unroll
+    for (int r = 0; r < kRound4; ++r) {
+      if (base + r < t_count) {
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+          acc[i] = __fadd_rn(acc[i], cpu_x[i] >= cpus[r] ? fits[r] : rests[r]);
+      }
+    }
+  }
+}
+
+// Sub's pick (packed_take) on the tile's node j from its staged order: the
+// taken devices as bits, their count, and the least and most free milli
+// among them
+__device__ __forceinline__ unsigned sub_pick(const InitSmem& m, int j, int p,
+                                             int wn, int* ntk, int* lo,
+                                             int* hi) {
+  unsigned taken = 0;
+  int c = 0;
+  int l = INT_MAX;
+  int h = INT_MIN;
+#pragma unroll
+  for (int r = 0; r < kDevs; ++r) {
+    const int key = m.sorted[r * kTile + j];
+    const int gd = key >> 3;
+    const bool take = p > 0 && gd >= p && c < wn;
+    taken |= take ? 1u << (key & (kDevs - 1)) : 0u;
+    c += take ? 1 : 0;
+    l = take ? min(l, gd) : l;
+    h = take ? max(h, gd) : h;
+  }
+  *ntk = c;
+  *lo = l;
+  *hi = h;
+  return taken;
+}
+
+// The first positions of the batches of m.torder (the types by FGD's key,
+// share or whole, milli and GPU count) into m.bstart, their count to
+// *batches, by one warp: a batch starts where the key changes and every
+// kBatch types of one key after that.
+__device__ void list_batches(const ReplayArgs& a, const InitSmem& m,
+                             int* batches) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+  int key_at = 0;  // where the key of the position before this round began
+  for (int base = 0; base < a.k; base += 32) {
+    const int r = base + lane;
+    bool new_key = r == 0;
+    if (r > 0 && r < a.k) {
+      const int k = m.torder[r];
+      const int q = m.torder[r - 1];
+      new_key = (k < a.ks) != (q < a.ks) || m.t_milli[k] != m.t_milli[q] ||
+                m.t_num[k] != m.t_num[q];
+    }
+    const unsigned keys = __ballot_sync(0xffffffffu, new_key);
+    const unsigned upto = keys & (0xffffffffu >> (31 - lane));
+    const int at = upto != 0 ? base + 31 - __clz(upto) : key_at;
+    const bool start = r < a.k && (r - at) % kBatch == 0;
+    const unsigned mask = __ballot_sync(0xffffffffu, start);
+    if (start) m.bstart[n + __popc(mask & ((1u << lane) - 1))] = r;
+    n += __popc(mask);
+    key_at = keys != 0 ? base + 31 - __clz(keys) : key_at;
+  }
+  if (lane == 0) *batches = n;
+}
+
+// FGD's scores (and share-device picks) of the types of positions r0 ..
+// r0 + bn - 1 of m.torder, one key, on the tile's node of this lane, into
+// this warp's m.fscore / m.fdev rows: a share batch sums each distinct
+// device value of the node that holds p, keeping each type's best (the
+// first device on ties); a whole batch sums its Sub's pick, updating the
+// node's fit counts and sums where the taken devices had one value.
+__device__ void fgd_batch(const InitSmem& m, int t_count, int lane, int warp,
+                          const NodeView& v, int r0, int bn, bool share,
+                          int p, int wn, float cur, int gsum, int nv,
+                          int nvmax) {
+  int cpu_x[kBatch];
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i)
+    cpu_x[i] = i < bn ? v.cpu - m.t_cpu[m.torder[r0 + i]] : INT_MIN;
+  float acc[kBatch];
+  int* fscore = m.fscore + warp * kBatch * kTile + lane;
+  int* fdev = m.fdev + warp * kBatch * kTile + lane;
+  if (share) {  // each type's best so far in fscore / fdev
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      fscore[i * kTile] = -1;
+      fdev[i * kTile] = -1;
+    }
+    for (int u = 0; u < nvmax; ++u) {
+      const int gd = u < nv ? m.uval[u * kTile + lane] : -1;
+      if (u < nv && gd >= p) {
+        batch_sums(m, t_count, lane, cpu_x, static_cast<float>(gsum - p), acc,
+                   [=](int4 q, int w) {
+                     return share_fit_term(q, w, gd, p, gsum);
+                   });
+        const int first = m.ufirst[u * kTile + lane];
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int s = sigmoid_score(cur, acc[i]);
+          if (s > fscore[i * kTile]) {
+            fscore[i * kTile] = s;
+            fdev[i * kTile] = first;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+      fscore[i * kTile] = max(fscore[i * kTile], 0);
+    return;
+  }
+  int ntk;
+  int lo;
+  int hi;
+  const unsigned taken = sub_pick(m, lane, p, wn, &ntk, &lo, &hi);
+  Devs g2;
+  int g2sum = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) {
+    g2.g[d] = v.g[d] - ((taken >> d) & 1 ? p : 0);
+    g2sum += g2.g[d];
+  }
+  const int vt = ntk == 0 ? 0 : lo;
+  const float rest = static_cast<float>(g2sum);
+  if (__all_sync(0xffffffffu, ntk == 0 || lo == hi)) {  // the warp's branch
+    batch_sums(m, t_count, lane, cpu_x, rest, acc, [=](int4 q, int w) {
+      return whole_fit_term_same(q, w, ntk, vt, vt - p, g2sum);
+    });
+  } else {
+    batch_sums(m, t_count, lane, cpu_x, rest, acc, [=](int4 q, int w) {
+      return whole_fit_term(q, w, g2, g2sum);
+    });
+  }
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i) {
+    fscore[i * kTile] = sigmoid_score(cur, acc[i]);
+    fdev[i * kTile] = -1;
+  }
+}
+
+// The table entries of the tile's nodes first .. first + count - 1 for
+// slice `slice` of `slices` of the type batches: warp w takes batches
+// (slice x warps + w) + i x slices x warps, a lane per node, FGD's sums
+// for the whole batch at once, then every policy type by type. <false> is
+// the paper's FGD shape (fgd_only); <true> reads the policy descriptor.
+template <bool kGeneral>
+__device__ void tile_items(const ReplayArgs& a, const InitSmem& m,
+                           int t_count, int batches, int first, int count,
+                           int slice, int slices, bool fgd, bool pwr,
+                           bool pack, bool dot) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int n_pol = kGeneral ? a.n_pol : 1;
+  const NodeView v = tile_node(m, lane);
+  const bool valid = lane < count;
+  const size_t node = static_cast<size_t>(first) + lane;
+  const int gsum = m.gsum[lane];
+  const float cur = fgd ? m.cur[lane] : 0.0f;
+  const int nv = m.nv[lane];
+  const int nvmax = __reduce_max_sync(0xffffffffu, nv);
+  const int fully_free = idle_count(v);
+  PwrNode pw{};
+  if (kGeneral && pwr) pw = pwr_node(a, v);
+  DotNode dn{};
+  if (kGeneral && dot) dn = dot_node(a, v);
+  for (int b = slice * warps + warp; b < batches; b += slices * warps) {
+    const int r0 = m.bstart[b];
+    const int bn = (b + 1 < batches ? m.bstart[b + 1] : a.k) - r0;
+    const int k0 = m.torder[r0];
+    const int p = m.t_milli[k0];
+    const int wn = m.t_num[k0];
+    const bool share = k0 < a.ks;
+    if (fgd)
+      fgd_batch(m, t_count, lane, warp, v, r0, bn, share, p, wn, cur, gsum, nv,
+                nvmax);
+    const bool pwr_share_type = wn == 1 && p < kMilli;
+    int ntk = 0;
+    int lo = INT_MAX;
+    int hi = INT_MIN;
+    unsigned taken = 0;
+    if ((pwr && !pwr_share_type) || pack)  // warp-uniform
+      taken = sub_pick(m, lane, p, wn, &ntk, &lo, &hi);
+    bool take[kDevs];
+#pragma unroll
+    for (int d = 0; d < kDevs; ++d) take[d] = (taken >> d) & 1;
+    for (int i = 0; i < bn; ++i) {
+      const int k = m.torder[r0 + i];
+      const int tcpu = m.t_cpu[k];
+      int sel_dev = -1;
+      for (int pi = 0; pi < n_pol; ++pi) {
+        int score = 0;
+        int dev = -1;
+        switch (kGeneral ? a.pol_column[pi] : kFgd) {
+          case kFgd:
+            score = m.fscore[(warp * kBatch + i) * kTile + lane];
+            dev = m.fdev[(warp * kBatch + i) * kTile + lane];
+            break;
+          case kBestFit:
+            score = bestfit_pair(a, v, k);
+            break;
+          case kPacking:
+            if (p * wn > 0) {
+              score = fully_free == v.gcnt
+                          ? max(kMaxNodeScore / 3 - fully_free, fully_free)
+                          : (ntk >= wn ? packing_tiers(v, take) : 0);
+            }
+            break;
+          case kClustering:  // a copy it may index at run time: v stays
+            score = clustering_pair(a, tile_node(m, lane), k);  // in registers
+            break;
+          case kPwr: {
+            const float base =
+                __fadd_rn(cpu_watts(a, v, v.cpu - tcpu), pw.gpu_old);
+            if (pwr_share_type) {
+              pwr_share(v, pw, base, p, &score, &dev);
+            } else {
+              score = pwr_whole(v, pw, base, wn, take);
+            }
+            break;
+          }
+          case kDotProd:
+          default:
+            dotprod_score(a, tile_node(m, lane), dn, k, &score, &dev);
+            break;
+        }
+        if (valid)
+          a.score[(static_cast<size_t>(pi) * a.k + k) * a.n + node] = score;
+        if (pi == a.sel) sel_dev = dev;
+      }
+      if (valid) {
+        const size_t at = static_cast<size_t>(k) * a.n + node;
+        a.sdev[at] = sel_dev;
+        // whole GPUs divide by a constant (the same quotients, fewer steps)
+        a.feas[at] = p == kMilli
+                         ? feas_of(v, tcpu, m.t_mem[k], kMilli, wn, m.t_mask[k])
+                         : feas_of(v, tcpu, m.t_mem[k], p, wn, m.t_mask[k]);
+      }
+    }
+  }
+}
+
+// Block b builds slice b % slices of the type batches on tile b / slices.
+template <bool kGeneral>
+__global__ void __launch_bounds__(kInitThreads)
+    init_tables_kernel(ReplayArgs a, int slices) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_t_count;
+  __shared__ int s_min_p;
+  __shared__ int s_batches;
+  InitSmem m;
+  carve_init(smem, a.k, a.t, &m);
+  stage_init(a, m, &s_t_count, &s_min_p);
+  const int first = static_cast<int>(blockIdx.x / slices) * kTile;
+  const int count = min(kTile, a.n - first);
+  load_tile(a, m, first, count);
+  bool fgd = !kGeneral;
+  bool pwr = false;
+  bool pack = false;
+  bool dot = false;
+  if (kGeneral) {
+    for (int pi = 0; pi < a.n_pol; ++pi) {
+      fgd |= a.pol_column[pi] == kFgd;
+      pwr |= a.pol_column[pi] == kPwr;
+      pack |= a.pol_column[pi] == kPacking;
+      dot |= a.pol_column[pi] == kDotProd;
+    }
+  }
+  __syncthreads();
+  const int t_count = s_t_count;
+  tile_terms(m, t_count, s_min_p, fgd);
+  __syncthreads();
+  if (fgd && threadIdx.x < kTile)
+    m.cur[threadIdx.x] = current_frag(m, t_count, threadIdx.x);
+  if ((threadIdx.x >> 5) == 1) list_batches(a, m, &s_batches);
+  __syncthreads();
+  tile_items<kGeneral>(a, m, t_count, s_batches, first, count,
+                       blockIdx.x % slices, slices, fgd, pwr, pack, dot);
+}
+
+// an empty kernel: what a launch costs without work
+__global__ void empty_kernel() {}
+
 // the paper's shape: one FGDScore policy without normalisation, gpu_sel
 // FGDScore (sel 0) or best
 bool fgd_only(const ReplayArgs* a) {
@@ -2039,16 +2713,70 @@ int launch_replay(Kernel kernel, const ReplayArgs* a, bool general,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches init_tables with the dynamic shared memory its shape needs: a
+// block per (tile, slice of the type batches). One slice a tile where the
+// tiles fill the card; on fewer nodes the batches are sliced until the
+// blocks fill it (a slice for each 4 types a warp, about a batch each),
+// for the latency of one tile's work falls with its batches. Refuses a shape beyond what it stages. The card's
+// resident blocks are looked up once per device and shape.
+template <typename Kernel>
+int launch_init(Kernel kernel, const ReplayArgs* a, cudaStream_t s) {
+  if (a->k > kMaxTypes || a->t < 0 || a->t > kMaxTypical || a->ks < 0 ||
+      a->ks > a->k || a->t_order == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  struct Geometry {
+    Kernel kernel;
+    int device;
+    size_t bytes;
+    long long resident;
+  };
+  static thread_local Geometry last{nullptr, -1, 0, 0};
+  const size_t bytes = carve_init(nullptr, a->k, a->t, nullptr);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (last.kernel != kernel || last.device != device || last.bytes != bytes) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    int sms = 0;
+    int per_sm = 0;
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kInitThreads, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    last = {kernel, device, bytes,
+            static_cast<long long>(sms) * std::max(per_sm, 1)};
+  }
+  const long long tiles = (static_cast<long long>(a->n) + kTile - 1) / kTile;
+  constexpr int kTypesPerSlice = 4 * kInitThreads / 32;
+  const long long slices = std::max(
+      1LL, std::min((last.resident + tiles - 1) / tiles,
+                    static_cast<long long>((a->k + kTypesPerSlice - 1) /
+                                           kTypesPerSlice)));
+  kernel<<<static_cast<unsigned>(tiles * slices), kInitThreads, bytes, s>>>(
+      *a, static_cast<int>(slices));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 int init_tables(const ReplayArgs* a, void* stream) {
-  const long long pairs = static_cast<long long>(a->k) * a->n;
-  if (pairs == 0) return 0;
-  const int blocks = static_cast<int>((pairs + kInitThreads - 1) / kInitThreads);
-  init_tables_kernel<<<blocks, kInitThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(*a);
+  if (static_cast<long long>(a->k) * a->n == 0) return 0;
+  if (a->n_pol < 1 || a->n_pol > kMaxPolicies)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fgd_only(a)) return launch_init(init_tables_kernel<false>, a, s);
+  return launch_init(init_tables_kernel<true>, a, s);
+}
+
+int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

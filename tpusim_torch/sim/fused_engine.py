@@ -411,18 +411,33 @@ def _cuda_only(dev: torch.device, name: str) -> None:
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
 
 
+def type_order(types: PodTypes) -> torch.Tensor:
+    """The order in which the init_tables kernel batches FGD's
+    hypotheticals: the type indices by FGD's key (share types first, then
+    milli, then GPU count; FGD's sum depends on a type only through these
+    and, per typical pod, whether the pod's CPU fits after the type's), ties
+    by index. int32 [K], on the types' device."""
+    specs = types.stacked()
+    whole = (torch.arange(specs.cpu.shape[0], device=specs.cpu.device)
+             >= types.num_share).long()
+    key = (whole << 42) | (specs.gpu_milli.long() << 21) | specs.gpu_num.long()
+    return torch.argsort(key, stable=True).int()
+
+
 def prepare_init_tables(state: NodeState, types: PodTypes, tp: TypicalPods,
                         cfg: ReplayConfig) -> Launch:
     """The `init_tables` launch over CUDA tensors: its outputs are new
     (score [n_pol * K, N], sdev [K, N], feas [K, N]) tables."""
     dev = state.cpu_left.device
     _cuda_only(dev, "init_tables")
+    check_staged_sizes(types.num_types, tp.size)
     specs = types.stacked()
     k = specs.cpu.shape[0]
     tables = tuple(torch.empty((rows, state.num_nodes), dtype=torch.int32,
                                device=dev)
                    for rows in (len(cfg.policies) * k, k, k))
-    args, keep = _args(state, specs, types.num_share, tp, tables, cfg)
+    args, keep = _args(state, specs, types.num_share, tp, tables, cfg,
+                       t_order=type_order(types))
     return Launch("init_tables", args, keep, lambda: tables)
 
 
@@ -461,12 +476,12 @@ def validate_events(ev_kind, ev_pod, num_pods: int) -> None:
 
 
 def check_staged_sizes(num_types: int, num_typical: int) -> None:
-    """The replay kernels stage every pod type and typical pod in shared
-    memory: refuse more than they hold."""
+    """Every kernel stages the pod types and typical pods in shared memory:
+    refuse more than they hold."""
     if num_types > MAX_TYPES or num_typical > MAX_TYPICAL:
         raise ValueError(
             f"{num_types} pod types and {num_typical} typical pods: the "
-            f"replay kernels stage at most {MAX_TYPES} and {MAX_TYPICAL}")
+            f"kernels stage at most {MAX_TYPES} and {MAX_TYPICAL}")
 
 
 def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
