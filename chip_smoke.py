@@ -45,12 +45,19 @@ result line:
            chiprun_out/phase_clocks.json.
 5. main    Simulator.run() on the card for every row of the paper's method
            list but 01-Random (openb gpu_node list, default trace, tune 1.3,
-           tuning seed 42, seed 42), once with table_residency "auto" (the
-           flat replay at this size) and once with "hbm" (replay_blocked):
-           the launch counts are set to 0 before each run and read after
-           it, the kernels of that run's residency must have been launched
-           and the other replay kernel not, and the placements and device
-           masks must match the digests of the JAX package's run of the row.
+           tuning seed 42, seed 42), per-event reports on, once with
+           table_residency "auto" (the flat replay at this size) and once
+           with "hbm" (replay_blocked): the launch counts are set to 0
+           before each run and read after it, the kernels of that run's
+           residency must have been launched and the other replay kernel
+           not, the placements and device masks must match the digests of
+           the JAX package's run of the row, and so must simon.log (without
+           its [Engine] line) and the analysis CSVs (REPORT_SHA256). Under
+           "auto" the report half is timed beside the warm replay wall: the
+           metrics post-pass on the card (CUDA events, median of 5 for
+           06-FGD, of 3 for the other rows), the fetch, the Bellman series,
+           the formatting and the CSV write (host clock); for 06-FGD the
+           card's post-pass must equal the plain one on the CPU.
 6. scale   tpusim_torch.bench_scale's path: 100,000 synthetic nodes, the
            1M-pod stream in 200k-event chunks, residency "auto", with the
            launch counts set to 0 before and read after: auto must have
@@ -77,7 +84,9 @@ chiprun_ab/). Each turn runs in a process of its own that imports that
 checkout's tpusim_torch, builds its kernels and times each kernel launch
 alone with CUDA events: on the openb trace under every method row,
 `init_tables` (median of 20), `replay` and `replay_blocked` (median of 3,
-state restored before each); then, on the first chunk of the 100k-node
+state restored before each), and the main phase's replay wall (warm
+Simulator.run_events, residency "auto", min of 5, host clock around a
+synchronise); then, on the first chunk of the 100k-node
 scale stream, `init_tables` (median of 3) and `replay_blocked` (one
 launch). Every replay's placements, device masks and per-event nodes, and
 every init_tables launch's tables, are digested, and all turns must agree
@@ -149,6 +158,37 @@ METHODS = [
      "e77ee1c175eef12bcdfe2affac4075a653b06ac66e18476caa9fdec712100576"),
 ]
 
+# The files of one experiment that the report digests cover, in order:
+# simon.log without its [Engine] line (which names the engine that ran)
+# and the analysis CSVs.
+REPORT_FILES = ("simon.log", "analysis.csv", "analysis_allo.csv",
+                "analysis_cdol.csv", "analysis_fail.csv", "analysis_frag.csv",
+                "analysis_pwr.csv")
+# sha256 of each METHODS row's experiment files with per-event reports on
+# (report_digest of the JAX package's Simulator.run(), finish() and
+# experiments/analysis.py analyze_sim with row_meta, on the CPU).
+# tests/test_torch_report.py pins them against tpusim.
+REPORT_SHA256 = {
+    "02-DotProd":
+        "3381e20d47132ca2619b9457a06935a2c6d64a450f43400906a59555f2a1beb9",
+    "03-GpuClustering":
+        "119a1dd21fdbf9d6cef51097c39d0c74af7b6fcf35675e5346d65f33989b6861",
+    "04-GpuPacking":
+        "0a6eb5a458961eaab866ce16d0ca1c125c43a787955ad84bc674f450006a86c6",
+    "05-BestFit":
+        "327956c411a56f79a0f331a45d30e7fd7d45710ff7dd481aa60e0ccbaef7b4d9",
+    "06-FGD":
+        "572dff81f444275e1a8d87e0dcfdcd7ba886b931a90654bdc00d8f5bf828e968",
+    "07-PWR":
+        "a693391ed183f9d710d7b1b3d909914bf4c82d7d2763f32152ceee2022f5d489",
+    "08-PWR_500_FGD_500":
+        "c49a9bfde26af4c6eff9be9182e74e83e4880d1a6ac06ce3cb85a641592198c7",
+    "11-PWR_100_FGD_900":
+        "ec06c060ad4a647bda043a3f9f79c76f92093966e2465a03c6f503cd4eead20f",
+    "12-PWR_50_FGD_950":
+        "f0c2ad2b2b3e5ebe4147970f1161f310d3c13d34abe7f7e5cbba7df980e74bf5",
+}
+
 # The scale configuration of tpusim_torch/bench_scale.py (BASELINE.json
 # config 5): nodes, pods, events replayed, chunk and seed, and the digests
 # of the JAX package's replay of the first chunk (Simulator(engine="table")
@@ -215,6 +255,42 @@ def card_line() -> str:
 
 def digest(a: np.ndarray, dtype) -> str:
     return hashlib.sha256(np.ascontiguousarray(a, dtype).tobytes()).hexdigest()
+
+
+def report_digests(exp_dir: str) -> dict:
+    """{file: sha256} of an experiment directory's REPORT_FILES ("absent"
+    for a file that is not there), the log without its [Engine] lines."""
+    out = {}
+    for name in REPORT_FILES:
+        path = os.path.join(exp_dir, name)
+        if not os.path.exists(path):
+            out[name] = "absent"
+            continue
+        with open(path, "rb") as f:
+            data = f.read()
+        if name == "simon.log":
+            data = b"".join(line for line in data.splitlines(keepends=True)
+                            if b"[Engine]" not in line)
+        out[name] = hashlib.sha256(data).hexdigest()
+    return out
+
+
+def report_digest(exp_dir: str) -> str:
+    """One sha256 over report_digests' lines, in REPORT_FILES order."""
+    lines = "".join(f"{name} {sha}\n"
+                    for name, sha in report_digests(exp_dir).items())
+    return hashlib.sha256(lines.encode()).hexdigest()
+
+
+def row_meta(policies, gpu_sel: str, dim_ext: str) -> dict:
+    """The meta columns experiments/run.py writes into analysis.csv for a
+    METHODS row's experiment on openb (tune 1.3, tuning seed 42)."""
+    from tpusim_torch.__main__ import POLICY_FLAGS
+
+    return {"workload": "openb_pod_list_default",
+            "policy": "_".join(f"{POLICY_FLAGS[n]}{w}" for n, w in policies),
+            "tune": 1.3, "tune_seed": 42, "de": dim_ext, "gs": gpu_sel,
+            "dr": 0.0, "dp": ""}
 
 
 def kernel_ms(ready, repeats: int, reset=lambda: None,
@@ -1305,10 +1381,76 @@ def check_launches(label: str, counts: dict, tier: str, sim) -> None:
                            f"{missing}, launched {stray}")
 
 
+def check_report(label: str, sim, mid: str, meta: dict) -> float:
+    """Write the run's simon.log (after finish()) and analysis CSVs into a
+    temporary directory and hold their digest to REPORT_SHA256[mid].
+    Returns the CSV write's host milliseconds."""
+    import tempfile
+
+    from tpusim_torch.analysis import analyze_sim
+
+    sim.finish()
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "simon.log"), "w") as f:
+            f.write(sim.log.dump())
+        t0 = time.perf_counter()
+        analyze_sim(sim, d, meta)
+        csv_ms = (time.perf_counter() - t0) * 1e3
+        if report_digest(d) != REPORT_SHA256[mid]:
+            raise SmokeFailure(f"{label}: simon.log or an analysis CSV differs "
+                               f"from the JAX reference: {report_digests(d)}")
+    return csv_ms
+
+
+def report_times(sim, trace, specs, evk, evp, out, repeats: int,
+                 check_cpu: bool) -> dict:
+    """Milliseconds of the report half on a warm replay's output `out`:
+    the metrics post-pass on the card (CUDA events around each run, median
+    of `repeats`), the one fetch to the host, the Bellman series with a
+    fresh memo as in a run, and the formatting of the report block (host
+    clock each). With `check_cpu`, the card's post-pass must equal the
+    plain one on CPU copies of the inputs, field by field, bit for bit."""
+    import torch
+
+    from tpusim_torch.sim.fetch import device_fetch
+    from tpusim_torch.sim.metrics import compute_event_metrics
+
+    pairs, full = [], None
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        full = sim._attach_metrics(out, sim.init_state, specs, evk, evp)
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = dict(postpass=float(np.median(
+        [a.elapsed_time(b) for a, b in pairs])))
+    if check_cpu:
+        want = compute_event_metrics(
+            to_cpu(sim.init_state), to_cpu(specs), evk, evp,
+            out.event_node.cpu(), out.event_dev.cpu(), to_cpu(sim.typical))
+        for name, a, b in zip(want._fields, full.metrics, want):
+            if not torch.equal(a.cpu(), b):
+                raise SmokeFailure(f"the post-pass's {name} on the card "
+                                   f"differs from the plain one on the CPU")
+    times["fetch"], host = wall_ms(lambda: device_fetch(full))
+    sim._bellman_eval = None
+    t0 = time.perf_counter()
+    bellman = sim._bellman_series(sim.init_state, trace, evk, evp, host)
+    times["bellman"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    sim._format_event_reports(host, trace, evk, evp, bellman)
+    times["format"] = (time.perf_counter() - t0) * 1e3
+    return times
+
+
 def main_path(device, card: str):
     """Phase 4: every method row through Simulator.run() on the card, with
-    table_residency "auto" and then "hbm", the launch counts set to 0
-    before each run and read after it. Returns {run label: counts}."""
+    table_residency "auto" and then "hbm", per-event reports on, the launch
+    counts set to 0 before each run and read after it; the log and CSVs
+    held to the JAX digests; under "auto" the report half timed beside the
+    replay wall. Returns {run label: counts}."""
     import dataclasses
 
     import torch
@@ -1344,6 +1486,8 @@ def main_path(device, card: str):
             launches[label] = counts
             if label == "06-FGD":
                 print("\n".join(sim.log.lines[-19:]))
+            csv_ms = check_report(label, sim, mid,
+                                  row_meta(policies, gpu_sel, dim_ext))
 
             failed = len(res.unscheduled_pods)
             placements = len(res.pods) - failed
@@ -1365,7 +1509,7 @@ def main_path(device, card: str):
             evk, evp = build_events(trace)
             walls = []
             for _ in range(WARM_RUNS if label == "06-FGD" else 3):
-                ms, _ = wall_ms(lambda: sim.run_events(
+                ms, out = wall_ms(lambda: sim.run_events(
                     sim.init_state, specs, evk, evp))
                 walls.append(ms / 1e3)
             warm = min(walls)
@@ -1379,6 +1523,17 @@ def main_path(device, card: str):
                   f"{warm * 1e3:.2f} ms of {len(walls)} "
                   f"({', '.join(f'{w * 1e3:.2f}' for w in walls)} ms), "
                   f"{placements / warm:.1f} placements/s on {card}")
+            if setting == "auto":
+                t = report_times(sim, trace, specs, evk, evp, out,
+                                 WARM_RUNS if label == "06-FGD" else 3,
+                                 label == "06-FGD")
+                print(f"report {label}: log and CSV digests match the JAX "
+                      f"reference; replay wall {warm * 1e3:.2f} ms, post-pass "
+                      f"{t['postpass']:.3f} ms (card, median of "
+                      f"{WARM_RUNS if label == '06-FGD' else 3}), fetch "
+                      f"{t['fetch']:.3f} ms, Bellman {t['bellman']:.1f} ms, "
+                      f"formatting {t['format']:.1f} ms, CSV write "
+                      f"{csv_ms:.1f} ms (host clock) on {card}")
     return launches
 
 
@@ -1692,6 +1847,25 @@ def ab_timed(ready, state, tables, repeats, warmup=True):
     return ms, replay_digest(result)
 
 
+def replay_wall(row, nodes, pods, device) -> float:
+    """Host milliseconds of the warm Simulator.run_events of a METHODS row
+    over the prepared openb trace, residency "auto": the main phase's
+    replay wall, min of 5 after one untimed run."""
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.sim.driver import Simulator
+
+    sim = Simulator(nodes, method_config(*row[1:5]), device=device)
+    sim.set_workload_pods(pods)
+    sim.set_typical_pods()
+    trace = sim.prepare_pods()
+    specs = pods_to_specs(trace, sim.node_index, device)
+    evk, evp = build_events(trace)
+    sim.run_events(sim.init_state, specs, evk, evp)
+    return min(wall_ms(lambda: sim.run_events(sim.init_state, specs, evk,
+                                              evp))[0] for _ in range(5))
+
+
 def ab_turn(tree: str) -> dict:
     """One turn of --ab: every measurement of the checkout at `tree`, whose
     tpusim_torch this process imports (its sys.path leads with `tree`)."""
@@ -1699,6 +1873,7 @@ def ab_turn(tree: str) -> dict:
 
     from tpusim_torch import bench_scale as bs
     from tpusim_torch import kernels
+    from tpusim_torch.io.trace import load_node_csv, load_pod_csv
     from tpusim_torch.parallel.sharding import pad_nodes
     from tpusim_torch.sim import fused_engine as fe
     from tpusim_torch.sim import hbm_engine as he
@@ -1714,6 +1889,9 @@ def ab_turn(tree: str) -> dict:
     out = dict(tree=tree, card=card_line(), ptxas=ptxas, rows={}, scale={})
     state, specs, types, evk, evp, tp, rank = openb_inputs(device)
     padded, rank_p = pad_nodes(state, rank, 128)
+    data = os.path.join(tree, "data", "csv")
+    nodes = load_node_csv(os.path.join(data, "openb_node_list_gpu_node.csv"))
+    pods = load_pod_csv(os.path.join(data, "openb_pod_list_default.csv"))
     for row in METHODS:
         label, cfg = row[0], fe.make_config(*row[1:5])
         rec = {}
@@ -1732,10 +1910,12 @@ def ab_turn(tree: str) -> dict:
             rec[name], rec[f"{name}_digest"] = ab_timed(
                 prep(st, specs, types, evk, evp, tp, rk, tables, cfg), st,
                 tables, 3)
+        rec["wall"] = replay_wall(row, nodes, pods, device)
         out["rows"][label] = rec
         print(f"[{tree}] openb {label}: init_tables "
               f"{rec['init_tables']:.4f} ms, replay {rec['replay']:.3f} ms, "
-              f"replay_blocked {rec['replay_blocked']:.3f} ms", flush=True)
+              f"replay_blocked {rec['replay_blocked']:.3f} ms, replay wall "
+              f"{rec['wall']:.3f} ms", flush=True)
 
     auto = bs.ScaleRun(bs.synth_cluster(SCALE_NODES, SCALE_SEED),
                        bs.synth_pods(SCALE_PODS, SCALE_SEED + 1),
@@ -1790,7 +1970,7 @@ def ab_main(trees) -> int:
     names = [os.path.basename(os.path.normpath(t["tree"])) for t in turns]
     print(f"card: {turns[0]['card']}; turns: {', '.join(names)}")
     for label in rows:
-        for name in ("init_tables", "replay", "replay_blocked"):
+        for name in ("init_tables", "replay", "replay_blocked", "wall"):
             vals = " ".join(f"{t['rows'][label][name]:10.4f}" for t in turns)
             print(f"{label:20s} {name:15s} {vals} ms")
     for name in ("init_tables", "replay_blocked"):
@@ -1870,6 +2050,12 @@ def main(argv=None) -> int:
         print(f"kernels: {', '.join(kernels.KERNELS)} "
               f"(route cuda, {SOURCE})")
         kernels.library()
+        from tpusim_torch import native
+
+        t1 = time.perf_counter()
+        path = native.build()
+        print(f"build [bellman]: g++, {time.perf_counter() - t1:.1f} s -> "
+              f"{path}")
 
         launches, clocks = {}, []
         errors = dict.fromkeys(kernels.KERNELS, 0)

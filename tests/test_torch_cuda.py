@@ -17,11 +17,15 @@ from chip_smoke import (
     WIDE_BLOCKED, against_plain, init_case, init_config, over_staged_limit,
     random_case, shape_errors,
 )
-from tpusim_torch.io.trace import load_node_csv, load_pod_csv
+from tpusim_torch.io.trace import (
+    build_events, load_node_csv, load_pod_csv, pods_to_specs,
+)
 from tpusim_torch.parallel.sharding import pad_nodes
 from tpusim_torch.sim import fused_engine as fe
 from tpusim_torch.sim import hbm_engine as he
 from tpusim_torch.sim.driver import Simulator, SimulatorConfig
+from tpusim_torch.sim.fetch import device_fetch
+from tpusim_torch.sim.metrics import compute_event_metrics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -232,3 +236,54 @@ def test_wrappers_refuse_past_staged_limits(cuda_device, which):
                                 for t in tables), cfg)
     assert fe.init_tables.launches == 0 and fe.replay.launches == 0
     assert he.replay_blocked.launches == 0
+
+
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    return type(tree)(*(_cpu(x) for x in tree))
+
+
+def _postpass_both(state, specs, evk, evp, out, tp):
+    """The post-pass of a replay's telemetry on the card and on CPU copies
+    of the same inputs."""
+    card = compute_event_metrics(state, specs, evk, evp, out.event_node,
+                                 out.event_dev, tp)
+    cpu = compute_event_metrics(_cpu(state), _cpu(specs), evk.cpu(),
+                                evp.cpu(), out.event_node.cpu(),
+                                out.event_dev.cpu(), _cpu(tp))
+    return card, cpu
+
+
+@pytest.mark.cuda
+def test_postpass_on_card_matches_cpu(cuda_device):
+    """compute_event_metrics on the card against the CPU, bit for bit, on a
+    seeded random cluster's creates and deletes (T=24) and on a 256-pod
+    openb prefix under 06-FGD (T=32); the one fetch brings every field
+    back unchanged."""
+    state, pods, types, evk, evp, tp, rank = random_case(
+        41, 96, 300, cuda_device)
+    out = fe.make_fused_replay([("FGDScore", 1000)], "FGDScore",
+                               cuda_device)(state, pods, types, evk, evp, tp,
+                                            None, rank)
+    cases = [_postpass_both(state, pods, evk, evp, out, tp)]
+    nodes = load_node_csv(os.path.join(
+        REPO, "data/csv/openb_node_list_gpu_node.csv"))
+    sim = Simulator(nodes, device="cuda")
+    sim.set_workload_pods(load_pod_csv(os.path.join(
+        REPO, "data/csv/openb_pod_list_default.csv"))[:256])
+    sim.set_typical_pods()
+    trace = sim.prepare_pods()
+    specs = pods_to_specs(trace, sim.node_index, cuda_device)
+    kinds, idx = build_events(trace)
+    out = sim.run_events(sim.init_state, specs, kinds, idx)
+    evk, evp = (torch.as_tensor(a, device=cuda_device) for a in (kinds, idx))
+    cases.append(_postpass_both(sim.init_state, specs, evk, evp, out,
+                                sim.typical))
+    for card, cpu in cases:
+        assert card.frag_amounts.device.type == "cuda"
+        fetched = device_fetch(card)
+        for name, a, b, c in zip(cpu._fields, card, cpu, fetched):
+            assert torch.equal(a.cpu(), b), name
+            assert c.device.type == "cpu" and c.dtype == b.dtype, name
+            assert torch.equal(c, b), name

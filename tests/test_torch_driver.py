@@ -17,6 +17,7 @@ import torch
 import chip_smoke
 from tests.test_torch_types_trace import REPO, openb_rows, paper_configs
 from tpusim.sim.driver import Simulator as JSimulator
+from tpusim.sim.typical import TypicalPodsConfig as JTypicalCfg
 from tpusim_torch.__main__ import main as cli_main
 from tpusim_torch.sim.driver import Simulator as PSimulator
 
@@ -83,7 +84,8 @@ def test_method_row_matches_jax_on_openb_prefix(row):
 ])
 def test_cli_matches_jax(tmp_path, capsys, flags, row):
     """`python -m tpusim_torch --device cpu` on a 60-node, 200-pod cut,
-    with the method flags of experiments/run.py."""
+    with the method flags of experiments/run.py and its typical-pod
+    settings, per-event reports on."""
     for name, rows in (("nodes", 61), ("pods", 201)):
         src = os.path.join(REPO, "data/csv", {
             "nodes": "openb_node_list_gpu_node.csv",
@@ -97,6 +99,8 @@ def test_cli_matches_jax(tmp_path, capsys, flags, row):
     out = capsys.readouterr().out.splitlines()
     jn, jp, _, _ = openb_rows()
     jcfg, _ = method_configs(ROWS[row])
+    jcfg = dataclasses.replace(jcfg, report_per_event=True, typical_pods=(
+        JTypicalCfg(pod_popularity_threshold=95, pod_increase_step=1)))
     jsim = JSimulator(jn[:60], jcfg)
     jsim.set_workload_pods(jp[:200])
     jsim.run()

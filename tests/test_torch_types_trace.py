@@ -70,13 +70,14 @@ def assert_tree_equal(port_tree, jax_tree):
 
 
 def paper_configs(tune=1.3, shuffle=True):
-    """(JAX config, port config) of the openb FGD run bench.py measures."""
+    """(JAX config, port config) of the openb FGD run bench.py measures,
+    without the per-event report block (tests/test_torch_report*.py run
+    it)."""
     common = dict(policies=(("FGDScore", 1000),), gpu_sel_method="FGDScore",
                   shuffle_pod=shuffle, tuning_ratio=tune, tuning_seed=42,
-                  seed=42)
+                  seed=42, report_per_event=False)
     return (
-        JConfig(report_per_event=False,
-                typical_pods=JTypicalCfg(pod_popularity_threshold=95),
+        JConfig(typical_pods=JTypicalCfg(pod_popularity_threshold=95),
                 **common),
         PConfig(typical_pods=PTypicalCfg(pod_popularity_threshold=95),
                 **common),

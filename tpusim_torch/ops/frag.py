@@ -1,12 +1,14 @@
-"""Fragmentation amounts for the end-of-run Cluster Analysis block
-(counterpart of node_frag_amounts and cluster_frag_report in
-tpusim/ops/frag.py; ref: pkg/utils/frag.go:148-188, :460-493).
+"""Fragmentation math: the per-(node, typical pod) class, the per-node
+frag amounts, the cluster report and the Bellman value function
+(counterpart of tpusim/ops/frag.py; ref: pkg/utils/frag.go:148-283,
+:411-425, :460-493).
 
-The cluster amounts are float32 sums of N x T x 7 contributions, and the
-printed report shows enough digits for the order of that sum to matter.
-`cluster_frag_report` therefore adds the contributions in one fixed order,
-the one the reference's CPU build uses (see `_tree_sum`), on the host,
-whatever device the state lives on.
+The amounts are float32 sums over the typical pods (and, for the cluster,
+over the nodes), and the printed reports show enough digits for the order
+of those sums to matter. Every sum here names its order. The reference's
+CPU build sums in XLA's tree order (`tree_sum`): `node_frag_rows` and
+`tree_sum` follow it on any device, and `cluster_frag_report` follows it
+on the host, whatever device the state lives on.
 """
 
 from __future__ import annotations
@@ -24,28 +26,30 @@ from tpusim_torch.constants import (
     XL_SATISFIED,
     XR_LACK_CPU,
 )
-from tpusim_torch.ops.resource import is_accessible
+from tpusim_torch.ops.resource import (
+    can_host_on_gpu,
+    gpu_frag_milli,
+    is_accessible,
+)
 from tpusim_torch.types import NodeState, TypicalPods
 
 # window of the tree sum along each reduced axis
 _TREE_WINDOW = 32
+# float32 lanes of the vectorised reductions of the reference's CPU build
+_LANES = 16
 
 
-def node_frag_contrib(cpu_left, gpu_left, gpu_type,
-                      tp: TypicalPods) -> torch.Tensor:
-    """Per-(node, typical pod, class) frag contributions f32[N, T, 7]
-    (GetNodePodFrag + NodeGpuShareFragAmount). A typical pod the node
-    satisfies (Q3) splits the node's idle milli: devices individually too
-    small for it count as Q2, the rest stays Q3; every other class takes
-    freq x idle milli."""
-    m, num, freq = tp.gpu_milli, tp.gpu_num, tp.freq[:, None]  # [T]
-    total = gpu_left.sum(-1).to(torch.float32)[:, None, None]  # [N, 1, 1]
-    g = gpu_left[:, None, :]  # [N, 1, 8]
+def frag_class(cpu_left, gpu_left, gpu_type, tp: TypicalPods):
+    """How each typical pod sees each node: i32[N, T] class ids
+    (GetNodePodFrag). The decision order is the reference's: a pod without
+    GPUs is XL/XR, a node of a model the pod cannot use is NA, a node that
+    can host the pod's GPUs is Q3/Q4 by CPU, else Q2/Q1 by CPU."""
     cpu_ok = cpu_left[:, None] >= tp.cpu  # [N, T]
     acc = is_accessible(gpu_type[:, None], tp.gpu_mask)
-    can_host = ((g >= m[:, None]) & (m[:, None] > 0)).sum(-1) >= num
-    cls = torch.where(
-        m == 0,
+    can_host = can_host_on_gpu(gpu_left[:, None, :], tp.gpu_milli,
+                               tp.gpu_num)
+    return torch.where(
+        tp.gpu_milli == 0,
         torch.where(cpu_ok, XL_SATISFIED, XR_LACK_CPU),
         torch.where(
             ~acc, NO_ACCESS,
@@ -55,8 +59,20 @@ def node_frag_contrib(cpu_left, gpu_left, gpu_type,
                 torch.where(cpu_ok, Q2_LACK_GPU, Q1_LACK_BOTH),
             ),
         ),
-    )
-    small = torch.where(g < m[:, None], g, 0).sum(-1)
+    ).to(torch.int32)
+
+
+def node_frag_contrib(cpu_left, gpu_left, gpu_type,
+                      tp: TypicalPods) -> torch.Tensor:
+    """Per-(node, typical pod, class) frag contributions f32[N, T, 7]
+    (GetNodePodFrag + NodeGpuShareFragAmount). A typical pod the node
+    satisfies (Q3) splits the node's idle milli: devices individually too
+    small for it count as Q2, the rest stays Q3; every other class takes
+    freq x idle milli."""
+    freq = tp.freq[:, None]  # [T, 1]
+    total = gpu_left.sum(-1).to(torch.float32)[:, None, None]  # [N, 1, 1]
+    cls = frag_class(cpu_left, gpu_left, gpu_type, tp)
+    small = gpu_frag_milli(gpu_left[:, None, :], tp.gpu_milli)
     small = small.to(torch.float32)[..., None]  # [N, T, 1]
     classes = torch.arange(NUM_FRAG_CLASSES, device=cpu_left.device)
     base = torch.where(cls[..., None] == classes, freq * total, 0.0)
@@ -69,12 +85,96 @@ def node_frag_contrib(cpu_left, gpu_left, gpu_type,
 def node_frag_amounts(cpu_left, gpu_left, gpu_type,
                       tp: TypicalPods) -> torch.Tensor:
     """Per-class frag amounts f32[N, 7] of a batch of nodes, summed over the
-    typical pods in index order."""
+    typical pods in index order: the order of the CUDA kernels' FGD sums,
+    not the reference's report order (`node_frag_rows` is that)."""
     contrib = node_frag_contrib(cpu_left, gpu_left, gpu_type, tp)
     out = torch.zeros_like(contrib[:, 0])
     for t in range(tp.size):
         out = out + contrib[:, t]
     return out
+
+
+def tree_sum(x: torch.Tensor, axes: int, lanes: bool = False) -> torch.Tensor:
+    """float32 sum over the leading `axes` axes of `x`, in the order of
+    the reference's CPU build (XLA's tree reduction), on x's device: the
+    order of `_tree_sum` below, with the same padding, windows of 32 and
+    row-major order, each step an explicit elementwise add (a torch
+    reduction picks its own order on each device). With `lanes`, an `x`
+    that needs no window (every reduced axis at most 32 long) is summed in
+    `lane_sum`'s order instead: XLA then keeps the reduction whole and, where
+    it is fused into the loop that computes `x`, vectorises it."""
+    x = x.to(torch.float32)
+    rest = list(x.shape[axes:])
+    if lanes and all(x.shape[a] <= _TREE_WINDOW for a in range(axes)):
+        return lane_sum(x.reshape([-1] + rest))
+    while any(x.shape[a] > _TREE_WINDOW for a in range(axes)):
+        win = [min(x.shape[a], _TREE_WINDOW) for a in range(axes)]
+        for a, w in enumerate(win):
+            pad = -x.shape[a] % w
+            if pad:
+                shape = list(x.shape)
+                lo, hi = list(shape), list(shape)
+                lo[a], hi[a] = pad // 2, pad - pad // 2
+                x = torch.cat([x.new_zeros(lo), x, x.new_zeros(hi)], a)
+        outs = [x.shape[a] // w for a, w in enumerate(win)]
+        split = [d for o, w in zip(outs, win) for d in (o, w)]
+        order = ([2 * a for a in range(axes)] + [2 * a + 1 for a in range(axes)]
+                 + list(range(2 * axes, 2 * axes + len(rest))))
+        y = x.reshape(split + rest).permute(order)
+        y = y.reshape(outs + [int(np.prod(win))] + rest)
+        acc = x.new_zeros(outs + rest)
+        for i in range(y.shape[axes]):
+            acc = acc + y[(slice(None),) * axes + (i,)]
+        x = acc
+    acc = x.new_zeros(rest)
+    for row in x.reshape([-1] + rest):
+        acc = acc + row
+    return acc
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over dim 0 in the order of a reduction that XLA's CPU
+    compiler vectorises inside a fused loop: 16 lanes, lane k adding the
+    elements k, k + 16, k + 32, ... in turn, then the lanes folded in
+    halves (lanes k and k + 8, then k and k + 4, k and k + 2, k and
+    k + 1)."""
+    x = x.to(torch.float32)
+    lanes = [x.new_zeros(x.shape[1:]) for _ in range(_LANES)]
+    for i in range(x.shape[0]):
+        lanes[i % _LANES] = lanes[i % _LANES] + x[i]
+    while len(lanes) > 1:
+        h = len(lanes) // 2
+        lanes = [lanes[k] + lanes[k + h] for k in range(h)]
+    return lanes[0]
+
+
+def node_frag_rows(cpu_left, gpu_left, gpu_type,
+                   tp: TypicalPods) -> torch.Tensor:
+    """Per-class frag amounts f32[N, 7] of a batch of nodes, summed over the
+    typical pods in the reference's order (`tree_sum`): the rows of its
+    per-event report (node_frag_amounts under jax.vmap)."""
+    contrib = node_frag_contrib(cpu_left, gpu_left, gpu_type, tp)
+    return tree_sum(contrib.movedim(1, 0), 1)
+
+
+def frag_sum_except_q3(amounts: torch.Tensor) -> torch.Tensor:
+    """Sum of every class but Q3 over the last axis (FragAmountSumExceptQ3,
+    frag.go:411-418): the seven in class order, then minus Q3."""
+    return tree_sum(amounts.movedim(-1, 0), 1) - amounts[..., Q3_SATISFIED]
+
+
+def frag_sum_q1q2q4(amounts: torch.Tensor) -> torch.Tensor:
+    """FragAmountSumQ1Q2Q4 (frag.go:420-425)."""
+    return (amounts[..., Q1_LACK_BOTH] + amounts[..., Q2_LACK_GPU]
+            + amounts[..., Q4_LACK_CPU])
+
+
+def node_frag_score(cpu_left, gpu_left, gpu_type,
+                    tp: TypicalPods) -> torch.Tensor:
+    """Scalar frag score per node, every class but Q3
+    (NodeGpuShareFragAmountScore, frag.go:200-203)."""
+    return frag_sum_except_q3(node_frag_rows(cpu_left, gpu_left, gpu_type,
+                                             tp))
 
 
 def _tree_sum(x: np.ndarray, axes: int) -> np.ndarray:
@@ -124,3 +224,86 @@ def cluster_frag_report(state: NodeState, tp: TypicalPods):
     frag = idle - amounts[Q3_SATISFIED]
     q124 = amounts[Q1_LACK_BOTH] + amounts[Q2_LACK_GPU] + amounts[Q4_LACK_CPU]
     return amounts, frag, 100.0 * frag / idle, 100.0 * q124 / idle
+
+
+def node_frag_bellman(node, typical, max_depth: int = 64, memo=None,
+                      stats=None) -> float:
+    """Bellman expected-frag value of one node, on the host
+    (NodeGpuFragBellman, frag.go:231-283). The port's C++ evaluator
+    (tpusim_torch/native) computes the same recursion; this is its oracle.
+
+    `node` is (cpu_left, gpu_left sequence, gpu_type); `typical` a list of
+    (cpu, gpu_milli, gpu_num, gpu_mask, freq) tuples. Pass a dict as `memo`
+    to share the cache of flattened states across calls (the reference's
+    per-run fragMemo), and one as `stats` to collect {"truncations",
+    "max_depth_seen"}: the reference has no depth limit, so `max_depth` is
+    a guard that real traces must never reach. The device vector is kept
+    sorted descending (the value does not depend on device order, as the
+    reference's Flatten key says), fit counts per distinct milli are taken
+    once a state, and Sub takes the least free fitting devices.
+    """
+    memo = {} if memo is None else memo
+    t_arr = list(typical)
+    millis = sorted({t[1] for t in t_arr if t[1] > 0})
+
+    def rec(cpu_left, g, gpu_type, cum_prob, depth):
+        # a memo hit comes before the cum_prob cutoff (frag.go:233-239)
+        key = (cpu_left, g, gpu_type)
+        v = memo.get(key)
+        if v is not None:
+            return v
+        total = sum(g)
+        if total == 0 or total * cum_prob < 1:
+            return 0.0
+        # g is sorted descending: the devices >= m are a prefix
+        nfit = {}
+        i = len(g)
+        for m in millis:
+            while i > 0 and g[i - 1] < m:
+                i -= 1
+            nfit[m] = i
+        node_bit = (1 << gpu_type) if gpu_type >= 0 else 0
+
+        ratio_except_q3 = 0.0
+        for cpu, milli, num, mask, p in t_arr:
+            if (milli == 0 or (mask != 0 and not (mask & node_bit))
+                    or nfit[milli] < num or cpu_left < cpu):
+                ratio_except_q3 += p
+        if stats is not None and depth > stats.get("max_depth_seen", 0):
+            stats["max_depth_seen"] = depth
+        if depth >= max_depth:
+            # not memoised: the cut value would stand for shallower visits
+            if stats is not None:
+                stats["truncations"] = stats.get("truncations", 0) + 1
+            return float(total)
+        if ratio_except_q3 < 0.999:
+            pv = 0.0
+            for cpu, milli, num, mask, p in t_arr:
+                if p == 0.0:  # padding rows of frequency 0 add nothing
+                    continue
+                if cpu_left < cpu or len(g) < num:
+                    pv += total * p
+                    continue
+                if num == 0 or milli == 0:
+                    pv += p * rec(cpu_left - cpu, g, gpu_type, cum_prob * p,
+                                  depth + 1)
+                    continue
+                j = nfit[milli]  # the fitting devices are g[0..j)
+                if j < num:
+                    pv += total * p
+                    continue
+                taken = [x - milli for x in g[j - num:j]]
+                rest = list(g[:j - num]) + list(g[j:])
+                g2 = tuple(sorted(rest + taken, reverse=True))
+                pv += p * rec(cpu_left - cpu, g2, gpu_type, cum_prob * p,
+                              depth + 1)
+            frag = pv
+        else:
+            frag = float(total)
+        memo[key] = frag
+        return frag
+
+    cpu_left, gpu_left, gpu_type = node
+    return rec(int(cpu_left),
+               tuple(sorted((int(x) for x in gpu_left), reverse=True)),
+               int(gpu_type), 1.0, 0)

@@ -112,3 +112,19 @@ def allocate_share_worst(gpu_left, pod_gpu_milli):
     first = torch.where(key == key.max(-1, keepdim=True).values, lane,
                         MAX_GPUS_PER_NODE).min(-1).values
     return torch.where(fits.any(-1), first, -1)
+
+
+def can_host_on_gpu(gpu_left, pod_gpu_milli, pod_gpu_num):
+    """True where at least gpu_num devices each have gpu_milli free
+    (ref: frag.go:447-458 CanNodeHostPodOnGpuMemory). Only meaningful for
+    gpu_milli > 0."""
+    milli = torch.as_tensor(pod_gpu_milli, device=gpu_left.device)[..., None]
+    fit = (gpu_left >= milli) & (milli > 0)
+    return fit.sum(-1) >= torch.as_tensor(pod_gpu_num, device=gpu_left.device)
+
+
+def gpu_frag_milli(gpu_left, pod_gpu_milli):
+    """Free milli on the devices individually too small for the pod
+    (ref: frag.go:205-213 GetGpuFragMilliByNodeResAndPodRes)."""
+    milli = torch.as_tensor(pod_gpu_milli, device=gpu_left.device)[..., None]
+    return torch.where(gpu_left < milli, gpu_left, 0).sum(-1)

@@ -3,7 +3,7 @@ tpusim/sim/driver.py that the trace replay reaches; ref:
 pkg/simulator/core.go:86-268).
 
 The driver owns what happens once per experiment: trace preparation,
-typical pods, tuning, the Cluster Analysis report. The event loop runs in
+typical pods, tuning, the reports. The event loop runs in
 the flat fused replay (tpusim_torch.sim.fused_engine) or, for clusters
 whose tables outgrow the card's L2 cache, the blocked one
 (tpusim_torch.sim.hbm_engine), as `table_residency` and
@@ -12,6 +12,13 @@ device, the plain PyTorch versions when the caller asks for device="cpu".
 There is no fallback from one to the other, and none to the other kernel:
 a shape the card cannot hold fails its allocation (torch's
 OutOfMemoryError) before launch, a failed launch raises.
+
+With `report_per_event` on (the default, as in the reference), the replay
+is followed by the metrics post-pass (tpusim_torch.sim.metrics) on the
+replay's device, one transfer of the result to the host
+(tpusim_torch.sim.fetch), the Bellman series of the host's C++ evaluator
+(tpusim_torch.native) and the per-event log block; the analysis CSVs are
+written from what that block stashes (tpusim_torch.analysis).
 """
 
 from __future__ import annotations
@@ -34,12 +41,16 @@ from tpusim_torch.io.trace import (
 )
 from tpusim_torch.ops.frag import cluster_frag_report
 from tpusim_torch.sim import residency
-from tpusim_torch.sim.engine import ReplayResult
+from tpusim_torch.sim.engine import EV_CREATE, EV_DELETE, ReplayResult
+from tpusim_torch.sim.fetch import device_fetch
 from tpusim_torch.sim.fused_engine import make_fused_replay
 from tpusim_torch.sim.hbm_engine import make_blocked_replay
+from tpusim_torch.sim.metrics import compute_event_metrics
 from tpusim_torch.sim.reports import (
     LogSink,
+    batch_event_report_msgs,
     cluster_analysis_block,
+    event_report_series,
     report_failed_pods,
 )
 from tpusim_torch.sim.table_engine import build_pod_types
@@ -67,6 +78,11 @@ class SimulatorConfig:
     tuning_seed: int = 233
     typical_pods: TypicalPodsConfig = field(default_factory=TypicalPodsConfig)
     seed: int = 42  # node tie-break permutation
+    # the per-event report block (attempt, [Report], [Alloc], [AllocCPU],
+    # [Power] lines) and the per-event analysis CSVs
+    report_per_event: bool = True
+    # replay creations and deletions in timestamp order (build_events)
+    use_timestamps: bool = False
     # where the replay's tables live: "vmem" = the flat `replay` kernel,
     # "hbm" = `replay_blocked`, "auto" = "vmem" while the tables fit the
     # card's L2 cache (always on the CPU); tpusim_torch.sim.residency
@@ -139,7 +155,20 @@ class Simulator:
         self.workload_pods: List[PodRow] = []
         self.typical = None
         self.node_total_milli_gpu = int(sum(n.gpu * MILLI for n in self.nodes))
+        self.total_gpus = int(sum(n.gpu for n in self.nodes))
         self.last_result = None
+        self._bellman_eval = None
+        self._reset_run_state()
+
+    def _reset_run_state(self):
+        """Start a run's log and the stashes the analysis CSVs read
+        (`event_reports`, `analysis_summary`, `failed_pod_lists`), so a
+        reused Simulator does not count a previous run twice. An attached
+        log stream is not rewound."""
+        self.event_reports = []
+        self.analysis_summary = {}
+        self.failed_pod_lists = []
+        self.log.lines = []
 
     # ---- workload prep (core.go:103-142) ----
 
@@ -152,6 +181,9 @@ class Simulator:
         )
         # zero-frequency padding rows add nothing to any frag sum
         self.typical = pad_typical_pods(typical)
+        # the Bellman memo lives for one experiment, as the reference's
+        # fragMemo does (simulator.go:58)
+        self._bellman_eval = None
         self.log.info(f"Num of Total Pods: {len(self.workload_pods)}")
         self.log.info(f"Num of Total Pod Sepc: {len(info)}")
 
@@ -215,16 +247,32 @@ class Simulator:
         )
         return out
 
+    def _attach_metrics(self, out: ReplayResult, state: NodeState, specs,
+                        ev_kind, ev_pod) -> ReplayResult:
+        """The metrics post-pass on the replay's device when per-event
+        reporting is on (compute_event_metrics, from the telemetry)."""
+        if not self.cfg.report_per_event:
+            return out
+        dev = out.event_node.device
+        return out._replace(metrics=compute_event_metrics(
+            state, specs, torch.as_tensor(ev_kind, device=dev),
+            torch.as_tensor(ev_pod, device=dev), out.event_node,
+            out.event_dev, self.typical))
+
     def schedule_pods(self, pods: Sequence[PodRow]) -> SimulateResult:
         if self.typical is None:
             self.set_typical_pods()
         t0 = time.perf_counter()
         specs = pods_to_specs(pods, self.node_index, self.device)
-        ev_kind, ev_pod = build_events(pods)
+        ev_kind, ev_pod = build_events(pods, self.cfg.use_timestamps)
         out = self.run_events(self.init_state, specs, ev_kind, ev_pod)
-        placed = out.placed_node.cpu().numpy()
+        out = self._attach_metrics(out, self.init_state, specs, ev_kind,
+                                   ev_pod)
+        out = device_fetch(out)
+        self._emit_event_reports(out, pods, ev_kind, ev_pod, self.init_state)
+        placed = out.placed_node.numpy()
         skipped = np.array([p.unscheduled for p in pods], bool)
-        failed = out.ever_failed.cpu().numpy() | skipped
+        failed = out.ever_failed.numpy() | skipped
         unscheduled = [
             UnscheduledPod(
                 pods[i],
@@ -235,8 +283,8 @@ class Simulator:
         self.last_result = SimulateResult(
             unscheduled_pods=unscheduled,
             placed_node=placed,
-            dev_mask=out.dev_mask.cpu().numpy(),
-            state=NodeState(*(a.cpu() for a in out.state)),
+            dev_mask=out.dev_mask.numpy(),
+            state=out.state,
             pods=list(pods),
             node_names=self.node_names,
             wall_seconds=time.perf_counter() - t0,
@@ -246,18 +294,106 @@ class Simulator:
 
     def run(self) -> SimulateResult:
         """Full experiment (core.go:86-268 minus deschedule and inflation):
-        typical pods, prepare, schedule, the failed-pods block and the
-        Cluster Analysis block."""
-        self.log.lines = []
+        typical pods, prepare, schedule with the per-event reports, the
+        failed-pods block and the Cluster Analysis block."""
+        self._reset_run_state()
         self.set_typical_pods()
         pods = self.prepare_pods()
         self.log.info(
             f"Number of original workload pods: {len(self.workload_pods)}"
         )
         res = self.schedule_pods(pods)
-        report_failed_pods(self.log, [u.pod for u in res.unscheduled_pods])
+        self.report_failed([u.pod for u in res.unscheduled_pods])
         self.cluster_analysis("InitSchedule")
         return res
+
+    def report_failed(self, pods) -> None:
+        """The failed-pods block, and the stash the fail CSV groups."""
+        report_failed_pods(self.log, pods)
+        self.failed_pod_lists.append(list(pods))
+
+    def finish(self):
+        """The unscheduled-count line (apply.go:228). The analysis parser
+        stops at it, so it comes after the experiment's last Cluster
+        Analysis block: call it once, at the end."""
+        self.log.info(f"there are {len(self.last_result.unscheduled_pods)}"
+                      " unscheduled pods")
+
+    # ---- the per-event report (simulator.go:410-427) ----
+
+    def _typical_host_rows(self):
+        """The typical pods as (cpu, gpu_milli, gpu_num, gpu_mask, freq)
+        rows on the host, for the Bellman evaluator."""
+        t = device_fetch(self.typical)
+        return list(zip(*(a.tolist() for a in t)))
+
+    def _bellman_series(self, start_state: NodeState, pods, ev_kind, ev_pod,
+                        out: ReplayResult) -> np.ndarray:
+        """The cluster's Bellman frag after each event (the `(bellman)`
+        [Report] line, analysis.go:110), f64[E]: each event's touched node
+        is rebuilt from the telemetry and only its memoised value is
+        updated, in one call of the C++ evaluator. The value depends on the
+        node's state alone, so this equals the reference's sweep over every
+        node after every event."""
+        from tpusim_torch.native import BellmanEvaluator
+
+        kinds = np.asarray(ev_kind)
+        ev_pods = np.asarray(ev_pod)
+        pod_cpu = np.fromiter((p.cpu_milli for p in pods), np.int32,
+                              count=len(pods))
+        pod_gpu = np.fromiter((p.gpu_milli for p in pods), np.int32,
+                              count=len(pods))
+        s = device_fetch(start_state)
+        if self._bellman_eval is None:
+            self._bellman_eval = BellmanEvaluator(self._typical_host_rows())
+        return self._bellman_eval.eval_series(
+            s.cpu_left.numpy(), s.gpu_left.numpy(), s.gpu_type.numpy(),
+            out.event_node.numpy(), out.event_dev.numpy(),
+            np.where(kinds == EV_CREATE, 1, -1).astype(np.int8),
+            pod_cpu[ev_pods], pod_gpu[ev_pods])
+
+    def _emit_event_reports(self, out: ReplayResult, pods, ev_kind, ev_pod,
+                            start_state: NodeState):
+        """The per-event log block: each event's `[i] attempt to ...` line
+        (simulator.go:410, 420; a failed create adds the deletePod rollback
+        line, :354), then its [Report] origin and bellman, [Alloc],
+        [AllocCPU] and [Power] lines (simulator.go:426-427,
+        analysis.go:109-118). Skip events emit nothing
+        (simulator.go:391-399). Nothing without per-event reporting. `out`
+        is on the host."""
+        if not self.cfg.report_per_event or out.metrics is None:
+            return
+        bellman = self._bellman_series(start_state, pods, ev_kind, ev_pod,
+                                       out)
+        self._format_event_reports(out, pods, ev_kind, ev_pod, bellman)
+
+    def _format_event_reports(self, out: ReplayResult, pods, ev_kind, ev_pod,
+                              bellman: np.ndarray):
+        """Format the block from the host metrics and the Bellman series,
+        every line family over all events at once, append it to the log in
+        one call, and stash the structured series for the analysis CSVs."""
+        m = out.metrics
+        amounts = m.frag_amounts.numpy()
+        kinds = np.asarray(ev_kind)
+        ev_pods = np.asarray(ev_pod)
+        pod_names = np.array([p.name for p in pods])[ev_pods]
+        ev_failed = out.ever_failed.numpy()[ev_pods]
+        cols = {k: getattr(m, k).numpy() for k in (
+            "used_nodes", "used_gpus", "used_gpu_milli", "arrived_gpu_milli",
+            "used_cpu_milli", "arrived_cpu_milli")}
+        series = event_report_series(amounts, m.power_cpu.numpy(),
+                                     m.power_gpu.numpy(), bellman)
+        self.event_reports.append(dict(
+            series=series, frag_amounts=amounts, kinds=kinds,
+            pod_names=pod_names, failed=ev_failed, total_gpus=self.total_gpus,
+            **cols))
+        self.log.info_many(batch_event_report_msgs(
+            amounts, self.total_gpus, cols["used_nodes"], cols["used_gpus"],
+            cols["used_gpu_milli"], cols["arrived_gpu_milli"],
+            cols["used_cpu_milli"], cols["arrived_cpu_milli"],
+            m.power_cpu.numpy(), m.power_gpu.numpy(), bellman=bellman,
+            kinds=kinds, ev_create=EV_CREATE, ev_delete=EV_DELETE,
+            pod_names=pod_names, failed=ev_failed, series=series))
 
     # ---- reporting (analysis.go:145-199, alloc.go:90-127) ----
 
@@ -290,5 +426,8 @@ class Simulator:
         typical = type(self.typical)(*(a.cpu() for a in self.typical))
         amounts = cluster_frag_report(state, typical)[0]
         requested, allocatable = self.alloc_maps(state)
-        cluster_analysis_block(self.log, tag, amounts, requested, allocatable)
+        kv = cluster_analysis_block(self.log, tag, amounts, requested,
+                                    allocatable)
+        # the summary across stages, in emission order, for analysis.csv
+        self.analysis_summary.update(kv)
         return amounts, requested, allocatable

@@ -1,5 +1,6 @@
-"""analysis.py-compatible log emission (counterpart of LogSink,
-report_failed_pods and cluster_analysis_block in tpusim/sim/reports.py).
+"""analysis.py-compatible log emission (counterpart of
+tpusim/sim/reports.py): the per-event report block, the failed pods and
+the Cluster Analysis block.
 
 Formats reproduce pkg/simulator/analysis.go and pkg/utils/alloc.go: each
 line is a logrus text-format info line with a literal ``\\n`` before the
@@ -9,7 +10,7 @@ closing quote, as logrus renders embedded newlines.
 from __future__ import annotations
 
 import re
-from typing import IO, Dict, List, Optional
+from typing import IO, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -33,6 +34,16 @@ class LogSink:
     def info(self, msg: str):
         self._emit(f'time="2000-01-01T00:00:00Z" level=info msg="{msg}\\n"')
 
+    def info_many(self, msgs: Sequence[str]):
+        """Info lines for many preformatted messages, written at once."""
+        if not len(msgs):
+            return
+        prefix = 'time="2000-01-01T00:00:00Z" level=info msg="'
+        lines = [f'{prefix}{m}\\n"' for m in msgs]
+        self.lines.extend(lines)
+        if self.stream is not None:
+            self.stream.write("\n".join(lines) + "\n")
+
     def infoln(self):
         self._emit('time="2000-01-01T00:00:00Z" level=info')
 
@@ -40,13 +51,59 @@ class LogSink:
         return "\n".join(self.lines) + "\n"
 
 
+def report_frag_line(log: LogSink, amounts: np.ndarray):
+    """Per-event `[Report] ... (origin)` line (analysis.go:109)."""
+    idle = float(amounts.sum())
+    frag = idle - float(amounts[Q3_SATISFIED])
+    q124 = float(amounts[0] + amounts[1] + amounts[3])
+    fr = 100.0 * frag / idle if idle else 0.0
+    qr = 100.0 * q124 / idle if idle else 0.0
+    log.info(
+        f"[Report]; Frag amount: {frag:.2f}; Frag ratio: {fr:.2f}%; "
+        f"Q124 ratio: {qr:.2f}%; (origin)"
+    )
+
+
+def report_bellman_line(log: LogSink, bellman: float, idle: float):
+    """`[Report] ... (bellman)` variant (analysis.go:110)."""
+    r = 100.0 * bellman / idle if idle else 0.0
+    log.info(f"[Report]; Frag amount: {bellman:.2f}; Frag ratio: {r:.2f}%; "
+             "(bellman)")
+
+
+def report_alloc_lines(log: LogSink, used_nodes: int, used_gpus: int,
+                       used_gpu_milli: int, total_gpus: int,
+                       arrived_gpu_milli: int, used_cpu_milli: int,
+                       arrived_cpu_milli: int):
+    """Per-event `[Alloc]`/`[AllocCPU]` lines (analysis.go:115-118)."""
+    log.info(
+        f"[Alloc]; Used nodes: {used_nodes}; Used GPUs: {used_gpus}; "
+        f"Used GPU Milli: {used_gpu_milli}; Total GPUs: {total_gpus}; "
+        f"Arrived GPU Milli: {arrived_gpu_milli}"
+    )
+    log.info(
+        f"[AllocCPU]; Used CPU Milli: {used_cpu_milli}; "
+        f"Arrived CPU Milli: {arrived_cpu_milli}"
+    )
+
+
+def report_power_line(log: LogSink, power_cpu: float, power_gpu: float):
+    """`[Power]` line (analysis.go:54-55)."""
+    log.info(
+        f"[Power]; cluster: {power_cpu + power_gpu:.1f}; "
+        f"ClusterCPU: {power_cpu:.1f}; ClusterGPU: {power_gpu:.1f}"
+    )
+
+
 def pod_resource_repr(cpu_milli: int, gpu_num: int, gpu_milli: int,
-                      gpu_spec: str = "") -> str:
-    """PodResource.Repr (pkg/type/resource.go:104-127)."""
+                      gpu_spec: str = "", cpu_spec: str = "") -> str:
+    """PodResource.Repr (pkg/type/resource.go:104-127): an empty CPU type
+    renders ANY; an empty GPU type ANY for GPU pods, NONE otherwise."""
+    cputype = cpu_spec or "ANY"
     gputype = gpu_spec or ("ANY" if gpu_milli > 0 else "NONE")
     return (
         f"<CPU: {cpu_milli / 1000:6.2f}, GPU: {gpu_num}"
-        f" x {{{gpu_milli:<4d}}}m (CPUREQ: ANY) (GPUREQ: {gputype})>"
+        f" x {{{gpu_milli:<4d}}}m (CPUREQ: {cputype}) (GPUREQ: {gputype})>"
     )
 
 
@@ -60,6 +117,127 @@ def report_failed_pods(log: LogSink, pods) -> None:
                  + pod_resource_repr(p.cpu_milli, p.num_gpu, p.gpu_milli,
                                      p.gpu_spec))
     log.infoln()
+
+
+def event_report_series(
+    amounts: np.ndarray,  # f32[E, 7]
+    power_cpu: np.ndarray,
+    power_gpu: np.ndarray,
+    bellman: Optional[np.ndarray] = None,  # f64[E]
+) -> Dict[str, np.ndarray]:
+    """The per-event float series of the report block as formatted string
+    arrays. The log lines (batch_event_report_msgs) and the analysis CSVs
+    (tpusim_torch.analysis) both read these strings, so the two agree by
+    construction. The sums and ratios round as the one-line emitters above
+    do: the seven amounts summed in float32, the rest in float64."""
+
+    def f2(a):
+        return np.char.mod("%.2f", a)
+
+    idle = amounts.sum(axis=1, dtype=np.float32).astype(np.float64)
+    frag = idle - amounts[:, Q3_SATISFIED].astype(np.float64)
+    q124 = (amounts[:, 0] + amounts[:, 1] + amounts[:, 3]).astype(np.float64)
+    safe = np.where(idle != 0, idle, 1.0)
+    fr = np.where(idle != 0, 100.0 * frag / safe, 0.0)
+    qr = np.where(idle != 0, 100.0 * q124 / safe, 0.0)
+    pc = power_cpu.astype(np.float64)
+    pg = power_gpu.astype(np.float64)
+    series = {
+        "origin_milli": f2(frag),
+        "origin_ratio": f2(fr),
+        "origin_q124": f2(qr),
+        "power_cluster": np.char.mod("%.1f", pc + pg),
+        "power_cluster_CPU": np.char.mod("%.1f", pc),
+        "power_cluster_GPU": np.char.mod("%.1f", pg),
+    }
+    if bellman is not None:
+        br = np.where(idle != 0, 100.0 * bellman / safe, 0.0)
+        series["bellman_milli"] = f2(bellman)
+        series["bellman_ratio"] = f2(br)
+    return series
+
+
+def _cat(*parts):
+    out = parts[0]
+    for p in parts[1:]:
+        out = np.char.add(out, p)
+    return out
+
+
+def batch_event_report_msgs(
+    amounts: np.ndarray,  # f32[E, 7]
+    total_gpus: int,
+    used_nodes: np.ndarray,
+    used_gpus: np.ndarray,
+    used_gpu_milli: np.ndarray,
+    arrived_gpu_milli: np.ndarray,
+    used_cpu_milli: np.ndarray,
+    arrived_cpu_milli: np.ndarray,
+    power_cpu: np.ndarray,
+    power_gpu: np.ndarray,
+    bellman: Optional[np.ndarray] = None,  # f64[E]
+    kinds: Optional[np.ndarray] = None,  # event kind per event
+    ev_create: int = 0,
+    ev_delete: int = 1,
+    pod_names: Optional[np.ndarray] = None,  # str[E] the event's pod
+    failed: Optional[np.ndarray] = None,  # bool[E] the create was rejected
+    series: Optional[Dict[str, np.ndarray]] = None,  # event_report_series
+) -> List[str]:
+    """The whole per-event report block: each line family formatted as one
+    numpy string operation over the events, then interleaved into event
+    order (attempt, rollback, frag, bellman, alloc, alloccpu, power;
+    simulator.go:410-427, analysis.go:109-118). Skip events (the
+    pod-unscheduled annotation) emit nothing (simulator.go:391-399)."""
+    e_count = amounts.shape[0]
+    if e_count == 0:
+        return []
+    active = (np.ones(e_count, bool) if kinds is None
+              else (kinds == ev_create) | (kinds == ev_delete))
+    if series is None:
+        series = event_report_series(amounts, power_cpu, power_gpu, bellman)
+
+    rows = []  # (mask, msgs) in the order an event emits them
+    if kinds is not None and pod_names is not None:
+        verb = np.where(kinds == ev_create, "create", "delete")
+        rows.append((active, _cat(
+            "[", np.char.mod("%d", np.arange(e_count)), "] attempt to ",
+            verb, " pod(", pod_names, ")")))
+        if failed is not None:
+            rows.append(((kinds == ev_create) & failed, _cat(
+                "[deletePod] attempt to delete a non-scheduled pod(",
+                pod_names, ")")))
+    rows.append((active, _cat(
+        "[Report]; Frag amount: ", series["origin_milli"],
+        "; Frag ratio: ", series["origin_ratio"],
+        "%; Q124 ratio: ", series["origin_q124"], "%; (origin)")))
+    if "bellman_milli" in series:
+        rows.append((active, _cat(
+            "[Report]; Frag amount: ", series["bellman_milli"],
+            "; Frag ratio: ", series["bellman_ratio"], "%; (bellman)")))
+
+    def d(a):
+        return np.char.mod("%d", a)
+
+    rows.append((active, _cat(
+        "[Alloc]; Used nodes: ", d(used_nodes),
+        "; Used GPUs: ", d(used_gpus),
+        "; Used GPU Milli: ", d(used_gpu_milli),
+        "; Total GPUs: ", str(int(total_gpus)),
+        "; Arrived GPU Milli: ", d(arrived_gpu_milli))))
+    rows.append((active, _cat(
+        "[AllocCPU]; Used CPU Milli: ", d(used_cpu_milli),
+        "; Arrived CPU Milli: ", d(arrived_cpu_milli))))
+    rows.append((active, _cat(
+        "[Power]; cluster: ", series["power_cluster"],
+        "; ClusterCPU: ", series["power_cluster_CPU"],
+        "; ClusterGPU: ", series["power_cluster_GPU"])))
+
+    # [families, E] -> event-major order
+    mask = np.stack([m for m, _ in rows])
+    grid = np.empty(mask.shape, dtype=object)
+    for i, (_, msgs) in enumerate(rows):
+        grid[i] = msgs
+    return grid.T.ravel()[mask.T.ravel()].tolist()
 
 
 def camel_to_snake(name: str) -> str:

@@ -16,9 +16,13 @@ row scan goes to device memory. The tier names are the JAX package's, so a
     "vmem"  the tables fit the card's L2 cache: the flat `replay`
     "hbm"   they do not: `replay_blocked`
 
-On an H100 (50 MiB L2, chip_smoke.py's scale phase) this rule picked the
-faster kernel, or one within 0.3%, for FGD, BestFit and PWR+FGD at 10k,
-30k and 100k nodes, though BestFit rebuilds a summary row on most events.
+The rule is a capacity rule, not a measured crossover. On an H100 (50 MiB
+L2; chip_smoke.py's scale phase times both kernels, PERF.md §5) the
+blocked kernel it picks at 30k and 100k nodes is the faster for FGD,
+BestFit and PWR+FGD. At 10k nodes it picks the flat replay, which is not
+the faster for every configuration there: under PWR+FGD the flat kernel
+took 1.34 times the blocked one's time. The rule does not look at the
+configuration's normalisation, which sets the flat kernel's select cost.
 
 There is no third tier: a shape the card's memory cannot hold fails its
 allocation before anything is launched.
