@@ -58,7 +58,24 @@ result line:
            06-FGD, of 3 for the other rows), the fetch, the Bellman series,
            the formatting and the CSV write (host clock); for 06-FGD the
            card's post-pass must equal the plain one on the CPU.
-6. scale   tpusim_torch.bench_scale's path: 100,000 synthetic nodes, the
+6. apply   `python -m tpusim_torch.cli apply`'s path (Applier.run): the
+           openb gpu_node list and default trace written as YAML by the
+           port's prepare_input, the paper's FGD scheduler config, tune
+           1.3 with seed 42, shuffled, inflation 1.1, the snapshot
+           exports, a YAML app (a Deployment, a DaemonSet, a pod pinned by
+           nodeSelector, one with tolerations) and a Helm chart scheduled
+           on the placed cluster, -e gpu --report (write_apply_bundle),
+           once with table_residency "auto" and once with "hbm": the
+           launch counts set to 0 before each run and read after it (each
+           of the residency's kernels launched once a replay stage: the
+           main replay, the inflation, each app), the standard output
+           without its [Engine] lines and the three exported files held
+           to the JAX package's digests (APPLY_SHA256), each stage timed
+           (YAML ingestion, each replay and its report tail, the report
+           tables, the whole run). Then the first app's replay, from the
+           placed state, through replay and replay_blocked against their
+           plain versions on CPU copies, tolerance 0.
+7. scale   tpusim_torch.bench_scale's path: 100,000 synthetic nodes, the
            1M-pod stream in 200k-event chunks, residency "auto", with the
            launch counts set to 0 before and read after: auto must have
            chosen replay_blocked, the first chunk's placements and masks
@@ -1446,7 +1463,7 @@ def report_times(sim, trace, specs, evk, evp, out, repeats: int,
 
 
 def main_path(device, card: str):
-    """Phase 4: every method row through Simulator.run() on the card, with
+    """Phase 5: every method row through Simulator.run() on the card, with
     table_residency "auto" and then "hbm", per-event reports on, the launch
     counts set to 0 before each run and read after it; the log and CSVs
     held to the JAX digests; under "auto" the report half timed beside the
@@ -1538,7 +1555,7 @@ def main_path(device, card: str):
 
 
 def scale_path(device, card: str, nodes, pods, auto):
-    """Phase 5: tpusim_torch.bench_scale's path at 100k nodes, residency
+    """Phase 7: tpusim_torch.bench_scale's path at 100k nodes, residency
     "auto", the launch counts set to 0 before it and read after it; then
     the flat replay over the same chunks, each kernel alone on the first
     chunk, the plain checks at this width and the crossover timings.
@@ -1785,7 +1802,335 @@ def crossover(auto, after, device, card) -> None:
                   f"{tier}; kernel launches alone, on {card}")
 
 
-PHASES = ("check", "clocks", "main", "scale")
+
+# The apply phase's bundle: the openb gpu_node list and default trace as
+# YAML (tpusim_torch.io.data_prep.prepare_input), under the paper's FGD
+# scheduler config, tuned to 1.3 with seed 42, shuffled, workload
+# inflation 1.1, the snapshot exports, and two apps scheduled on the placed
+# cluster: APPLY_APP_YAML (a Deployment, a DaemonSet over every node, a pod
+# pinned by nodeSelector to the first node, a pod with tolerations) and the
+# Helm chart APPLY_CHART.
+APPLY_APP_YAML = """\
+apiVersion: apps/v1
+kind: Deployment
+metadata:
+  name: web
+  namespace: apps
+spec:
+  replicas: 6
+  template:
+    metadata:
+      annotations:
+        alibabacloud.com/gpu-milli: "250"
+        alibabacloud.com/gpu-count: "1"
+    spec:
+      containers:
+      - name: main
+        resources:
+          requests:
+            cpu: "2"
+            memory: 4Gi
+---
+apiVersion: apps/v1
+kind: DaemonSet
+metadata:
+  name: node-agent
+  namespace: kube-system
+spec:
+  template:
+    spec:
+      containers:
+      - name: agent
+        resources:
+          requests:
+            cpu: 100m
+            memory: 128Mi
+---
+apiVersion: v1
+kind: Pod
+metadata:
+  name: pinned-trainer
+  namespace: apps
+  annotations:
+    alibabacloud.com/gpu-milli: "1000"
+    alibabacloud.com/gpu-count: "2"
+spec:
+  nodeSelector:
+    kubernetes.io/hostname: PINNED_NODE
+  containers:
+  - name: main
+    resources:
+      requests:
+        cpu: "8"
+        memory: 32Gi
+---
+apiVersion: v1
+kind: Pod
+metadata:
+  name: tolerant-batch
+  namespace: apps
+spec:
+  tolerations:
+  - key: dedicated
+    operator: Exists
+  containers:
+  - name: main
+    resources:
+      requests:
+        cpu: "4"
+        memory: 8Gi
+"""
+APPLY_CHART = {
+    "Chart.yaml": "apiVersion: v2\nname: infer\nversion: 0.1.0\n"
+                  "appVersion: '1.0'\n",
+    "values.yaml": "replicaCount: 3\ngpu:\n  milli: 500\n  count: 1\n"
+                   "resources:\n  requests:\n    cpu: 4\n    memory: 16Gi\n",
+    "templates/_helpers.tpl":
+        '{{- define "infer.fullname" -}}\n'
+        '{{- printf "%s-%s" .Release.Name .Chart.Name | trunc 63 '
+        '| trimSuffix "-" -}}\n{{- end -}}\n',
+    "templates/deployment.yaml": """\
+apiVersion: apps/v1
+kind: Deployment
+metadata:
+  name: {{ include "infer.fullname" . }}
+spec:
+  replicas: {{ .Values.replicaCount }}
+  template:
+    metadata:
+      annotations:
+        alibabacloud.com/gpu-milli: {{ .Values.gpu.milli | quote }}
+        alibabacloud.com/gpu-count: {{ .Values.gpu.count | quote }}
+    spec:
+      containers:
+        - name: {{ .Chart.Name }}
+          resources:
+            {{- toYaml .Values.resources | nindent 12 }}
+""",
+    "templates/NOTES.txt": 'Deployed {{ include "infer.fullname" . }}\n',
+}
+# The apply phase's outputs from the JAX package (`python -m tpusim apply -f
+# <CR> -s example/test-scheduler-config.yaml -e gpu --report` on the CPU,
+# the CR of write_apply_bundle(..., apps=True, inflation=1.1)): sha256 of
+# the standard output without its [Engine] lines and of each exported
+# file. tests/test_torch_apply.py pins them against tpusim (slow-marked).
+APPLY_SHA256 = {
+    "stdout":
+        "c6a3dcc35183b66b938ace28eee4a1081119f90e1534faf70b8e97a28547761a",
+    "pod_init_schedule.yaml":
+        "6810e19aa47827cac6f622bedc04b49a5c72e7ec089d0f35e03f91b3a8f53088",
+    "node_init_schedule.csv":
+        "86cd8a9712920d95092aacf701017a641e853e104eebf20b0f8e1386129f060b",
+    "node_init_schedule_pod.csv":
+        "54725fb7b52c1dc589c9456efc722ba67d57406d345e975cde07dbd61e615a73",
+}
+APPLY_SCHEDULER = os.path.join("example", "test-scheduler-config.yaml")
+
+
+def write_apply_bundle(root: str, cluster: str, pinned: str,
+                       tune: float = 1.3, inflation: float = 1.1,
+                       apps: bool = True, extra=None) -> str:
+    """Write the apply phase's apps and Simon CR under `root` for the
+    cluster-config directory `cluster` (the YAML app's pod pinned to node
+    `pinned`), with the snapshot exports under root/out. `extra` updates
+    the CR's customConfig. Returns the CR's path."""
+    import yaml
+
+    app_dir = os.path.join(root, "apps", "yaml-app")
+    chart_dir = os.path.join(root, "apps", "infer")
+    os.makedirs(app_dir, exist_ok=True)
+    with open(os.path.join(app_dir, "app.yaml"), "w") as f:
+        f.write(APPLY_APP_YAML.replace("PINNED_NODE", pinned))
+    for name, text in APPLY_CHART.items():
+        path = os.path.join(chart_dir, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(text)
+    out = os.path.join(root, "out")
+    custom = {
+        "shufflePod": True,
+        "workloadTuningConfig": {"ratio": tune, "seed": 42},
+        "typicalPodsConfig": {"isInvolvedCpuPods": True,
+                              "podPopularityThreshold": 95,
+                              "podIncreaseStep": 1, "gpuResWeight": 0},
+        "exportConfig": {
+            "podSnapshotYamlFilePrefix": os.path.join(out, "pod"),
+            "nodeSnapshotCSVFilePrefix": os.path.join(out, "node")},
+    }
+    if inflation > 1:
+        custom["workloadInflationConfig"] = {"ratio": inflation, "seed": 233}
+    custom.update(extra or {})
+    spec = {"cluster": {"customConfig": cluster}, "customConfig": custom}
+    if apps:
+        spec["appList"] = [{"name": "yaml-app", "path": app_dir},
+                           {"name": "infer", "path": chart_dir,
+                            "chart": True}]
+    cr = {"apiVersion": "simon/v1alpha1", "kind": "Config",
+          "metadata": {"name": "openb-fgd"}, "spec": spec}
+    path = os.path.join(root, "cluster-config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cr, f, sort_keys=False)
+    return path
+
+
+def apply_digests(stdout: str, out_dir: str) -> dict:
+    """APPLY_SHA256's digests of one apply run: its standard output without
+    the [Engine] lines, and each exported file ("absent" if missing)."""
+    kept = "".join(line for line in stdout.splitlines(keepends=True)
+                   if "[Engine]" not in line)
+    out = {"stdout": hashlib.sha256(kept.encode()).hexdigest()}
+    for name in list(APPLY_SHA256)[1:]:
+        path = os.path.join(out_dir, name)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                out[name] = hashlib.sha256(f.read()).hexdigest()
+        else:
+            out[name] = "absent"
+    return out
+
+
+def openb_yaml(root: str) -> str:
+    """The openb gpu_node list and default trace as a cluster-config
+    directory, written by the port's prepare_input. Returns its path."""
+    import contextlib
+    import io
+
+    from tpusim_torch.io.data_prep import prepare_input
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "data", "csv")
+    csv_dir = os.path.join(root, "csv")
+    os.makedirs(csv_dir, exist_ok=True)
+    for name in ("openb_node_list_gpu_node.csv", "openb_pod_list_default.csv"):
+        os.symlink(os.path.join(data, name), os.path.join(csv_dir, name))
+    with contextlib.redirect_stdout(io.StringIO()):
+        (made,) = prepare_input(csv_dir, os.path.join(root, "input"))
+    return str(made)
+
+
+def check_app_replay(applier, device, card: str) -> dict:
+    """The first app's replay, from the placed cluster's state after the
+    main replay: `replay` and `replay_blocked` each against its plain
+    version on CPU copies of the inputs, tolerance 0 (outputs, stats, the
+    final tables and block summaries). The launches are comparisons, past
+    the wrappers: not counted. Returns each kernel's largest error."""
+    import torch
+
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.queues import app_queue
+    from tpusim_torch.sim.table_engine import build_pod_types
+
+    sim = applier.sim
+    name, pods = applier._load_apps(sim.node_names)[0]
+    pods = app_queue(pods, sim.nodes, applier.options.use_greed)
+    trace = sim.prepare_pods()  # the main replay again: its final state
+    state = sim.run_events(sim.init_state,
+                           pods_to_specs(trace, sim.node_index, device),
+                           *build_events(trace)).state
+    specs = pods_to_specs(pods, sim.node_index, device)
+    types = build_pod_types(specs)
+    evk, evp = (torch.as_tensor(a, device=device)
+                for a in build_events(pods))
+    cfg = fe.make_config(sim.cfg.policies, sim.cfg.gpu_sel_method,
+                         sim.cfg.dim_ext_method, sim.cfg.norm_method)
+    errors = {}
+    for kernel in ("replay", "replay_blocked"):
+        st, rank = state, sim.rank
+        if kernel == "replay_blocked":
+            st, rank = pad_nodes(state, rank, 128)
+        ready = fe.prepare_init_tables(st, types, sim.typical, cfg)
+        fe.launch(ready)
+        tables = ready.finish()
+        errors[kernel] = against_plain(
+            kernel, (st, specs, types, evk, evp, sim.typical, rank, tables),
+            cfg, plain_on_cpu=True)
+        print(f"check apply {name} {kernel}: E={len(pods)} from the placed "
+              f"state of {st.num_nodes} nodes, max_abs_err="
+              f"{errors[kernel]} against the plain version on CPU copies "
+              f"(tolerance 0)")
+    if any(errors.values()):
+        raise SmokeFailure(f"the first app's replay disagrees with its plain "
+                           f"version: {errors}")
+    return errors
+
+
+def apply_path(device, card: str):
+    """Phase 6: `python -m tpusim_torch.cli apply`'s path (Applier.run) on
+    the openb bundle of write_apply_bundle, per-event reports and the
+    report tables on, once with table_residency "auto" and once with "hbm":
+    the launch counts set to 0 before each run and read after it (each of
+    the residency's kernels launched once a replay stage: the main replay,
+    the inflation, each app; the other replay kernel never), the standard
+    output and the exported files held to APPLY_SHA256, the stages timed.
+    Then the first app's replay against the plain versions. Returns
+    ({run label: counts}, the errors)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from tpusim_torch.apply import Applier, ApplyOptions
+    from tpusim_torch.sim import fused_engine as fe
+
+    launches, errors = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        cluster = openb_yaml(root)
+        prep_s = time.perf_counter() - t0
+        from tpusim_torch.io.k8s_yaml import load_cluster_from_dir
+
+        pinned = min(n.name for n in load_cluster_from_dir(cluster).nodes)
+        for setting, tier in (("auto", "vmem"), ("hbm", "hbm")):
+            label = "apply" if setting == "auto" else "apply/hbm"
+            run_dir = os.path.join(root, setting)
+            cr = write_apply_bundle(run_dir, cluster, pinned)
+            applier = Applier(ApplyOptions(
+                simon_config=cr, default_scheduler_config=os.path.join(
+                    os.path.dirname(os.path.abspath(__file__)),
+                    APPLY_SCHEDULER),
+                extended_resources=["gpu"], report_tables=True,
+                device=device.type, table_residency=setting))
+            buf = io.StringIO()
+            fe.reset_launch_counts()
+            with contextlib.redirect_stdout(buf):
+                applier.run(out=buf)
+            torch.cuda.synchronize()
+            counts = run_counts()
+            sim = applier.sim
+            stages = len(sim.replay_times)
+            want = {name: (stages if name in RESIDENCY_KERNELS[tier] else 0)
+                    for name in counts}
+            if counts != want or sim.last_residency != tier:
+                raise SmokeFailure(f"{label}: launches {counts} over {stages} "
+                                   f"replay stages (want {want}), residency "
+                                   f"{sim.last_residency} (want {tier})")
+            launches[label] = counts
+            got = apply_digests(buf.getvalue(), os.path.join(run_dir, "out"))
+            if got != APPLY_SHA256:
+                raise SmokeFailure(f"{label}: the standard output or an "
+                                   f"exported file differs from the JAX "
+                                   f"reference: {got}")
+            t = applier.timings
+            walls = ", ".join(
+                f"{r['events']} events {r['replay_ms']:.2f} + "
+                f"{r['report_ms']:.1f} ms" for r in sim.replay_times)
+            stages_ms = ", ".join(f"{k[:-3]} {v:.1f}" for k, v in t.items())
+            print(f"apply {label}: {sim.last_engine} ({tier}), launches "
+                  f"{counts} over {stages} replay stages (main, inflation, "
+                  f"each app), stdout ({buf.getvalue().count(chr(10))} lines)"
+                  f" and the 3 exported files match the JAX reference; "
+                  f"prepare_input {prep_s:.1f} s (once); stages (ms) "
+                  f"{stages_ms}; each replay (replay + report tail, ms; "
+                  f"main, inflation, apps) {walls} (host clock) on {card}")
+            if setting == "auto":
+                errors = check_app_replay(applier, device, card)
+    return launches, errors
+
+
+PHASES = ("check", "clocks", "main", "apply", "scale")
 
 
 def scale_inputs(device):
@@ -2073,6 +2418,12 @@ def main(argv=None) -> int:
         if "main" in phases:
             launches = main_path(device, card)
             print(f"phase main done at {time.perf_counter() - t0:.1f} s")
+        if "apply" in phases:
+            counts, app_err = apply_path(device, card)
+            launches.update(counts)
+            for name, err in app_err.items():
+                errors[name] = max(errors[name], err)
+            print(f"phase apply done at {time.perf_counter() - t0:.1f} s")
         if "scale" in phases or "clocks" in phases:
             setup = scale_inputs(device)
             if "scale" in phases:

@@ -256,6 +256,35 @@ def _postpass_both(state, specs, evk, evp, out, tp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 9, 16, 17, 24, 32])
+@pytest.mark.parametrize("nodes", [1, 2, 5, 20, 32])
+def test_small_cluster_postpass_on_card_matches_cpu(cuda_device, nodes, t):
+    """On clusters of at most 32 nodes with at most 32 typical pods the
+    initial frag total, the initial rows and the per-event rows take the
+    vectorised orders of the reference's CPU build (ops.frag `node_stages`,
+    `pod_stages`, `row_stages`): compute_event_metrics on the card equals
+    the CPU's bit for bit, on a seeded random cluster's creates and
+    deletes replayed on the card."""
+    from tpusim_torch.types import make_typical_pods
+
+    state, pods, types, evk, evp, _, rank = random_case(
+        7 * nodes + t, nodes, 80, cuda_device)
+    rng = np.random.default_rng(t)
+    freq = rng.random(t).astype(np.float32)
+    tp = make_typical_pods(zip(
+        rng.choice([1000, 4000, 8000, 16000], t),
+        rng.choice([0, 100, 250, 500, 1000], t), rng.choice([1, 2], t),
+        rng.choice([0, 1, 6], t), freq / freq.sum()), cuda_device)
+    out = fe.make_fused_replay([("FGDScore", 1000)], "FGDScore",
+                               cuda_device)(state, pods, types, evk, evp, tp,
+                                            None, rank)
+    card, cpu = _postpass_both(state, pods, evk, evp, out, tp)
+    for name, a, b in zip(cpu._fields, card, cpu):
+        assert a.device.type == "cuda", name
+        assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
 def test_postpass_on_card_matches_cpu(cuda_device):
     """compute_event_metrics on the card against the CPU, bit for bit, on a
     seeded random cluster's creates and deletes (T=24) and on a 256-pod

@@ -79,17 +79,19 @@ def test_tree_sum_two_axes_matches_xla_sum(shape):
 
 
 def test_lane_sum_order():
-    """16 strided lanes folded in halves: each lane's sum, then lanes k and
-    k + 8, k + 4, k + 2, k + 1."""
+    """16 strided lanes folded in halves (`vector_sum`, one stage of 16
+    lanes): each lane's sum, then lanes k and k + 8, k + 4, k + 2, k + 1;
+    the per-event rows take that order at 32 typical pods (8 lanes in 2
+    parts) and a window's tree order past 32."""
     x = torch.arange(40, dtype=torch.float32)[:, None] ** 3
     lanes = [x[k::16].sum(0) for k in range(16)]
     while len(lanes) > 1:
         lanes = [lanes[k] + lanes[k + len(lanes) // 2]
                  for k in range(len(lanes) // 2)]
-    assert torch.equal(pfrag.lane_sum(x), lanes[0])
+    assert torch.equal(pfrag.vector_sum(x, [(16, 1, 48)]), lanes[0])
     assert torch.equal(pfrag.tree_sum(x, 1, lanes=True), pfrag.tree_sum(x, 1))
     assert torch.equal(pfrag.tree_sum(x[:32], 1, lanes=True),
-                       pfrag.lane_sum(x[:32]))
+                       pfrag.vector_sum(x[:32], [(16, 1, 32)]))
 
 
 def _used_cluster(seed, num_nodes):

@@ -4,8 +4,10 @@ experiment's log and analysis CSVs.
     python -m tpusim_torch [-FGD W] [-PWR W] [-BestFit W] [-GpuPacking W]
         [-GpuClustering W] [-DotProd W] [-gpusel SEL] [-dimext M] [-norm M]
         [-tune R] [-tuneseed S] [--shuffle-pod true|false]
+        [--workload-inflation-ratio R] [-seed S]
         [-f POD_TRACE] [--node-trace NODE_CSV] [--use-timestamps]
         [--no-per-event-report] [-d EXPERIMENT_DIR] [--device cpu]
+    python -m tpusim_torch apply ...   (python -m tpusim_torch.cli apply)
 
 The method flags are those of experiments/run.py: one integer weight per
 score policy, the gpuSelMethod, and DotProduct's dim-ext and norm methods.
@@ -14,7 +16,9 @@ weight 1000, gpu_sel FGDScore); the other rows of the paper's method list
 are, for example, `-BestFit 1000` or `-PWR 500 -FGD 500 -gpusel FGDScore`.
 Pods are shuffled and tuned to 1.3 x the cluster's GPU capacity with seed
 42 unless the flags say otherwise; the node tie-break uses the tuning seed;
-the typical pods are experiments/run.py's (popularity 95, step 1).
+the typical pods are experiments/run.py's (popularity 95, step 1). A
+--workload-inflation-ratio above 1 adds run.py's inflation stage after the
+main replay (ScheduleInflation, seeded by -seed).
 The trace flags take a CSV path or a name under data/csv (as
 experiments/run.py's do; --pods and --nodes are their other names). Each
 event prints its report block unless --no-per-event-report is given.
@@ -99,6 +103,11 @@ def paper_config() -> SimulatorConfig:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["apply"]:
+        from tpusim_torch.cli import main as cli_main
+
+        return cli_main(argv)
     ap = argparse.ArgumentParser(prog="python -m tpusim_torch",
                                  description=__doc__.splitlines()[0])
     ap.add_argument("-d", "--experiment-dir", default=None,
@@ -128,6 +137,9 @@ def main(argv=None) -> int:
     ap.add_argument("-tuneseed", "--workload-tuning-seed", type=int,
                     default=42)
     ap.add_argument("--shuffle-pod", default="true")
+    ap.add_argument("--workload-inflation-ratio", type=float, default=1.0)
+    ap.add_argument("-seed", "--workload-inflation-seed", type=int,
+                    default=233)
     args = ap.parse_args(argv)
     flagged = [(name, getattr(args, flag))
                for name, flag in POLICY_FLAGS.items()
@@ -139,12 +151,16 @@ def main(argv=None) -> int:
         args.workload_tuning_ratio, args.workload_tuning_seed,
         args.shuffle_pod.lower() == "true", not args.no_per_event_report,
         args.use_timestamps, RUN_TYPICAL)
+    cfg.inflation_ratio = args.workload_inflation_ratio
+    cfg.inflation_seed = args.workload_inflation_seed
     pod_csv = resolve_trace(args.trace)
     sim = Simulator(load_node_csv(resolve_trace(args.node_trace)), cfg,
                     device=args.device)
     sim.set_workload_pods(load_pod_csv(pod_csv))
     t0 = time.perf_counter()
     sim.run()
+    if cfg.inflation_ratio > 1:
+        sim.run_workload_inflation_evaluation("ScheduleInflation")
     if args.experiment_dir is None:
         sys.stdout.write(sim.log.dump())
         return 0

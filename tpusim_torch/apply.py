@@ -1,0 +1,367 @@
+"""Applier: the Simon-CR-driven experiment (counterpart of tpusim/apply.py;
+ref: pkg/apply/apply.go Run() and pkg/simulator/core.go Simulate()).
+
+  load the CR and the scheduler config → load the cluster's YAML directory
+  (or an offline kubeConfig dump) → daemonset pods → typical pods →
+  sort/tune the workload → replay → ClusterAnalysis(InitSchedule) →
+  snapshot export → inflation evaluation → new-workload swap → per-app
+  scheduling (YAML apps and Helm charts) → the verdict → the report tables.
+
+Every replay runs the port's kernels (`Simulator`): on the GPU unless the
+options ask for the CPU. Options that need a plane the port does not have
+yet raise NotImplementedError naming the ROADMAP item that brings it; none
+is ignored. The env caps MaxCPU/MaxMemory/MaxVG (apply.go:550-631
+satisfyResourceSetting) decide the verdict; MaxVG reads the open-local VG
+totals from the node storage annotations.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import List, Sequence
+
+import numpy as np
+
+from tpusim_torch.config.scheduler import SchedulerConfig, load_scheduler_config
+from tpusim_torch.config.simon import SimonCR, load_simon_cr
+from tpusim_torch.io.chart import chart_objects
+from tpusim_torch.io.k8s_yaml import (
+    daemonset_pods,
+    load_cluster_from_dir,
+    load_cluster_from_dump,
+    load_cluster_from_objects,
+    load_objects,
+    yaml_files_in_dir,
+)
+from tpusim_torch.io.storage import cluster_vg_totals, parse_node_storage
+from tpusim_torch.sim.driver import SimulateResult, Simulator, SimulatorConfig
+from tpusim_torch.sim.report_tables import full_report
+
+COLOR_RED = "\033[31m"
+COLOR_GREEN = "\033[32m"
+COLOR_RESET = "\033[0m"
+
+# engines of the CR the port runs: both mean its CUDA kernels
+PORT_ENGINES = ("auto", "pallas")
+
+
+@dataclass
+class ApplyOptions:
+    """The CLI surface (ref: cmd/apply/apply.go:26-40), with tpusim's
+    options. The ones after `table_residency` are the planes the port does
+    not have yet: any value but the default raises (REFUSED_OPTIONS)."""
+
+    simon_config: str = ""
+    default_scheduler_config: str = ""
+    use_greed: bool = False
+    interactive: bool = False
+    extended_resources: List[str] = field(default_factory=lambda: ["gpu"])
+    base_dir: str = "."
+    report_tables: bool = False
+    # where the replays run: "cuda" (the kernels) or "cpu" (their plain
+    # versions)
+    device: str = "cuda"
+    # SimulatorConfig.table_residency: auto | vmem | hbm
+    table_residency: str = "auto"
+    checkpoint_every: int = 0
+    checkpoint_dir: str = ""
+    checkpoint_keep: int = 0
+    fault_mtbf: float = 0.0
+    fault_mttr: float = 0.0
+    fault_evict_every: float = 0.0
+    fault_seed: int = 0
+    fault_max_retries: int = 3
+    profile_out: str = ""
+    metrics_out: str = ""
+    trace_out: str = ""
+    heartbeat_every: int = 0
+    decisions_out: str = ""
+    series_every: int = 0
+    listen: str = ""
+    sweep_weights: str = ""
+    sweep_faults: str = ""
+    compile_cache_dir: str = ""
+    policy: str = ""
+
+
+# option -> (its flag, the ROADMAP queue-1 item that brings its plane)
+REFUSED_OPTIONS = {
+    "checkpoint_every": ("--checkpoint-every", "8 (chunked replay, checkpoints)"),
+    "checkpoint_dir": ("--checkpoint-dir", "8 (chunked replay, checkpoints)"),
+    "checkpoint_keep": ("--checkpoint-keep", "8 (chunked replay, checkpoints)"),
+    "fault_mtbf": ("--fault-mtbf", "9 (faults)"),
+    "fault_mttr": ("--fault-mttr", "9 (faults)"),
+    "fault_evict_every": ("--fault-evict-every", "9 (faults)"),
+    "fault_seed": ("--fault-seed", "9 (faults)"),
+    "fault_max_retries": ("--fault-max-retries", "9 (faults)"),
+    "profile_out": ("--profile", "10 (in-scan records and obs spans)"),
+    "metrics_out": ("--metrics-out", "10 (in-scan records and obs spans)"),
+    "trace_out": ("--trace-out", "10 (in-scan records and obs spans)"),
+    "heartbeat_every": ("--heartbeat-every",
+                        "10 (in-scan records and obs spans)"),
+    "decisions_out": ("--decisions-out", "10 (in-scan records)"),
+    "series_every": ("--series-every", "10 (in-scan records)"),
+    "listen": ("--listen", "14 (service plane)"),
+    "sweep_weights": ("--sweep-weights", "7 (sweeps)"),
+    "sweep_faults": ("--sweep-faults", "7 (sweeps) and 9 (faults)"),
+    "compile_cache_dir": ("--compile-cache-dir", "8 (table cache)"),
+    "policy": ("--policy", "12 (learned policy)"),
+}
+
+
+def _refuse(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} needs a plane the PyTorch port does not have yet "
+        f"(ROADMAP queue 1, item {item}); run it with `python -m tpusim "
+        "apply`")
+
+
+def check_port_options(options: ApplyOptions) -> None:
+    """Raise NotImplementedError for any option the port cannot honour."""
+    defaults = ApplyOptions()
+    for name, (flag, item) in REFUSED_OPTIONS.items():
+        if getattr(options, name) != getattr(defaults, name):
+            _refuse(flag, item)
+
+
+class Applier:
+    def __init__(self, options: ApplyOptions):
+        if not options.simon_config:
+            raise ValueError("--simon-config is required")
+        check_port_options(options)
+        self.options = options
+        self.cr: SimonCR = load_simon_cr(options.simon_config, options.base_dir)
+        self.sched_cfg: SchedulerConfig = load_scheduler_config(
+            options.default_scheduler_config
+        )
+        cc = self.cr.custom_config
+        if cc.engine not in PORT_ENGINES:
+            _refuse(f"customConfig.engine {cc.engine!r}",
+                    "5 (the sequential engine)" if cc.engine == "sequential"
+                    else "6 (the table engine)")
+        if cc.mesh > 1:
+            _refuse(f"customConfig.mesh {cc.mesh}", "13 (mesh engine)")
+        if cc.deschedule.ratio > 0:
+            _refuse("descheduleConfig with a ratio above 0",
+                    "11 (the descheduler)")
+        if self.sched_cfg.extenders:
+            _refuse("a scheduler config with extenders",
+                    "11 (the HTTP extender host loop)")
+
+    def _simulator_config(self) -> SimulatorConfig:
+        cc = self.cr.custom_config
+        return SimulatorConfig(
+            policies=self.sched_cfg.policy_tuple(),
+            gpu_sel_method=self.sched_cfg.gpu_sel_method,
+            dim_ext_method=self.sched_cfg.dim_ext_method,
+            norm_method=self.sched_cfg.norm_method,
+            shuffle_pod=cc.shuffle_pod,
+            tuning_ratio=cc.tuning.ratio,
+            tuning_seed=cc.tuning.seed,
+            inflation_ratio=cc.inflation.ratio,
+            inflation_seed=cc.inflation.seed,
+            typical_pods=cc.typical_pods,
+            use_timestamps=cc.use_timestamps,
+            table_residency=self.options.table_residency,
+        )
+
+    def _load_cluster(self):
+        """The cluster's objects: the CR's YAML directory, or its
+        kubeConfig path read as a `kubectl get ... -o yaml` dump (a
+        kubeconfig credential file names a live cluster: refused)."""
+        if not self.cr.kube_config:
+            return load_cluster_from_dir(self.cr.custom_cluster)
+        try:
+            cluster = load_cluster_from_dump(self.cr.kube_config)
+        except ValueError as err:
+            if "kubeconfig credential file" not in str(err):
+                raise
+            _refuse(f"kubeConfig {self.cr.kube_config} (a live cluster)",
+                    "11 (the kube-client loader)")
+        if not cluster.nodes:
+            raise ValueError(
+                f"no Node objects from kubeConfig {self.cr.kube_config}")
+        return cluster
+
+    def _load_apps(self, node_names: Sequence[str]) -> List[tuple]:
+        """appList → [(name, pods)] (apply.go:118-141; Helm charts render
+        through tpusim_torch.io.chart). App DaemonSets expand over the
+        CLUSTER's nodes, which an app-only ClusterResource does not know
+        about."""
+        apps = []
+        for app in self.cr.app_list:
+            if app.chart:
+                objs = chart_objects(app.name, app.path)
+            else:
+                objs = load_objects(yaml_files_in_dir(app.path))
+            res = load_cluster_from_objects(objs)
+            pods = list(res.workload_pods())
+            for ds in res.daemonsets:
+                pods.extend(daemonset_pods(ds, node_names))
+            apps.append((app.name, pods))
+        if self.options.interactive and apps:
+            apps = _interactive_select(apps)
+        return apps
+
+    @contextlib.contextmanager
+    def _timed(self, stage: str):
+        """Add the block's host milliseconds to timings[stage + "_ms"]."""
+        t0 = time.perf_counter()
+        yield
+        key = f"{stage}_ms"
+        self.timings[key] = (self.timings.get(key, 0.0)
+                             + (time.perf_counter() - t0) * 1e3)
+
+    def run(self, out=None) -> SimulateResult:
+        """The whole experiment, its log streamed to `out` (standard output
+        by default). `timings` then holds the host milliseconds of each
+        stage (ingest: the cluster's YAML; main: the Simulator and its
+        run(); export; inflation; swap; apps_ingest: the apps' YAML and
+        charts; apps; tables) and of the whole run (wall); the Simulator's
+        `replay_times` split each replay."""
+        out = sys.stdout if out is None else out
+        self.timings = {}
+        t0 = time.perf_counter()
+        with self._timed("ingest"):
+            cluster = self._load_cluster()
+        if not cluster.nodes:
+            raise ValueError(f"no Node manifests under {self.cr.custom_cluster}")
+        cc = self.cr.custom_config
+
+        with self._timed("main"):
+            sim = Simulator(cluster.nodes, self._simulator_config(),
+                            device=self.options.device)
+            sim.log.stream = out
+            self.sim = sim
+            # workload = trace pods + per-node daemonset pods
+            # (core.go:103-123)
+            sim.set_workload_pods(cluster.workload_pods()
+                                  + cluster.daemonset_pods())
+            sim.run()
+
+        # snapshot export at InitSchedule (core.go:160-185)
+        with self._timed("export"):
+            self._export_snapshots(sim, "init_schedule")
+
+        # workload inflation eval (core.go:189-192)
+        if cc.inflation.ratio > 1:
+            with self._timed("inflation"):
+                sim.run_workload_inflation_evaluation("ScheduleInflation")
+
+        # new-workload swap (core.go:195-209): replace the typical-pod
+        # distribution with the new workload's, then schedule it on top
+        if cc.new_workload_config:
+            with self._timed("swap"):
+                nw_dir = cc.new_workload_config
+                if not os.path.isabs(nw_dir):
+                    nw_dir = os.path.join(self.options.base_dir, nw_dir)
+                nw_pods = load_cluster_from_dir(nw_dir).workload_pods()
+                sim.set_workload_pods(nw_pods)
+                sim.set_typical_pods()
+                sim.schedule_additional(nw_pods)
+                sim.cluster_analysis("InitSchedule")
+
+        # per-app scheduling (core.go:255-261)
+        with self._timed("apps_ingest"):
+            apps = self._load_apps(cluster.node_names)
+        for name, pods in apps:
+            with self._timed("apps"):
+                sim.schedule_app(name, pods, self.options.use_greed)
+
+        result = sim.last_result
+        sim.finish()
+        self._verdict(result, out)
+        if self.options.report_tables:
+            with self._timed("tables"):
+                print(full_report(result.pods, result.placed_node,
+                                  result.dev_mask, cluster.nodes,
+                                  self.options.extended_resources), file=out)
+        self.timings["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        return result
+
+    def _export_snapshots(self, sim: Simulator, tag: str):
+        exp = self.cr.custom_config.export
+        if exp.pod_snapshot_yaml_file_prefix:
+            path = f"{exp.pod_snapshot_yaml_file_prefix}_{tag}.yaml"
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            sim.export_pod_snapshot_yaml(path)
+        if exp.node_snapshot_csv_file_prefix:
+            path = f"{exp.node_snapshot_csv_file_prefix}_{tag}.csv"
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            sim.export_node_snapshot_csv(path)
+            sim.export_pod_snapshot_csv(
+                f"{exp.node_snapshot_csv_file_prefix}_{tag}_pod.csv")
+
+    def _verdict(self, result: SimulateResult, out):
+        """Success print + env resource caps (apply.go:219-246, 550-631)."""
+        if result.unscheduled_pods:
+            print(f"{COLOR_RED}there are {len(result.unscheduled_pods)} "
+                  f"unscheduled pods{COLOR_RESET}", file=out)
+            print(f"{COLOR_RED}Failed!{COLOR_RESET}", file=out)
+            return
+        ok, reason = self._satisfy_resource_setting(result)
+        if not ok:
+            print(f"{COLOR_RED}{reason}{COLOR_RESET}", file=out)
+            print(f"{COLOR_RED}Failed!{COLOR_RESET}", file=out)
+        else:
+            print(f"{COLOR_GREEN}Success!{COLOR_RESET}", file=out)
+
+    def _satisfy_resource_setting(self, result: SimulateResult):
+        """Env caps MaxCPU / MaxMemory / MaxVG as PERCENT occupancy-rate
+        ceilings over cluster totals (ref: satisfyResourceSetting,
+        apply.go:550-631: defaults 100, out-of-range values clamp to 100;
+        VG totals come from the open-local node storage annotations)."""
+
+        def _cap(env: str) -> int:
+            raw = os.environ.get(env, "")
+            if not raw:
+                return 100
+            v = int(raw)  # non-integers are an error in the reference too
+            return 100 if v > 100 or v < 0 else v
+
+        max_cpu, max_mem, max_vg = (_cap("MaxCPU"), _cap("MaxMemory"),
+                                    _cap("MaxVG"))
+        s = result.state
+        cpu_cap, cpu_left = s.cpu_cap.numpy(), s.cpu_left.numpy()
+        mem_cap, mem_left = s.mem_cap.numpy(), s.mem_left.numpy()
+        cpu_rate = int(100.0 * (cpu_cap - cpu_left).sum()
+                       / max(1, cpu_cap.astype(np.int64).sum()))
+        mem_rate = int(100.0 * (mem_cap - mem_left).sum()
+                       / max(1, mem_cap.astype(np.int64).sum()))
+        if cpu_rate > max_cpu:
+            return False, (
+                f"the average occupancy rate({cpu_rate}%) of cpu goes beyond "
+                f"the env setting({max_cpu}%)\n"
+            )
+        if mem_rate > max_mem:
+            return False, (
+                f"the average occupancy rate({mem_rate}%) of memory goes "
+                f"beyond the env setting({max_mem}%)\n"
+            )
+        vg_req, vg_cap = cluster_vg_totals(
+            parse_node_storage(n.local_storage) for n in self.sim.nodes
+        )
+        if vg_cap:
+            vg_rate = int(100.0 * vg_req / vg_cap)
+            if vg_rate > max_vg:
+                return False, (
+                    f"the average occupancy rate({vg_rate}%) of vg goes "
+                    f"beyond the env setting({max_vg}%)\n"
+                )
+        return True, ""
+
+
+def _interactive_select(apps):
+    """Multi-select confirmation (apply.go:172-189, survey lib)."""
+    print("Confirm your apps (comma-separated indices, empty = all):")
+    for i, (name, pods) in enumerate(apps):
+        print(f"  [{i}] {name} ({len(pods)} pods)")
+    line = input("> ").strip()
+    if not line:
+        return apps
+    picked = {int(x) for x in line.split(",") if x.strip().isdigit()}
+    return [a for i, a in enumerate(apps) if i in picked]

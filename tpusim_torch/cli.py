@@ -1,0 +1,127 @@
+"""`python -m tpusim_torch.cli apply`: the port's copy of `python -m tpusim
+apply` (counterpart of tpusim/cli.py's apply subcommand; ref:
+cmd/apply/apply.go:14-40).
+
+    python -m tpusim_torch.cli apply -f CLUSTER_CONFIG [-s SCHEDULER_CONFIG]
+        [-e gpu[,open-local]] [--report] [--use-greed] [-i]
+        [--base-dir DIR] [--device cuda|cpu]
+        [--table-residency auto|vmem|hbm]
+
+It takes tpusim's apply flags. The ones whose plane the port does not have
+yet (faults, sweeps, checkpoints, the obs outputs, --listen, --policy,
+--compile-cache-dir) parse and then raise NotImplementedError naming the
+ROADMAP item that brings them. The replays run on the GPU unless --device
+cpu is given. Its standard output and the snapshot files it writes are
+byte-identical to `python -m tpusim apply`'s on the same inputs, but for
+the `[Engine]` line, which names the kernel that ran.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from tpusim_torch.apply import Applier, ApplyOptions
+from tpusim_torch.sim.residency import RESIDENCIES
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m tpusim_torch.cli",
+        description="Kubernetes GPU-cluster scheduling simulator, "
+        "PyTorch/CUDA port")
+    sub = parser.add_subparsers(dest="command")
+    p = sub.add_parser("apply", help="run a simulation")
+    p.add_argument("-f", "--simon-config", required=True,
+                   help="cluster-config YAML (Simon CR)")
+    p.add_argument("-s", "--default-scheduler-config", default="",
+                   help="KubeSchedulerConfiguration YAML")
+    p.add_argument("--use-greed", action="store_true",
+                   help="greedy app-pod queue sort")
+    p.add_argument("-i", "--interactive", action="store_true",
+                   help="confirm app list")
+    p.add_argument("-e", "--extended-resources", default="gpu",
+                   help="comma-separated: gpu, open-local")
+    p.add_argument("--base-dir", default=".",
+                   help="root for relative paths inside the CR (default: cwd)")
+    p.add_argument("--report", action="store_true",
+                   help="print placement report tables")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda runs the CUDA kernels (the default), cpu "
+                   "their plain PyTorch versions")
+    p.add_argument("--table-residency", choices=RESIDENCIES, default="auto",
+                   help="vmem = the flat replay kernel, hbm = the blocked "
+                   "one, auto = vmem while the tables fit the card's L2")
+    # tpusim's other apply flags: accepted, refused unless at their default
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--checkpoint-keep", type=int, default=0)
+    p.add_argument("--fault-mtbf", type=float, default=0.0)
+    p.add_argument("--fault-mttr", type=float, default=0.0)
+    p.add_argument("--fault-evict-every", type=float, default=0.0)
+    p.add_argument("--fault-seed", type=int, default=0)
+    p.add_argument("--fault-max-retries", type=int, default=3)
+    p.add_argument("--profile", nargs="?",
+                   const=os.path.join(".tpusim_obs", "tpusim_profile.jsonl"),
+                   default="")
+    p.add_argument("--metrics-out", default="")
+    p.add_argument("--trace-out", default="")
+    p.add_argument("--heartbeat-every", type=int, default=0)
+    p.add_argument("--decisions-out", default="")
+    p.add_argument("--series-every", type=int, default=0)
+    p.add_argument("--listen", default="")
+    p.add_argument("--sweep-weights", default="")
+    p.add_argument("--sweep-faults", default="")
+    p.add_argument("--compile-cache-dir", default="")
+    p.add_argument("--policy", default="")
+    return parser
+
+
+def apply_options(args) -> ApplyOptions:
+    return ApplyOptions(
+        simon_config=args.simon_config,
+        default_scheduler_config=args.default_scheduler_config,
+        use_greed=args.use_greed,
+        interactive=args.interactive,
+        extended_resources=[e.strip()
+                            for e in args.extended_resources.split(",")
+                            if e.strip()],
+        base_dir=args.base_dir,
+        report_tables=args.report,
+        device=args.device,
+        table_residency=args.table_residency,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_keep=args.checkpoint_keep,
+        fault_mtbf=args.fault_mtbf,
+        fault_mttr=args.fault_mttr,
+        fault_evict_every=args.fault_evict_every,
+        fault_seed=args.fault_seed,
+        fault_max_retries=args.fault_max_retries,
+        profile_out=args.profile,
+        metrics_out=args.metrics_out,
+        trace_out=args.trace_out,
+        heartbeat_every=args.heartbeat_every,
+        decisions_out=args.decisions_out,
+        series_every=args.series_every,
+        listen=args.listen,
+        sweep_weights=args.sweep_weights,
+        sweep_faults=args.sweep_faults,
+        compile_cache_dir=args.compile_cache_dir,
+        policy=args.policy,
+    )
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.command != "apply":
+        parser.print_help()
+        return 1
+    Applier(apply_options(args)).run()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

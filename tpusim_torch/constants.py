@@ -49,6 +49,25 @@ GPU_MODELS = [
 ]
 GPU_MODEL_IDS = {name: i for i, name in enumerate(GPU_MODELS)}
 
+# device memory of each model in MiB, for the snapshot exports'
+# gpu_mem_mib columns (as tpusim/constants.py has it)
+GPU_MEMORY_MIB = {
+    "P4": 7980711936 // 1024 // 1024,
+    "2080": 11554258944 // 1024 // 1024,
+    "1080": 11720982528 // 1024 // 1024,
+    "M40": 12004098048 // 1024 // 1024,
+    "T4": 15842934784 // 1024 // 1024,
+    "V100M16": 16944988160 // 1024 // 1024,
+    "P100": 17070817280 // 1024 // 1024,
+    "A10": 23835181056 // 1024 // 1024,
+    "3090": 25446842368 // 1024 // 1024,
+    "V100M32": 34089205760 // 1024 // 1024,
+    "A100": 85198045184 // 1024 // 1024,
+    "G1": 1048576000 // 1024 // 1024,
+    "G2": 20971520000 // 1024 // 1024,
+    "G3": 31457280000 // 1024 // 1024,
+}
+
 CPU_MODELS = (
     "",
     "Intel-Xeon-8269CY",

@@ -45,6 +45,15 @@ class PodRow:
     # nodeSelector pinning and the simon/pod-unscheduled annotation
     pinned_node: Optional[str] = None
     unscheduled: bool = False
+    # k8s-manifest fields (tpusim_torch.io.k8s_yaml): the app queues' sort
+    # inputs (pkg/algo) and the workload the pod came from
+    node_selector: Optional[dict] = None
+    tolerations: bool = False
+    workload_kind: str = ""
+    workload_name: str = ""
+    # open-local volume request (tpusim_torch.io.storage; the
+    # simon/pod-local-storage annotation, pkg/utils/utils.go:606-618)
+    local_storage: Optional[dict] = None
 
     @property
     def total_gpu_milli(self) -> int:
@@ -63,6 +72,9 @@ class NodeRow:
     gpu: int
     model: str = ""
     cpu_model: str = ""
+    # open-local storage inventory (tpusim_torch.io.storage; the
+    # simon/node-local-storage annotation, pkg/utils/utils.go:572-585)
+    local_storage: Optional[dict] = None
 
 
 def _sanitize_gpu_milli(num_gpu: int, gpu_milli) -> int:

@@ -8,7 +8,10 @@ over the nodes), and the printed reports show enough digits for the order
 of those sums to matter. Every sum here names its order. The reference's
 CPU build sums in XLA's tree order (`tree_sum`): `node_frag_rows` and
 `tree_sum` follow it on any device, and `cluster_frag_report` follows it
-on the host, whatever device the state lives on.
+on the host, whatever device the state lives on. Where no reduced axis is
+longer than 32, XLA keeps a reduction whole and LLVM vectorises its loop;
+`vector_sum` follows such a loop, `row_stages`, `pod_stages` and
+`node_stages` say which loops the report's sums become.
 """
 
 from __future__ import annotations
@@ -35,8 +38,6 @@ from tpusim_torch.types import NodeState, TypicalPods
 
 # window of the tree sum along each reduced axis
 _TREE_WINDOW = 32
-# float32 lanes of the vectorised reductions of the reference's CPU build
-_LANES = 16
 
 
 def frag_class(cpu_left, gpu_left, gpu_type, tp: TypicalPods):
@@ -99,14 +100,14 @@ def tree_sum(x: torch.Tensor, axes: int, lanes: bool = False) -> torch.Tensor:
     the reference's CPU build (XLA's tree reduction), on x's device: the
     order of `_tree_sum` below, with the same padding, windows of 32 and
     row-major order, each step an explicit elementwise add (a torch
-    reduction picks its own order on each device). With `lanes`, an `x`
-    that needs no window (every reduced axis at most 32 long) is summed in
-    `lane_sum`'s order instead: XLA then keeps the reduction whole and, where
-    it is fused into the loop that computes `x`, vectorises it."""
+    reduction picks its own order on each device). With `lanes`, a sum
+    over one axis at most 32 long follows `row_stages` instead: XLA then
+    keeps the reduction whole and, where it is fused into the loop that
+    computes `x`, LLVM vectorises it."""
     x = x.to(torch.float32)
     rest = list(x.shape[axes:])
-    if lanes and all(x.shape[a] <= _TREE_WINDOW for a in range(axes)):
-        return lane_sum(x.reshape([-1] + rest))
+    if lanes and axes == 1 and x.shape[0] <= _TREE_WINDOW:
+        return vector_sum(x, row_stages(x.shape[0]))
     while any(x.shape[a] > _TREE_WINDOW for a in range(axes)):
         win = [min(x.shape[a], _TREE_WINDOW) for a in range(axes)]
         for a, w in enumerate(win):
@@ -132,20 +133,141 @@ def tree_sum(x: torch.Tensor, axes: int, lanes: bool = False) -> torch.Tensor:
     return acc
 
 
-def lane_sum(x: torch.Tensor) -> torch.Tensor:
-    """float32 sum over dim 0 in the order of a reduction that XLA's CPU
-    compiler vectorises inside a fused loop: 16 lanes, lane k adding the
-    elements k, k + 16, k + 32, ... in turn, then the lanes folded in
-    halves (lanes k and k + 8, then k and k + 4, k and k + 2, k and
-    k + 1)."""
+def vector_sum(x: torch.Tensor, stages, seed=None,
+               rows: bool = False) -> torch.Tensor:
+    """float32 sum over dim 0 in the order of a reduction loop that LLVM
+    vectorised for XLA's CPU build. Each stage (vf, uf, m) is one vector
+    loop over the next m elements (zeros past the end of `x`: the loop's
+    masked lanes): uf accumulators of vf lanes, the running sum (`seed`,
+    else 0) in lane 0 of the first; part p's lane k adds the elements
+    k + p vf, k + p vf + uf vf, ... of the stage in turn. The parts are
+    added in order, the lanes folded in halves (lanes k and k + vf/2, then
+    k and k + vf/4, ...), and lane 0 carries the sum into the next stage.
+    The elements left after the last stage are added one by one. With
+    `rows`, each element is a row x[i] whose entries along dim 1 are added
+    one by one (a loop vectorised over the rows of a two-axis sum)."""
     x = x.to(torch.float32)
-    lanes = [x.new_zeros(x.shape[1:]) for _ in range(_LANES)]
-    for i in range(x.shape[0]):
-        lanes[i % _LANES] = lanes[i % _LANES] + x[i]
-    while len(lanes) > 1:
-        h = len(lanes) // 2
-        lanes = [lanes[k] + lanes[k + h] for k in range(h)]
-    return lanes[0]
+    rest = tuple(x.shape[2:] if rows else x.shape[1:])
+
+    def add(acc, elem):
+        if not rows:
+            return acc + elem
+        axis = elem.dim() - len(rest) - 1  # the entries of a row
+        for j in range(elem.shape[axis]):
+            acc = acc + elem.select(axis, j)
+        return acc
+
+    acc = x.new_zeros(rest) if seed is None else seed
+    off = 0
+    for vf, uf, m in stages:
+        seg = x[off:off + m]
+        if seg.shape[0] < m:
+            seg = torch.cat([seg, seg.new_zeros((m - seg.shape[0],)
+                                                + tuple(seg.shape[1:]))])
+        parts = []
+        for p in range(uf):
+            lanes = x.new_zeros((vf,) + rest)
+            if p == 0:
+                lanes[0] = acc
+            for j in range(m // (vf * uf)):
+                b = (j * uf + p) * vf
+                lanes = add(lanes, seg[b:b + vf])
+            parts.append(lanes)
+        lanes = parts[0]
+        for part in parts[1:]:
+            lanes = part + lanes
+        while lanes.shape[0] > 1:
+            h = lanes.shape[0] // 2
+            lanes = lanes[:h] + lanes[h:]
+        acc = lanes[0]
+        off += m
+    for i in range(off, x.shape[0]):
+        acc = add(acc, x[i])
+    return acc
+
+
+def row_stages(t: int):
+    """The vector loops of XLA's CPU build for a sum over `t` <= 32 typical
+    pods fused into the loop that computes them (a frag row of the per-event
+    report), read from its optimised LLVM IR: none up to 9 (the loop is
+    unrolled, each pod added in turn); 8 lanes in 2 parts over 16 pods
+    (masked when fewer) from 10; then a 4-lane epilogue over 4 more from 20;
+    8 lanes in 1 part over 24 from 24; 8 lanes in 2 parts over all 32 at
+    32. Pods past the stages are added one by one."""
+    if t <= 9:
+        return []
+    if t <= 19:
+        return [(8, 2, 16)]
+    if t <= 23:
+        return [(8, 2, 16), (4, 1, 4)]
+    if t <= 31:
+        return [(8, 1, 24)]
+    return [(8, 2, 32)]
+
+
+def pod_stages(n: int, t: int):
+    """The vector loops of XLA's CPU build over one node's t <= 32 typical
+    pods, in the report's sums over a cluster of n <= 32 nodes (its initial
+    per-node rows, and its initial total node by node): `row_stages` at
+    n = 1, where the node's row is the only one; each pod in turn up to
+    t = 15; else 8 lanes over the first 8 (t - 1) // 8 pods, the rest in
+    turn."""
+    if n == 1:
+        return row_stages(t)
+    if t <= 15:
+        return []
+    return [(8, 1, (t - 1) // 8 * 8)]
+
+
+def node_stages(n: int, t: int):
+    """How XLA's CPU build sums the initial [n, t, 7] contributions of
+    n <= 32 nodes and 2 <= t <= 32 typical pods into the cluster's frag
+    amounts, read from the optimised LLVM IR of the fused reduction (the
+    classes outermost, then the nodes, then the typical pods) and
+    confirmed bit for bit on every such shape. ("nodes", stages): the loop
+    is vectorised over the nodes (t at most 10 and n 4, 8 or 16 and more),
+    each lane adding its nodes' pods in turn: 8 lanes, or 4 at n = 4, at
+    n = 20-23, and at n = 28-31 when t is 7 or 8. ("pods", stages): node by
+    node, the running total seeded into `pod_stages`."""
+    if n > 1 and t <= 10 and (n in (4, 8) or n >= 16):
+        vf = 4 if (n == 4 or 20 <= n <= 23
+                   or (t in (7, 8) and 28 <= n <= 31)) else 8
+        return "nodes", [(vf, 1, n // vf * vf)]
+    return "pods", pod_stages(n, t)
+
+
+def initial_rows(contrib: torch.Tensor) -> torch.Tensor:
+    """The per-node frag amounts f32[N, 7] of the initial [N, T, 7]
+    contributions in the reference's order: `tree_sum` once an axis is
+    longer than 32, else `pod_stages`."""
+    n, t = contrib.shape[:2]
+    x = contrib.movedim(1, 0)
+    if n > _TREE_WINDOW or t > _TREE_WINDOW:
+        return tree_sum(x, 1)
+    return vector_sum(x, pod_stages(n, t))
+
+
+def initial_total(contrib: torch.Tensor) -> torch.Tensor:
+    """The cluster's frag amounts f32[7] of the [N, T, 7] contributions in
+    the reference's order: one tree sum over nodes and typical pods
+    (`tree_sum`) once an axis is longer than 32, else the vectorised order
+    `node_stages` names. A single typical pod (t = 1) is summed node by
+    node, as XLA does up to 15 nodes; from 16 nodes XLA's loop for it
+    branches on the pod's fields. Such a distribution has frequency 1, so
+    its contributions are whole milli values, whose float32 sum is exact
+    in any order."""
+    n, t = contrib.shape[:2]
+    if n > _TREE_WINDOW or t > _TREE_WINDOW:
+        return tree_sum(contrib, 2)
+    if t == 1 and n > 1:
+        return vector_sum(contrib[:, 0], [])
+    kind, stages = node_stages(n, t)
+    if kind == "nodes":
+        return vector_sum(contrib, stages, rows=True)
+    acc = None
+    for row in contrib.to(torch.float32):
+        acc = vector_sum(row, stages, seed=acc)
+    return acc
 
 
 def node_frag_rows(cpu_left, gpu_left, gpu_type,

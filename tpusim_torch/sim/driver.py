@@ -13,7 +13,11 @@ There is no fallback from one to the other, and none to the other kernel:
 a shape the card cannot hold fails its allocation (torch's
 OutOfMemoryError) before launch, a failed launch raises.
 
-With `report_per_event` on (the default, as in the reference), the replay
+After the main replay, `schedule_additional` replays more pods from the
+placed cluster's state (apps, the new-workload swap, the inflation
+evaluation), through the same kernels and the same report tail.
+
+With `report_per_event` on (the default, as in the reference), every replay
 is followed by the metrics post-pass (tpusim_torch.sim.metrics) on the
 replay's device, one transfer of the result to the host
 (tpusim_torch.sim.fetch), the Bellman series of the host's C++ evaluator
@@ -39,6 +43,11 @@ from tpusim_torch.io.trace import (
     pods_to_specs,
     tiebreak_rank,
 )
+from tpusim_torch.io.export import (
+    export_node_snapshot_csv,
+    export_pod_snapshot_csv,
+    export_pod_snapshot_yaml,
+)
 from tpusim_torch.ops.frag import cluster_frag_report
 from tpusim_torch.sim import residency
 from tpusim_torch.sim.engine import EV_CREATE, EV_DELETE, ReplayResult
@@ -46,6 +55,7 @@ from tpusim_torch.sim.fetch import device_fetch
 from tpusim_torch.sim.fused_engine import make_fused_replay
 from tpusim_torch.sim.hbm_engine import make_blocked_replay
 from tpusim_torch.sim.metrics import compute_event_metrics
+from tpusim_torch.sim.queues import app_queue
 from tpusim_torch.sim.reports import (
     LogSink,
     batch_event_report_msgs,
@@ -59,7 +69,13 @@ from tpusim_torch.sim.typical import (
     get_typical_pods,
     pad_typical_pods,
 )
-from tpusim_torch.sim.workload import sort_cluster_pods, tune_pods
+from tpusim_torch.sim.workload import (
+    inflation_pods,
+    sort_cluster_pods,
+    total_pod_cpu_milli,
+    total_pod_gpu_milli,
+    tune_pods,
+)
 from tpusim_torch.types import NodeState, PodSpec
 
 
@@ -76,6 +92,10 @@ class SimulatorConfig:
     shuffle_pod: bool = False
     tuning_ratio: float = 0.0
     tuning_seed: int = 233
+    # workload inflation (run_workload_inflation_evaluation): clone
+    # ceil(n x ratio) - n workload pods onto the placed cluster
+    inflation_ratio: float = 1.0
+    inflation_seed: int = 233
     typical_pods: TypicalPodsConfig = field(default_factory=TypicalPodsConfig)
     seed: int = 42  # node tie-break permutation
     # the per-event report block (attempt, [Report], [Alloc], [AllocCPU],
@@ -105,6 +125,9 @@ class SimulateResult:
     node_names: List[str]
     wall_seconds: float
     events: int
+    # i64[P] position of each pod's creation event in scheduling order
+    # (-1 = never created), for the pod snapshot's assume-time annotation
+    creation_rank: np.ndarray = None
 
 
 class Simulator:
@@ -154,6 +177,7 @@ class Simulator:
         self.log = LogSink(stream=None)
         self.workload_pods: List[PodRow] = []
         self.typical = None
+        self.node_total_milli_cpu = int(sum(n.cpu_milli for n in self.nodes))
         self.node_total_milli_gpu = int(sum(n.gpu * MILLI for n in self.nodes))
         self.total_gpus = int(sum(n.gpu for n in self.nodes))
         self.last_result = None
@@ -164,7 +188,11 @@ class Simulator:
         """Start a run's log and the stashes the analysis CSVs read
         (`event_reports`, `analysis_summary`, `failed_pod_lists`), so a
         reused Simulator does not count a previous run twice. An attached
-        log stream is not rewound."""
+        log stream is not rewound. `replay_times` gets one entry per replay
+        of the run: its events, the replay's milliseconds (the kernels, up
+        to a synchronise) and the report tail's (the post-pass, the fetch
+        and the per-event block), host clock."""
+        self.replay_times = []
         self.event_reports = []
         self.analysis_summary = {}
         self.failed_pod_lists = []
@@ -259,18 +287,33 @@ class Simulator:
             torch.as_tensor(ev_pod, device=dev), out.event_node,
             out.event_dev, self.typical))
 
-    def schedule_pods(self, pods: Sequence[PodRow]) -> SimulateResult:
-        if self.typical is None:
-            self.set_typical_pods()
+    def _replay_pods(self, state: NodeState, pods: Sequence[PodRow],
+                     use_timestamps: bool):
+        """Replay `pods` from `state`: the kernels, the metrics post-pass,
+        one fetch and the host tail (_finish_replay). Returns (the replay's
+        result on the host, events, unscheduled pods, creation ranks)."""
         t0 = time.perf_counter()
         specs = pods_to_specs(pods, self.node_index, self.device)
-        ev_kind, ev_pod = build_events(pods, self.cfg.use_timestamps)
-        out = self.run_events(self.init_state, specs, ev_kind, ev_pod)
-        out = self._attach_metrics(out, self.init_state, specs, ev_kind,
-                                   ev_pod)
+        ev_kind, ev_pod = build_events(pods, use_timestamps)
+        out = self.run_events(state, specs, ev_kind, ev_pod)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        out = self._attach_metrics(out, state, specs, ev_kind, ev_pod)
         out = device_fetch(out)
-        self._emit_event_reports(out, pods, ev_kind, ev_pod, self.init_state)
-        placed = out.placed_node.numpy()
+        done = self._finish_replay(out, pods, ev_kind, ev_pod, state)
+        self.replay_times.append(dict(
+            events=len(ev_kind), replay_ms=(t1 - t0) * 1e3,
+            report_ms=(time.perf_counter() - t1) * 1e3))
+        return done
+
+    def _finish_replay(self, out: ReplayResult, pods, ev_kind, ev_pod,
+                       state: NodeState):
+        """The host tail of a replay (driver.py:1566-1600 of the
+        reference): the per-event log block from the replay's start state,
+        the unscheduled pods (the pod-unscheduled annotation's too) and
+        each pod's creation rank. `out` is on the host."""
+        self._emit_event_reports(out, pods, ev_kind, ev_pod, state)
         skipped = np.array([p.unscheduled for p in pods], bool)
         failed = out.ever_failed.numpy() | skipped
         unscheduled = [
@@ -280,17 +323,65 @@ class Simulator:
             )
             for i in np.flatnonzero(failed)
         ]
+        rank = np.full(len(pods), -1, np.int64)
+        creates = np.asarray(ev_pod)[np.asarray(ev_kind) == EV_CREATE]
+        rank[creates] = np.arange(len(creates))
+        return out, len(ev_kind), unscheduled, rank
+
+    def schedule_pods(self, pods: Sequence[PodRow]) -> SimulateResult:
+        if self.typical is None:
+            self.set_typical_pods()
+        t0 = time.perf_counter()
+        out, events, unscheduled, rank = self._replay_pods(
+            self.init_state, pods, self.cfg.use_timestamps)
         self.last_result = SimulateResult(
             unscheduled_pods=unscheduled,
-            placed_node=placed,
+            placed_node=out.placed_node.numpy(),
             dev_mask=out.dev_mask.numpy(),
             state=out.state,
             pods=list(pods),
             node_names=self.node_names,
             wall_seconds=time.perf_counter() - t0,
-            events=len(ev_kind),
+            events=events,
+            creation_rank=rank,
         )
         return self.last_result
+
+    def _placed_state(self) -> NodeState:
+        """The last result's state on the Simulator's device."""
+        return NodeState(*(a.to(self.device) for a in self.last_result.state))
+
+    def schedule_additional(self, pods: Sequence[PodRow]
+                            ) -> List[UnscheduledPod]:
+        """Replay `pods` on the current cluster state and append them to the
+        run's result (driver.py:1764 of the reference): the engine behind
+        the apps (core.go:255-261) and the new-workload swap
+        (core.go:195-209). Events are the pods' creations in list order."""
+        if self.typical is None:
+            self.set_typical_pods()
+        res = self.last_result
+        out, events, failed, rank = self._replay_pods(
+            self._placed_state(), pods, use_timestamps=False)
+        res.state = out.state
+        res.pods = list(res.pods) + list(pods)
+        res.placed_node = np.concatenate([res.placed_node,
+                                          out.placed_node.numpy()])
+        res.dev_mask = np.concatenate([res.dev_mask, out.dev_mask.numpy()])
+        res.unscheduled_pods = list(res.unscheduled_pods) + failed
+        res.events += events
+        base = int(res.creation_rank.max(initial=-1)) + 1
+        res.creation_rank = np.concatenate(
+            [res.creation_rank, np.where(rank >= 0, rank + base, -1)])
+        return failed
+
+    def schedule_app(self, name: str, pods: Sequence[PodRow],
+                     use_greed: bool = False) -> List[UnscheduledPod]:
+        """ScheduleApp (simulator.go:224-237): the app's pods through the
+        affinity and toleration queues (greed first with use_greed), then
+        scheduled on the current state."""
+        ordered = app_queue(pods, self.nodes, use_greed)
+        self.log.info(f"Scheduling app {name}: {len(ordered)} pods")
+        return self.schedule_additional(ordered)
 
     def run(self) -> SimulateResult:
         """Full experiment (core.go:86-268 minus deschedule and inflation):
@@ -311,6 +402,53 @@ class Simulator:
         """The failed-pods block, and the stash the fail CSV groups."""
         report_failed_pods(self.log, pods)
         self.failed_pod_lists.append(list(pods))
+
+    def run_workload_inflation_evaluation(self, tag: str):
+        """Clone extra workload pods onto the current cluster state, replay
+        them with the per-event reports, report the failed ones, run the
+        Cluster Analysis of the inflated state under `tag`, then drop them
+        (simulator.go:1015-1132): the committed state is left as it was.
+        None when no pod was cloned."""
+        rng = np.random.default_rng(self.cfg.inflation_seed)
+        extra = inflation_pods(
+            self.workload_pods, self.cfg.inflation_ratio, rng,
+            self.node_total_milli_cpu, self.node_total_milli_gpu,
+            total_pod_cpu_milli(self.workload_pods),
+            total_pod_gpu_milli(self.workload_pods))
+        if not extra:
+            return None
+        self.log.info(f"(Inflation) Num of Total Pods: {len(extra)}")
+        out, _, unscheduled, _ = self._replay_pods(
+            self._placed_state(), extra, use_timestamps=False)
+        self.report_failed([u.pod for u in unscheduled])
+        self.log.info(f"[ReportFailedPods] {len(unscheduled)} unscheduled "
+                      "inflation pods")
+        saved = self.last_result.state
+        self.last_result.state = out.state
+        analysis = self.cluster_analysis(tag)
+        self.last_result.state = saved
+        return analysis
+
+    # ---- snapshot export (export.go) ----
+
+    def export_pod_snapshot_yaml(self, path: str):
+        r = self.last_result
+        export_pod_snapshot_yaml(r.pods, r.placed_node, r.dev_mask,
+                                 self.node_names, path,
+                                 creation_rank=r.creation_rank)
+
+    def export_pod_snapshot_csv(self, path: str):
+        r = self.last_result
+        export_pod_snapshot_csv(r.pods, r.placed_node, r.dev_mask,
+                                self.nodes, path)
+
+    def export_node_snapshot_csv(self, path: str):
+        r = self.last_result
+        num_pods = np.zeros(len(self.nodes), np.int64)
+        np.add.at(num_pods, r.placed_node[r.placed_node >= 0], 1)
+        export_node_snapshot_csv(
+            NodeState(*(a.numpy() for a in r.state)), self.nodes, num_pods,
+            path)
 
     def finish(self):
         """The unscheduled-count line (apply.go:228). The analysis parser

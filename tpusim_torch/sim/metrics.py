@@ -15,13 +15,14 @@ the telemetry's device:
 The integer series are exact in any order. The float32 frag series are
 printed with enough digits for their order to show, so each float sum
 follows the reference's CPU build as XLA compiles this function there:
-the initial total in one tree sum over nodes and typical pods
-(`ops.frag.tree_sum`), each event's row in the tree's windows over the
-typical pods or, where they need none, in the vectorised order of
-`ops.frag.lane_sum`, and the cumulative sums in XLA's blocked scan
-(`xla_cumsum`). Every step is an elementwise add, so the card gives the
-CPU's bits. The power rows are whole watts, exact in float32 at any
-cluster size the port runs, but take the same orders.
+once an axis is longer than 32, the initial total in one tree sum over
+nodes and typical pods (`ops.frag.tree_sum`) and each row in the tree's
+windows over the typical pods; else the vectorised loops LLVM makes of
+them (`ops.frag.initial_total`, `initial_rows`, `row_stages`); and the
+cumulative sums in XLA's blocked scan (`xla_cumsum`). Every step is an
+elementwise add, so the card gives the CPU's bits. The power rows are
+whole watts, exact in float32 at any cluster size the port runs, but take
+the same orders.
 """
 
 from __future__ import annotations
@@ -30,7 +31,12 @@ import torch
 
 from tpusim_torch.constants import MILLI
 from tpusim_torch.ops.energy import node_power
-from tpusim_torch.ops.frag import node_frag_contrib, tree_sum
+from tpusim_torch.ops.frag import (
+    initial_rows,
+    initial_total,
+    node_frag_contrib,
+    tree_sum,
+)
 from tpusim_torch.sim.engine import (
     EV_CREATE,
     EV_DELETE,
@@ -152,19 +158,18 @@ def compute_event_metrics(init_state: NodeState, specs: PodSpec, ev_kind,
     gtyp_s, ctyp_s = s.gpu_type[node_s], s.cpu_type[node_s]
     post_cpu32, post_gpu32 = post_cpu_s.int(), post_gpu_s.int()
 
-    # frag series: initial totals + the cumulative row changes
-    # (XLA folds the sum over nodes of the per-node sums over typical pods
-    # into one sum over both axes, so the initial total is a tree sum of
-    # the [N, T, 7] contributions)
+    # frag series: initial totals + the cumulative row changes (XLA folds
+    # the sum over nodes of the per-node sums over typical pods into one
+    # sum over both axes)
     init_contrib = node_frag_contrib(s.cpu_left, s.gpu_left, s.gpu_type, tp)
-    init_rows = tree_sum(init_contrib.movedim(1, 0), 1)
+    init_rows = initial_rows(init_contrib)
     # (the per-event rows' sums over typical pods are fused into the loop
     # that computes the contributions, which XLA vectorises: `lanes`)
     new_rows = tree_sum(node_frag_contrib(post_cpu32, post_gpu32, gtyp_s,
                                           tp).movedim(1, 0), 1, lanes=True)
     frag_delta = _rows_delta(new_rows, init_rows, node_s, head, valid_s,
                              order)
-    frag_amounts = (tree_sum(init_contrib, 2)[None, :]
+    frag_amounts = (initial_total(init_contrib)[None, :]
                     + xla_cumsum(frag_delta))
 
     # power series: the same, on (cpu watts, gpu watts) per node
