@@ -440,6 +440,22 @@ def test_example_bundles_match_jax(bundle):
     assert port == jax
 
 
+@pytest.mark.parametrize("bundle", EXAMPLES)
+def test_default_profile_matches_jax(bundle):
+    """apply without a scheduler config runs the built-in profile (Simon,
+    BestFit, Random, DotProduct, FGD and PWR at weight 1): the same
+    standard output, but for the [Engine] lines; the quickstart bundle's
+    digest is the one chip_smoke.py holds the card to."""
+    argv = ["-f", os.path.join(REPO, bundle, "test-cluster-config.yaml"),
+            "--base-dir", REPO]
+    port, jax = _apply_both(argv)
+    assert "Cluster Analysis" in port
+    assert port == jax
+    if bundle == "example":
+        assert hashlib.sha256(port.encode()).hexdigest() == \
+            chip_smoke.APPLY_DEFAULT_SHA256
+
+
 NODE_TMPL = """apiVersion: v1
 kind: Node
 metadata:
@@ -556,6 +572,9 @@ def _exports(out_dir):
 SCHEDULERS = {
     "fgd": os.path.join(REPO, "example", "test-scheduler-config.yaml"),
     "pwr": os.path.join(REPO, "example", "new1", "test-scheduler-config.yaml"),
+    # no scheduler config: the built-in profile, which draws per event, so
+    # every stage (main, inflation, the swap, each app) has its root key
+    "default": None,
 }
 
 
@@ -563,12 +582,15 @@ SCHEDULERS = {
 def test_full_bundle_matches_jax(tmp_path, sched):
     """A bundle with the YAML app and the Helm chart of chip_smoke.py, the
     new-workload swap, inflation 1.5, tuning 1.2 and the snapshot exports,
-    under FGD and PWR: the same standard output (the per-event blocks of
-    every stage, the failed pods, each Cluster Analysis, the verdict and
-    the report tables with open-local) and the same exported files."""
+    under FGD, PWR and the built-in profile: the same standard output (the
+    per-event blocks of every stage, the failed pods, each Cluster
+    Analysis, the verdict and the report tables with open-local) and the
+    same exported files."""
     cr_p, out_p = _bundle(tmp_path, "port")
     cr_j, out_j = _bundle(tmp_path, "jax")
-    common = ["-s", SCHEDULERS[sched], "-e", "gpu,open-local", "--report"]
+    common = ["-e", "gpu,open-local", "--report"]
+    if SCHEDULERS[sched]:
+        common += ["-s", SCHEDULERS[sched]]
     port, jax = _apply_both(["-f", cr_p, *common], ["-f", cr_j, *common])
     for stage in ("Scheduling app yaml-app", "Scheduling app infer",
                   "(Inflation) Num of Total Pods", "Node Local Storage"):

@@ -13,9 +13,10 @@ import pytest
 import torch
 
 from chip_smoke import (
-    DIM_EXT, INIT_NODES, INIT_ROWS, METHODS, NORM, SHAPE_CASES, SHAPE_ROWS,
-    WIDE_BLOCKED, against_plain, init_case, init_config, over_staged_limit,
-    random_case, shape_errors,
+    DIM_EXT, INIT_NODES, INIT_ROWS, METHODS, MIXES, NORM, PAST_LIMIT,
+    PAST_LIMIT_ROWS, RANDOMIZED_ROWS, SHAPE_CASES, SHAPE_ROWS, WIDE_BLOCKED,
+    against_plain, init_case, init_config, past_limit_errors, random_case,
+    shape_errors,
 )
 from tpusim_torch.io.trace import (
     build_events, load_node_csv, load_pod_csv, pods_to_specs,
@@ -62,8 +63,9 @@ def test_kernels_match_plain_on_card(cuda_device, seed, self_select):
                                     tables), cfg) == 0
 
 
-# every method row's configuration, FGD with gpu_sel worst, and the
-# DotProduct (dim_ext, norm) pairs
+# every method row's configuration (01-Random, Simon and the six-policy
+# profile among them), FGD with gpu_sel worst, the DotProduct (dim_ext,
+# norm) pairs and the mixes of RandomScore, gpu_sel random and Simon
 # FGD as the second policy: its refresh items and device picks follow
 # another policy's segment
 FGD_SECOND = ([("PWRScore", 500), ("FGDScore", 500)], "FGDScore", "share",
@@ -74,6 +76,15 @@ CONFIGS = (
     + [([("DotProductScore", 1000)], "DotProductScore", d, n)
        for d in DIM_EXT for n in NORM]
     + [FGD_SECOND]
+    + [(policies, gpu_sel, "share", "max") for _, policies, gpu_sel in MIXES]
+)
+# the configurations replay_blocked runs: every method row that does not
+# draw per event, FGD with gpu_sel worst, FGD second, and Simon+FGD
+BLOCKED_CONFIGS = (
+    [tuple(row[1:5]) for row in METHODS if row[0] not in RANDOMIZED_ROWS]
+    + [([("FGDScore", 1000)], "worst", "share", "max"), FGD_SECOND]
+    + [(policies, gpu_sel, "share", "max")
+       for label, policies, gpu_sel in MIXES if label == "Simon+FGD"]
 )
 
 
@@ -132,16 +143,16 @@ def test_simulator_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policies,gpu_sel,dim_ext,norm",
-                         CONFIGS[:10] + [FGD_SECOND],
+@pytest.mark.parametrize("policies,gpu_sel,dim_ext,norm", BLOCKED_CONFIGS,
                          ids=lambda v: str(v))
 def test_blocked_kernel_matches_plain_on_card(cuda_device, policies, gpu_sel,
                                               dim_ext, norm):
     """replay_blocked against plain_replay_blocked (on CPU copies of the
     same inputs), outputs, stats, final tables and summaries, on a seeded
     random cluster of 300 nodes padded to three 128-node blocks, under
-    every method row's configuration, FGD with gpu_sel worst and FGD as
-    the second policy."""
+    every method row's configuration that draws nothing per event (Simon's
+    min-max path among them), FGD with gpu_sel worst, FGD as the second
+    policy and Simon+FGD."""
     cfg = fe.make_config(policies, gpu_sel, dim_ext, norm)
     state, pods, types, evk, evp, tp, rank = random_case(
         34, 300, 200, cuda_device)
@@ -218,24 +229,48 @@ def test_type_shapes_match_plain_on_card(cuda_device, label, row):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["types", "typical"])
-def test_wrappers_refuse_past_staged_limits(cuda_device, which):
-    """One pod type or typical pod past what the kernels stage: every
-    wrapper raises before launching."""
-    args, cfg = over_staged_limit(which, cuda_device)
-    state, pods, types, evk, evp, tp, rank, tables = args
-    fe.reset_launch_counts()
-    with pytest.raises(ValueError, match="stage at most"):
-        fe.init_tables(state, types, tp, cfg)
-    with pytest.raises(ValueError, match="stage at most"):
-        fe.replay(*args, cfg)
-    padded, rank = pad_nodes(state, rank, 128)
-    with pytest.raises(ValueError, match="stage at most"):
-        he.replay_blocked(padded, pods, types, evk, evp, tp, rank,
-                          tuple(t.new_zeros((t.shape[0], padded.num_nodes))
-                                for t in tables), cfg)
-    assert fe.init_tables.launches == 0 and fe.replay.launches == 0
-    assert he.replay_blocked.launches == 0
+@pytest.mark.parametrize("row", PAST_LIMIT_ROWS)
+@pytest.mark.parametrize("which", [case[0] for case in PAST_LIMIT])
+def test_wrappers_refuse_past_staged_limits(cuda_device, which, row):
+    """One pod type (K = 2049) or one typical pod (T = 1025) past what the
+    kernels' staged forms hold: the wrappers no longer refuse, the host
+    launches the global forms, and init_tables and both replay kernels
+    equal their plain versions (under FGD, and the six-policy profile
+    through the randomized replay)."""
+    assert past_limit_errors(which, row, cuda_device) == dict(
+        init_tables=0, replay=0, replay_blocked=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", RANDOMIZED_ROWS)
+def test_randomized_rows_run_flat_under_hbm(cuda_device, row):
+    """A configuration that draws per event runs the flat replay, from the
+    main replay's root key, whatever table_residency says: the same log,
+    placements and masks as the plain replay on the CPU, on a 300-node,
+    400-pod cut of openb."""
+    _, policies, gpu_sel, dim_ext, norm = [r for r in METHODS
+                                           if r[0] == row][0][:5]
+    nodes = load_node_csv(os.path.join(
+        REPO, "data/csv/openb_node_list_gpu_node.csv"))[:300]
+    pods = load_pod_csv(os.path.join(
+        REPO, "data/csv/openb_pod_list_default.csv"))[:400]
+    runs = []
+    for device in ("cuda", "cpu"):
+        fe.reset_launch_counts()
+        sim = Simulator(nodes, SimulatorConfig(
+            policies=tuple(policies), gpu_sel_method=gpu_sel,
+            dim_ext_method=dim_ext, norm_method=norm, table_residency="hbm"),
+            device=device)
+        sim.set_workload_pods(pods)
+        runs.append((sim.run(), [line for line in sim.log.lines
+                                 if "[Engine]" not in line]))
+        assert sim.last_residency == "vmem"
+        assert he.replay_blocked.launches == 0
+        assert fe.replay.launches == (device == "cuda")
+    (gpu, gpu_log), (cpu, cpu_log) = runs
+    assert gpu_log == cpu_log
+    assert np.array_equal(gpu.placed_node, cpu.placed_node)
+    assert np.array_equal(gpu.dev_mask, cpu.dev_mask)
 
 
 def _cpu(tree):

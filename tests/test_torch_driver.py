@@ -81,6 +81,9 @@ def test_method_row_matches_jax_on_openb_prefix(row):
     (["-PWR", "500", "-FGD", "500", "-gpusel", "FGDScore"],
      "08-PWR_500_FGD_500"),
     (["-DotProd", "1000", "-dimext", "merge"], "02-DotProd"),
+    (["-Random", "1000", "-gpusel", "random", "-dimext", "merge"],
+     "01-Random"),
+    (["-Simon", "1000"], "Simon"),
 ])
 def test_cli_matches_jax(tmp_path, capsys, flags, row):
     """`python -m tpusim_torch --device cpu` on a 60-node, 200-pod cut,

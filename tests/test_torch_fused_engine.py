@@ -24,6 +24,7 @@ from tpusim.io.trace import build_events, pods_to_specs
 from tpusim.policies import make_policy
 from tpusim.sim.pallas_engine import make_pallas_replay
 from tpusim.sim.table_engine import build_pod_types, make_table_replay
+from tpusim_torch.ops import prng
 from tpusim_torch.sim import fused_engine as fe
 
 
@@ -127,8 +128,25 @@ def test_wrappers_take_plain_path_on_cpu():
      ([("RandomScore", 500), ("FGDScore", 500)], "FGDScore")],
 )
 def test_uncovered_configs_raise(policies, gpu_sel):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fe.make_fused_replay(policies, gpu_sel, "cpu")
+    """The configurations the port refused before it drew from JAX's key
+    chain and had a Simon column (RandomScore, Simon, gpu_sel random, a
+    RandomScore mix) now replay, bit-identical to tpusim's table engine,
+    which is what tpusim's Simulator runs for them."""
+    jstate, jtp, jpods, ev_kind, ev_pod, rank = _random_case(
+        31 + len(policies), pinned=True)
+    jtypes = build_pod_types(jpods)
+    want = make_table_replay([(make_policy(n), w) for n, w in policies],
+                             gpu_sel=gpu_sel)(
+        jstate, jpods, jtypes, ev_kind, ev_pod, jtp,
+        jax.random.PRNGKey(3), rank,
+    )
+    got = fe.make_fused_replay(policies, gpu_sel, "cpu")(
+        port_state(jstate), port_specs(jpods), port_types(jtypes),
+        torch.as_tensor(np.array(ev_kind)), torch.as_tensor(np.array(ev_pod)),
+        port_typical(jtp), prng.prng_key(3), torch.as_tensor(np.array(rank)),
+    )
+    _assert_replays_equal(got, want)
+    assert (got.event_node >= 0).any()
 
 
 @pytest.mark.parametrize(

@@ -20,7 +20,11 @@ from tests.test_torch_types_trace import (
 )
 from tpusim.policies import make_policy
 from tpusim.sim.pallas_engine import make_pallas_replay, supports
-from tpusim.sim.table_engine import build_pod_types, make_table_replay
+from tpusim.sim.table_engine import (
+    build_pod_types,
+    make_table_replay,
+    selector_index,
+)
 from tpusim_torch.sim import fused_engine as fe
 
 # (policies, gpu_sel, dim_ext, norm, seed)
@@ -105,14 +109,21 @@ def test_config_tables_stack_policies():
     ["RandomScore", "FGDScore"],
 ])
 def test_covers_what_pallas_supports(names):
-    """make_config accepts a (policies, gpu_sel) config exactly where the
-    reference's fused kernel does (pallas_engine.supports)."""
+    """make_config accepts a (policies, gpu_sel) config exactly where
+    tpusim's Simulator runs it under `auto`: through its fused kernel
+    (pallas_engine.supports) or through its table engine (Simon and the
+    randomized configurations), with a gpuSelMethod the reference's plugin
+    lookup resolves: best, worst, random, or an enabled self-select policy
+    (table_engine.selector_index; for any other name tpusim's table engine
+    would quietly take best fit where the reference fails)."""
     for gpu_sel in ("best", "worst", "random", "FGDScore", "PWRScore",
                     "DotProductScore", "Simon"):
-        want = supports([(make_policy(n), 1) for n in names], gpu_sel)
+        fns = [(make_policy(n), 1) for n in names]
+        want = supports(fns, gpu_sel) or gpu_sel in (
+            "best", "worst", "random") or selector_index(fns, gpu_sel) >= 0
         try:
             fe.make_config([(n, 1) for n in names], gpu_sel)
             got = True
-        except (NotImplementedError, ValueError):
+        except ValueError:
             got = False
         assert got == want, (names, gpu_sel)

@@ -38,6 +38,24 @@ def test_select_residency(n, k, num_pol, l2, want):
         (num_pol + 2) * k * (-(-n // 128) * 128) * 4
 
 
+@pytest.mark.parametrize("setting,randomized,l2,want", [
+    ("auto", False, 50 * _MIB, "vmem"),
+    ("auto", False, 1, "hbm"),
+    ("auto", False, None, "vmem"),  # no card
+    ("hbm", False, 50 * _MIB, "hbm"),
+    ("vmem", False, 1, "vmem"),
+    ("auto", True, 1, "vmem"),
+    ("hbm", True, 50 * _MIB, "vmem"),
+    ("hbm", True, None, "vmem"),
+], ids=["auto", "auto-small-l2", "auto-no-card", "hbm", "vmem",
+        "random-auto", "random-hbm", "random-hbm-no-card"])
+def test_replay_tier(setting, randomized, l2, want):
+    """The tier choice: a randomized configuration runs the flat replay
+    whatever the setting; else the setting, or the L2 rule under auto."""
+    assert residency.replay_tier(setting, randomized, 1213, 151, 1,
+                                 l2) == want
+
+
 def test_blocked_extra_bytes_match_summaries():
     """blocked_extra_bytes counts the summaries and the padded rank."""
     jstate, jtp, jpods, *_, rank = _random_case(72, 300, 100)

@@ -4,13 +4,27 @@ the rule the replay_blocked kernel follows) against the full dirty-block
 refresh of plain_replay_blocked, which test_torch_hbm_engine.py holds to
 the JAX package's blocked table engine: all seven summary arrays must be
 equal after every event, with zero tolerance. Also: the final tables the
-plain replays leave, and the limits of what the replay kernels stage."""
+plain replays leave, and replays past the limits of what the kernels'
+staged forms hold (against tpusim's table engine)."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tests.fixtures import random_cluster, random_pods
+from tests.test_torch_fused_engine import _assert_replays_equal
 from tests.test_torch_hbm_engine import _port_args, _random_case
+from tests.test_torch_types_trace import (
+    port_specs,
+    port_state,
+    port_typical,
+    port_types,
+)
+from tpusim.policies import make_policy
+from tpusim.sim.table_engine import build_pod_types, make_table_replay
+from tpusim.types import make_typical_pods
 from tpusim_torch import kernels
 from tpusim_torch.parallel.sharding import pad_nodes
 from tpusim_torch.sim import fused_engine as fe
@@ -215,9 +229,39 @@ def test_final_tables_are_the_final_state_but_the_last_column(row):
     assert set(keep_blocked["summaries"]._fields) == set(he.Summaries._fields)
 
 
-def test_staged_size_limits():
-    fe.check_staged_sizes(kernels.MAX_TYPES, kernels.MAX_TYPICAL)
-    with pytest.raises(ValueError, match="stage at most"):
-        fe.check_staged_sizes(kernels.MAX_TYPES + 1, 1)
-    with pytest.raises(ValueError, match="stage at most"):
-        fe.check_staged_sizes(1, kernels.MAX_TYPICAL + 1)
+@pytest.mark.parametrize("which", ["types", "typical"])
+def test_staged_size_limits(which):
+    """One pod type (K = 2049) or one typical pod (T = 1025) past what the
+    kernels' staged forms hold, where the host launches their global
+    forms: the plain replay on a small cluster equals tpusim's table
+    engine (placements, masks, failures, telemetry, final state)."""
+    rng = np.random.default_rng(91 if which == "types" else 92)
+    jstate, jtp = random_cluster(rng, num_nodes=12)
+    k = kernels.MAX_TYPES + 1 if which == "types" else 40
+    jpods = random_pods(rng, num_pods=k)
+    # distinct CPU requests: one pod type a pod
+    jpods = jpods._replace(cpu=jnp.asarray(
+        100 + 7 * np.arange(k, dtype=np.int32)))
+    if which == "typical":
+        t = kernels.MAX_TYPICAL + 1
+        freq = rng.random(t).astype(np.float32)
+        jtp = make_typical_pods(list(zip(
+            rng.choice([1000, 4000, 8000], t).tolist(),
+            rng.choice([0, 100, 250, 500, 1000], t).tolist(),
+            rng.choice([1, 2], t).tolist(), rng.choice([0, 1, 6], t).tolist(),
+            (freq / freq.sum()).tolist())))
+    ev_kind = np.zeros(40, np.int32)
+    ev_pod = rng.permutation(k)[:40].astype(np.int32)
+    jtypes = build_pod_types(jpods)
+    assert not kernels.staged(jtypes.share.cpu.shape[0]
+                              + jtypes.whole.cpu.shape[0],
+                              int(jtp.cpu.shape[0]))
+    want = make_table_replay([(make_policy("FGDScore"), 1000)],
+                             gpu_sel="FGDScore")(
+        jstate, jpods, jtypes, jnp.asarray(ev_kind), jnp.asarray(ev_pod),
+        jtp, jax.random.PRNGKey(0), jnp.arange(12, dtype=jnp.int32))
+    got = fe.make_fused_replay([("FGDScore", 1000)], "FGDScore", "cpu")(
+        port_state(jstate), port_specs(jpods), port_types(jtypes),
+        torch.as_tensor(ev_kind), torch.as_tensor(ev_pod), port_typical(jtp))
+    _assert_replays_equal(got, want)
+    assert (got.event_node >= 0).sum() > 10

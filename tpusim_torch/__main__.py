@@ -2,7 +2,8 @@
 experiment's log and analysis CSVs.
 
     python -m tpusim_torch [-FGD W] [-PWR W] [-BestFit W] [-GpuPacking W]
-        [-GpuClustering W] [-DotProd W] [-gpusel SEL] [-dimext M] [-norm M]
+        [-GpuClustering W] [-DotProd W] [-Random W] [-Simon W]
+        [-gpusel SEL] [-dimext M] [-norm M]
         [-tune R] [-tuneseed S] [--shuffle-pod true|false]
         [--workload-inflation-ratio R] [-seed S]
         [-f POD_TRACE] [--node-trace NODE_CSV] [--use-timestamps]
@@ -13,7 +14,8 @@ The method flags are those of experiments/run.py: one integer weight per
 score policy, the gpuSelMethod, and DotProduct's dim-ext and norm methods.
 With no policy flag the run is the paper's FGD configuration (FGDScore at
 weight 1000, gpu_sel FGDScore); the other rows of the paper's method list
-are, for example, `-BestFit 1000` or `-PWR 500 -FGD 500 -gpusel FGDScore`.
+are, for example, `-BestFit 1000`, `-PWR 500 -FGD 500 -gpusel FGDScore` or
+`-Random 1000 -gpusel random -dimext merge` (01-Random).
 Pods are shuffled and tuned to 1.3 x the cluster's GPU capacity with seed
 42 unless the flags say otherwise; the node tie-break uses the tuning seed;
 the typical pods are experiments/run.py's (popularity 95, step 1). A
@@ -48,6 +50,8 @@ _DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 # score policy -> its weight flag, in experiments/run.py's order
 POLICY_FLAGS = {
+    "Simon": "Simon",
+    "RandomScore": "Random",
     "DotProductScore": "DotProd",
     "GpuClusteringScore": "GpuClustering",
     "GpuPackingScore": "GpuPacking",
@@ -127,7 +131,7 @@ def main(argv=None) -> int:
     for flag in POLICY_FLAGS.values():
         ap.add_argument(f"-{flag}", type=int, default=0, help="score weight")
     ap.add_argument("-gpusel", "--gpu-sel-method", default=None,
-                    help="best | worst | FGDScore | PWRScore | "
+                    help="best | worst | random | FGDScore | PWRScore | "
                     "DotProductScore (default: FGDScore without policy "
                     "flags, else best)")
     ap.add_argument("-dimext", "--dim-ext-method", default="share")

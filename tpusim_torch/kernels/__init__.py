@@ -40,8 +40,9 @@ NVCC_FLAGS = (
 KERNELS = ("init_tables", "replay", "replay_blocked")
 # the most policies one configuration may combine (replay.cu kMaxPolicies)
 MAX_POLICIES = 6
-# the most pod types and typical pods the kernels stage in shared memory
-# (replay.cu kMaxTypes, kMaxTypical)
+# the most pod types and typical pods the kernels' staged forms hold in
+# shared memory (replay.cu kMaxTypes, kMaxTypical); past either, the host
+# launches their global forms
 MAX_TYPES = 2048
 MAX_TYPICAL = 1024
 # the library variants by name: their extra nvcc definitions
@@ -68,7 +69,7 @@ POINTER_FIELDS = (
     "ev_kind", "ev_pod",
     "placed", "maskb", "failed", "ev_node", "ev_devb",
     "bt", "br", "bn", "brmin", "brmax", "slo", "shi", "stats", "clocks",
-    "t_order",
+    "t_order", "mem_cap", "scratch",
 )
 
 
@@ -84,6 +85,7 @@ class ReplayArgs(ctypes.Structure):
            for name in ("pol_column", "pol_norm", "pol_weight")]
         + [(name, ctypes.c_int32) for name in ("sel", "gpu_sel", "dim_ext",
                                                "norm")]
+        + [("key", ctypes.c_uint32 * 2)]
     )
 
 
@@ -168,6 +170,8 @@ def library(variant: str = "") -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(ReplayArgs), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.replay_scratch_bytes.argtypes = [ctypes.c_int] * 4
+        lib.replay_scratch_bytes.restype = ctypes.c_size_t
         lib.empty_launch.argtypes = [ctypes.c_void_p]
         lib.empty_launch.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
@@ -185,6 +189,18 @@ def launch(name: str, args: ReplayArgs, stream: int,
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def staged(num_types: int, num_typical: int) -> bool:
+    """Whether a shape fits the kernels' staged forms; the host launches
+    the global forms past them."""
+    return num_types <= MAX_TYPES and num_typical <= MAX_TYPICAL
+
+
+def scratch_bytes(k: int, t: int, n_pol: int, blocked: bool) -> int:
+    """Bytes of a replay's scratch buffer in the global form (replay.cu
+    replay_scratch_bytes)."""
+    return int(library().replay_scratch_bytes(k, t, n_pol, int(blocked)))
 
 
 def launch_empty(stream: int, variant: str = "") -> None:

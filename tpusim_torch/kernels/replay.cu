@@ -2,17 +2,21 @@
 //
 // Replaces the fused whole-replay Pallas kernel of the JAX package
 // (tpusim/sim/pallas_engine.py: _make_kernel :780, launched at :1260 by
-// make_pallas_replay :1122) for every configuration it covers: any list of
-// the policies FGDScore, BestFitScore, GpuPackingScore, GpuClusteringScore,
-// PWRScore and DotProductScore with integer weights, and gpu_sel best,
-// worst or an enabled self-select policy. Its column functions are
-// _fgd_column :360, _bestfit_column :451, _packing_column :464,
-// _clustering_column :494, _pwr_column :521, _make_dotprod_column :578 and
-// _feas_column :739.
+// make_pallas_replay :1122) for every configuration it covers, and the
+// configurations tpusim runs on its table engine instead (Simon, which has
+// no Pallas column, and the randomized ones, for Pallas has no jax.random;
+// tpusim/sim/table_engine.py make_flat_body :1019): any list of up to six
+// of the policies FGDScore, BestFitScore, GpuPackingScore,
+// GpuClusteringScore, PWRScore, DotProductScore, Simon and RandomScore with
+// integer weights, and gpu_sel best, worst, random or an enabled
+// self-select policy. Its column functions are _fgd_column :360,
+// _bestfit_column :451, _packing_column :464, _clustering_column :494,
+// _pwr_column :521, _make_dotprod_column :578 and _feas_column :739, and
+// tpusim/policies/simon.py simon_score.
 //
 // Three kernels share the __device__ column functions (one per policy,
 // `*_pair`, scoring one pod type on one node):
-//   init_tables_kernel  fills the [n_pol*K, N] score, [K, N] share-device
+//   init_tables_kernel  fills the [rows*K, N] score, [K, N] share-device
 //                       and [K, N] Filter tables of the initial state (the
 //                       Pallas kernel's event-0 table build, :903-910, and
 //                       pass 1 of the HBM kernel, :1669-1701): a block per
@@ -47,7 +51,24 @@
 // All three kernels are templates on the configuration's shape: <false> is
 // specialised to the paper's FGD configuration (one FGDScore policy, gpu_sel
 // FGDScore or best) and skips the descriptor, the normalisation pass and the
-// policy loop; <true> reads the policy descriptor.
+// policy loop; <true> reads the policy descriptor. `replay` has a third
+// instantiation for the randomized configurations (RandomScore, gpu_sel
+// random), which only it runs (tpusim runs them flat too: `bsz = 0 if
+// has_random`, table_engine.py:1259): JAX's event key chain advanced by one
+// thread per event (threefry2x32, as jax.random's partitionable form), the
+// uniform draw over the feasible nodes spread over the block like the
+// select, and the Reserve's device draw. RandomScore has no table rows: the
+// host puts it last, so the other policies' rows keep their indices.
+//
+// Staged and global forms. The replay kernels stage the pod types and the
+// typical pods in shared memory, which holds at most kMaxTypes types and
+// kMaxTypical typical pods; init_tables' tiles hold as many. Past either,
+// the host launches the global form: the replays lay the same arrays out in
+// a scratch buffer in device memory (ReplayArgs::scratch) and read the type
+// fields where the caller keeps them, and init_tables runs init_pairs, a
+// thread per (type, node) through the refresh's column functions. The
+// arrays are small and stay in L2. The staged instantiations are the ones
+// every shape within the limits runs, as before.
 //
 // What bounds the replay kernels on this card: the replay is a serial chain
 // of events, so its time is latency, not bytes or operations, and the design
@@ -103,8 +124,9 @@ constexpr int kBatch = 8;  // init_tables: the most types FGD sums at once
 constexpr int kReplayThreads = 512;
 constexpr int kMaxPolicies = 6;
 constexpr int kBlock = 128;  // nodes per block summary of replay_blocked
-// the most pod types and typical pods the replay kernels stage in shared
-// memory (tpusim_torch.kernels MAX_TYPES, MAX_TYPICAL)
+// the most pod types and typical pods the staged forms hold in shared
+// memory (tpusim_torch.kernels MAX_TYPES, MAX_TYPICAL); larger shapes run
+// the global forms
 constexpr int kMaxTypes = 2048;
 constexpr int kMaxTypical = 1024;
 constexpr int kEvBatch = 32;  // events staged at a time, one a lane
@@ -117,6 +139,8 @@ constexpr int kPacking = 2;
 constexpr int kClustering = 3;
 constexpr int kPwr = 4;
 constexpr int kDotProd = 5;
+constexpr int kSimon = 6;
+constexpr int kRandomScore = 7;  // a draw per event: no table rows
 // normalize modes (NORMALIZE_IDS)
 constexpr int kNormNone = 0;
 constexpr int kNormMinMax = 1;
@@ -124,6 +148,7 @@ constexpr int kNormMinMax = 1;
 constexpr int kSelBest = 0;
 constexpr int kSelWorst = 1;
 constexpr int kSelSelf = 2;
+constexpr int kSelRandom = 3;
 // DotProduct dim_ext and norm (DIM_EXT_METHODS, NORM_METHODS order)
 constexpr int kMerge = 0;
 constexpr int kDivide = 2;
@@ -167,8 +192,9 @@ enum ClockSlot {
 extern "C" {
 
 // Every device pointer, size and configuration value the two kernels read.
-// Tables are row-major: score [n_pol*k, n] (policy-major, then type), sdev
-// and feas [k, n]; gpu_left is [n, 8]; aff_cnt is [n, 9]. Types hold the ks
+// Tables are row-major: score [rows*k, n] (policy-major, then type; rows =
+// table_rows: every policy but a RandomScore, which comes last), sdev and
+// feas [k, n]; gpu_left is [n, 8]; aff_cnt is [n, 9]. Types hold the ks
 // share-GPU types first.
 struct ReplayArgs {
   int32_t* cpu_left;
@@ -229,6 +255,12 @@ struct ReplayArgs {
   // key, share or whole, milli and GPU count, ties by index; null for the
   // others
   const int32_t* t_order;
+  // the nodes' memory capacity (Simon's base)
+  const int32_t* mem_cap;
+  // the replays' global form: where the arrays the staged form keeps in
+  // shared memory live (replay_scratch_bytes bytes); null for the staged
+  // form
+  void* scratch;
   int32_t n;
   int32_t k;
   int32_t ks;
@@ -246,11 +278,20 @@ struct ReplayArgs {
   int32_t gpu_sel;
   int32_t dim_ext;
   int32_t norm;
+  // the root key of JAX's event key chain (jax.random.PRNGKey(seed) with
+  // x64 off: 0, seed mod 2^32); read by the randomized replay only
+  uint32_t key[2];
 };
 
 }  // extern "C"
 
 namespace {
+
+// the policies with score-table rows: all but a RandomScore, which the
+// host puts last
+__device__ __forceinline__ int table_rows(const ReplayArgs& a) {
+  return a.n_pol - (a.pol_column[a.n_pol - 1] == kRandomScore ? 1 : 0);
+}
 
 struct NodeView {
   int cpu;
@@ -775,10 +816,41 @@ __device__ __forceinline__ int feas_pair(const ReplayArgs& a,
                  a.t_mask[k]);
 }
 
-// raw score and device pick of policy `pi` for type k on one node
+// Simon's share(req, total) (algo/greed.go:78-91)
+__device__ __forceinline__ float simon_share(float req, float total) {
+  return total == 0.0f ? (req != 0.0f ? 1.0f : 0.0f) : __fdiv_rn(req, total);
+}
+
+// Simon (tpusim/policies/simon.py; policies/simon.py): from the node's
+// capacity (cpu cap, `mem_cap`, GPU count) alone, round half to even of
+// 100 x the largest share over milli-CPU, MiB and milli-GPU, in that order
+__device__ __forceinline__ int simon_pair(const ReplayArgs& a,
+                                          const NodeView& v, int mem_cap,
+                                          int k) {
+  const float cpu = static_cast<float>(a.t_cpu[k]);
+  const float mem = static_cast<float>(a.t_mem[k]);
+  const float gpu = static_cast<float>(a.t_milli[k] * a.t_num[k]);
+  float res = fmaxf(0.0f, simon_share(
+      cpu, __fsub_rn(static_cast<float>(v.cap), cpu)));
+  res = fmaxf(res, simon_share(
+      mem, __fsub_rn(static_cast<float>(mem_cap), mem)));
+  res = fmaxf(res, simon_share(
+      gpu, __fsub_rn(static_cast<float>(v.gcnt * kMilli), gpu)));
+  return to_i32(rintf(__fmul_rn(static_cast<float>(kMaxNodeScore), res)));
+}
+
+// raw score and device pick of table policy `pi` (not RandomScore, which
+// has no column) for type k on one node, `node`. <false> leaves Simon out,
+// for an instantiation whose configurations lack it (replay_blocked's staged
+// general kernel, whose registers that column would spill).
+template <bool kAllColumns = true>
 __device__ void policy_pair(const ReplayArgs& a, const NodeView& v, int pi,
-                            int k, int* score, int* sdev) {
+                            int k, int node, int* score, int* sdev) {
   *sdev = -1;
+  if (kAllColumns && a.pol_column[pi] == kSimon) {
+    *score = simon_pair(a, v, a.mem_cap[node], k);
+    return;
+  }
   switch (a.pol_column[pi]) {
     case kFgd:
       fgd_pair(a, v, k, score, sdev);
@@ -800,6 +872,54 @@ __device__ void policy_pair(const ReplayArgs& a, const NodeView& v, int pi,
       dotprod_pair(a, v, k, score, sdev);
       break;
   }
+}
+
+// One Threefry-2x32 round group: four rounds of add, rotate, xor
+__device__ __forceinline__ void threefry_rounds(uint32_t& x0, uint32_t& x1,
+                                                int r0, int r1, int r2,
+                                                int r3) {
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, r0) ^ x0;
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, r1) ^ x0;
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, r2) ^ x0;
+  x0 += x1;
+  x1 = __funnelshift_l(x1, x1, r3) ^ x0;
+}
+
+// The Threefry-2x32 hash (20 rounds) of counters (x0, x1) under `key`, as
+// jax.random computes it (jax/_src/prng.py _threefry2x32_lowering;
+// tpusim_torch/ops/prng.py threefry2x32)
+__device__ __forceinline__ uint2 threefry2x32(uint2 key, uint32_t x0,
+                                              uint32_t x1) {
+  const uint32_t k2 = key.x ^ key.y ^ 0x1BD11BDAu;
+  x0 += key.x;
+  x1 += key.y;
+  threefry_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += key.y;
+  x1 += k2 + 1u;
+  threefry_rounds(x0, x1, 17, 29, 16, 24);
+  x0 += k2;
+  x1 += key.x + 2u;
+  threefry_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += key.x;
+  x1 += key.y + 3u;
+  threefry_rounds(x0, x1, 17, 29, 16, 24);
+  x0 += key.y;
+  x1 += k2 + 4u;
+  threefry_rounds(x0, x1, 13, 15, 26, 6);
+  x0 += k2;
+  x1 += key.x + 5u;
+  return make_uint2(x0, x1);
+}
+
+// The 23 bits of jax.random.uniform(key, (n,))[i] (partitionable counters:
+// hi 0, lo i): the float is mantissa x 2^-23 exactly, so comparing
+// mantissas compares the uniforms
+__device__ __forceinline__ uint32_t uniform_mantissa(uint2 key, uint32_t i) {
+  const uint2 y = threefry2x32(key, 0u, i);
+  return (y.x ^ y.y) >> 9;
 }
 
 // selectHost candidate: max total, then min tie-break rank, then min node id
@@ -1007,9 +1127,11 @@ __host__ __device__ inline size_t carve(unsigned char* base, int k, int t,
   return c.off;
 }
 
-// Stages the type fields, and the typical pods whose frequency is not 0, in
-// order (their count to *t_count): a pod of frequency 0 adds a zero to each
-// frag sum, which leaves the sum (>= 0) as it is.
+// Stages the type fields (<true>; the global form reads them where the
+// caller keeps them, point_types), and the typical pods whose frequency is
+// not 0, in order (their count to *t_count): a pod of frequency 0 adds a
+// zero to each frag sum, which leaves the sum (>= 0) as it is.
+template <bool kStaged = true>
 __device__ void stage(const ReplayArgs& a, const Smem& m, int* t_count) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
@@ -1029,6 +1151,7 @@ __device__ void stage(const ReplayArgs& a, const Smem& m, int* t_count) {
     }
     if (lane == 0) *t_count = kept;
   }
+  if (!kStaged) return;
   for (int k = threadIdx.x; k < a.k; k += blockDim.x) {
     m.t_cpu[k] = a.t_cpu[k];
     m.t_mem[k] = a.t_mem[k];
@@ -1036,6 +1159,25 @@ __device__ void stage(const ReplayArgs& a, const Smem& m, int* t_count) {
     m.t_num[k] = a.t_num[k];
     m.t_mask[k] = a.t_mask[k];
   }
+}
+
+// The replays' arrays: in shared memory (<true>), or in the scratch buffer
+// with the type fields read where the caller keeps them (the global form)
+template <bool kStaged>
+__device__ __forceinline__ Smem replay_smem(const ReplayArgs& a,
+                                            unsigned char* smem, int n_pol,
+                                            bool blocked) {
+  Smem m;
+  carve(kStaged ? smem : static_cast<unsigned char*>(a.scratch), a.k, a.t,
+        n_pol, blocked, &m);
+  if (!kStaged) {
+    m.t_cpu = const_cast<int*>(a.t_cpu);
+    m.t_mem = const_cast<int*>(a.t_mem);
+    m.t_milli = const_cast<int*>(a.t_milli);
+    m.t_num = const_cast<int*>(a.t_num);
+    m.t_mask = const_cast<int*>(a.t_mask);
+  }
+  return m;
 }
 
 // events first .. first + 31 into `out`, one lane each (one warp)
@@ -1064,13 +1206,18 @@ __device__ __forceinline__ int share_lanes(int group, int ks) {
 // The column-refresh work items, one lane each, per policy a segment
 // starting at a whole warp: FGD's share items (share_lanes) then one per
 // whole type, every other policy's one per type. seg[pi] is policy pi's
-// first item and seg[n_pol] their end.
+// first item and seg[n_pol] their end. <true> (the randomized replay) gives
+// RandomScore, which has no table rows, no items, unless it is policy 0
+// (alone), whose items write the Filter bits.
+template <bool kDraws = false>
 __device__ void layout_items(const ReplayArgs& a, int n_pol, int group,
                              int* seg) {
   int off = 0;
   for (int pi = 0; pi < n_pol; ++pi) {
     seg[pi] = off;
-    const int len = a.pol_column[pi] == kFgd
+    const int len = kDraws && pi > 0 && a.pol_column[pi] == kRandomScore
+                        ? 0
+                        : a.pol_column[pi] == kFgd
                         ? share_lanes(group, a.ks) + (a.k - a.ks)
                         : a.k;
     off += (len + 31) / 32 * 32;
@@ -1104,7 +1251,24 @@ struct EventState {
   int min_p;   // the least milli a share type requests
   int t_count;  // the staged typical pods
   int seg[kMaxPolicies + 1];
+  // the randomized replay's key chain: the chain's key after the events
+  // drawn so far, and each event's k_rand and k_sel, by event parity
+  uint2 key;
+  uint2 krand[2];
+  uint2 ksel[2];
 };
+
+// One step of the event key chain (table_engine.py:1048-1049): key, sub =
+// split(key); k_rand, k_sel = split(sub), split being the partitionable
+// form (threefry2x32 of counters (0, 0) and (0, 1)). Stores the step's
+// k_rand and k_sel in slot `slot` and the next key in es.key. One thread.
+__device__ __forceinline__ void advance_keys(EventState& es, uint2 key,
+                                             int slot) {
+  const uint2 sub = threefry2x32(key, 0u, 1u);
+  es.key = threefry2x32(key, 0u, 0u);
+  es.krand[slot] = threefry2x32(sub, 0u, 0u);
+  es.ksel[slot] = threefry2x32(sub, 0u, 1u);
+}
 
 // FGD's node-only work on the dirty node es.node, by one warp: per typical
 // pod its fit count and sum over the node's devices and whether it can be
@@ -1113,7 +1277,9 @@ struct EventState {
 // type's hypothetical frag depends on the device only through its free
 // milli, so devices with equal values score equal, and the first of them
 // is fgd_pair's pick on a tie), its devices in Sub's order, then the item
-// layout for them. The type-dependent rest is share_term and whole_term.
+// layout for them (layout_items<kDraws>). The type-dependent rest is
+// share_term and whole_term.
+template <bool kDraws = false>
 __device__ void node_terms(const ReplayArgs& a, const Smem& m, EventState& es,
                            int n_pol, int lane) {
   const NodeView& v = es.node;
@@ -1168,7 +1334,7 @@ __device__ void node_terms(const ReplayArgs& a, const Smem& m, EventState& es,
       while (group < nv) group <<= 1;
       es.nv = nv;
       es.group = group;
-      layout_items(a, n_pol, group, es.seg);
+      layout_items<kDraws>(a, n_pol, group, es.seg);
     }
   }
   __syncwarp();
@@ -1265,10 +1431,13 @@ __device__ __forceinline__ float whole_term(const Smem& m, int t, Devs g2,
 // device on ties); a whole type's item sums its Sub's. Every other policy's
 // item scores one type. The type's first item of each policy writes the raw
 // score, the selector's device pick, and for policy 0 the Filter bit; with
-// kBlocked it also records the old and new values for update_summaries. es
-// holds the dirty node and node_terms' results; `marks` are the clocked
-// build's checkpoints.
-template <bool kGeneral, bool kBlocked>
+// kBlocked it also records the old and new values for update_summaries.
+// With kDraws (the randomized replay) a RandomScore item writes the Filter
+// bit and the device pick only: it has no table row. es holds the dirty
+// node and node_terms' results; `marks` are the clocked build's
+// checkpoints.
+template <bool kGeneral, bool kBlocked, bool kAllColumns = true,
+          bool kDraws = false>
 __device__ void refresh_column(const ReplayArgs& a, const Smem& m,
                                const EventState& es, int node,
                                long long* marks) {
@@ -1287,6 +1456,7 @@ __device__ void refresh_column(const ReplayArgs& a, const Smem& m,
       while (pi + 1 < n_pol && w >= seg[pi + 1]) ++pi;
     const int j = w - seg[pi];
     const bool fgd = !kGeneral || a.pol_column[pi] == kFgd;  // warp-uniform
+    const bool draw = kDraws && a.pol_column[pi] == kRandomScore;
     const int share_end = share_lanes(group, ks);
     const bool share = fgd && j < share_end;  // warp-uniform
     const int u = j & (group - 1);
@@ -1371,12 +1541,12 @@ __device__ void refresh_column(const ReplayArgs& a, const Smem& m,
         score = best >= 0 ? best : 0;
         dev = best >= 0 ? kDevs - 1 - (key & (kDevs - 1)) : -1;
       }
-    } else if (active) {
+    } else if (active && !draw) {
       const NodeView v = sv;
-      policy_pair(a, v, pi, k, &score, &dev);
+      policy_pair<kAllColumns>(a, v, pi, k, node, &score, &dev);
     }
     if (!primary) continue;
-    a.score[col] = score;
+    if (!draw) a.score[col] = score;
     if (pi == a.sel) {
       a.sdev[at] = dev;
     } else if (pi == 0 && a.sel < 0) {
@@ -1401,10 +1571,11 @@ __device__ void refresh_column(const ReplayArgs& a, const Smem& m,
 // Reserve + Bind of create event i on `node` (-1 = no feasible node);
 // step.choose_devices / select_and_bind, pallas_engine.py:982-1064. The
 // node's new state also goes to `sn`, and *dirty to the node it changed
-// (-1 if none).
+// (-1 if none). <true> adds gpu_sel random, drawing from `ksel`.
+template <bool kRandomized>
 __device__ void commit_create(const ReplayArgs& a, int i,
                               const EventFields& ev, int node, int gpu_sel,
-                              int* dirty, NodeView* sn) {
+                              int* dirty, NodeView* sn, uint2 ksel) {
   const bool ok = node >= 0;
   const int pm = ev.milli;
   const int pn = ev.num;
@@ -1417,12 +1588,27 @@ __device__ void commit_create(const ReplayArgs& a, int i,
       // a self-select policy's own pick wins where it has one
       int dev = -1;
       int key = 0;
-      for (int d = 0; d < kDevs; ++d) {
-        if (v.g[d] < pm) continue;
-        const bool better = gpu_sel == kSelWorst ? v.g[d] > key : v.g[d] < key;
-        if (dev < 0 || better) {
-          key = v.g[d];
-          dev = d;
+      if (kRandomized && gpu_sel == kSelRandom) {
+        // the fitting device of the largest uniform(k_sel, (8,)), the first
+        // on ties (resource.allocate_share_random)
+        uint32_t best = 0;
+        for (int d = 0; d < kDevs; ++d) {
+          if (v.g[d] < pm) continue;
+          const uint32_t u = uniform_mantissa(ksel, d) + 1u;
+          if (u > best) {
+            best = u;
+            dev = d;
+          }
+        }
+      } else {
+        for (int d = 0; d < kDevs; ++d) {
+          if (v.g[d] < pm) continue;
+          const bool better =
+              gpu_sel == kSelWorst ? v.g[d] > key : v.g[d] < key;
+          if (dev < 0 || better) {
+            key = v.g[d];
+            dev = d;
+          }
         }
       }
       if (gpu_sel == kSelSelf) {
@@ -1509,13 +1695,15 @@ __device__ void commit_delete(const ReplayArgs& a, int i,
 // One warp ends event i: lane 0 commits it (create with `node`, delete, or
 // skip), then, where it changed a node and a policy is FGD, the warp
 // computes that node's terms for the next event's refresh.
+template <bool kRandomized = false>
 __device__ void end_event(const ReplayArgs& a, const Smem& m, EventState& es,
                           int i, const EventFields& ev, int node, int gpu_sel,
                           bool fgd_terms, int n_pol, int lane) {
   int* next = &es.dirty[(i + 1) & 1];
   if (lane == 0) {
     if (ev.kind == kCreate) {
-      commit_create(a, i, ev, node, gpu_sel, next, &es.node);
+      commit_create<kRandomized>(a, i, ev, node, gpu_sel, next, &es.node,
+                                 kRandomized ? es.ksel[i & 1] : uint2{});
     } else if (ev.kind == kDelete) {
       commit_delete(a, i, ev, next, &es.node);
     } else {  // EV_SKIP: nothing changes
@@ -1525,17 +1713,18 @@ __device__ void end_event(const ReplayArgs& a, const Smem& m, EventState& es,
     }
   }
   __syncwarp();
-  if (fgd_terms && *next >= 0) node_terms(a, m, es, n_pol, lane);
+  if (fgd_terms && *next >= 0) node_terms<kRandomized>(a, m, es, n_pol, lane);
 }
 
 // Set-up shared by both replay kernels: stage the launch's constants, the
-// first event batch and the item layout. Returns whether a policy is FGD.
-template <bool kGeneral>
+// first event batch and the item layout (layout_items<kDraws>). Returns
+// whether a policy is FGD.
+template <bool kGeneral, bool kStaged = true, bool kDraws = false>
 __device__ bool begin_replay(const ReplayArgs& a, const Smem& m,
                              EventState& es) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  stage(a, m, &es.t_count);
+  stage<kStaged>(a, m, &es.t_count);
   if (warp == static_cast<int>(blockDim.x >> 5) - 1)
     load_events(a, 0, es.ev[0], lane);
   const int n_pol = kGeneral ? a.n_pol : 1;
@@ -1547,7 +1736,7 @@ __device__ bool begin_replay(const ReplayArgs& a, const Smem& m,
       es.dirty[0] = -1;  // the tables already hold the initial state
       es.min_p = min_p;
       es.group = 1;  // node_terms lays FGD's items out per node
-      layout_items(a, n_pol, 1, es.seg);
+      layout_items<kDraws>(a, n_pol, 1, es.seg);
     }
   }
   bool fgd = false;
@@ -1565,13 +1754,17 @@ __device__ __forceinline__ void prefetch_events(const ReplayArgs& a,
                 threadIdx.x & 31);
 }
 
-template <bool kGeneral>
+// <kGeneral, kRandomized, kStaged>: kRandomized adds RandomScore's draw and
+// gpu_sel random (the key chain in es, advanced by the last warp while warp
+// 0 commits); kStaged is the staged form, false the global one.
+template <bool kGeneral, bool kRandomized = false, bool kStaged = true>
 __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Best warp_res[kWarps];
   __shared__ int warp_lo[kWarps][kMaxPolicies];
   __shared__ int warp_hi[kWarps][kMaxPolicies];
+  __shared__ unsigned long long warp_draw[kRandomized ? kWarps : 1];
   __shared__ EventState es;
   __shared__ long long s_clk[kNumClocks];
   __shared__ long long s_work[3];
@@ -1584,12 +1777,17 @@ __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a)
   const int nwarps = blockDim.x >> 5;
   const int gpu_sel = kGeneral ? a.gpu_sel : (a.sel >= 0 ? kSelSelf : kSelBest);
   bool any_norm = false;
+  bool draws = false;  // a RandomScore policy
   if (kGeneral)
-    for (int pi = 0; pi < a.n_pol; ++pi) any_norm |= a.pol_norm[pi] != kNormNone;
+    for (int pi = 0; pi < a.n_pol; ++pi) {
+      any_norm |= a.pol_norm[pi] != kNormNone;
+      draws |= kRandomized && a.pol_column[pi] == kRandomScore;
+    }
   const int n_pol = kGeneral ? a.n_pol : 1;
-  Smem m;
-  carve(smem, a.k, a.t, n_pol, false, &m);
-  const bool fgd_terms = begin_replay<kGeneral>(a, m, es);
+  const Smem m = replay_smem<kStaged>(a, smem, n_pol, false);
+  const bool fgd_terms = begin_replay<kGeneral, kStaged, kRandomized>(a, m, es);
+  if (kRandomized && tid == 0)
+    advance_keys(es, make_uint2(a.key[0], a.key[1]), 0);
   __syncthreads();
   const long long t0 = clock_now();
 
@@ -1599,7 +1797,8 @@ __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a)
     const int dirty = es.dirty[i & 1];
     if (dirty >= 0) {
       const long long t_ref = clock_now();
-      refresh_column<kGeneral, false>(a, m, es, dirty, s_work);
+      refresh_column<kGeneral, false, true, kRandomized>(a, m, es, dirty,
+                                                         s_work);
       pc.end_work(s_work);
       if (tid == 0) {
         pc.count(kClkRefreshes, 1);
@@ -1617,12 +1816,18 @@ __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a)
       const int* frow = a.feas + static_cast<size_t>(type) * a.n;
       int lo[kMaxPolicies];
       int hi[kMaxPolicies];
-      if (kGeneral && any_norm) {
-        // the feasible extrema of each normalised policy's row
+      int pick = -1;  // RandomScore's node
+      if (kGeneral && (any_norm || draws)) {
+        // the feasible extrema of each normalised policy's row, and
+        // RandomScore's draw: the feasible node of the largest
+        // uniform(k_rand, (N,)), the first on ties, as (mantissa + 1) << 32
+        // | INT_MAX - node (0 where no node is feasible)
         for (int pi = 0; pi < a.n_pol; ++pi) {
           lo[pi] = INT_MAX;
           hi[pi] = -INT_MAX;
         }
+        unsigned long long draw = 0;
+        const uint2 krand = kRandomized ? es.krand[i & 1] : uint2{};
         // loads issued before the feasibility test, so that unrolled
         // iterations overlap
 #pragma unroll 4
@@ -1635,6 +1840,13 @@ __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a)
             lo[pi] = f ? min(lo[pi], r) : lo[pi];
             hi[pi] = f ? max(hi[pi], r) : hi[pi];
           }
+          if (kRandomized && draws && f) {
+            const unsigned long long d =
+                (static_cast<unsigned long long>(uniform_mantissa(krand, node)) +
+                 1ull) << 32 |
+                static_cast<uint32_t>(INT_MAX - node);
+            draw = d > draw ? d : draw;
+          }
         }
         for (int pi = 0; pi < a.n_pol; ++pi) {
           lo[pi] = __reduce_min_sync(0xffffffffu, lo[pi]);
@@ -1644,12 +1856,30 @@ __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a)
             warp_hi[warp][pi] = hi[pi];
           }
         }
+        if (kRandomized) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            const unsigned long long o = __shfl_xor_sync(0xffffffffu, draw, off);
+            draw = o > draw ? o : draw;
+          }
+          if (lane == 0) warp_draw[warp] = draw;
+        }
         pc.sync();
         for (int pi = 0; pi < a.n_pol; ++pi) {  // lane w reads warp w's
           lo[pi] = __reduce_min_sync(
               0xffffffffu, lane < nwarps ? warp_lo[lane][pi] : INT_MAX);
           hi[pi] = __reduce_max_sync(
               0xffffffffu, lane < nwarps ? warp_hi[lane][pi] : -INT_MAX);
+        }
+        if (kRandomized) {
+          draw = lane < nwarps ? warp_draw[lane] : 0ull;
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            const unsigned long long o = __shfl_xor_sync(0xffffffffu, draw, off);
+            draw = o > draw ? o : draw;
+          }
+          pick = draw == 0 ? -1
+                           : INT_MAX - static_cast<int>(draw & 0xffffffffull);
         }
         pc.mark(kClkExtrema);
       }
@@ -1690,9 +1920,14 @@ __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a)
         } else {
           uint32_t sum = 0;
           for (int pi = 0; pi < a.n_pol; ++pi) {
-            int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
-            if (a.pol_norm[pi] != kNormNone)
-              r = normalize(r, lo[pi], hi[pi], a.pol_norm[pi]);
+            int r;
+            if (kRandomized && a.pol_column[pi] == kRandomScore) {
+              r = node == pick ? kMaxNodeScore : 0;  // no table row
+            } else {
+              r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
+              if (a.pol_norm[pi] != kNormNone)
+                r = normalize(r, lo[pi], hi[pi], a.pol_norm[pi]);
+            }
             sum += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(r);
           }
           total = static_cast<int>(sum);
@@ -1707,12 +1942,17 @@ __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a)
       if (warp == 0) {
         b = warp_best(lane < nwarps ? warp_res[lane] : no_candidate());
         const int node = __shfl_sync(0xffffffffu, b.node, 0);
-        end_event(a, m, es, i, ev, node == INT_MAX ? -1 : node, gpu_sel,
-                  fgd_terms, n_pol, lane);
+        end_event<kRandomized>(a, m, es, i, ev, node == INT_MAX ? -1 : node,
+                               gpu_sel, fgd_terms, n_pol, lane);
       }
     } else if (warp == 0) {
-      end_event(a, m, es, i, ev, -1, gpu_sel, fgd_terms, n_pol, lane);
+      end_event<kRandomized>(a, m, es, i, ev, -1, gpu_sel, fgd_terms, n_pol,
+                             lane);
     }
+    // the next event's keys, by a thread of the last warp while warp 0
+    // commits: every event takes one step of the chain, whatever its kind
+    if (kRandomized && tid == blockDim.x - 32 && i + 1 < a.e)
+      advance_keys(es, es.key, (i + 1) & 1);
     pc.sync();
     pc.mark(kClkCommit);
   }
@@ -1867,7 +2107,10 @@ __device__ void update_summaries(const ReplayArgs& a, const Smem& m, int node,
   }
 }
 
-template <bool kGeneral>
+// <kGeneral, kStaged, kAllColumns>: kStaged is the staged form, false the
+// global one; <true, true, false> is the staged general kernel for the
+// configurations without Simon (policy_pair)
+template <bool kGeneral, bool kStaged = true, bool kAllColumns = true>
 __global__ void __launch_bounds__(kReplayThreads, 1)
     replay_blocked_kernel(ReplayArgs a) {
   constexpr int kWarps = kReplayThreads / 32;
@@ -1893,9 +2136,8 @@ __global__ void __launch_bounds__(kReplayThreads, 1)
   if (kGeneral)
     for (int pi = 0; pi < a.n_pol; ++pi) nn += a.pol_norm[pi] != kNormNone ? 1 : 0;
   const int n_pol = kGeneral ? a.n_pol : 1;
-  Smem m;
-  carve(smem, a.k, a.t, n_pol, true, &m);
-  const bool fgd_terms = begin_replay<kGeneral>(a, m, es);
+  const Smem m = replay_smem<kStaged>(a, smem, n_pol, true);
+  const bool fgd_terms = begin_replay<kGeneral, kStaged>(a, m, es);
 
   // the summaries of the initial tables: every block's extrema, the stored
   // extrema as their min/max over blocks, then every block's summary under
@@ -1950,7 +2192,7 @@ __global__ void __launch_bounds__(kReplayThreads, 1)
         pc.count(kClkRefreshes, 1);
       }
       const long long t_ref = clock_now();
-      refresh_column<kGeneral, true>(a, m, es, dirty, s_work);
+      refresh_column<kGeneral, true, kAllColumns>(a, m, es, dirty, s_work);
       pc.end_work(s_work);
       if (tid == 0) pc.count(kClkItems, es.seg[n_pol]);
       pc.sync();
@@ -2547,8 +2789,9 @@ __device__ void fgd_batch(const InitSmem& m, int t_count, int lane, int warp,
 // The table entries of the tile's nodes first .. first + count - 1 for
 // slice `slice` of `slices` of the type batches: warp w takes batches
 // (slice x warps + w) + i x slices x warps, a lane per node, FGD's sums
-// for the whole batch at once, then every policy type by type. <false> is
-// the paper's FGD shape (fgd_only); <true> reads the policy descriptor.
+// for the whole batch at once, then every table policy type by type.
+// <false> is the paper's FGD shape (fgd_only); <true> reads the policy
+// descriptor.
 template <bool kGeneral>
 __device__ void tile_items(const ReplayArgs& a, const InitSmem& m,
                            int t_count, int batches, int first, int count,
@@ -2557,7 +2800,7 @@ __device__ void tile_items(const ReplayArgs& a, const InitSmem& m,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  const int n_pol = kGeneral ? a.n_pol : 1;
+  const int n_pol = kGeneral ? table_rows(a) : 1;
   const NodeView v = tile_node(m, lane);
   const bool valid = lane < count;
   const size_t node = static_cast<size_t>(first) + lane;
@@ -2625,6 +2868,9 @@ __device__ void tile_items(const ReplayArgs& a, const InitSmem& m,
             }
             break;
           }
+          case kSimon:
+            score = simon_pair(a, v, valid ? a.mem_cap[node] : 0, k);
+            break;
           case kDotProd:
           default:
             dotprod_score(a, tile_node(m, lane), dn, k, &score, &dev);
@@ -2684,8 +2930,49 @@ __global__ void __launch_bounds__(kInitThreads)
                        blockIdx.x % slices, slices, fgd, pwr, pack, dot);
 }
 
+// init_tables' global form, for shapes past the staged limits: a thread per
+// (type, node), nodes fastest, through the column functions of policy_pair
+// (FGD's fgd_pair sums every typical pod, where a pod of frequency 0 adds
+// zero), reading the types and typical pods from device memory.
+__global__ void __launch_bounds__(kInitThreads) init_pairs_kernel(ReplayArgs a) {
+  const long long w =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (w >= static_cast<long long>(a.k) * a.n) return;
+  const int k = static_cast<int>(w / a.n);
+  const int node = static_cast<int>(w % a.n);
+  const NodeView v = load_node(a, node);
+  int sel_dev = -1;
+  for (int pi = 0; pi < table_rows(a); ++pi) {
+    int score = 0;
+    int dev = -1;
+    policy_pair(a, v, pi, k, node, &score, &dev);
+    a.score[(static_cast<size_t>(pi) * a.k + k) * a.n + node] = score;
+    if (pi == a.sel) sel_dev = dev;
+  }
+  const size_t at = static_cast<size_t>(k) * a.n + node;
+  a.sdev[at] = sel_dev;
+  a.feas[at] = feas_pair(a, v, k);
+}
+
 // an empty kernel: what a launch costs without work
 __global__ void empty_kernel() {}
+
+// whether a shape fits the staged forms (shared memory)
+bool staged_shape(const ReplayArgs* a) {
+  return a->k <= kMaxTypes && a->t <= kMaxTypical;
+}
+
+// whether a configuration has a policy of column `column`
+bool has_column(const ReplayArgs* a, int column) {
+  for (int pi = 0; pi < a->n_pol; ++pi)
+    if (a->pol_column[pi] == column) return true;
+  return false;
+}
+
+// a configuration that draws per event: RandomScore or gpu_sel random
+bool randomized(const ReplayArgs* a) {
+  return a->gpu_sel == kSelRandom || has_column(a, kRandomScore);
+}
 
 // the paper's shape: one FGDScore policy without normalisation, gpu_sel
 // FGDScore (sel 0) or best
@@ -2695,20 +2982,25 @@ bool fgd_only(const ReplayArgs* a) {
          (a->gpu_sel == kSelBest || (a->gpu_sel == kSelSelf && a->sel == 0));
 }
 
-// Launches a replay kernel with the dynamic shared memory its shape needs;
-// refuses a shape beyond what it stages.
+// Launches a replay kernel: the staged form (no scratch) with the dynamic
+// shared memory its shape needs, which refuses a shape past the staged
+// limits; the global form (a scratch buffer) with none.
 template <typename Kernel>
 int launch_replay(Kernel kernel, const ReplayArgs* a, bool general,
                   bool blocked, cudaStream_t s) {
-  if (a->k < 1 || a->k > kMaxTypes || a->t < 0 || a->t > kMaxTypical ||
-      a->ks < 0 || a->ks > a->k)
+  const bool staged = a->scratch == nullptr;
+  if (a->k < 1 || a->t < 0 || a->ks < 0 || a->ks > a->k ||
+      (staged && !staged_shape(a)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes =
-      carve(nullptr, a->k, a->t, general ? a->n_pol : 1, blocked, nullptr);
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t bytes = 0;
+  if (staged) {
+    bytes = carve(nullptr, a->k, a->t, general ? a->n_pol : 1, blocked,
+                  nullptr);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   kernel<<<1, kReplayThreads, bytes, s>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2717,12 +3009,13 @@ int launch_replay(Kernel kernel, const ReplayArgs* a, bool general,
 // block per (tile, slice of the type batches). One slice a tile where the
 // tiles fill the card; on fewer nodes the batches are sliced until the
 // blocks fill it (a slice for each 4 types a warp, about a batch each),
-// for the latency of one tile's work falls with its batches. Refuses a shape beyond what it stages. The card's
-// resident blocks are looked up once per device and shape.
+// for the latency of one tile's work falls with its batches. Refuses a shape
+// past the staged limits (init_tables launches init_pairs for those). The
+// card's resident blocks are looked up once per device and shape.
 template <typename Kernel>
 int launch_init(Kernel kernel, const ReplayArgs* a, cudaStream_t s) {
-  if (a->k > kMaxTypes || a->t < 0 || a->t > kMaxTypical || a->ks < 0 ||
-      a->ks > a->k || a->t_order == nullptr)
+  if (!staged_shape(a) || a->t < 0 || a->ks < 0 || a->ks > a->k ||
+      a->t_order == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   struct Geometry {
     Kernel kernel;
@@ -2771,8 +3064,23 @@ int init_tables(const ReplayArgs* a, void* stream) {
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!staged_shape(a)) {  // the global form
+    if (a->t < 0 || a->ks < 0 || a->ks > a->k)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long pairs = static_cast<long long>(a->k) * a->n;
+    init_pairs_kernel<<<static_cast<unsigned>((pairs + kInitThreads - 1) /
+                                              kInitThreads),
+                        kInitThreads, 0, s>>>(*a);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (fgd_only(a)) return launch_init(init_tables_kernel<false>, a, s);
   return launch_init(init_tables_kernel<true>, a, s);
+}
+
+// Bytes of the replays' scratch buffer in the global form: the arrays the
+// staged form keeps in shared memory (carve)
+size_t replay_scratch_bytes(int k, int t, int n_pol, int blocked) {
+  return carve(nullptr, k, t, n_pol, blocked != 0, nullptr);
 }
 
 int empty_launch(void* stream) {
@@ -2785,18 +3093,33 @@ int replay(const ReplayArgs* a, void* stream) {
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool staged = a->scratch == nullptr;
+  if (randomized(a)) {
+    if (staged)
+      return launch_replay(replay_kernel<true, true, true>, a, true, false, s);
+    return launch_replay(replay_kernel<true, true, false>, a, true, false, s);
+  }
+  if (!staged)
+    return launch_replay(replay_kernel<true, false, false>, a, true, false, s);
   if (fgd_only(a)) return launch_replay(replay_kernel<false>, a, false, false, s);
   return launch_replay(replay_kernel<true>, a, true, false, s);
 }
 
+// the randomized configurations run the flat replay only
 int replay_blocked(const ReplayArgs* a, void* stream) {
   if (a->e == 0) return 0;
-  if (a->n_pol < 1 || a->n_pol > kMaxPolicies || a->n % kBlock != 0)
+  if (a->n_pol < 1 || a->n_pol > kMaxPolicies || a->n % kBlock != 0 ||
+      randomized(a))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->scratch != nullptr)
+    return launch_replay(replay_blocked_kernel<true, false>, a, true, true, s);
   if (fgd_only(a))
     return launch_replay(replay_blocked_kernel<false>, a, false, true, s);
-  return launch_replay(replay_blocked_kernel<true>, a, true, true, s);
+  if (has_column(a, kSimon))
+    return launch_replay(replay_blocked_kernel<true>, a, true, true, s);
+  return launch_replay(replay_blocked_kernel<true, true, false>, a, true, true,
+                       s);
 }
 
 const char* kernel_error_string(int code) {

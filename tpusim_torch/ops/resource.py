@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from tpusim_torch.constants import MAX_GPUS_PER_NODE
+from tpusim_torch.constants import MAX_GPUS_PER_NODE, MILLI
+from tpusim_torch.ops.prng import uniform
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
@@ -128,3 +129,32 @@ def gpu_frag_milli(gpu_left, pod_gpu_milli):
     (ref: frag.go:205-213 GetGpuFragMilliByNodeResAndPodRes)."""
     milli = torch.as_tensor(pod_gpu_milli, device=gpu_left.device)[..., None]
     return torch.where(gpu_left < milli, gpu_left, 0).sum(-1)
+
+
+def allocate_exclusive(gpu_left, pod_total_milli):
+    """First fully free devices, in index order, until the whole-GPU request
+    is covered (resource.go:383-403 AllocateExclusiveGpuId): a bool[..., 8]
+    device mask, empty where the idle devices do not cover it."""
+    free = gpu_left == MILLI
+    total = torch.as_tensor(pod_total_milli, device=gpu_left.device)
+    need = torch.div(total + MILLI - 1, MILLI, rounding_mode="floor")
+    take = free & (free.cumsum(-1) <= need[..., None])
+    enough = free.sum(-1) * MILLI >= total
+    return take & enough[..., None]
+
+
+def allocate_share_random(gpu_left, pod_gpu_milli, key):
+    """A uniformly drawn fitting device for a share-GPU pod
+    (open_gpu_share.go:327-343): the fitting device of the largest
+    `uniform(key, (8,))`, the first on ties; -1 where none fits. For one
+    node's row gpu_left [8]."""
+    fits = gpu_left >= pod_gpu_milli
+    u = uniform(key, MAX_GPUS_PER_NODE, gpu_left.device)
+    dev = torch.where(fits, u, -1.0).argmax(-1).to(torch.int32)
+    return torch.where(fits.any(-1), dev, -1)
+
+
+def flatten_gpu_left(gpu_left):
+    """Devices sorted by free milli, most first (resource.go:199-215
+    Flatten): the canonical key of a node's GPU state."""
+    return -torch.sort(-gpu_left, dim=-1).values

@@ -10,11 +10,13 @@ nodes against all K pod types,
 (sdev is the device the policy would hand a share-GPU pod at Reserve, -1 =
 none), its normalisation over the feasible nodes, whether a gpuSelMethod
 may name it (self-select), and the column id the CUDA kernel switches on.
+RandomScore's score is a draw per event (policies/random_policy.py): it
+has no column and no table rows, and `per_event` marks it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 from tpusim_torch.policies.bestfit import bestfit_column
 from tpusim_torch.policies.clustering import clustering_column
@@ -26,6 +28,7 @@ from tpusim_torch.policies.dotprod import (
 from tpusim_torch.policies.fgd import fgd_column
 from tpusim_torch.policies.packing import packing_column
 from tpusim_torch.policies.pwr import pwr_column
+from tpusim_torch.policies.simon import simon_column
 
 POLICY_NAMES = (
     "FGDScore",
@@ -42,13 +45,6 @@ POLICY_NAMES = (
 # (the allocateGpuIdFunc registry, plugin/open_gpu_share.go:39)
 SELF_SELECT_POLICIES = frozenset({"FGDScore", "PWRScore", "DotProductScore"})
 
-# policies the port has no column for yet, and the ROADMAP item that adds
-# them: RandomScore draws from JAX's PRNG, Simon is not ported
-UNPORTED_POLICIES = {
-    "RandomScore": "ROADMAP.md queue 3 (JAX PRNG) and queue 1 item 3",
-    "Simon": "ROADMAP.md queue 1 item 3",
-}
-
 # the kernel's column ids (replay.cu `Column`)
 COLUMN_IDS = {
     "FGDScore": 0,
@@ -57,13 +53,15 @@ COLUMN_IDS = {
     "GpuClusteringScore": 3,
     "PWRScore": 4,
     "DotProductScore": 5,
+    "Simon": 6,
+    "RandomScore": 7,
 }
 NORMALIZE_IDS = {"none": 0, "minmax": 1, "pwr": 2}
 
 
 class Policy(NamedTuple):
     name: str
-    column: Callable
+    column: Optional[Callable]  # None for the per-event RandomScore
     normalize: str  # "none" | "minmax" | "pwr"
     self_select: bool
 
@@ -71,16 +69,17 @@ class Policy(NamedTuple):
     def column_id(self) -> int:
         return COLUMN_IDS[self.name]
 
+    @property
+    def per_event(self) -> bool:
+        """Whether the score is drawn per event instead of read from the
+        tables (RandomScore)."""
+        return self.name == "RandomScore"
+
 
 def make_policy(name: str, dim_ext_method: str = "share",
                 norm_method: str = "max") -> Policy:
     """The policy of a scheduler-config plugin name. Raises KeyError for an
-    unknown name and NotImplementedError for one the port has no column
-    for."""
-    if name in UNPORTED_POLICIES:
-        raise NotImplementedError(
-            f"{name} has no column in the port: see {UNPORTED_POLICIES[name]}"
-        )
+    unknown name."""
     sel = name in SELF_SELECT_POLICIES
     if name == "DotProductScore":
         return Policy(name, make_dotprod_column(dim_ext_method, norm_method),
@@ -91,6 +90,8 @@ def make_policy(name: str, dim_ext_method: str = "share",
         "BestFitScore": (bestfit_column, "minmax"),
         "GpuPackingScore": (packing_column, "none"),
         "GpuClusteringScore": (clustering_column, "none"),
+        "Simon": (simon_column, "minmax"),
+        "RandomScore": (None, "none"),
     }
     if name not in table:
         raise KeyError(f"unknown score plugin: {name!r}")

@@ -11,7 +11,12 @@ tpusim_torch.sim.residency decide: the hand-written CUDA kernels on a CUDA
 device, the plain PyTorch versions when the caller asks for device="cpu".
 There is no fallback from one to the other, and none to the other kernel:
 a shape the card cannot hold fails its allocation (torch's
-OutOfMemoryError) before launch, a failed launch raises.
+OutOfMemoryError) before launch, a failed launch raises. A randomized
+configuration (RandomScore, gpu_sel random) always runs the flat replay,
+as tpusim's table engine runs it flat, from the root key of its stage:
+PRNGKey(seed) for the main replay, PRNGKey(seed + pods placed so far) for
+`schedule_additional`, PRNGKey(inflation_seed) for the inflation run
+(tpusim/sim/driver.py:1609, :1775, :2003).
 
 After the main replay, `schedule_additional` replays more pods from the
 placed cluster's state (apps, the new-workload swap, the inflation
@@ -49,6 +54,7 @@ from tpusim_torch.io.export import (
     export_pod_snapshot_yaml,
 )
 from tpusim_torch.ops.frag import cluster_frag_report
+from tpusim_torch.ops.prng import prng_key
 from tpusim_torch.sim import residency
 from tpusim_torch.sim.engine import EV_CREATE, EV_DELETE, ReplayResult
 from tpusim_torch.sim.fetch import device_fetch
@@ -86,7 +92,7 @@ class SimulatorConfig:
     selection)."""
 
     policies: Sequence[Tuple[str, int]] = (("FGDScore", 1000),)
-    gpu_sel_method: str = "best"  # best | worst | <self-select policy>
+    gpu_sel_method: str = "best"  # best | worst | random | <self-select policy>
     dim_ext_method: str = "share"  # DotProductScore's dim-ext method
     norm_method: str = "max"  # DotProductScore's norm method
     shuffle_pod: bool = False
@@ -97,7 +103,7 @@ class SimulatorConfig:
     inflation_ratio: float = 1.0
     inflation_seed: int = 233
     typical_pods: TypicalPodsConfig = field(default_factory=TypicalPodsConfig)
-    seed: int = 42  # node tie-break permutation
+    seed: int = 42  # node tie-break permutation, and the PRNG's root key
     # the per-event report block (attempt, [Report], [Alloc], [AllocCPU],
     # [Power] lines) and the per-event analysis CSVs
     report_per_event: bool = True
@@ -138,7 +144,8 @@ class Simulator:
 
     After each replay, `last_engine` names the kernel that ran ("replay" or
     "replay_blocked", prefixed "plain_" on the CPU), `last_residency` its
-    tier ("vmem" or "hbm") and `last_kernel_stats` the blocked replay's
+    tier ("vmem" or "hbm"; a randomized configuration runs "vmem" whatever
+    `table_residency` says) and `last_kernel_stats` the blocked replay's
     [waits, starts, rebuilds] (None after the flat one).
     """
 
@@ -156,7 +163,7 @@ class Simulator:
                 "no CUDA device is visible: the replay runs its CUDA kernels "
                 "on a GPU; pass device='cpu' for the plain PyTorch replay"
             )
-        # raises NotImplementedError for configs the kernel does not cover
+        # raises ValueError for a gpu_sel the reference cannot run
         self._replay = make_fused_replay(
             self.cfg.policies, self.cfg.gpu_sel_method, self.device,
             self.cfg.dim_ext_method, self.cfg.norm_method,
@@ -230,31 +237,31 @@ class Simulator:
     # ---- the run (core.go:148 RunCluster -> SchedulePods) ----
 
     def _residency(self, num_nodes: int, num_types: int) -> str:
-        """The tier a replay of this shape runs in: the configured one, or
-        under "auto" "vmem" while the tables fit the card's L2 cache ("vmem"
-        on the CPU)."""
-        if self.cfg.table_residency != "auto":
-            return self.cfg.table_residency
-        if self.device.type != "cuda":
-            return "vmem"
-        l2 = torch.cuda.get_device_properties(self.device).L2_cache_size
-        return residency.select_residency(num_nodes, num_types,
-                                          len(self.cfg.policies), l2)
+        """The tier a replay of this shape runs in (residency.replay_tier
+        against the card's L2 cache)."""
+        cfg = self._replay.config
+        l2 = (torch.cuda.get_device_properties(self.device).L2_cache_size
+              if self.device.type == "cuda" else None)
+        return residency.replay_tier(self.cfg.table_residency, cfg.randomized,
+                                     num_nodes, num_types, cfg.num_tables, l2)
 
     def run_events(self, state: NodeState, specs: PodSpec, ev_kind,
-                   ev_pod, types=None) -> ReplayResult:
+                   ev_pod, types=None, key=None) -> ReplayResult:
         """Replay an event stream from `state`: the CUDA kernels on a CUDA
         device, the plain replay on the CPU. Callers replaying the same pod
         specs repeatedly (a chunked stream) may pass their
-        `build_pod_types(specs)` as `types`."""
+        `build_pod_types(specs)` as `types`. `key` is the root of the event
+        key chain (the main replay's, PRNGKey(seed), by default)."""
         ev_kind = np.asarray(ev_kind, np.int32)
         ev_pod = np.asarray(ev_pod, np.int32)
         if types is None:
             types = build_pod_types(specs)
         n, k = state.num_nodes, types.num_types
         tier = self._residency(n, k)
+        if key is None:
+            key = prng_key(self.cfg.seed)
         args = (state, specs, types, torch.as_tensor(ev_kind),
-                torch.as_tensor(ev_pod), self.typical, None, self.rank)
+                torch.as_tensor(ev_pod), self.typical, key, self.rank)
         if tier == "hbm":
             if self._blocked is None:
                 self._blocked = make_blocked_replay(
@@ -287,15 +294,16 @@ class Simulator:
             torch.as_tensor(ev_pod, device=dev), out.event_node,
             out.event_dev, self.typical))
 
-    def _replay_pods(self, state: NodeState, pods: Sequence[PodRow],
+    def _replay_pods(self, state: NodeState, pods: Sequence[PodRow], key,
                      use_timestamps: bool):
-        """Replay `pods` from `state`: the kernels, the metrics post-pass,
-        one fetch and the host tail (_finish_replay). Returns (the replay's
-        result on the host, events, unscheduled pods, creation ranks)."""
+        """Replay `pods` from `state` with root key `key`: the kernels, the
+        metrics post-pass, one fetch and the host tail (_finish_replay).
+        Returns (the replay's result on the host, events, unscheduled pods,
+        creation ranks)."""
         t0 = time.perf_counter()
         specs = pods_to_specs(pods, self.node_index, self.device)
         ev_kind, ev_pod = build_events(pods, use_timestamps)
-        out = self.run_events(state, specs, ev_kind, ev_pod)
+        out = self.run_events(state, specs, ev_kind, ev_pod, key=key)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
@@ -333,7 +341,8 @@ class Simulator:
             self.set_typical_pods()
         t0 = time.perf_counter()
         out, events, unscheduled, rank = self._replay_pods(
-            self.init_state, pods, self.cfg.use_timestamps)
+            self.init_state, pods, prng_key(self.cfg.seed),
+            self.cfg.use_timestamps)
         self.last_result = SimulateResult(
             unscheduled_pods=unscheduled,
             placed_node=out.placed_node.numpy(),
@@ -361,7 +370,8 @@ class Simulator:
             self.set_typical_pods()
         res = self.last_result
         out, events, failed, rank = self._replay_pods(
-            self._placed_state(), pods, use_timestamps=False)
+            self._placed_state(), pods,
+            prng_key(self.cfg.seed + len(res.pods)), use_timestamps=False)
         res.state = out.state
         res.pods = list(res.pods) + list(pods)
         res.placed_node = np.concatenate([res.placed_node,
@@ -419,7 +429,8 @@ class Simulator:
             return None
         self.log.info(f"(Inflation) Num of Total Pods: {len(extra)}")
         out, _, unscheduled, _ = self._replay_pods(
-            self._placed_state(), extra, use_timestamps=False)
+            self._placed_state(), extra, prng_key(self.cfg.inflation_seed),
+            use_timestamps=False)
         self.report_failed([u.pod for u in unscheduled])
         self.log.info(f"[ReportFailedPods] {len(unscheduled)} unscheduled "
                       "inflation pods")

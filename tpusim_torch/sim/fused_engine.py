@@ -2,8 +2,8 @@
 VMEM-resident kernel, `make_pallas_replay(residency="vmem")`).
 
 The replay keeps int32 tables over the K distinct pod types and the N
-nodes: each policy's raw score ([n_pol * K, N], policy-major), the
-selector policy's share-device pick and the Filter bit ([K, N] each). One
+nodes: each table policy's raw score ([num_tables * K, N], policy-major),
+the selector policy's share-device pick and the Filter bit ([K, N] each). One
 event mutates one node, so each event first refreshes the column of the
 node the previous event touched, then runs
 
@@ -15,6 +15,12 @@ node the previous event touched, then runs
        policy's own pick; two-pointer for whole GPUs) -> Bind
 
 or, on a delete, returns the pod's resources to the devices it held.
+
+A randomized configuration (RandomScore, or gpu_sel random) draws per
+event from JAX's event key chain (tpusim_torch.ops.prng.event_keys, from
+the replay's root key): RandomScore's row is the event's draw over the
+feasible nodes (policies/random_policy.py) and has no table row, and the
+share-GPU device is drawn from k_sel (ops.resource.allocate_share_random).
 
 Two implementations of the same function live here. On CUDA tensors the
 wrappers `init_tables` and `replay` launch the hand-written kernels of
@@ -41,9 +47,11 @@ from tpusim_torch.constants import (
     MILLI,
     NUM_AFF_CLASSES,
 )
-from tpusim_torch.kernels import MAX_POLICIES, MAX_TYPES, MAX_TYPICAL
+from tpusim_torch.kernels import MAX_POLICIES, scratch_bytes, staged
+from tpusim_torch.ops.prng import event_keys
 from tpusim_torch.ops.resource import (
     allocate_share_best,
+    allocate_share_random,
     allocate_share_worst,
     allocate_two_pointer,
     is_accessible,
@@ -58,6 +66,7 @@ from tpusim_torch.policies import (
     make_policy,
 )
 from tpusim_torch.policies.base import normalize, wrap_i32
+from tpusim_torch.policies.random_policy import random_score
 from tpusim_torch.sim.engine import EV_CREATE, EV_DELETE, EV_SKIP, ReplayResult
 from tpusim_torch.sim.table_engine import PodTypes
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
@@ -65,12 +74,7 @@ from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 _INT_MAX = torch.iinfo(torch.int32).max
 
 # the kernel's gpu_sel modes (replay.cu kSel*)
-GPU_SEL_IDS = {"best": 0, "worst": 1, "self": 2}
-# where the configurations the kernel does not cover are planned
-_ROADMAP_RANDOM = (
-    "ROADMAP.md queue 3 (JAX PRNG) and queue 1 item 3: randomized "
-    "configurations draw from JAX's PRNG"
-)
+GPU_SEL_IDS = {"best": 0, "worst": 1, "self": 2, "random": 3}
 
 # nodes per chunk when the plain table build sweeps the cluster: bounds the
 # [K, nodes, 8, T] intermediates to a few million elements
@@ -78,9 +82,10 @@ _INIT_CHUNK = 64
 
 
 class ReplayConfig(NamedTuple):
-    """A policy configuration the fused replay covers: the policies, their
-    integer weights, the gpuSelMethod, and the index of the policy whose
-    device picks Reserve takes (-1 for best and worst)."""
+    """A policy configuration the fused replay covers: the policies (those
+    with table rows first, then the per-event one), their integer weights,
+    the gpuSelMethod, and the index of the policy whose device picks
+    Reserve takes (-1 for best, worst and random)."""
 
     policies: Tuple[Policy, ...]
     weights: Tuple[int, ...]
@@ -93,14 +98,31 @@ class ReplayConfig(NamedTuple):
     def gpu_sel_mode(self) -> str:
         return "self" if self.sel_idx >= 0 else self.gpu_sel
 
+    @property
+    def randomized(self) -> bool:
+        """Whether the replay draws per event (RandomScore, gpu_sel
+        random): it then needs a root key, and runs the flat replay."""
+        return self.gpu_sel == "random" or any(p.per_event
+                                               for p in self.policies)
+
+    @property
+    def num_tables(self) -> int:
+        """The policies with score-table rows: all but RandomScore, whose
+        score is drawn per event and which make_config puts last."""
+        return sum(not p.per_event for p in self.policies)
+
 
 def make_config(policies: Sequence[Tuple[str, int]], gpu_sel: str,
                 dim_ext: str = "share", norm: str = "max") -> ReplayConfig:
-    """The ReplayConfig of [(policy name, weight)] and a gpuSelMethod,
-    accepting what pallas_engine.supports() accepts. RandomScore, Simon and
-    gpu_sel "random" raise NotImplementedError naming the ROADMAP item; a
-    self-select gpu_sel that names no enabled policy, or an unknown one,
-    raises ValueError, as make_pallas_replay does."""
+    """The ReplayConfig of [(policy name, weight)] and a gpuSelMethod:
+    every configuration tpusim's Simulator runs, through its Pallas kernel
+    or its table engine (Simon and the randomized ones). gpu_sel is best,
+    worst, random or an enabled self-select policy; anything else, as a
+    self-select gpu_sel that names no enabled policy, raises ValueError, as
+    make_pallas_replay does (tpusim's table engine would quietly pick best
+    fit where the reference's plugin lookup fails). A per-event policy is
+    moved last: the i32 weighted sum wraps the same in any order, and the
+    score table's rows are then those of the policies before it."""
     if not policies:
         raise ValueError("the fused replay needs at least one policy")
     if len(policies) > MAX_POLICIES:
@@ -108,23 +130,22 @@ def make_config(policies: Sequence[Tuple[str, int]], gpu_sel: str,
     if dim_ext not in DIM_EXT_METHODS or norm not in NORM_METHODS:
         raise ValueError(f"dim_ext {dim_ext!r} / norm {norm!r} not in "
                          f"{DIM_EXT_METHODS} / {NORM_METHODS}")
-    names = [name for name, _ in policies]
     if any(not -2**31 <= int(w) < 2**31 for _, w in policies):
         raise ValueError(f"weights must be int32: {list(policies)}")
-    if "RandomScore" in names or gpu_sel == "random":
-        raise NotImplementedError(
-            f"{names} / gpu_sel={gpu_sel!r}: see {_ROADMAP_RANDOM}")
-    pols = tuple(make_policy(name, dim_ext, norm) for name in names)
+    resolved = [(make_policy(name, dim_ext, norm), w) for name, w in policies]
+    resolved.sort(key=lambda pw: pw[0].per_event)  # stable
+    pols = tuple(p for p, _ in resolved)
+    names = [p.name for p in pols]
     selectors = [p.name for p in pols if p.self_select]
     if gpu_sel in selectors:
         sel_idx = names.index(gpu_sel)
-    elif gpu_sel in ("best", "worst"):
+    elif gpu_sel in ("best", "worst", "random"):
         sel_idx = -1
     else:
         raise ValueError(
-            f"gpu_sel must be best, worst or an enabled policy of "
+            f"gpu_sel must be best, worst, random or an enabled policy of "
             f"{sorted(SELF_SELECT_POLICIES)}; got {gpu_sel!r} with {names}")
-    return ReplayConfig(pols, tuple(int(w) for _, w in policies), gpu_sel,
+    return ReplayConfig(pols, tuple(int(w) for _, w in resolved), gpu_sel,
                         sel_idx, dim_ext, norm)
 
 
@@ -153,18 +174,17 @@ def _node_slice(state: NodeState, lo: int, hi: int) -> NodeState:
 
 def config_columns(nodes: NodeState, specs: PodSpec, ks: int,
                    tp: TypicalPods, cfg: ReplayConfig):
-    """(score i32[n_pol * K, B], sdev i32[K, B], feas i32[K, B]) of a batch
-    of nodes: every policy's column, the selector's device picks (-1
-    without a selector) and the Filter bits."""
-    scores, sdev = [], None
-    for i, pol in enumerate(cfg.policies):
+    """(score i32[num_tables * K, B], sdev i32[K, B], feas i32[K, B]) of a
+    batch of nodes: every table policy's column, the selector's device picks
+    (-1 without a selector) and the Filter bits."""
+    feas = feas_column(nodes, specs)
+    scores, sdev = [feas[:0]], torch.full_like(feas, -1)
+    for i, pol in enumerate(cfg.policies[:cfg.num_tables]):
         raw, dev = pol.column(nodes, specs, ks, tp)
         scores.append(raw)
         if i == cfg.sel_idx:
             sdev = dev
-    if sdev is None:
-        sdev = torch.full_like(scores[0], -1)
-    return torch.cat(scores), sdev, feas_column(nodes, specs)
+    return torch.cat(scores), sdev, feas
 
 
 def plain_init_tables(state: NodeState, types: PodTypes, tp: TypicalPods,
@@ -191,17 +211,35 @@ def _bits_to_mask(bits: torch.Tensor) -> torch.Tensor:
     return ((bits[:, None] >> lane) & 1) != 0
 
 
+def root_key(key, cfg: ReplayConfig):
+    """The root key of a replay as two ints, or None where `cfg` draws
+    nothing; a randomized configuration without a key raises ValueError."""
+    if key is None:
+        if cfg.randomized:
+            raise ValueError(
+                "a randomized configuration (RandomScore, gpu_sel random) "
+                "needs the replay's root key (tpusim_torch.ops.prng.prng_key)")
+        return None
+    words = [int(w) & 0xFFFFFFFF for w in
+             (key.tolist() if hasattr(key, "tolist") else key)]
+    if len(words) != 2:
+        raise ValueError(f"a key is two 32-bit words, got {key!r}")
+    return tuple(words)
+
+
 def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
                      ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                      tp: TypicalPods, tables, cfg: ReplayConfig,
-                     select, keep: dict = None) -> ReplayResult:
+                     select, keep: dict = None, key=None) -> ReplayResult:
     """The event loop of the plain replays. Before each event the column of
     the node the previous event touched is refreshed in copies of the
     (score, sdev, feas) `tables`; then `select(tables, dirty, kind, type,
-    pin)` runs, for every event, and on a create returns the chosen node
-    (-1 = none), which Reserve and Bind take. A delete returns the pod's
-    resources to the devices it held. Inputs are left unchanged; with
-    `keep`, the final tables are stored in keep["tables"]."""
+    pin, k_rand)` runs, for every event, and on a create returns the chosen
+    node (-1 = none), which Reserve and Bind take. A delete returns the
+    pod's resources to the devices it held. A randomized `cfg` draws from
+    the event key chain of root `key` (k_rand, k_sel of each event; None
+    otherwise). Inputs are left unchanged; with `keep`, the final tables
+    are stored in keep["tables"]."""
     tables = tuple(t.clone() for t in tables)
     if keep is not None:
         keep["tables"] = tables
@@ -221,6 +259,10 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
     kinds, ev_pods = ev_kind.tolist(), ev_pod.tolist()
     placed, maskb, failed = [-1] * p, [0] * p, [0] * p
     evnode, evdevb = [-1] * e, [0] * e
+    key = root_key(key, cfg)
+    k_rand = k_sel = [None] * e
+    if cfg.randomized:
+        k_rand, k_sel = (k.tolist() for k in event_keys(key, e))
     dirty = -1
     for i in range(e):
         if dirty >= 0:
@@ -230,7 +272,7 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
                 table[:, dirty] = c[:, 0]
         kind, idx = kinds[i], ev_pods[i]
         tid, pin = type_id[idx], host["pinned"][idx]
-        node = select(tables, dirty, kind, tid, pin)
+        node = select(tables, dirty, kind, tid, pin, k_rand[i])
         pcpu, pmem = host["cpu"][idx], host["mem"][idx]
         pmilli, pnum = host["gpu_milli"][idx], host["gpu_num"][idx]
         cls = _affinity_class(pmilli, pnum)
@@ -240,9 +282,12 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
             if ok and pmilli * pnum > 0:
                 g8 = gpu_left[node]
                 if pnum == 1 and pmilli < MILLI:  # share-GPU pod
-                    pick = (allocate_share_worst if cfg.gpu_sel == "worst"
-                            else allocate_share_best)
-                    d = int(pick(g8, pmilli))
+                    if cfg.gpu_sel == "random":
+                        d = int(allocate_share_random(g8, pmilli, k_sel[i]))
+                    elif cfg.gpu_sel == "worst":
+                        d = int(allocate_share_worst(g8, pmilli))
+                    else:
+                        d = int(allocate_share_best(g8, pmilli))
                     if cfg.sel_idx >= 0 and int(sdev[tid, node]) >= 0:
                         d = int(sdev[tid, node])
                     bits = (1 << d) if d >= 0 else 0
@@ -288,25 +333,32 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
 def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                  ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                  tp: TypicalPods, rank: torch.Tensor, tables,
-                 cfg: ReplayConfig, keep: dict = None) -> ReplayResult:
+                 cfg: ReplayConfig, keep: dict = None,
+                 key=None) -> ReplayResult:
     """The plain version of the `replay` kernel: an event loop over tensor
     ops. `tables` are the (score, sdev, feas) tables of the initial state.
-    selectHost scans the event type's row over all N nodes. With `keep`,
-    the final tables are stored in keep["tables"]."""
+    selectHost scans the event type's row over all N nodes; RandomScore's
+    row is the event's draw from `key`'s chain. With `keep`, the final
+    tables are stored in keep["tables"]."""
     k, n = types.num_types, state.num_nodes
     node_ids = torch.arange(n, device=rank.device, dtype=torch.int32)
 
-    def select(tables, dirty, kind, tid, pin) -> int:
+    def select(tables, dirty, kind, tid, pin, k_rand) -> int:
         if kind != EV_CREATE:
             return -1
         score, _, feas = tables
         feasible = feas[tid] != 0
         if pin >= 0:
             feasible = feasible & (node_ids == pin)
+
+        def row(j, pol):
+            if pol.per_event:
+                return random_score(k_rand, feasible)
+            return normalize(pol.normalize, score[j * k + tid], feasible)
+
         # the i32 weighted sum, wrapping as XLA's int32 does
         total = wrap_i32(sum(
-            w * normalize(pol.normalize, score[j * k + tid],
-                          feasible).to(torch.int64)
+            w * row(j, pol).to(torch.int64)
             for j, (pol, w) in enumerate(zip(cfg.policies, cfg.weights))))
         best = torch.where(feasible, total, -_INT_MAX).max()
         key = torch.where(feasible & (total == best), -rank, -_INT_MAX)
@@ -316,7 +368,7 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
         return int(torch.where(key == m, node_ids, n).min())
 
     return plain_event_loop(state, pods, types, ev_kind, ev_pod, tp, tables,
-                            cfg, select, keep)
+                            cfg, select, keep, key)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +392,7 @@ def _args(state, types_k, ks, tp, tables, cfg: ReplayConfig, **extra):
         "cpu_left": state.cpu_left, "mem_left": state.mem_left,
         "gpu_left": state.gpu_left, "aff_cnt": state.aff_cnt,
         "cpu_cap": state.cpu_cap, "cpu_type": state.cpu_type,
+        "mem_cap": state.mem_cap,
         "gpu_cnt": state.gpu_cnt, "gpu_type": state.gpu_type,
         "t_cpu": types_k.cpu, "t_mem": types_k.mem,
         "t_milli": types_k.gpu_milli, "t_num": types_k.gpu_num,
@@ -361,17 +414,17 @@ def _args(state, types_k, ks, tp, tables, cfg: ReplayConfig, **extra):
                          ("cpu_ncores", CPU_NCORES)):
         keep[name] = torch.as_tensor(values, device=dev)
     n, k = state.num_nodes, types_k.cpu.shape[0]
-    n_pol = len(cfg.policies)
+    rows = cfg.num_tables * k
     if state.gpu_left.shape != (n, MAX_GPUS_PER_NODE) or \
             state.aff_cnt.shape != (n, NUM_AFF_CLASSES):
         raise ValueError("gpu_left must be [N, 8] and aff_cnt [N, 9]")
-    if tables[0].shape != (n_pol * k, n) or \
+    if tables[0].shape != (rows, n) or \
             any(t.shape != (k, n) for t in tables[1:]):
-        raise ValueError(f"tables must be [n_pol*K, N] = [{n_pol * k}, {n}] "
+        raise ValueError(f"tables must be [num_tables*K, N] = [{rows}, {n}] "
                          f"and [K, N] = [{k}, {n}]")
     args = ReplayArgs(**{name: x.data_ptr() for name, x in keep.items()})
     args.n, args.k, args.ks, args.t = n, k, ks, tp.size
-    args.n_pol = n_pol
+    args.n_pol = len(cfg.policies)
     for i, (pol, w) in enumerate(zip(cfg.policies, cfg.weights)):
         args.pol_column[i] = pol.column_id
         args.pol_norm[i] = NORMALIZE_IDS[pol.normalize]
@@ -381,7 +434,10 @@ def _args(state, types_k, ks, tp, tables, cfg: ReplayConfig, **extra):
     args.dim_ext = DIM_EXT_METHODS.index(cfg.dim_ext)
     args.norm = NORM_METHODS.index(cfg.norm)
     for name, v in extra.items():
-        if not isinstance(v, torch.Tensor):
+        if name == "key":
+            if v is not None:
+                args.key[0], args.key[1] = v
+        elif not isinstance(v, torch.Tensor):
             setattr(args, name, int(v))
     return args, keep
 
@@ -427,15 +483,14 @@ def type_order(types: PodTypes) -> torch.Tensor:
 def prepare_init_tables(state: NodeState, types: PodTypes, tp: TypicalPods,
                         cfg: ReplayConfig) -> Launch:
     """The `init_tables` launch over CUDA tensors: its outputs are new
-    (score [n_pol * K, N], sdev [K, N], feas [K, N]) tables."""
+    (score [num_tables * K, N], sdev [K, N], feas [K, N]) tables."""
     dev = state.cpu_left.device
     _cuda_only(dev, "init_tables")
-    check_staged_sizes(types.num_types, tp.size)
     specs = types.stacked()
     k = specs.cpu.shape[0]
     tables = tuple(torch.empty((rows, state.num_nodes), dtype=torch.int32,
                                device=dev)
-                   for rows in (len(cfg.policies) * k, k, k))
+                   for rows in (cfg.num_tables * k, k, k))
     args, keep = _args(state, specs, types.num_share, tp, tables, cfg,
                        t_order=type_order(types))
     return Launch("init_tables", args, keep, lambda: tables)
@@ -475,29 +530,27 @@ def validate_events(ev_kind, ev_pod, num_pods: int) -> None:
         )
 
 
-def check_staged_sizes(num_types: int, num_typical: int) -> None:
-    """Every kernel stages the pod types and typical pods in shared memory:
-    refuse more than they hold."""
-    if num_types > MAX_TYPES or num_typical > MAX_TYPICAL:
-        raise ValueError(
-            f"{num_types} pod types and {num_typical} typical pods: the "
-            f"kernels stage at most {MAX_TYPES} and {MAX_TYPICAL}")
-
-
 def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                    ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                    tp: TypicalPods, rank: torch.Tensor, tables,
-                   cfg: ReplayConfig, name: str = "replay",
+                   cfg: ReplayConfig, name: str = "replay", key=None,
                    **extra) -> Launch:
     """The `replay` launch over CUDA tensors (or that of kernel `name`,
-    which takes the same arguments and the `extra` tensors). It mutates
-    copies of the state (tensors "cpu_left", "mem_left", "gpu_left",
-    "aff_cnt") and of the tables ("score", "sdev", "feas"), and writes
-    "placed" (initially -1), "maskb" and "failed" (initially 0) and the
-    per-event outputs."""
+    which takes the same arguments and the `extra` tensors), from the root
+    `key` where `cfg` is randomized. It mutates copies of the state
+    (tensors "cpu_left", "mem_left", "gpu_left", "aff_cnt") and of the
+    tables ("score", "sdev", "feas"), and writes "placed" (initially -1),
+    "maskb" and "failed" (initially 0) and the per-event outputs. A shape
+    past the staged limits (kernels.staged) gets the global form: a
+    "scratch" buffer in device memory."""
     dev = state.cpu_left.device
     _cuda_only(dev, name)
-    check_staged_sizes(types.num_types, tp.size)
+    key = root_key(key, cfg)
+    if not staged(types.num_types, tp.size):
+        nbytes = scratch_bytes(types.num_types, tp.size, len(cfg.policies),
+                               name == "replay_blocked")
+        extra["scratch"] = torch.empty(-(-nbytes // 4), dtype=torch.int32,
+                                       device=dev)
     live = state._replace(
         cpu_left=state.cpu_left.clone(), mem_left=state.mem_left.clone(),
         gpu_left=state.gpu_left.clone(), aff_cnt=state.aff_cnt.clone(),
@@ -520,7 +573,8 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
         rank=rank, p_cpu=pods.cpu, p_mem=pods.mem, p_milli=pods.gpu_milli,
         p_num=pods.gpu_num, p_pinned=pods.pinned, p_type=types.type_id,
         ev_kind=ev_kind, ev_pod=ev_pod, placed=placed, maskb=maskb,
-        failed=failed, ev_node=ev_node, ev_devb=ev_devb, p=p, e=e, **extra,
+        failed=failed, ev_node=ev_node, ev_devb=ev_devb, p=p, e=e, key=key,
+        **extra,
     )
     return Launch(name, args, keep, lambda: ReplayResult(
         live, placed, _bits_to_mask(maskb), failed != 0, None, ev_node,
@@ -529,18 +583,20 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
 
 def replay(state: NodeState, pods: PodSpec, types: PodTypes,
            ev_kind: torch.Tensor, ev_pod: torch.Tensor, tp: TypicalPods,
-           rank: torch.Tensor, tables, cfg: ReplayConfig) -> ReplayResult:
+           rank: torch.Tensor, tables, cfg: ReplayConfig,
+           key=None) -> ReplayResult:
     """Replay every event from `state` with the (score, sdev, feas) tables
-    of `state` under `cfg`: the `replay` CUDA kernel on CUDA tensors,
-    plain_replay on CPU tensors. Inputs are left unchanged. The kernel
-    trusts the event kinds, the pod indices and `types.type_id`: the
-    replayer of make_fused_replay checks the events on the host first, and
+    of `state` under `cfg`, drawing from root `key` where `cfg` is
+    randomized: the `replay` CUDA kernel on CUDA tensors, plain_replay on
+    CPU tensors. Inputs are left unchanged. The kernel trusts the event
+    kinds, the pod indices and `types.type_id`: the replayer of
+    make_fused_replay checks the events on the host first, and
     build_pod_types makes type ids in range."""
     if state.cpu_left.device.type == "cpu":
         return plain_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
-                            tables, cfg)
+                            tables, cfg, key=key)
     ready = prepare_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
-                           tables, cfg)
+                           tables, cfg, key=key)
     launch(ready)
     replay.launches += 1
     return ready.finish()
@@ -588,18 +644,20 @@ def make_fused_replay(policies: Sequence[Tuple[str, int]], gpu_sel: str,
     call signature (state, pods, types, ev_kind, ev_pod, tp, key,
     tiebreak_rank) and runs the CUDA kernels on a CUDA device, the plain
     versions on the CPU. It checks the event stream on the host before
-    moving it to the device. `key` is accepted and unused: the covered
-    configs draw no randomness."""
+    moving it to the device. `key` is the root of the event key chain (a
+    jax.random key's two words, as tpusim_torch.ops.prng.prng_key gives
+    it): a randomized configuration needs it, the others ignore it."""
     cfg = make_config(policies, gpu_sel, dim_ext, norm)
     device = torch.device(device)
 
     def run(state, pods, types, ev_kind, ev_pod, tp, key=None,
             tiebreak_rank=None) -> ReplayResult:
+        key = root_key(key, cfg)
         state, pods, types, ev_kind, ev_pod, tp, rank = device_inputs(
             device, state, pods, types, ev_kind, ev_pod, tp, tiebreak_rank)
         tables = init_tables(state, types, tp, cfg)
         return replay(state, pods, types, ev_kind, ev_pod, tp, rank, tables,
-                      cfg)
+                      cfg, key)
 
     run.config = cfg
     return run

@@ -207,6 +207,18 @@ def update_block_summaries(summ: Summaries, old, new, node: int, tables,
     return rescan
 
 
+def check_blocked(n: int, cfg: fe.ReplayConfig) -> None:
+    """The blocked replay takes whole 128-node blocks and no randomized
+    configuration (those run the flat replay, as tpusim's table engine
+    runs them flat)."""
+    if cfg.randomized:
+        raise ValueError("a randomized configuration (RandomScore, gpu_sel "
+                         "random) runs the flat replay, not replay_blocked")
+    if n % BLOCK:
+        raise ValueError(f"{n} nodes: the blocked replay takes whole "
+                         f"{BLOCK}-node blocks (pad_nodes)")
+
+
 def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                          ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                          tp: TypicalPods, rank: torch.Tensor, tables,
@@ -223,9 +235,7 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
     tables, and copies of the summaries before and after the block
     refresh."""
     n, k = state.num_nodes, types.num_types
-    if n % BLOCK:
-        raise ValueError(f"{n} nodes: the blocked replay takes whole "
-                         f"{BLOCK}-node blocks (pad_nodes)")
+    check_blocked(n, cfg)
     nblk, n_pol = n // BLOCK, len(cfg.policies)
     index = _norm_index(cfg)
     summ = plain_init_summaries(tables, rank, cfg)
@@ -238,7 +248,7 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
     def column(score, feas, node):
         return score.view(n_pol, k, n)[:, :, node].clone(), feas[:, node] != 0
 
-    def select(tables, dirty, kind, tid, pin) -> int:
+    def select(tables, dirty, kind, tid, pin, k_rand) -> int:
         nonlocal rebuilds
         score, _, feas = tables
         raws = score.view(n_pol, k, n)
@@ -292,9 +302,7 @@ def prepare_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
     """The `replay_blocked` launch over CUDA tensors: `replay`'s arguments
     and outputs, the summaries it builds and maintains, and "stats"."""
     n, k = state.num_nodes, types.num_types
-    if n % BLOCK:
-        raise ValueError(f"{n} nodes: the blocked replay takes whole "
-                         f"{BLOCK}-node blocks (pad_nodes)")
+    check_blocked(n, cfg)
     nblk, nn = n // BLOCK, max(len(_norm_index(cfg)), 1)
 
     def zeros(*shape):
@@ -343,6 +351,7 @@ def make_blocked_replay(policies: Sequence[Tuple[str, int]], gpu_sel: str,
     state (`init_tables`), replays (`replay_blocked`) and trims the final
     state back to the cluster's nodes."""
     cfg = fe.make_config(policies, gpu_sel, dim_ext, norm)
+    check_blocked(0, cfg)  # a randomized configuration runs flat only
     device = torch.device(device)
 
     def run(state, pods, types, ev_kind, ev_pod, tp, key=None,

@@ -24,6 +24,10 @@ the faster for every configuration there: under PWR+FGD the flat kernel
 took 1.34 times the blocked one's time. The rule does not look at the
 configuration's normalisation, which sets the flat kernel's select cost.
 
+A randomized configuration (RandomScore, gpu_sel random) runs "vmem"
+whatever the setting: `replay_blocked` does not draw, as tpusim's table
+engine runs such a configuration unblocked (`bsz = 0 if has_random`).
+
 There is no third tier: a shape the card's memory cannot hold fails its
 allocation before anything is launched.
 """
@@ -58,6 +62,20 @@ def blocked_extra_bytes(n: int, k: int, num_norm: int) -> int:
 def select_residency(n: int, k: int, num_pol: int, l2_bytes: int) -> str:
     """"vmem" when the tables fit in `l2_bytes` of L2 cache, else "hbm"."""
     return "vmem" if table_bytes(n, k, num_pol) <= l2_bytes else "hbm"
+
+
+def replay_tier(setting: str, randomized: bool, n: int, k: int,
+                num_pol: int, l2_bytes) -> str:
+    """The tier a replay runs in: "vmem" for a randomized configuration;
+    else `setting`, or under "auto" select_residency against `l2_bytes`
+    of L2 cache ("vmem" where there is no card, `l2_bytes` None)."""
+    if randomized:
+        return "vmem"
+    if setting != "auto":
+        return setting
+    if l2_bytes is None:
+        return "vmem"
+    return select_residency(n, k, num_pol, l2_bytes)
 
 
 def num_normalized(policies) -> int:
