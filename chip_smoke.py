@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only clocks    # phases by name, repeatable
+    python3 chip_smoke.py --only sweep     # the lanes kernels' phase
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
@@ -10,7 +11,8 @@ result line:
            required.
 2. build   the port's CUDA kernels, compiled from tpusim_torch/kernels/*.cu:
            the main library and the variants of kernels.VARIANTS (the
-           clocked build), one nvcc each, all in parallel.
+           clocked build), an nvcc a source and variant, all in
+           parallel, then a link a variant.
 3. check   each kernel against its plain PyTorch version on the same inputs,
            tolerance zero (exact equality), for every policy configuration
            the kernels cover: init_tables on the full openb tables of each
@@ -24,9 +26,9 @@ result line:
            FGD/worst and the MIXES of RandomScore,
            gpu_sel random and Simon; the randomized ones through the
            randomized instantiation, from a root key) and on the openb
-           trace: in full under FGD, FGD/worst and 01-Random (PLAIN_ROWS),
-           and over its first 2,000 events under Simon and the six-policy
-           profile (PREFIX_ROWS, the kernel timed on the same prefix), and
+           trace: in full under FGD (PLAIN_ROWS), and over its first 1,000
+           events under Simon, the six-policy profile, FGD/worst and
+           01-Random (PREFIX_ROWS, the kernel timed on the same prefix), and
            replay_blocked on seeded random
            clusters of five 128-node blocks for every method row's
            configuration that draws nothing per event, FGD/worst and
@@ -45,13 +47,13 @@ result line:
            row at openb, and replay for FGD/worst (the one-FGD
            configuration through the general kernel), beside the plain
            version and the bound; each timed run's placements and masks
-           must match the row's JAX digests, and the bounds count refreshes
-           from those placements (from the plain run for FGD/worst).
+           must match the row's JAX digests (FGD_WORST's for FGD/worst),
+           and the bounds count refreshes from those placements.
 4. clocks  the phase split of both replay kernels through the clocked
            build (each run's outputs held to the main build's) for 06-FGD,
            05-BestFit, 08 and 01-Random (replay only) at openb and, in the
            scale phase, on the first
-           2,000 events at 100k nodes; written to
+           1,000 events at 100k nodes; written to
            chiprun_out/phase_clocks.json.
 5. main    Simulator.run() on the card for every row of the paper's method
            list, Simon alone and the six-policy profile of `simon apply`
@@ -97,12 +99,37 @@ result line:
            must match the JAX package's digests, and the flat replay over
            the same chunks must give identical outputs. Both kernels are
            timed. At the scale width init_tables and both replay kernels
-           are held to their plain versions (CPU copies) over 2,000
+           are held to their plain versions (CPU copies) over 1,000
            events from the state after the first chunk, for FGD, BestFit
            and PWR+FGD, tolerance 0 with stats and final tables; then both
            replay kernels are timed on 20,000 events at 10k, 30k and 100k
            nodes for 06-FGD, 05-BestFit and 08, beside the tier auto picks
            there.
+8. sweep   the lanes kernels `replay_lanes` and `replay_blocked_lanes` (a
+           block a lane, one launch) on their paths, the launch counts set
+           to 0 before each run and read after it (init_tables and the
+           residency's lanes kernel once each): the seed batch, 06-FGD
+           under tuning seeds 42-57 through dispatch_run_batch and
+           finish_run_batch with reports on (every lane equal to its
+           standalone kernel run, lanes 42-45 to the JAX digests, lane
+           42's log and CSVs to REPORT_SHA256); the reference's acceptance
+           weight grid over FGDScore + BestFitScore (16 rows) through
+           Simulator.run_sweep under "auto" and "hbm", and 01-Random under
+           seeds 42-57, each lane equal to its standalone kernel run with
+           its row and seed in the configuration; both lanes kernels
+           against their plain versions, tolerance 0 with final states,
+           tables and summaries, on a 256-node random cluster (4 lanes)
+           and at the main path's shape, openb over its first 1,000
+           events (2 lanes: the grid's first and last rows through both
+           kernels, 01-Random under two keys and ranks);
+           both lanes kernels alone and the whole schedule_pods_sweep call
+           timed at 1, 16, 64, 132 and 264 lanes for 06-FGD and the
+           FGD+BestFit grid under both residencies, beside the bound and a
+           standalone warm replay (a lane's marginal cost at 16 lanes must
+           stay within 1/5 of it, the reference's sweep bound), run_batch
+           at 1 and 16 seeds, and `python -m tpusim_torch.sweep --methods
+           06-FGD --seeds 16` against the 16 experiments one by one (every
+           directory's files equal).
 
 Run with every phase, it then prints one JSON line describing the
 kernels, the card's line, and as the last line {"ok": true, "device":
@@ -206,6 +233,13 @@ METHODS = [
      "56ecee404c6f5d0f012ebc8f4bd6f604bc77ded2e80742dec58d201a15a9a5b2",
      "fc042fdbcb252a66ba0ade461aa2703a1427d1b0fc04c2f72a24356e438998d8"),
 ]
+# FGD with gpu_sel worst, the one-FGD configuration through the general
+# kernel, as a METHODS row: the digests of the JAX package's
+# Simulator.run() of it on openb, as above. tests/test_torch_driver.py
+# pins them against tpusim.
+FGD_WORST = ("FGD-worst", [("FGDScore", 1000)], "worst", "share", "max",
+             "28021787b25d21b0126b0fcea28b45342593adde91e4d5742eab15d8b58f282b",
+             "991292f9f1c3b11035bda2f1f111dcf581cf477a38ecea304aab648a28427b80")
 # the rows that draw per event: they run the flat replay under any
 # residency, from the main replay's root key, PRNGKey(seed 42)
 RANDOMIZED_ROWS = ("01-Random", "default-profile")
@@ -260,7 +294,7 @@ SCALE_CHUNK = 200_000
 SCALE_SEED = 42
 # the plain checks at the scale width: this many events of the stream from
 # the state after the first chunk
-SCALE_PREFIX = 2_000
+SCALE_PREFIX = 1_000
 # where auto's choice is measured: both replay kernels alone on the first
 # CROSSOVER_EVENTS events of the stream at each width, for these rows
 CROSSOVER_NODES = (10_000, 30_000, 100_000)
@@ -288,7 +322,9 @@ THREEFRY_OPS = 20 * 3 + 6 * 2 + 5 + 2 + 2
 
 REPLACES = {"init_tables": "tpusim/sim/pallas_engine.py:780",
             "replay": "tpusim/sim/pallas_engine.py:780",
-            "replay_blocked": "tpusim/sim/pallas_engine.py:1346"}
+            "replay_blocked": "tpusim/sim/pallas_engine.py:1346",
+            "replay_lanes": "tpusim/sim/pallas_engine.py:780",
+            "replay_blocked_lanes": "tpusim/sim/pallas_engine.py:1346"}
 # the kernels each residency's replay launches
 RESIDENCY_KERNELS = {"vmem": ("init_tables", "replay"),
                      "hbm": ("init_tables", "replay_blocked")}
@@ -308,21 +344,23 @@ MIXES = (
 # a root key for the random cases (the event chain's, PRNGKey(7))
 CHECK_KEY = (0, 7)
 # the rows whose openb replay the check phase also runs through the plain
-# version, beside the kernel: in full the paper's FGD row, FGD/worst (which
-# has no JAX digest) and 01-Random (the randomized instantiation and the
-# key chain over every event); Simon and the six-policy profile over the
-# first PLAIN_PREFIX events (the kernel timed again on the same prefix),
-# for their plain versions take minutes over the whole trace and the JAX
-# digests already hold the whole of it
-PLAIN_ROWS = ("06-FGD", "FGD-worst", "01-Random")
-PREFIX_ROWS = ("Simon", "default-profile")
-PLAIN_PREFIX = 2_000
+# version, beside the kernel: in full the paper's FGD row; Simon, the
+# six-policy profile, FGD/worst (whose whole run FGD_WORST's JAX digests
+# hold) and 01-Random (whose
+# whole key chain the JAX digests and the sweep phase's lanes hold) over
+# the first PLAIN_PREFIX events, the kernel timed again on the same
+# prefix, for their plain versions take 30-160 s of host time each over
+# the whole trace
+PLAIN_ROWS = ("06-FGD",)
+PREFIX_ROWS = ("Simon", "default-profile", "FGD-worst", "01-Random")
+PLAIN_PREFIX = 1_000
 DIM_EXT = ("merge", "share", "divide", "extend")
 NORM = ("node", "pod", "max")
 # node counts of the wide random blocked cases: 17 blocks (more than the
 # block's 16 warps) and 513 (more than its 512 threads)
 WIDE_BLOCKED = (2100, 65_600)
 SOURCE = "tpusim_torch/kernels/replay.cu"
+LANES_SOURCE = "tpusim_torch/kernels/replay_lanes.cu"
 WARM_RUNS = 5  # the paper's FGD row; the other rows take 3
 
 
@@ -433,7 +471,8 @@ def empty_launch_ms(repeats: int) -> float:
 
 def reset_of(ready, state, tables):
     """A function that restores what a prepared replay mutates: the node
-    state and tables it starts from, and its per-pod outputs."""
+    state and tables it starts from, and its per-pod outputs (every lane's
+    copies of a lanes launch)."""
     live = ready.tensors
 
     def reset():
@@ -1067,7 +1106,7 @@ def check_configs():
                 out.append((f"DotProd-{dim_ext}-{norm}", fe.make_config(
                     [("DotProductScore", 1000)], "DotProductScore", dim_ext,
                     norm), 230))
-    out.append(("FGD-worst", fe.make_config([("FGDScore", 1000)], "worst"),
+    out.append((FGD_WORST[0], fe.make_config(*FGD_WORST[1:5]),
                 230))
     out += [(label, fe.make_config(policies, gpu_sel), 230)
             for label, policies, gpu_sel in MIXES]
@@ -1110,7 +1149,7 @@ def blocked_configs():
 
     return ([(row[0], fe.make_config(*row[1:5])) for row in METHODS
              if row[0] not in RANDOMIZED_ROWS]
-            + [("FGD-worst", fe.make_config([("FGDScore", 1000)], "worst"))]
+            + [(FGD_WORST[0], fe.make_config(*FGD_WORST[1:5]))]
             + [(label, fe.make_config(policies, gpu_sel))
                for label, policies, gpu_sel in MIXES if label == "Simon+FGD"])
 
@@ -1236,24 +1275,22 @@ def check_kernels(device, card: str):
               f"each, on {card}")
 
     kinds, pods = evk.cpu().numpy(), evp.cpu().numpy()
-    methods = {row[0]: row for row in METHODS}
+    methods = {row[0]: row for row in METHODS + [FGD_WORST]}
     tp_bytes = 5 * t * 4
     type_bytes = 5 * k * 4
     state_bytes = n * (1 + 1 + 1 + 1 + 8 + 9 + 1 + 1) * 4
     measured = {}
     # FGD/worst runs the one-FGD configuration through the general kernel:
     # what the runtime policy switch costs beside 06-FGD's specialised one
-    timed = rows + [("FGD-worst", fe.make_config([("FGDScore", 1000)],
-                                                 "worst"))]
+    timed = rows + [(FGD_WORST[0], fe.make_config(*FGD_WORST[1:5]))]
     for label, cfg in timed:
         init_ms, plain_init_ms, tables = plain_init[label]
         ready, reset = prepared(cfg, tables)
         replay_ms = kernel_ms(ready, 3, reset)
         got = ready.finish()  # the last timed launch ran from the reset state
         plain_replay_ms = None
-        if label in methods:
-            check_digests(f"replay {label}", got, *methods[label][5:7])
-            refreshes = placed_refreshes(kinds, pods, got.placed_node)
+        check_digests(f"replay {label}", got, *methods[label][5:7])
+        refreshes = placed_refreshes(kinds, pods, got.placed_node)
         prefix = {}
         if label in PLAIN_ROWS + PREFIX_ROWS:  # beside the plain version
             keep = {}
@@ -1271,8 +1308,6 @@ def check_kernels(device, card: str):
                 keep=keep, key=OPENB_KEY))
             if label in PLAIN_ROWS:
                 plain_replay_ms = ms_p
-                if label not in methods:  # no JAX digest: the plain's count
-                    refreshes = refreshes_of(want.event_node.cpu().numpy())
             else:
                 prefix["plain_prefix_ms"] = ms_p
             err = max(max_abs_err(cmp_got, want),
@@ -2340,7 +2375,577 @@ def apply_default_profile(device, card: str) -> dict:
     return counts
 
 
-PHASES = ("check", "clocks", "main", "apply", "scale")
+# The sweep phase: the seed batch (06-FGD, tuning seeds SWEEP_SEEDS), the
+# reference's acceptance weight grid over FGDScore + BestFitScore (gpu_sel
+# FGDScore, tpusim's tests/test_sweep.py test_openb_sweep_acceptance), the
+# 01-Random lanes, the lane counts timed, and the digests of the JAX
+# package's Simulator.run() of 06-FGD with tuning seed and seed 43, 44 and
+# 45 (CPU, table engine; seed 42's are OPENB_*): sha256 of placed_node as
+# int32 and of dev_mask as uint8. tests/test_torch_sweep.py pins them
+# against tpusim (slow-marked).
+SWEEP_SEEDS = tuple(range(42, 58))
+SWEEP_POLICIES = (("FGDScore", 1000), ("BestFitScore", 500))
+SWEEP_GRID = tuple((1000 - 37 * i, 100 + 60 * i) for i in range(16))
+SWEEP_LANES = (1, 16, 64, 132, 264)
+SEED_SHA256 = {
+    43: ("395e8fc46d577f098be8df35c5b9552dc4c78db13c9025a82773425b161c94c2",
+         "9440794d38479db4ce797205de08d8f393465501d205dbf103d91f00e0cbcdb3"),
+    44: ("707276776f452dc046b617831fecd8abff5980b9d417ea8fcdca5cd897d0f56e",
+         "f375172749953e64afe9f2183062aca2b7f6513b8e83fe2945331ea251dab803"),
+    45: ("0d3c5e935973db6e2ae4d47638f0445fe053a6b458a6c19645dfcf2fccb2b613",
+         "40d0b8bef75b89b811a8815e7624e267fba13ecf86d24516e80959672d2e82a2"),
+}
+# report_digest of experiments/run.py's 06-FGD experiment as
+# experiments/sweep.py runs it (tune 1.3, tuning seed 42, shuffled, the
+# typical pods of run.py's flags: popularity 95, step 1), on the CPU.
+# tests/test_torch_sweep.py pins it against experiments/run.py.
+SWEEP_CLI_SHA256 = (
+    "9a0b3d93e4381a71cac4b653b412c612299505f4344b6ce6cb5bab3ab42f563a"
+)
+# the card's streaming multiprocessors: a lanes launch runs a lane a block,
+# one block an SM, so past this many lanes it takes more than one wave
+H100_SMS = 132
+# the reference's sweep bound: a lane's marginal cost at B = 16, report
+# off, against a standalone warm replay
+MARGINAL_BOUND = 0.2
+LANE_KERNELS = ("replay_lanes", "replay_blocked_lanes")
+
+
+def same_replay(label: str, got, want) -> None:
+    """A lane's placements, masks, failures and final state against its
+    standalone run's, exactly."""
+    import torch
+
+    pairs = [("placed_node", got.placed_node, want.placed_node),
+             ("dev_mask", got.dev_mask, want.dev_mask),
+             ("ever_failed", got.ever_failed, want.ever_failed)]
+    pairs += [(f"state.{f}", a, b) for f, a, b in
+              zip(want.state._fields, got.state, want.state)]
+    for name, a, b in pairs:
+        if not torch.equal(torch.as_tensor(np.asarray(a)).cpu(),
+                           torch.as_tensor(np.asarray(b)).cpu()):
+            raise SmokeFailure(f"{label}: {name} differs from the "
+                               "standalone kernel run")
+
+
+def lane_counts(label: str, counts: dict, kernel: str) -> None:
+    """A lanes run launched init_tables once, `kernel` once and no other
+    replay kernel."""
+    want = {name: (1 if name in ("init_tables", kernel) else 0)
+            for name in counts}
+    if counts != want:
+        raise SmokeFailure(f"{label}: launches {counts} (want {want})")
+
+
+def lanes_bound(chains, b: int, table_set_bytes: int):
+    """(bound ms, what bounds it) of a lanes launch of b lanes: the
+    longest lane's serial chain, once per wave of H100_SMS lanes, against
+    the bytes of b table sets at the memory rate."""
+    chain = max(chains) * -(-b // H100_SMS)
+    by_bytes = b * table_set_bytes / PEAK_BYTES_PER_S * 1e3
+    return (chain, "operations") if chain >= by_bytes else (by_bytes,
+                                                            "bytes")
+
+
+def sweep_seed_batch(device, nodes, pods, card):
+    """The seed batch: 06-FGD under SWEEP_SEEDS through dispatch_run_batch
+    and finish_run_batch, reports on. Returns the run's launch counts."""
+    import types
+
+    import torch
+
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.sim import driver as drv
+    from tpusim_torch.sim import fused_engine as fe
+
+    row = dict((r[0], r) for r in METHODS)["06-FGD"]
+    sims = []
+    for seed in SWEEP_SEEDS:
+        sim = drv.Simulator(nodes, method_config(*row[1:5], tune_seed=seed),
+                            device=device)
+        sim.set_workload_pods(pods)
+        sims.append(sim)
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    handle = drv.dispatch_run_batch(sims)
+    t1 = time.perf_counter()
+    results = drv.finish_run_batch(handle)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = run_counts()
+    ran = f"{sims[0].last_engine} ({sims[0].last_residency})"
+    lane_counts("sweep seed batch", counts, "replay_lanes")
+    csv_ms = check_report("sweep seed batch lane 42", sims[0], "06-FGD",
+                          row_meta(*row[1:3], row[3]))
+    want = {42: (OPENB_PLACED_SHA256, OPENB_DEV_MASK_SHA256), **SEED_SHA256}
+    for sim, res in zip(sims, results):
+        seed = sim.cfg.seed
+        if seed in want and (digest(res.placed_node, np.int32),
+                             digest(res.dev_mask, np.uint8)) != want[seed]:
+            raise SmokeFailure(f"sweep seed batch lane {seed}: differs from "
+                               "the JAX reference's digests")
+        trace = sim.prepare_pods()
+        specs = pods_to_specs(trace, sim.node_index, device)
+        evk, evp = build_events(trace)
+        alone = sim.run_events(sim.init_state, specs, evk, evp)
+        same_replay(f"sweep seed batch lane {seed}", types.SimpleNamespace(
+            placed_node=res.placed_node, dev_mask=res.dev_mask,
+            ever_failed=sim.last_ever_failed, state=res.state),
+            type(alone)(*to_cpu(tuple(alone))))
+    print(f"sweep seed batch 06-FGD seeds {SWEEP_SEEDS[0]}-{SWEEP_SEEDS[-1]}"
+          f" (B={len(sims)}, reports on): {ran}, launches {counts}; every "
+          f"lane equals "
+          f"its standalone kernel run, lanes 42-45 match the JAX digests, "
+          f"lane 42's log and CSVs match REPORT_SHA256; dispatch "
+          f"{(t1 - t0) * 1e3:.1f} ms, run_batch wall {wall:.3f} s (lane 42's "
+          f"CSV write {csv_ms:.1f} ms), host clock, on {card}")
+    return counts
+
+
+def sweep_family(device, nodes, pods, card, label, cfg, grid, seeds,
+                 setting):
+    """One sweep of `grid` (rows in cfg.policies order) and `seeds` through
+    Simulator.run_sweep under table_residency `setting`, report off, each
+    lane held to its standalone kernel run (the row baked into the
+    configuration, the seed as cfg.seed). Returns the run's launch
+    counts."""
+    import dataclasses
+
+    import torch
+
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.driver import Simulator
+
+    cfg = dataclasses.replace(cfg, table_residency=setting,
+                              report_per_event=False)
+    sim = Simulator(nodes, cfg, device=device)
+    sim.set_workload_pods(pods)
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    lanes = sim.run_sweep([list(r) for r in grid], seeds=list(seeds))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = run_counts()
+    kernel = sim.last_engine
+    lane_counts(f"sweep {label}/{setting}", counts, kernel)
+    trace = sim.prepare_pods()
+    for row, seed, lane in zip(grid, seeds, lanes):
+        alone = Simulator(nodes, dataclasses.replace(
+            cfg, seed=seed, policies=tuple(
+                (name, int(w)) for (name, _), w in zip(cfg.policies, row))),
+            device=device)
+        alone.set_workload_pods(pods)
+        alone.set_typical_pods()
+        specs = pods_to_specs(trace, alone.node_index, device)
+        evk, evp = build_events(trace)
+        want = alone.run_events(alone.init_state, specs, evk, evp)
+        if alone.last_residency != sim.last_residency:
+            raise SmokeFailure(f"sweep {label}/{setting}: the standalone run "
+                               f"ran {alone.last_residency}, the sweep "
+                               f"{sim.last_residency}")
+        want = type(want)(*to_cpu(tuple(want)))
+        same_replay(f"sweep {label}/{setting} row {row} seed {seed}",
+                    lane, want)
+    print(f"sweep {label}/{setting} (B={len(lanes)}): {kernel} "
+          f"({sim.last_residency}), launches {counts}; every lane equals "
+          f"its standalone kernel run; run_sweep wall {wall:.3f} s (host "
+          f"clock), on {card}")
+    return counts
+
+
+def lanes_against_plain(name: str, case, cfg, lanes):
+    """Lanes kernel `name` over `lanes` from `case` = (state, types,
+    typical pods, tables) against its plain version (on CPU copies for
+    replay_blocked_lanes), tolerance 0 with outputs, final states, final
+    tables and, blocked, summaries. The comparison's launch is not counted.
+    Returns (largest error, kernel ms, plain ms, the launch's outputs)."""
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.residency import num_normalized
+
+    state, types, tp, tables = case
+    blocked = name == "replay_blocked_lanes"
+    prep = (he.prepare_replay_blocked_lanes if blocked
+            else fe.prepare_replay_lanes)
+    plain = (he.plain_replay_blocked_lanes if blocked
+             else fe.plain_replay_lanes)
+    ready = prep(state, types, tp, tables, cfg, lanes)
+    fe.launch(ready)  # a comparison: past the wrapper, not counted
+    got, keep = tuple(ready.finish()), {}
+    args = (state, types, tp, tables, cfg, lanes)
+    if blocked:
+        args = (to_cpu(state), to_cpu(types), to_cpu(tp), to_cpu(tables),
+                cfg, [fe.Lane(*to_cpu(tuple(lane[:5])), lane.weights,
+                              lane.key) for lane in lanes])
+    plain_ms, want = wall_ms(lambda: plain(*args, keep=keep))
+    err = max_abs_err(to_cpu(got), to_cpu(tuple(want)))
+    t = ready.tensors
+    summaries = ("bt", "br", "bn") + (
+        ("brmin", "brmax", "slo", "shi")
+        if num_normalized(cfg.policies) else ())
+    for b in range(len(lanes)):
+        err = max(err, max_abs_err(
+            to_cpu(tuple(t[f][b] for f in ("score", "sdev", "feas"))),
+            to_cpu(tuple(keep["tables"][b]))))
+        if blocked:
+            summ = keep["summaries"][b]
+            err = max(err, max_abs_err(
+                to_cpu(tuple(t[f][b] for f in summaries)),
+                to_cpu(tuple(getattr(summ, f) for f in summaries))))
+    timed = prep(state, types, tp, tables, cfg, lanes)
+    ms = kernel_ms(timed, 3, reset_of(timed, state, tables))
+    return err, ms, plain_ms, got
+
+
+def sweep_plain_checks(device, card):
+    """Both lanes kernels against their plain versions (lanes_against_plain)
+    on a 256-node random cluster, 4 lanes (their own ranks, weights and
+    keys): replay_lanes under FGD+BestFit and 01-Random (plain on the
+    card), replay_blocked_lanes under FGD+BestFit; then at the main path's
+    shape, openb (1213 nodes, 1280 padded for the blocked kernel) over its
+    first PLAIN_PREFIX events, 2 lanes: the first and last rows of
+    SWEEP_GRID through both kernels' general instantiation, and 01-Random
+    under tuning seeds 42 and 43 (their own keys and ranks) through the
+    randomized one. Returns {kernel: its row's numbers}."""
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    out = {}
+    cases = (("replay_lanes", list(SWEEP_POLICIES), "FGDScore", "share"),
+             ("replay_lanes", [("RandomScore", 1000)], "random", "merge"),
+             ("replay_blocked_lanes", list(SWEEP_POLICIES), "FGDScore",
+              "share"))
+    for i, (name, policies, gpu_sel, dim_ext) in enumerate(cases):
+        cfg = fe.make_config(policies, gpu_sel, dim_ext)
+        state, pods, types, evk, evp, tp, rank = random_case(
+            300 + i, 256, 150, device)
+        blocked = name == "replay_blocked_lanes"
+        if blocked:
+            state, rank = pad_nodes(state, rank, 128)
+        n = state.num_nodes
+        gen = torch.Generator().manual_seed(i)
+        lanes = [fe.Lane(pods, types.type_id, evk, evp,
+                         rank if b == 0 else
+                         torch.randperm(n, generator=gen).int().to(device),
+                         fe.lane_weights(cfg, SWEEP_GRID[b][:len(policies)]),
+                         (0, 7 + b) if cfg.randomized else None)
+                 for b in range(4)]
+        if blocked:
+            lanes = [lane._replace(rank=torch.where(
+                torch.arange(n, device=device) < 256, lane.rank,
+                torch.iinfo(torch.int32).max)) for lane in lanes]
+        tables = fe.init_tables(state, types, tp, cfg)
+        err, ms, plain_ms, got = lanes_against_plain(
+            name, (state, types, tp, tables), cfg, lanes)
+        prep = (he.prepare_replay_blocked_lanes if blocked
+                else fe.prepare_replay_lanes)
+        bound = lanes_case_bound(prep, (state, types, tp, tables, cfg),
+                                 lanes, got, pods)
+        print(f"check random lanes {name} {'+'.join(p for p, _ in policies)}"
+              f" nodes=256 events={evk.shape[0]} B=4: max_abs_err={err} with "
+              f"final states, tables{' and summaries' if blocked else ''} "
+              f"(tolerance 0); {ms:.3f} ms (plain {plain_ms:.1f} ms"
+              f"{' on the CPU' if blocked else ''}), on {card}")
+        if err:
+            raise SmokeFailure(f"{name} disagrees with its plain version on "
+                               f"the random case of {policies}")
+        if name not in out:  # the row's numbers: its first case
+            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound[0], bound_by=bound[1],
+                             case=f"random 256 nodes, {evk.shape[0]} "
+                             f"events, B=4, {'+'.join(p for p, _ in policies)}")
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+
+    # openb: the weight grid's lanes share the rank; the random lanes
+    # differ in key and (the second) in rank
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    ek, ep = evk[:PLAIN_PREFIX], evp[:PLAIN_PREFIX]
+    other = rank[torch.randperm(state.num_nodes,
+                                generator=torch.Generator().manual_seed(43))
+                 .to(device)]
+    grid_cfg = fe.make_config(list(SWEEP_POLICIES), "FGDScore", "share")
+    random_cfg = fe.make_config(
+        *dict((r[0], r) for r in METHODS)["01-Random"][1:5])
+    cases = (("replay_lanes", "FGD+BestFit", grid_cfg,
+              [(SWEEP_GRID[0], rank), (SWEEP_GRID[-1], rank)]),
+             ("replay_lanes", "01-Random", random_cfg,
+              [((1000,), rank), ((1000,), other)]),
+             ("replay_blocked_lanes", "FGD+BestFit", grid_cfg,
+              [(SWEEP_GRID[0], rank), (SWEEP_GRID[-1], rank)]))
+    for name, label, cfg, rows in cases:
+        blocked = name == "replay_blocked_lanes"
+        st = pad_nodes(state, rank, 128)[0] if blocked else state
+        lanes = [fe.Lane(specs, types.type_id, ek, ep,
+                         pad_nodes(state, rk, 128)[1] if blocked else rk,
+                         fe.lane_weights(cfg, row),
+                         (0, 42 + b) if cfg.randomized else None)
+                 for b, (row, rk) in enumerate(rows)]
+        tables = fe.init_tables(st, types, tp, cfg)
+        err, ms, plain_ms, _ = lanes_against_plain(
+            name, (st, types, tp, tables), cfg, lanes)
+        print(f"check openb lanes {name} {label} N={st.num_nodes} "
+              f"E={PLAIN_PREFIX} B={len(lanes)} (rows "
+              f"{[tuple(r) for r, _ in rows]}): "
+              f"max_abs_err={err} with final states, tables"
+              f"{' and summaries' if name == 'replay_blocked_lanes' else ''}"
+              f" (tolerance 0); {ms:.3f} ms (plain {plain_ms:.1f} ms"
+              f"{' on the CPU' if name == 'replay_blocked_lanes' else ''}), "
+              f"on {card}", flush=True)
+        if err:
+            raise SmokeFailure(f"{name} disagrees with its plain version on "
+                               f"openb under {label}")
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        out[name].setdefault("openb_prefix", {})[label] = dict(
+            events=PLAIN_PREFIX, lanes=len(lanes), max_abs_err=err, ms=ms,
+            plain_ms=plain_ms)
+    return out
+
+
+def lanes_case_bound(prep, args, lanes, got, pods):
+    """lanes_bound of a lanes launch's run `got` of `lanes` over
+    (state, types, typical pods, tables, cfg) = `args`: each lane's chain
+    from its own refreshes (and rebuilds and unpinned creates, blocked),
+    the step from an all-skip launch of one lane."""
+    import torch
+
+    from tpusim_torch.sim.residency import num_normalized
+
+    state, types, tp, tables, cfg = args
+    blocked = prep.__name__ == "prepare_replay_blocked_lanes"
+    lane = lanes[0]
+    skip = prep(state, types, tp, tables, cfg, [lane._replace(
+        ev_kind=torch.full_like(lane.ev_kind, 2))])
+    e = lane.ev_kind.shape[0]
+    step = kernel_ms(skip, 3, reset_of(skip, state, tables)) / e
+    kinds = lane.ev_kind.cpu().numpy()
+    n, k = state.num_nodes, types.num_types
+    n_pol = cfg.num_tables
+    chains = []
+    for out in got:
+        res, stats = out if blocked else (out, None)
+        refreshes = refreshes_of(res.event_node.cpu().numpy())
+        if blocked:
+            pinned = pods.pinned.cpu().numpy()[lane.ev_pod.cpu().numpy()]
+            unpinned = int(((kinds == 0) & (pinned < 0)).sum())
+            chains.append(chain_blocked_ms(
+                step, kinds, unpinned, n, k, refreshes, n_pol,
+                num_normalized(cfg.policies), int(stats[2])))
+        else:
+            chains.append(chain_ms(step, kinds, n, k, refreshes, n_pol))
+    return lanes_bound(chains, len(got), (n_pol + 2) * k * n * 4)
+
+
+def sweep_times(device, nodes, pods, card):
+    """Both lanes kernels alone (CUDA events, median of 2 after a warm-up)
+    and the whole schedule_pods_sweep call (host clock around a
+    synchronise, min of 2 after a warm-up) at SWEEP_LANES lanes, report
+    off, under "auto" (the flat kernel at openb) and "hbm", for 06-FGD
+    (rows 1000 - i) and the FGD+BestFit grid (SWEEP_GRID, repeated past 16
+    lanes), beside each lane count's bound and a standalone warm replay
+    (Simulator.run_events, min of 3); the marginal cost of a lane,
+    (w_B - w_1) / (B - 1), must stay within MARGINAL_BOUND of the
+    standalone replay at B = 16 under "auto". Then run_batch (06-FGD,
+    report off, min of 2) at 1 and 16 seeds beside a standalone warm
+    run(). Returns {kernel: {label: numbers}}."""
+    import dataclasses
+
+    import torch
+
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import driver as drv
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.table_engine import build_pod_types
+
+    rows = {name: {} for name in LANE_KERNELS}
+    families = (("06-FGD", (("FGDScore", 1000),),
+                 lambda b: [(1000 - i,) for i in range(b)]),
+                ("FGD+BestFit", SWEEP_POLICIES,
+                 lambda b: [SWEEP_GRID[i % len(SWEEP_GRID)]
+                            for i in range(b)]))
+    for label, policies, grid_of in families:
+        for setting in ("auto", "hbm"):
+            cfg = dataclasses.replace(
+                method_config(policies, "FGDScore"), table_residency=setting,
+                report_per_event=False)
+            sim = drv.Simulator(nodes, cfg, device=device)
+            sim.set_workload_pods(pods)
+            sim.set_typical_pods()
+            trace = sim.prepare_pods()
+            specs = pods_to_specs(trace, sim.node_index, device)
+            evk_h, evp_h = build_events(trace)
+            sim.run_events(sim.init_state, specs, evk_h, evp_h)
+            standalone = min(wall_ms(lambda: sim.run_events(
+                sim.init_state, specs, evk_h, evp_h))[0] for _ in range(3))
+            blocked = sim.last_residency == "hbm"
+            name = "replay_blocked_lanes" if blocked else "replay_lanes"
+            rc = sim._replay.config
+            types = build_pod_types(specs)
+            evk, evp = (torch.as_tensor(a, device=device)
+                        for a in (evk_h, evp_h))
+            state, rank = sim.init_state, sim.rank
+            if blocked:
+                state, rank = pad_nodes(state, rank, 128)
+            tables = fe.init_tables(state, types, sim.typical, rc)
+            prep = (he.prepare_replay_blocked_lanes if blocked
+                    else fe.prepare_replay_lanes)
+            walls = {}
+            for b in SWEEP_LANES:
+                grid = grid_of(b)
+                lanes = [fe.Lane(specs, types.type_id, evk, evp, rank,
+                                 fe.lane_weights(rc, row)) for row in grid]
+                ready = prep(state, types, sim.typical, tables, rc, lanes)
+                ms = kernel_ms(ready, 2, reset_of(ready, state, tables))
+                bound = lanes_case_bound(prep, (state, types, sim.typical,
+                                                tables, rc), lanes,
+                                         ready.finish(), specs)
+                del ready
+                drv.schedule_pods_sweep(sim, trace, grid)
+                walls[b] = min(wall_ms(lambda: drv.schedule_pods_sweep(
+                    sim, trace, grid))[0] for _ in range(2))
+                marginal = ((walls[b] - walls[1]) / (b - 1) if b > 1
+                            else None)
+                rows[name][f"openb {label}/{setting} B={b}"] = dict(
+                    ms=ms, bound_ms=bound[0], bound_by=bound[1],
+                    sweep_wall_ms=walls[b], standalone_wall_ms=standalone,
+                    marginal_ms=marginal)
+                print(f"time sweep {label}/{setting} B={b}: {name} {ms:.3f} "
+                      f"ms alone (bound {bound[0]:.3f} ms by {bound[1]}), "
+                      f"schedule_pods_sweep {walls[b]:.2f} ms"
+                      + (f", marginal {marginal:.3f} ms a lane = "
+                         f"{marginal / standalone:.4f} of the standalone "
+                         f"warm replay {standalone:.2f} ms"
+                         if marginal is not None else
+                         f" (standalone warm replay {standalone:.2f} ms)")
+                      + f", on {card}", flush=True)
+                if b == 16 and setting == "auto" and \
+                        marginal > MARGINAL_BOUND * standalone:
+                    raise SmokeFailure(
+                        f"sweep {label}: a lane's marginal cost at B=16 is "
+                        f"{marginal:.3f} ms, more than {MARGINAL_BOUND} of "
+                        f"the standalone warm replay's {standalone:.3f} ms")
+
+    row = dict((r[0], r) for r in METHODS)["06-FGD"]
+    batch = {}
+    for b in (1, 16):
+        sims = []
+        for seed in SWEEP_SEEDS[:b]:
+            sim = drv.Simulator(nodes, dataclasses.replace(
+                method_config(*row[1:5], tune_seed=seed),
+                report_per_event=False), device=device)
+            sim.set_workload_pods(pods)
+            sims.append(sim)
+        drv.run_batch(sims)
+        batch[b] = min(wall_ms(lambda: drv.run_batch(sims))[0]
+                       for _ in range(2))
+    alone = sims[0]
+    alone.run()
+    run_ms = min(wall_ms(alone.run)[0] for _ in range(2))
+    print(f"time run_batch 06-FGD (report off): 1 seed {batch[1]:.1f} ms, "
+          f"16 seeds {batch[16]:.1f} ms, marginal "
+          f"{(batch[16] - batch[1]) / 15:.2f} ms a seed, against a "
+          f"standalone warm run() {run_ms:.1f} ms (host clock), on {card}",
+          flush=True)
+    rows["replay_lanes"]["run_batch 06-FGD"] = dict(
+        wall_1_ms=batch[1], wall_16_ms=batch[16],
+        marginal_ms=(batch[16] - batch[1]) / 15, standalone_run_ms=run_ms)
+    return rows
+
+
+def sweep_cli(device, card):
+    """`python -m tpusim_torch.sweep --methods 06-FGD --seeds 16` (in this
+    process) against the same 16 experiments run one by one
+    (tpusim_torch.experiment.run_experiment): each directory's simon.log
+    and CSVs must agree, and seed 42's must match REPORT_SHA256. Returns
+    (the sweep's wall, the standalone experiments' wall), host seconds."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpusim_torch import experiment
+    from tpusim_torch import sweep as sweep_cli_mod
+
+    with tempfile.TemporaryDirectory() as root:
+        flags = ["--methods", "06-FGD", "--seeds", str(len(SWEEP_SEEDS)),
+                 "--traces", "openb_pod_list_default", "--device",
+                 device.type]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            sweep_cli_mod.main(["--out-root", f"{root}/sweep"] + flags)
+        batched = time.perf_counter() - t0
+        method = dict((m[0], m) for m in sweep_cli_mod.METHODS)["06-FGD"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            for seed in SWEEP_SEEDS:
+                argv = sweep_cli_mod.experiment_argv(
+                    f"{root}/alone", "openb_pod_list_default", method, 1.3,
+                    seed, False, device.type)[0]
+                experiment.run_experiment(experiment.get_args(argv))
+        alone = time.perf_counter() - t0
+        for seed in SWEEP_SEEDS:
+            a, b = (report_digest(f"{root}/{kind}/openb_pod_list_default/"
+                                  f"06-FGD/1.3/{seed}")
+                    for kind in ("sweep", "alone"))
+            if a != b:
+                raise SmokeFailure(f"tpusim_torch.sweep seed {seed}: the "
+                                   "files differ from the standalone "
+                                   "experiment's")
+            if seed == 42 and a != SWEEP_CLI_SHA256:
+                raise SmokeFailure(f"tpusim_torch.sweep seed 42: the files "
+                                   f"differ from experiments/run.py's: "
+                                   f"{report_digests(f'{root}/sweep/openb_pod_list_default/06-FGD/1.3/42')}")
+    print(f"time python -m tpusim_torch.sweep --methods 06-FGD --seeds "
+          f"{len(SWEEP_SEEDS)}: {batched:.2f} s against {alone:.2f} s for "
+          f"the {len(SWEEP_SEEDS)} experiments one by one "
+          f"({alone / batched:.2f}x), every directory's log and CSVs "
+          f"equal, seed 42's match SWEEP_CLI_SHA256 (host clock), on {card}",
+          flush=True)
+    return batched, alone
+
+
+def sweep_path(device, card: str):
+    """Phase 8: the lanes kernels' paths (module docstring). Returns
+    ({run label: launch counts}, {lanes kernel: its row's numbers, with
+    "configs"})."""
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.io.trace import load_node_csv, load_pod_csv
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "data", "csv")
+    nodes = load_node_csv(os.path.join(data, "openb_node_list_gpu_node.csv"))
+    pods = load_pod_csv(os.path.join(data, "openb_pod_list_default.csv"))
+    launches = {"sweep seed batch": sweep_seed_batch(device, nodes, pods,
+                                                     card)}
+    grid_cfg = method_config(SWEEP_POLICIES, "FGDScore")
+    random_row = dict((r[0], r) for r in METHODS)["01-Random"]
+    for setting in ("auto", "hbm"):
+        launches[f"sweep FGD+BestFit/{setting}"] = sweep_family(
+            device, nodes, pods, card, "FGD+BestFit", grid_cfg, SWEEP_GRID,
+            [grid_cfg.seed] * len(SWEEP_GRID), setting)
+    launches["sweep 01-Random"] = sweep_family(
+        device, nodes, pods, card, "01-Random",
+        method_config(*random_row[1:5]), [(1000,)] * len(SWEEP_SEEDS),
+        SWEEP_SEEDS, "auto")
+    rows = sweep_plain_checks(device, card)
+    configs = sweep_times(device, nodes, pods, card)
+    for name in LANE_KERNELS:
+        rows[name]["configs"] = configs[name]
+    batched, alone = sweep_cli(device, card)
+    rows["replay_lanes"]["configs"]["python -m tpusim_torch.sweep"] = dict(
+        methods="06-FGD", seeds=len(SWEEP_SEEDS), wall_s=batched,
+        standalone_wall_s=alone)
+    return launches, rows
+
+
+PHASES = ("check", "clocks", "main", "apply", "scale", "sweep")
 
 
 def scale_inputs(device):
@@ -2603,7 +3208,8 @@ def main(argv=None) -> int:
 
         t0 = time.perf_counter()
         infos = kernels.build_all(tuple(kernels.VARIANTS))
-        print(f"build: {len(infos)} variants, one nvcc each, in parallel: "
+        print(f"build: {len(infos)} variants, an nvcc a source and variant, "
+              f"in parallel, then a link each: "
               f"{time.perf_counter() - t0:.1f} s")
         for variant, info in infos.items():
             print(f"build [{variant or 'main'}]: {info.seconds:.1f} s -> "
@@ -2613,7 +3219,7 @@ def main(argv=None) -> int:
                         "Function" in line:
                     print(f"ptxas [{variant or 'main'}]: {line.strip()}")
         print(f"kernels: {', '.join(kernels.KERNELS)} "
-              f"(route cuda, {SOURCE})")
+              f"(route cuda, {SOURCE}, the lanes {LANES_SOURCE})")
         kernels.library()
         from tpusim_torch import native
 
@@ -2653,6 +3259,12 @@ def main(argv=None) -> int:
             if "clocks" in phases:
                 clocks += scale_clocks(setup[2], device, card)
             print(f"phase scale done at {time.perf_counter() - t0:.1f} s")
+        if "sweep" in phases:
+            counts, lane_rows = sweep_path(device, card)
+            launches.update(counts)
+            for name in LANE_KERNELS:
+                errors[name] = lane_rows[name]["max_abs_err"]
+            print(f"phase sweep done at {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -2663,7 +3275,9 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, runs=clocks), f, indent=1)
     if phases == set(PHASES):
         print(json.dumps({"kernels": kernel_rows(
-            kernels.KERNELS, measured, blocked, launches, scale, errors)}))
+            [k for k in kernels.KERNELS if k not in LANE_KERNELS], measured,
+            blocked, launches, scale, errors) + lane_kernel_rows(
+                lane_rows, launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2685,7 +3299,7 @@ def kernel_rows(names, measured, blocked, launches, scale, errors):
                 configs[label] = dict(launches=sum(
                     launches.get(r, {}).get(name, 0) for r in runs),
                     **m[name])
-        configs["scale"] = dict(launches=launches["scale"][name],
+        configs["scale"] = dict(launches=launches["scale"].get(name, 0),
                                 **scale[name if name != "init_tables"
                                         else "init_tables/replay_blocked"])
         rows.append(dict(
@@ -2694,6 +3308,23 @@ def kernel_rows(names, measured, blocked, launches, scale, errors):
             max_abs_err=errors[name], library_ms=None,
             **measured["06-FGD"][name], configs=configs,
         ))
+    return rows
+
+
+def lane_kernel_rows(lane_rows, launches):
+    """The kernels line's rows of the lanes kernels: their numbers on the
+    random lanes case (kernel and plain version on the same inputs), the
+    openb prefix checks under "openb_prefix", the openb lane counts under
+    "configs", and their launches on the sweep phase's runs."""
+    rows = []
+    for name in LANE_KERNELS:
+        r = dict(lane_rows[name])
+        rows.append(dict(
+            name=name, route="cuda", source=LANES_SOURCE,
+            replaces=REPLACES[name],
+            launches=sum(c.get(name, 0) for c in launches.values()),
+            max_abs_err=r.pop("max_abs_err"), library_ms=None,
+            configs=r.pop("configs"), **r))
     return rows
 
 

@@ -16,7 +16,7 @@ from chip_smoke import (
     DIM_EXT, INIT_NODES, INIT_ROWS, METHODS, MIXES, NORM, PAST_LIMIT,
     PAST_LIMIT_ROWS, RANDOMIZED_ROWS, SHAPE_CASES, SHAPE_ROWS, WIDE_BLOCKED,
     against_plain, init_case, init_config, past_limit_errors, random_case,
-    shape_errors,
+    shape_errors, typed_case,
 )
 from tpusim_torch.io.trace import (
     build_events, load_node_csv, load_pod_csv, pods_to_specs,
@@ -351,3 +351,108 @@ def test_postpass_on_card_matches_cpu(cuda_device):
             assert torch.equal(a.cpu(), b), name
             assert c.device.type == "cpu" and c.dtype == b.dtype, name
             assert torch.equal(c, b), name
+
+
+# the lanes launches: (label, policies, gpu_sel, dim_ext, blocked)
+LANE_CASES = (
+    ("06-FGD", [("FGDScore", 1000)], "FGDScore", "share", False),
+    ("FGD+BestFit", [("FGDScore", 1000), ("BestFitScore", 500)], "FGDScore",
+     "share", False),
+    ("01-Random", [("RandomScore", 1000)], "random", "merge", False),
+    ("Random+FGD", [("RandomScore", 500), ("FGDScore", 500)], "FGDScore",
+     "share", False),
+    ("06-FGD", [("FGDScore", 1000)], "FGDScore", "share", True),
+    ("FGD+BestFit", [("FGDScore", 1000), ("BestFitScore", 500)], "FGDScore",
+     "share", True),
+    ("Simon+FGD", [("Simon", 500), ("FGDScore", 500)], "FGDScore", "share",
+     True),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,policies,gpu_sel,dim_ext,blocked", LANE_CASES,
+                         ids=[f"{c[0]}-{'blocked' if c[4] else 'flat'}"
+                              for c in LANE_CASES])
+def test_lanes_match_single_launches(cuda_device, label, policies, gpu_sel,
+                                     dim_ext, blocked):
+    """Each lane of a lanes launch (its own rank, weights and key) against
+    the single launch of that lane: outputs, stats, final tables."""
+    cfg = fe.make_config(policies, gpu_sel, dim_ext)
+    state, pods, types, evk, evp, tp, rank = random_case(
+        41, 256, 300, cuda_device)
+    if blocked:
+        state, rank = pad_nodes(state, rank, 128)
+    tables = fe.init_tables(state, types, tp, cfg)
+    gen = torch.Generator().manual_seed(5)
+    rows = ([1000] * len(policies), [10 * (i + 1) for i in range(len(policies))],
+            [0] + [700] * (len(policies) - 1))
+    lanes = [fe.Lane(pods, types.type_id, evk, evp,
+                     rank[torch.randperm(state.num_nodes, generator=gen)
+                          .to(cuda_device)],
+                     fe.lane_weights(cfg, row),
+                     (0, 40 + i) if cfg.randomized else None)
+             for i, row in enumerate(rows)]
+    prep = (he.prepare_replay_blocked_lanes if blocked
+            else fe.prepare_replay_lanes)
+    ready = prep(state, types, tp, tables, cfg, lanes)
+    fe.launch(ready)
+    got = ready.finish()
+    for i, lane in enumerate(lanes):
+        lane_cfg = cfg._replace(weights=lane.weights)
+        if blocked:
+            single = he.prepare_replay_blocked(state, pods, types, evk, evp,
+                                               tp, lane.rank, tables, lane_cfg)
+        else:
+            single = fe.prepare_replay(state, pods, types, evk, evp, tp,
+                                       lane.rank, tables, lane_cfg,
+                                       key=lane.key)
+        fe.launch(single)
+        _assert_equal(got[i], single.finish())
+        for name in ("score", "sdev", "feas"):
+            assert torch.equal(ready.tensors[name][i], single.tensors[name])
+
+
+@pytest.mark.cuda
+def test_lanes_refuse_mixed_instantiations(cuda_device):
+    """A lane array whose lanes need different instantiations (another
+    policy, another gpu_sel, staged against global: a lane with one
+    typical pod past the staged limit) is refused by the launcher;
+    replay_blocked_lanes refuses a randomized configuration."""
+    from tpusim_torch import kernels
+
+    case = random_case(42, 256, 100, cuda_device)
+    state, _, types, _, _, tp, rank = case
+    padded, rank_p = pad_nodes(state, rank, 128)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def lane_args(policies, gpu_sel, case=case, prep=None):
+        st, pods, types, evk, evp, tp, rk = case
+        cfg = fe.make_config(policies, gpu_sel)
+        tables = fe.init_tables(st, types, tp, cfg)
+        prep = prep or fe.prepare_replay_lanes
+        return prep(st, types, tp, tables, cfg, [fe.Lane(
+            pods, types.type_id, evk, evp, rk, cfg.weights,
+            (0, 1) if cfg.randomized else None)])
+
+    _, ks, kw, t = dict((c[0], c) for c in PAST_LIMIT)["T=1025"]
+    wide = typed_case(301, 130, ks, kw, t, 90, cuda_device, 60)
+    assert kernels.staged(types.num_types, tp.size)
+    assert not kernels.staged(wide[2].num_types, wide[5].size)
+    fgd = lane_args([("FGDScore", 1000)], "FGDScore")
+    for other in (lane_args([("BestFitScore", 1000)], "best"),
+                  lane_args([("FGDScore", 1000)], "worst"),
+                  lane_args([("FGDScore", 1000)], "FGDScore", wide)):
+        buf = torch.empty(2 * len(bytes(fgd.args[0])), dtype=torch.uint8,
+                          device=cuda_device)
+        with pytest.raises(RuntimeError, match="replay_lanes launch failed"):
+            kernels.launch_lanes("replay_lanes", fgd.args + other.args,
+                                 buf.data_ptr(), stream)
+    rnd = lane_args([("RandomScore", 1000)], "random",
+                    (padded,) + case[1:6] + (rank_p,))
+    with pytest.raises(RuntimeError, match="replay_blocked_lanes launch"):
+        kernels.launch_lanes("replay_blocked_lanes", rnd.args,
+                             rnd.tensors["lanes_dev"].data_ptr(), stream)
+    with pytest.raises(ValueError, match="randomized"):
+        lane_args([("RandomScore", 1000)], "random",
+                  (padded,) + case[1:6] + (rank_p,),
+                  he.prepare_replay_blocked_lanes)

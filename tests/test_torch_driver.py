@@ -37,7 +37,7 @@ def method_configs(row, tune=1.3):
             dataclasses.replace(pcfg, **method))
 
 
-ROWS = {row[0]: row for row in chip_smoke.METHODS}
+ROWS = {row[0]: row for row in chip_smoke.METHODS + [chip_smoke.FGD_WORST]}
 
 
 def _run_both(jnodes, jpods, pnodes, ppods, tune, configs=None):
@@ -157,11 +157,12 @@ def test_full_openb_run_matches_jax_and_pins_digests():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("row", [row[0] for row in chip_smoke.METHODS])
+@pytest.mark.parametrize("row", list(ROWS))
 def test_method_digests_pin_chip_smoke(row):
-    """The JAX package's full-openb run of each method row (tune 1.3,
-    tuning seed 42, seed 42, shuffled) has the placement and device-mask
-    digests chip_smoke.py checks the card's runs against."""
+    """The JAX package's full-openb run of each method row, and of FGD
+    with gpu_sel worst (tune 1.3, tuning seed 42, seed 42, shuffled), has
+    the placement and device-mask digests chip_smoke.py checks the card's
+    runs against."""
     *_, placed_sha, mask_sha = ROWS[row]
     jn, jp, _, _ = openb_rows()
     jsim = JSimulator(jn, method_configs(ROWS[row])[0])

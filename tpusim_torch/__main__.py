@@ -35,46 +35,16 @@ runs on the GPU unless --device cpu is given.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
-import time
-from pathlib import Path
 
-from tpusim_torch.analysis import analyze_sim
-from tpusim_torch.io.trace import load_node_csv, load_pod_csv
-from tpusim_torch.sim.driver import Simulator, SimulatorConfig
+from tpusim_torch.experiment import (
+    POLICY_FLAGS,
+    _simulator,
+    add_experiment_flags,
+    run_experiment,
+)
+from tpusim_torch.sim.driver import SimulatorConfig
 from tpusim_torch.sim.typical import TypicalPodsConfig
-
-_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "data", "csv")
-
-# score policy -> its weight flag, in experiments/run.py's order
-POLICY_FLAGS = {
-    "Simon": "Simon",
-    "RandomScore": "Random",
-    "DotProductScore": "DotProd",
-    "GpuClusteringScore": "GpuClustering",
-    "GpuPackingScore": "GpuPacking",
-    "BestFitScore": "BestFit",
-    "FGDScore": "FGD",
-    "PWRScore": "PWR",
-}
-
-
-def resolve_trace(path_or_name: str) -> str:
-    """A CSV path, or the name of a trace under data/csv."""
-    if os.path.isfile(path_or_name):
-        return path_or_name
-    name = os.path.basename(path_or_name).replace(".csv", "")
-    cand = os.path.join(_DATA, f"{name}.csv")
-    if os.path.isfile(cand):
-        return cand
-    raise FileNotFoundError(f"trace not found: {path_or_name}")
-
-
-# experiments/run.py's typical-pod settings (its flags' defaults)
-RUN_TYPICAL = TypicalPodsConfig(pod_popularity_threshold=95,
-                                pod_increase_step=1)
 
 
 def method_config(policies=(("FGDScore", 1000),), gpu_sel="FGDScore",
@@ -116,76 +86,23 @@ def main(argv=None) -> int:
                                  description=__doc__.splitlines()[0])
     ap.add_argument("-d", "--experiment-dir", default=None,
                     help="write simon.log and the analysis CSVs here")
-    ap.add_argument("-f", "--trace", "--pods", dest="trace",
-                    default="data/csv/openb_pod_list_default.csv",
-                    help="pod-trace CSV, or a name like "
-                    "openb_pod_list_default")
-    ap.add_argument("--node-trace", "--nodes", dest="node_trace",
-                    default="data/csv/openb_node_list_gpu_node.csv",
-                    help="node-trace CSV")
-    ap.add_argument("--use-timestamps", action="store_true",
-                    help="replay creations and deletions in timestamp order")
-    ap.add_argument("--no-per-event-report", action="store_true",
-                    help="skip the per-event report lines")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag in POLICY_FLAGS.values():
-        ap.add_argument(f"-{flag}", type=int, default=0, help="score weight")
-    ap.add_argument("-gpusel", "--gpu-sel-method", default=None,
-                    help="best | worst | random | FGDScore | PWRScore | "
-                    "DotProductScore (default: FGDScore without policy "
-                    "flags, else best)")
-    ap.add_argument("-dimext", "--dim-ext-method", default="share")
-    ap.add_argument("-norm", "--norm-method", default="max")
-    ap.add_argument("-tune", "--workload-tuning-ratio", type=float,
-                    default=1.3)
-    ap.add_argument("-tuneseed", "--workload-tuning-seed", type=int,
-                    default=42)
-    ap.add_argument("--shuffle-pod", default="true")
-    ap.add_argument("--workload-inflation-ratio", type=float, default=1.0)
-    ap.add_argument("-seed", "--workload-inflation-seed", type=int,
-                    default=233)
+    add_experiment_flags(ap)
+    # the paper's protocol; gpu_sel None: FGDScore without policy flags
+    ap.set_defaults(gpu_sel_method=None, workload_tuning_ratio=1.3,
+                    workload_tuning_seed=42, shuffle_pod="true")
     args = ap.parse_args(argv)
-    flagged = [(name, getattr(args, flag))
-               for name, flag in POLICY_FLAGS.items()
-               if getattr(args, flag) > 0]
-    gpu_sel = args.gpu_sel_method or ("best" if flagged else "FGDScore")
-    policies = flagged or [("FGDScore", 1000)]
-    cfg = method_config(
-        policies, gpu_sel, args.dim_ext_method, args.norm_method,
-        args.workload_tuning_ratio, args.workload_tuning_seed,
-        args.shuffle_pod.lower() == "true", not args.no_per_event_report,
-        args.use_timestamps, RUN_TYPICAL)
-    cfg.inflation_ratio = args.workload_inflation_ratio
-    cfg.inflation_seed = args.workload_inflation_seed
-    pod_csv = resolve_trace(args.trace)
-    sim = Simulator(load_node_csv(resolve_trace(args.node_trace)), cfg,
-                    device=args.device)
-    sim.set_workload_pods(load_pod_csv(pod_csv))
-    t0 = time.perf_counter()
-    sim.run()
-    if cfg.inflation_ratio > 1:
-        sim.run_workload_inflation_evaluation("ScheduleInflation")
-    if args.experiment_dir is None:
-        sys.stdout.write(sim.log.dump())
+    if args.gpu_sel_method is None:
+        flagged = any(getattr(args, flag) > 0
+                      for flag in POLICY_FLAGS.values())
+        args.gpu_sel_method = "best" if flagged else "FGDScore"
+    if args.experiment_dir is not None:
+        run_experiment(args)  # experiments/run.py's: the log and the CSVs
         return 0
-    # experiments/run.py's _post_run: the stop marker, the log, the CSVs
-    sim.finish()
-    out = Path(args.experiment_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    with open(out / "simon.log", "w") as f:
-        f.write(sim.log.dump())
-    print(f"[run] {out / 'simon.log'} ({time.perf_counter() - t0:.1f}s, "
-          f"{sim.last_result.events} events)")
-    analyze_sim(sim, str(out), {
-        "workload": Path(pod_csv).stem,
-        "policy": "_".join(f"{POLICY_FLAGS[n]}{w}" for n, w in policies),
-        "tune": args.workload_tuning_ratio,
-        "tune_seed": args.workload_tuning_seed,
-        "de": args.dim_ext_method,
-        "gs": gpu_sel,
-        "dr": 0.0,
-        "dp": "",
-    })
+    sim = _simulator(args)[0]
+    sim.run()
+    if args.workload_inflation_ratio > 1:
+        sim.run_workload_inflation_evaluation("ScheduleInflation")
+    sys.stdout.write(sim.log.dump())
     return 0
 
 

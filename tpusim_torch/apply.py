@@ -5,7 +5,9 @@ ref: pkg/apply/apply.go Run() and pkg/simulator/core.go Simulate()).
   (or an offline kubeConfig dump) → daemonset pods → typical pods →
   sort/tune the workload → replay → ClusterAnalysis(InitSchedule) →
   snapshot export → inflation evaluation → new-workload swap → per-app
-  scheduling (YAML apps and Helm charts) → the verdict → the report tables.
+  scheduling (YAML apps and Helm charts) → the verdict → the report tables;
+  or, with --sweep-weights, one sweep over a weight grid in place of the
+  replay and the stages after it.
 
 Every replay runs the port's kernels (`Simulator`): on the GPU unless the
 options ask for the CPU. Options that need a plane the port does not have
@@ -38,7 +40,12 @@ from tpusim_torch.io.k8s_yaml import (
     yaml_files_in_dir,
 )
 from tpusim_torch.io.storage import cluster_vg_totals, parse_node_storage
-from tpusim_torch.sim.driver import SimulateResult, Simulator, SimulatorConfig
+from tpusim_torch.sim.driver import (
+    SimulateResult,
+    Simulator,
+    SimulatorConfig,
+    format_sweep_table,
+)
 from tpusim_torch.sim.report_tables import full_report
 
 COLOR_RED = "\033[31m"
@@ -52,8 +59,10 @@ PORT_ENGINES = ("auto", "pallas")
 @dataclass
 class ApplyOptions:
     """The CLI surface (ref: cmd/apply/apply.go:26-40), with tpusim's
-    options. The ones after `table_residency` are the planes the port does
-    not have yet: any value but the default raises (REFUSED_OPTIONS)."""
+    options. `sweep_weights` (a weight-grid JSON, load_weights_payload)
+    replaces the main schedule with a config sweep. The others after
+    `table_residency` are the planes the port does not have yet: any value
+    but the default raises (REFUSED_OPTIONS)."""
 
     simon_config: str = ""
     default_scheduler_config: str = ""
@@ -106,8 +115,7 @@ REFUSED_OPTIONS = {
     "decisions_out": ("--decisions-out", "10 (in-scan records)"),
     "series_every": ("--series-every", "10 (in-scan records)"),
     "listen": ("--listen", "14 (service plane)"),
-    "sweep_weights": ("--sweep-weights", "7 (sweeps)"),
-    "sweep_faults": ("--sweep-faults", "7 (sweeps) and 9 (faults)"),
+    "sweep_faults": ("--sweep-faults", "9 (faults)"),
     "compile_cache_dir": ("--compile-cache-dir", "8 (table cache)"),
     "policy": ("--policy", "12 (learned policy)"),
 }
@@ -241,7 +249,16 @@ class Applier:
             # (core.go:103-123)
             sim.set_workload_pods(cluster.workload_pods()
                                   + cluster.daemonset_pods())
-            sim.run()
+            if self.options.sweep_weights:
+                # the config sweep replaces the main schedule: one lanes
+                # launch over the weight grid and its table, no snapshot,
+                # inflation or app stages (they describe one placement)
+                self._run_sweep(sim, out)
+            else:
+                sim.run()
+        if self.options.sweep_weights:
+            self.timings["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            return None
 
         # snapshot export at InitSchedule (core.go:160-185)
         with self._timed("export"):
@@ -282,6 +299,18 @@ class Applier:
                                   self.options.extended_resources), file=out)
         self.timings["wall_ms"] = (time.perf_counter() - t0) * 1e3
         return result
+
+    def _run_sweep(self, sim: Simulator, out):
+        """`apply --sweep-weights`: load the weight grid, run the sweep
+        (per-lane `tunes` through the multi-trace sweep) and print the
+        per-config table."""
+        weights, seeds, tunes = load_weights_payload(
+            self.options.sweep_weights)
+        lanes = sim.run_sweep(weights, seeds=seeds, tunes=tunes)
+        print(f"[Sweep] {len(lanes)} configs x {lanes[0].events} events "
+              f"in one launch ({sim.last_engine}, {sim.last_residency} "
+              "residency)", file=out)
+        print(format_sweep_table(lanes, sim.cfg.policies), file=out)
 
     def _export_snapshots(self, sim: Simulator, tag: str):
         exp = self.cr.custom_config.export
@@ -353,6 +382,28 @@ class Applier:
                     f"beyond the env setting({max_vg}%)\n"
                 )
         return True, ""
+
+
+def load_weights_payload(path: str):
+    """Weight-grid JSON -> (weights, seeds, tunes): a bare [[w, ...], ...]
+    list of rows, or {"weights": [[...]], "seeds": [...], "tunes": [...]}
+    with the optional per-row seeds and tuning ratios."""
+    import json
+
+    with open(path) as f:
+        payload = json.load(f)
+    if isinstance(payload, dict):
+        weights = payload.get("weights")
+        seeds = payload.get("seeds")
+        tunes = payload.get("tunes")
+    else:
+        weights, seeds, tunes = payload, None, None
+    if not weights:
+        raise ValueError(
+            f"{path}: no weight rows (want [[w, ...], ...] or "
+            '{"weights": [[...]], "seeds": [...], "tunes": [...]})'
+        )
+    return weights, seeds, tunes
 
 
 def _interactive_select(apps):

@@ -18,11 +18,23 @@ forces the flat `replay`.
 
 It replays the stream twice, the first time cold (the kernels' build and
 first launch included), and prints a `[scale]` line for the second.
+
+    python -m tpusim_torch.bench_scale --nodes 1523 --pods 10000 \
+        --sweep 1,16,64 [--sweep-out sweep.json]
+
+measures the config sweep instead (bench_scale.py's --sweep): the stream
+as one workload, a B-config weight grid of distinct rows (the base weight
+minus the lane's index) through schedule_pods_sweep, report off. For each
+B a `[sweep]` line with the cold and warm walls (min of 2 after the cold
+one), the warm wall per config, its ratio to a standalone warm replay of
+the same workload (Simulator.run_events) and the marginal cost of a
+config, (warm(B) - warm(1)) / (B - 1); with --sweep-out, the rows as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -72,7 +84,7 @@ def scale_config(seed: int = 42, residency: str = "auto") -> SimulatorConfig:
     """FGDScore 1000, gpu_sel FGDScore, typical pods at popularity 95."""
     return SimulatorConfig(
         policies=(("FGDScore", 1000),), gpu_sel_method="FGDScore", seed=seed,
-        table_residency=residency,
+        table_residency=residency, report_per_event=False,
         typical_pods=TypicalPodsConfig(pod_popularity_threshold=95),
     )
 
@@ -121,6 +133,63 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _timed(fn, device, warm_runs: int = 2):
+    """(cold seconds, min warm seconds of `warm_runs`, the last result) of
+    fn(), each call ended by a synchronise."""
+    walls, out = [], None
+    for _ in range(1 + warm_runs):
+        _synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _synchronize(device)
+        walls.append(time.perf_counter() - t0)
+    return walls[0], min(walls[1:]), out
+
+
+def run_sweep_bench(run: ScaleRun, sizes, device) -> dict:
+    """The config sweep's walls at each lane count of `sizes` (the module
+    docstring) against a standalone warm replay; returns the rows."""
+    from tpusim_torch.sim.driver import schedule_pods_sweep
+
+    sim = run.sim
+    trace = sim.prepare_pods()
+    specs = pods_to_specs(trace, sim.node_index, device)
+    ev_kind, ev_pod = build_events(trace)
+    events = len(ev_kind)
+    cold, standalone, _ = _timed(lambda: sim.run_events(
+        sim.init_state, specs, ev_kind, ev_pod), device)
+    print(f"[sweep] standalone nodes={len(sim.nodes)} events={events} "
+          f"kernel={sim.last_engine} residency={sim.last_residency} "
+          f"warm={standalone:.4f}s (cold {cold:.3f}s)")
+    base = np.asarray([w for _, w in sim.cfg.policies], np.int32)
+    rows, warm1 = [], None
+    for b in sorted(set(sizes) | {1}):
+        grid = np.stack([base - i for i in range(b)]).astype(np.int32)
+        cold, warm, lanes = _timed(
+            lambda grid=grid: schedule_pods_sweep(sim, trace, grid), device)
+        warm1 = warm if b == 1 else warm1
+        marginal = (warm - warm1) / (b - 1) if b > 1 else None
+        row = dict(b=b, events=events, kernel=sim.last_engine,
+                   residency=sim.last_residency, cold_s=cold, warm_s=warm,
+                   per_config_s=warm / b,
+                   ratio_vs_standalone=warm / b / standalone,
+                   marginal_s=marginal,
+                   marginal_vs_standalone=(None if marginal is None else
+                                           marginal / standalone),
+                   placed_lane0=lanes[0].placed)
+        rows.append(row)
+        print(f"[sweep] B={b} cold={cold:.3f}s warm={warm:.4f}s "
+              f"per_config={warm / b:.4f}s "
+              f"ratio_vs_standalone={warm / b / standalone:.3f} "
+              + (f"marginal={marginal:.4f}s "
+                 f"({marginal / standalone:.3f} of standalone) "
+                 if marginal is not None else "")
+              + f"kernel={sim.last_engine}")
+    return dict(nodes=len(sim.nodes), events=events,
+                policies=[name for name, _ in sim.cfg.policies],
+                device=str(device), standalone_warm_s=standalone, rows=rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m tpusim_torch.bench_scale",
                                  description=__doc__.splitlines()[0])
@@ -133,6 +202,11 @@ def main(argv=None) -> int:
     ap.add_argument("--residency", default="auto",
                     help="auto | vmem | hbm (SimulatorConfig.table_residency)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--sweep", default="", metavar="B[,B...]",
+                    help="measure the config sweep at these lane counts "
+                    "instead of the scale run")
+    ap.add_argument("--sweep-out", default="", metavar="PATH",
+                    help="write the sweep's rows here as JSON")
     args = ap.parse_args(argv)
     if args.chunk <= 0:
         ap.error("--chunk must be positive")
@@ -141,6 +215,17 @@ def main(argv=None) -> int:
     run = ScaleRun(synth_cluster(args.nodes, args.seed),
                    synth_pods(args.pods, args.seed + 1),
                    scale_config(args.seed, args.residency), device)
+    if args.sweep:
+        sizes = [int(x) for x in args.sweep.split(",") if x.strip()]
+        if not sizes or min(sizes) < 1:
+            ap.error(f"--sweep wants positive lane counts, got {args.sweep!r}")
+        out = run_sweep_bench(run, sizes, device)
+        if args.sweep_out:
+            out["card"] = (torch.cuda.get_device_name(device)
+                           if device.type == "cuda" else "cpu")
+            with open(args.sweep_out, "w") as f:
+                json.dump(out, f, indent=1)
+        return 0
     walls = []
     for _ in range(2):  # cold, then warm
         _synchronize(device)

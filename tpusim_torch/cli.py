@@ -5,15 +5,18 @@ cmd/apply/apply.go:14-40).
     python -m tpusim_torch.cli apply -f CLUSTER_CONFIG [-s SCHEDULER_CONFIG]
         [-e gpu[,open-local]] [--report] [--use-greed] [-i]
         [--base-dir DIR] [--device cuda|cpu]
-        [--table-residency auto|vmem|hbm]
+        [--table-residency auto|vmem|hbm] [--sweep-weights GRID.json]
 
-It takes tpusim's apply flags. The ones whose plane the port does not have
-yet (faults, sweeps, checkpoints, the obs outputs, --listen, --policy,
---compile-cache-dir) parse and then raise NotImplementedError naming the
-ROADMAP item that brings them. The replays run on the GPU unless --device
-cpu is given. Its standard output and the snapshot files it writes are
-byte-identical to `python -m tpusim apply`'s on the same inputs, but for
-the `[Engine]` line, which names the kernel that ran.
+It takes tpusim's apply flags. `--sweep-weights GRID.json` replaces the
+main schedule with one sweep over a weight grid (the lanes of one launch)
+and prints its per-config table. The flags whose plane the port does not
+have yet (faults and the chaos sweep, checkpoints, the obs outputs,
+--listen, --policy, --compile-cache-dir) parse and then raise
+NotImplementedError naming the ROADMAP item that brings them. The replays
+run on the GPU unless --device cpu is given. Its standard output and the
+snapshot files it writes are byte-identical to `python -m tpusim apply`'s
+on the same inputs, but for the `[Engine]` lines and the `[Sweep]` line,
+which name the kernel that ran.
 """
 
 from __future__ import annotations
@@ -71,7 +74,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decisions-out", default="")
     p.add_argument("--series-every", type=int, default=0)
     p.add_argument("--listen", default="")
-    p.add_argument("--sweep-weights", default="")
+    p.add_argument("--sweep-weights", default="", metavar="WEIGHTS.json",
+                   help="replace the main schedule with one sweep over a "
+                   "weight grid: [[w, ...], ...] or {\"weights\": [[...]], "
+                   "\"seeds\": [...], \"tunes\": [...]}, a row per config "
+                   "in the scheduler config's policy order")
     p.add_argument("--sweep-faults", default="")
     p.add_argument("--compile-cache-dir", default="")
     p.add_argument("--policy", default="")

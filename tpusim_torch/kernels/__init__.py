@@ -1,14 +1,19 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 The sources in this directory are compiled on first use with `nvcc` for
-sm_90a into a shared library with a plain C interface, which is loaded with
-ctypes. The library lands in `.tpusim_torch_build/` at the root of the
+sm_90a, each to an object by an nvcc of its own, all in parallel, and
+linked into one shared library with a plain C interface, which is loaded
+with ctypes. The library lands in `.tpusim_torch_build/` at the root of the
 checkout, named by a digest of the sources and flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. Nothing here runs when
 the module is imported.
 
 Each launcher takes a pointer to a `ReplayArgs` and the CUDA stream, and
-returns the launch's CUDA error code.
+returns the launch's CUDA error code. The lanes launchers (`LANE_KERNELS`)
+take an array of B `ReplayArgs` in host memory, B, a device buffer of B
+`ReplayArgs` that they copy the array into on the stream, and the stream:
+block b of their grid replays lane b. They refuse lanes that would need
+different instantiations of the kernel.
 
 A variant of the library is built from the same sources with extra
 preprocessor definitions (`VARIANTS`): "clocked" adds the phase clocks
@@ -26,7 +31,10 @@ import subprocess
 import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (os.path.join(_DIR, "replay.cu"),)
+# compiled apart, in parallel, and linked into one library (replay_lanes.cu
+# includes replay.cu's device code for the lanes kernels)
+SOURCES = (os.path.join(_DIR, "replay.cu"),
+           os.path.join(_DIR, "replay_lanes.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
                          ".tpusim_torch_build")
 NVCC_FLAGS = (
@@ -34,10 +42,13 @@ NVCC_FLAGS = (
     # no multiply-add is contracted but the explicit __fmaf_rn ones: the
     # columns round where the JAX package's compiled code rounds
     "--fmad=false",
-    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v", "-Xcompiler", "-fPIC",
 )
 # the CUDA kernels the port has, by the name chip_smoke.py reports
-KERNELS = ("init_tables", "replay", "replay_blocked")
+KERNELS = ("init_tables", "replay", "replay_blocked", "replay_lanes",
+           "replay_blocked_lanes")
+# the launchers that take an array of lanes (launch_lanes)
+LANE_KERNELS = ("replay_lanes", "replay_blocked_lanes")
 # the most policies one configuration may combine (replay.cu kMaxPolicies)
 MAX_POLICIES = 6
 # the most pod types and typical pods the kernels' staged forms hold in
@@ -130,11 +141,12 @@ def _target(variant: str):
 
 def build_all(variants=("",)) -> dict:
     """Compile every variant in `variants` whose library for these sources
-    and flags is not built yet, one nvcc process each, all started
-    together. Returns {variant: BuildInfo}; raises with the compiler's
-    output if an nvcc fails."""
+    and flags is not built yet: one nvcc process a source and variant, all
+    started together, each compiling its source to an object, then one
+    link a variant. Returns {variant: BuildInfo}; raises with the
+    compiler's output if an nvcc fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
+    jobs = {}
     for variant in variants:
         if variant in _build_info:
             continue
@@ -142,18 +154,32 @@ def build_all(variants=("",)) -> dict:
         if os.path.exists(lib):
             _build_info[variant] = BuildInfo(lib, 0.0, "")
             continue
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        procs[variant] = (lib, tmp, time.perf_counter(), subprocess.Popen(
-            [_nvcc(), *flags, "-o", tmp, *SOURCES], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    for variant, (lib, tmp, t0, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) for variant {variant!r}:\n"
-                f"{out}")
-        os.replace(tmp, lib)
-        _build_info[variant] = BuildInfo(lib, time.perf_counter() - t0, out)
+        tmp = f"{lib}.{os.getpid()}"
+        objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+        jobs[variant] = (lib, tmp, objs, time.perf_counter(), [
+            subprocess.Popen([_nvcc(), *flags, "-c", "-o", obj, src],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for obj, src in zip(objs, SOURCES)])
+    for variant, (lib, tmp, objs, t0, procs) in jobs.items():
+        log = ""
+        for proc in procs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
+                                   f"variant {variant!r}:\n{out}")
+        link = subprocess.run([_nvcc(), "-shared", "-o", f"{tmp}.so", *objs],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}) for "
+                               f"variant {variant!r}:\n{link.stdout}")
+        os.replace(f"{tmp}.so", lib)
+        for obj in objs:
+            os.remove(obj)
+        _build_info[variant] = BuildInfo(lib, time.perf_counter() - t0,
+                                         log + link.stdout)
     return {v: _build_info[v] for v in variants}
 
 
@@ -168,7 +194,10 @@ def library(variant: str = "") -> ctypes.CDLL:
         lib = ctypes.CDLL(build(variant).path)
         for name in KERNELS:
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(ReplayArgs), ctypes.c_void_p]
+            fn.argtypes = ([ctypes.POINTER(ReplayArgs), ctypes.c_int,
+                            ctypes.c_void_p, ctypes.c_void_p]
+                           if name in LANE_KERNELS else
+                           [ctypes.POINTER(ReplayArgs), ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.replay_scratch_bytes.argtypes = [ctypes.c_int] * 4
         lib.replay_scratch_bytes.restype = ctypes.c_size_t
@@ -186,6 +215,21 @@ def launch(name: str, args: ReplayArgs, stream: int,
     launch is refused."""
     lib = library(variant)
     code = getattr(lib, name)(ctypes.byref(args), ctypes.c_void_p(stream))
+    if code != 0:
+        msg = lib.kernel_error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+def launch_lanes(name: str, lanes, lanes_dev: int, stream: int,
+                 variant: str = "") -> None:
+    """Launch lanes kernel `name` of a library variant on `stream` over
+    `lanes` (a sequence of ReplayArgs, one a lane), copied into the device
+    buffer at `lanes_dev` (len(lanes) * sizeof(ReplayArgs) bytes); raises
+    if the launch is refused."""
+    lib = library(variant)
+    array = (ReplayArgs * len(lanes))(*lanes)
+    code = getattr(lib, name)(array, len(lanes), ctypes.c_void_p(lanes_dev),
+                              ctypes.c_void_p(stream))
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")

@@ -48,6 +48,11 @@
 //                       The Pallas kernel's double-buffered DMA has no
 //                       counterpart: tables and summaries stay in global
 //                       memory, and its waits/starts counters stay 0.
+// The replays' bodies are __device__ functions (replay_body,
+// replay_blocked_body): the kernels above pass them their parameter, and
+// replay_lanes.cu's lanes kernels run them over a grid of B lanes, one
+// block a lane (seed batches and config sweeps), compiled apart from this
+// file with its host entries left out (TPUSIM_LANES_TU).
 // All three kernels are templates on the configuration's shape: <false> is
 // specialised to the paper's FGD configuration (one FGDScore policy, gpu_sel
 // FGDScore or best) and skips the descriptor, the normalisation pass and the
@@ -1758,7 +1763,7 @@ __device__ __forceinline__ void prefetch_events(const ReplayArgs& a,
 // gpu_sel random (the key chain in es, advanced by the last warp while warp
 // 0 commits); kStaged is the staged form, false the global one.
 template <bool kGeneral, bool kRandomized = false, bool kStaged = true>
-__global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a) {
+__device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Best warp_res[kWarps];
@@ -1959,6 +1964,11 @@ __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a)
   pc.finish(a.clocks, t0);
 }
 
+template <bool kGeneral, bool kRandomized = false, bool kStaged = true>
+__global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a) {
+  replay_body<kGeneral, kRandomized, kStaged>(a);
+}
+
 // ---------------------------------------------------------------------------
 // replay_blocked: replay_kernel's event loop with a two-level selectHost over
 // 128-node block summaries (pallas_engine.py _make_hbm_kernel :1346, whose
@@ -2111,8 +2121,7 @@ __device__ void update_summaries(const ReplayArgs& a, const Smem& m, int node,
 // global one; <true, true, false> is the staged general kernel for the
 // configurations without Simon (policy_pair)
 template <bool kGeneral, bool kStaged = true, bool kAllColumns = true>
-__global__ void __launch_bounds__(kReplayThreads, 1)
-    replay_blocked_kernel(ReplayArgs a) {
+__device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Best warp_res[kWarps];
@@ -2294,6 +2303,12 @@ __global__ void __launch_bounds__(kReplayThreads, 1)
     pc.mark(kClkCommit);
   }
   pc.finish(a.clocks, t0);
+}
+
+template <bool kGeneral, bool kStaged = true, bool kAllColumns = true>
+__global__ void __launch_bounds__(kReplayThreads, 1)
+    replay_blocked_kernel(ReplayArgs a) {
+  replay_blocked_body<kGeneral, kStaged, kAllColumns>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -2930,6 +2945,8 @@ __global__ void __launch_bounds__(kInitThreads)
                        blockIdx.x % slices, slices, fgd, pwr, pack, dot);
 }
 
+#ifndef TPUSIM_LANES_TU  // replay_lanes.cu compiles the lanes kernels alone
+
 // init_tables' global form, for shapes past the staged limits: a thread per
 // (type, node), nodes fastest, through the column functions of policy_pair
 // (FGD's fgd_pair sums every typical pod, where a pod of frequency 0 adds
@@ -2956,6 +2973,8 @@ __global__ void __launch_bounds__(kInitThreads) init_pairs_kernel(ReplayArgs a) 
 
 // an empty kernel: what a launch costs without work
 __global__ void empty_kernel() {}
+
+#endif  // TPUSIM_LANES_TU
 
 // whether a shape fits the staged forms (shared memory)
 bool staged_shape(const ReplayArgs* a) {
@@ -3057,6 +3076,8 @@ int launch_init(Kernel kernel, const ReplayArgs* a, cudaStream_t s) {
 
 }  // namespace
 
+#ifndef TPUSIM_LANES_TU
+
 extern "C" {
 
 int init_tables(const ReplayArgs* a, void* stream) {
@@ -3127,3 +3148,5 @@ const char* kernel_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // TPUSIM_LANES_TU

@@ -35,7 +35,13 @@ def pad_nodes(state: NodeState, rank: torch.Tensor,
     fills = {"mem_left": -1, "gpu_type": NO_GPU}
     padded = NodeState(*(pad_rows(x, fills.get(name, 0))
                          for name, x in state._asdict().items()))
-    return padded, pad_rows(rank, _INT_MAX)
+    return padded, pad_rank(rank, multiple)
+
+
+def pad_rank(rank: torch.Tensor, multiple: int) -> torch.Tensor:
+    """A tie-break rank padded as pad_nodes pads it: INT_MAX rows."""
+    pad = (-rank.shape[0]) % multiple
+    return torch.cat([rank, rank.new_full((pad,), _INT_MAX)]) if pad else rank
 
 
 def trim_nodes(state: NodeState, num_nodes: int) -> NodeState:

@@ -18,6 +18,12 @@ PRNGKey(seed) for the main replay, PRNGKey(seed + pods placed so far) for
 `schedule_additional`, PRNGKey(inflation_seed) for the inflation run
 (tpusim/sim/driver.py:1609, :1775, :2003).
 
+A seed batch (`run_batch`) or a config sweep (`Simulator.run_sweep`,
+`schedule_pods_sweep`, `schedule_pods_sweep_multi`) runs its
+configurations as the lanes of one launch of the lanes kernels, each lane
+bit-identical to its standalone run (the section at the end of this
+module).
+
 After the main replay, `schedule_additional` replays more pods from the
 placed cluster's state (apps, the new-workload swap, the inflation
 evaluation), through the same kernels and the same report tail.
@@ -39,7 +45,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpusim_torch.constants import MILLI
+from tpusim_torch.constants import MILLI, Q3_SATISFIED
 from tpusim_torch.io.trace import (
     NodeRow,
     PodRow,
@@ -53,13 +59,25 @@ from tpusim_torch.io.export import (
     export_pod_snapshot_csv,
     export_pod_snapshot_yaml,
 )
-from tpusim_torch.ops.frag import cluster_frag_report
+from tpusim_torch.ops.frag import (
+    cluster_frag_report,
+    node_frag_contrib,
+    tree_sum,
+)
 from tpusim_torch.ops.prng import prng_key
+from tpusim_torch.parallel.sharding import pad_nodes, pad_rank, trim_nodes
 from tpusim_torch.sim import residency
 from tpusim_torch.sim.engine import EV_CREATE, EV_DELETE, ReplayResult
 from tpusim_torch.sim.fetch import device_fetch
-from tpusim_torch.sim.fused_engine import make_fused_replay
-from tpusim_torch.sim.hbm_engine import make_blocked_replay
+from tpusim_torch.sim.fused_engine import (
+    Lane,
+    init_tables,
+    lane_weights,
+    make_fused_replay,
+    replay_lanes,
+    validate_events,
+)
+from tpusim_torch.sim.hbm_engine import make_blocked_replay, replay_blocked_lanes
 from tpusim_torch.sim.metrics import compute_event_metrics
 from tpusim_torch.sim.queues import app_queue
 from tpusim_torch.sim.reports import (
@@ -69,6 +87,7 @@ from tpusim_torch.sim.reports import (
     event_report_series,
     report_failed_pods,
 )
+from tpusim_torch.sim.residency import BLOCK
 from tpusim_torch.sim.table_engine import build_pod_types
 from tpusim_torch.sim.typical import (
     TypicalPodsConfig,
@@ -188,6 +207,7 @@ class Simulator:
         self.node_total_milli_gpu = int(sum(n.gpu * MILLI for n in self.nodes))
         self.total_gpus = int(sum(n.gpu for n in self.nodes))
         self.last_result = None
+        self.last_ever_failed = None
         self._bellman_eval = None
         self._reset_run_state()
 
@@ -216,29 +236,47 @@ class Simulator:
         )
         # zero-frequency padding rows add nothing to any frag sum
         self.typical = pad_typical_pods(typical)
+        self._typical_info = info
         # the Bellman memo lives for one experiment, as the reference's
         # fragMemo does (simulator.go:58)
         self._bellman_eval = None
         self.log.info(f"Num of Total Pods: {len(self.workload_pods)}")
         self.log.info(f"Num of Total Pod Sepc: {len(info)}")
 
-    def prepare_pods(self) -> List[PodRow]:
+    def adopt_typical_pods(self, other: "Simulator"):
+        """set_typical_pods, taking the distribution of a sibling with the
+        same workload and typical-pod settings instead of computing it
+        again (a seed batch): the same log lines, a fresh Bellman memo."""
+        self.typical = other.typical
+        self._typical_info = other._typical_info
+        self._bellman_eval = None
+        self.log.info(f"Num of Total Pods: {len(self.workload_pods)}")
+        self.log.info(f"Num of Total Pod Sepc: {len(self._typical_info)}")
+
+    def prepare_pods(self, tuning_ratio: float = None,
+                     tuning_seed: int = None) -> List[PodRow]:
         """SortClusterPods, then tuning (core.go:131-142): one generator
-        seeded by tuning_seed drives the shuffle and then the clone draws."""
-        rng = np.random.default_rng(self.cfg.tuning_seed)
+        seeded by tuning_seed drives the shuffle and then the clone draws.
+        The tune knobs default to the config's; a lane of a multi-trace
+        sweep passes its own, and is then prepared as a standalone run
+        configured with them."""
+        ratio = (self.cfg.tuning_ratio if tuning_ratio is None
+                 else float(tuning_ratio))
+        seed = self.cfg.tuning_seed if tuning_seed is None else int(tuning_seed)
+        rng = np.random.default_rng(seed)
         pods = sort_cluster_pods(
             list(self.workload_pods), self.cfg.shuffle_pod, rng
         )
-        if self.cfg.tuning_ratio > 0:
-            pods = tune_pods(pods, self.node_total_milli_gpu,
-                             self.cfg.tuning_ratio, rng)
+        if ratio > 0:
+            pods = tune_pods(pods, self.node_total_milli_gpu, ratio, rng)
         return pods
 
     # ---- the run (core.go:148 RunCluster -> SchedulePods) ----
 
     def _residency(self, num_nodes: int, num_types: int) -> str:
         """The tier a replay of this shape runs in (residency.replay_tier
-        against the card's L2 cache)."""
+        against the card's L2 cache). A lanes launch asks it once for one
+        lane's shape: the rule takes no lane count."""
         cfg = self._replay.config
         l2 = (torch.cuda.get_device_properties(self.device).L2_cache_size
               if self.device.type == "cuda" else None)
@@ -343,6 +381,15 @@ class Simulator:
         out, events, unscheduled, rank = self._replay_pods(
             self.init_state, pods, prng_key(self.cfg.seed),
             self.cfg.use_timestamps)
+        return self._record_result(out, pods, events, unscheduled, rank,
+                                   time.perf_counter() - t0)
+
+    def _record_result(self, out: ReplayResult, pods, events: int,
+                       unscheduled, rank, wall: float) -> SimulateResult:
+        """The run's SimulateResult from a replay's result on the host;
+        `last_ever_failed` keeps its creation-failure mask (lane_from_run
+        reads it)."""
+        self.last_ever_failed = out.ever_failed.numpy()
         self.last_result = SimulateResult(
             unscheduled_pods=unscheduled,
             placed_node=out.placed_node.numpy(),
@@ -350,7 +397,7 @@ class Simulator:
             state=out.state,
             pods=list(pods),
             node_names=self.node_names,
-            wall_seconds=time.perf_counter() - t0,
+            wall_seconds=wall,
             events=events,
             creation_rank=rank,
         )
@@ -407,6 +454,38 @@ class Simulator:
         self.report_failed([u.pod for u in res.unscheduled_pods])
         self.cluster_analysis("InitSchedule")
         return res
+
+    def run_sweep(self, weights, seeds=None, bucket: int = 512, tunes=None,
+                  faults=None) -> List["SweepLane"]:
+        """run()'s workload preparation, then one lanes replay of B
+        (weight row, seed) configurations of this Simulator's policy
+        family (schedule_pods_sweep); returns a SweepLane a configuration.
+        With `tunes`, a tuning ratio a lane: each lane's workload is
+        prepared as a standalone run with that ratio (the same tuning seed)
+        and the lanes run through schedule_pods_sweep_multi. `faults` (the
+        chaos sweep) raises NotImplementedError."""
+        if faults is not None:
+            raise NotImplementedError(
+                "run_sweep(faults=...) needs the fault plane the PyTorch "
+                "port does not have yet (ROADMAP queue 1, item 9 (faults)); "
+                "run it with tpusim")
+        self._reset_run_state()
+        self.set_typical_pods()
+        self.log.info(
+            f"Number of original workload pods: {len(self.workload_pods)}"
+        )
+        if tunes is None:
+            return schedule_pods_sweep(self, self.prepare_pods(), weights,
+                                       seeds=seeds, bucket=bucket)
+        w = np.asarray(weights, np.int32)
+        if w.ndim != 2 or len(tunes) != int(w.shape[0]):
+            raise ValueError(
+                f"tunes has {len(tunes)} entries for weight grid of shape "
+                f"{w.shape} (want one tuning ratio per weight row)"
+            )
+        pods_list = [self.prepare_pods(tuning_ratio=t) for t in tunes]
+        return schedule_pods_sweep_multi(self, pods_list, w, seeds=seeds,
+                                         bucket=bucket)
 
     def report_failed(self, pods) -> None:
         """The failed-pods block, and the stash the fail CSV groups."""
@@ -566,17 +645,460 @@ class Simulator:
         }
         return requested, allocatable
 
-    def cluster_analysis(self, tag: str = "InitSchedule"):
+    def cluster_analysis(self, tag: str = "InitSchedule", _amounts=None):
         """The end-of-stage 16-line analysis block. The frag amounts are
-        summed on the host in a fixed order, whatever the device."""
+        summed on the host in a fixed order, whatever the device; a seed
+        batch passes each lane's, summed in that order on the device
+        (_batched_frag_amounts)."""
         state = (self.last_result.state if self.last_result is not None
                  else self.init_state)
         state = NodeState(*(a.cpu() for a in state))
-        typical = type(self.typical)(*(a.cpu() for a in self.typical))
-        amounts = cluster_frag_report(state, typical)[0]
+        if _amounts is not None:
+            amounts = np.asarray(_amounts, np.float32)
+        else:
+            typical = type(self.typical)(*(a.cpu() for a in self.typical))
+            amounts = cluster_frag_report(state, typical)[0]
         requested, allocatable = self.alloc_maps(state)
         kv = cluster_analysis_block(self.log, tag, amounts, requested,
                                     allocatable)
         # the summary across stages, in emission order, for analysis.csv
         self.analysis_summary.update(kv)
         return amounts, requested, allocatable
+
+
+# ---------------------------------------------------------------------------
+# Lanes: seed batches and config sweeps as one launch (counterpart of the
+# seed-batched and config-axis replays of tpusim/sim/driver.py)
+# ---------------------------------------------------------------------------
+#
+# tpusim runs a seed group or a weight grid as one vmapped scan. Here each
+# configuration is a lane of one launch of the lanes kernels
+# (fused_engine.replay_lanes, hbm_engine.replay_blocked_lanes): a block a
+# lane, every lane a serial replay of its own, side by side on the card's
+# SMs. The tables hold raw per-policy scores, which neither the weights nor
+# the tie-break rank touch, so one init_tables build serves every lane
+# (copied per lane, which mutates its copy). The lanes run at their true
+# sizes: the `bucket` arguments are accepted for tpusim's signatures and
+# pad nothing.
+
+
+def _lane_tensors(sim: Simulator, pods, use_timestamps: bool):
+    """A lane's (pod specs, ev_kind, ev_pod) on the Simulator's device,
+    the events checked on the host first."""
+    specs = pods_to_specs(pods, sim.node_index, sim.device)
+    ev_kind, ev_pod = build_events(pods, use_timestamps)
+    validate_events(ev_kind, ev_pod, len(pods))
+    return (specs, torch.as_tensor(ev_kind, device=sim.device),
+            torch.as_tensor(ev_pod, device=sim.device))
+
+
+def _launch_lanes(sim: Simulator, types, lanes) -> dict:
+    """Queue the lanes (fused_engine.Lane, built over the Simulator's
+    initial state) on the Simulator's device: init_tables once over the
+    shared `types`, then the lanes kernel of the residency that
+    residency.replay_tier picks for one lane of that shape. Returns the
+    results (a ReplayResult a lane, on the device) and what ran."""
+    cfg = sim._replay.config
+    state, tp = sim.init_state, sim.typical
+    n = state.num_nodes
+    tier = sim._residency(n, types.num_types)
+    if tier == "hbm":
+        padded, _ = pad_nodes(state, lanes[0].rank, BLOCK)
+        lanes = [lane._replace(rank=pad_rank(lane.rank, BLOCK))
+                 for lane in lanes]
+        tables = init_tables(padded, types, tp, cfg)
+        outs = replay_blocked_lanes(padded, types, tp, tables, cfg, lanes)
+        results = [o._replace(state=trim_nodes(o.state, n)) for o, _ in outs]
+        stats = [st for _, st in outs]
+        kernel = "replay_blocked_lanes"
+    else:
+        tables = init_tables(state, types, tp, cfg)
+        results, stats = replay_lanes(state, types, tp, tables, cfg,
+                                      lanes), None
+        kernel = "replay_lanes"
+    if sim.device.type != "cuda":
+        kernel = f"plain_{kernel}"
+    sim.last_engine, sim.last_residency = kernel, tier
+    sim.last_kernel_stats = None
+    return dict(results=results, stats=stats, kernel=kernel, tier=tier)
+
+
+def _lane_metrics(sim: Simulator, results, lane_inputs):
+    """Each lane's result with the metrics post-pass attached (per-event
+    reporting on), on the lanes' device."""
+    return [sim._attach_metrics(out, sim.init_state, specs, evk, evp)
+            for out, (specs, evk, evp) in zip(results, lane_inputs)]
+
+
+def _lane_frag_amounts(states: Sequence[NodeState], tp) -> np.ndarray:
+    """The cluster frag amounts f32[B, 7] of B final states, in the order
+    of cluster_frag_report (the reference's tree order over nodes and
+    typical pods), summed for every lane at once by elementwise adds on
+    the states' device: the bits of cluster_frag_report on each."""
+    b, n = len(states), states[0].num_nodes
+    cat = [torch.cat([getattr(s, f) for s in states])
+           for f in ("cpu_left", "gpu_left", "gpu_type")]
+    contrib = node_frag_contrib(*cat, tp)  # [B * N, T, 7]
+    contrib = contrib.view(b, n, *contrib.shape[1:]).permute(1, 2, 0, 3)
+    return tree_sum(contrib, 2).cpu().numpy()
+
+
+@dataclass
+class SweepLane:
+    """One configuration's result out of a sweep: its lane's replay and the
+    summary the sweep table prints. Placements are bit-identical to a
+    standalone run with `weights` in the configuration and `seed` as
+    cfg.seed."""
+
+    weights: np.ndarray  # i32[num_pol] this lane's weight row
+    seed: int
+    placed_node: np.ndarray  # i32[P]
+    dev_mask: np.ndarray  # bool[P, 8]
+    ever_failed: np.ndarray  # bool[P]
+    counters: object  # the in-scan counters: None (not in the port yet)
+    metrics: object  # EventMetrics (per-event rows) or None
+    state: NodeState  # final state, CPU tensors
+    events: int
+    placed: int  # pods placed at the end of the trace
+    failed: int  # creation attempts rejected
+    gpu_alloc_pct: float
+    frag_gpu_milli: float
+    # pods that ended the trace unplaced after a rejected creation
+    unscheduled: int = 0
+    # the fault plane's disruption metrics: None (not in the port yet)
+    disruption: object = None
+
+
+def _check_sweep_grid(cfg: SimulatorConfig, weights, seeds):
+    """Validate the [B, num_pol] weight grid and the per-lane seeds;
+    returns (w, B, seeds) with the defaults resolved."""
+    w = np.asarray(weights, np.int32)
+    if w.ndim != 2 or w.shape[1] != len(cfg.policies):
+        raise ValueError(
+            f"weights must be a [B, {len(cfg.policies)}] matrix (one row "
+            f"per config, columns in cfg.policies order); got shape "
+            f"{w.shape}"
+        )
+    b = int(w.shape[0])
+    if b < 1:
+        raise ValueError("weights needs at least one config row")
+    if seeds is None:
+        seeds = [cfg.seed] * b
+    seeds = [int(s) for s in seeds]
+    if len(seeds) != b:
+        raise ValueError(
+            f"seeds has {len(seeds)} entries for {b} weight rows"
+        )
+    return w, b, seeds
+
+
+def _lane_summary(state: NodeState, placed_node, ever_failed, amounts):
+    """(placed, failed, gpu_alloc_pct, frag_gpu_milli, unscheduled) of a
+    lane's final arrays on the host, in the reference's arithmetic (the
+    frag total of the f32[7] amounts as numpy sums it)."""
+    pn = np.asarray(placed_node, np.int32)
+    failed = np.asarray(ever_failed, bool)
+    gpu_left, gpu_cnt = state.gpu_left.numpy(), state.gpu_cnt.numpy()
+    slot = np.arange(gpu_left.shape[1])[None, :] < gpu_cnt[:, None]
+    denom = max(int(gpu_cnt.sum()) * MILLI, 1)
+    alloc = 100.0 * float(np.where(slot, MILLI - gpu_left, 0).sum()) / denom
+    amounts = np.asarray(amounts, np.float32)
+    frag = amounts.sum(-1) - amounts[..., Q3_SATISFIED]
+    return dict(placed=int((pn >= 0).sum()), failed=int(failed.sum()),
+                gpu_alloc_pct=alloc, frag_gpu_milli=float(frag),
+                unscheduled=int(((pn < 0) & failed).sum()))
+
+
+def _slice_sweep_lane(outs, amounts, i, wrow, seed, p, e) -> SweepLane:
+    """Lane i of a sweep's results on the host (`outs`, a ReplayResult a
+    lane) as its SweepLane; `amounts` are the lanes' frag amounts f32[B, 7]
+    and p, e the lane's true pod and event counts."""
+    out = outs[i]
+    pn = out.placed_node.numpy()[:p]
+    failed = out.ever_failed.numpy()[:p]
+    return SweepLane(
+        weights=np.asarray(wrow, np.int32).copy(), seed=int(seed),
+        placed_node=pn, dev_mask=out.dev_mask.numpy()[:p],
+        ever_failed=failed, counters=None,
+        metrics=(None if out.metrics is None else
+                 type(out.metrics)(*(a[:e] for a in out.metrics))),
+        state=out.state, events=e,
+        **_lane_summary(out.state, pn, failed, amounts[i]))
+
+
+def lane_from_arrays(state, placed_node, dev_mask, ever_failed, counters,
+                     typical, weights, seed, events,
+                     pad_skips: int = 0) -> SweepLane:
+    """SweepLane from a run's final arrays on the host: the summary of
+    _slice_sweep_lane (the same allocation slots, the same frag total), so
+    a standalone run and a sweep lane compare field by field. `counters`
+    and `pad_skips` are tpusim's in-scan counters and their padding
+    correction; the port has no counters yet and keeps them as given."""
+    state = NodeState(*(torch.as_tensor(np.asarray(a)) for a in state))
+    typical = type(typical)(*(a.cpu() for a in typical))
+    amounts = cluster_frag_report(state, typical)[0]
+    pn = np.asarray(placed_node, np.int32)
+    failed = np.asarray(ever_failed, bool)
+    return SweepLane(
+        weights=np.asarray(weights, np.int32).copy(), seed=int(seed),
+        placed_node=pn, dev_mask=np.asarray(dev_mask), ever_failed=failed,
+        counters=counters, metrics=None, state=state, events=int(events),
+        **_lane_summary(state, pn, failed, amounts))
+
+
+def lane_from_run(sim: Simulator, weights, seed,
+                  pad_skips: int = 0) -> SweepLane:
+    """SweepLane view of the Simulator's newest standalone run
+    (schedule_pods)."""
+    res = sim.last_result
+    return lane_from_arrays(res.state, res.placed_node, res.dev_mask,
+                            sim.last_ever_failed, None, sim.typical, weights,
+                            seed, int(res.events), pad_skips)
+
+
+def _sweep_lanes(sim: Simulator, lane_inputs, types, type_ids, w, seeds,
+                 what: str) -> List[SweepLane]:
+    """The lanes of a sweep: lane i replays lane_inputs[i] (specs, ev_kind,
+    ev_pod) with type ids type_ids[i] into `types`, weight row w[i] (in
+    cfg.policies order) and seed seeds[i] (its tie-break rank and root
+    key). One launch, the post-pass where per-event reporting is on, the
+    lanes' frag amounts in one device sum, one fetch."""
+    cfg = sim._replay.config
+    n = len(sim.nodes)
+    lanes = [Lane(specs, tid, evk, evp,
+                  torch.as_tensor(tiebreak_rank(n, seed), device=sim.device),
+                  lane_weights(cfg, row), prng_key(seed))
+             for (specs, evk, evp), tid, row, seed
+             in zip(lane_inputs, type_ids, w, seeds)]
+    ran = _launch_lanes(sim, types, lanes)
+    b, e_max = len(lanes), max(int(evk.shape[0]) for _, evk, _ in lane_inputs)
+    sim.log.info(
+        f"[Engine] sweep of {b} {what} x {'<= ' if what == 'traces' else ''}"
+        f"{e_max} events ran on: {sim.engine}, {ran['kernel']} "
+        f"({ran['tier']} residency)")
+    results = ran["results"]
+    if sim.cfg.report_per_event:
+        results = _lane_metrics(sim, results, lane_inputs)
+    amounts = _lane_frag_amounts([o.state for o in results], sim.typical)
+    outs = device_fetch(tuple(results))
+    return [_slice_sweep_lane(outs, amounts, i, w[i], seeds[i],
+                              int(lane_inputs[i][0].cpu.shape[0]),
+                              int(lane_inputs[i][1].shape[0]))
+            for i in range(b)]
+
+
+def schedule_pods_sweep(sim: Simulator, pods, weights, seeds=None,
+                        bucket: int = 512) -> List[SweepLane]:
+    """Evaluate B what-if configurations of one workload in one lanes
+    launch: `weights` is a [B, num_pol] i32 matrix (a row a configuration,
+    columns in cfg.policies order), `seeds` an optional list of B seeds
+    (cfg.seed for every lane by default; a lane's seed drives its root key
+    and its tie-break rank, as a standalone run's cfg.seed does). Each
+    lane's placements, masks, state and metrics are bit-identical to a
+    standalone run with that weight row in the configuration; the tables
+    are built once for every lane."""
+    cfg = sim.cfg
+    w, b, seeds = _check_sweep_grid(cfg, weights, seeds)
+    if sim.typical is None:
+        sim.set_typical_pods()
+    inputs = _lane_tensors(sim, pods, cfg.use_timestamps)
+    types = build_pod_types(inputs[0])
+    return _sweep_lanes(sim, [inputs] * b, types, [types.type_id] * b, w,
+                        seeds, "configs")
+
+
+def _union_types(specs_list):
+    """The pod types of several lanes' specs together (the concat dedup of
+    tpusim's seed batch), and each lane's type ids into them."""
+    cat = PodSpec(*(torch.cat([getattr(s, f) for s in specs_list])
+                    for f in PodSpec._fields))
+    types = build_pod_types(cat)
+    offs = np.cumsum([0] + [int(s.cpu.shape[0]) for s in specs_list])
+    tids = [types.type_id[offs[i]:offs[i + 1]]
+            for i in range(len(specs_list))]
+    return types, tids
+
+
+def schedule_pods_sweep_multi(sim: Simulator, pods_list, weights, seeds=None,
+                              bucket: int = 512, min_pods: int = 0,
+                              min_events: int = 0,
+                              fault_specs=None) -> List[SweepLane]:
+    """Evaluate B what-if configurations that each carry their own
+    workload (tuned variants of one cluster's trace) in one lanes launch:
+    lane i replays pods_list[i] under weight row i and seed i. The lanes
+    share the Simulator's cluster, policy family and typical pods; the pod
+    types are the union over the lanes, and the tables are built once.
+    Each lane is bit-identical to a standalone run over its trace with its
+    weights and seed. `min_pods`/`min_events` are tpusim's shape floors
+    and pad nothing here; `fault_specs` raises NotImplementedError."""
+    if fault_specs is not None:
+        raise NotImplementedError(
+            "schedule_pods_sweep_multi(fault_specs=...) needs the fault "
+            "plane the PyTorch port does not have yet (ROADMAP queue 1, "
+            "item 9 (faults)); run it with tpusim")
+    cfg = sim.cfg
+    w, b, seeds = _check_sweep_grid(cfg, weights, seeds)
+    if len(pods_list) != b:
+        raise ValueError(
+            f"pods_list has {len(pods_list)} traces for {b} weight rows "
+            "(want one workload per config lane)"
+        )
+    if sim.typical is None:
+        sim.set_typical_pods()
+    inputs = [_lane_tensors(sim, pods, cfg.use_timestamps)
+              for pods in pods_list]
+    types, tids = _union_types([specs for specs, _, _ in inputs])
+    return _sweep_lanes(sim, inputs, types, tids, w, seeds, "traces")
+
+
+def format_sweep_table(lanes: Sequence[SweepLane], policies) -> str:
+    """Per-config summary table of a sweep (the `apply --sweep-weights`
+    output): a row a lane with its weight row, seed, placed and failed
+    counts, GPU allocation and frag gpu-milli."""
+    names = [n for n, _ in policies]
+    head = (
+        f"{'cfg':>4} {'weights(' + ','.join(names) + ')':<32} "
+        f"{'seed':>6} {'placed':>7} {'failed':>7} "
+        f"{'gpu_alloc%':>10} {'frag_gpu_milli':>15}"
+    )
+    rows = [head, "-" * len(head)]
+    for i, ln in enumerate(lanes):
+        wstr = ",".join(str(int(x)) for x in ln.weights)
+        rows.append(
+            f"{i:>4} {wstr:<32} {ln.seed:>6} {ln.placed:>7} "
+            f"{ln.failed:>7} {ln.gpu_alloc_pct:>10.2f} "
+            f"{ln.frag_gpu_milli:>15.0f}"
+        )
+    return "\n".join(rows)
+
+
+# the settings every Simulator of a seed batch must share
+_BATCH_SHARED = ("policies", "gpu_sel_method", "dim_ext_method",
+                 "norm_method", "report_per_event", "use_timestamps",
+                 "table_residency", "typical_pods")
+
+
+def schedule_pods_batch(sims: Sequence[Simulator], pods_list,
+                        bucket: int = 512) -> List[SimulateResult]:
+    """The main schedule of S same-config experiments that differ in their
+    seeds (shuffle order, tuning, tie-break rank, root key) as one lanes
+    launch. Each Simulator's result, log and CSVs equal its standalone
+    schedule_pods."""
+    return finish_pods_batch(dispatch_pods_batch(sims, pods_list, bucket))
+
+
+def dispatch_pods_batch(sims: Sequence[Simulator], pods_list,
+                        bucket: int = 512) -> dict:
+    """The host preparation and the launch of schedule_pods_batch. The
+    launch is asynchronous on the device's stream, so this returns once it
+    is queued, and the caller may do host work (another group's tail)
+    while the lanes run; finish_pods_batch(handle) waits for them and
+    completes each Simulator's run."""
+    lead = sims[0]
+    for s in sims[1:]:
+        same = (all(getattr(s.cfg, f) == getattr(lead.cfg, f)
+                    for f in _BATCH_SHARED)
+                and s.nodes == lead.nodes
+                and s.workload_pods == lead.workload_pods
+                and s.device == lead.device)
+        if not same:
+            raise ValueError(
+                "schedule_pods_batch requires same-config sims (policies, "
+                "gpu/dim/norm methods, report flag, timestamps, table "
+                "residency, typical-pod knobs, the node cluster, the "
+                "workload and the device may not differ across the batch)"
+            )
+    t0 = time.perf_counter()
+    for sim in sims:
+        if sim.typical is None:
+            sim.set_typical_pods()
+    inputs = [_lane_tensors(sim, pods, sim.cfg.use_timestamps)
+              for sim, pods in zip(sims, pods_list)]
+    types, tids = _union_types([specs for specs, _, _ in inputs])
+    cfg = lead._replay.config
+    lanes = [Lane(specs, tid, evk, evp, sim.rank, cfg.weights,
+                  prng_key(sim.cfg.seed))
+             for sim, (specs, evk, evp), tid in zip(sims, inputs, tids)]
+    ran = _launch_lanes(lead, types, lanes)
+    return dict(sims=sims, pods_list=pods_list, inputs=inputs, ran=ran,
+                t0=t0, prep_s=time.perf_counter() - t0)
+
+
+def finish_pods_batch(handle: dict) -> List[SimulateResult]:
+    """Wait for a dispatch_pods_batch handle's lanes and finish each
+    Simulator's run: the post-pass, one fetch, the log and the result."""
+    sims, ran = handle["sims"], handle["ran"]
+    lead = sims[0]
+    t_fin = time.perf_counter()
+    results = ran["results"]
+    if lead.cfg.report_per_event:
+        results = _lane_metrics(lead, results, handle["inputs"])
+    outs = device_fetch(tuple(results))
+    wall = handle["prep_s"] + (time.perf_counter() - t_fin)
+    done = []
+    for i, (sim, pods) in enumerate(zip(sims, handle["pods_list"])):
+        evk, evp = (x.cpu().numpy() for x in handle["inputs"][i][1:])
+        sim.last_engine, sim.last_residency = ran["kernel"], ran["tier"]
+        sim.last_kernel_stats = None
+        sim.log.info(
+            f"[Engine] replay of {len(evk)} events ran on: {sim.engine}, "
+            f"{ran['kernel']} ({ran['tier']} residency, lane {i} of "
+            f"{len(sims)})")
+        t1 = time.perf_counter()
+        out, events, unscheduled, rank = sim._finish_replay(
+            outs[i], pods, evk, evp, sim.init_state)
+        sim.replay_times.append(dict(
+            events=events, replay_ms=wall * 1e3 / len(sims),
+            report_ms=(time.perf_counter() - t1) * 1e3))
+        done.append(sim._record_result(out, pods, events, unscheduled, rank,
+                                       wall / len(sims)))
+    return done
+
+
+def _batched_frag_amounts(sims: Sequence[Simulator]) -> np.ndarray:
+    """The cluster frag amounts f32[S, 7] of every Simulator's final state,
+    summed for all of them at once on the lead's device in the order of
+    cluster_frag_report."""
+    lead = sims[0]
+    states = [NodeState(*(a.to(lead.device) for a in s.last_result.state))
+              for s in sims]
+    return _lane_frag_amounts(states, lead.typical)
+
+
+def run_batch(sims: Sequence[Simulator]) -> List[SimulateResult]:
+    """run() for a seed batch: each Simulator's preparation and reports,
+    one lanes launch for their replays (schedule_pods_batch)."""
+    return finish_run_batch(dispatch_run_batch(sims))
+
+
+def dispatch_run_batch(sims: Sequence[Simulator]) -> dict:
+    """The preparation and the launch of run_batch (dispatch_pods_batch).
+    The typical-pod distribution is computed once, on the lead, and taken
+    by the Simulators with the same workload and settings."""
+    pods_list = []
+    lead = sims[0]
+    for sim in sims:
+        sim._reset_run_state()
+        if (sim is lead or sim.workload_pods != lead.workload_pods
+                or sim.cfg.typical_pods != lead.cfg.typical_pods):
+            sim.set_typical_pods()
+        else:
+            sim.adopt_typical_pods(lead)
+        pods_list.append(sim.prepare_pods())
+        sim.log.info(
+            f"Number of original workload pods: {len(sim.workload_pods)}"
+        )
+    return dispatch_pods_batch(sims, pods_list)
+
+
+def finish_run_batch(handle: dict) -> List[SimulateResult]:
+    """The finish half of run_batch: each run's failed-pods block and its
+    Cluster Analysis, the frag amounts of all final states summed at
+    once."""
+    sims = handle["sims"]
+    results = finish_pods_batch(handle)
+    amounts = _batched_frag_amounts(sims)
+    for i, (sim, res) in enumerate(zip(sims, results)):
+        sim.report_failed([u.pod for u in res.unscheduled_pods])
+        sim.cluster_analysis("InitSchedule", _amounts=amounts[i])
+    return results

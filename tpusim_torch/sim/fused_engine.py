@@ -32,6 +32,7 @@ functions (tpusim_torch.policies) and `feas_column`.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -93,6 +94,9 @@ class ReplayConfig(NamedTuple):
     sel_idx: int
     dim_ext: str = "share"  # DotProductScore's, where enabled
     norm: str = "max"
+    # policies[j] is the order[j]-th of the [(name, weight)] list given to
+    # make_config
+    order: Tuple[int, ...] = ()
 
     @property
     def gpu_sel_mode(self) -> str:
@@ -110,6 +114,26 @@ class ReplayConfig(NamedTuple):
         """The policies with score-table rows: all but RandomScore, whose
         score is drawn per event and which make_config puts last."""
         return sum(not p.per_event for p in self.policies)
+
+
+def policy_order(policies: Sequence[Policy]):
+    """The order make_config puts policies in: a per-event policy last, the
+    others as given (a stable sort)."""
+    return sorted(range(len(policies)), key=lambda i: policies[i].per_event)
+
+
+def lane_weights(cfg: ReplayConfig, row) -> Tuple[int, ...]:
+    """A weight row given in the order of the [(name, weight)] list `cfg`
+    was made from, in `cfg`'s policy order (make_config moves a per-event
+    policy last): the weights a lane of a sweep over `cfg`'s family
+    carries."""
+    row = [int(w) for w in row]
+    if len(row) != len(cfg.policies):
+        raise ValueError(f"a weight row of {len(row)} for "
+                         f"{len(cfg.policies)} policies")
+    if any(not -2**31 <= w < 2**31 for w in row):
+        raise ValueError(f"weights must be int32: {row}")
+    return tuple(row[i] for i in cfg.order)
 
 
 def make_config(policies: Sequence[Tuple[str, int]], gpu_sel: str,
@@ -133,7 +157,8 @@ def make_config(policies: Sequence[Tuple[str, int]], gpu_sel: str,
     if any(not -2**31 <= int(w) < 2**31 for _, w in policies):
         raise ValueError(f"weights must be int32: {list(policies)}")
     resolved = [(make_policy(name, dim_ext, norm), w) for name, w in policies]
-    resolved.sort(key=lambda pw: pw[0].per_event)  # stable
+    order = tuple(policy_order([p for p, _ in resolved]))
+    resolved = [resolved[i] for i in order]
     pols = tuple(p for p, _ in resolved)
     names = [p.name for p in pols]
     selectors = [p.name for p in pols if p.self_select]
@@ -146,7 +171,7 @@ def make_config(policies: Sequence[Tuple[str, int]], gpu_sel: str,
             f"gpu_sel must be best, worst, random or an enabled policy of "
             f"{sorted(SELF_SELECT_POLICIES)}; got {gpu_sel!r} with {names}")
     return ReplayConfig(pols, tuple(int(w) for _, w in resolved), gpu_sel,
-                        sel_idx, dim_ext, norm)
+                        sel_idx, dim_ext, norm, order)
 
 
 # ---------------------------------------------------------------------------
@@ -455,11 +480,16 @@ class Launch(NamedTuple):
 
 def launch(ready: Launch) -> None:
     """Queue a prepared launch on the current stream of its device."""
+    from tpusim_torch.kernels import LANE_KERNELS, launch_lanes
     from tpusim_torch.kernels import launch as launch_kernel
 
     dev = ready.tensors["cpu_left"].device
-    launch_kernel(ready.name, ready.args,
-                  torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if ready.name in LANE_KERNELS:
+        launch_lanes(ready.name, ready.args,
+                     ready.tensors["lanes_dev"].data_ptr(), stream)
+    else:
+        launch_kernel(ready.name, ready.args, stream)
 
 
 def _cuda_only(dev: torch.device, name: str) -> None:
@@ -602,11 +632,165 @@ def replay(state: NodeState, pods: PodSpec, types: PodTypes,
     return ready.finish()
 
 
+# ---------------------------------------------------------------------------
+# Lanes: B independent replays of one configuration family in one launch
+# ---------------------------------------------------------------------------
+
+
+class Lane(NamedTuple):
+    """One lane of a lanes replay: its pods and their ids into the shared
+    pod types, its event stream, its tie-break rank, its weights in the
+    configuration's policy order (lane_weights) and its root key (None
+    where the configuration draws nothing). The tables, the initial state
+    and the typical pods are shared by every lane."""
+
+    pods: PodSpec
+    type_id: torch.Tensor
+    ev_kind: torch.Tensor
+    ev_pod: torch.Tensor
+    rank: torch.Tensor
+    weights: Tuple[int, ...]
+    key: object = None
+
+
+def _lane_types(types: PodTypes, lane: Lane) -> PodTypes:
+    return types._replace(type_id=lane.type_id)
+
+
+def _lane_config(cfg: ReplayConfig, lane: Lane) -> ReplayConfig:
+    return cfg._replace(weights=tuple(int(w) for w in lane.weights))
+
+
+def plain_replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
+                       tables, cfg: ReplayConfig, lanes: Sequence[Lane],
+                       keep: dict = None):
+    """The plain version of the `replay_lanes` kernel: plain_replay lane by
+    lane, each from `state` and the shared (score, sdev, feas) `tables`.
+    Returns a ReplayResult a lane; with `keep`, keep["tables"] holds each
+    lane's final tables."""
+    outs, finals = [], []
+    for lane in lanes:
+        kept = {}
+        outs.append(plain_replay(
+            state, lane.pods, _lane_types(types, lane), lane.ev_kind,
+            lane.ev_pod, tp, lane.rank, tables, _lane_config(cfg, lane),
+            keep=kept, key=lane.key))
+        finals.append(kept["tables"])
+    if keep is not None:
+        keep["tables"] = finals
+    return outs
+
+
+# the state fields a replay mutates
+_LIVE = ("cpu_left", "mem_left", "gpu_left", "aff_cnt")
+
+
+def lane_copies(x: torch.Tensor, b: int) -> torch.Tensor:
+    """b copies of `x` as one [b, ...] tensor."""
+    return x.unsqueeze(0).expand(b, *x.shape).clone()
+
+
+def prepare_replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
+                         tables, cfg: ReplayConfig, lanes: Sequence[Lane],
+                         name: str = "replay_lanes",
+                         lane_extra: dict = None) -> Launch:
+    """The `replay_lanes` launch over CUDA tensors (or that of lanes kernel
+    `name`): lane b replays its events from its own copy of `state` and of
+    the (score, sdev, feas) `tables` of `state`. Each field's lane copies
+    are one [B, ...] tensor ("cpu_left", ..., "score", ...), as are the
+    outputs ("placed", "maskb", "failed" [B, max P]; "ev_node", "ev_devb"
+    [B, max E]) and `lane_extra`'s tensors, whose lane b is passed as lane
+    b's argument of that name. "lanes" holds each lane's tensors by field
+    name, "lanes_dev" the device copy of the lanes' arguments. finish()
+    returns a ReplayResult a lane, sliced to its pods and events."""
+    from tpusim_torch.kernels import ReplayArgs
+
+    dev = state.cpu_left.device
+    _cuda_only(dev, name)
+    b = len(lanes)
+    if b < 1:
+        raise ValueError("a lanes replay needs at least one lane")
+    n = state.num_nodes
+    keys = [root_key(lane.key, cfg) for lane in lanes]
+    live = {f: lane_copies(getattr(state, f), b) for f in _LIVE}
+    copies = tuple(lane_copies(t, b) for t in tables)
+    sizes = [(lane.pods.cpu.shape[0], lane.ev_kind.shape[0])
+             for lane in lanes]
+    for lane, (p, e) in zip(lanes, sizes):
+        if lane.ev_pod.shape != (e,) or lane.rank.shape != (n,) or \
+                lane.type_id.shape != (p,):
+            raise ValueError("each lane's ev_pod [E], rank [N] and type_id "
+                             "[P] must match")
+    pmax, emax = max(p for p, _ in sizes), max(e for _, e in sizes)
+
+    def out(*size):
+        return torch.empty(size, dtype=torch.int32, device=dev)
+
+    placed = torch.full((b, pmax), -1, dtype=torch.int32, device=dev)
+    maskb, failed = out(b, pmax).zero_(), out(b, pmax).zero_()
+    ev_node, ev_devb = out(b, emax), out(b, emax)
+    extra = dict(lane_extra or {})
+    if not staged(types.num_types, tp.size):
+        nbytes = scratch_bytes(types.num_types, tp.size, len(cfg.policies),
+                               name == "replay_blocked_lanes")
+        extra["scratch"] = out(b, -(-nbytes // 4))
+
+    def lane_state(i):
+        return state._replace(**{f: x[i] for f, x in live.items()})
+
+    specs_k = types.stacked()
+    args, kept = [], []
+    for i, (lane, (p, e)) in enumerate(zip(lanes, sizes)):
+        a, k = _args(
+            lane_state(i), specs_k, types.num_share, tp,
+            tuple(t[i] for t in copies), _lane_config(cfg, lane),
+            rank=lane.rank, p_cpu=lane.pods.cpu, p_mem=lane.pods.mem,
+            p_milli=lane.pods.gpu_milli, p_num=lane.pods.gpu_num,
+            p_pinned=lane.pods.pinned, p_type=lane.type_id,
+            ev_kind=lane.ev_kind, ev_pod=lane.ev_pod, placed=placed[i, :p],
+            maskb=maskb[i, :p], failed=failed[i, :p], ev_node=ev_node[i, :e],
+            ev_devb=ev_devb[i, :e], p=p, e=e, key=keys[i],
+            **{f: x[i] for f, x in extra.items()})
+        args.append(a)
+        kept.append(k)
+    lanes_dev = torch.empty(b * ctypes.sizeof(ReplayArgs), dtype=torch.uint8,
+                            device=dev)
+    tensors = dict(live, score=copies[0], sdev=copies[1], feas=copies[2],
+                   placed=placed, maskb=maskb, failed=failed, ev_node=ev_node,
+                   ev_devb=ev_devb, lanes=kept, lanes_dev=lanes_dev, **extra)
+
+    def finish():
+        return [ReplayResult(
+            lane_state(i), placed[i, :p], _bits_to_mask(maskb[i, :p]),
+            failed[i, :p] != 0, None, ev_node[i, :e],
+            _bits_to_mask(ev_devb[i, :e]))
+            for i, (p, e) in enumerate(sizes)]
+
+    return Launch(name, args, tensors, finish)
+
+
+def replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods, tables,
+                 cfg: ReplayConfig, lanes: Sequence[Lane]):
+    """Replay B lanes of `cfg`'s family from `state` with the (score, sdev,
+    feas) tables of `state`: the `replay_lanes` CUDA kernel on CUDA tensors
+    (a block a lane, one launch), plain_replay_lanes on CPU tensors. Every
+    lane must run the same instantiation as `cfg`: lanes differ in weights,
+    keys, ranks, pods and events only. Returns a ReplayResult a lane; the
+    inputs are left unchanged."""
+    if state.cpu_left.device.type == "cpu":
+        return plain_replay_lanes(state, types, tp, tables, cfg, lanes)
+    ready = prepare_replay_lanes(state, types, tp, tables, cfg, lanes)
+    launch(ready)
+    replay_lanes.launches += 1
+    return ready.finish()
+
+
 init_tables.launches = 0
 replay.launches = 0
+replay_lanes.launches = 0
 # every kernel wrapper of the port; tpusim_torch.sim.hbm_engine adds
-# replay_blocked
-KERNEL_WRAPPERS = [init_tables, replay]
+# replay_blocked and replay_blocked_lanes
+KERNEL_WRAPPERS = [init_tables, replay, replay_lanes]
 
 
 def reset_launch_counts() -> None:

@@ -337,8 +337,72 @@ def replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
     return ready.finish()
 
 
+def plain_replay_blocked_lanes(state: NodeState, types: PodTypes,
+                               tp: TypicalPods, tables, cfg: fe.ReplayConfig,
+                               lanes, keep: dict = None):
+    """The plain version of the `replay_blocked_lanes` kernel:
+    plain_replay_blocked lane by lane (fused_engine.Lane), each from
+    `state` and the shared tables. Returns (ReplayResult, stats) a lane;
+    with `keep`, keep["tables"] and keep["summaries"] hold each lane's."""
+    outs, finals = [], {"tables": [], "summaries": []}
+    for lane in lanes:
+        kept = {}
+        outs.append(plain_replay_blocked(
+            state, lane.pods, fe._lane_types(types, lane), lane.ev_kind,
+            lane.ev_pod, tp, lane.rank, tables, fe._lane_config(cfg, lane),
+            keep=kept))
+        for name in finals:
+            finals[name].append(kept[name])
+    if keep is not None:
+        keep.update(finals)
+    return outs
+
+
+def prepare_replay_blocked_lanes(state: NodeState, types: PodTypes,
+                                 tp: TypicalPods, tables,
+                                 cfg: fe.ReplayConfig, lanes) -> fe.Launch:
+    """The `replay_blocked_lanes` launch over CUDA tensors: the lanes of
+    fused_engine.prepare_replay_lanes, each with its own block summaries
+    and "stats" ([B, ...] tensors). finish() returns (ReplayResult, stats)
+    a lane."""
+    n, k = state.num_nodes, types.num_types
+    check_blocked(n, cfg)
+    b = len(lanes)
+    nblk, nn = n // BLOCK, max(len(_norm_index(cfg)), 1)
+
+    def zeros(*shape):
+        return torch.zeros((b, *shape), dtype=torch.int32,
+                           device=state.cpu_left.device)
+
+    summaries = dict(bt=zeros(k, nblk), br=zeros(k, nblk), bn=zeros(k, nblk),
+                     brmin=zeros(nn, k, nblk), brmax=zeros(nn, k, nblk),
+                     slo=zeros(nn, k), shi=zeros(nn, k), stats=zeros(3))
+    ready = fe.prepare_replay_lanes(state, types, tp, tables, cfg, lanes,
+                                    name="replay_blocked_lanes",
+                                    lane_extra=summaries)
+    stats = summaries["stats"]
+    return ready._replace(finish=lambda: [
+        (out, stats[i]) for i, out in enumerate(ready.finish())])
+
+
+def replay_blocked_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
+                         tables, cfg: fe.ReplayConfig, lanes):
+    """replay_blocked over B lanes of `cfg`'s family (fused_engine.Lane):
+    the `replay_blocked_lanes` CUDA kernel on CUDA tensors (a block a lane,
+    one launch), plain_replay_blocked_lanes on CPU tensors. Returns
+    (ReplayResult, stats i32[3]) a lane; the inputs are left unchanged."""
+    if state.cpu_left.device.type == "cpu":
+        return plain_replay_blocked_lanes(state, types, tp, tables, cfg,
+                                          lanes)
+    ready = prepare_replay_blocked_lanes(state, types, tp, tables, cfg, lanes)
+    fe.launch(ready)
+    replay_blocked_lanes.launches += 1
+    return ready.finish()
+
+
 replay_blocked.launches = 0
-fe.KERNEL_WRAPPERS.append(replay_blocked)
+replay_blocked_lanes.launches = 0
+fe.KERNEL_WRAPPERS.extend([replay_blocked, replay_blocked_lanes])
 
 
 def make_blocked_replay(policies: Sequence[Tuple[str, int]], gpu_sel: str,

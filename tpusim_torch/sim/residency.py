@@ -24,6 +24,13 @@ the faster for every configuration there: under PWR+FGD the flat kernel
 took 1.34 times the blocked one's time. The rule does not look at the
 configuration's normalisation, which sets the flat kernel's select cost.
 
+The lanes of a seed batch or a config sweep (the lanes kernels, a block
+a lane) take the tier of one lane: the rule compares one lane's tables
+with L2, whatever the lane count. On an H100 at openb (chip_smoke.py's
+sweep phase, PERF.md §5) the flat lanes kernel stayed the faster at every
+lane count timed, 1 to 264, though 16 lanes' tables already pass L2.
+Whether lanes move the crossover at 10k-30k nodes is not measured.
+
 A randomized configuration (RandomScore, gpu_sel random) runs "vmem"
 whatever the setting: `replay_blocked` does not draw, as tpusim's table
 engine runs such a configuration unblocked (`bsz = 0 if has_random`).
