@@ -3,6 +3,7 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only clocks    # phases by name, repeatable
     python3 chip_smoke.py --only sweep     # the lanes kernels' phase
+    python3 chip_smoke.py --only evict     # descheduling and faults
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
@@ -130,6 +131,30 @@ result line:
            at 1 and 16 seeds, and `python -m tpusim_torch.sweep --methods
            06-FGD --seeds 16` against the 16 experiments one by one (every
            directory's files equal).
+9. evict   eviction and rescheduling on their paths, the launch counts
+           set to 0 before each run and read after it. The descheduler
+           through `python -m tpusim_torch`'s experiment stages
+           (run_experiment) on openb, 06-FGD (tune 1.3, seeds 42), -r
+           0.1 under -p cosSim, fragOnePod and fragMultiPod, and
+           fragOnePod with --workload-inflation-ratio 1.1
+           (DescheduleInflation): init_tables and replay once for the
+           main replay, once for the victims and once for each inflation
+           run; the final placements, masks, creation ranks, unscheduled
+           pods, simon.log and CSVs held to the JAX digests
+           (DESCHED_SHA256); the deschedule stage timed. Then
+           Simulator.run_with_faults with the README's fault schedule
+           (FAULT_FLAGS) under 06-FGD with residency "auto" and "hbm" and
+           01-Random: one init_tables and one replay (or replay_blocked)
+           launch a segment; results, disruption metrics, log and CSVs
+           held to FAULT_SHA256; segments, launches and the wall printed.
+           Then `apply` with the README's fault command on the example
+           bundle (APPLY_FAULT_SHA256). Last, the kernels on clusters with
+           failed nodes: init_tables, replay and replay_blocked against
+           their plain versions (CPU copies), tolerance 0 with final
+           states, tables and summaries, on the 06-FGD fault run's first
+           segment after a node failure and on a 256-node random cluster
+           with a quarter of its nodes down under 06-FGD, the six-policy
+           profile (flat only: it draws per event) and 05-BestFit.
 
 Run with every phase, it then prints one JSON line describing the
 kernels, the card's line, and as the last line {"ok": true, "device":
@@ -2945,7 +2970,466 @@ def sweep_path(device, card: str):
     return launches, rows
 
 
-PHASES = ("check", "clocks", "main", "apply", "scale", "sweep")
+# The evict phase: descheduling through `python -m tpusim_torch`'s path
+# and the fault host loop, on openb. DESCHED_CASES: (deschedule policy,
+# workload inflation ratio), each an experiment with `-d DIR`,
+# DESCHED_FLAGS and `-p POLICY` (and the ratio when it is above 1).
+# FAULT_FLAGS: the README's schedule (apply's --fault-mtbf 500
+# --fault-mttr 800 --fault-evict-every 1000 --fault-seed 7
+# --fault-max-retries 3), replayed by Simulator.run_with_faults under each
+# FAULT_ROWS method row (tune 1.3, tuning seed 42, seed 42, shuffled,
+# per-event reports on). DESCHED_SHA256 and FAULT_SHA256 are the digests
+# of the JAX package's runs of the same on the CPU (experiments/run.py's
+# run_experiment stages; Simulator.run_with_faults under its default
+# fault_mode, then finish() and experiments/analysis.py analyze_sim with
+# row_meta): result_digests of the final result, the experiment's
+# report_digest and, for a fault run, disruption_digest.
+# APPLY_FAULT_SHA256: sha256 of the standard output, without its [Engine]
+# lines, of `python -m tpusim apply` with APPLY_FAULT_ARGS (the README's
+# fault command). tests/test_torch_deschedule.py and
+# tests/test_torch_faults.py pin them against tpusim (slow-marked).
+DESCHED_FLAGS = ("-FGD", "1000", "-gpusel", "FGDScore", "-tune", "1.3",
+                 "-tuneseed", "42", "--shuffle-pod", "true", "-r", "0.1")
+DESCHED_CASES = (("cosSim", 1.0), ("fragOnePod", 1.0), ("fragMultiPod", 1.0),
+                 ("fragOnePod", 1.1))
+DESCHED_SHA256 = {
+    "cosSim": {
+        "placed":
+            "4dfa90febc8239e3d74af19cdfeafbaabd2767a4a055bbee8babd6dea3384dd1",
+        "dev_mask":
+            "3ae56752136b340114b95872f8c729f7748b447aa8cfdd6ae5c37150a1e7a678",
+        "creation_rank":
+            "ff2322e06ca9a140a718fd73b100345f6ff954ed9bfcbf72cba137fe8aaf67ac",
+        "unscheduled":
+            "a992cb13ddac26665099de049f3f023300d7a70e9c6591e11d62ffd3c64d1553",
+        "report":
+            "bc2934388186b2d00c9057ad4f2261b99fd6fbe2ca68126d88d16cd8e895940d",
+    },
+    "fragOnePod": {
+        "placed":
+            "6eb6f3a11f7cc208fd114cc7465d436758a725fe67d4b1537ecbd8811466ebbd",
+        "dev_mask":
+            "0a60dbbe7dbda7d0877732992b610c394119f331c7edd26c1cd38f2060ec79ae",
+        "creation_rank":
+            "e4302724f7f9356a826914e64af210ae5946da2621a146c3aac37abf420bb277",
+        "unscheduled":
+            "380736e224d13b6dad42a1cca4b388ce41029b3813bfe614828f4d574d74bf8e",
+        "report":
+            "f08251e8dde8279c26c646bb83f29a04145ab4e2af8a2a0803bd9575d36cac7f",
+    },
+    "fragMultiPod": {
+        "placed":
+            "6eb6f3a11f7cc208fd114cc7465d436758a725fe67d4b1537ecbd8811466ebbd",
+        "dev_mask":
+            "0a60dbbe7dbda7d0877732992b610c394119f331c7edd26c1cd38f2060ec79ae",
+        "creation_rank":
+            "e4302724f7f9356a826914e64af210ae5946da2621a146c3aac37abf420bb277",
+        "unscheduled":
+            "380736e224d13b6dad42a1cca4b388ce41029b3813bfe614828f4d574d74bf8e",
+        "report":
+            "25b5a3c1bd47661befe16fd784ba511987af46adc04382a2d79fafe461ec93c8",
+    },
+    "fragOnePod+inflation1.1": {
+        "placed":
+            "6eb6f3a11f7cc208fd114cc7465d436758a725fe67d4b1537ecbd8811466ebbd",
+        "dev_mask":
+            "0a60dbbe7dbda7d0877732992b610c394119f331c7edd26c1cd38f2060ec79ae",
+        "creation_rank":
+            "e4302724f7f9356a826914e64af210ae5946da2621a146c3aac37abf420bb277",
+        "unscheduled":
+            "380736e224d13b6dad42a1cca4b388ce41029b3813bfe614828f4d574d74bf8e",
+        "report":
+            "bbc6d86fdad340be0a370a57144b3cc1fef2de803d3e340df80e69959333671a",
+    },
+}
+FAULT_FLAGS = dict(mtbf_events=500, mttr_events=800, evict_every_events=1000,
+                   seed=7, max_retries=3)
+FAULT_ROWS = ("06-FGD", "01-Random")
+FAULT_SHA256 = {
+    "06-FGD": {
+        "placed":
+            "81b5dca6778e580ce155e83bf9df7ea59dfafe1e21c9a89d6aa1859da361673b",
+        "dev_mask":
+            "9923e24a5eceb0ed987ba1e70a81e3d1d9cb3f089e25ade49f2ff6b99fee2e9f",
+        "creation_rank":
+            "80a4461cfbd2f9e8d7fe661cf790a4fe7349ae54f5d735775b363bfd6ac1aa7f",
+        "unscheduled":
+            "cc773af87c9da70358c3c9ab7f3aa4b7ff08c240134d1dae1eb9926beb098992",
+        "disruption":
+            "07240ca8197716ebd8ac73ee21e960bcc091f006178aa37c88883df733a1741c",
+        "report":
+            "b08c2f3b9421cfb1173bad8485137465d13c6b9150bc920813c049e803369e5a",
+    },
+    "01-Random": {
+        "placed":
+            "b90bc2c39f70a11581a71612406625807d6e070c29c746f4b86564bd68a75b45",
+        "dev_mask":
+            "fcacc4e55a22fc7ccbf86aef41f28dc628cc8973676f84998b86ad7ab314465b",
+        "creation_rank":
+            "f47800ee4a64c3dd05c652979129853f0d5bcb14e6ac9c5b78c70a2a06dbac64",
+        "unscheduled":
+            "b5692bd168dd3522eead77da22e860b6e2a2938d2e2eaeaddec66b15daeda81c",
+        "disruption":
+            "90e8eef5abd04c8863313da1ec466746a68023ec927744e4bf62496e0b40a060",
+        "report":
+            "9aa69e10f4c24e16b39e035f3b85b69ab23ed173f741cfbb52ea5a72b6015468",
+    },
+}
+APPLY_FAULT_ARGS = ("-f", APPLY_DEFAULT_CR, "-s", APPLY_SCHEDULER,
+                    "--fault-mtbf", "500", "--fault-mttr", "800",
+                    "--fault-evict-every", "1000", "--fault-seed", "7",
+                    "--fault-max-retries", "3")
+APPLY_FAULT_SHA256 = (
+    "3a2ade9d0c2b2c248cb967368fc2fd31bd71c5628a198ad341a7a875ffe10675"
+)
+# the failed-node checks' random cluster: its nodes, its pods, and the
+# rows whose configurations it runs (a quarter of its nodes down)
+DOWN_CASE = (256, 600)
+DOWN_ROWS = ("06-FGD", "default-profile", "05-BestFit")
+
+
+def desched_label(policy: str, inflation: float) -> str:
+    return policy if inflation <= 1 else f"{policy}+inflation{inflation}"
+
+
+def desched_argv(exp_dir: str, policy: str, inflation: float) -> list:
+    """The experiment flags of a DESCHED_CASES case (experiments/run.py's
+    and python -m tpusim_torch's)."""
+    argv = ["-d", exp_dir, *DESCHED_FLAGS, "-p", policy]
+    if inflation > 1:
+        argv += ["--workload-inflation-ratio", str(inflation)]
+    return argv
+
+
+def result_digests(result) -> dict:
+    """sha256 of a result's placed_node (int32), dev_mask (uint8),
+    creation_rank (int64) and unscheduled pods (a line each: name and
+    reason)."""
+    unsched = "".join(f"{u.pod.name} {u.reason}\n"
+                      for u in result.unscheduled_pods)
+    return {"placed": digest(result.placed_node, np.int32),
+            "dev_mask": digest(result.dev_mask, np.uint8),
+            "creation_rank": digest(result.creation_rank, np.int64),
+            "unscheduled": hashlib.sha256(unsched.encode()).hexdigest()}
+
+
+def disruption_digest(dm) -> str:
+    """sha256 of a DisruptionMetrics: its summary and both of its lists, as
+    sorted JSON with every float as its repr."""
+    doc = dict(dm.as_dict(), latency=list(dm.reschedule_latency_events),
+               frag_delta=[repr(float(x)) for x in dm.post_recovery_frag_delta])
+    doc = {k: (repr(v) if isinstance(v, float) else v) for k, v in doc.items()}
+    return hashlib.sha256(json.dumps(doc, sort_keys=True).encode()).hexdigest()
+
+
+def experiment_report_digest(sim, exp_dir: str, meta: dict, analyze) -> str:
+    """finish(), then simon.log and the CSVs of `analyze` (an analyze_sim)
+    into exp_dir; returns their report_digest."""
+    sim.finish()
+    with open(os.path.join(exp_dir, "simon.log"), "w") as f:
+        f.write(sim.log.dump())
+    analyze(sim, exp_dir, meta)
+    return report_digest(exp_dir)
+
+
+def evict_counts(label: str, counts: dict, want: int, tier: str) -> None:
+    """The run launched init_tables and its residency's replay kernel
+    `want` times each, and nothing else."""
+    names = RESIDENCY_KERNELS[tier]
+    expect = {name: (want if name in names else 0) for name in counts}
+    if counts != expect:
+        raise SmokeFailure(f"{label}: launches {counts}, want {expect}")
+
+
+def evict_deschedule(device, card: str) -> dict:
+    """The descheduler through run_experiment's stages (the experiment's
+    Simulator, run(), then _post_run: inflation, deschedule_cluster,
+    PostDeschedule, DescheduleInflation, the log and the CSVs) for each
+    DESCHED_CASES case, the launch counts set to 0 before each run and
+    read after it: init_tables and replay once for the main replay, once
+    for the victims and once for each inflation run. The final result and
+    the files are held to DESCHED_SHA256; the deschedule stage is timed.
+    Returns {label: counts}."""
+    import tempfile
+
+    import torch
+
+    from tpusim_torch import experiment
+    from tpusim_torch.io.trace import pods_to_specs
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.deschedule import eviction_scores
+
+    launches = {}
+    for policy, inflation in DESCHED_CASES:
+        name = desched_label(policy, inflation)
+        label = f"deschedule {name}"
+        stage = {}
+        with tempfile.TemporaryDirectory() as d:
+            args = experiment.get_args(desched_argv(d, policy, inflation))
+            fe.reset_launch_counts()
+            t0 = time.perf_counter()
+            sim, outdir, pod_csv, policies = experiment._build_sim(args)
+            sim.run()
+            stage_of = sim.deschedule_cluster
+
+            def deschedule_timed():
+                before = len(sim.replay_times)
+                t = time.perf_counter()
+                failed = stage_of()
+                torch.cuda.synchronize()
+                stage["ms"] = (time.perf_counter() - t) * 1e3
+                # the victims' replay, if there were victims
+                stage["victims"] = (sim.replay_times[-1]
+                                    if len(sim.replay_times) > before
+                                    else dict(events=0, replay_ms=0.0,
+                                              report_ms=0.0))
+                return failed
+
+            sim.deschedule_cluster = deschedule_timed
+            experiment._post_run(sim, args, outdir, pod_csv, policies, t0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = run_counts()
+            got = dict(result_digests(sim.last_result),
+                       report=report_digest(d))
+        vict = stage["victims"]
+        evict_counts(label, counts, 1 + (vict["events"] > 0)
+                     + 2 * (inflation > 1), "vmem")
+        launches[label] = counts
+        if got != DESCHED_SHA256[name]:
+            raise SmokeFailure(f"{label}: differs from the JAX reference: "
+                               f"{got}")
+        res = sim.last_result
+        specs = pods_to_specs(res.pods, None, device)
+        state = sim._placed_state()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eviction_scores(state, specs, res.placed_node, res.dev_mask,
+                        sim.typical)
+        end.record()
+        torch.cuda.synchronize()
+        print(f"evict {label}: {vict['events']} victims, launches {counts}; "
+              f"deschedule_cluster {stage['ms']:.1f} ms, of which the "
+              f"victims' replay {vict['replay_ms']:.2f} ms and its report "
+              f"tail {vict['report_ms']:.2f} ms (host clock), "
+              f"eviction_scores {start.elapsed_time(end):.3f} ms (card, "
+              f"CUDA events, on the final state of {len(res.pods)} pods); "
+              f"experiment {wall:.2f} s (host clock); placements, masks, "
+              f"ranks, unscheduled pods, log and CSVs match the JAX "
+              f"reference on {card}")
+    return launches
+
+
+def evict_faults(device, card: str):
+    """Simulator.run_with_faults with FAULT_FLAGS for each FAULT_ROWS row,
+    06-FGD under table_residency "auto" and "hbm", the launch counts set
+    to 0 before each run and read after it (init_tables and the residency's
+    replay kernel once a segment); results, disruption metrics, log and
+    CSVs held to FAULT_SHA256. Returns ({label: counts}, the first segment
+    of the 06-FGD run that starts with a node down: (state, ev_kind,
+    ev_pod), its Simulator)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.analysis import analyze_sim
+    from tpusim_torch.io.trace import load_node_csv, load_pod_csv
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.driver import Simulator
+    from tpusim_torch.sim.faults import FaultConfig
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "data", "csv")
+    nodes = load_node_csv(os.path.join(data, "openb_node_list_gpu_node.csv"))
+    pods = load_pod_csv(os.path.join(data, "openb_pod_list_default.csv"))
+    rows = dict((r[0], r) for r in METHODS)
+    launches, captured = {}, {}
+    for mid, setting in (("06-FGD", "auto"), ("06-FGD", "hbm"),
+                         ("01-Random", "auto")):
+        label = f"faults {mid}" + ("/hbm" if setting == "hbm" else "")
+        policies, gpu_sel, dim_ext, norm = rows[mid][1:5]
+        tier = "hbm" if setting == "hbm" and mid not in RANDOMIZED_ROWS \
+            else "vmem"
+        cfg = dataclasses.replace(
+            method_config(policies, gpu_sel, dim_ext, norm),
+            table_residency=setting)
+        sim = Simulator(nodes, cfg, device=device)
+        sim.set_workload_pods(pods)
+        if label == "faults 06-FGD":
+            run_events = sim.run_events
+            captured["sim"] = sim
+
+            def capture(state, specs, ev_kind, ev_pod, **kw):
+                if "state" not in captured and \
+                        bool((state.mem_left < 0).any()):
+                    captured.update(state=state, ev_kind=ev_kind,
+                                    ev_pod=ev_pod, specs=specs)
+                return run_events(state, specs, ev_kind, ev_pod, **kw)
+
+            sim.run_events = capture
+        fe.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sim.run_with_faults(FaultConfig(**FAULT_FLAGS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = run_counts()
+        segments = len(sim.replay_times)
+        evict_counts(label, counts, segments, tier)
+        launches[label] = counts
+        with tempfile.TemporaryDirectory() as d:
+            got = dict(result_digests(res),
+                       disruption=disruption_digest(sim.last_disruption),
+                       report=experiment_report_digest(
+                           sim, d, row_meta(policies, gpu_sel, dim_ext),
+                           analyze_sim))
+        if got != FAULT_SHA256[mid]:
+            raise SmokeFailure(f"{label}: differs from the JAX reference: "
+                               f"{got}")
+        replay_ms = sum(t["replay_ms"] for t in sim.replay_times)
+        report_ms = sum(t["report_ms"] for t in sim.replay_times)
+        dm = sim.last_disruption
+        print(f"evict {label}: {segments} segments over {res.events} events "
+              f"({sim.last_engine}, {sim.last_residency}), launches "
+              f"{counts}; node failures {dm.node_failures}, recoveries "
+              f"{dm.node_recoveries}, evicted {dm.evicted_pods}, "
+              f"rescheduled {dm.rescheduled_pods}, unscheduled after "
+              f"retries {dm.unscheduled_after_retries}; run_with_faults "
+              f"{wall:.2f} s, of which the segments' replays "
+              f"{replay_ms:.1f} ms and their report tails {report_ms:.1f} "
+              f"ms (host clock); placements, masks, ranks, unscheduled "
+              f"pods, disruption metrics, log and CSVs match the JAX "
+              f"reference on {card}")
+    if "state" not in captured:
+        raise SmokeFailure("the 06-FGD fault run had no segment after a "
+                           "node failure")
+    return launches, captured
+
+
+def evict_apply(device, card: str) -> dict:
+    """`python -m tpusim_torch.cli apply` with APPLY_FAULT_ARGS through the
+    CLI's option parsing, the launch counts set to 0 before and read after
+    (init_tables and replay once a segment); the standard output held to
+    APPLY_FAULT_SHA256. Returns the counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpusim_torch.apply import Applier
+    from tpusim_torch.cli import apply_options, build_parser
+    from tpusim_torch.sim import fused_engine as fe
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = ["apply", *APPLY_FAULT_ARGS, "--base-dir", root]
+    argv[2] = os.path.join(root, argv[2])
+    argv[4] = os.path.join(root, argv[4])
+    applier = Applier(apply_options(build_parser().parse_args(argv)))
+    buf = io.StringIO()
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        applier.run(out=buf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = run_counts()
+    segments = len(applier.sim.replay_times)
+    evict_counts("apply with faults", counts, segments, "vmem")
+    got = apply_digests(buf.getvalue(), root)["stdout"]
+    if got != APPLY_FAULT_SHA256:
+        raise SmokeFailure(f"apply with faults: stdout sha256 {got}")
+    print(f"evict apply {' '.join(APPLY_FAULT_ARGS)}: launches {counts} "
+          f"over {segments} segments, stdout "
+          f"({buf.getvalue().count(chr(10))} lines) matches the JAX "
+          f"reference; {wall * 1e3:.1f} ms (host clock) on {card}")
+    return counts
+
+
+def down_checks(label: str, args, cfg, blocked: bool) -> dict:
+    """init_tables, replay and (unless `blocked` is False) replay_blocked
+    against their plain versions on args = (state, pods, types, ev_kind,
+    ev_pod, typical pods, rank), tolerance 0 with final states, tables and
+    summaries. Returns each kernel's error."""
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+
+    state, pods, types, evk, evp, tp, rank = args
+    errs = {"init_tables": 0}
+    cases = [("replay", state, rank)]
+    if blocked:
+        cases.append(("replay_blocked", *pad_nodes(state, rank, 128)))
+    for name, st, rk in cases:
+        prep = fe.prepare_init_tables(st, types, tp, cfg)
+        fe.launch(prep)  # a comparison: past the wrapper, not counted
+        tables = prep.finish()
+        errs["init_tables"] = max(errs["init_tables"], max_abs_err(
+            tables, fe.plain_init_tables(st, types, tp, cfg)))
+        errs[name] = against_plain(
+            name, (st, pods, types, evk, evp, tp, rk, tables), cfg,
+            plain_on_cpu=True)
+    down = int((state.mem_left < 0).sum())
+    print(f"evict check {label}: {down} of {state.num_nodes} nodes down, "
+          f"events={evk.shape[0]}: max_abs_err "
+          + " ".join(f"{k}={v}" for k, v in errs.items())
+          + " with final states, tables and summaries (tolerance 0)")
+    if any(errs.values()):
+        raise SmokeFailure(f"a kernel disagrees with its plain version on "
+                           f"the failed-node case {label}")
+    return errs
+
+
+def evict_kernel_checks(device, captured) -> dict:
+    """Each kernel against its plain version on clusters with nodes down:
+    the 06-FGD fault run's first segment after a node failure, from its
+    start state, and a DOWN_CASE random cluster with a quarter of its
+    nodes failed under each DOWN_ROWS configuration (replay_blocked for
+    those that do not draw per event). Returns each kernel's largest
+    error."""
+    import torch
+
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.faults import fail_node
+    from tpusim_torch.sim.table_engine import build_pod_types
+
+    rows = dict((r[0], r) for r in METHODS)
+    worst = dict.fromkeys(("init_tables", "replay", "replay_blocked"), 0)
+    sim = captured["sim"]
+    specs = captured["specs"]
+    args = (captured["state"], specs, build_pod_types(specs),
+            torch.as_tensor(captured["ev_kind"], device=device),
+            torch.as_tensor(captured["ev_pod"], device=device), sim.typical,
+            sim.rank)
+    cfgs = [("06-FGD fault segment", sim._replay.config, args, True)]
+    n, p = DOWN_CASE
+    state, pods, types, evk, evp, tp, rank = random_case(77, n, p, device)
+    down = np.random.default_rng(77).choice(n, n // 4, replace=False)
+    for node in down.tolist():
+        state = fail_node(state, node)
+    for mid in DOWN_ROWS:
+        cfg = fe.make_config(*rows[mid][1:5])
+        cfgs.append((f"{mid} random {n} nodes", cfg,
+                     (state, pods, types, evk, evp, tp, rank),
+                     mid not in RANDOMIZED_ROWS))
+    for label, cfg, case, blocked in cfgs:
+        for name, err in down_checks(label, case, cfg, blocked).items():
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+def evict_path(device, card: str):
+    """Phase 9: the descheduler and the fault host loop on their paths,
+    then the kernels on failed-node states (module docstring). Returns
+    ({run label: launch counts}, {kernel: largest error})."""
+    launches = evict_deschedule(device, card)
+    counts, captured = evict_faults(device, card)
+    launches.update(counts)
+    launches["apply with faults"] = evict_apply(device, card)
+    return launches, evict_kernel_checks(device, captured)
+
+
+PHASES = ("check", "clocks", "main", "apply", "scale", "sweep", "evict")
 
 
 def scale_inputs(device):
@@ -3265,6 +3749,12 @@ def main(argv=None) -> int:
             for name in LANE_KERNELS:
                 errors[name] = lane_rows[name]["max_abs_err"]
             print(f"phase sweep done at {time.perf_counter() - t0:.1f} s")
+        if "evict" in phases:
+            counts, evict_err = evict_path(device, card)
+            launches.update(counts)
+            for name, err in evict_err.items():
+                errors[name] = max(errors[name], err)
+            print(f"phase evict done at {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

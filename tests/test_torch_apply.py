@@ -676,15 +676,13 @@ def test_refused_options_raise(flag):
 
 
 @pytest.mark.parametrize("case", ["engine", "sequential", "mesh",
-                                  "deschedule", "extenders", "kubeconfig"])
+                                  "extenders", "kubeconfig"])
 def test_refused_configs_raise(tmp_path, case):
     """The CR and scheduler-config settings the port cannot run raise
     NotImplementedError naming the ROADMAP item, through the CLI."""
     custom = {"engine": {"engine": "table"},
               "sequential": {"engine": "sequential"},
               "mesh": {"mesh": 2},
-              "deschedule": {"descheduleConfig": {"ratio": 0.2,
-                                                  "policy": "cosSim"}},
               }.get(case, {})
     cluster = {"customConfig": os.path.join(REPO, "example/test-cluster")}
     if case == "kubeconfig":

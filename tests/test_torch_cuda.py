@@ -13,10 +13,10 @@ import pytest
 import torch
 
 from chip_smoke import (
-    DIM_EXT, INIT_NODES, INIT_ROWS, METHODS, MIXES, NORM, PAST_LIMIT,
-    PAST_LIMIT_ROWS, RANDOMIZED_ROWS, SHAPE_CASES, SHAPE_ROWS, WIDE_BLOCKED,
-    against_plain, init_case, init_config, past_limit_errors, random_case,
-    shape_errors, typed_case,
+    DIM_EXT, DOWN_CASE, DOWN_ROWS, INIT_NODES, INIT_ROWS, METHODS, MIXES,
+    NORM, PAST_LIMIT, PAST_LIMIT_ROWS, RANDOMIZED_ROWS, SHAPE_CASES,
+    SHAPE_ROWS, WIDE_BLOCKED, against_plain, down_checks, init_case,
+    init_config, past_limit_errors, random_case, shape_errors, typed_case,
 )
 from tpusim_torch.io.trace import (
     build_events, load_node_csv, load_pod_csv, pods_to_specs,
@@ -25,6 +25,7 @@ from tpusim_torch.parallel.sharding import pad_nodes
 from tpusim_torch.sim import fused_engine as fe
 from tpusim_torch.sim import hbm_engine as he
 from tpusim_torch.sim.driver import Simulator, SimulatorConfig
+from tpusim_torch.sim.faults import FaultConfig, fail_node
 from tpusim_torch.sim.fetch import device_fetch
 from tpusim_torch.sim.metrics import compute_event_metrics
 
@@ -456,3 +457,111 @@ def test_lanes_refuse_mixed_instantiations(cuda_device):
         lane_args([("RandomScore", 1000)], "random",
                   (padded,) + case[1:6] + (rank_p,),
                   he.prepare_replay_blocked_lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", DOWN_ROWS)
+def test_kernels_match_plain_on_failed_nodes(cuda_device, row):
+    """init_tables, replay and (for the rows that do not draw per event)
+    replay_blocked against their plain versions on a random cluster with a
+    quarter of its nodes down (mem_left -1, rows reset to idle capacity):
+    outputs, stats, final states, tables and summaries, tolerance 0."""
+    n, p = DOWN_CASE
+    state, pods, types, evk, evp, tp, rank = random_case(78, n, p,
+                                                         cuda_device)
+    for node in np.random.default_rng(78).choice(n, n // 4,
+                                                 replace=False).tolist():
+        state = fail_node(state, node)
+    cfg = fe.make_config(*dict((r[0], r) for r in METHODS)[row][1:5])
+    errs = down_checks(row, (state, pods, types, evk, evp, tp, rank), cfg,
+                       row not in RANDOMIZED_ROWS)
+    assert not any(errs.values())
+
+
+def _openb_cut(num_pods=400):
+    nodes = load_node_csv(os.path.join(
+        REPO, "data/csv/openb_node_list_gpu_node.csv"))
+    pods = load_pod_csv(os.path.join(
+        REPO, "data/csv/openb_pod_list_default.csv"))[:num_pods]
+    return nodes, pods
+
+
+def _same_result(a, b):
+    assert np.array_equal(a.placed_node, b.placed_node)
+    assert np.array_equal(a.dev_mask, b.dev_mask)
+    assert np.array_equal(a.creation_rank, b.creation_rank)
+    assert [(u.pod.name, u.reason) for u in a.unscheduled_pods] == \
+        [(u.pod.name, u.reason) for u in b.unscheduled_pods]
+    for x, y in zip(a.state, b.state):
+        assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["cosSim", "fragOnePod", "fragMultiPod"])
+def test_deschedule_on_card_matches_cpu(cuda_device, policy):
+    """run() then deschedule_cluster() on a 400-pod openb prefix on the
+    card against device="cpu": the log without [Engine], placements,
+    masks, ranks, unscheduled pods and state; the victims' replay is one
+    more launch of init_tables and replay."""
+    nodes, pods = _openb_cut()
+    cfg = SimulatorConfig(deschedule_ratio=0.3, deschedule_policy=policy)
+    runs = []
+    for device in ("cuda", "cpu"):
+        sim = Simulator(nodes, cfg, device=device)
+        sim.set_workload_pods(pods)
+        fe.reset_launch_counts()
+        sim.run()
+        sim.deschedule_cluster()
+        sim.cluster_analysis("PostDeschedule")
+        if device == "cuda":
+            assert fe.replay.launches == fe.init_tables.launches == len(
+                sim.replay_times)
+        runs.append((sim.last_result, [line for line in sim.log.lines
+                                       if "[Engine]" not in line]))
+    (gpu, gpu_log), (cpu, cpu_log) = runs
+    assert gpu_log == cpu_log
+    _same_result(gpu, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residency", ["auto", "hbm"])
+def test_run_with_faults_on_card_matches_cpu(cuda_device, residency):
+    """run_with_faults on a 400-pod openb prefix under a dense schedule
+    on the card against device="cpu": the log without [Engine], the
+    result, the disruption metrics; one init_tables and one replay (or
+    replay_blocked) launch a segment."""
+    nodes, pods = _openb_cut()
+    fcfg = FaultConfig(mtbf_events=30, mttr_events=50, evict_every_events=20,
+                       seed=7)
+    runs = []
+    for device in ("cuda", "cpu"):
+        sim = Simulator(nodes, SimulatorConfig(table_residency=residency),
+                        device=device)
+        sim.set_workload_pods(pods)
+        fe.reset_launch_counts()
+        sim.run_with_faults(fcfg)
+        if device == "cuda":
+            kernel = he.replay_blocked if residency == "hbm" else fe.replay
+            assert kernel.launches == fe.init_tables.launches == len(
+                sim.replay_times) > 1
+        runs.append((sim, [line for line in sim.log.lines
+                           if "[Engine]" not in line]))
+    (gpu, gpu_log), (cpu, cpu_log) = runs
+    assert gpu_log == cpu_log
+    _same_result(gpu.last_result, cpu.last_result)
+    assert gpu.last_disruption == cpu.last_disruption
+    assert gpu.last_disruption.node_failures > 0
+
+
+@pytest.mark.cuda
+def test_device_fetch_of_one_element_columns(cuda_device):
+    """device_fetch of column views holding one element (a one-event
+    replay's metrics rows: stride 2, which .contiguous() keeps) and of
+    empty ones moves the values, as for any other length."""
+    for rows in (0, 1, 3):
+        pw = torch.arange(2 * rows, dtype=torch.float32,
+                          device=cuda_device).reshape(rows, 2)
+        mask = torch.ones(rows, 8, dtype=torch.bool, device=cuda_device)
+        got = device_fetch((pw[:, 0], pw[:, 1], mask[:, 2]))
+        for a, b in zip(got, (pw[:, 0], pw[:, 1], mask[:, 2])):
+            assert a.device.type == "cpu" and torch.equal(a, b.cpu())

@@ -6,8 +6,13 @@ experiment's log and analysis CSVs.
         [-gpusel SEL] [-dimext M] [-norm M]
         [-tune R] [-tuneseed S] [--shuffle-pod true|false]
         [--workload-inflation-ratio R] [-seed S]
+        [-r RATIO -p cosSim|fragOnePod|fragMultiPod] [-y PREFIX] [-z PREFIX]
+        [--is-involved-cpu-pods B] [--pod-popularity-threshold N]
+        [--pod-increase-step N] [--gpu-res-weight W]
         [-f POD_TRACE] [--node-trace NODE_CSV] [--use-timestamps]
-        [--no-per-event-report] [-d EXPERIMENT_DIR] [--device cpu]
+        [--no-per-event-report] [--emit-configs] [--analysis-from-log]
+        [--engine auto|pallas] [--mesh 0]
+        [-d EXPERIMENT_DIR] [--device cpu]
     python -m tpusim_torch apply ...   (python -m tpusim_torch.cli apply)
 
 The method flags are those of experiments/run.py: one integer weight per
@@ -18,9 +23,13 @@ are, for example, `-BestFit 1000`, `-PWR 500 -FGD 500 -gpusel FGDScore` or
 `-Random 1000 -gpusel random -dimext merge` (01-Random).
 Pods are shuffled and tuned to 1.3 x the cluster's GPU capacity with seed
 42 unless the flags say otherwise; the node tie-break uses the tuning seed;
-the typical pods are experiments/run.py's (popularity 95, step 1). A
---workload-inflation-ratio above 1 adds run.py's inflation stage after the
-main replay (ScheduleInflation, seeded by -seed).
+the typical pods are experiments/run.py's (popularity 95, step 1, unless
+its typical-pod flags say otherwise). After the main replay come run.py's
+later stages in its order: a --workload-inflation-ratio above 1 adds the
+inflation stage (ScheduleInflation, seeded by -seed); -r above 0 with a -p
+policy the descheduler (PostEviction and PostDeschedule, and
+DescheduleInflation with inflation); -y/-z the pod YAML and node CSV
+snapshots at <prefix>.yaml / <prefix>.csv.
 The trace flags take a CSV path or a name under data/csv (as
 experiments/run.py's do; --pods and --nodes are their other names). Each
 event prints its report block unless --no-per-event-report is given.
@@ -41,6 +50,8 @@ from tpusim_torch.experiment import (
     POLICY_FLAGS,
     _simulator,
     add_experiment_flags,
+    check_engine_flags,
+    post_schedule_stages,
     run_experiment,
 )
 from tpusim_torch.sim.driver import SimulatorConfig
@@ -98,10 +109,10 @@ def main(argv=None) -> int:
     if args.experiment_dir is not None:
         run_experiment(args)  # experiments/run.py's: the log and the CSVs
         return 0
+    check_engine_flags(args)
     sim = _simulator(args)[0]
     sim.run()
-    if args.workload_inflation_ratio > 1:
-        sim.run_workload_inflation_evaluation("ScheduleInflation")
+    post_schedule_stages(sim, args)
     sys.stdout.write(sim.log.dump())
     return 0
 

@@ -19,7 +19,10 @@ The family the paper's figures are drawn from:
 
 Every float cell is float() of the very string the log line carries
 (reports.event_report_series, cluster_analysis_block), so the CSVs are the
-ones the reference's log parser would write from simon.log.
+ones the reference's log parser would write from simon.log. That parser is
+here too (`parse_log`, `analyze_dir`: the log-reading lane of
+experiments/analysis.py, `--analysis-from-log`); both lanes write the same
+bytes.
 """
 
 from __future__ import annotations
@@ -32,7 +35,21 @@ from typing import Dict, List
 import numpy as np
 
 from tpusim_torch.sim.engine import EV_CREATE, EV_DELETE
-from tpusim_torch.sim.reports import pod_resource_repr
+from tpusim_torch.sim.reports import camel_to_snake, pod_resource_repr
+
+# the Cluster Analysis block's allocation keys and frag-class keys
+ALLO_KEYS = ["MilliCpu", "Memory", "Gpu", "MilliGpu"]
+QUAD_KEYS = [
+    "q1_lack_both",
+    "q2_lack_gpu",
+    "q3_satisfied",
+    "q4_lack_cpu",
+    "xl_satisfied",
+    "xr_lack_cpu",
+    "no_access",
+    "frag_gpu_milli",
+]
+INFOMSG = "level=info msg="
 
 # the PodResource.Repr fields the fail table groups by
 FAIL_SPEC_RE = re.compile(
@@ -106,6 +123,156 @@ def _write_experiment_csvs(exp: Path, rows: List[dict], result: dict):
         _write_series_csv(fail_csv, result["fail"])
     elif fail_csv.exists():
         fail_csv.unlink()
+
+
+def parse_log(path: str, meta: Dict[str, str] = None) -> Dict[str, dict]:
+    """One log file -> {"summary", "frag", "allo", "cdol", "pwr", "fail"}:
+    the reference's log parser (experiments/analysis.py `parse_log`). It
+    stops at the `there are N unscheduled pods` line."""
+    summary: Dict[str, object] = dict(meta or {})
+    summary["unscheduled"] = 0
+    frag: Dict[str, List[float]] = {}
+    allo: Dict[str, List[int]] = {}
+    pwr: Dict[str, List[float]] = {}
+    cdol = {"id": [], "event": [], "pod_name": [], "cum_pod": []}
+    fail_specs: Dict[tuple, int] = {}  # (cpu, ngpu, milli, type) -> count
+    in_fail_block = False
+    cum = 0
+    live = set()  # the pods created and not deleted so far
+    tag = ""
+    analysis_countdown = 0
+
+    with open(path) as f:
+        for raw in f:
+            if INFOMSG not in raw:
+                continue
+            line = raw.split(INFOMSG, 1)[1].strip()
+            if line.startswith('"'):
+                line = line[1:]
+            line = line.rstrip('"').rstrip()
+            if line.endswith("\\n"):
+                line = line[:-2]
+
+            if "Number of original workload pods" in line:
+                summary["origin_pods"] = int(line.split(":")[1].strip())
+            if "there are" in line and "unscheduled pods" in line:
+                summary["unscheduled"] = int(
+                    line.split("unscheduled pods")[0].split("there are")[1]
+                    .strip())
+                break
+
+            # the "Failed Pods in detail:" block (utils.go:1344-1354): its
+            # Repr lines grouped by request, as merge_fail_pods.py groups
+            if line.startswith("Failed Pods in detail"):
+                in_fail_block = True
+                continue
+            if in_fail_block:
+                key = fail_spec_key(line)
+                if key is not None:
+                    fail_specs[key] = fail_specs.get(key, 0) + 1
+                    continue
+                in_fail_block = False
+
+            if "Cluster Analysis" in line and "(" in line:
+                tag = line.split(")")[0].split("(")[1]
+                analysis_countdown = 16
+                continue
+            if analysis_countdown > 0:
+                analysis_countdown -= 1
+                item = line.strip().split(":")
+                if len(item) > 1:
+                    key, value = item[0].strip(), item[1].strip()
+                    if key in ALLO_KEYS:
+                        summary[camel_to_snake(key + tag)] = float(
+                            value.split("%")[0])
+                        summary[camel_to_snake(key + "Amount" + tag)] = float(
+                            value.split("(")[1].split("/")[0])
+                        summary[camel_to_snake(key + "Total")] = float(
+                            value.split(")")[0].split("/")[1])
+                    elif key in QUAD_KEYS:
+                        summary[camel_to_snake(key + tag)] = float(
+                            value.split("(")[1].split("%")[0].strip())
+                continue
+
+            if line.startswith("[Report]"):
+                parts = line.split(";")
+                if len(parts) == 5:  # the origin line
+                    remark = parts[4].split("(")[1].split(")")[0].strip()
+                    frag.setdefault(f"{remark}_milli", []).append(
+                        float(parts[1].split(":")[1]))
+                    frag.setdefault(f"{remark}_ratio", []).append(
+                        float(parts[2].split(":")[1].strip().rstrip("%")))
+                    frag.setdefault(f"{remark}_q124", []).append(
+                        float(parts[3].split(":")[1].strip().rstrip("%")))
+                elif len(parts) == 4:  # the bellman line
+                    remark = parts[3].split("(")[1].split(")")[0].strip()
+                    frag.setdefault(f"{remark}_milli", []).append(
+                        float(parts[1].split(":")[1]))
+                    frag.setdefault(f"{remark}_ratio", []).append(
+                        float(parts[2].split(":")[1].strip().rstrip("%")))
+            elif line.startswith("[Alloc]"):
+                parts = line.split(";")
+                keys = ["used_nodes", "used_gpus", "used_gpu_milli",
+                        "total_gpus", "arrived_gpu_milli"]
+                for key, part in zip(keys, parts[1:]):
+                    allo.setdefault(key, []).append(
+                        int(part.split(":")[1].strip()))
+            elif line.startswith("[AllocCPU]"):
+                parts = line.split(";")
+                for key, part in zip(["used_cpu_milli", "arrived_cpu_milli"],
+                                     parts[1:]):
+                    allo.setdefault(key, []).append(
+                        int(part.split(":")[1].strip()))
+            elif line.startswith("[Power]"):
+                parts = line.split(";")
+                for key, part in zip(["power_cluster", "power_cluster_CPU",
+                                      "power_cluster_GPU"], parts[1:]):
+                    pwr.setdefault(key, []).append(
+                        float(part.split(":")[1].strip()))
+            elif line.startswith("[deletePod]") and "non-scheduled" in line:
+                if cdol["event"]:  # the create before it failed: roll back
+                    cdol["event"][-1] = "failed"
+                    cdol["cum_pod"][-1] = cum = cum - 1
+                    live.discard(cdol["pod_name"][-1])
+            elif ("attempt to" in line and " pod(" in line
+                  and line.startswith("[")):
+                event_id = int(line.split("]")[0][1:])
+                verb = line.split("attempt to ")[1].split()[0]
+                pod_name = line.split("pod(")[1].split(")")[0]
+                if verb == "create":
+                    cum += 1
+                    live.add(pod_name)
+                elif pod_name in live:
+                    cum -= 1
+                    live.discard(pod_name)
+                else:
+                    # the delete of a pod whose create failed: no change
+                    # to the count, named apart to keep the events aligned
+                    verb = "skipped"
+                cdol["id"].append(event_id)
+                cdol["event"].append(verb)
+                cdol["pod_name"].append(pod_name)
+                cdol["cum_pod"].append(cum)
+
+    return {"summary": summary, "frag": frag, "allo": allo, "cdol": cdol,
+            "pwr": pwr, "fail": fail_table(fail_specs)}
+
+
+def analyze_dir(exp_dir: str, meta: Dict[str, str] = None) -> dict:
+    """Parse every *.log under exp_dir and write the CSV family beside them
+    (one experiment a directory: the series are the last log's). Returns
+    the last log's result."""
+    exp = Path(exp_dir)
+    logs = sorted(exp.glob("*.log"))
+    if not logs:
+        raise FileNotFoundError(f"no *.log under {exp_dir}")
+    rows = []
+    result = None
+    for log in logs:
+        result = parse_log(str(log), meta)
+        rows.append(result["summary"])
+    _write_experiment_csvs(exp, rows, result)
+    return result
 
 
 def build_result_from_sim(sim, meta: Dict[str, str] = None) -> dict:

@@ -3,8 +3,10 @@ ref: pkg/apply/apply.go Run() and pkg/simulator/core.go Simulate()).
 
   load the CR and the scheduler config → load the cluster's YAML directory
   (or an offline kubeConfig dump) → daemonset pods → typical pods →
-  sort/tune the workload → replay → ClusterAnalysis(InitSchedule) →
-  snapshot export → inflation evaluation → new-workload swap → per-app
+  sort/tune the workload → replay (under the --fault-* schedule, if any) →
+  ClusterAnalysis(InitSchedule) → snapshot export → inflation evaluation →
+  new-workload swap → deschedule and reschedule (PostEviction,
+  PostDeschedule, their snapshots, DescheduleInflation) → per-app
   scheduling (YAML apps and Helm charts) → the verdict → the report tables;
   or, with --sweep-weights, one sweep over a weight grid in place of the
   replay and the stages after it.
@@ -41,28 +43,28 @@ from tpusim_torch.io.k8s_yaml import (
 )
 from tpusim_torch.io.storage import cluster_vg_totals, parse_node_storage
 from tpusim_torch.sim.driver import (
+    PORT_ENGINES,
     SimulateResult,
     Simulator,
     SimulatorConfig,
     format_sweep_table,
 )
+from tpusim_torch.sim.faults import FaultConfig
 from tpusim_torch.sim.report_tables import full_report
 
 COLOR_RED = "\033[31m"
 COLOR_GREEN = "\033[32m"
 COLOR_RESET = "\033[0m"
 
-# engines of the CR the port runs: both mean its CUDA kernels
-PORT_ENGINES = ("auto", "pallas")
-
 
 @dataclass
 class ApplyOptions:
     """The CLI surface (ref: cmd/apply/apply.go:26-40), with tpusim's
     options. `sweep_weights` (a weight-grid JSON, load_weights_payload)
-    replaces the main schedule with a config sweep. The others after
-    `table_residency` are the planes the port does not have yet: any value
-    but the default raises (REFUSED_OPTIONS)."""
+    replaces the main schedule with a config sweep; the `fault_*` options
+    replay it under a seeded fault schedule (Simulator.run_with_faults).
+    The others after `table_residency` are the planes the port does not
+    have yet: any value but the default raises (REFUSED_OPTIONS)."""
 
     simon_config: str = ""
     default_scheduler_config: str = ""
@@ -102,11 +104,6 @@ REFUSED_OPTIONS = {
     "checkpoint_every": ("--checkpoint-every", "8 (chunked replay, checkpoints)"),
     "checkpoint_dir": ("--checkpoint-dir", "8 (chunked replay, checkpoints)"),
     "checkpoint_keep": ("--checkpoint-keep", "8 (chunked replay, checkpoints)"),
-    "fault_mtbf": ("--fault-mtbf", "9 (faults)"),
-    "fault_mttr": ("--fault-mttr", "9 (faults)"),
-    "fault_evict_every": ("--fault-evict-every", "9 (faults)"),
-    "fault_seed": ("--fault-seed", "9 (faults)"),
-    "fault_max_retries": ("--fault-max-retries", "9 (faults)"),
     "profile_out": ("--profile", "10 (in-scan records and obs spans)"),
     "metrics_out": ("--metrics-out", "10 (in-scan records and obs spans)"),
     "trace_out": ("--trace-out", "10 (in-scan records and obs spans)"),
@@ -115,7 +112,7 @@ REFUSED_OPTIONS = {
     "decisions_out": ("--decisions-out", "10 (in-scan records)"),
     "series_every": ("--series-every", "10 (in-scan records)"),
     "listen": ("--listen", "14 (service plane)"),
-    "sweep_faults": ("--sweep-faults", "9 (faults)"),
+    "sweep_faults": ("--sweep-faults", "9 (the in-scan fault lane)"),
     "compile_cache_dir": ("--compile-cache-dir", "8 (table cache)"),
     "policy": ("--policy", "12 (learned policy)"),
 }
@@ -153,9 +150,6 @@ class Applier:
                     else "6 (the table engine)")
         if cc.mesh > 1:
             _refuse(f"customConfig.mesh {cc.mesh}", "13 (mesh engine)")
-        if cc.deschedule.ratio > 0:
-            _refuse("descheduleConfig with a ratio above 0",
-                    "11 (the descheduler)")
         if self.sched_cfg.extenders:
             _refuse("a scheduler config with extenders",
                     "11 (the HTTP extender host loop)")
@@ -173,8 +167,24 @@ class Applier:
             inflation_ratio=cc.inflation.ratio,
             inflation_seed=cc.inflation.seed,
             typical_pods=cc.typical_pods,
+            deschedule_ratio=cc.deschedule.ratio,
+            deschedule_policy=cc.deschedule.policy,
             use_timestamps=cc.use_timestamps,
             table_residency=self.options.table_residency,
+        )
+
+    def _fault_config(self):
+        """The FaultConfig of the --fault-* flags, or None when no failure
+        or eviction rate is set."""
+        o = self.options
+        if o.fault_mtbf <= 0 and o.fault_evict_every <= 0:
+            return None
+        return FaultConfig(
+            mtbf_events=o.fault_mtbf,
+            mttr_events=o.fault_mttr,
+            evict_every_events=o.fault_evict_every,
+            seed=o.fault_seed,
+            max_retries=o.fault_max_retries,
         )
 
     def _load_cluster(self):
@@ -228,8 +238,8 @@ class Applier:
         """The whole experiment, its log streamed to `out` (standard output
         by default). `timings` then holds the host milliseconds of each
         stage (ingest: the cluster's YAML; main: the Simulator and its
-        run(); export; inflation; swap; apps_ingest: the apps' YAML and
-        charts; apps; tables) and of the whole run (wall); the Simulator's
+        run() or run_with_faults(); export; inflation; swap; deschedule;
+        apps_ingest: the apps' YAML and charts; apps; tables) and of the whole run (wall); the Simulator's
         `replay_times` split each replay."""
         out = sys.stdout if out is None else out
         self.timings = {}
@@ -249,11 +259,20 @@ class Applier:
             # (core.go:103-123)
             sim.set_workload_pods(cluster.workload_pods()
                                   + cluster.daemonset_pods())
+            fault_cfg = self._fault_config()
+            if self.options.sweep_weights and fault_cfg is not None:
+                raise ValueError(
+                    "--sweep-weights cannot combine with fault injection "
+                    "(the sweep replays a single uninterrupted event "
+                    "stream per config)"
+                )
             if self.options.sweep_weights:
                 # the config sweep replaces the main schedule: one lanes
                 # launch over the weight grid and its table, no snapshot,
                 # inflation or app stages (they describe one placement)
                 self._run_sweep(sim, out)
+            elif fault_cfg is not None:
+                sim.run_with_faults(fault_cfg)
             else:
                 sim.run()
         if self.options.sweep_weights:
@@ -281,6 +300,16 @@ class Applier:
                 sim.set_typical_pods()
                 sim.schedule_additional(nw_pods)
                 sim.cluster_analysis("InitSchedule")
+
+        # deschedule and reschedule (core.go:213-246)
+        if cc.deschedule.ratio > 0 and cc.deschedule.policy:
+            with self._timed("deschedule"):
+                sim.deschedule_cluster()
+                sim.cluster_analysis("PostDeschedule")
+                self._export_snapshots(sim, "post_deschedule")
+                if cc.inflation.ratio > 1:
+                    sim.run_workload_inflation_evaluation(
+                        "DescheduleInflation")
 
         # per-app scheduling (core.go:255-261)
         with self._timed("apps_ingest"):

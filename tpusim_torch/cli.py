@@ -6,12 +6,17 @@ cmd/apply/apply.go:14-40).
         [-e gpu[,open-local]] [--report] [--use-greed] [-i]
         [--base-dir DIR] [--device cuda|cpu]
         [--table-residency auto|vmem|hbm] [--sweep-weights GRID.json]
+        [--fault-mtbf N --fault-mttr N --fault-evict-every N
+         --fault-seed S --fault-max-retries K]
 
 It takes tpusim's apply flags. `--sweep-weights GRID.json` replaces the
 main schedule with one sweep over a weight grid (the lanes of one launch)
-and prints its per-config table. The flags whose plane the port does not
-have yet (faults and the chaos sweep, checkpoints, the obs outputs,
---listen, --policy, --compile-cache-dir) parse and then raise
+and prints its per-config table. The `--fault-*` flags replay the main
+schedule under a seeded fault schedule (node failures, recoveries and
+evictions between replay segments, the `[Fault]` and `[Disruption]`
+lines). The flags whose plane the port does not have yet (the chaos sweep,
+checkpoints, the obs outputs, --listen, --policy, --compile-cache-dir)
+parse and then raise
 NotImplementedError naming the ROADMAP item that brings them. The replays
 run on the GPU unless --device cpu is given. Its standard output and the
 snapshot files it writes are byte-identical to `python -m tpusim apply`'s
@@ -56,15 +61,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--table-residency", choices=RESIDENCIES, default="auto",
                    help="vmem = the flat replay kernel, hbm = the blocked "
                    "one, auto = vmem while the tables fit the card's L2")
+    p.add_argument("--fault-mtbf", type=float, default=0.0,
+                   help="mean events between node failures (0 = none)")
+    p.add_argument("--fault-mttr", type=float, default=0.0,
+                   help="mean events until a failed node returns "
+                   "(0 = never)")
+    p.add_argument("--fault-evict-every", type=float, default=0.0,
+                   help="mean events between single-pod evictions "
+                   "(0 = none)")
+    p.add_argument("--fault-seed", type=int, default=0)
+    p.add_argument("--fault-max-retries", type=int, default=3)
     # tpusim's other apply flags: accepted, refused unless at their default
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--checkpoint-keep", type=int, default=0)
-    p.add_argument("--fault-mtbf", type=float, default=0.0)
-    p.add_argument("--fault-mttr", type=float, default=0.0)
-    p.add_argument("--fault-evict-every", type=float, default=0.0)
-    p.add_argument("--fault-seed", type=int, default=0)
-    p.add_argument("--fault-max-retries", type=int, default=3)
     p.add_argument("--profile", nargs="?",
                    const=os.path.join(".tpusim_obs", "tpusim_profile.jsonl"),
                    default="")

@@ -15,10 +15,13 @@ are those of its standalone run.
         ["-d", "out", "-FGD", "1000", "-gpusel", "FGDScore", "-tune", "1.3",
          "-tuneseed", "42", "--shuffle-pod", "true"]))
 
-The flags are run.py's that the port runs: the trace files, the policy
-weights and methods, tuning, shuffling, inflation, timestamps and the
-per-event report switch, with run.py's defaults, and --device (cuda by
-default).
+The flags are all of run.py's, with its defaults: the trace files, the
+policy weights and methods, tuning, shuffling, inflation, descheduling
+(-r/-p), the snapshot prefixes (-y/-z), the typical-pod knobs, timestamps,
+the per-event report switch, --emit-configs and --analysis-from-log; and
+--device (cuda by default). --engine and --mesh are accepted at what the
+port runs (auto or pallas, its kernels; no mesh) and raise
+NotImplementedError otherwise.
 """
 
 from __future__ import annotations
@@ -26,11 +29,13 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from hashlib import md5
 from pathlib import Path
 
-from tpusim_torch.analysis import analyze_sim
+from tpusim_torch.analysis import analyze_dir, analyze_sim
 from tpusim_torch.io.trace import load_node_csv, load_pod_csv
 from tpusim_torch.sim.driver import (
+    PORT_ENGINES,
     Simulator,
     SimulatorConfig,
     dispatch_run_batch,
@@ -52,10 +57,6 @@ POLICY_FLAGS = {
     "FGDScore": "FGD",
     "PWRScore": "PWR",
 }
-
-# experiments/run.py's typical-pod settings (its flags' defaults)
-RUN_TYPICAL = TypicalPodsConfig(pod_popularity_threshold=95,
-                                pod_increase_step=1)
 
 
 def resolve_trace(path_or_name: str) -> str:
@@ -84,6 +85,28 @@ def add_experiment_flags(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--no-per-event-report", action="store_true",
                     help="skip the per-event report lines")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("-r", "--deschedule-ratio", type=float, default=0.0)
+    ap.add_argument("-p", "--deschedule-policy", default="",
+                    help="cosSim | fragOnePod | fragMultiPod")
+    ap.add_argument("-y", "--export-pod-snapshot-yaml-file-prefix",
+                    default=None)
+    ap.add_argument("-z", "--export-node-snapshot-csv-file-prefix",
+                    default=None)
+    ap.add_argument("--is-involved-cpu-pods", default="true")
+    ap.add_argument("--pod-popularity-threshold", type=int, default=95)
+    ap.add_argument("--pod-increase-step", type=int, default=1)
+    ap.add_argument("--gpu-res-weight", type=float, default=0)
+    ap.add_argument("--emit-configs", action="store_true",
+                    help="also write the equivalent cluster and scheduler "
+                    "config YAML")
+    ap.add_argument("--engine", default="auto",
+                    help="auto or pallas: the port's kernels (tpusim's "
+                    "sequential and table engines raise)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="0: one device (a mesh raises)")
+    ap.add_argument("--analysis-from-log", action="store_true",
+                    help="write the analysis CSVs by parsing simon.log "
+                    "(the same bytes)")
     for flag in POLICY_FLAGS.values():
         ap.add_argument(f"-{flag}", type=int, default=0, help="score weight")
     ap.add_argument("-gpusel", "--gpu-sel-method", default="best",
@@ -102,7 +125,7 @@ def add_experiment_flags(ap: argparse.ArgumentParser) -> None:
 
 
 def get_args(argv=None) -> argparse.Namespace:
-    """experiments/run.py's flags that the port runs, with its defaults."""
+    """experiments/run.py's flags, with its defaults."""
     ap = argparse.ArgumentParser(description="run one simulator experiment")
     ap.add_argument("-d", "--experiment-dir", default="./")
     add_experiment_flags(ap)
@@ -128,11 +151,93 @@ def _load_trace_cached(path: str, loader):
     return list(_TRACE_CACHE[key])
 
 
+def emit_configs(args, policies, outdir: Path):
+    """Write the experiment as a Simon CR and a scheduler config, each
+    named by the first four hex digits of its md5 (run.py's emit_configs,
+    after generate_config_and_run.py's cc_/sc_ names)."""
+    import yaml
+
+    cc = {
+        "apiVersion": "simon/v1alpha1",
+        "kind": "Config",
+        "metadata": {"name": "tpusim-experiment"},
+        "spec": {
+            "cluster": {"customConfig": str(args.trace)},
+            "customConfig": {
+                "shufflePod": args.shuffle_pod.lower() == "true",
+                "useTimestamps": args.use_timestamps,
+                "workloadInflationConfig": {
+                    "ratio": args.workload_inflation_ratio,
+                    "seed": args.workload_inflation_seed,
+                },
+                "workloadTuningConfig": {
+                    "ratio": args.workload_tuning_ratio,
+                    "seed": args.workload_tuning_seed,
+                },
+                "descheduleConfig": {
+                    "ratio": args.deschedule_ratio,
+                    "policy": args.deschedule_policy,
+                },
+                "typicalPodsConfig": {
+                    "isInvolvedCpuPods": args.is_involved_cpu_pods.lower()
+                    == "true",
+                    "podPopularityThreshold": args.pod_popularity_threshold,
+                    "podIncreaseStep": args.pod_increase_step,
+                    "gpuResWeight": args.gpu_res_weight,
+                },
+            },
+        },
+    }
+    sc = {
+        "apiVersion": "kubescheduler.config.k8s.io/v1beta1",
+        "kind": "KubeSchedulerConfiguration",
+        "percentageOfNodesToScore": 100,
+        "profiles": [{
+            "schedulerName": "simon-scheduler",
+            "plugins": {"score": {"enabled": [
+                {"name": n, "weight": w} for n, w in policies]}},
+            "pluginConfig": [{
+                "name": "Open-Gpu-Share",
+                "args": {
+                    "dimExtMethod": args.dim_ext_method,
+                    "normMethod": args.norm_method,
+                    "gpuSelMethod": args.gpu_sel_method,
+                },
+            }],
+        }],
+    }
+    for prefix, doc in (("cc", cc), ("sc", sc)):
+        content = yaml.dump(doc)
+        suffix = md5(content.encode()).hexdigest()[:4]
+        (outdir / f"{prefix}_md{suffix}.yaml").write_text(content)
+
+
+def check_engine_flags(args) -> None:
+    """Raise NotImplementedError for an --engine or --mesh the port cannot
+    run, naming the ROADMAP item that brings it."""
+    engine = getattr(args, "engine", "auto")
+    if engine not in PORT_ENGINES:
+        item = ("5 (the sequential engine)" if engine == "sequential"
+                else "6 (the table engine)")
+        raise NotImplementedError(
+            f"--engine {engine} needs an engine the PyTorch port does not "
+            f"have yet (ROADMAP queue 1, item {item}); the port runs its "
+            "kernels under auto and pallas")
+    if getattr(args, "mesh", 0) > 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh} needs the mesh engine the PyTorch port does "
+            "not have yet (ROADMAP queue 1, item 13 (mesh engine))")
+
+
 def _build_sim(args):
     """The experiment's Simulator, its output directory, its pod CSV and
     its policies (the set-up half of run_experiment)."""
+    check_engine_flags(args)
     outdir = Path(args.experiment_dir)
     outdir.mkdir(parents=True, exist_ok=True)
+    policies = selected_policies(args)
+    if args.emit_configs:
+        emit_configs(args, policies, outdir)
     sim, pod_csv, policies = _simulator(args)
     return sim, outdir, pod_csv, policies
 
@@ -152,10 +257,17 @@ def _simulator(args):
         tuning_seed=args.workload_tuning_seed,
         inflation_ratio=args.workload_inflation_ratio,
         inflation_seed=args.workload_inflation_seed,
+        deschedule_ratio=args.deschedule_ratio,
+        deschedule_policy=args.deschedule_policy,
         seed=args.workload_tuning_seed,
         report_per_event=not args.no_per_event_report,
         use_timestamps=args.use_timestamps,
-        typical_pods=RUN_TYPICAL,
+        typical_pods=TypicalPodsConfig(
+            is_involved_cpu_pods=args.is_involved_cpu_pods.lower() == "true",
+            pod_popularity_threshold=args.pod_popularity_threshold,
+            pod_increase_step=args.pod_increase_step,
+            gpu_res_weight=args.gpu_res_weight,
+        ),
     )
     sim = Simulator(_load_trace_cached(node_csv, load_node_csv), cfg,
                     device=args.device)
@@ -163,28 +275,51 @@ def _simulator(args):
     return sim, pod_csv, policies
 
 
-def _post_run(sim, args, outdir, pod_csv, policies, t0) -> dict:
-    """Everything after the main schedule: the inflation stage, the stop
-    marker, simon.log and the analysis CSVs (the tail half of
-    run_experiment)."""
+def post_schedule_stages(sim, args) -> None:
+    """run.py's stages after the main schedule, in its order: inflation,
+    then the descheduler with its PostDeschedule analysis and, with
+    inflation, DescheduleInflation, then the snapshot exports."""
     if args.workload_inflation_ratio > 1:
         sim.run_workload_inflation_evaluation("ScheduleInflation")
+    if args.deschedule_ratio > 0 and args.deschedule_policy:
+        sim.deschedule_cluster()
+        sim.cluster_analysis("PostDeschedule")
+        if args.workload_inflation_ratio > 1:
+            sim.run_workload_inflation_evaluation("DescheduleInflation")
+    if args.export_pod_snapshot_yaml_file_prefix:
+        path = f"{args.export_pod_snapshot_yaml_file_prefix}.yaml"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        sim.export_pod_snapshot_yaml(path)
+    if args.export_node_snapshot_csv_file_prefix:
+        path = f"{args.export_node_snapshot_csv_file_prefix}.csv"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        sim.export_node_snapshot_csv(path)
+
+
+def _post_run(sim, args, outdir, pod_csv, policies, t0) -> dict:
+    """Everything after the main schedule: the later stages, the stop
+    marker, simon.log and the analysis CSVs (the tail half of
+    run_experiment)."""
+    post_schedule_stages(sim, args)
     sim.finish()
     wall = time.perf_counter() - t0
     log_path = outdir / "simon.log"
     with open(log_path, "w") as f:
         f.write(sim.log.dump())
     print(f"[run] {log_path} ({wall:.1f}s, {sim.last_result.events} events)")
-    return analyze_sim(sim, str(outdir), {
+    meta = {
         "workload": Path(pod_csv).stem,
         "policy": "_".join(f"{POLICY_FLAGS[n]}{w}" for n, w in policies),
         "tune": args.workload_tuning_ratio,
         "tune_seed": args.workload_tuning_seed,
         "de": args.dim_ext_method,
         "gs": args.gpu_sel_method,
-        "dr": 0.0,
-        "dp": "",
-    })
+        "dr": args.deschedule_ratio,
+        "dp": args.deschedule_policy,
+    }
+    if args.analysis_from_log:
+        return analyze_dir(str(outdir), meta)
+    return analyze_sim(sim, str(outdir), meta)
 
 
 def run_experiment(args) -> dict:

@@ -345,7 +345,8 @@ def cluster_frag_report(state: NodeState, tp: TypicalPods):
         idle += v
     frag = idle - amounts[Q3_SATISFIED]
     q124 = amounts[Q1_LACK_BOTH] + amounts[Q2_LACK_GPU] + amounts[Q4_LACK_CPU]
-    return amounts, frag, 100.0 * frag / idle, 100.0 * q124 / idle
+    with np.errstate(divide="ignore", invalid="ignore"):  # no idle GPU: nan
+        return amounts, frag, 100.0 * frag / idle, 100.0 * q124 / idle
 
 
 def node_frag_bellman(node, typical, max_depth: int = 64, memo=None,

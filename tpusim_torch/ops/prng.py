@@ -8,6 +8,8 @@ on, and these functions reproduce that setting only:
   `PRNGKey(seed)` is with x64 off (jax/_src/prng.py `threefry_seed`);
 - `split(key)` is the "foldlike" split (`_threefry_split_foldlike`): new key
   j is (bits1[j], bits2[j]) of threefry2x32(key, hi=[0, 0], lo=[0, 1]);
+- `fold_in(key, data)` is threefry2x32(key, hi=0, lo=data mod 2**32), the
+  hash of `threefry_seed(data)` (`_threefry_fold_in`);
 - `uniform(key, n)` draws element i from counter (hi 0, lo i) alone
   (`_threefry_random_bits_partitionable`): bits = bits1 ^ bits2, then the
   float32 of bits >> 9 under the exponent of 1.0, minus 1.0 (`_uniform`,
@@ -71,6 +73,12 @@ def split(key) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     a = threefry2x32(k0, k1, 0, 0)
     b = threefry2x32(k0, k1, 0, 1)
     return a, b
+
+
+def fold_in(key, data: int) -> Tuple[int, int]:
+    """`jax.random.fold_in(key, data)`."""
+    k0, k1 = (int(w) for w in key)
+    return threefry2x32(k0, k1, 0, int(data) & _M)
 
 
 def random_bits(key, n: int, device=None) -> torch.Tensor:

@@ -27,6 +27,10 @@ module).
 After the main replay, `schedule_additional` replays more pods from the
 placed cluster's state (apps, the new-workload swap, the inflation
 evaluation), through the same kernels and the same report tail.
+`deschedule_cluster` evicts pods by the configured policy and replays the
+victims the same way; `run_with_faults` replays the trace in segments
+between node failures, recoveries and evictions (the fault host loop),
+each segment one `run_events` call.
 
 With `report_per_event` on (the default, as in the reference), every replay
 is followed by the metrics post-pass (tpusim_torch.sim.metrics) on the
@@ -38,6 +42,7 @@ written from what that block stashes (tpusim_torch.analysis).
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import List, Sequence, Tuple
@@ -61,13 +66,29 @@ from tpusim_torch.io.export import (
 )
 from tpusim_torch.ops.frag import (
     cluster_frag_report,
+    frag_sum_except_q3,
     node_frag_contrib,
     tree_sum,
 )
-from tpusim_torch.ops.prng import prng_key
+from tpusim_torch.ops.prng import fold_in, prng_key
 from tpusim_torch.parallel.sharding import pad_nodes, pad_rank, trim_nodes
 from tpusim_torch.sim import residency
-from tpusim_torch.sim.engine import EV_CREATE, EV_DELETE, ReplayResult
+from tpusim_torch.sim.deschedule import evict, select_victims
+from tpusim_torch.sim.engine import (
+    EV_CREATE,
+    EV_DELETE,
+    EV_NODE_FAIL,
+    EV_NODE_RECOVER,
+    ReplayResult,
+)
+from tpusim_torch.sim.faults import (
+    FaultConfig,
+    fail_node,
+    generate_fault_schedule,
+    pick_eviction_victim,
+    recover_node,
+    validate_fault_schedule,
+)
 from tpusim_torch.sim.fetch import device_fetch
 from tpusim_torch.sim.fused_engine import (
     Lane,
@@ -78,12 +99,13 @@ from tpusim_torch.sim.fused_engine import (
     validate_events,
 )
 from tpusim_torch.sim.hbm_engine import make_blocked_replay, replay_blocked_lanes
-from tpusim_torch.sim.metrics import compute_event_metrics
-from tpusim_torch.sim.queues import app_queue
+from tpusim_torch.sim.metrics import DisruptionMetrics, compute_event_metrics
+from tpusim_torch.sim.queues import RetryQueue, app_queue
 from tpusim_torch.sim.reports import (
     LogSink,
     batch_event_report_msgs,
     cluster_analysis_block,
+    disruption_report_block,
     event_report_series,
     report_failed_pods,
 )
@@ -91,6 +113,7 @@ from tpusim_torch.sim.residency import BLOCK
 from tpusim_torch.sim.table_engine import build_pod_types
 from tpusim_torch.sim.typical import (
     TypicalPodsConfig,
+    get_skyline_pods,
     get_typical_pods,
     pad_typical_pods,
 )
@@ -122,6 +145,10 @@ class SimulatorConfig:
     inflation_ratio: float = 1.0
     inflation_seed: int = 233
     typical_pods: TypicalPodsConfig = field(default_factory=TypicalPodsConfig)
+    # deschedule_cluster: evict ceil(ratio x pods placed) pods at most,
+    # chosen by cosSim | fragOnePod | fragMultiPod
+    deschedule_ratio: float = 0.0
+    deschedule_policy: str = ""
     seed: int = 42  # node tie-break permutation, and the PRNG's root key
     # the per-event report block (attempt, [Report], [Alloc], [AllocCPU],
     # [Power] lines) and the per-event analysis CSVs
@@ -132,6 +159,21 @@ class SimulatorConfig:
     # "hbm" = `replay_blocked`, "auto" = "vmem" while the tables fit the
     # card's L2 cache (always on the CPU); tpusim_torch.sim.residency
     table_residency: str = "auto"
+    # fault replays (schedule_pods_with_faults): "auto" and "segments" run
+    # the segmented host loop; "scan", tpusim's in-scan fault lane, raises
+    fault_mode: str = "auto"
+
+
+# the values of tpusim's engine knob that the port's entries run: both
+# mean its kernels
+PORT_ENGINES = ("auto", "pallas")
+
+
+def refuse_fault_lane(what: str):
+    raise NotImplementedError(
+        f"{what} needs the in-scan fault lane the PyTorch port does not have "
+        "yet (ROADMAP queue 1, item 9 (the in-scan fault lane)); run it "
+        "with tpusim")
 
 
 @dataclass
@@ -208,6 +250,9 @@ class Simulator:
         self.total_gpus = int(sum(n.gpu for n in self.nodes))
         self.last_result = None
         self.last_ever_failed = None
+        # the last fault replay's DisruptionMetrics
+        self.last_disruption = None
+        self.skyline = None
         self._bellman_eval = None
         self._reset_run_state()
 
@@ -242,6 +287,10 @@ class Simulator:
         self._bellman_eval = None
         self.log.info(f"Num of Total Pods: {len(self.workload_pods)}")
         self.log.info(f"Num of Total Pod Sepc: {len(info)}")
+
+    def set_skyline_pods(self):
+        """The workload's (cpu, gpu milli) skyline (frag.go:382-409)."""
+        self.skyline = get_skyline_pods(self.workload_pods)
 
     def adopt_typical_pods(self, other: "Simulator"):
         """set_typical_pods, taking the distribution of a sibling with the
@@ -446,6 +495,7 @@ class Simulator:
         failed-pods block and the Cluster Analysis block."""
         self._reset_run_state()
         self.set_typical_pods()
+        self.set_skyline_pods()
         pods = self.prepare_pods()
         self.log.info(
             f"Number of original workload pods: {len(self.workload_pods)}"
@@ -463,12 +513,10 @@ class Simulator:
         With `tunes`, a tuning ratio a lane: each lane's workload is
         prepared as a standalone run with that ratio (the same tuning seed)
         and the lanes run through schedule_pods_sweep_multi. `faults` (the
-        chaos sweep) raises NotImplementedError."""
+        chaos sweep) raises NotImplementedError: it runs on tpusim's
+        in-scan fault lane."""
         if faults is not None:
-            raise NotImplementedError(
-                "run_sweep(faults=...) needs the fault plane the PyTorch "
-                "port does not have yet (ROADMAP queue 1, item 9 (faults)); "
-                "run it with tpusim")
+            refuse_fault_lane("run_sweep(faults=...)")
         self._reset_run_state()
         self.set_typical_pods()
         self.log.info(
@@ -486,6 +534,24 @@ class Simulator:
         pods_list = [self.prepare_pods(tuning_ratio=t) for t in tunes]
         return schedule_pods_sweep_multi(self, pods_list, w, seeds=seeds,
                                          bucket=bucket)
+
+    def run_with_faults(self, fault_cfg: FaultConfig = None,
+                        faults=None) -> SimulateResult:
+        """run() under fault injection (driver.py:1918 of the reference):
+        the same preparation, the main schedule replaced by
+        schedule_pods_with_faults (apply's --fault-* flags land here)."""
+        self._reset_run_state()
+        self.set_typical_pods()
+        self.set_skyline_pods()
+        pods = self.prepare_pods()
+        self.log.info(
+            f"Number of original workload pods: {len(self.workload_pods)}"
+        )
+        res = self.schedule_pods_with_faults(pods, faults=faults,
+                                             fault_cfg=fault_cfg)
+        self.report_failed([u.pod for u in res.unscheduled_pods])
+        self.cluster_analysis("InitSchedule")
+        return res
 
     def report_failed(self, pods) -> None:
         """The failed-pods block, and the stash the fail CSV groups."""
@@ -518,6 +584,326 @@ class Simulator:
         analysis = self.cluster_analysis(tag)
         self.last_result.state = saved
         return analysis
+
+    def deschedule_cluster(self) -> List[UnscheduledPod]:
+        """Evict pods by the configured policy, report PostEviction, then
+        replay the victims from the evicted state (DescheduleCluster,
+        deschedule.go:20-47, as driver.py:2017-2108 of the reference runs
+        it; the caller follows with cluster_analysis("PostDeschedule")).
+        The victims re-enter as creations in eviction order, from root key
+        PRNGKey(seed + 1), through the kernels and the report tail; their
+        creation ranks follow every earlier one, and those that fail join
+        the unscheduled pods. Returns them."""
+        res = self.last_result
+        # the reference scores and replays the victims without pinning
+        specs = pods_to_specs(res.pods, None, self.device)
+        state = self._placed_state()
+        victims = select_victims(
+            state, specs, res.placed_node, res.dev_mask, self.typical,
+            self.cfg.deschedule_policy, self.cfg.deschedule_ratio,
+            self.node_names)
+        budget = math.ceil(self.cfg.deschedule_ratio
+                           * int((res.placed_node >= 0).sum()))
+        self.log.info(
+            f"maximum number of pods that can be descheduled: {budget}, "
+            f"deschedule policy: {self.cfg.deschedule_policy}"
+        )
+        state = evict(state, specs, res.placed_node, res.dev_mask, victims)
+        res.state = device_fetch(state)
+        res.placed_node = res.placed_node.copy()
+        res.dev_mask = res.dev_mask.copy()
+        res.placed_node[victims] = -1
+        res.dev_mask[victims] = False
+        self.cluster_analysis("PostEviction")
+        self.log.info(
+            f"[DescheduleCluster] Num of Descheduled Pods: {len(victims)}")
+        if not victims:
+            return []
+        v = np.asarray(victims, np.int64)
+        vpods = [res.pods[int(i)] for i in v]
+        vspecs = PodSpec(*(a[torch.as_tensor(v, device=self.device)]
+                           for a in specs))
+        ev_kind = np.zeros(len(v), np.int32)  # an EV_CREATE stream
+        ev_pod = np.arange(len(v), dtype=np.int32)
+        t0 = time.perf_counter()
+        out = self.run_events(state, vspecs, ev_kind, ev_pod,
+                              key=prng_key(self.cfg.seed + 1))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        out = device_fetch(self._attach_metrics(out, state, vspecs, ev_kind,
+                                                ev_pod))
+        # the victims' replay reports as any other (deschedule.go:91 ->
+        # SchedulePods)
+        self._emit_event_reports(out, vpods, ev_kind, ev_pod, state)
+        self.replay_times.append(dict(
+            events=len(v), replay_ms=(t1 - t0) * 1e3,
+            report_ms=(time.perf_counter() - t1) * 1e3))
+        placed_v = out.placed_node.numpy()
+        res.placed_node[v] = placed_v
+        res.dev_mask[v] = out.dev_mask.numpy()
+        res.state = out.state
+        if res.creation_rank is not None:  # the victims re-enter last
+            base = int(res.creation_rank.max(initial=-1)) + 1
+            res.creation_rank = res.creation_rank.copy()
+            res.creation_rank[v] = base + np.arange(len(v))
+        failed = [UnscheduledPod(res.pods[v[i]])
+                  for i in np.flatnonzero(placed_v < 0)]
+        res.unscheduled_pods = list(res.unscheduled_pods) + failed
+        self.log.info(f"[DescheduleCluster] Num of Failed Pods: {len(failed)}")
+        return failed
+
+    # ---- fault injection (tpusim_torch.sim.faults) ----
+
+    def schedule_pods_with_faults(self, pods: Sequence[PodRow], faults=None,
+                                  fault_cfg: FaultConfig = None
+                                  ) -> SimulateResult:
+        """schedule_pods under a fault schedule, through the segmented host
+        loop. `fault_mode` "auto" and "segments" run it; under "auto" the
+        log carries the line tpusim's `auto` prints where it keeps to that
+        loop (driver.py:2111-2186 of the reference: with per-event reports,
+        or a configuration that draws per event). Its in-scan lane, which
+        it takes otherwise, is bit-identical to the loop
+        (tests/test_fault_lane.py of the reference). "scan" raises
+        NotImplementedError."""
+        mode = self.cfg.fault_mode
+        if mode not in ("auto", "scan", "segments"):
+            raise ValueError(
+                f"unknown fault_mode {mode!r}: expected auto | scan | "
+                "segments"
+            )
+        if mode == "scan":
+            refuse_fault_lane("fault_mode='scan'")
+        reason = None
+        if mode == "auto" and self.cfg.report_per_event:
+            reason = ("per-event reporting (the report postpass does not "
+                      "model fault transitions)")
+        elif mode == "auto" and self._replay.config.randomized:
+            reason = ("per-event randomness draws a different (still "
+                      "seeded) PRNG chain on the scan lane; "
+                      "fault_mode='scan' opts in")
+        if reason:
+            self.log.info(f"[Fault] segmented replay ({reason})")
+        return self._schedule_pods_with_faults_segmented(pods, faults,
+                                                         fault_cfg)
+
+    def _schedule_pods_with_faults_segmented(self, pods: Sequence[PodRow],
+                                             faults=None,
+                                             fault_cfg: FaultConfig = None
+                                             ) -> SimulateResult:
+        """The host loop (driver.py:2189-2484 of the reference): node
+        failures, recoveries and evictions fire between replay segments,
+        evicted pods re-enter through a capped exponential backoff queue
+        (RetryQueue), and a pod out of retries is terminal (reason
+        "max-retries-exceeded").
+
+        `faults`: an explicit FaultEvent list, or None for the seeded
+        schedule of `fault_cfg` (generate_fault_schedule). Each segment is
+        one run_events call (an init_tables launch and a replay launch on
+        the card) from root key fold_in(PRNGKey(seed), segment), followed
+        by the report tail. Creation-ordered traces only
+        (use_timestamps=False): model deletions as EV_EVICT faults. The
+        totals land in `last_disruption` and the `[Disruption]` block."""
+        if self.cfg.use_timestamps:
+            raise ValueError(
+                "schedule_pods_with_faults replays creation-ordered traces "
+                "(use_timestamps=False); model deletions as Evict fault "
+                "events instead"
+            )
+        if self.typical is None:
+            self.set_typical_pods()
+        fcfg = fault_cfg or FaultConfig()
+        pods = list(pods)
+        ev_kind, ev_pod = build_events(pods, False)
+        num_events = len(ev_kind)
+        if faults is None:
+            faults = generate_fault_schedule(len(self.nodes), num_events, fcfg)
+        faults = sorted(faults, key=lambda f: f.pos)  # stable
+        validate_fault_schedule(faults, len(self.nodes), len(pods))
+        t0 = time.perf_counter()
+
+        num_pods = len(pods)
+        specs = pods_to_specs(pods, self.node_index, self.device)
+        types = build_pod_types(specs)
+        gpu_cnt = self.init_state.gpu_cnt.cpu().numpy()
+        ndev = int(self.init_state.gpu_left.shape[1])
+        placed = np.full(num_pods, -1, np.int32)
+        masks = np.zeros((num_pods, ndev), bool)
+        ever_failed = np.zeros(num_pods, bool)
+        creation_rank = np.full(num_pods, -1, np.int64)
+        base_key = prng_key(self.cfg.seed)
+        rq = RetryQueue(fcfg.backoff_base, fcfg.backoff_cap,
+                        fcfg.max_retries)
+        dm = DisruptionMetrics()
+        attempts: dict = {}  # pod -> failed retries in a row so far
+        evicted_at: dict = {}  # pod -> eviction position
+        down_at: dict = {}  # node -> failure position
+        box = {"state": self.init_state, "rank": 0, "events": 0, "segs": 0}
+        typical_host = None
+
+        def frag_total(st: NodeState) -> float:
+            nonlocal typical_host
+            if typical_host is None:
+                typical_host = device_fetch(self.typical)
+            amounts = cluster_frag_report(device_fetch(st), typical_host)[0]
+            return float(frag_sum_except_q3(torch.as_tensor(amounts)))
+
+        def run_segment(seg_kind: np.ndarray, seg_pod: np.ndarray):
+            """One segment through run_events and the report tail; merges
+            its placements into the host's arrays."""
+            seg_key = fold_in(base_key, box["segs"])
+            box["segs"] += 1
+            pre = box["state"]
+            t_seg = time.perf_counter()
+            out = self.run_events(pre, specs, seg_kind, seg_pod,
+                                  types=types, key=seg_key)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t_rep = time.perf_counter()
+            box["state"] = out.state
+            out = device_fetch(self._attach_metrics(out, pre, specs,
+                                                    seg_kind, seg_pod))
+            self._emit_event_reports(out, pods, seg_kind, seg_pod, pre)
+            self.replay_times.append(dict(
+                events=int(seg_kind.size), replay_ms=(t_rep - t_seg) * 1e3,
+                report_ms=(time.perf_counter() - t_rep) * 1e3))
+            created = seg_pod[seg_kind == EV_CREATE]
+            placed[created] = out.placed_node.numpy()[created]
+            masks[created] = out.dev_mask.numpy()[created]
+            ever_failed[created] |= out.ever_failed.numpy()[created]
+            creation_rank[created] = box["rank"] + np.arange(created.size)
+            box["rank"] += int(created.size)
+            box["events"] += int(seg_kind.size)
+
+        def evict_bookkeep(pod_i: int, pos: int):
+            placed[pod_i] = -1
+            masks[pod_i] = False
+            evicted_at[pod_i] = pos
+            dm.evicted_pods += 1
+            att = attempts.get(pod_i, 0) + 1
+            attempts[pod_i] = att
+            # rq.dead is the terminal list; its totals are read after the
+            # loop
+            if rq.push(pod_i, pos, att) is None:
+                ever_failed[pod_i] = True
+            else:
+                dm.retries_enqueued += 1
+
+        def apply_fault(f, pos: int):
+            if f.kind == EV_NODE_FAIL:
+                if f.node in down_at:
+                    return  # already down
+                victims = np.flatnonzero(placed == f.node)
+                box["state"] = fail_node(box["state"], f.node)
+                down_at[f.node] = pos
+                dm.node_failures += 1
+                self.log.info(
+                    f"[Fault] node {self.node_names[f.node]} failed at "
+                    f"event {pos}: {victims.size} pods evicted"
+                )
+                for v in victims.tolist():
+                    evict_bookkeep(int(v), pos)
+            elif f.kind == EV_NODE_RECOVER:
+                if f.node not in down_at:
+                    return  # never failed, or already back
+                before = frag_total(box["state"])
+                box["state"] = recover_node(box["state"], f.node)
+                after = frag_total(box["state"])
+                dm.post_recovery_frag_delta.append(after - before)
+                dm.node_recoveries += 1
+                dm.failed_node_gpu_events += int(gpu_cnt[f.node]) * (
+                    pos - down_at.pop(f.node))
+                self.log.info(
+                    f"[Fault] node {self.node_names[f.node]} recovered at "
+                    f"event {pos} (frag delta {after - before:+.1f})"
+                )
+            else:  # an eviction
+                v = pick_eviction_victim(placed, pos, fcfg.seed, f.pod)
+                if v is None:
+                    return  # nothing placed to evict
+                box["state"] = evict(box["state"], specs, placed, masks, [v])
+                self.log.info(
+                    f"[Fault] pod {pods[v].name} evicted from node "
+                    f"{self.node_names[int(placed[v])]} at event {pos}"
+                )
+                evict_bookkeep(int(v), pos)
+
+        fi = 0
+        cursor = 0
+        while True:
+            candidates = [num_events] if cursor < num_events else []
+            if fi < len(faults):
+                candidates.append(min(faults[fi].pos, num_events))
+            nr = rq.next_ready()
+            if nr is not None:
+                candidates.append(min(nr, num_events))
+            if not candidates:
+                break
+            stop = min(candidates)
+            if stop > cursor:
+                run_segment(ev_kind[cursor:stop], ev_pod[cursor:stop])
+                cursor = stop
+            pos = stop
+            # faults fire first, so a retry due at the same position sees
+            # the cluster after the fault
+            while fi < len(faults) and min(faults[fi].pos, num_events) <= pos:
+                apply_fault(faults[fi], pos)
+                fi += 1
+            # once the trace and the faults are done, the queue is flushed
+            # whatever its backoff: nothing is left to wait for
+            thresh = (pos if (cursor < num_events or fi < len(faults))
+                      else float("inf"))
+            due = rq.pop_due(thresh)
+            if due:
+                retry_idx = np.array([p for p, _ in due], np.int32)
+                run_segment(np.zeros(retry_idx.size, np.int32), retry_idx)
+                for pod_i, _att in due:
+                    if placed[pod_i] >= 0:
+                        dm.rescheduled_pods += 1
+                        dm.reschedule_latency_events.append(
+                            pos - evicted_at.pop(pod_i))
+                        # the budget counts failures in a row: a
+                        # reschedule resets it
+                        attempts.pop(pod_i, None)
+                    else:
+                        att = attempts[pod_i] + 1
+                        attempts[pod_i] = att
+                        if rq.push(pod_i, pos, att) is not None:
+                            dm.retries_enqueued += 1
+
+        # capacity still down at the end counts to the end of the trace
+        for node_i, t_fail in down_at.items():
+            dm.failed_node_gpu_events += int(gpu_cnt[node_i]) * max(
+                num_events - t_fail, 0)
+        dead_pods = {p for p, _ in rq.dead}
+        dm.unscheduled_after_retries = len(rq.dead)
+        self.analysis_summary.update(disruption_report_block(self.log, dm))
+        self.last_disruption = dm
+
+        skipped = np.array([p.unscheduled for p in pods], bool)
+        unscheduled = []
+        for i in range(num_pods):
+            if skipped[i]:
+                unscheduled.append(UnscheduledPod(
+                    pods[i], reason="pod-unscheduled annotation"))
+            elif i in dead_pods:
+                unscheduled.append(UnscheduledPod(
+                    pods[i], reason="max-retries-exceeded"))
+            elif placed[i] < 0 and bool(ever_failed[i]):
+                unscheduled.append(UnscheduledPod(pods[i]))
+        self.last_ever_failed = ever_failed
+        self.last_result = SimulateResult(
+            unscheduled_pods=unscheduled,
+            placed_node=placed,
+            dev_mask=masks,
+            state=device_fetch(box["state"]),
+            pods=pods,
+            node_names=self.node_names,
+            wall_seconds=time.perf_counter() - t0,
+            events=box["events"],
+            creation_rank=creation_rank,
+        )
+        return self.last_result
 
     # ---- snapshot export (export.go) ----
 
@@ -932,10 +1318,7 @@ def schedule_pods_sweep_multi(sim: Simulator, pods_list, weights, seeds=None,
     weights and seed. `min_pods`/`min_events` are tpusim's shape floors
     and pad nothing here; `fault_specs` raises NotImplementedError."""
     if fault_specs is not None:
-        raise NotImplementedError(
-            "schedule_pods_sweep_multi(fault_specs=...) needs the fault "
-            "plane the PyTorch port does not have yet (ROADMAP queue 1, "
-            "item 9 (faults)); run it with tpusim")
+        refuse_fault_lane("schedule_pods_sweep_multi(fault_specs=...)")
     cfg = sim.cfg
     w, b, seeds = _check_sweep_grid(cfg, weights, seeds)
     if len(pods_list) != b:

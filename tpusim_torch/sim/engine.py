@@ -14,6 +14,11 @@ from tpusim_torch.types import NodeState
 EV_CREATE = 0
 EV_DELETE = 1
 EV_SKIP = 2  # padding / pods carrying the pod-unscheduled annotation
+# fault events (tpusim_torch.sim.faults): host-level, they never reach a
+# replay's event stream
+EV_NODE_FAIL = 3  # a node crashes; its pods are evicted into the retry queue
+EV_NODE_RECOVER = 4  # the node returns, empty
+EV_EVICT = 5  # one pod is evicted and re-enters through the retry queue
 
 
 class EventMetrics(NamedTuple):

@@ -47,7 +47,10 @@ def device_fetch(tree):
         x = x.contiguous()
         if x.dtype == torch.bool:
             x = x.to(torch.uint8)
-        b = x.reshape(-1).view(torch.uint8)
+        b = x.reshape(-1)
+        if b.numel() <= 1:  # an empty or one-element view keeps its stride
+            b = b.as_strided((b.numel(),), (1,))
+        b = b.view(torch.uint8)
         # keep every part 8-byte aligned, so each slices back as a view
         parts += [b, b.new_zeros(-b.numel() % 8)]
     buf = torch.cat(parts).cpu()

@@ -1,5 +1,6 @@
-"""The per-event report rows, rebuilt from a replay's telemetry
-(counterpart of tpusim/sim/metrics.py compute_event_metrics).
+"""The per-event report rows, rebuilt from a replay's telemetry, and the
+fault replay's disruption totals (counterpart of tpusim/sim/metrics.py
+compute_event_metrics and DisruptionMetrics).
 
 A replay emits the node each event touched (`event_node`) and the devices
 it touched (`event_dev`). From those alone, in a few batched tensor ops on
@@ -26,6 +27,9 @@ the same orders.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List
 
 import torch
 
@@ -206,3 +210,51 @@ def compute_event_metrics(init_state: NodeState, specs: PodSpec, ev_kind,
         power_cpu=pw[:, 0],
         power_gpu=pw[:, 1],
     )
+
+
+@dataclass
+class DisruptionMetrics:
+    """What a fault replay did to the workload (filled by
+    Simulator.schedule_pods_with_faults, printed by
+    reports.disruption_report_block). The clock is the event counter,
+    positions in the trace, so every number is reproducible under a fixed
+    fault seed."""
+
+    node_failures: int = 0
+    node_recoveries: int = 0
+    evicted_pods: int = 0  # node-crash evictions + single-pod evictions
+    retries_enqueued: int = 0
+    rescheduled_pods: int = 0  # evicted pods that found a node again
+    unscheduled_after_retries: int = 0  # out of retries: terminal
+    # sum over failed nodes of gpu_count x events down: failed-node
+    # GPU-hours with the event counter as the clock
+    failed_node_gpu_events: int = 0
+    # per rescheduled pod: placement position - eviction position
+    reschedule_latency_events: List[int] = field(default_factory=list)
+    # per recovery: the cluster frag (frag_sum_except_q3 of the amounts)
+    # right after the node returned minus right before
+    post_recovery_frag_delta: List[float] = field(default_factory=list)
+
+    def mean_reschedule_latency(self) -> float:
+        lat = self.reschedule_latency_events
+        return float(sum(lat)) / len(lat) if lat else 0.0
+
+    def as_dict(self) -> dict:
+        """The scalar summary (the analysis stash's disruption_* keys)."""
+        return {
+            "node_failures": self.node_failures,
+            "node_recoveries": self.node_recoveries,
+            "evicted_pods": self.evicted_pods,
+            "retries_enqueued": self.retries_enqueued,
+            "rescheduled_pods": self.rescheduled_pods,
+            "unscheduled_after_retries": self.unscheduled_after_retries,
+            "failed_node_gpu_events": self.failed_node_gpu_events,
+            "mean_reschedule_latency_events": self.mean_reschedule_latency(),
+            "max_reschedule_latency_events": (
+                max(self.reschedule_latency_events)
+                if self.reschedule_latency_events else 0
+            ),
+            "post_recovery_frag_delta_sum": float(
+                sum(self.post_recovery_frag_delta)
+            ),
+        }

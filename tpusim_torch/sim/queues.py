@@ -1,5 +1,5 @@
-"""Scheduling-queue sort orders for app pods (counterpart of the queue
-sorts of tpusim/sim/queues.py; ref: pkg/algo/).
+"""Scheduling-queue sort orders for app pods and the fault replay's retry
+queue (counterpart of tpusim/sim/queues.py; ref: pkg/algo/).
 
 The reference sorts app pods with sort.Sort over boolean Less predicates —
 with a constant-per-element key this is a partition; we implement each
@@ -13,7 +13,8 @@ resource share (pkg/apply + algo/greed.go).
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import heapq
+from typing import List, Optional, Sequence, Tuple
 
 from tpusim_torch.io.trace import NodeRow, PodRow
 
@@ -66,3 +67,58 @@ def app_queue(
         out = greed_sort(out, nodes)
     out = affinity_sort(out)
     return toleration_sort(out)
+
+
+class RetryQueue:
+    """The backoff queue of fault-evicted pods (tpusim_torch.sim.faults),
+    shaped as kube-scheduler's backoff queue: an exponential delay per
+    attempt with a cap, then a terminal state.
+
+    Attempt k re-enters the event stream min(base * 2^(k-1), cap) events
+    after its eviction; a pod that has already failed max_retries attempts
+    goes to `dead` instead (reported as an UnscheduledPod with reason
+    "max-retries-exceeded"). The heap orders by (ready position, insertion
+    number): first in, first out among retries due at one position."""
+
+    def __init__(self, base: int = 8, cap: int = 256, max_retries: int = 3):
+        if base < 1 or cap < base or max_retries < 0:
+            raise ValueError(
+                f"RetryQueue(base={base}, cap={cap}, max_retries="
+                f"{max_retries}): want base >= 1 <= cap and retries >= 0"
+            )
+        self.base = int(base)
+        self.cap = int(cap)
+        self.max_retries = int(max_retries)
+        self._heap: List[Tuple[int, int, int, int]] = []
+        self._seq = 0
+        self.dead: List[Tuple[int, int]] = []  # (pod, attempts burned)
+
+    def backoff(self, attempt: int) -> int:
+        """Events to wait before attempt `attempt` (1-based)."""
+        return min(self.base * (1 << max(attempt - 1, 0)), self.cap)
+
+    def push(self, pod: int, evicted_at: int, attempt: int) -> Optional[int]:
+        """Queue retry `attempt` of `pod`; returns its ready position, or
+        None when the pod is out of retries (terminal)."""
+        if attempt > self.max_retries:
+            self.dead.append((pod, attempt - 1))
+            return None
+        ready = evicted_at + self.backoff(attempt)
+        heapq.heappush(self._heap, (ready, self._seq, pod, attempt))
+        self._seq += 1
+        return ready
+
+    def next_ready(self) -> Optional[int]:
+        """Position of the earliest queued retry (None when empty)."""
+        return self._heap[0][0] if self._heap else None
+
+    def pop_due(self, pos: int) -> List[Tuple[int, int]]:
+        """Every (pod, attempt) retry due at or before `pos`, in order."""
+        due = []
+        while self._heap and self._heap[0][0] <= pos:
+            _, _, pod, attempt = heapq.heappop(self._heap)
+            due.append((pod, attempt))
+        return due
+
+    def __len__(self) -> int:
+        return len(self._heap)

@@ -282,3 +282,33 @@ def cluster_analysis_block(log: LogSink, tag: str, frag_amounts: np.ndarray,
     log.info("==============================================")
     log.infoln()
     return summary
+
+
+def disruption_report_block(log: LogSink, dm) -> Dict[str, float]:
+    """The `[Disruption]` block a fault replay prints after its last
+    segment (dm: tpusim_torch.sim.metrics.DisruptionMetrics). The analysis
+    parser skips this line family; the returned summary joins the CSV
+    stash as cluster_analysis_block's does."""
+    log.info(
+        f"[Disruption] node failures: {dm.node_failures}, recoveries: "
+        f"{dm.node_recoveries}, evicted pods: {dm.evicted_pods}, retries "
+        f"enqueued: {dm.retries_enqueued}"
+    )
+    lat = dm.reschedule_latency_events
+    log.info(
+        f"[Disruption] rescheduled: {dm.rescheduled_pods} "
+        f"(latency events mean {dm.mean_reschedule_latency():.1f}, max "
+        f"{max(lat) if lat else 0}), unscheduled after retries: "
+        f"{dm.unscheduled_after_retries}"
+    )
+    log.info(
+        f"[Disruption] failed-node GPU capacity lost: "
+        f"{dm.failed_node_gpu_events} GPU-events"
+    )
+    if dm.post_recovery_frag_delta:
+        log.info(
+            f"[Disruption] post-recovery frag delta: "
+            f"{sum(dm.post_recovery_frag_delta) / 1000:.2f} x 10^3 over "
+            f"{len(dm.post_recovery_frag_delta)} recoveries"
+        )
+    return {f"disruption_{k}": float(v) for k, v in dm.as_dict().items()}

@@ -90,6 +90,20 @@ def get_typical_pods(
     return make_typical_pods(rows, device), info
 
 
+def get_skyline_pods(pods: Sequence[PodRow]) -> List[Tuple[int, int]]:
+    """The Pareto skyline over (MilliCpu, MilliGpu) (frag.go:382-409):
+    sort ascending by (cpu, milli), stable, then keep each point with
+    strictly more CPU and strictly less GPU than the last one kept."""
+    res = sorted(pods, key=lambda p: (p.cpu_milli, p.gpu_milli))
+    skyline: List[Tuple[int, int]] = []
+    for p in res:
+        if not skyline or (
+            p.cpu_milli > skyline[-1][0] and p.gpu_milli < skyline[-1][1]
+        ):
+            skyline.append((p.cpu_milli, p.gpu_milli))
+    return skyline
+
+
 def pad_typical_pods(tp: TypicalPods, multiple: int = 16) -> TypicalPods:
     """Pad the typical-pod axis with zero-frequency rows to a multiple of
     `multiple`. Such rows add nothing to any frag amount or score."""
