@@ -4,6 +4,7 @@
     python3 chip_smoke.py --only clocks    # phases by name, repeatable
     python3 chip_smoke.py --only sweep     # the lanes kernels' phase
     python3 chip_smoke.py --only evict     # descheduling and faults
+    python3 chip_smoke.py --only lane      # the in-scan fault lane
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
@@ -155,6 +156,32 @@ result line:
            segment after a node failure and on a 256-node random cluster
            with a quarter of its nodes down under 06-FGD, the six-policy
            profile (flat only: it draws per event) and 05-BestFit.
+
+10. lane  the in-scan fault lane on the replays' fault forms
+           (replay_faults, replay_blocked_faults and their lanes forms):
+           each against its plain version on CPU copies, tolerance 0 with
+           outputs, the steps' outputs (the recover frags bit for bit),
+           the final carry, tables and summaries, on the openb merged
+           stream's first LANE_PREFIX steps (FAULT_FLAGS under 06-FGD; one
+           launch, and 4 equal lanes held to it) and on a LANE_CASE random
+           cluster with the LANE_CASE_FLAGS schedule under LANE_ROWS (one
+           launch, and 4 lanes of their own schedules, ranks and keys; the
+           six-policy profile flat only), each timed beside its plain
+           version and bound; the whole openb lane's launch timed. Then
+           run_with_faults with FAULT_FLAGS on openb, reports off, under
+           06-FGD with residency "auto" and "hbm" and 01-Random under
+           fault_mode scan: one init_tables and one fault-form launch
+           each, results and disruption metrics held to
+           FAULT_SCAN_SHA256, the plan's compile, the launch, the fetch
+           and the host tail timed apart; the segmented host loop on the
+           same run timed beside it. Then the chaos sweep: 16 lanes of
+           FAULT_FLAGS under fault seeds 1-16 (replay_lanes_faults, one
+           launch), each equal to its standalone lane run and seed 7's to
+           FAULT_SCAN_SHA256, its first 4 under "hbm"
+           (replay_blocked_lanes_faults) equal to them, and `apply
+           --sweep-faults` with the README's faults.json on the example
+           bundle, held to CHAOS_APPLY_SHA256. Writes
+           chiprun_out/lane_phase.json.
 
 Run with every phase, it then prints one JSON line describing the
 kernels, the card's line, and as the last line {"ok": true, "device":
@@ -349,7 +376,12 @@ REPLACES = {"init_tables": "tpusim/sim/pallas_engine.py:780",
             "replay": "tpusim/sim/pallas_engine.py:780",
             "replay_blocked": "tpusim/sim/pallas_engine.py:1346",
             "replay_lanes": "tpusim/sim/pallas_engine.py:780",
-            "replay_blocked_lanes": "tpusim/sim/pallas_engine.py:1346"}
+            "replay_blocked_lanes": "tpusim/sim/pallas_engine.py:1346",
+            "replay_faults": "tpusim/sim/pallas_engine.py:780",
+            "replay_lanes_faults": "tpusim/sim/pallas_engine.py:780",
+            "replay_blocked_faults": "tpusim/sim/pallas_engine.py:1346",
+            "replay_blocked_lanes_faults":
+                "tpusim/sim/pallas_engine.py:1346"}
 # the kernels each residency's replay launches
 RESIDENCY_KERNELS = {"vmem": ("init_tables", "replay"),
                      "hbm": ("init_tables", "replay_blocked")}
@@ -3082,6 +3114,74 @@ APPLY_FAULT_ARGS = ("-f", APPLY_DEFAULT_CR, "-s", APPLY_SCHEDULER,
 APPLY_FAULT_SHA256 = (
     "3a2ade9d0c2b2c248cb967368fc2fd31bd71c5628a198ad341a7a875ffe10675"
 )
+# The lane phase: the in-scan fault lane on the replays' fault forms.
+# FAULT_SCAN_SHA256 are the digests (result_digests and disruption_digest)
+# of the JAX package's lane runs of FAULT_FLAGS on openb with per-event
+# reports off, each row under FAULT_SCAN_MODES' fault_mode (06-FGD's
+# "auto" takes the lane there; 01-Random opts in with "scan");
+# tests/test_torch_fault_lane.py pins them (slow-marked). CHAOS_FAULTS is
+# the README's faults.json; CHAOS_APPLY_SHA256 the sha256 of chaos_stdout
+# of `python -m tpusim apply` with CHAOS_APPLY_ARGS (the faults file at
+# index 5). CHAOS_SEEDS: the fault seeds of the openb chaos sweep's lanes.
+FAULT_SCAN_MODES = {"06-FGD": "auto", "01-Random": "scan"}
+FAULT_SCAN_SHA256 = {
+    "06-FGD": {
+        "placed":
+            "81b5dca6778e580ce155e83bf9df7ea59dfafe1e21c9a89d6aa1859da361673b",
+        "dev_mask":
+            "9923e24a5eceb0ed987ba1e70a81e3d1d9cb3f089e25ade49f2ff6b99fee2e9f",
+        "creation_rank":
+            "80a4461cfbd2f9e8d7fe661cf790a4fe7349ae54f5d735775b363bfd6ac1aa7f",
+        "unscheduled":
+            "cc773af87c9da70358c3c9ab7f3aa4b7ff08c240134d1dae1eb9926beb098992",
+        "disruption":
+            "07240ca8197716ebd8ac73ee21e960bcc091f006178aa37c88883df733a1741c",
+    },
+    "01-Random": {
+        "placed":
+            "c808011e45a86e746da63e2108bcee75ee5ddb86df94712ec537d15ed141b908",
+        "dev_mask":
+            "ac55779821f0aae1e615c8ddb0ca8634e835aec8c006b119355809b7ee238d78",
+        "creation_rank":
+            "1bf38c8a7bf905a9e6265c44ba21ec10d506cafe5b5e38061ac0eb3a19f72820",
+        "unscheduled":
+            "7892573a36f44cbb01bd8483a61864a100b857d792c38588653915514c3075a3",
+        "disruption":
+            "1cfcd14bdc07c38b695fd042623c9993404ca2d642e86b2a41fdb266432da446",
+    },
+}
+CHAOS_FAULTS = {"faults": [
+    {"mtbf_events": 400, "mttr_events": 700, "seed": 1},
+    {"mtbf_events": 400, "mttr_events": 700, "seed": 2},
+    {"mtbf_events": 150, "evict_every_events": 300, "seed": 3,
+     "queue_capacity": 32},
+]}
+CHAOS_APPLY_ARGS = ("-f", APPLY_DEFAULT_CR, "-s", APPLY_SCHEDULER,
+                    "--sweep-faults", "faults.json")
+CHAOS_APPLY_SHA256 = (
+    "0156298eb8268f41b55bcd75ba30cd8723b4c608d9339156ec733d24bca75643"
+)
+CHAOS_SEEDS = tuple(range(1, 17))
+
+
+def digest_text(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def chaos_stdout(text: str) -> str:
+    """An `apply --sweep-faults` standard output without its [Engine] lines
+    and with the [Chaos] line cut before the engine it names (the port
+    names its kernel, tpusim its compiled scan)."""
+    out = []
+    for line in text.splitlines(keepends=True):
+        if "[Engine]" in line:
+            continue
+        if line.startswith("[Chaos]"):
+            line = line[:line.index(" in one ")] + "\n"
+        out.append(line)
+    return "".join(out)
+
+
 # the failed-node checks' random cluster: its nodes, its pods, and the
 # rows whose configurations it runs (a quarter of its nodes down)
 DOWN_CASE = (256, 600)
@@ -3429,7 +3529,651 @@ def evict_path(device, card: str):
     return launches, evict_kernel_checks(device, captured)
 
 
-PHASES = ("check", "clocks", "main", "apply", "scale", "sweep", "evict")
+# The lane phase: the in-scan fault lane on the replays' fault forms
+# (replay_faults.cu, replay_blocked_faults.cu). LANE_PREFIX: the steps of
+# the openb merged stream (FAULT_FLAGS under 06-FGD) the kernel checks
+# take; LANE_CASE / LANE_CASE_FLAGS: the random cluster's nodes and pods
+# and its schedule (dense enough that failures, recoveries, evictions,
+# overflowing retries and flush rounds all occur in ~1k steps); LANE_ROWS
+# its configurations (the profile flat only: it draws per event).
+LANE_PREFIX = 2_000
+LANE_CASE = (256, 300)
+LANE_CASE_FLAGS = dict(mtbf_events=80, mttr_events=150,
+                       evict_every_events=30, max_retries=2,
+                       queue_capacity=16)
+LANE_ROWS = ("06-FGD", "05-BestFit", "default-profile")
+FAULT_KERNELS = ("replay_faults", "replay_blocked_faults",
+                 "replay_lanes_faults", "replay_blocked_lanes_faults")
+FAULT_SOURCES = {
+    "replay_faults": "tpusim_torch/kernels/replay_faults.cu",
+    "replay_lanes_faults": "tpusim_torch/kernels/replay_faults.cu",
+    "replay_blocked_faults": "tpusim_torch/kernels/replay_blocked_faults.cu",
+    "replay_blocked_lanes_faults":
+        "tpusim_torch/kernels/replay_blocked_faults.cu",
+}
+
+
+def cut_plan(plan, steps: int):
+    """The first `steps` steps of a plan's merged stream, as a plan."""
+    from tpusim_torch.sim.engine import EV_NODE_RECOVER
+
+    cut = {f: getattr(plan, f)[:steps] for f in ("kind", "idx", "pos", "arg",
+                                                 "aux")}
+    return plan._replace(**cut, has_recover=bool(
+        (cut["kind"] == EV_NODE_RECOVER).any()))
+
+
+def float_bits(x):
+    """A result with its float32 tensors as their int32 bits (max_abs_err
+    then compares them bit for bit)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    if isinstance(x, tuple):
+        parts = [float_bits(v) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x
+
+
+def fault_reset(ready, state, tables, lane):
+    """reset_of's, and the fault form's carry, outputs and snapshots back to
+    `lane`'s initial values."""
+    base = reset_of(ready, state, tables)
+    t = ready.tensors
+    c = lane.carry
+
+    def reset():
+        base()
+        for name in ("q_ready", "q_seq", "q_pod", "q_att", "q_era"):
+            t[name].copy_(getattr(c, name))
+        for name in ("attempts", "evicted_at", "down_at", "dctr"):
+            t[f"f_{name}"].copy_(getattr(c, name))
+        t["f_dead"].copy_(c.dead.int())
+        t["f_seq"].fill_(int(c.seq))
+        for name in ("rpod", "lat", "vpod", "vnode"):
+            t[f"y_{name}"].fill_(-1)
+        t["y_nvict"].zero_()
+        t["y_rec"].zero_()
+        t["snap_node"].fill_(-1)
+    return reset
+
+
+def fault_against_plain(name: str, case, cfg, plan, key=CHECK_KEY,
+                        repeats: int = 3):
+    """Fault form `name` ("replay_faults" or "replay_blocked_faults") on
+    `case` = (state, pods, types, typical pods, rank, tables) over `plan`'s
+    merged stream, launched past its wrapper (a comparison: not counted),
+    against its plain version on CPU copies, tolerance 0: outputs, the
+    steps' outputs (the recover frags bit for bit), the final carry,
+    tables and, blocked, summaries and stats. Returns (error, kernel ms
+    (median of `repeats`, state restored), plain ms, the launch's
+    result, (the plain result, what the plain version kept))."""
+    import torch
+
+    from tpusim_torch.sim import fault_lane as fl
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.residency import num_normalized
+
+    state, pods, types, tp, rank, tables = case
+    dev = state.cpu_left.device
+    blocked = name == "replay_blocked_faults"
+    lane = fl.lane_of(plan, state, int(pods.cpu.shape[0]))
+    kinds = torch.as_tensor(plan.kind, device=dev)
+    idx = torch.as_tensor(plan.idx, device=dev)
+    prep = he.prepare_replay_blocked_faults if blocked \
+        else fe.prepare_replay_faults
+    plain = he.plain_replay_blocked if blocked else fe.plain_replay
+    kw = {} if blocked else dict(key=key)
+    args = (state, pods, types, kinds, idx, tp, rank, tables, cfg, lane)
+    ready = prep(*args, **kw)
+    fe.launch(ready)
+    got, keep = ready.finish(), {}
+    cpu = to_cpu(args[:-2])
+    plain_ms, want = wall_ms(lambda: plain(*cpu, cfg, keep=keep,
+                                           faults=to_cpu(lane), **kw))
+    err = max_abs_err(float_bits(to_cpu(got)), float_bits(want))
+    t = ready.tensors
+    err = max(err, max_abs_err(
+        to_cpu(tuple(t[f] for f in ("score", "sdev", "feas"))),
+        keep["tables"]))
+    if blocked:
+        names = ("bt", "br", "bn") + (("brmin", "brmax", "slo", "shi")
+                                      if num_normalized(cfg.policies) else ())
+        err = max(err, max_abs_err(
+            to_cpu(tuple(t[f] for f in names)),
+            tuple(getattr(keep["summaries"], f) for f in names)))
+    timed = prep(*args, **kw)
+    ms = kernel_ms(timed, repeats, fault_reset(timed, state, tables, lane))
+    return err, ms, plain_ms, got, (want, keep)
+
+
+def fault_lanes_reset(ready, state, tables, lanes):
+    """fault_reset for a lanes launch, lane by lane: each lane's tensors
+    (its views of the lanes' state, tables and outputs, and its fault
+    operands) back to their initial values."""
+    resets = [fault_reset(ready._replace(tensors=t), state, tables,
+                          lane.faults)
+              for t, lane in zip(ready.tensors["lanes"], lanes)]
+
+    def reset():
+        for r in resets:
+            r()
+    return reset
+
+
+def fault_lanes_against_plain(name: str, case, cfg, lanes, wants=None,
+                              first=None):
+    """Lanes fault form `name` over `lanes` (fused_engine.Lane with their
+    faults) from `case` = (state, types, typical pods, tables), launched
+    past its wrapper, against its plain version on CPU copies, tolerance 0
+    as fault_against_plain: outputs and each lane's final tables (and
+    summaries, blocked). `wants`, where given, are the lanes' results
+    already held to the plain version (lanes with equal inputs); `first`,
+    where given, is fault_against_plain's (plain result, kept) of inputs
+    equal to lane 0's, which the plain version then does not run again.
+    Returns (error, plain ms, the launch's results)."""
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.residency import num_normalized
+
+    state, types, tp, tables = case
+    blocked = name == "replay_blocked_lanes_faults"
+    prep = he.prepare_replay_blocked_lanes_faults if blocked \
+        else fe.prepare_replay_lanes_faults
+    plain = he.plain_replay_blocked_lanes if blocked \
+        else fe.plain_replay_lanes
+    ready = prep(state, types, tp, tables, cfg, lanes)
+    fe.launch(ready)
+    got = tuple(ready.finish())
+    if wants is not None:
+        return (max_abs_err(float_bits(to_cpu(got)), float_bits(tuple(wants))),
+                0.0, got)
+    rest = lanes[1:] if first else lanes
+    keep = {}
+    plain_ms, wants = wall_ms(lambda: plain(
+        to_cpu(state), to_cpu(types), to_cpu(tp), to_cpu(tables), cfg,
+        [to_cpu(lane) for lane in rest], keep=keep))
+    kept = [dict(tables=t) for t in keep["tables"]]
+    if blocked:
+        for k, summ in zip(kept, keep["summaries"]):
+            k["summaries"] = summ
+    if first:
+        wants, kept = [first[0]] + list(wants), [first[1]] + kept
+    err = max_abs_err(float_bits(to_cpu(got)), float_bits(tuple(wants)))
+    t = ready.tensors
+    names = ("bt", "br", "bn") + (("brmin", "brmax", "slo", "shi")
+                                  if num_normalized(cfg.policies) else ())
+    for b, k in enumerate(kept):
+        err = max(err, max_abs_err(to_cpu(tuple(
+            t[f][b] for f in ("score", "sdev", "feas"))),
+            tuple(k["tables"])))
+        if blocked:
+            err = max(err, max_abs_err(
+                to_cpu(tuple(t[f][b] for f in names)),
+                tuple(getattr(k["summaries"], f) for f in names)))
+    return err, plain_ms, got
+
+
+def fault_chain(name, case, cfg, plan, got, step_ms: float):
+    """(bound ms, what bounds it) of a fault form's run `got` over `plan`:
+    the merged stream's serial chain, each step at least `step_ms` (this
+    run's all-skip replay per event) plus its bytes, as chain_ms and
+    chain_blocked_ms count them, with the creates the retry slots ran,
+    and beside them each retry slot's scan of the queue (its ready, seq,
+    pod and era) and each fault step's two passes over the pods'
+    placements."""
+    import torch
+
+    from tpusim_torch.sim.engine import EV_CREATE, EV_RETRY, EV_SKIP
+    from tpusim_torch.sim.residency import num_normalized
+
+    state, pods, types, tp, rank, tables = case
+    result, fout = (got[0], got[-1])
+    ys = fout.ys
+    rpod = ys.rpod.cpu().numpy()
+    kinds = plan.kind.copy()
+    kinds[(kinds == EV_RETRY) & (rpod >= 0)] = EV_CREATE
+    kinds[kinds > EV_SKIP] = EV_SKIP
+    n, k, p = state.num_nodes, types.num_types, int(pods.cpu.shape[0])
+    refreshes = refreshes_of(result.event_node.cpu().numpy())
+    n_pol = cfg.num_tables
+    if name == "replay_blocked_faults":
+        pinned = pods.pinned.cpu().numpy()
+        idx = np.where(rpod >= 0, rpod, plan.idx)
+        unpinned = int(((kinds == EV_CREATE) & (pinned[idx] < 0)).sum())
+        chain = chain_blocked_ms(step_ms, kinds, unpinned, n, k, refreshes,
+                                 n_pol, num_normalized(cfg.policies),
+                                 int(got[1][2]))
+    else:
+        chain = chain_ms(step_ms, kinds, n, k, refreshes, n_pol)
+    slots = int((plan.kind == EV_RETRY).sum())
+    faults = int((plan.kind > EV_SKIP).sum()) - slots
+    extra = slots * 4 * 4 * plan.capacity + faults * 2 * 4 * p
+    return chain + extra / PEAK_BYTES_PER_S * 1e3, "operations"
+
+
+def skip_step_ms(name: str, case, cfg, e: int) -> float:
+    """Per-event milliseconds of an all-skip replay (replay or
+    replay_blocked, by the fault form's name) of `e` events on `case`."""
+    import torch
+
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    state, pods, types, tp, rank, tables = case
+    dev = state.cpu_left.device
+    skips = torch.full((e,), 2, dtype=torch.int32, device=dev)
+    zeros = torch.zeros((e,), dtype=torch.int32, device=dev)
+    if name.startswith("replay_blocked"):
+        ready = he.prepare_replay_blocked(state, pods, types, skips, zeros,
+                                          tp, rank, tables, cfg)
+    else:
+        ready = fe.prepare_replay(state, pods, types, skips, zeros, tp, rank,
+                                  tables, cfg, key=CHECK_KEY)
+    return kernel_ms(ready, 3, reset_of(ready, state, tables)) / e
+
+
+def lane_tables(state, types, tp, cfg):
+    """init_tables past its wrapper (a comparison: not counted)."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    prep = fe.prepare_init_tables(state, types, tp, cfg)
+    fe.launch(prep)
+    return prep.finish()
+
+
+def lane_kernel_checks(device, card: str):
+    """Each fault form against its plain version (CPU copies), tolerance 0
+    with outputs, the steps' outputs, the final carry, tables and
+    summaries: on the openb merged stream's first LANE_PREFIX steps
+    (FAULT_FLAGS under 06-FGD), one launch and 4 lanes of it; then on a
+    LANE_CASE random cluster with the LANE_CASE_FLAGS schedule under each
+    LANE_ROWS row (replay_blocked* for those that draw nothing per event),
+    one launch and 4 lanes of their own schedules, ranks and keys. Times
+    each kernel beside its plain version and bound. Returns ({kernel: its
+    row's numbers}, the openb plan and its compile's host ms)."""
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes, pad_rank
+    from tpusim_torch.sim import fault_lane as fl
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.faults import FaultConfig, generate_fault_schedule
+
+    rows = dict((r[0], r) for r in METHODS)
+    out = {}
+
+    def note(name, err, ms, plain_ms, bound, label):
+        row = out.setdefault(name, dict(max_abs_err=0, cases={}))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["cases"][label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        if bound is not None and "ms" not in row:  # the row's numbers
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                       bound_by=bound[1], case=label)
+        if err:
+            raise SmokeFailure(f"{name} disagrees with its plain version on "
+                               f"{label}")
+
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    n, p = state.num_nodes, int(specs.cpu.shape[0])
+    fcfg = FaultConfig(**FAULT_FLAGS)
+    t0 = time.perf_counter()
+    plan = fl.compile_fault_plan(evk.cpu().numpy(), evp.cpu().numpy(),
+                                 generate_fault_schedule(n, evk.shape[0],
+                                                         fcfg),
+                                 fcfg, n, p)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    cut = cut_plan(plan, LANE_PREFIX)
+    cfg = fe.make_config(*rows["06-FGD"][1:5])
+    for name, lanes_name in (("replay_faults", "replay_lanes_faults"),
+                             ("replay_blocked_faults",
+                              "replay_blocked_lanes_faults")):
+        st, rk = (pad_nodes(state, rank, 128)
+                  if name == "replay_blocked_faults" else (state, rank))
+        tables = lane_tables(st, types, tp, cfg)
+        case = (st, specs, types, tp, rk, tables)
+        err, ms, plain_ms, got, _ = fault_against_plain(name, case, cfg,
+                                                        cut)
+        bound = fault_chain(name, case, cfg, cut, got,
+                            skip_step_ms(name, case, cfg, LANE_PREFIX))
+        label = f"openb 06-FGD first {LANE_PREFIX} steps"
+        note(name, err, ms, plain_ms, bound, label)
+        print(f"lane check {name} {label} N={st.num_nodes} (steps by kind "
+              f"{np.bincount(cut.kind, minlength=7).tolist()}): "
+              f"max_abs_err={err} with the steps' outputs, carry, tables"
+              f"{' and summaries' if 'blocked' in name else ''} (tolerance "
+              f"0); {ms:.3f} ms, plain {plain_ms:.1f} ms on the CPU, bound "
+              f"{bound[0]:.3f} ms; on {card}", flush=True)
+        # 4 lanes of the same inputs, each held to the single launch (held
+        # to the plain version above)
+        lane = fe.Lane(specs, types.type_id,
+                       torch.as_tensor(cut.kind, device=device),
+                       torch.as_tensor(cut.idx, device=device), rk,
+                       cfg.weights, None,
+                       fl.lane_of(cut, st, p))
+        lerr, _, _ = fault_lanes_against_plain(
+            lanes_name, (st, types, tp, tables), cfg, [lane] * 4,
+            wants=[to_cpu(got)] * 4)
+        note(lanes_name, lerr, None, None, None, label + ", 4 equal lanes")
+        print(f"lane check {lanes_name} {label}, 4 equal lanes: "
+              f"max_abs_err={lerr} against the checked launch (tolerance 0)",
+              flush=True)
+
+    nn, pp = LANE_CASE
+    base = random_case(91, nn, pp, device)
+    for mid in LANE_ROWS:
+        cfg = fe.make_config(*rows[mid][1:5])
+        names = (("replay_faults", "replay_lanes_faults"),)
+        if mid not in RANDOMIZED_ROWS:
+            names += (("replay_blocked_faults", "replay_blocked_lanes_faults"),)
+        state, pods, types, evk, evp, tp, rank = base
+        plans = []
+        for b in range(4):
+            fc = FaultConfig(**LANE_CASE_FLAGS, seed=11 + b)
+            plans.append(fl.compile_fault_plan(
+                evk.cpu().numpy(), evp.cpu().numpy(),
+                generate_fault_schedule(nn, evk.shape[0], fc), fc, nn, pp))
+        gen = torch.Generator().manual_seed(5)
+        ranks = [rank] + [torch.randperm(nn, generator=gen).int().to(device)
+                          for _ in range(3)]
+        for name, lanes_name in names:
+            blocked = "blocked" in name
+            st = pad_nodes(state, rank, 128)[0] if blocked else state
+            rks = [pad_rank(r, 128) if blocked else r for r in ranks]
+            tables = lane_tables(st, types, tp, cfg)
+            case = (st, pods, types, tp, rks[0], tables)
+            err, ms, plain_ms, got, first = fault_against_plain(
+                name, case, cfg, plans[0])
+            label = f"random {nn} nodes {mid}"
+            note(name, err, ms, plain_ms, None, label)
+            lanes = [fe.Lane(pods, types.type_id,
+                             torch.as_tensor(pl.kind, device=device),
+                             torch.as_tensor(pl.idx, device=device), rks[b],
+                             cfg.weights,
+                             (0, 7 + b) if cfg.randomized else None,
+                             fl.lane_of(pl, st, pp))
+                     for b, pl in enumerate(plans)]
+            lerr, lplain, lgot = fault_lanes_against_plain(
+                lanes_name, (st, types, tp, tables), cfg, lanes, first=first)
+            bound = None
+            lms = None
+            if mid == LANE_ROWS[0]:  # the lanes rows' numbers
+                prep = (he.prepare_replay_blocked_lanes_faults if blocked
+                        else fe.prepare_replay_lanes_faults)
+                timed = prep(st, types, tp, tables, cfg, lanes)
+                lms = kernel_ms(timed, 3, fault_lanes_reset(timed, st, tables,
+                                                            lanes))
+                step = skip_step_ms(name, case, cfg, 1000)
+                chains = [fault_chain(name, (st, pods, types, tp, rks[b],
+                                             tables), cfg, pl, lgot[b],
+                                      step)[0]
+                          for b, pl in enumerate(plans)]
+                bound = lanes_bound(chains, len(lanes),
+                                    (cfg.num_tables + 2) * types.num_types
+                                    * st.num_nodes * 4)
+            note(lanes_name, lerr, lms, plain_ms + lplain, bound,
+                 label + ", 4 lanes")
+            print(f"lane check {name} and {lanes_name} {label} (steps "
+                  f"{[int(pl.kind.shape[0]) for pl in plans]}, by kind "
+                  f"{np.bincount(plans[0].kind, minlength=7).tolist()}): "
+                  f"max_abs_err={err} one launch, {lerr} 4 lanes (tolerance "
+                  f"0); {ms:.3f} ms, plain {plain_ms:.1f} ms, lanes 1-3's "
+                  f"plain {lplain:.1f} ms on the CPU; on {card}", flush=True)
+    return out, plan, plan_ms
+
+
+def lane_sim(mid: str, setting: str, mode: str, device, pods):
+    """A Simulator of a METHODS row on openb (tune 1.3, seeds 42, shuffled),
+    per-event reports off, with `mode` as fault_mode and residency
+    `setting`."""
+    import dataclasses
+
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.io.trace import load_node_csv
+    from tpusim_torch.sim.driver import Simulator
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "data", "csv")
+    row = dict((r[0], r) for r in METHODS)[mid]
+    cfg = dataclasses.replace(method_config(*row[1:5]), report_per_event=False,
+                              fault_mode=mode, table_residency=setting)
+    sim = Simulator(load_node_csv(os.path.join(
+        data, "openb_node_list_gpu_node.csv")), cfg, device=device)
+    sim.set_workload_pods(pods)
+    return sim
+
+
+def fault_counts(label: str, counts: dict, want: dict) -> None:
+    """The run launched exactly `want`'s kernels as many times each."""
+    expect = {name: want.get(name, 0) for name in counts}
+    if counts != expect:
+        raise SmokeFailure(f"{label}: launches {counts}, want {expect}")
+
+
+def lane_runs(device, card: str):
+    """The lane on its paths at openb, per-event reports off, the launch
+    counts set to 0 before each run and read after it: run_with_faults
+    with FAULT_FLAGS under 06-FGD with residency "auto" (replay_faults)
+    and "hbm" (replay_blocked_faults), fault_mode auto, and 01-Random
+    under fault_mode scan: one init_tables and one fault-form launch each,
+    results, ranks, unscheduled pods and disruption metrics held to
+    FAULT_SCAN_SHA256, the plan's compile, the launch, the fetch and the
+    host tail timed apart; the segmented host loop on the same run
+    (fault_mode segments) timed beside it, its results held to the same
+    digests. Returns ({label: counts}, {label: timings})."""
+    import torch
+
+    from tpusim_torch.io.trace import load_pod_csv
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.faults import FaultConfig
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "data", "csv")
+    pods = load_pod_csv(os.path.join(data, "openb_pod_list_default.csv"))
+    launches, times = {}, {}
+    for mid, setting, mode, kernel in (
+            ("06-FGD", "auto", "auto", "replay_faults"),
+            ("06-FGD", "hbm", "auto", "replay_blocked_faults"),
+            ("01-Random", "auto", "scan", "replay_faults"),
+            ("06-FGD", "auto", "segments", "replay")):
+        label = (f"lane {mid}" + ("/hbm" if setting == "hbm" else "")
+                 + ("/segments" if mode == "segments" else ""))
+        sim = lane_sim(mid, setting, mode, device, pods)
+        fe.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sim.run_with_faults(FaultConfig(**FAULT_FLAGS))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = run_counts()
+        segments = len(sim.replay_times)
+        fault_counts(label, counts, {"init_tables": segments,
+                                    kernel: segments})
+        launches[label] = counts
+        got = dict(result_digests(res),
+                   disruption=disruption_digest(sim.last_disruption))
+        if got != FAULT_SCAN_SHA256[mid]:
+            raise SmokeFailure(f"{label}: differs from the JAX reference's "
+                               f"lane: {got}")
+        t = {key: sum(r.get(key, 0.0) for r in sim.replay_times)
+             for key in ("plan_ms", "replay_ms", "fetch_ms", "report_ms")}
+        t.update(wall_ms=wall, segments=segments, events=res.events)
+        times[label] = t
+        print(f"lane run {label}: {sim.last_engine} ({sim.last_residency}), "
+              f"launches {counts}, {segments} launch(es) of {kernel}; "
+              f"{res.events} events; run_with_faults {wall:.1f} ms: plan "
+              f"compile {t['plan_ms']:.1f} ms, init_tables + replay up to "
+              f"a synchronise {t['replay_ms']:.1f} ms, fetch "
+              f"{t['fetch_ms']:.1f} ms, host tail {t['report_ms']:.1f} ms "
+              f"(host clock); matches FAULT_SCAN_SHA256 on {card}",
+              flush=True)
+    return launches, times
+
+
+def chaos_runs(device, card: str):
+    """The chaos sweep at openb: run_sweep(faults=) with 16 lanes of
+    FAULT_FLAGS under fault seeds CHAOS_SEEDS (06-FGD, reports off,
+    residency auto: init_tables and replay_lanes_faults once each), each
+    lane equal to its standalone lane run (run_with_faults, fault_mode
+    scan) and seed 7's to FAULT_SCAN_SHA256; then its first 4 lanes under
+    "hbm" (replay_blocked_lanes_faults), equal to the same lanes; then
+    `python -m tpusim_torch.cli apply` with CHAOS_APPLY_ARGS (the README's
+    faults.json), its chaos_stdout held to CHAOS_APPLY_SHA256. Returns
+    ({label: counts}, {label: timings})."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import torch
+
+    from tpusim_torch.apply import Applier
+    from tpusim_torch.cli import apply_options, build_parser
+    from tpusim_torch.io.trace import load_pod_csv
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.faults import FaultConfig
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "data", "csv")
+    pods = load_pod_csv(os.path.join(data, "openb_pod_list_default.csv"))
+    launches, times = {}, {}
+    specs = [FaultConfig(**dict(FAULT_FLAGS, seed=s)) for s in CHAOS_SEEDS]
+    lanes_of = {}
+    for setting, b, kernel in (("auto", len(specs), "replay_lanes_faults"),
+                               ("hbm", min(4, len(specs)),
+                                "replay_blocked_lanes_faults")):
+        label = f"chaos {b} lanes" + ("/hbm" if setting == "hbm" else "")
+        sim = lane_sim("06-FGD", setting, "scan", device, pods)
+        fe.reset_launch_counts()
+        t0 = time.perf_counter()
+        lanes = sim.run_sweep([[1000]] * b, faults=specs[:b])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = run_counts()
+        fault_counts(label, counts, {"init_tables": 1, kernel: 1})
+        launches[label] = counts
+        lanes_of[setting] = lanes
+        times[label] = dict(wall_ms=wall, lanes=b)
+        print(f"lane {label}: {sim.last_engine} ({sim.last_residency}), "
+              f"launches {counts}; run_sweep {wall:.1f} ms (host clock, the "
+              f"lanes' plan compiles included) on {card}", flush=True)
+    for i, ln in enumerate(lanes_of["hbm"]):
+        same_replay(f"chaos lane {i} hbm", ln, lanes_of["auto"][i])
+        if disruption_digest(ln.disruption) != disruption_digest(
+                lanes_of["auto"][i].disruption):
+            raise SmokeFailure(f"chaos lane {i} hbm: disruption differs")
+    sim = lane_sim("06-FGD", "auto", "scan", device, pods)
+    solo_ms = []
+    for i, (spec, ln) in enumerate(zip(specs, lanes_of["auto"])):
+        t0 = time.perf_counter()
+        res = sim.run_with_faults(spec)
+        solo_ms.append((time.perf_counter() - t0) * 1e3)
+        dm = disruption_digest(sim.last_disruption)
+        if not (np.array_equal(ln.placed_node, res.placed_node)
+                and np.array_equal(ln.dev_mask, res.dev_mask)
+                and ln.events == res.events
+                and disruption_digest(ln.disruption) == dm):
+            raise SmokeFailure(f"chaos lane {i} (fault seed {spec.seed}) "
+                               "differs from its standalone lane run")
+        if spec.seed == 7:
+            want = FAULT_SCAN_SHA256["06-FGD"]
+            if (digest(ln.placed_node, np.int32) != want["placed"]
+                    or digest(ln.dev_mask, np.uint8) != want["dev_mask"]
+                    or dm != want["disruption"]):
+                raise SmokeFailure("chaos lane of fault seed 7 differs from "
+                                   "FAULT_SCAN_SHA256")
+    times["chaos standalone"] = dict(runs=len(solo_ms),
+                                     median_ms=float(np.median(solo_ms)))
+    print(f"lane chaos: every lane equals its standalone lane run (median "
+          f"{np.median(solo_ms):.1f} ms a run, host clock), fault seed 7's "
+          f"matches FAULT_SCAN_SHA256; the 4 hbm lanes equal the auto ones",
+          flush=True)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "faults.json")
+        with open(path, "w") as f:
+            json.dump(CHAOS_FAULTS, f)
+        argv = ["apply", *CHAOS_APPLY_ARGS, "--base-dir", root]
+        for i in (2, 4):
+            argv[i] = os.path.join(root, argv[i])
+        argv[6] = path
+        applier = Applier(apply_options(build_parser().parse_args(argv)))
+        buf = io.StringIO()
+        fe.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            applier.run(out=buf)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    counts = run_counts()
+    fault_counts("apply --sweep-faults", counts,
+                {"init_tables": 1, "replay_lanes_faults": 1})
+    launches["apply --sweep-faults"] = counts
+    got = digest_text(chaos_stdout(buf.getvalue()))
+    if got != CHAOS_APPLY_SHA256:
+        raise SmokeFailure(f"apply --sweep-faults: chaos stdout sha256 {got}")
+    times["apply --sweep-faults"] = dict(wall_ms=wall)
+    print(f"lane apply {' '.join(CHAOS_APPLY_ARGS)}: launches {counts}, "
+          f"stdout matches CHAOS_APPLY_SHA256; {wall:.1f} ms (host clock) on "
+          f"{card}", flush=True)
+    return launches, times
+
+
+def lane_full_ms(device, plan) -> dict:
+    """The fault forms' kernel ms (CUDA events, median of 3, state restored)
+    over the whole openb merged stream of `plan` under 06-FGD."""
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fault_lane as fl
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    cfg = fe.make_config(*dict((r[0], r) for r in METHODS)["06-FGD"][1:5])
+    kinds = torch.as_tensor(plan.kind, device=device)
+    idx = torch.as_tensor(plan.idx, device=device)
+    out = {}
+    for name in ("replay_faults", "replay_blocked_faults"):
+        st, rk = (pad_nodes(state, rank, 128)
+                  if name == "replay_blocked_faults" else (state, rank))
+        tables = lane_tables(st, types, tp, cfg)
+        lane = fl.lane_of(plan, st, int(specs.cpu.shape[0]))
+        prep = he.prepare_replay_blocked_faults \
+            if name == "replay_blocked_faults" else fe.prepare_replay_faults
+        ready = prep(st, specs, types, kinds, idx, tp, rk, tables, cfg, lane)
+        out[name] = kernel_ms(ready, 3, fault_reset(ready, st, tables, lane))
+    return out
+
+
+def lane_path(device, card: str):
+    """Phase 10: the in-scan fault lane (module docstring). Returns
+    ({run label: launch counts}, {fault kernel: its row's numbers})."""
+    rows, plan, plan_ms = lane_kernel_checks(device, card)
+    full = lane_full_ms(device, plan)
+    print(f"lane openb merged stream ({plan.kind.shape[0]} steps, by kind "
+          f"{np.bincount(plan.kind, minlength=7).tolist()}, draw table "
+          f"{plan.draws.shape}): host plan compile {plan_ms:.1f} ms; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in full.items())
+          + f" (CUDA events) on {card}", flush=True)
+    launches, times = lane_runs(device, card)
+    counts, chaos = chaos_runs(device, card)
+    launches.update(counts)
+    times.update(chaos)
+    for name, ms in full.items():
+        rows[name]["openb_ms"] = ms
+    rows["replay_faults"]["plan_ms"] = plan_ms
+    rows["replay_faults"]["runs"] = times
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "lane_phase.json"), "w") as f:
+        json.dump(dict(card=card, rows=rows, launches=launches), f, indent=1)
+    return launches, rows
+
+
+PHASES = ("check", "clocks", "main", "apply", "scale", "sweep", "evict",
+          "lane")
 
 
 def scale_inputs(device):
@@ -3703,7 +4447,9 @@ def main(argv=None) -> int:
                         "Function" in line:
                     print(f"ptxas [{variant or 'main'}]: {line.strip()}")
         print(f"kernels: {', '.join(kernels.KERNELS)} "
-              f"(route cuda, {SOURCE}, the lanes {LANES_SOURCE})")
+              f"(route cuda, {SOURCE}, the lanes {LANES_SOURCE}); fault "
+              f"forms {', '.join(kernels.FAULT_KERNELS)} "
+              f"({', '.join(sorted(set(FAULT_SOURCES.values())))})")
         kernels.library()
         from tpusim_torch import native
 
@@ -3714,6 +4460,7 @@ def main(argv=None) -> int:
 
         launches, clocks = {}, []
         errors = dict.fromkeys(kernels.KERNELS, 0)
+        fault_rows = {}
         if "check" in phases:
             measured, worst = check_kernels(device, card)
             blocked, err = check_blocked(device, card)
@@ -3755,6 +4502,10 @@ def main(argv=None) -> int:
             for name, err in evict_err.items():
                 errors[name] = max(errors[name], err)
             print(f"phase evict done at {time.perf_counter() - t0:.1f} s")
+        if "lane" in phases:
+            counts, fault_rows = lane_path(device, card)
+            launches.update(counts)
+            print(f"phase lane done at {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -3767,7 +4518,8 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": kernel_rows(
             [k for k in kernels.KERNELS if k not in LANE_KERNELS], measured,
             blocked, launches, scale, errors) + lane_kernel_rows(
-                lane_rows, launches)}))
+                lane_rows, launches) + fault_kernel_rows(fault_rows,
+                                                         launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3815,6 +4567,25 @@ def lane_kernel_rows(lane_rows, launches):
             launches=sum(c.get(name, 0) for c in launches.values()),
             max_abs_err=r.pop("max_abs_err"), library_ms=None,
             configs=r.pop("configs"), **r))
+    return rows
+
+
+def fault_kernel_rows(fault_rows, launches):
+    """The kernels line's rows of the fault forms: their numbers on the
+    openb merged stream's first LANE_PREFIX steps (the lanes forms': the
+    random case's 4 lanes), every checked case under "cases", the whole
+    openb lane's kernel time under "openb_ms", and their launches on the
+    lane phase's runs."""
+    rows = []
+    for name in FAULT_KERNELS:
+        r = dict(fault_rows[name])
+        rows.append(dict(
+            name=name, route="cuda", source=FAULT_SOURCES[name],
+            replaces=REPLACES[name],
+            launches=sum(c.get(name, 0) for c in launches.values()),
+            max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
+            plain_ms=r.pop("plain_ms"), bound_ms=r.pop("bound_ms"),
+            bound_by=r.pop("bound_by"), library_ms=None, **r))
     return rows
 
 

@@ -13,15 +13,17 @@ import pytest
 import torch
 
 from chip_smoke import (
-    DIM_EXT, DOWN_CASE, DOWN_ROWS, INIT_NODES, INIT_ROWS, METHODS, MIXES,
-    NORM, PAST_LIMIT, PAST_LIMIT_ROWS, RANDOMIZED_ROWS, SHAPE_CASES,
-    SHAPE_ROWS, WIDE_BLOCKED, against_plain, down_checks, init_case,
-    init_config, past_limit_errors, random_case, shape_errors, typed_case,
+    DIM_EXT, DOWN_CASE, DOWN_ROWS, INIT_NODES, INIT_ROWS, LANE_CASE_FLAGS,
+    LANE_ROWS, METHODS, MIXES, NORM, PAST_LIMIT, PAST_LIMIT_ROWS,
+    RANDOMIZED_ROWS, SHAPE_CASES, SHAPE_ROWS, WIDE_BLOCKED, against_plain,
+    down_checks, fault_against_plain, fault_lanes_against_plain, init_case, init_config, lane_tables,
+    past_limit_errors, random_case, shape_errors, typed_case,
 )
 from tpusim_torch.io.trace import (
     build_events, load_node_csv, load_pod_csv, pods_to_specs,
 )
 from tpusim_torch.parallel.sharding import pad_nodes
+from tpusim_torch.sim import fault_lane as fl
 from tpusim_torch.sim import fused_engine as fe
 from tpusim_torch.sim import hbm_engine as he
 from tpusim_torch.sim.driver import Simulator, SimulatorConfig
@@ -551,6 +553,100 @@ def test_run_with_faults_on_card_matches_cpu(cuda_device, residency):
     _same_result(gpu.last_result, cpu.last_result)
     assert gpu.last_disruption == cpu.last_disruption
     assert gpu.last_disruption.node_failures > 0
+
+
+def _fault_plans(case, count: int):
+    """`count` plans of LANE_CASE_FLAGS schedules (fault seeds 21, 22, ...)
+    over a random case's events."""
+    from tpusim_torch.sim.faults import generate_fault_schedule
+
+    state, pods, _, evk, evp, _, _ = case
+    n, p = state.num_nodes, int(pods.cpu.shape[0])
+    plans = []
+    for b in range(count):
+        fcfg = FaultConfig(**LANE_CASE_FLAGS, seed=21 + b)
+        plans.append(fl.compile_fault_plan(
+            evk.cpu().numpy(), evp.cpu().numpy(),
+            generate_fault_schedule(n, evk.shape[0], fcfg), fcfg, n, p))
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", LANE_ROWS)
+def test_fault_forms_match_plain_on_card(cuda_device, row):
+    """Each fault form against its plain version on a 64-node random
+    cluster under a dense schedule (failures, recoveries, evictions,
+    retries, a queue of 16 that overflows, flush rounds): one launch and
+    2 lanes of their own schedules, ranks and keys, tolerance 0 with the
+    steps' outputs, the final carry, tables and summaries (the blocked
+    forms for the rows that draw nothing per event)."""
+    cfg = fe.make_config(*dict((r[0], r) for r in METHODS)[row][1:5])
+    case = random_case(41, 64, 200, cuda_device)
+    state, pods, types, evk, evp, tp, rank = case
+    plans = _fault_plans(case, 2)
+    forms = [("replay_faults", "replay_lanes_faults")]
+    if row not in RANDOMIZED_ROWS:
+        forms.append(("replay_blocked_faults", "replay_blocked_lanes_faults"))
+    for name, lanes_name in forms:
+        st, rk = (pad_nodes(state, rank, 128) if "blocked" in name
+                  else (state, rank))
+        tables = lane_tables(st, types, tp, cfg)
+        err = fault_against_plain(name, (st, pods, types, tp, rk, tables),
+                                  cfg, plans[0], repeats=1)[0]
+        assert err == 0, name
+        other = torch.flip(rk[:64], (0,))
+        lanes = [fe.Lane(pods, types.type_id,
+                         torch.as_tensor(pl.kind, device=cuda_device),
+                         torch.as_tensor(pl.idx, device=cuda_device),
+                         rk if b == 0 else torch.cat([other, rk[64:]]),
+                         cfg.weights, (0, 7 + b) if cfg.randomized else None,
+                         fl.lane_of(pl, st, 200))
+                 for b, pl in enumerate(plans)]
+        assert fault_lanes_against_plain(
+            lanes_name, (st, types, tp, tables), cfg, lanes)[0] == 0, \
+            lanes_name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True], ids=["flat", "blocked"])
+def test_retry_only_stream_leaves_tables_unchanged(cuda_device, blocked):
+    """A stream of EV_RETRY slots alone over an empty queue: every slot is
+    inert, so the fault form leaves the state, tables, placements, carry
+    and outputs as they were."""
+    cfg = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    state, pods, types, _, _, tp, rank = random_case(43, 64, 50, cuda_device)
+    if blocked:
+        state, rank = pad_nodes(state, rank, 128)
+    tables = lane_tables(state, types, tp, cfg)
+    e = 300
+    plan = fl.FaultPlan(
+        kind=np.full(e, 6, np.int32), idx=np.zeros(e, np.int32),
+        pos=np.arange(e, dtype=np.int32) // 3,
+        arg=np.where(np.arange(e) >= 240, 1, 0).astype(np.int32),
+        aux=np.full(e, -1, np.int32), draws=np.full((1, 51), -1, np.int32),
+        params=np.array([8, 256, 3, 100], np.int32), capacity=16,
+        num_events=100, has_recover=False)
+    lane = fl.lane_of(plan, state, 50)
+    args = (state, pods, types, torch.as_tensor(plan.kind, device=cuda_device),
+            torch.as_tensor(plan.idx, device=cuda_device), tp, rank, tables,
+            cfg, lane)
+    if blocked:
+        out, _, fout = he.replay_blocked_faults(*args)
+    else:
+        out, fout = fe.replay_faults(*args)
+    for a, b in zip(out.state, state):
+        assert torch.equal(a, b)
+    ready = (he.prepare_replay_blocked_faults if blocked
+             else fe.prepare_replay_faults)(*args)
+    fe.launch(ready)
+    for name, t in zip(("score", "sdev", "feas"), tables):
+        assert torch.equal(ready.tensors[name], t), name
+    assert bool((out.placed_node == -1).all())
+    assert bool((out.event_node == -1).all())
+    assert bool((fout.ys.rpod == -1).all()) and bool((fout.ys.nvict == 0).all())
+    for name in fl.FaultCarry._fields:
+        assert torch.equal(getattr(fout.carry, name).cpu(),
+                           getattr(lane.carry, name).cpu()), name
 
 
 @pytest.mark.cuda

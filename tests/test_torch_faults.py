@@ -4,10 +4,11 @@ eviction draw, the retry queue and the node fail/recover transitions; the
 whole Simulator.run_with_faults (placements, masks, creation ranks, the
 unscheduled pods and their reasons, the disruption metrics, the log
 without its [Engine] lines, the analysis CSVs) against tpusim's default
-fault_mode with per-event reports on and off, under fault_mode="segments",
-for 01-Random and for an explicit schedule; apply's --fault-* flags on the
-example bundle; what still raises; and, slow-marked, the digests
-chip_smoke.py holds the card's fault runs to."""
+fault_mode with per-event reports on and off (its in-scan lane with them
+off), under fault_mode="segments", for 01-Random and for an explicit
+schedule; apply's --fault-* flags on the example bundle; what still
+raises; and, slow-marked, the digests chip_smoke.py holds the card's fault
+runs to."""
 
 import dataclasses
 import hashlib
@@ -238,25 +239,19 @@ def test_apply_faults_match_jax():
 
 
 def test_fault_lane_options_raise():
-    """fault_mode="scan", run_sweep(faults=), schedule_pods_sweep_multi(
-    fault_specs=) and apply --sweep-faults need the in-scan fault lane:
-    NotImplementedError naming its item; an unknown fault_mode and a
-    timestamped trace raise ValueError as in tpusim."""
+    """An unknown fault_mode and a timestamped trace raise ValueError as in
+    tpusim; the apply options whose plane the port still lacks raise
+    NotImplementedError naming their item: --checkpoint-every (8) and
+    --listen (14). (The lane's own entries run: test_torch_fault_lane.py.)"""
     from tpusim_torch import apply as papply
-    from tpusim_torch.sim.driver import schedule_pods_sweep_multi
 
     jsim, psim = _fault_sims("06-FGD", False, "scan", 20, 20)
-    match = "item 9 \\(the in-scan fault lane\\)"
-    with pytest.raises(NotImplementedError, match=match):
-        psim.run_with_faults(pfaults.FaultConfig(mtbf_events=5))
-    with pytest.raises(NotImplementedError, match=match):
-        psim.run_sweep([[1000]], faults=[{}])
-    with pytest.raises(NotImplementedError, match=match):
-        schedule_pods_sweep_multi(psim, [[]], [[1000]], fault_specs=[{}])
-    with pytest.raises(NotImplementedError, match=match):
-        papply.Applier(papply.ApplyOptions(
-            simon_config=os.path.join(REPO, chip_smoke.APPLY_DEFAULT_CR),
-            sweep_faults="x.json"))
+    cr = os.path.join(REPO, chip_smoke.APPLY_DEFAULT_CR)
+    for option, value, item in (("checkpoint_every", 100, "item 8 "),
+                                ("listen", "127.0.0.1:0", "item 14 ")):
+        with pytest.raises(NotImplementedError, match=item):
+            papply.Applier(papply.ApplyOptions(simon_config=cr,
+                                               **{option: value}))
     psim.cfg.fault_mode = "bogus"
     with pytest.raises(ValueError, match="unknown fault_mode"):
         psim.run_with_faults(pfaults.FaultConfig(mtbf_events=5))

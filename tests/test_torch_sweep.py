@@ -305,18 +305,19 @@ def test_lane_weights_follow_the_config_order():
 
 
 def test_refusals():
-    """A batch of mixed configurations, the chaos sweep and a bad grid
-    raise before anything runs."""
+    """A batch of mixed configurations, a chaos sweep with a bad fault
+    spec or spec count, and a bad grid raise before anything runs."""
     _, psim = _sims(_configs(), 50)
     other = pd.Simulator(psim.nodes, dataclasses.replace(
         psim.cfg, policies=(("FGDScore", 1000),)), device="cpu")
     other.set_workload_pods(psim.workload_pods)
     with pytest.raises(ValueError, match="same-config"):
         pd.run_batch([psim, other])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="each fault lane must be"):
         psim.run_sweep([[1, 1]], faults=[None])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pd.schedule_pods_sweep_multi(psim, [[]], [[1, 1]], fault_specs=[None])
+    with pytest.raises(ValueError, match="fault_specs has 2 entries"):
+        pd.schedule_pods_sweep_multi(psim, [[]], [[1, 1]],
+                                     fault_specs=[None, None])
     with pytest.raises(ValueError, match=r"\[B, 2\] matrix"):
         pd.schedule_pods_sweep(psim, [], [[1, 2, 3]])
     with pytest.raises(ValueError, match="seeds has 1 entries"):

@@ -8,7 +8,8 @@ ref: pkg/apply/apply.go Run() and pkg/simulator/core.go Simulate()).
   new-workload swap → deschedule and reschedule (PostEviction,
   PostDeschedule, their snapshots, DescheduleInflation) → per-app
   scheduling (YAML apps and Helm charts) → the verdict → the report tables;
-  or, with --sweep-weights, one sweep over a weight grid in place of the
+  or, with --sweep-weights, one sweep over a weight grid, or with
+  --sweep-faults, one chaos sweep over fault schedules, in place of the
   replay and the stages after it.
 
 Every replay runs the port's kernels (`Simulator`): on the GPU unless the
@@ -47,6 +48,7 @@ from tpusim_torch.sim.driver import (
     SimulateResult,
     Simulator,
     SimulatorConfig,
+    format_chaos_table,
     format_sweep_table,
 )
 from tpusim_torch.sim.faults import FaultConfig
@@ -61,8 +63,10 @@ COLOR_RESET = "\033[0m"
 class ApplyOptions:
     """The CLI surface (ref: cmd/apply/apply.go:26-40), with tpusim's
     options. `sweep_weights` (a weight-grid JSON, load_weights_payload)
-    replaces the main schedule with a config sweep; the `fault_*` options
-    replay it under a seeded fault schedule (Simulator.run_with_faults).
+    replaces the main schedule with a config sweep, `sweep_faults` (a
+    faults JSON, load_faults_payload) with a chaos sweep; the `fault_*`
+    options replay it under a seeded fault schedule
+    (Simulator.run_with_faults).
     The others after `table_residency` are the planes the port does not
     have yet: any value but the default raises (REFUSED_OPTIONS)."""
 
@@ -112,7 +116,6 @@ REFUSED_OPTIONS = {
     "decisions_out": ("--decisions-out", "10 (in-scan records)"),
     "series_every": ("--series-every", "10 (in-scan records)"),
     "listen": ("--listen", "14 (service plane)"),
-    "sweep_faults": ("--sweep-faults", "9 (the in-scan fault lane)"),
     "compile_cache_dir": ("--compile-cache-dir", "8 (table cache)"),
     "policy": ("--policy", "12 (learned policy)"),
 }
@@ -171,6 +174,7 @@ class Applier:
             deschedule_policy=cc.deschedule.policy,
             use_timestamps=cc.use_timestamps,
             table_residency=self.options.table_residency,
+            engine=cc.engine,
         )
 
     def _fault_config(self):
@@ -260,13 +264,29 @@ class Applier:
             sim.set_workload_pods(cluster.workload_pods()
                                   + cluster.daemonset_pods())
             fault_cfg = self._fault_config()
+            if self.options.sweep_faults:
+                # the chaos sweep replaces the main schedule: one lanes
+                # launch over the fault schedules, the disruption frontier
+                if self.options.sweep_weights:
+                    raise ValueError(
+                        "--sweep-faults and --sweep-weights are separate "
+                        "sweep axes; pass per-lane weights inside the "
+                        "faults JSON instead"
+                    )
+                if fault_cfg is not None:
+                    raise ValueError(
+                        "--sweep-faults replaces the --fault-* flags (each "
+                        "lane carries its own schedule)"
+                    )
             if self.options.sweep_weights and fault_cfg is not None:
                 raise ValueError(
                     "--sweep-weights cannot combine with fault injection "
                     "(the sweep replays a single uninterrupted event "
                     "stream per config)"
                 )
-            if self.options.sweep_weights:
+            if self.options.sweep_faults:
+                self._run_chaos(sim, out)
+            elif self.options.sweep_weights:
                 # the config sweep replaces the main schedule: one lanes
                 # launch over the weight grid and its table, no snapshot,
                 # inflation or app stages (they describe one placement)
@@ -275,7 +295,7 @@ class Applier:
                 sim.run_with_faults(fault_cfg)
             else:
                 sim.run()
-        if self.options.sweep_weights:
+        if self.options.sweep_weights or self.options.sweep_faults:
             self.timings["wall_ms"] = (time.perf_counter() - t0) * 1e3
             return None
 
@@ -340,6 +360,19 @@ class Applier:
               f"in one launch ({sim.last_engine}, {sim.last_residency} "
               "residency)", file=out)
         print(format_sweep_table(lanes, sim.cfg.policies), file=out)
+
+    def _run_chaos(self, sim: Simulator, out):
+        """`apply --sweep-faults`: load the lanes' fault documents, run the
+        chaos sweep (one lanes launch of the fault forms) and print the
+        per-lane disruption frontier (README "Chaos sweep"; the [Chaos]
+        line names the kernel, as the [Sweep] line does)."""
+        specs, weights, seeds = load_faults_payload(
+            self.options.sweep_faults, sim.cfg.policies)
+        lanes = sim.run_sweep(weights, seeds=seeds, faults=specs)
+        print(f"[Chaos] {len(lanes)} fault lanes x {lanes[0].events} events "
+              f"in one launch ({sim.last_engine}, {sim.last_residency} "
+              "residency)", file=out)
+        print(format_chaos_table(lanes, sim.cfg.policies), file=out)
 
     def _export_snapshots(self, sim: Simulator, tag: str):
         exp = self.cr.custom_config.export
@@ -433,6 +466,64 @@ def load_weights_payload(path: str):
             '{"weights": [[...]], "seeds": [...], "tunes": [...]})'
         )
     return weights, seeds, tunes
+
+
+# every key a chaos lane's fault document may carry: FaultConfig's field
+# names exactly; an unknown key is refused (a misspelt "mtbf" must not run
+# a fault-free lane)
+FAULT_PAYLOAD_KEYS = frozenset((
+    "mtbf_events", "mttr_events", "evict_every_events", "seed",
+    "max_retries", "backoff_base", "backoff_cap", "queue_capacity",
+))
+
+
+def load_faults_payload(path: str, policies):
+    """Chaos-sweep JSON -> (fault_specs, weights, seeds) for
+    Simulator.run_sweep(faults=...): a bare [{...FaultConfig fields...},
+    ...] list of the lanes' fault documents, or {"faults": [...],
+    "weights": [[...]], "seeds": [...]} with optional per-lane weight rows
+    and seeds (by default the scheduler config's weights and cfg.seed for
+    every lane)."""
+    import json
+
+    with open(path) as f:
+        payload = json.load(f)
+    if isinstance(payload, dict):
+        docs = payload.get("faults")
+        weights = payload.get("weights")
+        seeds = payload.get("seeds")
+        unknown = set(payload) - {"faults", "weights", "seeds"}
+        if unknown:
+            raise ValueError(
+                f"{path}: unknown key(s) {sorted(unknown)} (known: "
+                "faults, weights, seeds)"
+            )
+    else:
+        docs, weights, seeds = payload, None, None
+    if not isinstance(docs, list) or not docs:
+        raise ValueError(
+            f"{path}: no fault lanes (want [{{...FaultConfig fields...}}, "
+            '...] or {"faults": [...], "weights": [[...]], "seeds": [...]})'
+        )
+    specs = []
+    for i, doc in enumerate(docs):
+        if not isinstance(doc, dict):
+            raise ValueError(f"{path}: fault lane {i} must be an object")
+        unknown = set(doc) - FAULT_PAYLOAD_KEYS
+        if unknown:
+            raise ValueError(
+                f"{path}: fault lane {i} has unknown key(s) "
+                f"{sorted(unknown)} (known: {sorted(FAULT_PAYLOAD_KEYS)})"
+            )
+        specs.append(FaultConfig(**doc))
+    if weights is None:
+        weights = [[w for _, w in policies]] * len(specs)
+    if len(weights) != len(specs):
+        raise ValueError(
+            f"{path}: {len(weights)} weight rows for {len(specs)} fault "
+            "lanes"
+        )
+    return specs, weights, seeds
 
 
 def _interactive_select(apps):

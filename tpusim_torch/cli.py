@@ -6,22 +6,26 @@ cmd/apply/apply.go:14-40).
         [-e gpu[,open-local]] [--report] [--use-greed] [-i]
         [--base-dir DIR] [--device cuda|cpu]
         [--table-residency auto|vmem|hbm] [--sweep-weights GRID.json]
+        [--sweep-faults FAULTS.json]
         [--fault-mtbf N --fault-mttr N --fault-evict-every N
          --fault-seed S --fault-max-retries K]
 
 It takes tpusim's apply flags. `--sweep-weights GRID.json` replaces the
 main schedule with one sweep over a weight grid (the lanes of one launch)
-and prints its per-config table. The `--fault-*` flags replay the main
-schedule under a seeded fault schedule (node failures, recoveries and
-evictions between replay segments, the `[Fault]` and `[Disruption]`
-lines). The flags whose plane the port does not have yet (the chaos sweep,
-checkpoints, the obs outputs, --listen, --policy, --compile-cache-dir)
-parse and then raise
-NotImplementedError naming the ROADMAP item that brings them. The replays
-run on the GPU unless --device cpu is given. Its standard output and the
-snapshot files it writes are byte-identical to `python -m tpusim apply`'s
-on the same inputs, but for the `[Engine]` lines and the `[Sweep]` line,
-which name the kernel that ran.
+and prints its per-config table; `--sweep-faults FAULTS.json` with one
+chaos sweep over fault schedules (the lanes of one launch of the replays'
+fault forms) and prints the per-lane disruption frontier. The `--fault-*`
+flags replay the main schedule under a seeded fault schedule (node
+failures, recoveries and evictions: the in-scan fault lane, or the
+segmented host loop with per-event reports on, the `[Fault]` and
+`[Disruption]` lines). The flags whose plane the port does not have yet
+(checkpoints, the obs outputs, --listen, --policy, --compile-cache-dir)
+parse and then raise NotImplementedError naming the ROADMAP item that
+brings them. The replays run on the GPU unless --device cpu is given. Its
+standard output and the snapshot files it writes are byte-identical to
+`python -m tpusim apply`'s on the same inputs, but for the `[Engine]`
+lines and the `[Sweep]` and `[Chaos]` lines, which name the kernel that
+ran.
 """
 
 from __future__ import annotations
@@ -89,7 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "weight grid: [[w, ...], ...] or {\"weights\": [[...]], "
                    "\"seeds\": [...], \"tunes\": [...]}, a row per config "
                    "in the scheduler config's policy order")
-    p.add_argument("--sweep-faults", default="")
+    p.add_argument("--sweep-faults", default="", metavar="FAULTS.json",
+                   help="replace the main schedule with one chaos sweep: "
+                   "[{FaultConfig fields}, ...] or {\"faults\": [...], "
+                   "\"weights\": [[...]], \"seeds\": [...]}, a lane each")
     p.add_argument("--compile-cache-dir", default="")
     p.add_argument("--policy", default="")
     return parser

@@ -262,6 +262,7 @@ def _simulator(args):
         seed=args.workload_tuning_seed,
         report_per_event=not args.no_per_event_report,
         use_timestamps=args.use_timestamps,
+        engine=getattr(args, "engine", "auto"),
         typical_pods=TypicalPodsConfig(
             is_involved_cpu_pods=args.is_involved_cpu_pods.lower() == "true",
             pod_popularity_threshold=args.pod_popularity_threshold,

@@ -9,7 +9,9 @@ is rebuilt and an unchanged one is loaded as it is. Nothing here runs when
 the module is imported.
 
 Each launcher takes a pointer to a `ReplayArgs` and the CUDA stream, and
-returns the launch's CUDA error code. The lanes launchers (`LANE_KERNELS`)
+returns the launch's CUDA error code. The replays' fault forms
+(`FAULT_KERNELS`, the in-scan fault lane) read the fault fields of the
+same `ReplayArgs`. The lanes launchers (`LANE_KERNELS`)
 take an array of B `ReplayArgs` in host memory, B, a device buffer of B
 `ReplayArgs` that they copy the array into on the stream, and the stream:
 block b of their grid replays lane b. They refuse lanes that would need
@@ -32,9 +34,11 @@ import time
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 # compiled apart, in parallel, and linked into one library (replay_lanes.cu
-# includes replay.cu's device code for the lanes kernels)
-SOURCES = (os.path.join(_DIR, "replay.cu"),
-           os.path.join(_DIR, "replay_lanes.cu"))
+# includes replay.cu's device code for the lanes kernels; the fault forms'
+# files include replay_lanes.cu's)
+SOURCES = tuple(os.path.join(_DIR, name) for name in (
+    "replay.cu", "replay_lanes.cu", "replay_faults.cu",
+    "replay_blocked_faults.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
                          ".tpusim_torch_build")
 NVCC_FLAGS = (
@@ -47,8 +51,12 @@ NVCC_FLAGS = (
 # the CUDA kernels the port has, by the name chip_smoke.py reports
 KERNELS = ("init_tables", "replay", "replay_blocked", "replay_lanes",
            "replay_blocked_lanes")
+# the replays' fault forms (the in-scan fault lane, fault_lane.py)
+FAULT_KERNELS = ("replay_faults", "replay_blocked_faults",
+                 "replay_lanes_faults", "replay_blocked_lanes_faults")
 # the launchers that take an array of lanes (launch_lanes)
-LANE_KERNELS = ("replay_lanes", "replay_blocked_lanes")
+LANE_KERNELS = ("replay_lanes", "replay_blocked_lanes", "replay_lanes_faults",
+                "replay_blocked_lanes_faults")
 # the most policies one configuration may combine (replay.cu kMaxPolicies)
 MAX_POLICIES = 6
 # the most pod types and typical pods the kernels' staged forms hold in
@@ -82,6 +90,16 @@ POINTER_FIELDS = (
     "bt", "br", "bn", "brmin", "brmax", "slo", "shi", "stats", "clocks",
     "t_order", "mem_cap", "scratch",
 )
+# the fault forms' pointers and sizes, after the key (replay.cu)
+FAULT_POINTER_FIELDS = (
+    "f_pos", "f_arg", "f_aux", "f_draws",
+    "q_ready", "q_seq", "q_pod", "q_att", "q_era",
+    "f_seq", "f_attempts", "f_evicted_at", "f_dead", "f_down_at", "f_dctr",
+    "y_rpod", "y_lat", "y_vpod", "y_vnode", "y_nvict", "y_rec",
+    "snap_cpu", "snap_gpu", "snap_node",
+)
+FAULT_SIZE_FIELDS = ("f_rows", "f_cols", "f_cap_r", "f_base", "f_cap",
+                     "f_maxr", "f_nrec")
 
 
 class ReplayArgs(ctypes.Structure):
@@ -97,6 +115,8 @@ class ReplayArgs(ctypes.Structure):
         + [(name, ctypes.c_int32) for name in ("sel", "gpu_sel", "dim_ext",
                                                "norm")]
         + [("key", ctypes.c_uint32 * 2)]
+        + [(name, ctypes.c_void_p) for name in FAULT_POINTER_FIELDS]
+        + [(name, ctypes.c_int32) for name in FAULT_SIZE_FIELDS]
     )
 
 
@@ -192,7 +212,7 @@ def library(variant: str = "") -> ctypes.CDLL:
     """The loaded kernel library of a variant, built first if need be."""
     if variant not in _libs:
         lib = ctypes.CDLL(build(variant).path)
-        for name in KERNELS:
+        for name in KERNELS + FAULT_KERNELS:
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.POINTER(ReplayArgs), ctypes.c_int,
                             ctypes.c_void_p, ctypes.c_void_p]

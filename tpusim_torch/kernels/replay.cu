@@ -52,7 +52,11 @@
 // replay_blocked_body): the kernels above pass them their parameter, and
 // replay_lanes.cu's lanes kernels run them over a grid of B lanes, one
 // block a lane (seed batches and config sweeps), compiled apart from this
-// file with its host entries left out (TPUSIM_LANES_TU).
+// file with its host entries left out (TPUSIM_LANES_TU). Their kFaults
+// instantiations, the fault forms (replay_faults.cu and
+// replay_blocked_faults.cu, each compiled apart), replay the in-scan fault
+// lane's merged stream: node failures, recoveries and evictions, and the
+// retry slots that pop the retry queue (the fault forms' section).
 // All three kernels are templates on the configuration's shape: <false> is
 // specialised to the paper's FGD configuration (one FGDScore policy, gpu_sel
 // FGDScore or best) and skips the descriptor, the normalisation pass and the
@@ -111,6 +115,7 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -123,6 +128,20 @@ constexpr int kMaxNodeScore = 100;
 constexpr int kMaxSpecGpu = 8000;
 constexpr int kCreate = 0;
 constexpr int kDelete = 1;
+constexpr int kSkip = 2;
+// the fault forms' step kinds (tpusim_torch/sim/engine.py)
+constexpr int kNodeFail = 3;
+constexpr int kNodeRecover = 4;
+constexpr int kEvict = 5;
+constexpr int kRetry = 6;
+// the fault forms' disruption counters (fault_lane.py D_*)
+constexpr int kDEvicted = 0;
+constexpr int kDRetriesEnq = 1;
+constexpr int kDRescheduled = 2;
+constexpr int kDFailures = 3;
+constexpr int kDRecoveries = 4;
+constexpr int kDFnGpuEvents = 5;
+constexpr int kDDead = 6;
 constexpr int kInitThreads = 128;  // init_tables: 4 warps
 constexpr int kTile = 32;  // init_tables: the nodes of a tile, one a lane
 constexpr int kBatch = 8;  // init_tables: the most types FGD sums at once
@@ -286,6 +305,50 @@ struct ReplayArgs {
   // the root key of JAX's event key chain (jax.random.PRNGKey(seed) with
   // x64 off: 0, seed mod 2^32); read by the randomized replay only
   uint32_t key[2];
+  // The fault forms' operands (replay_faults.cu, replay_blocked_faults.cu;
+  // null and unread in the others; tpusim_torch/sim/fault_lane.py). Per
+  // merged step [e]: its trace position, its argument (node, explicit
+  // pod, or flush round) and its draw-table row; the victim draw table
+  // [f_rows, f_cols]. The retry queue [f_cap_r] and the bookkeeping, read
+  // and written in place: the next sequence number [1], per pod the
+  // attempts, the eviction position and the dead flag, per node the
+  // failure position, the disruption counters [7]. The steps' outputs
+  // [e] (written where not their defaults), and per applied recover the
+  // cluster's cpu_left [n] and gpu_left [n, 8] right before it and its
+  // node (f_nrec slots at most).
+  const int32_t* f_pos;
+  const int32_t* f_arg;
+  const int32_t* f_aux;
+  const int32_t* f_draws;
+  int32_t* q_ready;
+  int32_t* q_seq;
+  int32_t* q_pod;
+  int32_t* q_att;
+  int32_t* q_era;
+  int32_t* f_seq;
+  int32_t* f_attempts;
+  int32_t* f_evicted_at;
+  int32_t* f_dead;
+  int32_t* f_down_at;
+  int32_t* f_dctr;
+  int32_t* y_rpod;
+  int32_t* y_lat;
+  int32_t* y_vpod;
+  int32_t* y_vnode;
+  int32_t* y_nvict;
+  int32_t* y_rec;
+  int32_t* snap_cpu;
+  int32_t* snap_gpu;
+  int32_t* snap_node;
+  // the draw table's shape, the queue's capacity, the backoff's base and
+  // cap, max_retries, the snapshot slots
+  int32_t f_rows;
+  int32_t f_cols;
+  int32_t f_cap_r;
+  int32_t f_base;
+  int32_t f_cap;
+  int32_t f_maxr;
+  int32_t f_nrec;
 };
 
 }  // extern "C"
@@ -1576,11 +1639,14 @@ __device__ void refresh_column(const ReplayArgs& a, const Smem& m,
 // Reserve + Bind of create event i on `node` (-1 = no feasible node);
 // step.choose_devices / select_and_bind, pallas_engine.py:982-1064. The
 // node's new state also goes to `sn`, and *dirty to the node it changed
-// (-1 if none). <true> adds gpu_sel random, drawing from `ksel`.
-template <bool kRandomized>
+// (-1 if none). <kRandomized> adds gpu_sel random, drawing from `ksel`;
+// in the fault forms a `retry` (a popped retry slot's create) ORs its
+// rejection into the pod's ever-failed flag instead of overwriting it.
+template <bool kRandomized, bool kFaults = false>
 __device__ void commit_create(const ReplayArgs& a, int i,
                               const EventFields& ev, int node, int gpu_sel,
-                              int* dirty, NodeView* sn, uint2 ksel) {
+                              int* dirty, NodeView* sn, uint2 ksel,
+                              bool retry = false) {
   const bool ok = node >= 0;
   const int pm = ev.milli;
   const int pn = ev.num;
@@ -1655,7 +1721,7 @@ __device__ void commit_create(const ReplayArgs& a, int i,
   }
   a.placed[ev.pod] = ok ? node : -1;
   a.maskb[ev.pod] = bits;
-  a.failed[ev.pod] = ok ? 0 : 1;
+  a.failed[ev.pod] = ok ? (kFaults && retry ? a.failed[ev.pod] : 0) : 1;
   a.ev_node[i] = ok ? node : -1;
   a.ev_devb[i] = bits;
   *dirty = ok ? node : -1;
@@ -1697,18 +1763,332 @@ __device__ void commit_delete(const ReplayArgs& a, int i,
   *dirty = node >= 0 ? node : -1;
 }
 
+// ---------------------------------------------------------------------------
+// The fault forms: the in-scan fault lane's steps (fault_lane.py
+// apply_fault_step, pop_retry, commit_retry; table_engine.py's fault body
+// :963-993 and :1189-1221), run by warp 0 where it commits, lane 0 writing
+// ---------------------------------------------------------------------------
+
+// one merged step's fault fields, staged beside its EventFields
+struct FaultFields {
+  int pos;
+  int arg;
+  int aux;
+};
+
+// The fault forms' static shared memory: the staged fault fields, and per
+// step parity the pod its retry slot popped (-1: none, or not a slot). A
+// retry slot is popped at the end of the step before it (pop_ahead), which
+// rewrites its staged event into the popped pod's create or a skip, so
+// that the step then runs as any create.
+struct FaultShared {
+  FaultFields ff[2][kEvBatch];
+  int popped[2];
+};
+
+// the fault fields of steps first .. first + 31, one lane each (one warp)
+__device__ void load_fault_fields(const ReplayArgs& a, int first,
+                                  FaultFields* out, int lane) {
+  const int i = first + lane;
+  if (i >= a.e) return;
+  out[lane] = {a.f_pos[i], a.f_arg[i], a.f_aux[i]};
+}
+
+// min(base * 2^(att-1), cap) with the shift clamped below 2^30, in the
+// float32 log2 of fault_lane.backoff_of
+__device__ __forceinline__ int backoff_of(int att, int base, int cap) {
+  int s = max(att - 1, 0);
+  const int lb = static_cast<int>(floorf(log2f(static_cast<float>(max(base, 1)))));
+  s = min(s, max(29 - lb, 0));
+  return min(static_cast<int>(static_cast<uint32_t>(base) << s), cap);
+}
+
+// The lowest free queue slot, -1 when the queue is full (warp-uniform).
+__device__ int free_slot(const ReplayArgs& a, int lane) {
+  for (int base = 0; base < a.f_cap_r; base += 32) {
+    const int q = base + lane;
+    const unsigned m = __ballot_sync(0xffffffffu, q < a.f_cap_r && a.q_pod[q] < 0);
+    if (m != 0) return base + __ffs(m) - 1;
+  }
+  return -1;
+}
+
+// Push pod v at attempt `att` into the queue (RetryQueue.push): ready at
+// pos + backoff, the next sequence number, round `era`. An attempt past
+// max_retries, or a full queue, pushes nothing. Lane 0 writes; returns
+// whether it pushed (warp-uniform). Pushes in ascending pod order fill the
+// free slots in index order, as _queue_push_mask's free_order does.
+__device__ bool queue_push(const ReplayArgs& a, int lane, int v, int att,
+                           int pos, int era) {
+  const int slot = att > a.f_maxr ? -1 : free_slot(a, lane);
+  if (lane == 0 && slot >= 0) {
+    a.q_pod[slot] = v;
+    a.q_att[slot] = att;
+    a.q_ready[slot] = pos + backoff_of(att, a.f_base, a.f_cap);
+    a.q_seq[slot] = a.f_seq[0];
+    a.q_era[slot] = era;
+    a.f_seq[0] += 1;
+  }
+  __syncwarp();
+  return slot >= 0;
+}
+
+// Evict pod v at `pos` into the queue (_evict_into_queue for one pod):
+// attempts + 1, the eviction position, push or dead (a pod dead at its
+// eviction is ever-failed), the counters; the pod is unbound.
+__device__ void evict_pod(const ReplayArgs& a, int lane, int v, int pos) {
+  const int att = a.f_attempts[v] + 1;
+  const bool pushed = queue_push(a, lane, v, att, pos, 0);
+  if (lane == 0) {
+    a.f_attempts[v] = att;
+    a.f_evicted_at[v] = pos;
+    a.f_dctr[kDEvicted] += 1;
+    if (pushed) {
+      a.f_dctr[kDRetriesEnq] += 1;
+    } else {
+      a.f_dead[v] = 1;
+      a.failed[v] = 1;
+      a.f_dctr[kDDead] += 1;
+    }
+    a.placed[v] = -1;
+    a.maskb[v] = 0;
+  }
+  __syncwarp();
+}
+
+// EV_NODE_FAIL / EV_NODE_RECOVER / EV_EVICT at step i (apply_fault_step),
+// by one warp: the decision from the committed bookkeeping, the snapshot
+// before an applied recover, the node's reset (fail: the down marker,
+// mem_left -1; recover: empty), a failure's pods requeued in ascending pod
+// order, an eviction's resources returned and its pod requeued, the down
+// clock and the counters, the step's outputs. The step touches one node
+// (the reset one, or the victim's), which becomes *next and es.node: the
+// next step refreshes its column as after any event.
+__device__ void fault_step(const ReplayArgs& a, EventState& es, int i,
+                           int kind, FaultFields f, int* next, int lane) {
+  const int node = min(max(f.arg, 0), a.n - 1);
+  const int down = a.f_down_at[node];
+  const bool do_fail = kind == kNodeFail && down < 0;
+  const bool do_rec = kind == kNodeRecover && down >= 0;
+  int victim = -1;
+  if (kind == kEvict) {
+    if (f.arg >= 0) {
+      const int v = min(f.arg, a.p - 1);
+      if (a.placed[v] >= 0) victim = v;
+    } else if (f.aux >= 0) {
+      // the draw for the count of placed pods, then that placed pod in
+      // index order (pick_eviction_victim's candidates[draw])
+      int size = 0;
+      for (int q = lane; q < a.p; q += 32) size += a.placed[q] >= 0 ? 1 : 0;
+      size = __reduce_add_sync(0xffffffffu, size);
+      const int row = min(f.aux, a.f_rows - 1);
+      const int j = a.f_draws[static_cast<size_t>(row) * a.f_cols +
+                              min(size, a.f_cols - 1)];
+      int before = 0;
+      for (int base = 0; j >= 0 && base < a.p; base += 32) {
+        const int q = base + lane;
+        const bool ok = q < a.p && a.placed[q] >= 0;
+        const unsigned m = __ballot_sync(0xffffffffu, ok);
+        const int rank = before + __popc(m & ((1u << lane) - 1));
+        const unsigned hit = __ballot_sync(0xffffffffu, ok && rank == j);
+        if (hit != 0) {
+          victim = base + __ffs(hit) - 1;
+          break;
+        }
+        before += __popc(m);
+      }
+    }
+  }
+  const int vnode = victim >= 0 ? a.placed[victim] : -1;
+  const int pos = f.pos;
+  int nvict = 0;
+  if (do_rec) {
+    // the cluster right before the recover: the host takes its frag before
+    // and after (fault_lane.recover_frags)
+    const int s = a.f_dctr[kDRecoveries];
+    if (s < a.f_nrec) {
+      int* cpu = a.snap_cpu + static_cast<size_t>(s) * a.n;
+      int* gpu = a.snap_gpu + static_cast<size_t>(s) * a.n * kDevs;
+      for (int q = lane; q < a.n; q += 32) cpu[q] = a.cpu_left[q];
+      for (int q = lane; q < a.n * kDevs; q += 32) gpu[q] = a.gpu_left[q];
+      if (lane == 0) a.snap_node[s] = node;
+    }
+    __syncwarp();  // every lane has read the state before the reset
+  }
+  if (do_fail) {
+    // every pod on the node, in ascending pod order
+    for (int base = 0; base < a.p; base += 32) {
+      const int q = base + lane;
+      unsigned m = __ballot_sync(0xffffffffu, q < a.p && a.placed[q] == node);
+      nvict += __popc(m);
+      while (m != 0) {
+        evict_pod(a, lane, base + __ffs(m) - 1, pos);
+        m &= m - 1;
+      }
+    }
+  }
+  if (lane == 0 && (do_fail || do_rec)) {
+    a.cpu_left[node] = a.cpu_cap[node];
+    a.mem_left[node] = do_fail ? -1 : a.mem_cap[node];
+    const int cnt = a.gpu_cnt[node];
+    for (int d = 0; d < kDevs; ++d) a.gpu_left[node * kDevs + d] = d < cnt ? kMilli : 0;
+    for (int c = 0; c < kAffClasses; ++c) a.aff_cnt[node * kAffClasses + c] = 0;
+    a.f_down_at[node] = do_fail ? pos : -1;
+    if (do_fail) {
+      a.f_dctr[kDFailures] += 1;
+    } else {
+      a.f_dctr[kDRecoveries] += 1;
+      a.f_dctr[kDFnGpuEvents] += cnt * (pos - down);
+    }
+  }
+  if (victim >= 0) {
+    if (lane == 0) {  // deschedule.evict's return of the pod's resources
+      const int milli = a.p_milli[victim];
+      const int bits = a.maskb[victim];
+      a.cpu_left[vnode] += a.p_cpu[victim];
+      a.mem_left[vnode] += a.p_mem[victim];
+      for (int d = 0; d < kDevs; ++d)
+        if ((bits >> d) & 1) a.gpu_left[vnode * kDevs + d] += milli;
+      const int cls = affinity_class(milli, a.p_num[victim]);
+      if (cls >= 0) a.aff_cnt[vnode * kAffClasses + cls] -= 1;
+    }
+    __syncwarp();
+    evict_pod(a, lane, victim, pos);
+    nvict = 1;
+  }
+  if (lane == 0) {
+    const int touched = do_fail || do_rec ? node : vnode;
+    a.y_vpod[i] = victim;
+    a.y_vnode[i] = vnode;
+    a.y_nvict[i] = nvict;
+    a.y_rec[i] = do_rec ? 1 : 0;
+    a.ev_node[i] = touched;
+    a.ev_devb[i] = 0;
+    *next = touched;
+    if (touched >= 0) es.node = load_node(a, touched);
+  }
+  __syncwarp();
+}
+
+// A popped retry's bookkeeping after its create at step i (commit_retry):
+// on success the latency and the run of failed attempts reset; on failure
+// an attempt is burnt and the pod is pushed again in round `era`, or goes
+// dead.
+__device__ void commit_retry(const ReplayArgs& a, int i, int v, bool ok,
+                             int pos, int era, int lane) {
+  if (ok) {
+    if (lane == 0) {
+      a.y_lat[i] = pos - a.f_evicted_at[v];
+      a.f_attempts[v] = 0;
+      a.f_evicted_at[v] = -1;
+      a.f_dctr[kDRescheduled] += 1;
+    }
+  } else {
+    const int att = a.f_attempts[v] + 1;
+    const bool pushed = queue_push(a, lane, v, att, pos, era);
+    if (lane == 0) {
+      a.f_attempts[v] = att;
+      if (pushed) {
+        a.f_dctr[kDRetriesEnq] += 1;
+      } else {
+        a.f_dead[v] = 1;
+        a.f_dctr[kDDead] += 1;
+      }
+    }
+  }
+  if (lane == 0) a.y_rpod[i] = v;
+  __syncwarp();
+}
+
+// Where step j is a retry slot, pop it (pop_retry), by one warp: the
+// earliest (ready, seq) entry that is due (ready <= pos; flush round r:
+// pushed before the round, era < r). Its staged event becomes the popped
+// pod's create, or a skip when nothing qualifies; fs.popped[j & 1] says
+// which pod (-1 none).
+__device__ void pop_ahead(const ReplayArgs& a, EventState& es,
+                          FaultShared& fs, int j, int lane) {
+  if (j >= a.e) return;
+  EventFields& ev = es.ev[(j / kEvBatch) & 1][j % kEvBatch];
+  if (ev.kind != kRetry) {
+    if (lane == 0) fs.popped[j & 1] = -1;
+    __syncwarp();
+    return;
+  }
+  const FaultFields f = fs.ff[(j / kEvBatch) & 1][j % kEvBatch];
+  int ready = INT_MAX;
+  int seq = INT_MAX;
+  int slot = -1;
+  for (int q = lane; q < a.f_cap_r; q += 32) {
+    if (a.q_pod[q] < 0) continue;
+    const bool due = f.arg > 0 ? a.q_era[q] < f.arg : a.q_ready[q] <= f.pos;
+    if (!due) continue;
+    const int r = a.q_ready[q];
+    const int sq = a.q_seq[q];
+    if (slot < 0 || r < ready || (r == ready && sq < seq)) {
+      ready = r;
+      seq = sq;
+      slot = q;
+    }
+  }
+  const bool has = __any_sync(0xffffffffu, slot >= 0);
+  int pod = -1;
+  if (has) {
+    const int rmin = __reduce_min_sync(0xffffffffu, slot >= 0 ? ready : INT_MAX);
+    const int smin = __reduce_min_sync(
+        0xffffffffu, slot >= 0 && ready == rmin ? seq : INT_MAX);
+    const unsigned own = __ballot_sync(0xffffffffu, slot >= 0 && ready == rmin &&
+                                                        seq == smin);
+    slot = __shfl_sync(0xffffffffu, slot, __ffs(own) - 1);
+    pod = a.q_pod[slot];
+  }
+  __syncwarp();
+  if (lane == 0) {
+    if (has) {
+      a.q_pod[slot] = -1;
+      a.q_ready[slot] = INT_MAX;
+      a.q_seq[slot] = INT_MAX;
+      ev.kind = kCreate;
+      ev.pod = pod;
+      ev.type = a.p_type[pod];
+      ev.pin = a.p_pinned[pod];
+      ev.cpu = a.p_cpu[pod];
+      ev.mem = a.p_mem[pod];
+      ev.milli = a.p_milli[pod];
+      ev.num = a.p_num[pod];
+    } else {
+      ev.kind = kSkip;
+    }
+    fs.popped[j & 1] = pod;
+  }
+  __syncwarp();
+}
+
 // One warp ends event i: lane 0 commits it (create with `node`, delete, or
 // skip), then, where it changed a node and a policy is FGD, the warp
-// computes that node's terms for the next event's refresh.
-template <bool kRandomized = false>
+// computes that node's terms for the next event's refresh. In the fault
+// forms (`fs`) a fault step runs fault_step instead, a popped retry's
+// create is followed by commit_retry, and the next step's retry slot is
+// popped.
+template <bool kRandomized = false, bool kFaults = false>
 __device__ void end_event(const ReplayArgs& a, const Smem& m, EventState& es,
                           int i, const EventFields& ev, int node, int gpu_sel,
-                          bool fgd_terms, int n_pol, int lane) {
+                          bool fgd_terms, int n_pol, int lane,
+                          FaultShared* fs = nullptr) {
   int* next = &es.dirty[(i + 1) & 1];
-  if (lane == 0) {
+  bool fault = false;  // a failure, recovery or eviction step
+  bool retry = false;  // a popped retry slot's create
+  if constexpr (kFaults) {
+    fault = ev.kind > kSkip;
+    retry = fs->popped[i & 1] >= 0;
+    if (fault)
+      fault_step(a, es, i, ev.kind, fs->ff[(i / kEvBatch) & 1][i % kEvBatch],
+                 next, lane);
+  }
+  if (!fault && lane == 0) {
     if (ev.kind == kCreate) {
-      commit_create<kRandomized>(a, i, ev, node, gpu_sel, next, &es.node,
-                                 kRandomized ? es.ksel[i & 1] : uint2{});
+      commit_create<kRandomized, kFaults>(
+          a, i, ev, node, gpu_sel, next, &es.node,
+          kRandomized ? es.ksel[i & 1] : uint2{}, retry);
     } else if (ev.kind == kDelete) {
       commit_delete(a, i, ev, next, &es.node);
     } else {  // EV_SKIP: nothing changes
@@ -1718,6 +2098,14 @@ __device__ void end_event(const ReplayArgs& a, const Smem& m, EventState& es,
     }
   }
   __syncwarp();
+  if constexpr (kFaults) {
+    const int popped = fs->popped[i & 1];
+    if (popped >= 0) {
+      const FaultFields f = fs->ff[(i / kEvBatch) & 1][i % kEvBatch];
+      commit_retry(a, i, popped, node >= 0, f.pos, f.arg, lane);
+    }
+    pop_ahead(a, es, *fs, i + 1, lane);
+  }
   if (fgd_terms && *next >= 0) node_terms<kRandomized>(a, m, es, n_pol, lane);
 }
 
@@ -1759,10 +2147,41 @@ __device__ __forceinline__ void prefetch_events(const ReplayArgs& a,
                 threadIdx.x & 31);
 }
 
-// <kGeneral, kRandomized, kStaged>: kRandomized adds RandomScore's draw and
-// gpu_sel random (the key chain in es, advanced by the last warp while warp
-// 0 commits); kStaged is the staged form, false the global one.
-template <bool kGeneral, bool kRandomized = false, bool kStaged = true>
+// The fault forms' staging beside begin_replay's and prefetch_events', by
+// the last warp: the fault fields of the first batch (first = true), or
+// those of the next batch while step i, the first of its batch, runs.
+// <false>: nothing.
+template <bool kFaults>
+__device__ __forceinline__ void stage_faults(const ReplayArgs& a,
+                                             FaultShared* fs, int i,
+                                             bool first = false) {
+  if constexpr (kFaults) {
+    if ((first || (i % kEvBatch == 0 && i + kEvBatch < a.e)) &&
+        (threadIdx.x >> 5) == (blockDim.x >> 5) - 1) {
+      const int at = first ? 0 : i + kEvBatch;
+      load_fault_fields(a, at, fs->ff[(at / kEvBatch) & 1], threadIdx.x & 31);
+    }
+  }
+}
+
+// the fault forms' static shared memory (a byte in the others)
+template <bool kFaults>
+using FaultSharedOf = typename std::conditional<kFaults, FaultShared, char>::type;
+
+template <bool kFaults>
+__device__ __forceinline__ FaultShared* fault_shared(FaultSharedOf<kFaults>& f) {
+  if constexpr (kFaults) return &f;
+  return nullptr;
+}
+
+// <kGeneral, kRandomized, kStaged, kFaults>: kRandomized adds RandomScore's
+// draw and gpu_sel random (the key chain in es, advanced by the last warp
+// while warp 0 commits); kStaged is the staged form, false the global one;
+// kFaults is the fault form (the merged stream of fault_lane.py: kinds 3-6,
+// the FaultFields, the retry queue; the key chain takes a step a merged
+// step, as tpusim's lane does).
+template <bool kGeneral, bool kRandomized = false, bool kStaged = true,
+          bool kFaults = false>
 __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1771,6 +2190,8 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   __shared__ int warp_hi[kWarps][kMaxPolicies];
   __shared__ unsigned long long warp_draw[kRandomized ? kWarps : 1];
   __shared__ EventState es;
+  __shared__ FaultSharedOf<kFaults> fsh;
+  FaultShared* fs = fault_shared<kFaults>(fsh);
   __shared__ long long s_clk[kNumClocks];
   __shared__ long long s_work[3];
   PhaseClock pc;
@@ -1791,13 +2212,19 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   const int n_pol = kGeneral ? a.n_pol : 1;
   const Smem m = replay_smem<kStaged>(a, smem, n_pol, false);
   const bool fgd_terms = begin_replay<kGeneral, kStaged, kRandomized>(a, m, es);
+  stage_faults<kFaults>(a, fs, 0, true);
   if (kRandomized && tid == 0)
     advance_keys(es, make_uint2(a.key[0], a.key[1]), 0);
   __syncthreads();
+  if constexpr (kFaults) {
+    if (warp == 0) pop_ahead(a, es, *fs, 0, lane);
+    __syncthreads();
+  }
   const long long t0 = clock_now();
 
   for (int i = 0; i < a.e; ++i) {
     prefetch_events(a, es, i);
+    stage_faults<kFaults>(a, fs, i);
     // refresh the column of the node the previous event changed
     const int dirty = es.dirty[i & 1];
     if (dirty >= 0) {
@@ -1947,12 +2374,13 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
       if (warp == 0) {
         b = warp_best(lane < nwarps ? warp_res[lane] : no_candidate());
         const int node = __shfl_sync(0xffffffffu, b.node, 0);
-        end_event<kRandomized>(a, m, es, i, ev, node == INT_MAX ? -1 : node,
-                               gpu_sel, fgd_terms, n_pol, lane);
+        end_event<kRandomized, kFaults>(a, m, es, i, ev,
+                                        node == INT_MAX ? -1 : node, gpu_sel,
+                                        fgd_terms, n_pol, lane, fs);
       }
     } else if (warp == 0) {
-      end_event<kRandomized>(a, m, es, i, ev, -1, gpu_sel, fgd_terms, n_pol,
-                             lane);
+      end_event<kRandomized, kFaults>(a, m, es, i, ev, -1, gpu_sel, fgd_terms,
+                                      n_pol, lane, fs);
     }
     // the next event's keys, by a thread of the last warp while warp 0
     // commits: every event takes one step of the chain, whatever its kind
@@ -1964,9 +2392,10 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   pc.finish(a.clocks, t0);
 }
 
-template <bool kGeneral, bool kRandomized = false, bool kStaged = true>
+template <bool kGeneral, bool kRandomized = false, bool kStaged = true,
+          bool kFaults = false>
 __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a) {
-  replay_body<kGeneral, kRandomized, kStaged>(a);
+  replay_body<kGeneral, kRandomized, kStaged, kFaults>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -2117,10 +2546,13 @@ __device__ void update_summaries(const ReplayArgs& a, const Smem& m, int node,
   }
 }
 
-// <kGeneral, kStaged, kAllColumns>: kStaged is the staged form, false the
-// global one; <true, true, false> is the staged general kernel for the
-// configurations without Simon (policy_pair)
-template <bool kGeneral, bool kStaged = true, bool kAllColumns = true>
+// <kGeneral, kStaged, kAllColumns, kFaults>: kStaged is the staged form,
+// false the global one; <true, true, false> is the staged general kernel
+// for the configurations without Simon (policy_pair); kFaults is the fault
+// form, as replay_body's. A fault step touches one node, as an event does,
+// so the dirty node's block summaries stay the one update a step.
+template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
+          bool kFaults = false>
 __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -2128,6 +2560,8 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   __shared__ int warp_lo[kWarps][kMaxPolicies];
   __shared__ int warp_hi[kWarps][kMaxPolicies];
   __shared__ EventState es;
+  __shared__ FaultSharedOf<kFaults> fsh;
+  FaultShared* fs = fault_shared<kFaults>(fsh);
   __shared__ int s_rank[kBlock];  // the dirty block's tie-break ranks
   __shared__ int s_rescans;
   __shared__ long long s_clk[kNumClocks];
@@ -2147,6 +2581,7 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   const int n_pol = kGeneral ? a.n_pol : 1;
   const Smem m = replay_smem<kStaged>(a, smem, n_pol, true);
   const bool fgd_terms = begin_replay<kGeneral, kStaged>(a, m, es);
+  stage_faults<kFaults>(a, fs, 0, true);
 
   // the summaries of the initial tables: every block's extrema, the stored
   // extrema as their min/max over blocks, then every block's summary under
@@ -2185,11 +2620,16 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
     a.stats[2] = 0;  // summary-row rebuilds
   }
   __syncthreads();
+  if constexpr (kFaults) {
+    if (warp == 0) pop_ahead(a, es, *fs, 0, lane);
+    __syncthreads();
+  }
   pc.mark(kClkInit);
   const long long t0 = clock_now();
 
   for (int i = 0; i < a.e; ++i) {
     prefetch_events(a, es, i);
+    stage_faults<kFaults>(a, fs, i);
     // refresh the column of the node the previous event changed, then that
     // node's block summaries of every type under the stored extrema
     const int dirty = es.dirty[i & 1];
@@ -2289,15 +2729,16 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
       if (warp == 0) {
         b = warp_best(lane < nwarps ? warp_res[lane] : no_candidate());
         const int blk = __shfl_sync(0xffffffffu, b.node, 0);
-        end_event(a, m, es, i, ev, blk == INT_MAX ? -1 : a.bn[row + blk],
-                  gpu_sel, fgd_terms, n_pol, lane);
+        end_event<false, kFaults>(a, m, es, i, ev,
+                                  blk == INT_MAX ? -1 : a.bn[row + blk],
+                                  gpu_sel, fgd_terms, n_pol, lane, fs);
       }
     } else if (warp == 0) {
       // a pinned pod has one candidate: its Filter bit decides
       const bool ok = ev.kind == kCreate && ev.pin < a.n &&
                       a.feas[static_cast<size_t>(type) * a.n + ev.pin] != 0;
-      end_event(a, m, es, i, ev, ok ? ev.pin : -1, gpu_sel, fgd_terms, n_pol,
-                lane);
+      end_event<false, kFaults>(a, m, es, i, ev, ok ? ev.pin : -1, gpu_sel,
+                                fgd_terms, n_pol, lane, fs);
     }
     pc.sync();
     pc.mark(kClkCommit);
@@ -2305,10 +2746,11 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   pc.finish(a.clocks, t0);
 }
 
-template <bool kGeneral, bool kStaged = true, bool kAllColumns = true>
+template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
+          bool kFaults = false>
 __global__ void __launch_bounds__(kReplayThreads, 1)
     replay_blocked_kernel(ReplayArgs a) {
-  replay_blocked_body<kGeneral, kStaged, kAllColumns>(a);
+  replay_blocked_body<kGeneral, kStaged, kAllColumns, kFaults>(a);
 }
 
 // ---------------------------------------------------------------------------

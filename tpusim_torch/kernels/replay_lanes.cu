@@ -2,7 +2,9 @@
 // lane (seed batches and config sweeps). The kernel bodies are replay.cu's
 // (replay_body, replay_blocked_body), included with its host entries left
 // out; this file is compiled apart from replay.cu, so that the two build
-// in parallel, and the objects are linked into one library.
+// in parallel, and the objects are linked into one library. The fault
+// forms' files include this one with its host entries left out
+// (TPUSIM_FAULTS_TU) for the lanes kernels and their launcher.
 
 #define TPUSIM_LANES_TU
 #include "replay.cu"
@@ -23,21 +25,23 @@ __device__ __forceinline__ void load_lane(const ReplayArgs* __restrict__ lanes,
 }
 
 // replay over a grid of lanes, one block a lane
-template <bool kGeneral, bool kRandomized = false, bool kStaged = true>
+template <bool kGeneral, bool kRandomized = false, bool kStaged = true,
+          bool kFaults = false>
 __global__ void __launch_bounds__(kReplayThreads, 1)
     replay_lanes_kernel(const ReplayArgs* __restrict__ lanes) {
   __shared__ __align__(16) ReplayArgs lane_args;
   load_lane(lanes, &lane_args);
-  replay_body<kGeneral, kRandomized, kStaged>(lane_args);
+  replay_body<kGeneral, kRandomized, kStaged, kFaults>(lane_args);
 }
 
 // replay_blocked over a grid of lanes, one block a lane
-template <bool kGeneral, bool kStaged = true, bool kAllColumns = true>
+template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
+          bool kFaults = false>
 __global__ void __launch_bounds__(kReplayThreads, 1)
     replay_blocked_lanes_kernel(const ReplayArgs* __restrict__ lanes) {
   __shared__ __align__(16) ReplayArgs lane_args;
   load_lane(lanes, &lane_args);
-  replay_blocked_body<kGeneral, kStaged, kAllColumns>(lane_args);
+  replay_blocked_body<kGeneral, kStaged, kAllColumns, kFaults>(lane_args);
 }
 
 // whether two lanes run the same instantiation of a replay kernel: the
@@ -97,7 +101,20 @@ bool check_lanes(const ReplayArgs* lanes, int b) {
   return true;
 }
 
+#ifdef TPUSIM_FAULTS_TU
+// whether a ReplayArgs carries the fault operands the fault forms read
+bool fault_operands(const ReplayArgs* a) {
+  return a->p >= 1 && a->f_cap_r >= 1 && a->f_rows >= 1 && a->f_cols >= 1 &&
+         a->f_nrec >= 0 && a->f_pos != nullptr && a->f_arg != nullptr &&
+         a->f_aux != nullptr && a->f_draws != nullptr && a->q_pod != nullptr &&
+         a->f_dctr != nullptr && a->y_rpod != nullptr &&
+         (a->f_nrec == 0 || a->snap_cpu != nullptr);
+}
+#endif
+
 }  // namespace
+
+#ifndef TPUSIM_FAULTS_TU
 
 extern "C" {
 
@@ -152,3 +169,5 @@ int replay_blocked_lanes(const ReplayArgs* lanes, int b, void* lanes_dev,
 }
 
 }  // extern "C"
+
+#endif  // TPUSIM_FAULTS_TU

@@ -74,9 +74,11 @@ from tpusim_torch.ops.prng import fold_in, prng_key
 from tpusim_torch.parallel.sharding import pad_nodes, pad_rank, trim_nodes
 from tpusim_torch.sim import residency
 from tpusim_torch.sim.deschedule import evict, select_victims
+from tpusim_torch.sim import fault_lane
 from tpusim_torch.sim.engine import (
     EV_CREATE,
     EV_DELETE,
+    EV_EVICT,
     EV_NODE_FAIL,
     EV_NODE_RECOVER,
     ReplayResult,
@@ -95,10 +97,17 @@ from tpusim_torch.sim.fused_engine import (
     init_tables,
     lane_weights,
     make_fused_replay,
+    replay_faults,
     replay_lanes,
+    replay_lanes_faults,
     validate_events,
 )
-from tpusim_torch.sim.hbm_engine import make_blocked_replay, replay_blocked_lanes
+from tpusim_torch.sim.hbm_engine import (
+    make_blocked_replay,
+    replay_blocked_faults,
+    replay_blocked_lanes,
+    replay_blocked_lanes_faults,
+)
 from tpusim_torch.sim.metrics import DisruptionMetrics, compute_event_metrics
 from tpusim_torch.sim.queues import RetryQueue, app_queue
 from tpusim_torch.sim.reports import (
@@ -159,21 +168,21 @@ class SimulatorConfig:
     # "hbm" = `replay_blocked`, "auto" = "vmem" while the tables fit the
     # card's L2 cache (always on the CPU); tpusim_torch.sim.residency
     table_residency: str = "auto"
-    # fault replays (schedule_pods_with_faults): "auto" and "segments" run
-    # the segmented host loop; "scan", tpusim's in-scan fault lane, raises
+    # fault replays (schedule_pods_with_faults): "scan" runs the in-scan
+    # fault lane (tpusim_torch.sim.fault_lane, the replays' fault forms),
+    # "segments" the segmented host loop, "auto" the lane unless a blocker
+    # of _fault_scan_blockers (or a randomized configuration) keeps it on
+    # the loop, as tpusim's auto does
     fault_mode: str = "auto"
+    # tpusim's engine knob, of the values the port runs: both run its
+    # kernels, and "pallas" keeps fault runs on the segmented loop, as
+    # tpusim's fused pallas engine has no fault lane
+    engine: str = "auto"
 
 
 # the values of tpusim's engine knob that the port's entries run: both
 # mean its kernels
 PORT_ENGINES = ("auto", "pallas")
-
-
-def refuse_fault_lane(what: str):
-    raise NotImplementedError(
-        f"{what} needs the in-scan fault lane the PyTorch port does not have "
-        "yet (ROADMAP queue 1, item 9 (the in-scan fault lane)); run it "
-        "with tpusim")
 
 
 @dataclass
@@ -213,6 +222,10 @@ class Simulator:
     def __init__(self, nodes: Sequence[NodeRow], cfg: SimulatorConfig = None,
                  device="cuda"):
         self.cfg = cfg or SimulatorConfig()
+        if self.cfg.engine not in PORT_ENGINES:
+            raise ValueError(
+                f"engine {self.cfg.engine!r}: the port runs "
+                f"{' | '.join(PORT_ENGINES)} (its kernels)")
         if self.cfg.table_residency not in residency.RESIDENCIES:
             raise ValueError(
                 f"unknown table_residency {self.cfg.table_residency!r}: "
@@ -512,16 +525,33 @@ class Simulator:
         family (schedule_pods_sweep); returns a SweepLane a configuration.
         With `tunes`, a tuning ratio a lane: each lane's workload is
         prepared as a standalone run with that ratio (the same tuning seed)
-        and the lanes run through schedule_pods_sweep_multi. `faults` (the
-        chaos sweep) raises NotImplementedError: it runs on tpusim's
-        in-scan fault lane."""
-        if faults is not None:
-            refuse_fault_lane("run_sweep(faults=...)")
+        and the lanes run through schedule_pods_sweep_multi. With `faults`,
+        a fault spec a lane (resolve_fault_spec), the chaos sweep: each
+        lane replays under its schedule on the fault forms' lanes
+        (schedule_pods_sweep_faults, or schedule_pods_sweep_multi's fault
+        lanes with `tunes`)."""
         self._reset_run_state()
         self.set_typical_pods()
         self.log.info(
             f"Number of original workload pods: {len(self.workload_pods)}"
         )
+        if faults is not None:
+            if tunes is not None:
+                w = np.asarray(weights, np.int32)
+                if w.ndim != 2 or len(tunes) != int(w.shape[0]):
+                    raise ValueError(
+                        f"tunes has {len(tunes)} entries for weight grid "
+                        f"of shape {w.shape} (want one tuning ratio per "
+                        "weight row)"
+                    )
+                pods_list = [self.prepare_pods(tuning_ratio=t)
+                             for t in tunes]
+                return schedule_pods_sweep_multi(
+                    self, pods_list, w, seeds=seeds, bucket=bucket,
+                    fault_specs=faults)
+            return schedule_pods_sweep_faults(self, self.prepare_pods(),
+                                              weights, faults, seeds=seeds,
+                                              bucket=bucket)
         if tunes is None:
             return schedule_pods_sweep(self, self.prepare_pods(), weights,
                                        seeds=seeds, bucket=bucket)
@@ -655,37 +685,207 @@ class Simulator:
 
     # ---- fault injection (tpusim_torch.sim.faults) ----
 
+    def _fault_scan_blockers(self) -> list:
+        """What keeps this configuration off the in-scan fault lane
+        (tpusim's _fault_scan_blockers, of the options the port runs)."""
+        out = []
+        if self.cfg.report_per_event:
+            out.append("per-event reporting (the report postpass does not "
+                       "model fault transitions)")
+        if self.cfg.engine == "pallas":
+            out.append("the fused pallas engine")
+        return out
+
     def schedule_pods_with_faults(self, pods: Sequence[PodRow], faults=None,
                                   fault_cfg: FaultConfig = None
                                   ) -> SimulateResult:
-        """schedule_pods under a fault schedule, through the segmented host
-        loop. `fault_mode` "auto" and "segments" run it; under "auto" the
-        log carries the line tpusim's `auto` prints where it keeps to that
-        loop (driver.py:2111-2186 of the reference: with per-event reports,
-        or a configuration that draws per event). Its in-scan lane, which
-        it takes otherwise, is bit-identical to the loop
-        (tests/test_fault_lane.py of the reference). "scan" raises
-        NotImplementedError."""
+        """schedule_pods under a fault schedule (driver.py:2147-2187 of the
+        reference): the in-scan fault lane (_schedule_pods_faults_scan, one
+        launch of the replays' fault forms over the merged stream) or the
+        segmented host loop. `fault_mode` "scan" takes the lane and raises
+        ValueError for a configuration it cannot serve; "segments" takes
+        the loop; "auto" takes the lane unless a blocker of
+        _fault_scan_blockers or a configuration that draws per event keeps
+        it on the loop, and then logs why, as tpusim's auto does."""
         mode = self.cfg.fault_mode
         if mode not in ("auto", "scan", "segments"):
             raise ValueError(
                 f"unknown fault_mode {mode!r}: expected auto | scan | "
                 "segments"
             )
-        if mode == "scan":
-            refuse_fault_lane("fault_mode='scan'")
-        reason = None
-        if mode == "auto" and self.cfg.report_per_event:
-            reason = ("per-event reporting (the report postpass does not "
-                      "model fault transitions)")
-        elif mode == "auto" and self._replay.config.randomized:
-            reason = ("per-event randomness draws a different (still "
-                      "seeded) PRNG chain on the scan lane; "
-                      "fault_mode='scan' opts in")
-        if reason:
-            self.log.info(f"[Fault] segmented replay ({reason})")
-        return self._schedule_pods_with_faults_segmented(pods, faults,
-                                                         fault_cfg)
+        blockers = self._fault_scan_blockers()
+        if mode == "scan" and blockers:
+            raise ValueError(
+                f"fault_mode='scan' cannot serve this config: {blockers[0]}"
+            )
+        if mode == "auto" and not blockers and \
+                self._replay.config.randomized:
+            # the lane draws one key chain over the merged stream, the loop
+            # one a segment: auto keeps the loop's results
+            blockers = ["per-event randomness draws a different (still "
+                        "seeded) PRNG chain on the scan lane; "
+                        "fault_mode='scan' opts in"]
+        if mode == "segments" or blockers:
+            if blockers and mode == "auto":
+                self.log.info(f"[Fault] segmented replay ({blockers[0]})")
+            return self._schedule_pods_with_faults_segmented(pods, faults,
+                                                             fault_cfg)
+        return self._schedule_pods_faults_scan(pods, faults, fault_cfg)
+
+    def _schedule_pods_faults_scan(self, pods: Sequence[PodRow], faults=None,
+                                   fault_cfg: FaultConfig = None
+                                   ) -> SimulateResult:
+        """schedule_pods_with_faults on the in-scan fault lane
+        (driver.py:2486-2577 of the reference): the schedule compiled into
+        one merged stream (fault_lane.compile_fault_plan), one init_tables
+        and one launch of a fault form (_dispatch_fault_scan), one fetch,
+        then the DisruptionMetrics from the carry and the steps' outputs,
+        the [Fault] lines rebuilt from them, the unscheduled pods (the dead
+        ones as "max-retries-exceeded") and the creation ranks. The run's
+        `replay_times` entry splits the plan's compile (plan_ms), the
+        kernels up to a synchronise (replay_ms), the fetch (fetch_ms) and
+        the host tail after it (report_ms), host clock."""
+        if self.cfg.use_timestamps:
+            raise ValueError(
+                "schedule_pods_with_faults replays creation-ordered traces "
+                "(use_timestamps=False); model deletions as Evict fault "
+                "events instead"
+            )
+        if self.typical is None:
+            self.set_typical_pods()
+        fcfg = fault_cfg or FaultConfig()
+        pods = list(pods)
+        ev_kind, ev_pod = build_events(pods, False)
+        if faults is None:
+            faults = generate_fault_schedule(len(self.nodes), len(ev_kind),
+                                             fcfg)
+        t0 = time.perf_counter()
+        specs = pods_to_specs(pods, self.node_index, self.device)
+        plan = fault_lane.compile_fault_plan(
+            ev_kind, ev_pod, faults, fcfg, len(self.nodes), len(pods))
+        t_plan = time.perf_counter()
+        out, fout = self._dispatch_fault_scan(specs, plan)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t_run = time.perf_counter()
+        out, fout = device_fetch((out, fout))
+        t_fetch = time.perf_counter()
+        dm, dead, attempts_run = fault_lane.assemble_disruption(
+            plan, fout.ys, fout.carry, self.init_state.gpu_cnt.cpu().numpy())
+        e_m = int(plan.kind.shape[0])
+        self.log.info(
+            f"[Engine] fault-lane replay of {plan.num_events} events "
+            f"(+{attempts_run} retries, merged stream {e_m}) ran on: "
+            f"{self.engine}, {self.last_engine} ({self.last_residency} "
+            "residency)")
+        self._emit_fault_log_lines(plan, fout.ys, pods)
+        self.analysis_summary.update(disruption_report_block(self.log, dm))
+        self.last_disruption = dm
+        placed = out.placed_node.numpy()
+        ever_failed = out.ever_failed.numpy()
+        skipped = np.array([p.unscheduled for p in pods], bool)
+        unscheduled = []
+        for i in range(len(pods)):
+            if skipped[i]:
+                unscheduled.append(UnscheduledPod(
+                    pods[i], reason="pod-unscheduled annotation"))
+            elif dead[i]:
+                unscheduled.append(UnscheduledPod(
+                    pods[i], reason="max-retries-exceeded"))
+            elif placed[i] < 0 and bool(ever_failed[i]):
+                unscheduled.append(UnscheduledPod(pods[i]))
+        self.last_ever_failed = ever_failed
+        self.last_result = SimulateResult(
+            unscheduled_pods=unscheduled,
+            placed_node=placed,
+            dev_mask=out.dev_mask.numpy(),
+            state=out.state,
+            pods=pods,
+            node_names=self.node_names,
+            wall_seconds=time.perf_counter() - t0,
+            events=plan.num_events + attempts_run,
+            creation_rank=fault_lane.fault_creation_rank(plan, fout.ys,
+                                                         len(pods)),
+        )
+        self.replay_times.append(dict(
+            events=e_m, plan_ms=(t_plan - t0) * 1e3,
+            replay_ms=(t_run - t_plan) * 1e3,
+            fetch_ms=(t_fetch - t_run) * 1e3,
+            report_ms=(time.perf_counter() - t_fetch) * 1e3))
+        return self.last_result
+
+    def _dispatch_fault_scan(self, specs: PodSpec, plan):
+        """One fault-lane replay (the non-mesh half of driver.py:2579-2698
+        of the reference): init_tables, then the fault form of the replay
+        residency.replay_tier picks, `replay_faults` or
+        `replay_blocked_faults` (over the nodes padded to whole blocks),
+        from root key PRNGKey(seed). Returns (ReplayResult, FaultOut) on
+        the device, the state and the down clock over the cluster's
+        nodes."""
+        if plan.kind.shape[0] and not specs.cpu.shape[0]:
+            raise ValueError("the fault lane replays a workload of at least "
+                             "one pod")
+        types = build_pod_types(specs)
+        cfg = self._replay.config
+        state, rank, tp = self.init_state, self.rank, self.typical
+        n, p = state.num_nodes, int(specs.cpu.shape[0])
+        tier = self._residency(n, types.num_types)
+        kinds = torch.as_tensor(plan.kind, device=self.device)
+        idx = torch.as_tensor(plan.idx, device=self.device)
+        if tier == "hbm":
+            padded, rank_p = pad_nodes(state, rank, BLOCK)
+            tables = init_tables(padded, types, tp, cfg)
+            out, stats, fout = replay_blocked_faults(
+                padded, specs, types, kinds, idx, tp, rank_p, tables, cfg,
+                fault_lane.lane_of(plan, padded, p))
+            out = out._replace(state=trim_nodes(out.state, n))
+            fout = fout._replace(carry=fout.carry._replace(
+                down_at=fout.carry.down_at[:n]))
+            kernel, self.last_kernel_stats = ("replay_blocked_faults",
+                                              stats.tolist())
+        else:
+            tables = init_tables(state, types, tp, cfg)
+            out, fout = replay_faults(
+                state, specs, types, kinds, idx, tp, rank, tables, cfg,
+                fault_lane.lane_of(plan, state, p), prng_key(self.cfg.seed))
+            kernel, self.last_kernel_stats = "replay_faults", None
+        if self.device.type != "cuda":
+            kernel = f"plain_{kernel}"
+        self.last_engine, self.last_residency = kernel, tier
+        return out, fout
+
+    def _emit_fault_log_lines(self, plan, ys, pods):
+        """The segmented loop's [Fault] lines, rebuilt from the plan and the
+        steps' outputs (driver.py:2700 of the reference): the down and up
+        transitions follow from the schedule, the victims from the
+        outputs."""
+        nvict = np.asarray(ys.nvict)
+        vpod = np.asarray(ys.vpod)
+        vnode = np.asarray(ys.vnode)
+        fb = np.asarray(ys.fb, np.float64)
+        fa = np.asarray(ys.fa, np.float64)
+        down: set = set()
+        for i, k in enumerate(plan.kind.tolist()):
+            pos = int(plan.pos[i])
+            a = int(plan.arg[i])
+            if k == EV_NODE_FAIL and a not in down:
+                down.add(a)
+                self.log.info(
+                    f"[Fault] node {self.node_names[a]} failed at event "
+                    f"{pos}: {int(nvict[i])} pods evicted"
+                )
+            elif k == EV_NODE_RECOVER and a in down:
+                down.discard(a)
+                delta = float(fa[i]) - float(fb[i])
+                self.log.info(
+                    f"[Fault] node {self.node_names[a]} recovered at "
+                    f"event {pos} (frag delta {delta:+.1f})"
+                )
+            elif k == EV_EVICT and int(vpod[i]) >= 0:
+                self.log.info(
+                    f"[Fault] pod {pods[int(vpod[i])].name} evicted from "
+                    f"node {self.node_names[int(vnode[i])]} at event {pos}"
+                )
 
     def _schedule_pods_with_faults_segmented(self, pods: Sequence[PodRow],
                                              faults=None,
@@ -1149,9 +1349,10 @@ class SweepLane:
     failed: int  # creation attempts rejected
     gpu_alloc_pct: float
     frag_gpu_milli: float
-    # pods that ended the trace unplaced after a rejected creation
+    # pods that ended the trace unplaced after a rejected creation (or out
+    # of retries, in a chaos sweep)
     unscheduled: int = 0
-    # the fault plane's disruption metrics: None (not in the port yet)
+    # a chaos-sweep lane's DisruptionMetrics (None in the other sweeps)
     disruption: object = None
 
 
@@ -1316,9 +1517,11 @@ def schedule_pods_sweep_multi(sim: Simulator, pods_list, weights, seeds=None,
     types are the union over the lanes, and the tables are built once.
     Each lane is bit-identical to a standalone run over its trace with its
     weights and seed. `min_pods`/`min_events` are tpusim's shape floors
-    and pad nothing here; `fault_specs` raises NotImplementedError."""
-    if fault_specs is not None:
-        refuse_fault_lane("schedule_pods_sweep_multi(fault_specs=...)")
+    and pad nothing here. `fault_specs` (the chaos x tune sweep): a fault
+    spec a lane (resolve_fault_spec), or None for a fault-free lane, each
+    compiled against its lane's own trace; the lanes then run on the
+    lanes fault forms, each equal to a standalone run_with_faults lane run
+    over its trace (_dispatch_sweep_multi_faults)."""
     cfg = sim.cfg
     w, b, seeds = _check_sweep_grid(cfg, weights, seeds)
     if len(pods_list) != b:
@@ -1326,12 +1529,239 @@ def schedule_pods_sweep_multi(sim: Simulator, pods_list, weights, seeds=None,
             f"pods_list has {len(pods_list)} traces for {b} weight rows "
             "(want one workload per config lane)"
         )
+    if fault_specs is not None:
+        if len(fault_specs) != b:
+            raise ValueError(
+                f"fault_specs has {len(fault_specs)} entries for {b} "
+                "weight rows (want one fault schedule — or None — per "
+                "lane)"
+            )
+        if cfg.use_timestamps:
+            raise ValueError(
+                "the chaos sweep replays creation-ordered traces "
+                "(use_timestamps=False)"
+            )
     if sim.typical is None:
         sim.set_typical_pods()
     inputs = [_lane_tensors(sim, pods, cfg.use_timestamps)
               for pods in pods_list]
     types, tids = _union_types([specs for specs, _, _ in inputs])
+    if fault_specs is not None:
+        return _dispatch_sweep_multi_faults(sim, fault_specs, inputs, types,
+                                            tids, w, seeds, bucket)
     return _sweep_lanes(sim, inputs, types, tids, w, seeds, "traces")
+
+
+def resolve_fault_spec(spec, num_nodes: int, num_events: int):
+    """One chaos-sweep lane's spec as (FaultConfig, [FaultEvent]): a bare
+    FaultConfig generates its seeded schedule; a (FaultConfig, events)
+    tuple carries an explicit schedule, the config giving the retry and
+    backoff knobs."""
+    if isinstance(spec, tuple) and len(spec) == 2:
+        fcfg, events = spec
+        return fcfg, list(events)
+    if isinstance(spec, FaultConfig):
+        return spec, generate_fault_schedule(num_nodes, num_events, spec)
+    raise ValueError(
+        "each fault lane must be a FaultConfig (seeded MTBF schedule) or "
+        f"a (FaultConfig, [FaultEvent]) tuple, got {type(spec).__name__}"
+    )
+
+
+def _chaos_plans(sim: Simulator, resolved, lane_events, lane_pods, bucket,
+                 cache_key):
+    """The lanes' fault plans of a chaos sweep, each compiled against its
+    lane's base stream with one queue capacity: the lanes' largest, and no
+    smaller than the Simulator's sticky floors (`sim._chaos_hw`, tpusim's:
+    merged-stream length, draw rows, capacity, recover capture, which only
+    grow). Identical lanes share one compile. Returns (plans, the padded
+    merged-stream length the floors record)."""
+    hw_em, hw_rows, hw_cap, hw_rec = getattr(sim, "_chaos_hw",
+                                             (0, 0, 0, False))
+    capacity = max(max(fault_lane.resolve_capacity(fcfg, p)
+                       for (fcfg, _), p in zip(resolved, lane_pods)), hw_cap)
+    cache, plans = {}, []
+    for i, ((fcfg, events), (kinds, pods)) in enumerate(zip(resolved,
+                                                            lane_events)):
+        key = cache_key(i, fcfg, events)
+        plan = cache.get(key)
+        if plan is None:
+            plan = cache[key] = fault_lane.compile_fault_plan(
+                kinds, pods, events, fcfg, len(sim.nodes), lane_pods[i],
+                capacity=capacity)
+        plans.append(plan)
+    kinds, _, _, _, _, draws, _, capacity, has_rec = \
+        fault_lane.pad_fault_plans(plans, bucket=bucket, min_stream=hw_em,
+                                   min_rows=hw_rows)
+    e_m = int(kinds.shape[1])
+    sim._chaos_hw = (e_m, int(draws.shape[1]), capacity,
+                     bool(has_rec or hw_rec))
+    return plans, e_m
+
+
+def _fault_sweep_lanes(sim: Simulator, lane_inputs, types, type_ids, w,
+                       seeds, plans):
+    """One launch of the lanes fault forms: lane i replays plans[i]'s
+    merged stream over lane_inputs[i]'s pods (type ids type_ids[i]) with
+    weight row w[i] and seed seeds[i] (its tie-break rank and root key).
+    init_tables runs once; residency.replay_tier picks
+    `replay_lanes_faults` or `replay_blocked_lanes_faults` (over the nodes
+    padded to whole blocks). Returns the lanes' (ReplayResult, FaultOut) on
+    the host, the state and the down clock over the cluster's nodes, and
+    the lanes' frag amounts f32[B, 7]."""
+    cfg = sim._replay.config
+    state, tp = sim.init_state, sim.typical
+    n = state.num_nodes
+    tier = sim._residency(n, types.num_types)
+    target = state
+    if tier == "hbm":
+        target, _ = pad_nodes(state, sim.rank, BLOCK)
+    lanes = []
+    for (specs, _, _), tid, row, seed, plan in zip(lane_inputs, type_ids, w,
+                                                   seeds, plans):
+        if plan.kind.shape[0] and not specs.cpu.shape[0]:
+            raise ValueError("the fault lane replays a workload of at least "
+                             "one pod")
+        rank = torch.as_tensor(tiebreak_rank(n, seed), device=sim.device)
+        lanes.append(Lane(
+            specs, tid, torch.as_tensor(plan.kind, device=sim.device),
+            torch.as_tensor(plan.idx, device=sim.device),
+            pad_rank(rank, BLOCK) if tier == "hbm" else rank,
+            lane_weights(cfg, row), prng_key(seed),
+            fault_lane.lane_of(plan, target, int(specs.cpu.shape[0]))))
+    tables = init_tables(target, types, tp, cfg)
+    if tier == "hbm":
+        outs = [(o._replace(state=trim_nodes(o.state, n)), f)
+                for o, _, f in replay_blocked_lanes_faults(
+                    target, types, tp, tables, cfg, lanes)]
+        kernel = "replay_blocked_lanes_faults"
+    else:
+        outs = replay_lanes_faults(state, types, tp, tables, cfg, lanes)
+        kernel = "replay_lanes_faults"
+    outs = [(o, f._replace(carry=f.carry._replace(down_at=f.carry.down_at[:n])))
+            for o, f in outs]
+    if sim.device.type != "cuda":
+        kernel = f"plain_{kernel}"
+    sim.last_engine, sim.last_residency = kernel, tier
+    sim.last_kernel_stats = None
+    amounts = _lane_frag_amounts([o.state for o, _ in outs], tp)
+    return device_fetch(tuple(outs)), amounts
+
+
+def _chaos_lane(outs, amounts, i, wrow, seed, plan, gpu_cnt) -> SweepLane:
+    """Lane i of a chaos sweep on the host as its SweepLane, with its
+    DisruptionMetrics; its events count the retries that ran, and its
+    unscheduled pods the dead ones."""
+    out, fout = outs[i]
+    dm, dead, attempts_run = fault_lane.assemble_disruption(
+        plan, fout.ys, fout.carry, gpu_cnt)
+    p = int(out.placed_node.shape[0])
+    lane = _slice_sweep_lane([out], amounts[i:i + 1], 0, wrow, seed, p,
+                             plan.num_events)
+    lane.disruption = dm
+    lane.events = plan.num_events + attempts_run
+    lane.unscheduled = int(((lane.placed_node < 0)
+                            & (lane.ever_failed | dead[:p])).sum())
+    return lane
+
+
+def _dispatch_sweep_multi_faults(sim: Simulator, fault_specs, inputs, types,
+                                 tids, w, seeds, bucket: int):
+    """The fault half of schedule_pods_sweep_multi (driver.py:4373-4534 of
+    the reference): each lane's plan compiled against its own trace (a
+    fault-free lane under an empty schedule, an exact no-op on the lane),
+    with the chaos sweep's sticky floors; then one launch of the lanes
+    fault forms."""
+    ev_list = [(evk.cpu().numpy(), evp.cpu().numpy())
+               for _, evk, evp in inputs]
+    lane_pods = [int(specs.cpu.shape[0]) for specs, _, _ in inputs]
+    resolved = [(FaultConfig(), []) if spec is None else
+                resolve_fault_spec(spec, len(sim.nodes), len(kinds))
+                for spec, (kinds, _) in zip(fault_specs, ev_list)]
+    plans, e_m = _chaos_plans(
+        sim, resolved, ev_list, lane_pods, bucket,
+        lambda i, fcfg, events: (repr(fcfg), tuple(events),
+                                 len(ev_list[i][0])))
+    outs, amounts = _fault_sweep_lanes(sim, inputs, types, tids, w, seeds,
+                                       plans)
+    sim.log.info(
+        f"[Engine] chaos x trace sweep of {len(plans)} lanes (merged stream "
+        f"{e_m}) ran on: {sim.engine}, {sim.last_engine} "
+        f"({sim.last_residency} residency)")
+    gcnt = sim.init_state.gpu_cnt.cpu().numpy()
+    return [_chaos_lane(outs, amounts, i, w[i], seeds[i], plans[i], gcnt)
+            for i in range(len(plans))]
+
+
+def schedule_pods_sweep_faults(sim: Simulator, pods, weights, fault_specs,
+                               seeds=None, bucket: int = 512
+                               ) -> List[SweepLane]:
+    """Evaluate B fault what-ifs of one workload in one launch (the chaos
+    sweep, driver.py:4583-4772 of the reference): lane i replays the
+    shared trace under weight row i, seed i and fault spec i
+    (resolve_fault_spec), its own merged stream, draw table and retry
+    queue, as a block of `replay_lanes_faults` (or
+    `replay_blocked_lanes_faults`). The queue capacity is the lanes'
+    largest, with the sticky floors of _chaos_plans. Each SweepLane
+    carries its DisruptionMetrics and equals the standalone
+    run_with_faults lane run with that schedule."""
+    cfg = sim.cfg
+    if cfg.use_timestamps:
+        raise ValueError(
+            "the chaos sweep replays creation-ordered traces "
+            "(use_timestamps=False)"
+        )
+    w, b, seeds = _check_sweep_grid(cfg, weights, seeds)
+    if len(fault_specs) != b:
+        raise ValueError(
+            f"fault_specs has {len(fault_specs)} entries for {b} weight "
+            "rows (want one fault schedule per lane)"
+        )
+    if sim.typical is None:
+        sim.set_typical_pods()
+    inputs = _lane_tensors(sim, pods, False)
+    ev = tuple(x.cpu().numpy() for x in inputs[1:])
+    p, e = int(inputs[0].cpu.shape[0]), int(ev[0].shape[0])
+    resolved = [resolve_fault_spec(spec, len(sim.nodes), e)
+                for spec in fault_specs]
+    plans, e_m = _chaos_plans(sim, resolved, [ev] * b, [p] * b, bucket,
+                              lambda i, fcfg, events: (repr(fcfg),
+                                                       tuple(events)))
+    types = build_pod_types(inputs[0])
+    outs, amounts = _fault_sweep_lanes(sim, [inputs] * b, types,
+                                       [types.type_id] * b, w, seeds, plans)
+    sim.log.info(
+        f"[Engine] chaos sweep of {b} fault lanes x {e} events (merged "
+        f"stream {e_m}) ran on: {sim.engine}, {sim.last_engine} "
+        f"({sim.last_residency} residency)")
+    gcnt = sim.init_state.gpu_cnt.cpu().numpy()
+    return [_chaos_lane(outs, amounts, i, w[i], seeds[i], plans[i], gcnt)
+            for i in range(b)]
+
+
+def format_chaos_table(lanes: Sequence[SweepLane], policies) -> str:
+    """Per-lane disruption frontier of a chaos sweep (the `apply
+    --sweep-faults` output): placements and the DisruptionMetrics
+    headline numbers a fault schedule."""
+    names = [n for n, _ in policies]
+    head = (
+        f"{'lane':>4} {'weights(' + ','.join(names) + ')':<28} "
+        f"{'seed':>6} {'placed':>7} {'evicted':>8} {'resched':>8} "
+        f"{'dead':>5} {'fails':>6} {'lat_mean':>9} {'gpu_alloc%':>10} "
+        f"{'frag_gpu_milli':>15}"
+    )
+    rows = [head, "-" * len(head)]
+    for i, ln in enumerate(lanes):
+        dm = ln.disruption
+        wstr = ",".join(str(int(x)) for x in ln.weights)
+        rows.append(
+            f"{i:>4} {wstr:<28} {ln.seed:>6} {ln.placed:>7} "
+            f"{dm.evicted_pods:>8} {dm.rescheduled_pods:>8} "
+            f"{dm.unscheduled_after_retries:>5} {dm.node_failures:>6} "
+            f"{dm.mean_reschedule_latency():>9.2f} "
+            f"{ln.gpu_alloc_pct:>10.2f} {ln.frag_gpu_milli:>15.0f}"
+        )
+    return "\n".join(rows)
 
 
 def format_sweep_table(lanes: Sequence[SweepLane], policies) -> str:

@@ -14,11 +14,13 @@ from tpusim_torch.types import NodeState
 EV_CREATE = 0
 EV_DELETE = 1
 EV_SKIP = 2  # padding / pods carrying the pod-unscheduled annotation
-# fault events (tpusim_torch.sim.faults): host-level, they never reach a
-# replay's event stream
+# fault events (tpusim_torch.sim.faults): the segmented host loop applies
+# them between replays; the in-scan lane (tpusim_torch.sim.fault_lane)
+# merges them into the event stream of the replays' fault forms
 EV_NODE_FAIL = 3  # a node crashes; its pods are evicted into the retry queue
 EV_NODE_RECOVER = 4  # the node returns, empty
 EV_EVICT = 5  # one pod is evicted and re-enters through the retry queue
+EV_RETRY = 6  # the lane's retry slot: pops a due pod and creates it, or skips
 
 
 class EventMetrics(NamedTuple):

@@ -1,11 +1,12 @@
-"""Fault injection: node crash and recovery and pod eviction between
-replay segments (counterpart of tpusim/sim/faults.py).
+"""Fault injection: node crash and recovery and pod eviction (counterpart
+of tpusim/sim/faults.py): the schedule, its validation, the eviction draw
+and the node transitions.
 
-A node failure evicts every pod on the node at once, which no replay event
-can express, so faults are host-level: the driver splits the trace at the
-fault positions, replays each segment through the normal kernels
-(Simulator.run_events) and applies the fault transitions between segments
-(Simulator.schedule_pods_with_faults).
+The segmented host loop (Simulator._schedule_pods_with_faults_segmented)
+splits the trace at the fault positions, replays each segment through the
+normal kernels (Simulator.run_events) and applies the transitions between
+segments; the in-scan lane (tpusim_torch.sim.fault_lane) merges them into
+the replay's event stream instead.
 
 A schedule is an explicit FaultEvent list, or is drawn by
 generate_fault_schedule from a seeded numpy generator: geometric gaps
@@ -60,7 +61,10 @@ class FaultConfig:
     An evicted pod re-enters the stream min(backoff_base * 2^(attempt-1),
     backoff_cap) events after its eviction; after max_retries failed
     attempts in a row it is terminal (reason "max-retries-exceeded"), and a
-    successful reschedule resets the count. The queue is unbounded."""
+    successful reschedule resets the count. The host loop's queue is
+    unbounded; the in-scan lane's holds queue_capacity entries
+    (fault_lane.resolve_capacity: 0 = min(pods, 256)), and a pod pushed
+    past it is terminal too."""
 
     mtbf_events: float = 0.0
     mttr_events: float = 0.0
@@ -69,6 +73,7 @@ class FaultConfig:
     max_retries: int = 3
     backoff_base: int = 8
     backoff_cap: int = 256
+    queue_capacity: int = 0
 
 
 def _geometric(rng: np.random.Generator, mean: float) -> int:

@@ -68,7 +68,16 @@ from tpusim_torch.policies import (
 )
 from tpusim_torch.policies.base import normalize, wrap_i32
 from tpusim_torch.policies.random_policy import random_score
-from tpusim_torch.sim.engine import EV_CREATE, EV_DELETE, EV_SKIP, ReplayResult
+from tpusim_torch.sim.engine import (
+    EV_CREATE,
+    EV_DELETE,
+    EV_EVICT,
+    EV_NODE_FAIL,
+    EV_NODE_RECOVER,
+    EV_RETRY,
+    EV_SKIP,
+    ReplayResult,
+)
 from tpusim_torch.sim.table_engine import PodTypes
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
@@ -255,7 +264,7 @@ def root_key(key, cfg: ReplayConfig):
 def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
                      ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                      tp: TypicalPods, tables, cfg: ReplayConfig,
-                     select, keep: dict = None, key=None) -> ReplayResult:
+                     select, keep: dict = None, key=None, faults=None):
     """The event loop of the plain replays. Before each event the column of
     the node the previous event touched is refreshed in copies of the
     (score, sdev, feas) `tables`; then `select(tables, dirty, kind, type,
@@ -264,7 +273,16 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
     pod's resources to the devices it held. A randomized `cfg` draws from
     the event key chain of root `key` (k_rand, k_sel of each event; None
     otherwise). Inputs are left unchanged; with `keep`, the final tables
-    are stored in keep["tables"]."""
+    are stored in keep["tables"].
+
+    With `faults` (a fault_lane.FaultLane) the events are a merged stream
+    of fault_lane.compile_fault_plan, run as tpusim's table engine runs its
+    fault lane: a retry slot pops the retry queue (pop_retry) and creates
+    the popped pod, its rejection ORed into the pod's ever-failed flag, or
+    skips; a node failure, recovery or eviction is a skip for the select,
+    then apply_fault_step, whose touched node is the step's node and the
+    next refresh's; a popped retry ends with commit_retry. Returns
+    (ReplayResult, fault_lane.FaultOut) then."""
     tables = tuple(t.clone() for t in tables)
     if keep is not None:
         keep["tables"] = tables
@@ -288,6 +306,7 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
     k_rand = k_sel = [None] * e
     if cfg.randomized:
         k_rand, k_sel = (k.tolist() for k in event_keys(key, e))
+    steps = _FaultSteps(faults, live, pods, tp, e) if faults else None
     dirty = -1
     for i in range(e):
         if dirty >= 0:
@@ -296,6 +315,9 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
             for table, c in zip(tables, col):
                 table[:, dirty] = c[:, 0]
         kind, idx = kinds[i], ev_pods[i]
+        popped = -1
+        if steps is not None:
+            kind, idx, popped = steps.pop(i, kind, idx)
         tid, pin = type_id[idx], host["pinned"][idx]
         node = select(tables, dirty, kind, tid, pin, k_rand[i])
         pcpu, pmem = host["cpu"][idx], host["mem"][idx]
@@ -330,7 +352,8 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
                     aff[node, cls] += 1
             placed[idx] = node
             maskb[idx] = bits
-            failed[idx] = 0 if ok else 1
+            # a popped retry ORs its rejection into the ever-failed flag
+            failed[idx] = (failed[idx] if popped >= 0 else 0) if ok else 1
             evnode[i], evdevb[i] = node, bits
             dirty = max(node, 0)
         elif kind == EV_DELETE:
@@ -346,25 +369,108 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
             placed[idx], maskb[idx] = -1, 0
             evnode[i], evdevb[i] = node, bits
             dirty = max(node, 0)
+        if steps is not None:
+            touched = steps.end(i, kinds[i], popped, node, placed, maskb,
+                                failed)
+            if touched >= 0:
+                evnode[i], evdevb[i] = touched, 0
+                dirty = touched
 
     def t(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
 
-    return ReplayResult(live, t(placed), _bits_to_mask(t(maskb)),
-                        t(failed) != 0, None, t(evnode),
-                        _bits_to_mask(t(evdevb)))
+    result = ReplayResult(live, t(placed), _bits_to_mask(t(maskb)),
+                          t(failed) != 0, None, t(evnode),
+                          _bits_to_mask(t(evdevb)))
+    if steps is None:
+        return result
+    return result, steps.out()
+
+
+class _FaultSteps:
+    """plain_event_loop's fault lane: the carry, and the steps' FaultY, of
+    one merged stream (fault_lane's step functions on the loop's state)."""
+
+    def __init__(self, faults, live: NodeState, pods: PodSpec,
+                 tp: TypicalPods, e: int):
+        from tpusim_torch.sim import fault_lane as fl
+
+        self.fl, self.live, self.pods, self.tp = fl, live, pods, tp
+        self.ops, self.fc = faults.ops, faults.carry
+        self.frag = faults.n_recover > 0
+        self.pos, self.arg, self.aux = (x.tolist() for x in
+                                        (self.ops.pos, self.ops.arg,
+                                         self.ops.aux))
+        self.node_ids = torch.arange(live.num_nodes, dtype=torch.int32,
+                                     device=live.cpu_left.device)
+        self.ys = {name: [-1] * e for name in ("rpod", "lat", "vpod",
+                                               "vnode")}
+        self.ys.update(nvict=[0] * e, rec=[0] * e, fb=[0.0] * e,
+                       fa=[0.0] * e)
+
+    def pop(self, i: int, kind: int, idx: int):
+        """(kind, pod, popped pod or -1) of step i for the select: a retry
+        slot's pop, a fault step's skip."""
+        if kind == EV_RETRY:
+            self.fc, has, pod = self.fl.pop_retry(self.fc, True, self.pos[i],
+                                                  self.arg[i])
+            if bool(has):
+                return EV_CREATE, int(pod), int(pod)
+            return EV_SKIP, idx, -1
+        return (EV_SKIP if kind > EV_SKIP else kind), idx, -1
+
+    def end(self, i: int, kind: int, popped: int, node: int, placed,
+            maskb, failed) -> int:
+        """The fault half of step i after its own outcome, on the loop's
+        host lists; returns the node the step touched (-1 none)."""
+        fl, dev = self.fl, self.node_ids.device
+        touched = -1
+        if kind in (EV_NODE_FAIL, EV_NODE_RECOVER, EV_EVICT):
+            def t(values):
+                return torch.tensor(values, dtype=torch.int32, device=dev)
+
+            state, pl, masks, fd, self.fc, tch, y = fl.apply_fault_step(
+                self.live, t(placed), _bits_to_mask(t(maskb)),
+                t(failed) != 0, self.fc, self.pods, kind, self.arg[i],
+                self.aux[i], self.pos[i], self.ops, self.tp, self.node_ids,
+                self.frag)
+            for name in ("cpu_left", "mem_left", "gpu_left", "aff_cnt"):
+                getattr(self.live, name).copy_(getattr(state, name))
+            lane = torch.arange(MAX_GPUS_PER_NODE, device=dev)
+            placed[:] = pl.tolist()
+            maskb[:] = (masks.to(torch.int32) << lane).sum(1).tolist()
+            failed[:] = fd.to(torch.int32).tolist()
+            for name in ("vpod", "vnode", "nvict", "rec", "fb", "fa"):
+                self.ys[name][i] = getattr(y, name).item()
+            touched = int(tch)
+        if popped >= 0:
+            self.fc, lat, _ = fl.commit_retry(self.fc, True, popped, node,
+                                              self.pos[i], self.arg[i],
+                                              self.ops.params)
+            self.ys["rpod"][i], self.ys["lat"][i] = popped, int(lat)
+        return touched
+
+    def out(self):
+        dev = self.node_ids.device
+        ys = self.fl.FaultY(**{
+            name: torch.tensor(v, dtype=torch.float32 if name in ("fb", "fa")
+                               else torch.int32, device=dev)
+            for name, v in self.ys.items()})
+        return self.fl.FaultOut(self.fc, ys)
 
 
 def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                  ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                  tp: TypicalPods, rank: torch.Tensor, tables,
                  cfg: ReplayConfig, keep: dict = None,
-                 key=None) -> ReplayResult:
+                 key=None, faults=None):
     """The plain version of the `replay` kernel: an event loop over tensor
     ops. `tables` are the (score, sdev, feas) tables of the initial state.
     selectHost scans the event type's row over all N nodes; RandomScore's
     row is the event's draw from `key`'s chain. With `keep`, the final
-    tables are stored in keep["tables"]."""
+    tables are stored in keep["tables"]. With `faults` (a
+    fault_lane.FaultLane over a merged stream) it is the plain version of
+    `replay_faults` and returns (ReplayResult, fault_lane.FaultOut)."""
     k, n = types.num_types, state.num_nodes
     node_ids = torch.arange(n, device=rank.device, dtype=torch.int32)
 
@@ -393,7 +499,7 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
         return int(torch.where(key == m, node_ids, n).min())
 
     return plain_event_loop(state, pods, types, ev_kind, ev_pod, tp, tables,
-                            cfg, select, keep, key)
+                            cfg, select, keep, key, faults)
 
 
 # ---------------------------------------------------------------------------
@@ -578,7 +684,7 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
     key = root_key(key, cfg)
     if not staged(types.num_types, tp.size):
         nbytes = scratch_bytes(types.num_types, tp.size, len(cfg.policies),
-                               name == "replay_blocked")
+                               name.startswith("replay_blocked"))
         extra["scratch"] = torch.empty(-(-nbytes // 4), dtype=torch.int32,
                                        device=dev)
     live = state._replace(
@@ -632,6 +738,101 @@ def replay(state: NodeState, pods: PodSpec, types: PodTypes,
     return ready.finish()
 
 
+def fault_args(faults, e: int, state: NodeState, tp: TypicalPods):
+    """A fault form's ReplayArgs fields for a fault_lane.FaultLane over a
+    merged stream of `e` steps, on the state's device: the operands, copies
+    of the carry (the kernel updates them in place), the steps' outputs at
+    their defaults and the recover snapshots. Returns (fields, finish),
+    finish() giving the fault_lane.FaultOut once the launch is queued: the
+    carry, and the FaultY with the recover frag before and after each
+    applied recover (fault_lane.recover_frags, from the snapshots, on the
+    device)."""
+    from tpusim_torch.sim import fault_lane as fl
+
+    dev = state.cpu_left.device
+    ops, c, s = faults.ops, faults.carry, int(faults.n_recover)
+    if state.num_nodes != c.down_at.shape[0]:
+        raise ValueError(f"the carry has {c.down_at.shape[0]} nodes, the "
+                         f"state {state.num_nodes}")
+    n = state.num_nodes
+    params = ops.params.tolist()
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.int32, device=dev)
+
+    carry = {name: getattr(c, name).to(torch.int32).clone() for name in
+             ("q_ready", "q_seq", "q_pod", "q_att", "q_era", "attempts",
+              "evicted_at", "dead", "down_at", "dctr")}
+    carry["seq"] = c.seq.to(torch.int32).reshape(1).clone()
+    ys = {name: full((e,), -1) for name in ("rpod", "lat", "vpod", "vnode")}
+    ys.update(nvict=full((e,), 0), rec=full((e,), 0))
+    snaps = dict(snap_cpu=full((max(s, 1), n), 0),
+                 snap_gpu=full((max(s, 1), n, MAX_GPUS_PER_NODE), 0),
+                 snap_node=full((max(s, 1),), -1))
+    fields = dict(
+        f_pos=ops.pos, f_arg=ops.arg, f_aux=ops.aux, f_draws=ops.draws,
+        f_seq=carry["seq"], f_attempts=carry["attempts"],
+        f_evicted_at=carry["evicted_at"], f_dead=carry["dead"],
+        f_down_at=carry["down_at"], f_dctr=carry["dctr"],
+        **{k: carry[k] for k in ("q_ready", "q_seq", "q_pod", "q_att",
+                                 "q_era")},
+        **{f"y_{k}": v for k, v in ys.items()}, **snaps,
+        f_rows=ops.draws.shape[0], f_cols=ops.draws.shape[1],
+        f_cap_r=c.q_pod.shape[0], f_base=params[0], f_cap=params[1],
+        f_maxr=params[2], f_nrec=s)
+
+    def finish():
+        fb = fa = torch.zeros(e, dtype=torch.float32, device=dev)
+        if s > 0:
+            fbs, fas = fl.recover_frags(
+                (snaps["snap_cpu"], snaps["snap_gpu"]),
+                snaps["snap_node"].clamp(min=0), state, tp)
+            rec = ys["rec"] > 0
+            slot = (torch.cumsum(ys["rec"], 0) - 1).clamp(0, s - 1)
+            fb = torch.where(rec, fbs[slot], 0.0)
+            fa = torch.where(rec, fas[slot], 0.0)
+        fc = fl.FaultCarry(
+            seq=carry["seq"][0], dead=carry["dead"] != 0,
+            **{k: v for k, v in carry.items() if k not in ("seq", "dead")})
+        return fl.FaultOut(fc, fl.FaultY(fb=fb, fa=fa, **ys))
+
+    return fields, finish
+
+
+def prepare_replay_faults(state: NodeState, pods: PodSpec, types: PodTypes,
+                          ev_kind: torch.Tensor, ev_pod: torch.Tensor,
+                          tp: TypicalPods, rank: torch.Tensor, tables,
+                          cfg: ReplayConfig, faults, key=None,
+                          name: str = "replay_faults", **extra) -> Launch:
+    """The `replay_faults` launch (or that of the fault form `name`) over
+    CUDA tensors: prepare_replay's, over the merged stream (ev_kind, ev_pod)
+    of the fault_lane.FaultLane `faults`. finish() returns (its result,
+    fault_lane.FaultOut)."""
+    fields, finish_faults = fault_args(faults, ev_kind.shape[0], state, tp)
+    ready = prepare_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
+                           tables, cfg, name=name, key=key, **fields,
+                           **extra)
+    return ready._replace(finish=lambda: (ready.finish(), finish_faults()))
+
+
+def replay_faults(state: NodeState, pods: PodSpec, types: PodTypes,
+                  ev_kind: torch.Tensor, ev_pod: torch.Tensor,
+                  tp: TypicalPods, rank: torch.Tensor, tables,
+                  cfg: ReplayConfig, faults, key=None):
+    """replay over a merged stream of fault_lane.compile_fault_plan (kinds
+    0-6) with the fault_lane.FaultLane `faults`: the `replay_faults` CUDA
+    kernel on CUDA tensors, plain_replay(faults=) on CPU tensors. Returns
+    (ReplayResult, fault_lane.FaultOut); the inputs are left unchanged."""
+    if state.cpu_left.device.type == "cpu":
+        return plain_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
+                            tables, cfg, key=key, faults=faults)
+    ready = prepare_replay_faults(state, pods, types, ev_kind, ev_pod, tp,
+                                  rank, tables, cfg, faults, key=key)
+    launch(ready)
+    replay_faults.launches += 1
+    return ready.finish()
+
+
 # ---------------------------------------------------------------------------
 # Lanes: B independent replays of one configuration family in one launch
 # ---------------------------------------------------------------------------
@@ -651,6 +852,9 @@ class Lane(NamedTuple):
     rank: torch.Tensor
     weights: Tuple[int, ...]
     key: object = None
+    # the lane's fault_lane.FaultLane in the lanes' fault forms (its events
+    # are then a merged stream)
+    faults: object = None
 
 
 def _lane_types(types: PodTypes, lane: Lane) -> PodTypes:
@@ -666,15 +870,16 @@ def plain_replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
                        keep: dict = None):
     """The plain version of the `replay_lanes` kernel: plain_replay lane by
     lane, each from `state` and the shared (score, sdev, feas) `tables`.
-    Returns a ReplayResult a lane; with `keep`, keep["tables"] holds each
-    lane's final tables."""
+    Returns a ReplayResult a lane ((ReplayResult, fault_lane.FaultOut) for
+    lanes with faults: the plain version of `replay_lanes_faults`); with
+    `keep`, keep["tables"] holds each lane's final tables."""
     outs, finals = [], []
     for lane in lanes:
         kept = {}
         outs.append(plain_replay(
             state, lane.pods, _lane_types(types, lane), lane.ev_kind,
             lane.ev_pod, tp, lane.rank, tables, _lane_config(cfg, lane),
-            keep=kept, key=lane.key))
+            keep=kept, key=lane.key, faults=lane.faults))
         finals.append(kept["tables"])
     if keep is not None:
         keep["tables"] = finals
@@ -693,16 +898,18 @@ def lane_copies(x: torch.Tensor, b: int) -> torch.Tensor:
 def prepare_replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
                          tables, cfg: ReplayConfig, lanes: Sequence[Lane],
                          name: str = "replay_lanes",
-                         lane_extra: dict = None) -> Launch:
+                         lane_extra: dict = None,
+                         per_lane: Sequence[dict] = None) -> Launch:
     """The `replay_lanes` launch over CUDA tensors (or that of lanes kernel
     `name`): lane b replays its events from its own copy of `state` and of
     the (score, sdev, feas) `tables` of `state`. Each field's lane copies
     are one [B, ...] tensor ("cpu_left", ..., "score", ...), as are the
     outputs ("placed", "maskb", "failed" [B, max P]; "ev_node", "ev_devb"
     [B, max E]) and `lane_extra`'s tensors, whose lane b is passed as lane
-    b's argument of that name. "lanes" holds each lane's tensors by field
-    name, "lanes_dev" the device copy of the lanes' arguments. finish()
-    returns a ReplayResult a lane, sliced to its pods and events."""
+    b's argument of that name, as are `per_lane[b]`'s fields. "lanes" holds
+    each lane's tensors by field name, "lanes_dev" the device copy of the
+    lanes' arguments. finish() returns a ReplayResult a lane, sliced to its
+    pods and events."""
     from tpusim_torch.kernels import ReplayArgs
 
     dev = state.cpu_left.device
@@ -732,7 +939,7 @@ def prepare_replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
     extra = dict(lane_extra or {})
     if not staged(types.num_types, tp.size):
         nbytes = scratch_bytes(types.num_types, tp.size, len(cfg.policies),
-                               name == "replay_blocked_lanes")
+                               name.startswith("replay_blocked"))
         extra["scratch"] = out(b, -(-nbytes // 4))
 
     def lane_state(i):
@@ -750,7 +957,8 @@ def prepare_replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
             ev_kind=lane.ev_kind, ev_pod=lane.ev_pod, placed=placed[i, :p],
             maskb=maskb[i, :p], failed=failed[i, :p], ev_node=ev_node[i, :e],
             ev_devb=ev_devb[i, :e], p=p, e=e, key=keys[i],
-            **{f: x[i] for f, x in extra.items()})
+            **{f: x[i] for f, x in extra.items()},
+            **(per_lane[i] if per_lane else {}))
         args.append(a)
         kept.append(k)
     lanes_dev = torch.empty(b * ctypes.sizeof(ReplayArgs), dtype=torch.uint8,
@@ -785,12 +993,47 @@ def replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods, tables,
     return ready.finish()
 
 
+def prepare_replay_lanes_faults(state: NodeState, types: PodTypes,
+                                tp: TypicalPods, tables, cfg: ReplayConfig,
+                                lanes: Sequence[Lane],
+                                name: str = "replay_lanes_faults",
+                                lane_extra: dict = None) -> Launch:
+    """The `replay_lanes_faults` launch (or that of the lanes fault form
+    `name`): prepare_replay_lanes over lanes whose events are merged
+    streams, each with its fault_lane.FaultLane (Lane.faults). finish()
+    returns (lanes' result, fault_lane.FaultOut) a lane."""
+    fields, finishes = zip(*(fault_args(lane.faults, lane.ev_kind.shape[0],
+                                        state, tp) for lane in lanes))
+    ready = prepare_replay_lanes(state, types, tp, tables, cfg, lanes, name,
+                                 lane_extra, per_lane=fields)
+    return ready._replace(finish=lambda: [
+        (out, fin()) for out, fin in zip(ready.finish(), finishes)])
+
+
+def replay_lanes_faults(state: NodeState, types: PodTypes, tp: TypicalPods,
+                        tables, cfg: ReplayConfig, lanes: Sequence[Lane]):
+    """replay_lanes over lanes whose events are merged streams of
+    fault_lane.compile_fault_plan, each with its Lane.faults: the
+    `replay_lanes_faults` CUDA kernel on CUDA tensors (a block a lane, one
+    launch), plain_replay_lanes on CPU tensors. Returns (ReplayResult,
+    fault_lane.FaultOut) a lane."""
+    if state.cpu_left.device.type == "cpu":
+        return plain_replay_lanes(state, types, tp, tables, cfg, lanes)
+    ready = prepare_replay_lanes_faults(state, types, tp, tables, cfg, lanes)
+    launch(ready)
+    replay_lanes_faults.launches += 1
+    return ready.finish()
+
+
 init_tables.launches = 0
 replay.launches = 0
 replay_lanes.launches = 0
+replay_faults.launches = 0
+replay_lanes_faults.launches = 0
 # every kernel wrapper of the port; tpusim_torch.sim.hbm_engine adds
-# replay_blocked and replay_blocked_lanes
-KERNEL_WRAPPERS = [init_tables, replay, replay_lanes]
+# replay_blocked, replay_blocked_lanes and their fault forms
+KERNEL_WRAPPERS = [init_tables, replay, replay_lanes, replay_faults,
+                   replay_lanes_faults]
 
 
 def reset_launch_counts() -> None:

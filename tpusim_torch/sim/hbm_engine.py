@@ -223,7 +223,7 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                          ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                          tp: TypicalPods, rank: torch.Tensor, tables,
                          cfg: fe.ReplayConfig, keep: dict = None,
-                         on_refresh=None):
+                         on_refresh=None, faults=None):
     """The plain version of the `replay_blocked` kernel: an event loop over
     tensor ops, returning (ReplayResult, stats i32[3]). The node axis of
     `state`, `rank` and the (score, sdev, feas) `tables` of the initial
@@ -233,7 +233,10 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
     called after each dirty-block refresh with the dirty column's (raws,
     Filter bits) before and after the column refresh, the refreshed
     tables, and copies of the summaries before and after the block
-    refresh."""
+    refresh. With `faults` (a fault_lane.FaultLane over a merged stream,
+    its carry over the padded nodes) it is the plain version of
+    `replay_blocked_faults` (fused_engine.plain_event_loop runs the fault
+    steps) and returns (ReplayResult, stats, fault_lane.FaultOut)."""
     n, k = state.num_nodes, types.num_types
     check_blocked(n, cfg)
     nblk, n_pol = n // BLOCK, len(cfg.policies)
@@ -287,12 +290,29 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
         return int(bn[tid, c]) if int(key[c]) != -_INT_MAX else -1
 
     result = fe.plain_event_loop(state, pods, types, ev_kind, ev_pod, tp,
-                                 tables, cfg, select, keep)
+                                 tables, cfg, select, keep, faults=faults)
     if keep is not None:
         keep["summaries"] = summ
     stats = torch.tensor([0, 0, rebuilds], dtype=torch.int32,
                          device=rank.device)
+    if faults is not None:
+        return result[0], stats, result[1]
     return result, stats
+
+
+def _summary_buffers(n: int, k: int, cfg: fe.ReplayConfig, device,
+                     b: int = None) -> dict:
+    """The blocked replays' summaries and "stats", zeroed ([b, ...] for b
+    lanes)."""
+    nblk, nn = n // BLOCK, max(len(_norm_index(cfg)), 1)
+    lead = () if b is None else (b,)
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=torch.int32, device=device)
+
+    return dict(bt=zeros(k, nblk), br=zeros(k, nblk), bn=zeros(k, nblk),
+                brmin=zeros(nn, k, nblk), brmax=zeros(nn, k, nblk),
+                slo=zeros(nn, k), shi=zeros(nn, k), stats=zeros(3))
 
 
 def prepare_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
@@ -301,20 +321,37 @@ def prepare_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                            cfg: fe.ReplayConfig) -> fe.Launch:
     """The `replay_blocked` launch over CUDA tensors: `replay`'s arguments
     and outputs, the summaries it builds and maintains, and "stats"."""
-    n, k = state.num_nodes, types.num_types
-    check_blocked(n, cfg)
-    nblk, nn = n // BLOCK, max(len(_norm_index(cfg)), 1)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=rank.device)
-
-    summaries = dict(bt=zeros(k, nblk), br=zeros(k, nblk), bn=zeros(k, nblk),
-                     brmin=zeros(nn, k, nblk), brmax=zeros(nn, k, nblk),
-                     slo=zeros(nn, k), shi=zeros(nn, k), stats=zeros(3))
+    check_blocked(state.num_nodes, cfg)
+    summaries = _summary_buffers(state.num_nodes, types.num_types, cfg,
+                                 rank.device)
     ready = fe.prepare_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
                               tables, cfg, name="replay_blocked", **summaries)
     return ready._replace(
         finish=lambda: (ready.finish(), ready.tensors["stats"]))
+
+
+def prepare_replay_blocked_faults(state: NodeState, pods: PodSpec,
+                                  types: PodTypes, ev_kind: torch.Tensor,
+                                  ev_pod: torch.Tensor, tp: TypicalPods,
+                                  rank: torch.Tensor, tables,
+                                  cfg: fe.ReplayConfig, faults) -> fe.Launch:
+    """The `replay_blocked_faults` launch over CUDA tensors:
+    prepare_replay_blocked's over the merged stream of the
+    fault_lane.FaultLane `faults`. finish() returns (ReplayResult, stats,
+    fault_lane.FaultOut)."""
+    check_blocked(state.num_nodes, cfg)
+    summaries = _summary_buffers(state.num_nodes, types.num_types, cfg,
+                                 rank.device)
+    ready = fe.prepare_replay_faults(state, pods, types, ev_kind, ev_pod, tp,
+                                     rank, tables, cfg, faults,
+                                     name="replay_blocked_faults",
+                                     **summaries)
+
+    def finish():
+        out, fout = ready.finish()
+        return out, ready.tensors["stats"], fout
+
+    return ready._replace(finish=finish)
 
 
 def replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
@@ -337,20 +374,41 @@ def replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
     return ready.finish()
 
 
+def replay_blocked_faults(state: NodeState, pods: PodSpec, types: PodTypes,
+                          ev_kind: torch.Tensor, ev_pod: torch.Tensor,
+                          tp: TypicalPods, rank: torch.Tensor, tables,
+                          cfg: fe.ReplayConfig, faults):
+    """replay_blocked over a merged stream of fault_lane.compile_fault_plan
+    with the fault_lane.FaultLane `faults` (its carry and gcnt over the
+    padded nodes): the `replay_blocked_faults` CUDA kernel on CUDA tensors,
+    plain_replay_blocked(faults=) on CPU tensors. Returns (ReplayResult,
+    stats i32[3], fault_lane.FaultOut)."""
+    if state.cpu_left.device.type == "cpu":
+        return plain_replay_blocked(state, pods, types, ev_kind, ev_pod, tp,
+                                    rank, tables, cfg, faults=faults)
+    ready = prepare_replay_blocked_faults(state, pods, types, ev_kind, ev_pod,
+                                          tp, rank, tables, cfg, faults)
+    fe.launch(ready)
+    replay_blocked_faults.launches += 1
+    return ready.finish()
+
+
 def plain_replay_blocked_lanes(state: NodeState, types: PodTypes,
                                tp: TypicalPods, tables, cfg: fe.ReplayConfig,
                                lanes, keep: dict = None):
     """The plain version of the `replay_blocked_lanes` kernel:
     plain_replay_blocked lane by lane (fused_engine.Lane), each from
-    `state` and the shared tables. Returns (ReplayResult, stats) a lane;
-    with `keep`, keep["tables"] and keep["summaries"] hold each lane's."""
+    `state` and the shared tables. Returns (ReplayResult, stats) a lane
+    ((ReplayResult, stats, fault_lane.FaultOut) for lanes with faults: the
+    plain version of `replay_blocked_lanes_faults`); with `keep`,
+    keep["tables"] and keep["summaries"] hold each lane's."""
     outs, finals = [], {"tables": [], "summaries": []}
     for lane in lanes:
         kept = {}
         outs.append(plain_replay_blocked(
             state, lane.pods, fe._lane_types(types, lane), lane.ev_kind,
             lane.ev_pod, tp, lane.rank, tables, fe._lane_config(cfg, lane),
-            keep=kept))
+            keep=kept, faults=lane.faults))
         for name in finals:
             finals[name].append(kept[name])
     if keep is not None:
@@ -365,24 +423,35 @@ def prepare_replay_blocked_lanes(state: NodeState, types: PodTypes,
     fused_engine.prepare_replay_lanes, each with its own block summaries
     and "stats" ([B, ...] tensors). finish() returns (ReplayResult, stats)
     a lane."""
-    n, k = state.num_nodes, types.num_types
-    check_blocked(n, cfg)
-    b = len(lanes)
-    nblk, nn = n // BLOCK, max(len(_norm_index(cfg)), 1)
-
-    def zeros(*shape):
-        return torch.zeros((b, *shape), dtype=torch.int32,
-                           device=state.cpu_left.device)
-
-    summaries = dict(bt=zeros(k, nblk), br=zeros(k, nblk), bn=zeros(k, nblk),
-                     brmin=zeros(nn, k, nblk), brmax=zeros(nn, k, nblk),
-                     slo=zeros(nn, k), shi=zeros(nn, k), stats=zeros(3))
+    check_blocked(state.num_nodes, cfg)
+    summaries = _summary_buffers(state.num_nodes, types.num_types, cfg,
+                                 state.cpu_left.device, len(lanes))
     ready = fe.prepare_replay_lanes(state, types, tp, tables, cfg, lanes,
                                     name="replay_blocked_lanes",
                                     lane_extra=summaries)
     stats = summaries["stats"]
     return ready._replace(finish=lambda: [
         (out, stats[i]) for i, out in enumerate(ready.finish())])
+
+
+def prepare_replay_blocked_lanes_faults(state: NodeState, types: PodTypes,
+                                        tp: TypicalPods, tables,
+                                        cfg: fe.ReplayConfig,
+                                        lanes) -> fe.Launch:
+    """The `replay_blocked_lanes_faults` launch over CUDA tensors:
+    prepare_replay_blocked_lanes' over lanes with merged streams and their
+    Lane.faults. finish() returns (ReplayResult, stats,
+    fault_lane.FaultOut) a lane."""
+    check_blocked(state.num_nodes, cfg)
+    summaries = _summary_buffers(state.num_nodes, types.num_types, cfg,
+                                 state.cpu_left.device, len(lanes))
+    ready = fe.prepare_replay_lanes_faults(
+        state, types, tp, tables, cfg, lanes,
+        name="replay_blocked_lanes_faults", lane_extra=summaries)
+    stats = summaries["stats"]
+    return ready._replace(finish=lambda: [
+        (out, stats[i], fout)
+        for i, (out, fout) in enumerate(ready.finish())])
 
 
 def replay_blocked_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
@@ -400,9 +469,30 @@ def replay_blocked_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
     return ready.finish()
 
 
+def replay_blocked_lanes_faults(state: NodeState, types: PodTypes,
+                                tp: TypicalPods, tables,
+                                cfg: fe.ReplayConfig, lanes):
+    """replay_blocked_lanes over lanes with merged streams and their
+    Lane.faults (carries over the padded nodes): the
+    `replay_blocked_lanes_faults` CUDA kernel on CUDA tensors,
+    plain_replay_blocked_lanes on CPU tensors. Returns (ReplayResult,
+    stats, fault_lane.FaultOut) a lane."""
+    if state.cpu_left.device.type == "cpu":
+        return plain_replay_blocked_lanes(state, types, tp, tables, cfg,
+                                          lanes)
+    ready = prepare_replay_blocked_lanes_faults(state, types, tp, tables,
+                                                cfg, lanes)
+    fe.launch(ready)
+    replay_blocked_lanes_faults.launches += 1
+    return ready.finish()
+
+
 replay_blocked.launches = 0
 replay_blocked_lanes.launches = 0
-fe.KERNEL_WRAPPERS.extend([replay_blocked, replay_blocked_lanes])
+replay_blocked_faults.launches = 0
+replay_blocked_lanes_faults.launches = 0
+fe.KERNEL_WRAPPERS.extend([replay_blocked, replay_blocked_lanes,
+                           replay_blocked_faults, replay_blocked_lanes_faults])
 
 
 def make_blocked_replay(policies: Sequence[Tuple[str, int]], gpu_sel: str,
