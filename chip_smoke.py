@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only sweep     # the lanes kernels' phase
     python3 chip_smoke.py --only evict     # descheduling and faults
     python3 chip_smoke.py --only lane      # the in-scan fault lane
+    python3 chip_smoke.py --only seq       # the sequential oracle
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
@@ -182,6 +183,22 @@ result line:
            --sweep-faults` with the README's faults.json on the example
            bundle, held to CHAOS_APPLY_SHA256. Writes
            chiprun_out/lane_phase.json.
+11. seq   the sequential oracle (Simulator(engine="sequential"), the host
+           loop of tpusim_torch.sim.step's cycle over tensors on the card,
+           no tables and no replay kernel) against the JAX package's
+           sequential engine: the whole openb trace under 06-FGD with
+           per-event reports on (placements, masks, simon.log and CSVs held
+           to SEQ_SHA256, which is also compared with the replay kernel's
+           METHODS and REPORT_SHA256 digests; no replay kernel may launch),
+           its replay timed with the host's busy share; every other method
+           row, Simon and the six-policy profile over the first SEQ_PREFIX
+           events (SEQ_PREFIX_SHA256), the flat replay kernel on the same
+           events held to the oracle's outputs and final state; the
+           oracle's fault form over the first SEQ_FAULT_STEPS steps of
+           FAULT_FLAGS' openb merged stream (SEQ_FAULT_SHA256), replay_faults
+           held to it; the extender host loop on EXTENDER_CASE against a
+           stub extender on 127.0.0.1 (SEQ_EXTENDER_SHA256). Writes
+           chiprun_out/seq_phase.json.
 
 Run with every phase, it then prints one JSON line describing the
 kernels, the card's line, and as the last line {"ok": true, "device":
@@ -4172,8 +4189,475 @@ def lane_path(device, card: str):
     return launches, rows
 
 
+# The seq phase: the sequential oracle (tpusim_torch.sim.engine make_replay;
+# Simulator(engine="sequential")) on the card, against the digests of the
+# JAX package's sequential engine on the CPU, which
+# tests/test_torch_sequential.py pins (slow-marked). SEQ_SHA256: the whole
+# openb run of 06-FGD with per-event reports on, as METHODS and
+# REPORT_SHA256 hold the kernels' (placed_node, dev_mask, report_digest).
+# SEQ_PREFIX_SHA256: every other METHODS row's run_events over the first
+# SEQ_PREFIX events of the prepared openb trace, from the initial state and
+# PRNGKey(42). SEQ_FAULT_SHA256: fault_steps_digest of the fault form over
+# the first SEQ_FAULT_STEPS steps of FAULT_FLAGS' openb merged stream under
+# 06-FGD. SEQ_EXTENDER_SHA256: the extender host loop's run of
+# EXTENDER_CASE (the first openb nodes and pods, the paper's FGD untuned,
+# reports on) against ExtenderStub on 127.0.0.1.
+SEQ_PREFIX = 400
+SEQ_FAULT_STEPS = 2_000
+EXTENDER_CASE = (120, 300)
+SEQ_SHA256 = {
+    "placed":
+        "ab2bdf81ba2e44defba6b5cc760450efcf35317501034aa82b552e71c4bcd30a",
+    "dev_mask":
+        "6e208732b4dc66047e6d8ebf604514bf5ff51df84b89c314d13147237065b749",
+    "report":
+        "572dff81f444275e1a8d87e0dcfdcd7ba886b931a90654bdc00d8f5bf828e968",
+}
+SEQ_PREFIX_SHA256 = {
+    "01-Random": {
+        "placed":
+            "f161df020f046638d87485f9b974473f89e8e975c43aa5ff71f3f2355e7757f2",
+        "dev_mask":
+            "4fa8d82b53f2bfa7d610b099c56315e0b736f7755a1086d3a32bc9aa5d5f7ea3",
+    },
+    "02-DotProd": {
+        "placed":
+            "5d0408e9940b0916db25d442a50b857d8af94eefdb8e53bbd0072fc986709a78",
+        "dev_mask":
+            "5b58ee31c18668e7d9a36eb43f5967839bae98b43d69af6312025f8a1d3618c3",
+    },
+    "03-GpuClustering": {
+        "placed":
+            "f43f04de0e08d0fe8b7be7f2a4aa5cb616a70d0a66f4e4b7b470abbc4b7d5f32",
+        "dev_mask":
+            "5a7288365ab02a85313478b0fbf5d6ed57db84f333e4d6e59e05dd6f4c0c6c0b",
+    },
+    "04-GpuPacking": {
+        "placed":
+            "2a9a1ff06aff33914d12b1496aea8da2854b129473cbf6182d08d94eb0094b05",
+        "dev_mask":
+            "34d4e5a48ce38a542e0e24677e6b977a320f70c6923232d9dd5120e7b7b466cf",
+    },
+    "05-BestFit": {
+        "placed":
+            "081f18a568018d7e2f0342f78a3e44bde43801ca2a24fa8156acbd95fbdaaaa5",
+        "dev_mask":
+            "ed0be88d49dfe40c1e2adfbfa3b5b2866687e145886aca4f80e036b2935d63d0",
+    },
+    "07-PWR": {
+        "placed":
+            "b55cc7b1541ffbefac9d6232059ed6fb0dd04357f708fc4ca768c07b8c401f8c",
+        "dev_mask":
+            "e4309f586deb76f377bd35cac3e18168642a64678123d9c1cb04811c364e6db6",
+    },
+    "08-PWR_500_FGD_500": {
+        "placed":
+            "b514f9633e881f943eb19f1c764885dbcb92d35e10bacd2152cda9eda5b3a7bd",
+        "dev_mask":
+            "f7c5a1a6c6c4462e7c96e42bd8e49d865827e89e64a5990a40dc56f1d14a98b9",
+    },
+    "11-PWR_100_FGD_900": {
+        "placed":
+            "cf1637fc48a889e42d4eb02a6a673eab9a058f4c23836724c45810689897fe4a",
+        "dev_mask":
+            "3e0d1658d5dbb98e1d6d14a81815f076615df4975090aec4ba824817b8eed493",
+    },
+    "12-PWR_50_FGD_950": {
+        "placed":
+            "3858450c9e55c7330919b7618449b86a27684d458d0c6566a98758e6ea757f4b",
+        "dev_mask":
+            "190149f8eaacd729ecb244b329ab13357d455166b60f6ed9b90d1a93bd9230c0",
+    },
+    "Simon": {
+        "placed":
+            "15d82dcc61d87ef40edfbdf12a8d9297d1d4805e92ea5faf74450363641d9fdf",
+        "dev_mask":
+            "6844f28b0f83a4fac4c5e4543a6e45f75ae4c7aa18a3356a93770f583b480ab7",
+    },
+    "default-profile": {
+        "placed":
+            "276b01fb36376bdb320318a56c3338557fbf075d2b98fea181123877d8d82e47",
+        "dev_mask":
+            "524aef58f928e2261248c2d6b942f23dfcc8cd5ae67f62d345d06cdcf1d9fb47",
+    },
+}
+SEQ_FAULT_SHA256 = (
+    "35fb0b987a1e09908626ab52e609cf78b9282e4018745b2dcb17bdd6e304e1e0"
+)
+SEQ_EXTENDER_SHA256 = {
+    "placed":
+        "bddc21efb0e286f396bba1c446d389fbb577b6adec498ab81aaabb7711a0ad8d",
+    "dev_mask":
+        "390fb028b220eb93a709a15a82bb4b04e9320e407f0ae50ceb65cfc446984040",
+    "log":
+        "14702237337874eebdc3d118025669da9397806a937243d7755dcbe9729fb86f",
+}
+
+
+class ExtenderStub:
+    """A deterministic scheduler extender served on 127.0.0.1 (loopback
+    only) while the `with` block runs: its filter drops the nodes whose
+    name ends in 3, its prioritize scores a node by its name's last digit
+    (0-9). `url` is its address."""
+
+    def __enter__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                names = body.get("nodenames")
+                if names is None:
+                    names = [it["metadata"]["name"]
+                             for it in body["nodes"]["items"]]
+                if self.path.endswith("/filter"):
+                    keep = [n for n in names if not n.endswith("3")]
+                    resp = ({"nodenames": keep} if "nodenames" in body else
+                            {"nodes": {"items": [{"metadata": {"name": n}}
+                                                 for n in keep]}})
+                else:
+                    resp = [{"host": n, "score": int(n[-1]) % 10
+                             if n[-1].isdigit() else 0} for n in names]
+                data = json.dumps(resp).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = HTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_port}"
+        return self
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=10)
+
+
+def extender_config(url: str):
+    """The SimulatorConfig of EXTENDER_CASE: the paper's FGD untuned,
+    reports on, one extender at `url` that filters and prioritizes
+    (weight 2)."""
+    import dataclasses
+
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.sim.extender import ExtenderConfig
+
+    return dataclasses.replace(method_config(), tuning_ratio=0.0, extenders=(
+        ExtenderConfig(url, "filter", "prioritize", weight=2),))
+
+
+def fault_steps_digest(placed, dev_mask, event_node, ys: dict,
+                       dctr) -> str:
+    """sha256 of a fault-form run: placed_node, dev_mask, each merged
+    step's event node, the steps' rpod, lat, vpod, vnode, nvict and rec,
+    and the final disruption counters (numpy arrays)."""
+    h = hashlib.sha256()
+    for a, dtype in ((placed, np.int32), (dev_mask, np.uint8),
+                     (event_node, np.int32)):
+        h.update(np.ascontiguousarray(a, dtype).tobytes())
+    for name in ("rpod", "lat", "vpod", "vnode", "nvict", "rec"):
+        h.update(np.ascontiguousarray(ys[name], np.int32).tobytes())
+    h.update(np.ascontiguousarray(dctr, np.int32).tobytes())
+    return h.hexdigest()
+
+
+def log_digest(lines) -> str:
+    """sha256 of log lines without their [Engine] lines."""
+    return digest_text("".join(f"{line}\n" for line in lines
+                               if "[Engine]" not in line))
+
+
+def openb_rows_port():
+    from tpusim_torch.io.trace import load_node_csv, load_pod_csv
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "data", "csv")
+    return (load_node_csv(os.path.join(data, "openb_node_list_gpu_node.csv")),
+            load_pod_csv(os.path.join(data, "openb_pod_list_default.csv")))
+
+
+def seq_full(device, card: str, nodes, pods) -> dict:
+    """The oracle over the whole openb trace under 06-FGD, reports on,
+    through Simulator(engine="sequential").run(): no replay kernel
+    launched, the digests held to SEQ_SHA256, the replay timed (wall and
+    the host's busy share)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.analysis import analyze_sim
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.driver import Simulator
+
+    row = dict((r[0], r) for r in METHODS)["06-FGD"]
+    cfg = dataclasses.replace(method_config(*row[1:5]), engine="sequential")
+    sim = Simulator(nodes, cfg, device=device)
+    sim.set_workload_pods(pods)
+    stamps = {}
+    run_events = sim.run_events
+
+    def timed(*args, **kw):
+        t, c = time.perf_counter(), time.process_time()
+        out = run_events(*args, **kw)
+        torch.cuda.synchronize()
+        stamps.update(wall=time.perf_counter() - t,
+                      cpu=time.process_time() - c)
+        return out
+
+    sim.run_events = timed
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    del sim.run_events  # the timed replay is the run's own
+    counts = run_counts()
+    if any(counts.values()) or sim.last_engine != "sequential":
+        raise SmokeFailure(f"seq 06-FGD: the oracle launched {counts} "
+                           f"(last engine {sim.last_engine})")
+    with tempfile.TemporaryDirectory() as d:
+        report = experiment_report_digest(
+            sim, d, row_meta(*row[1:4]), analyze_sim)
+    got = {"placed": digest(res.placed_node, np.int32),
+           "dev_mask": digest(res.dev_mask, np.uint8), "report": report}
+    if res.events != OPENB_EVENTS or got != SEQ_SHA256:
+        raise SmokeFailure(f"seq 06-FGD: the oracle's openb run differs from "
+                           f"the JAX sequential engine's: {got}")
+    kernels_equal = (got["placed"] == row[5] and got["dev_mask"] == row[6]
+                     and report == REPORT_SHA256["06-FGD"])
+    busy = seq_device_busy(sim)
+    wall, cpu = stamps["wall"], stamps["cpu"]
+    print(f"seq 06-FGD: the oracle over the whole openb trace "
+          f"({res.events} events) on the card matches the JAX sequential "
+          f"engine's digests (placements, masks, simon.log and CSVs); they "
+          f"{'equal' if kernels_equal else 'DIFFER from'} the replay "
+          f"kernel's (METHODS, REPORT_SHA256); no replay kernel launched. "
+          f"Replay wall {wall:.3f} s ({res.events / wall:.1f} events/s), "
+          f"host busy {cpu:.3f} s = {100 * cpu / wall:.1f}% of it, run() "
+          f"{run_s:.3f} s with the report half; {busy['text']}; on {card}",
+          flush=True)
+    return dict(events=res.events, replay_s=wall, host_cpu_s=cpu,
+                host_share=cpu / wall, run_s=run_s, device=busy,
+                equals_kernel_digests=kernels_equal, launches=counts)
+
+
+def seq_device_busy(sim, events: int = 300) -> dict:
+    """The card's busy share under the oracle: its kernels' device time
+    (torch.profiler, CUDA activity) over the wall of a run_events over the
+    first `events` events of the Simulator's prepared trace, both under the
+    profiler; "not measured" where the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+
+    trace = sim.prepare_pods()
+    specs = pods_to_specs(trace, sim.node_index, sim.device)
+    evk, evp = (a[:events] for a in build_events(trace))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_events(sim.init_state, specs, evk, evp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us and getattr(e, "device_type", None) == \
+                torch.autograd.DeviceType.CUDA:
+            device_us += us
+            launches += e.count
+    if not device_us:
+        return dict(text="device busy share not measured (the profiler "
+                    "showed no device time)")
+    share = device_us / 1e6 / wall
+    return dict(events=events, wall_s=wall, device_s=device_us / 1e6,
+                busy_share=share, kernels=launches,
+                text=f"under the profiler, {events} events: {launches} "
+                f"kernels ({launches / events:.1f} an event), device busy "
+                f"{device_us / 1e3:.1f} ms of {wall * 1e3:.1f} ms wall = "
+                f"{100 * share:.1f}%")
+
+
+def seq_prefix(device, card: str, nodes, pods) -> dict:
+    """Every other METHODS row over the first SEQ_PREFIX events of the
+    prepared openb trace: the oracle (run_events under engine
+    "sequential") held to SEQ_PREFIX_SHA256, then the flat replay kernel
+    on the same inputs held to the oracle's outputs and final state."""
+    import dataclasses
+
+    import torch
+
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.driver import Simulator
+
+    out = {}
+    for mid, policies, gpu_sel, dim_ext, norm, _, _ in METHODS:
+        if mid == "06-FGD":
+            continue
+        base = method_config(policies, gpu_sel, dim_ext, norm)
+        runs = {}
+        for engine in ("sequential", "auto"):
+            sim = Simulator(nodes, dataclasses.replace(base, engine=engine),
+                            device=device)
+            sim.set_workload_pods(pods)
+            sim.set_typical_pods()
+            trace = sim.prepare_pods()
+            specs = pods_to_specs(trace, sim.node_index, device)
+            evk, evp = (a[:SEQ_PREFIX] for a in build_events(trace))
+            fe.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = sim.run_events(sim.init_state, specs, evk, evp)
+            torch.cuda.synchronize()
+            runs[engine] = (res, time.perf_counter() - t0, run_counts())
+        res, wall, counts = runs["sequential"]
+        got = {"placed": digest(res.placed_node.cpu(), np.int32),
+               "dev_mask": digest(res.dev_mask.cpu(), np.uint8)}
+        if any(counts.values()) or got != SEQ_PREFIX_SHA256[mid]:
+            raise SmokeFailure(f"seq {mid}: the oracle over the first "
+                               f"{SEQ_PREFIX} events differs from the JAX "
+                               f"sequential engine's ({got}; launches "
+                               f"{counts})")
+        kres, kwall, _ = runs["auto"]
+        same = all(torch.equal(getattr(res, f).cpu(), getattr(kres, f).cpu())
+                   for f in ("placed_node", "dev_mask", "ever_failed",
+                             "event_node", "event_dev")) and all(
+            torch.equal(a.cpu(), b.cpu())
+            for a, b in zip(res.state, kres.state))
+        if not same:
+            raise SmokeFailure(f"seq {mid}: the replay kernel over the first "
+                               f"{SEQ_PREFIX} events differs from the oracle")
+        print(f"seq {mid}: the oracle over the first {SEQ_PREFIX} openb "
+              f"events matches the JAX sequential engine's digests, and the "
+              f"replay kernel ({kwall * 1e3:.1f} ms with its host work) "
+              f"equals it; oracle wall {wall:.3f} s "
+              f"({SEQ_PREFIX / wall:.1f} events/s) on {card}", flush=True)
+        out[mid] = dict(oracle_s=wall, kernel_s=kwall)
+    return out
+
+
+def seq_fault(device, card: str) -> dict:
+    """The oracle's fault form over the first SEQ_FAULT_STEPS steps of
+    FAULT_FLAGS' openb merged stream under 06-FGD, held to
+    SEQ_FAULT_SHA256, and the replay_faults kernel on the same steps held
+    to it."""
+    import torch
+
+    from tpusim_torch.policies import make_policy
+    from tpusim_torch.sim import fault_lane as fl
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.engine import make_replay
+    from tpusim_torch.sim.faults import FaultConfig, generate_fault_schedule
+
+    row = dict((r[0], r) for r in METHODS)["06-FGD"]
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    n, p = state.num_nodes, int(specs.cpu.shape[0])
+    fcfg = FaultConfig(**FAULT_FLAGS)
+    plan = fl.compile_fault_plan(evk.cpu().numpy(), evp.cpu().numpy(),
+                                 generate_fault_schedule(n, evk.shape[0],
+                                                         fcfg), fcfg, n, p)
+    cut = cut_plan(plan, SEQ_FAULT_STEPS)
+    replay = make_replay([(make_policy(name), w) for name, w in row[1]],
+                         row[2], report=False, faults=True,
+                         fault_frag=cut.has_recover)
+    lane = fl.lane_of(cut, state, p)
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, fout = replay(state, specs, cut.kind, cut.idx, tp, OPENB_KEY, rank,
+                       fault_ops=lane.ops, fault_carry0=lane.carry)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = run_counts()
+    ys = {f: getattr(fout.ys, f).cpu().numpy() for f in fout.ys._fields}
+    got = fault_steps_digest(out.placed_node.cpu(), out.dev_mask.cpu(),
+                             out.event_node.cpu(), ys,
+                             fout.carry.dctr.cpu())
+    if any(counts.values()) or got != SEQ_FAULT_SHA256:
+        raise SmokeFailure(f"seq fault form: {got} differs from the JAX "
+                           f"sequential engine's (launches {counts})")
+    cfg = fe.make_config(*row[1:5])
+    kout, kfout = fe.replay_faults(
+        state, specs, types, torch.as_tensor(cut.kind, device=device),
+        torch.as_tensor(cut.idx, device=device), tp, rank,
+        fe.init_tables(state, types, tp, cfg), cfg,
+        fl.lane_of(cut, state, p), OPENB_KEY)
+    kys = {f: getattr(kfout.ys, f).cpu().numpy() for f in kfout.ys._fields}
+    if fault_steps_digest(kout.placed_node.cpu(), kout.dev_mask.cpu(),
+                          kout.event_node.cpu(), kys,
+                          kfout.carry.dctr.cpu()) != got:
+        raise SmokeFailure("seq fault form: replay_faults differs from the "
+                           "oracle's fault form")
+    kinds = np.bincount(cut.kind, minlength=7).tolist()
+    print(f"seq fault form: the oracle over the first {SEQ_FAULT_STEPS} "
+          f"steps of the openb merged stream (by kind {kinds}) matches the "
+          f"JAX sequential engine's digest, and replay_faults equals it; "
+          f"wall {wall:.3f} s on {card}", flush=True)
+    return dict(steps=SEQ_FAULT_STEPS, kinds=kinds, oracle_s=wall)
+
+
+def seq_extender(device, card: str, nodes, pods) -> dict:
+    """The extender host loop on EXTENDER_CASE against ExtenderStub on
+    127.0.0.1, held to SEQ_EXTENDER_SHA256."""
+    import torch
+
+    from tpusim_torch.sim.driver import Simulator
+
+    n, p = EXTENDER_CASE
+    with ExtenderStub() as stub:
+        sim = Simulator(nodes[:n], extender_config(stub.url), device=device)
+        sim.set_workload_pods(pods[:p])
+        t0 = time.perf_counter()
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = {"placed": digest(res.placed_node, np.int32),
+           "dev_mask": digest(res.dev_mask, np.uint8),
+           "log": log_digest(sim.log.lines)}
+    if sim.last_engine != "extender" or got != SEQ_EXTENDER_SHA256:
+        raise SmokeFailure(f"seq extender: {got} differs from the JAX "
+                           f"extender loop's")
+    print(f"seq extender: the extender host loop ({n} openb nodes, {p} pods, "
+          f"filter and prioritize over HTTP on 127.0.0.1) matches the JAX "
+          f"digests (placements, masks, log); run() {wall:.3f} s on {card}",
+          flush=True)
+    return dict(nodes=n, pods=p, run_s=wall)
+
+
+def seq_path(device, card: str):
+    """Phase 11: the sequential oracle on the card (module docstring).
+    Returns ({run label: launch counts}, the phase's numbers), which
+    chiprun_out/seq_phase.json keeps."""
+    nodes, pods = openb_rows_port()
+    t0 = time.perf_counter()
+    full = seq_full(device, card, nodes, pods)
+    out = dict(card=card, full=full,
+               prefix=seq_prefix(device, card, nodes, pods),
+               fault=seq_fault(device, card),
+               extender=seq_extender(device, card, nodes, pods))
+    out["phase_s"] = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "seq_phase.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return {"seq 06-FGD": full["launches"]}, out
+
+
 PHASES = ("check", "clocks", "main", "apply", "scale", "sweep", "evict",
-          "lane")
+          "lane", "seq")
 
 
 def scale_inputs(device):
@@ -4428,6 +4912,9 @@ def main(argv=None) -> int:
             return 1
         return 0
     device = torch.device("cuda")
+    # every run is cold: the Bellman series' disk cache stays off, so the
+    # report times compare with earlier calls'
+    os.environ["TPUSIM_BELLMAN_CACHE"] = ""
     try:
         card = card_line()
         print(f"card: {card}")
@@ -4506,6 +4993,10 @@ def main(argv=None) -> int:
             counts, fault_rows = lane_path(device, card)
             launches.update(counts)
             print(f"phase lane done at {time.perf_counter() - t0:.1f} s")
+        if "seq" in phases:
+            counts, _ = seq_path(device, card)
+            launches.update(counts)
+            print(f"phase seq done at {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1

@@ -675,13 +675,21 @@ def test_refused_options_raise(flag):
         papply.Applier(opts)
 
 
-@pytest.mark.parametrize("case", ["engine", "sequential", "mesh",
-                                  "extenders", "kubeconfig"])
+@pytest.mark.parametrize("case", ["engine", "sequential-runs", "mesh",
+                                  "extenders-runs", "kubeconfig"])
 def test_refused_configs_raise(tmp_path, case):
     """The CR and scheduler-config settings the port cannot run raise
-    NotImplementedError naming the ROADMAP item, through the CLI."""
+    NotImplementedError naming the ROADMAP item, through the CLI. The
+    sequential engine and a scheduler config with extenders, which the
+    port runs since its sequential slice, give `python -m tpusim apply`'s
+    standard output instead (but for [Engine] lines)."""
+    from tests.test_torch_extender import (
+        extender_scheduler_config,
+        stub_extender,
+    )
+
     custom = {"engine": {"engine": "table"},
-              "sequential": {"engine": "sequential"},
+              "sequential-runs": {"engine": "sequential"},
               "mesh": {"mesh": 2},
               }.get(case, {})
     cluster = {"customConfig": os.path.join(REPO, "example/test-cluster")}
@@ -696,12 +704,15 @@ def test_refused_configs_raise(tmp_path, case):
         "apiVersion": "simon/v1alpha1", "kind": "Config",
         "spec": {"cluster": cluster, "customConfig": custom}}))
     sc = SCHEDULERS["fgd"]
-    if case == "extenders":
-        sc = tmp_path / "sc.yaml"
-        sc.write_text(yaml.safe_dump({
-            "apiVersion": "kubescheduler.config.k8s.io/v1beta1",
-            "kind": "KubeSchedulerConfiguration",
-            "extenders": [{"urlPrefix": "http://x/"}]}))
+    if case.endswith("-runs"):
+        with stub_extender() as url:
+            if case == "extenders-runs":
+                sc = extender_scheduler_config(tmp_path / "sc.yaml", url)
+            port, jax = _apply_both(["-f", str(cr), "-s", str(sc), "-e",
+                                     "gpu", "--report"])
+        assert "Cluster Analysis" in port
+        assert port == jax
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         pcli.main(["apply", "-f", str(cr), "-s", str(sc), "--device",
                    "cpu"])

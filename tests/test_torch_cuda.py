@@ -661,3 +661,29 @@ def test_device_fetch_of_one_element_columns(cuda_device):
         got = device_fetch((pw[:, 0], pw[:, 1], mask[:, 2]))
         for a, b in zip(got, (pw[:, 0], pw[:, 1], mask[:, 2])):
             assert a.device.type == "cpu" and torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_oracle_on_card_matches_cpu(cuda_device):
+    """The sequential oracle (engine.make_replay) on the card against the
+    same oracle on the CPU, on a seeded random cluster, under every method
+    row (the draws of 01-Random and the profile from one root key): every
+    output and the final state."""
+    from tpusim_torch.policies import make_policy
+    from tpusim_torch.sim.engine import make_replay
+
+    for row in METHODS:
+        _, policies, gpu_sel, dim_ext, norm = row[:5]
+        replay = make_replay([(make_policy(n, dim_ext, norm), w)
+                              for n, w in policies], gpu_sel, report=False)
+        outs = []
+        for dev in (cuda_device, torch.device("cpu")):
+            state, pods, _, evk, evp, tp, rank = random_case(41, 64, 200,
+                                                             dev)
+            outs.append(replay(state, pods, evk, evp, tp, (0, 9), rank))
+        got, want = outs
+        for name in ("placed_node", "dev_mask", "ever_failed", "event_node",
+                     "event_dev"):
+            assert torch.equal(getattr(got, name).cpu(),
+                               getattr(want, name)), (row[0], name)
+        _assert_equal(got.state, want.state)

@@ -289,11 +289,31 @@ def test_cli_deschedule_flags_match_run_py(tmp_path, capsys, extra):
 
 @pytest.mark.parametrize("flag,value", [("--engine", "table"),
                                         ("--engine", "sequential"),
-                                        ("--mesh", "2")])
-def test_engine_and_mesh_flags_raise(tmp_path, flag, value):
-    """--engine off auto/pallas and --mesh above 1 raise
-    NotImplementedError naming their ROADMAP item; auto, pallas and mesh 0
-    are accepted."""
+                                        ("--mesh", "2")],
+                         ids=["table", "sequential-runs", "mesh"])
+def test_engine_and_mesh_flags_raise(tmp_path, capsys, flag, value):
+    """--engine table and --mesh above 1 raise NotImplementedError naming
+    their ROADMAP item; auto, pallas and mesh 0 are accepted. --engine
+    sequential, which the port runs since its sequential slice, runs the
+    descheduling experiment on a 60-node, 200-pod cut and equals
+    experiments/run.py's directory, byte for byte."""
+    if value == "sequential":
+        nodes, pods = _cut(tmp_path)
+        outs = {}
+        for who in ("port", "jax"):
+            common = ["-d", str(tmp_path / who), "-f", pods, "--node-trace",
+                      nodes, "-FGD", "1000", "-gpusel", "FGDScore", "-tune",
+                      "1.3", "-tuneseed", "42", "--shuffle-pod", "true",
+                      "-r", "0.3", "-p", "fragOnePod", flag, value]
+            if who == "port":
+                assert port_main(["--device", "cpu", *common]) == 0
+            else:
+                run_experiment(run_args(common))
+            outs[who] = _files(tmp_path / who)
+        capsys.readouterr()
+        assert outs["port"] == outs["jax"]
+        assert "analysis.csv" in outs["port"]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         port_main(["--device", "cpu", "-d", str(tmp_path), flag, value])
     for ok in (["--engine", "pallas"], ["--mesh", "0"]):

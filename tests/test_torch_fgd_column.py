@@ -31,6 +31,7 @@ from tpusim.sim.table_engine import build_pod_types, make_table_builders
 from tpusim_torch.constants import GPU_MODEL_IDS
 from tpusim_torch.ops.frag import node_frag_amounts
 from tpusim_torch.policies import fgd as pfgd
+from tpusim_torch.policies.base import ScoreContext as PScoreContext
 from tpusim_torch.sim import fused_engine as fe
 from tpusim_torch.types import NodeState, PodSpec
 
@@ -117,7 +118,8 @@ def test_policy_fgd_score_matches_jax(seed):
     for i in range(30):
         want = score_one(jax.tree.map(lambda a: a[i], jpods))
         pod = PodSpec(*(a[i] for a in pods))
-        score, dev = pfgd.fgd_score(state, pod, tp)
+        score, dev = pfgd.fgd_score(state, pod,
+                                    PScoreContext(tp, None, None))
         assert np.array_equal(score.numpy(), np.asarray(want.raw_scores)), i
         assert np.array_equal(dev.numpy(), np.asarray(want.share_dev)), i
         tid = int(types.type_id[i])

@@ -51,6 +51,7 @@ from tpusim_torch.ops.resource import (
     allocate_share_random,
     flatten_gpu_left,
 )
+from tpusim_torch.policies.base import ScoreContext as PScoreContext
 from tpusim_torch.policies.random_policy import random_score
 from tpusim_torch.policies.simon import simon_column
 from tpusim_torch.sim import fused_engine as fe
@@ -110,7 +111,8 @@ def test_random_score_matches_jax(n):
         ctx = ScoreContext(tp=None, feasible=jnp.asarray(feas),
                            rng=_key(key))
         want = np.asarray(jrandom_score(jstate, pod, ctx).raw_scores)
-        got = random_score(key, torch.as_tensor(feas))
+        got = random_score(None, None, PScoreContext(
+            None, torch.as_tensor(feas), key)).raw_scores
         assert np.array_equal(got.numpy(), want), (n, frac)
 
 

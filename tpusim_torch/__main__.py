@@ -11,7 +11,7 @@ experiment's log and analysis CSVs.
         [--pod-increase-step N] [--gpu-res-weight W]
         [-f POD_TRACE] [--node-trace NODE_CSV] [--use-timestamps]
         [--no-per-event-report] [--emit-configs] [--analysis-from-log]
-        [--engine auto|pallas] [--mesh 0]
+        [--engine auto|pallas|sequential] [--mesh 0]
         [-d EXPERIMENT_DIR] [--device cpu]
     python -m tpusim_torch apply ...   (python -m tpusim_torch.cli apply)
 

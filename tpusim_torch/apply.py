@@ -12,8 +12,10 @@ ref: pkg/apply/apply.go Run() and pkg/simulator/core.go Simulate()).
   --sweep-faults, one chaos sweep over fault schedules, in place of the
   replay and the stages after it.
 
-Every replay runs the port's kernels (`Simulator`): on the GPU unless the
-options ask for the CPU. Options that need a plane the port does not have
+Every replay runs the port's kernels (`Simulator`), or its sequential
+oracle under `customConfig.engine: sequential`, or the extender host loop
+when the scheduler config has `extenders:`: on the GPU unless the options
+ask for the CPU. Options that need a plane the port does not have
 yet raise NotImplementedError naming the ROADMAP item that brings it; none
 is ignored. The env caps MaxCPU/MaxMemory/MaxVG (apply.go:550-631
 satisfyResourceSetting) decide the verdict; MaxVG reads the open-local VG
@@ -136,6 +138,15 @@ def check_port_options(options: ApplyOptions) -> None:
             _refuse(flag, item)
 
 
+def _lanes_ran(sim: Simulator) -> str:
+    """How a sweep's lanes ran, for the [Sweep] and [Chaos] lines: one
+    launch of a lanes kernel, or the sequential oracle a lane at a time."""
+    if sim.last_residency is None:
+        return f"a lane at a time ({sim.last_engine} host loop)"
+    return (f"in one launch ({sim.last_engine}, {sim.last_residency} "
+            "residency)")
+
+
 class Applier:
     def __init__(self, options: ApplyOptions):
         if not options.simon_config:
@@ -149,13 +160,9 @@ class Applier:
         cc = self.cr.custom_config
         if cc.engine not in PORT_ENGINES:
             _refuse(f"customConfig.engine {cc.engine!r}",
-                    "5 (the sequential engine)" if cc.engine == "sequential"
-                    else "6 (the table engine)")
+                    "6 (the table engine)")
         if cc.mesh > 1:
             _refuse(f"customConfig.mesh {cc.mesh}", "13 (mesh engine)")
-        if self.sched_cfg.extenders:
-            _refuse("a scheduler config with extenders",
-                    "11 (the HTTP extender host loop)")
 
     def _simulator_config(self) -> SimulatorConfig:
         cc = self.cr.custom_config
@@ -175,6 +182,7 @@ class Applier:
             use_timestamps=cc.use_timestamps,
             table_residency=self.options.table_residency,
             engine=cc.engine,
+            extenders=self.sched_cfg.extenders,
         )
 
     def _fault_config(self):
@@ -357,8 +365,7 @@ class Applier:
             self.options.sweep_weights)
         lanes = sim.run_sweep(weights, seeds=seeds, tunes=tunes)
         print(f"[Sweep] {len(lanes)} configs x {lanes[0].events} events "
-              f"in one launch ({sim.last_engine}, {sim.last_residency} "
-              "residency)", file=out)
+              f"{_lanes_ran(sim)}", file=out)
         print(format_sweep_table(lanes, sim.cfg.policies), file=out)
 
     def _run_chaos(self, sim: Simulator, out):
@@ -370,8 +377,7 @@ class Applier:
             self.options.sweep_faults, sim.cfg.policies)
         lanes = sim.run_sweep(weights, seeds=seeds, faults=specs)
         print(f"[Chaos] {len(lanes)} fault lanes x {lanes[0].events} events "
-              f"in one launch ({sim.last_engine}, {sim.last_residency} "
-              "residency)", file=out)
+              f"{_lanes_ran(sim)}", file=out)
         print(format_chaos_table(lanes, sim.cfg.policies), file=out)
 
     def _export_snapshots(self, sim: Simulator, tag: str):

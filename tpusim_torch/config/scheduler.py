@@ -63,9 +63,9 @@ class SchedulerConfig:
     norm_method: str = "max"  # node|pod|max
     percentage_of_nodes_to_score: int = 100
     scheduler_name: str = SCHEDULER_NAME
-    # HTTP scheduler extenders (ExtenderConfig tuple; ref: simulator.go:196
-    # WithExtenders pass-through). Parsed here; the port has no extender
-    # replay yet, so the Applier refuses a config that sets any.
+    # HTTP scheduler extenders (tpusim_torch.sim.extender.ExtenderConfig
+    # tuple; ref: simulator.go:196 WithExtenders pass-through), which the
+    # replays honour through the extender host loop
     extenders: tuple = ()
 
     def policy_tuple(self) -> Tuple[Tuple[str, int], ...]:
@@ -74,22 +74,6 @@ class SchedulerConfig:
 
 class SchedulerConfigError(ValueError):
     pass
-
-
-@dataclass(frozen=True)
-class ExtenderConfig:
-    """One `extenders:` entry of KubeSchedulerConfiguration (the v1beta1
-    Extender fields; apis/config/types.go:109)."""
-
-    url_prefix: str
-    filter_verb: str = ""
-    prioritize_verb: str = ""
-    weight: int = 1
-    node_cache_capable: bool = False
-    ignorable: bool = False
-    # resource names from managedResources[].name; empty = all pods
-    managed_resources: Tuple[str, ...] = ()
-    http_timeout_s: float = 30.0
 
 
 def default_scheduler_config() -> SchedulerConfig:
@@ -117,11 +101,11 @@ def parse_scheduler_config(doc: dict) -> SchedulerConfig:
         raise SchedulerConfigError(
             f"unsupported apiVersion {doc.get('apiVersion')}"
         )
-    # The reference accepts but overrides these (utils.go:234-235 forces
-    # percentageOfNodesToScore=100; extenders pass through to the vendored
-    # scheduler, simulator.go:185-197). This build has no extender protocol
-    # and always scores every node, so reject configs that ask otherwise
-    # rather than silently computing something different.
+    # The reference forces percentageOfNodesToScore=100 (utils.go:234-235)
+    # and passes extenders through to the vendored scheduler
+    # (simulator.go:185-197). This build always scores every node, so it
+    # rejects configs that ask otherwise rather than silently computing
+    # something different.
     pct = doc.get("percentageOfNodesToScore")
     if pct is not None:
         try:
@@ -192,6 +176,8 @@ def _parse_extenders(entries) -> tuple:
     fields; apis/config/types.go:109). The reference hands these straight
     to the vendored scheduler (simulator.go:196). Verbs the simulator
     cannot honor are rejected loudly rather than silently dropped."""
+    from tpusim_torch.sim.extender import ExtenderConfig
+
     out = []
     for e in entries:
         if not isinstance(e, dict) or not e.get("urlPrefix"):

@@ -20,8 +20,8 @@ policy weights and methods, tuning, shuffling, inflation, descheduling
 (-r/-p), the snapshot prefixes (-y/-z), the typical-pod knobs, timestamps,
 the per-event report switch, --emit-configs and --analysis-from-log; and
 --device (cuda by default). --engine and --mesh are accepted at what the
-port runs (auto or pallas, its kernels; no mesh) and raise
-NotImplementedError otherwise.
+port runs (auto or pallas, its kernels; sequential, its sequential oracle;
+no mesh) and raise NotImplementedError otherwise.
 """
 
 from __future__ import annotations
@@ -100,8 +100,8 @@ def add_experiment_flags(ap: argparse.ArgumentParser) -> None:
                     help="also write the equivalent cluster and scheduler "
                     "config YAML")
     ap.add_argument("--engine", default="auto",
-                    help="auto or pallas: the port's kernels (tpusim's "
-                    "sequential and table engines raise)")
+                    help="auto or pallas: the port's kernels; sequential: "
+                    "its sequential oracle (tpusim's table engine raises)")
     ap.add_argument("--mesh", type=int, default=0,
                     help="0: one device (a mesh raises)")
     ap.add_argument("--analysis-from-log", action="store_true",
@@ -217,12 +217,11 @@ def check_engine_flags(args) -> None:
     run, naming the ROADMAP item that brings it."""
     engine = getattr(args, "engine", "auto")
     if engine not in PORT_ENGINES:
-        item = ("5 (the sequential engine)" if engine == "sequential"
-                else "6 (the table engine)")
         raise NotImplementedError(
             f"--engine {engine} needs an engine the PyTorch port does not "
-            f"have yet (ROADMAP queue 1, item {item}); the port runs its "
-            "kernels under auto and pallas")
+            "have yet (ROADMAP queue 1, item 6 (the table engine)); the port "
+            "runs its kernels under auto and pallas, and its sequential "
+            "oracle under sequential")
     if getattr(args, "mesh", 0) > 1:
         raise NotImplementedError(
             f"--mesh {args.mesh} needs the mesh engine the PyTorch port does "

@@ -3,8 +3,10 @@ pkg/type/resource.go:454-531 Sub/Add, utils.go:950-1005
 IsNodeAccessibleToPod, cache/gpunodeinfo.go:136-204 AllocateGpuId).
 
 Every function takes device vectors `gpu_left: i32[..., 8]` with any
-leading batch shape and broadcasts the pod fields against it. 0-milli
-padding devices never fit a positive request.
+leading batch shape and broadcasts the pod fields against it: tensors, or
+host scalars (Python ints), which stay kernel arguments on the card and
+are never copied there. 0-milli padding devices never fit a positive
+request.
 """
 
 from __future__ import annotations
@@ -29,9 +31,19 @@ def is_accessible(gpu_type, pod_gpu_mask):
     return (pod_gpu_mask == 0) | ((pod_gpu_mask & node_bit(gpu_type)) != 0)
 
 
+def _per_pod(x, gpu_left):
+    """A pod field against device rows [..., 8]: a host scalar as a Python
+    int, a tensor with a trailing device axis on gpu_left's device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(gpu_left.device)[..., None]
+    return int(x)
+
+
 def request_units(gpu_left, pod_gpu_milli):
     """floor(left / milli) request units per device (0 for milli == 0)."""
-    milli = torch.as_tensor(pod_gpu_milli, device=gpu_left.device)[..., None]
+    milli = _per_pod(pod_gpu_milli, gpu_left)
+    if isinstance(milli, int):
+        return gpu_left // milli if milli > 0 else torch.zeros_like(gpu_left)
     return torch.where(milli > 0, gpu_left // milli.clamp(min=1), 0)
 
 
@@ -48,15 +60,14 @@ def allocate_two_pointer(gpu_left, pod_gpu_milli, pod_gpu_num):
     packed. Returns per-device unit counts i32[..., 8]."""
     units = request_units(gpu_left, pod_gpu_milli)
     prev = torch.cumsum(units, -1, dtype=torch.int32) - units
-    num = torch.as_tensor(pod_gpu_num, device=gpu_left.device)
-    return torch.minimum((num[..., None] - prev).clamp(min=0), units)
+    num = _per_pod(pod_gpu_num, gpu_left)
+    return torch.minimum((num - prev).clamp(min=0), units)
 
 
 def allocate_share_best(gpu_left, pod_gpu_milli):
     """Tightest-fit device for a share-GPU pod: least free milli among
     fitting devices, first index on ties; -1 if none fits."""
-    milli = torch.as_tensor(pod_gpu_milli, device=gpu_left.device)
-    fits = gpu_left >= milli[..., None]
+    fits = gpu_left >= _per_pod(pod_gpu_milli, gpu_left)
     key = torch.where(fits, gpu_left, _INT_MAX)
     lane = torch.arange(MAX_GPUS_PER_NODE, device=gpu_left.device,
                         dtype=torch.int32)
@@ -105,8 +116,7 @@ def allocate_share_worst(gpu_left, pod_gpu_milli):
     """Loosest-fit device for a share-GPU pod (open_gpu_share.go:306-325):
     most free milli among fitting devices, first index on ties; -1 if none
     fits."""
-    milli = torch.as_tensor(pod_gpu_milli, device=gpu_left.device)
-    fits = gpu_left >= milli[..., None]
+    fits = gpu_left >= _per_pod(pod_gpu_milli, gpu_left)
     key = torch.where(fits, gpu_left, torch.iinfo(torch.int32).min)
     lane = torch.arange(MAX_GPUS_PER_NODE, device=gpu_left.device,
                         dtype=torch.int32)

@@ -9,26 +9,38 @@ nodes against all K pod types,
 
 (sdev is the device the policy would hand a share-GPU pod at Reserve, -1 =
 none), its normalisation over the feasible nodes, whether a gpuSelMethod
-may name it (self-select), and the column id the CUDA kernel switches on.
-RandomScore's score is a draw per event (policies/random_policy.py): it
-has no column and no table rows, and `per_event` marks it.
+may name it (self-select), the column id the CUDA kernel switches on, and
+its per-pod scorer, which the sequential oracle (tpusim_torch.sim.step)
+runs,
+
+    scorer(state [N], pod, ctx) -> PolicyResult(raw i32[N], sdev i32[N])
+
+(tpusim/policies' kernels; policies/base.py). RandomScore's score is a
+draw per event (policies/random_policy.py): it has no column and no table
+rows, and `per_event` marks it.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
-from tpusim_torch.policies.bestfit import bestfit_column
-from tpusim_torch.policies.clustering import clustering_column
+from tpusim_torch.policies.base import PolicyResult, ScoreContext
+from tpusim_torch.policies.bestfit import bestfit_column, bestfit_score
+from tpusim_torch.policies.clustering import (
+    clustering_column,
+    clustering_score,
+)
 from tpusim_torch.policies.dotprod import (
     DIM_EXT_METHODS,
     NORM_METHODS,
     make_dotprod_column,
+    make_dotprod_score,
 )
-from tpusim_torch.policies.fgd import fgd_column
-from tpusim_torch.policies.packing import packing_column
-from tpusim_torch.policies.pwr import pwr_column
-from tpusim_torch.policies.simon import simon_column
+from tpusim_torch.policies.fgd import fgd_column, fgd_score
+from tpusim_torch.policies.packing import packing_column, packing_score
+from tpusim_torch.policies.pwr import pwr_column, pwr_score
+from tpusim_torch.policies.random_policy import random_score
+from tpusim_torch.policies.simon import simon_column, simon_score
 
 POLICY_NAMES = (
     "FGDScore",
@@ -64,6 +76,7 @@ class Policy(NamedTuple):
     column: Optional[Callable]  # None for the per-event RandomScore
     normalize: str  # "none" | "minmax" | "pwr"
     self_select: bool
+    scorer: Callable  # (state, pod, ctx) -> PolicyResult
 
     @property
     def column_id(self) -> int:
@@ -83,20 +96,21 @@ def make_policy(name: str, dim_ext_method: str = "share",
     sel = name in SELF_SELECT_POLICIES
     if name == "DotProductScore":
         return Policy(name, make_dotprod_column(dim_ext_method, norm_method),
-                      "none", sel)
+                      "none", sel,
+                      make_dotprod_score(dim_ext_method, norm_method))
     table = {
-        "FGDScore": (fgd_column, "none"),
-        "PWRScore": (pwr_column, "pwr"),
-        "BestFitScore": (bestfit_column, "minmax"),
-        "GpuPackingScore": (packing_column, "none"),
-        "GpuClusteringScore": (clustering_column, "none"),
-        "Simon": (simon_column, "minmax"),
-        "RandomScore": (None, "none"),
+        "FGDScore": (fgd_column, "none", fgd_score),
+        "PWRScore": (pwr_column, "pwr", pwr_score),
+        "BestFitScore": (bestfit_column, "minmax", bestfit_score),
+        "GpuPackingScore": (packing_column, "none", packing_score),
+        "GpuClusteringScore": (clustering_column, "none", clustering_score),
+        "Simon": (simon_column, "minmax", simon_score),
+        "RandomScore": (None, "none", random_score),
     }
     if name not in table:
         raise KeyError(f"unknown score plugin: {name!r}")
-    column, normalize = table[name]
-    return Policy(name, column, normalize, sel)
+    column, normalize, scorer = table[name]
+    return Policy(name, column, normalize, sel, scorer)
 
 
 __all__ = [
@@ -106,5 +120,7 @@ __all__ = [
     "POLICY_NAMES",
     "SELF_SELECT_POLICIES",
     "Policy",
+    "PolicyResult",
+    "ScoreContext",
     "make_policy",
 ]

@@ -1,6 +1,12 @@
-"""Score normalisation shared by the policies (counterpart of
-tpusim/policies/base.py:55-96; ref: plugin_utils.go:48-74 NormalizeScore and
-pwr_score.go:104-139).
+"""What every policy shares (counterpart of tpusim/policies/base.py): the
+per-pod scorers' context and result, and the score normalisation (ref:
+plugin_utils.go:48-74 NormalizeScore and pwr_score.go:104-139).
+
+A policy's per-pod scorer is `(state, pod, ctx) -> PolicyResult` over all N
+nodes, where `pod` is a PodSpec of host scalars (Python ints): the scorers
+run the policies' column functions on the pod as a one-type batch
+(`column_scorer`), so the sequential oracle and the replays' tables score
+with the same float32 order.
 
 The reference min-max rescales a policy's raw scores over the feasible
 nodes to [0, MAX_NODE_SCORE] with integer division; a zero range maps every
@@ -15,14 +21,53 @@ int32 overflow.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from tpusim_torch.constants import MAX_NODE_SCORE
+from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 _INT_MAX = torch.iinfo(torch.int32).max
 
 # zero-range (all-equal) value per normalize mode
 NORMALIZE_DEGENERATE = {"minmax": 0, "pwr": MAX_NODE_SCORE}
+
+
+class ScoreContext(NamedTuple):
+    """What a per-pod scorer may read beside the state and the pod: the
+    typical pods (FGD), the Filter mask (RandomScore draws over the
+    feasible nodes) and the event's key k_rand (RandomScore; two ints)."""
+
+    tp: TypicalPods
+    feasible: torch.Tensor  # bool[N]
+    rng: object  # (k0, k1), or None where nothing draws
+
+
+class PolicyResult(NamedTuple):
+    raw_scores: torch.Tensor  # i32[N]
+    share_dev: torch.Tensor  # i32[N] the policy's share-GPU device, -1 none
+
+
+def pod_as_type(pod: PodSpec, device) -> PodSpec:
+    """A pod of host scalars as a one-type PodSpec of [1] int32 tensors on
+    `device`. Each field is a fill on the device, so nothing waits on a
+    copy to the card."""
+    return PodSpec(*(torch.full((1,), int(v), dtype=torch.int32,
+                                device=device) for v in pod))
+
+
+def column_scorer(column: Callable) -> Callable:
+    """The per-pod scorer of a column function: the column on the pod as
+    the only type (a share type where the pod is a share-GPU pod)."""
+
+    def score(state: NodeState, pod: PodSpec,
+              ctx: ScoreContext) -> PolicyResult:
+        one = pod_as_type(pod, state.cpu_left.device)
+        raw, dev = column(state, one, int(bool(pod.is_gpu_share())), ctx.tp)
+        return PolicyResult(raw[0], dev[0])
+
+    return score
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch
 
 from tpusim_torch.constants import MAX_NODE_SCORE, MAX_SPEC_CPU, MAX_SPEC_GPU
 from tpusim_torch.ops.f32 import fma_f32, recip_f32
+from tpusim_torch.policies.base import column_scorer
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 _R_CPU = recip_f32(MAX_SPEC_CPU)
@@ -34,3 +35,7 @@ def bestfit_column(nodes: NodeState, types: PodSpec, ks: int,
                 (free_gpu - req_gpu) * (_R_GPU * 0.5))
     score = torch.floor((1.0 - s) * float(MAX_NODE_SCORE)).to(torch.int32)
     return score, torch.full_like(score, -1)
+
+
+# the per-pod scorer: (state, pod, ctx) -> PolicyResult over every node
+bestfit_score = column_scorer(bestfit_column)

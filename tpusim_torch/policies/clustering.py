@@ -22,6 +22,7 @@ from tpusim_torch.constants import (
     MILLI,
     NUM_AFF_CLASSES,
 )
+from tpusim_torch.policies.base import column_scorer
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 _Q = MAX_NODE_SCORE // 4  # 25
@@ -32,6 +33,16 @@ def affinity_class(types: PodSpec) -> torch.Tensor:
     share = (types.gpu_num == 1) & (types.gpu_milli < MILLI)
     cls = torch.where(share, 0, types.gpu_num)
     return torch.where(types.gpu_num == 0, -1, cls).to(torch.int32)
+
+
+def pod_affinity_class(pod: PodSpec) -> int:
+    """The affinity class of one pod of host scalars (the per-pod form of
+    affinity_class): share-GPU -> 0, N whole GPUs -> N, no GPU -> -1."""
+    if pod.gpu_num == 0:
+        return -1
+    if pod.gpu_num == 1 and pod.gpu_milli < MILLI:
+        return 0
+    return int(pod.gpu_num)
 
 
 def clustering_column(nodes: NodeState, types: PodSpec, ks: int,
@@ -51,3 +62,7 @@ def clustering_column(nodes: NodeState, types: PodSpec, ks: int,
                        torch.where(n_classes == 0, _Q, 0))
     score = torch.where(cls[:, None] < 0, 0, base + pack).to(torch.int32)
     return score, torch.full_like(score, -1)
+
+
+# the per-pod scorer: (state, pod, ctx) -> PolicyResult over every node
+clustering_score = column_scorer(clustering_column)

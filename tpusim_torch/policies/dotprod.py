@@ -38,6 +38,7 @@ from tpusim_torch.constants import (
     MILLI,
 )
 from tpusim_torch.ops.f32 import fma_f32, recip_f32
+from tpusim_torch.policies.base import column_scorer
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 DIM_EXT_METHODS = ("merge", "share", "divide", "extend")
@@ -88,6 +89,13 @@ def _safe_div(v, n):
     return torch.where(n > 0, v / torch.where(n > 0, n, 1.0), 0.0)
 
 
+def _div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, a true division: the divisor is a tensor on x's device, since
+    torch on the card multiplies by the reciprocal of a host scalar
+    divisor."""
+    return x / x.new_full((), c)
+
+
 def _dot(dim_ext, norm, nodes, slot_cpu, slot_gpu, tcpu, treq):
     """slot_cpu x tcpu + slot_gpu x treq, each side normalised, with the
     roundings of the JAX package's compiled table build (XLA on the CPU,
@@ -98,10 +106,10 @@ def _dot(dim_ext, norm, nodes, slot_cpu, slot_gpu, tcpu, treq):
     rounds there."""
     if norm == "max":
         if dim_ext == "merge":
-            return fma_f32(slot_gpu / float(MAX_SPEC_GPU),
-                           treq / float(MAX_SPEC_GPU),
-                           (slot_cpu / float(MAX_SPEC_CPU))
-                           * (tcpu / float(MAX_SPEC_CPU)))
+            return fma_f32(_div_const(slot_gpu, MAX_SPEC_GPU),
+                           _div_const(treq, MAX_SPEC_GPU),
+                           _div_const(slot_cpu, MAX_SPEC_CPU)
+                           * _div_const(tcpu, MAX_SPEC_CPU))
         kc, kg = tcpu * _RR_CPU, treq * _RR_GPU
         if dim_ext == "divide":
             return fma_f32(slot_cpu, kc, slot_gpu * kg)
@@ -187,3 +195,9 @@ def make_dotprod_column(dim_ext: str, norm: str):
         return torch.where(none, 0, raw.to(torch.int32)).to(torch.int32), dev
 
     return column
+
+
+def make_dotprod_score(dim_ext: str, norm: str):
+    """The DotProduct per-pod scorer of one (dim_ext, norm) config:
+    (state, pod, ctx) -> PolicyResult over every node."""
+    return column_scorer(make_dotprod_column(dim_ext, norm))

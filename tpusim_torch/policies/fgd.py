@@ -12,9 +12,10 @@ NodeResource.Sub (fgd_score.go:137-148). The frag score decomposes as
 
 so a per-device hypothetical perturbs only that device's fit terms.
 
-`fgd_score` is the plain scorer for one pod over all nodes. The replay's
-column form `fgd_column` scores a batch of nodes against all pod types and
-is held against it.
+`fgd_column` scores a batch of nodes against all pod types (the replays'
+tables); `fgd_score`, the per-pod scorer of the sequential oracle, is the
+column on the pod as the only type, held against the JAX package's per-pod
+`fgd_score`.
 
 Float order: every term inside the sum is an integer held exactly in
 float32, so only the products freq_t x term_t round; the sum over t is
@@ -25,14 +26,13 @@ as a multiplication by float32(0.001), as XLA compiles the JAX package's
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from tpusim_torch.constants import MAX_GPUS_PER_NODE, MAX_NODE_SCORE
-from tpusim_torch.ops.resource import (
-    is_accessible,
-    select_devices_packed,
-    sub_pod,
-)
+from tpusim_torch.ops.resource import is_accessible, select_devices_packed
+from tpusim_torch.policies.base import column_scorer
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 
@@ -77,52 +77,6 @@ def frag_score(cpu_left, gpu_left, gpu_type, tp: TypicalPods) -> torch.Tensor:
     return tsum(tp.freq * torch.where(isq3, t - fitsum, t))
 
 
-def _fgd_share(state: NodeState, pod: PodSpec, tp: TypicalPods):
-    g = state.gpu_left  # [N, 8]
-    gf = g.to(torch.float32)
-    fit, fitcnt, fitsum, total, acc = frag_terms(
-        state.cpu_left, g, state.gpu_type, tp
-    )
-    m, num = tp.gpu_milli, tp.gpu_num
-    gpu_pod = m > 0
-    cur = frag_score(state.cpu_left, g, state.gpu_type, tp)  # [N]
-
-    p = pod.gpu_milli
-    fitp = ((g - p)[..., None] >= m) & gpu_pod  # [N, 8, T]
-    fitcnt_h = fitcnt[:, None, :] - fit.to(torch.int32) + fitp.to(torch.int32)
-    fitsum_h = (fitsum[:, None, :] - torch.where(fit, gf[..., None], 0.0)
-                + torch.where(fitp, (gf - p)[..., None], 0.0))
-    total_h = (total - p)[:, None, None]
-    cpu_ok = ((state.cpu_left - pod.cpu)[:, None] >= tp.cpu)[:, None, :]
-    isq3_h = gpu_pod & acc[:, None, :] & (fitcnt_h >= num) & cpu_ok
-    new = tsum(tp.freq * torch.where(isq3_h, total_h - fitsum_h, total_h))
-
-    dev_scores = torch.where(g >= p, sigmoid_score(cur[:, None], new), -1)
-    best = dev_scores.max(-1).values
-    lane = torch.arange(MAX_GPUS_PER_NODE, device=g.device, dtype=torch.int32)
-    best_dev = torch.where(dev_scores == best[:, None], lane,
-                           MAX_GPUS_PER_NODE).min(-1).values
-    ok = best >= 0  # a fitting device always scores >= 0
-    return torch.where(ok, best, 0), torch.where(ok, best_dev, -1)
-
-
-def _fgd_whole(state: NodeState, pod: PodSpec, tp: TypicalPods):
-    cur = frag_score(state.cpu_left, state.gpu_left, state.gpu_type, tp)
-    c2, _, g2, _ = sub_pod(state.cpu_left, state.mem_left, state.gpu_left,
-                           PodSpec(*(f.expand(state.num_nodes) for f in pod)))
-    new = frag_score(c2, g2, state.gpu_type, tp)
-    score = sigmoid_score(cur, new)
-    return score, torch.full_like(score, -1)
-
-
-def fgd_score(state: NodeState, pod: PodSpec, tp: TypicalPods):
-    """FGD raw scores i32[N] and FGD's own Reserve device pick i32[N]
-    (-1 = none) for one pod (scalar PodSpec fields) on every node."""
-    if bool(pod.is_gpu_share()):
-        return _fgd_share(state, pod, tp)
-    return _fgd_whole(state, pod, tp)
-
-
 def fgd_column(nodes: NodeState, types: PodSpec, ks: int,
                tp: TypicalPods) -> Tuple[torch.Tensor, torch.Tensor]:
     """FGD raw score and FGD's share-device pick, i32[K, B] each, for a
@@ -136,8 +90,10 @@ def fgd_column(nodes: NodeState, types: PodSpec, ks: int,
     m, num = tp.gpu_milli, tp.gpu_num
     gpu_pod = m > 0
     isq3 = gpu_pod & acc & (fitcnt >= num) & (cpu[:, None] >= tp.cpu)
-    cur = tsum(tp.freq * torch.where(isq3, total[:, None] - fitsum,
-                                     total[:, None]))  # [B]
+    # the current frag score's terms [B, T]; each branch sums them in index
+    # order beside its hypotheticals', in one pass over the typical pods
+    cur_t = tp.freq * torch.where(isq3, total[:, None] - fitsum,
+                                  total[:, None])
     k = types.cpu.shape[0]
     score = torch.empty((k, g.shape[0]), dtype=torch.int32, device=g.device)
     sdev = torch.full_like(score, -1)
@@ -153,8 +109,11 @@ def fgd_column(nodes: NodeState, types: PodSpec, ks: int,
         isq3_h = (gpu_pod & acc[:, None, :] & (fitcnt_h >= num)
                   & cpu_ok[:, :, None, :])
         total_h = (total - types.gpu_milli[:ks, None])[:, :, None, None]
-        new = tsum(tp.freq * torch.where(isq3_h, total_h - fitsum_h, total_h))
-        dev_scores = torch.where(g >= p, sigmoid_score(cur[:, None], new), -1)
+        new_t = tp.freq * torch.where(isq3_h, total_h - fitsum_h, total_h)
+        sums = tsum(torch.cat([cur_t.expand(ks, *cur_t.shape)[:, :, None],
+                               new_t], 2))  # [Ks, B, 9]: current, devices
+        dev_scores = torch.where(g >= p, sigmoid_score(sums[..., :1],
+                                                       sums[..., 1:]), -1)
         best = dev_scores.max(-1).values  # [Ks, B]
         lane = torch.arange(MAX_GPUS_PER_NODE, device=g.device,
                             dtype=torch.int32)
@@ -177,6 +136,13 @@ def fgd_column(nodes: NodeState, types: PodSpec, ks: int,
         total2 = g2f.sum(-1)[..., None]  # [Kw, B, 1]
         cpu_ok2 = (cpu - types.cpu[ks:, None])[..., None] >= tp.cpu
         isq3_2 = gpu_pod & acc & (fitcnt2 >= num) & cpu_ok2
-        new_w = tsum(tp.freq * torch.where(isq3_2, total2 - fitsum2, total2))
-        score[ks:] = sigmoid_score(cur, new_w)
+        new_t = tp.freq * torch.where(isq3_2, total2 - fitsum2, total2)
+        sums = tsum(torch.stack([cur_t.expand(k - ks, *cur_t.shape), new_t],
+                                2))  # [Kw, B, 2]: current, after Sub
+        score[ks:] = sigmoid_score(sums[..., 0], sums[..., 1])
     return score, sdev
+
+
+# FGD raw scores i32[N] and FGD's own Reserve device pick i32[N] (-1 = none)
+# of one pod on every node: (state, pod, ctx) -> PolicyResult
+fgd_score = column_scorer(fgd_column)

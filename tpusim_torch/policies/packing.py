@@ -15,6 +15,7 @@ import torch
 
 from tpusim_torch.constants import MAX_NODE_SCORE, MILLI
 from tpusim_torch.ops.resource import select_devices_packed
+from tpusim_torch.policies.base import column_scorer
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 _T3 = MAX_NODE_SCORE // 3  # 33
@@ -41,3 +42,7 @@ def packing_column(nodes: NodeState, types: PodSpec, ks: int,
     needs_gpu = (types.gpu_milli * types.gpu_num > 0)[:, None]
     score = torch.where(needs_gpu, score, 0).to(torch.int32)
     return score, torch.full_like(score, -1)
+
+
+# the per-pod scorer: (state, pod, ctx) -> PolicyResult over every node
+packing_score = column_scorer(packing_column)

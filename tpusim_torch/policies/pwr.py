@@ -24,6 +24,7 @@ from tpusim_torch.ops.energy import (
     gpu_power_watts,
 )
 from tpusim_torch.ops.resource import select_devices_packed
+from tpusim_torch.policies.base import column_scorer
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 NEG = -(2**31) + 1  # the share branch's "no fitting device" score
@@ -66,3 +67,7 @@ def pwr_column(nodes: NodeState, types: PodSpec, ks: int, tp: TypicalPods):
     share = ((types.gpu_num == 1) & (types.gpu_milli < MILLI))[:, None]
     return (torch.where(share, share_score, whole).to(torch.int32),
             torch.where(share, share_dev, -1).to(torch.int32))
+
+
+# the per-pod scorer: (state, pod, ctx) -> PolicyResult over every node
+pwr_score = column_scorer(pwr_column)

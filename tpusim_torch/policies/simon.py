@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from tpusim_torch.constants import MAX_NODE_SCORE, MILLI
+from tpusim_torch.policies.base import column_scorer
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
 
 
@@ -42,3 +43,7 @@ def simon_column(nodes: NodeState, types: PodSpec, ks: int,
     score = torch.where(scaled >= 2.0**31, torch.iinfo(torch.int32).max,
                         scaled.clamp(max=2.0**31 - 128).to(torch.int32))
     return score, torch.full_like(score, -1)
+
+
+# the per-pod scorer: (state, pod, ctx) -> PolicyResult over every node
+simon_score = column_scorer(simon_column)

@@ -24,6 +24,14 @@ configurations as the lanes of one launch of the lanes kernels, each lane
 bit-identical to its standalone run (the section at the end of this
 module).
 
+Under engine="sequential" every replay, each lane of a batch or sweep and
+each fault run runs the sequential oracle instead (tpusim_torch.sim.engine
+make_replay: the cycle of tpusim_torch.sim.step over tensors on the same
+device, no tables, no kernel), as tpusim's sequential engine does; with
+extenders configured, every replay runs the extender host loop
+(tpusim_torch.sim.extender). Both are explicit choices: no replay falls
+back to them.
+
 After the main replay, `schedule_additional` replays more pods from the
 placed cluster's state (apps, the new-workload swap, the inflation
 evaluation), through the same kernels and the same report tail.
@@ -42,7 +50,9 @@ written from what that block stashes (tpusim_torch.analysis).
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import List, Sequence, Tuple
@@ -72,6 +82,7 @@ from tpusim_torch.ops.frag import (
 )
 from tpusim_torch.ops.prng import fold_in, prng_key
 from tpusim_torch.parallel.sharding import pad_nodes, pad_rank, trim_nodes
+from tpusim_torch.policies import make_policy
 from tpusim_torch.sim import residency
 from tpusim_torch.sim.deschedule import evict, select_victims
 from tpusim_torch.sim import fault_lane
@@ -82,6 +93,7 @@ from tpusim_torch.sim.engine import (
     EV_NODE_FAIL,
     EV_NODE_RECOVER,
     ReplayResult,
+    make_replay,
 )
 from tpusim_torch.sim.faults import (
     FaultConfig,
@@ -174,15 +186,22 @@ class SimulatorConfig:
     # of _fault_scan_blockers (or a randomized configuration) keeps it on
     # the loop, as tpusim's auto does
     fault_mode: str = "auto"
-    # tpusim's engine knob, of the values the port runs: both run its
-    # kernels, and "pallas" keeps fault runs on the segmented loop, as
-    # tpusim's fused pallas engine has no fault lane
+    # tpusim's engine knob, of the values the port runs: "auto" and
+    # "pallas" run its kernels ("pallas" keeps fault runs on the segmented
+    # loop, as tpusim's fused pallas engine has no fault lane);
+    # "sequential" runs the sequential oracle (tpusim_torch.sim.engine
+    # make_replay) on the same device, and each lane of a batch or sweep
+    # through it in turn
     engine: str = "auto"
+    # HTTP scheduler extenders (tpusim_torch.sim.extender.ExtenderConfig
+    # tuple): when set, every replay runs the extender host loop, which
+    # splices the extenders' round-trips into each cycle (ref:
+    # simulator.go:196 WithExtenders)
+    extenders: tuple = ()
 
 
-# the values of tpusim's engine knob that the port's entries run: both
-# mean its kernels
-PORT_ENGINES = ("auto", "pallas")
+# the values of tpusim's engine knob that the port's entries run
+PORT_ENGINES = ("auto", "pallas", "sequential")
 
 
 @dataclass
@@ -216,7 +235,9 @@ class Simulator:
     "replay_blocked", prefixed "plain_" on the CPU), `last_residency` its
     tier ("vmem" or "hbm"; a randomized configuration runs "vmem" whatever
     `table_residency` says) and `last_kernel_stats` the blocked replay's
-    [waits, starts, rebuilds] (None after the flat one).
+    [waits, starts, rebuilds] (None after the flat one). Under
+    engine="sequential" `last_engine` is "sequential", and with extenders
+    "extender": host loops on the Simulator's device, with no residency.
     """
 
     def __init__(self, nodes: Sequence[NodeRow], cfg: SimulatorConfig = None,
@@ -243,6 +264,14 @@ class Simulator:
             self.cfg.dim_ext_method, self.cfg.norm_method,
         )
         self._blocked = None  # the blocked replayer, built on first use
+        # (Policy, weight) pairs: the per-pod scorers of the sequential
+        # oracle and the extender host loop
+        self._policy_fns = [
+            (make_policy(name, self.cfg.dim_ext_method, self.cfg.norm_method),
+             weight)
+            for name, weight in self.cfg.policies
+        ]
+        self._extender_fn = None  # the extender host loop, built on first use
         self.engine = ("fused cuda kernel" if self.device.type == "cuda"
                        else "plain pytorch (cpu)")
         self.last_engine = None
@@ -267,6 +296,10 @@ class Simulator:
         self.last_disruption = None
         self.skyline = None
         self._bellman_eval = None
+        # the inputs of a first Bellman series served from the disk cache,
+        # evaluated before the next series so the memo is what an uncached
+        # run's would be (_bellman_series)
+        self._bellman_pending = None
         self._reset_run_state()
 
     def _reset_run_state(self):
@@ -298,6 +331,7 @@ class Simulator:
         # the Bellman memo lives for one experiment, as the reference's
         # fragMemo does (simulator.go:58)
         self._bellman_eval = None
+        self._bellman_pending = None
         self.log.info(f"Num of Total Pods: {len(self.workload_pods)}")
         self.log.info(f"Num of Total Pod Sepc: {len(info)}")
 
@@ -312,6 +346,7 @@ class Simulator:
         self.typical = other.typical
         self._typical_info = other._typical_info
         self._bellman_eval = None
+        self._bellman_pending = None
         self.log.info(f"Num of Total Pods: {len(self.workload_pods)}")
         self.log.info(f"Num of Total Pod Sepc: {len(self._typical_info)}")
 
@@ -345,21 +380,63 @@ class Simulator:
         return residency.replay_tier(self.cfg.table_residency, cfg.randomized,
                                      num_nodes, num_types, cfg.num_tables, l2)
 
+    def _sequential_replay(self, faults: bool = False,
+                           fault_frag: bool = False):
+        """This configuration's sequential oracle (engine.make_replay),
+        metric-free: the reports come from the post-pass, as after every
+        replay."""
+        return make_replay(self._policy_fns, self.cfg.gpu_sel_method,
+                           report=False, faults=faults,
+                           fault_frag=fault_frag)
+
+    def _host_loop(self, name: str) -> None:
+        self.last_engine, self.last_residency = name, None
+        self.last_kernel_stats = None
+
     def run_events(self, state: NodeState, specs: PodSpec, ev_kind,
-                   ev_pod, types=None, key=None) -> ReplayResult:
+                   ev_pod, types=None, key=None,
+                   pod_rows=None) -> ReplayResult:
         """Replay an event stream from `state`: the CUDA kernels on a CUDA
-        device, the plain replay on the CPU. Callers replaying the same pod
-        specs repeatedly (a chunked stream) may pass their
-        `build_pod_types(specs)` as `types`. `key` is the root of the event
-        key chain (the main replay's, PRNGKey(seed), by default)."""
+        device, the plain replay on the CPU; the sequential oracle under
+        engine="sequential"; the extender host loop when extenders are
+        configured, which needs the PodRow list `pod_rows` for its
+        payloads. Callers replaying the same pod specs repeatedly (a chunked
+        stream) may pass their `build_pod_types(specs)` as `types`. `key` is
+        the root of the event key chain (the main replay's, PRNGKey(seed),
+        by default)."""
         ev_kind = np.asarray(ev_kind, np.int32)
         ev_pod = np.asarray(ev_pod, np.int32)
+        if key is None:
+            key = prng_key(self.cfg.seed)
+        if self.cfg.extenders or self.cfg.engine == "sequential":
+            validate_events(ev_kind, ev_pod, int(specs.cpu.shape[0]))
+            if self.cfg.extenders:
+                if pod_rows is None:
+                    raise ValueError(
+                        "extender-configured replays need the PodRow list "
+                        "(run_events(..., pod_rows=...)) to build the "
+                        "ExtenderArgs payloads")
+                if self._extender_fn is None:
+                    from tpusim_torch.sim.extender import make_extender_replay
+
+                    self._extender_fn = make_extender_replay(
+                        self._policy_fns, self.cfg.gpu_sel_method,
+                        self.cfg.extenders)
+                out = self._extender_fn(state, specs, ev_kind, ev_pod,
+                                        self.typical, key, self.rank,
+                                        pod_rows, self.nodes)
+                self._host_loop("extender")
+            else:
+                out = self._sequential_replay()(state, specs, ev_kind, ev_pod,
+                                                self.typical, key, self.rank)
+                self._host_loop("sequential")
+            self.log.info(f"[Engine] replay of {len(ev_kind)} events ran on: "
+                          f"{_ran_on(self, self.last_engine, None)}")
+            return out
         if types is None:
             types = build_pod_types(specs)
         n, k = state.num_nodes, types.num_types
         tier = self._residency(n, k)
-        if key is None:
-            key = prng_key(self.cfg.seed)
         args = (state, specs, types, torch.as_tensor(ev_kind),
                 torch.as_tensor(ev_pod), self.typical, key, self.rank)
         if tier == "hbm":
@@ -403,7 +480,8 @@ class Simulator:
         t0 = time.perf_counter()
         specs = pods_to_specs(pods, self.node_index, self.device)
         ev_kind, ev_pod = build_events(pods, use_timestamps)
-        out = self.run_events(state, specs, ev_kind, ev_pod, key=key)
+        out = self.run_events(state, specs, ev_kind, ev_pod, key=key,
+                              pod_rows=pods)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
@@ -657,7 +735,8 @@ class Simulator:
         ev_pod = np.arange(len(v), dtype=np.int32)
         t0 = time.perf_counter()
         out = self.run_events(state, vspecs, ev_kind, ev_pod,
-                              key=prng_key(self.cfg.seed + 1))
+                              key=prng_key(self.cfg.seed + 1),
+                              pod_rows=vpods)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
@@ -692,6 +771,8 @@ class Simulator:
         if self.cfg.report_per_event:
             out.append("per-event reporting (the report postpass does not "
                        "model fault transitions)")
+        if self.cfg.extenders:
+            out.append("extenders")
         if self.cfg.engine == "pallas":
             out.append("the fused pallas engine")
         return out
@@ -776,8 +857,7 @@ class Simulator:
         self.log.info(
             f"[Engine] fault-lane replay of {plan.num_events} events "
             f"(+{attempts_run} retries, merged stream {e_m}) ran on: "
-            f"{self.engine}, {self.last_engine} ({self.last_residency} "
-            "residency)")
+            f"{_ran_on(self, self.last_engine, self.last_residency)}")
         self._emit_fault_log_lines(plan, fout.ys, pods)
         self.analysis_summary.update(disruption_report_block(self.log, dm))
         self.last_disruption = dm
@@ -819,16 +899,25 @@ class Simulator:
         of the reference): init_tables, then the fault form of the replay
         residency.replay_tier picks, `replay_faults` or
         `replay_blocked_faults` (over the nodes padded to whole blocks),
-        from root key PRNGKey(seed). Returns (ReplayResult, FaultOut) on
+        from root key PRNGKey(seed); under engine="sequential" the
+        oracle's fault form instead. Returns (ReplayResult, FaultOut) on
         the device, the state and the down clock over the cluster's
         nodes."""
         if plan.kind.shape[0] and not specs.cpu.shape[0]:
             raise ValueError("the fault lane replays a workload of at least "
                              "one pod")
-        types = build_pod_types(specs)
-        cfg = self._replay.config
         state, rank, tp = self.init_state, self.rank, self.typical
         n, p = state.num_nodes, int(specs.cpu.shape[0])
+        if self.cfg.engine == "sequential":
+            lane = fault_lane.lane_of(plan, state, p)
+            out = self._sequential_replay(True, plan.has_recover)(
+                state, specs, plan.kind, plan.idx, tp,
+                prng_key(self.cfg.seed), rank, fault_ops=lane.ops,
+                fault_carry0=lane.carry)
+            self._host_loop("sequential")
+            return out
+        types = build_pod_types(specs)
+        cfg = self._replay.config
         tier = self._residency(n, types.num_types)
         kinds = torch.as_tensor(plan.kind, device=self.device)
         idx = torch.as_tensor(plan.idx, device=self.device)
@@ -956,7 +1045,7 @@ class Simulator:
             pre = box["state"]
             t_seg = time.perf_counter()
             out = self.run_events(pre, specs, seg_kind, seg_pod,
-                                  types=types, key=seg_key)
+                                  types=types, key=seg_key, pod_rows=pods)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t_rep = time.perf_counter()
@@ -1148,7 +1237,16 @@ class Simulator:
         is rebuilt from the telemetry and only its memoised value is
         updated, in one call of the C++ evaluator. The value depends on the
         node's state alone, so this equals the reference's sweep over every
-        node after every event."""
+        node after every event.
+
+        The series is a pure function of the typical rows, the start state
+        and the event stream with its telemetry, so a Simulator's first
+        series goes through a content-keyed disk cache (_bellman_cache_path;
+        TPUSIM_BELLMAN_CACHE names its directory, an empty value turns it
+        off). Later series depend on the memo the earlier ones warmed, so
+        they are neither read nor written there; after a hit, the cached
+        call's inputs are evaluated first, so the memo, and every later
+        value, is what an uncached run's would be."""
         from tpusim_torch.native import BellmanEvaluator
 
         kinds = np.asarray(ev_kind)
@@ -1158,13 +1256,51 @@ class Simulator:
         pod_gpu = np.fromiter((p.gpu_milli for p in pods), np.int32,
                               count=len(pods))
         s = device_fetch(start_state)
+        inputs = tuple(np.ascontiguousarray(a) for a in (
+            s.cpu_left.numpy().astype(np.int32),
+            s.gpu_left.numpy().astype(np.int32),
+            s.gpu_type.numpy().astype(np.int32),
+            out.event_node.numpy().astype(np.int32),
+            out.event_dev.numpy().astype(np.uint8),
+            np.where(kinds == EV_CREATE, 1, -1).astype(np.int8),
+            pod_cpu[ev_pods], pod_gpu[ev_pods]))
+        first = self._bellman_eval is None and self._bellman_pending is None
+        path = self._bellman_cache_path(inputs) if first else None
+        if path is not None and os.path.isfile(path):
+            self._bellman_pending = inputs
+            return np.load(path)
         if self._bellman_eval is None:
             self._bellman_eval = BellmanEvaluator(self._typical_host_rows())
-        return self._bellman_eval.eval_series(
-            s.cpu_left.numpy(), s.gpu_left.numpy(), s.gpu_type.numpy(),
-            out.event_node.numpy(), out.event_dev.numpy(),
-            np.where(kinds == EV_CREATE, 1, -1).astype(np.int8),
-            pod_cpu[ev_pods], pod_gpu[ev_pods])
+            if self._bellman_pending is not None:
+                self._bellman_eval.eval_series(*self._bellman_pending)
+                self._bellman_pending = None
+        series = self._bellman_eval.eval_series(*inputs)
+        if path is not None:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp.npy"
+            with open(tmp, "wb") as f:
+                np.save(f, series)
+            os.replace(tmp, path)
+        return series
+
+    def _bellman_cache_path(self, inputs):
+        """The cache file of a first Bellman series with these inputs, or
+        None where the cache is off: under TPUSIM_BELLMAN_CACHE, by default
+        .bellman_cache/ at the repository's root. The key hashes the port's
+        tag and evaluator source (tpusim's entries, under another key,
+        are never read), the typical rows and the inputs."""
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        cache_dir = os.environ.get("TPUSIM_BELLMAN_CACHE",
+                                   os.path.join(root, ".bellman_cache"))
+        if not cache_dir:
+            return None
+        h = hashlib.sha256(_bellman_source_digest())
+        for row in self._typical_host_rows():
+            h.update(repr(row).encode())
+        for a in inputs:
+            h.update(a.tobytes())
+        return os.path.join(cache_dir, h.hexdigest() + ".npy")
 
     def _emit_event_reports(self, out: ReplayResult, pods, ev_kind, ev_pod,
                             start_state: NodeState):
@@ -1252,6 +1388,27 @@ class Simulator:
         return amounts, requested, allocatable
 
 
+def _bellman_source_digest() -> bytes:
+    """The Bellman cache key's salt: a tag naming the port and the sha256
+    of its evaluator's source, so a changed evaluator misses every entry."""
+    from tpusim_torch import native
+
+    h = hashlib.sha256(b"tpusim_torch bellman series\0")
+    base = os.path.dirname(os.path.abspath(native.__file__))
+    for name in ("bellman.cpp", "__init__.py"):
+        with open(os.path.join(base, name), "rb") as f:
+            h.update(f.read())
+    return h.digest()
+
+
+def _ran_on(sim: Simulator, kernel: str, tier, extra: str = "") -> str:
+    """What an [Engine] line says ran: the kernel and its residency, or a
+    host loop (the sequential oracle, the extender loop) and its device."""
+    if tier is None:
+        return f"the {kernel} host loop ({sim.device.type}{extra})"
+    return f"{sim.engine}, {kernel} ({tier} residency{extra})"
+
+
 # ---------------------------------------------------------------------------
 # Lanes: seed batches and config sweeps as one launch (counterpart of the
 # seed-batched and config-axis replays of tpusim/sim/driver.py)
@@ -1278,15 +1435,36 @@ def _lane_tensors(sim: Simulator, pods, use_timestamps: bool):
             torch.as_tensor(ev_pod, device=sim.device))
 
 
+def _config_row(cfg, lane_row) -> List[int]:
+    """A lane's weights (in `cfg`'s policy order, lane_weights) back in the
+    order of the [(name, weight)] list `cfg` was made from."""
+    row = [0] * len(cfg.order)
+    for j, i in enumerate(cfg.order):
+        row[i] = int(lane_row[j])
+    return row
+
+
 def _launch_lanes(sim: Simulator, types, lanes) -> dict:
     """Queue the lanes (fused_engine.Lane, built over the Simulator's
     initial state) on the Simulator's device: init_tables once over the
     shared `types`, then the lanes kernel of the residency that
-    residency.replay_tier picks for one lane of that shape. Returns the
-    results (a ReplayResult a lane, on the device) and what ran."""
+    residency.replay_tier picks for one lane of that shape. Under
+    engine="sequential" each lane runs through the sequential oracle in
+    turn instead, as a standalone run with its pods, events, rank, weights
+    and key (tpusim vmaps its oracle over the lanes). Returns the results
+    (a ReplayResult a lane, on the device) and what ran."""
     cfg = sim._replay.config
     state, tp = sim.init_state, sim.typical
     n = state.num_nodes
+    if sim.cfg.engine == "sequential":
+        replay = sim._sequential_replay()
+        results = [replay(state, lane.pods, lane.ev_kind, lane.ev_pod, tp,
+                          lane.key, lane.rank,
+                          weights=_config_row(cfg, lane.weights))
+                   for lane in lanes]
+        sim._host_loop("sequential")
+        return dict(results=results, stats=None, kernel="sequential",
+                    tier=None)
     tier = sim._residency(n, types.num_types)
     if tier == "hbm":
         padded, _ = pad_nodes(state, lanes[0].rank, BLOCK)
@@ -1358,7 +1536,13 @@ class SweepLane:
 
 def _check_sweep_grid(cfg: SimulatorConfig, weights, seeds):
     """Validate the [B, num_pol] weight grid and the per-lane seeds;
-    returns (w, B, seeds) with the defaults resolved."""
+    returns (w, B, seeds) with the defaults resolved. Extender configs do
+    not sweep: their per-cycle round-trips do not batch."""
+    if cfg.extenders:
+        raise ValueError(
+            "schedule_pods_sweep cannot run extender configs (per-cycle "
+            "HTTP round-trips do not batch)"
+        )
     w = np.asarray(weights, np.int32)
     if w.ndim != 2 or w.shape[1] != len(cfg.policies):
         raise ValueError(
@@ -1461,8 +1645,7 @@ def _sweep_lanes(sim: Simulator, lane_inputs, types, type_ids, w, seeds,
     b, e_max = len(lanes), max(int(evk.shape[0]) for _, evk, _ in lane_inputs)
     sim.log.info(
         f"[Engine] sweep of {b} {what} x {'<= ' if what == 'traces' else ''}"
-        f"{e_max} events ran on: {sim.engine}, {ran['kernel']} "
-        f"({ran['tier']} residency)")
+        f"{e_max} events ran on: {_ran_on(sim, ran['kernel'], ran['tier'])}")
     results = ran["results"]
     if sim.cfg.report_per_event:
         results = _lane_metrics(sim, results, lane_inputs)
@@ -1612,6 +1795,8 @@ def _fault_sweep_lanes(sim: Simulator, lane_inputs, types, type_ids, w,
     cfg = sim._replay.config
     state, tp = sim.init_state, sim.typical
     n = state.num_nodes
+    if sim.cfg.engine == "sequential":
+        return _oracle_fault_lanes(sim, lane_inputs, w, seeds, plans)
     tier = sim._residency(n, types.num_types)
     target = state
     if tier == "hbm":
@@ -1644,6 +1829,30 @@ def _fault_sweep_lanes(sim: Simulator, lane_inputs, types, type_ids, w,
         kernel = f"plain_{kernel}"
     sim.last_engine, sim.last_residency = kernel, tier
     sim.last_kernel_stats = None
+    amounts = _lane_frag_amounts([o.state for o, _ in outs], tp)
+    return device_fetch(tuple(outs)), amounts
+
+
+def _oracle_fault_lanes(sim: Simulator, lane_inputs, w, seeds, plans):
+    """_fault_sweep_lanes under engine="sequential": each lane's plan
+    through the oracle's fault form in turn, as a standalone lane run with
+    its weight row, rank and key (the recover frag captured where any lane
+    recovers a node, as tpusim's chaos sweep arms it)."""
+    state, tp = sim.init_state, sim.typical
+    n = state.num_nodes
+    replay = sim._sequential_replay(True, any(p.has_recover for p in plans))
+    outs = []
+    for (specs, _, _), row, seed, plan in zip(lane_inputs, w, seeds, plans):
+        p = int(specs.cpu.shape[0])
+        if plan.kind.shape[0] and not p:
+            raise ValueError("the fault lane replays a workload of at least "
+                             "one pod")
+        lane = fault_lane.lane_of(plan, state, p)
+        outs.append(replay(
+            state, specs, plan.kind, plan.idx, tp, prng_key(seed),
+            torch.as_tensor(tiebreak_rank(n, seed), device=sim.device),
+            weights=row, fault_ops=lane.ops, fault_carry0=lane.carry))
+    sim._host_loop("sequential")
     amounts = _lane_frag_amounts([o.state for o, _ in outs], tp)
     return device_fetch(tuple(outs)), amounts
 
@@ -1686,8 +1895,8 @@ def _dispatch_sweep_multi_faults(sim: Simulator, fault_specs, inputs, types,
                                        plans)
     sim.log.info(
         f"[Engine] chaos x trace sweep of {len(plans)} lanes (merged stream "
-        f"{e_m}) ran on: {sim.engine}, {sim.last_engine} "
-        f"({sim.last_residency} residency)")
+        f"{e_m}) ran on: "
+        f"{_ran_on(sim, sim.last_engine, sim.last_residency)}")
     gcnt = sim.init_state.gpu_cnt.cpu().numpy()
     return [_chaos_lane(outs, amounts, i, w[i], seeds[i], plans[i], gcnt)
             for i in range(len(plans))]
@@ -1732,8 +1941,8 @@ def schedule_pods_sweep_faults(sim: Simulator, pods, weights, fault_specs,
                                        [types.type_id] * b, w, seeds, plans)
     sim.log.info(
         f"[Engine] chaos sweep of {b} fault lanes x {e} events (merged "
-        f"stream {e_m}) ran on: {sim.engine}, {sim.last_engine} "
-        f"({sim.last_residency} residency)")
+        f"stream {e_m}) ran on: "
+        f"{_ran_on(sim, sim.last_engine, sim.last_residency)}")
     gcnt = sim.init_state.gpu_cnt.cpu().numpy()
     return [_chaos_lane(outs, amounts, i, w[i], seeds[i], plans[i], gcnt)
             for i in range(b)]
@@ -1788,7 +1997,7 @@ def format_sweep_table(lanes: Sequence[SweepLane], policies) -> str:
 # the settings every Simulator of a seed batch must share
 _BATCH_SHARED = ("policies", "gpu_sel_method", "dim_ext_method",
                  "norm_method", "report_per_event", "use_timestamps",
-                 "table_residency", "typical_pods")
+                 "table_residency", "typical_pods", "engine")
 
 
 def schedule_pods_batch(sims: Sequence[Simulator], pods_list,
@@ -1808,6 +2017,11 @@ def dispatch_pods_batch(sims: Sequence[Simulator], pods_list,
     while the lanes run; finish_pods_batch(handle) waits for them and
     completes each Simulator's run."""
     lead = sims[0]
+    if lead.cfg.extenders:
+        raise ValueError(
+            "schedule_pods_batch cannot run extender configs (per-cycle "
+            "HTTP round-trips do not batch); run each sim's run() instead"
+        )
     for s in sims[1:]:
         same = (all(getattr(s.cfg, f) == getattr(lead.cfg, f)
                     for f in _BATCH_SHARED)
@@ -1854,9 +2068,8 @@ def finish_pods_batch(handle: dict) -> List[SimulateResult]:
         sim.last_engine, sim.last_residency = ran["kernel"], ran["tier"]
         sim.last_kernel_stats = None
         sim.log.info(
-            f"[Engine] replay of {len(evk)} events ran on: {sim.engine}, "
-            f"{ran['kernel']} ({ran['tier']} residency, lane {i} of "
-            f"{len(sims)})")
+            f"[Engine] replay of {len(evk)} events ran on: "
+            f"{_ran_on(sim, ran['kernel'], ran['tier'], f', lane {i} of {len(sims)}')}")
         t1 = time.perf_counter()
         out, events, unscheduled, rank = sim._finish_replay(
             outs[i], pods, evk, evp, sim.init_state)

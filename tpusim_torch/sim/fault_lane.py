@@ -529,7 +529,8 @@ def _queue_push_mask(fc: FaultCarry, vm, att, pos, era, params):
         q_att=_set(fc.q_att, tgt, att[pods]),
         q_ready=_set(fc.q_ready, tgt, ready[pods]),
         q_seq=_set(fc.q_seq, tgt, fc.seq + rank[pods]),
-        q_era=_set(fc.q_era, tgt, _i32(era).expand(pods.shape[0])),
+        q_era=_set(fc.q_era, tgt,
+                   _i32(era, fc.q_era.device).expand(pods.shape[0])),
         seq=(fc.seq + fits.sum()).to(torch.int32),
     )
     return fc, fits, dead_now | (want & ~fits)

@@ -67,7 +67,7 @@ from tpusim_torch.policies import (
     make_policy,
 )
 from tpusim_torch.policies.base import normalize, wrap_i32
-from tpusim_torch.policies.random_policy import random_score
+from tpusim_torch.policies.random_policy import random_row
 from tpusim_torch.sim.engine import (
     EV_CREATE,
     EV_DELETE,
@@ -484,7 +484,7 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
 
         def row(j, pol):
             if pol.per_event:
-                return random_score(k_rand, feasible)
+                return random_row(k_rand, feasible)
             return normalize(pol.normalize, score[j * k + tid], feasible)
 
         # the i32 weighted sum, wrapping as XLA's int32 does
