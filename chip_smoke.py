@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only evict     # descheduling and faults
     python3 chip_smoke.py --only lane      # the in-scan fault lane
     python3 chip_smoke.py --only seq       # the sequential oracle
+    python3 chip_smoke.py --only ckpt      # chunks, resume, forks, cache
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
@@ -13,9 +14,9 @@ result line:
 1. card    the card's name and power limit (nvidia-smi); a CUDA device is
            required.
 2. build   the port's CUDA kernels, compiled from tpusim_torch/kernels/*.cu:
-           the main library and the variants of kernels.VARIANTS (the
-           clocked build), an nvcc a source and variant, all in
-           parallel, then a link a variant.
+           the main library, an nvcc a source, all in parallel, then a
+           link; the variants of kernels.VARIANTS (the clocked build) the
+           same way while the check phase runs, waited for after it.
 3. check   each kernel against its plain PyTorch version on the same inputs,
            tolerance zero (exact equality), for every policy configuration
            the kernels cover: init_tables on the full openb tables of each
@@ -24,22 +25,24 @@ result line:
            3 and 8 distinct device values a node, CPU-only nodes, share
            types that fit no device, Sub picks over unequal values,
            typical pods of frequency 0), beside an empty launch's time;
-           replay on seeded random clusters (256 nodes, ~1k events for
-           RANDOM_ROWS, ~300 for the other rows, DotProduct pairs,
+           replay on seeded random clusters (256 nodes, ~320 events for
+           RANDOM_ROWS, ~200 for the other rows, DotProduct pairs,
            FGD/worst and the MIXES of RandomScore,
            gpu_sel random and Simon; the randomized ones through the
            randomized instantiation, from a root key) and on the openb
-           trace: in full under FGD (PLAIN_ROWS), and over its first 1,000
-           events under Simon, the six-policy profile, FGD/worst and
-           01-Random (PREFIX_ROWS, the kernel timed on the same prefix), and
+           trace over its first 1,000 events under FGD and its first 500
+           under Simon, the six-policy profile, FGD/worst and 01-Random
+           (PREFIX_ROWS, PREFIX_EVENTS; the kernel timed on the same
+           prefix), and
            replay_blocked on seeded random
            clusters of five 128-node blocks for every method row's
            configuration that draws nothing per event, FGD/worst and
            Simon+FGD, of 17 and 513 blocks for BestFit
-           and PWR+FGD, and on the openb trace (in full under FGD, the
-           prefix under Simon), its plain version on CPU copies of the
+           and PWR+FGD, and on the openb trace (FGD's and Simon's
+           prefixes), its plain version on CPU copies of the
            inputs; both replay kernels on the type
-           shapes of SHAPE_CASES (share items past a round of the block's
+           shapes of SHAPE_CASES over the first quarter of each case's
+           events (share items past a round of the block's
            threads, no share type, only share types, one typical pod, the
            most types and typical pods staged), with init_tables, and one
            type and one typical pod past those (PAST_LIMIT: the global
@@ -100,12 +103,12 @@ result line:
            launch counts set to 0 before and read after: auto must have
            chosen replay_blocked, the first chunk's placements and masks
            must match the JAX package's digests, and the flat replay over
-           the same chunks must give identical outputs. Both kernels are
+           the first chunk must give identical outputs. Both kernels are
            timed. At the scale width init_tables and both replay kernels
-           are held to their plain versions (CPU copies) over 1,000
+           are held to their plain versions (CPU copies) over 500
            events from the state after the first chunk, for FGD, BestFit
            and PWR+FGD, tolerance 0 with stats and final tables; then both
-           replay kernels are timed on 20,000 events at 10k, 30k and 100k
+           replay kernels are timed on 5,000 events at 10k, 30k and 100k
            nodes for 06-FGD, 05-BestFit and 08, beside the tier auto picks
            there.
 8. sweep   the lanes kernels `replay_lanes` and `replay_blocked_lanes` (a
@@ -122,7 +125,7 @@ result line:
            its row and seed in the configuration; both lanes kernels
            against their plain versions, tolerance 0 with final states,
            tables and summaries, on a 256-node random cluster (4 lanes)
-           and at the main path's shape, openb over its first 1,000
+           and at the main path's shape, openb over its first 500
            events (2 lanes: the grid's first and last rows through both
            kernels, 01-Random under two keys and ranks);
            both lanes kernels alone and the whole schedule_pods_sweep call
@@ -131,7 +134,7 @@ result line:
            standalone warm replay (a lane's marginal cost at 16 lanes must
            stay within 1/5 of it, the reference's sweep bound), run_batch
            at 1 and 16 seeds, and `python -m tpusim_torch.sweep --methods
-           06-FGD --seeds 16` against the 16 experiments one by one (every
+           06-FGD --seeds 4` against the 4 experiments one by one (every
            directory's files equal).
 9. evict   eviction and rescheduling on their paths, the launch counts
            set to 0 before each run and read after it. The descheduler
@@ -175,8 +178,8 @@ result line:
            each, results and disruption metrics held to
            FAULT_SCAN_SHA256, the plan's compile, the launch, the fetch
            and the host tail timed apart; the segmented host loop on the
-           same run timed beside it. Then the chaos sweep: 16 lanes of
-           FAULT_FLAGS under fault seeds 1-16 (replay_lanes_faults, one
+           same run timed beside it. Then the chaos sweep: 8 lanes of
+           FAULT_FLAGS under fault seeds 1-8 (replay_lanes_faults, one
            launch), each equal to its standalone lane run and seed 7's to
            FAULT_SCAN_SHA256, its first 4 under "hbm"
            (replay_blocked_lanes_faults) equal to them, and `apply
@@ -199,6 +202,26 @@ result line:
            held to it; the extender host loop on EXTENDER_CASE against a
            stub extender on 127.0.0.1 (SEQ_EXTENDER_SHA256). Writes
            chiprun_out/seq_phase.json.
+12. ckpt  chunked replay through the chunk surface (table_engine: an
+           init_tables and a replay launch a chunk, each chunk started from
+           the carried state, placements and key, the kernel writing the
+           chain's key after its last event) at openb, the launch counts
+           set to 0 before each run and read after it: Simulator.run()
+           with checkpoint_every CKPT_EVERY (11 chunks) under 06-FGD with
+           residency "auto" (replay) and "hbm" (replay_blocked) and under
+           01-Random (the key chain across chunks), each held to METHODS
+           and REPORT_SHA256, its warm replay wall beside the one-launch
+           wall, and one chunk boundary's parts timed (init_tables, the
+           carry's fetch, the checkpoint write); a 06-FGD run in a child
+           process killed with SIGKILL once its checkpoint at event
+           CKPT_KILL_AT is on disk, then run again here: it resumes there
+           and matches the same digests (the log without its [Checkpoint]
+           line); schedule_pods_fork at CKPT_FORK_EVENT with FORK_TAIL,
+           warm from a base run's kept ladder and cold, both held to
+           FORK_SHA256, beside a one-launch replay of the spliced stream;
+           the table cache, a miss then a hit (no init_tables launch), the
+           hit's load timed against init_tables' launch. Writes
+           chiprun_out/ckpt_phase.json.
 
 Run with every phase, it then prints one JSON line describing the
 kernels, the card's line, and as the last line {"ok": true, "device":
@@ -229,6 +252,7 @@ This script imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import hashlib
 import json
@@ -362,12 +386,16 @@ SCALE_EVENTS = 1_000_000
 SCALE_CHUNK = 200_000
 SCALE_SEED = 42
 # the plain checks at the scale width: this many events of the stream from
-# the state after the first chunk
-SCALE_PREFIX = 1_000
+# the state after the first chunk; FGD's plain table build on the first
+# SCALE_INIT_COLUMNS nodes (it takes ~33 s of host time over all of them)
+SCALE_PREFIX = 500
+SCALE_INIT_COLUMNS = 12_800
+# the clocks phase's split at 100k nodes: the stream's first events
+SCALE_CLOCK_EVENTS = 1_000
 # where auto's choice is measured: both replay kernels alone on the first
 # CROSSOVER_EVENTS events of the stream at each width, for these rows
 CROSSOVER_NODES = (10_000, 30_000, 100_000)
-CROSSOVER_EVENTS = 20_000
+CROSSOVER_EVENTS = 5_000
 CROSSOVER_ROWS = ("06-FGD", "05-BestFit", "08-PWR_500_FGD_500")
 SCALE_PLACED_SHA256 = (
     "1f0be96bf52f89078eccb6314aef76dba3397c69cfdf5eda315de5669c22954d"
@@ -402,8 +430,11 @@ REPLACES = {"init_tables": "tpusim/sim/pallas_engine.py:780",
 # the kernels each residency's replay launches
 RESIDENCY_KERNELS = {"vmem": ("init_tables", "replay"),
                      "hbm": ("init_tables", "replay_blocked")}
-# rows whose replay is checked on ~1k-event random clusters; the other
-# configurations get ~300 events
+# rows whose replay is checked on ~320-event random clusters (of
+# RANDOM_ROW_PODS pods; FGD's three seeds too); the other configurations
+# get ~200 events (OTHER_ROW_PODS pods)
+RANDOM_ROW_PODS = 240
+OTHER_ROW_PODS = 150
 RANDOM_ROWS = ("02-DotProd", "03-GpuClustering", "04-GpuPacking",
                "05-BestFit", "07-PWR", "08-PWR_500_FGD_500")
 # the other mixes of RandomScore, gpu_sel random and Simon the check phase
@@ -418,23 +449,27 @@ MIXES = (
 # a root key for the random cases (the event chain's, PRNGKey(7))
 CHECK_KEY = (0, 7)
 # the rows whose openb replay the check phase also runs through the plain
-# version, beside the kernel: in full the paper's FGD row; Simon, the
-# six-policy profile, FGD/worst (whose whole run FGD_WORST's JAX digests
-# hold) and 01-Random (whose
-# whole key chain the JAX digests and the sweep phase's lanes hold) over
-# the first PLAIN_PREFIX events, the kernel timed again on the same
-# prefix, for their plain versions take 30-160 s of host time each over
-# the whole trace
-PLAIN_ROWS = ("06-FGD",)
-PREFIX_ROWS = ("Simon", "default-profile", "FGD-worst", "01-Random")
-PLAIN_PREFIX = 1_000
+# version, beside the kernel, over the first PREFIX_EVENTS (else
+# PLAIN_PREFIX) events, the kernel timed again on the same prefix: the
+# paper's FGD row, Simon, the six-policy profile, FGD/worst and 01-Random.
+# Their whole runs are held to the JAX digests (METHODS, FGD_WORST; the
+# key chain also by the sweep phase's lanes); their plain versions take
+# 30-160 s of host time each over the whole trace
+PREFIX_ROWS = ("06-FGD", "Simon", "default-profile", "FGD-worst",
+               "01-Random")
+PLAIN_PREFIX = 500
+PREFIX_EVENTS = {"06-FGD": 1_000}
 DIM_EXT = ("merge", "share", "divide", "extend")
 NORM = ("node", "pod", "max")
 # node counts of the wide random blocked cases: 17 blocks (more than the
 # block's 16 warps) and 513 (more than its 512 threads)
 WIDE_BLOCKED = (2100, 65_600)
+# their pods (the five-block cases have 300)
+WIDE_PODS = 150
 SOURCE = "tpusim_torch/kernels/replay.cu"
 LANES_SOURCE = "tpusim_torch/kernels/replay_lanes.cu"
+# the chunk forms of replay and replay_blocked (the ckpt phase's launches)
+CHUNK_SOURCE = "tpusim_torch/kernels/replay_chunks.cu"
 WARM_RUNS = 5  # the paper's FGD row; the other rows take 3
 
 
@@ -1060,17 +1095,18 @@ def against_plain(name: str, args, cfg, plain_on_cpu: bool = False,
                final_errors(ready, got, keep, args[2], args[5], cfg))
 
 
-def shape_errors(label: str, row: str, device) -> dict:
+def shape_errors(label: str, row: str, device, events: int = None) -> dict:
     """Each kernel's largest error against its plain version on the
     SHAPE_CASES case `label` under the method row `row` (init_tables on
-    the case's nodes and on them padded to 128)."""
+    the case's nodes and on them padded to 128), over the case's first
+    `events` events (all of them by default)."""
     from tpusim_torch.parallel.sharding import pad_nodes
     from tpusim_torch.sim import fused_engine as fe
 
     i = [c[0] for c in SHAPE_CASES].index(label)
-    _, ks, kw, t, nodes, num_pods, events = SHAPE_CASES[i]
+    _, ks, kw, t, nodes, num_pods, num_events = SHAPE_CASES[i]
     state, pods, types, evk, evp, tp, rank = typed_case(
-        200 + i, nodes, ks, kw, t, num_pods, device, events)
+        200 + i, nodes, ks, kw, t, num_pods, device, events or num_events)
     cfg = fe.make_config(*[r for r in METHODS if r[0] == row][0][1:5])
     errs = {"init_tables": 0}
     for name, (st, rk) in (("replay", (state, rank)),
@@ -1138,13 +1174,13 @@ def past_limit_errors(label: str, row: str, device) -> dict:
 def check_shapes(device):
     """init_tables and both replay kernels against their plain versions
     (tables; outputs, stats, final tables and summaries; tolerance 0) on
-    the SHAPE_CASES under the SHAPE_ROWS configurations, and past the
-    staged limits (past_limit_errors). Returns the largest error of each
-    kernel."""
+    the SHAPE_CASES under the SHAPE_ROWS configurations, over the first
+    quarter of each case's events, and past the staged limits
+    (past_limit_errors). Returns the largest error of each kernel."""
     worst = dict(init_tables=0, replay=0, replay_blocked=0)
-    for label, *_ in SHAPE_CASES:
+    for label, *_, events in SHAPE_CASES:
         for row in SHAPE_ROWS:
-            errs = shape_errors(label, row, device)
+            errs = shape_errors(label, row, device, events // 4)
             for name, err in errs.items():
                 worst[name] = max(worst[name], err)
             if any(errs.values()):
@@ -1173,16 +1209,17 @@ def check_configs():
     for mid, policies, gpu_sel, dim_ext, norm, *_ in METHODS:
         if mid != "06-FGD":
             out.append((mid, fe.make_config(policies, gpu_sel, dim_ext, norm),
-                        800 if mid in RANDOM_ROWS else 230))
+                        RANDOM_ROW_PODS if mid in RANDOM_ROWS
+                        else OTHER_ROW_PODS))
     for dim_ext in DIM_EXT:
         for norm in NORM:
             if (dim_ext, norm) != ("merge", "max"):
                 out.append((f"DotProd-{dim_ext}-{norm}", fe.make_config(
                     [("DotProductScore", 1000)], "DotProductScore", dim_ext,
-                    norm), 230))
+                    norm), OTHER_ROW_PODS))
     out.append((FGD_WORST[0], fe.make_config(*FGD_WORST[1:5]),
-                230))
-    out += [(label, fe.make_config(policies, gpu_sel), 230)
+                OTHER_ROW_PODS))
+    out += [(label, fe.make_config(policies, gpu_sel), OTHER_ROW_PODS)
             for label, policies, gpu_sel in MIXES]
     return out
 
@@ -1195,7 +1232,8 @@ def check_random(device):
 
     worst = {"init_tables": 0, "replay": 0}
     fgd = [(f"06-FGD seed={seed}", fe.make_config(
-        [("FGDScore", 1000)], "FGDScore" if seed != 3 else "best"), 800)
+        [("FGDScore", 1000)], "FGDScore" if seed != 3 else "best"),
+        RANDOM_ROW_PODS)
         for seed in (1, 2, 3)]
     for i, (label, cfg, num_pods) in enumerate(fgd + check_configs()):
         state, pods, types, evk, evp, tp, rank = random_case(
@@ -1233,10 +1271,10 @@ def check_random_blocked(device) -> int:
     copies of the same inputs, on seeded random clusters: of 600 nodes
     (five 128-node blocks once padded) for every method row's configuration
     and FGD/worst, and for the normalised BestFit and PWR+FGD rows also of
-    WIDE_BLOCKED nodes, where a warp rebuilds several blocks of a summary
-    row and the select and drift loops stride over more blocks than the
-    block has threads. Outputs, stats, final tables and summaries,
-    tolerance 0. Returns the largest error."""
+    WIDE_BLOCKED nodes (WIDE_PODS pods), where a warp rebuilds several
+    blocks of a summary row and the select and drift loops stride over
+    more blocks than the block has threads. Outputs, stats, final tables
+    and summaries, tolerance 0. Returns the largest error."""
     from tpusim_torch.parallel.sharding import pad_nodes
     from tpusim_torch.sim import fused_engine as fe
 
@@ -1248,7 +1286,7 @@ def check_random_blocked(device) -> int:
     for i, (label, nodes) in enumerate(cases):
         cfg = configs[label]
         state, pods, types, evk, evp, tp, rank = random_case(
-            100 + i, nodes, 300, device)
+            100 + i, nodes, 300 if nodes == 600 else WIDE_PODS, device)
         state, rank = pad_nodes(state, rank, 128)
         tables = fe.init_tables(state, types, tp, cfg)
         err = against_plain("replay_blocked", (state, pods, types, evk, evp,
@@ -1366,31 +1404,26 @@ def check_kernels(device, card: str):
         check_digests(f"replay {label}", got, *methods[label][5:7])
         refreshes = placed_refreshes(kinds, pods, got.placed_node)
         prefix = {}
-        if label in PLAIN_ROWS + PREFIX_ROWS:  # beside the plain version
-            keep = {}
-            ek, ep = ((evk, evp) if label in PLAIN_ROWS
-                      else (evk[:PLAIN_PREFIX], evp[:PLAIN_PREFIX]))
-            cmp_ready, cmp_got = ready, got
-            if label in PREFIX_ROWS:
-                cmp_ready = fe.prepare_replay(state, specs, types, ek, ep, tp,
-                                              rank, tables, cfg, key=OPENB_KEY)
-                prefix = dict(prefix_events=PLAIN_PREFIX, prefix_ms=kernel_ms(
-                    cmp_ready, 3, reset_of(cmp_ready, state, tables)))
-                cmp_got = cmp_ready.finish()
+        if label in PREFIX_ROWS:  # beside the plain version
+            keep, m = {}, PREFIX_EVENTS.get(label, PLAIN_PREFIX)
+            ek, ep = evk[:m], evp[:m]
+            cmp_ready = fe.prepare_replay(state, specs, types, ek, ep, tp,
+                                          rank, tables, cfg, key=OPENB_KEY)
+            prefix = dict(prefix_events=m, prefix_ms=kernel_ms(
+                cmp_ready, 3, reset_of(cmp_ready, state, tables)))
+            cmp_got = cmp_ready.finish()
             ms_p, want = wall_ms(lambda: fe.plain_replay(
                 state, specs, types, ek, ep, tp, rank, tables, cfg,
                 keep=keep, key=OPENB_KEY))
-            if label in PLAIN_ROWS:
+            prefix["plain_prefix_ms"] = ms_p
+            if label == "06-FGD":  # the kernels line's plain_ms
                 plain_replay_ms = ms_p
-            else:
-                prefix["plain_prefix_ms"] = ms_p
             err = max(max_abs_err(cmp_got, want),
                       final_errors(cmp_ready, cmp_got, keep, types, tp, cfg))
-            print(f"check openb replay {label} E={ek.shape[0]} P={p}: "
+            print(f"check openb replay {label} E={m} P={p}: "
                   f"max_abs_err={err} with final tables (tolerance 0); plain "
-                  f"{ms_p:.1f} ms" + (f", the kernel on the same prefix "
-                                      f"{prefix['prefix_ms']:.3f} ms"
-                                      if prefix else ""))
+                  f"{ms_p:.1f} ms, the kernel on the same prefix "
+                  f"{prefix['prefix_ms']:.3f} ms")
             if err:
                 bad = (cmp_got.event_node != want.event_node).nonzero()
                 raise SmokeFailure(
@@ -1445,6 +1478,10 @@ def check_kernels(device, card: str):
             "replay": dict(ms=replay_ms, plain_ms=plain_replay_ms,
                            **replay_bound, **prefix),
         }
+        if prefix:
+            measured[label]["replay"]["plain_note"] = (
+                "plain_replay over the first prefix_events events, the "
+                "kernel on the same events prefix_ms")
     return measured, worst
 
 
@@ -1491,31 +1528,26 @@ def check_blocked(device, card: str):
         refreshes = placed_refreshes(kinds, pods, got[0].placed_node)
         plain_ms = None
         prefix = {}
-        if label in PLAIN_ROWS + PREFIX_ROWS:  # beside the plain version
-            keep = {}
-            ek, ep = ((evk, evp) if label in PLAIN_ROWS
-                      else (evk[:PLAIN_PREFIX], evp[:PLAIN_PREFIX]))
-            cmp_ready, cmp_got = ready, got
-            if label in PREFIX_ROWS:
-                cmp_ready, cmp_reset = prepared(cfg, tables, ek, ep)
-                prefix = dict(prefix_events=PLAIN_PREFIX,
-                              prefix_ms=kernel_ms(cmp_ready, 3, cmp_reset))
-                cmp_got = cmp_ready.finish()
+        if label in PREFIX_ROWS:  # beside the plain version
+            keep, m = {}, PREFIX_EVENTS.get(label, PLAIN_PREFIX)
+            ek, ep = evk[:m], evp[:m]
+            cmp_ready, cmp_reset = prepared(cfg, tables, ek, ep)
+            prefix = dict(prefix_events=m,
+                          prefix_ms=kernel_ms(cmp_ready, 3, cmp_reset))
+            cmp_got = cmp_ready.finish()
             ms_p, want = wall_ms(lambda: he.plain_replay_blocked(
                 *to_cpu((state, specs, types, ek, ep, tp, rank, tables)),
                 cfg, keep=keep))
-            if label in PLAIN_ROWS:
+            prefix["plain_prefix_ms"] = ms_p
+            if label == "06-FGD":  # the kernels line's plain_ms
                 plain_ms = ms_p
-            else:
-                prefix["plain_prefix_ms"] = ms_p
             err = max(max_abs_err(to_cpu(cmp_got), want),
                       final_errors(cmp_ready, cmp_got, keep, types, tp, cfg))
-            print(f"check openb replay_blocked {label} E={ek.shape[0]} P={p} "
+            print(f"check openb replay_blocked {label} E={m} P={p} "
                   f"N={n}: max_abs_err={err} with final tables and summaries "
                   f"(tolerance 0, stats {cmp_got[1].tolist()}); plain "
-                  f"{ms_p:.1f} ms on the CPU" + (
-                      f", the kernel on the same prefix "
-                      f"{prefix['prefix_ms']:.3f} ms" if prefix else ""))
+                  f"{ms_p:.1f} ms on the CPU, the kernel on the same prefix "
+                  f"{prefix['prefix_ms']:.3f} ms")
             if err:
                 raise SmokeFailure(f"replay_blocked disagrees with "
                                    f"plain_replay_blocked on openb, {label}")
@@ -1539,9 +1571,11 @@ def check_blocked(device, card: str):
               f"{throughput[1]}), kernel launches alone, on {card}")
         measured[label] = dict(ms=blocked_ms, plain_ms=plain_ms,
                                rebuilds=rebuilds, **bound, **prefix)
-        if plain_ms is not None or prefix:
-            measured[label]["plain_note"] = ("plain_replay_blocked on CPU "
-                                             "copies of the inputs")
+        if prefix:
+            measured[label]["plain_note"] = (
+                "plain_replay_blocked on CPU copies of the inputs over the "
+                "first prefix_events events, the kernel on the same events "
+                "prefix_ms")
     return measured, worst
 
 
@@ -1822,7 +1856,7 @@ def main_path(device, card: str):
 def scale_path(device, card: str, nodes, pods, auto):
     """Phase 7: tpusim_torch.bench_scale's path at 100k nodes, residency
     "auto", the launch counts set to 0 before it and read after it; then
-    the flat replay over the same chunks, each kernel alone on the first
+    the flat replay over the first chunk, each kernel alone on the first
     chunk, the plain checks at this width and the crossover timings.
     Returns (counts, {kernel: its numbers at this scale, "errors": the
     plain checks' largest error of each kernel})."""
@@ -1859,15 +1893,15 @@ def scale_path(device, card: str, nodes, pods, auto):
           f"{wall * 1e3 / SCALE_EVENTS:.3f} us an event, "
           f"{placed / (wall / 1e3):.1f} placements/s on {card}")
 
-    # the flat replay over the same chunks (a comparison: not counted)
+    # the flat replay over the first chunk (a comparison: not counted)
     flat = bs.ScaleRun(nodes, pods, bs.scale_config(SCALE_SEED, "vmem"),
                        device)
     wall_f, (_, results_f, _, _) = wall_ms(
-        lambda: flat.replay(SCALE_CHUNK, SCALE_EVENTS))
-    err = max(max_abs_err(a, b) for a, b in zip(results, results_f))
+        lambda: flat.replay(SCALE_CHUNK, SCALE_CHUNK))
+    err = max_abs_err(results[0], results_f[0])
     print(f"check scale: {flat.sim.last_engine} against replay_blocked over "
-          f"{len(results_f)} chunks: max_abs_err={err} (tolerance 0); wall "
-          f"{wall_f / 1e3:.3f} s, {wall_f * 1e3 / SCALE_EVENTS:.3f} us an "
+          f"the first chunk: max_abs_err={err} (tolerance 0); wall "
+          f"{wall_f / 1e3:.3f} s, {wall_f * 1e3 / SCALE_CHUNK:.3f} us an "
           f"event")
     if err or flat.sim.last_engine != "replay":
         raise SmokeFailure("scale: the flat replay and replay_blocked differ")
@@ -1926,7 +1960,9 @@ def scale_path(device, card: str, nodes, pods, auto):
               f"alone, on {card}")
         out[name] = dict(ms=ms, plain_ms=None, events=e,
                          wall_s=(wall if name == "replay_blocked"
-                                 else wall_f) / 1e3, **bound)
+                                 else wall_f) / 1e3,
+                         wall_events=(SCALE_EVENTS if name == "replay_blocked"
+                                      else SCALE_CHUNK), **bound)
         out[f"init_tables/{name}"] = dict(ms=init_ms, plain_ms=None,
                                           bound_ms=init_bound[0],
                                           bound_by=init_bound[1])
@@ -1939,10 +1975,12 @@ def scale_plain_checks(auto, state, device) -> dict:
     """init_tables and both replay kernels against their plain versions at
     the scale width, from `state` (the node state after the first chunk,
     on the card) over the next SCALE_PREFIX events of the stream: the
-    scale configuration (init_tables and replay_blocked at N = 100,096,
+    scale configuration (init_tables launched at N = 100,096 and held on
+    its first SCALE_INIT_COLUMNS columns, replay_blocked at N = 100,096,
     replay at 100,000) and the normalised 05-BestFit and 08 rows
-    (replay_blocked; init_tables for BestFit, whose plain table build is
-    cheap). The plain versions run on CPU copies of the same inputs; the
+    (replay_blocked; init_tables for BestFit on every column, its plain
+    table build being cheap). The plain versions run on CPU copies of the
+    same inputs; the
     kernels launch past their wrappers. Tables, outputs and stats,
     tolerance 0. Returns the largest error of each kernel."""
     import torch
@@ -1950,6 +1988,7 @@ def scale_plain_checks(auto, state, device) -> dict:
     from tpusim_torch.parallel.sharding import pad_nodes
     from tpusim_torch.sim import fused_engine as fe
     from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.types import NodeState
 
     sim, types, tp, specs = auto.sim, auto.types, auto.sim.typical, auto.specs
     lo, hi = SCALE_CHUNK, SCALE_CHUNK + SCALE_PREFIX
@@ -1958,25 +1997,29 @@ def scale_plain_checks(auto, state, device) -> dict:
     padded, rank_p = pad_nodes(state, sim.rank, 128)
     rows = {row[0]: row for row in METHODS}
     worst = dict(init_tables=0, replay=0, replay_blocked=0)
-    for label, kernels, check_init in (
-            ("06-FGD", ("replay", "replay_blocked"), True),
-            ("05-BestFit", ("replay_blocked",), True),
-            ("08-PWR_500_FGD_500", ("replay_blocked",), False)):
+    for label, kernels, init_cols in (
+            ("06-FGD", ("replay", "replay_blocked"), SCALE_INIT_COLUMNS),
+            ("05-BestFit", ("replay_blocked",), padded.num_nodes),
+            ("08-PWR_500_FGD_500", ("replay_blocked",), 0)):
         cfg = fe.make_config(*rows[label][1:5])
         tables = {}
         for st in (state, padded):
             init = fe.prepare_init_tables(st, types, tp, cfg)
             fe.launch(init)
             tables[st.num_nodes] = init.finish()
-        if check_init:
+        if init_cols:
+            # a table column is a function of its node's row alone
             t0 = time.perf_counter()
-            want = fe.plain_init_tables(*to_cpu((padded, types, tp)), cfg)
+            want = fe.plain_init_tables(*to_cpu((NodeState(*(
+                x[:init_cols] for x in padded)), types, tp)), cfg)
             plain_s = time.perf_counter() - t0
-            err = max_abs_err(to_cpu(tables[padded.num_nodes]), want)
+            err = max_abs_err(to_cpu(tuple(
+                x[..., :init_cols] for x in tables[padded.num_nodes])), want)
             print(f"check scale init_tables {label} [{len(cfg.policies)}x"
                   f"{types.num_types}, {padded.num_nodes}] from the state "
-                  f"after the first chunk: max_abs_err={err} (tolerance 0);"
-                  f" plain {plain_s:.1f} s on the CPU")
+                  f"after the first chunk, its first {init_cols} columns: "
+                  f"max_abs_err={err} (tolerance 0); plain {plain_s:.1f} s "
+                  f"on the CPU")
             worst["init_tables"] = max(worst["init_tables"], err)
         for name in kernels:
             st, rank = ((state, sim.rank) if name == "replay"
@@ -2458,9 +2501,13 @@ def apply_default_profile(device, card: str) -> dict:
 # int32 and of dev_mask as uint8. tests/test_torch_sweep.py pins them
 # against tpusim (slow-marked).
 SWEEP_SEEDS = tuple(range(42, 58))
+# the seeds of the sweep CLI's run (`--seeds 4` takes the first four)
+SWEEP_CLI_SEEDS = SWEEP_SEEDS[:4]
 SWEEP_POLICIES = (("FGDScore", 1000), ("BestFitScore", 500))
 SWEEP_GRID = tuple((1000 - 37 * i, 100 + 60 * i) for i in range(16))
 SWEEP_LANES = (1, 16, 64, 132, 264)
+# the lanes kernels against their plain versions at openb: this many events
+SWEEP_PREFIX = 500
 SEED_SHA256 = {
     43: ("395e8fc46d577f098be8df35c5b9552dc4c78db13c9025a82773425b161c94c2",
          "9440794d38479db4ce797205de08d8f393465501d205dbf103d91f00e0cbcdb3"),
@@ -2679,7 +2726,7 @@ def sweep_plain_checks(device, card):
     keys): replay_lanes under FGD+BestFit and 01-Random (plain on the
     card), replay_blocked_lanes under FGD+BestFit; then at the main path's
     shape, openb (1213 nodes, 1280 padded for the blocked kernel) over its
-    first PLAIN_PREFIX events, 2 lanes: the first and last rows of
+    first SWEEP_PREFIX events, 2 lanes: the first and last rows of
     SWEEP_GRID through both kernels' general instantiation, and 01-Random
     under tuning seeds 42 and 43 (their own keys and ranks) through the
     randomized one. Returns {kernel: its row's numbers}."""
@@ -2738,7 +2785,7 @@ def sweep_plain_checks(device, card):
     # openb: the weight grid's lanes share the rank; the random lanes
     # differ in key and (the second) in rank
     state, specs, types, evk, evp, tp, rank = openb_inputs(device)
-    ek, ep = evk[:PLAIN_PREFIX], evp[:PLAIN_PREFIX]
+    ek, ep = evk[:SWEEP_PREFIX], evp[:SWEEP_PREFIX]
     other = rank[torch.randperm(state.num_nodes,
                                 generator=torch.Generator().manual_seed(43))
                  .to(device)]
@@ -2763,7 +2810,7 @@ def sweep_plain_checks(device, card):
         err, ms, plain_ms, _ = lanes_against_plain(
             name, (st, types, tp, tables), cfg, lanes)
         print(f"check openb lanes {name} {label} N={st.num_nodes} "
-              f"E={PLAIN_PREFIX} B={len(lanes)} (rows "
+              f"E={SWEEP_PREFIX} B={len(lanes)} (rows "
               f"{[tuple(r) for r, _ in rows]}): "
               f"max_abs_err={err} with final states, tables"
               f"{' and summaries' if name == 'replay_blocked_lanes' else ''}"
@@ -2775,7 +2822,7 @@ def sweep_plain_checks(device, card):
                                f"openb under {label}")
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
         out[name].setdefault("openb_prefix", {})[label] = dict(
-            events=PLAIN_PREFIX, lanes=len(lanes), max_abs_err=err, ms=ms,
+            events=SWEEP_PREFIX, lanes=len(lanes), max_abs_err=err, ms=ms,
             plain_ms=plain_ms)
     return out
 
@@ -2934,8 +2981,8 @@ def sweep_times(device, nodes, pods, card):
 
 
 def sweep_cli(device, card):
-    """`python -m tpusim_torch.sweep --methods 06-FGD --seeds 16` (in this
-    process) against the same 16 experiments run one by one
+    """`python -m tpusim_torch.sweep --methods 06-FGD --seeds 4` (in this
+    process) against the same 4 experiments run one by one
     (tpusim_torch.experiment.run_experiment): each directory's simon.log
     and CSVs must agree, and seed 42's must match REPORT_SHA256. Returns
     (the sweep's wall, the standalone experiments' wall), host seconds."""
@@ -2947,7 +2994,7 @@ def sweep_cli(device, card):
     from tpusim_torch import sweep as sweep_cli_mod
 
     with tempfile.TemporaryDirectory() as root:
-        flags = ["--methods", "06-FGD", "--seeds", str(len(SWEEP_SEEDS)),
+        flags = ["--methods", "06-FGD", "--seeds", str(len(SWEEP_CLI_SEEDS)),
                  "--traces", "openb_pod_list_default", "--device",
                  device.type]
         buf = io.StringIO()
@@ -2958,13 +3005,13 @@ def sweep_cli(device, card):
         method = dict((m[0], m) for m in sweep_cli_mod.METHODS)["06-FGD"]
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            for seed in SWEEP_SEEDS:
+            for seed in SWEEP_CLI_SEEDS:
                 argv = sweep_cli_mod.experiment_argv(
                     f"{root}/alone", "openb_pod_list_default", method, 1.3,
                     seed, False, device.type)[0]
                 experiment.run_experiment(experiment.get_args(argv))
         alone = time.perf_counter() - t0
-        for seed in SWEEP_SEEDS:
+        for seed in SWEEP_CLI_SEEDS:
             a, b = (report_digest(f"{root}/{kind}/openb_pod_list_default/"
                                   f"06-FGD/1.3/{seed}")
                     for kind in ("sweep", "alone"))
@@ -2977,8 +3024,8 @@ def sweep_cli(device, card):
                                    f"differ from experiments/run.py's: "
                                    f"{report_digests(f'{root}/sweep/openb_pod_list_default/06-FGD/1.3/42')}")
     print(f"time python -m tpusim_torch.sweep --methods 06-FGD --seeds "
-          f"{len(SWEEP_SEEDS)}: {batched:.2f} s against {alone:.2f} s for "
-          f"the {len(SWEEP_SEEDS)} experiments one by one "
+          f"{len(SWEEP_CLI_SEEDS)}: {batched:.2f} s against {alone:.2f} s "
+          f"for the {len(SWEEP_CLI_SEEDS)} experiments one by one "
           f"({alone / batched:.2f}x), every directory's log and CSVs "
           f"equal, seed 42's match SWEEP_CLI_SHA256 (host clock), on {card}",
           flush=True)
@@ -3014,7 +3061,7 @@ def sweep_path(device, card: str):
         rows[name]["configs"] = configs[name]
     batched, alone = sweep_cli(device, card)
     rows["replay_lanes"]["configs"]["python -m tpusim_torch.sweep"] = dict(
-        methods="06-FGD", seeds=len(SWEEP_SEEDS), wall_s=batched,
+        methods="06-FGD", seeds=len(SWEEP_CLI_SEEDS), wall_s=batched,
         standalone_wall_s=alone)
     return launches, rows
 
@@ -3178,7 +3225,7 @@ CHAOS_APPLY_ARGS = ("-f", APPLY_DEFAULT_CR, "-s", APPLY_SCHEDULER,
 CHAOS_APPLY_SHA256 = (
     "0156298eb8268f41b55bcd75ba30cd8723b4c608d9339156ec733d24bca75643"
 )
-CHAOS_SEEDS = tuple(range(1, 17))
+CHAOS_SEEDS = tuple(range(1, 9))
 
 
 def digest_text(text: str) -> str:
@@ -4029,7 +4076,7 @@ def lane_runs(device, card: str):
 
 
 def chaos_runs(device, card: str):
-    """The chaos sweep at openb: run_sweep(faults=) with 16 lanes of
+    """The chaos sweep at openb: run_sweep(faults=) with 8 lanes of
     FAULT_FLAGS under fault seeds CHAOS_SEEDS (06-FGD, reports off,
     residency auto: init_tables and replay_lanes_faults once each), each
     lane equal to its standalone lane run (run_with_faults, fault_mode
@@ -4453,7 +4500,7 @@ def seq_full(device, card: str, nodes, pods) -> dict:
                 equals_kernel_digests=kernels_equal, launches=counts)
 
 
-def seq_device_busy(sim, events: int = 300) -> dict:
+def seq_device_busy(sim, events: int = 60) -> dict:
     """The card's busy share under the oracle: its kernels' device time
     (torch.profiler, CUDA activity) over the wall of a run_events over the
     first `events` events of the Simulator's prepared trace, both under the
@@ -4656,8 +4703,406 @@ def seq_path(device, card: str):
     return {"seq 06-FGD": full["launches"]}, out
 
 
+# The ckpt phase (12): chunked replay through the chunk surface at openb,
+# a checkpoint every CKPT_EVERY events (11 chunks of the 10,811 events)
+CKPT_EVERY = 1000
+CKPT_ROWS = (("06-FGD", "auto"), ("06-FGD", "hbm"), ("01-Random", "auto"))
+# the child run is killed once its checkpoint at this event is on disk
+CKPT_KILL_AT = 4000
+# how long the child waits there to be killed before it gives up
+CKPT_CHILD_WAIT = 300
+# the fork: schedule_pods_fork of the prepared openb 06-FGD trace at this
+# event with tests/test_fork.py's tail (delete pods 0 and 3, create pod 0
+# again; EV_DELETE = 1, EV_CREATE = 0)
+CKPT_FORK_EVENT = 5000
+FORK_TAIL = ((1, 1, 0), (0, 3, 0))
+# sha256 of placed_node (int32) and dev_mask (uint8) of the JAX package's
+# replay of the spliced stream (base[:5000] + the tail, 5,003 events) from
+# PRNGKey(42) (Simulator.run_events, table engine, CPU).
+# tests/test_torch_fork.py pins them against tpusim (slow-marked).
+FORK_SHA256 = (
+    "dfed3a57522bc26bffac7949824448260ccff55fc7750e581ac83622013fa8f4",
+    "b489e188779f237b32d54a80c3dbafe64f41276fcf553adede78a41b566455d8",
+)
+
+
+def nonzero(counts: dict) -> dict:
+    """The launch counts of the kernels a run launched."""
+    return {name: c for name, c in counts.items() if c}
+
+
+def check_result_digests(where: str, res, placed_sha: str,
+                         mask_sha: str) -> None:
+    """A SimulateResult's placements and device masks (numpy) against the
+    JAX package's digests of the same run."""
+    got = (digest(res.placed_node, np.int32), digest(res.dev_mask, np.uint8))
+    if got != (placed_sha, mask_sha):
+        raise SmokeFailure(f"{where}: differs from the JAX reference: "
+                           f"placed sha256 {got[0]} dev_mask sha256 {got[1]}")
+
+
+def ckpt_sim(mid: str, setting: str, device, nodes, pods, **knobs):
+    """A Simulator of METHODS row `mid` on openb with table_residency
+    `setting` and the given SimulatorConfig knobs (checkpoint_every,
+    checkpoint_dir, ...), its workload set."""
+    import dataclasses
+
+    from tpusim_torch.__main__ import method_config
+    from tpusim_torch.sim.driver import Simulator
+
+    row = next(r for r in METHODS if r[0] == mid)
+    cfg = dataclasses.replace(method_config(*row[1:5]),
+                              table_residency=setting, **knobs)
+    sim = Simulator(nodes, cfg, device=device)
+    sim.set_workload_pods(pods)
+    return sim
+
+
+def ckpt_check_run(label: str, sim, res, mid: str, counts: dict,
+                   tier: str, chunks: int) -> None:
+    """A chunked run launched init_tables and its residency's replay once a
+    chunk and the other replay kernel not, and its placements, masks, log
+    (without [Engine] and [Checkpoint] lines) and CSVs match the JAX
+    digests of the row."""
+    row = next(r for r in METHODS if r[0] == mid)
+    want = dict.fromkeys(RESIDENCY_KERNELS[tier], chunks)
+    if nonzero(counts) != want or sim.last_chunks != chunks:
+        raise SmokeFailure(f"{label}: launches {counts}, chunks "
+                           f"{sim.last_chunks}; want {want}")
+    check_result_digests(label, res, row[5], row[6])
+    sim.log.lines = [line for line in sim.log.lines
+                     if "[Checkpoint]" not in line]
+    check_report(label, sim, mid, row_meta(*row[1:4]))
+
+
+def ckpt_child(ckdir: str) -> int:
+    """The child run of the kill-and-resume check (--ckpt-child): openb
+    06-FGD chunked into ckdir, stopped once its checkpoint at CKPT_KILL_AT
+    is written, to be killed there by the phase."""
+    import tpusim_torch.io.storage as storage
+
+    real = storage.save_checkpoint
+
+    def save(cache_dir, digest_, cursor, arrays):
+        path = real(cache_dir, digest_, cursor, arrays)
+        if cursor >= CKPT_KILL_AT:
+            print(f"ckpt child: checkpoint at event {cursor} written, "
+                  "waiting to be killed", flush=True)
+            time.sleep(CKPT_CHILD_WAIT)
+        return path
+
+    storage.save_checkpoint = save
+    nodes, pods = openb_rows_port()
+    t0 = time.perf_counter()
+    sim = ckpt_sim("06-FGD", "auto", "cuda", nodes, pods,
+                   checkpoint_every=CKPT_EVERY, checkpoint_dir=ckdir)
+    print(f"ckpt child: set up in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    sim.run()
+    print("ckpt child: ran to the end without being killed", flush=True)
+    return 1
+
+
+def ckpt_chunks(device, card: str, nodes, pods, root: str, launches: dict):
+    """The chunked runs of CKPT_ROWS through Simulator.run(), then the warm
+    walls chunked and not, and the cost of one chunk boundary."""
+    import torch
+
+    from tpusim_torch.io import storage
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.ops.prng import prng_key
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import table_engine as te
+
+    out = {}
+    chunks = -(-OPENB_EVENTS // CKPT_EVERY)
+    for mid, setting in CKPT_ROWS:
+        label = f"ckpt {mid}" + ("/hbm" if setting == "hbm" else "")
+        tier = "hbm" if setting == "hbm" and mid not in RANDOMIZED_ROWS \
+            else "vmem"
+        ckdir = os.path.join(root, label.replace(" ", "_").replace("/", "_"))
+        sim = ckpt_sim(mid, setting, device, nodes, pods,
+                       checkpoint_every=CKPT_EVERY, checkpoint_dir=ckdir)
+        fe.reset_launch_counts()
+        run_ms, res = wall_ms(sim.run)
+        counts = run_counts()
+        launches[label] = counts
+        ckpt_check_run(label, sim, res, mid, counts, tier, chunks)
+        counts = nonzero(counts)
+        if os.listdir(ckdir):
+            raise SmokeFailure(f"{label}: checkpoints left after the run: "
+                               f"{os.listdir(ckdir)}")
+        trace = sim.prepare_pods()
+        specs = pods_to_specs(trace, sim.node_index, device)
+        evk, evp = build_events(trace)
+        walls, splits = {}, []
+        for every in (CKPT_EVERY, 0):
+            sim.cfg.checkpoint_every = every
+            walls[every] = []
+            for _ in range(3):
+                walls[every].append(wall_ms(lambda: sim.run_events(
+                    sim.init_state, specs, evk, evp))[0])
+                if every:
+                    splits.append(sim.last_chunk_times)
+        sim.cfg.checkpoint_every = CKPT_EVERY
+        split = splits[int(np.argmin(walls[CKPT_EVERY]))]
+        out[label] = dict(run_ms=run_ms, replay_ms=sim.replay_times[0][
+            "replay_ms"], chunked_ms=min(walls[CKPT_EVERY]),
+            unchunked_ms=min(walls[0]), kernel=sim.last_engine,
+            chunked_split=split)
+        print(f"{label}: {chunks} chunks of {CKPT_EVERY} events, "
+              f"launches {counts}, digests, log and CSVs match the JAX "
+              f"reference; run() {run_ms:.1f} ms (its replay "
+              f"{out[label]['replay_ms']:.2f} ms); warm replay wall chunked "
+              f"{out[label]['chunked_ms']:.2f} ms (min of 3: "
+              f"{', '.join(f'{w:.2f}' for w in walls[CKPT_EVERY])}) against "
+              f"one launch {out[label]['unchunked_ms']:.2f} ms (min of 3: "
+              f"{', '.join(f'{w:.2f}' for w in walls[0])}); the fastest "
+              f"chunked run's host split: run digest "
+              f"{split['digest_ms']:.2f} ms, chunk dispatch "
+              f"{split['dispatch_ms']:.2f} ms, fetches (each waiting for its "
+              f"chunk) {split['fetch_ms']:.2f} ms, checkpoint writes (each "
+              f"while the next chunk runs) {split['write_ms']:.2f} ms on "
+              f"{card}")
+        if label != "ckpt 06-FGD":
+            continue
+        # one chunk boundary's parts, on the carry after the first chunk
+        fn = sim._table_replay()
+        types = te.build_pod_types(specs)
+        evk_t = torch.as_tensor(evk, device=device)
+        evp_t = torch.as_tensor(evp, device=device)
+        carry = fn.init_carry(sim.init_state, specs, types, sim.typical,
+                              prng_key(sim.cfg.seed), sim.rank)
+        carry, (nseg, dseg) = fn.run_chunk(
+            carry, specs, types, evk_t[:CKPT_EVERY], evp_t[:CKPT_EVERY],
+            sim.typical, sim.rank)
+        torch.cuda.synchronize()
+        init_ms = kernel_ms(fe.prepare_init_tables(
+            carry.state, types, sim.typical, sim._replay.config), 20)
+        fetch = sorted(wall_ms(lambda: te.carry_arrays(
+            carry, {"n": nseg, "d": dseg}))[0] for _ in range(5))
+        arrays = te.carry_arrays(carry, {"event_node": nseg,
+                                         "event_dev": dseg})
+        writes = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            path = storage.save_checkpoint(os.path.join(root, "cost"),
+                                           "c" * 64, CKPT_EVERY + i, arrays)
+            writes.append((time.perf_counter() - t0) * 1e3)
+        size = os.path.getsize(path)
+        out["segment"] = dict(init_tables_ms=init_ms,
+                              fetch_ms=float(np.median(fetch)),
+                              write_ms=float(np.median(writes)),
+                              file_bytes=size)
+        print(f"ckpt segment: init_tables {init_ms:.4f} ms (CUDA events, "
+              f"median of 20), carry and chunk telemetry fetch "
+              f"{np.median(fetch):.3f} ms, checkpoint write "
+              f"{np.median(writes):.3f} ms of {size} bytes (host clock, "
+              f"median of 5, warm page cache) on {card}")
+    return out
+
+
+def ckpt_kill_resume(device, card: str, nodes, pods, root: str,
+                     launches: dict) -> dict:
+    """The 06-FGD chunked run in a child process, killed with SIGKILL once
+    its checkpoint at CKPT_KILL_AT is on disk, then run again here: it
+    must resume there and match the digests."""
+    import signal
+
+    from tpusim_torch.sim import fused_engine as fe
+
+    ckdir = os.path.join(root, "kill")
+    os.makedirs(ckdir, exist_ok=True)
+    mark = f".e{CKPT_KILL_AT:010d}.ckpt.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ckpt-child", ckdir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        while not any(f.endswith(mark) for f in os.listdir(ckdir)):
+            if proc.poll() is not None:
+                raise SmokeFailure(f"ckpt child exited ({proc.returncode}) "
+                                   f"before its checkpoint at event "
+                                   f"{CKPT_KILL_AT}:\n{proc.stdout.read()}")
+            if time.perf_counter() - t0 > 240:
+                raise SmokeFailure("ckpt child: no checkpoint at event "
+                                   f"{CKPT_KILL_AT} within 240 s")
+            time.sleep(0.02)
+        t_seen = time.perf_counter() - t0
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    child_out = proc.stdout.read()
+    if proc.returncode != -signal.SIGKILL:
+        raise SmokeFailure(f"ckpt child ended with {proc.returncode}, not "
+                           f"by SIGKILL:\n{child_out}")
+    left = sorted(os.listdir(ckdir))
+    sim = ckpt_sim("06-FGD", "auto", device, nodes, pods,
+                   checkpoint_every=CKPT_EVERY, checkpoint_dir=ckdir)
+    fe.reset_launch_counts()
+    run_ms, res = wall_ms(sim.run)
+    counts = run_counts()
+    launches["ckpt resume 06-FGD"] = counts
+    resumed = [line for line in sim.log.lines if "[Checkpoint]" in line]
+    if not any(f"resumed replay at event {CKPT_KILL_AT}/{OPENB_EVENTS}"
+               in line for line in resumed):
+        raise SmokeFailure(f"ckpt resume: no resume at event "
+                           f"{CKPT_KILL_AT}: {resumed}")
+    ckpt_check_run("ckpt resume 06-FGD", sim, res, "06-FGD", counts, "vmem",
+                   -(-(OPENB_EVENTS - CKPT_KILL_AT) // CKPT_EVERY))
+    counts = nonzero(counts)
+    out = dict(child_s=t_seen, files_at_kill=len(left), run_ms=run_ms,
+               replay_ms=sim.replay_times[0]["replay_ms"])
+    print(f"ckpt kill/resume: the child ({child_out.strip().splitlines()[0]}"
+          f") killed with SIGKILL {t_seen:.2f} s after its start, once its "
+          f"checkpoint at event {CKPT_KILL_AT} was on disk ({len(left)} "
+          f"files); the run again resumed there: launches {counts}, "
+          f"digests, log and CSVs match the JAX reference; run() "
+          f"{run_ms:.1f} ms, its replay {out['replay_ms']:.2f} ms on {card}")
+    return out
+
+
+def ckpt_fork(device, card: str, nodes, pods, root: str,
+              launches: dict) -> dict:
+    """The base run with every checkpoint kept, then schedule_pods_fork at
+    CKPT_FORK_EVENT with FORK_TAIL, warm (from the base's ladder) and cold
+    (an empty directory), held to FORK_SHA256; beside them a one-launch
+    replay of the spliced stream."""
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.sim import fused_engine as fe
+
+    def sim_in(d):
+        sim = ckpt_sim("06-FGD", "auto", device, nodes, pods,
+                       checkpoint_every=CKPT_EVERY, checkpoint_keep=-1,
+                       checkpoint_dir=os.path.join(root, d),
+                       report_per_event=False)
+        sim.set_typical_pods()
+        return sim, sim.prepare_pods()
+
+    base, trace = sim_in("fork")
+    base_ms, _ = wall_ms(lambda: base.schedule_pods(trace))
+    rungs = len(os.listdir(os.path.join(root, "fork")))
+    out = dict(base_ms=base_ms, rungs=rungs)
+    for mode in ("warm", "cold"):
+        sim, trace = sim_in("fork" if mode == "warm" else "fork-cold")
+        fe.reset_launch_counts()
+        ms, res = wall_ms(lambda: sim.schedule_pods_fork(
+            trace, CKPT_FORK_EVENT, *FORK_TAIL))
+        counts = run_counts()
+        launches[f"ckpt fork {mode}"] = counts
+        check_result_digests(f"ckpt fork {mode}", res, *FORK_SHA256)
+        stats = sim.last_fork
+        want_cursor = CKPT_FORK_EVENT if mode == "warm" else 0
+        if stats["source_cursor"] != want_cursor or \
+                stats["degrade"] != (mode == "cold"):
+            raise SmokeFailure(f"ckpt fork {mode}: {stats}")
+        out[mode] = dict(ms=ms, events_executed=stats["events_executed"],
+                         events_total=stats["events_total"],
+                         launches=nonzero(counts))
+    specs = pods_to_specs(trace, sim.node_index, device)
+    evk, evp = build_events(trace)
+    evk = np.concatenate([evk[:CKPT_FORK_EVENT], FORK_TAIL[0]])
+    evp = np.concatenate([evp[:CKPT_FORK_EVENT], FORK_TAIL[1]])
+    sim.cfg.checkpoint_every = 0
+    plain = [wall_ms(lambda: sim.run_events(sim.init_state, specs, evk,
+                                            evp))[0] for _ in range(3)]
+    out["spliced_replay_ms"] = min(plain)
+    print(f"ckpt fork: base run {base_ms:.1f} ms ({rungs} checkpoints kept); "
+          f"fork at event {CKPT_FORK_EVENT} with the tail {FORK_TAIL}: warm "
+          f"from the base's checkpoint at {CKPT_FORK_EVENT}, "
+          f"{out['warm']['events_executed']} of "
+          f"{out['warm']['events_total']} events executed, launches "
+          f"{out['warm']['launches']}, {out['warm']['ms']:.2f} ms; cold "
+          f"(no source: a full chunked replay) "
+          f"{out['cold']['events_executed']} events, "
+          f"{out['cold']['ms']:.2f} ms; one-launch replay of the spliced "
+          f"stream {min(plain):.2f} ms (min of 3); both forks match "
+          f"FORK_SHA256 on {card}")
+    return out
+
+
+def ckpt_table_cache(device, card: str, nodes, pods, root: str,
+                     launches: dict) -> dict:
+    """The table cache at openb: a miss (init_tables launched, the tables
+    saved), then a hit (no init_tables launch), both replays held to the
+    06-FGD digests; the hit's load timed against init_tables' launch."""
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.table_engine import build_pod_types
+
+    sim = ckpt_sim("06-FGD", "auto", device, nodes, pods,
+                   report_per_event=False,
+                   table_cache_dir=os.path.join(root, "tables"))
+    sim.set_typical_pods()
+    trace = sim.prepare_pods()
+    specs = pods_to_specs(trace, sim.node_index, device)
+    evk, evp = build_events(trace)
+    row = next(r for r in METHODS if r[0] == "06-FGD")
+    out = {}
+    for outcome in ("miss", "hit"):
+        fe.reset_launch_counts()
+        ms, res = wall_ms(lambda: sim.run_events(sim.init_state, specs, evk,
+                                                 evp))
+        counts = run_counts()
+        launches[f"ckpt table cache {outcome}"] = counts
+        check_digests(f"ckpt table cache {outcome}", res, row[5], row[6])
+        want = {"init_tables": int(outcome == "miss"), "replay": 1}
+        if sim.last_table_cache != outcome or \
+                nonzero(counts) != nonzero(want):
+            raise SmokeFailure(f"ckpt table cache {outcome}: "
+                               f"{sim.last_table_cache}, launches {counts}")
+        out[f"{outcome}_replay_ms"] = ms
+    types = build_pod_types(specs)
+    loads = sorted(wall_ms(lambda: sim._cached_tables(
+        sim.init_state, types))[0] for _ in range(5))
+    init_ms = kernel_ms(fe.prepare_init_tables(
+        sim.init_state, types, sim.typical, sim._replay.config), 20)
+    out.update(hit_load_ms=float(np.median(loads)), init_tables_ms=init_ms)
+    print(f"ckpt table cache: miss (init_tables launched, tables saved) "
+          f"replay wall {out['miss_replay_ms']:.2f} ms, hit (no init_tables "
+          f"launch) {out['hit_replay_ms']:.2f} ms, both match the JAX "
+          f"digests; a hit's load {np.median(loads):.3f} ms (host clock, "
+          f"median of 5, warm page cache) against init_tables' launch "
+          f"{init_ms:.4f} ms (CUDA events, median of 20) on {card}")
+    return out
+
+
+def ckpt_path(device, card: str):
+    """Phase 12: chunked replay, kill and resume, forks and the table
+    cache at openb (module docstring). Returns ({run label: launch
+    counts}, the phase's numbers), which chiprun_out/ckpt_phase.json
+    keeps."""
+    import shutil
+    import tempfile
+
+    nodes, pods = openb_rows_port()
+    root = tempfile.mkdtemp(prefix="tpusim_ckpt_")
+    launches = {}
+    t0 = time.perf_counter()
+    try:
+        out = dict(card=card,
+                   chunks=ckpt_chunks(device, card, nodes, pods, root,
+                                      launches),
+                   kill_resume=ckpt_kill_resume(device, card, nodes, pods,
+                                                root, launches),
+                   fork=ckpt_fork(device, card, nodes, pods, root, launches),
+                   table_cache=ckpt_table_cache(device, card, nodes, pods,
+                                                root, launches))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    out["launches"] = launches
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "ckpt_phase.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return launches, out
+
+
 PHASES = ("check", "clocks", "main", "apply", "scale", "sweep", "evict",
-          "lane", "seq")
+          "lane", "seq", "ckpt")
 
 
 def scale_inputs(device):
@@ -4677,12 +5122,12 @@ def scale_inputs(device):
 
 
 def scale_clocks(auto, device, card: str):
-    """The phase split of both replay kernels on the first SCALE_PREFIX
+    """The phase split of both replay kernels on the first SCALE_CLOCK_EVENTS
     events of the scale stream, from the cluster's initial state."""
     import torch
 
-    evk = torch.as_tensor(auto.ev_kind[:SCALE_PREFIX], device=device)
-    evp = torch.as_tensor(auto.ev_pod[:SCALE_PREFIX], device=device)
+    evk = torch.as_tensor(auto.ev_kind[:SCALE_CLOCK_EVENTS], device=device)
+    evp = torch.as_tensor(auto.ev_pod[:SCALE_CLOCK_EVENTS], device=device)
     return phase_clocks(device, card, (
         auto.sim.init_state, auto.specs, auto.types, evk, evp,
         auto.sim.typical, auto.sim.rank), f"scale-{SCALE_NODES}",
@@ -4883,6 +5328,7 @@ def main(argv=None) -> int:
                     help="time the kernels of these checkouts in turns, in "
                     "this order, instead of the phases")
     ap.add_argument("--ab-turn", metavar="TREE", help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = set(args.only or PHASES)
     if args.ab_turn:
@@ -4904,6 +5350,8 @@ def main(argv=None) -> int:
         return 1
     if args.ab:
         return ab_main(args.ab)
+    if args.ckpt_child:
+        return ckpt_child(args.ckpt_child)
     if args.ab_turn:
         try:
             print(json.dumps(ab_turn(args.ab_turn)))
@@ -4922,19 +5370,17 @@ def main(argv=None) -> int:
               f"cuda {torch.version.cuda}")
 
         t0 = time.perf_counter()
-        infos = kernels.build_all(tuple(kernels.VARIANTS))
-        print(f"build: {len(infos)} variants, an nvcc a source and variant, "
-              f"in parallel, then a link each: "
-              f"{time.perf_counter() - t0:.1f} s")
-        for variant, info in infos.items():
-            print(f"build [{variant or 'main'}]: {info.seconds:.1f} s -> "
-                  f"{info.path}")
-            for line in info.log.splitlines():
-                if "registers" in line or "spill" in line or \
-                        "Function" in line:
-                    print(f"ptxas [{variant or 'main'}]: {line.strip()}")
+        infos = kernels.build_all(("",))
+        print(f"build: the main library, an nvcc a source, in parallel, then "
+              f"a link: {time.perf_counter() - t0:.1f} s")
+        print_builds(infos)
+        # the other variants (the clocks phase's) build while the check
+        # phase runs; nothing launches them before they are waited for
+        others = concurrent.futures.ThreadPoolExecutor(1).submit(
+            kernels.build_all, tuple(v for v in kernels.VARIANTS if v))
         print(f"kernels: {', '.join(kernels.KERNELS)} "
-              f"(route cuda, {SOURCE}, the lanes {LANES_SOURCE}); fault "
+              f"(route cuda, {SOURCE}, the lanes {LANES_SOURCE}, the chunk "
+              f"forms of replay and replay_blocked {CHUNK_SOURCE}); fault "
               f"forms {', '.join(kernels.FAULT_KERNELS)} "
               f"({', '.join(sorted(set(FAULT_SOURCES.values())))})")
         kernels.library()
@@ -4954,6 +5400,7 @@ def main(argv=None) -> int:
             worst["replay_blocked"] = max(worst["replay_blocked"], err)
             errors.update(worst)
             print(f"phase check done at {time.perf_counter() - t0:.1f} s")
+        print_builds(others.result())
         if "clocks" in phases:
             clocks += phase_clocks(device, card, openb_inputs(device),
                                    "openb", CLOCK_ROWS,
@@ -4997,6 +5444,10 @@ def main(argv=None) -> int:
             counts, _ = seq_path(device, card)
             launches.update(counts)
             print(f"phase seq done at {time.perf_counter() - t0:.1f} s")
+        if "ckpt" in phases:
+            counts, _ = ckpt_path(device, card)
+            launches.update(counts)
+            print(f"phase ckpt done at {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -5016,6 +5467,16 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def print_builds(infos: dict) -> None:
+    """Each built library variant's build time, path and ptxas report."""
+    for variant, info in infos.items():
+        print(f"build [{variant or 'main'}]: {info.seconds:.1f} s -> "
+              f"{info.path}")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line or "Function" in line:
+                print(f"ptxas [{variant or 'main'}]: {line.strip()}")
 
 
 def kernel_rows(names, measured, blocked, launches, scale, errors):
@@ -5041,6 +5502,11 @@ def kernel_rows(names, measured, blocked, launches, scale, errors):
             max_abs_err=errors[name], library_ms=None,
             **measured["06-FGD"][name], configs=configs,
         ))
+        if name in ("replay", "replay_blocked"):
+            # the ckpt phase's launches are those of the chunk forms
+            rows[-1].update(chunk_source=CHUNK_SOURCE, chunk_launches=sum(
+                c.get(name, 0) for label, c in launches.items()
+                if label.startswith("ckpt")))
     return rows
 
 

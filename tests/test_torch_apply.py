@@ -677,12 +677,15 @@ def test_refused_options_raise(flag):
 
 @pytest.mark.parametrize("case", ["engine", "sequential-runs", "mesh",
                                   "extenders-runs", "kubeconfig"])
-def test_refused_configs_raise(tmp_path, case):
-    """The CR and scheduler-config settings the port cannot run raise
+def test_refused_configs_raise(tmp_path, monkeypatch, case):
+    """The CR settings the port cannot run (a mesh) raise
     NotImplementedError naming the ROADMAP item, through the CLI. The
-    sequential engine and a scheduler config with extenders, which the
-    port runs since its sequential slice, give `python -m tpusim apply`'s
-    standard output instead (but for [Engine] lines)."""
+    sequential engine and a scheduler config with extenders (which the port
+    runs since its sequential slice) and the table engine (since its
+    checkpoint slice) give `python -m tpusim apply`'s standard output
+    instead (but for [Engine] lines); a kubeconfig credential file goes
+    through the kube-client loader, which fails on an unreachable server
+    as tpusim's does."""
     from tests.test_torch_extender import (
         extender_scheduler_config,
         stub_extender,
@@ -697,14 +700,23 @@ def test_refused_configs_raise(tmp_path, case):
         kc = tmp_path / "kubeconfig"
         kc.write_text(yaml.safe_dump({
             "apiVersion": "v1", "kind": "Config",
-            "clusters": [{"name": "c", "cluster": {"server": "https://x"}}]}))
+            "clusters": [{"name": "c",
+                          "cluster": {"server": "http://127.0.0.1:1"}}]}))
         cluster = {"kubeConfig": str(kc)}
     cr = tmp_path / "cr.yaml"
     cr.write_text(yaml.safe_dump({
         "apiVersion": "simon/v1alpha1", "kind": "Config",
         "spec": {"cluster": cluster, "customConfig": custom}}))
     sc = SCHEDULERS["fgd"]
-    if case.endswith("-runs"):
+    if case == "kubeconfig":
+        from tpusim_torch.io.kube_client import KubeClientError
+
+        monkeypatch.setenv("TPUSIM_HTTP_RETRIES", "1")
+        with pytest.raises(KubeClientError, match="cannot reach"):
+            pcli.main(["apply", "-f", str(cr), "-s", str(sc), "--device",
+                       "cpu"])
+        return
+    if case.endswith("-runs") or case == "engine":
         with stub_extender() as url:
             if case == "extenders-runs":
                 sc = extender_scheduler_config(tmp_path / "sc.yaml", url)

@@ -687,3 +687,109 @@ def test_oracle_on_card_matches_cpu(cuda_device):
             assert torch.equal(getattr(got, name).cpu(),
                                getattr(want, name)), (row[0], name)
         _assert_equal(got.state, want.state)
+
+
+# configurations whose chunked replay the key-out tests hold: 01-Random
+# and gpu_sel random (the randomized instantiation, flat), and the key
+# alone (key_out) through FGD flat and blocked and BestFit blocked
+CHUNK_CASES = (
+    ("01-Random", [("RandomScore", 1000)], "random", -1),
+    ("FGD-random", [("FGDScore", 1000)], "random", -1),
+    ("06-FGD", [("FGDScore", 1000)], "FGDScore", -1),
+    ("06-FGD/hbm", [("FGDScore", 1000)], "FGDScore", 128),
+    ("05-BestFit/hbm", [("BestFitScore", 1000)], "best", 128),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,policies,gpu_sel,block", CHUNK_CASES,
+                         ids=[c[0] for c in CHUNK_CASES])
+def test_chunk_key_out_matches_plain(cuda_device, label, policies, gpu_sel,
+                                     block):
+    """The chunk surface on the card (init_tables, then replay or
+    replay_blocked from the carry, writing the chain's key after the
+    chunk's last event) against its plain versions on the CPU, on a seeded
+    256-node cluster cut into three chunks: the carry after each chunk
+    (the key included) and the final outputs; and the chunked run on the
+    card equals one launch over the whole stream."""
+    from tpusim_torch.sim import table_engine as te
+
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        state, pods, types, evk, evp, tp, rank = random_case(43, 256, 300,
+                                                             dev)
+        fn = te.make_table_replay(policies, gpu_sel, block)
+        e = int(evk.shape[0])
+        carry = fn.init_carry(state, pods, types, tp, (0, 11), rank)
+        carries, nodes = [], []
+        for a, b in ((0, e // 3), (e // 3, e // 2), (e // 2, e)):
+            carry, (n, _) = fn.run_chunk(carry, pods, types, evk[a:b],
+                                         evp[a:b], tp, rank)
+            carries.append(te.carry_arrays(carry))
+            nodes.append(n.cpu())
+        whole = fn(state, pods, types, evk, evp, tp, (0, 11), rank)
+        runs.append((carries, torch.cat(nodes), whole))
+    (gpu, gpu_nodes, gpu_whole), (cpu, cpu_nodes, _) = runs
+    for g, c in zip(gpu, cpu):
+        assert g.keys() == c.keys()
+        for name in g:
+            assert np.array_equal(g[name], c[name]), (label, name)
+    assert torch.equal(gpu_nodes, cpu_nodes)
+    assert torch.equal(gpu_whole.event_node.cpu(), gpu_nodes)
+    assert np.array_equal(gpu_whole.placed_node.cpu().numpy(),
+                          gpu[-1]["placed"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residency", ["auto", "hbm"])
+def test_chunked_run_on_card_matches_unchunked(cuda_device, tmp_path,
+                                               residency):
+    """run() with checkpoint_every on a 400-pod openb prefix on the card
+    equals the one-launch run and the chunked run on the CPU: log without
+    [Engine], result; a chunk is one init_tables and one replay launch; a
+    run killed after its second checkpoint resumes on the card."""
+    import tpusim_torch.io.storage as storage
+
+    nodes, pods = _openb_cut()
+    runs = []
+    for device, every in (("cuda", 0), ("cuda", 60), ("cpu", 60)):
+        sim = Simulator(nodes, SimulatorConfig(
+            table_residency=residency, checkpoint_every=every,
+            checkpoint_dir=str(tmp_path / device)), device=device)
+        sim.set_workload_pods(pods)
+        fe.reset_launch_counts()
+        sim.run()
+        if device == "cuda" and every:
+            kernel = he.replay_blocked if residency == "hbm" else fe.replay
+            assert kernel.launches == fe.init_tables.launches == 7
+        runs.append((sim.last_result, [line for line in sim.log.lines
+                                       if "[Engine]" not in line]))
+    for res, log in runs[1:]:
+        assert log == runs[0][1]
+        _same_result(res, runs[0][0])
+
+    real = storage.save_checkpoint
+    saves = []
+
+    def killing_save(*a, **k):
+        saves.append(real(*a, **k))
+        if len(saves) == 2:
+            raise KeyboardInterrupt("simulated preemption")
+        return saves[-1]
+
+    cfg = SimulatorConfig(table_residency=residency, checkpoint_every=60,
+                          checkpoint_dir=str(tmp_path / "kill"))
+    storage.save_checkpoint = killing_save
+    try:
+        sim = Simulator(nodes, cfg, device="cuda")
+        sim.set_workload_pods(pods)
+        with pytest.raises(KeyboardInterrupt):
+            sim.run()
+    finally:
+        storage.save_checkpoint = real
+    sim = Simulator(nodes, cfg, device="cuda")
+    sim.set_workload_pods(pods)
+    sim.run()
+    assert any("resumed replay at event 120/400" in line
+               for line in sim.log.lines)
+    _same_result(sim.last_result, runs[0][0])

@@ -292,12 +292,12 @@ def test_cli_deschedule_flags_match_run_py(tmp_path, capsys, extra):
                                         ("--mesh", "2")],
                          ids=["table", "sequential-runs", "mesh"])
 def test_engine_and_mesh_flags_raise(tmp_path, capsys, flag, value):
-    """--engine table and --mesh above 1 raise NotImplementedError naming
-    their ROADMAP item; auto, pallas and mesh 0 are accepted. --engine
-    sequential, which the port runs since its sequential slice, runs the
-    descheduling experiment on a 60-node, 200-pod cut and equals
+    """--mesh above 1 raises NotImplementedError naming its ROADMAP item;
+    auto, pallas and mesh 0 are accepted. --engine sequential and --engine
+    table, which the port runs since its sequential and checkpoint slices,
+    run the descheduling experiment on a 60-node, 200-pod cut and equal
     experiments/run.py's directory, byte for byte."""
-    if value == "sequential":
+    if value in ("sequential", "table"):
         nodes, pods = _cut(tmp_path)
         outs = {}
         for who in ("port", "jax"):

@@ -11,9 +11,10 @@ experiment's log and analysis CSVs.
         [--pod-increase-step N] [--gpu-res-weight W]
         [-f POD_TRACE] [--node-trace NODE_CSV] [--use-timestamps]
         [--no-per-event-report] [--emit-configs] [--analysis-from-log]
-        [--engine auto|pallas|sequential] [--mesh 0]
+        [--engine auto|table|pallas|sequential] [--mesh 0]
         [-d EXPERIMENT_DIR] [--device cpu]
     python -m tpusim_torch apply ...   (python -m tpusim_torch.cli apply)
+    python -m tpusim_torch version | gen-doc [-d DIR] | debug   (the same)
 
 The method flags are those of experiments/run.py: one integer weight per
 score policy, the gpuSelMethod, and DotProduct's dim-ext and norm methods.
@@ -89,7 +90,7 @@ def paper_config() -> SimulatorConfig:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] == ["apply"]:
+    if argv[:1] in (["apply"], ["version"], ["gen-doc"], ["debug"]):
         from tpusim_torch.cli import main as cli_main
 
         return cli_main(argv)

@@ -2,7 +2,8 @@
 ref: pkg/apply/apply.go Run() and pkg/simulator/core.go Simulate()).
 
   load the CR and the scheduler config → load the cluster's YAML directory
-  (or an offline kubeConfig dump) → daemonset pods → typical pods →
+  (or a live cluster through a kubeconfig credential file, or an offline
+  kubeConfig dump) → daemonset pods → typical pods →
   sort/tune the workload → replay (under the --fault-* schedule, if any) →
   ClusterAnalysis(InitSchedule) → snapshot export → inflation evaluation →
   new-workload swap → deschedule and reschedule (PostEviction,
@@ -44,12 +45,17 @@ from tpusim_torch.io.k8s_yaml import (
     load_objects,
     yaml_files_in_dir,
 )
+from tpusim_torch.io.kube_client import (
+    is_kubeconfig_file,
+    load_cluster_from_client,
+)
 from tpusim_torch.io.storage import cluster_vg_totals, parse_node_storage
 from tpusim_torch.sim.driver import (
     PORT_ENGINES,
     SimulateResult,
     Simulator,
     SimulatorConfig,
+    enable_compile_cache,
     format_chaos_table,
     format_sweep_table,
 )
@@ -107,9 +113,6 @@ class ApplyOptions:
 
 # option -> (its flag, the ROADMAP queue-1 item that brings its plane)
 REFUSED_OPTIONS = {
-    "checkpoint_every": ("--checkpoint-every", "8 (chunked replay, checkpoints)"),
-    "checkpoint_dir": ("--checkpoint-dir", "8 (chunked replay, checkpoints)"),
-    "checkpoint_keep": ("--checkpoint-keep", "8 (chunked replay, checkpoints)"),
     "profile_out": ("--profile", "10 (in-scan records and obs spans)"),
     "metrics_out": ("--metrics-out", "10 (in-scan records and obs spans)"),
     "trace_out": ("--trace-out", "10 (in-scan records and obs spans)"),
@@ -118,7 +121,6 @@ REFUSED_OPTIONS = {
     "decisions_out": ("--decisions-out", "10 (in-scan records)"),
     "series_every": ("--series-every", "10 (in-scan records)"),
     "listen": ("--listen", "14 (service plane)"),
-    "compile_cache_dir": ("--compile-cache-dir", "8 (table cache)"),
     "policy": ("--policy", "12 (learned policy)"),
 }
 
@@ -159,8 +161,9 @@ class Applier:
         )
         cc = self.cr.custom_config
         if cc.engine not in PORT_ENGINES:
-            _refuse(f"customConfig.engine {cc.engine!r}",
-                    "6 (the table engine)")
+            raise ValueError(
+                f"customConfig.engine {cc.engine!r}: expected "
+                f"{' | '.join(PORT_ENGINES)}")
         if cc.mesh > 1:
             _refuse(f"customConfig.mesh {cc.mesh}", "13 (mesh engine)")
 
@@ -183,6 +186,10 @@ class Applier:
             table_residency=self.options.table_residency,
             engine=cc.engine,
             extenders=self.sched_cfg.extenders,
+            checkpoint_every=self.options.checkpoint_every,
+            checkpoint_dir=self.options.checkpoint_dir,
+            checkpoint_keep=self.options.checkpoint_keep,
+            compile_cache_dir=self.options.compile_cache_dir,
         )
 
     def _fault_config(self):
@@ -201,17 +208,15 @@ class Applier:
 
     def _load_cluster(self):
         """The cluster's objects: the CR's YAML directory, or its
-        kubeConfig path read as a `kubectl get ... -o yaml` dump (a
-        kubeconfig credential file names a live cluster: refused)."""
+        kubeConfig path: a kubeconfig credential file names a live cluster,
+        listed through the kube-client loader (io.kube_client), anything
+        else is read as a `kubectl get ... -o yaml` dump."""
         if not self.cr.kube_config:
             return load_cluster_from_dir(self.cr.custom_cluster)
-        try:
+        if is_kubeconfig_file(self.cr.kube_config):
+            cluster = load_cluster_from_client(self.cr.kube_config)
+        else:
             cluster = load_cluster_from_dump(self.cr.kube_config)
-        except ValueError as err:
-            if "kubeconfig credential file" not in str(err):
-                raise
-            _refuse(f"kubeConfig {self.cr.kube_config} (a live cluster)",
-                    "11 (the kube-client loader)")
         if not cluster.nodes:
             raise ValueError(
                 f"no Node objects from kubeConfig {self.cr.kube_config}")
@@ -256,6 +261,10 @@ class Applier:
         out = sys.stdout if out is None else out
         self.timings = {}
         t0 = time.perf_counter()
+        # where the kernels' library is built (tpusim's compile cache line)
+        cache_dir = enable_compile_cache(self.options.compile_cache_dir)
+        if cache_dir:
+            print(f"[obs] compile cache at {cache_dir}", file=out)
         with self._timed("ingest"):
             cluster = self._load_cluster()
         if not cluster.nodes:

@@ -18,6 +18,16 @@ forces the flat `replay`.
 
 It replays the stream twice, the first time cold (the kernels' build and
 first launch included), and prints a `[scale]` line for the second.
+bench_scale.py's layout and cache flags: `--engine` (auto | table |
+pallas | sequential; table runs the kernels through the chunk surface),
+`--block-size` (-1 the flat `replay`, 0 --residency's rule, 128
+`replay_blocked`; other widths raise), `--table-cache DIR` (the
+content-keyed init_tables cache: a rerun serves each chunk's tables from
+DIR instead of launching init_tables; the line then says
+table_cache=hit|miss) and `--compile-cache-dir DIR` (where the kernels'
+library is built). `--unswitched` and `--pallas-ceiling` are XLA and Pallas
+layout knobs the port does not have: they raise, naming ROADMAP queue 1,
+item 6.
 
     python -m tpusim_torch.bench_scale --nodes 1523 --pods 10000 \
         --sweep 1,16,64 [--sweep-out sweep.json]
@@ -80,12 +90,15 @@ def synth_pods(num_pods: int, seed: int = 1):
             for i, b in enumerate(base[int(j)] for j in idx)]
 
 
-def scale_config(seed: int = 42, residency: str = "auto") -> SimulatorConfig:
-    """FGDScore 1000, gpu_sel FGDScore, typical pods at popularity 95."""
+def scale_config(seed: int = 42, residency: str = "auto",
+                 **knobs) -> SimulatorConfig:
+    """FGDScore 1000, gpu_sel FGDScore, typical pods at popularity 95;
+    `knobs` are further SimulatorConfig fields (engine, block_size,
+    table_cache_dir, compile_cache_dir)."""
     return SimulatorConfig(
         policies=(("FGDScore", 1000),), gpu_sel_method="FGDScore", seed=seed,
         table_residency=residency, report_per_event=False,
-        typical_pods=TypicalPodsConfig(pod_popularity_threshold=95),
+        typical_pods=TypicalPodsConfig(pod_popularity_threshold=95), **knobs,
     )
 
 
@@ -207,14 +220,44 @@ def main(argv=None) -> int:
                     "instead of the scale run")
     ap.add_argument("--sweep-out", default="", metavar="PATH",
                     help="write the sweep's rows here as JSON")
+    ap.add_argument("--engine", default="auto",
+                    help="auto | table | pallas | sequential "
+                    "(SimulatorConfig.engine)")
+    ap.add_argument("--block-size", type=int, default=0,
+                    help="-1: the flat replay; 0: --residency's rule; 128: "
+                    "replay_blocked (SimulatorConfig.block_size)")
+    ap.add_argument("--table-cache", default="", metavar="DIR",
+                    help="content-keyed init_tables cache: a rerun serves "
+                    "the tables from DIR (SimulatorConfig.table_cache_dir)")
+    ap.add_argument("--compile-cache-dir", default="", metavar="DIR",
+                    help="where the kernels' library is built and looked "
+                    "for (SimulatorConfig.compile_cache_dir)")
+    ap.add_argument("--unswitched", action="store_true",
+                    help="tpusim's flat-select layout A/B: not in the port")
+    ap.add_argument("--pallas-ceiling", action="store_true",
+                    help="tpusim's Pallas residency ceiling: not in the port")
     args = ap.parse_args(argv)
     if args.chunk <= 0:
         ap.error("--chunk must be positive")
+    for flag, on in (("--unswitched", args.unswitched),
+                     ("--pallas-ceiling", args.pallas_ceiling)):
+        if on:
+            raise NotImplementedError(
+                f"{flag} is an XLA or Pallas layout knob the PyTorch port "
+                "does not have (ROADMAP queue 1, item 6)")
     device = torch.device(args.device)
+    if args.compile_cache_dir:
+        print(f"[obs] compile cache at {args.compile_cache_dir}",
+              file=sys.stderr)
 
     run = ScaleRun(synth_cluster(args.nodes, args.seed),
                    synth_pods(args.pods, args.seed + 1),
-                   scale_config(args.seed, args.residency), device)
+                   scale_config(args.seed, args.residency,
+                                engine=args.engine,
+                                block_size=args.block_size,
+                                table_cache_dir=args.table_cache,
+                                compile_cache_dir=args.compile_cache_dir),
+                   device)
     if args.sweep:
         sizes = [int(x) for x in args.sweep.split(",") if x.strip()]
         if not sizes or min(sizes) < 1:
@@ -247,6 +290,7 @@ def main(argv=None) -> int:
         f"us_per_event={1e6 * wall / args.pods:.2f} "
         f"gpu_alloc={gpu_alloc(state):.2f}% rebuilds={rebuilds} "
         f"device={card}"
+        + (f" table_cache={sim.last_table_cache}" if args.table_cache else "")
     )
     return 0
 

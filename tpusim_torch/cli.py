@@ -1,6 +1,7 @@
-"""`python -m tpusim_torch.cli apply`: the port's copy of `python -m tpusim
-apply` (counterpart of tpusim/cli.py's apply subcommand; ref:
-cmd/apply/apply.go:14-40).
+"""`python -m tpusim_torch.cli`: the port's copy of `python -m tpusim`'s
+apply, version, gen-doc and debug subcommands (counterpart of
+tpusim/cli.py; ref: cmd/apply/apply.go:14-40, cmd/version, cmd/doc,
+cmd/debug).
 
     python -m tpusim_torch.cli apply -f CLUSTER_CONFIG [-s SCHEDULER_CONFIG]
         [-e gpu[,open-local]] [--report] [--use-greed] [-i]
@@ -9,6 +10,11 @@ cmd/apply/apply.go:14-40).
         [--sweep-faults FAULTS.json]
         [--fault-mtbf N --fault-mttr N --fault-evict-every N
          --fault-seed S --fault-max-retries K]
+        [--checkpoint-every N --checkpoint-dir DIR --checkpoint-keep K]
+        [--compile-cache-dir DIR]
+    python -m tpusim_torch.cli version      # tpusim's version line
+    python -m tpusim_torch.cli gen-doc [-d DIR]   # DIR/tpusim.md
+    python -m tpusim_torch.cli debug        # a no-op, exit 0
 
 It takes tpusim's apply flags. `--sweep-weights GRID.json` replaces the
 main schedule with one sweep over a weight grid (the lanes of one launch)
@@ -18,10 +24,13 @@ fault forms) and prints the per-lane disruption frontier. The `--fault-*`
 flags replay the main schedule under a seeded fault schedule (node
 failures, recoveries and evictions: the in-scan fault lane, or the
 segmented host loop with per-event reports on, the `[Fault]` and
-`[Disruption]` lines). The flags whose plane the port does not have yet
-(checkpoints, the obs outputs, --listen, --policy, --compile-cache-dir)
-parse and then raise NotImplementedError naming the ROADMAP item that
-brings them. The replays run on the GPU unless --device cpu is given. Its
+`[Disruption]` lines). `--checkpoint-every` cuts every replay of more
+events into chunks whose carry is written to a content-addressed file
+(resumed after a kill; `--checkpoint-dir`, `--checkpoint-keep`), and
+`--compile-cache-dir` names where the kernels' library is built. The flags
+whose plane the port does not have yet (the obs outputs, --listen,
+--policy) parse and then raise NotImplementedError naming the ROADMAP item
+that brings them. The replays run on the GPU unless --device cpu is given. Its
 standard output and the snapshot files it writes are byte-identical to
 `python -m tpusim apply`'s on the same inputs, but for the `[Engine]`
 lines and the `[Sweep]` and `[Chaos]` lines, which name the kernel that
@@ -36,6 +45,10 @@ import sys
 
 from tpusim_torch.apply import Applier, ApplyOptions
 from tpusim_torch.sim.residency import RESIDENCIES
+
+# tpusim's version line (tpusim/cli.py:46-47): the port prints the same
+VERSION = "0.1.0"
+COMMIT = os.environ.get("TPUSIM_COMMIT", "dev")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,10 +88,16 @@ def build_parser() -> argparse.ArgumentParser:
                    "(0 = none)")
     p.add_argument("--fault-seed", type=int, default=0)
     p.add_argument("--fault-max-retries", type=int, default=3)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="cut each replay into chunks of this many events, "
+                   "checkpointing the carry after each (0 = one launch)")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="checkpoint directory (default "
+                   "$TPUSIM_CHECKPOINT_DIR, else .tpusim_checkpoints/)")
+    p.add_argument("--checkpoint-keep", type=int, default=0,
+                   help="0: keep the newest checkpoint until the run ends; "
+                   "-1: keep all (fork sources); N: the newest N")
     # tpusim's other apply flags: accepted, refused unless at their default
-    p.add_argument("--checkpoint-every", type=int, default=0)
-    p.add_argument("--checkpoint-dir", default="")
-    p.add_argument("--checkpoint-keep", type=int, default=0)
     p.add_argument("--profile", nargs="?",
                    const=os.path.join(".tpusim_obs", "tpusim_profile.jsonl"),
                    default="")
@@ -97,9 +116,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="replace the main schedule with one chaos sweep: "
                    "[{FaultConfig fields}, ...] or {\"faults\": [...], "
                    "\"weights\": [[...]], \"seeds\": [...]}, a lane each")
-    p.add_argument("--compile-cache-dir", default="")
+    p.add_argument("--compile-cache-dir", default="",
+                   help="where the kernels' library is built and looked for "
+                   "(default $TPUSIM_COMPILE_CACHE_DIR, else "
+                   ".tpusim_torch_build/)")
     p.add_argument("--policy", default="")
+
+    sub.add_parser("version", help="print version")
+    p_doc = sub.add_parser("gen-doc", help="generate markdown CLI docs")
+    p_doc.add_argument("-d", "--dir", default="docs", help="output directory")
+    sub.add_parser("debug", help="debug scaffold (no-op, ref parity)")
     return parser
+
+
+def cmd_gen_doc(parser: argparse.ArgumentParser, args) -> int:
+    """Write the parser's help as DIR/tpusim.md (tpusim's gen-doc)."""
+    os.makedirs(args.dir, exist_ok=True)
+    path = os.path.join(args.dir, "tpusim.md")
+    with open(path, "w") as f:
+        f.write(f"# tpusim\n\n```\n{parser.format_help()}\n```\n")
+    print(f"wrote {path}")
+    return 0
 
 
 def apply_options(args) -> ApplyOptions:
@@ -140,11 +177,18 @@ def apply_options(args) -> ApplyOptions:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.command != "apply":
-        parser.print_help()
-        return 1
-    Applier(apply_options(args)).run()
-    return 0
+    if args.command == "apply":
+        Applier(apply_options(args)).run()
+        return 0
+    if args.command == "version":
+        print(f"tpusim version {VERSION} (commit {COMMIT})")
+        return 0
+    if args.command == "gen-doc":
+        return cmd_gen_doc(parser, args)
+    if args.command == "debug":
+        return 0  # ref: cmd/debug/debug.go run() is empty
+    parser.print_help()
+    return 1
 
 
 if __name__ == "__main__":

@@ -19,9 +19,10 @@ The flags are all of run.py's, with its defaults: the trace files, the
 policy weights and methods, tuning, shuffling, inflation, descheduling
 (-r/-p), the snapshot prefixes (-y/-z), the typical-pod knobs, timestamps,
 the per-event report switch, --emit-configs and --analysis-from-log; and
---device (cuda by default). --engine and --mesh are accepted at what the
-port runs (auto or pallas, its kernels; sequential, its sequential oracle;
-no mesh) and raise NotImplementedError otherwise.
+--device (cuda by default). --engine takes tpusim's four engines (auto,
+table or pallas: the port's kernels, table through the chunk surface;
+sequential: its sequential oracle); --mesh above 1 raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -100,8 +101,9 @@ def add_experiment_flags(ap: argparse.ArgumentParser) -> None:
                     help="also write the equivalent cluster and scheduler "
                     "config YAML")
     ap.add_argument("--engine", default="auto",
-                    help="auto or pallas: the port's kernels; sequential: "
-                    "its sequential oracle (tpusim's table engine raises)")
+                    help="auto, table or pallas: the port's kernels (table "
+                    "through the chunk surface); sequential: its sequential "
+                    "oracle")
     ap.add_argument("--mesh", type=int, default=0,
                     help="0: one device (a mesh raises)")
     ap.add_argument("--analysis-from-log", action="store_true",
@@ -213,15 +215,13 @@ def emit_configs(args, policies, outdir: Path):
 
 
 def check_engine_flags(args) -> None:
-    """Raise NotImplementedError for an --engine or --mesh the port cannot
-    run, naming the ROADMAP item that brings it."""
+    """Raise ValueError for an --engine that is none of tpusim's, and
+    NotImplementedError for a --mesh the port cannot run, naming the
+    ROADMAP item that brings it."""
     engine = getattr(args, "engine", "auto")
     if engine not in PORT_ENGINES:
-        raise NotImplementedError(
-            f"--engine {engine} needs an engine the PyTorch port does not "
-            "have yet (ROADMAP queue 1, item 6 (the table engine)); the port "
-            "runs its kernels under auto and pallas, and its sequential "
-            "oracle under sequential")
+        raise ValueError(f"--engine {engine}: expected "
+                         f"{' | '.join(PORT_ENGINES)}")
     if getattr(args, "mesh", 0) > 1:
         raise NotImplementedError(
             f"--mesh {args.mesh} needs the mesh engine the PyTorch port does "

@@ -4,12 +4,15 @@ The sources in this directory are compiled on first use with `nvcc` for
 sm_90a, each to an object by an nvcc of its own, all in parallel, and
 linked into one shared library with a plain C interface, which is loaded
 with ctypes. The library lands in `.tpusim_torch_build/` at the root of the
-checkout, named by a digest of the sources and flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is. Nothing here runs when
-the module is imported.
+checkout (or the directory `set_build_dir` or $TPUSIM_COMPILE_CACHE_DIR
+names: build_dir), named by a digest of the sources and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. Nothing
+here runs when the module is imported.
 
 Each launcher takes a pointer to a `ReplayArgs` and the CUDA stream, and
-returns the launch's CUDA error code. The replays' fault forms
+returns the launch's CUDA error code. `replay` and `replay_blocked` run
+their chunk forms (replay_chunks.cu) where `key_out` is set: those also
+write the event key chain's key after the last event. The replays' fault forms
 (`FAULT_KERNELS`, the in-scan fault lane) read the fault fields of the
 same `ReplayArgs`. The lanes launchers (`LANE_KERNELS`)
 take an array of B `ReplayArgs` in host memory, B, a device buffer of B
@@ -35,12 +38,14 @@ import time
 _DIR = os.path.dirname(os.path.abspath(__file__))
 # compiled apart, in parallel, and linked into one library (replay_lanes.cu
 # includes replay.cu's device code for the lanes kernels; the fault forms'
-# files include replay_lanes.cu's)
+# files include replay_lanes.cu's; replay_chunks.cu, replay.cu's, for the
+# chunk forms of replay and replay_blocked)
 SOURCES = tuple(os.path.join(_DIR, name) for name in (
     "replay.cu", "replay_lanes.cu", "replay_faults.cu",
-    "replay_blocked_faults.cu"))
+    "replay_blocked_faults.cu", "replay_chunks.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
                          ".tpusim_torch_build")
+_build_dir = None  # set_build_dir's directory
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add is contracted but the explicit __fmaf_rn ones: the
@@ -88,7 +93,7 @@ POINTER_FIELDS = (
     "ev_kind", "ev_pod",
     "placed", "maskb", "failed", "ev_node", "ev_devb",
     "bt", "br", "bn", "brmin", "brmax", "slo", "shi", "stats", "clocks",
-    "t_order", "mem_cap", "scratch",
+    "t_order", "mem_cap", "scratch", "key_out",
 )
 # the fault forms' pointers and sizes, after the key (replay.cu)
 FAULT_POINTER_FIELDS = (
@@ -148,6 +153,20 @@ def _nvcc() -> str:
     return path
 
 
+def set_build_dir(path: str) -> None:
+    """Build and look for the libraries in `path` from now on (the
+    driver's compile_cache_dir); a library already loaded stays loaded."""
+    global _build_dir
+    _build_dir = path
+
+
+def build_dir() -> str:
+    """Where the libraries are built: set_build_dir's directory, else
+    $TPUSIM_COMPILE_CACHE_DIR, else BUILD_DIR."""
+    return (_build_dir or os.environ.get("TPUSIM_COMPILE_CACHE_DIR", "")
+            or BUILD_DIR)
+
+
 def _target(variant: str):
     """(library path, full nvcc flags) of a variant."""
     flags = NVCC_FLAGS + VARIANTS[variant]
@@ -156,7 +175,8 @@ def _target(variant: str):
         with open(src, "rb") as f:
             h.update(f.read())
     name = f"libtpusim_torch{'_' + variant if variant else ''}"
-    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so"), flags
+    lib = f"{name}_{h.hexdigest()[:16]}.so"
+    return os.path.join(build_dir(), lib), flags
 
 
 def build_all(variants=("",)) -> dict:
@@ -165,7 +185,7 @@ def build_all(variants=("",)) -> dict:
     started together, each compiling its source to an object, then one
     link a variant. Returns {variant: BuildInfo}; raises with the
     compiler's output if an nvcc fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(), exist_ok=True)
     jobs = {}
     for variant in variants:
         if variant in _build_info:

@@ -285,6 +285,11 @@ struct ReplayArgs {
   // shared memory live (replay_scratch_bytes bytes); null for the staged
   // form
   void* scratch;
+  // where replay and replay_blocked write the event key chain's key after
+  // their last event (two words; the chain from `key`, one step an event,
+  // whatever its kind): a chunked replay's next root. Set, the launch runs
+  // the chunk forms (replay_chunks.cu); null, the forms that write nothing
+  uint32_t* key_out;
   int32_t n;
   int32_t k;
   int32_t ks;
@@ -1329,11 +1334,16 @@ struct EventState {
 // One step of the event key chain (table_engine.py:1048-1049): key, sub =
 // split(key); k_rand, k_sel = split(sub), split being the partitionable
 // form (threefry2x32 of counters (0, 0) and (0, 1)). Stores the step's
-// k_rand and k_sel in slot `slot` and the next key in es.key. One thread.
+// k_rand and k_sel in slot `slot` and the next key (next_key) in es.key.
+// One thread.
+__device__ __forceinline__ uint2 next_key(uint2 key) {
+  return threefry2x32(key, 0u, 0u);
+}
+
 __device__ __forceinline__ void advance_keys(EventState& es, uint2 key,
                                              int slot) {
   const uint2 sub = threefry2x32(key, 0u, 1u);
-  es.key = threefry2x32(key, 0u, 0u);
+  es.key = next_key(key);
   es.krand[slot] = threefry2x32(sub, 0u, 0u);
   es.ksel[slot] = threefry2x32(sub, 0u, 1u);
 }
@@ -2168,6 +2178,23 @@ __device__ __forceinline__ void stage_faults(const ReplayArgs& a,
 template <bool kFaults>
 using FaultSharedOf = typename std::conditional<kFaults, FaultShared, char>::type;
 
+// The chain's key after the last event into a.key_out, by one thread once
+// the event loop's last barrier has passed (the kKeyOut instantiations,
+// replay_chunks.cu): the randomized replay's es.key, else the chain
+// advanced a.e steps from the root here, after the loop, which does not
+// advance it.
+template <bool kRandomized>
+__device__ __forceinline__ void write_key_out(const ReplayArgs& a,
+                                              const EventState& es) {
+  uint2 key = es.key;
+  if (!kRandomized) {
+    key = make_uint2(a.key[0], a.key[1]);
+    for (int i = 0; i < a.e; ++i) key = next_key(key);
+  }
+  a.key_out[0] = key.x;
+  a.key_out[1] = key.y;
+}
+
 template <bool kFaults>
 __device__ __forceinline__ FaultShared* fault_shared(FaultSharedOf<kFaults>& f) {
   if constexpr (kFaults) return &f;
@@ -2179,9 +2206,10 @@ __device__ __forceinline__ FaultShared* fault_shared(FaultSharedOf<kFaults>& f) 
 // while warp 0 commits); kStaged is the staged form, false the global one;
 // kFaults is the fault form (the merged stream of fault_lane.py: kinds 3-6,
 // the FaultFields, the retry queue; the key chain takes a step a merged
-// step, as tpusim's lane does).
+// step, as tpusim's lane does); kKeyOut is the chunk form, which writes the
+// key chain's key after its last event (write_key_out).
 template <bool kGeneral, bool kRandomized = false, bool kStaged = true,
-          bool kFaults = false>
+          bool kFaults = false, bool kKeyOut = false>
 __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -2389,13 +2417,16 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
     pc.sync();
     pc.mark(kClkCommit);
   }
+  if constexpr (kKeyOut) {
+    if (tid == 0) write_key_out<kRandomized>(a, es);
+  }
   pc.finish(a.clocks, t0);
 }
 
 template <bool kGeneral, bool kRandomized = false, bool kStaged = true,
-          bool kFaults = false>
+          bool kFaults = false, bool kKeyOut = false>
 __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a) {
-  replay_body<kGeneral, kRandomized, kStaged, kFaults>(a);
+  replay_body<kGeneral, kRandomized, kStaged, kFaults, kKeyOut>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -2550,9 +2581,10 @@ __device__ void update_summaries(const ReplayArgs& a, const Smem& m, int node,
 // false the global one; <true, true, false> is the staged general kernel
 // for the configurations without Simon (policy_pair); kFaults is the fault
 // form, as replay_body's. A fault step touches one node, as an event does,
-// so the dirty node's block summaries stay the one update a step.
+// so the dirty node's block summaries stay the one update a step. kKeyOut
+// is the chunk form, as replay_body's.
 template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
-          bool kFaults = false>
+          bool kFaults = false, bool kKeyOut = false>
 __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -2743,14 +2775,17 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
     pc.sync();
     pc.mark(kClkCommit);
   }
+  if constexpr (kKeyOut) {
+    if (tid == 0) write_key_out<false>(a, es);
+  }
   pc.finish(a.clocks, t0);
 }
 
 template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
-          bool kFaults = false>
+          bool kFaults = false, bool kKeyOut = false>
 __global__ void __launch_bounds__(kReplayThreads, 1)
     replay_blocked_kernel(ReplayArgs a) {
-  replay_blocked_body<kGeneral, kStaged, kAllColumns, kFaults>(a);
+  replay_blocked_body<kGeneral, kStaged, kAllColumns, kFaults, kKeyOut>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -3551,10 +3586,15 @@ int empty_launch(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the chunk forms (replay_chunks.cu), which write the key chain's key out
+int replay_chunk(const ReplayArgs* a, void* stream);
+int replay_blocked_chunk(const ReplayArgs* a, void* stream);
+
 int replay(const ReplayArgs* a, void* stream) {
   if (a->e == 0) return 0;
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a->key_out != nullptr) return replay_chunk(a, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool staged = a->scratch == nullptr;
   if (randomized(a)) {
@@ -3574,6 +3614,7 @@ int replay_blocked(const ReplayArgs* a, void* stream) {
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies || a->n % kBlock != 0 ||
       randomized(a))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a->key_out != nullptr) return replay_blocked_chunk(a, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->scratch != nullptr)
     return launch_replay(replay_blocked_kernel<true, false>, a, true, true, s);

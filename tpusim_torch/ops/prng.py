@@ -25,7 +25,8 @@ The event key chain of tpusim's table engine and sequential oracle
 (tpusim/sim/table_engine.py:1048-1049, tpusim/sim/engine.py:283) consumes
 one step per event, whatever its kind: key, sub = split(key), then
 k_rand, k_sel = split(sub). `event_keys` gives each event's k_rand and
-k_sel.
+k_sel, `advance_key` the chain's key after a number of events (a chunked
+replay's next root).
 """
 
 from __future__ import annotations
@@ -98,6 +99,15 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 def uniform(key, n: int, device=None) -> torch.Tensor:
     """`jax.random.uniform(key, (n,))`, float32."""
     return bits_to_unit(random_bits(key, n, device))
+
+
+def advance_key(key, e: int) -> Tuple[int, int]:
+    """The chain's key after `e` events from `key`: `split(key)[0]`, `e`
+    times (event_keys' chain, without the per-event keys)."""
+    k0, k1 = (int(w) & _M for w in key)
+    for _ in range(e):
+        k0, k1 = threefry2x32(k0, k1, 0, 0)
+    return k0, k1
 
 
 def event_keys(key, e: int) -> Tuple[torch.Tensor, torch.Tensor]:

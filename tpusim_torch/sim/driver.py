@@ -32,6 +32,16 @@ extenders configured, every replay runs the extender host loop
 (tpusim_torch.sim.extender). Both are explicit choices: no replay falls
 back to them.
 
+Where tpusim's run_events takes its table engine, a replay can go through
+the chunk surface instead (tpusim_torch.sim.table_engine
+make_table_replay, the same kernels a chunk at a time): with
+`checkpoint_every` it runs in chunks whose carry is written to a
+content-addressed checkpoint after each (tpusim_torch.io.storage), and a
+killed run resumes from the newest one (_run_chunked); `schedule_pods_fork`
+replays a base run's stream with another tail from the base's nearest
+checkpoint; the table cache (`table_cache_dir`) serves the tables of a
+state it has seen instead of an init_tables launch.
+
 After the main replay, `schedule_additional` replays more pods from the
 placed cluster's state (apps, the new-workload swap, the inflation
 evaluation), through the same kernels and the same report tail.
@@ -69,6 +79,7 @@ from tpusim_torch.io.trace import (
     pods_to_specs,
     tiebreak_rank,
 )
+from tpusim_torch.io import storage
 from tpusim_torch.io.export import (
     export_node_snapshot_csv,
     export_pod_snapshot_csv,
@@ -131,7 +142,18 @@ from tpusim_torch.sim.reports import (
     report_failed_pods,
 )
 from tpusim_torch.sim.residency import BLOCK
-from tpusim_torch.sim.table_engine import build_pod_types
+from tpusim_torch.sim.table_engine import (
+    BlockedTableCarry,
+    FlatTableCarry,
+    build_pod_types,
+    carry_arrays,
+    carry_from_arrays,
+    carry_layout,
+    check_block_size,
+    check_carry_arrays,
+    make_table_replay,
+    table_tier,
+)
 from tpusim_torch.sim.typical import (
     TypicalPodsConfig,
     get_skyline_pods,
@@ -198,10 +220,40 @@ class SimulatorConfig:
     # splices the extenders' round-trips into each cycle (ref:
     # simulator.go:196 WithExtenders)
     extenders: tuple = ()
+    # tpusim's table-engine select layout, as the port's kernels take it
+    # (table_engine.check_block_size, table_tier): -1 forces the flat
+    # `replay`, 0 keeps table_residency's rule, 128 forces
+    # `replay_blocked`; other widths raise. Results are the same bits.
+    block_size: int = 0
+    # exact checkpoint/resume (tpusim's knobs): > 0 cuts a replay of more
+    # events into checkpoint_every-event chunks (table_engine's chunk
+    # surface), the carry written to a content-addressed file after each
+    # chunk; a killed run started again with the same inputs resumes at
+    # its last checkpoint and ends with the same bits. 0: one launch
+    checkpoint_every: int = 0
+    # where checkpoints live: this field, else $TPUSIM_CHECKPOINT_DIR, else
+    # .tpusim_checkpoints/ at the repository's root
+    checkpoint_dir: str = ""
+    # retention: 0 keeps the newest checkpoint only, and none once the run
+    # ends; -1 keeps every checkpoint (the ladder schedule_pods_fork
+    # resumes from); N > 0 the newest N
+    checkpoint_keep: int = 0
+    # the init_tables cache: a directory here (or $TPUSIM_TABLE_CACHE_DIR)
+    # keeps each table build under a content key; a hit serves the tables
+    # instead of an init_tables launch. Empty and unset: off
+    table_cache_dir: str = ""
+    # where the CUDA kernels' library is built and looked for (this field,
+    # else $TPUSIM_COMPILE_CACHE_DIR, else .tpusim_torch_build/ at the
+    # repository's root; kernels.build_dir), tpusim's compile cache knob:
+    # the port's only compiled artefact is that library
+    compile_cache_dir: str = ""
+    # tpusim's flat-select layout A/B for XLA (unswitched_select): the
+    # port's kernels have no such layout; True raises (ROADMAP item 6)
+    unswitched_select: bool = False
 
 
 # the values of tpusim's engine knob that the port's entries run
-PORT_ENGINES = ("auto", "pallas", "sequential")
+PORT_ENGINES = ("auto", "pallas", "sequential", "table")
 
 
 @dataclass
@@ -235,14 +287,25 @@ class Simulator:
     "replay_blocked", prefixed "plain_" on the CPU), `last_residency` its
     tier ("vmem" or "hbm"; a randomized configuration runs "vmem" whatever
     `table_residency` says) and `last_kernel_stats` the blocked replay's
-    [waits, starts, rebuilds] (None after the flat one). Under
-    engine="sequential" `last_engine` is "sequential", and with extenders
-    "extender": host loops on the Simulator's device, with no residency.
+    [waits, starts, rebuilds] (None after the flat one; summed over the
+    chunks of a chunked run). Under engine="sequential" `last_engine` is
+    "sequential", and with extenders "extender": host loops on the
+    Simulator's device, with no residency. After a chunked replay,
+    `last_chunks` counts its chunks, `last_chunk_times` splits its host
+    time and `last_run_digest` names its checkpoints in
+    `last_checkpoint_dir`; after a fork, `last_fork` says
+    where it resumed; `last_table_cache` says whether the table cache hit.
     """
 
     def __init__(self, nodes: Sequence[NodeRow], cfg: SimulatorConfig = None,
                  device="cuda"):
         self.cfg = cfg or SimulatorConfig()
+        check_block_size(self.cfg.block_size)
+        if self.cfg.unswitched_select:
+            raise NotImplementedError(
+                "unswitched_select is an XLA select layout the PyTorch port "
+                "does not have (ROADMAP queue 1, item 6)")
+        enable_compile_cache(self.cfg.compile_cache_dir)
         if self.cfg.engine not in PORT_ENGINES:
             raise ValueError(
                 f"engine {self.cfg.engine!r}: the port runs "
@@ -264,6 +327,9 @@ class Simulator:
             self.cfg.dim_ext_method, self.cfg.norm_method,
         )
         self._blocked = None  # the blocked replayer, built on first use
+        # the chunk surface (table_engine.make_table_replay), built on first
+        # use
+        self._table = None
         # (Policy, weight) pairs: the per-pod scorers of the sequential
         # oracle and the extender host loop
         self._policy_fns = [
@@ -277,6 +343,22 @@ class Simulator:
         self.last_engine = None
         self.last_residency = None
         self.last_kernel_stats = None
+        # the last chunked replay's content key, checkpoint directory and
+        # chunks launched; the last fork's source and events (tpusim's
+        # last_run_digest, last_checkpoint_dir, last_fork)
+        self.last_run_digest = None
+        self.last_checkpoint_dir = None
+        self.last_chunks = None
+        # host milliseconds of the last chunked replay: the run digest, the
+        # chunks' dispatch (init_tables and replay launches and their
+        # preparation), the fetches (each waits for its chunk's kernels)
+        # and the checkpoint writes (each while the next chunk runs)
+        self.last_chunk_times = None
+        self.last_fork = None
+        self._fork_stats = None
+        # the table cache's outcome of the last table build: "hit", "miss"
+        # or None (off, or no table path)
+        self.last_table_cache = None
         self.nodes = list(nodes)
         self.node_names = [n.name for n in self.nodes]
         self.node_index = {n.name: i for i, n in enumerate(self.nodes)}
@@ -371,14 +453,14 @@ class Simulator:
     # ---- the run (core.go:148 RunCluster -> SchedulePods) ----
 
     def _residency(self, num_nodes: int, num_types: int) -> str:
-        """The tier a replay of this shape runs in (residency.replay_tier
-        against the card's L2 cache). A lanes launch asks it once for one
-        lane's shape: the rule takes no lane count."""
+        """The tier a replay of this shape runs in (table_engine.table_tier:
+        block_size, else residency.replay_tier against the card's L2 cache).
+        A lanes launch asks it once for one lane's shape: the rule takes no
+        lane count."""
         cfg = self._replay.config
-        l2 = (torch.cuda.get_device_properties(self.device).L2_cache_size
-              if self.device.type == "cuda" else None)
-        return residency.replay_tier(self.cfg.table_residency, cfg.randomized,
-                                     num_nodes, num_types, cfg.num_tables, l2)
+        return table_tier(self.cfg.block_size, self.cfg.table_residency,
+                          cfg.randomized, num_nodes, num_types,
+                          cfg.num_tables, self.device)
 
     def _sequential_replay(self, faults: bool = False,
                            fault_frag: bool = False):
@@ -395,7 +477,7 @@ class Simulator:
 
     def run_events(self, state: NodeState, specs: PodSpec, ev_kind,
                    ev_pod, types=None, key=None,
-                   pod_rows=None) -> ReplayResult:
+                   pod_rows=None, fork=None) -> ReplayResult:
         """Replay an event stream from `state`: the CUDA kernels on a CUDA
         device, the plain replay on the CPU; the sequential oracle under
         engine="sequential"; the extender host loop when extenders are
@@ -403,11 +485,25 @@ class Simulator:
         payloads. Callers replaying the same pod specs repeatedly (a chunked
         stream) may pass their `build_pod_types(specs)` as `types`. `key` is
         the root of the event key chain (the main replay's, PRNGKey(seed),
-        by default)."""
+        by default).
+
+        Where tpusim's run_events takes its table engine (driver.py:800-905
+        of the reference: pod types exist, and there are at least twice as
+        many events as types, or engine="table", or a fork) and the engine
+        is not "pallas", the replay goes through the chunk surface
+        (table_engine.make_table_replay) when checkpoint_every cuts it
+        (0 < checkpoint_every < events: _run_chunked), when the table cache
+        is on (_cached_tables) or under engine="table"; the kernels are the
+        same. `fork = (base_ev_kind, base_ev_pod, fork_event)` (from
+        schedule_pods_fork) resumes from the base run's nearest checkpoint
+        at or before fork_event."""
         ev_kind = np.asarray(ev_kind, np.int32)
         ev_pod = np.asarray(ev_pod, np.int32)
         if key is None:
             key = prng_key(self.cfg.seed)
+        e = len(ev_kind)
+        if fork is not None and not self.cfg.extenders:
+            fork = self._check_fork(fork, e)
         if self.cfg.extenders or self.cfg.engine == "sequential":
             validate_events(ev_kind, ev_pod, int(specs.cpu.shape[0]))
             if self.cfg.extenders:
@@ -437,6 +533,18 @@ class Simulator:
             types = build_pod_types(specs)
         n, k = state.num_nodes, types.num_types
         tier = self._residency(n, k)
+        table_path = self.cfg.engine != "pallas" and k > 0 and (
+            e >= 2 * k or self.cfg.engine == "table" or fork is not None)
+        if fork is not None and not table_path:
+            raise ValueError(
+                "forked replay fell through to the sequential engine (no "
+                "pod types / carry surface): run the base and fork on the "
+                "table engine")
+        chunked = table_path and 0 < self.cfg.checkpoint_every < e
+        if table_path and (chunked or self.cfg.engine == "table"
+                           or self._table_cache_dir()):
+            return self._run_table(state, specs, types, ev_kind, ev_pod, key,
+                                   tier, chunked, fork)
         args = (state, specs, types, torch.as_tensor(ev_kind),
                 torch.as_tensor(ev_pod), self.typical, key, self.rank)
         if tier == "hbm":
@@ -459,6 +567,302 @@ class Simulator:
         )
         return out
 
+    def _check_fork(self, fork, e: int):
+        """tpusim's fork guards (driver.py:736-758 of the reference): the
+        chunked path, the table engine (or auto), the fork event within
+        the base stream. Returns (base kinds, base pods, fork event)."""
+        if not 0 < self.cfg.checkpoint_every < e:
+            raise ValueError(
+                "forked replay needs the chunked path: set checkpoint_every "
+                f"in (0, num_events) (got {self.cfg.checkpoint_every} for "
+                f"{e} events)")
+        if self.cfg.engine not in ("table", "auto"):
+            raise ValueError(f"forked replay needs the table or shard "
+                             f"engine, not {self.cfg.engine!r}")
+        bk, bp, fev = fork
+        bk, bp = np.asarray(bk, np.int32), np.asarray(bp, np.int32)
+        if not 0 <= int(fev) <= bk.shape[0]:
+            raise ValueError(f"fork_event {fev} outside the base stream "
+                             f"(0..{bk.shape[0]})")
+        return bk, bp, int(fev)
+
+    def _table_replay(self):
+        """This configuration's chunk surface (make_table_replay), built
+        once."""
+        if self._table is None:
+            cfg = self.cfg
+            self._table = make_table_replay(
+                cfg.policies, cfg.gpu_sel_method, cfg.block_size,
+                cfg.dim_ext_method, cfg.norm_method, cfg.table_residency)
+        return self._table
+
+    def _run_table(self, state, specs, types, ev_kind, ev_pod, key,
+                   tier: str, chunked: bool, fork) -> ReplayResult:
+        """run_events through the chunk surface: _run_chunked where
+        checkpoint_every cuts the stream, else one chunk; the tables of
+        event 0 from the table cache where it is on. The [Engine] line
+        names the kernel, its residency and the chunks."""
+        validate_events(ev_kind, ev_pod, int(specs.cpu.shape[0]))
+        fn = self._table_replay()
+        evk = torch.as_tensor(ev_kind, device=self.device)
+        evp = torch.as_tensor(ev_pod, device=self.device)
+
+        def tables():
+            padded = (pad_nodes(state, self.rank, BLOCK)[0] if tier == "hbm"
+                      else state)
+            return self._cached_tables(padded, types)
+
+        self.last_chunks = None
+        if chunked:
+            out, stats, extra = self._run_chunked(
+                fn, state, specs, types, evk, evp, key, tables, fork)
+        else:
+            out = fn(state, specs, types, evk, evp, self.typical, key,
+                     self.rank, tables=tables())
+            stats = fn.last_stats
+            extra = ""
+        kernel = "replay_blocked" if tier == "hbm" else "replay"
+        self.last_kernel_stats = (None if stats is None
+                                  else [int(x) for x in stats])
+        if self.device.type != "cuda":
+            kernel = f"plain_{kernel}"
+        self.last_engine, self.last_residency = kernel, tier
+        self.log.info(
+            f"[Engine] replay of {len(ev_kind)} events ran on: "
+            f"{_ran_on(self, kernel, tier, extra)}")
+        return out
+
+    # ---- exact checkpoint/resume of a chunked replay ----
+
+    def _checkpoint_dir(self) -> str:
+        d = self.cfg.checkpoint_dir or os.environ.get(
+            "TPUSIM_CHECKPOINT_DIR", "")
+        if not d:
+            d = os.path.join(_REPO_ROOT, ".tpusim_checkpoints")
+        return d
+
+    def _config_bytes(self) -> bytes:
+        cfg = self.cfg
+        return repr((tuple(name for name, _ in cfg.policies),
+                     cfg.gpu_sel_method, cfg.dim_ext_method,
+                     cfg.norm_method)).encode()
+
+    def _run_digest(self, state, specs, ev_kind, ev_pod, key) -> str:
+        """Content key of one replay run (tpusim's _run_digest): the port's
+        source salt, the configuration, and every input that determines
+        the trajectory: the initial state, the pod specs, the typical
+        pods, the event stream, the root key, the tie-break rank and the
+        weights. checkpoint_every is not part of it (a resume may cut
+        elsewhere), nor is the kernel (block_size, table_residency, the
+        device): every tier gives the same bits, so a run checkpointed on
+        the card resumes on the CPU."""
+        def chunks():
+            yield _engine_source_digest()
+            yield self._config_bytes()
+            host = device_fetch((state, specs, self.typical, self.rank))
+            for tree in host:
+                for leaf in tree:
+                    yield leaf.contiguous().numpy().tobytes()
+            for leaf in (ev_kind, ev_pod, np.asarray(
+                    [int(w) & 0xFFFFFFFF for w in key], np.uint32),
+                         np.asarray([w for _, w in self.cfg.policies],
+                                    np.int32)):
+                yield np.ascontiguousarray(leaf).tobytes()
+
+        return storage.checkpoint_digest(chunks())
+
+    def _run_chunked(self, fn, state, specs, types, ev_kind, ev_pod, key,
+                     tables_thunk, fork=None):
+        """Chunked replay with exact checkpoint/resume (tpusim's
+        _run_chunked, driver.py:1195-1440 of the reference): the stream in
+        checkpoint_every-event chunks through the chunk surface, the carry
+        and the per-event telemetry so far fetched to the host after each
+        chunk but the last and written to a content-addressed file
+        (io.storage) while the next chunk's kernels run, and on entry a
+        resume from the newest valid checkpoint of this run (a torn file is
+        skipped with a [Degrade] line and deleted). Retention follows
+        checkpoint_keep.
+
+        `fork = (base kinds, base pods, fork event)`: where this run has no
+        checkpoint, resume from the base run's nearest checkpoint at or
+        before the fork event (its carry consumed only shared events);
+        none found, a full replay with a [Degrade] line. Returns
+        (ReplayResult on the device, the blocked chunks' summed stats or
+        None, the [Engine] line's chunk note)."""
+        t0 = time.perf_counter()
+        e = int(ev_kind.shape[0])
+        p = int(specs.cpu.shape[0])
+        every = max(1, int(self.cfg.checkpoint_every))
+        cache_dir = self._checkpoint_dir()
+        ev_host = (ev_kind.cpu().numpy(), ev_pod.cpu().numpy())
+        digest = self._run_digest(state, specs, *ev_host, key)
+        times = dict(digest_ms=(time.perf_counter() - t0) * 1e3,
+                     dispatch_ms=0.0, fetch_ms=0.0, write_ms=0.0)
+        self.last_run_digest = digest
+        self.last_checkpoint_dir = cache_dir
+        self._fork_stats = None
+        layout = carry_layout(state, p)
+
+        def validate(arrays):
+            check_carry_arrays(arrays, layout)
+            c = int(arrays["cursor"])
+            if arrays["event_node"].shape != (c,) or \
+                    arrays["event_dev"].shape != (c, layout["masks"][0][1]):
+                raise ValueError("event telemetry does not match the cursor")
+
+        def on_skip(path, err):
+            self.log.info(
+                f"[Degrade] skipping unusable checkpoint "
+                f"{os.path.basename(path)} ({err}); trying the newest "
+                "valid predecessor")
+
+        found = storage.load_valid_checkpoint(cache_dir, digest,
+                                              validate=validate,
+                                              on_skip=on_skip)
+        if fork is not None:
+            base_kind, base_pod, fork_event = fork
+            base_digest = self._run_digest(state, specs, base_kind, base_pod,
+                                           key)
+            self._fork_stats = {"base_digest": base_digest,
+                                "fork_event": fork_event,
+                                "source_cursor": 0, "degrade": False}
+            if found is None:
+                found = storage.load_valid_checkpoint(
+                    cache_dir, base_digest, validate=validate,
+                    on_skip=on_skip, max_cursor=fork_event,
+                    delete_invalid=False)
+                if found is None:
+                    self._fork_stats["degrade"] = True
+                    self.log.info(
+                        f"[Degrade] no usable fork source at-or-before "
+                        f"event {fork_event} for base {base_digest[:12]}…; "
+                        "full replay from event 0")
+        node_parts, dev_parts = [], []
+        if found is not None:
+            cursor, arrays, path = found
+            if self._fork_stats is not None:
+                self._fork_stats["source_cursor"] = cursor
+            cls = (BlockedTableCarry if fn.tier_of(state, types) == "hbm"
+                   else FlatTableCarry)
+            carry = carry_from_arrays(cls, arrays, self.device)
+            node_parts.append(arrays["event_node"])
+            dev_parts.append(arrays["event_dev"])
+            self.log.info(f"[Checkpoint] resumed replay at event {cursor}/{e} "
+                          f"from {os.path.basename(path)}")
+        else:
+            carry = fn.init_carry(state, specs, types, self.typical, key,
+                                  self.rank, tables_thunk())
+        start = carry.cursor
+        stats = None
+        chunks = 0
+        # a boundary's checkpoint is written once the next chunk is
+        # launched, while its kernels run: the (cursor, arrays) to write
+        pending = None
+        while carry.cursor < e:
+            end = min(carry.cursor + every, e)
+            t0 = time.perf_counter()
+            carry, (nseg, dseg) = fn.run_chunk(
+                carry, specs, types, ev_kind[carry.cursor:end],
+                ev_pod[carry.cursor:end], self.typical, self.rank)
+            t1 = time.perf_counter()
+            times["dispatch_ms"] += (t1 - t0) * 1e3
+            chunks += 1
+            if fn.last_stats is not None:
+                stats = fn.last_stats if stats is None else \
+                    stats + fn.last_stats
+            if pending is not None:
+                storage.save_checkpoint(cache_dir, digest, *pending)
+                storage.prune_checkpoints(cache_dir, digest, pending[0],
+                                          keep=self.cfg.checkpoint_keep)
+                pending = None
+            t2 = time.perf_counter()
+            times["write_ms"] += (t2 - t1) * 1e3
+            if carry.cursor < e:
+                arrays = carry_arrays(carry, {"seg_node": nseg,
+                                              "seg_dev": dseg})
+                node_parts.append(arrays.pop("seg_node"))
+                dev_parts.append(arrays.pop("seg_dev"))
+                arrays["event_node"] = np.concatenate(node_parts)
+                arrays["event_dev"] = np.concatenate(dev_parts)
+                pending = (carry.cursor, arrays)
+            else:
+                nseg, dseg = device_fetch((nseg, dseg))
+                node_parts.append(nseg.numpy())
+                dev_parts.append(dseg.numpy())
+            times["fetch_ms"] += (time.perf_counter() - t2) * 1e3
+        storage.prune_checkpoints(cache_dir, digest, e + 1,
+                                  keep=self.cfg.checkpoint_keep)
+        self.last_chunks = chunks
+        self.last_chunk_times = times
+        state_f, placed, masks, failed = fn.finish(carry)
+        nodes = torch.as_tensor(np.concatenate(node_parts), device=self.device)
+        devs = torch.as_tensor(np.concatenate(dev_parts), device=self.device)
+        extra = f", {chunks} chunks of {every} events"
+        if start:
+            extra += f" resumed at event {start}"
+        return (ReplayResult(state_f, placed, masks, failed, None, nodes,
+                             devs), stats, extra)
+
+    # ---- the content-keyed init_tables cache ----
+
+    def _table_cache_dir(self) -> str:
+        return self.cfg.table_cache_dir or os.environ.get(
+            "TPUSIM_TABLE_CACHE_DIR", "")
+
+    def _tables_digest(self, state, types) -> str:
+        """Content key of one table build (tpusim's _tables_digest): the
+        port's source salt, the configuration, and every input init_tables
+        reads: the state (padded where the blocked replay runs), the
+        distinct pod types and the typical pods. Not the events, the key,
+        the rank or the weights, which the tables do not depend on."""
+        def chunks():
+            yield _engine_source_digest()
+            yield self._config_bytes()
+            host = device_fetch((state, types.share, types.whole,
+                                 self.typical))
+            for tree in host:
+                for leaf in tree:
+                    yield leaf.contiguous().numpy().tobytes()
+
+        return storage.checkpoint_digest(chunks())
+
+    def _cached_tables(self, state, types):
+        """(score, sdev, feas) of `state` from the table cache, built with
+        one init_tables launch and saved on a miss; None where the cache is
+        off. A hit launches no init_tables; a file that does not load is
+        dropped and rebuilt."""
+        cache_dir = self._table_cache_dir()
+        if not cache_dir:
+            return None
+        names = ("score_tbl", "sdev_tbl", "feas_tbl")
+        digest = self._tables_digest(state, types)
+        found = storage.find_tables(cache_dir, digest)
+        if found is not None:
+            try:
+                arrays = storage.load_tables(found)
+                tables = tuple(torch.as_tensor(arrays[k], device=self.device)
+                               for k in names)
+                self.log.info(f"[TableCache] reused init tables from "
+                              f"{os.path.basename(found)}")
+                self.last_table_cache = "hit"
+                return tables
+            except Exception as err:
+                self.log.info(f"[TableCache] dropping unusable entry "
+                              f"{os.path.basename(found)} ({err}); rebuilding")
+                try:
+                    os.unlink(found)
+                except OSError:
+                    pass
+        tables = init_tables(state, types, self.typical,
+                             self._replay.config)
+        host = device_fetch(tuple(tables))
+        path = storage.save_tables(cache_dir, digest, dict(zip(
+            names, (t.numpy() for t in host))))
+        self.log.info(f"[TableCache] saved init tables to "
+                      f"{os.path.basename(path)}")
+        self.last_table_cache = "miss"
+        return tables
+
     def _attach_metrics(self, out: ReplayResult, state: NodeState, specs,
                         ev_kind, ev_pod) -> ReplayResult:
         """The metrics post-pass on the replay's device when per-event
@@ -472,16 +876,17 @@ class Simulator:
             out.event_dev, self.typical))
 
     def _replay_pods(self, state: NodeState, pods: Sequence[PodRow], key,
-                     use_timestamps: bool):
+                     use_timestamps: bool, events=None, fork=None):
         """Replay `pods` from `state` with root key `key`: the kernels, the
         metrics post-pass, one fetch and the host tail (_finish_replay).
-        Returns (the replay's result on the host, events, unscheduled pods,
-        creation ranks)."""
+        `events` (ev_kind, ev_pod) replaces the pods' own stream, `fork` is
+        run_events'. Returns (the replay's result on the host, events,
+        unscheduled pods, creation ranks)."""
         t0 = time.perf_counter()
         specs = pods_to_specs(pods, self.node_index, self.device)
-        ev_kind, ev_pod = build_events(pods, use_timestamps)
+        ev_kind, ev_pod = events or build_events(pods, use_timestamps)
         out = self.run_events(state, specs, ev_kind, ev_pod, key=key,
-                              pod_rows=pods)
+                              pod_rows=pods, fork=fork)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
@@ -521,6 +926,44 @@ class Simulator:
         out, events, unscheduled, rank = self._replay_pods(
             self.init_state, pods, prng_key(self.cfg.seed),
             self.cfg.use_timestamps)
+        return self._record_result(out, pods, events, unscheduled, rank,
+                                   time.perf_counter() - t0)
+
+    def schedule_pods_fork(self, pods: Sequence[PodRow], fork_event: int,
+                           tail_kind, tail_pod) -> SimulateResult:
+        """Warm-state what-if (tpusim's schedule_pods_fork,
+        driver.py:1617-1671 of the reference): replay the stream
+        `base[:fork_event] + tail` over the same pods, resumed from the
+        base run's nearest checkpoint at or before fork_event, so only the
+        tail and at most one chunk of shared prefix run. The base must have
+        run on this configuration with checkpoint_every > 0 and
+        checkpoint_keep != 0; a missing source degrades to a full replay
+        (last_fork["degrade"]). Equal to schedule_pods over the spliced
+        stream, bit for bit. last_fork: the base digest, the fork event,
+        the source cursor, the events this call executed and the total."""
+        if self.typical is None:
+            self.set_typical_pods()
+        t0 = time.perf_counter()
+        base_kind, base_pod = build_events(pods, self.cfg.use_timestamps)
+        fev = int(fork_event)
+        if not 0 <= fev <= len(base_kind):
+            raise ValueError(f"fork_event {fev} outside the base stream "
+                             f"(0..{len(base_kind)})")
+        ev_kind = np.concatenate([base_kind[:fev],
+                                  np.asarray(tail_kind, base_kind.dtype)])
+        ev_pod = np.concatenate([base_pod[:fev],
+                                 np.asarray(tail_pod, base_pod.dtype)])
+        self._fork_stats = None
+        out, events, unscheduled, rank = self._replay_pods(
+            self.init_state, pods, prng_key(self.cfg.seed),
+            self.cfg.use_timestamps, events=(ev_kind, ev_pod),
+            fork=(base_kind, base_pod, fev))
+        stats = dict(self._fork_stats or {})
+        if stats:
+            stats["events_executed"] = max(
+                0, len(ev_kind) - int(stats["source_cursor"]))
+            stats["events_total"] = len(ev_kind)
+        self.last_fork = stats
         return self._record_result(out, pods, events, unscheduled, rank,
                                    time.perf_counter() - t0)
 
@@ -773,6 +1216,8 @@ class Simulator:
                        "model fault transitions)")
         if self.cfg.extenders:
             out.append("extenders")
+        if self.cfg.checkpoint_every:
+            out.append("checkpointing (composes with the segmented path)")
         if self.cfg.engine == "pallas":
             out.append("the fused pallas engine")
         return out
@@ -1388,6 +1833,53 @@ class Simulator:
         return amounts, requested, allocatable
 
 
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_ENGINE_SRC_DIGEST = None
+
+
+def _engine_source_digest() -> bytes:
+    """sha256 over the port's sources that determine a replay trajectory or
+    the carry's layout (sim/, policies/, ops/, types.py, constants.py,
+    io/storage.py and the kernels' .cu sources), after a tag naming the
+    port: the checkpoint and table-cache keys' salt. Editing any of them
+    starts runs fresh instead of resuming into divergence, and the port
+    never reads tpusim's files."""
+    global _ENGINE_SRC_DIGEST
+    if _ENGINE_SRC_DIGEST is None:
+        import glob
+
+        base = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        files = [os.path.join(base, rel) for rel in
+                 ("types.py", "constants.py", "io/storage.py")]
+        for pattern in ("sim/*.py", "policies/*.py", "ops/*.py",
+                        "kernels/*.cu"):
+            files += glob.glob(os.path.join(base, pattern))
+        h = hashlib.sha256(b"tpusim_torch replay checkpoint\0")
+        for path in sorted(files):
+            h.update(os.path.relpath(path, base).encode() + b"\0")
+            with open(path, "rb") as f:
+                h.update(f.read())
+        _ENGINE_SRC_DIGEST = h.digest()
+    return _ENGINE_SRC_DIGEST
+
+
+def enable_compile_cache(cache_dir: str = ""):
+    """Build and look for the kernels' library in `cache_dir`, else in
+    $TPUSIM_COMPILE_CACHE_DIR (tpusim's enable_compile_cache, whose
+    artefact is the compiled scan; the port's is its kernel library).
+    Returns the directory, or None where neither is set (the default
+    .tpusim_torch_build/). A library a process has already loaded stays
+    loaded."""
+    from tpusim_torch import kernels
+
+    d = cache_dir or os.environ.get("TPUSIM_COMPILE_CACHE_DIR", "")
+    if not d:
+        return None
+    kernels.set_build_dir(d)
+    return d
+
+
 def _bellman_source_digest() -> bytes:
     """The Bellman cache key's salt: a tag naming the port and the sha256
     of its evaluator's source, so a changed evaluator misses every entry."""
@@ -1997,7 +2489,7 @@ def format_sweep_table(lanes: Sequence[SweepLane], policies) -> str:
 # the settings every Simulator of a seed batch must share
 _BATCH_SHARED = ("policies", "gpu_sel_method", "dim_ext_method",
                  "norm_method", "report_per_event", "use_timestamps",
-                 "table_residency", "typical_pods", "engine")
+                 "table_residency", "typical_pods", "engine", "block_size")
 
 
 def schedule_pods_batch(sims: Sequence[Simulator], pods_list,

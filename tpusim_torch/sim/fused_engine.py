@@ -49,7 +49,7 @@ from tpusim_torch.constants import (
     NUM_AFF_CLASSES,
 )
 from tpusim_torch.kernels import MAX_POLICIES, scratch_bytes, staged
-from tpusim_torch.ops.prng import event_keys
+from tpusim_torch.ops.prng import advance_key, event_keys
 from tpusim_torch.ops.resource import (
     allocate_share_best,
     allocate_share_random,
@@ -261,10 +261,26 @@ def root_key(key, cfg: ReplayConfig):
     return tuple(words)
 
 
+def key_tensor(words, device) -> torch.Tensor:
+    """A key's two uint32 words as an int32 [2] tensor of the same bits
+    (the layout of the kernels' key_out)."""
+    return torch.from_numpy(np.asarray(
+        [int(w) & 0xFFFFFFFF for w in words], np.uint32).view(np.int32)
+    ).to(device)
+
+
+def mask_bits(masks: torch.Tensor) -> torch.Tensor:
+    """Device masks bool [P, 8] as the kernels' int32 bits a pod."""
+    lane = torch.arange(MAX_GPUS_PER_NODE, device=masks.device,
+                        dtype=torch.int32)
+    return (masks.to(torch.int32) << lane).sum(1, dtype=torch.int32)
+
+
 def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
                      ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                      tp: TypicalPods, tables, cfg: ReplayConfig,
-                     select, keep: dict = None, key=None, faults=None):
+                     select, keep: dict = None, key=None, faults=None,
+                     start=None):
     """The event loop of the plain replays. Before each event the column of
     the node the previous event touched is refreshed in copies of the
     (score, sdev, feas) `tables`; then `select(tables, dirty, kind, type,
@@ -272,8 +288,12 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
     node (-1 = none), which Reserve and Bind take. A delete returns the
     pod's resources to the devices it held. A randomized `cfg` draws from
     the event key chain of root `key` (k_rand, k_sel of each event; None
-    otherwise). Inputs are left unchanged; with `keep`, the final tables
-    are stored in keep["tables"].
+    otherwise). `start`, where given, is (placed, mask bits, failed), int32
+    [P] each: the pods' placements so far, which a delete reads (a chunk
+    of a longer stream); none placed otherwise. Inputs are left unchanged;
+    with `keep`, the final tables are stored in keep["tables"] and, where
+    `key` is given, the chain's key after the last event in keep["key"]
+    (key_tensor).
 
     With `faults` (a fault_lane.FaultLane) the events are a merged stream
     of fault_lane.compile_fault_plan, run as tpusim's table engine runs its
@@ -301,8 +321,12 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
     type_id = types.type_id.tolist()
     kinds, ev_pods = ev_kind.tolist(), ev_pod.tolist()
     placed, maskb, failed = [-1] * p, [0] * p, [0] * p
+    if start is not None:
+        placed, maskb, failed = (t.tolist() for t in start)
     evnode, evdevb = [-1] * e, [0] * e
     key = root_key(key, cfg)
+    if keep is not None and key is not None:
+        keep["key"] = key_tensor(advance_key(key, e), dev)
     k_rand = k_sel = [None] * e
     if cfg.randomized:
         k_rand, k_sel = (k.tolist() for k in event_keys(key, e))
@@ -436,9 +460,8 @@ class _FaultSteps:
                 self.frag)
             for name in ("cpu_left", "mem_left", "gpu_left", "aff_cnt"):
                 getattr(self.live, name).copy_(getattr(state, name))
-            lane = torch.arange(MAX_GPUS_PER_NODE, device=dev)
             placed[:] = pl.tolist()
-            maskb[:] = (masks.to(torch.int32) << lane).sum(1).tolist()
+            maskb[:] = mask_bits(masks).tolist()
             failed[:] = fd.to(torch.int32).tolist()
             for name in ("vpod", "vnode", "nvict", "rec", "fb", "fa"):
                 self.ys[name][i] = getattr(y, name).item()
@@ -463,12 +486,13 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                  ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                  tp: TypicalPods, rank: torch.Tensor, tables,
                  cfg: ReplayConfig, keep: dict = None,
-                 key=None, faults=None):
+                 key=None, faults=None, start=None):
     """The plain version of the `replay` kernel: an event loop over tensor
     ops. `tables` are the (score, sdev, feas) tables of the initial state.
     selectHost scans the event type's row over all N nodes; RandomScore's
-    row is the event's draw from `key`'s chain. With `keep`, the final
-    tables are stored in keep["tables"]. With `faults` (a
+    row is the event's draw from `key`'s chain. `start` and `keep` are
+    plain_event_loop's (the final tables, and the chain's key after the
+    last event). With `faults` (a
     fault_lane.FaultLane over a merged stream) it is the plain version of
     `replay_faults` and returns (ReplayResult, fault_lane.FaultOut)."""
     k, n = types.num_types, state.num_nodes
@@ -499,7 +523,7 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
         return int(torch.where(key == m, node_ids, n).min())
 
     return plain_event_loop(state, pods, types, ev_kind, ev_pod, tp, tables,
-                            cfg, select, keep, key, faults)
+                            cfg, select, keep, key, faults, start)
 
 
 # ---------------------------------------------------------------------------
@@ -670,18 +694,25 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                    ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                    tp: TypicalPods, rank: torch.Tensor, tables,
                    cfg: ReplayConfig, name: str = "replay", key=None,
-                   **extra) -> Launch:
+                   start=None, key_out: bool = False, **extra) -> Launch:
     """The `replay` launch over CUDA tensors (or that of kernel `name`,
     which takes the same arguments and the `extra` tensors), from the root
     `key` where `cfg` is randomized. It mutates copies of the state
     (tensors "cpu_left", "mem_left", "gpu_left", "aff_cnt") and of the
-    tables ("score", "sdev", "feas"), and writes "placed" (initially -1),
-    "maskb" and "failed" (initially 0) and the per-event outputs. A shape
-    past the staged limits (kernels.staged) gets the global form: a
-    "scratch" buffer in device memory."""
+    tables ("score", "sdev", "feas"), and writes "placed", "maskb" and
+    "failed" (copies of `start`'s (placed, mask bits, failed), int32 [P]
+    each, where given; else -1, 0 and 0) and the per-event outputs. With
+    `key_out` (and a `key`), the kernel writes the chain's key after the
+    last event into "key_out" (key_tensor; the root key if there is no
+    event). A shape past the staged limits (kernels.staged) gets the global
+    form: a "scratch" buffer in device memory."""
     dev = state.cpu_left.device
     _cuda_only(dev, name)
     key = root_key(key, cfg)
+    if key_out:
+        if key is None:
+            raise ValueError("key_out needs the replay's root key")
+        extra["key_out"] = key_tensor(key, dev)
     if not staged(types.num_types, tp.size):
         nbytes = scratch_bytes(types.num_types, tp.size, len(cfg.policies),
                                name.startswith("replay_blocked"))
@@ -700,9 +731,14 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
     def out(size):
         return torch.empty(size, dtype=torch.int32, device=dev)
 
-    placed, maskb, failed = (torch.full((p,), -1, dtype=torch.int32,
-                                        device=dev), out(p).zero_(),
-                             out(p).zero_())
+    if start is None:
+        placed, maskb, failed = (torch.full((p,), -1, dtype=torch.int32,
+                                            device=dev), out(p).zero_(),
+                                 out(p).zero_())
+    else:
+        placed, maskb, failed = (_i32(t, "start").clone() for t in start)
+        if any(t.shape != (p,) for t in (placed, maskb, failed)):
+            raise ValueError("start must be three int32 [P] tensors")
     ev_node, ev_devb = out(e), out(e)
     args, keep = _args(
         live, types.stacked(), types.num_share, tp, tables, cfg,
@@ -720,21 +756,37 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
 def replay(state: NodeState, pods: PodSpec, types: PodTypes,
            ev_kind: torch.Tensor, ev_pod: torch.Tensor, tp: TypicalPods,
            rank: torch.Tensor, tables, cfg: ReplayConfig,
-           key=None) -> ReplayResult:
+           key=None, start=None, keep: dict = None) -> ReplayResult:
     """Replay every event from `state` with the (score, sdev, feas) tables
     of `state` under `cfg`, drawing from root `key` where `cfg` is
     randomized: the `replay` CUDA kernel on CUDA tensors, plain_replay on
-    CPU tensors. Inputs are left unchanged. The kernel trusts the event
-    kinds, the pod indices and `types.type_id`: the replayer of
-    make_fused_replay checks the events on the host first, and
-    build_pod_types makes type ids in range."""
+    CPU tensors. `start` (placed, mask bits, failed; int32 [P]) continues
+    a stream whose earlier events placed pods. With `keep`, the final
+    tables land in keep["tables"] and, where `key` is given, the chain's
+    key after the last event in keep["key"] (an int32 [2] tensor of its
+    bits). Inputs are left unchanged. The kernel trusts the event kinds,
+    the pod indices and `types.type_id`: the replayer of make_fused_replay
+    checks the events on the host first, and build_pod_types makes type ids
+    in range."""
     if state.cpu_left.device.type == "cpu":
         return plain_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
-                            tables, cfg, key=key)
+                            tables, cfg, keep=keep, key=key, start=start)
     ready = prepare_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
-                           tables, cfg, key=key)
+                           tables, cfg, key=key, start=start,
+                           key_out=keep is not None and key is not None)
     launch(ready)
     replay.launches += 1
+    return kept(ready, keep)
+
+
+def kept(ready: Launch, keep: dict):
+    """A replay launch's result; with `keep`, its final tables and (where
+    it wrote one) its key_out stored as the plain versions store them."""
+    if keep is not None:
+        keep["tables"] = tuple(ready.tensors[name]
+                               for name in ("score", "sdev", "feas"))
+        if "key_out" in ready.tensors:
+            keep["key"] = ready.tensors["key_out"]
     return ready.finish()
 
 

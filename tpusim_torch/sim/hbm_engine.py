@@ -223,12 +223,17 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                          ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                          tp: TypicalPods, rank: torch.Tensor, tables,
                          cfg: fe.ReplayConfig, keep: dict = None,
-                         on_refresh=None, faults=None):
+                         on_refresh=None, faults=None, key=None,
+                         start=None):
     """The plain version of the `replay_blocked` kernel: an event loop over
     tensor ops, returning (ReplayResult, stats i32[3]). The node axis of
     `state`, `rank` and the (score, sdev, feas) `tables` of the initial
-    state is a whole number of 128-node blocks. With `keep`, the final
-    tables and Summaries are stored in it ("tables", "summaries").
+    state is a whole number of 128-node blocks. `start` and `key` are
+    fused_engine.plain_event_loop's: a chunk of a longer stream starts from
+    its pods' placements so far, and the chain from `key` advances one step
+    an event (the blocked replay draws nothing). With `keep`, the final
+    tables and Summaries are stored in it ("tables", "summaries"), and,
+    where `key` is given, the chain's key after the last event ("key").
     `on_refresh(dirty, old, new, tables, before, after)`, where given, is
     called after each dirty-block refresh with the dirty column's (raws,
     Filter bits) before and after the column refresh, the refreshed
@@ -290,7 +295,8 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
         return int(bn[tid, c]) if int(key[c]) != -_INT_MAX else -1
 
     result = fe.plain_event_loop(state, pods, types, ev_kind, ev_pod, tp,
-                                 tables, cfg, select, keep, faults=faults)
+                                 tables, cfg, select, keep, key=key,
+                                 faults=faults, start=start)
     if keep is not None:
         keep["summaries"] = summ
     stats = torch.tensor([0, 0, rebuilds], dtype=torch.int32,
@@ -318,14 +324,17 @@ def _summary_buffers(n: int, k: int, cfg: fe.ReplayConfig, device,
 def prepare_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                            ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                            tp: TypicalPods, rank: torch.Tensor, tables,
-                           cfg: fe.ReplayConfig) -> fe.Launch:
+                           cfg: fe.ReplayConfig, key=None, start=None,
+                           key_out: bool = False) -> fe.Launch:
     """The `replay_blocked` launch over CUDA tensors: `replay`'s arguments
-    and outputs, the summaries it builds and maintains, and "stats"."""
+    and outputs (fused_engine.prepare_replay's `start` and `key_out`
+    included), the summaries it builds and maintains, and "stats"."""
     check_blocked(state.num_nodes, cfg)
     summaries = _summary_buffers(state.num_nodes, types.num_types, cfg,
                                  rank.device)
     ready = fe.prepare_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
-                              tables, cfg, name="replay_blocked", **summaries)
+                              tables, cfg, name="replay_blocked", key=key,
+                              start=start, key_out=key_out, **summaries)
     return ready._replace(
         finish=lambda: (ready.finish(), ready.tensors["stats"]))
 
@@ -357,21 +366,25 @@ def prepare_replay_blocked_faults(state: NodeState, pods: PodSpec,
 def replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                    ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                    tp: TypicalPods, rank: torch.Tensor, tables,
-                   cfg: fe.ReplayConfig):
+                   cfg: fe.ReplayConfig, key=None, start=None,
+                   keep: dict = None):
     """Replay every event from `state` with the (score, sdev, feas) tables
     of `state` under `cfg`, selecting over 128-node block summaries: the
     `replay_blocked` CUDA kernel on CUDA tensors, plain_replay_blocked on
     CPU tensors. Returns (ReplayResult, stats i32[3]); inputs are left
-    unchanged. The node axis is a whole number of blocks. The kernel
-    trusts the events as `replay` does."""
+    unchanged. The node axis is a whole number of blocks. `key`, `start`
+    and `keep` are fused_engine.replay's (keep["summaries"] only from the
+    plain version). The kernel trusts the events as `replay` does."""
     if state.cpu_left.device.type == "cpu":
         return plain_replay_blocked(state, pods, types, ev_kind, ev_pod, tp,
-                                    rank, tables, cfg)
-    ready = prepare_replay_blocked(state, pods, types, ev_kind, ev_pod, tp,
-                                   rank, tables, cfg)
+                                    rank, tables, cfg, keep=keep, key=key,
+                                    start=start)
+    ready = prepare_replay_blocked(
+        state, pods, types, ev_kind, ev_pod, tp, rank, tables, cfg, key=key,
+        start=start, key_out=keep is not None and key is not None)
     fe.launch(ready)
     replay_blocked.launches += 1
-    return ready.finish()
+    return fe.kept(ready, keep)
 
 
 def replay_blocked_faults(state: NodeState, pods: PodSpec, types: PodTypes,
