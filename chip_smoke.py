@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only lane      # the in-scan fault lane
     python3 chip_smoke.py --only seq       # the sequential oracle
     python3 chip_smoke.py --only ckpt      # chunks, resume, forks, cache
+    python3 chip_smoke.py --only obs       # decisions, series, spans
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
@@ -222,6 +223,30 @@ result line:
            the table cache, a miss then a hit (no init_tables launch), the
            hit's load timed against init_tables' launch. Writes
            chiprun_out/ckpt_phase.json.
+13. obs   the record forms of the replay kernels (replay_records.cu and
+           replay_blocked_records.cu: counters, decisions, the series, the
+           heartbeat ring) on their
+           path, the launch counts set to 0 before each run and read after
+           it: Simulator.run() of openb 06-FGD with record_decisions and
+           series_every OBS_EVERY under residency "auto"
+           (`replay_record`) and "hbm" (`replay_blocked_record`): one
+           init_tables and one record launch each, placements and masks
+           held to METHODS, the decisions (INVARIANT_FIELDS), the series
+           and the counters to tpusim's table engine (DECISIONS_SHA256,
+           SERIES_SHA256, OBS_COUNTERS), the blocked block column to the
+           JAX blocked engine's (BLOCK_SHA256); the sequential oracle's
+           decisions over the first OBS_PREFIX events on the card equal
+           the kernel's; `diff` of 06-FGD's decision file against
+           05-BestFit's (exit 1, DIFF_FIRST_EVENT) and `explain` of that
+           event; a profiled run (profile=True, reports on): its spans,
+           its JSONL, Prometheus and Chrome files parsed back; each record
+           form alone against its plain version (CPU copies, tolerance 0)
+           over the first OBS_KERNEL_EVENTS openb events and on a random
+           cluster of a normalised configuration with pinned pods and
+           carried counters, timed (CUDA events, median of 3) beside the
+           form that records nothing; the heartbeat over the scale phase's
+           first chunk (OBS_HEARTBEAT_EVENTS events at 100k nodes) with
+           its exact tick count. Writes chiprun_out/obs_phase.json.
 
 Run with every phase, it then prints one JSON line describing the
 kernels, the card's line, and as the last line {"ok": true, "device":
@@ -5101,8 +5126,501 @@ def ckpt_path(device, card: str):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the obs records (--only obs)
+# ---------------------------------------------------------------------------
+
+# the record forms of the replay kernels, a source each
+RECORD_SOURCES = {
+    "replay_record": "tpusim_torch/kernels/replay_records.cu",
+    "replay_blocked_record": "tpusim_torch/kernels/replay_blocked_records.cu",
+}
+RECORD_KERNELS = tuple(RECORD_SOURCES)
+OBS_EVERY = 100  # the series' stride of the openb record runs
+OBS_PREFIX = 400  # events of the oracle's decisions against the kernels'
+OBS_HEARTBEAT = 20_000  # the heartbeat's stride on the scale chunk
+OBS_HEARTBEAT_EVENTS = 200_000  # the scale phase's first chunk
+# tpusim's table engine on the CPU, openb 06-FGD (METHODS' configuration,
+# record_decisions, series_every OBS_EVERY): sha256 of the decision
+# stream's INVARIANT_FIELDS (int32, field order, block_size -1), of its
+# series (SeriesLog pos..score_lo as int64), of the blocked engine's block
+# column (block_size 128), its counters (the run record's, padding
+# corrected) and the first event where 05-BestFit's decisions diverge
+DECISIONS_SHA256 = (
+    "2d199fd57240a9347a0923520de6974507e8bc0968b365a8b6217a93ec439414")
+SERIES_SHA256 = (
+    "ac4cad5e8676323b81575cc36ef447383b284e8728b77acf9daa75b0253193ea")
+BLOCK_SHA256 = (
+    "d12a7a9d2f27241d652c6132d59b0f4e54c1a8709a36c7df47230b9e96f56c05")
+OBS_SAMPLES = 109
+OBS_COUNTERS = {"creates": 10811, "binds": 8350, "fail_creates": 2461,
+                "deletes": 0, "skips": 0, "rebuilds": 0}
+BLOCKED_REBUILDS = 0
+DIFF_FIRST_EVENT = 0
+DIFF_DIVERGED = 8345
+# the record forms alone against their plain versions: the first events of
+# the openb 06-FGD trace (the plain version runs on the host)
+OBS_KERNEL_EVENTS = 500
+
+
+def decisions_digest(records) -> str:
+    """sha256 of a DecisionRecord stream's engine-invariant fields."""
+    from tpusim_torch.obs.decisions import INVARIANT_FIELDS
+
+    h = hashlib.sha256()
+    for f in INVARIANT_FIELDS:
+        h.update(np.ascontiguousarray(np.asarray(getattr(records, f)),
+                                      np.int32).tobytes())
+    return h.hexdigest()
+
+
+def series_digest(log) -> str:
+    """sha256 of a SeriesLog's sample fields (pos..score_lo, int64)."""
+    h = hashlib.sha256()
+    for f in log._fields[:-1]:
+        h.update(np.ascontiguousarray(np.asarray(getattr(log, f)),
+                                      np.int64).tobytes())
+    return h.hexdigest()
+
+
+def record_against_plain(name: str, args, cfg, spec, key=CHECK_KEY,
+                         n_real: int = None, timed: bool = False):
+    """A record form (`replay` or `replay_blocked` with `spec`, a
+    records.RecordSpec) launched past its wrapper on `args` = (state, pods,
+    types, ev_kind, ev_pod, typical pods, rank, tables), against its plain
+    version on CPU copies: the largest error over the outputs and the
+    records (counters, decision and sample rows); with `timed`, (that
+    error, the plain version's host milliseconds)."""
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    kw = dict(key=key) if name == "replay" else dict(n_real=n_real)
+    if name == "replay":
+        ready = fe.prepare_replay(*args, cfg, record=spec, **kw)
+    else:
+        ready = he.prepare_replay_blocked(*args, cfg, record=spec, **kw)
+    fe.launch(ready)
+    got = ready.finish()
+    plain = fe.plain_replay if name == "replay" else he.plain_replay_blocked
+    keep = {}
+    cpu_spec = spec._replace(ctr=None if spec.ctr is None
+                             else spec.ctr.cpu())
+    cpu_args = to_cpu(args)
+    t0 = time.perf_counter()
+    want = plain(*cpu_args, cfg, keep=keep, record=cpu_spec, **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want = (want, keep["records"]) if name == "replay" else \
+        (*want, keep["records"])
+    err = max_abs_err(to_cpu(got), to_cpu(want))
+    return (err, plain_ms) if timed else err
+
+
+def record_reset(ready, state, tables):
+    """reset_of's function for a record launch: also the counters it reads
+    and writes back (zeros)."""
+    base = reset_of(ready, state, tables)
+
+    def reset():
+        base()
+        ready.tensors["ctr"].zero_()
+    return reset
+
+
+def obs_runs(device, card: str, nodes, pods) -> dict:
+    """The openb 06-FGD record runs through Simulator.run(), residency auto
+    (`replay`'s record form) and hbm (`replay_blocked`'s): launches,
+    placements against METHODS, decisions, series and counters against
+    tpusim's digests; the blocked decisions' block column against the
+    JAX blocked engine's."""
+    import torch
+
+    from tpusim_torch.obs.counters import INVARIANT_FIELDS
+    from tpusim_torch.sim import fused_engine as fe
+
+    row = next(r for r in METHODS if r[0] == "06-FGD")
+    out = {}
+    for setting, tier in (("auto", "vmem"), ("hbm", "hbm")):
+        label = f"obs 06-FGD/{setting}"
+        sim = ckpt_sim("06-FGD", setting, device, nodes, pods,
+                       report_per_event=False, record_decisions=True,
+                       series_every=OBS_EVERY)
+        fe.reset_launch_counts()
+        ms, res = wall_ms(sim.run)
+        counts = run_counts()
+        kernel = "replay_record" if tier == "vmem" else \
+            "replay_blocked_record"
+        if nonzero(counts) != {"init_tables": 1, kernel: 1}:
+            raise SmokeFailure(f"{label}: launches {nonzero(counts)}")
+        check_result_digests(label, res, row[5], row[6])
+        rec = res.decisions.records
+        got = dict(decisions=decisions_digest(rec),
+                   series=series_digest(res.series),
+                   samples=int(len(res.series.pos)),
+                   counters=res.telemetry.counters)
+        block = np.asarray(rec.block)
+        if tier == "hbm":
+            got["block"] = digest(block, np.int32)
+        elif (block != -1).any():
+            raise SmokeFailure(f"{label}: a flat decision carries a block")
+        invariant = {k: got["counters"][k] for k in INVARIANT_FIELDS}
+        want_ctr = {k: OBS_COUNTERS[k] for k in INVARIANT_FIELDS}
+        if (got["decisions"] != DECISIONS_SHA256
+                or got["series"] != SERIES_SHA256
+                or got["samples"] != OBS_SAMPLES or invariant != want_ctr
+                or got.get("block", BLOCK_SHA256) != BLOCK_SHA256):
+            raise SmokeFailure(f"{label}: records differ from tpusim's: "
+                               f"{got}")
+        print(f"obs {label}: {kernel} decisions sha256 {got['decisions']}, "
+              f"series sha256 {got['series']} ({got['samples']} samples), "
+              f"counters {got['counters']}"
+              + (f", block sha256 {got['block']}" if "block" in got else "")
+              + f", run {ms:.1f} ms (all equal tpusim's); card {card}")
+        out[setting] = dict(got, run_ms=ms, launches=counts, sim=sim,
+                            result=res)
+    if out["hbm"]["counters"]["rebuilds"] != BLOCKED_REBUILDS:
+        raise SmokeFailure(f"obs: replay_blocked's rebuilds "
+                           f"{out['hbm']['counters']['rebuilds']}, the JAX "
+                           f"blocked engine's {BLOCKED_REBUILDS}")
+    torch.cuda.synchronize()
+    return out
+
+
+def obs_oracle(device, card: str, nodes, pods, kernel_res) -> dict:
+    """The sequential oracle's decisions over the first OBS_PREFIX events
+    of the openb 06-FGD run, on the card, against the kernel's."""
+    from tpusim_torch.io.trace import build_events, pods_to_specs
+    from tpusim_torch.obs.decisions import INVARIANT_FIELDS
+
+    sim = ckpt_sim("06-FGD", "auto", device, nodes, pods,
+                   report_per_event=False, record_decisions=True,
+                   engine="sequential")
+    sim.set_typical_pods()
+    trace = sim.prepare_pods()[:OBS_PREFIX]
+    evk, evp = build_events(trace)
+    ms, out = wall_ms(lambda: sim.run_events(
+        sim.init_state, pods_to_specs(trace, sim.node_index, device), evk,
+        evp))
+    want = kernel_res.decisions.records
+    for f in INVARIANT_FIELDS:
+        a = np.asarray(getattr(out.decisions, f).cpu())
+        b = np.asarray(getattr(want, f))[:OBS_PREFIX]
+        if not np.array_equal(a, b):
+            raise SmokeFailure(f"obs oracle: {f} differs from the kernel's "
+                               f"at event {int(np.argwhere(a != b)[0][0])}")
+    print(f"obs oracle: the sequential oracle's {OBS_PREFIX} decisions on "
+          f"the card equal replay_record's ({ms:.0f} ms)")
+    return dict(events=OBS_PREFIX, ms=ms)
+
+
+def obs_diff(device, root: str, nodes, pods, fgd) -> dict:
+    """`diff` of 06-FGD's decision file against 05-BestFit's (both from
+    record runs on the card): exit code 1 and tpusim's first divergent
+    event."""
+    import contextlib
+    import io
+
+    from tpusim_torch.cli import main as cli_main
+    from tpusim_torch.obs.decisions import write_decisions
+
+    paths = {}
+    for mid, sim, res in (("06-FGD", fgd["sim"], fgd["result"]),
+                          ("05-BestFit", None, None)):
+        if sim is None:
+            sim = ckpt_sim(mid, "auto", device, nodes, pods,
+                           report_per_event=False, record_decisions=True)
+            res = sim.run()
+        paths[mid] = write_decisions(
+            os.path.join(root, f"{mid}.jsonl"), res.decisions,
+            list(sim.cfg.policies), sim._telemetry_meta(),
+            [p.name for p in res.pods])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli_main(["diff", paths["06-FGD"], paths["05-BestFit"]])
+    text = buf.getvalue()
+    if code != 1 or f"first divergence at event {DIFF_FIRST_EVENT} " not in \
+            text or f"{DIFF_DIVERGED} diverged placements" not in text:
+        raise SmokeFailure(f"obs diff: exit {code}, want 1 and event "
+                           f"{DIFF_FIRST_EVENT}:\n{text}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli_main(["explain", paths["06-FGD"], "--event",
+                         str(DIFF_FIRST_EVENT)])
+    if code != 0:
+        raise SmokeFailure(f"obs explain: exit {code}")
+    print("obs diff (06-FGD vs 05-BestFit):\n" + text.rstrip())
+    print("obs explain:\n" + buf.getvalue().rstrip())
+    return dict(first=DIFF_FIRST_EVENT, diverged=DIFF_DIVERGED)
+
+
+def obs_profile(device, card: str, root: str, nodes, pods) -> dict:
+    """A profiled openb 06-FGD run (per-event reports on, decisions, the
+    series): its spans, and its JSONL, Prometheus and Chrome files written
+    and parsed back."""
+    from tpusim_torch.obs import emitters
+    from tpusim_torch.obs.series import series_to_record, series_tracks
+
+    sim = ckpt_sim("06-FGD", "auto", device, nodes, pods, profile=True,
+                   record_decisions=True, series_every=OBS_EVERY)
+    ms, res = wall_ms(sim.run)
+    tel = sim.run_telemetry()
+    series = series_to_record(res.series, OBS_EVERY, ["FGDScore"])
+    record = emitters.build_record(tel, series=series)
+    tracks = sim.event_counter_series()
+    tracks.update(series_tracks(res.series))
+    files = dict(jsonl=os.path.join(root, "p.jsonl"),
+                 metrics=os.path.join(root, "m.prom"),
+                 trace=os.path.join(root, "t.json"))
+    emitters.emit_record(record, tel.spans, counter_series=tracks, **files)
+    back = emitters.read_jsonl(files["jsonl"])[-1]
+    prom = emitters.parse_prometheus_text(open(files["metrics"]).read())
+    with open(files["trace"]) as f:
+        trace = json.load(f)["traceEvents"]
+    names = {s.name for s in tel.spans}
+    need = {"typical_pods", "scan", "metrics_postpass", "fetch", "report"}
+    if back != json.loads(json.dumps(record)) or not need <= names or \
+            prom[("tpusim_events_total", ())] != tel.events or \
+            not any(e["ph"] == "C" for e in trace):
+        raise SmokeFailure(f"obs profile: spans {sorted(names)}, files do "
+                           "not read back")
+    spans = {}
+    for s in tel.spans:
+        d = spans.setdefault(s.name, dict(count=0, dispatch_s=0.0,
+                                          block_s=0.0))
+        d["count"] += 1
+        d["dispatch_s"] += s.dispatch_s
+        d["block_s"] += s.block_s
+    for name, d in spans.items():
+        print(f"obs span {name}: {d['count']}x dispatch "
+              f"{d['dispatch_s'] * 1e3:.1f} ms block "
+              f"{d['block_s'] * 1e3:.1f} ms")
+    print(f"obs profile: {len(prom)} Prometheus series, {len(trace)} trace "
+          f"events, run {ms:.0f} ms, wall_s {record['timing']['wall_s']}; "
+          f"card {card}")
+    return dict(spans=spans, run_ms=ms, prom_series=len(prom),
+                trace_events=len(trace))
+
+
+def obs_heartbeat(device, card: str, auto) -> dict:
+    """The heartbeat over the scale phase's first chunk (100k nodes,
+    OBS_HEARTBEAT_EVENTS events, `replay_blocked`'s record form): exactly
+    one tick a stride crossing, plus the final one, from the mapped ring,
+    beside the same chunk without records (host clock); then both kernels
+    alone over the chunk's first tenth."""
+    from tpusim_torch.obs import heartbeat
+    from tpusim_torch.sim import fused_engine as fe
+
+    sim = auto.sim
+    e = min(OBS_HEARTBEAT_EVENTS, len(auto.ev_kind))
+    args = (sim.init_state, auto.specs, auto.ev_kind[:e], auto.ev_pod[:e],
+            auto.types)
+    plain_ms, _ = wall_ms(lambda: sim.run_events(*args))
+    sim.cfg.heartbeat_every = OBS_HEARTBEAT
+    sim._table = None
+    lines = []
+    try:
+        fe.reset_launch_counts()
+        real = heartbeat.configure
+
+        def configure(*a, **k):
+            real(*a, **dict(k, sink=lines.append))
+        heartbeat.configure = configure
+        ms, _ = wall_ms(lambda: sim.run_events(*args))
+        ticks = heartbeat.tick_count()
+    finally:
+        heartbeat.configure = real
+        sim.cfg.heartbeat_every = 0
+        sim._table = None
+    counts = nonzero(run_counts())
+    want = e // OBS_HEARTBEAT + 1
+    if ticks != want or counts.get("replay_blocked_record") != 1:
+        raise SmokeFailure(f"obs heartbeat: {ticks} ticks, want {want}; "
+                           f"launches {counts}")
+    # the kernels alone over the chunk's first tenth (CUDA events, median
+    # of 3): the record form counting only (no ring, decision or sample)
+    # against the form that records nothing
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.records import RecordSpec
+
+    cut = e // 10
+    st, rk = pad_nodes(sim.init_state, sim.rank, 128)
+    cfg = sim._replay.config
+    tables = fe.init_tables(st, auto.types, sim.typical, cfg)
+    kargs = (st, auto.specs, auto.types,
+             torch.as_tensor(auto.ev_kind[:cut], device=device),
+             torch.as_tensor(auto.ev_pod[:cut], device=device), sim.typical,
+             rk, tables)
+    rec = he.prepare_replay_blocked(*kargs, cfg, record=RecordSpec(),
+                                    n_real=sim.init_state.num_nodes)
+    base = he.prepare_replay_blocked(*kargs, cfg)
+    rec_ms = kernel_ms(rec, 3, record_reset(rec, st, tables))
+    base_ms = kernel_ms(base, 3, reset_of(base, st, tables))
+    print(f"obs heartbeat: {ticks} ticks over {e} events at {OBS_HEARTBEAT} "
+          f"({len(lines)} lines printed, the rest rate-limited), "
+          f"{sim.last_engine}, run_events {ms:.0f} ms against {plain_ms:.0f} "
+          f"ms without records (host clock); the kernels alone over {cut} "
+          f"events: the record form counting only {rec_ms:.2f} ms, the "
+          f"form that records nothing {base_ms:.2f} ms; card {card}")
+    return dict(events=e, every=OBS_HEARTBEAT, ticks=ticks, ms=ms,
+                plain_ms=plain_ms, lines=len(lines), kernel_events=cut,
+                counting_kernel_ms=rec_ms, unrecorded_kernel_ms=base_ms)
+
+
+def record_bound(n: int, k: int, t: int, p: int, e: int, n_pol: int,
+                 creates: int, samples: int, refreshes: int, ops: float):
+    """(ms, what bounds it) of a record form as throughput_bound counts the
+    replay, plus the records: each decision's four passes read the type's
+    feasibility and score rows (4 (n_pol + 1) N bytes each) and do about
+    4 n_pol operations a node, each sample reads the cluster's state and
+    the type's rows (as a create) and does about 24 operations per (node,
+    typical pod) for the frag amounts, and the rows are written."""
+    from tpusim_torch.sim.records import dec_cols, ser_cols
+
+    state_bytes = n * (1 + 1 + 1 + 1 + 8 + 1) * 4
+    extra = (creates * 4 * 4 * (n_pol + 1) * n
+             + samples * (state_bytes + 2 * 4 * (n_pol + 1) * n)
+             + e * dec_cols(n_pol) * 4 + samples * ser_cols(n_pol) * 4)
+    base_ms, _ = throughput_bound(n, k, t, p, e, n_pol, refreshes, ops,
+                                  extra)
+    rec_ops = refreshes * ops + creates * 4 * 4 * n_pol * n \
+        + samples * 24 * n * t
+    by_ops = rec_ops / PEAK_INT32_PER_S * 1e3
+    return (by_ops, "operations") if by_ops > base_ms else (base_ms, "bytes")
+
+
+def obs_kernels(device, card: str) -> dict:
+    """Each record form alone against its plain version on the openb
+    06-FGD prefix (OBS_KERNEL_EVENTS events; decisions and the series at
+    OBS_EVERY): tolerance 0, CUDA events (median of 3) beside the form
+    that records nothing, the plain version's host time, the bound; and a
+    random blocked case of a normalised configuration."""
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.records import RecordSpec
+
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    e = OBS_KERNEL_EVENTS
+    evk, evp = evk[:e], evp[:e]
+    cfg = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    spec = RecordSpec(True, OBS_EVERY, 0)
+    kinds = evk.cpu().numpy()
+    rows = {}
+    for name in RECORD_KERNELS:
+        blocked = name == "replay_blocked_record"
+        st, rk = (pad_nodes(state, rank, 128) if blocked else (state, rank))
+        tables = fe.init_tables(st, types, tp, cfg)
+        args = (st, specs, types, evk, evp, tp, rk, tables)
+        n_real = state.num_nodes
+        err, plain_ms = record_against_plain(name[:-7], args, cfg, spec,
+                                             n_real=n_real, timed=True)
+        prep = he.prepare_replay_blocked if blocked else fe.prepare_replay
+        kw = dict(n_real=n_real) if blocked else dict(key=CHECK_KEY)
+        rec = prep(*args, cfg, record=spec, **kw)
+        base = prep(*args, cfg, **kw)
+        rec_ms = kernel_ms(rec, 3, record_reset(rec, st, tables))
+        base_ms = kernel_ms(base, 3, reset_of(base, st, tables))
+        got = rec.finish()
+        result = got[0]
+        refreshes = refreshes_of(result.event_node.cpu())
+        creates = int((kinds == 0).sum())
+        samples = int(got[-1].ser.shape[0])
+        ops = float(node_ops(cfg, state, types, tp).mean())
+        bound, by = record_bound(st.num_nodes, types.num_types, tp.size,
+                                 int(specs.cpu.shape[0]), e, 1, creates,
+                                 samples, refreshes, ops)
+        rows[name] = dict(max_abs_err=err, ms=rec_ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by, events=e,
+                          unrecorded_ms=base_ms,
+                          record_us_per_event=(rec_ms - base_ms) * 1e3 / e,
+                          samples=samples)
+        print(f"obs kernel {name}: max_abs_err {err} against its plain "
+              f"version, {rec_ms:.3f} ms over {e} openb events "
+              f"({base_ms:.3f} ms without records: "
+              f"{(rec_ms - base_ms) * 1e3 / e:.2f} us an event to record), "
+              f"plain {plain_ms:.0f} ms, bound {bound:.4f} ms ({by}); "
+              f"card {card}")
+    # a normalised configuration with pinned pods, flat and blocked
+    cfg = fe.make_config([("PWRScore", 500), ("BestFitScore", 300),
+                          ("FGDScore", 200)], "FGDScore")
+    state, pods, types, evk, evp, tp, rank = random_case(47, 300, 150,
+                                                         device)
+    for name in RECORD_KERNELS:
+        blocked = name == "replay_blocked_record"
+        st, rk = (pad_nodes(state, rank, 128) if blocked else (state, rank))
+        tables = fe.init_tables(st, types, tp, cfg)
+        err = record_against_plain(
+            name[:-7], (st, pods, types, evk, evp, tp, rk, tables), cfg,
+            RecordSpec(True, 7, 0, torch.tensor([3, 3, 0, 0, 4, 0],
+                                                dtype=torch.int32,
+                                                device=device), 7),
+            n_real=state.num_nodes)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        rows[name]["random_err"] = err
+    if any(r["max_abs_err"] for r in rows.values()):
+        raise SmokeFailure(f"obs kernels: a record form differs from its "
+                           f"plain version: {rows}")
+    return rows
+
+
+def obs_path(device, card: str, auto=None):
+    """Phase 13: the obs records (module docstring). Returns ({run label:
+    launch counts}, the record forms' kernel rows); chiprun_out/
+    obs_phase.json keeps the phase's numbers."""
+    import shutil
+    import tempfile
+
+    nodes, pods = openb_rows_port()
+    root = tempfile.mkdtemp(prefix="tpusim_obs_")
+    t0 = time.perf_counter()
+    try:
+        runs = obs_runs(device, card, nodes, pods)
+        out = dict(card=card, runs={k: {f: v[f] for f in v
+                                        if f not in ("sim", "result")}
+                                    for k, v in runs.items()})
+        out["oracle"] = obs_oracle(device, card, nodes, pods,
+                                   runs["auto"]["result"])
+        out["diff"] = obs_diff(device, root, nodes, pods, runs["auto"])
+        out["profile"] = obs_profile(device, card, root, nodes, pods)
+        out["kernels"] = obs_kernels(device, card)
+        if auto is None:
+            auto = scale_inputs(device)[2]
+        out["heartbeat"] = obs_heartbeat(device, card, auto)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    launches = {f"obs 06-FGD/{k}": v["launches"]
+                for k, v in out["runs"].items()}
+    print(f"obs phase: {out['phase_s']:.1f} s")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "obs_phase.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return launches, out["kernels"]
+
+
+def record_kernel_rows(rec_rows, launches):
+    """The kernels line's rows of the record forms: their numbers on the
+    openb 06-FGD prefix (the record form and its plain version on the same
+    inputs), and their launches on the obs phase's runs."""
+    rows = []
+    for name in RECORD_KERNELS:
+        r = dict(rec_rows[name])
+        rows.append(dict(
+            name=name, route="cuda", source=RECORD_SOURCES[name],
+            replaces=REPLACES[name[:-7]],
+            launches=sum(c.get(name, 0) for c in launches.values()),
+            max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
+            plain_ms=r.pop("plain_ms"), bound_ms=r.pop("bound_ms"),
+            bound_by=r.pop("bound_by"), library_ms=None, **r))
+    return rows
+
+
 PHASES = ("check", "clocks", "main", "apply", "scale", "sweep", "evict",
-          "lane", "seq", "ckpt")
+          "lane", "seq", "ckpt", "obs")
 
 
 def scale_inputs(device):
@@ -5382,7 +5900,9 @@ def main(argv=None) -> int:
               f"(route cuda, {SOURCE}, the lanes {LANES_SOURCE}, the chunk "
               f"forms of replay and replay_blocked {CHUNK_SOURCE}); fault "
               f"forms {', '.join(kernels.FAULT_KERNELS)} "
-              f"({', '.join(sorted(set(FAULT_SOURCES.values())))})")
+              f"({', '.join(sorted(set(FAULT_SOURCES.values())))}); record "
+              f"forms {', '.join(kernels.RECORD_KERNELS)} "
+              f"({', '.join(RECORD_SOURCES.values())})")
         kernels.library()
         from tpusim_torch import native
 
@@ -5394,6 +5914,7 @@ def main(argv=None) -> int:
         launches, clocks = {}, []
         errors = dict.fromkeys(kernels.KERNELS, 0)
         fault_rows = {}
+        setup = None
         if "check" in phases:
             measured, worst = check_kernels(device, card)
             blocked, err = check_blocked(device, card)
@@ -5448,6 +5969,11 @@ def main(argv=None) -> int:
             counts, _ = ckpt_path(device, card)
             launches.update(counts)
             print(f"phase ckpt done at {time.perf_counter() - t0:.1f} s")
+        if "obs" in phases:
+            counts, rec_rows = obs_path(device, card,
+                                        setup[2] if setup else None)
+            launches.update(counts)
+            print(f"phase obs done at {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -5460,8 +5986,9 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": kernel_rows(
             [k for k in kernels.KERNELS if k not in LANE_KERNELS], measured,
             blocked, launches, scale, errors) + lane_kernel_rows(
-                lane_rows, launches) + fault_kernel_rows(fault_rows,
-                                                         launches)}))
+                lane_rows, launches) + fault_kernel_rows(
+                    fault_rows, launches) + record_kernel_rows(
+                        rec_rows, launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

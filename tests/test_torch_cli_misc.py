@@ -93,11 +93,15 @@ def _run(**knobs):
     ("auto", 128, "plain_replay_blocked")])
 def test_engine_table_and_block_sizes_run(engine, block, kernel):
     """engine "table" and block_size -1, 0 and 128 run, through the kernel
-    block_size names, to the same bits."""
+    block_size names, to the same bits (the counters on their
+    engine-invariant prefix: `rebuilds` counts the blocked select's own
+    summary-row rebuilds)."""
     sim, out = _run(engine=engine, block_size=block)
     _, ref = _run()
     assert sim.last_engine == kernel
-    for a, b in zip(out, ref):
+    for name, a, b in zip(out._fields, out, ref):
+        if name == "counters":
+            a, b = a[:5], b[:5]
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b)
 

@@ -15,9 +15,11 @@ import torch
 from chip_smoke import (
     DIM_EXT, DOWN_CASE, DOWN_ROWS, INIT_NODES, INIT_ROWS, LANE_CASE_FLAGS,
     LANE_ROWS, METHODS, MIXES, NORM, PAST_LIMIT, PAST_LIMIT_ROWS,
-    RANDOMIZED_ROWS, SHAPE_CASES, SHAPE_ROWS, WIDE_BLOCKED, against_plain,
-    down_checks, fault_against_plain, fault_lanes_against_plain, init_case, init_config, lane_tables,
-    past_limit_errors, random_case, shape_errors, typed_case,
+    PAST_LIMIT, RANDOMIZED_ROWS, SHAPE_CASES, SHAPE_ROWS, WIDE_BLOCKED,
+    against_plain, down_checks, fault_against_plain,
+    fault_lanes_against_plain, init_case, init_config, lane_tables,
+    past_limit_errors, random_case, record_against_plain, shape_errors,
+    typed_case,
 )
 from tpusim_torch.io.trace import (
     build_events, load_node_csv, load_pod_csv, pods_to_specs,
@@ -793,3 +795,151 @@ def test_chunked_run_on_card_matches_unchunked(cuda_device, tmp_path,
     assert any("resumed replay at event 120/400" in line
                for line in sim.log.lines)
     _same_result(sim.last_result, runs[0][0])
+
+
+# the record forms (replay_records.cu, replay_blocked_records.cu): (label,
+# policies, gpu_sel, blocked)
+RECORD_CASES = (
+    ("06-FGD/flat", [("FGDScore", 1000)], "FGDScore", False),
+    ("06-FGD/blocked", [("FGDScore", 1000)], "FGDScore", True),
+    ("PWR+BestFit+FGD/flat", [("PWRScore", 500), ("BestFitScore", 300),
+                              ("FGDScore", 200)], "FGDScore", False),
+    ("PWR+BestFit+FGD/blocked", [("PWRScore", 500), ("BestFitScore", 300),
+                                 ("FGDScore", 200)], "FGDScore", True),
+    ("Simon/blocked", [("Simon", 1000)], "best", True),
+    ("profile/flat", [("Simon", 1), ("BestFitScore", 1), ("RandomScore", 1),
+                      ("DotProductScore", 1), ("FGDScore", 1),
+                      ("PWRScore", 1)], "best", False),
+    ("Random+random/flat", [("RandomScore", 1000)], "random", False),
+)
+
+
+def _record_spec(device, ctr=(3, 2, 1, 0, 4, 0)):
+    from tpusim_torch.sim.records import RecordSpec
+
+    t = torch.tensor(ctr, dtype=torch.int32, device=device)
+    return RecordSpec(True, 7, 0, t, ctr[0] + ctr[3] + ctr[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,policies,gpu_sel,blocked", RECORD_CASES,
+                         ids=[c[0] for c in RECORD_CASES])
+def test_record_forms_match_plain_on_card(cuda_device, label, policies,
+                                          gpu_sel, blocked):
+    """replay_record and replay_blocked_record against their plain versions
+    (CPU copies), tolerance 0 with the counters carried in, the decision
+    rows and the samples: on a seeded 300-node cluster with pinned pods and
+    deletes, and on the openb prefix's first 200 events."""
+    cfg = fe.make_config(policies, gpu_sel)
+    name = "replay_blocked" if blocked else "replay"
+    cases = [random_case(53, 300, 160, cuda_device)]
+    nodes = load_node_csv(os.path.join(
+        REPO, "data/csv/openb_node_list_gpu_node.csv"))
+    trace = load_pod_csv(os.path.join(
+        REPO, "data/csv/openb_pod_list_default.csv"))[:200]
+    sim = Simulator(nodes, SimulatorConfig(policies=tuple(policies),
+                                           gpu_sel_method=gpu_sel),
+                    device=cuda_device)
+    sim.set_workload_pods(trace)
+    sim.set_typical_pods()
+    specs = pods_to_specs(trace, sim.node_index, cuda_device)
+    evk, evp = (torch.as_tensor(a, device=cuda_device)
+                for a in build_events(trace))
+    from tpusim_torch.sim.table_engine import build_pod_types
+
+    cases.append((sim.init_state, specs, build_pod_types(specs), evk, evp,
+                  sim.typical, sim.rank))
+    for state, pods, types, evk, evp, tp, rank in cases:
+        st, rk = (pad_nodes(state, rank, 128) if blocked else (state, rank))
+        tables = fe.init_tables(st, types, tp, cfg)
+        assert record_against_plain(
+            name, (st, pods, types, evk, evp, tp, rk, tables), cfg,
+            _record_spec(cuda_device), n_real=state.num_nodes) == 0, label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", [c[0] for c in PAST_LIMIT])
+def test_record_global_forms_match_plain_on_card(cuda_device, label):
+    """The record forms' global instantiations (past the staged limits)
+    against their plain versions, flat and blocked, under 06-FGD."""
+    i = [c[0] for c in PAST_LIMIT].index(label)
+    _, ks, kw, t = PAST_LIMIT[i]
+    state, pods, types, evk, evp, tp, rank = typed_case(
+        300 + i, 130, ks, kw, t, max(ks + kw, 90), cuda_device, 60)
+    cfg = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    for name, (st, rk) in (("replay", (state, rank)),
+                           ("replay_blocked", pad_nodes(state, rank, 128))):
+        tables = fe.init_tables(st, types, tp, cfg)
+        assert record_against_plain(
+            name, (st, pods, types, evk, evp, tp, rk, tables), cfg,
+            _record_spec(cuda_device), n_real=state.num_nodes) == 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True], ids=["flat", "blocked"])
+def test_record_chunks_with_key_out_match_plain(cuda_device, blocked):
+    """A recording chunked replay (make_table_replay with decisions and the
+    series: the record forms with kKeyOut) on the card against the same
+    on the CPU: each chunk's carry (counters and key included) and
+    records, and the concatenated streams equal one recording launch."""
+    from tpusim_torch.sim import table_engine as te
+
+    runs = []
+    policies, gpu_sel = (([("RandomScore", 3), ("FGDScore", 1000)], "random")
+                         if not blocked else ([("FGDScore", 1000)],
+                                              "FGDScore"))
+    for dev in (cuda_device, torch.device("cpu")):
+        state, pods, types, evk, evp, tp, rank = random_case(61, 256, 300,
+                                                             dev)
+        fn = te.make_table_replay(policies, gpu_sel, 128 if blocked else -1,
+                                  decisions=True, series_every=9)
+        e = int(evk.shape[0])
+        carry = fn.init_carry(state, pods, types, tp, (0, 13), rank)
+        carries, decs, sers = [], [], []
+        for a, b in ((0, e // 3), (e // 3, e // 2), (e // 2, e)):
+            carry, (_, _, rec) = fn.run_chunk(carry, pods, types, evk[a:b],
+                                              evp[a:b], tp, rank)
+            carries.append(te.carry_arrays(carry))
+            decs.append(rec.dec.cpu())
+            sers.append(rec.ser.cpu())
+        whole = fn(state, pods, types, evk, evp, tp, (0, 13), rank)
+        runs.append((carries, torch.cat(decs), torch.cat(sers), whole))
+    (gpu, gdec, gser, gwhole), (cpu, cdec, cser, _) = runs
+    for g, c in zip(gpu, cpu):
+        for name in g:
+            assert np.array_equal(g[name], c[name]), name
+    assert torch.equal(gdec, cdec) and torch.equal(gser, cser)
+    pol = len(policies)
+    order = fe.make_config(policies, gpu_sel).order
+    from tpusim_torch.sim.records import decision_rows, sample_rows
+
+    want_dec = decision_rows(gdec.numpy(), pol, order)
+    want_ser = sample_rows(gser.numpy(), pol, order)
+    for a, b in zip(gwhole.decisions, want_dec):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    for a, b in zip(gwhole.series, want_ser):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residency", ["auto", "hbm"])
+def test_heartbeat_ring_ticks_on_card(cuda_device, residency):
+    """The kernels' heartbeat: a record launch ticks through the mapped
+    ring exactly once a stride crossing (events // every), plus the final
+    tick; the same run on the CPU ticks the same count from its loop."""
+    from tpusim_torch.obs import heartbeat
+
+    nodes = load_node_csv(os.path.join(
+        REPO, "data/csv/openb_node_list_gpu_node.csv"))[:300]
+    trace = load_pod_csv(os.path.join(
+        REPO, "data/csv/openb_pod_list_default.csv"))[:700]
+    counts = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sim = Simulator(nodes, SimulatorConfig(
+            policies=(("FGDScore", 1000),), gpu_sel_method="FGDScore",
+            heartbeat_every=50, table_residency=residency,
+            report_per_event=False), device=dev)
+        sim.set_workload_pods(trace)
+        sim.run()
+        counts.append(heartbeat.tick_count())
+    assert counts == [700 // 50 + 1] * 2

@@ -113,13 +113,6 @@ class ApplyOptions:
 
 # option -> (its flag, the ROADMAP queue-1 item that brings its plane)
 REFUSED_OPTIONS = {
-    "profile_out": ("--profile", "10 (in-scan records and obs spans)"),
-    "metrics_out": ("--metrics-out", "10 (in-scan records and obs spans)"),
-    "trace_out": ("--trace-out", "10 (in-scan records and obs spans)"),
-    "heartbeat_every": ("--heartbeat-every",
-                        "10 (in-scan records and obs spans)"),
-    "decisions_out": ("--decisions-out", "10 (in-scan records)"),
-    "series_every": ("--series-every", "10 (in-scan records)"),
     "listen": ("--listen", "14 (service plane)"),
     "policy": ("--policy", "12 (learned policy)"),
 }
@@ -190,6 +183,11 @@ class Applier:
             checkpoint_dir=self.options.checkpoint_dir,
             checkpoint_keep=self.options.checkpoint_keep,
             compile_cache_dir=self.options.compile_cache_dir,
+            profile=bool(self.options.profile_out or self.options.metrics_out
+                         or self.options.trace_out),
+            heartbeat_every=self.options.heartbeat_every,
+            record_decisions=bool(self.options.decisions_out),
+            series_every=self.options.series_every,
         )
 
     def _fault_config(self):
@@ -357,6 +355,9 @@ class Applier:
 
         result = sim.last_result
         sim.finish()
+        self._note_compile_cache(sim)
+        self._emit_telemetry(sim, out)
+        self._emit_decisions(sim, out)
         self._verdict(result, out)
         if self.options.report_tables:
             with self._timed("tables"):
@@ -376,6 +377,8 @@ class Applier:
         print(f"[Sweep] {len(lanes)} configs x {lanes[0].events} events "
               f"{_lanes_ran(sim)}", file=out)
         print(format_sweep_table(lanes, sim.cfg.policies), file=out)
+        self._note_compile_cache(sim)
+        self._emit_telemetry(sim, out)
 
     def _run_chaos(self, sim: Simulator, out):
         """`apply --sweep-faults`: load the lanes' fault documents, run the
@@ -388,6 +391,77 @@ class Applier:
         print(f"[Chaos] {len(lanes)} fault lanes x {lanes[0].events} events "
               f"{_lanes_ran(sim)}", file=out)
         print(format_chaos_table(lanes, sim.cfg.policies), file=out)
+        self._note_compile_cache(sim)
+        self._emit_telemetry(sim, out)
+
+    def _note_compile_cache(self, sim: Simulator):
+        """The build-cache note of the run's telemetry (the JSONL record's
+        timing.compile_cache; obs.spans.note_compile_cache)."""
+        from tpusim_torch.obs import note_compile_cache
+
+        cache_dir = self.options.compile_cache_dir or os.environ.get(
+            "TPUSIM_COMPILE_CACHE_DIR", "")
+        note_compile_cache(sim.obs, enabled=bool(cache_dir),
+                           cache_dir=cache_dir)
+
+    def _series_block(self, sim: Simulator):
+        """The run's series as a JSONL record block, or None when the
+        series was off (no key then)."""
+        res = getattr(sim, "last_result", None)
+        if res is None or res.series is None:
+            return None
+        from tpusim_torch.obs.series import series_to_record
+
+        return series_to_record(res.series, sim.cfg.series_every,
+                                [name for name, _ in sim.cfg.policies])
+
+    def _emit_telemetry(self, sim: Simulator, out):
+        """Write --profile (the JSONL run record, appended), --metrics-out
+        (the Prometheus textfile) and --trace-out (the Chrome trace, with
+        the post-pass's frag/alloc counter tracks and the series' tracks)
+        from the whole experiment's telemetry: every stage added its spans
+        and counters to the one recorder."""
+        o = self.options
+        if not (o.profile_out or o.metrics_out or o.trace_out):
+            return
+        from tpusim_torch.obs import emitters
+
+        telemetry = sim.run_telemetry()
+        record = emitters.build_record(telemetry,
+                                       series=self._series_block(sim))
+        counter_series = None
+        if o.trace_out:
+            counter_series = sim.event_counter_series()
+            last = getattr(sim, "last_result", None)
+            if last is not None and last.series is not None:
+                from tpusim_torch.obs.series import series_tracks
+
+                counter_series.update(series_tracks(last.series))
+        paths = emitters.emit_record(
+            record, telemetry.spans, jsonl=o.profile_out,
+            metrics=o.metrics_out, trace=o.trace_out,
+            counter_series=counter_series)
+        for p in paths:
+            print(f"[obs] wrote {p}", file=out)
+
+    def _emit_decisions(self, sim: Simulator, out):
+        """Write the run's decision stream (--decisions-out), the input of
+        `explain` and `diff`."""
+        path = self.options.decisions_out
+        if not path:
+            return
+        from tpusim_torch.obs import decisions as obs_decisions
+
+        res = sim.last_result
+        if res.decisions is None:
+            print("[obs] no decision stream recorded (engine without "
+                  "provenance support?)", file=out)
+            return
+        written = obs_decisions.write_decisions(
+            path, res.decisions, policies=list(sim.cfg.policies),
+            meta=sim._telemetry_meta(),
+            pod_names=[p.name for p in res.pods])
+        print(f"[obs] wrote {written}", file=out)
 
     def _export_snapshots(self, sim: Simulator, tag: str):
         exp = self.cr.custom_config.export

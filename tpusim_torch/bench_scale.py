@@ -27,7 +27,12 @@ DIR instead of launching init_tables; the line then says
 table_cache=hit|miss) and `--compile-cache-dir DIR` (where the kernels'
 library is built). `--unswitched` and `--pallas-ceiling` are XLA and Pallas
 layout knobs the port does not have: they raise, naming ROADMAP queue 1,
-item 6.
+item 6. The obs flags are bench_scale.py's: `--profile PATH` (the JSONL run
+record, spans split into dispatch and block), `--metrics-out PATH`
+(Prometheus textfile), `--trace-out PATH` (Chrome trace), `--heartbeat N`
+(a progress line every N events from inside the kernels' record forms) and
+`--series-every N` (the cluster time-series, in the record and the trace);
+`--listen` (the live endpoint) raises, naming ROADMAP queue 1, item 14.
 
     python -m tpusim_torch.bench_scale --nodes 1523 --pods 10000 \
         --sweep 1,16,64 [--sweep-out sweep.json]
@@ -118,11 +123,18 @@ class ScaleRun:
         """Replay the first `events` events (all by default) in pieces of
         `chunk`, carrying the node state. Returns (final state, each
         chunk's ReplayResult, failed creates, rebuilds of the blocked
-        replay)."""
+        replay). Each piece's series samples are rebased onto the
+        stream's event clock (`series_logs`), and its heartbeat ticks
+        report the stream's progress."""
+        from tpusim_torch.obs.series import log_from_stacked
+        from tpusim_torch.sim.records import on_host
+
         events = len(self.ev_kind) if events is None else events
         state, results, failed, rebuilds = self.sim.init_state, [], 0, 0
+        self.series_logs = []
         for lo in range(0, events, chunk):
             hi = min(lo + chunk, events)
+            self.sim._hb_base = lo
             res = self.sim.run_events(state, self.specs, self.ev_kind[lo:hi],
                                       self.ev_pod[lo:hi], self.types)
             state = res.state
@@ -130,6 +142,10 @@ class ScaleRun:
             failed += int(res.ever_failed.sum())
             if self.sim.last_kernel_stats is not None:
                 rebuilds += self.sim.last_kernel_stats[2]
+            if res.series is not None:
+                self.series_logs.append(log_from_stacked(
+                    on_host(res.series), base_pos=lo))
+        self.sim._hb_base = 0
         return state, results, failed, rebuilds
 
 
@@ -236,6 +252,23 @@ def main(argv=None) -> int:
                     help="tpusim's flat-select layout A/B: not in the port")
     ap.add_argument("--pallas-ceiling", action="store_true",
                     help="tpusim's Pallas residency ceiling: not in the port")
+    ap.add_argument("--profile", default="", metavar="PATH",
+                    help="profile the run (phase spans with their "
+                    "dispatch/block split, exact counters) and append the "
+                    "JSONL run record here")
+    ap.add_argument("--metrics-out", default="", metavar="PATH",
+                    help="write a Prometheus textfile of the run record")
+    ap.add_argument("--trace-out", default="", metavar="PATH",
+                    help="write a Chrome trace of the phase spans")
+    ap.add_argument("--heartbeat", type=int, default=0, metavar="EVENTS",
+                    help="a progress line (events/s, ETA) every N events "
+                    "from inside the kernels (0 = off)")
+    ap.add_argument("--series-every", type=int, default=0, metavar="EVENTS",
+                    help="sample the cluster time-series every N processed "
+                    "events (0 = off): into --profile's record and "
+                    "--trace-out's counter tracks")
+    ap.add_argument("--listen", default="", metavar="[HOST]:PORT",
+                    help="tpusim's live endpoint: not in the port yet")
     args = ap.parse_args(argv)
     if args.chunk <= 0:
         ap.error("--chunk must be positive")
@@ -245,6 +278,11 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"{flag} is an XLA or Pallas layout knob the PyTorch port "
                 "does not have (ROADMAP queue 1, item 6)")
+    if args.listen:
+        raise NotImplementedError(
+            "--listen needs the service plane the PyTorch port does not "
+            "have yet (ROADMAP queue 1, item 14 (service plane))")
+    profiling = bool(args.profile or args.metrics_out or args.trace_out)
     device = torch.device(args.device)
     if args.compile_cache_dir:
         print(f"[obs] compile cache at {args.compile_cache_dir}",
@@ -256,7 +294,10 @@ def main(argv=None) -> int:
                                 engine=args.engine,
                                 block_size=args.block_size,
                                 table_cache_dir=args.table_cache,
-                                compile_cache_dir=args.compile_cache_dir),
+                                compile_cache_dir=args.compile_cache_dir,
+                                profile=profiling,
+                                heartbeat_every=args.heartbeat,
+                                series_every=args.series_every),
                    device)
     if args.sweep:
         sizes = [int(x) for x in args.sweep.split(",") if x.strip()]
@@ -271,6 +312,7 @@ def main(argv=None) -> int:
         return 0
     walls = []
     for _ in range(2):  # cold, then warm
+        run.sim.obs.reset()  # the record describes the warm run
         _synchronize(device)
         t0 = time.perf_counter()
         state, _, failed, rebuilds = run.replay(args.chunk)
@@ -292,7 +334,49 @@ def main(argv=None) -> int:
         f"device={card}"
         + (f" table_cache={sim.last_table_cache}" if args.table_cache else "")
     )
+    if profiling:
+        emit_obs(run, args, k)
     return 0
+
+
+def emit_obs(run: ScaleRun, args, k: int) -> None:
+    """Write --profile / --metrics-out / --trace-out for the warm run, as
+    bench_scale.py does: its meta names the bench, the shape and the
+    select's block width."""
+    from tpusim_torch.obs import emitters, note_compile_cache
+    from tpusim_torch.obs.series import (
+        concat_series,
+        series_from_record,
+        series_to_record,
+        series_tracks,
+    )
+
+    sim = run.sim
+    cache_dir = args.compile_cache_dir or os.environ.get(
+        "TPUSIM_COMPILE_CACHE_DIR", "")
+    note_compile_cache(sim.obs, enabled=bool(cache_dir), cache_dir=cache_dir)
+    series_block = None
+    if args.series_every and run.series_logs:
+        series_block = series_to_record(
+            concat_series(run.series_logs), args.series_every,
+            [name for name, _ in sim.cfg.policies])
+    block = 128 if sim.last_residency == "hbm" else -1
+    record = emitters.build_record(
+        sim.run_telemetry(),
+        meta={"bench": "bench_scale", "nodes": args.nodes, "pods": args.pods,
+              "block": block, "types": k},
+        series=series_block)
+    counter_series = None
+    if args.trace_out:
+        counter_series = sim.event_counter_series()
+        if series_block is not None:
+            counter_series.update(series_tracks(
+                series_from_record(series_block)))
+    for p in emitters.emit_record(
+            record, sim.run_telemetry().spans, jsonl=args.profile,
+            metrics=args.metrics_out, trace=args.trace_out,
+            counter_series=counter_series):
+        print(f"[obs] wrote {p}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -40,6 +40,7 @@ ran.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -97,15 +98,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-keep", type=int, default=0,
                    help="0: keep the newest checkpoint until the run ends; "
                    "-1: keep all (fork sources); N: the newest N")
-    # tpusim's other apply flags: accepted, refused unless at their default
     p.add_argument("--profile", nargs="?",
                    const=os.path.join(".tpusim_obs", "tpusim_profile.jsonl"),
-                   default="")
-    p.add_argument("--metrics-out", default="")
-    p.add_argument("--trace-out", default="")
-    p.add_argument("--heartbeat-every", type=int, default=0)
-    p.add_argument("--decisions-out", default="")
-    p.add_argument("--series-every", type=int, default=0)
+                   default="", metavar="PATH",
+                   help="append the run's JSONL telemetry record (spans "
+                   "with their dispatch/block split, exact counters); "
+                   "synchronises on each phase")
+    p.add_argument("--metrics-out", default="", metavar="PATH",
+                   help="write the run record as a Prometheus textfile")
+    p.add_argument("--trace-out", default="", metavar="PATH",
+                   help="write a Chrome trace of the spans, with frag/alloc "
+                   "and series counter tracks")
+    p.add_argument("--heartbeat-every", type=int, default=0, metavar="N",
+                   help="a progress line every N processed events from "
+                   "inside the replay kernels (0 = off)")
+    p.add_argument("--decisions-out", default="", metavar="PATH",
+                   help="record every scheduling decision and write them "
+                   "as JSONL (the input of explain and diff)")
+    p.add_argument("--series-every", type=int, default=0, metavar="N",
+                   help="sample the cluster every N processed events into "
+                   "the run record's series block (0 = off)")
+    # tpusim's other apply flags: accepted, refused unless at their default
     p.add_argument("--listen", default="")
     p.add_argument("--sweep-weights", default="", metavar="WEIGHTS.json",
                    help="replace the main schedule with one sweep over a "
@@ -122,6 +135,26 @@ def build_parser() -> argparse.ArgumentParser:
                    ".tpusim_torch_build/)")
     p.add_argument("--policy", default="")
 
+    p_explain = sub.add_parser(
+        "explain", help="why a node won one scheduling decision (per-policy "
+        "score table from a --decisions-out JSONL)")
+    p_explain.add_argument("decisions", help="decision JSONL file")
+    p_explain.add_argument("-e", "--event", type=int, required=True,
+                           help="event index to explain")
+    p_diff = sub.add_parser(
+        "diff", help="first-divergence finder + divergence histogram "
+        "between two decision JSONLs (two runs/policies over the same "
+        "trace)")
+    p_diff.add_argument("run_a", help="decision JSONL of run A")
+    p_diff.add_argument("run_b", help="decision JSONL of run B")
+    p_diff.add_argument("--buckets", type=int, default=10,
+                        help="event-range buckets of the divergence "
+                        "histogram")
+    p_report = sub.add_parser(
+        "report", help="terminal summary of a run record's series "
+        "(min/median/max + sparkline, straight from the JSONL)")
+    p_report.add_argument("run", help="run-record JSONL (a --profile output "
+                          "of a --series-every run)")
     sub.add_parser("version", help="print version")
     p_doc = sub.add_parser("gen-doc", help="generate markdown CLI docs")
     p_doc.add_argument("-d", "--dir", default="docs", help="output directory")
@@ -174,12 +207,68 @@ def apply_options(args) -> ApplyOptions:
     )
 
 
+def cmd_explain(args) -> int:
+    """tpusim's explain: 0, or 2 with a one-line error on unusable input
+    (a missing, torn or edited file, an event out of range)."""
+    from tpusim_torch.obs import decisions as obs_decisions
+
+    try:
+        header, rows = obs_decisions.read_decisions(args.decisions)
+        print(obs_decisions.format_explain(header, rows, args.event))
+    except (OSError, ValueError, json.JSONDecodeError) as err:
+        print(f"tpusim explain: {err}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def cmd_diff(args) -> int:
+    """tpusim's diff: as diff(1), 0 when the placements are identical, 1
+    when they diverge, 2 on unusable input (files of different traces
+    included)."""
+    from tpusim_torch.obs import decisions as obs_decisions
+
+    try:
+        ha, ra = obs_decisions.read_decisions(args.run_a)
+        hb, rb = obs_decisions.read_decisions(args.run_b)
+        d = obs_decisions.run_diff(
+            ha, ra, hb, rb, label_a=os.path.basename(args.run_a),
+            label_b=os.path.basename(args.run_b), buckets=args.buckets)
+    except (OSError, ValueError, json.JSONDecodeError) as err:
+        print(f"tpusim diff: {err}", file=sys.stderr)
+        return 2
+    print(d["text"])
+    return 1 if d["first"] else 0
+
+
+def cmd_report(args) -> int:
+    """tpusim's report: the series block of the last record that has one;
+    2 on unusable input."""
+    from tpusim_torch.obs.emitters import read_jsonl
+    from tpusim_torch.obs.series import format_report
+
+    try:
+        records = read_jsonl(args.run)
+        with_series = [r for r in records if r.get("series")]
+        if not with_series:
+            raise ValueError(
+                f"{args.run}: no record carries a series block (was the "
+                "run made with --series-every and --profile?)")
+        print(format_report(with_series[-1]["series"]))
+    except (OSError, ValueError, json.JSONDecodeError) as err:
+        print(f"tpusim report: {err}", file=sys.stderr)
+        return 2
+    return 0
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.command == "apply":
         Applier(apply_options(args)).run()
         return 0
+    if args.command in ("explain", "diff", "report"):
+        return {"explain": cmd_explain, "diff": cmd_diff,
+                "report": cmd_report}[args.command](args)
     if args.command == "version":
         print(f"tpusim version {VERSION} (commit {COMMIT})")
         return 0

@@ -12,9 +12,13 @@ here runs when the module is imported.
 Each launcher takes a pointer to a `ReplayArgs` and the CUDA stream, and
 returns the launch's CUDA error code. `replay` and `replay_blocked` run
 their chunk forms (replay_chunks.cu) where `key_out` is set: those also
-write the event key chain's key after the last event. The replays' fault forms
+write the event key chain's key after the last event; where `ctr` is set,
+their record forms (replay_records.cu, replay_blocked_records.cu,
+`RECORD_KERNELS`), which also write the obs records
+(tpusim_torch/sim/records.py). The replays' fault forms
 (`FAULT_KERNELS`, the in-scan fault lane) read the fault fields of the
-same `ReplayArgs`. The lanes launchers (`LANE_KERNELS`)
+same `ReplayArgs`. `MappedBuffer` is a host buffer the card writes
+directly (the heartbeat's ring). The lanes launchers (`LANE_KERNELS`)
 take an array of B `ReplayArgs` in host memory, B, a device buffer of B
 `ReplayArgs` that they copy the array into on the stream, and the stream:
 block b of their grid replays lane b. They refuse lanes that would need
@@ -22,8 +26,8 @@ different instantiations of the kernel.
 
 A variant of the library is built from the same sources with extra
 preprocessor definitions (`VARIANTS`): "clocked" adds the phase clocks
-that chip_smoke.py reads. The main path loads the plain build, "" (no
-definitions).
+that chip_smoke.py reads (it has no record forms: their launchers refuse).
+The main path loads the plain build, "" (no definitions).
 """
 
 from __future__ import annotations
@@ -39,10 +43,13 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 # compiled apart, in parallel, and linked into one library (replay_lanes.cu
 # includes replay.cu's device code for the lanes kernels; the fault forms'
 # files include replay_lanes.cu's; replay_chunks.cu, replay.cu's, for the
-# chunk forms of replay and replay_blocked)
+# chunk forms of replay and replay_blocked; replay_records.cu and
+# replay_blocked_records.cu, replay.cu's, for their record forms, the
+# longest compiles, each in a source of its own)
 SOURCES = tuple(os.path.join(_DIR, name) for name in (
     "replay.cu", "replay_lanes.cu", "replay_faults.cu",
-    "replay_blocked_faults.cu", "replay_chunks.cu"))
+    "replay_blocked_faults.cu", "replay_chunks.cu", "replay_records.cu",
+    "replay_blocked_records.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
                          ".tpusim_torch_build")
 _build_dir = None  # set_build_dir's directory
@@ -59,6 +66,9 @@ KERNELS = ("init_tables", "replay", "replay_blocked", "replay_lanes",
 # the replays' fault forms (the in-scan fault lane, fault_lane.py)
 FAULT_KERNELS = ("replay_faults", "replay_blocked_faults",
                  "replay_lanes_faults", "replay_blocked_lanes_faults")
+# the replays' record forms, which `replay` and `replay_blocked` launch
+# where ReplayArgs.ctr is set (records.py)
+RECORD_KERNELS = ("replay_record", "replay_blocked_record")
 # the launchers that take an array of lanes (launch_lanes)
 LANE_KERNELS = ("replay_lanes", "replay_blocked_lanes", "replay_lanes_faults",
                 "replay_blocked_lanes_faults")
@@ -105,6 +115,9 @@ FAULT_POINTER_FIELDS = (
 )
 FAULT_SIZE_FIELDS = ("f_rows", "f_cols", "f_cap_r", "f_base", "f_cap",
                      "f_maxr", "f_nrec")
+# the record forms' pointers and sizes, after the fault fields (replay.cu)
+RECORD_POINTER_FIELDS = ("ctr", "rec_dec", "rec_ser", "hb_ring")
+RECORD_SIZE_FIELDS = ("rec_every", "hb_every", "hb_slots", "rec_nodes")
 
 
 class ReplayArgs(ctypes.Structure):
@@ -122,6 +135,8 @@ class ReplayArgs(ctypes.Structure):
         + [("key", ctypes.c_uint32 * 2)]
         + [(name, ctypes.c_void_p) for name in FAULT_POINTER_FIELDS]
         + [(name, ctypes.c_int32) for name in FAULT_SIZE_FIELDS]
+        + [(name, ctypes.c_void_p) for name in RECORD_POINTER_FIELDS]
+        + [(name, ctypes.c_int32) for name in RECORD_SIZE_FIELDS]
     )
 
 
@@ -232,7 +247,7 @@ def library(variant: str = "") -> ctypes.CDLL:
     """The loaded kernel library of a variant, built first if need be."""
     if variant not in _libs:
         lib = ctypes.CDLL(build(variant).path)
-        for name in KERNELS + FAULT_KERNELS:
+        for name in KERNELS + FAULT_KERNELS + RECORD_KERNELS:
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.POINTER(ReplayArgs), ctypes.c_int,
                             ctypes.c_void_p, ctypes.c_void_p]
@@ -245,6 +260,12 @@ def library(variant: str = "") -> ctypes.CDLL:
         lib.empty_launch.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
+        lib.mapped_alloc.argtypes = [ctypes.c_size_t,
+                                     ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.POINTER(ctypes.c_void_p)]
+        lib.mapped_alloc.restype = ctypes.c_int
+        lib.mapped_free.argtypes = [ctypes.c_void_p]
+        lib.mapped_free.restype = ctypes.c_int
         _libs[variant] = lib
     return _libs[variant]
 
@@ -296,3 +317,42 @@ def launch_empty(stream: int, variant: str = "") -> None:
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"empty launch failed: CUDA error {code} ({msg})")
+
+
+class MappedBuffer:
+    """`words` int32 words of pinned host memory mapped into the card's
+    address space (cudaHostAlloc with cudaHostAllocMapped, replay_records.cu
+    mapped_alloc): `device_ptr` is what a kernel writes through, `words()`
+    a numpy view of the host side. close() (or the buffer's collection)
+    frees it."""
+
+    def __init__(self, words: int):
+        import numpy as np
+
+        self.host_ptr = self.device_ptr = None
+        lib = library()
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        code = lib.mapped_alloc(4 * int(words), ctypes.byref(host),
+                                ctypes.byref(dev))
+        if code != 0:
+            msg = lib.kernel_error_string(code).decode()
+            raise RuntimeError(f"mapped_alloc failed: CUDA error {code} "
+                               f"({msg})")
+        self.host_ptr, self.device_ptr = host.value, dev.value
+        self._view = np.ctypeslib.as_array(
+            (ctypes.c_int32 * int(words)).from_address(self.host_ptr))
+
+    def words(self):
+        return self._view
+
+    def zero(self) -> None:
+        self._view[:] = 0
+
+    def close(self) -> None:
+        if self.host_ptr:
+            self._view = None
+            library().mapped_free(ctypes.c_void_p(self.host_ptr))
+            self.host_ptr = self.device_ptr = None
+
+    def __del__(self):
+        self.close()

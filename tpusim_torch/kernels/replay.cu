@@ -354,6 +354,23 @@ struct ReplayArgs {
   int32_t f_cap;
   int32_t f_maxr;
   int32_t f_nrec;
+  // The record forms' streams (replay_records.cu, replay_blocked_records.cu;
+  // null and unread in the others; tpusim_torch/sim/records.py): the
+  // counters [6] (obs/counters.py order), read at the launch's start and
+  // written back at its end; a decision row an event [e, 13 + 2 n_pol]
+  // (null: none); a row a real sample [s, 20 + 2 n_pol] (null: none); the
+  // heartbeat's host-mapped ring [1 + hb_slots] (null: none), word 0 the
+  // ticks written, slot 1 + j % hb_slots tick j's processed count. The
+  // series and heartbeat strides, the ring's slots, and the cluster's
+  // nodes before the blocked replay's padding.
+  int32_t* ctr;
+  int32_t* rec_dec;
+  int32_t* rec_ser;
+  int32_t* hb_ring;
+  int32_t rec_every;
+  int32_t hb_every;
+  int32_t hb_slots;
+  int32_t rec_nodes;
 };
 
 }  // extern "C"
@@ -2201,15 +2218,425 @@ __device__ __forceinline__ FaultShared* fault_shared(FaultSharedOf<kFaults>& f) 
   return nullptr;
 }
 
+
+// ---------------------------------------------------------------------------
+// The record forms: counters, decision rows, series samples and heartbeat
+// ticks (tpusim's table engine records, table_engine.py:642-661, :880-991,
+// :1095-1219; the row layouts of tpusim_torch/sim/records.py). Only the
+// kRecord instantiations of the replay bodies call these
+// (replay_records.cu, replay_blocked_records.cu); every branch on them is
+// `if constexpr`, so the other instantiations are the code they were.
+// ---------------------------------------------------------------------------
+
+constexpr int kTopK = 3;         // obs/decisions.py DECISION_TOPK
+constexpr int kDecFixed = 13;    // records.py DEC_FIXED
+constexpr int kUtilBuckets = 10;  // obs/series.py UTIL_BUCKETS
+constexpr int kFragClasses = 7;
+constexpr int kSerHist = 3;      // records.py SER_HIST
+constexpr int kSerFrag = kSerHist + kUtilBuckets;
+constexpr int kSerFixed = kSerFrag + kFragClasses;  // 20
+constexpr int kNumCounters = 6;
+constexpr int kQ2 = 1;
+constexpr int kQ3 = 2;
+
+struct RecordShared {
+  int ctr[kNumCounters];
+  int p0;     // processed events at the launch's start
+  int rows;   // sample rows written
+  int ticks;  // heartbeat ticks written
+  int pick;   // the event's RandomScore draw (-1 none)
+  int feasible;
+  int lo[kMaxPolicies];
+  int hi[kMaxPolicies];
+  int acc[kSerFixed + 2 * kMaxPolicies];
+};
+
+template <bool kRecord>
+using RecordSharedOf = typename std::conditional<kRecord, RecordShared, char>::type;
+
+template <bool kRecord>
+__device__ __forceinline__ RecordShared* record_shared(RecordSharedOf<kRecord>& r) {
+  if constexpr (kRecord) return &r;
+  return nullptr;
+}
+
+// thread 0, before the launch's first barrier
+__device__ void record_begin(const ReplayArgs& a, RecordShared& rs) {
+  for (int c = 0; c < kNumCounters; ++c) rs.ctr[c] = a.ctr[c];
+  rs.p0 = rs.ctr[0] + rs.ctr[3] + rs.ctr[4];
+  rs.rows = 0;
+  rs.ticks = 0;
+  rs.pick = -1;
+}
+
+// Thread 0, after event i's last barrier: its counters (counter_delta),
+// its decision row where it is no create (no_decision's sentinels), and a
+// heartbeat tick where the processed count after it sits on the stride
+// (the slot, a system fence, then the count of ticks, so that a reader
+// that sees the count sees the slot).
+__device__ void record_count(const ReplayArgs& a, RecordShared& rs, int i,
+                             int kind) {
+  if (kind == kCreate) {
+    const bool ok = a.ev_node[i] >= 0;
+    rs.ctr[0] += 1;
+    rs.ctr[ok ? 1 : 2] += 1;
+  } else {
+    rs.ctr[kind == kDelete ? 3 : 4] += 1;
+    if (a.rec_dec != nullptr) {
+      int* row = a.rec_dec + static_cast<size_t>(i) * (kDecFixed + 2 * a.n_pol);
+      row[0] = -1;
+      row[1] = 0;
+      row[2] = 0;
+      row[3] = -1;
+      for (int j = 0; j < kTopK; ++j) {
+        row[4 + j] = -1;
+        row[4 + kTopK + j] = 0;
+        row[4 + 2 * kTopK + j] = -1;
+      }
+      for (int j = 0; j < 2 * a.n_pol; ++j) row[kDecFixed + j] = 0;
+    }
+  }
+  if (a.hb_ring != nullptr && a.hb_every > 0) {
+    const int done = rs.p0 + i + 1;
+    if (done % a.hb_every == 0) {
+      volatile int* ring = a.hb_ring;
+      const int j = rs.ticks++;
+      ring[1 + j % a.hb_slots] = done;
+      __threadfence_system();
+      ring[0] = j + 1;
+      __threadfence_system();
+    }
+  }
+}
+
+// thread 0, after the event loop: the counters back (`rebuilds` the
+// launch's summary-row rebuilds)
+__device__ void record_end(const ReplayArgs& a, RecordShared& rs,
+                           int rebuilds) {
+  rs.ctr[5] += rebuilds;
+  for (int c = 0; c < kNumCounters; ++c) a.ctr[c] = rs.ctr[c];
+}
+
+// sum / max / min of every thread's v into shared acc (one atomic a warp)
+__device__ __forceinline__ void block_add(int* acc, int v) {
+  v = __reduce_add_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0 && v != 0) atomicAdd(acc, v);
+}
+__device__ __forceinline__ void block_max(int* acc, int v) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicMax(acc, v);
+}
+__device__ __forceinline__ void block_min(int* acc, int v) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicMin(acc, v);
+}
+
+// The node's seven frag amounts (node_frag_contrib), each summed over the
+// typical pods in ops/frag.py tree_sum's order (node_frag_rows): the pods
+// one by one up to 32 of them; past that, windows of 32 over the pods
+// padded by `lo` zero rows in front (zeros add nothing), each summed from
+// 0, and the window sums added in turn, again in windows of 32 past 32 of
+// them (the host refuses the series past 32 x 32 x 32 typical pods).
+// Reads the typical pods where the caller keeps them (all of them: the
+// tree's windows count the zero-frequency rows).
+__device__ void node_frag_amounts(const ReplayArgs& a, const NodeView& v,
+                                  float* out) {
+  const int T = a.t;
+  const int gsum = gpu_sum(v);
+  const float total = static_cast<float>(gsum);
+  const int pad1 = (32 - T % 32) % 32;
+  const int nw = T <= 32 ? 1 : (T + pad1) / 32;
+  const int lo1 = T <= 32 ? 0 : pad1 / 2;
+  const int pad2 = (32 - nw % 32) % 32;
+  const int ng = nw <= 32 ? 1 : (nw + pad2) / 32;
+  const int lo2 = nw <= 32 ? 0 : pad2 / 2;
+  const int wpg = nw <= 32 ? nw : 32;
+  for (int c = 0; c < kFragClasses; ++c) out[c] = 0.0f;
+  for (int g = 0; g < ng; ++g) {
+    float grp[kFragClasses];
+    for (int c = 0; c < kFragClasses; ++c) grp[c] = 0.0f;
+    for (int wg = 0; wg < wpg; ++wg) {
+      const int w = g * wpg + wg - lo2;
+      if (w < 0 || w >= nw) continue;
+      float win[kFragClasses];
+      for (int c = 0; c < kFragClasses; ++c) win[c] = 0.0f;
+      for (int j = 0; j < (T <= 32 ? T : 32); ++j) {
+        const int t = w * 32 + j - lo1;
+        if (t < 0 || t >= T) continue;
+        const int milli = a.tp_milli[t];
+        const int num = a.tp_num[t];
+        const int mask = a.tp_mask[t];
+        const float freq = a.tp_freq[t];
+        const bool cpu_ok = v.cpu >= a.tp_cpu[t];
+        int cls;
+        int small = 0;
+        if (milli == 0) {
+          cls = cpu_ok ? 4 : 5;
+        } else if (!(mask == 0 || (mask & v.bit) != 0)) {
+          cls = 6;
+        } else {
+          int fit = 0;
+#pragma unroll
+          for (int d = 0; d < kDevs; ++d) {
+            fit += v.g[d] >= milli ? 1 : 0;
+            small += v.g[d] < milli ? v.g[d] : 0;
+          }
+          cls = fit >= num ? (cpu_ok ? kQ3 : 3) : (cpu_ok ? kQ2 : 0);
+        }
+        if (cls == kQ3) {
+          const float s = static_cast<float>(small);
+          win[kQ2] = __fadd_rn(win[kQ2], __fmul_rn(freq, s));
+          win[kQ3] = __fadd_rn(win[kQ3], __fmul_rn(freq, __fsub_rn(total, s)));
+        } else {
+          win[cls] = __fadd_rn(win[cls], __fmul_rn(freq, total));
+        }
+      }
+      for (int c = 0; c < kFragClasses; ++c) grp[c] = __fadd_rn(grp[c], win[c]);
+    }
+    for (int c = 0; c < kFragClasses; ++c) out[c] = __fadd_rn(out[c], grp[c]);
+  }
+}
+
+// The series sample of event i (type `type`) into the next row of
+// a.rec_ser (obs/series.py build_sample): over the cluster's a.rec_nodes
+// nodes as committed, the utilisation histogram of the UP GPU nodes, the
+// DOWN nodes, and each UP node's frag amounts rounded half to even before
+// the integer sums; over the type's Filter row (no pin), the feasible count
+// and each policy's normalised extrema (two passes: the raw extrema, then
+// the normalised ones; RandomScore's slot 0). Every thread calls it; it
+// ends with a barrier.
+__device__ void record_sample(const ReplayArgs& a, RecordShared& rs, int i,
+                              int type) {
+  const int n_pol = a.n_pol;
+  const int na = kSerFixed + 2 * n_pol;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < na; ++j) rs.acc[j] = 0;
+    for (int pi = 0; pi < n_pol; ++pi) {
+      rs.lo[pi] = INT_MAX;
+      rs.hi[pi] = -INT_MAX;
+      rs.acc[kSerFixed + pi] = -INT_MAX;
+      rs.acc[kSerFixed + n_pol + pi] = INT_MAX;
+    }
+  }
+  __syncthreads();
+  int down = 0;
+  int feas = 0;
+  int fr[kFragClasses] = {0, 0, 0, 0, 0, 0, 0};
+  int lo[kMaxPolicies];
+  int hi[kMaxPolicies];
+  for (int pi = 0; pi < kMaxPolicies; ++pi) {
+    lo[pi] = INT_MAX;
+    hi[pi] = -INT_MAX;
+  }
+  const size_t row = static_cast<size_t>(type) * a.n;
+  for (int node = threadIdx.x; node < a.n; node += blockDim.x) {
+    if (node < a.rec_nodes) {
+      const NodeView v = load_node(a, node);
+      if (v.mem < 0) {
+        ++down;
+      } else {
+        if (v.gcnt > 0) {
+          const int cap = v.gcnt * kMilli;
+          const int b = floor_div((cap - gpu_sum(v)) * kUtilBuckets, max(cap, 1));
+          atomicAdd(&rs.acc[kSerHist + min(max(b, 0), kUtilBuckets - 1)], 1);
+        }
+        float amt[kFragClasses];
+        node_frag_amounts(a, v, amt);
+        for (int c = 0; c < kFragClasses; ++c) fr[c] += __float2int_rn(amt[c]);
+      }
+    }
+    if (a.feas[row + node] != 0) {
+      ++feas;
+      for (int pi = 0; pi < n_pol; ++pi) {
+        if (a.pol_norm[pi] == kNormNone || a.pol_column[pi] == kRandomScore)
+          continue;
+        const int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
+        lo[pi] = min(lo[pi], r);
+        hi[pi] = max(hi[pi], r);
+      }
+    }
+  }
+  block_add(&rs.acc[1], down);
+  block_add(&rs.acc[2], feas);
+  for (int c = 0; c < kFragClasses; ++c) block_add(&rs.acc[kSerFrag + c], fr[c]);
+  for (int pi = 0; pi < n_pol; ++pi) {
+    block_min(&rs.lo[pi], lo[pi]);
+    block_max(&rs.hi[pi], hi[pi]);
+  }
+  __syncthreads();
+  for (int pi = 0; pi < n_pol; ++pi) {
+    lo[pi] = INT_MAX;
+    hi[pi] = -INT_MAX;
+  }
+  for (int node = threadIdx.x; node < a.n; node += blockDim.x) {
+    if (a.feas[row + node] == 0) continue;
+    for (int pi = 0; pi < n_pol; ++pi) {
+      if (a.pol_column[pi] == kRandomScore) continue;
+      int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
+      if (a.pol_norm[pi] != kNormNone)
+        r = normalize(r, rs.lo[pi], rs.hi[pi], a.pol_norm[pi]);
+      hi[pi] = max(hi[pi], r);
+      lo[pi] = min(lo[pi], r);
+    }
+  }
+  for (int pi = 0; pi < n_pol; ++pi) {
+    block_max(&rs.acc[kSerFixed + pi], hi[pi]);
+    block_min(&rs.acc[kSerFixed + n_pol + pi], lo[pi]);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int* out = a.rec_ser + static_cast<size_t>(rs.rows++) * na;
+    const bool any = rs.acc[2] > 0;
+    out[0] = rs.p0 + i;
+    for (int j = 1; j < kSerFixed; ++j) out[j] = rs.acc[j];
+    for (int pi = 0; pi < n_pol; ++pi) {
+      const bool zero = !any || a.pol_column[pi] == kRandomScore;
+      out[kSerFixed + pi] = zero ? 0 : rs.acc[kSerFixed + pi];
+      out[kSerFixed + n_pol + pi] = zero ? 0 : rs.acc[kSerFixed + n_pol + pi];
+    }
+  }
+  __syncthreads();
+}
+
+// node `node`'s i32 weighted total for a type under the extrema lo/hi, and
+// each policy's raw and normalised score into raw/nrm (null: not kept);
+// RandomScore scores 100 on `pick`
+__device__ __forceinline__ int record_total(const ReplayArgs& a, int type,
+                                            int node, const int* lo,
+                                            const int* hi, int pick, int* raw,
+                                            int* nrm) {
+  uint32_t sum = 0;
+  for (int pi = 0; pi < a.n_pol; ++pi) {
+    int r;
+    int q;
+    if (a.pol_column[pi] == kRandomScore) {
+      r = node == pick ? kMaxNodeScore : 0;
+      q = r;
+    } else {
+      r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
+      q = a.pol_norm[pi] != kNormNone ? normalize(r, lo[pi], hi[pi], a.pol_norm[pi])
+                                      : r;
+    }
+    if (raw != nullptr) {
+      raw[pi] = r;
+      nrm[pi] = q;
+    }
+    sum += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(q);
+  }
+  return static_cast<int>(sum);
+}
+
+// The decision row of create event i (type `type`, pin `pin`) into
+// a.rec_dec (step.build_decision): the type's rows normalised directly
+// over the pin-masked feasible nodes, the feasible count, the top-K as
+// kTopK rounds of selectHost's block reduction, each masking the winners
+// before it out (packed_topk), and the committed winner `node`'s total,
+// raw and normalised scores. `blocked`: the winner's 128-node block, else
+// -1. `pick` is RandomScore's draw. Every thread calls it; it ends with a
+// barrier.
+__device__ void record_decision(const ReplayArgs& a, RecordShared& rs,
+                                Best* warp_res, int i, int type, int pin,
+                                int node, bool blocked) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int n_pol = a.n_pol;
+  const int pick = rs.pick;
+  if (tid == 0) {
+    rs.feasible = 0;
+    for (int pi = 0; pi < n_pol; ++pi) {
+      rs.lo[pi] = INT_MAX;
+      rs.hi[pi] = -INT_MAX;
+    }
+  }
+  __syncthreads();
+  const int* frow = a.feas + static_cast<size_t>(type) * a.n;
+  int lo[kMaxPolicies];
+  int hi[kMaxPolicies];
+  for (int pi = 0; pi < kMaxPolicies; ++pi) {
+    lo[pi] = INT_MAX;
+    hi[pi] = -INT_MAX;
+  }
+  int cnt = 0;
+  for (int j = tid; j < a.n; j += blockDim.x) {
+    if (frow[j] == 0 || (pin >= 0 && j != pin)) continue;
+    ++cnt;
+    for (int pi = 0; pi < n_pol; ++pi) {
+      if (a.pol_norm[pi] == kNormNone || a.pol_column[pi] == kRandomScore)
+        continue;
+      const int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + j];
+      lo[pi] = min(lo[pi], r);
+      hi[pi] = max(hi[pi], r);
+    }
+  }
+  block_add(&rs.feasible, cnt);
+  for (int pi = 0; pi < n_pol; ++pi) {
+    block_min(&rs.lo[pi], lo[pi]);
+    block_max(&rs.hi[pi], hi[pi]);
+  }
+  __syncthreads();
+  for (int pi = 0; pi < n_pol; ++pi) {
+    lo[pi] = rs.lo[pi];
+    hi[pi] = rs.hi[pi];
+  }
+  Best top[kTopK];
+  for (int r = 0; r < kTopK; ++r) {
+    Best b = no_candidate();
+    for (int j = tid; j < a.n; j += blockDim.x) {
+      if (frow[j] == 0 || (pin >= 0 && j != pin)) continue;
+      bool taken = false;
+      for (int q = 0; q < r; ++q) taken |= top[q].node == j;
+      if (taken) continue;
+      const Best c = {record_total(a, type, j, lo, hi, pick, nullptr, nullptr),
+                      a.rank[j], j};
+      if (beats(c, b)) b = c;
+    }
+    b = warp_best(b);
+    if (lane == 0) warp_res[warp] = b;
+    __syncthreads();
+    b = warp_best(lane < nwarps ? warp_res[lane] : no_candidate());
+    top[r] = {__shfl_sync(0xffffffffu, b.total, 0),
+              __shfl_sync(0xffffffffu, b.rank, 0),
+              __shfl_sync(0xffffffffu, b.node, 0)};
+    __syncthreads();
+  }
+  if (tid == 0) {
+    int* row = a.rec_dec + static_cast<size_t>(i) * (kDecFixed + 2 * n_pol);
+    const bool ok = node >= 0;
+    int raw[kMaxPolicies];
+    int nrm[kMaxPolicies];
+    const int total = ok ? record_total(a, type, node, lo, hi, pick, raw, nrm) : 0;
+    row[0] = node;
+    row[1] = total;
+    row[2] = rs.feasible;
+    row[3] = ok && blocked ? node / kBlock : -1;
+    for (int r = 0; r < kTopK; ++r) {
+      const bool valid = top[r].node != INT_MAX;
+      row[4 + r] = valid ? top[r].node : -1;
+      row[4 + kTopK + r] = valid ? top[r].total : 0;
+      row[4 + 2 * kTopK + r] = valid ? top[r].rank : -1;
+    }
+    for (int pi = 0; pi < n_pol; ++pi) {
+      row[kDecFixed + pi] = ok ? raw[pi] : 0;
+      row[kDecFixed + n_pol + pi] = ok ? nrm[pi] : 0;
+    }
+  }
+  __syncthreads();
+}
+
 // <kGeneral, kRandomized, kStaged, kFaults>: kRandomized adds RandomScore's
 // draw and gpu_sel random (the key chain in es, advanced by the last warp
 // while warp 0 commits); kStaged is the staged form, false the global one;
 // kFaults is the fault form (the merged stream of fault_lane.py: kinds 3-6,
 // the FaultFields, the retry queue; the key chain takes a step a merged
 // step, as tpusim's lane does); kKeyOut is the chunk form, which writes the
-// key chain's key after its last event (write_key_out).
+// key chain's key after its last event (write_key_out); kRecord is the
+// record form (replay_records.cu and replay_blocked_records.cu), which also
+// writes the counters, the decision and series rows and the heartbeat ticks
+// of ReplayArgs.
 template <bool kGeneral, bool kRandomized = false, bool kStaged = true,
-          bool kFaults = false, bool kKeyOut = false>
+          bool kFaults = false, bool kKeyOut = false, bool kRecord = false>
 __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -2220,6 +2647,8 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   __shared__ EventState es;
   __shared__ FaultSharedOf<kFaults> fsh;
   FaultShared* fs = fault_shared<kFaults>(fsh);
+  __shared__ RecordSharedOf<kRecord> rsh;
+  RecordShared* rs = record_shared<kRecord>(rsh);
   __shared__ long long s_clk[kNumClocks];
   __shared__ long long s_work[3];
   PhaseClock pc;
@@ -2230,6 +2659,9 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int gpu_sel = kGeneral ? a.gpu_sel : (a.sel >= 0 ? kSelSelf : kSelBest);
+  if constexpr (kRecord) {
+    if (tid == 0) record_begin(a, *rs);
+  }
   bool any_norm = false;
   bool draws = false;  // a RandomScore policy
   if (kGeneral)
@@ -2270,6 +2702,10 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
     }
 
     const EventFields ev = es.ev[(i / kEvBatch) & 1][i % kEvBatch];
+    if constexpr (kRecord) {
+      if (a.rec_every > 0 && (rs->p0 + i) % a.rec_every == 0)
+        record_sample(a, *rs, i, ev.type);
+    }
     if (ev.kind == kCreate) {
       const int type = ev.type;
       const int pin = ev.pin;
@@ -2344,6 +2780,9 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
         pc.mark(kClkExtrema);
       }
       Best b = no_candidate();
+      if constexpr (kRecord) {
+        if (tid == 0) rs->pick = pick;
+      }
       int from = 0;  // nodes below it are taken by the 16-byte loop
       if (!kGeneral && (a.n & 3) == 0) {
         // rows of whole int4s: four nodes a load (the FGD shape at scale)
@@ -2416,6 +2855,15 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
       advance_keys(es, es.key, (i + 1) & 1);
     pc.sync();
     pc.mark(kClkCommit);
+    if constexpr (kRecord) {
+      if (ev.kind == kCreate && a.rec_dec != nullptr)
+        record_decision(a, *rs, warp_res, i, ev.type, ev.pin, a.ev_node[i],
+                        false);
+      if (tid == 0) record_count(a, *rs, i, ev.kind);
+    }
+  }
+  if constexpr (kRecord) {
+    if (tid == 0) record_end(a, *rs, 0);
   }
   if constexpr (kKeyOut) {
     if (tid == 0) write_key_out<kRandomized>(a, es);
@@ -2424,9 +2872,9 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
 }
 
 template <bool kGeneral, bool kRandomized = false, bool kStaged = true,
-          bool kFaults = false, bool kKeyOut = false>
+          bool kFaults = false, bool kKeyOut = false, bool kRecord = false>
 __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a) {
-  replay_body<kGeneral, kRandomized, kStaged, kFaults, kKeyOut>(a);
+  replay_body<kGeneral, kRandomized, kStaged, kFaults, kKeyOut, kRecord>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -2582,9 +3030,10 @@ __device__ void update_summaries(const ReplayArgs& a, const Smem& m, int node,
 // for the configurations without Simon (policy_pair); kFaults is the fault
 // form, as replay_body's. A fault step touches one node, as an event does,
 // so the dirty node's block summaries stay the one update a step. kKeyOut
-// is the chunk form, as replay_body's.
+// is the chunk form and kRecord the record form, as replay_body's (the
+// blocked decision row carries the winner's block).
 template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
-          bool kFaults = false, bool kKeyOut = false>
+          bool kFaults = false, bool kKeyOut = false, bool kRecord = false>
 __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -2594,6 +3043,8 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   __shared__ EventState es;
   __shared__ FaultSharedOf<kFaults> fsh;
   FaultShared* fs = fault_shared<kFaults>(fsh);
+  __shared__ RecordSharedOf<kRecord> rsh;
+  RecordShared* rs = record_shared<kRecord>(rsh);
   __shared__ int s_rank[kBlock];  // the dirty block's tie-break ranks
   __shared__ int s_rescans;
   __shared__ long long s_clk[kNumClocks];
@@ -2614,6 +3065,9 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   const Smem m = replay_smem<kStaged>(a, smem, n_pol, true);
   const bool fgd_terms = begin_replay<kGeneral, kStaged>(a, m, es);
   stage_faults<kFaults>(a, fs, 0, true);
+  if constexpr (kRecord) {
+    if (tid == 0) record_begin(a, *rs);
+  }
 
   // the summaries of the initial tables: every block's extrema, the stored
   // extrema as their min/max over blocks, then every block's summary under
@@ -2697,6 +3151,10 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
 
     const EventFields ev = es.ev[(i / kEvBatch) & 1][i % kEvBatch];
     const int type = ev.type;
+    if constexpr (kRecord) {
+      if (a.rec_every > 0 && (rs->p0 + i) % a.rec_every == 0)
+        record_sample(a, *rs, i, type);
+    }
     if (kGeneral && nn > 0) {
       // drift check, every event: the event type's current extrema (the
       // min/max of its block extrema) against the stored ones; if one moved,
@@ -2774,6 +3232,14 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
     }
     pc.sync();
     pc.mark(kClkCommit);
+    if constexpr (kRecord) {
+      if (ev.kind == kCreate && a.rec_dec != nullptr)
+        record_decision(a, *rs, warp_res, i, type, ev.pin, a.ev_node[i], true);
+      if (tid == 0) record_count(a, *rs, i, ev.kind);
+    }
+  }
+  if constexpr (kRecord) {
+    if (tid == 0) record_end(a, *rs, a.stats[2]);
   }
   if constexpr (kKeyOut) {
     if (tid == 0) write_key_out<false>(a, es);
@@ -2782,10 +3248,11 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
 }
 
 template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
-          bool kFaults = false, bool kKeyOut = false>
+          bool kFaults = false, bool kKeyOut = false, bool kRecord = false>
 __global__ void __launch_bounds__(kReplayThreads, 1)
     replay_blocked_kernel(ReplayArgs a) {
-  replay_blocked_body<kGeneral, kStaged, kAllColumns, kFaults, kKeyOut>(a);
+  replay_blocked_body<kGeneral, kStaged, kAllColumns, kFaults, kKeyOut,
+                      kRecord>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -3478,6 +3945,19 @@ bool fgd_only(const ReplayArgs* a) {
          (a->gpu_sel == kSelBest || (a->gpu_sel == kSelSelf && a->sel == 0));
 }
 
+// the record operands: counters always, a decision row an event where
+// rec_dec is set, the sample rows where rec_every > 0 (the frag tree's
+// three levels take at most 32^3 typical pods), a ring where hb_ring is
+inline bool record_operands(const ReplayArgs* a) {
+  if (a->ctr == nullptr || a->rec_every < 0 || a->hb_every < 0 ||
+      a->rec_nodes < 0 || a->rec_nodes > a->n)
+    return false;
+  if (a->rec_every > 0 && (a->rec_ser == nullptr || a->t > 32 * 32 * 32))
+    return false;
+  if (a->hb_ring != nullptr && a->hb_slots < 1) return false;
+  return true;
+}
+
 // Launches a replay kernel: the staged form (no scratch) with the dynamic
 // shared memory its shape needs, which refuses a shape past the staged
 // limits; the global form (a scratch buffer) with none.
@@ -3589,11 +4069,16 @@ int empty_launch(void* stream) {
 // the chunk forms (replay_chunks.cu), which write the key chain's key out
 int replay_chunk(const ReplayArgs* a, void* stream);
 int replay_blocked_chunk(const ReplayArgs* a, void* stream);
+// the record forms (replay_records.cu, replay_blocked_records.cu), which
+// write the records out
+int replay_record(const ReplayArgs* a, void* stream);
+int replay_blocked_record(const ReplayArgs* a, void* stream);
 
 int replay(const ReplayArgs* a, void* stream) {
   if (a->e == 0) return 0;
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a->ctr != nullptr) return replay_record(a, stream);
   if (a->key_out != nullptr) return replay_chunk(a, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool staged = a->scratch == nullptr;
@@ -3614,6 +4099,7 @@ int replay_blocked(const ReplayArgs* a, void* stream) {
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies || a->n % kBlock != 0 ||
       randomized(a))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a->ctr != nullptr) return replay_blocked_record(a, stream);
   if (a->key_out != nullptr) return replay_blocked_chunk(a, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->scratch != nullptr)

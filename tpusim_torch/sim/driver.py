@@ -50,6 +50,17 @@ victims the same way; `run_with_faults` replays the trace in segments
 between node failures, recoveries and evictions (the fault host loop),
 each segment one `run_events` call.
 
+The obs plane (tpusim_torch.obs) records every run: spans at tpusim's
+sites (`typical_pods`, `init_tables` on a table-cache hit or miss, `scan`,
+`fetch`, `metrics_postpass`, `report`; under `profile` each waits for the
+card so it splits into dispatch and block) and exact counters
+(`run_telemetry()`, SimulateResult.telemetry). With `record_decisions`,
+`series_every` or `heartbeat_every` every kernel replay takes the chunk
+surface, whose chunks launch the record forms of the replay kernels
+(sim/records.py): SimulateResult.decisions and .series, concatenated
+across chunks, resumes, forks, `schedule_additional` and fault segments as
+tpusim's are.
+
 With `report_per_event` on (the default, as in the reference), every replay
 is followed by the metrics post-pass (tpusim_torch.sim.metrics) on the
 replay's device, one transfer of the result to the host
@@ -80,6 +91,11 @@ from tpusim_torch.io.trace import (
     tiebreak_rank,
 )
 from tpusim_torch.io import storage
+from tpusim_torch.obs import heartbeat as obs_heartbeat
+from tpusim_torch.obs.counters import counters_from_events
+from tpusim_torch.obs.decisions import DecisionLog, concat_logs
+from tpusim_torch.obs.series import concat_series, log_from_stacked
+from tpusim_torch.obs.spans import Recorder
 from tpusim_torch.io.export import (
     export_node_snapshot_csv,
     export_pod_snapshot_csv,
@@ -96,13 +112,14 @@ from tpusim_torch.parallel.sharding import pad_nodes, pad_rank, trim_nodes
 from tpusim_torch.policies import make_policy
 from tpusim_torch.sim import residency
 from tpusim_torch.sim.deschedule import evict, select_victims
-from tpusim_torch.sim import fault_lane
+from tpusim_torch.sim import fault_lane, records
 from tpusim_torch.sim.engine import (
     EV_CREATE,
     EV_DELETE,
     EV_EVICT,
     EV_NODE_FAIL,
     EV_NODE_RECOVER,
+    EV_SKIP,
     ReplayResult,
     make_replay,
 )
@@ -250,6 +267,24 @@ class SimulatorConfig:
     # tpusim's flat-select layout A/B for XLA (unswitched_select): the
     # port's kernels have no such layout; True raises (ROADMAP item 6)
     unswitched_select: bool = False
+    # ---- observability (tpusim_torch.obs) ----
+    # profile=True makes the always-on span recorder synchronise on each
+    # phase's result, so spans carry the dispatch/block split (an
+    # unprofiled run adds no sync point). Placements are unaffected.
+    profile: bool = False
+    # > 0: a heartbeat line (events/s, ETA) every N processed events from
+    # inside the replay kernels' record forms (obs.heartbeat: a mapped
+    # ring the kernel writes, drained by a host thread); 0 = off
+    heartbeat_every: int = 0
+    # the decision stream (obs.decisions): every replay records each
+    # event's winner, per-policy raw and normalised scores, top-K
+    # runner-ups and feasible count (SimulateResult.decisions, `apply
+    # --decisions-out`), through the kernels' record forms
+    record_decisions: bool = False
+    # > 0: a cluster time-series sample (obs.series) every N processed
+    # events, taken inside the kernels' record forms
+    # (SimulateResult.series); 0 = off
+    series_every: int = 0
 
 
 # the values of tpusim's engine knob that the port's entries run
@@ -275,6 +310,16 @@ class SimulateResult:
     # i64[P] position of each pod's creation event in scheduling order
     # (-1 = never created), for the pod snapshot's assume-time annotation
     creation_rank: np.ndarray = None
+    # the run's obs.spans.RunTelemetry: spans, exact counters, cache and
+    # fault counts (always; walls phase-split under cfg.profile)
+    telemetry: object = None
+    # obs.decisions.DecisionLog of the run (records + the events they
+    # describe), where cfg.record_decisions; fault runs concatenate their
+    # segments', schedule_additional appends
+    decisions: object = None
+    # obs.series.SeriesLog of the run (the real samples on the run's event
+    # clock), where cfg.series_every > 0; concatenated likewise
+    series: object = None
 
 
 class Simulator:
@@ -305,6 +350,35 @@ class Simulator:
             raise NotImplementedError(
                 "unswitched_select is an XLA select layout the PyTorch port "
                 "does not have (ROADMAP queue 1, item 6)")
+        if self.cfg.record_decisions and self.cfg.extenders:
+            raise ValueError(
+                "record_decisions cannot combine with extenders (the "
+                "host-loop extender engine splices HTTP scores the "
+                "flight recorder does not capture)")
+        if self.cfg.series_every and self.cfg.extenders:
+            raise ValueError(
+                "series_every cannot combine with extenders (the "
+                "host-loop extender engine has no in-scan sampling "
+                "plane)")
+        if self.cfg.series_every < 0:
+            raise ValueError(
+                f"series_every must be >= 0 (got {self.cfg.series_every})")
+        if self.cfg.record_decisions and self.cfg.engine == "pallas":
+            raise ValueError(
+                "engine: pallas cannot record decisions (the fused kernel "
+                "emits no per-event provenance); use the table, "
+                "sequential, or shard engine")
+        if self.cfg.series_every and self.cfg.engine == "pallas":
+            raise ValueError(
+                "engine: pallas cannot emit the in-scan series (the fused "
+                "kernel has no per-event sampling plane); use the table, "
+                "sequential, or shard engine")
+        # the observability plane: spans and counters always (two
+        # perf_counter calls a phase); profile=True synchronises per phase
+        self.obs = Recorder(enabled=self.cfg.profile)
+        # events of the run replayed by earlier fault segments: the
+        # heartbeat's and the series' run-level clock
+        self._hb_base = 0
         enable_compile_cache(self.cfg.compile_cache_dir)
         if self.cfg.engine not in PORT_ENGINES:
             raise ValueError(
@@ -397,6 +471,7 @@ class Simulator:
         self.analysis_summary = {}
         self.failed_pod_lists = []
         self.log.lines = []
+        self.obs.reset()
 
     # ---- workload prep (core.go:103-142) ----
 
@@ -404,9 +479,10 @@ class Simulator:
         self.workload_pods = list(pods)
 
     def set_typical_pods(self):
-        typical, info = get_typical_pods(
-            self.workload_pods, self.cfg.typical_pods, self.device
-        )
+        with self.obs.span("typical_pods", pods=len(self.workload_pods)):
+            typical, info = get_typical_pods(
+                self.workload_pods, self.cfg.typical_pods, self.device
+            )
         # zero-frequency padding rows add nothing to any frag sum
         self.typical = pad_typical_pods(typical)
         self._typical_info = info
@@ -466,10 +542,28 @@ class Simulator:
                            fault_frag: bool = False):
         """This configuration's sequential oracle (engine.make_replay),
         metric-free: the reports come from the post-pass, as after every
-        replay."""
+        replay. It records what the configuration records (not in its
+        fault form, as tpusim's)."""
+        rec = not faults
         return make_replay(self._policy_fns, self.cfg.gpu_sel_method,
-                           report=False, faults=faults,
-                           fault_frag=fault_frag)
+                           report=False,
+                           decisions=rec and self.cfg.record_decisions,
+                           series_every=self.cfg.series_every if rec else 0,
+                           faults=faults, fault_frag=fault_frag)
+
+    @property
+    def _recording(self) -> bool:
+        """Whether replays run the kernels' record forms: decisions, the
+        series or the heartbeat."""
+        cfg = self.cfg
+        return bool(cfg.record_decisions or cfg.series_every
+                    or cfg.heartbeat_every)
+
+    def _sync(self) -> None:
+        """Wait for the card where profiling asks for the block half of a
+        span (an unprofiled run adds no sync point)."""
+        if self.obs.enabled and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _host_loop(self, name: str) -> None:
         self.last_engine, self.last_residency = name, None
@@ -502,6 +596,34 @@ class Simulator:
         if key is None:
             key = prng_key(self.cfg.seed)
         e = len(ev_kind)
+        if self.cfg.heartbeat_every:
+            # arm the host side of the kernels' ticks for this replay;
+            # `base` = events of the run replayed by earlier fault segments
+            obs_heartbeat.configure(self._hb_base + e, "replay",
+                                    base=self._hb_base)
+        with self.obs.span("scan", events=e) as h:
+            out = self._run_events(state, specs, ev_kind, ev_pod, types, key,
+                                   pod_rows, fork)
+            h.dispatched()
+            self._sync()
+        if self.cfg.heartbeat_every:
+            obs_heartbeat.complete(e)
+        if out.counters is None:
+            # a launch that records nothing: the counts of its outputs
+            stats = self.last_kernel_stats
+            out = out._replace(counters=counters_from_events(
+                torch.as_tensor(ev_kind, device=out.event_node.device),
+                out.event_node, 0 if stats is None else int(stats[2])))
+        self.obs.note_scan(self.last_engine, counters=out.counters,
+                           events=e)
+        if self.last_residency:
+            self.obs.pallas_residency = self.last_residency
+        return out
+
+    def _run_events(self, state, specs, ev_kind, ev_pod, types, key,
+                    pod_rows, fork) -> ReplayResult:
+        """run_events' dispatch (its docstring), inside the scan span."""
+        e = len(ev_kind)
         if fork is not None and not self.cfg.extenders:
             fork = self._check_fork(fork, e)
         if self.cfg.extenders or self.cfg.engine == "sequential":
@@ -523,8 +645,9 @@ class Simulator:
                                         pod_rows, self.nodes)
                 self._host_loop("extender")
             else:
-                out = self._sequential_replay()(state, specs, ev_kind, ev_pod,
-                                                self.typical, key, self.rank)
+                out = self._sequential_replay()(
+                    state, specs, ev_kind, ev_pod, self.typical, key,
+                    self.rank, heartbeat_every=self.cfg.heartbeat_every)
                 self._host_loop("sequential")
             self.log.info(f"[Engine] replay of {len(ev_kind)} events ran on: "
                           f"{_ran_on(self, self.last_engine, None)}")
@@ -541,8 +664,12 @@ class Simulator:
                 "pod types / carry surface): run the base and fork on the "
                 "table engine")
         chunked = table_path and 0 < self.cfg.checkpoint_every < e
-        if table_path and (chunked or self.cfg.engine == "table"
-                           or self._table_cache_dir()):
+        # a recording replay takes the chunk surface, whose chunks launch
+        # the record forms (tpusim's auto leaves its fused kernel for the
+        # table engine the same way)
+        if (table_path and (chunked or self.cfg.engine == "table"
+                            or self._table_cache_dir())) or \
+                (self._recording and k > 0):
             return self._run_table(state, specs, types, ev_kind, ev_pod, key,
                                    tier, chunked, fork)
         args = (state, specs, types, torch.as_tensor(ev_kind),
@@ -593,7 +720,10 @@ class Simulator:
             cfg = self.cfg
             self._table = make_table_replay(
                 cfg.policies, cfg.gpu_sel_method, cfg.block_size,
-                cfg.dim_ext_method, cfg.norm_method, cfg.table_residency)
+                cfg.dim_ext_method, cfg.norm_method, cfg.table_residency,
+                decisions=cfg.record_decisions,
+                series_every=cfg.series_every,
+                heartbeat_every=cfg.heartbeat_every)
         return self._table
 
     def _run_table(self, state, specs, types, ev_kind, ev_pod, key,
@@ -703,12 +833,25 @@ class Simulator:
         self._fork_stats = None
         layout = carry_layout(state, p)
 
+        pi = len(self.cfg.policies)
+        rec_names = ([("dec", records.dec_cols(pi))]
+                     if self.cfg.record_decisions else []) + (
+            [("ser", records.ser_cols(pi))] if self.cfg.series_every else [])
+
         def validate(arrays):
             check_carry_arrays(arrays, layout)
             c = int(arrays["cursor"])
             if arrays["event_node"].shape != (c,) or \
                     arrays["event_dev"].shape != (c, layout["masks"][0][1]):
                 raise ValueError("event telemetry does not match the cursor")
+            # the record streams so far ride the checkpoint (rows in the
+            # configuration's policy order), so a resumed run's are whole
+            for name, cols in rec_names:
+                a = arrays[f"rec_{name}"]
+                rows = c if name == "dec" else records.series_count(
+                    0, c, self.cfg.series_every)
+                if a.shape != (rows, cols) or a.dtype != np.int32:
+                    raise ValueError(f"rec_{name} does not match the cursor")
 
         def on_skip(path, err):
             self.log.info(
@@ -738,6 +881,7 @@ class Simulator:
                         f"event {fork_event} for base {base_digest[:12]}…; "
                         "full replay from event 0")
         node_parts, dev_parts = [], []
+        rec_parts = {name: [] for name, _ in rec_names}
         if found is not None:
             cursor, arrays, path = found
             if self._fork_stats is not None:
@@ -747,6 +891,12 @@ class Simulator:
             carry = carry_from_arrays(cls, arrays, self.device)
             node_parts.append(arrays["event_node"])
             dev_parts.append(arrays["event_dev"])
+            for name in rec_parts:
+                rec_parts[name].append(arrays[f"rec_{name}"])
+            if self.cfg.heartbeat_every:
+                # the resumed counters include events this process never
+                # ran: keep the rate honest
+                obs_heartbeat.note_resume(cursor)
             self.log.info(f"[Checkpoint] resumed replay at event {cursor}/{e} "
                           f"from {os.path.basename(path)}")
         else:
@@ -761,9 +911,14 @@ class Simulator:
         while carry.cursor < e:
             end = min(carry.cursor + every, e)
             t0 = time.perf_counter()
-            carry, (nseg, dseg) = fn.run_chunk(
+            carry, ys = fn.run_chunk(
                 carry, specs, types, ev_kind[carry.cursor:end],
                 ev_pod[carry.cursor:end], self.typical, self.rank)
+            nseg, dseg = ys[:2]
+            seg_rec = {}
+            if rec_names:
+                seg_rec = {f"seg_{name}": getattr(ys[2], name)
+                           for name in rec_parts}
             t1 = time.perf_counter()
             times["dispatch_ms"] += (t1 - t0) * 1e3
             chunks += 1
@@ -779,16 +934,22 @@ class Simulator:
             times["write_ms"] += (t2 - t1) * 1e3
             if carry.cursor < e:
                 arrays = carry_arrays(carry, {"seg_node": nseg,
-                                              "seg_dev": dseg})
+                                              "seg_dev": dseg, **seg_rec})
                 node_parts.append(arrays.pop("seg_node"))
                 dev_parts.append(arrays.pop("seg_dev"))
                 arrays["event_node"] = np.concatenate(node_parts)
                 arrays["event_dev"] = np.concatenate(dev_parts)
+                for name, parts in rec_parts.items():
+                    parts.append(arrays.pop(f"seg_{name}"))
+                    arrays[f"rec_{name}"] = np.concatenate(parts)
                 pending = (carry.cursor, arrays)
             else:
-                nseg, dseg = device_fetch((nseg, dseg))
+                nseg, dseg, host_rec = device_fetch(
+                    (nseg, dseg, tuple(seg_rec.values())))
                 node_parts.append(nseg.numpy())
                 dev_parts.append(dseg.numpy())
+                for parts, x in zip(rec_parts.values(), host_rec):
+                    parts.append(x.numpy())
             times["fetch_ms"] += (time.perf_counter() - t2) * 1e3
         storage.prune_checkpoints(cache_dir, digest, e + 1,
                                   keep=self.cfg.checkpoint_keep)
@@ -800,8 +961,17 @@ class Simulator:
         extra = f", {chunks} chunks of {every} events"
         if start:
             extra += f" resumed at event {start}"
+        decs = sers = None
+        if rec_names:
+            cfg = self._replay.config
+            whole = {name: np.concatenate(parts)
+                     for name, parts in rec_parts.items()}
+            if "dec" in whole:
+                decs = records.decision_rows(whole["dec"], pi, cfg.order)
+            if "ser" in whole:
+                sers = records.sample_rows(whole["ser"], pi, cfg.order)
         return (ReplayResult(state_f, placed, masks, failed, None, nodes,
-                             devs), stats, extra)
+                             devs, carry.ctr, decs, sers), stats, extra)
 
     # ---- the content-keyed init_tables cache ----
 
@@ -870,10 +1040,14 @@ class Simulator:
         if not self.cfg.report_per_event:
             return out
         dev = out.event_node.device
-        return out._replace(metrics=compute_event_metrics(
-            state, specs, torch.as_tensor(ev_kind, device=dev),
-            torch.as_tensor(ev_pod, device=dev), out.event_node,
-            out.event_dev, self.typical))
+        with self.obs.span("metrics_postpass", events=len(ev_kind)) as h:
+            out = out._replace(metrics=compute_event_metrics(
+                state, specs, torch.as_tensor(ev_kind, device=dev),
+                torch.as_tensor(ev_pod, device=dev), out.event_node,
+                out.event_dev, self.typical))
+            h.dispatched()
+            self._sync()
+        return out
 
     def _replay_pods(self, state: NodeState, pods: Sequence[PodRow], key,
                      use_timestamps: bool, events=None, fork=None):
@@ -891,7 +1065,8 @@ class Simulator:
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
         out = self._attach_metrics(out, state, specs, ev_kind, ev_pod)
-        out = device_fetch(out)
+        with self.obs.span("fetch", events=len(ev_kind)):
+            out = device_fetch(out)
         done = self._finish_replay(out, pods, ev_kind, ev_pod, state)
         self.replay_times.append(dict(
             events=len(ev_kind), replay_ms=(t1 - t0) * 1e3,
@@ -903,7 +1078,16 @@ class Simulator:
         """The host tail of a replay (driver.py:1566-1600 of the
         reference): the per-event log block from the replay's start state,
         the unscheduled pods (the pod-unscheduled annotation's too) and
-        each pod's creation rank. `out` is on the host."""
+        each pod's creation rank. `out` is on the host. The decision
+        records are paired with the events they describe (a DecisionLog),
+        the samples filtered to a SeriesLog from the replay's clock."""
+        if out.decisions is not None:
+            out = out._replace(decisions=DecisionLog(
+                records.on_host(out.decisions), np.asarray(ev_kind),
+                np.asarray(ev_pod)))
+        if out.series is not None:
+            out = out._replace(series=log_from_stacked(
+                records.on_host(out.series)))
         self._emit_event_reports(out, pods, ev_kind, ev_pod, state)
         skipped = np.array([p.unscheduled for p in pods], bool)
         failed = out.ever_failed.numpy() | skipped
@@ -983,8 +1167,69 @@ class Simulator:
             wall_seconds=wall,
             events=events,
             creation_rank=rank,
+            telemetry=self.run_telemetry(),
+            decisions=out.decisions,
+            series=out.series,
         )
         return self.last_result
+
+    def event_counter_series(self) -> dict:
+        """Per-event counter tracks for the Chrome trace (obs.emitters;
+        tpusim's event_counter_series): the cluster frag gpu-milli in all
+        and by FGD failure category (the post-pass's frag_amounts), used
+        gpu-milli and used cpu-milli, one value per reported event across
+        the run's reporting replays. Empty without per-event reporting."""
+        from tpusim_torch.obs.series import FRAG_CATEGORY_NAMES
+
+        frag, used, used_cpu = [], [], []
+        cats = [[] for _ in FRAG_CATEGORY_NAMES]
+        for rep in self.event_reports:
+            s = rep.get("series", {})
+            if "_frag_milli_f" in s:
+                frag.extend(np.asarray(s["_frag_milli_f"],
+                                       np.float64).tolist())
+            amounts = rep.get("frag_amounts")
+            if amounts is not None:
+                a = np.asarray(amounts, np.float64)
+                for j in range(min(a.shape[1], len(cats))):
+                    cats[j].extend(a[:, j].tolist())
+            used.extend(np.asarray(rep["used_gpu_milli"]).astype(
+                np.int64).tolist())
+            used_cpu.extend(np.asarray(rep["used_cpu_milli"]).astype(
+                np.int64).tolist())
+        out = {}
+        if frag:
+            out["frag_gpu_milli"] = frag
+        if used:
+            out["used_gpu_milli"] = used
+        if used_cpu:
+            out["used_cpu_milli"] = used_cpu
+        for name, vals in zip(FRAG_CATEGORY_NAMES, cats):
+            if vals:
+                out[f"frag_{name}_milli"] = vals
+        return out
+
+    def _telemetry_meta(self) -> dict:
+        """The run's deterministic description for the telemetry record
+        (tpusim's _telemetry_meta: the same across same-seed runs, no
+        walls, no paths; the port has no mesh, so mesh is 0)."""
+        cfg = self.cfg
+        return {
+            "policies": [[n, w] for n, w in cfg.policies],
+            "gpu_sel": cfg.gpu_sel_method,
+            "norm": cfg.norm_method,
+            "dim_ext": cfg.dim_ext_method,
+            "seed": cfg.seed,
+            "engine_cfg": cfg.engine,
+            "block_size": cfg.block_size,
+            "mesh": 0,
+            "nodes": len(self.nodes),
+        }
+
+    def run_telemetry(self):
+        """The RunTelemetry snapshot so far (spans, counters, cache and
+        fault counts), also attached to every SimulateResult."""
+        return self.obs.snapshot(meta=self._telemetry_meta())
 
     def _placed_state(self) -> NodeState:
         """The last result's state on the Simulator's device."""
@@ -1008,7 +1253,19 @@ class Simulator:
                                           out.placed_node.numpy()])
         res.dev_mask = np.concatenate([res.dev_mask, out.dev_mask.numpy()])
         res.unscheduled_pods = list(res.unscheduled_pods) + failed
+        prior_events = res.events
         res.events += events
+        if out.series is not None:
+            # the appended replay's sample clock starts at 0: rebase it
+            # onto the run's event clock
+            res.series = concat_series([res.series, out.series._replace(
+                pos=np.asarray(out.series.pos) + prior_events)])
+        if out.decisions is not None:
+            # the appended replay's events index its own pod list
+            res.decisions = concat_logs([res.decisions, out.decisions._replace(
+                ev_pod=np.asarray(out.decisions.ev_pod)
+                + (len(res.pods) - len(pods)))])
+        res.telemetry = self.run_telemetry()
         base = int(res.creation_rank.max(initial=-1)) + 1
         res.creation_rank = np.concatenate(
             [res.creation_rank, np.where(rank >= 0, rank + base, -1)])
@@ -1216,10 +1473,16 @@ class Simulator:
                        "model fault transitions)")
         if self.cfg.extenders:
             out.append("extenders")
+        if self.cfg.record_decisions:
+            out.append("decision recording")
+        if self.cfg.series_every:
+            out.append("the in-scan series plane")
         if self.cfg.checkpoint_every:
             out.append("checkpointing (composes with the segmented path)")
         if self.cfg.engine == "pallas":
             out.append("the fused pallas engine")
+        if self.cfg.heartbeat_every:
+            out.append("the in-scan heartbeat")
         return out
 
     def schedule_pods_with_faults(self, pods: Sequence[PodRow], faults=None,
@@ -1290,15 +1553,30 @@ class Simulator:
         plan = fault_lane.compile_fault_plan(
             ev_kind, ev_pod, faults, fcfg, len(self.nodes), len(pods))
         t_plan = time.perf_counter()
-        out, fout = self._dispatch_fault_scan(specs, plan)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self.obs.span("scan", events=int(plan.kind.shape[0])):
+            out, fout = self._dispatch_fault_scan(specs, plan)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         t_run = time.perf_counter()
-        out, fout = device_fetch((out, fout))
+        with self.obs.span("fetch", events=int(plan.kind.shape[0])):
+            out, fout = device_fetch((out, fout))
         t_fetch = time.perf_counter()
         dm, dead, attempts_run = fault_lane.assemble_disruption(
             plan, fout.ys, fout.carry, self.init_state.gpu_cnt.cpu().numpy())
         e_m = int(plan.kind.shape[0])
+        # the merged stream's counters as tpusim's lane counts them: a
+        # popped retry slot is a create, every other slot and fault step a
+        # skip, which the padding correction takes out again
+        kinds = np.asarray(plan.kind)
+        popped = fout.ys.rpod.numpy() >= 0
+        eff = np.where(kinds > EV_SKIP,
+                       np.where(popped, EV_CREATE, EV_SKIP), kinds)
+        self.obs.note_scan(
+            self.last_engine, counters=counters_from_events(
+                torch.as_tensor(eff, dtype=torch.int32), out.event_node),
+            pad_skips=e_m - plan.num_events - attempts_run,
+            events=plan.num_events + attempts_run)
+        self.obs.note_disruption(dm)
         self.log.info(
             f"[Engine] fault-lane replay of {plan.num_events} events "
             f"(+{attempts_run} retries, merged stream {e_m}) ran on: "
@@ -1331,6 +1609,7 @@ class Simulator:
             events=plan.num_events + attempts_run,
             creation_rank=fault_lane.fault_creation_rank(plan, fout.ys,
                                                          len(pods)),
+            telemetry=self.run_telemetry(),
         )
         self.replay_times.append(dict(
             events=e_m, plan_ms=(t_plan - t0) * 1e3,
@@ -1474,6 +1753,7 @@ class Simulator:
         down_at: dict = {}  # node -> failure position
         box = {"state": self.init_state, "rank": 0, "events": 0, "segs": 0}
         typical_host = None
+        dec_logs, ser_logs = [], []
 
         def frag_total(st: NodeState) -> float:
             nonlocal typical_host
@@ -1489,6 +1769,9 @@ class Simulator:
             box["segs"] += 1
             pre = box["state"]
             t_seg = time.perf_counter()
+            # the run-level heartbeat window: this segment's ticks report
+            # the events so far plus its own progress
+            self._hb_base = box["events"]
             out = self.run_events(pre, specs, seg_kind, seg_pod,
                                   types=types, key=seg_key, pod_rows=pods)
             if self.device.type == "cuda":
@@ -1498,6 +1781,18 @@ class Simulator:
             out = device_fetch(self._attach_metrics(out, pre, specs,
                                                     seg_kind, seg_pod))
             self._emit_event_reports(out, pods, seg_kind, seg_pod, pre)
+            if out.series is not None:
+                # each segment is a replay of its own, so it opens with a
+                # sample of the post-fault cluster at stride position 0:
+                # rebase onto the run's event clock and stamp the retry
+                # queue's depth (host state the replay cannot see)
+                ser_logs.append(log_from_stacked(
+                    records.on_host(out.series), base_pos=box["events"],
+                    retry_depth=len(rq)))
+            if out.decisions is not None:
+                dec_logs.append(DecisionLog(
+                    records.on_host(out.decisions), np.asarray(seg_kind),
+                    np.asarray(seg_pod)))
             self.replay_times.append(dict(
                 events=int(seg_kind.size), replay_ms=(t_rep - t_seg) * 1e3,
                 report_ms=(time.perf_counter() - t_rep) * 1e3))
@@ -1613,6 +1908,8 @@ class Simulator:
         dm.unscheduled_after_retries = len(rq.dead)
         self.analysis_summary.update(disruption_report_block(self.log, dm))
         self.last_disruption = dm
+        self.obs.note_disruption(dm)
+        self._hb_base = 0  # later replays report from a fresh clock
 
         skipped = np.array([p.unscheduled for p in pods], bool)
         unscheduled = []
@@ -1636,6 +1933,9 @@ class Simulator:
             wall_seconds=time.perf_counter() - t0,
             events=box["events"],
             creation_rank=creation_rank,
+            telemetry=self.run_telemetry(),
+            decisions=concat_logs(dec_logs),
+            series=concat_series(ser_logs),
         )
         return self.last_result
 
@@ -1758,9 +2058,10 @@ class Simulator:
         is on the host."""
         if not self.cfg.report_per_event or out.metrics is None:
             return
-        bellman = self._bellman_series(start_state, pods, ev_kind, ev_pod,
-                                       out)
-        self._format_event_reports(out, pods, ev_kind, ev_pod, bellman)
+        with self.obs.span("report", events=len(ev_kind)):
+            bellman = self._bellman_series(start_state, pods, ev_kind,
+                                           ev_pod, out)
+            self._format_event_reports(out, pods, ev_kind, ev_pod, bellman)
 
     def _format_event_reports(self, out: ReplayResult, pods, ev_kind, ev_pod,
                               bellman: np.ndarray):
@@ -2034,6 +2335,16 @@ def _check_sweep_grid(cfg: SimulatorConfig, weights, seeds):
         raise ValueError(
             "schedule_pods_sweep cannot run extender configs (per-cycle "
             "HTTP round-trips do not batch)"
+        )
+    if cfg.record_decisions:
+        raise ValueError(
+            "schedule_pods_sweep cannot record decisions (the vmapped "
+            "replay has no per-config provenance surface)"
+        )
+    if cfg.series_every:
+        raise ValueError(
+            "schedule_pods_sweep cannot emit the in-scan series (the "
+            "vmapped replay has no per-config sampling surface)"
         )
     w = np.asarray(weights, np.int32)
     if w.ndim != 2 or w.shape[1] != len(cfg.policies):
@@ -2513,6 +2824,20 @@ def dispatch_pods_batch(sims: Sequence[Simulator], pods_list,
         raise ValueError(
             "schedule_pods_batch cannot run extender configs (per-cycle "
             "HTTP round-trips do not batch); run each sim's run() instead"
+        )
+    if any(s.cfg.record_decisions for s in sims):
+        # any recording sim, not just the lead: the batch runs the lead's
+        # configuration, so a recorder elsewhere would get no stream
+        raise ValueError(
+            "schedule_pods_batch cannot record decisions (the vmapped "
+            "replay has no per-seed provenance surface); run each sim's "
+            "run() instead"
+        )
+    if any(s.cfg.series_every for s in sims):
+        raise ValueError(
+            "schedule_pods_batch cannot emit the in-scan series (the "
+            "vmapped replay has no per-seed sampling surface); run each "
+            "sim's run() instead"
         )
     for s in sims[1:]:
         same = (all(getattr(s.cfg, f) == getattr(lead.cfg, f)

@@ -57,6 +57,16 @@ class ReplayResult(NamedTuple):
     metrics: object  # EventMetrics after the post-pass, else None
     event_node: torch.Tensor  # i32[E] chosen node (create) / freed node
     event_dev: torch.Tensor  # bool[E, 8] devices touched at each event
+    # int32[6] the obs counters after the replay (obs.counters), where the
+    # replay counted them
+    counters: object = None
+    # obs.decisions.DecisionRecord stacked over the events (the policies
+    # in the configuration's order as given), where decisions were
+    # recorded
+    decisions: object = None
+    # obs.series.SeriesSample stacked over the real samples, where the
+    # series was recorded
+    series: object = None
 
 
 def cluster_usage(state: NodeState):
@@ -131,12 +141,23 @@ def make_replay(policies, gpu_sel: str = "best", report: bool = True,
     or skips; a node failure, recovery or eviction applies after the
     step's own (skip) outcome, and the touched node is its event node;
     `fault_frag` captures the recovers' frag. It runs metric-free and
-    returns (ReplayResult, fault_lane.FaultOut)."""
-    if decisions or series_every:
-        raise NotImplementedError(
-            "decision records and the in-scan series need the obs plane the "
-            "PyTorch port does not have yet (ROADMAP queue 1, item 10 "
-            "(in-scan records and obs spans))")
+    returns (ReplayResult, fault_lane.FaultOut).
+
+    decisions=True records each event's DecisionRecord
+    (step.schedule_one_recorded; non-creates obs.decisions.no_decision),
+    series_every > 0 a SeriesSample wherever the processed count before
+    the event sits on the stride (the committed state and the event's
+    unpinned Filter row and raw scores, RandomScore's zero), and
+    heartbeat_every > 0 a heartbeat tick after each stride crossing: the
+    result's `decisions` and `series`; its `counters` always. The fault
+    form records nothing, as tpusim's."""
+    if faults and (decisions or series_every):
+        raise ValueError(
+            "the in-scan fault plane (faults=True) does not combine with "
+            "decisions/series builds; run those through the segmented "
+            "fault path (Simulator fault_mode='segments')")
+    if series_every < 0:
+        raise ValueError(f"series_every must be >= 0 (got {series_every})")
     if faults and report:
         raise ValueError(
             "fault-plane replays run metric-free (the merged stream "
@@ -145,13 +166,15 @@ def make_replay(policies, gpu_sel: str = "best", report: bool = True,
     policies = [(pol, int(w)) for pol, w in policies]
 
     def replay(state, pods, ev_kind, ev_pod, tp, key, tiebreak_rank=None,
-               weights=None, fault_ops=None, fault_carry0=None):
+               weights=None, fault_ops=None, fault_carry0=None,
+               heartbeat_every=0):
         if faults:
             return _fault_loop(policies, gpu_sel, fault_frag, state, pods,
                                ev_kind, ev_pod, tp, key, tiebreak_rank,
                                weights, fault_ops, fault_carry0)
         return _event_loop(policies, gpu_sel, report, state, pods, ev_kind,
-                           ev_pod, tp, key, tiebreak_rank, weights)
+                           ev_pod, tp, key, tiebreak_rank, weights,
+                           decisions, int(series_every), heartbeat_every)
 
     return replay
 
@@ -175,9 +198,46 @@ def _setup(state, pods, ev_kind, ev_pod, key, tiebreak_rank, policies,
             tiebreak_rank, resolve_weights(policies, weights))
 
 
+def _oracle_sample(policies, state, pod, tp, processed: int):
+    """The oracle's series sample before an event (tpusim's sequential
+    engine): the pod's unpinned Filter row, and every policy's raw row as
+    the table build computes it (all nodes in the context's feasible
+    mask, key (0, 0)); RandomScore's row is zeros."""
+    from tpusim_torch.obs.series import build_sample
+    from tpusim_torch.policies import ScoreContext
+    from tpusim_torch.sim.step import filter_nodes
+
+    n, dev = state.num_nodes, state.cpu_left.device
+    feas = filter_nodes(state, pod._replace(pinned=-1))
+    ctx = ScoreContext(tp=tp, feasible=torch.ones(n, dtype=torch.bool,
+                                                  device=dev), rng=(0, 0))
+    raws = torch.stack([
+        torch.zeros(n, dtype=torch.int32, device=dev) if pol.per_event
+        else pol.scorer(state, pod, ctx).raw_scores
+        for pol, _ in policies])
+    return build_sample(state, tp, raws, feas, [p for p, _ in policies],
+                        processed)
+
+
+def _stack(records, cls):
+    """A list of records of `cls` (tensors) stacked field by field."""
+    return cls(*(torch.stack(list(col)) for col in zip(*records))) \
+        if records else None
+
+
 def _event_loop(policies, gpu_sel, report, state, pods, ev_kind, ev_pod, tp,
-                key, tiebreak_rank, weights) -> ReplayResult:
-    from tpusim_torch.sim.step import Placement, schedule_one, unschedule
+                key, tiebreak_rank, weights, decisions=False, series_every=0,
+                heartbeat_every=0) -> ReplayResult:
+    from tpusim_torch.obs import heartbeat
+    from tpusim_torch.obs.counters import counters_from_events
+    from tpusim_torch.obs.decisions import DecisionRecord, no_decision
+    from tpusim_torch.obs.series import SeriesSample
+    from tpusim_torch.sim.step import (
+        Placement,
+        schedule_one,
+        schedule_one_recorded,
+        unschedule,
+    )
 
     dev, kinds, idxs, hp, key, rank, wts = _setup(
         state, pods, ev_kind, ev_pod, key, tiebreak_rank, policies, weights)
@@ -189,14 +249,24 @@ def _event_loop(policies, gpu_sel, report, state, pods, ev_kind, ev_pod, tp,
     event_dev = torch.zeros((e, MAX_GPUS_PER_NODE), dtype=torch.bool,
                             device=dev)
     arr_cpu = arr_gpu = 0
-    rows = []
+    rows, decs, sers = [], [], []
     for i in range(e):
         kind, idx = min(max(kinds[i], 0), EV_SKIP), idxs[i]
         key, sub = split(key)
         pod = hp[idx]
+        # every event is a create, delete or skip: i events processed
+        if series_every and i % series_every == 0:
+            sers.append(_oracle_sample(policies, state, pod, tp, i))
+        if decisions and kind != EV_CREATE:
+            decs.append(no_decision(len(policies), dev))
         if kind == EV_CREATE:
-            state, pl = schedule_one(state, pod, sub, policies, gpu_sel, tp,
-                                     rank, wts)
+            if decisions:
+                state, pl, dec = schedule_one_recorded(
+                    state, pod, sub, policies, gpu_sel, tp, rank, wts)
+                decs.append(dec)
+            else:
+                state, pl = schedule_one(state, pod, sub, policies, gpu_sel,
+                                         tp, rank, wts)
             placed[idx] = pl.node
             masks[idx] = pl.dev_mask
             failed[idx] = pl.node < 0
@@ -213,6 +283,8 @@ def _event_loop(policies, gpu_sel, report, state, pods, ev_kind, ev_pod, tp,
                                                      event_dev[i]))
             placed[idx] = -1
             masks[idx] = False
+        if heartbeat.due(i + 1, heartbeat_every):
+            heartbeat.tick(i + 1)
         if report:
             rows.append(metrics_row(state, tp, arr_cpu, arr_gpu))
     metrics = None
@@ -224,8 +296,12 @@ def _event_loop(policies, gpu_sel, report, state, pods, ev_kind, ev_pod, tp,
                 (0, 7) if j == 0 else (0,), device=dev,
                 dtype=torch.float32 if j in (0, 7, 8) else torch.int32))
             for j, c in enumerate(cols)))
-    return ReplayResult(state, placed, masks, failed, metrics, event_node,
-                        event_dev)
+    return ReplayResult(
+        state, placed, masks, failed, metrics, event_node, event_dev,
+        counters_from_events(torch.tensor(kinds, dtype=torch.int32,
+                                          device=dev), event_node),
+        _stack(decs, DecisionRecord) if decisions else None,
+        _stack(sers, SeriesSample) if series_every else None)
 
 
 def _fault_loop(policies, gpu_sel, fault_frag, state, pods, ev_kind, ev_pod,

@@ -280,7 +280,7 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
                      ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                      tp: TypicalPods, tables, cfg: ReplayConfig,
                      select, keep: dict = None, key=None, faults=None,
-                     start=None):
+                     start=None, record=None):
     """The event loop of the plain replays. Before each event the column of
     the node the previous event touched is refreshed in copies of the
     (score, sdev, feas) `tables`; then `select(tables, dirty, kind, type,
@@ -302,7 +302,11 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
     skips; a node failure, recovery or eviction is a skip for the select,
     then apply_fault_step, whose touched node is the step's node and the
     next refresh's; a popped retry ends with commit_retry. Returns
-    (ReplayResult, fault_lane.FaultOut) then."""
+    (ReplayResult, fault_lane.FaultOut) then.
+
+    `record` (a records.PlainRecords), where given, takes each event's
+    series sample after the column refresh, its decision after the select
+    and its counters (and heartbeat tick) after the commit."""
     tables = tuple(t.clone() for t in tables)
     if keep is not None:
         keep["tables"] = tables
@@ -343,7 +347,11 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
         if steps is not None:
             kind, idx, popped = steps.pop(i, kind, idx)
         tid, pin = type_id[idx], host["pinned"][idx]
+        if record is not None:
+            record.sample(live, tables, tid)
         node = select(tables, dirty, kind, tid, pin, k_rand[i])
+        if record is not None:
+            record.decide(kind, tables, tid, pin, k_rand[i], node)
         pcpu, pmem = host["cpu"][idx], host["mem"][idx]
         pmilli, pnum = host["gpu_milli"][idx], host["gpu_num"][idx]
         cls = _affinity_class(pmilli, pnum)
@@ -399,6 +407,8 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
             if touched >= 0:
                 evnode[i], evdevb[i] = touched, 0
                 dirty = touched
+        if record is not None:
+            record.count(kind, evnode[i])
 
     def t(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
@@ -486,7 +496,7 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                  ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                  tp: TypicalPods, rank: torch.Tensor, tables,
                  cfg: ReplayConfig, keep: dict = None,
-                 key=None, faults=None, start=None):
+                 key=None, faults=None, start=None, record=None):
     """The plain version of the `replay` kernel: an event loop over tensor
     ops. `tables` are the (score, sdev, feas) tables of the initial state.
     selectHost scans the event type's row over all N nodes; RandomScore's
@@ -494,7 +504,10 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
     plain_event_loop's (the final tables, and the chain's key after the
     last event). With `faults` (a
     fault_lane.FaultLane over a merged stream) it is the plain version of
-    `replay_faults` and returns (ReplayResult, fault_lane.FaultOut)."""
+    `replay_faults` and returns (ReplayResult, fault_lane.FaultOut). With
+    `record` (a records.RecordSpec) it is the plain version of
+    `replay_record`: keep["records"] (keep is then required) gets the
+    records.Records."""
     k, n = types.num_types, state.num_nodes
     node_ids = torch.arange(n, device=rank.device, dtype=torch.int32)
 
@@ -522,8 +535,16 @@ def plain_replay(state: NodeState, pods: PodSpec, types: PodTypes,
             return -1
         return int(torch.where(key == m, node_ids, n).min())
 
-    return plain_event_loop(state, pods, types, ev_kind, ev_pod, tp, tables,
-                            cfg, select, keep, key, faults, start)
+    rec = None
+    if record is not None:
+        from tpusim_torch.sim.records import PlainRecords
+
+        rec = PlainRecords(record, cfg, tp, rank, n)
+    out = plain_event_loop(state, pods, types, ev_kind, ev_pod, tp, tables,
+                           cfg, select, keep, key, faults, start, rec)
+    if rec is not None:
+        keep["records"] = rec.result()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -609,17 +630,37 @@ class Launch(NamedTuple):
 
 
 def launch(ready: Launch) -> None:
-    """Queue a prepared launch on the current stream of its device."""
+    """Queue a prepared launch on the current stream of its device. A
+    record launch with a heartbeat ring (tensors["ring"]) is drained by an
+    obs.heartbeat.RingTicker while it runs: this call then returns once the
+    launch has completed, every tick delivered (the ring lives as long as
+    the launch's tensors)."""
     from tpusim_torch.kernels import LANE_KERNELS, launch_lanes
     from tpusim_torch.kernels import launch as launch_kernel
 
     dev = ready.tensors["cpu_left"].device
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(dev)
     if ready.name in LANE_KERNELS:
         launch_lanes(ready.name, ready.args,
-                     ready.tensors["lanes_dev"].data_ptr(), stream)
-    else:
-        launch_kernel(ready.name, ready.args, stream)
+                     ready.tensors["lanes_dev"].data_ptr(), stream.cuda_stream)
+        return
+    ring = ready.tensors.get("ring")
+    if ring is None:
+        launch_kernel(ready.name, ready.args, stream.cuda_stream)
+        return
+    from tpusim_torch.obs.heartbeat import RingTicker
+    from tpusim_torch.sim.records import processed
+
+    ticker = RingTicker(ring, ready.args.hb_every,
+                        processed(ready.tensors["ctr"].cpu()))
+    ticker.start()
+    done = None
+    try:
+        launch_kernel(ready.name, ready.args, stream.cuda_stream)
+        done = torch.cuda.Event()
+        done.record(stream)
+    finally:
+        ticker.stop(done)
 
 
 def _cuda_only(dev: torch.device, name: str) -> None:
@@ -694,7 +735,8 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
                    ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                    tp: TypicalPods, rank: torch.Tensor, tables,
                    cfg: ReplayConfig, name: str = "replay", key=None,
-                   start=None, key_out: bool = False, **extra) -> Launch:
+                   start=None, key_out: bool = False, record=None,
+                   n_real: int = None, **extra) -> Launch:
     """The `replay` launch over CUDA tensors (or that of kernel `name`,
     which takes the same arguments and the `extra` tensors), from the root
     `key` where `cfg` is randomized. It mutates copies of the state
@@ -705,10 +747,23 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
     `key_out` (and a `key`), the kernel writes the chain's key after the
     last event into "key_out" (key_tensor; the root key if there is no
     event). A shape past the staged limits (kernels.staged) gets the global
-    form: a "scratch" buffer in device memory."""
+    form: a "scratch" buffer in device memory. With `record` (a
+    records.RecordSpec) the launch runs the record form; finish() then
+    returns (its result, records.Records), and the tensors hold "ring",
+    the heartbeat's kernels.MappedBuffer, where it ticks (`n_real`: the
+    nodes before any padding, records.launch_fields)."""
     dev = state.cpu_left.device
     _cuda_only(dev, name)
     key = root_key(key, cfg)
+    finish_records = ring = None
+    if record is not None:
+        from tpusim_torch.sim.records import launch_fields
+
+        fields, finish_records = launch_fields(
+            record, ev_kind.shape[0], len(cfg.policies), dev,
+            state.num_nodes if n_real is None else n_real)
+        ring = fields.pop("ring", None)
+        extra.update(fields)
     if key_out:
         if key is None:
             raise ValueError("key_out needs the replay's root key")
@@ -748,15 +803,22 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
         failed=failed, ev_node=ev_node, ev_devb=ev_devb, p=p, e=e, key=key,
         **extra,
     )
-    return Launch(name, args, keep, lambda: ReplayResult(
-        live, placed, _bits_to_mask(maskb), failed != 0, None, ev_node,
-        _bits_to_mask(ev_devb)))
+    if ring is not None:
+        keep["ring"] = ring
+
+    def finish():
+        out = ReplayResult(live, placed, _bits_to_mask(maskb), failed != 0,
+                           None, ev_node, _bits_to_mask(ev_devb))
+        return out if finish_records is None else (out, finish_records())
+
+    return Launch(name, args, keep, finish)
 
 
 def replay(state: NodeState, pods: PodSpec, types: PodTypes,
            ev_kind: torch.Tensor, ev_pod: torch.Tensor, tp: TypicalPods,
            rank: torch.Tensor, tables, cfg: ReplayConfig,
-           key=None, start=None, keep: dict = None) -> ReplayResult:
+           key=None, start=None, keep: dict = None,
+           record=None) -> ReplayResult:
     """Replay every event from `state` with the (score, sdev, feas) tables
     of `state` under `cfg`, drawing from root `key` where `cfg` is
     randomized: the `replay` CUDA kernel on CUDA tensors, plain_replay on
@@ -767,16 +829,24 @@ def replay(state: NodeState, pods: PodSpec, types: PodTypes,
     bits). Inputs are left unchanged. The kernel trusts the event kinds,
     the pod indices and `types.type_id`: the replayer of make_fused_replay
     checks the events on the host first, and build_pod_types makes type ids
-    in range."""
+    in range. With `record` (a records.RecordSpec) the record form runs
+    (`replay_record`, its plain version on the CPU): keep (then required)
+    gets "records", the records.Records."""
     if state.cpu_left.device.type == "cpu":
         return plain_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
-                            tables, cfg, keep=keep, key=key, start=start)
+                            tables, cfg, keep=keep, key=key, start=start,
+                            record=record)
     ready = prepare_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
                            tables, cfg, key=key, start=start,
-                           key_out=keep is not None and key is not None)
+                           key_out=keep is not None and key is not None,
+                           record=record)
     launch(ready)
-    replay.launches += 1
-    return kept(ready, keep)
+    if record is None:
+        replay.launches += 1
+        return kept(ready, keep)
+    replay_record.launches += 1
+    out, keep["records"] = kept(ready, keep)
+    return out
 
 
 def kept(ready: Launch, keep: dict):
@@ -1084,7 +1154,15 @@ replay_faults.launches = 0
 replay_lanes_faults.launches = 0
 # every kernel wrapper of the port; tpusim_torch.sim.hbm_engine adds
 # replay_blocked, replay_blocked_lanes and their fault forms
-KERNEL_WRAPPERS = [init_tables, replay, replay_lanes, replay_faults,
+def replay_record(*args, **kwargs):
+    """`replay` with its `record` (a records.RecordSpec): the record form's
+    launch count is this function's (chip_smoke.py reads it)."""
+    return replay(*args, **kwargs)
+
+
+replay_record.launches = 0
+KERNEL_WRAPPERS = [init_tables, replay, replay_record, replay_lanes,
+                   replay_faults,
                    replay_lanes_faults]
 
 

@@ -224,7 +224,7 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                          tp: TypicalPods, rank: torch.Tensor, tables,
                          cfg: fe.ReplayConfig, keep: dict = None,
                          on_refresh=None, faults=None, key=None,
-                         start=None):
+                         start=None, record=None, n_real: int = None):
     """The plain version of the `replay_blocked` kernel: an event loop over
     tensor ops, returning (ReplayResult, stats i32[3]). The node axis of
     `state`, `rank` and the (score, sdev, feas) `tables` of the initial
@@ -241,7 +241,11 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
     refresh. With `faults` (a fault_lane.FaultLane over a merged stream,
     its carry over the padded nodes) it is the plain version of
     `replay_blocked_faults` (fused_engine.plain_event_loop runs the fault
-    steps) and returns (ReplayResult, stats, fault_lane.FaultOut)."""
+    steps) and returns (ReplayResult, stats, fault_lane.FaultOut). With
+    `record` (a records.RecordSpec) it is the plain version of
+    `replay_blocked_record`: keep["records"] (keep is then required) gets
+    the records.Records, `n_real` the node count before the padding
+    (the series leaves the pad rows out)."""
     n, k = state.num_nodes, types.num_types
     check_blocked(n, cfg)
     nblk, n_pol = n // BLOCK, len(cfg.policies)
@@ -294,9 +298,17 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
         c = int(key.argmax())
         return int(bn[tid, c]) if int(key[c]) != -_INT_MAX else -1
 
+    rec = None
+    if record is not None:
+        from tpusim_torch.sim.records import PlainRecords
+
+        rec = PlainRecords(record, cfg, tp, rank,
+                           n if n_real is None else n_real, BLOCK)
     result = fe.plain_event_loop(state, pods, types, ev_kind, ev_pod, tp,
                                  tables, cfg, select, keep, key=key,
-                                 faults=faults, start=start)
+                                 faults=faults, start=start, record=rec)
+    if rec is not None:
+        keep["records"] = rec.result(rebuilds)
     if keep is not None:
         keep["summaries"] = summ
     stats = torch.tensor([0, 0, rebuilds], dtype=torch.int32,
@@ -325,18 +337,28 @@ def prepare_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                            ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                            tp: TypicalPods, rank: torch.Tensor, tables,
                            cfg: fe.ReplayConfig, key=None, start=None,
-                           key_out: bool = False) -> fe.Launch:
+                           key_out: bool = False, record=None,
+                           n_real: int = None) -> fe.Launch:
     """The `replay_blocked` launch over CUDA tensors: `replay`'s arguments
-    and outputs (fused_engine.prepare_replay's `start` and `key_out`
-    included), the summaries it builds and maintains, and "stats"."""
+    and outputs (fused_engine.prepare_replay's `start`, `key_out`,
+    `record` and `n_real` included), the summaries it builds and
+    maintains, and "stats". With `record`, finish() returns (ReplayResult,
+    stats, records.Records)."""
     check_blocked(state.num_nodes, cfg)
     summaries = _summary_buffers(state.num_nodes, types.num_types, cfg,
                                  rank.device)
     ready = fe.prepare_replay(state, pods, types, ev_kind, ev_pod, tp, rank,
                               tables, cfg, name="replay_blocked", key=key,
-                              start=start, key_out=key_out, **summaries)
-    return ready._replace(
-        finish=lambda: (ready.finish(), ready.tensors["stats"]))
+                              start=start, key_out=key_out, record=record,
+                              n_real=n_real, **summaries)
+
+    def finish():
+        out = ready.finish()
+        if record is None:
+            return out, ready.tensors["stats"]
+        return out[0], ready.tensors["stats"], out[1]
+
+    return ready._replace(finish=finish)
 
 
 def prepare_replay_blocked_faults(state: NodeState, pods: PodSpec,
@@ -367,24 +389,33 @@ def replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
                    ev_kind: torch.Tensor, ev_pod: torch.Tensor,
                    tp: TypicalPods, rank: torch.Tensor, tables,
                    cfg: fe.ReplayConfig, key=None, start=None,
-                   keep: dict = None):
+                   keep: dict = None, record=None, n_real: int = None):
     """Replay every event from `state` with the (score, sdev, feas) tables
     of `state` under `cfg`, selecting over 128-node block summaries: the
     `replay_blocked` CUDA kernel on CUDA tensors, plain_replay_blocked on
     CPU tensors. Returns (ReplayResult, stats i32[3]); inputs are left
     unchanged. The node axis is a whole number of blocks. `key`, `start`
     and `keep` are fused_engine.replay's (keep["summaries"] only from the
-    plain version). The kernel trusts the events as `replay` does."""
+    plain version). The kernel trusts the events as `replay` does. With
+    `record` (a records.RecordSpec; `n_real` the nodes before the padding)
+    the record form runs (`replay_blocked_record`, its plain version on
+    the CPU): keep (then required) gets "records", the records.Records."""
     if state.cpu_left.device.type == "cpu":
         return plain_replay_blocked(state, pods, types, ev_kind, ev_pod, tp,
                                     rank, tables, cfg, keep=keep, key=key,
-                                    start=start)
+                                    start=start, record=record,
+                                    n_real=n_real)
     ready = prepare_replay_blocked(
         state, pods, types, ev_kind, ev_pod, tp, rank, tables, cfg, key=key,
-        start=start, key_out=keep is not None and key is not None)
+        start=start, key_out=keep is not None and key is not None,
+        record=record, n_real=n_real)
     fe.launch(ready)
-    replay_blocked.launches += 1
-    return fe.kept(ready, keep)
+    if record is None:
+        replay_blocked.launches += 1
+        return fe.kept(ready, keep)
+    replay_blocked_record.launches += 1
+    out, stats, keep["records"] = fe.kept(ready, keep)
+    return out, stats
 
 
 def replay_blocked_faults(state: NodeState, pods: PodSpec, types: PodTypes,
@@ -500,11 +531,19 @@ def replay_blocked_lanes_faults(state: NodeState, types: PodTypes,
     return ready.finish()
 
 
+def replay_blocked_record(*args, **kwargs):
+    """`replay_blocked` with its `record` (a records.RecordSpec): the
+    record form's launch count is this function's."""
+    return replay_blocked(*args, **kwargs)
+
+
 replay_blocked.launches = 0
+replay_blocked_record.launches = 0
 replay_blocked_lanes.launches = 0
 replay_blocked_faults.launches = 0
 replay_blocked_lanes_faults.launches = 0
-fe.KERNEL_WRAPPERS.extend([replay_blocked, replay_blocked_lanes,
+fe.KERNEL_WRAPPERS.extend([replay_blocked, replay_blocked_record,
+                           replay_blocked_lanes,
                            replay_blocked_faults, replay_blocked_lanes_faults])
 
 

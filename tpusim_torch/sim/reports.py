@@ -149,6 +149,10 @@ def event_report_series(
         "power_cluster": np.char.mod("%.1f", pc + pg),
         "power_cluster_CPU": np.char.mod("%.1f", pc),
         "power_cluster_GPU": np.char.mod("%.1f", pg),
+        # numeric twin of origin_milli for the Chrome trace's counter
+        # tracks (the driver's event_counter_series); underscore-prefixed,
+        # so the CSV writers, which read explicit keys, never see it
+        "_frag_milli_f": frag,
     }
     if bellman is not None:
         br = np.where(idle != 0, 100.0 * bellman / safe, 0.0)

@@ -154,6 +154,34 @@ def packed_topk(total: torch.Tensor, valid: torch.Tensor, rank: torch.Tensor,
             torch.stack(oks))
 
 
+def build_decision(node: torch.Tensor, raws: torch.Tensor,
+                   norms: torch.Tensor, total: torch.Tensor,
+                   feasible: torch.Tensor, rank: torch.Tensor):
+    """The DecisionRecord of one create event from full per-policy rows
+    (tpusim's build_decision): `node` the committed winner (-1 = none),
+    `raws`/`norms` i32[num_pol, M] the raw and normalised rows, `total`
+    i32[M] what selectHost reduced, `feasible` bool[M] the Filter mask
+    (pinning included), `rank` i32[M]. The top-K is packed_topk's (entry 0
+    the winner); `block` is -1 (a blocked select writes its block)."""
+    from tpusim_torch.obs.decisions import DECISION_TOPK, DecisionRecord
+
+    ok = node >= 0
+    sel = node.clamp(min=0).long()
+    zero = torch.zeros((), dtype=torch.int32, device=total.device)
+    pos, tot, rnk, _ = packed_topk(total, feasible, rank, DECISION_TOPK)
+    return DecisionRecord(
+        node=node.to(torch.int32),
+        total=torch.where(ok, total[sel], zero).to(torch.int32),
+        raw=torch.where(ok, raws[:, sel], zero).to(torch.int32),
+        norm=torch.where(ok, norms[:, sel], zero).to(torch.int32),
+        topk_node=pos,
+        topk_total=tot,
+        topk_rank=rnk,
+        feasible=feasible.sum().to(torch.int32),
+        block=torch.full((), -1, dtype=torch.int32, device=total.device),
+    )
+
+
 def block_reduce(tot: torch.Tensor, rank: torch.Tensor):
     """Per-block (max total, min tie-break rank among the maxima, argmax)
     over the trailing axis: the in-block half of the blocked two-level
@@ -358,6 +386,28 @@ def schedule_one(state: NodeState, pod: PodSpec, key,
         state, pod, k_rand, policies, gpu_sel, tp, weights)
     return select_and_bind(state, pod, feasible, total, policy_share_dev,
                            gpu_sel, k_sel, tiebreak_rank)
+
+
+def schedule_one_recorded(state: NodeState, pod: PodSpec, key,
+                          policies: Sequence[Tuple[object, int]],
+                          gpu_sel: str = "best", tp=None, tiebreak_rank=None,
+                          weights=None):
+    """schedule_one plus its DecisionRecord (tpusim's
+    schedule_one_recorded): the same key splits and the same cycle, the
+    rows kept for the record only, so the trajectory is schedule_one's.
+    Returns (new_state, Placement, DecisionRecord)."""
+    k_rand, k_sel = split(key)
+    if tiebreak_rank is None:
+        tiebreak_rank = torch.arange(state.num_nodes, dtype=torch.int32,
+                                     device=state.cpu_left.device)
+    feasible, total, policy_share_dev, raws, norms = score_pod_rows(
+        state, pod, k_rand, policies, gpu_sel, tp, weights)
+    new_state, placement = select_and_bind(
+        state, pod, feasible, total, policy_share_dev, gpu_sel, k_sel,
+        tiebreak_rank)
+    dec = build_decision(placement.node, raws, norms, total, feasible,
+                         tiebreak_rank)
+    return new_state, placement, dec
 
 
 def unschedule(state: NodeState, pod: PodSpec,

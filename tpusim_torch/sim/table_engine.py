@@ -27,7 +27,12 @@ they are a function of the state, and each chunk starts with one
 init_tables launch over it (or, at event 0, the tables a caller already
 has, such as a table-cache hit). The JAX carry's software-pipeline register
 (`pend`, `dirty`) has no counterpart, for the kernels commit each event
-inside it, and its obs counters (`ctr`) are not ported yet. A
+inside it. The obs counters (`ctr`, tpusim_torch.obs.counters) ride the
+carry as tpusim's do: a recording replay (make_table_replay's decisions,
+series_every, heartbeat_every) launches the kernels' record forms, which
+add them on the card and return each chunk's decision and series rows
+(sim/records.py); a replay that records nothing adds the counts of each
+chunk's event outputs. Either way they survive a checkpoint. A
 FlatTableCarry runs `replay`; a BlockedTableCarry runs `replay_blocked` over
 the nodes padded to whole 128-node blocks, whose block summaries the kernel
 builds from the tables at each chunk's start, as it does at event 0 of a
@@ -189,6 +194,7 @@ class FlatTableCarry(NamedTuple):
     arr_cpu: torch.Tensor  # i32[] arrived milli-CPU so far
     arr_gpu: torch.Tensor  # i32[] arrived milli-GPU so far
     key: torch.Tensor  # i32[2]: the bits of the chain's key after `cursor`
+    ctr: torch.Tensor  # i32[6] obs counters after `cursor` (obs.counters)
     cursor: int  # events consumed
     # the tables of `state` where a caller already has them (event 0 of a
     # table-cache hit), else None; never in a checkpoint
@@ -207,12 +213,14 @@ class BlockedTableCarry(NamedTuple):
     arr_cpu: torch.Tensor
     arr_gpu: torch.Tensor
     key: torch.Tensor
+    ctr: torch.Tensor
     cursor: int
     tables: Optional[tuple] = None
 
 
 # the leaves a checkpoint holds, with the state's fields as "state.<name>"
-CARRY_LEAVES = ("placed", "masks", "failed", "arr_cpu", "arr_gpu", "key")
+CARRY_LEAVES = ("placed", "masks", "failed", "arr_cpu", "arr_gpu", "key",
+                "ctr")
 
 
 def carry_arrays(carry, extra: dict = None) -> dict:
@@ -245,6 +253,7 @@ def carry_layout(state: NodeState, num_pods: int) -> dict:
                arr_cpu=((), np.dtype(np.int32)),
                arr_gpu=((), np.dtype(np.int32)),
                key=((2,), np.dtype(np.uint32)),
+               ctr=((6,), np.dtype(np.int32)),
                cursor=((), np.dtype(np.int64)))
     return out
 
@@ -275,7 +284,8 @@ def carry_from_arrays(cls, arrays: dict, device):
 
 def make_table_replay(policies, gpu_sel: str = "best", block_size: int = 0,
                       dim_ext: str = "share", norm: str = "max",
-                      residency: str = "auto"):
+                      residency: str = "auto", decisions: bool = False,
+                      series_every: int = 0, heartbeat_every: int = 0):
     """The chunk surface for a policy config (the counterpart of tpusim's
     make_table_replay, policies as [(name, weight)]): `replay(state, pods,
     types, ev_kind, ev_pod, tp, key, tiebreak_rank=None, tables=None)`
@@ -290,7 +300,14 @@ def make_table_replay(policies, gpu_sel: str = "best", block_size: int = 0,
     state where the blocked replay runs) where the caller has them: the
     first chunk then launches no init_tables. After each run_chunk,
     `replay.last_stats` holds the blocked chunk's [waits, starts,
-    rebuilds] (None after a flat one)."""
+    rebuilds] (None after a flat one).
+
+    With `decisions`, `series_every` > 0 or `heartbeat_every` > 0 (tpusim's
+    recording builds) each chunk launches the kernels' record forms and
+    run_chunk returns (carry', (event_node, event_dev, records.Records)),
+    the chunk's decision and sample rows in the Records; `replay` returns
+    them as its ReplayResult's decisions and series (records.
+    decision_rows, sample_rows: the caller's policy order)."""
     from tpusim_torch.parallel.sharding import pad_nodes, trim_nodes
     from tpusim_torch.policies.base import wrap_i32
     from tpusim_torch.sim import fused_engine as fe
@@ -298,8 +315,12 @@ def make_table_replay(policies, gpu_sel: str = "best", block_size: int = 0,
     from tpusim_torch.sim.engine import EV_CREATE, ReplayResult
     from tpusim_torch.sim.residency import BLOCK
 
+    from tpusim_torch.obs.counters import counters_from_events, zero_counters
+    from tpusim_torch.sim import records as rec
+
     check_block_size(block_size)
     cfg = fe.make_config(policies, gpu_sel, dim_ext, norm)
+    recording = bool(decisions or series_every or heartbeat_every)
 
     def rank_of(state, tiebreak_rank):
         if tiebreak_rank is None:
@@ -327,7 +348,7 @@ def make_table_replay(policies, gpu_sel: str = "best", block_size: int = 0,
                    torch.zeros(p, dtype=torch.bool, device=dev),
                    zero, zero.clone(), fe.key_tensor(fe.root_key(key, cfg)
                                                      or (0, 0), dev),
-                   0, tables)
+                   zero_counters(dev), 0, tables)
 
     def run_chunk(carry, pods, types, ev_kind, ev_pod, tp,
                   tiebreak_rank=None):
@@ -348,17 +369,28 @@ def make_table_replay(policies, gpu_sel: str = "best", block_size: int = 0,
         start = (carry.placed, fe.mask_bits(carry.masks),
                  carry.failed.to(torch.int32))
         keep = {}
+        spec = (rec.RecordSpec(bool(decisions), int(series_every),
+                               int(heartbeat_every), carry.ctr, carry.cursor)
+                if recording else None)
         if blocked:
             out, stats = hbm_engine.replay_blocked(
                 state, pods, types, ev_kind, ev_pod, tp, rank, tables, cfg,
-                key=carry.key, start=start, keep=keep)
+                key=carry.key, start=start, keep=keep, record=spec,
+                n_real=n)
             out = out._replace(state=trim_nodes(out.state, n))
             replay.last_stats = stats
         else:
             out = fe.replay(state, pods, types, ev_kind, ev_pod, tp, rank,
                             tables, cfg, key=carry.key, start=start,
-                            keep=keep)
+                            keep=keep, record=spec)
             replay.last_stats = None
+        if recording:
+            records = keep["records"]
+            ctr = records.ctr
+        else:
+            ctr = carry.ctr + counters_from_events(
+                ev_kind, out.event_node,
+                0 if replay.last_stats is None else replay.last_stats[2])
         creates = ev_kind == EV_CREATE
         arrived = [
             wrap_i32(arr.to(torch.int64) + torch.where(
@@ -366,8 +398,10 @@ def make_table_replay(policies, gpu_sel: str = "best", block_size: int = 0,
             for arr, col in ((carry.arr_cpu, pods.cpu),
                              (carry.arr_gpu, pods.gpu_milli * pods.gpu_num))]
         nxt = type(carry)(out.state, out.placed_node, out.dev_mask,
-                          out.ever_failed, *arrived, keep["key"],
+                          out.ever_failed, *arrived, keep["key"], ctr,
                           carry.cursor + int(ev_kind.shape[0]))
+        if recording:
+            return nxt, (out.event_node, out.event_dev, records)
         return nxt, (out.event_node, out.event_dev)
 
     def finish(carry):
@@ -378,14 +412,30 @@ def make_table_replay(policies, gpu_sel: str = "best", block_size: int = 0,
                tiebreak_rank=None, tables=None) -> ReplayResult:
         carry = init_carry(state, pods, types, tp, key, tiebreak_rank,
                            tables)
-        carry, (nodes, devs) = run_chunk(carry, pods, types, ev_kind, ev_pod,
-                                         tp, tiebreak_rank)
+        carry, ys = run_chunk(carry, pods, types, ev_kind, ev_pod, tp,
+                              tiebreak_rank)
         st, placed, masks, failed = finish(carry)
-        return ReplayResult(st, placed, masks, failed, None, nodes, devs)
+        decs = sers = None
+        if recording:
+            decs, sers = rows_of(ys[2])
+        return ReplayResult(st, placed, masks, failed, None, ys[0], ys[1],
+                            carry.ctr, decs, sers)
+
+    def rows_of(records):
+        """(DecisionRecord, SeriesSample) of a chunk's Records, numpy on
+        the host in the caller's policy order (None where not recorded)."""
+        pi = len(cfg.policies)
+        dec = (None if records.dec is None else rec.decision_rows(
+            records.dec.cpu().numpy(), pi, cfg.order))
+        ser = (None if records.ser is None else rec.sample_rows(
+            records.ser.cpu().numpy(), pi, cfg.order))
+        return dec, ser
 
     replay.init_carry = init_carry
     replay.run_chunk = run_chunk
     replay.finish = finish
     replay.tier_of = tier_of
+    replay.rows_of = rows_of
+    replay.recording = recording
     replay.last_stats = None
     return replay
