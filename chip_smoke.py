@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only seq       # the sequential oracle
     python3 chip_smoke.py --only ckpt      # chunks, resume, forks, cache
     python3 chip_smoke.py --only obs       # decisions, series, spans
+    python3 chip_smoke.py --only learn     # the learned policy, tune, imitate
 
 Phases, in order; any failure ends the run with a non-zero exit and no
 result line:
@@ -247,6 +248,29 @@ result line:
            form that records nothing; the heartbeat over the scale phase's
            first chunk (OBS_HEARTBEAT_EVENTS events at 100k nodes) with
            its exact tick count. Writes chiprun_out/obs_phase.json.
+14. learn the learned policy (tpusim_torch.learn) on the learned
+           instantiations of the replay kernels (replay_learned.cu,
+           replay_blocked_learned.cu, replay_learned_records.cu,
+           replay_learned_faults.cu, replay_blocked_learned_faults.cu) and
+           the teacher-forced form (replay_forced.cu), the launch counts
+           set to 0 before each run and read after it: Simulator.run() of
+           the openb linear family at LEARN_THETA and the bucketed one at
+           LEARN_THETA_B under "vmem" and "hbm" against tpusim's digests
+           (LEARN_SHA256); each learned kernel against its plain version
+           (CPU copies, tolerance 0) over the first LEARN_PREFIX events,
+           the record forms (LEARN_RECORD_EVENTS), both lanes forms
+           (LEARN_LANES_EVENTS, two weight vectors) and the fault forms
+           (LEARN_FAULT_STEPS merged steps of the lane phase's schedule),
+           timed beside 06-FGD's; a record run's per-feature sums against
+           every create's total; an 8-vector sweep against standalone
+           runs; the openb learned fault lane and a chaos sweep; `tune`
+           through the CLI (LEARN_TUNE_FLAGS) against tpusim's log and
+           output (TUNE_LOG_SHA256, TUNE_STDOUT_SHA256), one generation
+           timed; the FGD teacher of tpusim's 400-pod acceptance prefix
+           recorded on the card (TEACHER_SHA256) and imitated through
+           replay_forced (IMITATE_THETA, IMITATE_HOLDOUT); replay_forced
+           against its plain version (FORCED_PREFIX events). Writes
+           chiprun_out/learn_phase.json.
 
 Run with every phase, it then prints one JSON line describing the
 kernels, the card's line, and as the last line {"ok": true, "device":
@@ -5619,8 +5643,772 @@ def record_kernel_rows(rec_rows, launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the learned policy (tpusim_torch.learn): the learned columns of
+# the replay kernels, the teacher-forced form, tune and imitate
+# ---------------------------------------------------------------------------
+
+# the parameter vectors of the openb learned runs: the linear family's
+# (tests/test_policy_learned.py THETA) and the bucketed family's, every
+# entry nonzero
+LEARN_THETA = (700, -120, 45, 10, 80, -60, 33, 25, -200, 50)
+LEARN_THETA_B = LEARN_THETA + (15, -25, 35, -45, 55, -65, 75, -85, 95, -105)
+# the digests of the JAX package's Simulator.run() of each family on openb
+# (the METHODS rows' protocol: tune 1.3, tuning seed 42, seed 42, shuffled,
+# gpu_sel best; its table engine): placed_node and dev_mask sha256.
+# tests/test_torch_learned.py pins them against tpusim.
+LEARN_SHA256 = {
+    "linear": (
+        "8f5829f247ea47ee38f9c5c676d7726329dd64beb5bb65dae8aaafe7afeccf78",
+        "26ef58415ec1afd143101abadc53da94f3e839d0b8df8557a26ad0d46316be1c"),
+    "bucketed": (
+        "e904c709223d484cb91e0112bf5fd9f164d2fd173ccd9e3e0368d33abbf2e6f5",
+        "d100a61073e85b6d84758c1174a0fabb1737234944253275216c27764b92ff9f"),
+}
+# events of each family's kernels held to their plain versions (CPU copies)
+LEARN_PREFIX = {"linear": 500, "bucketed": 250}
+LEARN_RECORD_EVENTS = 150  # the record forms against their plain versions
+LEARN_RECORD_EVERY = 25
+LEARN_LANES_EVENTS = 150  # the lanes kernels against their plain versions
+# the sweep's 8 parameter vectors
+LEARN_SWEEP = tuple(tuple(w + 37 * (i + 1) * (1 - 2 * (j % 2))
+                          for j, w in enumerate(LEARN_THETA))
+                    for i in range(8))
+# tests/test_policy_learned.py's openb acceptance prefix; `tune` through
+# the CLI on it, and imitation of its recorded FGD teacher
+LEARN_PODS = 400
+LEARN_TUNE_FLAGS = ("--max-pods", "400", "--policy", "learned",
+                    "--generations", "3", "--popsize", "8", "--sigma", "600",
+                    "--lr", "500", "--seed", "11")
+# `python -m tpusim tune` with those flags: its tuning log's sha256 and its
+# standard output's, the log path written as LOG
+TUNE_LOG_SHA256 = (
+    "e24dc93f1e85f11db6b3ae269ecdcc7e9a80c1a02930c05176c567d311cc012f")
+TUNE_STDOUT_SHA256 = (
+    "9daed5620f30b29e868a9b8874320208bad7b876a3a81a24019016519b3868b3")
+# tpusim's openb acceptance of imitation: the FGD teacher's decision file,
+# the imitated theta and its held-out agreement
+TEACHER_SHA256 = (
+    "b2b7ec4015ee8b01245ebdff713928eb44c4e66ee74b994bd34c95eb3ae79d0a")
+IMITATE_THETA = [25, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+IMITATE_HOLDOUT = {"matches": 80, "creates": 80, "agreement": 1.0}
+FORCED_PREFIX = 100  # replay_forced against its plain version
+# merged steps of the learned fault forms against their plain versions
+# (the lane phase's FAULT_FLAGS schedule on openb)
+LEARN_FAULT_STEPS = 500
+LEARNED_SOURCES = {
+    "init_tables_learned": "tpusim_torch/kernels/replay_learned.cu",
+    "replay_learned": "tpusim_torch/kernels/replay_learned.cu",
+    "replay_blocked_learned": "tpusim_torch/kernels/replay_blocked_learned.cu",
+    "replay_lanes_learned": "tpusim_torch/kernels/replay_learned.cu",
+    "replay_blocked_lanes_learned":
+        "tpusim_torch/kernels/replay_blocked_learned.cu",
+    "replay_learned_record": "tpusim_torch/kernels/replay_learned_records.cu",
+    "replay_blocked_learned_record":
+        "tpusim_torch/kernels/replay_learned_records.cu",
+    "replay_learned_faults": "tpusim_torch/kernels/replay_learned_faults.cu",
+    "replay_lanes_learned_faults":
+        "tpusim_torch/kernels/replay_learned_faults.cu",
+    "replay_blocked_learned_faults":
+        "tpusim_torch/kernels/replay_blocked_learned_faults.cu",
+    "replay_blocked_lanes_learned_faults":
+        "tpusim_torch/kernels/replay_blocked_learned_faults.cu",
+    "replay_forced": "tpusim_torch/kernels/replay_forced.cu",
+}
+LEARNED_KERNELS = tuple(LEARNED_SOURCES)
+REPLACES.update({
+    "init_tables_learned": REPLACES["init_tables"],
+    "replay_learned": REPLACES["replay"],
+    "replay_blocked_learned": REPLACES["replay_blocked"],
+    "replay_lanes_learned": REPLACES["replay"],
+    "replay_blocked_lanes_learned": REPLACES["replay_blocked"],
+    "replay_learned_record": REPLACES["replay"],
+    "replay_blocked_learned_record": REPLACES["replay_blocked"],
+    "replay_learned_faults": REPLACES["replay"],
+    "replay_lanes_learned_faults": REPLACES["replay"],
+    "replay_blocked_learned_faults": REPLACES["replay_blocked"],
+    "replay_blocked_lanes_learned_faults": REPLACES["replay_blocked"],
+    "replay_forced": REPLACES["replay"],
+})
+
+
+def learn_families() -> dict:
+    from tpusim_torch.learn.policy import BUCKETED_FEATURES, learned_policies
+
+    return {"linear": learned_policies(LEARN_THETA),
+            "bucketed": learned_policies(LEARN_THETA_B, BUCKETED_FEATURES)}
+
+
+def learn_config(policies, residency: str, **knobs):
+    """The METHODS rows' protocol on openb for a learned family (gpu_sel
+    best, per-event reports off)."""
+    import dataclasses
+
+    from tpusim_torch.__main__ import method_config
+
+    return dataclasses.replace(
+        method_config(policies, gpu_sel="best", report_per_event=False),
+        table_residency=residency, **knobs)
+
+
+def learned_ops(cfg, state, types, tp) -> np.ndarray:
+    """node_ops for a learned configuration: frag_delta's column as FGD's;
+    the node column's features once a node (its three float32 tree sums
+    over the T typical pods, about 12 operations a pod each, and about 60
+    integer operations); fit_dev_pct's 10 a type. int64 [N]."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    ops = np.zeros(state.num_nodes, np.int64)
+    names = [p.name for p in cfg.policies]
+    if "LearnedScore[frag_delta]" in names:
+        ops += node_ops(fe.make_config([("FGDScore", 1)], "best"), state,
+                        types, tp)
+    if "LearnedNode" in names:
+        ops += 36 * tp.size + 60
+    if "LearnedScore[fit_dev_pct]" in names:
+        ops += 10 * types.num_types
+    return ops
+
+
+def learn_runs(device, card: str, nodes, pods) -> dict:
+    """The full openb trace through Simulator.run() under each family,
+    residency vmem and hbm: the launch counts set to 0 before each run and
+    read after it (init_tables_learned and the residency's learned replay,
+    once each, and no other replay), the placements and masks against the
+    JAX package's digests (LEARN_SHA256), the warm replay wall."""
+    import torch
+
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.driver import Simulator
+
+    out = {}
+    want = {"vmem": "replay_learned", "hbm": "replay_blocked_learned"}
+    for fam, pol in learn_families().items():
+        for res in ("vmem", "hbm"):
+            label = f"learn {fam}/{res}"
+            sim = Simulator(nodes, learn_config(pol, res), device)
+            sim.set_workload_pods(list(pods))
+            fe.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = sim.run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = nonzero(run_counts())
+            if counts != {"init_tables_learned": 1, want[res]: 1}:
+                raise SmokeFailure(f"{label}: launches {counts}, want "
+                                   f"init_tables_learned and {want[res]} "
+                                   "once each")
+            got = (digest(np.asarray(r.placed_node), np.int32),
+                   digest(np.asarray(r.dev_mask), np.uint8))
+            if got != LEARN_SHA256[fam]:
+                raise SmokeFailure(f"{label}: differs from the JAX reference:"
+                                   f" placed sha256 {got[0]} dev_mask sha256 "
+                                   f"{got[1]}")
+            warm, _ = wall_ms(lambda: sim.run())
+            print(f"learn openb {fam}/{res}: {r.events} events, placements "
+                  f"and masks match the JAX digests; launches {counts}; "
+                  f"Simulator.run() {wall:.0f} ms cold, {warm:.0f} ms warm, "
+                  f"on {card}")
+            out[f"{fam}/{res}"] = dict(launches=counts, events=r.events,
+                                       cold_ms=wall, warm_ms=warm)
+    return out
+
+
+def learn_kernel_checks(device, card: str) -> dict:
+    """init_tables, replay and replay_blocked of each family against their
+    plain versions (CPU copies) on the openb trace's first LEARN_PREFIX
+    events, tolerance 0 with the final tables and summaries; the kernels
+    timed on the whole trace (placements held to LEARN_SHA256) beside
+    06-FGD's replay and replay_blocked on the same inputs, and their
+    bounds."""
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    n, k, t = state.num_nodes, types.num_types, tp.size
+    e, p = evk.shape[0], specs.cpu.shape[0]
+    kinds, pods = evk.cpu().numpy(), evp.cpu().numpy()
+    bstate, brank = pad_nodes(state, rank, 128)
+    fgd = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    fgd_tables = fe.init_tables(state, types, tp, fgd)
+    ready = fe.prepare_replay(state, specs, types, evk, evp, tp, rank,
+                              fgd_tables, fgd)
+    fgd_ms = kernel_ms(ready, 3, reset_of(ready, state, fgd_tables))
+    btables = fe.init_tables(bstate, types, tp, fgd)
+    ready = he.prepare_replay_blocked(bstate, specs, types, evk, evp, tp,
+                                      brank, btables, fgd)
+    fgd_blocked_ms = kernel_ms(ready, 3, reset_of(ready, bstate, btables))
+    rows = {name: {} for name in ("init_tables_learned", "replay_learned",
+                                  "replay_blocked_learned")}
+    for fam, pol in learn_families().items():
+        cfg = fe.make_config(pol, "best")
+        m = LEARN_PREFIX[fam]
+        ready = fe.prepare_init_tables(state, types, tp, cfg)
+        init_ms = kernel_ms(ready, 5)
+        tables = ready.finish()
+        plain_init, want = wall_ms(lambda: fe.plain_init_tables(
+            *to_cpu((state, types, tp)), cfg))
+        err_init = max_abs_err(to_cpu(tables), want)
+        ops = learned_ops(cfg, state, types, tp)
+        n_pol = cfg.num_tables
+        init_bound = bound_ms(
+            n * (1 + 1 + 1 + 1 + 8 + 9 + 1 + 1) * 4 + 5 * k * 4 + 5 * t * 4
+            + (n_pol + 2) * k * n * 4, int(ops.sum()))
+        rows["init_tables_learned"][fam] = dict(
+            ms=init_ms, plain_ms=plain_init, max_abs_err=err_init,
+            bound_ms=init_bound[0], bound_by=init_bound[1])
+        print(f"check openb init_tables_learned {fam} [{n_pol}x{k}, {n}]: "
+              f"max_abs_err={err_init} (tolerance 0); {init_ms:.4f} ms "
+              f"(plain {plain_init:.1f} ms on the CPU), on {card}")
+        btab = fe.init_tables(bstate, types, tp, cfg)
+        for name, args in (
+                ("replay_learned",
+                 (state, specs, types, evk, evp, tp, rank, tables)),
+                ("replay_blocked_learned",
+                 (bstate, specs, types, evk, evp, tp, brank, btab))):
+            base = "replay" if name == "replay_learned" else "replay_blocked"
+            prep = fe.prepare_replay if base == "replay" else \
+                he.prepare_replay_blocked
+            ready = prep(*args, cfg)
+            full_ms = kernel_ms(ready, 3, reset_of(ready, args[0], args[7]))
+            got = ready.finish()
+            check_digests(f"{name} {fam}", got if base == "replay" else
+                          got[0], *LEARN_SHA256[fam])
+            placed = (got if base == "replay" else got[0]).placed_node
+            refreshes = placed_refreshes(kinds, pods, placed)
+            cut = tuple(args[:3]) + (evk[:m], evp[:m]) + tuple(args[5:])
+            ready = prep(*cut, cfg)
+            prefix_ms = kernel_ms(ready, 3, reset_of(ready, args[0], args[7]))
+            t0 = time.perf_counter()
+            err = against_plain(base, cut, cfg, plain_on_cpu=True)
+            both_ms = (time.perf_counter() - t0) * 1e3
+            extra = 4 * k * (args[0].num_nodes // 128) * 3 \
+                if base == "replay_blocked" else 0
+            bound = throughput_bound(args[0].num_nodes, k, t, p, e, n_pol,
+                                     refreshes, ops.mean(), extra)
+            print(f"check openb {name} {fam} E={m}: max_abs_err={err} with "
+                  f"final tables{' and summaries' if extra else ''} "
+                  f"(tolerance 0); kernel {prefix_ms:.3f} ms on the prefix "
+                  f"(plain and kernel together {both_ms:.0f} ms); whole "
+                  f"trace {full_ms:.3f} ms beside 06-FGD's {base} "
+                  f"{fgd_ms if base == 'replay' else fgd_blocked_ms:.3f} ms "
+                  f"(bound {bound[0]:.5f} ms by {bound[1]}), on {card}")
+            if err:
+                raise SmokeFailure(f"{name} disagrees with its plain version "
+                                   f"on openb under the {fam} family")
+            rows[name][fam] = dict(
+                ms=full_ms, prefix_events=m, prefix_ms=prefix_ms,
+                plain_ms=both_ms, max_abs_err=err, bound_ms=bound[0],
+                bound_by=bound[1],
+                fgd_ms=fgd_ms if base == "replay" else fgd_blocked_ms)
+        for name in ("init_tables_learned", "replay_learned",
+                     "replay_blocked_learned"):
+            rows[name][fam]["n_pol"] = n_pol
+    return rows
+
+
+def learn_records(device, card: str, nodes, pods) -> dict:
+    """A linear-family record run through Simulator.run() (residency vmem
+    and hbm): every create's decision holds sum theta x norm == total over
+    the family's features; then both learned record forms against their
+    plain versions on the openb prefix (decisions and the series at a
+    stride), tolerance 0."""
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.driver import Simulator
+    from tpusim_torch.sim.records import RecordSpec
+
+    pol = learn_families()["linear"]
+    theta = np.asarray([w for _, w in pol], np.int64)
+    out = {}
+    want = {"vmem": "replay_learned_record",
+            "hbm": "replay_blocked_learned_record"}
+    for res in ("vmem", "hbm"):
+        sim = Simulator(nodes, learn_config(pol, res, record_decisions=True),
+                        device)
+        sim.set_workload_pods(list(pods))
+        fe.reset_launch_counts()
+        r = sim.run()
+        counts = nonzero(run_counts())
+        if counts.get(want[res], 0) < 1:
+            raise SmokeFailure(f"learn record {res}: launches {counts}")
+        rec = r.decisions.records
+        node, total = np.asarray(rec.node), np.asarray(rec.total)
+        norm = np.asarray(rec.norm, np.int64)
+        creates = (np.asarray(r.decisions.ev_kind) == 0) & (node >= 0)
+        sums = (norm[creates] @ theta + 2**31) % 2**32 - 2**31
+        bad = int((sums != total[creates]).sum())
+        got = (digest(np.asarray(r.placed_node), np.int32),
+               digest(np.asarray(r.dev_mask), np.uint8))
+        if got != LEARN_SHA256["linear"]:
+            raise SmokeFailure(f"learn record {res}: differs from the JAX "
+                               f"reference: {got}")
+        print(f"learn record linear/{res}: {int(creates.sum())} creates, "
+              f"sum theta x norm == total on {int(creates.sum()) - bad} "
+              f"(mismatches {bad}); launches {counts}")
+        if bad:
+            raise SmokeFailure(f"learn record {res}: {bad} decisions whose "
+                               "per-feature sum is not their total")
+        out[res] = dict(creates=int(creates.sum()), launches=counts)
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    m = LEARN_RECORD_EVENTS
+    spec = RecordSpec(decisions=True, series_every=LEARN_RECORD_EVERY)
+    cfg = fe.make_config(pol, "best")
+    rows = {}
+    for name, (st, rk) in (("replay_learned_record", (state, rank)),
+                           ("replay_blocked_learned_record",
+                            pad_nodes(state, rank, 128))):
+        tables = fe.init_tables(st, types, tp, cfg)
+        args = (st, specs, types, evk[:m], evp[:m], tp, rk, tables)
+        base = "replay" if name == "replay_learned_record" else \
+            "replay_blocked"
+        err, plain_ms = record_against_plain(
+            base, args, cfg, spec, n_real=state.num_nodes, timed=True)
+        if base == "replay":
+            ready = fe.prepare_replay(*args, cfg, record=spec)
+        else:
+            from tpusim_torch.sim import hbm_engine as he
+
+            ready = he.prepare_replay_blocked(*args, cfg, record=spec,
+                                              n_real=state.num_nodes)
+        ms = kernel_ms(ready, 3, record_reset(ready, st, tables))
+        creates = int((evk[:m] == 0).sum())
+        n, k, t = st.num_nodes, types.num_types, tp.size
+        bound = record_bound(
+            n, k, t, specs.cpu.shape[0], m, len(cfg.fam), creates,
+            m // LEARN_RECORD_EVERY + 1, m,
+            learned_ops(cfg, st, types, tp).mean())
+        print(f"check openb {name} E={m}: max_abs_err={err} over outputs, "
+              f"decision and sample rows (tolerance 0); {ms:.3f} ms (plain "
+              f"{plain_ms:.0f} ms on the CPU; bound {bound[0]:.5f} ms by "
+              f"{bound[1]}), on {card}")
+        if err:
+            raise SmokeFailure(f"{name} disagrees with its plain version")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                          events=m, bound_ms=bound[0], bound_by=bound[1])
+    out["kernels"] = rows
+    return out
+
+
+def learn_sweep(device, card: str, nodes, pods) -> dict:
+    """Simulator.run_sweep over LEARN_SWEEP's 8 parameter vectors (one
+    init_tables_learned and one replay_lanes_learned launch), each lane held
+    to a standalone run of its vector; the lanes kernels against their
+    plain versions (two lanes of different vectors, the first
+    LEARN_LANES_EVENTS events)."""
+    from tpusim_torch.learn.policy import learned_policies
+    from tpusim_torch.ops.prng import prng_key
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.driver import Simulator
+
+    pol = learn_families()["linear"]
+    sim = Simulator(nodes, learn_config(pol, "vmem"), device)
+    sim.set_workload_pods(list(pods))
+    fe.reset_launch_counts()
+    wall, lanes = wall_ms(lambda: sim.run_sweep(
+        np.asarray(LEARN_SWEEP, np.int32), seeds=[42] * len(LEARN_SWEEP)))
+    counts = nonzero(run_counts())
+    if counts != {"init_tables_learned": 1, "replay_lanes_learned": 1}:
+        raise SmokeFailure(f"learn sweep: launches {counts}")
+    for row, lane in zip(LEARN_SWEEP, lanes):
+        one = Simulator(nodes, learn_config(learned_policies(row), "vmem"),
+                        device)
+        one.set_workload_pods(list(pods))
+        r = one.run()
+        if not (np.array_equal(lane.placed_node, np.asarray(r.placed_node))
+                and np.array_equal(lane.dev_mask, np.asarray(r.dev_mask))):
+            raise SmokeFailure(f"learn sweep: the lane of {row} differs "
+                               "from its standalone run")
+    print(f"learn sweep: {len(LEARN_SWEEP)} lanes of the linear family in "
+          f"one launch, {wall:.0f} ms run_sweep wall, each lane equal to "
+          f"its standalone run; launches {counts}, on {card}")
+    # the same sweep under "hbm": replay_blocked_lanes_learned, each lane
+    # equal to the flat sweep's
+    blocked = Simulator(nodes, learn_config(pol, "hbm"), device)
+    blocked.set_workload_pods(list(pods))
+    fe.reset_launch_counts()
+    bwall, blanes = wall_ms(lambda: blocked.run_sweep(
+        np.asarray(LEARN_SWEEP, np.int32), seeds=[42] * len(LEARN_SWEEP)))
+    bcounts = nonzero(run_counts())
+    if bcounts != {"init_tables_learned": 1,
+                   "replay_blocked_lanes_learned": 1}:
+        raise SmokeFailure(f"learn sweep hbm: launches {bcounts}")
+    for a, b in zip(lanes, blanes):
+        if not (np.array_equal(a.placed_node, b.placed_node)
+                and np.array_equal(a.dev_mask, b.dev_mask)):
+            raise SmokeFailure("learn sweep: an hbm lane differs from its "
+                               "vmem lane")
+    print(f"learn sweep hbm: {len(LEARN_SWEEP)} lanes in one launch, "
+          f"{bwall:.0f} ms, each equal to the vmem lane; launches {bcounts}")
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    cfg = fe.make_config(pol, "best")
+    m = LEARN_LANES_EVENTS
+    rows = {}
+    for name, (st, rk) in (("replay_lanes_learned", (state, rank)),
+                           ("replay_blocked_lanes_learned",
+                            pad_nodes(state, rank, 128))):
+        tables = fe.init_tables(st, types, tp, cfg)
+        lanes_in = [fe.Lane(specs, types.type_id, evk[:m], evp[:m], rk,
+                            fe.lane_weights(cfg, row), prng_key(42))
+                    for row in LEARN_SWEEP[:2]]
+        err, ms, plain_ms, _ = lanes_against_plain(
+            name.replace("_learned", ""), (st, types, tp, tables), cfg,
+            lanes_in)
+        ops = learned_ops(cfg, st, types, tp).mean()
+        one = throughput_bound(st.num_nodes, types.num_types, tp.size,
+                               specs.cpu.shape[0], m, cfg.num_tables, m, ops)
+        bound = (2 * one[0], one[1])
+        print(f"check openb {name}: 2 lanes x {m} events, max_abs_err={err}"
+              f" with final tables (tolerance 0); {ms:.3f} ms (plain "
+              f"{plain_ms:.0f} ms; bound {bound[0]:.5f} ms by {bound[1]}), "
+              f"on {card}")
+        if err:
+            raise SmokeFailure(f"{name} disagrees with its plain version")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                          lanes=2, events=m, bound_ms=bound[0],
+                          bound_by=bound[1])
+    return dict(wall_ms=wall, launches=counts, hbm_wall_ms=bwall,
+                hbm_launches=bcounts, kernels=rows)
+
+
+def learn_faults(device, card: str, nodes, pods) -> dict:
+    """The learned fault forms (kernels/replay_learned_faults.cu) against
+    their plain versions (CPU copies) on the openb merged stream's first
+    LEARN_FAULT_STEPS steps of the lane phase's schedule under the linear
+    family, tolerance 0 with the steps' outputs, the carry, tables and
+    summaries: one launch, and two lanes of different weights; then the
+    whole openb fault run through Simulator.run_with_faults (fault_mode
+    scan) and a 2-lane chaos sweep, each under vmem and hbm, launch counts
+    read."""
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fault_lane as fl
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.driver import Simulator
+    from tpusim_torch.sim.faults import FaultConfig, generate_fault_schedule
+
+    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    n, p = state.num_nodes, int(specs.cpu.shape[0])
+    fcfg = FaultConfig(**FAULT_FLAGS)
+    plan = fl.compile_fault_plan(evk.cpu().numpy(), evp.cpu().numpy(),
+                                 generate_fault_schedule(n, evk.shape[0],
+                                                         fcfg), fcfg, n, p)
+    cut = cut_plan(plan, LEARN_FAULT_STEPS)
+    pol = learn_families()["linear"]
+    cfg = fe.make_config(pol, "best")
+    ops = learned_ops(cfg, state, types, tp).mean()
+    m = len(cut.kind)
+    rows = {}
+    for name, lanes_name in (("replay_faults", "replay_lanes_faults"),
+                             ("replay_blocked_faults",
+                              "replay_blocked_lanes_faults")):
+        blocked = "blocked" in name
+        st, rk = pad_nodes(state, rank, 128) if blocked else (state, rank)
+        tables = lane_tables(st, types, tp, cfg)
+        case = (st, specs, types, tp, rk, tables)
+        err, ms, plain_ms, _, first = fault_against_plain(name, case, cfg,
+                                                          cut)
+        bound = throughput_bound(st.num_nodes, types.num_types, tp.size, p,
+                                 m, cfg.num_tables, m, ops)
+        lanes = [fe.Lane(specs, types.type_id,
+                         torch.as_tensor(cut.kind, device=device),
+                         torch.as_tensor(cut.idx, device=device), rk,
+                         fe.lane_weights(cfg, row), None,
+                         fl.lane_of(cut, st, p))
+                 for row in (LEARN_THETA, LEARN_SWEEP[0])]
+        lerr, lplain, _ = fault_lanes_against_plain(
+            lanes_name, (st, types, tp, tables), cfg, lanes, first=first)
+        prep = he.prepare_replay_blocked_lanes_faults if blocked \
+            else fe.prepare_replay_lanes_faults
+        ready = prep(st, types, tp, tables, cfg, lanes)
+        lms = kernel_ms(ready, 3, fault_lanes_reset(ready, st, tables, lanes))
+        print(f"check openb {name} (learned) first {m} steps: "
+              f"max_abs_err={err}; {lanes_name} 2 lanes: max_abs_err={lerr}"
+              f" with the steps' outputs, carry, tables"
+              f"{' and summaries' if blocked else ''} (tolerance 0); "
+              f"{ms:.3f} ms (plain {plain_ms:.0f} ms), lanes {lms:.3f} ms "
+              f"(plain {lplain:.0f} ms); bound {bound[0]:.5f} ms by "
+              f"{bound[1]}, on {card}")
+        if err or lerr:
+            raise SmokeFailure(f"the learned {name} or {lanes_name} "
+                               "disagrees with its plain version")
+        learned = name.replace("_faults", "_learned_faults")
+        rows[learned] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                             steps=m, bound_ms=bound[0], bound_by=bound[1])
+        rows[lanes_name.replace("_faults", "_learned_faults")] = dict(
+            ms=lms, plain_ms=lplain, max_abs_err=lerr, lanes=2, steps=m,
+            bound_ms=2 * bound[0], bound_by=bound[1])
+    runs = {}
+    want = {"vmem": "replay_learned_faults",
+            "hbm": "replay_blocked_learned_faults"}
+    chaos = {"vmem": "replay_lanes_learned_faults",
+             "hbm": "replay_blocked_lanes_learned_faults"}
+    for res in ("vmem", "hbm"):
+        sim = Simulator(nodes, learn_config(pol, res, fault_mode="scan"),
+                        device)
+        sim.set_workload_pods(list(pods))
+        fe.reset_launch_counts()
+        wall, r = wall_ms(lambda: sim.run_with_faults(fcfg))
+        counts = nonzero(run_counts())
+        if counts != {"init_tables_learned": 1, want[res]: 1}:
+            raise SmokeFailure(f"learn faults {res}: launches {counts}")
+        print(f"learn faults openb linear/{res}: {r.events} events, "
+              f"{sim.last_disruption.as_dict()['node_failures']} failures; "
+              f"run_with_faults {wall:.0f} ms (fault-lane replay "
+              f"{sim.replay_times[-1].get('replay_ms', float('nan')):.1f} "
+              f"ms); launches {counts}, on {card}")
+        runs[res] = dict(wall_ms=wall, launches=counts)
+        # a 2-lane chaos sweep under the same residency
+        fe.reset_launch_counts()
+        wall, _ = wall_ms(lambda: sim.run_sweep(
+            np.asarray(LEARN_SWEEP[:2], np.int32), seeds=[42, 42],
+            faults=[fcfg, fcfg]))
+        counts = nonzero(run_counts())
+        if counts.get(chaos[res], 0) != 1:
+            raise SmokeFailure(f"learn chaos sweep {res}: launches {counts}")
+        print(f"learn chaos sweep {res}: 2 lanes in {wall:.0f} ms; "
+              f"launches {counts}, on {card}")
+        runs[f"chaos/{res}"] = dict(wall_ms=wall, launches=counts)
+    return dict(runs=runs, kernels=rows)
+
+
+def learn_tune(device, card: str, root: str) -> dict:
+    """`python -m tpusim_torch.cli tune` (ES, popsize 8) on the openb
+    acceptance prefix: the tuning log and the standard output against
+    tpusim's (TUNE_LOG_SHA256, TUNE_STDOUT_SHA256), a generation's device
+    and host time."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from tpusim_torch.cli import main as cli_main
+    from tpusim_torch.io.trace import load_node_csv, load_pod_csv
+    from tpusim_torch.learn import LocalRollout, make_family_sim
+    from tpusim_torch.learn.policy import learned_policies
+    from tpusim_torch.sim import fused_engine as fe
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "csv")
+    node_csv = os.path.join(data, "openb_node_list_gpu_node.csv")
+    pod_csv = os.path.join(data, "openb_pod_list_default.csv")
+    log = os.path.join(root, "tune.jsonl")
+    buf = io.StringIO()
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["tune", "--nodes", node_csv, "--pods", pod_csv,
+                       *LEARN_TUNE_FLAGS, "--log", log])
+    wall = time.perf_counter() - t0
+    counts = nonzero(run_counts())
+    stdout = re.sub(r"-> \S+tune\.jsonl", "-> LOG", buf.getvalue())
+    with open(log, "rb") as f:
+        log_sha = hashlib.sha256(f.read()).hexdigest()
+    if rc != 0 or log_sha != TUNE_LOG_SHA256:
+        raise SmokeFailure(f"tune: exit {rc}, tuning log sha256 {log_sha} "
+                           "differs from tpusim's")
+    if digest_text(stdout) != TUNE_STDOUT_SHA256:
+        raise SmokeFailure(f"tune: standard output differs from tpusim's:\n"
+                           f"{stdout}")
+    if counts.get("replay_lanes_learned", 0) != 4:  # 3 generations, holdout
+        raise SmokeFailure(f"tune: launches {counts}")
+    # one generation alone: its device time between events around the
+    # rollout (init_tables, the lanes launch, the frag sums) and its host
+    # time
+    nodes = load_node_csv(node_csv)
+    pods = load_pod_csv(pod_csv)[:LEARN_PODS]
+    train = pods[:LEARN_PODS - LEARN_PODS // 5]
+    pol = learned_policies()
+    backend = LocalRollout(make_family_sim(nodes, train, pol), width=8)
+    rows = [tuple(r) for r in LEARN_SWEEP]
+    backend.rollout(rows, 42)  # warm
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    start.record()
+    backend.rollout(rows, 42)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - h0) * 1e3
+    device_ms = start.elapsed_time(end)
+    print(f"learn tune: 3 generations x 8 lanes, log and stdout equal to "
+          f"tpusim's, {wall:.1f} s; launches {counts}; one generation "
+          f"{device_ms:.2f} ms between device events, {host_ms:.1f} ms on "
+          f"the host (executables {backend.executables()}), on {card}")
+    return dict(wall_s=wall, launches=counts, gen_device_ms=device_ms,
+                gen_host_ms=host_ms, executables=backend.executables())
+
+
+def learn_imitate(device, card: str, root: str, nodes, pods) -> dict:
+    """The openb acceptance prefix's FGD teacher recorded on the card (its
+    decision file against tpusim's, TEACHER_SHA256), imitated through
+    TeacherReplay on `replay_forced` (the theta and held-out agreement
+    against tpusim's), and replay_forced against its plain version (the
+    oracle's step functions, CPU copies) on the first FORCED_PREFIX
+    events."""
+    import torch
+
+    from tpusim_torch.learn import (
+        ImitateConfig,
+        TeacherReplay,
+        imitate_with_mining,
+        load_teacher_log,
+    )
+    from tpusim_torch.obs import decisions as obs_decisions
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.driver import Simulator, SimulatorConfig
+
+    prefix = list(pods[:LEARN_PODS])
+    sim = Simulator(nodes, SimulatorConfig(
+        policies=(("FGDScore", 1000),), gpu_sel_method="FGDScore", seed=42,
+        report_per_event=False, record_decisions=True), device)
+    sim.set_workload_pods(prefix)
+    res = sim.run()
+    path = os.path.join(root, "teacher.jsonl")
+    obs_decisions.write_decisions(
+        path, res.decisions, policies=[("FGDScore", 1000)],
+        meta=sim._telemetry_meta(), pod_names=[p.name for p in res.pods])
+    with open(path, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    if sha != TEACHER_SHA256:
+        raise SmokeFailure(f"imitate: teacher decision file sha256 {sha} "
+                           "differs from tpusim's")
+    header, rows = load_teacher_log(path)
+    replay = TeacherReplay(nodes, sim.prepare_pods(), header, rows,
+                           device=device)
+    cut = len(rows) - len(rows) // 5
+    fe.reset_launch_counts()
+    wall, (_, theta, hist) = wall_ms(lambda: imitate_with_mining(
+        replay, ImitateConfig(steps=1000, lr=0.3, l2=1e-6), end_event=cut,
+        rounds=5))
+    counts = nonzero(run_counts())
+    held = replay.agreement(theta, start_event=cut)
+    if theta != IMITATE_THETA or held != IMITATE_HOLDOUT:
+        raise SmokeFailure(f"imitate: theta {theta} held-out {held}, tpusim "
+                           f"{IMITATE_THETA} {IMITATE_HOLDOUT}")
+    if counts.get("replay_forced", 0) != replay.runs:
+        raise SmokeFailure(f"imitate: launches {counts}, runs {replay.runs}")
+    print(f"learn imitate: teacher file equal to tpusim's; theta {theta}, "
+          f"held-out {held['matches']}/{held['creates']}, equal to tpusim's;"
+          f" {replay.runs} teacher-forced replays in {wall:.0f} ms; launches "
+          f"{counts}, on {card}")
+    # replay_forced alone, and against its plain version
+    cfg = fe.with_weights(replay.config, LEARN_THETA)
+    tables = replay._tables
+    t = replay._t
+    gpu_sel = replay.gpu_sel
+    args = (replay.state0, replay.specs, replay.types, t["ev_kind"],
+            t["ev_pod"], replay.typical, replay.rank, tables)
+    ready = fe.prepare_replay_forced(*args, cfg, t["rec_node"],
+                                     t["rec_topk"], gpu_sel)
+    ms = kernel_ms(ready, 5, reset_of(ready, replay.state0, tables))
+    m = FORCED_PREFIX
+    cut_args = args[:3] + (t["ev_kind"][:m], t["ev_pod"][:m]) + args[5:]
+    ready = fe.prepare_replay_forced(*cut_args, cfg, t["rec_node"][:m],
+                                     t["rec_topk"][:m], gpu_sel)
+    fe.launch(ready)  # a comparison: past the wrapper, not counted
+    got = ready.finish()[1]
+    torch.cuda.synchronize()
+    plain_ms, want = wall_ms(lambda: fe.plain_replay_forced(
+        *to_cpu((replay.state0, replay.specs, t["ev_kind"][:m],
+                 t["ev_pod"][:m], replay.typical, replay.rank)), cfg,
+        t["rec_node"][:m].cpu(), t["rec_topk"][:m].cpu(), gpu_sel))
+    err = max_abs_err(to_cpu(got), want)
+    e, p = t["ev_kind"].shape[0], replay.specs.cpu.shape[0]
+    st = replay.state0
+    ops = learned_ops(cfg, st, replay.types, replay.typical).mean()
+    bound = throughput_bound(st.num_nodes, replay.types.num_types,
+                             replay.typical.size, p, e, cfg.num_tables, e,
+                             ops, e * 4 * (2 + 5 + 4 * len(cfg.fam)))
+    print(f"check replay_forced E={m}: max_abs_err={err} over the argmax, "
+          f"the feasible counts and the feature rows (tolerance 0); the "
+          f"whole {e}-event log {ms:.3f} ms (plain {plain_ms:.0f} ms on the "
+          f"prefix; bound {bound[0]:.5f} ms by {bound[1]}), on {card}")
+    if err:
+        raise SmokeFailure("replay_forced disagrees with plain_replay_forced")
+    return dict(wall_ms=wall, runs=replay.runs, launches=counts, kernel=dict(
+        ms=ms, plain_ms=plain_ms, max_abs_err=err, events=e,
+        prefix_events=m, bound_ms=bound[0], bound_by=bound[1]))
+
+
+def learn_path(device, card: str):
+    """Phase 14: the learned policy (module docstring). Returns ({run
+    label: launch counts}, the learned kernels' rows); chiprun_out/
+    learn_phase.json keeps the phase's numbers."""
+    import shutil
+    import tempfile
+
+    nodes, pods = openb_rows_port()
+    root = tempfile.mkdtemp(prefix="tpusim_learn_")
+    t0 = time.perf_counter()
+    try:
+        out = dict(card=card)
+        out["runs"] = learn_runs(device, card, nodes, pods)
+        out["kernels"] = learn_kernel_checks(device, card)
+        out["records"] = learn_records(device, card, nodes, pods)
+        out["sweep"] = learn_sweep(device, card, nodes, pods)
+        out["faults"] = learn_faults(device, card, nodes, pods)
+        out["tune"] = learn_tune(device, card, root)
+        out["imitate"] = learn_imitate(device, card, root, nodes, pods)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"learn phase: {out['phase_s']:.1f} s")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "learn_phase.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    launches = {f"learn {k}": v["launches"] for k, v in out["runs"].items()}
+    launches.update({f"learn record/{k}": v["launches"]
+                     for k, v in out["records"].items() if k != "kernels"})
+    launches["learn sweep"] = out["sweep"]["launches"]
+    launches["learn sweep/hbm"] = out["sweep"]["hbm_launches"]
+    launches.update({f"learn faults/{k}": v["launches"]
+                     for k, v in out["faults"]["runs"].items()})
+    launches["learn tune"] = out["tune"]["launches"]
+    launches["learn imitate"] = out["imitate"]["launches"]
+    rows = {}
+    for name in ("init_tables_learned", "replay_learned",
+                 "replay_blocked_learned"):
+        r = out["kernels"][name]
+        rows[name] = dict(r["linear"], configs=r)
+    rows.update(out["records"]["kernels"])
+    rows.update(out["sweep"]["kernels"])
+    rows.update(out["faults"]["kernels"])
+    rows["replay_forced"] = out["imitate"]["kernel"]
+    idle = [name for name in LEARNED_KERNELS
+            if not sum(c.get(name, 0) for c in launches.values())]
+    if idle:
+        raise SmokeFailure(f"learn: no run of the phase launched {idle}")
+    return launches, rows
+
+
+def learned_kernel_rows(learn_rows, launches):
+    """The kernels line's rows of the learned paths: their numbers on the
+    openb linear family (the forced form: the imitation's teacher log), the
+    bucketed family's under "configs", and their launches on the learn
+    phase's runs."""
+    rows = []
+    for name in LEARNED_KERNELS:
+        r = dict(learn_rows[name])
+        rows.append(dict(
+            name=name, route="cuda", source=LEARNED_SOURCES[name],
+            replaces=REPLACES[name],
+            launches=sum(c.get(name, 0) for c in launches.values()),
+            max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
+            plain_ms=r.pop("plain_ms"), bound_ms=r.pop("bound_ms"),
+            bound_by=r.pop("bound_by"), library_ms=None, **r))
+    return rows
+
+
 PHASES = ("check", "clocks", "main", "apply", "scale", "sweep", "evict",
-          "lane", "seq", "ckpt", "obs")
+          "lane", "seq", "ckpt", "obs", "learn")
 
 
 def scale_inputs(device):
@@ -5889,8 +6677,13 @@ def main(argv=None) -> int:
 
         t0 = time.perf_counter()
         infos = kernels.build_all(("",))
+        build_s = time.perf_counter() - t0
         print(f"build: the main library, an nvcc a source, in parallel, then "
-              f"a link: {time.perf_counter() - t0:.1f} s")
+              f"a link: {build_s:.1f} s")
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "build.json"), "w") as f:
+            json.dump(dict(card=card, main_s=build_s,
+                           sources=len(kernels.SOURCES)), f)
         print_builds(infos)
         # the other variants (the clocks phase's) build while the check
         # phase runs; nothing launches them before they are waited for
@@ -5974,6 +6767,10 @@ def main(argv=None) -> int:
                                         setup[2] if setup else None)
             launches.update(counts)
             print(f"phase obs done at {time.perf_counter() - t0:.1f} s")
+        if "learn" in phases:
+            counts, learn_rows = learn_path(device, card)
+            launches.update(counts)
+            print(f"phase learn done at {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -5988,7 +6785,8 @@ def main(argv=None) -> int:
             blocked, launches, scale, errors) + lane_kernel_rows(
                 lane_rows, launches) + fault_kernel_rows(
                     fault_rows, launches) + record_kernel_rows(
-                        rec_rows, launches)}))
+                        rec_rows, launches) + learned_kernel_rows(
+                            learn_rows, launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6025,7 +6823,7 @@ def kernel_rows(names, measured, blocked, launches, scale, errors):
                                         else "init_tables/replay_blocked"])
         rows.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=sum(c[name] for c in launches.values()),
+            launches=sum(c.get(name, 0) for c in launches.values()),
             max_abs_err=errors[name], library_ms=None,
             **measured["06-FGD"][name], configs=configs,
         ))

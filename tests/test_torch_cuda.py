@@ -19,7 +19,7 @@ from chip_smoke import (
     against_plain, down_checks, fault_against_plain,
     fault_lanes_against_plain, init_case, init_config, lane_tables,
     past_limit_errors, random_case, record_against_plain, shape_errors,
-    typed_case,
+    to_cpu, typed_case,
 )
 from tpusim_torch.io.trace import (
     build_events, load_node_csv, load_pod_csv, pods_to_specs,
@@ -943,3 +943,95 @@ def test_heartbeat_ring_ticks_on_card(cuda_device, residency):
         sim.run()
         counts.append(heartbeat.tick_count())
     assert counts == [700 // 50 + 1] * 2
+
+
+# the learned families (tpusim_torch.learn.policy): the linear one, the
+# bucketed one and one mixed with built-ins
+LEARNED_CASES = (
+    ("linear", "linear", "best"),
+    ("bucketed", "bucketed", "best"),
+    ("mixed", [("PWRScore", 300), ("LearnedScore[free_gpu_pct]", 40),
+               ("LearnedScore[fit_dev_pct]", -12), ("BestFitScore", 200),
+               ("LearnedScore[frag_pct]", 9),
+               ("LearnedScore[frag_delta]", 600)], "PWRScore"),
+)
+
+
+def _learned_family(spec):
+    from tpusim_torch.learn.policy import BUCKETED_FEATURES, learned_policies
+
+    theta = [700, -120, 45, 10, 80, -60, 33, 25, -200, 50]
+    if spec == "linear":
+        return learned_policies(theta)
+    if spec == "bucketed":
+        return learned_policies(theta + [15, -25, 35, -45, 55, -65, 75, -85,
+                                         95, -105], BUCKETED_FEATURES)
+    return spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,family,gpu_sel", LEARNED_CASES,
+                         ids=[c[0] for c in LEARNED_CASES])
+def test_learned_kernels_match_plain_on_card(cuda_device, label, family,
+                                             gpu_sel):
+    """The learned instantiations of init_tables, replay and replay_blocked
+    against their plain versions on a seeded 300-node cluster with pinned
+    pods and deletes, tolerance 0 with the final tables and summaries; the
+    lanes forms on two lanes of other weights; the record forms."""
+    from tpusim_torch.ops.prng import prng_key
+
+    cfg = fe.make_config(_learned_family(family), gpu_sel)
+    assert cfg.learned
+    state, pods, types, evk, evp, tp, rank = random_case(
+        61, 300, 160, cuda_device)
+    for blocked in (False, True):
+        st, rk = pad_nodes(state, rank, 128) if blocked else (state, rank)
+        tables = fe.init_tables(st, types, tp, cfg)
+        _assert_equal(tables, fe.plain_init_tables(st, types, tp, cfg))
+        name = "replay_blocked" if blocked else "replay"
+        args = (st, pods, types, evk, evp, tp, rk, tables)
+        assert against_plain(name, args, cfg, plain_on_cpu=True) == 0
+        assert record_against_plain(name, args, cfg,
+                                    _record_spec(cuda_device),
+                                    n_real=state.num_nodes) == 0
+        rows = [[w + 17 * (i + 1) for w in cfg.fam_weights]
+                for i in range(2)]
+        lanes = [fe.Lane(pods, types.type_id, evk, evp, rk,
+                         fe.lane_weights(cfg, row), prng_key(7))
+                 for row in rows]
+        got = (he.replay_blocked_lanes if blocked else fe.replay_lanes)(
+            st, types, tp, tables, cfg, lanes)
+        plain = (he.plain_replay_blocked_lanes if blocked
+                 else fe.plain_replay_lanes)
+        want = plain(to_cpu(st), to_cpu(types), to_cpu(tp), to_cpu(tables),
+                     cfg, [fe.Lane(*to_cpu(tuple(lane[:5])), lane.weights,
+                                   lane.key) for lane in lanes])
+        _assert_equal(tuple(got), tuple(want))
+
+
+@pytest.mark.cuda
+def test_replay_forced_matches_plain_on_card(cuda_device):
+    """replay_forced against plain_replay_forced (the oracle's step
+    functions, CPU copies) on a seeded cluster: the argmax, feasible counts
+    and feature rows, recorded nodes from a replay of the FGD family,
+    gpu_sel best and FGDScore's pick at the recorded node."""
+    from tpusim_torch.learn.policy import learned_policies
+
+    state, pods, types, evk, evp, tp, rank = random_case(
+        67, 200, 120, cuda_device)
+    teacher = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    res = fe.replay(state, pods, types, evk, evp, tp, rank,
+                    fe.init_tables(state, types, tp, teacher), teacher)
+    rec = res.event_node.clone()
+    topk = torch.stack([rec, torch.roll(rec, 1), torch.full_like(rec, -1)],
+                       1).contiguous()
+    cfg = fe.make_config(learned_policies(
+        [700, -120, 45, 10, 80, -60, 33, 25, -200, 50]), "best")
+    tables = fe.init_tables(state, types, tp, cfg)
+    for gpu_sel in ("best", "FGDScore"):
+        got = fe.replay_forced(state, pods, types, evk, evp, tp, rank,
+                               tables, cfg, rec, topk, gpu_sel)
+        want = fe.plain_replay_forced(*to_cpu((state, pods, evk, evp, tp,
+                                               rank)), cfg, rec.cpu(),
+                                      topk.cpu(), gpu_sel)
+        _assert_equal(got, want)

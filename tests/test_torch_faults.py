@@ -240,18 +240,17 @@ def test_apply_faults_match_jax():
 
 def test_fault_lane_options_raise():
     """An unknown fault_mode and a timestamped trace raise ValueError as in
-    tpusim; the apply options whose plane the port still lacks raise
-    NotImplementedError naming their item: --policy (12) and --listen
-    (14). (The lane's own entries run: test_torch_fault_lane.py;
-    --checkpoint-every runs since the checkpoint slice:
-    test_torch_checkpoint.py; the obs outputs since the records slice:
-    test_torch_obs.py.)"""
+    tpusim; the apply option whose plane the port still lacks raises
+    NotImplementedError naming its item: --listen (14). (The lane's own
+    entries run: test_torch_fault_lane.py; --checkpoint-every runs since
+    the checkpoint slice: test_torch_checkpoint.py; the obs outputs since
+    the records slice: test_torch_obs.py; --policy since the learned
+    slice: test_torch_learn.py.)"""
     from tpusim_torch import apply as papply
 
     jsim, psim = _fault_sims("06-FGD", False, "scan", 20, 20)
     cr = os.path.join(REPO, chip_smoke.APPLY_DEFAULT_CR)
-    for option, value, item in (("policy", "learned", "item 12 "),
-                                ("listen", "127.0.0.1:0", "item 14 ")):
+    for option, value, item in (("listen", "127.0.0.1:0", "item 14 "),):
         with pytest.raises(NotImplementedError, match=item):
             papply.Applier(papply.ApplyOptions(simon_config=cr,
                                                **{option: value}))

@@ -213,9 +213,8 @@ def test_apply_with_the_six_obs_flags_matches_tpusim(tmp_path):
     --heartbeat-every, --decisions-out and --series-every on the example
     bundle: the same standard output as tpusim's (paths and [Engine]
     lines aside), the same decision file, and `report` of its record
-    printing tpusim's text; REFUSED_OPTIONS holds only listen and
-    policy."""
-    assert set(REFUSED_OPTIONS) == {"listen", "policy"}
+    printing tpusim's text; REFUSED_OPTIONS holds only listen."""
+    assert set(REFUSED_OPTIONS) == {"listen"}
     outs = {}
     for tag in ("port", "jax"):
         opts = dict(simon_config=CR, default_scheduler_config=SCHED,

@@ -90,7 +90,8 @@ def paper_config() -> SimulatorConfig:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] in (["apply"], ["version"], ["gen-doc"], ["debug"]):
+    if argv[:1] in (["apply"], ["version"], ["gen-doc"], ["debug"],
+                    ["tune"], ["imitate"]):
         from tpusim_torch.cli import main as cli_main
 
         return cli_main(argv)

@@ -114,7 +114,6 @@ class ApplyOptions:
 # option -> (its flag, the ROADMAP queue-1 item that brings its plane)
 REFUSED_OPTIONS = {
     "listen": ("--listen", "14 (service plane)"),
-    "policy": ("--policy", "12 (learned policy)"),
 }
 
 
@@ -162,9 +161,28 @@ class Applier:
 
     def _simulator_config(self) -> SimulatorConfig:
         cc = self.cr.custom_config
+        policies = self.sched_cfg.policy_tuple()
+        gpu_sel = self.sched_cfg.gpu_sel_method
+        if self.options.policy:
+            # --policy replaces the scheduler config's plugin family
+            # (learn.policy.parse_policy_spec); a gpuSelMethod delegating
+            # to a plugin the override removed falls back to best, loudly
+            # (tpusim/apply.py:138-154)
+            from tpusim_torch.learn.policy import parse_policy_spec
+
+            policies = tuple(parse_policy_spec(self.options.policy))
+            if gpu_sel not in ("best", "worst", "random") and gpu_sel not in {
+                n for n, _ in policies
+            }:
+                print(
+                    f"[policy] gpuSelMethod {gpu_sel!r} delegates to a "
+                    "plugin the --policy override removed; using 'best'",
+                    file=sys.stderr,
+                )
+                gpu_sel = "best"
         return SimulatorConfig(
-            policies=self.sched_cfg.policy_tuple(),
-            gpu_sel_method=self.sched_cfg.gpu_sel_method,
+            policies=policies,
+            gpu_sel_method=gpu_sel,
             dim_ext_method=self.sched_cfg.dim_ext_method,
             norm_method=self.sched_cfg.norm_method,
             shuffle_pod=cc.shuffle_pod,
@@ -533,6 +551,29 @@ class Applier:
                     f"beyond the env setting({max_vg}%)\n"
                 )
         return True, ""
+
+
+def save_weights_payload(path: str, weights, seeds=None, tunes=None,
+                         policies=None) -> str:
+    """Write a weight-grid JSON in the shape load_weights_payload reads
+    (tpusim/apply.py save_weights_payload, the same bytes): `tune
+    --best-out` writes its tuned vector here. Atomic (tmp + rename)."""
+    import json
+
+    doc = {"weights": [[int(w) for w in row] for row in weights]}
+    if seeds is not None:
+        doc["seeds"] = [int(s) for s in seeds]
+    if tunes is not None:
+        doc["tunes"] = [float(t) for t in tunes]
+    if policies is not None:
+        doc["policies"] = [[str(n), int(w)] for n, w in policies]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, sort_keys=True, separators=(",", ":"))
+        f.write("\n")
+    os.replace(tmp, path)
+    return path
 
 
 def load_weights_payload(path: str):

@@ -12,6 +12,11 @@ cmd/debug).
          --fault-seed S --fault-max-retries K]
         [--checkpoint-every N --checkpoint-dir DIR --checkpoint-keep K]
         [--compile-cache-dir DIR]
+    python -m tpusim_torch.cli tune --nodes CSV --pods CSV [--policy
+        learned|learned-bucketed|LearnedScore:FILE.json] [tpusim's flags]
+        [--device cuda|cpu]
+    python -m tpusim_torch.cli imitate --nodes CSV --pods CSV
+        --decisions JSONL [--out FILE.json] [--device cuda|cpu]
     python -m tpusim_torch.cli version      # tpusim's version line
     python -m tpusim_torch.cli gen-doc [-d DIR]   # DIR/tpusim.md
     python -m tpusim_torch.cli debug        # a no-op, exit 0
@@ -27,10 +32,14 @@ segmented host loop with per-event reports on, the `[Fault]` and
 `[Disruption]` lines). `--checkpoint-every` cuts every replay of more
 events into chunks whose carry is written to a content-addressed file
 (resumed after a kill; `--checkpoint-dir`, `--checkpoint-keep`), and
-`--compile-cache-dir` names where the kernels' library is built. The flags
-whose plane the port does not have yet (the obs outputs, --listen,
---policy) parse and then raise NotImplementedError naming the ROADMAP item
-that brings them. The replays run on the GPU unless --device cpu is given. Its
+`--compile-cache-dir` names where the kernels' library is built, and
+`--policy` replaces the scheduler config's plugins with a learned policy
+(or a built-in). The flags whose plane the port does not have yet
+(--listen) parse and then raise NotImplementedError naming the ROADMAP item
+that brings them. `tune` and `imitate` are tpusim's learned-scoring lane
+(tpusim_torch.learn): a tuning generation is one lanes launch of the replay
+kernels, an imitation's teacher forcing the `replay_forced` kernel; their
+output and files are tpusim's but for the lines naming the kernel. The replays run on the GPU unless --device cpu is given. Its
 standard output and the snapshot files it writes are byte-identical to
 `python -m tpusim apply`'s on the same inputs, but for the `[Engine]`
 lines and the `[Sweep]` and `[Chaos]` lines, which name the kernel that
@@ -133,7 +142,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the kernels' library is built and looked for "
                    "(default $TPUSIM_COMPILE_CACHE_DIR, else "
                    ".tpusim_torch_build/)")
-    p.add_argument("--policy", default="")
+    p.add_argument("--policy", default="", metavar="SPEC",
+                   help="replace the scheduler config's score plugins: "
+                   "'LearnedScore:FILE.json' (a signed learned-policy "
+                   "artifact), 'learned' / 'learned-bucketed' (the "
+                   "default-theta learned families), or a built-in name at "
+                   "weight 1000")
 
     p_explain = sub.add_parser(
         "explain", help="why a node won one scheduling decision (per-policy "
@@ -155,11 +169,345 @@ def build_parser() -> argparse.ArgumentParser:
         "(min/median/max + sparkline, straight from the JSONL)")
     p_report.add_argument("run", help="run-record JSONL (a --profile output "
                           "of a --series-every run)")
+    add_learn_parsers(sub)
     sub.add_parser("version", help="print version")
     p_doc = sub.add_parser("gen-doc", help="generate markdown CLI docs")
     p_doc.add_argument("-d", "--dir", default="docs", help="output directory")
     sub.add_parser("debug", help="debug scaffold (no-op, ref parity)")
     return parser
+
+
+def add_learn_parsers(sub) -> None:
+    """tpusim's `tune` and `imitate` (tpusim/cli.py:455-660), with
+    `--device`."""
+    p = sub.add_parser(
+        "tune",
+        help="tune the per-policy score weights with ES/CMA, a generation "
+        "one lanes launch of the replay kernels, and report "
+        "tuned-vs-default on a held-out trace suffix")
+    p.add_argument("--nodes", required=True, metavar="CSV",
+                   help="node CSV of the tuning trace")
+    p.add_argument("--pods", required=True, metavar="CSV",
+                   help="pod CSV of the tuning trace")
+    p.add_argument("--max-pods", type=int, default=0, metavar="N",
+                   help="truncate the workload to its first N pods (0 = all)")
+    p.add_argument("--policies",
+                   default='[["FGDScore", 1000], ["BestFitScore", 500]]',
+                   metavar="JSON",
+                   help="policy family as [[name, default_weight], ...]; the "
+                   "default weights seed the optimizer and are the held-out "
+                   "report's baseline")
+    p.add_argument("--policy", default="", metavar="SPEC",
+                   help="tune a learned policy instead of --policies: "
+                   "'learned', 'learned-bucketed' or 'LearnedScore:FILE.json'"
+                   "; --best-out then writes a signed policy artifact, and "
+                   "the weight bounds default to [-4000, 4000]")
+    p.add_argument("--algo", choices=("es", "cma"), default="es",
+                   help="optimizer: antithetic OpenAI-ES or diagonal CMA-ES")
+    p.add_argument("--generations", type=int, default=10)
+    p.add_argument("--popsize", type=int, default=8)
+    p.add_argument("--sigma", type=float, default=250.0,
+                   help="initial perturbation scale in weight units")
+    p.add_argument("--lr", type=float, default=300.0,
+                   help="ES step size in weight units (cma adapts its own)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="optimizer draw seed (fixed seed -> byte-identical "
+                   "log)")
+    p.add_argument("--eval-seed", type=int, default=42,
+                   help="replay seed every candidate shares")
+    p.add_argument("--w-min", type=int, default=None,
+                   help="weight lower bound (default 0; -4000 under "
+                   "--policy learned)")
+    p.add_argument("--w-max", type=int, default=None,
+                   help="weight upper bound (default 4000)")
+    p.add_argument("--obj-alloc", type=float, default=1.0,
+                   help="objective weight on gpu_alloc_pct")
+    p.add_argument("--obj-frag", type=float, default=1.0,
+                   help="objective weight on frag percent of cluster GPU")
+    p.add_argument("--obj-unsched", type=float, default=1.0,
+                   help="objective weight on unscheduled percent of pods")
+    p.add_argument("--holdout", type=float, default=0.2, metavar="FRAC",
+                   help="trailing fraction of the pod list held out of "
+                   "tuning for the tuned-vs-default report (0 disables)")
+    p.add_argument("--log",
+                   default=os.path.join(".tpusim_obs", "tune_log.jsonl"),
+                   metavar="PATH",
+                   help="digest-signed tuning log (JSONL; --resume's input)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the log's last generation")
+    p.add_argument("--url", default="", metavar="URL",
+                   help="tpusim's remote rollouts: the port has no job "
+                   "service yet, and raises")
+    p.add_argument("--engine", choices=("auto", "table", "sequential"),
+                   default="auto", help="replay engine for the rollouts")
+    p.add_argument("--best-out", default="", metavar="PATH",
+                   help="write the tuned weight vector as a weights-grid "
+                   "JSON (a signed artifact under --policy learned)")
+    p.add_argument("--robust-mtbf", type=float, default=0.0,
+                   metavar="EVENTS",
+                   help="replay each generation's best under seeded fault "
+                   "injection with this MTBF (0 = off; logged)")
+    p.add_argument("--robust-mttr", type=float, default=0.0,
+                   metavar="EVENTS")
+    p.add_argument("--robust-seed", type=int, default=0)
+    p.add_argument("--train-fault-mtbf", type=float, default=0.0,
+                   metavar="EVENTS",
+                   help="roll every lane out under a seeded fault schedule "
+                   "with this MTBF (0 = fault-free training)")
+    p.add_argument("--train-fault-mttr", type=float, default=0.0,
+                   metavar="EVENTS")
+    p.add_argument("--train-fault-evict-every", type=float, default=0.0,
+                   metavar="EVENTS")
+    p.add_argument("--train-fault-seed", type=int, default=0)
+    p.add_argument("--obj-disrupt", type=float, default=0.0,
+                   help="objective weight on pods lost to disruption")
+    p.add_argument("--timeout", type=float, default=600.0,
+                   metavar="SECONDS")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda runs the CUDA kernels (the default), cpu "
+                   "their plain PyTorch versions")
+
+    p = sub.add_parser(
+        "imitate",
+        help="train a learned policy to imitate a recorded teacher: "
+        "teacher-force the trace through a --decisions-out JSONL (the "
+        "replay_forced kernel), fit the linear scorer, export it and "
+        "report held-out top-1 agreement")
+    p.add_argument("--nodes", required=True, metavar="CSV",
+                   help="node CSV of the recorded trace")
+    p.add_argument("--pods", required=True, metavar="CSV",
+                   help="pod CSV of the recorded trace")
+    p.add_argument("--decisions", required=True, metavar="JSONL",
+                   help="the teacher run's decision log (apply "
+                   "--decisions-out), digest-verified on load")
+    p.add_argument("--max-pods", type=int, default=0, metavar="N",
+                   help="truncate the workload to its first N pods (must "
+                   "match the recorded run)")
+    p.add_argument("--features", choices=("linear", "bucketed"),
+                   default="linear", help="feature vocabulary")
+    p.add_argument("--steps", type=int, default=500)
+    p.add_argument("--lr", type=float, default=0.15)
+    p.add_argument("--l2", type=float, default=1e-4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--holdout", type=float, default=0.2, metavar="FRAC",
+                   help="trailing fraction of events held out of training")
+    p.add_argument("--out", default="", metavar="PATH",
+                   help="write the trained policy as a signed artifact")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda runs the replay_forced kernel (the default), "
+                   "cpu its plain PyTorch version")
+
+
+def _load_trace(nodes_csv: str, pods_csv: str, max_pods: int):
+    """(node rows, pod rows) of a trace's CSVs, the pods truncated to the
+    first max_pods where > 0."""
+    from tpusim_torch.io.trace import load_node_csv, load_pod_csv
+
+    pods = load_pod_csv(pods_csv)
+    return load_node_csv(nodes_csv), pods[:max_pods] if max_pods > 0 else pods
+
+
+def cmd_tune(args) -> int:
+    """tpusim's tune: 0, or 2 with a one-line error on unusable input."""
+    from tpusim_torch.learn import (
+        LocalRollout,
+        ObjectiveConfig,
+        RemoteRollout,
+        TuneConfig,
+        format_holdout_report,
+        holdout_report,
+        make_family_sim,
+        make_robust_eval,
+        run_tune,
+    )
+    from tpusim_torch.policies import POLICY_NAMES, is_policy_name
+
+    try:
+        learned = False
+        if args.policy:
+            from tpusim_torch.learn.policy import (
+                parse_learned_name,
+                parse_policy_spec,
+            )
+
+            policies = [(n, int(w)) for n, w in parse_policy_spec(args.policy)]
+            learned = all(parse_learned_name(n) is not None
+                          for n, _ in policies)
+        else:
+            policies = [(str(n), int(w))
+                        for n, w in json.loads(args.policies)]
+        for name, _ in policies:
+            if not is_policy_name(name):
+                raise ValueError(
+                    f"unknown policy {name!r} (known: "
+                    f"{', '.join(POLICY_NAMES)}, LearnedScore[<feature>])")
+        w_lo = args.w_min if args.w_min is not None else (
+            -4000 if learned else 0)
+        w_hi = args.w_max if args.w_max is not None else 4000
+        if learned:
+            from tpusim_torch.learn.policy import THETA_HI, THETA_LO
+
+            if w_lo < THETA_LO or w_hi > THETA_HI:
+                raise ValueError(
+                    f"--policy learned bounds [{w_lo}, {w_hi}] exceed the "
+                    f"i32 theta export range [{THETA_LO}, {THETA_HI}]")
+        if not 0.0 <= args.holdout < 1.0:
+            raise ValueError(f"--holdout must be in [0, 1), got "
+                             f"{args.holdout}")
+        if args.url:
+            RemoteRollout(args.url)  # raises: no job service in the port
+        nodes, pods = _load_trace(args.nodes, args.pods, args.max_pods)
+        n_train = len(pods) - int(len(pods) * args.holdout)
+        train, held = pods[:n_train], pods[n_train:]
+        if not train:
+            raise ValueError("no training pods left after the holdout split")
+        cfg = TuneConfig(
+            algo=args.algo, generations=args.generations,
+            popsize=args.popsize, sigma=args.sigma, lr=args.lr,
+            seed=args.seed, eval_seed=args.eval_seed, w_lo=w_lo, w_hi=w_hi,
+            objective=ObjectiveConfig(
+                w_alloc=args.obj_alloc, w_frag=args.obj_frag,
+                w_unsched=args.obj_unsched, w_disrupt=args.obj_disrupt))
+        train_fault = train_fault_meta = None
+        if args.train_fault_mtbf > 0 or args.train_fault_evict_every > 0:
+            from tpusim_torch.sim.faults import FaultConfig
+
+            train_fault = FaultConfig(
+                mtbf_events=args.train_fault_mtbf,
+                mttr_events=args.train_fault_mttr,
+                evict_every_events=args.train_fault_evict_every,
+                seed=args.train_fault_seed)
+            train_fault_meta = {
+                "mtbf": float(args.train_fault_mtbf),
+                "mttr": float(args.train_fault_mttr),
+                "evict_every": float(args.train_fault_evict_every),
+                "seed": int(args.train_fault_seed),
+            }
+        sim = make_family_sim(nodes, train, policies, engine=args.engine,
+                              device=args.device)
+        backend = LocalRollout(sim, width=args.popsize, fault=train_fault)
+        robust_eval = robust_meta = None
+        if args.robust_mtbf > 0:
+            from tpusim_torch.sim.faults import FaultConfig
+
+            robust_eval = make_robust_eval(
+                nodes, train, policies,
+                FaultConfig(mtbf_events=args.robust_mtbf,
+                            mttr_events=args.robust_mttr,
+                            seed=args.robust_seed),
+                device=args.device)
+            robust_meta = {
+                "mtbf": float(args.robust_mtbf),
+                "mttr": float(args.robust_mttr),
+                "seed": int(args.robust_seed),
+            }
+        result = run_tune(
+            backend, policies, cfg, args.log, resume=args.resume,
+            robust_eval=robust_eval, robust_meta=robust_meta,
+            train_fault_meta=train_fault_meta, out=sys.stderr)
+
+        from tpusim_torch.obs.emitters import format_tuning_curve
+
+        print(format_tuning_curve(result.records))
+        print(
+            f"[tune] best weights "
+            f"{','.join(str(w) for w in result.best_weights)} "
+            f"(objective {result.best_objective:+.4f}) after "
+            f"{len(result.records)} generations -> {result.log_path}")
+        if held:
+            eval_sim = make_family_sim(nodes, held, policies,
+                                       engine=args.engine,
+                                       device=args.device)
+            report = holdout_report(
+                eval_sim, policies, result.best_weights,
+                objective=cfg.objective, eval_seed=cfg.eval_seed)
+            print(format_holdout_report(report, policies))
+        if args.best_out:
+            if learned:
+                from tpusim_torch.learn.dataset import feature_names_of
+                from tpusim_torch.learn.policy import save_policy_artifact
+
+                path = save_policy_artifact(
+                    args.best_out, result.best_weights,
+                    features=feature_names_of(policies),
+                    meta={"trained": args.algo,
+                          "objective": result.best_objective,
+                          "source": "tune"})
+                print(f"[tune] wrote learned-policy artifact {path}",
+                      file=sys.stderr)
+            else:
+                from tpusim_torch.apply import save_weights_payload
+
+                path = save_weights_payload(
+                    args.best_out, [result.best_weights], policies=policies)
+                print(f"[tune] wrote tuned weights payload {path}",
+                      file=sys.stderr)
+    except (OSError, ValueError, json.JSONDecodeError) as err:
+        print(f"tpusim tune: {err}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def cmd_imitate(args) -> int:
+    """tpusim's imitate: decision JSONL -> teacher-forced features (the
+    replay_forced kernel) -> pairwise ranking fit -> i32 export -> held-out
+    top-1 agreement (and a signed artifact); 0, or 2 on unusable input."""
+    import numpy as np
+
+    from tpusim_torch.learn import (
+        ImitateConfig,
+        TeacherReplay,
+        imitate_with_mining,
+        load_teacher_log,
+        save_policy_artifact,
+    )
+    from tpusim_torch.learn.policy import FEATURE_SETS
+    from tpusim_torch.sim.workload import sort_cluster_pods
+
+    try:
+        if not 0.0 <= args.holdout < 1.0:
+            raise ValueError(f"--holdout must be in [0, 1), got "
+                             f"{args.holdout}")
+        header, rows = load_teacher_log(args.decisions)
+        teacher = "+".join(n for n, _ in header.get("policies", [])) or "?"
+        nodes, pods = _load_trace(args.nodes, args.pods, args.max_pods)
+        # Simulator.run()'s prep: the stable (creation_time, name) sort,
+        # no shuffle or tuning; a log recorded under other options fails
+        # the replay's feasible-count check
+        pods = sort_cluster_pods(list(pods), False,
+                                 np.random.default_rng(233))
+        features = FEATURE_SETS[args.features]
+        replay = TeacherReplay(nodes, pods, header, rows, features=features,
+                               device=args.device)
+        cut = len(rows) - int(len(rows) * args.holdout)
+        print(f"[imitate] teacher {teacher}: {len(rows)} events, training "
+              f"on [0, {cut}), holdout from event {cut}", file=sys.stderr)
+        _, theta, _hist = imitate_with_mining(
+            replay, ImitateConfig(steps=args.steps, lr=args.lr, l2=args.l2,
+                                  seed=args.seed),
+            end_event=cut, out=sys.stderr)
+        rep_train = replay.agreement(theta)
+        rep_held = replay.agreement(theta, start_event=cut)
+        print(f"[imitate] exported theta {','.join(str(t) for t in theta)}")
+        print(
+            f"[imitate] teacher-forced top-1 agreement: "
+            f"{rep_train['matches']}/{rep_train['creates']} "
+            f"({100 * rep_train['agreement']:.2f}%) overall, "
+            f"{rep_held['matches']}/{rep_held['creates']} "
+            f"({100 * rep_held['agreement']:.2f}%) on the held-out suffix")
+        if args.out:
+            path = save_policy_artifact(
+                args.out, theta, features=features,
+                meta={"trained": "imitation",
+                      "teacher": header.get("policies", []),
+                      "agreement_holdout": rep_held["agreement"],
+                      "source": "imitate"})
+            print(f"[imitate] wrote learned-policy artifact {path}",
+                  file=sys.stderr)
+    except (OSError, ValueError, json.JSONDecodeError) as err:
+        print(f"tpusim imitate: {err}", file=sys.stderr)
+        return 2
+    return 0
 
 
 def cmd_gen_doc(parser: argparse.ArgumentParser, args) -> int:
@@ -266,9 +614,10 @@ def main(argv=None) -> int:
     if args.command == "apply":
         Applier(apply_options(args)).run()
         return 0
-    if args.command in ("explain", "diff", "report"):
+    if args.command in ("explain", "diff", "report", "tune", "imitate"):
         return {"explain": cmd_explain, "diff": cmd_diff,
-                "report": cmd_report}[args.command](args)
+                "report": cmd_report, "tune": cmd_tune,
+                "imitate": cmd_imitate}[args.command](args)
     if args.command == "version":
         print(f"tpusim version {VERSION} (commit {COMMIT})")
         return 0

@@ -1,6 +1,7 @@
 """open-local storage extension and the replay's checkpoint and table
-files (counterpart of tpusim/io/storage.py, without its signed JSON(L)
-and chain files).
+files, and the digest-signed JSON(L) of the learned-policy artifact and
+the tuning log (counterpart of tpusim/io/storage.py, without its chain
+files).
 
 The open-local half: node VG/device inventory + pod volume
 requests (ref: pkg/utils/utils.go:555-668 NodeStorage/VolumeRequest/
@@ -409,3 +410,77 @@ def write_bytes_atomic(path: str, data: bytes) -> str:
         f.write(data)
     os.replace(tmp, path)
     return path
+
+
+# ---------------------------------------------------------------------------
+# Digest-signed JSON(L) (tpusim/io/storage.py:393-501): the learned-policy
+# artifact and the tuning log. One header line (a JSON object with at least
+# `schema` and `digest`, the sha256 over the payload lines) and the payload,
+# one JSON document a line; written atomically (tmp + os.replace), read back
+# with the digest checked, so a torn or edited file raises ValueError. The
+# bytes are tpusim's, so either package reads what the other wrote.
+# ---------------------------------------------------------------------------
+
+
+def payload_digest(lines) -> str:
+    """sha256 hex over payload lines, each newline-terminated."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for line in lines:
+        h.update(line.encode())
+        h.update(b"\n")
+    return h.hexdigest()
+
+
+def write_signed_jsonl(path: str, header: dict, lines) -> str:
+    """Write header + payload lines atomically; the header gains a `digest`
+    key over the payload. Returns the file path."""
+    lines = list(lines)
+    header = dict(header)
+    header["digest"] = payload_digest(lines)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(json.dumps(header, sort_keys=True, separators=(",", ":")))
+        f.write("\n")
+        for line in lines:
+            f.write(line + "\n")
+    os.replace(tmp, path)
+    return path
+
+
+def read_signed_jsonl(path: str, schema: str = ""):
+    """(header, payload lines) of a signed-JSONL file; raises ValueError on
+    a wrong schema (where given) or a payload digest mismatch."""
+    with open(path) as f:
+        raw = [line.rstrip("\n") for line in f if line.strip()]
+    if not raw:
+        raise ValueError(f"{path}: empty signed-JSONL file")
+    header = json.loads(raw[0])
+    if schema and header.get("schema") != schema:
+        raise ValueError(
+            f"{path}: not a {schema} file (schema={header.get('schema')!r})")
+    payload = raw[1:]
+    digest = payload_digest(payload)
+    if digest != header.get("digest"):
+        raise ValueError(
+            f"{path}: payload digest mismatch (torn or edited file): "
+            f"header {header.get('digest')} != computed {digest}")
+    return header, payload
+
+
+def write_signed_json(path: str, header: dict, doc: dict) -> str:
+    """write_signed_jsonl of one canonical-JSON document."""
+    line = json.dumps(doc, sort_keys=True, separators=(",", ":"))
+    return write_signed_jsonl(path, header, [line])
+
+
+def read_signed_json(path: str, schema: str = ""):
+    """(header, doc) of a one-document signed-JSON file; raises ValueError
+    as read_signed_jsonl does, or where the file holds more documents."""
+    header, payload = read_signed_jsonl(path, schema)
+    if len(payload) != 1:
+        raise ValueError(f"{path}: want exactly one payload document, found "
+                         f"{len(payload)}")
+    return header, json.loads(payload[0])

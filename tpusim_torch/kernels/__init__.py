@@ -10,7 +10,13 @@ edited source is rebuilt and an unchanged one is loaded as it is. Nothing
 here runs when the module is imported.
 
 Each launcher takes a pointer to a `ReplayArgs` and the CUDA stream, and
-returns the launch's CUDA error code. `replay` and `replay_blocked` run
+returns the launch's CUDA error code. A configuration with a learned
+column (learn/policy.py) runs the kLearned instantiations (replay_learned.cu,
+replay_blocked_learned.cu, replay_learned_records.cu,
+replay_learned_faults.cu, replay_blocked_learned_faults.cu), which `init_tables`, `replay`, `replay_blocked`,
+the lanes launchers and the fault forms dispatch to;
+`replay_forced` (replay_forced.cu) is the teacher-forced form of `replay`
+(learn/dataset.py). `replay` and `replay_blocked` run
 their chunk forms (replay_chunks.cu) where `key_out` is set: those also
 write the event key chain's key after the last event; where `ctr` is set,
 their record forms (replay_records.cu, replay_blocked_records.cu,
@@ -45,11 +51,18 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 # files include replay_lanes.cu's; replay_chunks.cu, replay.cu's, for the
 # chunk forms of replay and replay_blocked; replay_records.cu and
 # replay_blocked_records.cu, replay.cu's, for their record forms, the
-# longest compiles, each in a source of its own)
+# longest compiles, each in a source of its own; the learned instantiations
+# in replay_learned.cu and replay_blocked_learned.cu, replay_lanes.cu's,
+# their record forms in replay_learned_records.cu, replay.cu's, their fault
+# forms in replay_learned_faults.cu and replay_blocked_learned_faults.cu,
+# replay_lanes.cu's, and the forced form in replay_forced.cu, replay.cu's)
 SOURCES = tuple(os.path.join(_DIR, name) for name in (
     "replay.cu", "replay_lanes.cu", "replay_faults.cu",
     "replay_blocked_faults.cu", "replay_chunks.cu", "replay_records.cu",
-    "replay_blocked_records.cu"))
+    "replay_blocked_records.cu", "replay_learned.cu",
+    "replay_blocked_learned.cu", "replay_learned_records.cu",
+    "replay_learned_faults.cu", "replay_blocked_learned_faults.cu",
+    "replay_forced.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
                          ".tpusim_torch_build")
 _build_dir = None  # set_build_dir's directory
@@ -69,6 +82,11 @@ FAULT_KERNELS = ("replay_faults", "replay_blocked_faults",
 # the replays' record forms, which `replay` and `replay_blocked` launch
 # where ReplayArgs.ctr is set (records.py)
 RECORD_KERNELS = ("replay_record", "replay_blocked_record")
+# the teacher-forced form of `replay` (learn/dataset.py)
+FORCED_KERNELS = ("replay_forced",)
+# the most node-only features a node column folds, and the most policies a
+# learned family names (replay.cu kMaxFamily)
+MAX_FAMILY = 32
 # the launchers that take an array of lanes (launch_lanes)
 LANE_KERNELS = ("replay_lanes", "replay_blocked_lanes", "replay_lanes_faults",
                 "replay_blocked_lanes_faults")
@@ -118,6 +136,9 @@ FAULT_SIZE_FIELDS = ("f_rows", "f_cols", "f_cap_r", "f_base", "f_cap",
 # the record forms' pointers and sizes, after the fault fields (replay.cu)
 RECORD_POINTER_FIELDS = ("ctr", "rec_dec", "rec_ser", "hb_ring")
 RECORD_SIZE_FIELDS = ("rec_every", "hb_every", "hb_slots", "rec_nodes")
+# the forced form's pointers, after the learned fields (replay.cu)
+FORCED_POINTER_FIELDS = ("fr_node", "fr_topk", "fr_pick", "fr_feasible",
+                         "fr_feats", "fr_pick_feats")
 
 
 class ReplayArgs(ctypes.Structure):
@@ -137,6 +158,12 @@ class ReplayArgs(ctypes.Structure):
         + [(name, ctypes.c_int32) for name in FAULT_SIZE_FIELDS]
         + [(name, ctypes.c_void_p) for name in RECORD_POINTER_FIELDS]
         + [(name, ctypes.c_int32) for name in RECORD_SIZE_FIELDS]
+        + [("ln_n", ctypes.c_int32)]
+        + [(name, ctypes.c_int32 * MAX_FAMILY)
+           for name in ("ln_feat", "ln_theta")]
+        + [("fam_n", ctypes.c_int32), ("fam_src", ctypes.c_int32 * MAX_FAMILY)]
+        + [(name, ctypes.c_void_p) for name in FORCED_POINTER_FIELDS]
+        + [("fr_sel", ctypes.c_int32)]
     )
 
 
@@ -247,7 +274,8 @@ def library(variant: str = "") -> ctypes.CDLL:
     """The loaded kernel library of a variant, built first if need be."""
     if variant not in _libs:
         lib = ctypes.CDLL(build(variant).path)
-        for name in KERNELS + FAULT_KERNELS + RECORD_KERNELS:
+        for name in (KERNELS + FAULT_KERNELS + RECORD_KERNELS
+                     + FORCED_KERNELS):
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.POINTER(ReplayArgs), ctypes.c_int,
                             ctypes.c_void_p, ctypes.c_void_p]

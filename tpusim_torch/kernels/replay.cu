@@ -165,6 +165,20 @@ constexpr int kPwr = 4;
 constexpr int kDotProd = 5;
 constexpr int kSimon = 6;
 constexpr int kRandomScore = 7;  // a draw per event: no table rows
+// the learned columns (learn/policy.py; the kLearned instantiations of
+// replay_learned.cu, replay_learned_records.cu and replay_forced.cu):
+// fit_dev_pct's, and the node column, the weighted sum of a family's
+// node-only features (ReplayArgs::ln_*), the same for every type
+constexpr int kFitDev = 8;
+constexpr int kLearnedNode = 9;
+// the most node-only features the node column folds, and the most
+// policies a learned family names (records and the forced form)
+constexpr int kMaxFamily = 32;
+// node_features' ids (learn/policy.py NODE_FEATURES)
+constexpr int kNodeFeatures = 18;
+constexpr int kUtilBuckets = 10;  // obs/series.py UTIL_BUCKETS
+constexpr int kQ2 = 1;  // frag classes (constants.py)
+constexpr int kQ3 = 2;
 // normalize modes (NORMALIZE_IDS)
 constexpr int kNormNone = 0;
 constexpr int kNormMinMax = 1;
@@ -371,6 +385,29 @@ struct ReplayArgs {
   int32_t hb_every;
   int32_t hb_slots;
   int32_t rec_nodes;
+  // The learned columns (read by the kLearned instantiations only): the
+  // node column's ln_n features (node_features ids) and their weights; a
+  // learned family's fam_n policies, each a table row (>= 0) or node
+  // feature -1 - id, in the configuration's order: the record forms' score
+  // columns and the forced form's feature rows.
+  int32_t ln_n;
+  int32_t ln_feat[kMaxFamily];
+  int32_t ln_theta[kMaxFamily];
+  int32_t fam_n;
+  int32_t fam_src[kMaxFamily];
+  // The forced form (replay_forced.cu; null and unread in the others): per
+  // event the node the log recorded [e] and its top-3 [e, 3]; out per event
+  // the family's argmax (-1 none) [e], the feasible count [e], the feature
+  // rows of the recorded top-3 [e, 3, fam_n] (-1 where absent) and of the
+  // argmax [e, fam_n]. fr_sel: the column of the gpuSelMethod's selector
+  // whose device pick Reserve takes at the recorded node (-1: none).
+  const int32_t* fr_node;
+  const int32_t* fr_topk;
+  int32_t* fr_pick;
+  int32_t* fr_feasible;
+  int32_t* fr_feats;
+  int32_t* fr_pick_feats;
+  int32_t fr_sel;
 };
 
 }  // extern "C"
@@ -929,17 +966,175 @@ __device__ __forceinline__ int simon_pair(const ReplayArgs& a,
   return to_i32(rintf(__fmul_rn(static_cast<float>(kMaxNodeScore), res)));
 }
 
+// ---------------------------------------------------------------------------
+// The learned features (learn/policy.py; tpusim/learn/policy.py :78-188):
+// i32 in [0, 100] each, read by the kLearned instantiations only
+// ---------------------------------------------------------------------------
+
+// floor(100 * num / max(den, 1)) clipped to [0, 100], in wrapping int32
+__device__ __forceinline__ int pct_of(int num, int den) {
+  const int v = floor_div(static_cast<int>(static_cast<uint32_t>(num) * 100u),
+                          max(den, 1));
+  return min(max(v, 0), kMaxNodeScore);
+}
+
+// clip(floor(x), 0, 100) of a float32, as int
+__device__ __forceinline__ int floor_pct(float x) {
+  return static_cast<int>(fminf(fmaxf(floorf(x), 0.0f), 100.0f));
+}
+
+// XLA's tree sum over the `count` typical pods (ops/frag.py tree_sum): up
+// to 32 of them added in order from 0; past that, windows of 32 over the
+// pods padded by (32 - count % 32) % 32 zeros, half of them (rounded down)
+// in front, each window added in order from 0, then the window sums
+// likewise (in windows of 32 past 32 of them). add(acc, t) adds typical
+// pod t's terms to acc in their order.
+template <typename Add>
+__device__ __forceinline__ float tp_tree_sum(int count, Add add) {
+  const int pad1 = (32 - count % 32) % 32;
+  const int nw = count <= 32 ? 1 : (count + pad1) / 32;
+  const int lo1 = count <= 32 ? 0 : pad1 / 2;
+  const int pad2 = (32 - nw % 32) % 32;
+  const int ng = nw <= 32 ? 1 : (nw + pad2) / 32;
+  const int lo2 = nw <= 32 ? 0 : pad2 / 2;
+  const int wpg = nw <= 32 ? nw : 32;
+  const int per = count <= 32 ? count : 32;
+  float out = 0.0f;
+  for (int g = 0; g < ng; ++g) {
+    float grp = 0.0f;
+    for (int wg = 0; wg < wpg; ++wg) {
+      const int w = g * wpg + wg - lo2;
+      if (w < 0 || w >= nw) continue;
+      float win = 0.0f;
+      for (int j = 0; j < per; ++j) {
+        const int t = w * 32 + j - lo1;
+        if (t >= 0 && t < count) win = add(win, t);
+      }
+      grp = __fadd_rn(grp, win);
+    }
+    out = __fadd_rn(out, grp);
+  }
+  return out;
+}
+
+// The eighteen node-only features of one node into f[kNodeFeatures], in
+// learn/policy.py NODE_FEATURES order. q3_sat_pct and frag_pct sum over
+// every typical pod where the caller keeps them (the zero-frequency rows
+// count in the tree's windows): the frequency of those of frag class Q3;
+// the node's frag contributions (ops/frag.py node_frag_contrib) over
+// (typical pod, class), minus those of class Q3.
+__device__ void node_features(const ReplayArgs& a, const NodeView& v,
+                              int mem_cap, int* f) {
+  const int gsum = gpu_sum(v);
+  const int cap = v.gcnt * kMilli;
+  int gmax = v.g[0];
+#pragma unroll
+  for (int d = 1; d < kDevs; ++d) gmax = max(gmax, v.g[d]);
+  f[0] = pct_of(gsum, cap);
+  f[1] = pct_of(max(v.cpu, 0), v.cap);
+  f[2] = pct_of(max(v.mem, 0), mem_cap);
+  f[3] = pct_of(idle_count(v), v.gcnt);
+  f[4] = pct_of(gmax, kMilli);
+  const float total = static_cast<float>(gsum);
+  // per typical pod: its class on the node (ops/frag.py frag_class) and
+  // the free milli of the devices too small for it
+  auto cls_of = [&](int t, int* small) {
+    const int milli = a.tp_milli[t];
+    const int mask = a.tp_mask[t];
+    const bool cpu_ok = v.cpu >= a.tp_cpu[t];
+    *small = 0;
+    if (milli == 0) return cpu_ok ? 4 : 5;
+    if (!(mask == 0 || (mask & v.bit) != 0)) return 6;
+    int fit = 0;
+    int sm = 0;
+#pragma unroll
+    for (int d = 0; d < kDevs; ++d) {
+      fit += v.g[d] >= milli ? 1 : 0;
+      sm += v.g[d] < milli ? v.g[d] : 0;
+    }
+    *small = sm;
+    return fit >= a.tp_num[t] ? (cpu_ok ? kQ3 : 3) : (cpu_ok ? kQ2 : 0);
+  };
+  const float sat = tp_tree_sum(a.t, [&](float acc, int t) {
+    int sm;
+    return cls_of(t, &sm) == kQ3 ? __fadd_rn(acc, a.tp_freq[t]) : acc;
+  });
+  const float all = tp_tree_sum(a.t, [&](float acc, int t) {
+    int sm;
+    const float fr = a.tp_freq[t];
+    if (cls_of(t, &sm) != kQ3) return __fadd_rn(acc, __fmul_rn(fr, total));
+    const float s = static_cast<float>(sm);
+    acc = __fadd_rn(acc, __fmul_rn(fr, s));  // class Q2, then Q3
+    return __fadd_rn(acc, __fmul_rn(fr, __fsub_rn(total, s)));
+  });
+  const float q3 = tp_tree_sum(a.t, [&](float acc, int t) {
+    int sm;
+    if (cls_of(t, &sm) != kQ3) return acc;
+    return __fadd_rn(acc, __fmul_rn(a.tp_freq[t],
+                                    __fsub_rn(total, static_cast<float>(sm))));
+  });
+  f[5] = floor_pct(__fmul_rn(sat, 100.0f));
+  f[6] = floor_pct(__fdiv_rn(__fmul_rn(__fsub_rn(all, q3), 100.0f),
+                             fmaxf(total, 1.0f)));
+  const bool down = v.mem < 0;
+  f[7] = down ? kMaxNodeScore : 0;
+  const int bucket =
+      min(max(floor_div((cap - gsum) * kUtilBuckets, max(cap, 1)), 0),
+          kUtilBuckets - 1);
+  const bool live = !down && v.gcnt > 0;
+#pragma unroll
+  for (int b = 0; b < kUtilBuckets; ++b)
+    f[8 + b] = live && bucket == b ? kMaxNodeScore : 0;
+}
+
+// the node column's value on one node: sum over its features of theta x
+// feature, in wrapping int32 (`mem_cap` the node's memory capacity)
+__device__ __forceinline__ int learned_node_value(const ReplayArgs& a,
+                                                  const NodeView& v,
+                                                  int mem_cap) {
+  int f[kNodeFeatures];
+  node_features(a, v, mem_cap, f);
+  uint32_t sum = 0;
+  for (int j = 0; j < a.ln_n; ++j)
+    sum += static_cast<uint32_t>(a.ln_theta[j]) *
+           static_cast<uint32_t>(f[a.ln_feat[j]]);
+  return static_cast<int>(sum);
+}
+
+// fit_dev_pct of type k on one node: its devices with max(milli, 1) free
+// over the fixed width of 8 (pad devices hold 0); 0 for a CPU-only type
+__device__ __forceinline__ int fit_dev_pair(const ReplayArgs& a,
+                                            const NodeView& v, int k) {
+  if (a.t_milli[k] * a.t_num[k] <= 0) return 0;
+  const int need = max(a.t_milli[k], 1);
+  int fits = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) fits += v.g[d] >= need ? 1 : 0;
+  return pct_of(fits, kDevs);
+}
+
 // raw score and device pick of table policy `pi` (not RandomScore, which
 // has no column) for type k on one node, `node`. <false> leaves Simon out,
 // for an instantiation whose configurations lack it (replay_blocked's staged
-// general kernel, whose registers that column would spill).
-template <bool kAllColumns = true>
+// general kernel, whose registers that column would spill). <kLearned>
+// adds the learned columns.
+template <bool kAllColumns = true, bool kLearned = false>
 __device__ void policy_pair(const ReplayArgs& a, const NodeView& v, int pi,
                             int k, int node, int* score, int* sdev) {
   *sdev = -1;
   if (kAllColumns && a.pol_column[pi] == kSimon) {
     *score = simon_pair(a, v, a.mem_cap[node], k);
     return;
+  }
+  if constexpr (kLearned) {
+    if (a.pol_column[pi] == kFitDev) {
+      *score = fit_dev_pair(a, v, k);
+      return;
+    }
+    if (a.pol_column[pi] == kLearnedNode) {
+      *score = learned_node_value(a, v, a.mem_cap[node]);
+      return;
+    }
   }
   switch (a.pol_column[pi]) {
     case kFgd:
@@ -1530,9 +1725,9 @@ __device__ __forceinline__ float whole_term(const Smem& m, int t, Devs g2,
 // With kDraws (the randomized replay) a RandomScore item writes the Filter
 // bit and the device pick only: it has no table row. es holds the dirty
 // node and node_terms' results; `marks` are the clocked build's
-// checkpoints.
+// checkpoints. kLearned adds the learned columns (policy_pair).
 template <bool kGeneral, bool kBlocked, bool kAllColumns = true,
-          bool kDraws = false>
+          bool kDraws = false, bool kLearned = false>
 __device__ void refresh_column(const ReplayArgs& a, const Smem& m,
                                const EventState& es, int node,
                                long long* marks) {
@@ -1638,7 +1833,7 @@ __device__ void refresh_column(const ReplayArgs& a, const Smem& m,
       }
     } else if (active && !draw) {
       const NodeView v = sv;
-      policy_pair<kAllColumns>(a, v, pi, k, node, &score, &dev);
+      policy_pair<kAllColumns, kLearned>(a, v, pi, k, node, &score, &dev);
     }
     if (!primary) continue;
     if (!draw) a.score[col] = score;
@@ -2230,14 +2425,11 @@ __device__ __forceinline__ FaultShared* fault_shared(FaultSharedOf<kFaults>& f) 
 
 constexpr int kTopK = 3;         // obs/decisions.py DECISION_TOPK
 constexpr int kDecFixed = 13;    // records.py DEC_FIXED
-constexpr int kUtilBuckets = 10;  // obs/series.py UTIL_BUCKETS
 constexpr int kFragClasses = 7;
 constexpr int kSerHist = 3;      // records.py SER_HIST
 constexpr int kSerFrag = kSerHist + kUtilBuckets;
 constexpr int kSerFixed = kSerFrag + kFragClasses;  // 20
 constexpr int kNumCounters = 6;
-constexpr int kQ2 = 1;
-constexpr int kQ3 = 2;
 
 struct RecordShared {
   int ctr[kNumCounters];
@@ -2248,8 +2440,16 @@ struct RecordShared {
   int feasible;
   int lo[kMaxPolicies];
   int hi[kMaxPolicies];
-  int acc[kSerFixed + 2 * kMaxPolicies];
+  int acc[kSerFixed + 2 * kMaxFamily];
 };
+
+// the score columns of a record row: the configuration's policies, or a
+// learned family's (ReplayArgs::fam_n)
+template <bool kLearned>
+__device__ __forceinline__ int record_pols(const ReplayArgs& a) {
+  if constexpr (kLearned) return a.fam_n;
+  return a.n_pol;
+}
 
 template <bool kRecord>
 using RecordSharedOf = typename std::conditional<kRecord, RecordShared, char>::type;
@@ -2274,8 +2474,10 @@ __device__ void record_begin(const ReplayArgs& a, RecordShared& rs) {
 // heartbeat tick where the processed count after it sits on the stride
 // (the slot, a system fence, then the count of ticks, so that a reader
 // that sees the count sees the slot).
+template <bool kLearned = false>
 __device__ void record_count(const ReplayArgs& a, RecordShared& rs, int i,
                              int kind) {
+  const int n_pol = record_pols<kLearned>(a);
   if (kind == kCreate) {
     const bool ok = a.ev_node[i] >= 0;
     rs.ctr[0] += 1;
@@ -2283,7 +2485,7 @@ __device__ void record_count(const ReplayArgs& a, RecordShared& rs, int i,
   } else {
     rs.ctr[kind == kDelete ? 3 : 4] += 1;
     if (a.rec_dec != nullptr) {
-      int* row = a.rec_dec + static_cast<size_t>(i) * (kDecFixed + 2 * a.n_pol);
+      int* row = a.rec_dec + static_cast<size_t>(i) * (kDecFixed + 2 * n_pol);
       row[0] = -1;
       row[1] = 0;
       row[2] = 0;
@@ -2293,7 +2495,7 @@ __device__ void record_count(const ReplayArgs& a, RecordShared& rs, int i,
         row[4 + kTopK + j] = 0;
         row[4 + 2 * kTopK + j] = -1;
       }
-      for (int j = 0; j < 2 * a.n_pol; ++j) row[kDecFixed + j] = 0;
+      for (int j = 0; j < 2 * n_pol; ++j) row[kDecFixed + j] = 0;
     }
   }
   if (a.hb_ring != nullptr && a.hb_every > 0) {
@@ -2405,17 +2607,21 @@ __device__ void node_frag_amounts(const ReplayArgs& a, const NodeView& v,
 // and each policy's normalised extrema (two passes: the raw extrema, then
 // the normalised ones; RandomScore's slot 0). Every thread calls it; it
 // ends with a barrier.
+template <bool kLearned = false>
 __device__ void record_sample(const ReplayArgs& a, RecordShared& rs, int i,
                               int type) {
   const int n_pol = a.n_pol;
-  const int na = kSerFixed + 2 * n_pol;
+  const int nf = record_pols<kLearned>(a);  // the row's score columns
+  const int na = kSerFixed + 2 * nf;
   if (threadIdx.x == 0) {
     for (int j = 0; j < na; ++j) rs.acc[j] = 0;
     for (int pi = 0; pi < n_pol; ++pi) {
       rs.lo[pi] = INT_MAX;
       rs.hi[pi] = -INT_MAX;
+    }
+    for (int pi = 0; pi < nf; ++pi) {
       rs.acc[kSerFixed + pi] = -INT_MAX;
-      rs.acc[kSerFixed + n_pol + pi] = INT_MAX;
+      rs.acc[kSerFixed + nf + pi] = INT_MAX;
     }
   }
   __syncthreads();
@@ -2464,24 +2670,58 @@ __device__ void record_sample(const ReplayArgs& a, RecordShared& rs, int i,
     block_max(&rs.hi[pi], hi[pi]);
   }
   __syncthreads();
-  for (int pi = 0; pi < n_pol; ++pi) {
-    lo[pi] = INT_MAX;
-    hi[pi] = -INT_MAX;
-  }
-  for (int node = threadIdx.x; node < a.n; node += blockDim.x) {
-    if (a.feas[row + node] == 0) continue;
-    for (int pi = 0; pi < n_pol; ++pi) {
-      if (a.pol_column[pi] == kRandomScore) continue;
-      int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
-      if (a.pol_norm[pi] != kNormNone)
-        r = normalize(r, rs.lo[pi], rs.hi[pi], a.pol_norm[pi]);
-      hi[pi] = max(hi[pi], r);
-      lo[pi] = min(lo[pi], r);
+  if constexpr (kLearned) {
+    // each family policy's extrema: a table row's normalised scores, or a
+    // node feature's values, over the feasible nodes
+    int fhi[kMaxFamily];
+    int flo[kMaxFamily];
+    for (int j = 0; j < kMaxFamily; ++j) {
+      fhi[j] = -INT_MAX;
+      flo[j] = INT_MAX;
     }
-  }
-  for (int pi = 0; pi < n_pol; ++pi) {
-    block_max(&rs.acc[kSerFixed + pi], hi[pi]);
-    block_min(&rs.acc[kSerFixed + n_pol + pi], lo[pi]);
+    for (int node = threadIdx.x; node < a.n; node += blockDim.x) {
+      if (a.feas[row + node] == 0) continue;
+      int f[kNodeFeatures];
+      node_features(a, load_node(a, node), a.mem_cap[node], f);
+      for (int j = 0; j < nf; ++j) {
+        const int pi = a.fam_src[j];
+        int r;
+        if (pi < 0) {
+          r = f[-1 - pi];
+        } else {
+          if (a.pol_column[pi] == kRandomScore) continue;
+          r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
+          if (a.pol_norm[pi] != kNormNone)
+            r = normalize(r, rs.lo[pi], rs.hi[pi], a.pol_norm[pi]);
+        }
+        fhi[j] = max(fhi[j], r);
+        flo[j] = min(flo[j], r);
+      }
+    }
+    for (int j = 0; j < nf; ++j) {
+      block_max(&rs.acc[kSerFixed + j], fhi[j]);
+      block_min(&rs.acc[kSerFixed + nf + j], flo[j]);
+    }
+  } else {
+    for (int pi = 0; pi < n_pol; ++pi) {
+      lo[pi] = INT_MAX;
+      hi[pi] = -INT_MAX;
+    }
+    for (int node = threadIdx.x; node < a.n; node += blockDim.x) {
+      if (a.feas[row + node] == 0) continue;
+      for (int pi = 0; pi < n_pol; ++pi) {
+        if (a.pol_column[pi] == kRandomScore) continue;
+        int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
+        if (a.pol_norm[pi] != kNormNone)
+          r = normalize(r, rs.lo[pi], rs.hi[pi], a.pol_norm[pi]);
+        hi[pi] = max(hi[pi], r);
+        lo[pi] = min(lo[pi], r);
+      }
+    }
+    for (int pi = 0; pi < n_pol; ++pi) {
+      block_max(&rs.acc[kSerFixed + pi], hi[pi]);
+      block_min(&rs.acc[kSerFixed + n_pol + pi], lo[pi]);
+    }
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -2489,10 +2729,11 @@ __device__ void record_sample(const ReplayArgs& a, RecordShared& rs, int i,
     const bool any = rs.acc[2] > 0;
     out[0] = rs.p0 + i;
     for (int j = 1; j < kSerFixed; ++j) out[j] = rs.acc[j];
-    for (int pi = 0; pi < n_pol; ++pi) {
-      const bool zero = !any || a.pol_column[pi] == kRandomScore;
-      out[kSerFixed + pi] = zero ? 0 : rs.acc[kSerFixed + pi];
-      out[kSerFixed + n_pol + pi] = zero ? 0 : rs.acc[kSerFixed + n_pol + pi];
+    for (int j = 0; j < nf; ++j) {
+      const int pi = kLearned ? a.fam_src[j] : j;
+      const bool zero = !any || (pi >= 0 && a.pol_column[pi] == kRandomScore);
+      out[kSerFixed + j] = zero ? 0 : rs.acc[kSerFixed + j];
+      out[kSerFixed + nf + j] = zero ? 0 : rs.acc[kSerFixed + nf + j];
     }
   }
   __syncthreads();
@@ -2534,6 +2775,7 @@ __device__ __forceinline__ int record_total(const ReplayArgs& a, int type,
 // raw and normalised scores. `blocked`: the winner's 128-node block, else
 // -1. `pick` is RandomScore's draw. Every thread calls it; it ends with a
 // barrier.
+template <bool kLearned = false>
 __device__ void record_decision(const ReplayArgs& a, RecordShared& rs,
                                 Best* warp_res, int i, int type, int pin,
                                 int node, bool blocked) {
@@ -2602,7 +2844,8 @@ __device__ void record_decision(const ReplayArgs& a, RecordShared& rs,
     __syncthreads();
   }
   if (tid == 0) {
-    int* row = a.rec_dec + static_cast<size_t>(i) * (kDecFixed + 2 * n_pol);
+    const int nf = record_pols<kLearned>(a);
+    int* row = a.rec_dec + static_cast<size_t>(i) * (kDecFixed + 2 * nf);
     const bool ok = node >= 0;
     int raw[kMaxPolicies];
     int nrm[kMaxPolicies];
@@ -2617,9 +2860,50 @@ __device__ void record_decision(const ReplayArgs& a, RecordShared& rs,
       row[4 + kTopK + r] = valid ? top[r].total : 0;
       row[4 + 2 * kTopK + r] = valid ? top[r].rank : -1;
     }
-    for (int pi = 0; pi < n_pol; ++pi) {
-      row[kDecFixed + pi] = ok ? raw[pi] : 0;
-      row[kDecFixed + n_pol + pi] = ok ? nrm[pi] : 0;
+    if constexpr (kLearned) {
+      // a family policy's columns: its table row's, or its node feature
+      // at the winner (normalised "none") as the select saw it, before
+      // this event's commit took the pod's resources
+      int f[kNodeFeatures];
+      if (ok) {
+        NodeView v = load_node(a, node);
+        const int pod = a.ev_pod[i];
+        const int bits = a.ev_devb[i];
+        v.cpu += a.p_cpu[pod];
+        v.mem += a.p_mem[pod];
+#pragma unroll
+        for (int d = 0; d < kDevs; ++d)
+          v.g[d] += (bits >> d) & 1 ? a.p_milli[pod] : 0;
+        node_features(a, v, a.mem_cap[node], f);
+      }
+      for (int j = 0; j < nf; ++j) {
+        const int pi = a.fam_src[j];
+        row[kDecFixed + j] = !ok ? 0 : pi < 0 ? f[-1 - pi] : raw[pi];
+        row[kDecFixed + nf + j] = !ok ? 0 : pi < 0 ? f[-1 - pi] : nrm[pi];
+      }
+    } else {
+      for (int pi = 0; pi < n_pol; ++pi) {
+        row[kDecFixed + pi] = ok ? raw[pi] : 0;
+        row[kDecFixed + n_pol + pi] = ok ? nrm[pi] : 0;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The node column's rows (kLearnedNode) of every node under this launch's
+// weights: a lane of a sweep carries its own, where init_tables built the
+// shared tables with another's. Every thread, then a barrier.
+__device__ void learned_rows(const ReplayArgs& a) {
+  bool any = false;
+  for (int pi = 0; pi < a.n_pol; ++pi) any |= a.pol_column[pi] == kLearnedNode;
+  if (!any) return;
+  for (int node = threadIdx.x; node < a.n; node += blockDim.x) {
+    const int val = learned_node_value(a, load_node(a, node), a.mem_cap[node]);
+    for (int pi = 0; pi < a.n_pol; ++pi) {
+      if (a.pol_column[pi] != kLearnedNode) continue;
+      for (int k = 0; k < a.k; ++k)
+        a.score[(static_cast<size_t>(pi) * a.k + k) * a.n + node] = val;
     }
   }
   __syncthreads();
@@ -2634,9 +2918,12 @@ __device__ void record_decision(const ReplayArgs& a, RecordShared& rs,
 // key chain's key after its last event (write_key_out); kRecord is the
 // record form (replay_records.cu and replay_blocked_records.cu), which also
 // writes the counters, the decision and series rows and the heartbeat ticks
-// of ReplayArgs.
+// of ReplayArgs; kLearned adds the learned columns and the node column's
+// rows at the start (learned_rows; replay_learned.cu, replay_learned_records.cu
+// and replay_forced.cu instantiate it).
 template <bool kGeneral, bool kRandomized = false, bool kStaged = true,
-          bool kFaults = false, bool kKeyOut = false, bool kRecord = false>
+          bool kFaults = false, bool kKeyOut = false, bool kRecord = false,
+          bool kLearned = false>
 __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -2670,6 +2957,7 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
       draws |= kRandomized && a.pol_column[pi] == kRandomScore;
     }
   const int n_pol = kGeneral ? a.n_pol : 1;
+  if constexpr (kLearned) learned_rows(a);
   const Smem m = replay_smem<kStaged>(a, smem, n_pol, false);
   const bool fgd_terms = begin_replay<kGeneral, kStaged, kRandomized>(a, m, es);
   stage_faults<kFaults>(a, fs, 0, true);
@@ -2689,8 +2977,8 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
     const int dirty = es.dirty[i & 1];
     if (dirty >= 0) {
       const long long t_ref = clock_now();
-      refresh_column<kGeneral, false, true, kRandomized>(a, m, es, dirty,
-                                                         s_work);
+      refresh_column<kGeneral, false, true, kRandomized, kLearned>(
+          a, m, es, dirty, s_work);
       pc.end_work(s_work);
       if (tid == 0) {
         pc.count(kClkRefreshes, 1);
@@ -2704,7 +2992,7 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
     const EventFields ev = es.ev[(i / kEvBatch) & 1][i % kEvBatch];
     if constexpr (kRecord) {
       if (a.rec_every > 0 && (rs->p0 + i) % a.rec_every == 0)
-        record_sample(a, *rs, i, ev.type);
+        record_sample<kLearned>(a, *rs, i, ev.type);
     }
     if (ev.kind == kCreate) {
       const int type = ev.type;
@@ -2857,9 +3145,9 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
     pc.mark(kClkCommit);
     if constexpr (kRecord) {
       if (ev.kind == kCreate && a.rec_dec != nullptr)
-        record_decision(a, *rs, warp_res, i, ev.type, ev.pin, a.ev_node[i],
-                        false);
-      if (tid == 0) record_count(a, *rs, i, ev.kind);
+        record_decision<kLearned>(a, *rs, warp_res, i, ev.type, ev.pin,
+                                  a.ev_node[i], false);
+      if (tid == 0) record_count<kLearned>(a, *rs, i, ev.kind);
     }
   }
   if constexpr (kRecord) {
@@ -2872,9 +3160,11 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
 }
 
 template <bool kGeneral, bool kRandomized = false, bool kStaged = true,
-          bool kFaults = false, bool kKeyOut = false, bool kRecord = false>
+          bool kFaults = false, bool kKeyOut = false, bool kRecord = false,
+          bool kLearned = false>
 __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a) {
-  replay_body<kGeneral, kRandomized, kStaged, kFaults, kKeyOut, kRecord>(a);
+  replay_body<kGeneral, kRandomized, kStaged, kFaults, kKeyOut, kRecord,
+              kLearned>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -3033,7 +3323,8 @@ __device__ void update_summaries(const ReplayArgs& a, const Smem& m, int node,
 // is the chunk form and kRecord the record form, as replay_body's (the
 // blocked decision row carries the winner's block).
 template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
-          bool kFaults = false, bool kKeyOut = false, bool kRecord = false>
+          bool kFaults = false, bool kKeyOut = false, bool kRecord = false,
+          bool kLearned = false>
 __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -3062,6 +3353,7 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   if (kGeneral)
     for (int pi = 0; pi < a.n_pol; ++pi) nn += a.pol_norm[pi] != kNormNone ? 1 : 0;
   const int n_pol = kGeneral ? a.n_pol : 1;
+  if constexpr (kLearned) learned_rows(a);
   const Smem m = replay_smem<kStaged>(a, smem, n_pol, true);
   const bool fgd_terms = begin_replay<kGeneral, kStaged>(a, m, es);
   stage_faults<kFaults>(a, fs, 0, true);
@@ -3127,7 +3419,8 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
         pc.count(kClkRefreshes, 1);
       }
       const long long t_ref = clock_now();
-      refresh_column<kGeneral, true, kAllColumns>(a, m, es, dirty, s_work);
+      refresh_column<kGeneral, true, kAllColumns, false, kLearned>(
+          a, m, es, dirty, s_work);
       pc.end_work(s_work);
       if (tid == 0) pc.count(kClkItems, es.seg[n_pol]);
       pc.sync();
@@ -3153,7 +3446,7 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
     const int type = ev.type;
     if constexpr (kRecord) {
       if (a.rec_every > 0 && (rs->p0 + i) % a.rec_every == 0)
-        record_sample(a, *rs, i, type);
+        record_sample<kLearned>(a, *rs, i, type);
     }
     if (kGeneral && nn > 0) {
       // drift check, every event: the event type's current extrema (the
@@ -3234,8 +3527,9 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
     pc.mark(kClkCommit);
     if constexpr (kRecord) {
       if (ev.kind == kCreate && a.rec_dec != nullptr)
-        record_decision(a, *rs, warp_res, i, type, ev.pin, a.ev_node[i], true);
-      if (tid == 0) record_count(a, *rs, i, ev.kind);
+        record_decision<kLearned>(a, *rs, warp_res, i, type, ev.pin,
+                                  a.ev_node[i], true);
+      if (tid == 0) record_count<kLearned>(a, *rs, i, ev.kind);
     }
   }
   if constexpr (kRecord) {
@@ -3248,11 +3542,12 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
 }
 
 template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
-          bool kFaults = false, bool kKeyOut = false, bool kRecord = false>
+          bool kFaults = false, bool kKeyOut = false, bool kRecord = false,
+          bool kLearned = false>
 __global__ void __launch_bounds__(kReplayThreads, 1)
     replay_blocked_kernel(ReplayArgs a) {
   replay_blocked_body<kGeneral, kStaged, kAllColumns, kFaults, kKeyOut,
-                      kRecord>(a);
+                      kRecord, kLearned>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -3932,6 +4227,12 @@ bool has_column(const ReplayArgs* a, int column) {
   return false;
 }
 
+// a configuration with a learned column (fit_dev_pct's or the node
+// column): the kLearned instantiations run it
+bool learned(const ReplayArgs* a) {
+  return has_column(a, kFitDev) || has_column(a, kLearnedNode);
+}
+
 // a configuration that draws per event: RandomScore or gpu_sel random
 bool randomized(const ReplayArgs* a) {
   return a->gpu_sel == kSelRandom || has_column(a, kRandomScore);
@@ -4037,10 +4338,16 @@ int launch_init(Kernel kernel, const ReplayArgs* a, cudaStream_t s) {
 
 extern "C" {
 
+// the learned instantiations (replay_learned.cu, replay_blocked_learned.cu)
+int init_tables_learned(const ReplayArgs* a, void* stream);
+int replay_learned(const ReplayArgs* a, void* stream);
+int replay_blocked_learned(const ReplayArgs* a, void* stream);
+
 int init_tables(const ReplayArgs* a, void* stream) {
   if (static_cast<long long>(a->k) * a->n == 0) return 0;
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (learned(a)) return init_tables_learned(a, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!staged_shape(a)) {  // the global form
     if (a->t < 0 || a->ks < 0 || a->ks > a->k)
@@ -4078,6 +4385,7 @@ int replay(const ReplayArgs* a, void* stream) {
   if (a->e == 0) return 0;
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (learned(a)) return replay_learned(a, stream);
   if (a->ctr != nullptr) return replay_record(a, stream);
   if (a->key_out != nullptr) return replay_chunk(a, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -4099,6 +4407,7 @@ int replay_blocked(const ReplayArgs* a, void* stream) {
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies || a->n % kBlock != 0 ||
       randomized(a))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (learned(a)) return replay_blocked_learned(a, stream);
   if (a->ctr != nullptr) return replay_blocked_record(a, stream);
   if (a->key_out != nullptr) return replay_blocked_chunk(a, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

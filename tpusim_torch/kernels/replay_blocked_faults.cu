@@ -14,6 +14,11 @@
 
 extern "C" {
 
+// the learned fault forms (replay_blocked_learned_faults.cu)
+int replay_blocked_learned_faults(const ReplayArgs* a, void* stream);
+int replay_blocked_lanes_learned_faults(const ReplayArgs* lanes, int b,
+                                        void* lanes_dev, void* stream);
+
 // replay_blocked's fault form; the randomized configurations run the flat
 // one only
 int replay_blocked_faults(const ReplayArgs* a, void* stream) {
@@ -21,6 +26,7 @@ int replay_blocked_faults(const ReplayArgs* a, void* stream) {
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies || a->n % kBlock != 0 ||
       randomized(a) || !fault_operands(a))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (learned(a)) return replay_blocked_learned_faults(a, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->scratch != nullptr)
     return launch_replay(replay_blocked_kernel<true, false, true, true>, a,
@@ -43,6 +49,8 @@ int replay_blocked_lanes_faults(const ReplayArgs* lanes, int b,
   for (int l = 0; l < b; ++l)
     if (lanes[l].n % kBlock != 0 || !fault_operands(lanes + l))
       return static_cast<int>(cudaErrorInvalidValue);
+  if (learned(lanes))
+    return replay_blocked_lanes_learned_faults(lanes, b, lanes_dev, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ReplayArgs* dev = static_cast<ReplayArgs*>(lanes_dev);
   const ReplayArgs* a = lanes;

@@ -22,11 +22,17 @@
 
 extern "C" {
 
+// the learned fault forms (replay_learned_faults.cu)
+int replay_learned_faults(const ReplayArgs* a, void* stream);
+int replay_lanes_learned_faults(const ReplayArgs* lanes, int b,
+                                void* lanes_dev, void* stream);
+
 // replay's fault form: one block over the merged stream of one lane
 int replay_faults(const ReplayArgs* a, void* stream) {
   if (a->e == 0) return 0;
   if (a->n_pol < 1 || a->n_pol > kMaxPolicies || !fault_operands(a))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (learned(a)) return replay_learned_faults(a, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool staged = a->scratch == nullptr;
   if (randomized(a)) {
@@ -54,6 +60,8 @@ int replay_lanes_faults(const ReplayArgs* lanes, int b, void* lanes_dev,
   for (int l = 0; l < b; ++l)
     if (!fault_operands(lanes + l))
       return static_cast<int>(cudaErrorInvalidValue);
+  if (learned(lanes))
+    return replay_lanes_learned_faults(lanes, b, lanes_dev, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ReplayArgs* dev = static_cast<ReplayArgs*>(lanes_dev);
   const ReplayArgs* a = lanes;

@@ -118,11 +118,18 @@ bool fault_operands(const ReplayArgs* a) {
 
 extern "C" {
 
+// the learned instantiations (replay_learned.cu, replay_blocked_learned.cu)
+int replay_lanes_learned(const ReplayArgs* lanes, int b, void* lanes_dev,
+                         void* stream);
+int replay_blocked_lanes_learned(const ReplayArgs* lanes, int b,
+                                 void* lanes_dev, void* stream);
+
 // replay over b lanes, one block each; refuses lanes of different
 // instantiations (check_lanes)
 int replay_lanes(const ReplayArgs* lanes, int b, void* lanes_dev,
                  void* stream) {
   if (!check_lanes(lanes, b)) return static_cast<int>(cudaErrorInvalidValue);
+  if (learned(lanes)) return replay_lanes_learned(lanes, b, lanes_dev, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ReplayArgs* dev = static_cast<ReplayArgs*>(lanes_dev);
   const ReplayArgs* a = lanes;
@@ -152,6 +159,8 @@ int replay_blocked_lanes(const ReplayArgs* lanes, int b, void* lanes_dev,
   for (int l = 0; l < b; ++l)
     if (lanes[l].n % kBlock != 0)
       return static_cast<int>(cudaErrorInvalidValue);
+  if (learned(lanes))
+    return replay_blocked_lanes_learned(lanes, b, lanes_dev, stream);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ReplayArgs* dev = static_cast<ReplayArgs*>(lanes_dev);
   const ReplayArgs* a = lanes;

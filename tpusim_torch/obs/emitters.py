@@ -382,3 +382,51 @@ def emit_all(telemetry, jsonl: str = "", metrics: str = "", trace: str = "",
         record, telemetry.spans, jsonl=jsonl, metrics=metrics, trace=trace,
         counter_series=counter_series,
     )
+
+
+def tuning_curve_series(records) -> dict:
+    """Tuning-log generation records -> track name -> per-generation values
+    (tpusim/obs/emitters.py tuning_curve_series): the generation's best
+    objective, the running best, the population's mean and min, the
+    optimizer's step scale, the unique candidates, and, where every
+    generation ran the robustness eval, its faulted objective."""
+    import numpy as np
+
+    gens = [int(r["gen"]) for r in records]
+    out = {
+        "tune_gen": gens,
+        "tune_gen_best": [float(r["gen_best"]["objective"])
+                          for r in records],
+        "tune_best": [float(r["best"]["objective"]) for r in records],
+        "tune_mean": [float(np.mean(r["objectives"])) for r in records],
+        "tune_min": [float(np.min(r["objectives"])) for r in records],
+        "tune_sigma": [float(r["state"]["sigma"]) for r in records],
+        "tune_unique": [len(r["unique"]) for r in records],
+    }
+    if records and all("robust" in r for r in records):
+        out["tune_robust"] = [float(r["robust"]["objective"])
+                              for r in records]
+    return out
+
+
+def format_tuning_curve(records) -> str:
+    """Terminal summary of a tuning run: a sparkline a curve with its first
+    and last values, read from the log records."""
+    from tpusim_torch.obs.series import sparkline
+
+    if not records:
+        return "[tune] no generations recorded"
+    tracks = tuning_curve_series(records)
+    gens = tracks.pop("tune_gen")
+    lines = [
+        f"[tune] {len(gens)} generations (gen {gens[0]}..{gens[-1]})",
+        f"  {'curve':<16}{'first':>12}{'last':>12}  trend",
+    ]
+    for name in ("tune_gen_best", "tune_best", "tune_mean", "tune_robust",
+                 "tune_sigma", "tune_unique"):
+        vals = tracks.get(name)
+        if not vals:
+            continue
+        lines.append(f"  {name[5:]:<16}{vals[0]:>12.4f}{vals[-1]:>12.4f}  "
+                     f"{sparkline(vals)}")
+    return "\n".join(lines)

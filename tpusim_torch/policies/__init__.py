@@ -18,6 +18,12 @@ runs,
 (tpusim/policies' kernels; policies/base.py). RandomScore's score is a
 draw per event (policies/random_policy.py): it has no column and no table
 rows, and `per_event` marks it.
+
+Beside the built-ins, 'LearnedScore[<feature>]' resolves to a learned
+feature (tpusim_torch.learn.policy; tpusim/policies/__init__.py:56-106):
+normalised "none", never a gpuSelMethod's. frag_delta is FGD's column,
+fit_dev_pct has a column of its own, and the node-only features fold into
+one node column (LEARNED_NODE, sim/fused_engine.py `fold`).
 """
 
 from __future__ import annotations
@@ -67,7 +73,13 @@ COLUMN_IDS = {
     "DotProductScore": 5,
     "Simon": 6,
     "RandomScore": 7,
+    "LearnedScore[frag_delta]": 0,
+    "LearnedScore[fit_dev_pct]": 8,
 }
+# the folded column of a learned family's node-only features (replay.cu
+# kLearnedNode): the weighted sum of the features, the same for every type
+LEARNED_NODE = "LearnedNode"
+COLUMN_IDS[LEARNED_NODE] = 9
 NORMALIZE_IDS = {"none": 0, "minmax": 1, "pwr": 2}
 
 
@@ -83,6 +95,15 @@ class Policy(NamedTuple):
         return COLUMN_IDS[self.name]
 
     @property
+    def node_feature(self):
+        """The node-only learned feature this policy scores (it folds into
+        the node column), else None."""
+        from tpusim_torch.learn.policy import NODE_FEATURES, parse_learned_name
+
+        feat = parse_learned_name(self.name)
+        return feat if feat in NODE_FEATURES else None
+
+    @property
     def per_event(self) -> bool:
         """Whether the score is drawn per event instead of read from the
         tables (RandomScore)."""
@@ -91,8 +112,20 @@ class Policy(NamedTuple):
 
 def make_policy(name: str, dim_ext_method: str = "share",
                 norm_method: str = "max") -> Policy:
-    """The policy of a scheduler-config plugin name. Raises KeyError for an
-    unknown name."""
+    """The policy of a scheduler-config plugin name or a learned feature
+    ('LearnedScore[<feature>]'). Raises KeyError for an unknown name."""
+    if name.startswith("LearnedScore["):
+        from tpusim_torch.learn.policy import (
+            feature_column,
+            feature_scorer,
+            parse_learned_name,
+        )
+
+        feat = parse_learned_name(name)
+        if feat is None:
+            raise KeyError(f"malformed learned-policy name: {name!r}")
+        return Policy(name, feature_column(feat), "none", False,
+                      feature_scorer(feat))
     sel = name in SELF_SELECT_POLICIES
     if name == "DotProductScore":
         return Policy(name, make_dotprod_column(dim_ext_method, norm_method),
@@ -113,13 +146,27 @@ def make_policy(name: str, dim_ext_method: str = "share",
     return Policy(name, column, normalize, sel, scorer)
 
 
+def is_policy_name(name: str) -> bool:
+    """Whether `name` resolves through make_policy: a built-in or a learned
+    feature."""
+    if name in POLICY_NAMES:
+        return True
+    if name.startswith("LearnedScore["):
+        from tpusim_torch.learn.policy import is_learned_name
+
+        return is_learned_name(name)
+    return False
+
+
 __all__ = [
     "DIM_EXT_METHODS",
+    "LEARNED_NODE",
     "NORM_METHODS",
     "NORMALIZE_IDS",
     "POLICY_NAMES",
     "SELF_SELECT_POLICIES",
     "Policy",
+    "is_policy_name",
     "PolicyResult",
     "ScoreContext",
     "make_policy",

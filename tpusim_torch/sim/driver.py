@@ -373,6 +373,15 @@ class Simulator:
                 "engine: pallas cannot emit the in-scan series (the fused "
                 "kernel has no per-event sampling plane); use the table, "
                 "sequential, or shard engine")
+        if self.cfg.engine == "pallas" and any(
+                str(name).startswith("LearnedScore[")
+                for name, _ in self.cfg.policies):
+            # tpusim's Pallas engine has no column for a learned feature
+            # (pallas_engine.supports)
+            raise ValueError(
+                "engine: pallas requires a registered Pallas column kernel "
+                "for every enabled policy and a non-random gpuSelMethod "
+                "(see tpusim.sim.pallas_engine.supports)")
         # the observability plane: spans and counters always (two
         # perf_counter calls a phase); profile=True synchronises per phase
         self.obs = Recorder(enabled=self.cfg.profile)
@@ -2142,7 +2151,8 @@ _ENGINE_SRC_DIGEST = None
 def _engine_source_digest() -> bytes:
     """sha256 over the port's sources that determine a replay trajectory or
     the carry's layout (sim/, policies/, ops/, types.py, constants.py,
-    io/storage.py and the kernels' .cu sources), after a tag naming the
+    io/storage.py, learn/policy.py, whose features are score columns, and
+    the kernels' .cu sources), after a tag naming the
     port: the checkpoint and table-cache keys' salt. Editing any of them
     starts runs fresh instead of resuming into divergence, and the port
     never reads tpusim's files."""
@@ -2152,7 +2162,8 @@ def _engine_source_digest() -> bytes:
 
         base = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         files = [os.path.join(base, rel) for rel in
-                 ("types.py", "constants.py", "io/storage.py")]
+                 ("types.py", "constants.py", "io/storage.py",
+                  "learn/policy.py")]
         for pattern in ("sim/*.py", "policies/*.py", "ops/*.py",
                         "kernels/*.cu"):
             files += glob.glob(os.path.join(base, pattern))
@@ -2860,7 +2871,7 @@ def dispatch_pods_batch(sims: Sequence[Simulator], pods_list,
               for sim, pods in zip(sims, pods_list)]
     types, tids = _union_types([specs for specs, _, _ in inputs])
     cfg = lead._replay.config
-    lanes = [Lane(specs, tid, evk, evp, sim.rank, cfg.weights,
+    lanes = [Lane(specs, tid, evk, evp, sim.rank, cfg.fam_weights,
                   prng_key(sim.cfg.seed))
              for sim, (specs, evk, evp), tid in zip(sims, inputs, tids)]
     ran = _launch_lanes(lead, types, lanes)

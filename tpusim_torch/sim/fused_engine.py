@@ -48,7 +48,12 @@ from tpusim_torch.constants import (
     MILLI,
     NUM_AFF_CLASSES,
 )
-from tpusim_torch.kernels import MAX_POLICIES, scratch_bytes, staged
+from tpusim_torch.kernels import (
+    MAX_FAMILY,
+    MAX_POLICIES,
+    scratch_bytes,
+    staged,
+)
 from tpusim_torch.ops.prng import advance_key, event_keys
 from tpusim_torch.ops.resource import (
     allocate_share_best,
@@ -60,6 +65,7 @@ from tpusim_torch.ops.resource import (
 )
 from tpusim_torch.policies import (
     DIM_EXT_METHODS,
+    LEARNED_NODE,
     NORM_METHODS,
     NORMALIZE_IDS,
     SELF_SELECT_POLICIES,
@@ -103,9 +109,37 @@ class ReplayConfig(NamedTuple):
     sel_idx: int
     dim_ext: str = "share"  # DotProductScore's, where enabled
     norm: str = "max"
-    # policies[j] is the order[j]-th of the [(name, weight)] list given to
+    # fam[j] is the order[j]-th of the [(name, weight)] list given to
     # make_config
     order: Tuple[int, ...] = ()
+    # A learned family (learn/policy.py) as the caller named it, and its
+    # weights, in the order above; `policies` and `weights` are then its
+    # fold (`fold`): the node-only features become one node column
+    # (LEARNED_NODE, weight 1) of ln_features (learn.policy.NODE_FEATURES
+    # ids) weighted by ln_theta, and fam_src[j] says where family policy j
+    # scores: its row of the tables (>= 0), or node feature -1 - id.
+    # Empty for a configuration without learned features.
+    family: Tuple[Policy, ...] = ()
+    family_weights: Tuple[int, ...] = ()
+    ln_features: Tuple[int, ...] = ()
+    ln_theta: Tuple[int, ...] = ()
+    fam_src: Tuple[int, ...] = ()
+
+    @property
+    def fam(self) -> Tuple[Policy, ...]:
+        """The caller's policies in this configuration's order: the record
+        rows' score columns."""
+        return self.family or self.policies
+
+    @property
+    def fam_weights(self) -> Tuple[int, ...]:
+        return self.family_weights or self.weights
+
+    @property
+    def learned(self) -> bool:
+        """Whether a learned column runs (fit_dev_pct's or the node
+        column): the kernels' kLearned instantiations."""
+        return any(p.name in LEARNED_COLUMNS for p in self.policies)
 
     @property
     def gpu_sel_mode(self) -> str:
@@ -135,14 +169,66 @@ def lane_weights(cfg: ReplayConfig, row) -> Tuple[int, ...]:
     """A weight row given in the order of the [(name, weight)] list `cfg`
     was made from, in `cfg`'s policy order (make_config moves a per-event
     policy last): the weights a lane of a sweep over `cfg`'s family
-    carries."""
+    carries (ReplayConfig.fam's; `with_weights` folds them)."""
     row = [int(w) for w in row]
-    if len(row) != len(cfg.policies):
+    if len(row) != len(cfg.fam):
         raise ValueError(f"a weight row of {len(row)} for "
-                         f"{len(cfg.policies)} policies")
+                         f"{len(cfg.fam)} policies")
     if any(not -2**31 <= w < 2**31 for w in row):
         raise ValueError(f"weights must be int32: {row}")
     return tuple(row[i] for i in cfg.order)
+
+
+# the policies whose columns only the learned instantiations compute
+LEARNED_COLUMNS = ("LearnedScore[fit_dev_pct]", LEARNED_NODE)
+# the node column's policy: its rows are learned_node_column's
+_LEARNED_NODE_POLICY = None
+
+
+def _node_policy() -> Policy:
+    global _LEARNED_NODE_POLICY
+    if _LEARNED_NODE_POLICY is None:
+        _LEARNED_NODE_POLICY = Policy(LEARNED_NODE, None, "none", False, None)
+    return _LEARNED_NODE_POLICY
+
+
+def fold(family: Sequence[Policy], weights: Sequence[int]):
+    """The fold of a policy family (sum_f theta_f x feature_f over its
+    node-only features is one i32 term: the weighted sum wraps modulo 2^32,
+    so the order of adding leaves its bits as they are): (policies,
+    weights, ln_features, ln_theta, fam_src) as ReplayConfig holds them.
+    The node column sits where the first node-only feature was."""
+    from tpusim_torch.learn.policy import NODE_FEATURES
+
+    pols, ws, feats, theta, src = [], [], [], [], []
+    at = -1
+    for pol, w in zip(family, weights):
+        feat = pol.node_feature
+        if feat is None:
+            src.append(len(pols))
+            pols.append(pol)
+            ws.append(int(w))
+            continue
+        if at < 0:
+            at = len(pols)
+            pols.append(_node_policy())
+            ws.append(1)
+        fid = NODE_FEATURES.index(feat)
+        src.append(-1 - fid)
+        feats.append(fid)
+        theta.append(int(w))
+    return (tuple(pols), tuple(ws), tuple(feats), tuple(theta), tuple(src))
+
+
+def with_weights(cfg: ReplayConfig, row) -> ReplayConfig:
+    """`cfg` with the weight row `row` of its family (ReplayConfig.fam's
+    order; lane_weights), folded where the family has node-only
+    features."""
+    row = tuple(int(w) for w in row)
+    if not cfg.family:
+        return cfg._replace(weights=row)
+    _, ws, _, theta, _ = fold(cfg.family, row)
+    return cfg._replace(weights=ws, ln_theta=theta, family_weights=row)
 
 
 def make_config(policies: Sequence[Tuple[str, int]], gpu_sel: str,
@@ -155,11 +241,16 @@ def make_config(policies: Sequence[Tuple[str, int]], gpu_sel: str,
     make_pallas_replay does (tpusim's table engine would quietly pick best
     fit where the reference's plugin lookup fails). A per-event policy is
     moved last: the i32 weighted sum wraps the same in any order, and the
-    score table's rows are then those of the policies before it."""
+    score table's rows are then those of the policies before it. A learned
+    family's node-only features fold into one node column (`fold`), so at
+    most MAX_POLICIES columns remain of up to MAX_FAMILY policies; where
+    a learned family's gpu_sel names no enabled selector, Reserve takes
+    best fit, as tpusim's engines do (its gpuSelMethod then has no device
+    pick to delegate to)."""
     if not policies:
         raise ValueError("the fused replay needs at least one policy")
-    if len(policies) > MAX_POLICIES:
-        raise ValueError(f"at most {MAX_POLICIES} policies, got {len(policies)}")
+    if len(policies) > MAX_FAMILY:
+        raise ValueError(f"at most {MAX_FAMILY} policies, got {len(policies)}")
     if dim_ext not in DIM_EXT_METHODS or norm not in NORM_METHODS:
         raise ValueError(f"dim_ext {dim_ext!r} / norm {norm!r} not in "
                          f"{DIM_EXT_METHODS} / {NORM_METHODS}")
@@ -168,19 +259,31 @@ def make_config(policies: Sequence[Tuple[str, int]], gpu_sel: str,
     resolved = [(make_policy(name, dim_ext, norm), w) for name, w in policies]
     order = tuple(policy_order([p for p, _ in resolved]))
     resolved = [resolved[i] for i in order]
-    pols = tuple(p for p, _ in resolved)
-    names = [p.name for p in pols]
-    selectors = [p.name for p in pols if p.self_select]
+    fam = tuple(p for p, _ in resolved)
+    fam_w = tuple(int(w) for _, w in resolved)
+    names = [p.name for p in fam]
+    selectors = [p.name for p in fam if p.self_select]
+    learned = any(n.startswith("LearnedScore[") for n in names)
     if gpu_sel in selectors:
-        sel_idx = names.index(gpu_sel)
+        sel_fam = names.index(gpu_sel)
     elif gpu_sel in ("best", "worst", "random"):
-        sel_idx = -1
+        sel_fam = -1
+    elif learned:
+        gpu_sel, sel_fam = "best", -1
     else:
         raise ValueError(
             f"gpu_sel must be best, worst, random or an enabled policy of "
             f"{sorted(SELF_SELECT_POLICIES)}; got {gpu_sel!r} with {names}")
-    return ReplayConfig(pols, tuple(int(w) for _, w in resolved), gpu_sel,
-                        sel_idx, dim_ext, norm, order)
+    pols, ws, feats, theta, src = fold(fam, fam_w)
+    if len(pols) > MAX_POLICIES:
+        raise ValueError(f"at most {MAX_POLICIES} policies once a learned "
+                         f"family's node-only features fold into one, got "
+                         f"{len(pols)}")
+    sel_idx = src[sel_fam] if sel_fam >= 0 else -1
+    if not learned:
+        return ReplayConfig(pols, ws, gpu_sel, sel_idx, dim_ext, norm, order)
+    return ReplayConfig(pols, ws, gpu_sel, sel_idx, dim_ext, norm, order,
+                        fam, fam_w, feats, theta, src)
 
 
 # ---------------------------------------------------------------------------
@@ -214,11 +317,45 @@ def config_columns(nodes: NodeState, specs: PodSpec, ks: int,
     feas = feas_column(nodes, specs)
     scores, sdev = [feas[:0]], torch.full_like(feas, -1)
     for i, pol in enumerate(cfg.policies[:cfg.num_tables]):
-        raw, dev = pol.column(nodes, specs, ks, tp)
+        if pol.name == LEARNED_NODE:
+            raw = learned_node_column(nodes, specs.cpu.shape[0], tp, cfg)
+        else:
+            raw, dev = pol.column(nodes, specs, ks, tp)
+            if i == cfg.sel_idx:
+                sdev = dev
         scores.append(raw)
-        if i == cfg.sel_idx:
-            sdev = dev
     return torch.cat(scores), sdev, feas
+
+
+def learned_node_column(nodes: NodeState, k: int, tp: TypicalPods,
+                        cfg: ReplayConfig) -> torch.Tensor:
+    """The node column i32[K, B] of a batch of nodes: sum over cfg's
+    node-only features of theta x feature (wrapping int32), the same for
+    every type. The plain version of replay.cu learned_node_value."""
+    from tpusim_torch.learn.policy import NODE_FEATURES, node_features
+
+    ids = sorted(set(cfg.ln_features))
+    rows = node_features(nodes, tp, [NODE_FEATURES[i] for i in ids])
+    at = {fid: j for j, fid in enumerate(ids)}
+    acc = torch.zeros(nodes.cpu_left.shape[0], dtype=torch.int64,
+                      device=nodes.cpu_left.device)
+    for fid, w in zip(cfg.ln_features, cfg.ln_theta):
+        acc = acc + int(w) * rows[at[fid]].to(torch.int64)
+    row = wrap_i32(acc)
+    return row.expand(k, row.shape[0]).contiguous()
+
+
+def learned_rows(tables, state: NodeState, tp: TypicalPods,
+                 cfg: ReplayConfig) -> None:
+    """Rewrite the node column's rows of `tables` (in place) for every node
+    of `state` under cfg's weights: the plain version of replay.cu
+    learned_rows, which every learned replay runs at its start (a lane of a
+    sweep carries its own weights; the shared tables were built with
+    another's)."""
+    score, k = tables[0], tables[1].shape[0]
+    for j, pol in enumerate(cfg.policies):
+        if pol.name == LEARNED_NODE:
+            score[j * k:(j + 1) * k] = learned_node_column(state, k, tp, cfg)
 
 
 def plain_init_tables(state: NodeState, types: PodTypes, tp: TypicalPods,
@@ -315,6 +452,8 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
         cpu_left=state.cpu_left.clone(), mem_left=state.mem_left.clone(),
         gpu_left=state.gpu_left.clone(), aff_cnt=state.aff_cnt.clone(),
     )
+    if cfg.family:
+        learned_rows(tables, live, tp, cfg)
     cpu_left, mem_left = live.cpu_left, live.mem_left
     gpu_left, aff = live.gpu_left, live.aff_cnt
     specs, ks = types.stacked(), types.num_share
@@ -351,7 +490,7 @@ def plain_event_loop(state: NodeState, pods: PodSpec, types: PodTypes,
             record.sample(live, tables, tid)
         node = select(tables, dirty, kind, tid, pin, k_rand[i])
         if record is not None:
-            record.decide(kind, tables, tid, pin, k_rand[i], node)
+            record.decide(kind, tables, tid, pin, k_rand[i], node, live)
         pcpu, pmem = host["cpu"][idx], host["mem"][idx]
         pmilli, pnum = host["gpu_milli"][idx], host["gpu_num"][idx]
         cls = _affinity_class(pmilli, pnum)
@@ -609,6 +748,12 @@ def _args(state, types_k, ks, tp, tables, cfg: ReplayConfig, **extra):
     args.gpu_sel = GPU_SEL_IDS[cfg.gpu_sel_mode]
     args.dim_ext = DIM_EXT_METHODS.index(cfg.dim_ext)
     args.norm = NORM_METHODS.index(cfg.norm)
+    args.ln_n = len(cfg.ln_features)
+    for j, (fid, w) in enumerate(zip(cfg.ln_features, cfg.ln_theta)):
+        args.ln_feat[j], args.ln_theta[j] = fid, w
+    args.fam_n = len(cfg.fam_src)
+    for j, src in enumerate(cfg.fam_src):
+        args.fam_src[j] = src
     for name, v in extra.items():
         if name == "key":
             if v is not None:
@@ -705,7 +850,7 @@ def init_tables(state: NodeState, types: PodTypes, tp: TypicalPods,
         return plain_init_tables(state, types, tp, cfg)
     ready = prepare_init_tables(state, types, tp, cfg)
     launch(ready)
-    init_tables.launches += 1
+    (init_tables_learned if cfg.learned else init_tables).launches += 1
     return ready.finish()
 
 
@@ -760,7 +905,7 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
         from tpusim_torch.sim.records import launch_fields
 
         fields, finish_records = launch_fields(
-            record, ev_kind.shape[0], len(cfg.policies), dev,
+            record, ev_kind.shape[0], len(cfg.fam), dev,
             state.num_nodes if n_real is None else n_real)
         ring = fields.pop("ring", None)
         extra.update(fields)
@@ -842,9 +987,9 @@ def replay(state: NodeState, pods: PodSpec, types: PodTypes,
                            record=record)
     launch(ready)
     if record is None:
-        replay.launches += 1
+        (replay_learned if cfg.learned else replay).launches += 1
         return kept(ready, keep)
-    replay_record.launches += 1
+    (replay_learned_record if cfg.learned else replay_record).launches += 1
     out, keep["records"] = kept(ready, keep)
     return out
 
@@ -951,7 +1096,7 @@ def replay_faults(state: NodeState, pods: PodSpec, types: PodTypes,
     ready = prepare_replay_faults(state, pods, types, ev_kind, ev_pod, tp,
                                   rank, tables, cfg, faults, key=key)
     launch(ready)
-    replay_faults.launches += 1
+    (replay_learned_faults if cfg.learned else replay_faults).launches += 1
     return ready.finish()
 
 
@@ -984,7 +1129,7 @@ def _lane_types(types: PodTypes, lane: Lane) -> PodTypes:
 
 
 def _lane_config(cfg: ReplayConfig, lane: Lane) -> ReplayConfig:
-    return cfg._replace(weights=tuple(int(w) for w in lane.weights))
+    return with_weights(cfg, lane.weights)
 
 
 def plain_replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
@@ -1111,7 +1256,7 @@ def replay_lanes(state: NodeState, types: PodTypes, tp: TypicalPods, tables,
         return plain_replay_lanes(state, types, tp, tables, cfg, lanes)
     ready = prepare_replay_lanes(state, types, tp, tables, cfg, lanes)
     launch(ready)
-    replay_lanes.launches += 1
+    (replay_lanes_learned if cfg.learned else replay_lanes).launches += 1
     return ready.finish()
 
 
@@ -1143,8 +1288,162 @@ def replay_lanes_faults(state: NodeState, types: PodTypes, tp: TypicalPods,
         return plain_replay_lanes(state, types, tp, tables, cfg, lanes)
     ready = prepare_replay_lanes_faults(state, types, tp, tables, cfg, lanes)
     launch(ready)
-    replay_lanes_faults.launches += 1
+    (replay_lanes_learned_faults if cfg.learned
+     else replay_lanes_faults).launches += 1
     return ready.finish()
+
+
+class ForcedOut(NamedTuple):
+    """What a teacher-forced replay writes per event (int32, on the
+    replay's device): the family's feature rows at the recorded top-3 [E,
+    3, F] (-1 where absent), the feasible count [E], the family's argmax
+    [E] (-1 none) and its feature row [E, F]; non-create events hold pick
+    -1, feasible 0 and rows of -1."""
+
+    feats: torch.Tensor
+    feasible: torch.Tensor
+    pick: torch.Tensor
+    pick_feats: torch.Tensor
+
+
+# the gpuSelMethods whose device pick a teacher-forced replay reproduces
+# at the recorded node (tpusim/learn/dataset.py DATASET_GPU_SEL); their
+# columns (replay.cu fr_sel)
+FORCED_SELECTORS = {"FGDScore": 0, "PWRScore": 4, "DotProductScore": 5}
+
+
+def _check_forced(cfg: ReplayConfig, gpu_sel: str) -> None:
+    if any(p.normalize != "none" or p.per_event for p in cfg.fam):
+        raise ValueError("a teacher-forced replay takes a family of policies "
+                         "normalised 'none' (a learned family)")
+    if gpu_sel not in ("best", "worst") and gpu_sel not in FORCED_SELECTORS:
+        raise ValueError(f"gpu_sel {gpu_sel!r}: a teacher-forced replay "
+                         f"takes best, worst or {sorted(FORCED_SELECTORS)}")
+
+
+def plain_replay_forced(state: NodeState, pods: PodSpec,
+                        ev_kind: torch.Tensor, ev_pod: torch.Tensor,
+                        tp: TypicalPods, rank: torch.Tensor,
+                        cfg: ReplayConfig, rec_node, rec_topk,
+                        gpu_sel: str) -> ForcedOut:
+    """The plain version of the `replay_forced` kernel: a loop over the
+    sequential oracle's step functions (sim/step.py score_pod_rows,
+    packed_argmax, bind_selected, unschedule) on the state's device, as
+    tpusim's TeacherReplay scans: each create scores every node under
+    cfg's family and weights, then binds the RECORDED node `rec_node[i]`
+    with the device `gpu_sel` picks there (a selector's pick from its
+    per-pod scorer on that node alone); a delete unbinds the recorded
+    placement."""
+    from tpusim_torch.sim.step import (
+        Placement,
+        bind_selected,
+        host_pods,
+        packed_argmax,
+        score_pod_rows,
+        unschedule,
+    )
+    from tpusim_torch.policies.base import ScoreContext
+
+    _check_forced(cfg, gpu_sel)
+    dev = state.cpu_left.device
+    pols = list(zip(cfg.fam, cfg.fam_weights))
+    sel_pol = (make_policy(gpu_sel, cfg.dim_ext, cfg.norm)
+               if gpu_sel in FORCED_SELECTORS else None)
+    hp = host_pods(pods)
+    kinds, idxs = ev_kind.tolist(), ev_pod.tolist()
+    rec = [int(x) for x in np.asarray(rec_node).tolist()]
+    topk = np.asarray(rec_topk).tolist()
+    e, f, n = len(kinds), len(pols), state.num_nodes
+    feats = torch.full((e, 3, f), -1, dtype=torch.int32, device=dev)
+    pick_feats = torch.full((e, f), -1, dtype=torch.int32, device=dev)
+    feasible_n = torch.zeros(e, dtype=torch.int32, device=dev)
+    picks = torch.full((e,), -1, dtype=torch.int32, device=dev)
+    p = pods.cpu.shape[0]
+    placed = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    masks = torch.zeros((p, MAX_GPUS_PER_NODE), dtype=torch.bool, device=dev)
+    live = state
+    for i in range(e):
+        kind, idx = kinds[i], idxs[i]
+        pod = hp[idx]
+        if kind == EV_CREATE:
+            feasible, total, _, raws, _ = score_pod_rows(
+                live, pod, None, pols, "best", tp)
+            pick, _, ok = packed_argmax(total, feasible, rank)
+            pk = int(pick) if bool(ok) else -1
+            picks[i] = pk
+            feasible_n[i] = feasible.sum()
+            for j, tk in enumerate(topk[i]):
+                if tk >= 0:
+                    feats[i, j] = raws[:, min(int(tk), n - 1)]
+            pick_feats[i] = raws[:, max(pk, 0)]
+            node = torch.tensor(max(rec[i], 0), dtype=torch.int32,
+                                device=dev)
+            okb = torch.tensor(rec[i] >= 0, device=dev)
+            pdev = torch.tensor(-1, dtype=torch.int32, device=dev)
+            if sel_pol is not None and rec[i] >= 0:
+                row = NodeState(*(a[rec[i]:rec[i] + 1] for a in live))
+                ctx = ScoreContext(tp=tp, feasible=torch.ones(
+                    1, dtype=torch.bool, device=dev), rng=None)
+                pdev = sel_pol.scorer(row, pod, ctx).share_dev[0]
+            live, plc = bind_selected(live, pod, node, okb, pdev, gpu_sel,
+                                      None)
+            if rec[i] >= 0:
+                placed[idx] = plc.node
+                masks[idx] = plc.dev_mask
+        elif kind == EV_DELETE:
+            live = unschedule(live, pod, Placement(placed[idx], masks[idx]))
+            placed[idx] = -1
+            masks[idx] = False
+    return ForcedOut(feats, feasible_n, picks, pick_feats)
+
+
+def prepare_replay_forced(state: NodeState, pods: PodSpec, types: PodTypes,
+                          ev_kind: torch.Tensor, ev_pod: torch.Tensor,
+                          tp: TypicalPods, rank: torch.Tensor, tables,
+                          cfg: ReplayConfig, rec_node: torch.Tensor,
+                          rec_topk: torch.Tensor, gpu_sel: str) -> Launch:
+    """The `replay_forced` launch over CUDA tensors: prepare_replay's, with
+    the recorded nodes [E] and top-3 [E, 3] and the outputs of ForcedOut.
+    `cfg` runs with gpu_sel best (or worst); a selector's pick goes in as
+    its column (fr_sel). finish() returns (ReplayResult, ForcedOut)."""
+    _check_forced(cfg, gpu_sel)
+    dev = state.cpu_left.device
+    e, f = ev_kind.shape[0], len(cfg.fam)
+
+    def out(*size):
+        return torch.empty(size, dtype=torch.int32, device=dev)
+
+    outs = ForcedOut(out(e, 3, f), out(e), out(e), out(e, f))
+    run_cfg = cfg._replace(gpu_sel="worst" if gpu_sel == "worst" else "best",
+                           sel_idx=-1)
+    ready = prepare_replay(
+        state, pods, types, ev_kind, ev_pod, tp, rank, tables, run_cfg,
+        name="replay_forced", fr_node=_i32(rec_node, "rec_node"),
+        fr_topk=_i32(rec_topk, "rec_topk"), fr_feats=outs.feats,
+        fr_feasible=outs.feasible, fr_pick=outs.pick,
+        fr_pick_feats=outs.pick_feats,
+        fr_sel=FORCED_SELECTORS.get(gpu_sel, -1))
+    return ready._replace(finish=lambda: (ready.finish(), outs))
+
+
+def replay_forced(state: NodeState, pods: PodSpec, types: PodTypes,
+                  ev_kind: torch.Tensor, ev_pod: torch.Tensor,
+                  tp: TypicalPods, rank: torch.Tensor, tables,
+                  cfg: ReplayConfig, rec_node: torch.Tensor,
+                  rec_topk: torch.Tensor, gpu_sel: str) -> ForcedOut:
+    """The teacher-forced replay of a learned family (`cfg`, its weights
+    the parameters) from `state` with the (score, sdev, feas) tables of
+    `state` under it: the `replay_forced` CUDA kernel on CUDA tensors,
+    plain_replay_forced (the oracle's step functions) on CPU tensors."""
+    if state.cpu_left.device.type == "cpu":
+        return plain_replay_forced(state, pods, ev_kind, ev_pod, tp, rank,
+                                   cfg, rec_node, rec_topk, gpu_sel)
+    ready = prepare_replay_forced(state, pods, types, ev_kind, ev_pod, tp,
+                                  rank, tables, cfg, rec_node, rec_topk,
+                                  gpu_sel)
+    launch(ready)
+    replay_forced.launches += 1
+    return ready.finish()[1]
 
 
 init_tables.launches = 0
@@ -1152,6 +1451,7 @@ replay.launches = 0
 replay_lanes.launches = 0
 replay_faults.launches = 0
 replay_lanes_faults.launches = 0
+replay_forced.launches = 0
 # every kernel wrapper of the port; tpusim_torch.sim.hbm_engine adds
 # replay_blocked, replay_blocked_lanes and their fault forms
 def replay_record(*args, **kwargs):
@@ -1161,9 +1461,53 @@ def replay_record(*args, **kwargs):
 
 
 replay_record.launches = 0
+
+
+# The learned instantiations (kernels/replay_learned.cu,
+# replay_learned_records.cu, replay_learned_faults.cu): `init_tables`,
+# `replay`, `replay_lanes` and the fault forms launch them for a
+# configuration with a learned column (ReplayConfig.learned), and count the
+# launch here.
+def init_tables_learned(*args, **kwargs):
+    """init_tables of a learned configuration."""
+    return init_tables(*args, **kwargs)
+
+
+def replay_learned(*args, **kwargs):
+    """replay of a learned configuration."""
+    return replay(*args, **kwargs)
+
+
+def replay_learned_record(*args, **kwargs):
+    """replay_record of a learned configuration."""
+    return replay(*args, **kwargs)
+
+
+def replay_lanes_learned(*args, **kwargs):
+    """replay_lanes of a learned configuration."""
+    return replay_lanes(*args, **kwargs)
+
+
+def replay_learned_faults(*args, **kwargs):
+    """replay_faults of a learned configuration (replay_learned_faults.cu)."""
+    return replay_faults(*args, **kwargs)
+
+
+def replay_lanes_learned_faults(*args, **kwargs):
+    """replay_lanes_faults of a learned configuration."""
+    return replay_lanes_faults(*args, **kwargs)
+
+
+for _fn in (init_tables_learned, replay_learned, replay_learned_record,
+            replay_lanes_learned, replay_learned_faults,
+            replay_lanes_learned_faults):
+    _fn.launches = 0
 KERNEL_WRAPPERS = [init_tables, replay, replay_record, replay_lanes,
                    replay_faults,
-                   replay_lanes_faults]
+                   replay_lanes_faults, replay_forced, init_tables_learned,
+                   replay_learned, replay_learned_record,
+                   replay_lanes_learned, replay_learned_faults,
+                   replay_lanes_learned_faults]
 
 
 def reset_launch_counts() -> None:

@@ -250,6 +250,9 @@ def plain_replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
     check_blocked(n, cfg)
     nblk, n_pol = n // BLOCK, len(cfg.policies)
     index = _norm_index(cfg)
+    if cfg.family:  # the node column's rows under cfg's weights, first
+        tables = tuple(t.clone() for t in tables)
+        fe.learned_rows(tables, state, tp, cfg)
     summ = plain_init_summaries(tables, rank, cfg)
     bt, br, bn, brmin, brmax, slo, shi = summ
     rank_blk = rank.view(nblk, BLOCK)
@@ -411,9 +414,11 @@ def replay_blocked(state: NodeState, pods: PodSpec, types: PodTypes,
         record=record, n_real=n_real)
     fe.launch(ready)
     if record is None:
-        replay_blocked.launches += 1
+        (replay_blocked_learned if cfg.learned
+         else replay_blocked).launches += 1
         return fe.kept(ready, keep)
-    replay_blocked_record.launches += 1
+    (replay_blocked_learned_record if cfg.learned
+     else replay_blocked_record).launches += 1
     out, stats, keep["records"] = fe.kept(ready, keep)
     return out, stats
 
@@ -433,7 +438,8 @@ def replay_blocked_faults(state: NodeState, pods: PodSpec, types: PodTypes,
     ready = prepare_replay_blocked_faults(state, pods, types, ev_kind, ev_pod,
                                           tp, rank, tables, cfg, faults)
     fe.launch(ready)
-    replay_blocked_faults.launches += 1
+    (replay_blocked_learned_faults if cfg.learned
+     else replay_blocked_faults).launches += 1
     return ready.finish()
 
 
@@ -509,7 +515,8 @@ def replay_blocked_lanes(state: NodeState, types: PodTypes, tp: TypicalPods,
                                           lanes)
     ready = prepare_replay_blocked_lanes(state, types, tp, tables, cfg, lanes)
     fe.launch(ready)
-    replay_blocked_lanes.launches += 1
+    (replay_blocked_lanes_learned if cfg.learned
+     else replay_blocked_lanes).launches += 1
     return ready.finish()
 
 
@@ -527,7 +534,8 @@ def replay_blocked_lanes_faults(state: NodeState, types: PodTypes,
     ready = prepare_replay_blocked_lanes_faults(state, types, tp, tables,
                                                 cfg, lanes)
     fe.launch(ready)
-    replay_blocked_lanes_faults.launches += 1
+    (replay_blocked_lanes_learned_faults if cfg.learned
+     else replay_blocked_lanes_faults).launches += 1
     return ready.finish()
 
 
@@ -537,14 +545,52 @@ def replay_blocked_record(*args, **kwargs):
     return replay_blocked(*args, **kwargs)
 
 
+# the learned instantiations (kernels/replay_blocked_learned.cu,
+# replay_learned_records.cu, replay_learned_faults.cu), which replay_blocked,
+# replay_blocked_lanes and their fault forms launch for a learned
+# configuration, counted here
+def replay_blocked_learned(*args, **kwargs):
+    """replay_blocked of a learned configuration."""
+    return replay_blocked(*args, **kwargs)
+
+
+def replay_blocked_learned_record(*args, **kwargs):
+    """replay_blocked_record of a learned configuration."""
+    return replay_blocked(*args, **kwargs)
+
+
+def replay_blocked_lanes_learned(*args, **kwargs):
+    """replay_blocked_lanes of a learned configuration."""
+    return replay_blocked_lanes(*args, **kwargs)
+
+
+def replay_blocked_learned_faults(*args, **kwargs):
+    """replay_blocked_faults of a learned configuration."""
+    return replay_blocked_faults(*args, **kwargs)
+
+
+def replay_blocked_lanes_learned_faults(*args, **kwargs):
+    """replay_blocked_lanes_faults of a learned configuration."""
+    return replay_blocked_lanes_faults(*args, **kwargs)
+
+
 replay_blocked.launches = 0
 replay_blocked_record.launches = 0
 replay_blocked_lanes.launches = 0
 replay_blocked_faults.launches = 0
 replay_blocked_lanes_faults.launches = 0
+for _fn in (replay_blocked_learned, replay_blocked_learned_record,
+            replay_blocked_lanes_learned, replay_blocked_learned_faults,
+            replay_blocked_lanes_learned_faults):
+    _fn.launches = 0
 fe.KERNEL_WRAPPERS.extend([replay_blocked, replay_blocked_record,
                            replay_blocked_lanes,
-                           replay_blocked_faults, replay_blocked_lanes_faults])
+                           replay_blocked_faults, replay_blocked_lanes_faults,
+                           replay_blocked_learned,
+                           replay_blocked_learned_record,
+                           replay_blocked_lanes_learned,
+                           replay_blocked_learned_faults,
+                           replay_blocked_lanes_learned_faults])
 
 
 def make_blocked_replay(policies: Sequence[Tuple[str, int]], gpu_sel: str,

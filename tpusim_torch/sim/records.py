@@ -19,8 +19,10 @@ instantiations of the replay bodies), given a RecordSpec:
 
 Score columns are in the replay configuration's policy order
 (fused_engine.make_config moves a per-event policy last); decision_rows /
-sample_rows put them back in the caller's order. The heartbeat is the
-kernel's ring (obs.heartbeat.RingTicker).
+sample_rows put them back in the caller's order. A learned family's
+columns are its policies', not the folded columns of the replay (a node
+feature's value computed at the winner, or over the feasible nodes). The
+heartbeat is the kernel's ring (obs.heartbeat.RingTicker).
 
 The plain versions (PlainRecords, driven by fused_engine.plain_event_loop
 for both plain replays) compute the same rows with torch ops: a decision
@@ -257,6 +259,20 @@ class PlainRecords:
             acc = term if acc is None else acc + term
         return torch.stack(raws), torch.stack(norms), wrap_i32(acc)
 
+    def _family(self, rows, live):
+        """A learned family's rows [fam, ...] from the folded ones `rows`
+        [policies, ...]: a table policy's row, or a node-only feature's
+        values on the nodes of `live` (learn.policy.node_features)."""
+        if not self.cfg.family:
+            return rows
+        from tpusim_torch.learn.policy import NODE_FEATURES, node_features
+
+        ids = sorted({-1 - j for j in self.cfg.fam_src if j < 0})
+        feats = node_features(live, self.tp, [NODE_FEATURES[i] for i in ids])
+        at = {fid: r for r, fid in enumerate(ids)}
+        return torch.stack([rows[j] if j >= 0 else feats[at[-1 - j]]
+                            for j in self.cfg.fam_src])
+
     def sample(self, live, tables, tid: int) -> None:
         every = self.spec.series_every
         done = processed(self.ctr)
@@ -270,16 +286,17 @@ class PlainRecords:
         extra = len(self.cfg.policies) - raws.shape[0]  # RandomScore's row
         if extra:
             raws = torch.cat([raws, raws.new_zeros((extra, n))])
+        state = trim_nodes(live, n)
         self.ser.append(sample_row(build_sample(
-            trim_nodes(live, n), self.tp, raws, feas, self.cfg.policies,
+            state, self.tp, self._family(raws, state), feas, self.cfg.fam,
             done)))
 
     def decide(self, kind: int, tables, tid: int, pin: int, k_rand,
-               node: int) -> None:
+               node: int, live=None) -> None:
         if self.dec is None:
             return
         if kind != 0:
-            self.dec.append(no_decision_row(len(self.cfg.policies)))
+            self.dec.append(no_decision_row(len(self.cfg.fam)))
             return
         from tpusim_torch.sim.step import build_decision
 
@@ -287,6 +304,7 @@ class PlainRecords:
         if pin >= 0:
             feasible = feasible & (self.node_ids == pin)
         raws, norms, total = self._rows(tables, tid, feasible, k_rand)
+        raws, norms = self._family(raws, live), self._family(norms, live)
         dev = self.rank.device
         dec = build_decision(torch.tensor(node, dtype=torch.int32,
                                           device=dev),
@@ -305,7 +323,7 @@ class PlainRecords:
 
     def result(self, rebuilds: int = 0) -> Records:
         dev = self.rank.device
-        pi = len(self.cfg.policies)
+        pi = len(self.cfg.fam)
         ctr = list(self.ctr)
         ctr[5] += int(rebuilds)
 

@@ -424,7 +424,7 @@ def make_table_replay(policies, gpu_sel: str = "best", block_size: int = 0,
     def rows_of(records):
         """(DecisionRecord, SeriesSample) of a chunk's Records, numpy on
         the host in the caller's policy order (None where not recorded)."""
-        pi = len(cfg.policies)
+        pi = len(cfg.fam)
         dec = (None if records.dec is None else rec.decision_rows(
             records.dec.cpu().numpy(), pi, cfg.order))
         ser = (None if records.ser is None else rec.sample_rows(
