@@ -32,7 +32,7 @@ result line:
            FGD/worst and the MIXES of RandomScore,
            gpu_sel random and Simon; the randomized ones through the
            randomized instantiation, from a root key) and on the openb
-           trace over its first 1,000 events under FGD and its first 500
+           trace over its first 1,000 events under FGD and its first 250
            under Simon, the six-policy profile, FGD/worst and 01-Random
            (PREFIX_ROWS, PREFIX_EVENTS; the kernel timed on the same
            prefix), and
@@ -59,10 +59,11 @@ result line:
            and the bounds count refreshes from those placements.
 4. clocks  the phase split of both replay kernels through the clocked
            build (each run's outputs held to the main build's) for 06-FGD,
-           05-BestFit, 08 and 01-Random (replay only) at openb and, in the
-           scale phase, on the first
-           1,000 events at 100k nodes; written to
-           chiprun_out/phase_clocks.json.
+           05-BestFit, 08 and 01-Random (replay only) at openb, of
+           replay_learned and replay_blocked_learned for the linear learned
+           family at openb (the node column's value in its own slot), and,
+           in the scale phase, on the first 1,000 events at 100k nodes;
+           written to chiprun_out/phase_clocks.json.
 5. main    Simulator.run() on the card for every row of the paper's method
            list, Simon alone and the six-policy profile of `simon apply`
            (openb gpu_node list, default trace, tune 1.3, tuning seed 42,
@@ -107,10 +108,10 @@ result line:
            must match the JAX package's digests, and the flat replay over
            the first chunk must give identical outputs. Both kernels are
            timed. At the scale width init_tables and both replay kernels
-           are held to their plain versions (CPU copies) over 500
+           are held to their plain versions (CPU copies) over 250
            events from the state after the first chunk, for FGD, BestFit
            and PWR+FGD, tolerance 0 with stats and final tables; then both
-           replay kernels are timed on 5,000 events at 10k, 30k and 100k
+           replay kernels are timed on 2,500 events at 10k, 30k and 100k
            nodes for 06-FGD, 05-BestFit and 08, beside the tier auto picks
            there.
 8. sweep   the lanes kernels `replay_lanes` and `replay_blocked_lanes` (a
@@ -261,7 +262,12 @@ result line:
            the record forms (LEARN_RECORD_EVENTS), both lanes forms
            (LEARN_LANES_EVENTS, two weight vectors) and the fault forms
            (LEARN_FAULT_STEPS merged steps of the lane phase's schedule),
-           timed beside 06-FGD's; a record run's per-feature sums against
+           timed beside 06-FGD's, with the serial-chain bound beside the
+           bytes bound; every learned form (init_tables_learned, flat,
+           blocked, lanes, record, fault, lanes fault, replay_forced)
+           against its plain version, tolerance 0, on synthetic clusters
+           at the typical-pod counts of LEARN_PLAN_COUNTS, whose feature
+           sums' orders have vector loops; a record run's per-feature sums against
            every create's total; an 8-vector sweep against standalone
            runs; the openb learned fault lane and a chaos sweep; `tune`
            through the CLI (LEARN_TUNE_FLAGS) against tpusim's log and
@@ -282,8 +288,10 @@ times the replay kernels of several checkouts of this repository in turns
 instead (each a directory, for example a `git archive` unpacked under
 chiprun_ab/). Each turn runs in a process of its own that imports that
 checkout's tpusim_torch, builds its kernels and times each kernel launch
-alone with CUDA events: on the openb trace under every method row,
-`init_tables` (median of 20), `replay` and `replay_blocked` (median of 3,
+alone with CUDA events: on the openb trace under every method row and
+the linear and bucketed learned families (through `init_tables_learned`,
+`replay_learned` and `replay_blocked_learned`), `init_tables` (median of
+20), `replay` and `replay_blocked` (median of 3,
 state restored before each), and the main phase's replay wall (warm
 Simulator.run_events, residency "auto", min of 5, host clock around a
 synchronise); then, on the first chunk of the 100k-node
@@ -437,14 +445,14 @@ SCALE_SEED = 42
 # the plain checks at the scale width: this many events of the stream from
 # the state after the first chunk; FGD's plain table build on the first
 # SCALE_INIT_COLUMNS nodes (it takes ~33 s of host time over all of them)
-SCALE_PREFIX = 500
+SCALE_PREFIX = 250
 SCALE_INIT_COLUMNS = 12_800
 # the clocks phase's split at 100k nodes: the stream's first events
 SCALE_CLOCK_EVENTS = 1_000
 # where auto's choice is measured: both replay kernels alone on the first
 # CROSSOVER_EVENTS events of the stream at each width, for these rows
 CROSSOVER_NODES = (10_000, 30_000, 100_000)
-CROSSOVER_EVENTS = 5_000
+CROSSOVER_EVENTS = 2_500
 CROSSOVER_ROWS = ("06-FGD", "05-BestFit", "08-PWR_500_FGD_500")
 SCALE_PLACED_SHA256 = (
     "1f0be96bf52f89078eccb6314aef76dba3397c69cfdf5eda315de5669c22954d"
@@ -506,7 +514,7 @@ CHECK_KEY = (0, 7)
 # 30-160 s of host time each over the whole trace
 PREFIX_ROWS = ("06-FGD", "Simon", "default-profile", "FGD-worst",
                "01-Random")
-PLAIN_PREFIX = 500
+PLAIN_PREFIX = 250
 PREFIX_EVENTS = {"06-FGD": 1_000}
 DIM_EXT = ("merge", "share", "divide", "extend")
 NORM = ("node", "pod", "max")
@@ -1663,8 +1671,8 @@ def clock_line(where: str, name: str, label: str, variant: str, e: int,
     return it."""
     rate = (clk["loop"] + clk["init"]) / (ms * 1e3)  # cycles a microsecond
     split = {ph: clk[ph] / rate / e for ph in
-             ("refresh", "work", "setup", "sum", "block", "drift", "extrema",
-              "select", "commit", "wait")}
+             ("refresh", "work", "setup", "sum", "node", "block", "drift",
+              "extrema", "select", "commit", "wait")}
     out = dict(where=where, kernel=name, row=label, variant=variant, events=e,
                ms=ms, mhz=rate, us_per_event=split,
                init_us=clk["init"] / rate, refreshes=clk["refreshes"],
@@ -1721,6 +1729,48 @@ def phase_clocks(device, card: str, inputs, where: str, rows, kernels_run,
                                        f"differs from the main build on "
                                        f"{label} ({where})")
                 out.append(clock_line(where, name, label, variant, e, ms,
+                                      clk))
+    return out
+
+
+def learn_clocks(device, card: str, inputs, families=("linear",)):
+    """The phase split of replay_learned and replay_blocked_learned through
+    the clocked variant (replay_learned_clocked.cu) at openb, for each
+    learned family of `families`: the refresh (its items' work, FGD's
+    frag_delta sums, the node column's value in the `node` slot), the
+    extrema, the select and the commit. Each clocked run's outputs must
+    equal the main build's on the same inputs."""
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    state, specs, types, evk, evp, tp, rank = inputs
+    padded, rank_p = pad_nodes(state, rank, 128)
+    e = evk.shape[0]
+    out = []
+    for fam in families:
+        cfg = fe.make_config(learn_families()[fam], "best")
+        for name, st, rk, prep in (
+                ("replay_learned", state, rank, fe.prepare_replay),
+                ("replay_blocked_learned", padded, rank_p,
+                 he.prepare_replay_blocked)):
+            init = fe.prepare_init_tables(st, types, tp, cfg)
+            fe.launch(init)
+            tables = init.finish()
+            args = (st, specs, types, evk, evp, tp, rk, tables, cfg)
+            base = prep(*args)
+            fe.launch(base)  # the main build, past the wrapper: not counted
+            want = to_cpu(base.finish())
+            for variant in CLOCK_VARIANTS:
+                clocked_run(prep(*args), variant, device)  # loads the module
+                ready = prep(*args)
+                ms, clk = clocked_run(ready, variant, device)
+                err = max_abs_err(to_cpu(ready.finish()), want)
+                if err:
+                    raise SmokeFailure(f"the {variant} build of {name} "
+                                       f"differs from the main build on "
+                                       f"the {fam} family")
+                out.append(clock_line("openb", name, fam, variant, e, ms,
                                       clk))
     return out
 
@@ -3649,7 +3699,7 @@ def evict_path(device, card: str):
 # and its schedule (dense enough that failures, recoveries, evictions,
 # overflowing retries and flush rounds all occur in ~1k steps); LANE_ROWS
 # its configurations (the profile flat only: it draws per event).
-LANE_PREFIX = 2_000
+LANE_PREFIX = 1_000
 LANE_CASE = (256, 300)
 LANE_CASE_FLAGS = dict(mtbf_events=80, mttr_events=150,
                        evict_every_events=30, max_retries=2,
@@ -3886,6 +3936,23 @@ def skip_step_ms(name: str, case, cfg, e: int) -> float:
         ready = fe.prepare_replay(state, pods, types, skips, zeros, tp, rank,
                                   tables, cfg, key=CHECK_KEY)
     return kernel_ms(ready, 3, reset_of(ready, state, tables)) / e
+
+
+def least_step_ms(name: str, case, cfg, e: int):
+    """(per-event ms, the learned kernel's, 06-FGD's) of the serial chain
+    a learned form's bound counts: the least of its own all-skip step and
+    06-FGD's all-skip step (the non-learned kernel, skip_step_ms) on the
+    same state and `e` events. A skip event needs none of the learned
+    kernel's own work (the node stage's barrier, the loop over its
+    policies), so the cheapest kernel's step is the function's."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    state, pods, types, tp, rank, _ = case
+    fgd = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    own = skip_step_ms(name, case, cfg, e)
+    plain = skip_step_ms(name, (state, pods, types, tp, rank,
+                                lane_tables(state, types, tp, fgd)), fgd, e)
+    return min(own, plain), own, plain
 
 
 def lane_tables(state, types, tp, cfg):
@@ -5666,7 +5733,7 @@ LEARN_SHA256 = {
         "d100a61073e85b6d84758c1174a0fabb1737234944253275216c27764b92ff9f"),
 }
 # events of each family's kernels held to their plain versions (CPU copies)
-LEARN_PREFIX = {"linear": 500, "bucketed": 250}
+LEARN_PREFIX = {"linear": 250, "bucketed": 125}
 LEARN_RECORD_EVENTS = 150  # the record forms against their plain versions
 LEARN_RECORD_EVERY = 25
 LEARN_LANES_EVENTS = 150  # the lanes kernels against their plain versions
@@ -5696,6 +5763,15 @@ FORCED_PREFIX = 100  # replay_forced against its plain version
 # merged steps of the learned fault forms against their plain versions
 # (the lane phase's FAULT_FLAGS schedule on openb)
 LEARN_FAULT_STEPS = 500
+# typical-pod counts whose feature plans have vector loops
+# (learn/policy.py feature_plans: at 23 q3_sat_pct's 4 lanes and the Q3
+# amount's two stages, the second of 2 lanes; at 24 8 lanes in both; at 64
+# 4 lanes in the contributions'), each a synthetic cluster of
+# LEARN_PLAN_CASE nodes and events with frequencies of whole hundredths,
+# some 0, whose float32 sums land on integer percents; every learned form
+# against its plain version there
+LEARN_PLAN_COUNTS = (23, 24, 64)
+LEARN_PLAN_CASE = (128, 80)
 LEARNED_SOURCES = {
     "init_tables_learned": "tpusim_torch/kernels/replay_learned.cu",
     "replay_learned": "tpusim_torch/kernels/replay_learned.cu",
@@ -5888,25 +5964,157 @@ def learn_kernel_checks(device, card: str) -> dict:
                 if base == "replay_blocked" else 0
             bound = throughput_bound(args[0].num_nodes, k, t, p, e, n_pol,
                                      refreshes, ops.mean(), extra)
+            # the serial event chain: E of the least all-skip steps (this
+            # kernel's or 06-FGD's) plus each event's own bytes (chain_ms,
+            # chain_blocked_ms)
+            step, own, fgd_step = least_step_ms(
+                base, (args[0], specs, types, tp, args[6], args[7]), cfg, e)
+            if base == "replay":
+                chain = chain_ms(step, kinds, n, k, refreshes, n_pol)
+            else:
+                pinned = specs.pinned.cpu().numpy()[pods]
+                unpinned = int(((kinds == 0) & (pinned < 0)).sum())
+                chain = chain_blocked_ms(step, kinds, unpinned,
+                                         args[0].num_nodes, k, refreshes,
+                                         n_pol, 0, int(got[1][2]))
             print(f"check openb {name} {fam} E={m}: max_abs_err={err} with "
                   f"final tables{' and summaries' if extra else ''} "
                   f"(tolerance 0); kernel {prefix_ms:.3f} ms on the prefix "
                   f"(plain and kernel together {both_ms:.0f} ms); whole "
                   f"trace {full_ms:.3f} ms beside 06-FGD's {base} "
                   f"{fgd_ms if base == 'replay' else fgd_blocked_ms:.3f} ms "
-                  f"(bound {bound[0]:.5f} ms by {bound[1]}), on {card}")
+                  f"(bound: serial chain {chain:.4f} ms, the least all-skip "
+                  f"step {step * 1e3:.3f} us: this kernel's {own * 1e3:.3f},"
+                  f" 06-FGD's {fgd_step * 1e3:.3f}; throughput "
+                  f"{bound[0]:.5f} ms by {bound[1]}), on {card}")
             if err:
                 raise SmokeFailure(f"{name} disagrees with its plain version "
                                    f"on openb under the {fam} family")
             rows[name][fam] = dict(
                 ms=full_ms, prefix_events=m, prefix_ms=prefix_ms,
-                plain_ms=both_ms, max_abs_err=err, bound_ms=bound[0],
-                bound_by=bound[1],
+                plain_ms=both_ms, max_abs_err=err, bound_ms=chain,
+                bound_by="operations", bound_note="serial event chain: E x "
+                "(the least all-skip step, this kernel's or 06-FGD's on the "
+                "same events, + the event's bytes at the memory rate)",
+                skip_us=own * 1e3, fgd_skip_us=fgd_step * 1e3,
+                bytes_bound_ms=bound[0],
                 fgd_ms=fgd_ms if base == "replay" else fgd_blocked_ms)
         for name in ("init_tables_learned", "replay_learned",
                      "replay_blocked_learned"):
             rows[name][fam]["n_pol"] = n_pol
     return rows
+
+
+def plan_case(t: int, device):
+    """LEARN_PLAN_CASE's synthetic cluster with t typical pods (typed_case),
+    their frequencies whole hundredths of a seeded split of 100 (about a
+    quarter of them 0)."""
+    import torch
+
+    n, e = LEARN_PLAN_CASE
+    state, pods, types, evk, evp, tp, rank = typed_case(
+        90 + t, n, 6, 6, t, e, device, e)
+    rng = np.random.default_rng(t)
+    live = rng.random(t) < 0.75
+    live[0] = True
+    cents = np.bincount(rng.choice(np.flatnonzero(live), 100), minlength=t)
+    freq = (cents.astype(np.float32) / np.float32(100)).astype(np.float32)
+    return (state, pods, types, evk, evp,
+            tp._replace(freq=torch.as_tensor(freq, device=device)), rank)
+
+
+def learn_plan_checks(device, card: str) -> dict:
+    """Every learned form against its plain version, tolerance 0, at each
+    typical-pod count of LEARN_PLAN_COUNTS (plan_case, the linear family):
+    init_tables_learned; replay_learned and replay_blocked_learned with the
+    final tables and summaries; their lanes forms (2 lanes of different
+    weights); their record forms (decisions and a sample every 25 events,
+    the feature columns themselves); their fault forms and lanes fault
+    forms over the case's merged stream (LANE_CASE_FLAGS' schedule); and
+    replay_forced, forced to replay_learned's own placements. Comparison
+    launches, not counted. Returns {count: {form: error}}."""
+    import torch
+
+    from tpusim_torch.learn.policy import feature_plans
+    from tpusim_torch.ops.prng import prng_key
+    from tpusim_torch.sim import fault_lane as fl
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim.faults import FaultConfig, generate_fault_schedule
+    from tpusim_torch.sim.records import RecordSpec
+
+    cfg = fe.make_config(learn_families()["linear"], "best")
+    rows = (LEARN_THETA, LEARN_SWEEP[0])
+    out = {}
+    for t in LEARN_PLAN_COUNTS:
+        t0 = time.perf_counter()
+        state, specs, types, evk, evp, tp, rank = plan_case(t, device)
+        n, p, e = state.num_nodes, int(specs.cpu.shape[0]), evk.shape[0]
+        errs = {}
+        tables = lane_tables(state, types, tp, cfg)
+        errs["init_tables_learned"] = max_abs_err(
+            to_cpu(tables), fe.plain_init_tables(*to_cpu((state, types, tp)),
+                                                 cfg))
+        args = (state, specs, types, evk, evp, tp, rank, tables)
+        errs["replay_learned"] = against_plain("replay", args, cfg)
+        errs["replay_blocked_learned"] = against_plain("replay_blocked",
+                                                       args, cfg)
+        for name in ("replay_lanes", "replay_blocked_lanes"):
+            lanes = [fe.Lane(specs, types.type_id, evk, evp, rank,
+                             fe.lane_weights(cfg, row), prng_key(42))
+                     for row in rows]
+            errs[name.replace("_lanes", "_lanes_learned")] = \
+                lanes_against_plain(name, (state, types, tp, tables), cfg,
+                                    lanes)[0]
+        spec = RecordSpec(decisions=True, series_every=LEARN_RECORD_EVERY)
+        errs["replay_learned_record"] = record_against_plain(
+            "replay", args, cfg, spec)
+        errs["replay_blocked_learned_record"] = record_against_plain(
+            "replay_blocked", args, cfg, spec, n_real=n)
+        fcfg = FaultConfig(**LANE_CASE_FLAGS, seed=t)
+        plan = fl.compile_fault_plan(
+            evk.cpu().numpy(), evp.cpu().numpy(),
+            generate_fault_schedule(n, e, fcfg), fcfg, n, p)
+        case = (state, specs, types, tp, rank, tables)
+        kinds = torch.as_tensor(plan.kind, device=device)
+        idx = torch.as_tensor(plan.idx, device=device)
+        for name, lanes_name in (("replay_faults", "replay_lanes_faults"),
+                                 ("replay_blocked_faults",
+                                  "replay_blocked_lanes_faults")):
+            err, _, _, _, first = fault_against_plain(name, case, cfg, plan,
+                                                      repeats=1)
+            lanes = [fe.Lane(specs, types.type_id, kinds, idx, rank,
+                             fe.lane_weights(cfg, row), None,
+                             fl.lane_of(plan, state, p)) for row in rows]
+            lerr = fault_lanes_against_plain(lanes_name,
+                                             (state, types, tp, tables), cfg,
+                                             lanes, first=first)[0]
+            errs[name.replace("_faults", "_learned_faults")] = err
+            errs[lanes_name.replace("_faults", "_learned_faults")] = lerr
+        ready = fe.prepare_replay(*args, cfg, key=CHECK_KEY)
+        fe.launch(ready)
+        rec = ready.finish().event_node
+        topk = torch.stack([rec, torch.full_like(rec, -1),
+                            torch.full_like(rec, -1)], 1)
+        forced = fe.prepare_replay_forced(*args, cfg, rec, topk, "best")
+        fe.launch(forced)
+        got = forced.finish()[1]
+        want = fe.plain_replay_forced(
+            *to_cpu((state, specs, evk, evp, tp, rank)), cfg, rec.cpu(),
+            topk.cpu(), "best")
+        errs["replay_forced"] = max_abs_err(to_cpu(got), want)
+        stages = tuple(sp.stages for sp in feature_plans(t))
+        print(f"check learned plans T={t} ({n} nodes, {e} events, "
+              f"{len(plan.kind)} merged steps; plans' stages {stages}): "
+              f"max_abs_err "
+              + ", ".join(f"{k} {v}" for k, v in errs.items())
+              + f" (tolerance 0); {time.perf_counter() - t0:.1f} s, on "
+              f"{card}")
+        bad = [k for k, v in errs.items() if v]
+        if bad:
+            raise SmokeFailure(f"{', '.join(bad)} disagree with their plain "
+                               f"versions at T={t}")
+        out[t] = errs
+    return out
 
 
 def learn_records(device, card: str, nodes, pods) -> dict:
@@ -5980,14 +6188,30 @@ def learn_records(device, card: str, nodes, pods) -> dict:
             n, k, t, specs.cpu.shape[0], m, len(cfg.fam), creates,
             m // LEARN_RECORD_EVERY + 1, m,
             learned_ops(cfg, st, types, tp).mean())
+        # the serial event chain: m of the least all-skip steps (the form
+        # that records nothing, or 06-FGD's) and the events' bytes, its
+        # refreshes' bytes left out (a lower bound)
+        step = least_step_ms(base, (st, specs, types, tp, rk, tables), cfg,
+                             m)[0]
+        kinds = evk[:m].cpu().numpy()
+        chain = (chain_ms(step, kinds, n, k, 0, cfg.num_tables)
+                 if base == "replay" else
+                 chain_blocked_ms(step, kinds, 0, n, k, 0, cfg.num_tables, 0,
+                                  0))
         print(f"check openb {name} E={m}: max_abs_err={err} over outputs, "
               f"decision and sample rows (tolerance 0); {ms:.3f} ms (plain "
-              f"{plain_ms:.0f} ms on the CPU; bound {bound[0]:.5f} ms by "
-              f"{bound[1]}), on {card}")
+              f"{plain_ms:.0f} ms on the CPU; bound: serial chain "
+              f"{chain:.4f} ms, throughput {bound[0]:.5f} ms by {bound[1]}),"
+              f" on {card}")
         if err:
             raise SmokeFailure(f"{name} disagrees with its plain version")
         rows[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                          events=m, bound_ms=bound[0], bound_by=bound[1])
+                          events=m, bound_ms=max(chain, bound[0]),
+                          bound_by="operations" if chain > bound[0]
+                          else bound[1], bound_note="serial event chain "
+                          "(E of the least all-skip steps, this kernel's or "
+                          "06-FGD's, + the events' bytes) against the record "
+                          "bytes", bytes_bound_ms=bound[0])
     out["kernels"] = rows
     return out
 
@@ -6061,15 +6285,31 @@ def learn_sweep(device, card: str, nodes, pods) -> dict:
         one = throughput_bound(st.num_nodes, types.num_types, tp.size,
                                specs.cpu.shape[0], m, cfg.num_tables, m, ops)
         bound = (2 * one[0], one[1])
+        # the lanes run side by side, a block each: one lane's serial chain
+        # (m of the least all-skip steps, the one-lane form's or 06-FGD's,
+        # and the events' bytes, the refreshes' bytes left out: a lower
+        # bound)
+        base = name.replace("_lanes_learned", "")
+        step = least_step_ms(base, (st, specs, types, tp, rk, tables), cfg,
+                             m)[0]
+        kinds = evk[:m].cpu().numpy()
+        n, k = st.num_nodes, types.num_types
+        chain = (chain_ms(step, kinds, n, k, 0, cfg.num_tables)
+                 if base == "replay" else
+                 chain_blocked_ms(step, kinds, 0, n, k, 0, cfg.num_tables, 0,
+                                  0))
         print(f"check openb {name}: 2 lanes x {m} events, max_abs_err={err}"
               f" with final tables (tolerance 0); {ms:.3f} ms (plain "
-              f"{plain_ms:.0f} ms; bound {bound[0]:.5f} ms by {bound[1]}), "
-              f"on {card}")
+              f"{plain_ms:.0f} ms; bound: serial chain {chain:.4f} ms, "
+              f"throughput {bound[0]:.5f} ms by {bound[1]}), on {card}")
         if err:
             raise SmokeFailure(f"{name} disagrees with its plain version")
         rows[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                          lanes=2, events=m, bound_ms=bound[0],
-                          bound_by=bound[1])
+                          lanes=2, events=m, bound_ms=max(chain, bound[0]),
+                          bound_by="operations" if chain > bound[0]
+                          else bound[1], bound_note="a lane's serial event "
+                          "chain against the two lanes' bytes",
+                          bytes_bound_ms=bound[0])
     return dict(wall_ms=wall, launches=counts, hbm_wall_ms=bwall,
                 hbm_launches=bcounts, kernels=rows)
 
@@ -6111,10 +6351,12 @@ def learn_faults(device, card: str, nodes, pods) -> dict:
         st, rk = pad_nodes(state, rank, 128) if blocked else (state, rank)
         tables = lane_tables(st, types, tp, cfg)
         case = (st, specs, types, tp, rk, tables)
-        err, ms, plain_ms, _, first = fault_against_plain(name, case, cfg,
-                                                          cut)
+        err, ms, plain_ms, got, first = fault_against_plain(name, case, cfg,
+                                                            cut)
         bound = throughput_bound(st.num_nodes, types.num_types, tp.size, p,
                                  m, cfg.num_tables, m, ops)
+        chain = fault_chain(name, case, cfg, cut, got,
+                            least_step_ms(name, case, cfg, m)[0])[0]
         lanes = [fe.Lane(specs, types.type_id,
                          torch.as_tensor(cut.kind, device=device),
                          torch.as_tensor(cut.idx, device=device), rk,
@@ -6132,17 +6374,24 @@ def learn_faults(device, card: str, nodes, pods) -> dict:
               f" with the steps' outputs, carry, tables"
               f"{' and summaries' if blocked else ''} (tolerance 0); "
               f"{ms:.3f} ms (plain {plain_ms:.0f} ms), lanes {lms:.3f} ms "
-              f"(plain {lplain:.0f} ms); bound {bound[0]:.5f} ms by "
-              f"{bound[1]}, on {card}")
+              f"(plain {lplain:.0f} ms); bound: serial chain {chain:.4f} "
+              f"ms (a lane), throughput {bound[0]:.5f} ms by {bound[1]}, "
+              f"on {card}")
         if err or lerr:
             raise SmokeFailure(f"the learned {name} or {lanes_name} "
                                "disagrees with its plain version")
         learned = name.replace("_faults", "_learned_faults")
+        note = ("serial chain of the merged steps (fault_chain: the least "
+                "all-skip step, this kernel's or 06-FGD's, each, with their "
+                "bytes)")
         rows[learned] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                             steps=m, bound_ms=bound[0], bound_by=bound[1])
+                             steps=m, bound_ms=chain, bound_by="operations",
+                             bound_note=note, bytes_bound_ms=bound[0])
+        # the lanes run side by side, a block each: one lane's chain
         rows[lanes_name.replace("_faults", "_learned_faults")] = dict(
             ms=lms, plain_ms=lplain, max_abs_err=lerr, lanes=2, steps=m,
-            bound_ms=2 * bound[0], bound_by=bound[1])
+            bound_ms=chain, bound_by="operations", bound_note=note,
+            bytes_bound_ms=2 * bound[0])
     runs = {}
     want = {"vmem": "replay_learned_faults",
             "hbm": "replay_blocked_learned_faults"}
@@ -6352,6 +6601,7 @@ def learn_path(device, card: str):
         out = dict(card=card)
         out["runs"] = learn_runs(device, card, nodes, pods)
         out["kernels"] = learn_kernel_checks(device, card)
+        out["plans"] = learn_plan_checks(device, card)
         out["records"] = learn_records(device, card, nodes, pods)
         out["sweep"] = learn_sweep(device, card, nodes, pods)
         out["faults"] = learn_faults(device, card, nodes, pods)
@@ -6491,7 +6741,10 @@ def replay_wall(row, nodes, pods, device) -> float:
 
 def ab_turn(tree: str) -> dict:
     """One turn of --ab: every measurement of the checkout at `tree`, whose
-    tpusim_torch this process imports (its sys.path leads with `tree`)."""
+    tpusim_torch this process imports (its sys.path leads with `tree`):
+    init_tables, replay and replay_blocked and the warm replay wall of each
+    METHODS row and of the learned families at openb, and the scale
+    chunk."""
     import torch
 
     from tpusim_torch import bench_scale as bs
@@ -6515,7 +6768,11 @@ def ab_turn(tree: str) -> dict:
     data = os.path.join(tree, "data", "csv")
     nodes = load_node_csv(os.path.join(data, "openb_node_list_gpu_node.csv"))
     pods = load_pod_csv(os.path.join(data, "openb_pod_list_default.csv"))
-    for row in METHODS:
+    # the METHODS rows, then the learned families (learn_runs' protocol:
+    # gpu_sel best), through replay_learned and replay_blocked_learned
+    learned = [(f"learned-{fam}", pol, "best", "share", "max")
+               for fam, pol in learn_families().items()]
+    for row in list(METHODS) + learned:
         label = row[0]
         try:
             cfg = fe.make_config(*row[1:5])
@@ -6716,9 +6973,10 @@ def main(argv=None) -> int:
             print(f"phase check done at {time.perf_counter() - t0:.1f} s")
         print_builds(others.result())
         if "clocks" in phases:
-            clocks += phase_clocks(device, card, openb_inputs(device),
-                                   "openb", CLOCK_ROWS,
+            inputs = openb_inputs(device)
+            clocks += phase_clocks(device, card, inputs, "openb", CLOCK_ROWS,
                                    ("replay", "replay_blocked"))
+            clocks += learn_clocks(device, card, inputs)
             print(f"phase clocks done at {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             launches = main_path(device, card)

@@ -32,7 +32,9 @@ different instantiations of the kernel.
 
 A variant of the library is built from the same sources with extra
 preprocessor definitions (`VARIANTS`): "clocked" adds the phase clocks
-that chip_smoke.py reads (it has no record forms: their launchers refuse).
+that chip_smoke.py reads (the record forms' launchers refuse; of the
+learned forms it has the flat and blocked replays alone,
+replay_learned_clocked.cu's).
 The main path loads the plain build, "" (no definitions).
 """
 
@@ -55,14 +57,16 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 # in replay_learned.cu and replay_blocked_learned.cu, replay_lanes.cu's,
 # their record forms in replay_learned_records.cu, replay.cu's, their fault
 # forms in replay_learned_faults.cu and replay_blocked_learned_faults.cu,
-# replay_lanes.cu's, and the forced form in replay_forced.cu, replay.cu's)
+# replay_lanes.cu's, the forced form in replay_forced.cu, replay.cu's, and
+# the clocked variant's learned replays in replay_learned_clocked.cu,
+# replay.cu's, which compiles nothing in the other variants)
 SOURCES = tuple(os.path.join(_DIR, name) for name in (
     "replay.cu", "replay_lanes.cu", "replay_faults.cu",
     "replay_blocked_faults.cu", "replay_chunks.cu", "replay_records.cu",
     "replay_blocked_records.cu", "replay_learned.cu",
     "replay_blocked_learned.cu", "replay_learned_records.cu",
     "replay_learned_faults.cu", "replay_blocked_learned_faults.cu",
-    "replay_forced.cu"))
+    "replay_forced.cu", "replay_learned_clocked.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
                          ".tpusim_torch_build")
 _build_dir = None  # set_build_dir's directory
@@ -87,6 +91,14 @@ FORCED_KERNELS = ("replay_forced",)
 # the most node-only features a node column folds, and the most policies a
 # learned family names (replay.cu kMaxFamily)
 MAX_FAMILY = 32
+# a learned feature sum's order as the kernels read it (ReplayArgs.ln_plan,
+# learn/policy.py plan_words): at most PLAN_STAGES stages of at most
+# PLAN_SLOTS lanes (vf x uf) each; terms a pod, window, lead and the stage
+# count, then (vf, uf, m) a stage (replay.cu kPlanStages, kPlanSlots,
+# kPlanWords)
+PLAN_STAGES = 2
+PLAN_SLOTS = 16
+PLAN_WORDS = 4 + 3 * PLAN_STAGES
 # the launchers that take an array of lanes (launch_lanes)
 LANE_KERNELS = ("replay_lanes", "replay_blocked_lanes", "replay_lanes_faults",
                 "replay_blocked_lanes_faults")
@@ -104,10 +116,10 @@ VARIANTS = {
 }
 # int64 slots of ReplayArgs.clocks in the clocked variant (replay.cu
 # ClockSlot): cycles per phase, thread 0's barrier wait, the event loop's
-# cycles, the summaries' init, then counts
+# cycles, the summaries' init, counts, and the learned node column's cycles
 CLOCK_SLOTS = ("refresh", "block", "drift", "extrema", "select", "commit",
                "wait", "loop", "init", "refreshes", "rescans", "work",
-               "setup", "sum", "items")
+               "setup", "sum", "items", "node")
 NUM_CLOCKS = 16
 
 POINTER_FIELDS = (
@@ -164,6 +176,7 @@ class ReplayArgs(ctypes.Structure):
         + [("fam_n", ctypes.c_int32), ("fam_src", ctypes.c_int32 * MAX_FAMILY)]
         + [(name, ctypes.c_void_p) for name in FORCED_POINTER_FIELDS]
         + [("fr_sel", ctypes.c_int32)]
+        + [("ln_plan", ctypes.c_int32 * (3 * PLAN_WORDS))]
     )
 
 

@@ -96,6 +96,16 @@
 // `replay_blocked` reads the dirty block's K summaries, 128 x K entries per
 // rescan, and N/128 summaries for the select, so its event stays
 // O(K + N/128) plus its rescans when the tables sit in device memory.
+// The learned instantiations (kLearned) add the node column, whose value
+// on a node is the same for every type: a weighted sum of eighteen
+// features, two of them float32 sums over the typical pods in tpusim's
+// compiled order (plan_sum). It is computed once a refresh, off the
+// chain's critical path where it can be: warp 1 computes it on the node
+// the event changed while warp 0 computes FGD's node terms after the
+// commit (learned_node_stage, named barrier 1), and the refresh's K
+// node-column items copy it. Computed per item instead, a thread each, it
+// held the learned refresh at ~25 us an event (one thread's three serial
+// sums over the pods, K times).
 //
 // Exactness: every column performs the float32 operations of the JAX
 // package's compiled CPU code in its order, with explicit round-to-nearest
@@ -179,6 +189,12 @@ constexpr int kNodeFeatures = 18;
 constexpr int kUtilBuckets = 10;  // obs/series.py UTIL_BUCKETS
 constexpr int kQ2 = 1;  // frag classes (constants.py)
 constexpr int kQ3 = 2;
+// the learned features' float32 sums' orders (ReplayArgs::ln_plan; plan_sum):
+// the most stages a plan and lanes (vf x uf) a stage, and int32 words a plan
+// (kernels.PLAN_STAGES, PLAN_SLOTS, PLAN_WORDS)
+constexpr int kPlanStages = 2;
+constexpr int kPlanSlots = 16;
+constexpr int kPlanWords = 4 + 3 * kPlanStages;
 // normalize modes (NORMALIZE_IDS)
 constexpr int kNormNone = 0;
 constexpr int kNormMinMax = 1;
@@ -218,11 +234,13 @@ constexpr bool kClocked = false;
 // all of them thread 0 spent inside barriers; cycles of the whole event loop
 // and of the summaries' init; counts of refreshes and rescans; inside the
 // refresh, from its start to the last warp's end of its items (kClkWork),
-// of their set-up and of their FGD sums; and the refresh's lanes in all
+// of their set-up and of their FGD sums; the refresh's lanes in all; and
+// warp 1's cycles on the learned node column's value (kClkNode, the
+// kLearned instantiations: learned_node_stage, beside warp 0's commit)
 enum ClockSlot {
   kClkRefresh, kClkBlock, kClkDrift, kClkExtrema, kClkSelect, kClkCommit,
   kClkWait, kClkLoop, kClkInit, kClkRefreshes, kClkRescans, kClkWork,
-  kClkSetup, kClkSum, kClkItems, kNumClocks = 16,
+  kClkSetup, kClkSum, kClkItems, kClkNode, kNumClocks = 16,
 };
 
 }  // namespace
@@ -408,6 +426,11 @@ struct ReplayArgs {
   int32_t* fr_feats;
   int32_t* fr_pick_feats;
   int32_t fr_sel;
+  // The orders of the learned features' three float32 sums over the
+  // typical pods (q3_sat_pct's, frag_pct's contributions, its Q3 amount;
+  // learn/policy.py feature_plans, plan_words): kPlanWords words each,
+  // read by the kLearned instantiations only (plan_sum).
+  int32_t ln_plan[3 * kPlanWords];
 };
 
 }  // extern "C"
@@ -983,48 +1006,118 @@ __device__ __forceinline__ int floor_pct(float x) {
   return static_cast<int>(fminf(fmaxf(floorf(x), 0.0f), 100.0f));
 }
 
-// XLA's tree sum over the `count` typical pods (ops/frag.py tree_sum): up
-// to 32 of them added in order from 0; past that, windows of 32 over the
-// pods padded by (32 - count % 32) % 32 zeros, half of them (rounded down)
-// in front, each window added in order from 0, then the window sums
-// likewise (in windows of 32 past 32 of them). add(acc, t) adds typical
-// pod t's terms to acc in their order.
-template <typename Add>
-__device__ __forceinline__ float tp_tree_sum(int count, Add add) {
-  const int pad1 = (32 - count % 32) % 32;
-  const int nw = count <= 32 ? 1 : (count + pad1) / 32;
-  const int lo1 = count <= 32 ? 0 : pad1 / 2;
-  const int pad2 = (32 - nw % 32) % 32;
-  const int ng = nw <= 32 ? 1 : (nw + pad2) / 32;
-  const int lo2 = nw <= 32 ? 0 : pad2 / 2;
-  const int wpg = nw <= 32 ? nw : 32;
-  const int per = count <= 32 ? count : 32;
-  float out = 0.0f;
-  for (int g = 0; g < ng; ++g) {
-    float grp = 0.0f;
-    for (int wg = 0; wg < wpg; ++wg) {
-      const int w = g * wpg + wg - lo2;
-      if (w < 0 || w >= nw) continue;
-      float win = 0.0f;
-      for (int j = 0; j < per; ++j) {
-        const int t = w * 32 + j - lo1;
-        if (t >= 0 && t < count) win = add(win, t);
+// One of the learned features' float32 sums over the typical pods, added
+// in the order its plan names (ReplayArgs::ln_plan, kPlanWords words:
+// terms a pod, window, lead, stage count, then (vf, uf, m) a stage;
+// learn/policy.py feature_plans, ops/frag.py plan_sum): the pods, `lead`
+// zero pods in front, cut into windows of `window`; in a window, stage s
+// takes the next m pods into vf x uf lanes (pod r of the stage into lane
+// r mod vf x uf), seeds lane 0 with the running sum, adds each lane's pods
+// in turn, folds part into part and then the lanes in halves into the
+// running sum; the pods past the stages are added one by one, and the
+// window sums in turn (at most 32 windows: the staged forms' kMaxTypical).
+// term(t, k) is pod t's k-th term (k < 2, in their order), 0 where it has
+// none: a zero changes no sum of terms >= 0, so every pod adds two terms,
+// padding pods none, and every sum runs the same code. One thread; `slot`
+// (kPlanSlots floats) holds a stage's lanes. The running sum is a plain
+// register chain, one add a term: the state lives in scalars, which the
+// compiler keeps in registers.
+template <typename Term>
+__device__ __forceinline__ float plan_sum(const ReplayArgs& a, int which,
+                                          float* slot, Term term) {
+  const int b = which * kPlanWords;  // word by word: a pointer into the
+  const int window = a.ln_plan[b + 1];  // kernel's parameters would copy
+  const int lead = a.ln_plan[b + 2];    // them all to the stack
+  const int nst = min(a.ln_plan[b + 3], kPlanStages);
+  const int count = a.t;
+  float total = 0.0f;
+  if (window <= 0) return total;
+  for (int ws = -lead; ws < count; ws += window) {  // a window's first pod
+    float acc = 0.0f;
+    int off = 0;  // the window's pods past the stages so far
+    for (int st = 0; st < nst; ++st) {
+      const int vf = a.ln_plan[b + 4 + 3 * st];
+      const int uf = a.ln_plan[b + 5 + 3 * st];
+      const int m = a.ln_plan[b + 6 + 3 * st];
+      const int lanes = vf * uf;
+      for (int l = 0; l < lanes; ++l) {
+        float c = l == 0 ? acc : 0.0f;
+        for (int r = off + l; r < off + m; r += lanes) {
+          const int t = ws + r;
+          if (t < 0 || t >= count) continue;
+          c = __fadd_rn(__fadd_rn(c, term(t, 0)), term(t, 1));
+        }
+        slot[l] = c;
       }
-      grp = __fadd_rn(grp, win);
+      for (int q = 1; q < uf; ++q)
+        for (int l = 0; l < vf; ++l)
+          slot[l] = __fadd_rn(slot[q * vf + l], slot[l]);
+      for (int h = vf / 2; h >= 1; h /= 2)
+        for (int l = 0; l < h; ++l) slot[l] = __fadd_rn(slot[l], slot[l + h]);
+      acc = slot[0];
+      off += m;
     }
-    out = __fadd_rn(out, grp);
+    const int lo = max(ws + off, 0);
+    const int hi = min(ws + window, count);
+#pragma unroll 4
+    for (int t = lo; t < hi; ++t)
+      acc = __fadd_rn(__fadd_rn(acc, term(t, 0)), term(t, 1));
+    total = __fadd_rn(total, acc);
   }
-  return out;
+  return total;
+}
+
+// typical pod t's class on node v (ops/frag.py frag_class) and the free
+// milli of the node's devices too small for it (*small)
+__device__ __forceinline__ int tp_class(const ReplayArgs& a, const NodeView& v,
+                                        int t, int* small) {
+  const int milli = a.tp_milli[t];
+  const int mask = a.tp_mask[t];
+  const bool cpu_ok = v.cpu >= a.tp_cpu[t];
+  *small = 0;
+  if (milli == 0) return cpu_ok ? 4 : 5;
+  if (!(mask == 0 || (mask & v.bit) != 0)) return 6;
+  int fit = 0;
+  int sm = 0;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) {
+    fit += v.g[d] >= milli ? 1 : 0;
+    sm += v.g[d] < milli ? v.g[d] : 0;
+  }
+  *small = sm;
+  return fit >= a.tp_num[t] ? (cpu_ok ? kQ3 : 3) : (cpu_ok ? kQ2 : 0);
+}
+
+// The terms typical pod t of frequency fr adds to the three sums on node
+// v (`total` its free GPU milli), as a float4 (x, y, z, w): with class Q3,
+// q3_sat's fr (x), frag_pct's fr x small (class Q2, y) then fr x (total -
+// small) (class Q3, z; the Q3 amount's too); else frag_pct's fr x total
+// (its class, y) and 0 for the others; w is 0. The frag contributions of
+// ops/frag.py node_frag_contrib.
+__device__ __forceinline__ float4 pod_terms(const ReplayArgs& a,
+                                            const NodeView& v, float total,
+                                            int t) {
+  const float fr = a.tp_freq[t];
+  int small;
+  const bool q3 = tp_class(a, v, t, &small) == kQ3;
+  const float s = static_cast<float>(small);
+  return make_float4(q3 ? fr : 0.0f, __fmul_rn(fr, q3 ? s : total),
+                     q3 ? __fmul_rn(fr, __fsub_rn(total, s)) : 0.0f, 0.0f);
+}
+
+// the components of pod_terms that sum `which` adds, in turn (0 q3_sat's:
+// x, then the zero w; 1 frag_pct's contributions: y, z; 2 the Q3
+// amount's: z, w)
+__device__ __forceinline__ int term_index(int which, int k) {
+  return k == 0 ? which : which == 1 ? 2 : 3;
 }
 
 // The eighteen node-only features of one node into f[kNodeFeatures], in
-// learn/policy.py NODE_FEATURES order. q3_sat_pct and frag_pct sum over
-// every typical pod where the caller keeps them (the zero-frequency rows
-// count in the tree's windows): the frequency of those of frag class Q3;
-// the node's frag contributions (ops/frag.py node_frag_contrib) over
-// (typical pod, class), minus those of class Q3.
-__device__ void node_features(const ReplayArgs& a, const NodeView& v,
-                              int mem_cap, int* f) {
+// learn/policy.py NODE_FEATURES order, from its three typical-pod sums:
+// q3_sat (the frequency of the pods of frag class Q3), frag_all (the frag
+// contributions over (pod, class)) and frag_q3 (those of class Q3).
+__device__ void features_of(const NodeView& v, int mem_cap, float q3_sat,
+                            float frag_all, float frag_q3, int* f) {
   const int gsum = gpu_sum(v);
   const int cap = v.gcnt * kMilli;
   int gmax = v.g[0];
@@ -1036,45 +1129,8 @@ __device__ void node_features(const ReplayArgs& a, const NodeView& v,
   f[3] = pct_of(idle_count(v), v.gcnt);
   f[4] = pct_of(gmax, kMilli);
   const float total = static_cast<float>(gsum);
-  // per typical pod: its class on the node (ops/frag.py frag_class) and
-  // the free milli of the devices too small for it
-  auto cls_of = [&](int t, int* small) {
-    const int milli = a.tp_milli[t];
-    const int mask = a.tp_mask[t];
-    const bool cpu_ok = v.cpu >= a.tp_cpu[t];
-    *small = 0;
-    if (milli == 0) return cpu_ok ? 4 : 5;
-    if (!(mask == 0 || (mask & v.bit) != 0)) return 6;
-    int fit = 0;
-    int sm = 0;
-#pragma unroll
-    for (int d = 0; d < kDevs; ++d) {
-      fit += v.g[d] >= milli ? 1 : 0;
-      sm += v.g[d] < milli ? v.g[d] : 0;
-    }
-    *small = sm;
-    return fit >= a.tp_num[t] ? (cpu_ok ? kQ3 : 3) : (cpu_ok ? kQ2 : 0);
-  };
-  const float sat = tp_tree_sum(a.t, [&](float acc, int t) {
-    int sm;
-    return cls_of(t, &sm) == kQ3 ? __fadd_rn(acc, a.tp_freq[t]) : acc;
-  });
-  const float all = tp_tree_sum(a.t, [&](float acc, int t) {
-    int sm;
-    const float fr = a.tp_freq[t];
-    if (cls_of(t, &sm) != kQ3) return __fadd_rn(acc, __fmul_rn(fr, total));
-    const float s = static_cast<float>(sm);
-    acc = __fadd_rn(acc, __fmul_rn(fr, s));  // class Q2, then Q3
-    return __fadd_rn(acc, __fmul_rn(fr, __fsub_rn(total, s)));
-  });
-  const float q3 = tp_tree_sum(a.t, [&](float acc, int t) {
-    int sm;
-    if (cls_of(t, &sm) != kQ3) return acc;
-    return __fadd_rn(acc, __fmul_rn(a.tp_freq[t],
-                                    __fsub_rn(total, static_cast<float>(sm))));
-  });
-  f[5] = floor_pct(__fmul_rn(sat, 100.0f));
-  f[6] = floor_pct(__fdiv_rn(__fmul_rn(__fsub_rn(all, q3), 100.0f),
+  f[5] = floor_pct(__fmul_rn(q3_sat, 100.0f));
+  f[6] = floor_pct(__fdiv_rn(__fmul_rn(__fsub_rn(frag_all, frag_q3), 100.0f),
                              fmaxf(total, 1.0f)));
   const bool down = v.mem < 0;
   f[7] = down ? kMaxNodeScore : 0;
@@ -1087,18 +1143,47 @@ __device__ void node_features(const ReplayArgs& a, const NodeView& v,
     f[8 + b] = live && bucket == b ? kMaxNodeScore : 0;
 }
 
-// the node column's value on one node: sum over its features of theta x
-// feature, in wrapping int32 (`mem_cap` the node's memory capacity)
-__device__ __forceinline__ int learned_node_value(const ReplayArgs& a,
-                                                  const NodeView& v,
-                                                  int mem_cap) {
-  int f[kNodeFeatures];
-  node_features(a, v, mem_cap, f);
+// The eighteen node-only features of one node, its three sums added by
+// one thread (plan_sum, each pod's terms computed where a sum reads them:
+// the record forms, the forced form, learned_rows, init_tables_learned)
+__device__ void node_features(const ReplayArgs& a, const NodeView& v,
+                              int mem_cap, int* f) {
+  const float total = static_cast<float>(gpu_sum(v));
+  float slot[kPlanSlots];
+  float sums[3];
+#pragma unroll
+  for (int w = 0; w < 3; ++w) {
+    int last = -1;
+    float4 pt;
+    sums[w] = plan_sum(a, w, slot, [&](int t, int k) {
+      if (t != last) {
+        pt = pod_terms(a, v, total, t);
+        last = t;
+      }
+      const int c = term_index(w, k);
+      return c == 0 ? pt.x : c == 1 ? pt.y : c == 2 ? pt.z : pt.w;
+    });
+  }
+  features_of(v, mem_cap, sums[0], sums[1], sums[2], f);
+}
+
+// the node column's value from a node's features: sum over its features
+// of theta x feature, in wrapping int32
+__device__ __forceinline__ int theta_sum(const ReplayArgs& a, const int* f) {
   uint32_t sum = 0;
   for (int j = 0; j < a.ln_n; ++j)
     sum += static_cast<uint32_t>(a.ln_theta[j]) *
            static_cast<uint32_t>(f[a.ln_feat[j]]);
   return static_cast<int>(sum);
+}
+
+// the node column's value on one node (`mem_cap` its memory capacity)
+__device__ __forceinline__ int learned_node_value(const ReplayArgs& a,
+                                                  const NodeView& v,
+                                                  int mem_cap) {
+  int f[kNodeFeatures];
+  node_features(a, v, mem_cap, f);
+  return theta_sum(a, f);
 }
 
 // fit_dev_pct of type k on one node: its devices with max(milli, 1) free
@@ -1714,6 +1799,92 @@ __device__ __forceinline__ float whole_term(const Smem& m, int t, Devs g2,
                    static_cast<float>(q3 ? g2sum - sum : g2sum));
 }
 
+// ---------------------------------------------------------------------------
+// The learned node column's value, once a refresh
+// ---------------------------------------------------------------------------
+
+// What the kLearned instantiations keep in static shared memory (declared
+// here, so that the other instantiations have none): the node column's
+// value on the node the event changed, which the refresh's items copy,
+// every typical pod's terms there, and the three sums' stage lanes.
+struct LearnedShared {
+  int value;
+  float4 pods[kMaxTypical];
+  float lanes[3][kPlanSlots];
+};
+
+__device__ __forceinline__ LearnedShared& learned_shared() {
+  __shared__ LearnedShared ls;
+  return ls;
+}
+
+// whether the launch's configuration has the node column
+__device__ __forceinline__ bool has_node_column(const ReplayArgs& a) {
+  bool any = false;
+  for (int pi = 0; pi < a.n_pol; ++pi) any |= a.pol_column[pi] == kLearnedNode;
+  return any;
+}
+
+// Named barrier 1 between warp 0, which commits an event, and warp 1,
+// which then computes the node column's value on the node it changed:
+// warp 0 arrives once the node's state is final, warp 1 waits for it
+// (bar.arrive releases the state warp 0 wrote, bar.sync acquires it).
+constexpr int kLearnedBarrier = 1;
+
+__device__ __forceinline__ void learned_arrive() {
+  asm volatile("bar.arrive %0, %1;" ::"n"(kLearnedBarrier), "n"(64)
+               : "memory");
+}
+
+__device__ __forceinline__ void learned_wait() {
+  asm volatile("bar.sync %0, %1;" ::"n"(kLearnedBarrier), "n"(64)
+               : "memory");
+}
+
+// The node column's value on the node event i changed (es.node, once
+// warp 0's commit is final; nothing where the event changed none), by
+// warp 1 while warp 0 computes FGD's node terms: each lane the class and
+// terms of typical pods lane, lane + 32, ... (pod_terms, into ls.pods);
+// then lanes 0, 1 and 2 add q3_sat's, frag_pct's contributions' and its
+// Q3 amount's sums, side by side, each in its plan's order (plan_sum);
+// lane 0 forms the eighteen features and their theta sum into ls.value.
+// The refresh's node-column items copy it. `node_clk`: the clocked
+// build's kClkNode slot (null: none).
+__device__ __forceinline__ void learned_node_stage(const ReplayArgs& a,
+                                                   const EventState& es,
+                                                   int i, int lane,
+                                                   long long* node_clk) {
+  learned_wait();
+  const int node = es.dirty[(i + 1) & 1];
+  if (node < 0) return;
+  const long long t0 = clock_now();
+  LearnedShared& ls = learned_shared();
+  const NodeView& v = es.node;
+  const float total = static_cast<float>(gpu_sum(v));
+  for (int t = lane; t < a.t; t += 32) ls.pods[t] = pod_terms(a, v, total, t);
+  __syncwarp();
+  float mine = 0.0f;
+  if (lane < 3) {  // the same code on the three lanes: their components
+    const int c0 = term_index(lane, 0);
+    const int c1 = term_index(lane, 1);
+    const float* terms = reinterpret_cast<const float*>(ls.pods);
+    mine = plan_sum(a, lane, ls.lanes[lane], [&](int t, int k) {
+      return terms[4 * t + (k == 0 ? c0 : c1)];
+    });
+  }
+  const float sat = __shfl_sync(0xffffffffu, mine, 0);
+  const float all = __shfl_sync(0xffffffffu, mine, 1);
+  const float q3 = __shfl_sync(0xffffffffu, mine, 2);
+  if (lane == 0) {
+    int f[kNodeFeatures];
+    features_of(v, a.mem_cap[node], sat, all, q3, f);
+    ls.value = theta_sum(a, f);
+    if (kClocked && node_clk != nullptr)
+      atomicAdd(reinterpret_cast<unsigned long long*>(node_clk),
+                static_cast<unsigned long long>(clock_now() - t0));
+  }
+}
+
 // Refresh `node`'s column of every table with the whole block: each thread
 // takes work items (layout_items) in rounds of blockDim. FGD's share items
 // each sum one distinct device value's hypothetical frag (frag_sum), and
@@ -1725,7 +1896,8 @@ __device__ __forceinline__ float whole_term(const Smem& m, int t, Devs g2,
 // With kDraws (the randomized replay) a RandomScore item writes the Filter
 // bit and the device pick only: it has no table row. es holds the dirty
 // node and node_terms' results; `marks` are the clocked build's
-// checkpoints. kLearned adds the learned columns (policy_pair).
+// checkpoints. kLearned adds the learned columns: fit_dev_pct's through
+// policy_pair, and the node column's items copy learned_node_stage's value.
 template <bool kGeneral, bool kBlocked, bool kAllColumns = true,
           bool kDraws = false, bool kLearned = false>
 __device__ void refresh_column(const ReplayArgs& a, const Smem& m,
@@ -1832,8 +2004,17 @@ __device__ void refresh_column(const ReplayArgs& a, const Smem& m,
         dev = best >= 0 ? kDevs - 1 - (key & (kDevs - 1)) : -1;
       }
     } else if (active && !draw) {
-      const NodeView v = sv;
-      policy_pair<kAllColumns, kLearned>(a, v, pi, k, node, &score, &dev);
+      bool copied = false;
+      if constexpr (kLearned) {
+        if (a.pol_column[pi] == kLearnedNode) {
+          score = learned_shared().value;
+          copied = true;
+        }
+      }
+      if (!copied) {
+        const NodeView v = sv;
+        policy_pair<kAllColumns, kLearned>(a, v, pi, k, node, &score, &dev);
+      }
     }
     if (!primary) continue;
     if (!draw) a.score[col] = score;
@@ -2290,8 +2471,10 @@ __device__ void pop_ahead(const ReplayArgs& a, EventState& es,
 // computes that node's terms for the next event's refresh. In the fault
 // forms (`fs`) a fault step runs fault_step instead, a popped retry's
 // create is followed by commit_retry, and the next step's retry slot is
-// popped.
-template <bool kRandomized = false, bool kFaults = false>
+// popped. <kLearned>: once the node's state is final, warp 0 arrives at
+// the barrier warp 1 waits at for learned_node_stage.
+template <bool kRandomized = false, bool kFaults = false,
+          bool kLearned = false>
 __device__ void end_event(const ReplayArgs& a, const Smem& m, EventState& es,
                           int i, const EventFields& ev, int node, int gpu_sel,
                           bool fgd_terms, int n_pol, int lane,
@@ -2327,6 +2510,9 @@ __device__ void end_event(const ReplayArgs& a, const Smem& m, EventState& es,
       commit_retry(a, i, popped, node >= 0, f.pos, f.arg, lane);
     }
     pop_ahead(a, es, *fs, i + 1, lane);
+  }
+  if constexpr (kLearned) {
+    if (has_node_column(a)) learned_arrive();
   }
   if (fgd_terms && *next >= 0) node_terms<kRandomized>(a, m, es, n_pol, lane);
 }
@@ -3129,13 +3315,18 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
       if (warp == 0) {
         b = warp_best(lane < nwarps ? warp_res[lane] : no_candidate());
         const int node = __shfl_sync(0xffffffffu, b.node, 0);
-        end_event<kRandomized, kFaults>(a, m, es, i, ev,
-                                        node == INT_MAX ? -1 : node, gpu_sel,
-                                        fgd_terms, n_pol, lane, fs);
+        end_event<kRandomized, kFaults, kLearned>(
+            a, m, es, i, ev, node == INT_MAX ? -1 : node, gpu_sel, fgd_terms,
+            n_pol, lane, fs);
       }
     } else if (warp == 0) {
-      end_event<kRandomized, kFaults>(a, m, es, i, ev, -1, gpu_sel, fgd_terms,
-                                      n_pol, lane, fs);
+      end_event<kRandomized, kFaults, kLearned>(a, m, es, i, ev, -1, gpu_sel,
+                                                fgd_terms, n_pol, lane, fs);
+    }
+    if constexpr (kLearned) {
+      if (warp == 1 && has_node_column(a))
+        learned_node_stage(a, es, i, lane,
+                           kClocked ? s_clk + kClkNode : nullptr);
     }
     // the next event's keys, by a thread of the last warp while warp 0
     // commits: every event takes one step of the chain, whatever its kind
@@ -3512,16 +3703,21 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
       if (warp == 0) {
         b = warp_best(lane < nwarps ? warp_res[lane] : no_candidate());
         const int blk = __shfl_sync(0xffffffffu, b.node, 0);
-        end_event<false, kFaults>(a, m, es, i, ev,
-                                  blk == INT_MAX ? -1 : a.bn[row + blk],
-                                  gpu_sel, fgd_terms, n_pol, lane, fs);
+        end_event<false, kFaults, kLearned>(
+            a, m, es, i, ev, blk == INT_MAX ? -1 : a.bn[row + blk], gpu_sel,
+            fgd_terms, n_pol, lane, fs);
       }
     } else if (warp == 0) {
       // a pinned pod has one candidate: its Filter bit decides
       const bool ok = ev.kind == kCreate && ev.pin < a.n &&
                       a.feas[static_cast<size_t>(type) * a.n + ev.pin] != 0;
-      end_event<false, kFaults>(a, m, es, i, ev, ok ? ev.pin : -1, gpu_sel,
-                                fgd_terms, n_pol, lane, fs);
+      end_event<false, kFaults, kLearned>(a, m, es, i, ev, ok ? ev.pin : -1,
+                                          gpu_sel, fgd_terms, n_pol, lane, fs);
+    }
+    if constexpr (kLearned) {
+      if (warp == 1 && has_node_column(a))
+        learned_node_stage(a, es, i, lane,
+                           kClocked ? s_clk + kClkNode : nullptr);
     }
     pc.sync();
     pc.mark(kClkCommit);

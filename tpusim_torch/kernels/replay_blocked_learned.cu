@@ -1,8 +1,10 @@
 // The learned columns on the blocked replay: the kLearned instantiations of
 // replay_blocked_body (its plain, chunk and lanes forms), as
 // replay_learned.cu's of replay_body (see there), compiled apart and in
-// parallel. The clocked variant builds none of them (its launchers
-// refuse); only the staged forms are built.
+// parallel. The clocked variant builds none of them here: its
+// `replay_blocked_learned` launches the clocked form of
+// replay_learned_clocked.cu, and its lanes launcher refuses. Only the
+// staged forms are built.
 //
 // Interface: plain C, bound with ctypes; the launchers return the CUDA
 // error code of the launch and never synchronise.
@@ -34,11 +36,14 @@ extern "C" {
 // the learned record forms (replay_learned_records.cu)
 int replay_blocked_learned_record(const ReplayArgs* a, void* stream);
 
+#ifdef TPUSIM_PHASE_CLOCKS
+// the clocked form (replay_learned_clocked.cu)
+int replay_blocked_learned_clocked(const ReplayArgs* a, void* stream);
+#endif
+
 int replay_blocked_learned(const ReplayArgs* a, void* stream) {
 #ifdef TPUSIM_PHASE_CLOCKS
-  (void)a;
-  (void)stream;
-  return static_cast<int>(cudaErrorNotSupported);
+  return replay_blocked_learned_clocked(a, stream);
 #else
   if (!blocked_learned_operands(a))
     return static_cast<int>(cudaErrorInvalidValue);

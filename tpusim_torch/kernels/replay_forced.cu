@@ -146,8 +146,8 @@ __global__ void __launch_bounds__(kReplayThreads, 1)
           }
         }
         __syncwarp();
-        end_event<false, false>(a, m, es, i, ev, rec, gpu_sel, fgd_terms,
-                                n_pol, lane);
+        end_event<false, false, true>(a, m, es, i, ev, rec, gpu_sel,
+                                      fgd_terms, n_pol, lane);
       } else {
         if (lane == 0) {
           a.fr_pick[i] = -1;
@@ -157,9 +157,11 @@ __global__ void __launch_bounds__(kReplayThreads, 1)
           for (int j = 0; j < 3 * a.fam_n; ++j) feats[j] = -1;
           for (int j = 0; j < a.fam_n; ++j) pick_feats[j] = -1;
         }
-        end_event<false, false>(a, m, es, i, ev, -1, a.gpu_sel, fgd_terms,
-                                n_pol, lane);
+        end_event<false, false, true>(a, m, es, i, ev, -1, a.gpu_sel,
+                                      fgd_terms, n_pol, lane);
       }
+    } else if (warp == 1 && has_node_column(a)) {
+      learned_node_stage(a, es, i, lane, nullptr);
     }
     __syncthreads();
   }

@@ -15,8 +15,10 @@
 //
 // The instantiations are compiled here, apart from replay.cu and in
 // parallel with it, so the others are the code they were: every branch on
-// kLearned is `if constexpr`. The clocked variant builds none of them (its
-// launchers refuse). Only the staged forms (kernels.MAX_TYPES and
+// kLearned is `if constexpr`. The clocked variant builds none of them here:
+// its `replay_learned` launches the clocked form of
+// replay_learned_clocked.cu, and its other launchers refuse. Only the
+// staged forms (kernels.MAX_TYPES and
 // MAX_TYPICAL) are built; a learned configuration past them is refused.
 //
 // Interface: plain C, bound with ctypes; the launchers return the CUDA
@@ -91,11 +93,14 @@ int init_tables_learned(const ReplayArgs* a, void* stream) {
 #endif
 }
 
+#ifdef TPUSIM_PHASE_CLOCKS
+// the clocked forms (replay_learned_clocked.cu)
+int replay_learned_clocked(const ReplayArgs* a, void* stream);
+#endif
+
 int replay_learned(const ReplayArgs* a, void* stream) {
 #ifdef TPUSIM_PHASE_CLOCKS
-  (void)a;
-  (void)stream;
-  return static_cast<int>(cudaErrorNotSupported);
+  return replay_learned_clocked(a, stream);
 #else
   if (!learned_operands(a)) return static_cast<int>(cudaErrorInvalidValue);
   if (a->ctr != nullptr) return replay_learned_record(a, stream);

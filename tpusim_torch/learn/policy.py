@@ -18,14 +18,13 @@ fold them into one column (sim/fused_engine.py `fold`).
 
 Float order. `q3_sat_pct` sums the typical pods' frequencies over those of
 frag class Q3, and `frag_pct` the node's frag contributions (ops/frag.py
-node_frag_contrib) over (typical pod, class) minus those of class Q3, each
-in XLA's tree order (ops/frag.py tree_sum: windows of 32 typical pods,
-padded evenly, each window added in order, then the windows), the order
-of tpusim's compiled code for the padded typical-pod counts of the openb
-traces; the CUDA kernel (kernels/replay.cu node_features) adds in the same
-order. Where XLA vectorises a sum instead (some counts of at most 32 or a
-multiple of 32 typical pods) a float32 sum can differ in its last bit,
-which flips a feature only where it lands on an integer percent.
+node_frag_contrib) over (typical pod, class) minus those of class Q3.
+Each of the three float32 sums follows the order of tpusim's compiled
+feature kernels at the count T of typical pods, `feature_plans(T)`: a
+float32 sum's last bit flips a feature where it lands on an integer
+percent. The CUDA kernels (kernels/replay.cu node_features and the
+refresh's learned_node_stage) read the same plans, packed into ReplayArgs
+(`plan_words`).
 
 The artifact: a trained parameter vector persists as a digest-signed JSON
 document (io.storage.write_signed_json) naming the features it was trained
@@ -35,6 +34,7 @@ over; its bytes are tpusim's, so either package loads what the other wrote.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -42,10 +42,17 @@ from tpusim_torch.constants import (
     MAX_GPUS_PER_NODE,
     MAX_NODE_SCORE,
     MILLI,
+    NUM_FRAG_CLASSES,
     Q3_SATISFIED,
 )
+from tpusim_torch.kernels import PLAN_SLOTS, PLAN_STAGES
 from tpusim_torch.obs.series import UTIL_BUCKETS
-from tpusim_torch.ops.frag import frag_class, node_frag_contrib, tree_sum
+from tpusim_torch.ops.frag import (
+    SumPlan,
+    frag_class,
+    node_frag_contrib,
+    plan_sum,
+)
 from tpusim_torch.policies.base import column_scorer
 from tpusim_torch.policies.fgd import fgd_column
 from tpusim_torch.types import NodeState, PodSpec, TypicalPods
@@ -92,21 +99,122 @@ def _floor_pct(x: torch.Tensor) -> torch.Tensor:
     return torch.floor(x).clamp(0, MAX_NODE_SCORE).to(torch.int32)
 
 
+def sat_stages(t: int):
+    """The vector loops of `q3_sat_pct`'s sum over t <= 32 typical pods
+    (the class Q3 pods' frequencies, fused into the loop that classifies
+    them; ops/frag.py vector_sum): each pod in turn up to 2; 8 lanes over
+    the first 8 (masked past t) up to 8, over the first 16 up to 19; 4
+    lanes over the first 20 up to 23; 8 lanes over the first 24 up to 31,
+    over all 32 at 32. The pods past them are added one by one."""
+    if t <= 2:
+        return ()
+    if t <= 8:
+        return ((8, 1, 8),)
+    if t <= 19:
+        return ((8, 1, 16),)
+    if t <= 23:
+        return ((4, 1, 20),)
+    if t <= 31:
+        return ((8, 1, 24),)
+    return ((8, 1, 32),)
+
+
+def q3_stages(t: int):
+    """The vector loops of `frag_pct`'s Q3 amount over t <= 32 typical pods
+    (the class Q3 column of the node's contributions, read with a stride
+    of 7): each pod in turn up to 15; 8 lanes over the first 8 at 16, over
+    the first 16 from 17 to 19 and at 24; 4 lanes over the first 16 at 20,
+    then 4 lanes over the next 4 at 21 and 22, 2 lanes over the next 6 at
+    23; 8 lanes over the first 24 from 25 to 32. The pods past them are
+    added one by one."""
+    if t <= 15:
+        return ()
+    if t == 16:
+        return ((8, 1, 8),)
+    if t <= 19 or t == 24:
+        return ((8, 1, 16),)
+    if t == 20:
+        return ((4, 1, 16),)
+    if t <= 22:
+        return ((4, 1, 16), (4, 1, 4))
+    if t == 23:
+        return ((4, 1, 16), (2, 1, 6))
+    return ((8, 1, 24),)
+
+
+class FeaturePlans(NamedTuple):
+    """The orders of the learned features' three float32 sums
+    (ops/frag.py SumPlan): q3_sat_pct's (`sat`), frag_pct's contributions
+    over (typical pod, class) (`all`, 7 terms a pod) and its Q3 amount
+    (`q3`)."""
+
+    sat: SumPlan
+    all: SumPlan
+    q3: SumPlan
+
+
+def feature_plans(t: int) -> FeaturePlans:
+    """The orders in which tpusim's compiled feature kernels
+    (tpusim/learn/policy.py `_q3_sat_pct`, `_frag_pct` under the vmap over
+    nodes that feature_policy builds; XLA's CPU build) add their sums over
+    t typical pods. Read from the kernels' optimised LLVM IR and confirmed
+    pair by pair (two terms of +-2^40 among ones: the sum loses the ones
+    added under the pair's common ancestor, which names the tree) at t =
+    1-32, 48, 64, 80, 96 and 128, where the trees are the same over 1 node
+    and 600, and in tpusim's table engine's build and refresh. Up to 32
+    pods a sum is one loop: `sat_stages`, `q3_stages`, and the (pod, class)
+    terms in order for `all`. Past 32, XLA's tree reduction: windows of 32
+    pods padded evenly (ops/frag.py tree_sum), each added in order, but
+    where t is a multiple of 32 `all`'s windows are added by 4 lanes over
+    their pods, each pod's 7 terms in turn."""
+    if t <= 32:
+        return FeaturePlans(SumPlan(1, t, 0, sat_stages(t)),
+                            SumPlan(NUM_FRAG_CLASSES, t, 0, ()),
+                            SumPlan(1, t, 0, q3_stages(t)))
+    pad = -t % 32
+    lanes = ((4, 1, 32),) if pad == 0 else ()
+    return FeaturePlans(SumPlan(1, 32, pad // 2, ()),
+                        SumPlan(NUM_FRAG_CLASSES, 32, pad // 2, lanes),
+                        SumPlan(1, 32, pad // 2, ()))
+
+
+def plan_words(t: int) -> list:
+    """feature_plans(t) as the kernels read them (ReplayArgs.ln_plan): the
+    sat, all and q3 plans' kernels.PLAN_WORDS words each: per_pod, window,
+    lead, the stage count, then (vf, uf, m) of each of PLAN_STAGES
+    stages (at most PLAN_SLOTS lanes, a power of 2, a stage)."""
+    words = []
+    for plan in feature_plans(t):
+        stages = list(plan.stages)
+        lanes = [vf * uf for vf, uf, _ in stages]
+        if len(stages) > PLAN_STAGES or any(
+                n > PLAN_SLOTS or n & (n - 1) for n in lanes):
+            raise ValueError(f"the kernels take no plan {plan}")
+        words += [plan.per_pod, plan.window, plan.lead, len(stages)]
+        for vf, uf, m in stages + [(1, 1, 0)] * (PLAN_STAGES - len(stages)):
+            words += [vf, uf, m]
+    return words
+
+
 def q3_sat(nodes: NodeState, tp: TypicalPods) -> torch.Tensor:
     """float32 [B]: the frequency of the typical pods of class Q3 on each
-    node, summed in XLA's tree order (ops/frag.py tree_sum)."""
+    node, summed in tpusim's order (feature_plans' `sat`)."""
     cls = frag_class(nodes.cpu_left, nodes.gpu_left, nodes.gpu_type, tp)
-    return tree_sum(torch.where(cls == Q3_SATISFIED, tp.freq, 0.0).T, 1)
+    return plan_sum(torch.where(cls == Q3_SATISFIED, tp.freq, 0.0).T,
+                    feature_plans(tp.size).sat)
 
 
 def frag_score(nodes: NodeState, tp: TypicalPods) -> torch.Tensor:
     """float32 [B]: each node's frag score, its frag amounts over every class
     but Q3, as XLA computes tpusim's node_frag_score: the contributions
-    summed over (typical pod, class) in one tree sum, minus Q3's amount
-    summed over the typical pods in another."""
+    summed over (typical pod, class) in one sum, minus Q3's amount summed
+    over the typical pods in another (feature_plans' `all` and `q3`)."""
     contrib = node_frag_contrib(nodes.cpu_left, nodes.gpu_left,
-                                nodes.gpu_type, tp).permute(1, 2, 0)
-    return tree_sum(contrib, 2) - tree_sum(contrib[:, Q3_SATISFIED], 1)
+                                nodes.gpu_type, tp)
+    plans = feature_plans(tp.size)
+    terms = contrib.permute(1, 2, 0).reshape(-1, contrib.shape[0])
+    return (plan_sum(terms, plans.all)
+            - plan_sum(contrib[:, :, Q3_SATISFIED].T, plans.q3))
 
 
 def node_features(nodes: NodeState, tp: TypicalPods,

@@ -11,10 +11,14 @@ CPU build sums in XLA's tree order (`tree_sum`): `node_frag_rows` and
 on the host, whatever device the state lives on. Where no reduced axis is
 longer than 32, XLA keeps a reduction whole and LLVM vectorises its loop;
 `vector_sum` follows such a loop, `row_stages`, `pod_stages` and
-`node_stages` say which loops the report's sums become.
+`node_stages` say which loops the report's sums become, and a `SumPlan`
+(`plan_sum`) names a sum's windows and loops whole (the learned features',
+learn/policy.py `feature_plans`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -234,6 +238,40 @@ def node_stages(n: int, t: int):
                    or (t in (7, 8) and 28 <= n <= 31)) else 8
         return "nodes", [(vf, 1, n // vf * vf)]
     return "pods", pod_stages(n, t)
+
+
+class SumPlan(NamedTuple):
+    """The order of a float32 sum over the terms of T typical pods,
+    `per_pod` terms a pod: the pods cut into windows of `window` (`lead`
+    zero pods in front of the first, zero pods after the last to fill it),
+    each window's pods added by the vector loops `stages` (`vector_sum`'s
+    (vf, uf, m) over pods, at most two; the pods past them one by one), a
+    pod's terms in turn into its lane, then the window sums in `tree_sum`'s
+    order. A zero term changes no sum of terms >= 0, wherever it stands."""
+
+    per_pod: int
+    window: int
+    lead: int
+    stages: Tuple[Tuple[int, int, int], ...]
+
+
+def plan_sum(x: torch.Tensor, plan: SumPlan) -> torch.Tensor:
+    """float32 sum over dim 0 of x [T * plan.per_pod, ...] (pod-major) in
+    `plan`'s order, on x's device."""
+    e, rest = plan.per_pod, tuple(x.shape[1:])
+    x = x.to(torch.float32).reshape((-1, e) + rest)
+    t = x.shape[0]
+    if plan.lead > 0 or plan.window < t:
+        tail = -(t + plan.lead) % plan.window
+        x = torch.cat([x.new_zeros((plan.lead, e) + rest), x,
+                       x.new_zeros((tail, e) + rest)])
+    windows = x.reshape((-1, plan.window, e) + rest)
+    if e == 1:
+        windows = windows.squeeze(2)
+    sums = [vector_sum(w, plan.stages, rows=e > 1) for w in windows]
+    if len(sums) == 1:
+        return sums[0]
+    return tree_sum(torch.stack(sums), 1)
 
 
 def initial_rows(contrib: torch.Tensor) -> torch.Tensor:

@@ -754,6 +754,11 @@ def _args(state, types_k, ks, tp, tables, cfg: ReplayConfig, **extra):
     args.fam_n = len(cfg.fam_src)
     for j, src in enumerate(cfg.fam_src):
         args.fam_src[j] = src
+    if cfg.family:  # the learned features' sum orders at this T
+        from tpusim_torch.learn.policy import plan_words
+
+        for j, w in enumerate(plan_words(tp.size)):
+            args.ln_plan[j] = w
     for name, v in extra.items():
         if name == "key":
             if v is not None:
