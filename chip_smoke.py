@@ -1672,18 +1672,25 @@ def clock_line(where: str, name: str, label: str, variant: str, e: int,
     rate = (clk["loop"] + clk["init"]) / (ms * 1e3)  # cycles a microsecond
     split = {ph: clk[ph] / rate / e for ph in
              ("refresh", "work", "setup", "sum", "node", "block", "drift",
-              "extrema", "select", "commit", "wait")}
+              "extrema", "select", "rows", "arow", "pick", "commit", "pop",
+              "fault", "wait")}
+    slots = clk["inert"] + clk["pops"]
     out = dict(where=where, kernel=name, row=label, variant=variant, events=e,
                ms=ms, mhz=rate, us_per_event=split,
                init_us=clk["init"] / rate, refreshes=clk["refreshes"],
                items=clk["items"] / max(clk["refreshes"], 1),
-               rescans=clk["rescans"])
+               rescans=clk["rescans"], inert=clk["inert"], pops=clk["pops"],
+               pop_us=clk["pop"] / rate / max(slots, 1),
+               inert_steps_ms=clk["islot"] / rate / 1e3)
     print(f"clocks {where} {name} {label} [{variant}]: {ms:.3f} ms, "
           f"{ms / e * 1e3:.3f} us an event at {rate:.0f} MHz; us an event: "
           + ", ".join(f"{ph} {v:.3f}" for ph, v in split.items())
           + f" (wait is inside the others); init {out['init_us']:.1f} us; "
           f"{clk['refreshes']} refreshes ({out['items']:.0f} lanes each), "
-          f"{clk['rescans']} rescans")
+          f"{clk['rescans']} rescans; retry slots: {clk['inert']} inert, "
+          f"{clk['pops']} popped, {out['pop_us']:.3f} us a slot in "
+          f"pop_ahead, {out['inert_steps_ms']:.3f} ms in the inert slots "
+          "the loop ran as steps")
     return out
 
 
@@ -1772,6 +1779,66 @@ def learn_clocks(device, card: str, inputs, families=("linear",)):
                                        f"the {fam} family")
                 out.append(clock_line("openb", name, fam, variant, e, ms,
                                       clk))
+    return out
+
+
+def forced_clocks(device, card: str, nodes, pods):
+    """The phase split of replay_forced through the clocked variant
+    (replay_forced_clocked.cu) on the learn phase's teacher log
+    (teacher_replay) at LEARN_THETA: refresh, select, the feature rows
+    (the recorded top-3's, `rows`; the argmax's, `arow`), the selector's
+    pick, commit and warp 1's node stage. The clocked run's outputs must
+    equal the main build's."""
+    import tempfile
+
+    from tpusim_torch.sim import fused_engine as fe
+
+    with tempfile.TemporaryDirectory(prefix="tpusim_forced_") as root:
+        replay = teacher_replay(device, nodes, pods, root)[0]
+    prep = forced_launch(replay)[0]
+    base = prep()
+    fe.launch(base)  # the main build, past the wrapper: not counted
+    want = to_cpu(base.finish())
+    out = []
+    for variant in CLOCK_VARIANTS:
+        clocked_run(prep(), variant, device)  # loads the module
+        ready = prep()
+        ms, clk = clocked_run(ready, variant, device)
+        if max_abs_err(to_cpu(ready.finish()), want):
+            raise SmokeFailure(f"the {variant} build of replay_forced "
+                               "differs from the main build")
+        out.append(clock_line("openb", "replay_forced",
+                              f"teacher log ({replay.gpu_sel})", variant,
+                              int(replay._t["ev_kind"].shape[0]), ms, clk))
+    return out
+
+
+def fault_clocks(device, card: str, inputs):
+    """The phase split of replay_faults and replay_blocked_faults through
+    the clocked variant over the openb 06-FGD lane stream (FAULT_FLAGS'
+    merged stream): with the cycles thread 0 spends in pop_ahead and the
+    counts of inert and popping retry slots. Each clocked run's outputs
+    must equal the main build's."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    plan = openb_fault_plan(inputs)
+    cfg = fe.make_config(*dict((r[0], r) for r in METHODS)["06-FGD"][1:5])
+    out = []
+    for name in ("replay_faults", "replay_blocked_faults"):
+        prep, args = fault_args(name, fault_case(name, inputs, cfg), cfg,
+                                plan)
+        base = prep(*args)
+        fe.launch(base)  # the main build, past the wrapper: not counted
+        want = float_bits(to_cpu(base.finish()))
+        for variant in CLOCK_VARIANTS:
+            clocked_run(prep(*args), variant, device)  # loads the module
+            ready = prep(*args)
+            ms, clk = clocked_run(ready, variant, device)
+            if max_abs_err(float_bits(to_cpu(ready.finish())), want):
+                raise SmokeFailure(f"the {variant} build of {name} differs "
+                                   "from the main build on the openb lane")
+            out.append(clock_line("openb lane", name, "06-FGD", variant,
+                                  int(plan.kind.shape[0]), ms, clk))
     return out
 
 
@@ -3716,6 +3783,55 @@ FAULT_SOURCES = {
 }
 
 
+def openb_fault_plan(inputs):
+    """FAULT_FLAGS' merged stream over the prepared openb trace of
+    openb_inputs' `inputs` (the host plan compile)."""
+    from tpusim_torch.sim import fault_lane as fl
+    from tpusim_torch.sim.faults import FaultConfig, generate_fault_schedule
+
+    state, specs, _, evk, evp = inputs[:5]
+    n, p = state.num_nodes, int(specs.cpu.shape[0])
+    fcfg = FaultConfig(**FAULT_FLAGS)
+    return fl.compile_fault_plan(evk.cpu().numpy(), evp.cpu().numpy(),
+                                 generate_fault_schedule(n, evk.shape[0],
+                                                         fcfg), fcfg, n, p)
+
+
+def fault_case(name: str, inputs, cfg):
+    """The case fault form `name` runs on from openb_inputs' `inputs`:
+    (state, pods, types, typical pods, rank, tables), the nodes and rank
+    padded to the blocks for the blocked form, the tables init_tables'
+    under `cfg` (past the wrapper: not counted)."""
+    from tpusim_torch.parallel.sharding import pad_nodes
+
+    state, specs, types, _, _, tp, rank = inputs
+    st, rk = (pad_nodes(state, rank, 128) if "blocked" in name
+              else (state, rank))
+    return st, specs, types, tp, rk, lane_tables(st, types, tp, cfg)
+
+
+def fault_args(name: str, case, cfg, plan):
+    """(the prepare function of fault form `name`, its arguments on `case`
+    (fault_case's) over `plan`'s merged stream: state, pods, types, kinds,
+    idx, typical pods, rank, tables, cfg and, last, the lane's fault
+    operands)."""
+    import torch
+
+    from tpusim_torch.sim import fault_lane as fl
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+
+    state, pods, types, tp, rank, tables = case
+    dev = state.cpu_left.device
+    prep = he.prepare_replay_blocked_faults if "blocked" in name \
+        else fe.prepare_replay_faults
+    lane = fl.lane_of(plan, state, int(pods.cpu.shape[0]))
+    return prep, (state, pods, types,
+                  torch.as_tensor(plan.kind, device=dev),
+                  torch.as_tensor(plan.idx, device=dev), tp, rank, tables,
+                  cfg, lane)
+
+
 def cut_plan(plan, steps: int):
     """The first `steps` steps of a plan's merged stream, as a plan."""
     from tpusim_torch.sim.engine import EV_NODE_RECOVER
@@ -3772,24 +3888,16 @@ def fault_against_plain(name: str, case, cfg, plan, key=CHECK_KEY,
     tables and, blocked, summaries and stats. Returns (error, kernel ms
     (median of `repeats`, state restored), plain ms, the launch's
     result, (the plain result, what the plain version kept))."""
-    import torch
-
-    from tpusim_torch.sim import fault_lane as fl
     from tpusim_torch.sim import fused_engine as fe
     from tpusim_torch.sim import hbm_engine as he
     from tpusim_torch.sim.residency import num_normalized
 
-    state, pods, types, tp, rank, tables = case
-    dev = state.cpu_left.device
+    state, tables = case[0], case[5]
     blocked = name == "replay_blocked_faults"
-    lane = fl.lane_of(plan, state, int(pods.cpu.shape[0]))
-    kinds = torch.as_tensor(plan.kind, device=dev)
-    idx = torch.as_tensor(plan.idx, device=dev)
-    prep = he.prepare_replay_blocked_faults if blocked \
-        else fe.prepare_replay_faults
+    prep, args = fault_args(name, case, cfg, plan)
+    lane = args[-1]
     plain = he.plain_replay_blocked if blocked else fe.plain_replay
     kw = {} if blocked else dict(key=key)
-    args = (state, pods, types, kinds, idx, tp, rank, tables, cfg, lane)
     ready = prep(*args, **kw)
     fe.launch(ready)
     got, keep = ready.finish(), {}
@@ -3881,39 +3989,46 @@ def fault_lanes_against_plain(name: str, case, cfg, lanes, wants=None,
 
 def fault_chain(name, case, cfg, plan, got, step_ms: float):
     """(bound ms, what bounds it) of a fault form's run `got` over `plan`:
-    the merged stream's serial chain, each step at least `step_ms` (this
-    run's all-skip replay per event) plus its bytes, as chain_ms and
-    chain_blocked_ms count them, with the creates the retry slots ran,
-    and beside them each retry slot's scan of the queue (its ready, seq,
-    pod and era) and each fault step's two passes over the pods'
-    placements."""
-    import torch
-
+    the merged stream's serial chain, each step the form has to run at
+    least `step_ms` (this run's all-skip replay per event) plus its bytes,
+    as chain_ms and chain_blocked_ms count them, with the creates the
+    retry slots popped; beside them each popping slot's scan of the queue
+    (its ready, seq, pod and era) and each fault step's two passes over
+    the pods' placements. A slot that pops nothing (inert) needs no step
+    and no scan, only its outputs' bytes (the queue's summary shows it has
+    nothing due), except where the form must take a step a slot: the
+    randomized forms (each slot advances the key chain) and the blocked
+    forms with normalised policies (each step checks drift)."""
     from tpusim_torch.sim.engine import EV_CREATE, EV_RETRY, EV_SKIP
     from tpusim_torch.sim.residency import num_normalized
 
     state, pods, types, tp, rank, tables = case
     result, fout = (got[0], got[-1])
-    ys = fout.ys
-    rpod = ys.rpod.cpu().numpy()
+    rpod = fout.ys.rpod.cpu().numpy()
+    blocked = name == "replay_blocked_faults"
+    nn = num_normalized(cfg.policies)
+    retry = plan.kind == EV_RETRY
+    pops = retry & (rpod >= 0)
+    inert = retry & (rpod < 0)
     kinds = plan.kind.copy()
-    kinds[(kinds == EV_RETRY) & (rpod >= 0)] = EV_CREATE
+    kinds[pops] = EV_CREATE
     kinds[kinds > EV_SKIP] = EV_SKIP
+    every_slot = cfg.randomized or (blocked and nn > 0)
+    run = np.ones_like(inert) if every_slot else ~inert
     n, k, p = state.num_nodes, types.num_types, int(pods.cpu.shape[0])
     refreshes = refreshes_of(result.event_node.cpu().numpy())
     n_pol = cfg.num_tables
-    if name == "replay_blocked_faults":
+    if blocked:
         pinned = pods.pinned.cpu().numpy()
         idx = np.where(rpod >= 0, rpod, plan.idx)
         unpinned = int(((kinds == EV_CREATE) & (pinned[idx] < 0)).sum())
-        chain = chain_blocked_ms(step_ms, kinds, unpinned, n, k, refreshes,
-                                 n_pol, num_normalized(cfg.policies),
-                                 int(got[1][2]))
+        chain = chain_blocked_ms(step_ms, kinds[run], unpinned, n, k,
+                                 refreshes, n_pol, nn, int(got[1][2]))
     else:
-        chain = chain_ms(step_ms, kinds, n, k, refreshes, n_pol)
-    slots = int((plan.kind == EV_RETRY).sum())
-    faults = int((plan.kind > EV_SKIP).sum()) - slots
-    extra = slots * 4 * 4 * plan.capacity + faults * 2 * 4 * p
+        chain = chain_ms(step_ms, kinds[run], n, k, refreshes, n_pol)
+    faults = int((plan.kind > EV_SKIP).sum()) - int(retry.sum())
+    extra = (int(pops.sum()) * 4 * 4 * plan.capacity
+             + int((inert & ~run).sum()) * 2 * 4 + faults * 2 * 4 * p)
     return chain + extra / PEAK_BYTES_PER_S * 1e3, "operations"
 
 
@@ -3996,24 +4111,19 @@ def lane_kernel_checks(device, card: str):
             raise SmokeFailure(f"{name} disagrees with its plain version on "
                                f"{label}")
 
-    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
-    n, p = state.num_nodes, int(specs.cpu.shape[0])
-    fcfg = FaultConfig(**FAULT_FLAGS)
+    inputs = openb_inputs(device)
+    specs, types = inputs[1:3]
+    p = int(specs.cpu.shape[0])
     t0 = time.perf_counter()
-    plan = fl.compile_fault_plan(evk.cpu().numpy(), evp.cpu().numpy(),
-                                 generate_fault_schedule(n, evk.shape[0],
-                                                         fcfg),
-                                 fcfg, n, p)
+    plan = openb_fault_plan(inputs)
     plan_ms = (time.perf_counter() - t0) * 1e3
     cut = cut_plan(plan, LANE_PREFIX)
     cfg = fe.make_config(*rows["06-FGD"][1:5])
     for name, lanes_name in (("replay_faults", "replay_lanes_faults"),
                              ("replay_blocked_faults",
                               "replay_blocked_lanes_faults")):
-        st, rk = (pad_nodes(state, rank, 128)
-                  if name == "replay_blocked_faults" else (state, rank))
-        tables = lane_tables(st, types, tp, cfg)
-        case = (st, specs, types, tp, rk, tables)
+        case = fault_case(name, inputs, cfg)
+        st, _, _, tp, rk, tables = case
         err, ms, plain_ms, got, _ = fault_against_plain(name, case, cfg,
                                                         cut)
         bound = fault_chain(name, case, cfg, cut, got,
@@ -4303,28 +4413,26 @@ def chaos_runs(device, card: str):
 
 def lane_full_ms(device, plan) -> dict:
     """The fault forms' kernel ms (CUDA events, median of 3, state restored)
-    over the whole openb merged stream of `plan` under 06-FGD."""
-    import torch
-
-    from tpusim_torch.parallel.sharding import pad_nodes
-    from tpusim_torch.sim import fault_lane as fl
+    over the whole openb merged stream of `plan` under 06-FGD, each with
+    the merged chain's bound of the whole lane (fault_chain): {name: (ms,
+    bound ms)}."""
     from tpusim_torch.sim import fused_engine as fe
-    from tpusim_torch.sim import hbm_engine as he
 
-    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
+    inputs = openb_inputs(device)
     cfg = fe.make_config(*dict((r[0], r) for r in METHODS)["06-FGD"][1:5])
-    kinds = torch.as_tensor(plan.kind, device=device)
-    idx = torch.as_tensor(plan.idx, device=device)
     out = {}
     for name in ("replay_faults", "replay_blocked_faults"):
-        st, rk = (pad_nodes(state, rank, 128)
-                  if name == "replay_blocked_faults" else (state, rank))
-        tables = lane_tables(st, types, tp, cfg)
-        lane = fl.lane_of(plan, st, int(specs.cpu.shape[0]))
-        prep = he.prepare_replay_blocked_faults \
-            if name == "replay_blocked_faults" else fe.prepare_replay_faults
-        ready = prep(st, specs, types, kinds, idx, tp, rk, tables, cfg, lane)
-        out[name] = kernel_ms(ready, 3, fault_reset(ready, st, tables, lane))
+        case = fault_case(name, inputs, cfg)
+        prep, args = fault_args(name, case, cfg, plan)
+        ready = prep(*args)
+        ms = kernel_ms(ready, 3, fault_reset(ready, case[0], case[5],
+                                             args[-1]))
+        # the all-skip step over as many steps, so that the launch's own
+        # set-up (the blocked form's summaries) counts once
+        bound = fault_chain(name, case, cfg, plan, ready.finish(),
+                            skip_step_ms(name, case, cfg,
+                                         int(plan.kind.shape[0])))[0]
+        out[name] = (ms, bound)
     return out
 
 
@@ -4336,14 +4444,16 @@ def lane_path(device, card: str):
     print(f"lane openb merged stream ({plan.kind.shape[0]} steps, by kind "
           f"{np.bincount(plan.kind, minlength=7).tolist()}, draw table "
           f"{plan.draws.shape}): host plan compile {plan_ms:.1f} ms; "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in full.items())
+          + ", ".join(f"{k} {v[0]:.3f} ms (bound: the whole lane's merged "
+                      f"chain {v[1]:.3f} ms)" for k, v in full.items())
           + f" (CUDA events) on {card}", flush=True)
     launches, times = lane_runs(device, card)
     counts, chaos = chaos_runs(device, card)
     launches.update(counts)
     times.update(chaos)
-    for name, ms in full.items():
+    for name, (ms, bound) in full.items():
         rows[name]["openb_ms"] = ms
+        rows[name]["openb_bound_ms"] = bound
     rows["replay_faults"]["plan_ms"] = plan_ms
     rows["replay_faults"]["runs"] = times
     os.makedirs("chiprun_out", exist_ok=True)
@@ -6325,20 +6435,17 @@ def learn_faults(device, card: str, nodes, pods) -> dict:
     read."""
     import torch
 
-    from tpusim_torch.parallel.sharding import pad_nodes
     from tpusim_torch.sim import fault_lane as fl
     from tpusim_torch.sim import fused_engine as fe
     from tpusim_torch.sim import hbm_engine as he
     from tpusim_torch.sim.driver import Simulator
-    from tpusim_torch.sim.faults import FaultConfig, generate_fault_schedule
+    from tpusim_torch.sim.faults import FaultConfig
 
-    state, specs, types, evk, evp, tp, rank = openb_inputs(device)
-    n, p = state.num_nodes, int(specs.cpu.shape[0])
+    inputs = openb_inputs(device)
+    state, specs, types, _, _, tp, _ = inputs
+    p = int(specs.cpu.shape[0])
     fcfg = FaultConfig(**FAULT_FLAGS)
-    plan = fl.compile_fault_plan(evk.cpu().numpy(), evp.cpu().numpy(),
-                                 generate_fault_schedule(n, evk.shape[0],
-                                                         fcfg), fcfg, n, p)
-    cut = cut_plan(plan, LEARN_FAULT_STEPS)
+    cut = cut_plan(openb_fault_plan(inputs), LEARN_FAULT_STEPS)
     pol = learn_families()["linear"]
     cfg = fe.make_config(pol, "best")
     ops = learned_ops(cfg, state, types, tp).mean()
@@ -6348,9 +6455,8 @@ def learn_faults(device, card: str, nodes, pods) -> dict:
                              ("replay_blocked_faults",
                               "replay_blocked_lanes_faults")):
         blocked = "blocked" in name
-        st, rk = pad_nodes(state, rank, 128) if blocked else (state, rank)
-        tables = lane_tables(st, types, tp, cfg)
-        case = (st, specs, types, tp, rk, tables)
+        case = fault_case(name, inputs, cfg)
+        st, _, _, _, rk, tables = case
         err, ms, plain_ms, got, first = fault_against_plain(name, case, cfg,
                                                             cut)
         bound = throughput_bound(st.num_nodes, types.num_types, tp.size, p,
@@ -6495,23 +6601,13 @@ def learn_tune(device, card: str, root: str) -> dict:
                 gen_host_ms=host_ms, executables=backend.executables())
 
 
-def learn_imitate(device, card: str, root: str, nodes, pods) -> dict:
+def teacher_replay(device, nodes, pods, root: str):
     """The openb acceptance prefix's FGD teacher recorded on the card (its
-    decision file against tpusim's, TEACHER_SHA256), imitated through
-    TeacherReplay on `replay_forced` (the theta and held-out agreement
-    against tpusim's), and replay_forced against its plain version (the
-    oracle's step functions, CPU copies) on the first FORCED_PREFIX
-    events."""
-    import torch
-
-    from tpusim_torch.learn import (
-        ImitateConfig,
-        TeacherReplay,
-        imitate_with_mining,
-        load_teacher_log,
-    )
+    decision file, written under `root`, against tpusim's,
+    TEACHER_SHA256) and TeacherReplay over it: (the replay, the file's
+    rows)."""
+    from tpusim_torch.learn import TeacherReplay, load_teacher_log
     from tpusim_torch.obs import decisions as obs_decisions
-    from tpusim_torch.sim import fused_engine as fe
     from tpusim_torch.sim.driver import Simulator, SimulatorConfig
 
     prefix = list(pods[:LEARN_PODS])
@@ -6530,8 +6626,42 @@ def learn_imitate(device, card: str, root: str, nodes, pods) -> dict:
         raise SmokeFailure(f"imitate: teacher decision file sha256 {sha} "
                            "differs from tpusim's")
     header, rows = load_teacher_log(path)
-    replay = TeacherReplay(nodes, sim.prepare_pods(), header, rows,
-                           device=device)
+    return TeacherReplay(nodes, sim.prepare_pods(), header, rows,
+                         device=device), rows
+
+
+def forced_launch(replay, theta=LEARN_THETA, events=None):
+    """(a function that prepares replay_forced over a TeacherReplay's log,
+    its first `events` events (all: None), at `theta`; the tables it
+    starts from): the replay's own tables once a run has built them, else
+    init_tables' (past the wrappers: not counted)."""
+    from tpusim_torch.sim import fused_engine as fe
+
+    cfg = fe.with_weights(replay.config, theta)
+    t = replay._t
+    m = events or int(t["ev_kind"].shape[0])
+    tables = replay._tables
+    if tables is None:
+        tables = lane_tables(replay.state0, replay.types, replay.typical, cfg)
+    return (lambda: fe.prepare_replay_forced(
+        replay.state0, replay.specs, replay.types, t["ev_kind"][:m],
+        t["ev_pod"][:m], replay.typical, replay.rank, tables, cfg,
+        t["rec_node"][:m], t["rec_topk"][:m], replay.gpu_sel)), tables
+
+
+def learn_imitate(device, card: str, root: str, nodes, pods) -> dict:
+    """The openb acceptance prefix's FGD teacher recorded on the card (its
+    decision file against tpusim's, TEACHER_SHA256), imitated through
+    TeacherReplay on `replay_forced` (the theta and held-out agreement
+    against tpusim's), and replay_forced against its plain version (the
+    oracle's step functions, CPU copies) on the first FORCED_PREFIX
+    events."""
+    import torch
+
+    from tpusim_torch.learn import ImitateConfig, imitate_with_mining
+    from tpusim_torch.sim import fused_engine as fe
+
+    replay, rows = teacher_replay(device, nodes, pods, root)
     cut = len(rows) - len(rows) // 5
     fe.reset_launch_counts()
     wall, (_, theta, hist) = wall_ms(lambda: imitate_with_mining(
@@ -6550,41 +6680,55 @@ def learn_imitate(device, card: str, root: str, nodes, pods) -> dict:
           f"{counts}, on {card}")
     # replay_forced alone, and against its plain version
     cfg = fe.with_weights(replay.config, LEARN_THETA)
-    tables = replay._tables
     t = replay._t
-    gpu_sel = replay.gpu_sel
-    args = (replay.state0, replay.specs, replay.types, t["ev_kind"],
-            t["ev_pod"], replay.typical, replay.rank, tables)
-    ready = fe.prepare_replay_forced(*args, cfg, t["rec_node"],
-                                     t["rec_topk"], gpu_sel)
-    ms = kernel_ms(ready, 5, reset_of(ready, replay.state0, tables))
+    st, gpu_sel = replay.state0, replay.gpu_sel
+    prep, tables = forced_launch(replay)
+    ready = prep()
+    ms = kernel_ms(ready, 5, reset_of(ready, st, tables))
+    result = ready.finish()[0]
     m = FORCED_PREFIX
-    cut_args = args[:3] + (t["ev_kind"][:m], t["ev_pod"][:m]) + args[5:]
-    ready = fe.prepare_replay_forced(*cut_args, cfg, t["rec_node"][:m],
-                                     t["rec_topk"][:m], gpu_sel)
+    ready = forced_launch(replay, events=m)[0]()
     fe.launch(ready)  # a comparison: past the wrapper, not counted
     got = ready.finish()[1]
     torch.cuda.synchronize()
     plain_ms, want = wall_ms(lambda: fe.plain_replay_forced(
-        *to_cpu((replay.state0, replay.specs, t["ev_kind"][:m],
-                 t["ev_pod"][:m], replay.typical, replay.rank)), cfg,
+        *to_cpu((st, replay.specs, t["ev_kind"][:m], t["ev_pod"][:m],
+                 replay.typical, replay.rank)), cfg,
         t["rec_node"][:m].cpu(), t["rec_topk"][:m].cpu(), gpu_sel))
     err = max_abs_err(to_cpu(got), want)
     e, p = t["ev_kind"].shape[0], replay.specs.cpu.shape[0]
-    st = replay.state0
+    n, k, f = st.num_nodes, replay.types.num_types, len(cfg.fam)
     ops = learned_ops(cfg, st, replay.types, replay.typical).mean()
-    bound = throughput_bound(st.num_nodes, replay.types.num_types,
-                             replay.typical.size, p, e, cfg.num_tables, e,
-                             ops, e * 4 * (2 + 5 + 4 * len(cfg.fam)))
+    # the recorded nodes and top-3 in, the argmax, the feasible count and
+    # the four feature rows out, a word each
+    io_bytes = e * 4 * (1 + 3 + 2 + 4 * f)
+    bound = throughput_bound(n, k, replay.typical.size, p, e, cfg.num_tables,
+                             e, ops, io_bytes)
+    # the serial event chain: E of the least all-skip steps (the learned
+    # replay's or 06-FGD's on the same state) plus each event's own bytes
+    step, own, fgd_step = least_step_ms(
+        "replay", (st, replay.specs, replay.types, replay.typical,
+                   replay.rank, tables), cfg, e)
+    chain = (chain_ms(step, t["ev_kind"].cpu().numpy(), n, k,
+                      refreshes_of(result.event_node.cpu().numpy()),
+                      cfg.num_tables)
+             + io_bytes / PEAK_BYTES_PER_S * 1e3)
     print(f"check replay_forced E={m}: max_abs_err={err} over the argmax, "
           f"the feasible counts and the feature rows (tolerance 0); the "
           f"whole {e}-event log {ms:.3f} ms (plain {plain_ms:.0f} ms on the "
-          f"prefix; bound {bound[0]:.5f} ms by {bound[1]}), on {card}")
+          f"prefix; bound: serial chain {chain:.4f} ms, the least all-skip "
+          f"step {step * 1e3:.3f} us: the learned replay's {own * 1e3:.3f}, "
+          f"06-FGD's {fgd_step * 1e3:.3f}; throughput {bound[0]:.5f} ms by "
+          f"{bound[1]}), on {card}")
     if err:
         raise SmokeFailure("replay_forced disagrees with plain_replay_forced")
     return dict(wall_ms=wall, runs=replay.runs, launches=counts, kernel=dict(
         ms=ms, plain_ms=plain_ms, max_abs_err=err, events=e,
-        prefix_events=m, bound_ms=bound[0], bound_by=bound[1]))
+        prefix_events=m, bound_ms=chain, bound_by="operations",
+        bound_note="serial event chain: E x (the least all-skip step, the "
+        "learned replay's or 06-FGD's on the same state, + the event's "
+        "bytes at the memory rate)", skip_us=own * 1e3,
+        fgd_skip_us=fgd_step * 1e3, bytes_bound_ms=bound[0]))
 
 
 def learn_path(device, card: str):
@@ -6720,6 +6864,59 @@ def ab_timed(ready, state, tables, repeats, warmup=True):
     return ms, replay_digest(result)
 
 
+def outputs_digest(x) -> str:
+    """sha256 of every tensor of a result (nested tuples), float32 ones by
+    their bits."""
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            h.update(float_bits(v).cpu().numpy().tobytes())
+        elif isinstance(v, tuple):
+            for part in v:
+                walk(part)
+    walk(x)
+    return h.hexdigest()[:16]
+
+
+def ab_forms(device, inputs, nodes, pods) -> dict:
+    """--ab's rows of the forced and fault forms, each a median of 3
+    launches with its state restored before each, its outputs digested:
+    replay_forced over the learn phase's teacher log at LEARN_THETA,
+    replay_faults and replay_blocked_faults over the openb 06-FGD lane
+    stream, replay_learned_faults over its first LEARN_FAULT_STEPS steps
+    under the linear family."""
+    import tempfile
+
+    from tpusim_torch.sim import fused_engine as fe
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="tpusim_ab_") as root:
+        replay = teacher_replay(device, nodes, pods, root)[0]
+    prep, tables = forced_launch(replay)
+    ready = prep()
+    ms = kernel_ms(ready, 3, reset_of(ready, replay.state0, tables))
+    out["replay_forced"] = dict(ms=ms, digest=outputs_digest(ready.finish()))
+    plan = openb_fault_plan(inputs)
+    fgd = fe.make_config(*dict((r[0], r) for r in METHODS)["06-FGD"][1:5])
+    learned = fe.make_config(learn_families()["linear"], "best")
+    for label, name, cfg, cut in (
+            ("replay_faults", "replay_faults", fgd, plan),
+            ("replay_blocked_faults", "replay_blocked_faults", fgd, plan),
+            ("replay_learned_faults", "replay_faults", learned,
+             cut_plan(plan, LEARN_FAULT_STEPS))):
+        case = fault_case(name, inputs, cfg)
+        prep, args = fault_args(name, case, cfg, cut)
+        ready = prep(*args)
+        ms = kernel_ms(ready, 3, fault_reset(ready, case[0], case[5],
+                                             args[-1]))
+        out[label] = dict(ms=ms, steps=int(cut.kind.shape[0]),
+                          digest=outputs_digest(ready.finish()))
+    return out
+
+
 def replay_wall(row, nodes, pods, device) -> float:
     """Host milliseconds of the warm Simulator.run_events of a METHODS row
     over the prepared openb trace, residency "auto": the main phase's
@@ -6743,8 +6940,8 @@ def ab_turn(tree: str) -> dict:
     """One turn of --ab: every measurement of the checkout at `tree`, whose
     tpusim_torch this process imports (its sys.path leads with `tree`):
     init_tables, replay and replay_blocked and the warm replay wall of each
-    METHODS row and of the learned families at openb, and the scale
-    chunk."""
+    METHODS row and of the learned families at openb, the forced and fault
+    forms (ab_forms), and the scale chunk."""
     import torch
 
     from tpusim_torch import bench_scale as bs
@@ -6806,6 +7003,11 @@ def ab_turn(tree: str) -> dict:
               f"replay_blocked {rec['replay_blocked']:.3f} ms, replay wall "
               f"{rec['wall']:.3f} ms", flush=True)
 
+    out["forms"] = ab_forms(device, (state, specs, types, evk, evp, tp, rank),
+                            nodes, pods)
+    for label, rec in out["forms"].items():
+        print(f"[{tree}] {label}: {rec['ms']:.3f} ms", flush=True)
+
     auto = bs.ScaleRun(bs.synth_cluster(SCALE_NODES, SCALE_SEED),
                        bs.synth_pods(SCALE_PODS, SCALE_SEED + 1),
                        bs.scale_config(SCALE_SEED, "auto"), device)
@@ -6857,12 +7059,20 @@ def ab_main(trees) -> int:
                     for t in turns]
             if key in recs[0] and len({r[key] for r in recs}) != 1:
                 bad.append(f"{label} {name}")
+    forms = [f for f in turns[0].get("forms", {})
+             if all(f in t.get("forms", {}) for t in turns)]
+    for label in forms:
+        if len({t["forms"][label]["digest"] for t in turns}) != 1:
+            bad.append(label)
     names = [os.path.basename(os.path.normpath(t["tree"])) for t in turns]
     print(f"card: {turns[0]['card']}; turns: {', '.join(names)}")
     for label in rows:
         for name in ("init_tables", "replay", "replay_blocked", "wall"):
             vals = " ".join(f"{t['rows'][label][name]:10.4f}" for t in turns)
             print(f"{label:20s} {name:15s} {vals} ms")
+    for label in forms:
+        vals = " ".join(f"{t['forms'][label]['ms']:10.4f}" for t in turns)
+        print(f"{label:36s} {vals} ms")
     for name in ("init_tables", "replay_blocked"):
         vals = " ".join(f"{t['scale'][name]:10.3f}" for t in turns)
         print(f"{'scale chunk':20s} {name:15s} {vals} ms")
@@ -6977,6 +7187,8 @@ def main(argv=None) -> int:
             clocks += phase_clocks(device, card, inputs, "openb", CLOCK_ROWS,
                                    ("replay", "replay_blocked"))
             clocks += learn_clocks(device, card, inputs)
+            clocks += fault_clocks(device, card, inputs)
+            clocks += forced_clocks(device, card, *openb_rows_port())
             print(f"phase clocks done at {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             launches = main_path(device, card)

@@ -14,12 +14,12 @@ import torch
 
 from chip_smoke import (
     DIM_EXT, DOWN_CASE, DOWN_ROWS, INIT_NODES, INIT_ROWS, LANE_CASE_FLAGS,
-    LANE_ROWS, METHODS, MIXES, NORM, PAST_LIMIT, PAST_LIMIT_ROWS,
-    PAST_LIMIT, RANDOMIZED_ROWS, SHAPE_CASES, SHAPE_ROWS, WIDE_BLOCKED,
-    against_plain, down_checks, fault_against_plain,
+    LANE_ROWS, LEARN_PLAN_COUNTS, METHODS, MIXES, NORM, PAST_LIMIT,
+    PAST_LIMIT_ROWS, PAST_LIMIT, RANDOMIZED_ROWS, SHAPE_CASES, SHAPE_ROWS,
+    WIDE_BLOCKED, against_plain, down_checks, fault_against_plain,
     fault_lanes_against_plain, init_case, init_config, lane_tables,
-    past_limit_errors, random_case, record_against_plain, shape_errors,
-    to_cpu, typed_case,
+    past_limit_errors, plan_case, random_case, record_against_plain,
+    shape_errors, to_cpu, typed_case,
 )
 from tpusim_torch.io.trace import (
     build_events, load_node_csv, load_pod_csv, pods_to_specs,
@@ -609,6 +609,69 @@ def test_fault_forms_match_plain_on_card(cuda_device, row):
             lanes_name
 
 
+# schedules that work the retry queue's summary in the fault forms: dense
+# evictions and failures under a short backoff, so the queue fills (a
+# capacity of 1 refuses pushes) and drains, with runs of inert slots
+# between and the max_retries flush rounds at the end
+QUEUE_FLAGS = dict(mtbf_events=50, mttr_events=120, evict_every_events=12,
+                   max_retries=3, backoff_base=2, backoff_cap=16)
+
+
+@pytest.mark.cuda
+def test_fault_queue_summary_matches_plain_on_card(cuda_device):
+    """Each fault form against its plain version, tolerance 0, on streams
+    whose retry slots work the queue summary: long runs of inert slots,
+    flush rounds, a queue of capacity 1 that is full (pushes refused, pods
+    dead), and 2 lanes whose queues differ (capacities 1 and 4, their own
+    schedules)."""
+    from tpusim_torch.sim.engine import EV_RETRY
+    from tpusim_torch.sim.faults import generate_fault_schedule
+
+    cfg = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    case = random_case(47, 64, 200, cuda_device)
+    state, pods, types, evk, evp, tp, rank = case
+    n, p = state.num_nodes, int(pods.cpu.shape[0])
+    plans = []
+    for seed, cap in ((5, 1), (6, 4)):
+        fcfg = FaultConfig(**QUEUE_FLAGS, queue_capacity=cap, seed=seed)
+        plans.append(fl.compile_fault_plan(
+            evk.cpu().numpy(), evp.cpu().numpy(),
+            generate_fault_schedule(n, evk.shape[0], fcfg), fcfg, n, p))
+    for plan in plans:  # flush rounds
+        assert (plan.arg[plan.kind == EV_RETRY] > 0).any()
+    for name, lanes_name in (("replay_faults", "replay_lanes_faults"),
+                             ("replay_blocked_faults",
+                              "replay_blocked_lanes_faults")):
+        st, rk = (pad_nodes(state, rank, 128) if "blocked" in name
+                  else (state, rank))
+        tables = lane_tables(st, types, tp, cfg)
+        firsts, longest = [], 0
+        for plan in plans:
+            err, _, _, got, first = fault_against_plain(
+                name, (st, pods, types, tp, rk, tables), cfg, plan,
+                repeats=1)
+            assert err == 0, name
+            firsts.append(first)
+            slot = plan.kind == EV_RETRY
+            inert = slot & (got[-1].ys.rpod.cpu().numpy() < 0)
+            assert (slot & ~inert).any()  # slots that pop
+            run = 0
+            for x in inert:
+                run = run + 1 if x else 0
+                longest = max(longest, run)
+        assert longest >= 8
+        # the capacity-1 queue was full: pushes refused, pods dead
+        assert int(firsts[0][0][-1].carry.dctr[6]) > 0
+        lanes = [fe.Lane(pods, types.type_id,
+                         torch.as_tensor(pl.kind, device=cuda_device),
+                         torch.as_tensor(pl.idx, device=cuda_device), rk,
+                         cfg.weights, None, fl.lane_of(pl, st, p))
+                 for pl in plans]
+        assert fault_lanes_against_plain(
+            lanes_name, (st, types, tp, tables), cfg, lanes,
+            first=firsts[0])[0] == 0, lanes_name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("blocked", [False, True], ids=["flat", "blocked"])
 def test_retry_only_stream_leaves_tables_unchanged(cuda_device, blocked):
@@ -1009,17 +1072,33 @@ def test_learned_kernels_match_plain_on_card(cuda_device, label, family,
         _assert_equal(tuple(got), tuple(want))
 
 
+# the forced form's gpu_sel cases: the teacher's policy and gpuSelMethod
+# whose recorded nodes it replays
+FORCED_TEACHERS = {"best": ("FGDScore", "best"), "worst": ("FGDScore", "worst"),
+                   "FGDScore": ("FGDScore", "FGDScore"),
+                   "PWRScore": ("PWRScore", "PWRScore"),
+                   "DotProductScore": ("DotProductScore", "DotProductScore")}
+
+
 @pytest.mark.cuda
-def test_replay_forced_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("t", ("random",) + LEARN_PLAN_COUNTS)
+@pytest.mark.parametrize("gpu_sel", list(FORCED_TEACHERS))
+def test_replay_forced_matches_plain_on_card(cuda_device, gpu_sel, t):
     """replay_forced against plain_replay_forced (the oracle's step
-    functions, CPU copies) on a seeded cluster: the argmax, feasible counts
-    and feature rows, recorded nodes from a replay of the FGD family,
-    gpu_sel best and FGDScore's pick at the recorded node."""
+    functions, CPU copies) on a seeded 200-node cluster with pinned pods
+    and deletes ("random"), and on the synthetic cluster of t typical pods
+    (chip_smoke.plan_case, whose feature plans have vector loops): the
+    argmax, feasible counts and feature rows, recorded nodes from a replay
+    of a teacher under `gpu_sel` (its selector's pick at the recorded node
+    for FGDScore, PWRScore and DotProductScore), recorded top-3s with a
+    -1 and a shifted node."""
     from tpusim_torch.learn.policy import learned_policies
 
-    state, pods, types, evk, evp, tp, rank = random_case(
-        67, 200, 120, cuda_device)
-    teacher = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    state, pods, types, evk, evp, tp, rank = (
+        random_case(67, 200, 120, cuda_device) if t == "random"
+        else plan_case(t, cuda_device))
+    policy, teacher_sel = FORCED_TEACHERS[gpu_sel]
+    teacher = fe.make_config([(policy, 1000)], teacher_sel)
     res = fe.replay(state, pods, types, evk, evp, tp, rank,
                     fe.init_tables(state, types, tp, teacher), teacher)
     rec = res.event_node.clone()
@@ -1028,10 +1107,8 @@ def test_replay_forced_matches_plain_on_card(cuda_device):
     cfg = fe.make_config(learned_policies(
         [700, -120, 45, 10, 80, -60, 33, 25, -200, 50]), "best")
     tables = fe.init_tables(state, types, tp, cfg)
-    for gpu_sel in ("best", "FGDScore"):
-        got = fe.replay_forced(state, pods, types, evk, evp, tp, rank,
-                               tables, cfg, rec, topk, gpu_sel)
-        want = fe.plain_replay_forced(*to_cpu((state, pods, evk, evp, tp,
-                                               rank)), cfg, rec.cpu(),
-                                      topk.cpu(), gpu_sel)
-        _assert_equal(got, want)
+    got = fe.replay_forced(state, pods, types, evk, evp, tp, rank, tables,
+                           cfg, rec, topk, gpu_sel)
+    want = fe.plain_replay_forced(*to_cpu((state, pods, evk, evp, tp, rank)),
+                                  cfg, rec.cpu(), topk.cpu(), gpu_sel)
+    _assert_equal(got, want)

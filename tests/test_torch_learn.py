@@ -122,19 +122,34 @@ def test_tune_log_matches_tpusim_and_resumes(openb_prefix, tmp_path):
     assert header["schema"] == pl.LOG_SCHEMA and len(records) == 2
 
 
-@pytest.fixture(scope="module")
-def teacher(tmp_path_factory):
-    """tpusim's recorded FGD teacher on the synthetic cluster, its
-    prepared pods, and TeacherReplay of each package over it."""
+# the teachers' gpuSelMethods, each with the policy it records: the
+# selectors whose device pick a teacher-forced replay takes at the
+# recorded node (replay_forced's pick warp: FGDScore's a lane per distinct
+# device value, PWRScore's a lane per device, DotProductScore's a lane per
+# slot), and best fit
+TEACHERS = {"FGDScore": "FGDScore", "PWRScore": "PWRScore",
+            "DotProductScore": "DotProductScore", "best": "BestFitScore"}
+# two pods past the synthetic ones: one that no node fits (a create with
+# no feasible node, recorded node -1), one that fits only the two 8-GPU
+# nodes (a recorded top-3 entry of -1)
+EDGE_PODS = [("px0001", 64000, 2048, 0, 0), ("px0002", 1000, 2048, 8, 1000)]
+
+
+@pytest.fixture(scope="module", params=list(TEACHERS))
+def teacher(request, tmp_path_factory):
+    """tpusim's recorded teacher (gpuSelMethod the param) on the synthetic
+    cluster and EDGE_PODS, its prepared pods, and TeacherReplay of each
+    package over it."""
+    gpu_sel, policy = request.param, TEACHERS[request.param]
     nodes, pods = _synth()
     jn = [JNodeRow(*r) for r in nodes]
     sim = JSimulator(jn, JConfig(
-        policies=(("FGDScore", 1000),), gpu_sel_method="FGDScore", seed=42,
+        policies=((policy, 1000),), gpu_sel_method=gpu_sel, seed=42,
         report_per_event=False, record_decisions=True))
-    sim.set_workload_pods([JPodRow(*r) for r in pods])
+    sim.set_workload_pods([JPodRow(*r) for r in pods + EDGE_PODS])
     res = sim.run()
     path = str(tmp_path_factory.mktemp("teach") / "teacher.jsonl")
-    jdec.write_decisions(path, res.decisions, policies=[("FGDScore", 1000)],
+    jdec.write_decisions(path, res.decisions, policies=[(policy, 1000)],
                          meta=sim._telemetry_meta(),
                          pod_names=[p.name for p in res.pods])
     prep = sim.prepare_pods()
@@ -150,6 +165,10 @@ def teacher(tmp_path_factory):
 
 def test_teacher_replay_matches_tpusim(teacher):
     jr, pr = teacher[:2]
+    assert pr.gpu_sel == jr.gpu_sel
+    # the log holds a create with no feasible node and a top-3 entry of -1
+    assert (jr.rec_node < 0).any() and (np.asarray(jr.rec_feas) == 0).any()
+    assert (np.asarray(jr.topk)[jr.rec_node >= 0] < 0).any()
     a, b = jr.pairs(), pr.pairs()
     for f in ("pos", "neg", "event", "tie"):
         assert np.array_equal(getattr(a, f), getattr(b, f)), f
@@ -168,8 +187,8 @@ def test_teacher_replay_rejects_wrong_trace(teacher):
     with pytest.raises(ValueError, match="wrong trace or prep"):
         pl.TeacherReplay(pn, prep[:-3], header, rows, device="cpu")
     _, other = _synth(seed=99)
-    rep = pl.TeacherReplay(pn, [PodRow(*r) for r in other], header, rows,
-                           device="cpu")
+    rep = pl.TeacherReplay(pn, [PodRow(*r) for r in other + EDGE_PODS],
+                           header, rows, device="cpu")
     with pytest.raises(ValueError, match="feasible count"):
         rep.pairs()
 

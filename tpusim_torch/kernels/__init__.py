@@ -33,8 +33,9 @@ different instantiations of the kernel.
 A variant of the library is built from the same sources with extra
 preprocessor definitions (`VARIANTS`): "clocked" adds the phase clocks
 that chip_smoke.py reads (the record forms' launchers refuse; of the
-learned forms it has the flat and blocked replays alone,
-replay_learned_clocked.cu's).
+learned forms it has the flat and blocked replays,
+replay_learned_clocked.cu's, and the forced form,
+replay_forced_clocked.cu's).
 The main path loads the plain build, "" (no definitions).
 """
 
@@ -59,14 +60,16 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 # forms in replay_learned_faults.cu and replay_blocked_learned_faults.cu,
 # replay_lanes.cu's, the forced form in replay_forced.cu, replay.cu's, and
 # the clocked variant's learned replays in replay_learned_clocked.cu,
-# replay.cu's, which compiles nothing in the other variants)
+# replay.cu's, and its forced form in replay_forced_clocked.cu,
+# replay_forced.cu's, which compile nothing in the other variants)
 SOURCES = tuple(os.path.join(_DIR, name) for name in (
     "replay.cu", "replay_lanes.cu", "replay_faults.cu",
     "replay_blocked_faults.cu", "replay_chunks.cu", "replay_records.cu",
     "replay_blocked_records.cu", "replay_learned.cu",
     "replay_blocked_learned.cu", "replay_learned_records.cu",
     "replay_learned_faults.cu", "replay_blocked_learned_faults.cu",
-    "replay_forced.cu", "replay_learned_clocked.cu"))
+    "replay_forced.cu", "replay_learned_clocked.cu",
+    "replay_forced_clocked.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
                          ".tpusim_torch_build")
 _build_dir = None  # set_build_dir's directory
@@ -116,11 +119,15 @@ VARIANTS = {
 }
 # int64 slots of ReplayArgs.clocks in the clocked variant (replay.cu
 # ClockSlot): cycles per phase, thread 0's barrier wait, the event loop's
-# cycles, the summaries' init, counts, and the learned node column's cycles
+# cycles, the summaries' init, counts, the learned node column's cycles,
+# the forced form's feature rows (the recorded top-3's, the argmax's) and
+# selector pick, and the fault forms' pops (cycles, inert slots, pops),
+# the inert slots the loop still runs as steps, and their fault steps
 CLOCK_SLOTS = ("refresh", "block", "drift", "extrema", "select", "commit",
                "wait", "loop", "init", "refreshes", "rescans", "work",
-               "setup", "sum", "items", "node")
-NUM_CLOCKS = 16
+               "setup", "sum", "items", "node", "rows", "arow", "pick",
+               "pop", "inert", "pops", "islot", "fault")
+NUM_CLOCKS = 24
 
 POINTER_FIELDS = (
     "cpu_left", "mem_left", "gpu_left", "aff_cnt", "cpu_cap", "cpu_type",

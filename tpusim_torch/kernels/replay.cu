@@ -236,11 +236,22 @@ constexpr bool kClocked = false;
 // refresh, from its start to the last warp's end of its items (kClkWork),
 // of their set-up and of their FGD sums; the refresh's lanes in all; and
 // warp 1's cycles on the learned node column's value (kClkNode, the
-// kLearned instantiations: learned_node_stage, beside warp 0's commit)
+// kLearned instantiations: learned_node_stage, beside warp 0's commit).
+// The forced form (replay_forced.cu): the cycles of its feature rows at
+// the recorded top-3 (kClkRows) and at the argmax (kClkArow), and of the
+// selector's device pick at the recorded node (kClkPick), each from the
+// start of that work to its last warp's end. The fault forms: thread 0's
+// cycles in pop_ahead (kClkPop, inside the commit), and the counts of
+// retry slots that popped nothing (kClkInert) and that popped a pod
+// (kClkPops), thread 0's cycles on the whole steps of the inert ones
+// the loop still runs (kClkIslot, from the step before's end to the
+// step's), and its cycles in fault_step (kClkFault: failures, recoveries,
+// evictions).
 enum ClockSlot {
   kClkRefresh, kClkBlock, kClkDrift, kClkExtrema, kClkSelect, kClkCommit,
   kClkWait, kClkLoop, kClkInit, kClkRefreshes, kClkRescans, kClkWork,
-  kClkSetup, kClkSum, kClkItems, kClkNode, kNumClocks = 16,
+  kClkSetup, kClkSum, kClkItems, kClkNode, kClkRows, kClkArow, kClkPick,
+  kClkPop, kClkInert, kClkPops, kClkIslot, kClkFault, kNumClocks = 24,
 };
 
 }  // namespace
@@ -867,13 +878,13 @@ __device__ __forceinline__ DotNode dot_node(const ReplayArgs& a,
   return n;
 }
 
-// DotProduct (_make_dotprod_column :578; policies/dotprod.py): the best of
-// up to 9 slots (8 devices + the idle pool; one under merge), first on
-// ties, from the node's figures `dn`
-__device__ __forceinline__ void dotprod_score(const ReplayArgs& a,
-                                              const NodeView& v,
-                                              const DotNode& dn, int k,
-                                              int* score, int* sdev) {
+// DotProduct's value of slot s (0-7 a device, 8 the idle pool; slot 0
+// alone under merge) for type k on node v from the node's figures `dn`,
+// into *val; false where the slot is not active (its device or pool does
+// not fit the type, or the node's CPU does not)
+__device__ __forceinline__ bool dot_slot(const ReplayArgs& a,
+                                         const NodeView& v, const DotNode& dn,
+                                         int k, int s, float* val) {
   const int tcpu_i = a.t_cpu[k];
   const int treq_i = a.t_milli[k] * a.t_num[k];
   const float tcpu = static_cast<float>(tcpu_i);
@@ -883,59 +894,71 @@ __device__ __forceinline__ void dotprod_score(const ReplayArgs& a,
   const int idle_cnt = dn.idle;
   const float n_groups = dn.n_groups;
   const bool cpu_fits = v.cpu >= tcpu_i;
+  float slot_gpu;
+  bool active;
+  if (a.dim_ext == kMerge) {
+    slot_gpu = static_cast<float>(gsum);
+    active = true;
+  } else if (s < kDevs) {
+    slot_gpu = static_cast<float>(v.g[s]);
+    active = a.dim_ext == kExtend
+                 ? (s < v.gcnt && v.g[s] > 0 && v.g[s] < kMilli &&
+                    slot_gpu >= treq)
+                 : (treq_i < kMilli && s < v.gcnt && v.g[s] < kMilli &&
+                    v.g[s] >= treq_i);
+  } else {
+    slot_gpu = static_cast<float>(idle_cnt * kMilli);
+    active = a.dim_ext == kExtend ? (idle_cnt > 0 && slot_gpu >= treq)
+                                  : treq_i <= idle_cnt * kMilli;
+  }
+  if (!(cpu_fits && active)) return false;
+  const float slot_cpu =
+      a.dim_ext == kDivide
+          ? safe_div(__fmul_rn(cpu_f, slot_gpu), static_cast<float>(gsum))
+          : cpu_f;
+  float dot = dot_terms(a, v, slot_cpu, slot_gpu, tcpu, treq);
+  dot = a.dim_ext == kExtend
+            ? __fdiv_rn(dot, fmaxf(__fadd_rn(1.0f, n_groups), 1.0f))
+            : __fmul_rn(dot, 0.5f);
+  if (a.norm == kNormPod) dot = xla_tanh(__fmul_rn(dot, kRten));
+  *val = __fsub_rn(1.0f, dot);
+  return true;
+}
+
+// the device DotProduct picks for its best slot (-1: none, or merge): the
+// slot's device, or the pool's first idle device
+__device__ __forceinline__ int dot_slot_dev(const ReplayArgs& a,
+                                            const NodeView& v, int slot) {
+  if (slot < 0 || a.dim_ext == kMerge) return -1;
+  if (slot < kDevs) return slot;
+  int first = -1;
+  for (int d = kDevs - 1; d >= 0; --d)
+    if (v.g[d] == kMilli) first = d;
+  return first;
+}
+
+// DotProduct (_make_dotprod_column :578; policies/dotprod.py): the best of
+// up to 9 slots (8 devices + the idle pool; one under merge), first on
+// ties, from the node's figures `dn`
+__device__ __forceinline__ void dotprod_score(const ReplayArgs& a,
+                                              const NodeView& v,
+                                              const DotNode& dn, int k,
+                                              int* score, int* sdev) {
   const int slots = a.dim_ext == kMerge ? 1 : kDevs + 1;
   float best = -INFINITY;
   int best_slot = -1;
   for (int s = 0; s < slots; ++s) {
-    float slot_gpu;
-    bool active;
-    if (a.dim_ext == kMerge) {
-      slot_gpu = static_cast<float>(gsum);
-      active = true;
-    } else if (s < kDevs) {
-      slot_gpu = static_cast<float>(v.g[s]);
-      active = a.dim_ext == kExtend
-                   ? (s < v.gcnt && v.g[s] > 0 && v.g[s] < kMilli &&
-                      slot_gpu >= treq)
-                   : (treq_i < kMilli && s < v.gcnt && v.g[s] < kMilli &&
-                      v.g[s] >= treq_i);
-    } else {
-      slot_gpu = static_cast<float>(idle_cnt * kMilli);
-      active = a.dim_ext == kExtend ? (idle_cnt > 0 && slot_gpu >= treq)
-                                    : treq_i <= idle_cnt * kMilli;
-    }
-    if (!(cpu_fits && active)) continue;
-    const float slot_cpu =
-        a.dim_ext == kDivide
-            ? safe_div(__fmul_rn(cpu_f, slot_gpu), static_cast<float>(gsum))
-            : cpu_f;
-    float dot = dot_terms(a, v, slot_cpu, slot_gpu, tcpu, treq);
-    dot = a.dim_ext == kExtend
-              ? __fdiv_rn(dot, fmaxf(__fadd_rn(1.0f, n_groups), 1.0f))
-              : __fmul_rn(dot, 0.5f);
-    if (a.norm == kNormPod) dot = xla_tanh(__fmul_rn(dot, kRten));
-    const float val = __fsub_rn(1.0f, dot);
+    float val;
+    if (!dot_slot(a, v, dn, k, s, &val)) continue;
     if (best_slot < 0 || val > best) {
       best = val;
       best_slot = s;
     }
   }
-  if (best_slot < 0) {
-    *score = 0;
-    *sdev = -1;
-    return;
-  }
-  *score = to_i32(__fmul_rn(static_cast<float>(kMaxNodeScore), best));
-  if (a.dim_ext == kMerge) {
-    *sdev = -1;
-  } else if (best_slot < kDevs) {
-    *sdev = best_slot;
-  } else {  // the pool: the first idle device
-    int first = -1;
-    for (int d = kDevs - 1; d >= 0; --d)
-      if (v.g[d] == kMilli) first = d;
-    *sdev = first;
-  }
+  *score = best_slot < 0 ? 0
+                         : to_i32(__fmul_rn(static_cast<float>(kMaxNodeScore),
+                                            best));
+  *sdev = dot_slot_dev(a, v, best_slot);
 }
 
 __device__ void dotprod_pair(const ReplayArgs& a, const NodeView& v, int k,
@@ -1145,7 +1168,8 @@ __device__ void features_of(const NodeView& v, int mem_cap, float q3_sat,
 
 // The eighteen node-only features of one node, its three sums added by
 // one thread (plan_sum, each pod's terms computed where a sum reads them:
-// the record forms, the forced form, learned_rows, init_tables_learned)
+// the record forms, learned_rows, init_tables_learned; the node stage and
+// the forced form's rows take the warp's form, warp_feature_sums)
 __device__ void node_features(const ReplayArgs& a, const NodeView& v,
                               int mem_cap, int* f) {
   const float total = static_cast<float>(gpu_sum(v));
@@ -1841,43 +1865,56 @@ __device__ __forceinline__ void learned_wait() {
                : "memory");
 }
 
-// The node column's value on the node event i changed (es.node, once
-// warp 0's commit is final; nothing where the event changed none), by
-// warp 1 while warp 0 computes FGD's node terms: each lane the class and
-// terms of typical pods lane, lane + 32, ... (pod_terms, into ls.pods);
-// then lanes 0, 1 and 2 add q3_sat's, frag_pct's contributions' and its
-// Q3 amount's sums, side by side, each in its plan's order (plan_sum);
-// lane 0 forms the eighteen features and their theta sum into ls.value.
-// The refresh's node-column items copy it. `node_clk`: the clocked
-// build's kClkNode slot (null: none).
-__device__ __forceinline__ void learned_node_stage(const ReplayArgs& a,
-                                                   const EventState& es,
-                                                   int i, int lane,
-                                                   long long* node_clk) {
-  learned_wait();
-  const int node = es.dirty[(i + 1) & 1];
-  if (node < 0) return;
-  const long long t0 = clock_now();
-  LearnedShared& ls = learned_shared();
-  const NodeView& v = es.node;
+// The three typical-pod sums of node v's features (q3_sat's, frag_pct's
+// contributions' and its Q3 amount's, as float3 x, y and z in every lane)
+// by one warp: each lane the class and terms of typical pods lane, lane +
+// 32, ... (pod_terms, into pods[a.t]); then lanes 0, 1 and 2 add the three
+// sums side by side, each in its plan's order (plan_sum), their stage
+// lanes in slots[3 * kPlanSlots]. pods and slots are shared memory; the
+// warp's next call waits for a block barrier.
+__device__ __forceinline__ float3 warp_feature_sums(const ReplayArgs& a,
+                                                    const NodeView& v,
+                                                    int lane, float4* pods,
+                                                    float* slots) {
   const float total = static_cast<float>(gpu_sum(v));
-  for (int t = lane; t < a.t; t += 32) ls.pods[t] = pod_terms(a, v, total, t);
+  for (int t = lane; t < a.t; t += 32) pods[t] = pod_terms(a, v, total, t);
   __syncwarp();
   float mine = 0.0f;
   if (lane < 3) {  // the same code on the three lanes: their components
     const int c0 = term_index(lane, 0);
     const int c1 = term_index(lane, 1);
-    const float* terms = reinterpret_cast<const float*>(ls.pods);
-    mine = plan_sum(a, lane, ls.lanes[lane], [&](int t, int k) {
+    const float* terms = reinterpret_cast<const float*>(pods);
+    mine = plan_sum(a, lane, slots + lane * kPlanSlots, [&](int t, int k) {
       return terms[4 * t + (k == 0 ? c0 : c1)];
     });
   }
-  const float sat = __shfl_sync(0xffffffffu, mine, 0);
-  const float all = __shfl_sync(0xffffffffu, mine, 1);
-  const float q3 = __shfl_sync(0xffffffffu, mine, 2);
+  return make_float3(__shfl_sync(0xffffffffu, mine, 0),
+                     __shfl_sync(0xffffffffu, mine, 1),
+                     __shfl_sync(0xffffffffu, mine, 2));
+}
+
+// The node column's value on the node step `step` changed (es.node, once
+// warp 0's commit is final; nothing where the step changed none; `step`
+// the count of steps the loop has run, which indexes es.dirty), by
+// warp 1 while warp 0 computes FGD's node terms: the three sums by the
+// warp (warp_feature_sums, into ls.pods and ls.lanes), then lane 0 forms
+// the eighteen features and their theta sum into ls.value. The refresh's
+// node-column items copy it. `node_clk`: the clocked build's kClkNode
+// slot (null: none).
+__device__ __forceinline__ void learned_node_stage(const ReplayArgs& a,
+                                                   const EventState& es,
+                                                   int step, int lane,
+                                                   long long* node_clk) {
+  learned_wait();
+  const int node = es.dirty[(step + 1) & 1];
+  if (node < 0) return;
+  const long long t0 = clock_now();
+  LearnedShared& ls = learned_shared();
+  const NodeView& v = es.node;
+  const float3 sums = warp_feature_sums(a, v, lane, ls.pods, ls.lanes[0]);
   if (lane == 0) {
     int f[kNodeFeatures];
-    features_of(v, a.mem_cap[node], sat, all, q3, f);
+    features_of(v, a.mem_cap[node], sums.x, sums.y, sums.z, f);
     ls.value = theta_sum(a, f);
     if (kClocked && node_clk != nullptr)
       atomicAdd(reinterpret_cast<unsigned long long*>(node_clk),
@@ -2183,10 +2220,24 @@ struct FaultFields {
 // step parity the pod its retry slot popped (-1: none, or not a slot). A
 // retry slot is popped at the end of the step before it (pop_ahead), which
 // rewrites its staged event into the popped pod's create or a skip, so
-// that the step then runs as any create.
+// that the step then runs as any create; where it leaves a skip, and the
+// step after it is staged, the non-randomized forms skip it at once (its
+// outputs a skip's) and pop the next, so that the loop never runs an
+// inert slot as a step of its own. The steps the loop runs index the
+// parity slots (popped, resume, EventState::dirty) by their own count.
+// And a summary of the retry queue (the queue itself stays in device
+// memory, where the fetch and the carry read it), kept by every push and
+// pop: its live entries, a lower bound on their least ready position and
+// their least era (both exact after a pop's scan), so that a retry slot
+// with nothing due becomes a skip without reading the queue.
 struct FaultShared {
   FaultFields ff[2][kEvBatch];
   int popped[2];
+  int resume[2];  // by step parity: the step the loop runs next
+  int q_live;
+  int q_ready_lb;
+  int q_era_min;
+  long long* clk;  // the clocked build's slots (pop_ahead's); unread else
 };
 
 // the fault fields of steps first .. first + 31, one lane each (one warp)
@@ -2206,8 +2257,34 @@ __device__ __forceinline__ int backoff_of(int att, int base, int cap) {
   return min(static_cast<int>(static_cast<uint32_t>(base) << s), cap);
 }
 
+// The queue's summary from its entries at the launch's start, by one warp
+// (FaultShared).
+__device__ void queue_summary(const ReplayArgs& a, FaultShared& fs,
+                              int lane) {
+  int live = 0;
+  int ready = INT_MAX;
+  int era = INT_MAX;
+  for (int q = lane; q < a.f_cap_r; q += 32) {
+    if (a.q_pod[q] < 0) continue;
+    ++live;
+    ready = min(ready, a.q_ready[q]);
+    era = min(era, a.q_era[q]);
+  }
+  live = __reduce_add_sync(0xffffffffu, live);
+  ready = __reduce_min_sync(0xffffffffu, ready);
+  era = __reduce_min_sync(0xffffffffu, era);
+  if (lane == 0) {
+    fs.q_live = live;
+    fs.q_ready_lb = ready;
+    fs.q_era_min = era;
+  }
+  __syncwarp();
+}
+
 // The lowest free queue slot, -1 when the queue is full (warp-uniform).
-__device__ int free_slot(const ReplayArgs& a, int lane) {
+__device__ int free_slot(const ReplayArgs& a, const FaultShared& fs,
+                         int lane) {
+  if (fs.q_live >= a.f_cap_r) return -1;
   for (int base = 0; base < a.f_cap_r; base += 32) {
     const int q = base + lane;
     const unsigned m = __ballot_sync(0xffffffffu, q < a.f_cap_r && a.q_pod[q] < 0);
@@ -2221,16 +2298,20 @@ __device__ int free_slot(const ReplayArgs& a, int lane) {
 // max_retries, or a full queue, pushes nothing. Lane 0 writes; returns
 // whether it pushed (warp-uniform). Pushes in ascending pod order fill the
 // free slots in index order, as _queue_push_mask's free_order does.
-__device__ bool queue_push(const ReplayArgs& a, int lane, int v, int att,
-                           int pos, int era) {
-  const int slot = att > a.f_maxr ? -1 : free_slot(a, lane);
+__device__ bool queue_push(const ReplayArgs& a, FaultShared& fs, int lane,
+                           int v, int att, int pos, int era) {
+  const int slot = att > a.f_maxr ? -1 : free_slot(a, fs, lane);
   if (lane == 0 && slot >= 0) {
+    const int ready = pos + backoff_of(att, a.f_base, a.f_cap);
     a.q_pod[slot] = v;
     a.q_att[slot] = att;
-    a.q_ready[slot] = pos + backoff_of(att, a.f_base, a.f_cap);
+    a.q_ready[slot] = ready;
     a.q_seq[slot] = a.f_seq[0];
     a.q_era[slot] = era;
     a.f_seq[0] += 1;
+    fs.q_live += 1;
+    fs.q_ready_lb = min(fs.q_ready_lb, ready);
+    fs.q_era_min = min(fs.q_era_min, era);
   }
   __syncwarp();
   return slot >= 0;
@@ -2239,9 +2320,10 @@ __device__ bool queue_push(const ReplayArgs& a, int lane, int v, int att,
 // Evict pod v at `pos` into the queue (_evict_into_queue for one pod):
 // attempts + 1, the eviction position, push or dead (a pod dead at its
 // eviction is ever-failed), the counters; the pod is unbound.
-__device__ void evict_pod(const ReplayArgs& a, int lane, int v, int pos) {
+__device__ void evict_pod(const ReplayArgs& a, FaultShared& fs, int lane,
+                          int v, int pos) {
   const int att = a.f_attempts[v] + 1;
-  const bool pushed = queue_push(a, lane, v, att, pos, 0);
+  const bool pushed = queue_push(a, fs, lane, v, att, pos, 0);
   if (lane == 0) {
     a.f_attempts[v] = att;
     a.f_evicted_at[v] = pos;
@@ -2267,8 +2349,9 @@ __device__ void evict_pod(const ReplayArgs& a, int lane, int v, int pos) {
 // clock and the counters, the step's outputs. The step touches one node
 // (the reset one, or the victim's), which becomes *next and es.node: the
 // next step refreshes its column as after any event.
-__device__ void fault_step(const ReplayArgs& a, EventState& es, int i,
-                           int kind, FaultFields f, int* next, int lane) {
+__device__ void fault_step(const ReplayArgs& a, EventState& es,
+                           FaultShared& fs, int i, int kind, FaultFields f,
+                           int* next, int lane) {
   const int node = min(max(f.arg, 0), a.n - 1);
   const int down = a.f_down_at[node];
   const bool do_fail = kind == kNodeFail && down < 0;
@@ -2325,7 +2408,7 @@ __device__ void fault_step(const ReplayArgs& a, EventState& es, int i,
       unsigned m = __ballot_sync(0xffffffffu, q < a.p && a.placed[q] == node);
       nvict += __popc(m);
       while (m != 0) {
-        evict_pod(a, lane, base + __ffs(m) - 1, pos);
+        evict_pod(a, fs, lane, base + __ffs(m) - 1, pos);
         m &= m - 1;
       }
     }
@@ -2356,7 +2439,7 @@ __device__ void fault_step(const ReplayArgs& a, EventState& es, int i,
       if (cls >= 0) a.aff_cnt[vnode * kAffClasses + cls] -= 1;
     }
     __syncwarp();
-    evict_pod(a, lane, victim, pos);
+    evict_pod(a, fs, lane, victim, pos);
     nvict = 1;
   }
   if (lane == 0) {
@@ -2377,8 +2460,8 @@ __device__ void fault_step(const ReplayArgs& a, EventState& es, int i,
 // on success the latency and the run of failed attempts reset; on failure
 // an attempt is burnt and the pod is pushed again in round `era`, or goes
 // dead.
-__device__ void commit_retry(const ReplayArgs& a, int i, int v, bool ok,
-                             int pos, int era, int lane) {
+__device__ void commit_retry(const ReplayArgs& a, FaultShared& fs, int i,
+                             int v, bool ok, int pos, int era, int lane) {
   if (ok) {
     if (lane == 0) {
       a.y_lat[i] = pos - a.f_evicted_at[v];
@@ -2388,7 +2471,7 @@ __device__ void commit_retry(const ReplayArgs& a, int i, int v, bool ok,
     }
   } else {
     const int att = a.f_attempts[v] + 1;
-    const bool pushed = queue_push(a, lane, v, att, pos, era);
+    const bool pushed = queue_push(a, fs, lane, v, att, pos, era);
     if (lane == 0) {
       a.f_attempts[v] = att;
       if (pushed) {
@@ -2406,64 +2489,130 @@ __device__ void commit_retry(const ReplayArgs& a, int i, int v, bool ok,
 // Where step j is a retry slot, pop it (pop_retry), by one warp: the
 // earliest (ready, seq) entry that is due (ready <= pos; flush round r:
 // pushed before the round, era < r). Its staged event becomes the popped
-// pod's create, or a skip when nothing qualifies; fs.popped[j & 1] says
-// which pod (-1 none).
-__device__ void pop_ahead(const ReplayArgs& a, EventState& es,
-                          FaultShared& fs, int j, int lane) {
-  if (j >= a.e) return;
-  EventFields& ev = es.ev[(j / kEvBatch) & 1][j % kEvBatch];
-  if (ev.kind != kRetry) {
-    if (lane == 0) fs.popped[j & 1] = -1;
-    __syncwarp();
-    return;
-  }
-  const FaultFields f = fs.ff[(j / kEvBatch) & 1][j % kEvBatch];
-  int ready = INT_MAX;
-  int seq = INT_MAX;
-  int slot = -1;
-  for (int q = lane; q < a.f_cap_r; q += 32) {
-    if (a.q_pod[q] < 0) continue;
-    const bool due = f.arg > 0 ? a.q_era[q] < f.arg : a.q_ready[q] <= f.pos;
-    if (!due) continue;
-    const int r = a.q_ready[q];
-    const int sq = a.q_seq[q];
-    if (slot < 0 || r < ready || (r == ready && sq < seq)) {
-      ready = r;
-      seq = sq;
-      slot = q;
+// pod's create, or a skip when nothing qualifies; fs.popped[par] says
+// which pod (-1 none). A slot whose queue summary shows nothing due (no
+// live entry, or none ready by pos, or none of an era before the round)
+// pops nothing without reading the queue; where step j + 1 is staged
+// (below `limit`) it is skipped at once, its outputs written as a skip's,
+// and step j + 1 is popped in its place. A slot that scans the queue
+// recomputes the summary's bounds over the entries it leaves (each lane
+// keeps the two least ready positions and eras of its entries, so that
+// the popped one can be left out). Returns the step the loop runs next.
+__device__ int pop_ahead(const ReplayArgs& a, EventState& es,
+                         FaultShared& fs, int j, int par, int limit,
+                         int lane) {
+  for (;; ++j) {
+    if (j >= a.e) return j;
+    EventFields& ev = es.ev[(j / kEvBatch) & 1][j % kEvBatch];
+    if (ev.kind != kRetry) {
+      if (lane == 0) fs.popped[par] = -1;
+      __syncwarp();
+      return j;
     }
-  }
-  const bool has = __any_sync(0xffffffffu, slot >= 0);
-  int pod = -1;
-  if (has) {
-    const int rmin = __reduce_min_sync(0xffffffffu, slot >= 0 ? ready : INT_MAX);
-    const int smin = __reduce_min_sync(
-        0xffffffffu, slot >= 0 && ready == rmin ? seq : INT_MAX);
-    const unsigned own = __ballot_sync(0xffffffffu, slot >= 0 && ready == rmin &&
-                                                        seq == smin);
-    slot = __shfl_sync(0xffffffffu, slot, __ffs(own) - 1);
-    pod = a.q_pod[slot];
-  }
-  __syncwarp();
-  if (lane == 0) {
+    const long long t0 = clock_now();
+    const FaultFields f = fs.ff[(j / kEvBatch) & 1][j % kEvBatch];
+    const bool flush = f.arg > 0;
+    if (fs.q_live == 0 ||
+        (flush ? fs.q_era_min >= f.arg : fs.q_ready_lb > f.pos)) {
+      const bool skip = j + 1 < limit;
+      __syncwarp();  // every lane has read the summary
+      if (lane == 0) {
+        if (skip) {
+          a.ev_node[j] = -1;
+          a.ev_devb[j] = 0;
+        } else {
+          ev.kind = kSkip;
+          fs.popped[par] = -1;
+        }
+        if (kClocked && threadIdx.x == 0) {
+          fs.clk[kClkPop] += clock_now() - t0;
+          fs.clk[kClkInert] += 1;
+        }
+      }
+      __syncwarp();
+      if (skip) continue;
+      return j;
+    }
+    int ready = INT_MAX;
+    int seq = INT_MAX;
+    int slot = -1;
+    // this lane's live entries: the two least ready positions (the
+    // least's slot) and eras
+    int r1 = INT_MAX, r1_at = -1, r2 = INT_MAX;
+    int e1 = INT_MAX, e1_at = -1, e2 = INT_MAX;
+    for (int q = lane; q < a.f_cap_r; q += 32) {
+      if (a.q_pod[q] < 0) continue;
+      const int r = a.q_ready[q];
+      const int er = a.q_era[q];
+      if (r < r1) {
+        r2 = r1;
+        r1 = r;
+        r1_at = q;
+      } else {
+        r2 = min(r2, r);
+      }
+      if (er < e1) {
+        e2 = e1;
+        e1 = er;
+        e1_at = q;
+      } else {
+        e2 = min(e2, er);
+      }
+      const bool due = flush ? er < f.arg : r <= f.pos;
+      if (!due) continue;
+      const int sq = a.q_seq[q];
+      if (slot < 0 || r < ready || (r == ready && sq < seq)) {
+        ready = r;
+        seq = sq;
+        slot = q;
+      }
+    }
+    const bool has = __any_sync(0xffffffffu, slot >= 0);
+    int pod = -1;
     if (has) {
-      a.q_pod[slot] = -1;
-      a.q_ready[slot] = INT_MAX;
-      a.q_seq[slot] = INT_MAX;
-      ev.kind = kCreate;
-      ev.pod = pod;
-      ev.type = a.p_type[pod];
-      ev.pin = a.p_pinned[pod];
-      ev.cpu = a.p_cpu[pod];
-      ev.mem = a.p_mem[pod];
-      ev.milli = a.p_milli[pod];
-      ev.num = a.p_num[pod];
-    } else {
-      ev.kind = kSkip;
+      const int rmin =
+          __reduce_min_sync(0xffffffffu, slot >= 0 ? ready : INT_MAX);
+      const int smin = __reduce_min_sync(
+          0xffffffffu, slot >= 0 && ready == rmin ? seq : INT_MAX);
+      const unsigned own = __ballot_sync(
+          0xffffffffu, slot >= 0 && ready == rmin && seq == smin);
+      slot = __shfl_sync(0xffffffffu, slot, __ffs(own) - 1);
+      pod = a.q_pod[slot];
     }
-    fs.popped[j & 1] = pod;
+    // the bounds over the entries the pop leaves
+    const int lb =
+        __reduce_min_sync(0xffffffffu, has && r1_at == slot ? r2 : r1);
+    const int em =
+        __reduce_min_sync(0xffffffffu, has && e1_at == slot ? e2 : e1);
+    __syncwarp();
+    if (lane == 0) {
+      if (has) {
+        a.q_pod[slot] = -1;
+        a.q_ready[slot] = INT_MAX;
+        a.q_seq[slot] = INT_MAX;
+        fs.q_live -= 1;
+        ev.kind = kCreate;
+        ev.pod = pod;
+        ev.type = a.p_type[pod];
+        ev.pin = a.p_pinned[pod];
+        ev.cpu = a.p_cpu[pod];
+        ev.mem = a.p_mem[pod];
+        ev.milli = a.p_milli[pod];
+        ev.num = a.p_num[pod];
+      } else {
+        ev.kind = kSkip;
+      }
+      fs.q_ready_lb = lb;
+      fs.q_era_min = em;
+      fs.popped[par] = pod;
+      if (kClocked && threadIdx.x == 0) {
+        fs.clk[kClkPop] += clock_now() - t0;
+        fs.clk[has ? kClkPops : kClkInert] += 1;
+      }
+    }
+    __syncwarp();
+    return j;
   }
-  __syncwarp();
 }
 
 // One warp ends event i: lane 0 commits it (create with `node`, delete, or
@@ -2471,23 +2620,31 @@ __device__ void pop_ahead(const ReplayArgs& a, EventState& es,
 // computes that node's terms for the next event's refresh. In the fault
 // forms (`fs`) a fault step runs fault_step instead, a popped retry's
 // create is followed by commit_retry, and the next step's retry slot is
-// popped. <kLearned>: once the node's state is final, warp 0 arrives at
-// the barrier warp 1 waits at for learned_node_stage.
+// popped (pop_ahead, skipping inert slots staged below `limit`; the step
+// the loop runs next into fs->resume). `par` is the parity of the steps
+// the loop has run (i's where it runs every step). <kLearned>: once the
+// node's state is final, warp 0 arrives at the barrier warp 1 waits at
+// for learned_node_stage.
 template <bool kRandomized = false, bool kFaults = false,
           bool kLearned = false>
 __device__ void end_event(const ReplayArgs& a, const Smem& m, EventState& es,
                           int i, const EventFields& ev, int node, int gpu_sel,
                           bool fgd_terms, int n_pol, int lane,
-                          FaultShared* fs = nullptr) {
-  int* next = &es.dirty[(i + 1) & 1];
+                          FaultShared* fs = nullptr, int par = -1,
+                          int limit = 0) {
+  par = par < 0 ? i & 1 : par & 1;
+  int* next = &es.dirty[par ^ 1];
   bool fault = false;  // a failure, recovery or eviction step
   bool retry = false;  // a popped retry slot's create
   if constexpr (kFaults) {
     fault = ev.kind > kSkip;
-    retry = fs->popped[i & 1] >= 0;
-    if (fault)
-      fault_step(a, es, i, ev.kind, fs->ff[(i / kEvBatch) & 1][i % kEvBatch],
-                 next, lane);
+    retry = fs->popped[par] >= 0;
+    if (fault) {
+      const long long t0 = clock_now();
+      fault_step(a, es, *fs, i, ev.kind,
+                 fs->ff[(i / kEvBatch) & 1][i % kEvBatch], next, lane);
+      if (kClocked && threadIdx.x == 0) fs->clk[kClkFault] += clock_now() - t0;
+    }
   }
   if (!fault && lane == 0) {
     if (ev.kind == kCreate) {
@@ -2504,12 +2661,13 @@ __device__ void end_event(const ReplayArgs& a, const Smem& m, EventState& es,
   }
   __syncwarp();
   if constexpr (kFaults) {
-    const int popped = fs->popped[i & 1];
+    const int popped = fs->popped[par];
     if (popped >= 0) {
       const FaultFields f = fs->ff[(i / kEvBatch) & 1][i % kEvBatch];
-      commit_retry(a, i, popped, node >= 0, f.pos, f.arg, lane);
+      commit_retry(a, *fs, i, popped, node >= 0, f.pos, f.arg, lane);
     }
-    pop_ahead(a, es, *fs, i + 1, lane);
+    const int resume = pop_ahead(a, es, *fs, i + 1, par ^ 1, limit, lane);
+    if (lane == 0) fs->resume[par] = resume;
   }
   if constexpr (kLearned) {
     if (has_node_column(a)) learned_arrive();
@@ -2555,20 +2713,15 @@ __device__ __forceinline__ void prefetch_events(const ReplayArgs& a,
                 threadIdx.x & 31);
 }
 
-// The fault forms' staging beside begin_replay's and prefetch_events', by
-// the last warp: the fault fields of the first batch (first = true), or
-// those of the next batch while step i, the first of its batch, runs.
+// The fault forms' first batch of fault fields, beside begin_replay's
+// events, by the last warp (the loop stages the next ones: stage_ahead).
 // <false>: nothing.
 template <bool kFaults>
 __device__ __forceinline__ void stage_faults(const ReplayArgs& a,
-                                             FaultShared* fs, int i,
-                                             bool first = false) {
+                                             FaultShared* fs) {
   if constexpr (kFaults) {
-    if ((first || (i % kEvBatch == 0 && i + kEvBatch < a.e)) &&
-        (threadIdx.x >> 5) == (blockDim.x >> 5) - 1) {
-      const int at = first ? 0 : i + kEvBatch;
-      load_fault_fields(a, at, fs->ff[(at / kEvBatch) & 1], threadIdx.x & 31);
-    }
+    if ((threadIdx.x >> 5) == (blockDim.x >> 5) - 1)
+      load_fault_fields(a, 0, fs->ff[0], threadIdx.x & 31);
   }
 }
 
@@ -2597,6 +2750,42 @@ template <bool kFaults>
 __device__ __forceinline__ FaultShared* fault_shared(FaultSharedOf<kFaults>& f) {
   if constexpr (kFaults) return &f;
   return nullptr;
+}
+
+// The clocked build's fault forms: thread 0 adds step i's cycles (since
+// `t_step`, its start) to kClkIslot where the step was a retry slot that
+// popped nothing. A no-op elsewhere.
+template <bool kFaults>
+__device__ __forceinline__ void inert_step(const ReplayArgs& a,
+                                           const FaultShared* fs, int i,
+                                           int par, long long* clk,
+                                           long long t_step) {
+  if constexpr (kFaults && kClocked) {
+    if (threadIdx.x == 0 && a.ev_kind[i] == kRetry && fs->popped[par & 1] < 0)
+      clk[kClkIslot] += clock_now() - t_step;
+  }
+}
+
+// The fault forms' staging at step i, the loop's first in its batch of
+// kEvBatch when `fresh`: by the last warp, the next batch's events and
+// fault fields (a batch whose first step the loop skipped is staged at
+// the step it runs first). Returns the end of the staged steps that
+// pop_ahead may look at from step i: the next batch's end where it was
+// staged at an earlier step, else this batch's; 0 in the randomized
+// forms, whose key chain takes a step every merged step, so that they run
+// every slot.
+template <bool kRandomized>
+__device__ __forceinline__ int stage_ahead(const ReplayArgs& a,
+                                           EventState& es, FaultShared* fs,
+                                           int i, bool fresh) {
+  const int b = i / kEvBatch;
+  const int at = (b + 1) * kEvBatch;
+  if (fresh && at < a.e && (threadIdx.x >> 5) == (blockDim.x >> 5) - 1) {
+    load_events(a, at, es.ev[(b + 1) & 1], threadIdx.x & 31);
+    load_fault_fields(a, at, fs->ff[(b + 1) & 1], threadIdx.x & 31);
+  }
+  if (kRandomized) return 0;
+  return min(a.e, (b + (fresh ? 1 : 2)) * kEvBatch);
 }
 
 
@@ -3127,6 +3316,9 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   PhaseClock pc;
   pc.start(s_clk);
   if (kClocked && threadIdx.x == 0) s_work[0] = s_work[1] = s_work[2] = 0;
+  if constexpr (kFaults && kClocked) {
+    if (threadIdx.x == 0) fs->clk = s_clk;
+  }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -3146,21 +3338,35 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
   if constexpr (kLearned) learned_rows(a);
   const Smem m = replay_smem<kStaged>(a, smem, n_pol, false);
   const bool fgd_terms = begin_replay<kGeneral, kStaged, kRandomized>(a, m, es);
-  stage_faults<kFaults>(a, fs, 0, true);
+  stage_faults<kFaults>(a, fs);
   if (kRandomized && tid == 0)
     advance_keys(es, make_uint2(a.key[0], a.key[1]), 0);
   __syncthreads();
   if constexpr (kFaults) {
-    if (warp == 0) pop_ahead(a, es, *fs, 0, lane);
+    if (warp == 0) {
+      queue_summary(a, *fs, lane);
+      pop_ahead(a, es, *fs, 0, 0, 0, lane);
+    }
     __syncthreads();
   }
   const long long t0 = clock_now();
+  int next_batch = 1;  // the fault forms: the next batch to stage
 
-  for (int i = 0; i < a.e; ++i) {
-    prefetch_events(a, es, i);
-    stage_faults<kFaults>(a, fs, i);
+  // i: the step; k: the steps run (the fault forms skip inert retry
+  // slots), whose parity indexes the per-step slots
+  for (int i = 0, k = 0; i < a.e; ++k) {
+    const int par = kFaults ? k : i;
+    const long long t_step = clock_now();
+    int limit = 0;  // pop_ahead's staged end
+    if constexpr (kFaults) {
+      const bool fresh = i / kEvBatch + 1 == next_batch;
+      next_batch += fresh ? 1 : 0;
+      limit = stage_ahead<kRandomized>(a, es, fs, i, fresh);
+    } else {
+      prefetch_events(a, es, i);
+    }
     // refresh the column of the node the previous event changed
-    const int dirty = es.dirty[i & 1];
+    const int dirty = es.dirty[par & 1];
     if (dirty >= 0) {
       const long long t_ref = clock_now();
       refresh_column<kGeneral, false, true, kRandomized, kLearned>(
@@ -3317,15 +3523,16 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
         const int node = __shfl_sync(0xffffffffu, b.node, 0);
         end_event<kRandomized, kFaults, kLearned>(
             a, m, es, i, ev, node == INT_MAX ? -1 : node, gpu_sel, fgd_terms,
-            n_pol, lane, fs);
+            n_pol, lane, fs, par, limit);
       }
     } else if (warp == 0) {
       end_event<kRandomized, kFaults, kLearned>(a, m, es, i, ev, -1, gpu_sel,
-                                                fgd_terms, n_pol, lane, fs);
+                                                fgd_terms, n_pol, lane, fs,
+                                                par, limit);
     }
     if constexpr (kLearned) {
       if (warp == 1 && has_node_column(a))
-        learned_node_stage(a, es, i, lane,
+        learned_node_stage(a, es, par, lane,
                            kClocked ? s_clk + kClkNode : nullptr);
     }
     // the next event's keys, by a thread of the last warp while warp 0
@@ -3334,11 +3541,17 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
       advance_keys(es, es.key, (i + 1) & 1);
     pc.sync();
     pc.mark(kClkCommit);
+    inert_step<kFaults>(a, fs, i, par, s_clk, t_step);
     if constexpr (kRecord) {
       if (ev.kind == kCreate && a.rec_dec != nullptr)
         record_decision<kLearned>(a, *rs, warp_res, i, ev.type, ev.pin,
                                   a.ev_node[i], false);
       if (tid == 0) record_count<kLearned>(a, *rs, i, ev.kind);
+    }
+    if constexpr (kFaults) {
+      i = fs->resume[par & 1];
+    } else {
+      ++i;
     }
   }
   if constexpr (kRecord) {
@@ -3534,6 +3747,9 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   PhaseClock pc;
   pc.start(s_clk);
   if (kClocked && threadIdx.x == 0) s_work[0] = s_work[1] = s_work[2] = 0;
+  if constexpr (kFaults && kClocked) {
+    if (threadIdx.x == 0) fs->clk = s_clk;
+  }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -3547,7 +3763,7 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   if constexpr (kLearned) learned_rows(a);
   const Smem m = replay_smem<kStaged>(a, smem, n_pol, true);
   const bool fgd_terms = begin_replay<kGeneral, kStaged>(a, m, es);
-  stage_faults<kFaults>(a, fs, 0, true);
+  stage_faults<kFaults>(a, fs);
   if constexpr (kRecord) {
     if (tid == 0) record_begin(a, *rs);
   }
@@ -3590,18 +3806,35 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
   }
   __syncthreads();
   if constexpr (kFaults) {
-    if (warp == 0) pop_ahead(a, es, *fs, 0, lane);
+    if (warp == 0) {
+      queue_summary(a, *fs, lane);
+      pop_ahead(a, es, *fs, 0, 0, 0, lane);
+    }
     __syncthreads();
   }
   pc.mark(kClkInit);
   const long long t0 = clock_now();
+  int next_batch = 1;  // the fault forms: the next batch to stage
 
-  for (int i = 0; i < a.e; ++i) {
-    prefetch_events(a, es, i);
-    stage_faults<kFaults>(a, fs, i);
+  // i: the step; k: the steps run (replay_body's)
+  for (int i = 0, k = 0; i < a.e; ++k) {
+    const int par = kFaults ? k : i;
+    const long long t_step = clock_now();
+    int limit = 0;  // pop_ahead's staged end
+    if constexpr (kFaults) {
+      const bool fresh = i / kEvBatch + 1 == next_batch;
+      next_batch += fresh ? 1 : 0;
+      limit = stage_ahead<false>(a, es, fs, i, fresh);
+      // with normalised policies every step, a skip too, checks its type's
+      // extrema for drift (and may rebuild a summary row): no slot is
+      // skipped then
+      if (kGeneral && nn > 0) limit = 0;
+    } else {
+      prefetch_events(a, es, i);
+    }
     // refresh the column of the node the previous event changed, then that
     // node's block summaries of every type under the stored extrema
-    const int dirty = es.dirty[i & 1];
+    const int dirty = es.dirty[par & 1];
     if (dirty >= 0) {
       const int c = dirty / kBlock;
       if (tid < kBlock) s_rank[tid] = a.rank[c * kBlock + tid];
@@ -3705,27 +3938,34 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
         const int blk = __shfl_sync(0xffffffffu, b.node, 0);
         end_event<false, kFaults, kLearned>(
             a, m, es, i, ev, blk == INT_MAX ? -1 : a.bn[row + blk], gpu_sel,
-            fgd_terms, n_pol, lane, fs);
+            fgd_terms, n_pol, lane, fs, par, limit);
       }
     } else if (warp == 0) {
       // a pinned pod has one candidate: its Filter bit decides
       const bool ok = ev.kind == kCreate && ev.pin < a.n &&
                       a.feas[static_cast<size_t>(type) * a.n + ev.pin] != 0;
       end_event<false, kFaults, kLearned>(a, m, es, i, ev, ok ? ev.pin : -1,
-                                          gpu_sel, fgd_terms, n_pol, lane, fs);
+                                          gpu_sel, fgd_terms, n_pol, lane, fs,
+                                          par, limit);
     }
     if constexpr (kLearned) {
       if (warp == 1 && has_node_column(a))
-        learned_node_stage(a, es, i, lane,
+        learned_node_stage(a, es, par, lane,
                            kClocked ? s_clk + kClkNode : nullptr);
     }
     pc.sync();
     pc.mark(kClkCommit);
+    inert_step<kFaults>(a, fs, i, par, s_clk, t_step);
     if constexpr (kRecord) {
       if (ev.kind == kCreate && a.rec_dec != nullptr)
         record_decision<kLearned>(a, *rs, warp_res, i, type, ev.pin,
                                   a.ev_node[i], true);
       if (tid == 0) record_count<kLearned>(a, *rs, i, ev.kind);
+    }
+    if constexpr (kFaults) {
+      i = fs->resume[par & 1];
+    } else {
+      ++i;
     }
   }
   if constexpr (kRecord) {
@@ -4456,11 +4696,12 @@ inline bool record_operands(const ReplayArgs* a) {
 }
 
 // Launches a replay kernel: the staged form (no scratch) with the dynamic
-// shared memory its shape needs, which refuses a shape past the staged
-// limits; the global form (a scratch buffer) with none.
+// shared memory its shape needs (and `extra` bytes after it), which
+// refuses a shape past the staged limits; the global form (a scratch
+// buffer) with none.
 template <typename Kernel>
 int launch_replay(Kernel kernel, const ReplayArgs* a, bool general,
-                  bool blocked, cudaStream_t s) {
+                  bool blocked, cudaStream_t s, size_t extra = 0) {
   const bool staged = a->scratch == nullptr;
   if (a->k < 1 || a->t < 0 || a->ks < 0 || a->ks > a->k ||
       (staged && !staged_shape(a)))
@@ -4468,7 +4709,7 @@ int launch_replay(Kernel kernel, const ReplayArgs* a, bool general,
   size_t bytes = 0;
   if (staged) {
     bytes = carve(nullptr, a->k, a->t, general ? a->n_pol : 1, blocked,
-                  nullptr);
+                  nullptr) + extra;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));

@@ -9,10 +9,15 @@
 // creates, deletes and skips as in `replay`, node failures, recoveries and
 // evictions (fault_step, by warp 0 where it commits), and retry slots,
 // popped by warp 0 at the end of the step before (pop_ahead) into a create
-// of the popped pod or a skip. An inert slot costs the pop's scan of the
-// queue (one warp, f_cap_r entries) and the step's barrier. The kernels
-// are compiled in a file of their own, in parallel with the others, so the
-// no-fault instantiations are built as they were.
+// of the popped pod or a skip. What bounds them: the merged stream's
+// serial chain, about 60% of whose steps are retry slots with nothing
+// due. A slot reads a summary of the queue in shared memory (live
+// entries, the least ready position and era) instead of scanning the
+// queue's f_cap_r entries in device memory, and the non-randomized forms
+// skip such a slot inside the pop, so it costs no step (a scan and a
+// step's barrier, ~1 us) of its own. The kernels are compiled in a file
+// of their own, in parallel with the others, so the no-fault
+// instantiations are built as they were.
 //
 // Interface: plain C, bound with ctypes; the launchers return the CUDA
 // error code of the launch and never synchronise.
