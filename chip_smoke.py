@@ -61,9 +61,13 @@ result line:
            build (each run's outputs held to the main build's) for 06-FGD,
            05-BestFit, 08 and 01-Random (replay only) at openb, of
            replay_learned and replay_blocked_learned for the linear learned
-           family at openb (the node column's value in its own slot), and,
-           in the scale phase, on the first 1,000 events at 100k nodes;
-           written to chiprun_out/phase_clocks.json.
+           family at openb (the node column's value in its own slot), of
+           the fault forms over the openb lane, of replay_forced on the
+           teacher log, of replay_record and replay_blocked_record over
+           the obs phase's openb prefix (the series samples, the decision
+           rows and the counting in slots of their own), and, in the scale
+           phase, on the first 1,000 events at 100k nodes; written to
+           chiprun_out/phase_clocks.json.
 5. main    Simulator.run() on the card for every row of the paper's method
            list, Simon alone and the six-policy profile of `simon apply`
            (openb gpu_node list, default trace, tune 1.3, tuning seed 42,
@@ -248,7 +252,11 @@ result line:
            carried counters, timed (CUDA events, median of 3) beside the
            form that records nothing; the heartbeat over the scale phase's
            first chunk (OBS_HEARTBEAT_EVENTS events at 100k nodes) with
-           its exact tick count. Writes chiprun_out/obs_phase.json.
+           its exact tick count, and the counting form that run takes
+           against its plain version over the chunk's first SCALE_PREFIX
+           events (counters alone; a heartbeat, with the key out; the
+           outputs, counters and ticks at tolerance 0). Writes
+           chiprun_out/obs_phase.json.
 14. learn the learned policy (tpusim_torch.learn) on the learned
            instantiations of the replay kernels (replay_learned.cu,
            replay_blocked_learned.cu, replay_learned_records.cu,
@@ -296,7 +304,12 @@ state restored before each), and the main phase's replay wall (warm
 Simulator.run_events, residency "auto", min of 5, host clock around a
 synchronise); then, on the first chunk of the 100k-node
 scale stream, `init_tables` (median of 3) and `replay_blocked` (one
-launch). Every replay's placements, device masks and per-event nodes, and
+launch); then the forced and fault forms (ab_forms) and the record forms
+beside the forms that record nothing on the same events (ab_records:
+`replay_record` and `replay_blocked_record` over the obs phase's openb
+prefix, the learned record forms, and the 100k chunk's first 20,000
+events counting only; outputs and records digested). Every replay's
+placements, device masks and per-event nodes, and
 every init_tables launch's tables, are digested, and all turns must agree
 on them (rows a checkout cannot run, such as 01-Random before it had a
 PRNG, are left out of its turn; the randomized rows time `replay` only).
@@ -906,6 +919,99 @@ def random_case(seed: int, num_nodes: int, num_pods: int, device):
     rank = col(rng.permutation(num_nodes))
     return (state, pods, build_pod_types(pods), col(kinds), col(idx), tp,
             rank)
+
+
+# The record forms' edge case: RECORD_EDGE_NODES nodes, neither whole int4s
+# nor whole 128-node blocks (three blocks, the last padded), most of them of
+# three node shapes repeated (tied totals, ranks deciding), four 8-GPU nodes
+# of model 2 inside block 1 and two of model 3 in blocks 0 and 2
+RECORD_EDGE_NODES = 301
+RECORD_EDGE_BIG = (140, 141, 150, 200)  # model 2
+RECORD_EDGE_RARE = (10, 270)  # model 3
+
+
+def record_edge_fields(seed: int = 83) -> dict:
+    """numpy fields of the record forms' edge case (RECORD_EDGE_NODES):
+    "nodes" (make_node_state's arguments), "pods" (PodSpec's fields),
+    "typical" (make_typical_pods' rows), "kinds" and "idx" (the events)
+    and "rank". The first pods meet the decision's edges on the empty
+    cluster: 8-GPU pods of model 2 (four feasible nodes, all in block 1:
+    a top-3 inside one block, then three and two), of model 3 (two
+    feasible nodes, then one, then none), CPU pods only the 8-GPU nodes
+    hold (six feasible, across the three blocks), small pods pinned to a
+    node that holds them (block 0 and the last real node) and pods pinned
+    where they fit nowhere (a GPU pod on a CPU-only node, too much CPU);
+    then seeded random pods, with deletes, on nodes of equal shapes."""
+    rng = np.random.default_rng(seed)
+    n = RECORD_EDGE_NODES
+    shapes = ((64000, 262144, 4, 1, 0), (32000, 131072, 0, -1, 1),
+              (96000, 262144, 2, 0, 2))
+    pick = rng.choice(len(shapes), n, p=[0.5, 0.2, 0.3])
+    cols = np.array([shapes[j] for j in pick])
+    for nodes, model, ctype in ((RECORD_EDGE_BIG, 2, 0),
+                                (RECORD_EDGE_RARE, 3, 1)):
+        cols[list(nodes)] = (128000, 393216, 8, model, ctype)
+    cpu_only = int(np.flatnonzero(cols[:, 2] == 0)[0])
+    # (cpu, mem, milli, num, mask, pinned) of the edge pods
+    edge = ([(8000, 16384, 1000, 8, 1 << 2, -1)] * 3
+            + [(8000, 16384, 1000, 8, 1 << 3, -1)] * 3
+            + [(100000, 1024, 0, 0, 0, -1)] * 3
+            + [(1000, 1024, 0, 0, 0, 5), (1000, 1024, 500, 1, 0, cpu_only),
+               (1000, 1024, 0, 0, 0, n - 1), (200000, 1024, 0, 0, 0, 7)])
+    extra = 140
+    kind = rng.integers(0, 3, extra)  # cpu-only, share, whole
+    milli = np.where(kind == 1, rng.choice([100, 250, 500, 750], extra),
+                     np.where(kind == 2, 1000, 0))
+    num = np.where(kind == 2, rng.choice([1, 2, 4], extra),
+                   (kind == 1).astype(int))
+    mask = np.where((kind > 0) & (rng.random(extra) < 0.2),
+                    1 << rng.integers(0, 2, extra), 0)
+    rand = np.stack([rng.choice([1000, 2000, 4000, 8000], extra),
+                     rng.choice([1024, 4096, 16384], extra), milli, num,
+                     mask, np.full(extra, -1)], 1)
+    pods = np.concatenate([np.asarray(edge), rand]).astype(np.int32)
+    kinds, idx, alive = [], [], []
+    for i in range(pods.shape[0]):
+        kinds.append(0)
+        idx.append(i)
+        alive.append(i)
+        if i >= len(edge) and rng.random() < 0.3 and len(alive) > 1:
+            kinds.append(1)
+            idx.append(alive.pop(int(rng.integers(0, len(alive)))))
+    t = 24
+    freq = rng.random(t).astype(np.float32)
+    typical = list(zip(
+        rng.choice([1000, 4000, 8000, 16000], t).tolist(),
+        rng.choice([0, 100, 250, 500, 1000], t).tolist(),
+        rng.choice([1, 2], t).tolist(), rng.choice([0, 1, 6], t).tolist(),
+        (freq / freq.sum()).tolist()))
+    return dict(
+        nodes=dict(cpu_cap=cols[:, 0], mem_cap=cols[:, 1],
+                   gpu_cnt=cols[:, 2], gpu_type=cols[:, 3],
+                   cpu_type=cols[:, 4]),
+        pods=dict(zip(("cpu", "mem", "gpu_milli", "gpu_num", "gpu_mask",
+                       "pinned"), pods.T)),
+        typical=typical, kinds=np.asarray(kinds, np.int32),
+        idx=np.asarray(idx, np.int32),
+        rank=rng.permutation(n).astype(np.int32))
+
+
+def record_edge_case(device):
+    """record_edge_fields as the port's tensors (random_case's tuple)."""
+    import torch
+
+    from tpusim_torch.sim.table_engine import build_pod_types
+    from tpusim_torch.types import make_node_state, make_typical_pods, PodSpec
+
+    f = record_edge_fields()
+
+    def col(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    pods = PodSpec(**{k: col(v) for k, v in f["pods"].items()})
+    return (make_node_state(**f["nodes"], device=device), pods,
+            build_pod_types(pods), col(f["kinds"]), col(f["idx"]),
+            make_typical_pods(f["typical"], device), col(f["rank"]))
 
 
 def typed_case(seed: int, num_nodes: int, ks: int, kw: int, t: int,
@@ -1673,7 +1779,7 @@ def clock_line(where: str, name: str, label: str, variant: str, e: int,
     split = {ph: clk[ph] / rate / e for ph in
              ("refresh", "work", "setup", "sum", "node", "block", "drift",
               "extrema", "select", "rows", "arow", "pick", "commit", "pop",
-              "fault", "wait")}
+              "fault", "sample", "decide", "count", "wait")}
     slots = clk["inert"] + clk["pops"]
     out = dict(where=where, kernel=name, row=label, variant=variant, events=e,
                ms=ms, mhz=rate, us_per_event=split,
@@ -1839,6 +1945,66 @@ def fault_clocks(device, card: str, inputs):
                                    "from the main build on the openb lane")
             out.append(clock_line("openb lane", name, "06-FGD", variant,
                                   int(plan.kind.shape[0]), ms, clk))
+    return out
+
+
+def record_clocks(device, card: str, inputs, where: str = "openb prefix",
+                  counting: bool = False):
+    """The phase split of replay_record and replay_blocked_record through
+    the clocked variant (replay_records_clocked.cu) over the obs phase's
+    openb prefix (OBS_KERNEL_EVENTS events of 06-FGD, decisions and the
+    series at OBS_EVERY): the series samples (`sample`), the decision rows
+    (`decide`) and the counting (`count`) beside the other phases, each
+    also per sample and per create. With `counting`, replay_blocked_record
+    counting only over all of `inputs`' events. Each clocked run's outputs
+    and records must equal the main build's."""
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.records import RecordSpec
+
+    state, specs, types, evk, evp, tp, rank = inputs
+    e = int(evk.shape[0]) if counting else OBS_KERNEL_EVENTS
+    evk, evp = evk[:e], evp[:e]
+    creates = int((evk == 0).sum())
+    cfg = fe.make_config(*dict((r[0], r) for r in METHODS)["06-FGD"][1:5])
+    spec = RecordSpec() if counting else RecordSpec(True, OBS_EVERY, 0)
+    out = []
+    for name in RECORD_KERNELS[1:] if counting else RECORD_KERNELS:
+        blocked = name == "replay_blocked_record"
+        st, rk = pad_nodes(state, rank, 128) if blocked else (state, rank)
+        tables = fe.init_tables(st, types, tp, cfg)
+        args = (st, specs, types, evk, evp, tp, rk, tables, cfg)
+        prep = (functools.partial(he.prepare_replay_blocked,
+                                  n_real=state.num_nodes, record=spec)
+                if blocked else functools.partial(
+                    fe.prepare_replay, key=OPENB_KEY, record=spec))
+        base = prep(*args)
+        fe.launch(base)  # the main build, past the wrapper: not counted
+        want = to_cpu(base.finish())
+        for variant in CLOCK_VARIANTS:
+            clocked_run(prep(*args), variant, device)  # loads the module
+            ready = prep(*args)
+            ms, clk = clocked_run(ready, variant, device)
+            got = to_cpu(ready.finish())
+            if max_abs_err(got, want):
+                raise SmokeFailure(f"the {variant} build of {name} differs "
+                                   f"from the main build ({where})")
+            line = clock_line(where, name, "06-FGD" + (" counting" if
+                                                      counting else ""),
+                              variant, e, ms, clk)
+            samples = 0 if counting else int(got[-1].ser.shape[0])
+            line.update(samples=samples, creates=creates,
+                        sample_us=line["us_per_event"]["sample"] * e
+                        / max(samples, 1),
+                        decide_us=line["us_per_event"]["decide"] * e
+                        / max(creates, 1),
+                        count_us=line["us_per_event"]["count"])
+            print(f"clocks {where} {name} [{variant}]: a sample "
+                  f"{line['sample_us']:.3f} us ({samples}), a decision "
+                  f"{line['decide_us']:.3f} us ({creates} creates), the "
+                  f"count {line['count_us']:.3f} us an event; card {card}")
+            out.append(line)
     return out
 
 
@@ -5385,34 +5551,64 @@ def series_digest(log) -> str:
 
 
 def record_against_plain(name: str, args, cfg, spec, key=CHECK_KEY,
-                         n_real: int = None, timed: bool = False):
+                         n_real: int = None, timed: bool = False,
+                         key_out: bool = False):
     """A record form (`replay` or `replay_blocked` with `spec`, a
     records.RecordSpec) launched past its wrapper on `args` = (state, pods,
     types, ev_kind, ev_pod, typical pods, rank, tables), against its plain
     version on CPU copies: the largest error over the outputs and the
-    records (counters, decision and sample rows); with `timed`, (that
-    error, the plain version's host milliseconds)."""
+    records (counters, decision and sample rows, and with a heartbeat the
+    processed counts its ticks deliver, from the launch's mapped ring and
+    from the plain loop); with `timed`, (that error, the plain version's
+    host milliseconds). With `key_out` the launch runs the record form's
+    chunk instantiation (kKeyOut, from `key`), whose key out must also be
+    the plain version's."""
+    import torch
+
+    from tpusim_torch.obs import heartbeat
     from tpusim_torch.sim import fused_engine as fe
     from tpusim_torch.sim import hbm_engine as he
 
-    kw = dict(key=key) if name == "replay" else dict(n_real=n_real)
-    if name == "replay":
-        ready = fe.prepare_replay(*args, cfg, record=spec, **kw)
-    else:
-        ready = he.prepare_replay_blocked(*args, cfg, record=spec, **kw)
-    fe.launch(ready)
-    got = ready.finish()
-    plain = fe.plain_replay if name == "replay" else he.plain_replay_blocked
-    keep = {}
-    cpu_spec = spec._replace(ctr=None if spec.ctr is None
-                             else spec.ctr.cpu())
-    cpu_args = to_cpu(args)
-    t0 = time.perf_counter()
-    want = plain(*cpu_args, cfg, keep=keep, record=cpu_spec, **kw)
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    kw = dict(key=key) if name == "replay" or key_out else {}
+    if name != "replay":
+        kw["n_real"] = n_real
+    ticks = ([], [])  # the launch's, the plain version's
+
+    def heard(info):
+        ticks[1 if done_launch else 0].append(info["done"])
+    done_launch = False
+    if spec.heartbeat_every:
+        heartbeat.configure(0, "record check", sink=lambda line: None)
+        heartbeat.add_listener(heard)
+    try:
+        prep = (fe.prepare_replay if name == "replay"
+                else he.prepare_replay_blocked)
+        ready = prep(*args, cfg, record=spec, key_out=key_out, **kw)
+        fe.launch(ready)
+        got = ready.finish()
+        done_launch = True
+        plain = (fe.plain_replay if name == "replay"
+                 else he.plain_replay_blocked)
+        keep = {}
+        cpu_spec = spec._replace(ctr=None if spec.ctr is None
+                                 else spec.ctr.cpu())
+        cpu_args = to_cpu(args)
+        t0 = time.perf_counter()
+        want = plain(*cpu_args, cfg, keep=keep, record=cpu_spec, **kw)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        heartbeat.remove_listener(heard)
     want = (want, keep["records"]) if name == "replay" else \
         (*want, keep["records"])
     err = max_abs_err(to_cpu(got), to_cpu(want))
+    if key_out:
+        err = max(err, max_abs_err((ready.tensors["key_out"].cpu(),),
+                                   (keep["key"].cpu(),)))
+    if spec.heartbeat_every:
+        if not ticks[1]:
+            raise SmokeFailure(f"record check {name}: the plain version "
+                               f"ticked no heartbeat")
+        err = max(err, max_abs_err(*((torch.tensor(t),) for t in ticks)))
     return (err, plain_ms) if timed else err
 
 
@@ -5605,8 +5801,9 @@ def obs_heartbeat(device, card: str, auto) -> dict:
     """The heartbeat over the scale phase's first chunk (100k nodes,
     OBS_HEARTBEAT_EVENTS events, `replay_blocked`'s record form): exactly
     one tick a stride crossing, plus the final one, from the mapped ring,
-    beside the same chunk without records (host clock); then both kernels
-    alone over the chunk's first tenth."""
+    beside the same chunk without records (host clock); the counting form
+    against its plain version over the chunk's first SCALE_PREFIX events;
+    then both kernels alone over the chunk's first tenth."""
     from tpusim_torch.obs import heartbeat
     from tpusim_torch.sim import fused_engine as fe
 
@@ -5653,42 +5850,76 @@ def obs_heartbeat(device, card: str, auto) -> dict:
              torch.as_tensor(auto.ev_kind[:cut], device=device),
              torch.as_tensor(auto.ev_pod[:cut], device=device), sim.typical,
              rk, tables)
+    # the counting form (06-FGD: the kCountOnly instantiation) against
+    # its plain version on the chunk's first SCALE_PREFIX events,
+    # tolerance 0: the counters alone, then through the chunk
+    # instantiation with the key out, a heartbeat at a stride that ticks
+    pre = (*kargs[:3], kargs[3][:SCALE_PREFIX], kargs[4][:SCALE_PREFIX],
+           *kargs[5:])
+    count_err = max(
+        record_against_plain("replay_blocked", pre, cfg, RecordSpec(),
+                             n_real=sim.init_state.num_nodes),
+        record_against_plain("replay_blocked", pre, cfg,
+                             RecordSpec(heartbeat_every=SCALE_PREFIX // 5),
+                             n_real=sim.init_state.num_nodes, key_out=True))
+    if count_err:
+        raise SmokeFailure(f"obs heartbeat: the counting form differs from "
+                           f"its plain version over {SCALE_PREFIX} events of "
+                           f"the 100k chunk: max_abs_err {count_err}")
     rec = he.prepare_replay_blocked(*kargs, cfg, record=RecordSpec(),
                                     n_real=sim.init_state.num_nodes)
     base = he.prepare_replay_blocked(*kargs, cfg)
     rec_ms = kernel_ms(rec, 3, record_reset(rec, st, tables))
     base_ms = kernel_ms(base, 3, reset_of(base, st, tables))
+    # the counting form's bound: the serial chain of the form that records
+    # nothing on the same events (counting adds no work that waits)
+    kinds = np.asarray(auto.ev_kind[:cut])
+    pinned = auto.specs.pinned.cpu().numpy()[np.asarray(auto.ev_pod[:cut])]
+    step = skip_step_ms("replay_blocked", (st, auto.specs, auto.types,
+                                           sim.typical, rk, tables), cfg,
+                        cut)
+    bound = chain_blocked_ms(
+        step, kinds, int(((kinds == 0) & (pinned < 0)).sum()), st.num_nodes,
+        auto.types.num_types, refreshes_of(rec.finish()[0].event_node.cpu()),
+        len(cfg.policies), len(he._norm_index(cfg)), 0)
     print(f"obs heartbeat: {ticks} ticks over {e} events at {OBS_HEARTBEAT} "
-          f"({len(lines)} lines printed, the rest rate-limited), "
+          f"({len(lines)} lines printed, the rest rate-limited), the "
+          f"counting form against its plain version over the chunk's first "
+          f"{SCALE_PREFIX} events max_abs_err {count_err} (counters, "
+          f"outputs, ticks, key out; tolerance 0), "
           f"{sim.last_engine}, run_events {ms:.0f} ms against {plain_ms:.0f} "
           f"ms without records (host clock); the kernels alone over {cut} "
           f"events: the record form counting only {rec_ms:.2f} ms, the "
-          f"form that records nothing {base_ms:.2f} ms; card {card}")
+          f"form that records nothing {base_ms:.2f} ms, bound {bound:.2f} "
+          f"ms (serial chain); card {card}")
     return dict(events=e, every=OBS_HEARTBEAT, ticks=ticks, ms=ms,
                 plain_ms=plain_ms, lines=len(lines), kernel_events=cut,
-                counting_kernel_ms=rec_ms, unrecorded_kernel_ms=base_ms)
+                counting_err=count_err, counting_checked=SCALE_PREFIX,
+                counting_kernel_ms=rec_ms, unrecorded_kernel_ms=base_ms,
+                counting_bound_ms=bound)
 
 
-def record_bound(n: int, k: int, t: int, p: int, e: int, n_pol: int,
-                 creates: int, samples: int, refreshes: int, ops: float):
-    """(ms, what bounds it) of a record form as throughput_bound counts the
-    replay, plus the records: each decision's four passes read the type's
-    feasibility and score rows (4 (n_pol + 1) N bytes each) and do about
-    4 n_pol operations a node, each sample reads the cluster's state and
-    the type's rows (as a create) and does about 24 operations per (node,
-    typical pod) for the frag amounts, and the rows are written."""
+def record_bound(chain: float, n: int, k: int, t: int, p: int, e: int,
+                 n_pol: int, samples: int):
+    """(ms, what bounds it) of a record form: the greater of its serial
+    event chain and the bytes it moves. `chain` is the chain of the form
+    that records nothing on the same events (chain_ms or chain_blocked_ms):
+    a decision adds no pass over N to it (its top-K and feasible count come
+    from the select's own pass), a count or a heartbeat tick nothing that
+    waits; each series sample adds its frag amounts, about 24 operations
+    per (node, typical pod), at the card's int32 rate. The bytes are the
+    replay's (throughput_bound's, every input read once and every output
+    written once) plus the records': each sample reads the cluster's state
+    and the type's rows, and the decision and sample rows are written."""
     from tpusim_torch.sim.records import dec_cols, ser_cols
 
     state_bytes = n * (1 + 1 + 1 + 1 + 8 + 1) * 4
-    extra = (creates * 4 * 4 * (n_pol + 1) * n
-             + samples * (state_bytes + 2 * 4 * (n_pol + 1) * n)
+    extra = (samples * (state_bytes + 2 * 4 * (n_pol + 1) * n)
              + e * dec_cols(n_pol) * 4 + samples * ser_cols(n_pol) * 4)
-    base_ms, _ = throughput_bound(n, k, t, p, e, n_pol, refreshes, ops,
-                                  extra)
-    rec_ops = refreshes * ops + creates * 4 * 4 * n_pol * n \
-        + samples * 24 * n * t
-    by_ops = rec_ops / PEAK_INT32_PER_S * 1e3
-    return (by_ops, "operations") if by_ops > base_ms else (base_ms, "bytes")
+    by_bytes = throughput_bound(n, k, t, p, e, n_pol, 0, 0, extra)[0]
+    by_chain = chain + samples * 24 * n * t / PEAK_INT32_PER_S * 1e3
+    return ((by_chain, "operations") if by_chain > by_bytes
+            else (by_bytes, "bytes"))
 
 
 def obs_kernels(device, card: str) -> dict:
@@ -5710,6 +5941,10 @@ def obs_kernels(device, card: str) -> dict:
     cfg = fe.make_config([("FGDScore", 1000)], "FGDScore")
     spec = RecordSpec(True, OBS_EVERY, 0)
     kinds = evk.cpu().numpy()
+    # the creates that select (a pinned create reads no block summary)
+    unpinned = int(((kinds == 0)
+                    & (specs.pinned.cpu().numpy()[evp.cpu().numpy()] < 0))
+                   .sum())
     rows = {}
     for name in RECORD_KERNELS:
         blocked = name == "replay_blocked_record"
@@ -5728,12 +5963,17 @@ def obs_kernels(device, card: str) -> dict:
         got = rec.finish()
         result = got[0]
         refreshes = refreshes_of(result.event_node.cpu())
-        creates = int((kinds == 0).sum())
         samples = int(got[-1].ser.shape[0])
-        ops = float(node_ops(cfg, state, types, tp).mean())
-        bound, by = record_bound(st.num_nodes, types.num_types, tp.size,
-                                 int(specs.cpu.shape[0]), e, 1, creates,
-                                 samples, refreshes, ops)
+        step = skip_step_ms(name, (st, specs, types, tp, rk, tables), cfg,
+                            e)
+        chain = (chain_blocked_ms(step, kinds, unpinned, st.num_nodes,
+                                  types.num_types, refreshes, 1, 0, 0)
+                 if blocked else
+                 chain_ms(step, kinds, st.num_nodes, types.num_types,
+                          refreshes))
+        bound, by = record_bound(chain, st.num_nodes, types.num_types,
+                                 tp.size, int(specs.cpu.shape[0]), e, 1,
+                                 samples)
         rows[name] = dict(max_abs_err=err, ms=rec_ms, plain_ms=plain_ms,
                           bound_ms=bound, bound_by=by, events=e,
                           unrecorded_ms=base_ms,
@@ -5791,6 +6031,11 @@ def obs_path(device, card: str, auto=None):
         if auto is None:
             auto = scale_inputs(device)[2]
         out["heartbeat"] = obs_heartbeat(device, card, auto)
+        hb = out["heartbeat"]
+        out["kernels"]["replay_blocked_record"]["counting_100k"] = dict(
+            events=hb["kernel_events"], ms=hb["counting_kernel_ms"],
+            unrecorded_ms=hb["unrecorded_kernel_ms"],
+            bound_ms=hb["counting_bound_ms"], bound_by="operations")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t0
@@ -6292,15 +6537,11 @@ def learn_records(device, card: str, nodes, pods) -> dict:
             ready = he.prepare_replay_blocked(*args, cfg, record=spec,
                                               n_real=state.num_nodes)
         ms = kernel_ms(ready, 3, record_reset(ready, st, tables))
-        creates = int((evk[:m] == 0).sum())
         n, k, t = st.num_nodes, types.num_types, tp.size
-        bound = record_bound(
-            n, k, t, specs.cpu.shape[0], m, len(cfg.fam), creates,
-            m // LEARN_RECORD_EVERY + 1, m,
-            learned_ops(cfg, st, types, tp).mean())
         # the serial event chain: m of the least all-skip steps (the form
         # that records nothing, or 06-FGD's) and the events' bytes, its
-        # refreshes' bytes left out (a lower bound)
+        # refreshes' bytes left out (a lower bound), with the samples'
+        # frag work (record_bound)
         step = least_step_ms(base, (st, specs, types, tp, rk, tables), cfg,
                              m)[0]
         kinds = evk[:m].cpu().numpy()
@@ -6308,20 +6549,22 @@ def learn_records(device, card: str, nodes, pods) -> dict:
                  if base == "replay" else
                  chain_blocked_ms(step, kinds, 0, n, k, 0, cfg.num_tables, 0,
                                   0))
+        samples = int(ready.finish()[-1].ser.shape[0])
+        bound, by = record_bound(chain, n, k, t, specs.cpu.shape[0], m,
+                                 len(cfg.fam), samples)
         print(f"check openb {name} E={m}: max_abs_err={err} over outputs, "
               f"decision and sample rows (tolerance 0); {ms:.3f} ms (plain "
-              f"{plain_ms:.0f} ms on the CPU; bound: serial chain "
-              f"{chain:.4f} ms, throughput {bound[0]:.5f} ms by {bound[1]}),"
-              f" on {card}")
+              f"{plain_ms:.0f} ms on the CPU; bound {bound:.4f} ms by {by}: "
+              f"serial chain {chain:.4f} ms, {samples} samples), on {card}")
         if err:
             raise SmokeFailure(f"{name} disagrees with its plain version")
         rows[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                          events=m, bound_ms=max(chain, bound[0]),
-                          bound_by="operations" if chain > bound[0]
-                          else bound[1], bound_note="serial event chain "
-                          "(E of the least all-skip steps, this kernel's or "
-                          "06-FGD's, + the events' bytes) against the record "
-                          "bytes", bytes_bound_ms=bound[0])
+                          events=m, bound_ms=bound, bound_by=by,
+                          bound_note="serial event chain (E of the least "
+                          "all-skip steps, this kernel's or 06-FGD's, + the "
+                          "events' bytes) with the samples' frag work, "
+                          "against the bytes with the records'",
+                          chain_ms=chain)
     out["kernels"] = rows
     return out
 
@@ -6823,15 +7066,19 @@ def scale_inputs(device):
 
 def scale_clocks(auto, device, card: str):
     """The phase split of both replay kernels on the first SCALE_CLOCK_EVENTS
-    events of the scale stream, from the cluster's initial state."""
+    events of the scale stream, from the cluster's initial state, and of
+    replay_blocked's record form counting only (the heartbeat's form,
+    obs_heartbeat) on the same events."""
     import torch
 
     evk = torch.as_tensor(auto.ev_kind[:SCALE_CLOCK_EVENTS], device=device)
     evp = torch.as_tensor(auto.ev_pod[:SCALE_CLOCK_EVENTS], device=device)
-    return phase_clocks(device, card, (
-        auto.sim.init_state, auto.specs, auto.types, evk, evp,
-        auto.sim.typical, auto.sim.rank), f"scale-{SCALE_NODES}",
-        ("06-FGD",), ("replay", "replay_blocked"))
+    inputs = (auto.sim.init_state, auto.specs, auto.types, evk, evp,
+              auto.sim.typical, auto.sim.rank)
+    where = f"scale-{SCALE_NODES}"
+    return phase_clocks(device, card, inputs, where, ("06-FGD",),
+                        ("replay", "replay_blocked")) + record_clocks(
+        device, card, inputs, where, counting=True)
 
 
 AB_OUT = os.path.join("chiprun_out", "kernel_ab.json")
@@ -6917,6 +7164,69 @@ def ab_forms(device, inputs, nodes, pods) -> dict:
     return out
 
 
+def ab_records(device, inputs, scale) -> dict:
+    """--ab's rows of the record forms, each a median of 3 launches with
+    its state and counters restored before each, its outputs and records
+    digested, beside the form that records nothing on the same events
+    (`unrecorded_ms`): replay_record and replay_blocked_record over the obs
+    phase's openb prefix (OBS_KERNEL_EVENTS events of 06-FGD, decisions
+    and the series at OBS_EVERY); replay_learned_record and
+    replay_blocked_learned_record over LEARN_RECORD_EVENTS events of the
+    linear family (the series at LEARN_RECORD_EVERY); and the first
+    OBS_HEARTBEAT_EVENTS // 10 events of the 100k chunk through
+    replay_blocked's record form counting only. `scale` = (state, rank,
+    tables, cfg, ScaleRun) of the 100k chunk, padded."""
+    import torch
+
+    from tpusim_torch.parallel.sharding import pad_nodes
+    from tpusim_torch.sim import fused_engine as fe
+    from tpusim_torch.sim import hbm_engine as he
+    from tpusim_torch.sim.records import RecordSpec
+
+    state, specs, types, evk, evp, tp, rank = inputs
+    padded = pad_nodes(state, rank, 128)
+    fgd = fe.make_config(*dict((r[0], r) for r in METHODS)["06-FGD"][1:5])
+    learned = fe.make_config(learn_families()["linear"], "best")
+    obs = RecordSpec(True, OBS_EVERY, 0)
+    lrn = RecordSpec(True, LEARN_RECORD_EVERY, 0)
+    cases = []
+    for label, cfg, spec, e in (
+            ("", fgd, obs, OBS_KERNEL_EVENTS),
+            ("learned_", learned, lrn, LEARN_RECORD_EVENTS)):
+        for blocked in (False, True):
+            name = (f"replay_blocked_{label}record" if blocked
+                    else f"replay_{label}record")
+            st, rk = padded if blocked else (state, rank)
+            cases.append((name, blocked, st, rk,
+                          (specs, types, evk[:e], evp[:e], tp), cfg, spec,
+                          state.num_nodes))
+    st, rk, tables, cfg, auto = scale
+    cut = OBS_HEARTBEAT_EVENTS // 10
+    cases.append(("replay_blocked_record counting (100k chunk)", True, st,
+                  rk, (auto.specs, auto.types,
+                       torch.as_tensor(auto.ev_kind[:cut], device=device),
+                       torch.as_tensor(auto.ev_pod[:cut], device=device),
+                       auto.sim.typical), cfg, RecordSpec(),
+                  auto.sim.init_state.num_nodes))
+    out = {}
+    for name, blocked, st, rk, rest, cfg, spec, n_real in cases:
+        tables = (scale[2] if st is scale[0] else
+                  fe.init_tables(st, rest[1], rest[4], cfg))
+        args = (st, rest[0], rest[1], rest[2], rest[3], rest[4], rk, tables,
+                cfg)
+        prep = (functools.partial(he.prepare_replay_blocked, n_real=n_real)
+                if blocked else functools.partial(fe.prepare_replay,
+                                                  key=CHECK_KEY))
+        rec = prep(*args, record=spec)
+        base = prep(*args)
+        ms = kernel_ms(rec, 3, record_reset(rec, st, tables))
+        base_ms = kernel_ms(base, 3, reset_of(base, st, tables))
+        out[name] = dict(ms=ms, unrecorded_ms=base_ms,
+                         events=int(rest[2].shape[0]),
+                         digest=outputs_digest(rec.finish()))
+    return out
+
+
 def replay_wall(row, nodes, pods, device) -> float:
     """Host milliseconds of the warm Simulator.run_events of a METHODS row
     over the prepared openb trace, residency "auto": the main phase's
@@ -6941,7 +7251,8 @@ def ab_turn(tree: str) -> dict:
     tpusim_torch this process imports (its sys.path leads with `tree`):
     init_tables, replay and replay_blocked and the warm replay wall of each
     METHODS row and of the learned families at openb, the forced and fault
-    forms (ab_forms), and the scale chunk."""
+    forms (ab_forms), the scale chunk, and the record forms
+    (ab_records)."""
     import torch
 
     from tpusim_torch import bench_scale as bs
@@ -7028,6 +7339,12 @@ def ab_turn(tree: str) -> dict:
     print(f"[{tree}] scale first chunk ({SCALE_CHUNK} events, "
           f"{SCALE_NODES} nodes): init_tables {init_ms:.4f} ms, "
           f"replay_blocked {ms:.3f} ms", flush=True)
+    out["records"] = ab_records(device, (state, specs, types, evk, evp, tp,
+                                         rank), (st, rk, tables, cfg, auto))
+    for label, rec in out["records"].items():
+        print(f"[{tree}] {label}: {rec['ms']:.3f} ms over {rec['events']} "
+              f"events ({rec['unrecorded_ms']:.3f} ms recording nothing)",
+              flush=True)
     return out
 
 
@@ -7064,6 +7381,11 @@ def ab_main(trees) -> int:
     for label in forms:
         if len({t["forms"][label]["digest"] for t in turns}) != 1:
             bad.append(label)
+    records = [f for f in turns[0].get("records", {})
+               if all(f in t.get("records", {}) for t in turns)]
+    for label in records:
+        if len({t["records"][label]["digest"] for t in turns}) != 1:
+            bad.append(label)
     names = [os.path.basename(os.path.normpath(t["tree"])) for t in turns]
     print(f"card: {turns[0]['card']}; turns: {', '.join(names)}")
     for label in rows:
@@ -7073,6 +7395,11 @@ def ab_main(trees) -> int:
     for label in forms:
         vals = " ".join(f"{t['forms'][label]['ms']:10.4f}" for t in turns)
         print(f"{label:36s} {vals} ms")
+    for label in records:
+        for key in ("ms", "unrecorded_ms"):
+            vals = " ".join(f"{t['records'][label][key]:10.4f}"
+                            for t in turns)
+            print(f"{label:44s} {key:13s} {vals} ms")
     for name in ("init_tables", "replay_blocked"):
         vals = " ".join(f"{t['scale'][name]:10.3f}" for t in turns)
         print(f"{'scale chunk':20s} {name:15s} {vals} ms")
@@ -7189,6 +7516,7 @@ def main(argv=None) -> int:
             clocks += learn_clocks(device, card, inputs)
             clocks += fault_clocks(device, card, inputs)
             clocks += forced_clocks(device, card, *openb_rows_port())
+            clocks += record_clocks(device, card, inputs)
             print(f"phase clocks done at {time.perf_counter() - t0:.1f} s")
         if "main" in phases:
             launches = main_path(device, card)

@@ -19,7 +19,7 @@ from chip_smoke import (
     WIDE_BLOCKED, against_plain, down_checks, fault_against_plain,
     fault_lanes_against_plain, init_case, init_config, lane_tables,
     past_limit_errors, plan_case, random_case, record_against_plain,
-    shape_errors, to_cpu, typed_case,
+    record_edge_case, shape_errors, to_cpu, typed_case,
 )
 from tpusim_torch.io.trace import (
     build_events, load_node_csv, load_pod_csv, pods_to_specs,
@@ -861,7 +861,8 @@ def test_chunked_run_on_card_matches_unchunked(cuda_device, tmp_path,
 
 
 # the record forms (replay_records.cu, replay_blocked_records.cu): (label,
-# policies, gpu_sel, blocked)
+# policies, gpu_sel, blocked); BestFit normalises (the blocked form's drift
+# rebuilds)
 RECORD_CASES = (
     ("06-FGD/flat", [("FGDScore", 1000)], "FGDScore", False),
     ("06-FGD/blocked", [("FGDScore", 1000)], "FGDScore", True),
@@ -874,6 +875,8 @@ RECORD_CASES = (
                       ("DotProductScore", 1), ("FGDScore", 1),
                       ("PWRScore", 1)], "best", False),
     ("Random+random/flat", [("RandomScore", 1000)], "random", False),
+    ("BestFit/flat", [("BestFitScore", 1000)], "best", False),
+    ("BestFit/blocked", [("BestFitScore", 1000)], "best", True),
 )
 
 
@@ -884,6 +887,31 @@ def _record_spec(device, ctr=(3, 2, 1, 0, 4, 0)):
     return RecordSpec(True, 7, 0, t, ctr[0] + ctr[3] + ctr[4])
 
 
+def _record_cases(device, policies, gpu_sel):
+    """The record card tests' inputs: a seeded 300-node cluster with pinned
+    pods and deletes, the openb prefix's first 200 events, and the record
+    edge case (chip_smoke.record_edge_case)."""
+    from tpusim_torch.sim.table_engine import build_pod_types
+
+    cases = [random_case(53, 300, 160, device)]
+    nodes = load_node_csv(os.path.join(
+        REPO, "data/csv/openb_node_list_gpu_node.csv"))
+    trace = load_pod_csv(os.path.join(
+        REPO, "data/csv/openb_pod_list_default.csv"))[:200]
+    sim = Simulator(nodes, SimulatorConfig(policies=tuple(policies),
+                                           gpu_sel_method=gpu_sel),
+                    device=device)
+    sim.set_workload_pods(trace)
+    sim.set_typical_pods()
+    specs = pods_to_specs(trace, sim.node_index, device)
+    evk, evp = (torch.as_tensor(a, device=device)
+                for a in build_events(trace))
+    cases.append((sim.init_state, specs, build_pod_types(specs), evk, evp,
+                  sim.typical, sim.rank))
+    cases.append(record_edge_case(device))
+    return cases
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("label,policies,gpu_sel,blocked", RECORD_CASES,
                          ids=[c[0] for c in RECORD_CASES])
@@ -892,32 +920,79 @@ def test_record_forms_match_plain_on_card(cuda_device, label, policies,
     """replay_record and replay_blocked_record against their plain versions
     (CPU copies), tolerance 0 with the counters carried in, the decision
     rows and the samples: on a seeded 300-node cluster with pinned pods and
-    deletes, and on the openb prefix's first 200 events."""
+    deletes, on the openb prefix's first 200 events, and on the record
+    edge case (chip_smoke.record_edge_case: 301 nodes, tied totals, fewer
+    than three feasible nodes, pinned creates feasible and not, a top-3
+    inside one block and across blocks), there also through the chunk
+    instantiation with the key out."""
     cfg = fe.make_config(policies, gpu_sel)
     name = "replay_blocked" if blocked else "replay"
-    cases = [random_case(53, 300, 160, cuda_device)]
-    nodes = load_node_csv(os.path.join(
-        REPO, "data/csv/openb_node_list_gpu_node.csv"))
-    trace = load_pod_csv(os.path.join(
-        REPO, "data/csv/openb_pod_list_default.csv"))[:200]
-    sim = Simulator(nodes, SimulatorConfig(policies=tuple(policies),
-                                           gpu_sel_method=gpu_sel),
-                    device=cuda_device)
-    sim.set_workload_pods(trace)
-    sim.set_typical_pods()
-    specs = pods_to_specs(trace, sim.node_index, cuda_device)
-    evk, evp = (torch.as_tensor(a, device=cuda_device)
-                for a in build_events(trace))
-    from tpusim_torch.sim.table_engine import build_pod_types
-
-    cases.append((sim.init_state, specs, build_pod_types(specs), evk, evp,
-                  sim.typical, sim.rank))
-    for state, pods, types, evk, evp, tp, rank in cases:
+    cases = _record_cases(cuda_device, policies, gpu_sel)
+    for c, (state, pods, types, evk, evp, tp, rank) in enumerate(cases):
         st, rk = (pad_nodes(state, rank, 128) if blocked else (state, rank))
         tables = fe.init_tables(st, types, tp, cfg)
-        assert record_against_plain(
-            name, (st, pods, types, evk, evp, tp, rk, tables), cfg,
-            _record_spec(cuda_device), n_real=state.num_nodes) == 0, label
+        for key_out in (False, True) if c == 2 else (False,):
+            assert record_against_plain(
+                name, (st, pods, types, evk, evp, tp, rk, tables), cfg,
+                _record_spec(cuda_device), n_real=state.num_nodes,
+                key_out=key_out) == 0, (label, c, key_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["counters", "heartbeat"])
+@pytest.mark.parametrize("blocked", [False, True], ids=["flat", "blocked"])
+def test_counting_record_forms_match_plain_on_card(cuda_device, blocked,
+                                                   what):
+    """The record forms that take no decision and no sample, against their
+    plain versions (CPU copies) under 06-FGD, tolerance 0 with the counters
+    carried in: the counters alone, or a heartbeat at stride 5, whose
+    ticks from the mapped ring must be the plain loop's. Blocked, this is
+    the kCountOnly instantiation (launch_blocked_counting), the heartbeat's
+    form at scale; flat, the kRecord one with no decision rows. On the
+    seeded cluster, the openb prefix and the record edge case (creates
+    with no feasible node, pinned creates that do not fit), each with and
+    without the key out."""
+    from tpusim_torch.sim.records import RecordSpec
+
+    policies = [("FGDScore", 1000)]
+    cfg = fe.make_config(policies, "FGDScore")
+    ctr = (3, 2, 1, 0, 4, 0)
+    spec = RecordSpec(False, 0, 5 if what == "heartbeat" else 0,
+                      torch.tensor(ctr, dtype=torch.int32,
+                                   device=cuda_device),
+                      ctr[0] + ctr[3] + ctr[4])
+    for c, (state, pods, types, evk, evp, tp, rank) in enumerate(
+            _record_cases(cuda_device, policies, "FGDScore")):
+        st, rk = (pad_nodes(state, rank, 128) if blocked else (state, rank))
+        tables = fe.init_tables(st, types, tp, cfg)
+        for key_out in (False, True):
+            assert record_against_plain(
+                "replay_blocked" if blocked else "replay",
+                (st, pods, types, evk, evp, tp, rk, tables), cfg, spec,
+                n_real=state.num_nodes, key_out=key_out) == 0, (c, key_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["linear", "mixed"])
+def test_learned_record_forms_match_plain_on_edge_case(cuda_device, family):
+    """replay_learned_record and replay_blocked_learned_record against
+    their plain versions on the record edge case, tolerance 0 (node
+    features at the winner, ties, fewer than three feasible nodes, pinned
+    creates), also through the chunk instantiation with the key out."""
+    cfg = fe.make_config(_learned_family(
+        family if family == "linear" else LEARNED_CASES[2][1]),
+        "best" if family == "linear" else LEARNED_CASES[2][2])
+    assert cfg.learned
+    state, pods, types, evk, evp, tp, rank = record_edge_case(cuda_device)
+    for blocked in (False, True):
+        st, rk = pad_nodes(state, rank, 128) if blocked else (state, rank)
+        tables = fe.init_tables(st, types, tp, cfg)
+        for key_out in (False, True):
+            assert record_against_plain(
+                "replay_blocked" if blocked else "replay",
+                (st, pods, types, evk, evp, tp, rk, tables), cfg,
+                _record_spec(cuda_device), n_real=state.num_nodes,
+                key_out=key_out) == 0, (blocked, key_out)
 
 
 @pytest.mark.cuda

@@ -48,23 +48,58 @@ from tpusim_torch.sim.records import RecordSpec, decision_rows, sample_rows
 
 EVERY = 7  # the series stride of the replay cases
 
-# (label, policies, gpu_sel, block_size): flat and blocked, FGD, min-max
-# (rebuilds), PWR+FGD, and the randomized flat replay; _random_case pins
-# four pods, one to the padded last block
+# (label, policies, gpu_sel, block_size, case): flat and blocked, FGD,
+# min-max (rebuilds), PWR+FGD, and the randomized flat replay, on
+# _random_case's seed-61 cluster, which pins four pods, one to the padded
+# last block ("random"), and on the record forms' edge case
+# (chip_smoke.record_edge_fields: 301 nodes of repeated shapes, tied
+# totals, creates with fewer than three feasible nodes or none, pinned
+# creates feasible and not, a top-3 inside one block and across blocks)
 CASES = [
-    ("FGD/flat", (("FGDScore", 1000),), "FGDScore", -1),
+    ("FGD/flat", (("FGDScore", 1000),), "FGDScore", -1, "random"),
     ("PWR+FGD/blocked", (("PWRScore", 500), ("FGDScore", 500)), "FGDScore",
-     128),
-    ("BestFit/blocked", (("BestFitScore", 1000),), "best", 128),
+     128, "random"),
+    ("BestFit/blocked", (("BestFitScore", 1000),), "best", 128, "random"),
     ("Random+Packing/flat", (("RandomScore", 3), ("GpuPackingScore", 5)),
-     "random", -1),
+     "random", -1, "random"),
+    ("edge FGD/flat", (("FGDScore", 1000),), "FGDScore", -1, "edge"),
+    ("edge FGD/blocked", (("FGDScore", 1000),), "FGDScore", 128, "edge"),
+    ("edge BestFit/flat", (("BestFitScore", 1000),), "best", -1, "edge"),
+    ("edge BestFit/blocked", (("BestFitScore", 1000),), "best", 128,
+     "edge"),
+    ("edge PWR+BestFit+FGD/blocked", (("PWRScore", 500),
+                                      ("BestFitScore", 300),
+                                      ("FGDScore", 200)), "FGDScore", 128,
+     "edge"),
+    ("edge Random+random/flat", (("RandomScore", 1000),), "random", -1,
+     "edge"),
 ]
 
 
+def _edge_case():
+    """chip_smoke.record_edge_fields as the JAX package's inputs
+    (_random_case's tuple)."""
+    from chip_smoke import record_edge_fields
+    from tpusim.types import PodSpec as JPodSpec
+    from tpusim.types import make_node_state as jmake_node_state
+    from tpusim.types import make_typical_pods as jmake_typical_pods
+
+    f = record_edge_fields()
+    jpods = JPodSpec(**{k: jax.numpy.asarray(np.asarray(v, np.int32))
+                        for k, v in f["pods"].items()})
+    return (jmake_node_state(**f["nodes"]), jmake_typical_pods(f["typical"]),
+            jpods, jax.numpy.asarray(f["kinds"]),
+            jax.numpy.asarray(f["idx"]), jax.numpy.asarray(f["rank"]))
+
+
+def _case(name):
+    return _random_case(61, 300, 100) if name == "random" else _edge_case()
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_records(policies, gpu_sel, block):
-    """tpusim's recording table engine on the seed-61 case."""
-    jstate, jtp, jpods, ek, ep, rank = _random_case(61, 300, 100)
+def _jax_records(policies, gpu_sel, block, case="random"):
+    """tpusim's recording table engine on a case."""
+    jstate, jtp, jpods, ek, ep, rank = _case(case)
     fn = make_table_replay([(jmake_policy(n), w) for n, w in policies],
                            gpu_sel=gpu_sel, block_size=block, decisions=True,
                            series_every=EVERY)
@@ -72,9 +107,8 @@ def _jax_records(policies, gpu_sel, block):
               jax.random.PRNGKey(3), rank)
 
 
-def _port_records(policies, gpu_sel, block):
-    state, pods, types, evk, evp, tp, _, rank = _port_args(
-        *_random_case(61, 300, 100))
+def _port_records(policies, gpu_sel, block, case="random"):
+    state, pods, types, evk, evp, tp, _, rank = _port_args(*_case(case))
     cfg = fe.make_config(list(policies), gpu_sel)
     keep = {}
     spec = RecordSpec(True, EVERY, 0)
@@ -99,15 +133,16 @@ def _assert_fields(got, want, fields):
         assert a.shape == b.shape and np.array_equal(a, b), f
 
 
-@pytest.mark.parametrize("label,policies,gpu_sel,block", CASES,
+@pytest.mark.parametrize("label,policies,gpu_sel,block,case", CASES,
                          ids=[c[0] for c in CASES])
-def test_plain_records_match_table_engine(label, policies, gpu_sel, block):
+def test_plain_records_match_table_engine(label, policies, gpu_sel, block,
+                                          case):
     """The record forms' plain versions equal tpusim's table engine:
     decisions (block too, for the blocked replay), samples, counters
     (rebuilds too: the port's blocked replay rebuilds on the JAX blocked
-    engine's condition)."""
-    want = _jax_records(policies, gpu_sel, block)
-    out, dec, ser, ctr = _port_records(policies, gpu_sel, block)
+    engine's condition). On the edge case its edges must occur."""
+    want = _jax_records(policies, gpu_sel, block, case)
+    out, dec, ser, ctr = _port_records(policies, gpu_sel, block, case)
     assert np.array_equal(out.event_node.numpy(),
                           np.asarray(want.event_node))
     _assert_fields(dec, want.decisions,
@@ -118,6 +153,82 @@ def test_plain_records_match_table_engine(label, policies, gpu_sel, block):
     _assert_fields(ser, wser, ser._fields)
     assert ctr.tolist() == np.asarray(want.counters).tolist()
     assert len(ser.pos) > 10 and (np.asarray(dec.node) >= 0).sum() > 50
+    if case == "edge":
+        feas, tk, tt = (np.asarray(x) for x in (dec.feasible, dec.topk_node,
+                                                 dec.topk_total))
+        blocks = tk // 128
+        assert ((feas > 0) & (feas < 3)).any() and (tk[:, 2] == -1).any()
+        assert ((tk[:, 2] >= 0) & ((tt[:, 0] == tt[:, 1])
+                                   | (tt[:, 1] == tt[:, 2]))).any()  # ties
+        assert ((tk[:, 2] >= 0) & (blocks[:, 0] == blocks[:, 2])
+                & (blocks[:, 1] == blocks[:, 2])).any()
+        assert ((tk[:, 2] >= 0) & (blocks[:, 0] != blocks[:, 1])).any()
+        assert ctr.tolist()[2] > 0  # creates that placed nothing
+        if block > 0 and label.startswith("edge BestFit"):
+            assert ctr.tolist()[5] > 0  # drift rebuilds
+
+
+def _ticks(module, fn):
+    """(fn()'s result, the processed counts `module`'s heartbeat ticks
+    while it runs, lines swallowed)."""
+    heard = []
+
+    def listen(info):
+        heard.append(info["done"])
+    module.configure(0, "counting", sink=lambda line: None)
+    module.add_listener(listen)
+    try:
+        return fn(), heard
+    finally:
+        module.remove_listener(listen)
+
+
+@pytest.mark.parametrize("block", [-1, 128], ids=["flat", "blocked"])
+def test_plain_counting_matches_table_engine(block):
+    """The record forms' plain versions counting only (no decision, no
+    series: the heartbeat's form) equal tpusim's table engine on the edge
+    case under 06-FGD: placements, counters and the heartbeat's ticks."""
+    from tpusim.obs import heartbeat as jheartbeat
+    from tpusim_torch.obs import heartbeat
+
+    every = 5
+    jstate, jtp, jpods, ek, ep, rank = _case("edge")
+    fn = make_table_replay([(jmake_policy("FGDScore"), 1000)],
+                           gpu_sel="FGDScore", block_size=block,
+                           heartbeat_every=every)
+    def jrun():
+        out = jax.block_until_ready(fn(jstate, jpods, build_pod_types(jpods),
+                                       ek, ep, jtp, jax.random.PRNGKey(3),
+                                       rank))
+        jax.effects_barrier()  # every tick's callback delivered
+        return out
+    want, wticks = _ticks(jheartbeat, jrun)
+    state, pods, types, evk, evp, tp, _, prank = _port_args(
+        jstate, jtp, jpods, ek, ep, rank)
+    cfg = fe.make_config([("FGDScore", 1000)], "FGDScore")
+    spec = RecordSpec(heartbeat_every=every)
+    keep = {}
+    if block > 0:
+        padded, prank = pad_nodes(state, prank, 128)
+        tables = fe.plain_init_tables(padded, types, tp, cfg)
+        run = functools.partial(
+            he.plain_replay_blocked, padded, pods, types, evk, evp, tp,
+            prank, tables, cfg, keep=keep, record=spec,
+            n_real=state.num_nodes)
+    else:
+        tables = fe.plain_init_tables(state, types, tp, cfg)
+        run = functools.partial(
+            fe.plain_replay, state, pods, types, evk, evp, tp, prank,
+            tables, cfg, keep=keep, key=(0, 3), record=spec)
+    out, ticks = _ticks(heartbeat, run)
+    out = out[0] if block > 0 else out
+    rec = keep["records"]
+    assert rec.dec is None and rec.ser is None
+    assert np.array_equal(out.event_node.numpy(),
+                          np.asarray(want.event_node))
+    assert rec.ctr.tolist() == np.asarray(want.counters).tolist()
+    assert ticks == sorted(int(t) for t in wticks)
+    assert len(ticks) == len(ek) // every and rec.ctr.tolist()[2] > 0
 
 
 @pytest.mark.parametrize("policies,gpu_sel", [

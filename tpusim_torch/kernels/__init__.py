@@ -32,10 +32,11 @@ different instantiations of the kernel.
 
 A variant of the library is built from the same sources with extra
 preprocessor definitions (`VARIANTS`): "clocked" adds the phase clocks
-that chip_smoke.py reads (the record forms' launchers refuse; of the
+that chip_smoke.py reads (of the
 learned forms it has the flat and blocked replays,
 replay_learned_clocked.cu's, and the forced form,
-replay_forced_clocked.cu's).
+replay_forced_clocked.cu's; of the record forms, the paper's shape,
+replay_records_clocked.cu's, the others refused).
 The main path loads the plain build, "" (no definitions).
 """
 
@@ -60,8 +61,9 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 # forms in replay_learned_faults.cu and replay_blocked_learned_faults.cu,
 # replay_lanes.cu's, the forced form in replay_forced.cu, replay.cu's, and
 # the clocked variant's learned replays in replay_learned_clocked.cu,
-# replay.cu's, and its forced form in replay_forced_clocked.cu,
-# replay_forced.cu's, which compile nothing in the other variants)
+# replay.cu's, its forced form in replay_forced_clocked.cu,
+# replay_forced.cu's, and its record forms in replay_records_clocked.cu,
+# replay.cu's, which compile nothing in the other variants)
 SOURCES = tuple(os.path.join(_DIR, name) for name in (
     "replay.cu", "replay_lanes.cu", "replay_faults.cu",
     "replay_blocked_faults.cu", "replay_chunks.cu", "replay_records.cu",
@@ -69,7 +71,7 @@ SOURCES = tuple(os.path.join(_DIR, name) for name in (
     "replay_blocked_learned.cu", "replay_learned_records.cu",
     "replay_learned_faults.cu", "replay_blocked_learned_faults.cu",
     "replay_forced.cu", "replay_learned_clocked.cu",
-    "replay_forced_clocked.cu"))
+    "replay_forced_clocked.cu", "replay_records_clocked.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)),
                          ".tpusim_torch_build")
 _build_dir = None  # set_build_dir's directory
@@ -121,13 +123,15 @@ VARIANTS = {
 # ClockSlot): cycles per phase, thread 0's barrier wait, the event loop's
 # cycles, the summaries' init, counts, the learned node column's cycles,
 # the forced form's feature rows (the recorded top-3's, the argmax's) and
-# selector pick, and the fault forms' pops (cycles, inert slots, pops),
-# the inert slots the loop still runs as steps, and their fault steps
+# selector pick, the fault forms' pops (cycles, inert slots, pops), the
+# inert slots the loop still runs as steps, and their fault steps, and the
+# record forms' series samples, decision rows and counting
 CLOCK_SLOTS = ("refresh", "block", "drift", "extrema", "select", "commit",
                "wait", "loop", "init", "refreshes", "rescans", "work",
                "setup", "sum", "items", "node", "rows", "arow", "pick",
-               "pop", "inert", "pops", "islot", "fault")
-NUM_CLOCKS = 24
+               "pop", "inert", "pops", "islot", "fault", "sample", "decide",
+               "count")
+NUM_CLOCKS = 27
 
 POINTER_FIELDS = (
     "cpu_left", "mem_left", "gpu_left", "aff_cnt", "cpu_cap", "cpu_type",
@@ -153,7 +157,7 @@ FAULT_POINTER_FIELDS = (
 FAULT_SIZE_FIELDS = ("f_rows", "f_cols", "f_cap_r", "f_base", "f_cap",
                      "f_maxr", "f_nrec")
 # the record forms' pointers and sizes, after the fault fields (replay.cu)
-RECORD_POINTER_FIELDS = ("ctr", "rec_dec", "rec_ser", "hb_ring")
+RECORD_POINTER_FIELDS = ("ctr", "rec_dec", "rec_ser", "hb_ring", "rec_fcnt")
 RECORD_SIZE_FIELDS = ("rec_every", "hb_every", "hb_slots", "rec_nodes")
 # the forced form's pointers, after the learned fields (replay.cu)
 FORCED_POINTER_FIELDS = ("fr_node", "fr_topk", "fr_pick", "fr_feasible",

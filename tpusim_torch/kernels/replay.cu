@@ -246,12 +246,17 @@ constexpr bool kClocked = false;
 // (kClkPops), thread 0's cycles on the whole steps of the inert ones
 // the loop still runs (kClkIslot, from the step before's end to the
 // step's), and its cycles in fault_step (kClkFault: failures, recoveries,
-// evictions).
+// evictions). The record forms (replay_records_clocked.cu): the cycles of
+// the series samples (kClkSample), of the decision rows (kClkDecide) and
+// of the counting and heartbeat (kClkCount), each taken out of the phase
+// it runs in where thread 0 runs it, else (a warp beside the commit) the
+// cycles of that warp.
 enum ClockSlot {
   kClkRefresh, kClkBlock, kClkDrift, kClkExtrema, kClkSelect, kClkCommit,
   kClkWait, kClkLoop, kClkInit, kClkRefreshes, kClkRescans, kClkWork,
   kClkSetup, kClkSum, kClkItems, kClkNode, kClkRows, kClkArow, kClkPick,
-  kClkPop, kClkInert, kClkPops, kClkIslot, kClkFault, kNumClocks = 24,
+  kClkPop, kClkInert, kClkPops, kClkIslot, kClkFault, kClkSample,
+  kClkDecide, kClkCount, kNumClocks = 27,
 };
 
 }  // namespace
@@ -403,13 +408,15 @@ struct ReplayArgs {
   // written back at its end; a decision row an event [e, 13 + 2 n_pol]
   // (null: none); a row a real sample [s, 20 + 2 n_pol] (null: none); the
   // heartbeat's host-mapped ring [1 + hb_slots] (null: none), word 0 the
-  // ticks written, slot 1 + j % hb_slots tick j's processed count. The
-  // series and heartbeat strides, the ring's slots, and the cluster's
-  // nodes before the blocked replay's padding.
+  // ticks written, slot 1 + j % hb_slots tick j's processed count; the
+  // blocked form's scratch for its decisions, each type's feasible count
+  // [k] (null: no decisions). The series and heartbeat strides, the ring's
+  // slots, and the cluster's nodes before the blocked replay's padding.
   int32_t* ctr;
   int32_t* rec_dec;
   int32_t* rec_ser;
   int32_t* hb_ring;
+  int32_t* rec_fcnt;
   int32_t rec_every;
   int32_t hb_every;
   int32_t hb_slots;
@@ -1365,6 +1372,17 @@ struct PhaseClock {
         const long long now = clock64();
         acc[slot] += now - last;
         last = now;
+      }
+    }
+  }
+  // charge thread 0's cycles since `since` to `slot` and take them out of
+  // the phase running, whose next mark charges the rest
+  __device__ void exclude(int slot, long long since) {
+    if constexpr (kClocked) {
+      if (threadIdx.x == 0) {
+        const long long d = clock64() - since;
+        acc[slot] += d;
+        last += d;
       }
     }
   }
@@ -2806,16 +2824,91 @@ constexpr int kSerFrag = kSerHist + kUtilBuckets;
 constexpr int kSerFixed = kSerFrag + kFragClasses;  // 20
 constexpr int kNumCounters = 6;
 
+// the warp that records an event beside warp 0's commit (warp 1 computes
+// the learned node stage there, the last warp the next event's keys); in
+// the blocked form it and the next kTopK - 1 warps rescan a create's best
+// blocks, meeting at named barrier kRecordBarrier
+constexpr int kRecWarp = 2;
+constexpr int kRecordBarrier = 2;
+constexpr int kReplayWarps = kReplayThreads / 32;
+static_assert(kTopK == 3, "Top3 keeps three");
+
+// A decision's kTopK best candidates, best first (by beats), in registers
+struct Top3 {
+  Best a, b, c;
+};
+
+__device__ __forceinline__ Top3 no_top3() {
+  return {no_candidate(), no_candidate(), no_candidate()};
+}
+
+// beats without branches, for the record path's selects
+__device__ __forceinline__ bool outranks(const Best& x, const Best& y) {
+  return (x.total > y.total) |
+         ((x.total == y.total) &
+          ((x.rank < y.rank) | ((x.rank == y.rank) & (x.node < y.node))));
+}
+
+// x into t if `take`, by selects alone: inside the select's loops a branch
+// would keep the unrolled iterations' loads from overlapping
+__device__ __forceinline__ void top3_push(Top3& t, const Best& x, bool take) {
+  const bool gc = take & outranks(x, t.c);
+  const bool gb = take & outranks(x, t.b);
+  const bool ga = take & outranks(x, t.a);
+  t.c = gb ? t.b : gc ? x : t.c;
+  t.b = ga ? t.a : gb ? x : t.b;
+  t.a = ga ? x : t.a;
+}
+
+__device__ __forceinline__ Best shfl_xor_best(const Best& b, int off) {
+  return {__shfl_xor_sync(0xffffffffu, b.total, off),
+          __shfl_xor_sync(0xffffffffu, b.rank, off),
+          __shfl_xor_sync(0xffffffffu, b.node, off)};
+}
+
+// the best of the warp's lanes' b, in every lane (a butterfly)
+__device__ __forceinline__ Best warp_best_all(Best b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const Best o = shfl_xor_best(b, off);
+    b = outranks(o, b) ? o : b;
+  }
+  return b;
+}
+
+// the lane whose head t.a is the warp's best w drops it
+__device__ __forceinline__ void drop_head(Top3& t, const Best& w) {
+  const bool mine = w.node != INT_MAX && t.a.node == w.node;
+  t.a = mine ? t.b : t.a;
+  t.b = mine ? t.c : t.b;
+  t.c = mine ? no_candidate() : t.c;
+}
+
+// The warp's three best of its lanes' (each lane's best first, the lanes'
+// candidates distinct), in every lane: three rounds of the best head, the
+// lane whose head won dropping it after each
+__device__ __forceinline__ Top3 warp_top3(Top3 t) {
+  const Best w0 = warp_best_all(t.a);
+  drop_head(t, w0);
+  const Best w1 = warp_best_all(t.a);
+  drop_head(t, w1);
+  return {w0, w1, warp_best_all(t.a)};
+}
+
 struct RecordShared {
   int ctr[kNumCounters];
   int p0;     // processed events at the launch's start
   int rows;   // sample rows written
   int ticks;  // heartbeat ticks written
-  int pick;   // the event's RandomScore draw (-1 none)
-  int feasible;
-  int lo[kMaxPolicies];
+  int lo[kMaxPolicies];  // record_sample's extrema
   int hi[kMaxPolicies];
   int acc[kSerFixed + 2 * kMaxFamily];
+  // a create's decision: each warp's three best candidates of the select's
+  // pass (nodes, or the blocked form's blocks) and its feasible count; in
+  // the blocked form, each of the three best blocks' three best nodes
+  Top3 wtop[kReplayWarps];
+  int wcnt[kReplayWarps];
+  Top3 btop[kTopK];
 };
 
 // the score columns of a record row: the configuration's policies, or a
@@ -2841,20 +2934,19 @@ __device__ void record_begin(const ReplayArgs& a, RecordShared& rs) {
   rs.p0 = rs.ctr[0] + rs.ctr[3] + rs.ctr[4];
   rs.rows = 0;
   rs.ticks = 0;
-  rs.pick = -1;
 }
 
-// Thread 0, after event i's last barrier: its counters (counter_delta),
-// its decision row where it is no create (no_decision's sentinels), and a
-// heartbeat tick where the processed count after it sits on the stride
-// (the slot, a system fence, then the count of ticks, so that a reader
-// that sees the count sees the slot).
+// Lane 0 of the record warp, beside event i's commit: its counters
+// (counter_delta; `ok`: a create that placed its pod, as the select found
+// it), its decision row where it is no create (no_decision's sentinels),
+// and a heartbeat tick where the processed count after it sits on the
+// stride (the slot, a system fence, then the count of ticks, so that a
+// reader that sees the count sees the slot).
 template <bool kLearned = false>
-__device__ void record_count(const ReplayArgs& a, RecordShared& rs, int i,
-                             int kind) {
+__device__ __forceinline__ void record_count(
+    const ReplayArgs& a, RecordShared& rs, int i, int kind, bool ok) {
   const int n_pol = record_pols<kLearned>(a);
   if (kind == kCreate) {
-    const bool ok = a.ev_node[i] >= 0;
     rs.ctr[0] += 1;
     rs.ctr[ok ? 1 : 2] += 1;
   } else {
@@ -3114,156 +3206,261 @@ __device__ void record_sample(const ReplayArgs& a, RecordShared& rs, int i,
   __syncthreads();
 }
 
-// node `node`'s i32 weighted total for a type under the extrema lo/hi, and
-// each policy's raw and normalised score into raw/nrm (null: not kept);
+// policy pi's raw score at `node` (type `type`) and its normalised one
+// against lo[pi], hi[pi] (by policy; read only for a normalised policy);
 // RandomScore scores 100 on `pick`
-__device__ __forceinline__ int record_total(const ReplayArgs& a, int type,
-                                            int node, const int* lo,
-                                            const int* hi, int pick, int* raw,
-                                            int* nrm) {
-  uint32_t sum = 0;
-  for (int pi = 0; pi < a.n_pol; ++pi) {
-    int r;
-    int q;
-    if (a.pol_column[pi] == kRandomScore) {
-      r = node == pick ? kMaxNodeScore : 0;
-      q = r;
-    } else {
-      r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
-      q = a.pol_norm[pi] != kNormNone ? normalize(r, lo[pi], hi[pi], a.pol_norm[pi])
-                                      : r;
-    }
-    if (raw != nullptr) {
-      raw[pi] = r;
-      nrm[pi] = q;
-    }
-    sum += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(q);
+__device__ __forceinline__ int2 policy_score(const ReplayArgs& a, int pi,
+                                             int type, int node,
+                                             const int* lo, const int* hi,
+                                             int pick) {
+  if (a.pol_column[pi] == kRandomScore) {
+    const int r = node == pick ? kMaxNodeScore : 0;
+    return make_int2(r, r);
   }
-  return static_cast<int>(sum);
+  const int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + node];
+  return make_int2(r, a.pol_norm[pi] != kNormNone
+                          ? normalize(r, lo[pi], hi[pi], a.pol_norm[pi])
+                          : r);
 }
 
-// The decision row of create event i (type `type`, pin `pin`) into
-// a.rec_dec (step.build_decision): the type's rows normalised directly
-// over the pin-masked feasible nodes, the feasible count, the top-K as
-// kTopK rounds of selectHost's block reduction, each masking the winners
-// before it out (packed_topk), and the committed winner `node`'s total,
-// raw and normalised scores. `blocked`: the winner's 128-node block, else
-// -1. `pick` is RandomScore's draw. Every thread calls it; it ends with a
-// barrier.
+// candidate j of a decision row's top-K (none: -1, 0, -1)
+__device__ __forceinline__ void write_candidate(int* row, int j,
+                                                const Best& b) {
+  const bool valid = b.node != INT_MAX;
+  row[4 + j] = valid ? b.node : -1;
+  row[4 + kTopK + j] = valid ? b.total : 0;
+  row[4 + 2 * kTopK + j] = valid ? b.rank : -1;
+}
+
+// Lane 0 of the record warp: the decision row of create event i (type
+// `type`) into a.rec_dec (step.build_decision) from the select's own
+// results: the three best pin-masked feasible candidates `top` (the
+// committed winner first, its total the row's), their count `feasible`,
+// each policy's feasible extrema lo/hi (by policy) and RandomScore's draw
+// `pick`: the winner's raw and normalised scores. `blocked`: the
+// winner's 128-node block, else -1. A learned family's node features at
+// the winner come after the commit (record_features).
 template <bool kLearned = false>
-__device__ void record_decision(const ReplayArgs& a, RecordShared& rs,
-                                Best* warp_res, int i, int type, int pin,
-                                int node, bool blocked) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+__device__ __forceinline__ void write_decision(
+    const ReplayArgs& a, int i, int type, const Top3& top, int feasible,
+    const int* lo, const int* hi, int pick, bool blocked) {
+  const int nf = record_pols<kLearned>(a);
+  int* row = a.rec_dec + static_cast<size_t>(i) * (kDecFixed + 2 * nf);
+  const int node = top.a.node != INT_MAX ? top.a.node : -1;
+  const bool ok = node >= 0;
+  row[0] = node;
+  row[1] = ok ? top.a.total : 0;
+  row[2] = feasible;
+  row[3] = ok && blocked ? node / kBlock : -1;
+  write_candidate(row, 0, top.a);
+  write_candidate(row, 1, top.b);
+  write_candidate(row, 2, top.c);
+  for (int j = 0; j < nf; ++j) {
+    const int pi = kLearned ? a.fam_src[j] : j;
+    if (kLearned && ok && pi < 0) continue;  // record_features'
+    const int2 q = ok ? policy_score(a, pi, type, node, lo, hi, pick)
+                      : make_int2(0, 0);
+    row[kDecFixed + j] = q.x;
+    row[kDecFixed + nf + j] = q.y;
+  }
+}
+
+// The record warp's work on event i beside warp 0's commit, after the
+// select's barrier, in the flat form: a create's decision row from the
+// warps' three best and feasible counts and their extrema (warp_lo,
+// warp_hi; the select's, where a policy normalises), merged here, and
+// RandomScore's draw `pick`, then the counting; another event's counting.
+// Returns the node of a decision row written (-1: none) in lane 0. `clk`:
+// the clocked build's slots (kClkDecide, kClkCount).
+template <bool kLearned = false>
+__device__ __forceinline__ int record_event(
+    const ReplayArgs& a, RecordShared& rs, const Best* warp_res,
+    const int (*warp_lo)[kMaxPolicies], const int (*warp_hi)[kMaxPolicies],
+    int i, const EventFields& ev, int pick, int lane, long long* clk) {
+  const long long t0 = clock_now();
   const int nwarps = blockDim.x >> 5;
-  const int n_pol = a.n_pol;
-  const int pick = rs.pick;
-  if (tid == 0) {
-    rs.feasible = 0;
-    for (int pi = 0; pi < n_pol; ++pi) {
-      rs.lo[pi] = INT_MAX;
-      rs.hi[pi] = -INT_MAX;
+  int node = -1;  // where a decision row was written
+  bool ok = false;
+  if (ev.kind == kCreate) {
+    if (a.rec_dec != nullptr) {
+      int lo[kMaxPolicies];
+      int hi[kMaxPolicies];
+      for (int pi = 0; pi < a.n_pol; ++pi) {
+        if (a.pol_norm[pi] == kNormNone) continue;
+        lo[pi] = __reduce_min_sync(
+            0xffffffffu, lane < nwarps ? warp_lo[lane][pi] : INT_MAX);
+        hi[pi] = __reduce_max_sync(
+            0xffffffffu, lane < nwarps ? warp_hi[lane][pi] : -INT_MAX);
+      }
+      Top3 top = lane < nwarps ? rs.wtop[lane] : no_top3();
+      int cnt = lane < nwarps ? rs.wcnt[lane] : 0;
+      top = warp_top3(top);
+      cnt = __reduce_add_sync(0xffffffffu, cnt);
+      node = top.a.node == INT_MAX ? -1 : top.a.node;
+      ok = node >= 0;
+      if (lane == 0)
+        write_decision<kLearned>(a, i, ev.type, top, cnt, lo, hi, pick,
+                                 false);
+    } else {  // the count needs whether, not where
+      ok = __any_sync(0xffffffffu,
+                      lane < nwarps && warp_res[lane].node != INT_MAX);
     }
   }
-  __syncthreads();
-  const int* frow = a.feas + static_cast<size_t>(type) * a.n;
-  int lo[kMaxPolicies];
-  int hi[kMaxPolicies];
-  for (int pi = 0; pi < kMaxPolicies; ++pi) {
-    lo[pi] = INT_MAX;
-    hi[pi] = -INT_MAX;
-  }
-  int cnt = 0;
-  for (int j = tid; j < a.n; j += blockDim.x) {
-    if (frow[j] == 0 || (pin >= 0 && j != pin)) continue;
-    ++cnt;
-    for (int pi = 0; pi < n_pol; ++pi) {
-      if (a.pol_norm[pi] == kNormNone || a.pol_column[pi] == kRandomScore)
-        continue;
-      const int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + j];
-      lo[pi] = min(lo[pi], r);
-      hi[pi] = max(hi[pi], r);
+  const long long t1 = clock_now();
+  if (lane == 0) {
+    record_count<kLearned>(a, rs, i, ev.kind, ok);
+    if (kClocked) {
+      clk[kClkDecide] += t1 - t0;
+      clk[kClkCount] += clock_now() - t1;
     }
   }
-  block_add(&rs.feasible, cnt);
-  for (int pi = 0; pi < n_pol; ++pi) {
-    block_min(&rs.lo[pi], lo[pi]);
-    block_max(&rs.hi[pi], hi[pi]);
-  }
-  __syncthreads();
-  for (int pi = 0; pi < n_pol; ++pi) {
-    lo[pi] = rs.lo[pi];
-    hi[pi] = rs.hi[pi];
-  }
-  Best top[kTopK];
-  for (int r = 0; r < kTopK; ++r) {
-    Best b = no_candidate();
-    for (int j = tid; j < a.n; j += blockDim.x) {
-      if (frow[j] == 0 || (pin >= 0 && j != pin)) continue;
-      bool taken = false;
-      for (int q = 0; q < r; ++q) taken |= top[q].node == j;
-      if (taken) continue;
-      const Best c = {record_total(a, type, j, lo, hi, pick, nullptr, nullptr),
-                      a.rank[j], j};
-      if (beats(c, b)) b = c;
-    }
-    b = warp_best(b);
-    if (lane == 0) warp_res[warp] = b;
-    __syncthreads();
-    b = warp_best(lane < nwarps ? warp_res[lane] : no_candidate());
-    top[r] = {__shfl_sync(0xffffffffu, b.total, 0),
-              __shfl_sync(0xffffffffu, b.rank, 0),
-              __shfl_sync(0xffffffffu, b.node, 0)};
-    __syncthreads();
-  }
-  if (tid == 0) {
-    const int nf = record_pols<kLearned>(a);
-    int* row = a.rec_dec + static_cast<size_t>(i) * (kDecFixed + 2 * nf);
-    const bool ok = node >= 0;
-    int raw[kMaxPolicies];
-    int nrm[kMaxPolicies];
-    const int total = ok ? record_total(a, type, node, lo, hi, pick, raw, nrm) : 0;
-    row[0] = node;
-    row[1] = total;
-    row[2] = rs.feasible;
-    row[3] = ok && blocked ? node / kBlock : -1;
-    for (int r = 0; r < kTopK; ++r) {
-      const bool valid = top[r].node != INT_MAX;
-      row[4 + r] = valid ? top[r].node : -1;
-      row[4 + kTopK + r] = valid ? top[r].total : 0;
-      row[4 + 2 * kTopK + r] = valid ? top[r].rank : -1;
-    }
-    if constexpr (kLearned) {
-      // a family policy's columns: its table row's, or its node feature
-      // at the winner (normalised "none") as the select saw it, before
-      // this event's commit took the pod's resources
-      int f[kNodeFeatures];
-      if (ok) {
-        NodeView v = load_node(a, node);
-        const int pod = a.ev_pod[i];
-        const int bits = a.ev_devb[i];
-        v.cpu += a.p_cpu[pod];
-        v.mem += a.p_mem[pod];
+  return node;
+}
+
+// The three best feasible nodes of block c of type t under the stored
+// extrema (summarize_block's totals), by one warp; every lane gets them
+template <bool kGeneral>
+__device__ __forceinline__ Top3 block_top3(const ReplayArgs& a, int t, int c,
+                                           int lane) {
+  Top3 best = no_top3();
 #pragma unroll
-        for (int d = 0; d < kDevs; ++d)
-          v.g[d] += (bits >> d) & 1 ? a.p_milli[pod] : 0;
-        node_features(a, v, a.mem_cap[node], f);
-      }
-      for (int j = 0; j < nf; ++j) {
-        const int pi = a.fam_src[j];
-        row[kDecFixed + j] = !ok ? 0 : pi < 0 ? f[-1 - pi] : raw[pi];
-        row[kDecFixed + nf + j] = !ok ? 0 : pi < 0 ? f[-1 - pi] : nrm[pi];
-      }
+  for (int q = 0; q < kBlock / 32; ++q) {
+    const int node = c * kBlock + lane + 32 * q;
+    const size_t i = static_cast<size_t>(t) * a.n + node;
+    const bool f = a.feas[i] != 0;
+    uint32_t sum = 0;
+    if (!kGeneral) {
+      sum = static_cast<uint32_t>(a.pol_weight[0]) *
+            static_cast<uint32_t>(a.score[i]);
     } else {
-      for (int pi = 0; pi < n_pol; ++pi) {
-        row[kDecFixed + pi] = ok ? raw[pi] : 0;
-        row[kDecFixed + n_pol + pi] = ok ? nrm[pi] : 0;
+      int s = 0;
+      for (int pi = 0; pi < a.n_pol; ++pi) {
+        int r = a.score[(static_cast<size_t>(pi) * a.k + t) * a.n + node];
+        if (a.pol_norm[pi] != kNormNone) {
+          r = normalize(r, a.slo[s * a.k + t], a.shi[s * a.k + t],
+                        a.pol_norm[pi]);
+          ++s;
+        }
+        sum += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(r);
       }
     }
+    top3_push(best, {static_cast<int>(sum), a.rank[node], node}, f);
   }
-  __syncthreads();
+  return warp_top3(best);
+}
+
+// The blocked form's record_event: warps kRecWarp .. kRecWarp + kTopK - 1
+// call it on an unpinned create, kRecWarp alone on the other events. An
+// unpinned create's three best nodes lie in its three best blocks by their
+// best (the select's pass kept each warp's): warp kRecWarp + r rescans the
+// r-th under the stored extrema (the drift check's, exact), the warps meet
+// at named barrier kRecordBarrier, and kRecWarp merges the blocks' best;
+// the feasible count is the type's, kept per type (ReplayArgs::rec_fcnt).
+// A pinned create's only candidate is its pin, if feasible, normalised
+// against its own scores. Returns the node of a decision row written (-1:
+// none) in kRecWarp's lane 0. <kDecide> false: the counting alone.
+template <bool kGeneral, bool kLearned = false, bool kDecide = true>
+__device__ __forceinline__ int record_blocked_event(
+    const ReplayArgs& a, RecordShared& rs, const Best* warp_res, int i,
+    const EventFields& ev, int warp, int lane, long long* clk) {
+  const bool pinned = ev.pin >= 0;
+  if (warp != kRecWarp &&
+      (!kDecide || ev.kind != kCreate || pinned || a.rec_dec == nullptr))
+    return -1;  // only a decision's rescan takes the other warps
+  const long long t0 = clock_now();
+  const int nwarps = blockDim.x >> 5;
+  const int type = ev.type;
+  const size_t row = static_cast<size_t>(type) * a.n;
+  int node = -1;  // where a decision row was written
+  bool ok = false;
+  if (ev.kind == kCreate) {
+    if (!kDecide || a.rec_dec == nullptr) {  // whether, not where
+      ok = pinned ? ev.pin < a.n && a.feas[row + ev.pin] != 0
+                  : __any_sync(0xffffffffu, lane < nwarps &&
+                                                warp_res[lane].node != INT_MAX);
+    } else if constexpr (kDecide) {
+      int lo[kMaxPolicies];
+      int hi[kMaxPolicies];
+      Top3 top = no_top3();
+      int cnt = 0;
+      if (pinned) {
+        if (ev.pin < a.n && a.feas[row + ev.pin] != 0) {
+          uint32_t sum = 0;
+          for (int pi = 0; pi < a.n_pol; ++pi) {
+            const int r = a.score[(static_cast<size_t>(pi) * a.k + type) * a.n + ev.pin];
+            lo[pi] = r;
+            hi[pi] = r;
+            const int q = a.pol_norm[pi] != kNormNone
+                              ? normalize(r, r, r, a.pol_norm[pi]) : r;
+            sum += static_cast<uint32_t>(a.pol_weight[pi]) * static_cast<uint32_t>(q);
+          }
+          top.a = {static_cast<int>(sum), a.rank[ev.pin], ev.pin};
+          cnt = 1;
+        }
+      } else {
+        cnt = a.rec_fcnt[type];  // read first: nothing below waits on it
+        int s = 0;
+        for (int pi = 0; pi < a.n_pol; ++pi) {
+          if (a.pol_norm[pi] == kNormNone) continue;
+          lo[pi] = a.slo[s * a.k + type];
+          hi[pi] = a.shi[s * a.k + type];
+          ++s;
+        }
+        const Top3 blk = warp_top3(lane < nwarps ? rs.wtop[lane] : no_top3());
+        const int r = warp - kRecWarp;
+        const Best mine = r == 0 ? blk.a : r == 1 ? blk.b : blk.c;
+        const Top3 best = mine.node != INT_MAX
+                              ? block_top3<kGeneral>(a, type, mine.node, lane)
+                              : no_top3();
+        if (lane == 0) rs.btop[r] = best;
+        asm volatile("bar.sync %0, %1;" ::"n"(kRecordBarrier),
+                     "n"(32 * kTopK) : "memory");
+        if (warp != kRecWarp) return -1;
+        top = warp_top3(lane < kTopK ? rs.btop[lane] : no_top3());
+      }
+      node = top.a.node == INT_MAX ? -1 : top.a.node;
+      ok = node >= 0;
+      if (lane == 0)
+        write_decision<kLearned>(a, i, type, top, cnt, lo, hi, -1, true);
+    }
+  }
+  const long long t1 = clock_now();
+  if (lane == 0) {
+    record_count<kLearned>(a, rs, i, ev.kind, ok);
+    if (kClocked) {
+      clk[kClkDecide] += t1 - t0;
+      clk[kClkCount] += clock_now() - t1;
+    }
+  }
+  return node;
+}
+
+// Lane 0 of the record warp after create event i's commit barrier (the
+// kLearned record forms): each learned family policy that is a node
+// feature, at the committed `node` as the select saw it (es.node, the
+// state the commit left, with the pod's resources given back), into the
+// decision row.
+__device__ void record_features(const ReplayArgs& a, const EventState& es,
+                                int i, const EventFields& ev, int node) {
+  const int nf = a.fam_n;
+  bool any = false;
+  for (int j = 0; j < nf; ++j) any |= a.fam_src[j] < 0;
+  if (!any) return;
+  NodeView v = es.node;
+  const int bits = a.ev_devb[i];
+  v.cpu += ev.cpu;
+  v.mem += ev.mem;
+#pragma unroll
+  for (int d = 0; d < kDevs; ++d) v.g[d] += (bits >> d) & 1 ? ev.milli : 0;
+  int f[kNodeFeatures];
+  node_features(a, v, a.mem_cap[node], f);
+  int* row = a.rec_dec + static_cast<size_t>(i) * (kDecFixed + 2 * nf);
+  for (int j = 0; j < nf; ++j) {
+    const int pi = a.fam_src[j];
+    if (pi >= 0) continue;
+    row[kDecFixed + j] = f[-1 - pi];
+    row[kDecFixed + nf + j] = f[-1 - pi];
+  }
 }
 
 // The node column's rows (kLearnedNode) of every node under this launch's
@@ -3382,9 +3579,13 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
     }
 
     const EventFields ev = es.ev[(i / kEvBatch) & 1][i % kEvBatch];
+    int rec_node = -1;  // the record warp's: a create's decision row's node
     if constexpr (kRecord) {
-      if (a.rec_every > 0 && (rs->p0 + i) % a.rec_every == 0)
+      if (a.rec_every > 0 && (rs->p0 + i) % a.rec_every == 0) {
+        const long long t_s = clock_now();
         record_sample<kLearned>(a, *rs, i, ev.type);
+        pc.exclude(kClkSample, t_s);
+      }
     }
     if (ev.kind == kCreate) {
       const int type = ev.type;
@@ -3460,9 +3661,11 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
         pc.mark(kClkExtrema);
       }
       Best b = no_candidate();
-      if constexpr (kRecord) {
-        if (tid == 0) rs->pick = pick;
-      }
+      // the record form's decision: each thread's kTopK best and its
+      // feasible count, in the same pass
+      const bool track = kRecord && a.rec_dec != nullptr;
+      Top3 top = no_top3();
+      int cnt = 0;
       int from = 0;  // nodes below it are taken by the 16-byte loop
       if (!kGeneral && (a.n & 3) == 0) {
         // rows of whole int4s: four nodes a load (the FGD shape at scale)
@@ -3483,7 +3686,15 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
             const int node = 4 * q + e;
             const Best c = {static_cast<int>(w * static_cast<uint32_t>(ss[e])),
                             rs[e], node};
-            if (fs[e] != 0 && (pin < 0 || node == pin) && beats(c, b)) b = c;
+            if constexpr (kRecord) {
+              const bool take = track && fs[e] != 0 && (pin < 0 || node == pin);
+              cnt += take ? 1 : 0;
+              top3_push(top, c, take);
+            }
+            // under `track` the top-3's first is the best: b is not kept
+            if (!track && fs[e] != 0 && (pin < 0 || node == pin) &&
+                beats(c, b))
+              b = c;
           }
         }
         from = a.n;
@@ -3512,9 +3723,27 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
           total = static_cast<int>(sum);
         }
         const Best c = {total, a.rank[node], node};
-        if (f && beats(c, b)) b = c;
+        if (!track && f && beats(c, b)) b = c;
+        if constexpr (kRecord) {
+          cnt += track && f ? 1 : 0;
+          top3_push(top, c, track && f);
+        }
       }
-      b = warp_best(b);
+      if constexpr (kRecord) {
+        if (track) {  // the warp's three best: the best first
+          top = warp_top3(top);
+          b = top.a;
+          cnt = __reduce_add_sync(0xffffffffu, cnt);
+          if (lane == 0) {
+            rs->wtop[warp] = top;
+            rs->wcnt[warp] = cnt;
+          }
+        } else {
+          b = warp_best(b);
+        }
+      } else {
+        b = warp_best(b);
+      }
       if (lane == 0) warp_res[warp] = b;
       pc.sync();
       pc.mark(kClkSelect);
@@ -3525,10 +3754,22 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
             a, m, es, i, ev, node == INT_MAX ? -1 : node, gpu_sel, fgd_terms,
             n_pol, lane, fs, par, limit);
       }
-    } else if (warp == 0) {
-      end_event<kRandomized, kFaults, kLearned>(a, m, es, i, ev, -1, gpu_sel,
-                                                fgd_terms, n_pol, lane, fs,
-                                                par, limit);
+      if constexpr (kRecord) {
+        if (warp == kRecWarp)
+          rec_node = record_event<kLearned>(a, *rs, warp_res, warp_lo,
+                                            warp_hi, i, ev, pick, lane,
+                                            s_clk);
+      }
+    } else {
+      if (warp == 0)
+        end_event<kRandomized, kFaults, kLearned>(a, m, es, i, ev, -1,
+                                                  gpu_sel, fgd_terms, n_pol,
+                                                  lane, fs, par, limit);
+      if constexpr (kRecord) {
+        if (warp == kRecWarp)
+          record_event<kLearned>(a, *rs, warp_res, warp_lo, warp_hi, i, ev,
+                                 -1, lane, s_clk);
+      }
     }
     if constexpr (kLearned) {
       if (warp == 1 && has_node_column(a))
@@ -3542,11 +3783,9 @@ __device__ __forceinline__ void replay_body(const ReplayArgs& a) {
     pc.sync();
     pc.mark(kClkCommit);
     inert_step<kFaults>(a, fs, i, par, s_clk, t_step);
-    if constexpr (kRecord) {
-      if (ev.kind == kCreate && a.rec_dec != nullptr)
-        record_decision<kLearned>(a, *rs, warp_res, i, ev.type, ev.pin,
-                                  a.ev_node[i], false);
-      if (tid == 0) record_count<kLearned>(a, *rs, i, ev.kind);
+    if constexpr (kRecord && kLearned) {
+      if (warp == kRecWarp && lane == 0 && rec_node >= 0)
+        record_features(a, es, i, ev, rec_node);
     }
     if constexpr (kFaults) {
       i = fs->resume[par & 1];
@@ -3583,11 +3822,13 @@ __global__ void __launch_bounds__(kReplayThreads, 1) replay_kernel(ReplayArgs a)
 // weighted sum with each normalised policy s scaled against lo[s * ld],
 // hi[s * ld], and -INT_MAX where the type is infeasible; with `extrema`,
 // also each normalised policy's feasible raw min and max over the block.
-// Lane 0 writes them.
-template <bool kGeneral>
+// Lane 0 writes them. <kCount>: also adds the block's feasible nodes to
+// fcount[t] (null: not).
+template <bool kGeneral, bool kCount = false>
 __device__ void summarize_block(const ReplayArgs& a, int t, int c,
                                 const int* lo, const int* hi, int ld,
-                                bool extrema, int lane, const int* brank) {
+                                bool extrema, int lane, const int* brank,
+                                int* fcount = nullptr) {
   const int nblk = a.n / kBlock;
   int mn[kMaxPolicies];
   int mx[kMaxPolicies];
@@ -3596,6 +3837,7 @@ __device__ void summarize_block(const ReplayArgs& a, int t, int c,
     mx[s] = -INT_MAX;
   }
   Best b = no_candidate();
+  int feasible = 0;  // <kCount>
   for (int j = lane; j < kBlock; j += 32) {
     const int node = c * kBlock + j;
     const size_t i = static_cast<size_t>(t) * a.n + node;
@@ -3621,6 +3863,12 @@ __device__ void summarize_block(const ReplayArgs& a, int t, int c,
     }
     const Best cand = {f ? static_cast<int>(sum) : -INT_MAX, brank[j], node};
     if (beats(cand, b)) b = cand;
+    if constexpr (kCount) feasible += f ? 1 : 0;
+  }
+  if constexpr (kCount) {
+    feasible = __reduce_add_sync(0xffffffffu, feasible);
+    if (fcount != nullptr && lane == 0 && feasible != 0)
+      atomicAdd(fcount + t, feasible);
   }
   b = warp_best(b);
   if (kGeneral && extrema) {
@@ -3656,15 +3904,20 @@ __device__ void summarize_block(const ReplayArgs& a, int t, int c,
 // min (max) and moved inward, or the node became infeasible, they are
 // unknown. Those types, and those whose winner lost, are listed in
 // m.rescan for a warp's summarize_block. `rank_d` is the node's rank.
-template <bool kGeneral>
+// <kCount>: also keeps each type's feasible count fcount[t] (null: not).
+template <bool kGeneral, bool kCount = false>
 __device__ void update_summaries(const ReplayArgs& a, const Smem& m, int node,
-                                 int rank_d, int* n_rescan) {
+                                 int rank_d, int* n_rescan,
+                                 int* fcount = nullptr) {
   const int k_count = a.k;
   const int nblk = a.n / kBlock;
   const int c = node / kBlock;
   for (int t = threadIdx.x; t < k_count; t += blockDim.x) {
     const bool of = m.old_feas[t] != 0;
     const bool nf = m.new_feas[t] != 0;
+    if constexpr (kCount) {
+      if (fcount != nullptr && of != nf) fcount[t] += nf ? 1 : -1;
+    }
     bool rescan = false;
     uint32_t so = 0;
     uint32_t sn = 0;
@@ -3725,11 +3978,17 @@ __device__ void update_summaries(const ReplayArgs& a, const Smem& m, int node,
 // form, as replay_body's. A fault step touches one node, as an event does,
 // so the dirty node's block summaries stay the one update a step. kKeyOut
 // is the chunk form and kRecord the record form, as replay_body's (the
-// blocked decision row carries the winner's block).
+// blocked decision row carries the winner's block); kCountOnly, with
+// kRecord, the record form that takes neither decision rows nor series
+// samples (counters and heartbeat ticks alone: replay_blocked_records.cu
+// launches it for the paper's shape).
 template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
           bool kFaults = false, bool kKeyOut = false, bool kRecord = false,
-          bool kLearned = false>
+          bool kLearned = false, bool kCountOnly = false>
 __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
+  // the record form's decision rows and series samples (kCountOnly: its
+  // counters and heartbeat alone, without their code)
+  constexpr bool kDecide = kRecord && !kCountOnly;
   constexpr int kWarps = kReplayThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Best warp_res[kWarps];
@@ -3793,11 +4052,19 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
     }
     __syncthreads();
   }
+  // the record form's decisions: each type's feasible nodes, counted here
+  // and kept by each refresh (update_summaries); null: no decisions
+  int* const fcount = kDecide && a.rec_dec != nullptr ? a.rec_fcnt : nullptr;
+  if (fcount != nullptr) {
+    for (int t = tid; t < a.k; t += blockDim.x) fcount[t] = 0;
+    __syncthreads();
+  }
   for (int w = warp; w < a.k * nblk; w += nwarps) {
     const int t = w / nblk;
     const int c = w % nblk;
-    summarize_block<kGeneral>(a, t, c, a.slo + t, a.shi + t, a.k, false,
-                              lane, a.rank + c * kBlock);
+    summarize_block<kGeneral, kDecide>(a, t, c, a.slo + t, a.shi + t, a.k,
+                                       false, lane, a.rank + c * kBlock,
+                                       fcount);
   }
   if (tid == 0) {
     a.stats[0] = 0;  // waits and starts: the kernel issues no async copies
@@ -3850,8 +4117,8 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
       pc.sync();
       pc.finish_work(s_work, t_ref);
       pc.mark(kClkRefresh);
-      update_summaries<kGeneral>(a, m, dirty, s_rank[dirty % kBlock],
-                                 &s_rescans);
+      update_summaries<kGeneral, kDecide>(
+          a, m, dirty, s_rank[dirty % kBlock], &s_rescans, fcount);
       pc.sync();
       const int rescans = s_rescans;
       if (rescans > 0) {
@@ -3868,9 +4135,12 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
 
     const EventFields ev = es.ev[(i / kEvBatch) & 1][i % kEvBatch];
     const int type = ev.type;
-    if constexpr (kRecord) {
-      if (a.rec_every > 0 && (rs->p0 + i) % a.rec_every == 0)
+    if constexpr (kDecide) {
+      if (a.rec_every > 0 && (rs->p0 + i) % a.rec_every == 0) {
+        const long long t_s = clock_now();
         record_sample<kLearned>(a, *rs, i, type);
+        pc.exclude(kClkSample, t_s);
+      }
     }
     if (kGeneral && nn > 0) {
       // drift check, every event: the event type's current extrema (the
@@ -3918,18 +4188,34 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
       pc.mark(kClkDrift);
     }
 
+    int rec_node = -1;  // the record warp's: a create's decision row's node
     if (ev.kind == kCreate && ev.pin < 0) {
       // selectHost over the type's block summaries: valid blocks (a total
       // other than -INT_MAX), max total, then min rank, then min block
       const size_t row = static_cast<size_t>(type) * nblk;
       Best b = no_candidate();
-      for (int c = tid; c < nblk; c += blockDim.x) {
-        const int total = a.bt[row + c];
-        if (total == -INT_MAX) continue;
-        const Best cand = {total, a.br[row + c], c};
-        if (beats(cand, b)) b = cand;
+      if (kDecide && a.rec_dec != nullptr) {
+        // the record form's decision: each warp's three best blocks, the
+        // best first
+        Top3 top = no_top3();
+        for (int c = tid; c < nblk; c += blockDim.x) {
+          const int total = a.bt[row + c];
+          top3_push(top, {total, a.br[row + c], c}, total != -INT_MAX);
+        }
+        top = warp_top3(top);
+        b = top.a;
+        if constexpr (kDecide) {
+          if (lane == 0) rs->wtop[warp] = top;
+        }
+      } else {
+        for (int c = tid; c < nblk; c += blockDim.x) {
+          const int total = a.bt[row + c];
+          if (total == -INT_MAX) continue;
+          const Best cand = {total, a.br[row + c], c};
+          if (beats(cand, b)) b = cand;
+        }
+        b = warp_best(b);
       }
-      b = warp_best(b);
       if (lane == 0) warp_res[warp] = b;
       pc.sync();
       pc.mark(kClkSelect);
@@ -3940,13 +4226,26 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
             a, m, es, i, ev, blk == INT_MAX ? -1 : a.bn[row + blk], gpu_sel,
             fgd_terms, n_pol, lane, fs, par, limit);
       }
-    } else if (warp == 0) {
-      // a pinned pod has one candidate: its Filter bit decides
-      const bool ok = ev.kind == kCreate && ev.pin < a.n &&
-                      a.feas[static_cast<size_t>(type) * a.n + ev.pin] != 0;
-      end_event<false, kFaults, kLearned>(a, m, es, i, ev, ok ? ev.pin : -1,
-                                          gpu_sel, fgd_terms, n_pol, lane, fs,
-                                          par, limit);
+      if constexpr (kRecord) {
+        if (warp >= kRecWarp && warp < kRecWarp + (kDecide ? kTopK : 1))
+          rec_node = record_blocked_event<kGeneral, kLearned, kDecide>(
+              a, *rs, warp_res, i, ev, warp, lane, s_clk);
+      }
+    } else {
+      if (warp == 0) {
+        // a pinned pod has one candidate: its Filter bit decides
+        const bool ok = ev.kind == kCreate && ev.pin < a.n &&
+                        a.feas[static_cast<size_t>(type) * a.n + ev.pin] != 0;
+        end_event<false, kFaults, kLearned>(a, m, es, i, ev,
+                                            ok ? ev.pin : -1, gpu_sel,
+                                            fgd_terms, n_pol, lane, fs, par,
+                                            limit);
+      }
+      if constexpr (kRecord) {
+        if (warp == kRecWarp)
+          rec_node = record_blocked_event<kGeneral, kLearned, kDecide>(
+              a, *rs, warp_res, i, ev, warp, lane, s_clk);
+      }
     }
     if constexpr (kLearned) {
       if (warp == 1 && has_node_column(a))
@@ -3956,11 +4255,9 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
     pc.sync();
     pc.mark(kClkCommit);
     inert_step<kFaults>(a, fs, i, par, s_clk, t_step);
-    if constexpr (kRecord) {
-      if (ev.kind == kCreate && a.rec_dec != nullptr)
-        record_decision<kLearned>(a, *rs, warp_res, i, type, ev.pin,
-                                  a.ev_node[i], true);
-      if (tid == 0) record_count<kLearned>(a, *rs, i, ev.kind);
+    if constexpr (kRecord && kLearned) {
+      if (warp == kRecWarp && lane == 0 && rec_node >= 0)
+        record_features(a, es, i, ev, rec_node);
     }
     if constexpr (kFaults) {
       i = fs->resume[par & 1];
@@ -3979,11 +4276,11 @@ __device__ __forceinline__ void replay_blocked_body(const ReplayArgs& a) {
 
 template <bool kGeneral, bool kStaged = true, bool kAllColumns = true,
           bool kFaults = false, bool kKeyOut = false, bool kRecord = false,
-          bool kLearned = false>
+          bool kLearned = false, bool kCountOnly = false>
 __global__ void __launch_bounds__(kReplayThreads, 1)
     replay_blocked_kernel(ReplayArgs a) {
   replay_blocked_body<kGeneral, kStaged, kAllColumns, kFaults, kKeyOut,
-                      kRecord, kLearned>(a);
+                      kRecord, kLearned, kCountOnly>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -4693,6 +4990,13 @@ inline bool record_operands(const ReplayArgs* a) {
     return false;
   if (a->hb_ring != nullptr && a->hb_slots < 1) return false;
   return true;
+}
+
+// the blocked record forms': record_operands, and the type counts where
+// they take decisions
+inline bool blocked_record_operands(const ReplayArgs* a) {
+  return record_operands(a) &&
+         (a->rec_dec == nullptr || a->rec_fcnt != nullptr);
 }
 
 // Launches a replay kernel: the staged form (no scratch) with the dynamic

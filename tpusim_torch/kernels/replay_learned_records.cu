@@ -39,7 +39,7 @@ int replay_blocked_learned_record(const ReplayArgs* a, void* stream) {
   (void)stream;
   return static_cast<int>(cudaErrorNotSupported);
 #else
-  if (!record_operands(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!blocked_record_operands(a)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->key_out != nullptr)
     return launch_replay(

@@ -15,15 +15,18 @@
 // every record branch of the shared bodies is `if constexpr`, so that
 // their code is what it was.
 //
-// What bounds them: the plain forms' serial event chain, plus per create a
-// decision's four passes over the type's N entries (the extrema over the
-// pin-masked feasible nodes, then three rounds of selectHost's reduction
-// for the top-K, each masking the winners before it), and per sample two
+// A decision takes no pass of its own: the select's pass keeps each
+// thread's top-3 and feasible count, each warp merges its lanes', and the
+// record warp (kRecWarp) merges the warps' and writes the row beside warp
+// 0's commit, with the counters and heartbeat ticks (record_event). What
+// bounds them: the plain forms' serial event chain, plus per sample two
 // passes over N with each node's frag amounts over the T typical pods
 // (O(N T)); the heartbeat is one mapped store and a system fence a tick.
 //
 // The clocked build (TPUSIM_PHASE_CLOCKS), which only chip_smoke.py's
-// phase clocks load, has no record forms: its launcher refuses them.
+// phase clocks load, compiles nothing here: its launcher hands the paper's
+// shape to replay_records_clocked.cu's clocked instantiation and refuses
+// the others.
 //
 // Interface: plain C, bound with ctypes through replay.cu's entries; the
 // launchers return the CUDA error code of the launch and never
@@ -51,12 +54,14 @@ int launch_flat_record(const ReplayArgs* a, cudaStream_t s) {
 
 extern "C" {
 
+#ifdef TPUSIM_PHASE_CLOCKS
+int replay_record_clocked(const ReplayArgs* a, void* stream);
+#endif
+
 // replay's record form; the other checks are replay's
 int replay_record(const ReplayArgs* a, void* stream) {
 #ifdef TPUSIM_PHASE_CLOCKS
-  (void)stream;
-  (void)a;
-  return static_cast<int>(cudaErrorNotSupported);
+  return replay_record_clocked(a, stream);
 #else
   if (!record_operands(a)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

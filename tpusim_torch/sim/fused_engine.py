@@ -911,7 +911,8 @@ def prepare_replay(state: NodeState, pods: PodSpec, types: PodTypes,
 
         fields, finish_records = launch_fields(
             record, ev_kind.shape[0], len(cfg.fam), dev,
-            state.num_nodes if n_real is None else n_real)
+            state.num_nodes if n_real is None else n_real,
+            types.num_types if name.startswith("replay_blocked") else 0)
         ring = fields.pop("ring", None)
         extra.update(fields)
     if key_out:

@@ -191,12 +191,14 @@ RING_SLOTS = 1024
 
 
 def launch_fields(spec: RecordSpec, e: int, num_policies: int, device,
-                  n_real: int):
+                  n_real: int, num_types: int = 0):
     """The record form's ReplayArgs fields for `spec` over `e` events of a
     launch on `device` (`n_real` the cluster's nodes before any padding),
     and finish() giving its Records once the launch is queued. With a
     heartbeat, fields["ring"] is the kernels.MappedBuffer the caller's
-    RingTicker drains (its device pointer is fields["hb_ring"])."""
+    RingTicker drains (its device pointer is fields["hb_ring"]). With
+    decisions and `num_types` (the blocked form's), "rec_fcnt" is the
+    kernel's scratch of each type's feasible count."""
     ctr = start_counters(spec, device)
     fields = dict(ctr=ctr, rec_every=int(spec.series_every),
                   hb_every=int(spec.heartbeat_every), rec_nodes=int(n_real))
@@ -205,6 +207,9 @@ def launch_fields(spec: RecordSpec, e: int, num_policies: int, device,
         dec = torch.empty((e, dec_cols(num_policies)), dtype=torch.int32,
                           device=device)
         fields["rec_dec"] = dec
+        if num_types:
+            fields["rec_fcnt"] = torch.empty(num_types, dtype=torch.int32,
+                                             device=device)
     if spec.series_every:
         s = series_count(spec.processed, e, spec.series_every)
         ser = torch.empty((max(s, 1), ser_cols(num_policies)),
